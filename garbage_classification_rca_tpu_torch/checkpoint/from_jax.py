@@ -1,0 +1,89 @@
+"""Load a parameter tree in the JAX package's layout into a port model.
+
+The single path for weights: the tests hand over a JAX model's
+``(params, state)`` converted to numpy, and the port's ``convert_torch``
+builds the same numpy tree from a reference ``.pth`` first.
+
+The walk follows the tree: a dict key names a child module, parameter or
+buffer of the same name; a list indexes a ``ModuleList``. Leaves are
+converted by the kind of module that owns them: a ``Linear`` weight goes
+from ``[in, out]`` to ``[out, in]``, a ``Conv2d`` weight from HWIO to OIHW;
+everything else is copied as is. Shapes must match, and every parameter
+and buffer of the model must be filled.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nn import core
+
+
+def _convert(owner: nn.Module, name: str, a: np.ndarray) -> np.ndarray:
+    if name == "w" and isinstance(owner, core.Linear):
+        return a.T
+    if name == "w" and isinstance(owner, core.Conv2d):
+        return a.transpose(3, 2, 0, 1)
+    return a
+
+
+def _walk(module: nn.Module, tree, path: str, filled: set,
+          skipped: List[str]) -> None:
+    if isinstance(tree, (list, tuple)):
+        if not isinstance(module, nn.ModuleList) or len(module) != len(tree):
+            raise ValueError(f"{path}: list of {len(tree)} entries does not "
+                             f"match {type(module).__name__}")
+        for j, (m, sub) in enumerate(zip(module, tree)):
+            _walk(m, sub, f"{path}.{j}", filled, skipped)
+        return
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: leaf where a subtree was expected")
+    for key, sub in tree.items():
+        where = f"{path}.{key}" if path else key
+        child = getattr(module, key, None)
+        if isinstance(child, nn.Module):
+            _walk(child, sub, where, filled, skipped)
+        elif isinstance(child, torch.Tensor):
+            a = _convert(module, key, np.asarray(sub))
+            if tuple(a.shape) != tuple(child.shape):
+                raise ValueError(f"{where}: shape {tuple(a.shape)} (after "
+                                 f"layout conversion), model has "
+                                 f"{tuple(child.shape)}")
+            with torch.no_grad():
+                child.copy_(torch.from_numpy(np.array(a)))
+            filled.add(id(child))
+        else:
+            skipped.append(where)
+
+
+def load_jax_tree(model: nn.Module, params, state=None, *,
+                  allow_skipped: Optional[Iterable[str]] = None
+                  ) -> Tuple[nn.Module, List[str]]:
+    """Fill `model` from numpy trees in the JAX layout, in place.
+
+    Returns (model, skipped): the tree paths the model has no slot for
+    (e.g. heads of fusion strategies the port does not run). Raises when a
+    skipped path is not under one of `allow_skipped` (default: any path may
+    be skipped), on any shape mismatch, and when a parameter or buffer of
+    the model was not filled."""
+    filled: set = set()
+    skipped: List[str] = []
+    _walk(model, params, "", filled, skipped)
+    if state is not None:
+        _walk(model, state, "", filled, skipped)
+    if allow_skipped is not None:
+        allow = tuple(allow_skipped)
+        bad = [s for s in skipped
+               if not any(s == a or s.startswith(a + ".") for a in allow)]
+        if bad:
+            raise ValueError(f"tree entries with no slot in the model: {bad}")
+    missing = [n for n, t in list(model.named_parameters())
+               + list(model.named_buffers()) if id(t) not in filled]
+    if missing:
+        raise ValueError(f"{len(missing)} model tensors not in the tree "
+                         f"(first 8: {missing[:8]})")
+    return model, skipped

@@ -1,0 +1,123 @@
+"""Multimodal test-set evaluation CLI — the headline MM-RCA path.
+
+``python -m garbage_classification_rca_tpu_torch.cli.test_both
+  --late_fusion=MM_RCA --reverse --text_model=distilbert
+  --model_path=<ckpt.pth> --dataset_folder_name=<test-root>``
+builds the fusion model, loads the reference all-heads checkpoint, folds
+the image tower's BatchNorm (eps 1e-3), casts the weights to the compute
+dtype, evaluates with eval=True, and writes the confusion PNG + report CSV
+under ``test_set_reports/<late_fusion>/``. Same flags as the JAX package's
+``cli/test_both.py``; one device (the mesh / multi-host branches are not
+ported yet). Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+from ..checkpoint.torch_convert import load_torch_state_dict
+from ..config import (LATE_FUSION_STRATEGIES, MULTIMODAL_EVAL_BATCH,
+                      MULTIMODAL_IMAGE_SIZE, args_parser, torch_compute_dtype)
+from ..data.images import normalize_on_device
+from ..data.manifest import build_manifest
+from ..data.pipeline import ImageTextBatcher
+from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
+from ..device import resolve_device
+from ..eval.harness import run_eval
+from ..eval.report import generate_report_and_image
+from ..models.fusion.multimodal import (FusionConfig, check_config,
+                                        convert_torch, load_fusion_model)
+from ..nn.fold import fold_batchnorm
+from . import cli_device
+
+BASE_PATH = "./test_set_reports"
+
+
+def fusion_config_from_args(args) -> FusionConfig:
+    return FusionConfig(
+        strategy=args.late_fusion,
+        text_model_name=args.text_model,
+        reverse=args.reverse,
+        features_only=args.features_only,
+        cross_attention_only=args.cross_attention_only,
+    )
+
+
+def make_both_eval_step(model, compute_dtype):
+    def step(batch):
+        x = normalize_on_device(batch["image"], dtype=compute_dtype)
+        logits = model(batch["input_ids"], batch["attention_mask"], x,
+                       eval_mode=True)
+        preds = logits.float().argmax(dim=-1).to(torch.int32)
+        correct = ((preds == batch["label"]) * batch["valid"]).sum()
+        return preds, correct
+
+    return step
+
+
+def run_multimodal_eval(model, batcher, batch_size, device,
+                        compute_dtype=torch.bfloat16, progress=True,
+                        prefetch_depth=2):
+    step = make_both_eval_step(model, compute_dtype)
+    return run_eval(step, batcher, batch_size, device,
+                    keys=("image", "input_ids", "attention_mask", "label",
+                          "valid"), progress=progress,
+                    prefetch_depth=prefetch_depth)
+
+
+def main(argv=None):
+    args = args_parser(argv)
+    if args.model_path == "":
+        print("Please provide test model path")
+        sys.exit(0)   # exit code 0 is reference-faithful
+
+    if args.late_fusion not in LATE_FUSION_STRATEGIES:
+        print("Wrong late fusion strategy: ", args.late_fusion)
+        raise SystemExit(1)
+    cfg = fusion_config_from_args(args)
+    check_config(cfg)
+    device = resolve_device(cli_device())
+    if os.path.isdir(args.model_path):
+        raise SystemExit("orbax checkpoint directories are not read by the "
+                         "PyTorch port yet (ROADMAP.md); pass a reference "
+                         ".pth")
+    params, state = convert_torch(load_torch_state_dict(args.model_path), cfg)
+    model = load_fusion_model(params, state, cfg, device=device)
+    fold_batchnorm(model.image, 1e-3)   # EffNetV2 bn eps
+    model.to(torch_compute_dtype(args.param_dtype or args.compute_dtype))
+
+    manifest = build_manifest(args.dataset_folder_name,
+                              extended_desc=args.extended_desc_val)
+    print(f"Num of test images: {len(manifest)}")
+    tok = get_tokenizer(args.text_model, vocab_dir=resolve_vocab_dir(args))
+    batch_size = max(1, min(args.eval_batch_size or MULTIMODAL_EVAL_BATCH,
+                            len(manifest)))
+    batcher = ImageTextBatcher(
+        manifest, MULTIMODAL_IMAGE_SIZE, tokenizer=tok,
+        seq_len=args.seq_len or DEFAULT_SEQ_LEN,
+        extended_desc=args.extended_desc_val is not None,
+        workers=args.data_workers)
+    try:
+        acc, labels, preds, stats = run_multimodal_eval(
+            model, batcher, batch_size, device,
+            torch_compute_dtype(args.compute_dtype),
+            prefetch_depth=args.prefetch_depth)
+    finally:
+        batcher.close()
+
+    tag = args.late_fusion
+    print(f"\nsamples checked for test: {stats['n']}")
+    print(f"eval throughput: {stats['samples_per_s']:.1f} samples/s")
+    report = generate_report_and_image(
+        labels, preds, acc, os.path.join(BASE_PATH, tag), tag, kind="both")
+    print(f"Test accuracy: {acc:.2f} %")
+    print("Test Report:")
+    print(report)
+    return acc
+
+
+if __name__ == "__main__":
+    main()

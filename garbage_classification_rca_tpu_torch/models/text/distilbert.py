@@ -1,0 +1,76 @@
+"""DistilBERT encoder (eval only): word + position embeddings ->
+LayerNorm (eps 1e-12) -> post-norm layers (12 heads, GELU FFN 3072).
+
+``encode`` runs as many layers as the model holds; ``convert_encoder``
+reads as many as the HF checkpoint holds, into the JAX tree layout.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...nn import core
+from .encoder_common import PostNormLayer, lin, ln_, postnorm_layer, strip_prefix
+
+HIDDEN = 768
+LAYERS = 6
+HEADS = 12
+FFN = 3072
+VOCAB = 30522
+MAX_POS = 512
+LN_EPS = 1e-12
+
+
+class DistilBertEncoder(nn.Module):
+    def __init__(self, layers: int = LAYERS, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.word_emb = core.Embedding(VOCAB, HIDDEN, generator=generator)
+        self.pos_emb = core.Embedding(MAX_POS, HIDDEN, generator=generator)
+        self.ln_emb = core.LayerNorm(HIDDEN, LN_EPS)
+        self.layers = nn.ModuleList(
+            PostNormLayer(HIDDEN, FFN, LN_EPS, generator=generator)
+            for _ in range(layers))
+
+
+def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
+           attention_mask: torch.Tensor) -> torch.Tensor:
+    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L]."""
+    pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+    h = model.word_emb(input_ids) + model.pos_emb(pos)[None]
+    h = model.ln_emb(h)
+    for lp in model.layers:
+        h = postnorm_layer(lp, h, attention_mask, HEADS)
+    return h
+
+
+def convert_encoder(sd) -> dict:
+    """HF DistilBertModel state dict (optionally under a ``distilbert.`` /
+    ``model.`` / ``text_model.`` prefix) -> the JAX tree layout."""
+    sd = strip_prefix(sd, "distilbert.", "model.", "text_model.")
+    n_layers = len({m.group(1) for k in sd
+                    for m in [re.match(r"transformer\.layer\.(\d+)\.", k)]
+                    if m})
+    p = {
+        "word_emb": {"w": sd["embeddings.word_embeddings.weight"]},
+        "pos_emb": {"w": sd["embeddings.position_embeddings.weight"]},
+        "ln_emb": ln_(sd, "embeddings.LayerNorm"),
+        "layers": [],
+    }
+    for i in range(n_layers):
+        pre = f"transformer.layer.{i}."
+        p["layers"].append({
+            "q": lin(sd, pre + "attention.q_lin"),
+            "k": lin(sd, pre + "attention.k_lin"),
+            "v": lin(sd, pre + "attention.v_lin"),
+            "out": lin(sd, pre + "attention.out_lin"),
+            "ln_att": ln_(sd, pre + "sa_layer_norm"),
+            "fc1": lin(sd, pre + "ffn.lin1"),
+            "fc2": lin(sd, pre + "ffn.lin2"),
+            "ln_ffn": ln_(sd, pre + "output_layer_norm"),
+        })
+    return p

@@ -1,0 +1,156 @@
+"""Layer primitives of the port: functions on tensors plus the small
+``nn.Module``s that hold their weights.
+
+Weights are stored in torch's layouts (linear ``[out, in]``, conv OIHW);
+``checkpoint/from_jax.py`` transposes the JAX package's ``[in, out]`` /
+HWIO trees into them. Parameter names follow the JAX trees' leaf names
+(``w``/``b``, ``scale``/``bias``, ``mean``/``var``) so that one generic
+walk loads any model.
+
+Numerics follow the JAX package's ``nn/core.py``: LayerNorm, BatchNorm,
+global pooling and L2 normalisation compute in fp32 and cast back; a
+linear or conv casts its weights to the activation dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _uniform(shape, fan_in: int, generator: Optional[torch.Generator]):
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# functions
+# ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w.T + b`` with the weights cast to x's dtype."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in fp32."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def embedding(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, w)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NC mean over the spatial axes, accumulated in fp32."""
+    return x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 0.0) -> torch.Tensor:
+    """``x / ||x||`` in fp32. With ``eps`` a (near-)zero vector maps to 0
+    (the double-where form of the JAX package: no 0/0 anywhere)."""
+    xf = x.float()
+    if not eps:
+        return (xf / torch.linalg.vector_norm(xf, dim=dim,
+                                              keepdim=True)).to(x.dtype)
+    sumsq = (xf * xf).sum(dim=dim, keepdim=True)
+    is_zero = sumsq <= eps * eps
+    n = torch.sqrt(torch.where(is_zero, torch.ones_like(sumsq), sumsq))
+    return torch.where(is_zero, torch.zeros_like(xf), xf / n).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# weight holders
+# ---------------------------------------------------------------------------
+
+
+class Linear(nn.Module):
+    """torch.nn.Linear's default init: U(+-1/sqrt(fan_in))."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w = nn.Parameter(_uniform((d_out, d_in), d_in, generator))
+        self.b = (nn.Parameter(_uniform((d_out,), d_in, generator))
+                  if bias else None)
+
+    def forward(self, x):
+        return linear(x, self.w, self.b)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x):
+        return layernorm(x, self.scale, self.bias, self.eps)
+
+
+class Embedding(nn.Module):
+    def __init__(self, n: int, d: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w = nn.Parameter(torch.randn((n, d), generator=generator) * 0.02)
+
+    def forward(self, ids):
+        return embedding(self.w, ids)
+
+
+class Conv2d(nn.Module):
+    """OIHW conv with torch's default init; stride/padding/groups are
+    given per call, as the JAX block code decides them."""
+
+    def __init__(self, kh: int, kw: int, c_in: int, c_out: int, *,
+                 groups: int = 1, bias: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fan_in = kh * kw * (c_in // groups)
+        self.w = nn.Parameter(_uniform((c_out, c_in // groups, kh, kw),
+                                       fan_in, generator))
+        self.b = (nn.Parameter(_uniform((c_out,), fan_in, generator))
+                  if bias else None)
+
+    def forward(self, x, *, stride=1, padding=0, groups=1):
+        return F.conv2d(x, self.w.to(x.dtype),
+                        None if self.b is None else self.b.to(x.dtype),
+                        stride=stride, padding=padding, groups=groups)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over NCHW channels, computed in fp32 (the JAX
+    ``batchnorm(train=False)`` formula). Running stats are buffers."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x, eps: float):
+        inv = torch.rsqrt(self.var.float() + eps) * self.scale.float()
+        shift = self.bias.float() - self.mean.float() * inv
+        y = x.float() * inv[:, None, None] + shift[:, None, None]
+        return y.to(x.dtype)

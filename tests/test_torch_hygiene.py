@@ -1,0 +1,154 @@
+"""PyTorch port, package rules and host copies: the port imports neither
+jax nor the JAX package; its entry points raise without CUDA unless the
+caller asks for the CPU; its own copies of the host modules (config,
+tokenizer, manifest, batcher, normalization) behave exactly like the JAX
+package's originals."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from garbage_classification_rca_tpu import config as jconfig
+from garbage_classification_rca_tpu.data import images as jimages
+from garbage_classification_rca_tpu.data import manifest as jmanifest
+from garbage_classification_rca_tpu.data import pipeline as jpipeline
+from garbage_classification_rca_tpu.data import tokenizer as jtokenizer
+from garbage_classification_rca_tpu_torch import config as tconfig
+from garbage_classification_rca_tpu_torch import device as tdevice
+from garbage_classification_rca_tpu_torch.data import images as timages
+from garbage_classification_rca_tpu_torch.data import manifest as tmanifest
+from garbage_classification_rca_tpu_torch.data import pipeline as tpipeline
+from garbage_classification_rca_tpu_torch.data import tokenizer as ttokenizer
+from garbage_classification_rca_tpu_torch.kernels import mha_fused, rca_fused
+from garbage_classification_rca_tpu_torch.models.fusion import multimodal as tmm
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+VOCAB = ROOT / "tests" / "fixtures" / "vocab" / "wordpiece"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import garbage_classification_rca_tpu_torch as pkg
+import chip_smoke
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+new = set(sys.modules) - before
+bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib",
+             "garbage_classification_rca_tpu"))
+print(len(names))
+print(bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    n, bad = out.stdout.strip().splitlines()[-2:]
+    assert int(n) >= 20          # every module of the port was imported
+    assert bad == "[]", bad
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("GC_RCA_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmm.build_fusion_model(tmm.FusionConfig())
+    from garbage_classification_rca_tpu_torch.cli import test_both
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_both.main(["--late_fusion=MM_RCA", "--model_path=x.pth"])
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    t = torch.empty(2, 16, 48, device="meta")
+    i = torch.empty(2, 16, 80, device="meta")
+    p = tmm.FusionModel.__new__(tmm.FusionModel)
+    torch.nn.Module.__init__(p)
+    from garbage_classification_rca_tpu_torch.ops.attention import (
+        AttentionUnit)
+
+    for name, g in zip(rca_fused.UNITS, rca_fused._GEOM):
+        setattr(p, name, AttentionUnit(*g).to("meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rca_fused.rca_fused(p, t, i, reverse=True)
+    q = torch.empty(2, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        mha_fused.mha(q, q, q, heads=4)
+
+
+@pytest.mark.parametrize("script", sorted((ROOT / "scripts" / "reference")
+                                          .glob("*/*.sh")),
+                         ids=lambda s: s.stem)
+def test_reference_launcher_flags_parse_like_jax(script):
+    flags = [ln.strip().rstrip("\\").strip()
+             for ln in script.read_text().splitlines()
+             if ln.strip().startswith("--")]
+    want = dataclasses.asdict(jconfig.args_parser(flags))
+    assert dataclasses.asdict(tconfig.args_parser(flags)) == want
+
+
+def test_compute_dtype_mapping():
+    assert tconfig.torch_compute_dtype("bfloat16") is torch.bfloat16
+    assert tconfig.torch_compute_dtype("float32") is torch.float32
+
+
+def test_tokenizers_match_jax():
+    texts = ["coffee cup", "greasy pizza box with sauce", "", "UNKNOWNWORD!",
+             "water bottle " * 40]
+    for name in ("distilbert", "bert", "gpt2"):
+        tt = ttokenizer.get_tokenizer(name, vocab_dir=str(VOCAB))
+        jt = jtokenizer.get_tokenizer(name, vocab_dir=str(VOCAB))
+        for seq in (16, 64):
+            a, b = tt.encode_batch(texts, seq), jt.encode_batch(texts, seq)
+            assert np.array_equal(a.input_ids, b.input_ids)
+            assert np.array_equal(a.attention_mask, b.attention_mask)
+
+
+def test_batcher_matches_jax(tiny_dataset, monkeypatch):
+    """The port keeps the JAX package's PIL + pad + cv2-resize route (its
+    fallback when the optional native library is absent); the JAX side is
+    pinned to that route here."""
+    from garbage_classification_rca_tpu import native
+
+    monkeypatch.setattr(native, "pad_resize_batch", lambda *a, **k: None)
+    monkeypatch.setattr(native, "decode_enabled", lambda: False)
+    tm = tmanifest.build_manifest(str(tiny_dataset))
+    jm = jmanifest.build_manifest(str(tiny_dataset))
+    assert [dataclasses.astuple(s) for s in tm.samples] == \
+        [dataclasses.astuple(s) for s in jm.samples]
+    tok = ttokenizer.get_tokenizer("distilbert", vocab_dir=str(VOCAB))
+    jtok = jtokenizer.get_tokenizer("distilbert", vocab_dir=str(VOCAB))
+    tb = tpipeline.ImageTextBatcher(tm, (64, 48), tokenizer=tok, workers=2)
+    jb = jpipeline.ImageTextBatcher(jm, (64, 48), tokenizer=jtok, workers=2)
+    got = list(tb.iter_batches(5))
+    want = list(jb.iter_batches(5))
+    tb.close()
+    jb.close()
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+
+
+def test_normalize_and_to_device_match_jax():
+    x = np.random.default_rng(0).integers(0, 256, (2, 8, 8, 3), np.uint8)
+    want = np.asarray(jimages.normalize_on_device(jnp.asarray(x)))
+    batches = list(tpipeline.to_device(iter([{"image": x}]), "cpu"))
+    got = timages.normalize_on_device(batches[0]["image"],
+                                      dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert timages.normalize_on_device(
+        batches[0]["image"], dtype=torch.bfloat16).dtype == torch.bfloat16
