@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~1 minute
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~4 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
   2. build: nvcc compiles every csrc/*.cu for sm_90a, one process per
      source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the main path's shapes and edge cases, with the tolerances below;
+     at the main paths' shapes and edge cases, with the tolerances below;
      kernel / plain / library-call times from CUDA graphs timed with CUDA
      events after a warm-up (median of 5);
-  4. model: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
+  4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
-     launch counters read around that run; logits against the same model
-     on the plain versions; samples/s, p50 batch latency, peak memory.
+     launch counters zeroed before and read after that run; logits against
+     the same model on the plain versions; samples/s, p50 batch latency,
+     peak memory;
+  5. train: the MM_RCA.sh recipe at full width (fp32 master weights, bf16
+     images, batch 16 x acc_steps 10, SGD lr 0.0016 reg 0.03, class
+     weights, augmentation p=1.0, head dropout 0.6, stochastic depth) —
+     three optimizer steps all trainable and one with the phase-1 mask,
+     launch counters read around them (per microbatch: K1 1, K3 1, K4a 6,
+     K4b 6); steps/s, samples/s, peak memory, a profiler breakdown; one
+     microbatch's loss and gradients on the kernel path against the plain
+     path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
+     epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
+     BEST checkpoint.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -23,16 +34,28 @@ no result line, when CUDA is absent or any phase fails.
 
 Tolerances (kernel vs plain version, same inputs, same card):
   * fp32: rca_fused |d| <= 2e-5 + 2e-5|x| (the JAX package's bar for this
-    kernel); mha |d| <= 1e-5 + 1e-5|x|. Both compute in fp32 and differ only
-    in summation order.
+    kernel); mha and mha_fwd_lse |d| <= 1e-5 + 1e-5|x|. They compute in
+    fp32 and differ only in summation order. The backward kernels
+    (rca_fused_bwd, mha_flash_bwd): |d| <= 5e-5 (1 + |x|), the JAX
+    package's backward bar.
   * bf16: |d| <= one bf16 ulp of the value + 1e-5 (rca_fused: fp32 math,
     one final rounding that may land on either neighbour) and + 1e-3 for
     mha (its softmax weights are rounded to bf16 before the PV product,
     and a weight that rounds to the neighbouring bf16 value moves the
-    output by at most its ulp times |v|).
-  * model, bf16: argmax agreement >= 0.98 and max |logit difference|
+    output by at most its ulp times |v|); gradients: one ulp + 2e-3 of
+    the tensor's largest |x| (a rounded dS element moves every sum it
+    enters by about its ulp).
+  * eval model, bf16: argmax agreement >= 0.98 and max |logit difference|
     <= 0.05 between the kernel path and the plain path; fp32 (TF32 off):
     max |logit difference| <= 1e-4 and equal argmax.
+  * train microbatches (``compare_train_paths``, three of them): fp32
+    images, TF32 off, the loss within 1e-5 relative and every gradient
+    within 1e-4 of its tensor's largest |g|; bf16 images, the loss within
+    1e-3 relative and every gradient's cosine >= 0.999 (>= 0.998 in the
+    bf16 image tower, whose gradients move that far when the RCA block's
+    di moves by one bf16 ulp in a few elements — measured in the same run);
+    biases whose gradient is rounding noise around an exact zero are held
+    to their sibling weight's scale.
 """
 
 from __future__ import annotations
@@ -157,6 +180,20 @@ def check_rca(device, report):
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if dtype == torch.bfloat16 and b == 128 and reverse:
                     main = (p, t, i, err)
+    # the training path's mixed input: t fp32 (text tower), i bf16 (image
+    # tower), fp32 weights; outputs in t's dtype
+    p32 = _rca_params(torch.float32, device, gen)
+    t = torch.randn((16, 16, 48), generator=gen).to(device)
+    i = torch.randn((16, 16, 80), generator=gen).to(device, torch.bfloat16)
+    got = K.rca_fused(p32, t, i, reverse=True)
+    torch.cuda.synchronize()
+    want = K.rca_fused_reference(p32, t, i, reverse=True)
+    errs = [max_err_ok(g, w, torch.float32, "rca") for g, w in zip(got, want)]
+    ok = all(o for _, o in errs) and got[0].dtype == torch.float32
+    ok_all &= ok
+    print(f"  rca_fused t float32 i bfloat16 B= 16 reverse=True : max|d|="
+          f"{max(e for e, _ in errs):.3e} {'ok' if ok else 'FAIL'}",
+          flush=True)
     p, t, i, err = main
     ms, ms_lo, ms_hi = time_ms(lambda: K.rca_fused(p, t, i, reverse=True))
     plain_ms, p_lo, p_hi = time_ms(
@@ -164,7 +201,7 @@ def check_rca(device, report):
     b = t.shape[0]
     flops = 2867200 * b                      # per sample, see csrc note
     nbytes = (t.numel() + i.numel() + 2 * b * 16 * 48) * t.element_size() \
-        + 78848 * p.sa_txt.q.w.element_size()
+        + K.N_WEIGHTS * p.sa_txt.q.w.element_size()
     bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
     bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     report["rca_fused"] = {
@@ -250,6 +287,192 @@ def check_mha(device, report):
     return ok_all
 
 
+def grad_err_ok(got, want, dtype):
+    """(max |d|, ok) for a gradient: |d| <= 5e-5 (1 + |x|) in fp32 (the
+    JAX package's backward bar), and one ulp of the value + 2e-3 of the
+    tensor's largest |x| in bf16 (a product input rounded to the
+    neighbouring bf16 value moves the sum by about its ulp)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if dtype == torch.float32:
+        tol = 5e-5 * (1.0 + w.abs())
+    else:
+        tol = bf16_ulp(torch.maximum(g.abs(), w.abs())) \
+            + 2e-3 * float(w.abs().max())
+    finite = bool(torch.isfinite(g).all())
+    return float(d.max()), finite and bool((d <= tol).all())
+
+
+def rca_bwd_flops(b):
+    """Operations of the block's backward with its forward recomputed, per
+    the csrc note: 8,601,600 per sample."""
+    return 8601600 * b
+
+
+def check_rca_bwd(device, report):
+    """K3 against the autograd of the plain version: B=16 (the train
+    microbatch) and a ragged 13, (t fp32, i bf16) as training gives them
+    and all fp32, reverse on and off."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import rca_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    p = _rca_params(torch.float32, device, gen)
+    ok_all, main = True, None
+    for i_dtype in (torch.bfloat16, torch.float32):
+        for b in (16, 13):
+            t = torch.randn((b, 16, 48), generator=gen).to(device)
+            i = torch.randn((b, 16, 80), generator=gen).to(device, i_dtype)
+            g = [torch.randn((b, 16, 48), generator=gen).to(device)
+                 for _ in range(2)]
+            for reverse in (True, False):
+                got = K.rca_fused_bwd(p, t, i, *g, reverse=reverse)
+                torch.cuda.synchronize()
+                want = K.rca_fused_bwd_reference(p, t, i, *g,
+                                                 reverse=reverse)
+                pairs = [(got[0], want[0], t.dtype), (got[1], want[1], i_dtype)]
+                pairs += [(a, c, torch.float32)
+                          for a, c in zip(got[2], want[2])]
+                errs = [grad_err_ok(a, c, dt) for a, c, dt in pairs]
+                err = max(e for e, _ in errs)
+                ok = all(o for _, o in errs)
+                ok_all &= ok
+                print(f"  rca_fused_bwd i={str(i_dtype)[6:]:8s} B={b:3d} "
+                      f"reverse={reverse!s:5s}: max|d|={err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if i_dtype == torch.bfloat16 and b == 16 and reverse:
+                    main = (t, i, g, err)
+    t, i, g, err = main
+    ms, ms_lo, ms_hi = time_ms(lambda: K.rca_fused_bwd(p, t, i, *g,
+                                                       reverse=True))
+    plain_ms, p_lo, p_hi = time_ms(
+        lambda: K.rca_fused_bwd_reference(p, t, i, *g, reverse=True))
+    b = t.shape[0]
+    nbytes = (t.numel() * 4 * 2 + i.numel() * i.element_size() * 2
+              + sum(a.numel() * 4 for a in g) + 2 * K.N_WEIGHTS * 4)
+    bound_ops = rca_bwd_flops(b) / PEAK_FLOPS["float32"] * 1e3
+    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    report["rca_fused_bwd"] = {
+        "name": "rca_fused_bwd", "route": "cuda",
+        "source": "garbage_classification_rca_tpu_torch/csrc/rca_fused.cu",
+        "replaces": "garbage_classification_rca_tpu/kernels/rca_fused.py:219",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None}
+    print(f"  rca_fused_bwd B=16 t fp32 i bf16 (median of 5 [min, max]): "
+          f"kernel {ms:.4f} [{ms_lo:.4f}, {ms_hi:.4f}] ms, plain "
+          f"{plain_ms:.4f} [{p_lo:.4f}, {p_hi:.4f}] ms, bound "
+          f"{report['rca_fused_bwd']['bound_ms']:.4f} ms", flush=True)
+    return ok_all
+
+
+def _efficient_attention(q, k, v, bias, h):
+    """The library's memory-efficient attention on [B, N, D] tensors:
+    (out and lse in its own layout, the rest of its outputs)."""
+    import torch
+
+    b, n, d = q.shape
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        rs(q), rs(k), rs(v), bias, True)
+
+
+def check_mha_train(device, report):
+    """K4a and K4b against their plain versions: (16, 64, 768, 12 heads),
+    the DistilBERT training shape, and N=512, fp32 (the training dtype)
+    and bf16, random key lengths, and a causal case."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    ok_all, main = True, {}
+    cases = [(16, 64, 768, 12, False), (4, 512, 768, 12, False),
+             (6, 100, 768, 12, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d, h, causal in cases:
+            q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device,
+                                                                  dtype)
+                           for _ in range(4))
+            m = _mask(b, n, gen, device)
+            o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=m, causal=causal)
+            torch.cuda.synchronize()
+            o_w, lse_w = K.mha_fwd_lse_reference(q, k, v, heads=h, mask=m,
+                                                 causal=causal)
+            e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
+            e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
+            grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h, mask=m,
+                                    causal=causal)
+            torch.cuda.synchronize()
+            want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h,
+                                             mask=m, causal=causal)
+            errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
+            e_b = max(e for e, _ in errs)
+            ok = ok_o and ok_l and all(o_ for _, o_ in errs)
+            ok_all &= ok
+            print(f"  mha_fwd_lse/mha_flash_bwd {str(dtype)[6:]:8s} B={b:3d} "
+                  f"N={n:3d} causal={causal!s:5s}: fwd max|d|={e_o:.3e} "
+                  f"lse {e_l:.3e} bwd {e_b:.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if dtype == torch.float32 and (b, n) == (16, 64):
+                main = dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o, lse=lse,
+                            e_f=max(e_o, e_l), e_b=e_b)
+    q, k, v, do, m, h = (main[x] for x in ("q", "k", "v", "do", "m", "h"))
+    o, lse = main["o"], main["lse"]
+    b, n, d = q.shape
+    ms_f, f_lo, f_hi = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h,
+                                                     mask=m))
+    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h,
+                                                      mask=m))[0]
+    ms_b, b_lo, b_hi = time_ms(lambda: K.mha_flash_bwd(
+        q, k, v, o, do, lse, heads=h, mask=m))
+    plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
+        q, k, v, o, do, lse, heads=h, mask=m))[0]
+    bias = ((m.float() - 1.0) * 1e30)[:, None, None, :].expand(
+        b, h, n, n).contiguous()
+    lib = _efficient_attention(q, k, v, bias, h)
+    lib_f = time_ms(lambda: _efficient_attention(q, k, v, bias, h))[0]
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    lib_b = time_ms(lambda: torch.ops.aten.
+                    _scaled_dot_product_efficient_attention_backward(
+                        rs(do), rs(q), rs(k), rs(v), bias, lib[0], lib[1],
+                        lib[2], lib[3], 0.0, [True, True, True, False]))[0]
+    item = q.element_size()
+    flops_f = 4 * b * n * n * d
+    bytes_f = 4 * q.numel() * item + m.numel() * 4 + b * h * n * 4
+    flops_b = 10 * b * n * n * d      # S, dP, dV, dQ, dK
+    bytes_b = 8 * q.numel() * item + m.numel() * 4 + b * h * n * 4
+    for name, ms, plain, lib_ms, flops, nbytes, err, line in (
+            ("mha_fwd_lse", ms_f, plain_f, lib_f, flops_f, bytes_f,
+             main["e_f"], 274),
+            ("mha_flash_bwd", ms_b, plain_b, lib_b, flops_b, bytes_b,
+             main["e_b"], 317)):
+        bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        report[name] = {
+            "name": name, "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
+            "replaces": f"garbage_classification_rca_tpu/kernels/mha_fused.py:"
+                        f"{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": lib_ms}
+    print(f"  mha_fwd_lse B=16 N=64 D=768 fp32 (median of 5 [min, max]): "
+          f"kernel {ms_f:.4f} [{f_lo:.4f}, {f_hi:.4f}] ms, plain "
+          f"{plain_f:.4f} ms, efficient attention {lib_f:.4f} ms, bound "
+          f"{report['mha_fwd_lse']['bound_ms']:.4f} ms", flush=True)
+    print(f"  mha_flash_bwd B=16 N=64 D=768 fp32: kernel {ms_b:.4f} "
+          f"[{b_lo:.4f}, {b_hi:.4f}] ms, plain {plain_b:.4f} ms, efficient "
+          f"attention backward {lib_b:.4f} ms, bound "
+          f"{report['mha_flash_bwd']['bound_ms']:.4f} ms", flush=True)
+    return ok_all
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model
 # ---------------------------------------------------------------------------
@@ -290,19 +513,26 @@ class SyntheticBatcher:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's kernel call sites to the plain versions."""
+    """Route the model's kernel call sites to the plain versions (eval and
+    train; the plain versions are differentiable by autograd)."""
     from garbage_classification_rca_tpu_torch.kernels import mha_fused
     from garbage_classification_rca_tpu_torch.kernels import rca_fused
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
     from garbage_classification_rca_tpu_torch.models.text import encoder_common
 
-    saved = (encoder_common.mha, multimodal.rca_fused)
-    encoder_common.mha = mha_fused.mha_reference
-    multimodal.rca_fused = rca_fused.rca_fused_reference
+    sites = ((encoder_common, "mha", mha_fused.mha_reference),
+             (encoder_common, "mha_flash_train", mha_fused.mha_reference),
+             (multimodal, "rca_fused", rca_fused.rca_fused_reference),
+             (multimodal, "rca_fused_trainable",
+              rca_fused.rca_fused_reference))
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        encoder_common.mha, multimodal.rca_fused = saved
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
 
 
 def _randomize_bn(model, gen):
@@ -330,7 +560,7 @@ def _logits(model, batch, dtype, device):
                                 dtype=dtype)
         ids = torch.from_numpy(batch["input_ids"]).to(device)
         mask = torch.from_numpy(batch["attention_mask"]).to(device)
-        return model(ids, mask, x, eval_mode=True).float()
+        return model(ids, mask, x).float()
 
 
 def _kind(name: str) -> str:
@@ -339,9 +569,13 @@ def _kind(name: str) -> str:
         return "rca_fused kernel"
     if "mha_kernel" in n:
         return "mha kernel"
+    if "rca_bwd" in n:
+        return "rca_fused_bwd kernel"
+    if "mha_bwd" in n:
+        return "mha_flash_bwd kernels"
     if "memcpy" in n or "memset" in n:
         return "copies"
-    if "conv" in n or "fprop" in n:
+    if "conv" in n or "fprop" in n or "dgrad" in n or "wgrad" in n:
         return "convolutions"
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "cublas" in n:
         return "matmuls"
@@ -403,8 +637,6 @@ def check_model(device, n_batches, batch_size, results):
         run_multimodal_eval)
     from garbage_classification_rca_tpu_torch.data.tokenizer import (
         WordPieceTokenizer)
-    from garbage_classification_rca_tpu_torch.kernels import mha_fused
-    from garbage_classification_rca_tpu_torch.kernels import rca_fused
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
     from garbage_classification_rca_tpu_torch.nn.fold import fold_batchnorm
 
@@ -448,16 +680,15 @@ def check_model(device, n_batches, batch_size, results):
                         batch_size, device, dtype, progress=False)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    rca_fused.rca_fused.launches = 0
-    mha_fused.mha.launches = 0
+    _zero_counters()
     acc, labels, preds, stats = run_multimodal_eval(
         model, data, batch_size, device, dtype, progress=False)
     torch.cuda.synchronize()
-    launches = {"rca_fused": rca_fused.rca_fused.launches,
-                "mha": mha_fused.mha.launches}
+    launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(device)
     results["launches"] = launches
-    want = {"rca_fused": n_batches, "mha": 6 * n_batches}
+    want = {"rca_fused": n_batches, "mha": 6 * n_batches,
+            "rca_fused_bwd": 0, "mha_fwd_lse": 0, "mha_flash_bwd": 0}
     ok &= launches == want and len(preds) == n_batches * batch_size
     print(f"  launches over {n_batches} batches: {launches} (want {want})",
           flush=True)
@@ -502,6 +733,535 @@ def check_model(device, n_batches, batch_size, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the MM-RCA train path
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, ACC_STEPS = 16, 10        # the MM_RCA.sh recipe
+TRAIN_IMAGE = 480
+TRAIN_LAUNCHES = {"rca_fused": 1, "rca_fused_bwd": 1, "mha_fwd_lse": 6,
+                  "mha_flash_bwd": 6, "mha": 0}     # per microbatch
+
+
+def _counters():
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused
+    from garbage_classification_rca_tpu_torch.kernels import rca_fused
+
+    return {"rca_fused": rca_fused.rca_fused, "mha": mha_fused.mha,
+            "rca_fused_bwd": rca_fused.rca_fused_bwd,
+            "mha_fwd_lse": mha_fused.mha_fwd_lse,
+            "mha_flash_bwd": mha_fused.mha_flash_bwd}
+
+
+def _zero_counters():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counters():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _train_stack(tok, acc, batch, seed, device):
+    """[acc, B, ...] device stack of synthetic 480x480 uint8 images and
+    WordPiece texts, labels over the 4 classes, every sample valid."""
+    import numpy as np
+    import torch
+
+    data = SyntheticBatcher(acc * batch, batch, (TRAIN_IMAGE, TRAIN_IMAGE),
+                            tok, 64, seed)
+    return {k: torch.from_numpy(np.stack([b[k] for b in data.batches])).to(
+        device) for k in data.batches[0]}
+
+
+def _microbatch_grads(model, cfg, mb, image_dtype, key, class_weights):
+    """One microbatch's loss and {name: grad} through the model's current
+    call sites (kernels or plain versions), the recipe's augmentation,
+    head dropout and class weights."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.train.loss import (
+        cross_entropy_loss_and_weight)
+
+    k_in, k_model = key.split(2)
+    for p in model.parameters():
+        p.grad = None
+    with torch.enable_grad():
+        x = augment_batch(mb["image"], 1.0, k_in.generator(mb["image"].device))
+        logits = model(mb["input_ids"], mb["attention_mask"],
+                       normalize_on_device(x, dtype=image_dtype),
+                       train=True, key=k_model)
+        loss, _ = cross_entropy_loss_and_weight(logits, mb["label"],
+                                                class_weights, 0.0,
+                                                mb["valid"])
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def exact_zero_grads(model):
+    """Names of the parameters whose gradient is zero in exact arithmetic,
+    so that both paths give rounding noise there: every attention key bias
+    (softmax ignores a per-row constant), and the ``project.bn.bias`` of a
+    block without residual whose output reaches the loss only through 1x1
+    convs each followed by a train-mode BN (which removes a per-channel
+    constant; a 3x3 conv's zero padding would not): the first block of an
+    "mb" stage followed by "mb" blocks or the head. A residual block's
+    ``project.bn.bias`` joins them whenever stochastic depth keeps every
+    sample of the batch."""
+    names = {n for n, _ in model.named_parameters() if n.endswith("k.b")}
+    stages = model.image_cfg.stages
+    for si, (btype, _, _, stride, c_in, c_out, n) in enumerate(stages):
+        nxt = stages[si + 1][0] if si + 1 < len(stages) else "mb"
+        if btype == "mb" and (stride != 1 or c_in != c_out) and (
+                n > 1 or nxt == "mb"):
+            names.add(f"image.stages.{si}.0.project.bn.bias")
+    return names
+
+
+def _sibling(name):
+    """The weight a bias that may be rounding noise is sized against."""
+    return name[:-1] + "w" if name.endswith("k.b") else name[:-4] + "scale"
+
+
+GRAD_CHECK_SEEDS = 3          # microbatches (and draws) the paths are held on
+# bf16 limits of compare_train_paths. The image tower's and the noise
+# biases' are about twice the largest gap that the "one_ulp" noise floor
+# gave on the H100 (lowest image-tower cosine 0.99891, largest noise-bias
+# ratio 0.0189, over three microbatches; PERF.md, PR 2 findings)
+BF16_COS = 0.999              # cosine, every gradient outside the image tower
+BF16_COS_IMAGE = 0.998        # cosine, the image tower
+BF16_NOISE_BIAS = 4e-2        # |d| / max(|g|, sibling |g|)max, noise biases
+
+
+def _bf16_bits(x):
+    """(sign bit, magnitude bits) of a bf16 tensor, as int32."""
+    import torch
+
+    b = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    return b & 0x8000, b & 0x7FFF
+
+
+def _ulp_steps(a, b):
+    """(How many bf16 ulps `a` lies from `b`, counted on the magnitude;
+    whether their signs agree)."""
+    sa, ma = _bf16_bits(a)
+    sb, mb = _bf16_bits(b)
+    return ma - mb, (sa == sb) | ((ma == 0) & (mb == 0))
+
+
+def _move_ulps(x, steps):
+    """bf16 `x` with each magnitude moved by `steps` ulps, kept finite."""
+    import torch
+
+    s, m = _bf16_bits(x)
+    bits = s | (m + steps).clamp(0, 0x7F7F)
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
+        torch.int16).view(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def di_tap(store, replace=None):
+    """Route the model's RCA call site (kernel or plain, whichever is set)
+    through an identity on its image input i that, on the way back, hands
+    on ``replace(di)`` when given (else di) and records it in
+    ``store["di"]``."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+
+    class _Tap(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, i):
+            return i.view_as(i)
+
+        @staticmethod
+        def backward(ctx, g):
+            if replace is not None:
+                g = replace(g)
+            store["di"] = g.detach().clone()
+            return g
+
+    inner = multimodal.rca_fused_trainable
+    multimodal.rca_fused_trainable = (
+        lambda p, t, i, **kw: inner(p, t, _Tap.apply(i), **kw))
+    try:
+        yield
+    finally:
+        multimodal.rca_fused_trainable = inner
+
+
+def _grad_scores(ga, gb, fp32, exact_zero):
+    """Gradients `ga` against `gb` (the plain path's), name by name:
+    (scores, biases, zeros, finite). scores: (value, name) — fp32 the
+    largest |d| over the tensor's largest |g|, bf16 the cosine (1 - that
+    ratio for a tensor whose gradient is below 1e-6 of the model's largest,
+    held to that floor); biases: |d| / max(own, sibling |g|max) of the
+    biases that may be rounding noise; zeros: |g| / sibling |g|max of those
+    zero in exact arithmetic, the larger over both paths."""
+    import torch
+
+    mx = {n: float(g.abs().max()) for n, g in gb.items()}
+    floor = 1e-6 * max(mx.values())
+    scores, biases, zeros, finite = [], [], [], True
+    for n in gb:
+        finite &= bool(torch.isfinite(ga[n]).all())
+        d = float((ga[n] - gb[n]).abs().max())
+        if n.endswith(("k.b", "project.bn.bias")):
+            sib = max(mx[_sibling(n)], floor)
+            biases.append((d / max(mx[n], sib), n))
+            if n in exact_zero:
+                zeros.append((max(mx[n], float(ga[n].abs().max())) / sib, n))
+        elif fp32 or mx[n] < floor:
+            r = d / max(mx[n], floor)
+            scores.append((r if fp32 else 1.0 - r, n))
+        else:
+            scores.append((float(torch.nn.functional.cosine_similarity(
+                ga[n].flatten().double(), gb[n].flatten().double(), dim=0)),
+                n))
+    scores.sort(reverse=fp32)
+    biases.sort(reverse=True)
+    zeros.sort(reverse=True)
+    return scores, biases, zeros, finite
+
+
+def _worst(xs, image=None, k=3):
+    """The first `k` (value, name) of a sorted list, optionally only the
+    image tower's (image=True) or only the rest (image=False)."""
+    if image is not None:
+        xs = [x for x in xs if x[1].startswith("image.") == image]
+    return [(float(f"{v:.5g}"), n) for v, n in xs[:k]]
+
+
+def compare_train_paths(model, cfg, stack, class_weights, results):
+    """Kernel path against plain path, same weights and same draws,
+    deterministic cuDNN, on GRAD_CHECK_SEEDS microbatches with their own
+    draws. fp32 images with TF32 off: the loss within 1e-5 relative, every
+    gradient within 1e-4 of its tensor's largest |g|. bf16 images: the loss
+    within 1e-3 relative, each gradient's cosine >= BF16_COS, >=
+    BF16_COS_IMAGE in the image tower. A tensor whose gradient is below
+    1e-6 of the model's largest is held to that floor instead of its own
+    size (1e-4 in fp32, 1e-2 in bf16). The biases that may be rounding
+    noise (key biases, ``project.bn.bias``) are held, to 1e-4 in fp32 and
+    BF16_NOISE_BIAS in bf16, to the larger of their own and their sibling
+    weight's largest |g|; those zero in exact arithmetic
+    (``exact_zero_grads``) must also stay below 0.1 of that sibling's on
+    both paths.
+
+    The image tower's bf16 gradients come out of a 57-block bf16 backward
+    fed by the RCA block's di, which K3 and the plain version each round to
+    bf16 from fp32 sums taken in different orders. Two more plain-path runs
+    per microbatch size that: "kernel_di" hands the image tower K3's own di
+    (its gradients should then match the kernel path's), and "one_ulp"
+    moves the plain di by one bf16 ulp, up or down, at random elements, as
+    many as K3's di differs in (its cosines against the plain path are the
+    noise floor of a di that is right to one rounding). They are reported,
+    not judged."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    ok = True
+    exact_zero = exact_zero_grads(model)
+    checks = {"fp32": [], "bf16": []}
+    # deterministic cuDNN algorithms: the two paths must differ only where
+    # the kernels do, not by the atomics of a convolution's backward
+    torch.backends.cudnn.deterministic = True
+    for seed in range(GRAD_CHECK_SEEDS):
+        mb = {k: v[seed] for k, v in stack.items()}
+        key = Key(SEED + 11 + seed)
+        for image_dtype in (torch.float32, torch.bfloat16):
+            fp32 = image_dtype == torch.float32
+            tag = "fp32" if fp32 else "bf16"
+            torch.backends.cudnn.allow_tf32 = not fp32
+            run = lambda: _microbatch_grads(model, cfg, mb, image_dtype, key,
+                                            class_weights)
+            dk, dp = {}, {}
+            with di_tap(dk):
+                lk, gk = run()
+            with plain_versions(), di_tap(dp):
+                lp, gp = run()
+            rel = abs(lk - lp) / max(abs(lp), 1e-30)
+            scores, biases, zeros, finite = _grad_scores(gk, gp, fp32,
+                                                         exact_zero)
+            row = {"seed": seed, "loss_kernel": lk, "loss_plain": lp,
+                   "loss_rel": rel, "worst_image": _worst(scores, True),
+                   "worst_rest": _worst(scores, False),
+                   "worst_noise_bias": _worst(biases),
+                   "exact_zero_worst": _worst(zeros)}
+            ok &= finite and lk == lk and rel <= (1e-5 if fp32 else 1e-3)
+            ok &= all(z <= 0.1 for z, _ in zeros)
+            ok &= all(r <= (1e-4 if fp32 else BF16_NOISE_BIAS)
+                      for r, _ in biases)
+            if fp32:
+                ok &= all(r <= 1e-4 for r, _ in scores)
+            else:
+                ok &= all(c >= (BF16_COS_IMAGE if n.startswith("image.")
+                                else BF16_COS) for c, n in scores)
+                steps, same = _ulp_steps(dk["di"], dp["di"])
+                differ = (steps != 0) | ~same
+                share = float(differ.float().mean())
+                row["di_share_differing"] = share
+                row["di_share_of_those_one_ulp"] = float(
+                    (same & (steps.abs() == 1)).sum()) / max(
+                        int(differ.sum()), 1)
+                row["di_ulps_max_same_sign"] = int(
+                    torch.where(same, steps.abs(), 0).max())
+                row["di_sign_flips"] = int((~same).sum())
+                g = torch.Generator(device=steps.device).manual_seed(
+                    SEED + 13 + seed)
+                u = torch.rand(steps.shape, generator=g, device=steps.device)
+                nudge = torch.where(u < share / 2, -1,
+                                    torch.where(u < share, 1, 0))
+                for what, replace in (
+                        ("kernel_di", lambda di: dk["di"]),
+                        ("one_ulp", lambda di: _move_ulps(di, nudge))):
+                    with plain_versions(), di_tap({}, replace):
+                        _, gx = run()
+                    ref = gk if what == "kernel_di" else gp
+                    s, b_, _, _ = _grad_scores(gx, ref, False, exact_zero)
+                    row[f"{what}_worst_image"] = _worst(s, True)
+                    row[f"{what}_worst_noise_bias"] = _worst(b_)
+                    del gx
+            print(f"  train microbatch {seed}, kernel vs plain, {tag} images:"
+                  f" {json.dumps(row)}", flush=True)
+            checks[tag].append(row)
+            del gk, gp
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    results["grad_check_fp32"] = checks["fp32"]
+    results["grad_check_bf16"] = checks["bf16"]
+    return ok
+
+
+def profile_train_step(step, stack, key, reps=1):
+    """torch.profiler over `reps` train steps: device time by kind of
+    kernel and the device's idle share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in range(reps):
+            float(step(stack, key.fold_in(r))[0])
+        wall = time.perf_counter() - t0
+    kinds, top, ops = {}, [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms = us / 1e3 / reps
+        kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + ms
+        ops += e.count
+        top.append((ms, e.count // reps, e.key.replace("void at::native::",
+                                                       "")[:160]))
+    busy = sum(kinds.values())
+    out = {"device_ms_per_step": busy, "wall_ms_per_step": wall * 1e3 / reps,
+           "idle_share": 1.0 - busy / (wall * 1e3 / reps),
+           "device_ops_per_step": ops // reps,
+           "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    print(f"  profile of one train step ({ACC_STEPS} microbatches): device "
+          f"{busy:.1f} ms, wall {out['wall_ms_per_step']:.1f} ms, idle share "
+          f"{out['idle_share']:.3f}, {out['device_ops_per_step']} device "
+          f"operations (kernels, copies, fills) launched", flush=True)
+    for k, ms in out["by_kind_ms"].items():
+        print(f"    {k:26s} {ms:9.2f} ms  {ms / busy:6.1%}", flush=True)
+    for ms, cnt, name in sorted(top, reverse=True)[:10]:
+        print(f"    top: {ms:9.2f} ms x{cnt:<5d} {name}", flush=True)
+    return out
+
+
+def check_train(device, results):
+    """The full-width train step: EffNetV2-M at 480x480, 6-layer DistilBERT
+    at seq 64, fp32 master weights, bf16 images, batch 16 x acc 10, SGD lr
+    0.0016 reg 0.03, class weights, augmentation at p=1.0, head dropout
+    0.6. Three optimizer steps all trainable and one with the phase-1
+    mask, launch counts per microbatch asserted; then the kernel path
+    against the plain path on one microbatch."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.main_both import (
+        fusion_head_mask)
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer)
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    ok = True
+    cfg = multimodal.FusionConfig(strategy="MM_RCA", reverse=True,
+                                  drop_ratio=0.6,
+                                  image_or_text_dropout_chance=0.0)
+    model = multimodal.build_fusion_model(
+        cfg, device=device, generator=torch.Generator().manual_seed(SEED + 8))
+    tok = WordPieceTokenizer.from_vocab_file(
+        "tests/fixtures/vocab/wordpiece/vocab.txt")
+    stack = _train_stack(tok, ACC_STEPS, TRAIN_BATCH, SEED + 9, device)
+    class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
+    dtype = torch.bfloat16
+
+    def batch_to_inputs(mb, key):
+        x = augment_batch(mb["image"], 1.0, key.generator(device))
+        return (mb["input_ids"], mb["attention_mask"],
+                normalize_on_device(x, dtype=dtype))
+
+    def make(trainable):
+        opt = make_optimizer("sgd", model.named_parameters(), 0.0016,
+                             0.03, trainable)
+        return make_train_step(model, opt, batch_to_inputs=batch_to_inputs,
+                               class_weights=class_weights)
+
+    step_all = make(None)
+    step_heads = make(fusion_head_mask(model))
+    key = Key(SEED + 10)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("text.layers.0.q", "image.stem", "rca_ti",
+                               "final_with_everything"))}
+    float(step_all(stack, key.fold_in(100))[0])     # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_counters()
+    t0 = time.perf_counter()
+    losses, norms = [], []
+    for s, step in enumerate((step_all, step_all, step_all, step_heads)):
+        loss, mb_losses, nrm = step(stack, key.fold_in(s))
+        losses.append(float(loss))
+        norms.append({k: float(v) for k, v in nrm.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    n_mb = 4 * ACC_STEPS
+    want = {k: v * n_mb for k, v in TRAIN_LAUNCHES.items()}
+    ok &= launches == want
+    print(f"  launches over 4 steps x {ACC_STEPS} microbatches: {launches} "
+          f"(want {want})", flush=True)
+    changed = {n: bool((p.detach() != before[n]).any())
+               for n, p in model.named_parameters() if n in before}
+    finite = all(l == l and abs(l) < float("inf") for l in losses)
+    ok &= finite and all(changed.values())
+    steps_per_s = 4 / wall
+    print(f"  4 optimizer steps in {wall:.2f} s: {steps_per_s:.3f} steps/s, "
+          f"{steps_per_s * ACC_STEPS * TRAIN_BATCH:.1f} train samples/s; "
+          f"peak memory {peak / 2**30:.2f} GiB; losses {losses}; grad norms "
+          f"{[round(n['grad_norm'], 4) for n in norms]}; params changed "
+          f"{changed}", flush=True)
+    results["train"] = {"steps_per_s": steps_per_s,
+                        "samples_per_s": steps_per_s * ACC_STEPS * TRAIN_BATCH,
+                        "step_ms": wall / 4 * 1e3, "peak_mem_gib": peak / 2**30,
+                        "losses": losses, "norms": norms,
+                        "batch": TRAIN_BATCH, "acc_steps": ACC_STEPS}
+    results["train_launches"] = launches
+    results["train"]["profile"] = profile_train_step(step_all, stack,
+                                                     key.fold_in(200))
+    ok &= compare_train_paths(model, cfg, stack, class_weights, results)
+    del model, stack
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _write_jpeg_tree(root, n_train, n_val, seed):
+    """A 4-class tree ``<root>_Train`` / ``<root>_Val`` of 480x480 JPEGs
+    whose file names carry the text."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    words = {"black": "coffee cup", "blue": "water bottle",
+             "green": "banana peel", "ttr": "battery pack"}
+    for split, n in (("_Train", n_train), ("_Val", n_val)):
+        for c, (cls, text) in enumerate(words.items()):
+            d = os.path.join(root + split, cls)
+            os.makedirs(d, exist_ok=True)
+            for j in range(n // 4):
+                arr = rng.integers(0, 256, (480, 480, 3), dtype=np.uint8)
+                arr[..., c % 3] //= 2
+                Image.fromarray(arr).save(
+                    os.path.join(d, f"{text.replace(' ', '_')}_{j}.jpg"),
+                    quality=90)
+
+
+def check_cli(device, results):
+    """``cli.main_both`` with the MM_RCA.sh flags for 1 + 1 epochs on a
+    synthetic 480x480 tree (64 train, 32 val), then ``cli.test_both``'s
+    evaluation on its BEST checkpoint (its report step writes a seaborn
+    PNG and a pandas CSV, packages the card's machine lacks); both in this
+    process, in a work directory of the checkout, deleted afterwards."""
+    import glob
+    import json as _json
+    import os
+    import shutil
+
+    from garbage_classification_rca_tpu_torch.cli import main_both, test_both
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _write_jpeg_tree(os.path.join(work, "garbage"), 64, 32, SEED + 12)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        best = main_both.main([
+            "--dataset_folder_name=garbage", "--late_fusion=MM_RCA",
+            "--ft_epochs=1", "--epochs=1", "--prob_aug=1.00",
+            "--acc_steps=10", "--acc_steps_FT=10", "--opt=sgd",
+            "--text_model=distilbert", "--fraction_lr=3",
+            "--image_text_dropout=0.0", "--balance_weights", "--reg=0.03",
+            "--lr=0.0016", "--reverse", f"--vocab_dir={vocab}"])
+        train_s = time.perf_counter() - t0
+        rows = [_json.loads(line) for f in glob.glob("runs/*.jsonl")
+                for line in open(f)]
+        bests = glob.glob("model_weights/MM_RCA_distilbert/BEST_*")
+        t0 = time.perf_counter()
+        acc, _, preds, _ = test_both.evaluate(args_parser([
+            "--late_fusion=MM_RCA", "--reverse", "--text_model=distilbert",
+            f"--model_path={best.best_path}",
+            "--dataset_folder_name=garbage_Val", f"--vocab_dir={vocab}",
+            "--eval_batch_size=16"]))
+        test_s = time.perf_counter() - t0
+        bests = [os.path.join(work, b) for b in bests]
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    ok = (len(rows) == 2 and all(r["avg_loss"] == r["avg_loss"]
+                                  for r in rows)
+          and {r["phase"] for r in rows} == {"train", "fine_tune"}
+          and all({"val_acc_image_only", "val_acc_text_only"} <= set(r)
+                  for r in rows)
+          and best.best_path in bests
+          and 0.0 <= acc <= 100.0 and len(preds) == 32)
+    print(f"  cli.main_both 1+1 epochs in {train_s:.1f} s: "
+          f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
+          f", BEST {os.path.basename(best.best_path or '')}; cli.test_both "
+          f"on it in {test_s:.1f} s: accuracy {acc:.2f} %", flush=True)
+    results["cli"] = {"train_s": train_s, "test_s": test_s, "rows": rows,
+                      "test_acc": acc}
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -515,7 +1275,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/4] device", flush=True)
+    print("[1/5] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -525,7 +1285,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/4] build", flush=True)
+    print("[2/5] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -538,35 +1298,55 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
 
-    print("[3/4] kernels vs plain versions", flush=True)
+    print("[3/5] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
         ok &= check_mha(device, report)
-    except Exception as e:  # noqa: BLE001 — reported, run fails
-        return _fail(f"kernels: {type(e).__name__}: {e}")
-    if not ok:
-        return _fail("a kernel disagrees with its plain version")
-
-    print("[4/4] MM-RCA eval path", flush=True)
-    results = {}
-    try:
-        ok = check_model(device, N_BATCHES, BATCH, results)
+        ok &= check_rca_bwd(device, report)
+        ok &= check_mha_train(device, report)
     except Exception as e:  # noqa: BLE001 — reported, run fails
         import traceback
 
         traceback.print_exc()
-        return _fail(f"model: {type(e).__name__}: {e}")
+        return _fail(f"kernels: {type(e).__name__}: {e}")
     if not ok:
-        return _fail("the MM-RCA eval path check failed")
-    launches = results["launches"]
+        return _fail("a kernel disagrees with its plain version")
+
+    results = {}
+    for title, check in (
+            ("[4/5] MM-RCA eval path",
+             lambda: check_model(device, N_BATCHES, BATCH, results)),
+            ("[5/5] MM-RCA train path: full-width train step",
+             lambda: check_train(device, results)),
+            ("[5/5] MM-RCA train path: cli.main_both -> cli.test_both",
+             lambda: check_cli(device, results))):
+        print(title, flush=True)
+        try:
+            ok = check()
+        except Exception as e:  # noqa: BLE001 — reported, run fails
+            import traceback
+
+            traceback.print_exc()
+            return _fail(f"{title}: {type(e).__name__}: {e}")
+        if not ok:
+            return _fail(f"{title}: check failed")
+    # launches on each kernel's own main path: the eval path for K1 / K2,
+    # the train path for K3 / K4a / K4b (K1 runs on both)
     kernels = []
-    for key in ("rca_fused", "mha"):
+    for key, path in (("rca_fused", "eval"), ("mha", "eval"),
+                      ("rca_fused_bwd", "train"), ("mha_fwd_lse", "train"),
+                      ("mha_flash_bwd", "train")):
         row = dict(report[key])
-        row["kernel_ms"] = row["ms"]
-        row["launches"] = launches[key]
+        row["launches"] = results[{"eval": "launches",
+                                   "train": "train_launches"}[path]][key]
+        row["launches_by_path"] = {"eval": results["launches"][key],
+                                   "train": results["train_launches"][key]}
         kernels.append(row)
-    print(json.dumps({"model": results["model"], "card": smi_line}))
+    print(json.dumps({"model": results["model"], "train": results["train"],
+                      "grad_checks": {k: results[k] for k in (
+                          "grad_check_fp32", "grad_check_bf16")},
+                      "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

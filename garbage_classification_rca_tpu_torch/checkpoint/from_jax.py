@@ -10,11 +10,15 @@ converted by the kind of module that owns them: a ``Linear`` weight goes
 from ``[in, out]`` to ``[out, in]``, a ``Conv2d`` weight from HWIO to OIHW;
 everything else is copied as is. Shapes must match, and every parameter
 and buffer of the model must be filled.
+
+``export_jax_tree`` goes the other way: every parameter and buffer of a
+model as ``{dotted tree path: numpy array in the JAX layout}``, so that a
+trained model can be compared with the JAX package's trees leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,3 +91,21 @@ def load_jax_tree(model: nn.Module, params, state=None, *,
         raise ValueError(f"{len(missing)} model tensors not in the tree "
                          f"(first 8: {missing[:8]})")
     return model, skipped
+
+
+def export_jax_tree(model: nn.Module) -> Dict[str, np.ndarray]:
+    """{dotted path (``image.stages.0.1.dw.conv.w``): numpy array} for every
+    parameter and buffer, in the JAX layouts (the inverse of the leaf
+    conversion above); bf16 tensors come out as fp32 arrays."""
+    out = {}
+    for name, t in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        a = t.detach().cpu().float().numpy()
+        if leaf == "w" and isinstance(owner, core.Linear):
+            a = a.T
+        elif leaf == "w" and isinstance(owner, core.Conv2d):
+            a = a.transpose(2, 3, 1, 0)
+        out[name] = a
+    return out

@@ -3,7 +3,8 @@
 ``python -m garbage_classification_rca_tpu_torch.cli.test_both
   --late_fusion=MM_RCA --reverse --text_model=distilbert
   --model_path=<ckpt.pth> --dataset_folder_name=<test-root>``
-builds the fusion model, loads the reference all-heads checkpoint, folds
+builds the fusion model, loads the reference all-heads checkpoint (or a
+BEST checkpoint written by the port's ``cli.main_both``), folds
 the image tower's BatchNorm (eps 1e-3), casts the weights to the compute
 dtype, evaluates with eval=True, and writes the confusion PNG + report CSV
 under ``test_set_reports/<late_fusion>/``. Same flags as the JAX package's
@@ -28,9 +29,11 @@ from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
 from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import generate_report_and_image
-from ..models.fusion.multimodal import (FusionConfig, check_config,
-                                        convert_torch, load_fusion_model)
+from ..models.fusion.multimodal import (FusionConfig, FusionModel,
+                                        check_config, convert_torch,
+                                        load_fusion_model)
 from ..nn.fold import fold_batchnorm
+from ..train.engine import load_checkpoint
 from . import cli_device
 
 BASE_PATH = "./test_set_reports"
@@ -40,17 +43,22 @@ def fusion_config_from_args(args) -> FusionConfig:
     return FusionConfig(
         strategy=args.late_fusion,
         text_model_name=args.text_model,
+        drop_ratio=args.model_dropout,
+        image_or_text_dropout_chance=args.image_text_dropout,
+        img_prob_dropout=args.image_prob_dropout,
         reverse=args.reverse,
         features_only=args.features_only,
         cross_attention_only=args.cross_attention_only,
+        hf_internal_dropout=args.hf_internal_dropout,
     )
 
 
-def make_both_eval_step(model, compute_dtype):
+def make_both_eval_step(model, compute_dtype, *, remove_image=False,
+                        remove_text=False):
     def step(batch):
         x = normalize_on_device(batch["image"], dtype=compute_dtype)
         logits = model(batch["input_ids"], batch["attention_mask"], x,
-                       eval_mode=True)
+                       remove_image=remove_image, remove_text=remove_text)
         preds = logits.float().argmax(dim=-1).to(torch.int32)
         correct = ((preds == batch["label"]) * batch["valid"]).sum()
         return preds, correct
@@ -68,12 +76,21 @@ def run_multimodal_eval(model, batcher, batch_size, device,
                     prefetch_depth=prefetch_depth)
 
 
-def main(argv=None):
-    args = args_parser(argv)
-    if args.model_path == "":
-        print("Please provide test model path")
-        sys.exit(0)   # exit code 0 is reference-faithful
+def load_model(path: str, cfg: FusionConfig, device) -> FusionModel:
+    """The unfolded model held by a BEST checkpoint of the port's trainer
+    or by a reference all-heads .pth, on `device`."""
+    payload = load_checkpoint(path)
+    if payload is None:
+        params, state = convert_torch(load_torch_state_dict(path), cfg)
+        return load_fusion_model(params, state, cfg, device=device)
+    model = FusionModel(cfg, text_layers=payload["meta"]["text_layers"])
+    model.load_state_dict(payload["state_dict"])
+    return model.to(device).eval()
 
+
+def evaluate(args):
+    """Build the model the flags name, load its weights, fold BN, and
+    evaluate the test folder: (acc %, labels, preds, stats)."""
     if args.late_fusion not in LATE_FUSION_STRATEGIES:
         print("Wrong late fusion strategy: ", args.late_fusion)
         raise SystemExit(1)
@@ -83,9 +100,8 @@ def main(argv=None):
     if os.path.isdir(args.model_path):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass a reference "
-                         ".pth")
-    params, state = convert_torch(load_torch_state_dict(args.model_path), cfg)
-    model = load_fusion_model(params, state, cfg, device=device)
+                         ".pth or a BEST checkpoint of the port's trainer")
+    model = load_model(args.model_path, cfg, device)
     fold_batchnorm(model.image, 1e-3)   # EffNetV2 bn eps
     model.to(torch_compute_dtype(args.param_dtype or args.compute_dtype))
 
@@ -101,13 +117,20 @@ def main(argv=None):
         extended_desc=args.extended_desc_val is not None,
         workers=args.data_workers)
     try:
-        acc, labels, preds, stats = run_multimodal_eval(
+        return run_multimodal_eval(
             model, batcher, batch_size, device,
             torch_compute_dtype(args.compute_dtype),
             prefetch_depth=args.prefetch_depth)
     finally:
         batcher.close()
 
+
+def main(argv=None):
+    args = args_parser(argv)
+    if args.model_path == "":
+        print("Please provide test model path")
+        sys.exit(0)   # exit code 0 is reference-faithful
+    acc, labels, preds, stats = evaluate(args)
     tag = args.late_fusion
     print(f"\nsamples checked for test: {stats['n']}")
     print(f"eval throughput: {stats['samples_per_s']:.1f} samples/s")

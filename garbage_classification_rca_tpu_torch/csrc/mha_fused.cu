@@ -1,7 +1,12 @@
-// Masked / causal multi-head attention forward for Hopper (sm_90a).
+// Masked / causal multi-head attention for Hopper (sm_90a): the eval
+// forward, the training forward that also writes the logsumexp, and the
+// flash training backward.
 //
-// Replaces: garbage_classification_rca_tpu/kernels/mha_fused.py::mha
-// (Pallas bodies `_kernel` / `_kernel_masked`). Per head h of D = H * dh:
+// mha_forward replaces garbage_classification_rca_tpu/kernels/mha_fused.py
+// ::mha (Pallas bodies `_kernel` / `_kernel_masked`). mha_forward_lse
+// replaces ::_mha_fwd_lse (body `_fwd_lse_kernel`): the same kernel, which
+// also writes lse = max + log(sum exp) [B, H, N] in fp32. Per head h of
+// D = H * dh:
 //   out = softmax(Q K^T * scale + (mask - 1) * 1e30) V,  causal: key > query
 //   gets -1e30. The softmax runs in fp32 with the row max subtracted; the
 //   weights are rounded to V's dtype before the PV product, which
@@ -21,6 +26,22 @@
 // exactly as the reference rounds them. The products run on the fp32 CUDA
 // cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles; moving them onto
 // the tensor cores (mma / wgmma) is later work.
+
+//
+// mha_flash_backward replaces ::_mha_flash_bwd (body `_bwd_kernel`): the
+// scores are recomputed from q, k and the saved lse, never stored in device
+// memory. With W = exp(S - lse) in fp32:
+//   Delta = rowsum(dO * O)  (fp32, from the stored O)
+//   dV = W^T dO  with W rounded to V's dtype
+//   dP = dO V^T,  dS = W * (dP - Delta) rounded to q's dtype
+//   dQ = dS K * scale,  dK = dS^T Q * scale   (fp32 accumulation)
+// the rounding points of the Pallas kernel, which keep bf16 parity. Two
+// kernels: one block per (32 query rows, head, sample) gives dQ and Delta;
+// then one block per (32 keys, head, sample) streams the queries through
+// shared memory in chunks of 64 and gives dK and dV. Nothing is summed
+// across blocks, so no atomics and the same gradients on every run. Bound,
+// as for the forward: device-memory bytes at the DistilBERT shapes; the
+// products run on the fp32 CUDA cores in this first version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,11 +78,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool LSE>
 __global__ void __launch_bounds__(THREADS)
     mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ mask,
-               T* __restrict__ o, int N, int D, float scale, int causal) {
+               T* __restrict__ o, float* __restrict__ lse, int N, int D,
+               float scale, int causal) {
   constexpr int LDH = DH + 1;    // odd stride: conflict-free column reads
   constexpr int CPT = DH / 16;   // output columns per thread in PV
   extern __shared__ float sm[];
@@ -134,6 +156,9 @@ __global__ void __launch_bounds__(THREADS)
     }
     sum = warp_sum(sum);
     for (int j = lane; j < N; j += 32) row[j] = round_to(row[j] / sum, v);
+    if (LSE && lane == 0 && q0 + r < N)
+      lse[(b * gridDim.y + h) * static_cast<size_t>(N) + q0 + r] =
+          mx + logf(sum);
   }
 
   // pass 2: out = W V, V streamed through the same chunk buffer
@@ -170,11 +195,11 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* mask, void* o, int B, int N, int D, int heads,
-                   float scale, int causal, cudaStream_t stream) {
+                   const int* mask, void* o, float* lse, int B, int N, int D,
+                   int heads, float scale, int causal, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((BQ + BK) * (DH + 1) + static_cast<size_t>(BQ) * N);
-  auto kern = mha_kernel<T, DH>;
+  auto kern = lse ? mha_kernel<T, DH, true> : mha_kernel<T, DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -182,26 +207,351 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((N + BQ - 1) / BQ, heads, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), N, D, scale,
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, N, D, scale,
       causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int* mask, void* o, int B, int N, int D,
-                     int heads, float scale, int causal, cudaStream_t s) {
-  switch (D / heads) {
-    case 32:
-      return launch<T, 32>(q, k, v, mask, o, B, N, D, heads, scale, causal, s);
-    case 64:
-      return launch<T, 64>(q, k, v, mask, o, B, N, D, heads, scale, causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, mask, o, B, N, D, heads, scale, causal,
-                            s);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// flash backward
+// ---------------------------------------------------------------------------
+
+constexpr int BKV = 32;  // keys per block of the dK / dV kernel
+constexpr int BQC = 64;  // queries per shared-memory chunk there
+
+__device__ __forceinline__ float key_bias(const int* mask, size_t b, int N,
+                                          int key) {
+  return mask ? (static_cast<float>(mask[b * N + key]) - 1.f) * 1e30f : 0.f;
+}
+
+// dQ and Delta for 32 query rows of one head of one sample; keys and values
+// stream through shared memory in chunks of 64.
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+    mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ o,
+                      const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const int* __restrict__ mask, T* __restrict__ dq,
+                      float* __restrict__ delta, int N, int D, float scale,
+                      int causal) {
+  constexpr int LDH = DH + 1;
+  constexpr int CPT = DH / 16;
+  extern __shared__ float sm[];
+  float* Qs = sm;                  // [BQ][LDH]
+  float* dOs = Qs + BQ * LDH;      // [BQ][LDH]
+  float* Ks = dOs + BQ * LDH;      // [BK][LDH]
+  float* Vs = Ks + BK * LDH;       // [BK][LDH]
+  float* dS = Vs + BK * LDH;       // [BQ][BK + 1]
+  float* L = dS + BQ * (BK + 1);   // [BQ]
+  float* Dl = L + BQ;              // [BQ]
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, H = gridDim.y;
+  const size_t b = blockIdx.z;
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const size_t base = b * N * static_cast<size_t>(D) + h * DH;
+  const size_t rbase = (b * H + h) * static_cast<size_t>(N);
+
+  for (int e = tid; e < BQ * DH; e += THREADS) {
+    const int r = e / DH, d = e - r * DH, n = q0 + r;
+    const size_t a = base + static_cast<size_t>(n) * D + d;
+    Qs[r * LDH + d] = n < N ? to_f(q[a]) : 0.f;
+    dOs[r * LDH + d] = n < N ? to_f(dout[a]) : 0.f;
   }
+  // Delta = rowsum(dO * O) in fp32; one warp per row
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int r = warp; r < BQ; r += THREADS / 32) {
+    const int n = q0 + r;
+    float s = 0.f;
+    if (n < N)
+      for (int d = lane; d < DH; d += 32) {
+        const size_t a = base + static_cast<size_t>(n) * D + d;
+        s = fmaf(to_f(dout[a]), to_f(o[a]), s);
+      }
+    s = warp_sum(s);
+    if (lane == 0) {
+      Dl[r] = s;
+      L[r] = n < N ? lse[rbase + n] : 0.f;
+      if (n < N) delta[rbase + n] = s;
+    }
+  }
+
+  float acc[4][CPT] = {};
+  for (int k0 = 0; k0 < N; k0 += BK) {
+    const int kn = min(BK, N - k0);
+    __syncthreads();
+    for (int e = tid; e < kn * DH; e += THREADS) {
+      const int r = e / DH, d = e - r * DH;
+      const size_t a = base + static_cast<size_t>(k0 + r) * D + d;
+      Ks[r * LDH + d] = to_f(k[a]);
+      Vs[r * LDH + d] = to_f(v[a]);
+    }
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int d = 0; d < DH; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(tr * 4 + i) * LDH + d];
+        ov[i] = dOs[(tr * 4 + i) * LDH + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tc + 16 * j) * LDH + d];
+        vv[j] = Vs[(tc + 16 * j) * LDH + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tc + 16 * j, key = k0 + c;
+      const float bias = c < kn ? key_bias(mask, b, N, key) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tr * 4 + i;
+        float ds = 0.f;
+        if (c < kn) {
+          float sv = s[i][j] * scale + bias;
+          if (causal && key > q0 + r) sv = NEG;
+          const float w = expf(sv - L[r]);
+          ds = round_to(w * (dp[i][j] - Dl[r]), q);
+        }
+        dS[r * (BK + 1) + c] = ds;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < kn; ++c) {
+      float dv[4], kv[CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[i] = dS[(tr * 4 + i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) kv[j] = Ks[c * LDH + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(dv[i], kv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + tr * 4 + i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      st(dq, base + static_cast<size_t>(n) * D + tc + 16 * j,
+         acc[i][j] * scale);
+  }
+}
+
+// dK and dV for 32 keys of one head of one sample; queries, dO, lse and
+// Delta stream through shared memory in chunks of 64.
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+    mha_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ mask, T* __restrict__ dk,
+                        T* __restrict__ dv, int N, int D, float scale,
+                        int causal) {
+  constexpr int LDH = DH + 1;
+  constexpr int CPT = DH / 16;
+  extern __shared__ float sm[];
+  float* Ks = sm;                    // [BKV][LDH]
+  float* Vs = Ks + BKV * LDH;        // [BKV][LDH]
+  float* Qs = Vs + BKV * LDH;        // [BQC][LDH]
+  float* dOs = Qs + BQC * LDH;       // [BQC][LDH]
+  float* WT = dOs + BQC * LDH;       // [BKV][BQC + 1]  W^T, V's dtype
+  float* dST = WT + BKV * (BQC + 1); // [BKV][BQC + 1]  dS^T, q's dtype
+  float* L = dST + BKV * (BQC + 1);  // [BQC]
+  float* Dl = L + BQC;               // [BQC]
+
+  const int k0 = blockIdx.x * BKV, h = blockIdx.y, H = gridDim.y;
+  const size_t b = blockIdx.z;
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const size_t base = b * N * static_cast<size_t>(D) + h * DH;
+  const size_t rbase = (b * H + h) * static_cast<size_t>(N);
+
+  for (int e = tid; e < BKV * DH; e += THREADS) {
+    const int r = e / DH, d = e - r * DH, n = k0 + r;
+    const size_t a = base + static_cast<size_t>(n) * D + d;
+    Ks[r * LDH + d] = n < N ? to_f(k[a]) : 0.f;
+    Vs[r * LDH + d] = n < N ? to_f(v[a]) : 0.f;
+  }
+  float kb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + tr * 4 + i;
+    kb[i] = key < N ? key_bias(mask, b, N, key) : 0.f;
+  }
+
+  float acck[4][CPT] = {}, accv[4][CPT] = {};
+  for (int c0 = 0; c0 < N; c0 += BQC) {
+    const int qn = min(BQC, N - c0);
+    __syncthreads();
+    for (int e = tid; e < qn * DH; e += THREADS) {
+      const int r = e / DH, d = e - r * DH;
+      const size_t a = base + static_cast<size_t>(c0 + r) * D + d;
+      Qs[r * LDH + d] = to_f(q[a]);
+      dOs[r * LDH + d] = to_f(dout[a]);
+    }
+    for (int r = tid; r < qn; r += THREADS) {
+      L[r] = lse[rbase + c0 + r];
+      Dl[r] = delta[rbase + c0 + r];
+    }
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int d = 0; d < DH; ++d) {
+      float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = Ks[(tr * 4 + i) * LDH + d];
+        vv[i] = Vs[(tr * 4 + i) * LDH + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = Qs[(tc + 16 * j) * LDH + d];
+        ov[j] = dOs[(tc + 16 * j) * LDH + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr * 4 + i, key = k0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tc + 16 * j, query = c0 + c;
+        float w = 0.f, ds = 0.f;
+        if (c < qn && key < N) {
+          float sv = s[i][j] * scale + kb[i];
+          if (causal && key > query) sv = NEG;
+          const float wf = expf(sv - L[c]);
+          w = round_to(wf, v);
+          ds = round_to(wf * (dp[i][j] - Dl[c]), q);
+        }
+        WT[r * (BQC + 1) + c] = w;
+        dST[r * (BQC + 1) + c] = ds;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < qn; ++c) {
+      float wv[4], sv[4], ov[CPT], qv[CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[i] = WT[(tr * 4 + i) * (BQC + 1) + c];
+        sv[i] = dST[(tr * 4 + i) * (BQC + 1) + c];
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        ov[j] = dOs[c * LDH + tc + 16 * j];
+        qv[j] = Qs[c * LDH + tc + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          accv[i][j] = fmaf(wv[i], ov[j], accv[i][j]);
+          acck[i][j] = fmaf(sv[i], qv[j], acck[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = k0 + tr * 4 + i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const size_t a = base + static_cast<size_t>(n) * D + tc + 16 * j;
+      st(dk, a, acck[i][j] * scale);
+      st(dv, a, accv[i][j]);
+    }
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       const int* mask, void* dq, void* dk, void* dv,
+                       float* delta, int B, int N, int D, int heads,
+                       float scale, int causal, cudaStream_t stream) {
+  constexpr int LDH = DH + 1;
+  const size_t smem_q =
+      sizeof(float) * ((2 * BQ + 2 * BK) * LDH + BQ * (BK + 1) + 2 * BQ);
+  const size_t smem_kv = sizeof(float) *
+      ((2 * BKV + 2 * BQC) * LDH + 2 * BKV * (BQC + 1) + 2 * BQC);
+  auto kq = mha_bwd_dq_kernel<T, DH>;
+  auto kkv = mha_bwd_dkdv_kernel<T, DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  kq<<<dim3((N + BQ - 1) / BQ, heads, B), THREADS, smem_q, stream>>>(
+      tq, tk, tv, static_cast<const T*>(o), tdo, lse, mask,
+      static_cast<T*>(dq), delta, N, D, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<dim3((N + BKV - 1) / BKV, heads, B), THREADS, smem_kv, stream>>>(
+      tq, tk, tv, tdo, lse, delta, mask, static_cast<T*>(dk),
+      static_cast<T*>(dv), N, D, scale, causal);
+  return cudaGetLastError();
+}
+
+// Calls CALL(T, DH) for the dtype code and head dim, or returns
+// cudaErrorInvalidValue.
+#define MHA_DISPATCH(DTYPE, DH, CALL)                             \
+  if ((DTYPE) == 0) {                                             \
+    if ((DH) == 32) return CALL(float, 32);                       \
+    if ((DH) == 64) return CALL(float, 64);                       \
+    if ((DH) == 128) return CALL(float, 128);                     \
+  } else if ((DTYPE) == 1) {                                      \
+    if ((DH) == 32) return CALL(__nv_bfloat16, 32);               \
+    if ((DH) == 64) return CALL(__nv_bfloat16, 64);               \
+    if ((DH) == 128) return CALL(__nv_bfloat16, 128);             \
+  }                                                               \
+  return cudaErrorInvalidValue;
+
+cudaError_t forward(const void* q, const void* k, const void* v,
+                    const int* mask, void* o, float* lse, int B, int N, int D,
+                    int heads, float scale, int causal, int dtype,
+                    cudaStream_t s) {
+  if (N <= 0 || N > 512 || heads <= 0 || D % heads)
+    return cudaErrorInvalidValue;
+#define FWD(T, DH) \
+  launch<T, DH>(q, k, v, mask, o, lse, B, N, D, heads, scale, causal, s)
+  MHA_DISPATCH(dtype, D / heads, FWD)
+#undef FWD
+}
+
+cudaError_t backward(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     const int* mask, void* dq, void* dk, void* dv,
+                     float* delta, int B, int N, int D, int heads,
+                     float scale, int causal, int dtype, cudaStream_t s) {
+  if (N <= 0 || heads <= 0 || D % heads) return cudaErrorInvalidValue;
+#define BWD(T, DH)                                                       \
+  launch_bwd<T, DH>(q, k, v, o, dout, lse, mask, dq, dk, dv, delta, B, N, \
+                    D, heads, scale, causal, s)
+  MHA_DISPATCH(dtype, D / heads, BWD)
+#undef BWD
 }
 
 }  // namespace
@@ -214,16 +564,38 @@ extern "C" int mha_forward(const void* q, const void* k, const void* v,
                            int heads, float scale, int causal, int dtype,
                            void* stream) {
   if (B <= 0) return 0;
-  if (N <= 0 || N > 512 || heads <= 0 || D % heads) return cudaErrorInvalidValue;
-  const int* m = static_cast<const int*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, m, o, B, N, D, heads, scale, causal, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, m, o, B, N, D, heads, scale,
-                                  causal, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask), o,
+                                  nullptr, B, N, D, heads, scale, causal,
+                                  dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// mha_forward that also writes lse [B, heads, N] (float32): the training
+// forward, whose lse the flash backward reads.
+extern "C" int mha_forward_lse(const void* q, const void* k, const void* v,
+                               const void* mask, void* o, void* lse, int B,
+                               int N, int D, int heads, float scale,
+                               int causal, int dtype, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask), o,
+                                  static_cast<float*>(lse), B, N, D, heads,
+                                  scale, causal, dtype,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// Flash backward of mha_forward_lse. dout: the output cotangent in q's
+// dtype; dq / dk / dv are written in q's dtype. `delta` is a float32
+// workspace of B * heads * N values. Any N >= 1. Returns cudaGetLastError().
+extern "C" int mha_flash_backward(const void* q, const void* k,
+                                  const void* v, const void* o,
+                                  const void* dout, const void* lse,
+                                  const void* mask, void* dq, void* dk,
+                                  void* dv, void* delta, int B, int N, int D,
+                                  int heads, float scale, int causal,
+                                  int dtype, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(backward(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<const int*>(mask), dq, dk, dv, static_cast<float*>(delta),
+      B, N, D, heads, scale, causal, dtype,
+      static_cast<cudaStream_t>(stream)));
 }

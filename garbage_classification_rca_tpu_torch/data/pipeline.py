@@ -31,9 +31,11 @@ from .tokenizer import BaseTokenizer
 
 
 def batch_indices(n: int, batch_size: int, *, shuffle: bool,
-                  seed: int = 0) -> List[np.ndarray]:
-    """Batch plan; the tail batch is padded later with valid=0."""
-    idx = np.arange(n)
+                  seed: int = 0, order: Optional[np.ndarray] = None
+                  ) -> List[np.ndarray]:
+    """Batch plan over ``order`` (default: 0..n-1), shuffled with `seed`
+    when asked; the tail batch is padded later with valid=0."""
+    idx = np.arange(n) if order is None else np.asarray(order)
     if shuffle:
         idx = np.random.default_rng(seed).permutation(idx)
     return [idx[start:start + batch_size]
@@ -88,11 +90,13 @@ class ImageTextBatcher:
         return batch
 
     def iter_batches(self, batch_size: int, *, shuffle: bool = False,
-                     seed: int = 0, prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+                     seed: int = 0, order: Optional[np.ndarray] = None,
+                     prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
         """Yield fixed-shape batches, preparing `prefetch` batches ahead on a
-        background thread."""
+        background thread. ``order``: the sample indices to batch (the
+        balanced sampler's draw); default all samples once."""
         plans = batch_indices(len(self.m), batch_size, shuffle=shuffle,
-                              seed=seed)
+                              seed=seed, order=order)
         q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         stop = threading.Event()
 

@@ -35,14 +35,32 @@ def confusion_matrix(labels: np.ndarray, preds: np.ndarray,
 
 def classification_report_dict(labels, preds,
                                target_names: Sequence[str] = CLASS_DISPLAY_NAMES):
-    """sklearn classification_report(output_dict=True) — sklearn runs
-    host-side on the gathered predictions, exactly like the reference."""
-    from sklearn.metrics import classification_report
+    """sklearn ``classification_report(output_dict=True, zero_division=0)``
+    over the labels 0..C-1, computed with numpy (the train CLI logs it on
+    machines without sklearn): per class precision, recall, f1-score =
+    2 tp / (true + pred) and support, then accuracy and the macro and
+    support-weighted averages — sklearn's formulas, all as Python floats."""
+    y = np.asarray(labels).astype(np.int64)
+    p = np.asarray(preds).astype(np.int64)
+    cm = confusion_matrix(y, p, len(target_names)).astype(np.float64)
+    tp, true, pred = np.diag(cm), cm.sum(1), cm.sum(0)
 
-    return classification_report(
-        np.asarray(labels), np.asarray(preds),
-        labels=list(range(len(target_names))),
-        target_names=list(target_names), output_dict=True, zero_division=0)
+    def div(a, b):
+        return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+    scores = {"precision": div(tp, pred), "recall": div(tp, true),
+              "f1-score": div(2.0 * tp, true + pred)}
+    out = {name: {**{k: float(v[c]) for k, v in scores.items()},
+                  "support": float(true[c])}
+           for c, name in enumerate(target_names)}
+    out["accuracy"] = float(np.mean(y == p)) if len(y) else 0.0
+    total = float(true.sum())
+    out["macro avg"] = {**{k: float(np.average(v)) for k, v in
+                           scores.items()}, "support": total}
+    out["weighted avg"] = {**{k: float(np.average(v, weights=true))
+                              if total else 0.0 for k, v in scores.items()},
+                           "support": total}
+    return out
 
 
 def generate_report_and_image(labels: np.ndarray, preds: np.ndarray,

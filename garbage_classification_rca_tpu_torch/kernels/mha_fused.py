@@ -1,16 +1,24 @@
-"""Masked / causal multi-head attention: the CUDA kernel
-``csrc/mha_fused.cu`` and its plain PyTorch version.
+"""Masked / causal multi-head attention: the CUDA kernels of
+``csrc/mha_fused.cu`` and their plain PyTorch versions.
 
-Replaces ``garbage_classification_rca_tpu/kernels/mha_fused.py::mha``:
-``out = softmax(Q K^T * scale + mask_bias) V`` per head, q/k/v [B, N, D]
-with head h the columns h*dh:(h+1)*dh; scale 1/sqrt(dh) by default; the
-key mask bias is (m - 1) * 1e30; causal masks key > query with -1e30. The
-softmax runs in fp32 with the max subtracted and its weights are rounded
-to V's dtype before the PV product (fp32 accumulation). ``csrc/mha_fused.cu``
-explains what bounds the kernel on the H100 and how its design answers that.
+Replaces, in ``garbage_classification_rca_tpu/kernels/mha_fused.py``:
+  * ``mha`` (eval): ``out = softmax(Q K^T * scale + mask_bias) V`` per
+    head, q/k/v [B, N, D] with head h the columns h*dh:(h+1)*dh; scale
+    1/sqrt(dh) by default; the key mask bias is (m - 1) * 1e30; causal
+    masks key > query with -1e30. The softmax runs in fp32 with the max
+    subtracted and its weights are rounded to V's dtype before the PV
+    product (fp32 accumulation);
+  * ``_mha_fwd_lse`` (``mha_fwd_lse`` here): the same forward, which also
+    gives the fp32 logsumexp [B, H, N] of each score row;
+  * ``_mha_flash_bwd`` (``mha_flash_bwd``): the flash backward from
+    (q, k, v, out, lse), scores recomputed, never stored;
+  * ``mha_flash_train``: the two under autograd, for the training path.
+``csrc/mha_fused.cu`` explains what bounds the kernels on the H100 and how
+their design answers that.
 
-The wrapper runs the plain version for tensors on the CPU and the kernel
-for tensors on a CUDA device; ``mha.launches`` counts kernel launches.
+The wrappers run the plain versions for tensors on the CPU and the kernels
+for tensors on a CUDA device; ``mha.launches``, ``mha_fwd_lse.launches``
+and ``mha_flash_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -27,39 +35,85 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def mha_reference(q, k, v, *, heads: int, scale: float = 0.0, mask=None,
-                  causal: bool = False) -> torch.Tensor:
-    """Plain version (the JAX ``mha_reference`` graph)."""
-    b, n, d = q.shape
-    dh = d // heads
-    if scale == 0.0:
-        scale = 1.0 / math.sqrt(dh)
+def _heads(a, heads):
+    """[B, N, D] -> fp32 [B, H, N, dh]."""
+    b, n, d = a.shape
+    return a.reshape(b, n, heads, d // heads).transpose(1, 2).float()
 
-    def rs(a):
-        return a.reshape(b, n, heads, dh).transpose(1, 2).float()
 
-    s = rs(q) @ rs(k).transpose(-1, -2) * float(scale)
+def _merge(a, dtype):
+    """[B, H, N, dh] -> [B, N, D] in `dtype`."""
+    b, h, n, dh = a.shape
+    return a.transpose(1, 2).reshape(b, n, h * dh).to(dtype)
+
+
+def _scale(d, heads, scale):
+    return float(scale) if scale != 0.0 else 1.0 / math.sqrt(d // heads)
+
+
+def _scores(q, k, heads, scale, mask, causal):
+    """fp32 [B, H, N, N] scores with the mask and causal biases."""
+    n = q.shape[1]
+    s = _heads(q, heads) @ _heads(k, heads).transpose(-1, -2) * scale
     if mask is not None:
         s = s + ((mask.float() - 1.0) * -NEG)[:, None, None, :]
     if causal:
         tri = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
         s = torch.where(tri, s, torch.full_like(s, NEG))
+    return s
+
+
+def mha_reference(q, k, v, *, heads: int, scale: float = 0.0, mask=None,
+                  causal: bool = False) -> torch.Tensor:
+    """Plain version (the JAX ``mha_reference`` graph)."""
+    s = _scores(q, k, heads, _scale(q.shape[2], heads, scale), mask, causal)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     w = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
-    o = w.float() @ rs(v)
-    return o.transpose(1, 2).reshape(b, n, d).to(q.dtype)
+    return _merge(w.float() @ _heads(v, heads), q.dtype)
 
 
-def _check(q, k, v, heads, mask):
+def mha_fwd_lse_reference(q, k, v, *, heads: int, scale: float = 0.0,
+                          mask=None, causal: bool = False):
+    """Plain version of ``mha_fwd_lse``: (``mha_reference``'s output, the
+    fp32 logsumexp [B, H, N] of the score rows)."""
+    s = _scores(q, k, heads, _scale(q.shape[2], heads, scale), mask, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    ssum = e.sum(dim=-1, keepdim=True)
+    w = (e / ssum).to(v.dtype)
+    lse = (m + torch.log(ssum))[..., 0]
+    return _merge(w.float() @ _heads(v, heads), q.dtype), lse
+
+
+def mha_flash_bwd_reference(q, k, v, o, do, lse, *, heads: int,
+                            scale: float = 0.0, mask=None,
+                            causal: bool = False):
+    """Plain version of ``mha_flash_bwd``, at the Pallas kernel's rounding
+    points: W = exp(S - lse) in fp32; W and dO in V's dtype for dV and dP;
+    Delta = rowsum(dO * O) in fp32; dS in q's dtype for dQ and dK."""
+    scale = _scale(q.shape[2], heads, scale)
+    w = torch.exp(_scores(q, k, heads, scale, mask, causal) - lse[..., None])
+    dol = _heads(do.to(v.dtype), heads)
+    vh = _heads(v, heads)
+    dv = w.to(v.dtype).float().transpose(-1, -2) @ dol
+    dp = dol @ vh.transpose(-1, -2)
+    delta = (_heads(do, heads) * _heads(o, heads)).sum(-1, keepdim=True)
+    ds = (w * (dp - delta)).to(q.dtype).float()
+    dq = ds @ _heads(k, heads) * scale
+    dk = ds.transpose(-1, -2) @ _heads(q, heads) * scale
+    return _merge(dq, q.dtype), _merge(dk, q.dtype), _merge(dv, q.dtype)
+
+
+def _check(q, k, v, heads, mask, max_n=MAX_N):
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v must be equal [B, N, D], got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, n, d = q.shape
     if heads <= 0 or d % heads:
         raise ValueError(f"D={d} not divisible by heads={heads}")
-    if n > MAX_N:
-        raise ValueError(f"mha takes N <= {MAX_N}, got {n}")
+    if max_n is not None and n > max_n:
+        raise ValueError(f"mha takes N <= {max_n}, got {n}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share a dtype in float32/bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -71,6 +125,19 @@ def _check(q, k, v, heads, mask):
                             f"{tuple(mask.shape)}")
         if mask.device != q.device:
             raise ValueError("mask and q lie on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
+
+
+def _kernel_args(tensors, b, d, heads):
+    """Checks the kernels' own limits on CUDA tensors."""
+    if d // heads not in HEAD_DIMS:
+        raise ValueError(f"the mha kernels take head dims {HEAD_DIMS}, got "
+                         f"{d // heads}")
+    if b > 65535:
+        raise ValueError(f"the mha kernels take B <= 65535, got {b}")
+    if not all(a.is_contiguous() for a in tensors if a is not None):
+        raise ValueError("the mha kernels need contiguous tensors")
 
 
 def mha(q, k, v, *, heads: int, scale: float = 0.0,
@@ -82,19 +149,9 @@ def mha(q, k, v, *, heads: int, scale: float = 0.0,
     if q.device.type == "cpu":
         return mha_reference(q, k, v, heads=heads, scale=scale, mask=mask,
                              causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
     b, n, d = q.shape
-    if d // heads not in HEAD_DIMS:
-        raise ValueError(f"the mha kernel takes head dims {HEAD_DIMS}, got "
-                         f"{d // heads}")
-    if b > 65535:
-        raise ValueError(f"the mha kernel takes B <= 65535, got {b}")
-    tensors = [q, k, v] + ([mask] if mask is not None else [])
-    if not all(a.is_contiguous() for a in tensors):
-        raise ValueError("mha needs contiguous q/k/v/mask")
-    if scale == 0.0:
-        scale = 1.0 / math.sqrt(d // heads)
+    _kernel_args([q, k, v, mask], b, d, heads)
+    scale = _scale(d, heads, scale)
     from . import _build
 
     fn = _build.library("mha_fused").mha_forward
@@ -115,3 +172,126 @@ def mha(q, k, v, *, heads: int, scale: float = 0.0,
 
 
 mha.launches = 0
+
+
+def mha_fwd_lse(q, k, v, *, heads: int, scale: float = 0.0,
+                mask: Optional[torch.Tensor] = None, causal: bool = False):
+    """The training forward: (out [B, N, D] in q's dtype, lse [B, H, N]
+    fp32)."""
+    _check(q, k, v, heads, mask)
+    if q.device.type == "cpu":
+        return mha_fwd_lse_reference(q, k, v, heads=heads, scale=scale,
+                                     mask=mask, causal=causal)
+    b, n, d = q.shape
+    _kernel_args([q, k, v, mask], b, d, heads)
+    from . import _build
+
+    fn = _build.library("mha_fused").mha_forward_lse
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    o = torch.empty_like(q)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 mask.data_ptr() if mask is not None else None, o.data_ptr(),
+                 lse.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
+                 int(bool(causal)), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"mha_fwd_lse kernel launch failed: CUDA error "
+                           f"{err}")
+    mha_fwd_lse.launches += 1
+    return o, lse
+
+
+mha_fwd_lse.launches = 0
+
+
+def mha_flash_bwd(q, k, v, o, do, lse, *, heads: int, scale: float = 0.0,
+                  mask: Optional[torch.Tensor] = None, causal: bool = False):
+    """Flash backward of ``mha_fwd_lse``: (dq, dk, dv) in q's dtype. `do`
+    is the output cotangent; it is taken in q's dtype, as the JAX rule
+    casts it."""
+    _check(q, k, v, heads, mask, max_n=None)
+    b, n, d = q.shape
+    if tuple(lse.shape) != (b, heads, n) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [B, H, N], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return mha_flash_bwd_reference(q, k, v, o, do, lse, heads=heads,
+                                       scale=scale, mask=mask, causal=causal)
+    do = do.contiguous()
+    _kernel_args([q, k, v, o, do, lse, mask], b, d, heads)
+    from . import _build
+
+    fn = _build.library("mha_fused").mha_flash_backward
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(),
+                 mask.data_ptr() if mask is not None else None,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 delta.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
+                 int(bool(causal)), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"mha_flash_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    mha_flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+mha_flash_bwd.launches = 0
+
+
+def flash_train_fits(shape, heads: int, dtype) -> bool:
+    """Whether the flash pair takes [B, N, D] with `heads` heads: the
+    forward holds 32 fp32 score rows of N in shared memory (N <= 512) and
+    both kernels are built for head dims 32 / 64 / 128 in fp32 or bf16."""
+    b, n, d = shape
+    return (dtype in _DTYPES and heads > 0 and d % heads == 0
+            and d // heads in HEAD_DIMS and 1 <= n <= MAX_N and b <= 65535)
+
+
+class _FlashTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, heads, scale, causal):
+        o, lse = mha_fwd_lse(q, k, v, heads=heads, scale=scale, mask=mask,
+                             causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
+        ctx.args = (heads, scale, causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        heads, scale, causal = ctx.args
+        dq, dk, dv = mha_flash_bwd(q, k, v, o, g, lse, heads=heads,
+                                   scale=scale, mask=mask, causal=causal)
+        return dq, dk, dv, None, None, None, None
+
+
+def mha_flash_train(q, k, v, *, heads: int, scale: float = 0.0,
+                    mask: Optional[torch.Tensor] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """Differentiable attention for training: ``mha_fwd_lse`` forward,
+    saving (q, k, v, out, lse); ``mha_flash_bwd`` backward. On CPU tensors
+    a shape that ``flash_train_fits`` rejects goes through ``mha_reference``
+    under autograd, as the JAX ``mha_flash_train`` sends its misfits to its
+    XLA graph; on CUDA tensors it raises."""
+    if not flash_train_fits(q.shape, heads, q.dtype):
+        if q.device.type == "cpu":
+            return mha_reference(q, k, v, heads=heads, scale=scale,
+                                 mask=mask, causal=causal)
+        raise ValueError(
+            f"the flash train kernels take N <= {MAX_N}, head dims "
+            f"{HEAD_DIMS} and float32/bfloat16, got {tuple(q.shape)} with "
+            f"{heads} heads in {q.dtype}")
+    return _FlashTrain.apply(q, k, v, mask, heads, float(scale),
+                             bool(causal))

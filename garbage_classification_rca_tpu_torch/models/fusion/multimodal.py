@@ -1,9 +1,17 @@
-"""Multimodal late fusion — the MM-RCA strategy (eval only).
+"""Multimodal late fusion — the MM-RCA strategy, eval and train.
 
 The port of the JAX package's ``models/fusion/multimodal.py`` for the
 headline path: an EfficientNetV2-M multi-stage extractor and a DistilBERT
 tower feed ``mm_rca_block`` (L2 norm -> 16 patches -> the fused RCA
-kernel), then one of the three MM-RCA heads. The other six strategies
+kernel), then one of the three MM-RCA heads.
+
+Train mode (``train=True`` with a ``core.Key``) adds, as the JAX forward
+does: modality dropout (two coin flips per batch, ``drop_modalities``)
+with the dropped tower's cotangent cut (``_grad_gate``), stochastic depth
+and batch-statistics BatchNorm in the image tower, the training attention
+kernels in the text tower, the differentiable RCA kernel pair
+(``rca_fused_trainable``), and dropout on the head's input. BN running
+stats update in place; the model must be unfolded to train. The other six strategies
 (gated, classic, normalized, clip, hierarchical, bimodal) and the
 bert/bart towers are still to port (ROADMAP.md); asking for them raises
 ``NotImplementedError``.
@@ -26,7 +34,7 @@ from ...checkpoint.from_jax import load_jax_tree
 from ...checkpoint.torch_convert import subdict
 from ...config import LATE_FUSION_STRATEGIES
 from ...device import resolve_device
-from ...kernels.rca_fused import rca_fused
+from ...kernels.rca_fused import rca_fused, rca_fused_trainable
 from ...nn import core
 from ...ops.attention import AttentionUnit
 from ..image import efficientnet_common as eff
@@ -57,14 +65,18 @@ OTHER_HEADS = (
 
 @dataclass(frozen=True)
 class FusionConfig:
-    """The eval-time fields of the JAX package's FusionConfig; its
-    train-time and other-strategy fields arrive with those slices."""
+    """The JAX package's FusionConfig fields that MM-RCA reads; the other
+    strategies' fields arrive with those slices."""
     strategy: str = "MM_RCA"
     text_model_name: str = "distilbert"
     num_classes: int = 4
+    drop_ratio: float = 0.6                  # --model_dropout
+    image_or_text_dropout_chance: float = 0.33   # --image_text_dropout
+    img_prob_dropout: float = 0.7            # --image_prob_dropout
     reverse: bool = False                    # --reverse
     features_only: bool = False              # --features_only
     cross_attention_only: bool = False       # --cross_attention_only
+    hf_internal_dropout: bool = False        # --hf_internal_dropout
 
     @property
     def txt_patch(self) -> int:
@@ -87,6 +99,12 @@ def check_config(cfg: FusionConfig) -> None:
         raise NotImplementedError(
             f"text tower '{cfg.text_model_name}' is not ported to PyTorch "
             "yet (ROADMAP.md, queue 1); the JAX package runs it")
+    if cfg.hf_internal_dropout:
+        raise NotImplementedError(
+            "--hf_internal_dropout is not ported to PyTorch yet: its "
+            "attention-probs dropout needs the K7 kernels "
+            "(_mha_fwd_lse_drop / _mha_flash_bwd_drop; ROADMAP.md, queue "
+            "2); the JAX package runs it")
 
 
 class FusionModel(nn.Module):
@@ -123,10 +141,10 @@ class FusionModel(nn.Module):
         if cfg.cross_attention_only:
             self.final_cross_only = core.Linear(cat, n, generator=g)
 
-    def forward(self, input_ids, attention_mask, images, *, eval_mode=True,
-                remove_image=False, remove_text=False):
+    def forward(self, input_ids, attention_mask, images, *, train=False,
+                key=None, remove_image=False, remove_text=False):
         return forward(self.cfg, self, (input_ids, attention_mask, images),
-                       eval_mode=eval_mode, remove_image=remove_image,
+                       train=train, key=key, remove_image=remove_image,
                        remove_text=remove_text)
 
 
@@ -144,52 +162,103 @@ def build_fusion_model(cfg: FusionConfig, *, device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def drop_modalities(images, input_ids, attention_mask, *, remove_image=False,
-                    remove_text=False):
-    """Eval-mode modality removal: zeroed images, or zeroed ids and mask."""
-    if remove_image:
-        images = torch.zeros_like(images)
-    if remove_text:
-        input_ids = torch.zeros_like(input_ids)
-        attention_mask = torch.zeros_like(attention_mask)
-    return images, input_ids, attention_mask
+def drop_modalities(cfg: FusionConfig, images, input_ids, attention_mask,
+                    *, uniforms=None, remove_image=False, remove_text=False):
+    """Returns (images, input_ids, attention_mask, img_keep, txt_keep).
+
+    Eval (no ``uniforms``): forced removal, zeroed images or zeroed ids and
+    mask; the keep flags are None. Train: two uniforms (device scalars)
+    decide, as the JAX forward's two coin flips do: the batch drops a
+    modality when ``u1 < image_or_text_dropout_chance``, the image when
+    also ``u2 < img_prob_dropout``, else the text. The keep flags are 0-dim
+    bool tensors that gate the dropped tower's gradient (``_grad_gate``)."""
+    if uniforms is None:
+        if remove_image:
+            images = torch.zeros_like(images)
+        if remove_text:
+            input_ids = torch.zeros_like(input_ids)
+            attention_mask = torch.zeros_like(attention_mask)
+        return images, input_ids, attention_mask, None, None
+    drop_any = uniforms[0] < cfg.image_or_text_dropout_chance
+    drop_image = uniforms[1] < cfg.img_prob_dropout
+    img_keep = ~(drop_any & drop_image)
+    txt_keep = ~(drop_any & ~drop_image)
+    images = images * img_keep.to(images.dtype)
+    input_ids = input_ids * txt_keep.to(input_ids.dtype)
+    attention_mask = attention_mask * txt_keep.to(attention_mask.dtype)
+    return images, input_ids, attention_mask, img_keep, txt_keep
+
+
+def _grad_gate(x, keep):
+    """Identity forward; no gradient into `x` where `keep` is False. BN in
+    train mode on an all-zero batch would blow the dropped tower's
+    cotangent up by rsqrt(eps) per layer (the JAX package's note)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x, x.detach())
 
 
 def mm_rca_block(cfg: FusionConfig, p: FusionModel, img_feat, txt_feat):
-    """L2-norm -> patches -> fused RCA kernel -> flatten."""
+    """L2-norm -> patches -> fused RCA kernel -> flatten. With gradients
+    enabled the block is the differentiable kernel pair
+    (``rca_fused_trainable``: forward K1, backward K3)."""
     img_n = core.l2_normalize(img_feat, dim=1, eps=1e-12)
     txt_n = core.l2_normalize(txt_feat, dim=1, eps=1e-12)
     bs = txt_n.shape[0]
     t = txt_n.reshape(bs, NUM_PATCHES, cfg.txt_patch)
     i = img_n.reshape(bs, NUM_PATCHES, cfg.img_patch)
-    ti, it = rca_fused(p, t, i, reverse=cfg.reverse)
+    rca = rca_fused_trainable if torch.is_grad_enabled() else rca_fused
+    ti, it = rca(p, t, i, reverse=cfg.reverse)
     return ti.reshape(bs, -1), it.reshape(bs, -1), img_n, txt_n
 
 
-def _fwd_mm_rca(cfg: FusionConfig, p: FusionModel, images, ids, mask):
-    text = distil_mod.encode(p.text, ids, mask)[:, 0]
-    _, _, img = effv2.extractor_features(p.image, images, p.image_cfg)
+def _fwd_mm_rca(cfg: FusionConfig, p: FusionModel, images, ids, mask, *,
+                train=False, key=None, keeps=(None, None)):
+    text = distil_mod.encode(p.text, ids, mask, train=train)[:, 0]
+    _, _, img = effv2.extractor_features(p.image, images, p.image_cfg,
+                                         train=train, key=key)
+    img_keep, txt_keep = keeps
+    text, img = _grad_gate(text, txt_keep), _grad_gate(img, img_keep)
     ti, it, img_n, txt_n = mm_rca_block(cfg, p, img, text)
     if cfg.features_only:
-        return p.final_features_only(torch.cat([img_n, txt_n], dim=1))
-    if cfg.cross_attention_only:
-        return p.final_cross_only(torch.cat([ti, it], dim=1))
-    return p.final_with_everything(torch.cat([ti, it, img_n, txt_n], dim=1))
+        concat, head = torch.cat([img_n, txt_n], dim=1), p.final_features_only
+    elif cfg.cross_attention_only:
+        concat, head = torch.cat([ti, it], dim=1), p.final_cross_only
+    else:
+        concat = torch.cat([ti, it, img_n, txt_n], dim=1)
+        head = p.final_with_everything
+    return concat, head
 
 
-def forward(cfg: FusionConfig, p: FusionModel, batch, *, eval_mode=True,
-            remove_image=False, remove_text=False):
+def forward(cfg: FusionConfig, p: FusionModel, batch, *, train=False,
+            key: Optional[core.Key] = None, remove_image=False,
+            remove_text=False):
     """batch = (input_ids int32 [B, L], attention_mask int32 [B, L],
-    images normalized NHWC) -> logits [B, num_classes]."""
-    if not eval_mode:
-        raise NotImplementedError("training is not ported to PyTorch yet "
-                                  "(ROADMAP.md, queue 1)")
+    images normalized NHWC) -> logits [B, num_classes].
+
+    Eval by default (the JAX forward's ``eval_mode=True``: modalities are
+    removed only when asked). ``train=True`` needs a ``key``, which splits
+    into the modality-dropout, tower and head streams as the JAX forward's
+    rng does."""
     check_config(cfg)
     input_ids, attention_mask, images = batch
-    images, input_ids, attention_mask = drop_modalities(
-        images, input_ids, attention_mask, remove_image=remove_image,
-        remove_text=remove_text)
-    return _fwd_mm_rca(cfg, p, images, input_ids, attention_mask)
+    if train and key is None:
+        raise ValueError("train mode needs a key")
+    k_drop, k_model, k_head = key.split(3) if train else (None, None, None)
+    uniforms = None
+    if train:
+        uniforms = torch.rand(2, generator=k_drop.generator(images.device),
+                              device=images.device)
+    images, input_ids, attention_mask, img_keep, txt_keep = drop_modalities(
+        cfg, images, input_ids, attention_mask, uniforms=uniforms,
+        remove_image=remove_image, remove_text=remove_text)
+    concat, head = _fwd_mm_rca(cfg, p, images, input_ids, attention_mask,
+                               train=train, key=k_model,
+                               keeps=(img_keep, txt_keep))
+    if train:
+        concat = core.dropout(concat, cfg.drop_ratio,
+                              k_head.generator(concat.device))
+    return head(concat)
 
 
 # ---------------------------------------------------------------------------

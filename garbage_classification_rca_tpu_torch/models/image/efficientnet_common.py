@@ -1,4 +1,4 @@
-"""EfficientNet engine (eval only) — MBConv / FusedMBConv.
+"""EfficientNet engine — MBConv / FusedMBConv.
 
 The port of the JAX package's ``models/image/efficientnet_common.py``:
   * public functions take and return NHWC tensors (the JAX layout);
@@ -8,7 +8,11 @@ The port of the JAX package's ``models/image/efficientnet_common.py``:
     outside any Pallas kernel);
   * BN eps per config (1e-3 for v2); the SE squeeze width is
     ``max(1, c_in // 4)`` on the PRE-expansion channels;
-  * stochastic depth and dropout are train-only and not ported yet.
+  * train mode: BatchNorm on batch statistics with running-stat updates
+    (momentum per config), and stochastic depth at rate
+    ``sd_prob * idx / total`` on each residual block, each block drawing
+    from its own key ``key.fold_in(si * 1000 + j)`` (the JAX package's
+    ``fold_in`` sites). BN folding (``nn/fold.py``) is for eval only.
 
 Module names follow the JAX parameter tree (``stem``, ``stages[i][j]``
 with ``expand``/``project``/``single``/``dw``/``se``, ``head``), so
@@ -35,6 +39,8 @@ class EffNetConfig:
     stem_out: int
     head_out: int
     bn_eps: float
+    bn_momentum: float = 0.1
+    sd_prob: float = 0.2
 
 
 class ConvBN(nn.Module):
@@ -101,11 +107,12 @@ class EffNet(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _cna(m: ConvBN, x, *, stride=1, groups=1, act=True, eps=1e-5):
+def _cna(m: ConvBN, x, *, stride=1, groups=1, act=True, eps=1e-5,
+         train=False, momentum=0.1):
     k = m.conv.w.shape[-1]
     y = m.conv(x, stride=stride, padding=(k - 1) // 2, groups=groups)
     if m.bn is not None:
-        y = m.bn(y, eps)
+        y = m.bn(y, eps, train=train, momentum=momentum)
     return core.silu(y) if act else y
 
 
@@ -116,37 +123,53 @@ def _se(m: SqueezeExcite, x):
     return x * s
 
 
-def _block(m: Block, x, row: Stage, first: bool, *, eps):
+def _block(m: Block, x, row: Stage, first: bool, *, eps, train=False,
+           momentum=0.1, sd_rate=0.0, generator=None):
     btype, expand, _, stride, _, c_out, _ = row
     stride = stride if first else 1
     use_res = stride == 1 and x.shape[1] == c_out
+    bn = dict(eps=eps, train=train, momentum=momentum)
     h = x
     if btype == "fused":
         if expand != 1:
-            h = _cna(m.expand, h, stride=stride, eps=eps)
-            h = _cna(m.project, h, act=False, eps=eps)
+            h = _cna(m.expand, h, stride=stride, **bn)
+            h = _cna(m.project, h, act=False, **bn)
         else:
-            h = _cna(m.single, h, stride=stride, eps=eps)
+            h = _cna(m.single, h, stride=stride, **bn)
     else:
         if hasattr(m, "expand"):
-            h = _cna(m.expand, h, eps=eps)
-        h = _cna(m.dw, h, stride=stride, groups=h.shape[1], eps=eps)
+            h = _cna(m.expand, h, **bn)
+        h = _cna(m.dw, h, stride=stride, groups=h.shape[1], **bn)
         h = _se(m.se, h)
-        h = _cna(m.project, h, act=False, eps=eps)
-    return h + x if use_res else h
+        h = _cna(m.project, h, act=False, **bn)
+    if not use_res:
+        return h
+    if train:
+        h = core.stochastic_depth(h, sd_rate, generator)
+    return h + x
 
 
 def features_all_stages(model: EffNet, x_nhwc: torch.Tensor,
-                        cfg: EffNetConfig
+                        cfg: EffNetConfig, *, train: bool = False,
+                        key: Optional[core.Key] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Run the trunk on NHWC input; returns (per-stage outputs as NCHW
-    channels_last tensors, pooled [B, head_out])."""
-    eps = cfg.bn_eps
-    h = _cna(model.stem, x_nhwc.permute(0, 3, 1, 2), stride=2, eps=eps)
+    channels_last tensors, pooled [B, head_out]). ``train`` uses batch
+    statistics (updating the BN buffers in place) and, with a ``key``,
+    stochastic depth."""
+    bn = dict(eps=cfg.bn_eps, train=train, momentum=cfg.bn_momentum)
+    total = sum(r[-1] for r in cfg.stages)
+    h = _cna(model.stem, x_nhwc.permute(0, 3, 1, 2), stride=2, **bn)
     stage_outs = []
+    idx = 0
     for si, row in enumerate(cfg.stages):
         for j, bm in enumerate(model.stages[si]):
-            h = _block(bm, h, row, j == 0, eps=eps)
+            gen = None
+            if train and key is not None:
+                gen = key.fold_in(si * 1000 + j).generator(h.device)
+            h = _block(bm, h, row, j == 0, sd_rate=cfg.sd_prob * idx / total,
+                       generator=gen, **bn)
+            idx += 1
         stage_outs.append(h)
-    h = _cna(model.head, h, eps=eps)
+    h = _cna(model.head, h, **bn)
     return stage_outs, core.global_avg_pool(h)

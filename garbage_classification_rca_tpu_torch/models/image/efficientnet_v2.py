@@ -20,8 +20,10 @@ CONFIGS = {
 }
 
 
-def extractor_features(model: eff.EffNet, x, cfg: eff.EffNetConfig):
+def extractor_features(model: eff.EffNet, x, cfg: eff.EffNetConfig, *,
+                       train: bool = False, key=None):
     """NHWC x -> (out_stage3 NHWC, out_stage6 NHWC, pooled [B, 1280])."""
-    stage_outs, pooled = eff.features_all_stages(model, x, cfg)
+    stage_outs, pooled = eff.features_all_stages(model, x, cfg, train=train,
+                                                 key=key)
     nhwc = lambda a: a.permute(0, 2, 3, 1)
     return nhwc(stage_outs[3]), nhwc(stage_outs[6]), pooled

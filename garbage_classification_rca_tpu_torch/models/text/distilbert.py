@@ -1,4 +1,4 @@
-"""DistilBERT encoder (eval only): word + position embeddings ->
+"""DistilBERT encoder: word + position embeddings ->
 LayerNorm (eps 1e-12) -> post-norm layers (12 heads, GELU FFN 3072).
 
 ``encode`` runs as many layers as the model holds; ``convert_encoder``
@@ -38,13 +38,17 @@ class DistilBertEncoder(nn.Module):
 
 
 def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor) -> torch.Tensor:
-    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L]."""
+           attention_mask: torch.Tensor, *, train: bool = False
+           ) -> torch.Tensor:
+    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L].
+    ``train`` routes attention through the training kernels; the tower
+    has no random site (HF-internal dropout, --hf_internal_dropout, is
+    not ported)."""
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     h = model.word_emb(input_ids) + model.pos_emb(pos)[None]
     h = model.ln_emb(h)
     for lp in model.layers:
-        h = postnorm_layer(lp, h, attention_mask, HEADS)
+        h = postnorm_layer(lp, h, attention_mask, HEADS, train=train)
     return h
 
 

@@ -1,9 +1,12 @@
-"""Shared pieces of the BERT-family text encoders (eval only): the
-post-norm transformer layer and the HF-checkpoint helpers.
+"""Shared pieces of the BERT-family text encoders: the post-norm
+transformer layer and the HF-checkpoint helpers.
 
-The layer's attention always goes through ``kernels/mha_fused.mha`` with
-the raw [B, L] key mask: the hand-written CUDA kernel on the card, its
-plain version on the CPU.
+The layer's attention takes the raw [B, L] key mask. In eval it goes
+through ``kernels/mha_fused.mha``; in train mode through
+``kernels/mha_fused.mha_flash_train`` (the forward that saves the
+logsumexp and the flash backward), as the JAX package's train path does.
+Each is the hand-written CUDA kernel on the card and its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...kernels.mha_fused import mha
+from ...kernels.mha_fused import mha, mha_flash_train
 from ...nn import core
 
 
@@ -34,9 +37,10 @@ class PostNormLayer(nn.Module):
 
 
 def postnorm_layer(p: PostNormLayer, x: torch.Tensor, mask: torch.Tensor,
-                   heads: int) -> torch.Tensor:
+                   heads: int, *, train: bool = False) -> torch.Tensor:
     """MHA -> add & LayerNorm -> GELU FFN -> add & LayerNorm."""
-    att = mha(p.q(x), p.k(x), p.v(x), heads=heads, mask=mask)
+    attention = mha_flash_train if train else mha
+    att = attention(p.q(x), p.k(x), p.v(x), heads=heads, mask=mask)
     x = p.ln_att(x + p.out(att))
     h = p.fc2(core.gelu(p.fc1(x)))
     return p.ln_ffn(x + h)

@@ -10,12 +10,20 @@ walk loads any model.
 Numerics follow the JAX package's ``nn/core.py``: LayerNorm, BatchNorm,
 global pooling and L2 normalisation compute in fp32 and cast back; a
 linear or conv casts its weights to the activation dtype.
+
+Randomness (dropout, stochastic depth) draws from an explicit
+``torch.Generator``, made from a ``Key``: an integer seed that splits and
+folds in data the way a JAX key does, so every random site of a train step
+has its own reproducible stream. The streams differ from JAX's bits; the
+tests feed both sides the same draws where they compare them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +33,29 @@ from torch import nn
 def _uniform(shape, fan_in: int, generator: Optional[torch.Generator]):
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+class Key:
+    """A random key: a 63-bit seed. ``fold_in`` and ``split`` derive new
+    keys through numpy's SeedSequence (host arithmetic, no device work);
+    ``generator`` makes the torch.Generator a random op draws from."""
+
+    __slots__ = ("seed",)
+
+    def __init__(self, seed: int):
+        self.seed = int(seed) & (2 ** 63 - 1)
+
+    def fold_in(self, data: int) -> "Key":
+        s = np.random.SeedSequence([self.seed, int(data) & (2 ** 63 - 1)])
+        return Key(int(s.generate_state(1, np.uint64)[0]))
+
+    def split(self, n: int = 2) -> List["Key"]:
+        return [self.fold_in(0x5EED0000 + i) for i in range(n)]
+
+    def generator(self, device) -> torch.Generator:
+        g = torch.Generator(device=torch.device(device))
+        g.manual_seed(self.seed)
+        return g
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +170,15 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over NCHW channels, computed in fp32 (the JAX
-    ``batchnorm(train=False)`` formula). Running stats are buffers."""
+    """BatchNorm over NCHW channels with fp32 statistics (the JAX
+    ``batchnorm`` semantics). Running stats are fp32 buffers.
+
+    Eval normalizes with the running stats, in fp32. Train normalizes with
+    the batch's biased variance and updates the running stats in place as
+    ``new = (1 - m) * old + m * batch``, the variance taken unbiased —
+    torch's and the JAX package's rule; it is PyTorch's own batch_norm,
+    which accumulates in fp32 for bf16 inputs and returns the input's
+    dtype."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -149,8 +187,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x, eps: float):
+    def forward(self, x, eps: float, *, train: bool = False,
+                momentum: float = 0.1):
+        if train:
+            return F.batch_norm(x, self.mean, self.var, self.scale.float(),
+                                self.bias.float(), training=True,
+                                momentum=momentum, eps=eps)
         inv = torch.rsqrt(self.var.float() + eps) * self.scale.float()
         shift = self.bias.float() - self.mean.float() * inv
         y = x.float() * inv[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# regularization (train mode only)
+# ---------------------------------------------------------------------------
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate). Identity when rate <= 0 or without a
+    generator (eval)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def stochastic_depth(x: torch.Tensor, rate: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """torchvision stochastic_depth, mode='row': each sample's whole
+    residual branch kept with probability 1 - rate, scaled by
+    1 / (1 - rate)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)

@@ -5,7 +5,10 @@ a machine with an NVIDIA H100:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances as in chip_smoke.py: fp32 2e-5 (rca_fused) and 1e-5 (mha)."""
+Tolerances as in chip_smoke.py: fp32 2e-5 (rca_fused) and 1e-5 (mha);
+the backward kernels 5e-5 (1 + |x|) in fp32 (the JAX package's backward
+bar), and one bf16 ulp + 2e-3 of the tensor's largest |x| for bf16
+gradients."""
 
 import types
 
@@ -59,3 +62,108 @@ def test_mha_kernel_matches_plain(cuda, b, n, causal):
     assert mha_fused.mha.launches == before + 1
     want = mha_fused.mha_reference(q, k, v, heads=12, mask=m, causal=causal)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _grad_close(got, want, dtype):
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        tol = 5e-5 * (1.0 + w.abs())
+    else:
+        e = torch.floor(torch.log2(torch.maximum(g.abs(), w.abs())
+                                   .clamp_min(2.0 ** -126)))
+        tol = torch.pow(2.0, e - 7) + 2e-3 * float(w.abs().max())
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("b", [13, 16])
+@pytest.mark.parametrize("i_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rca_fused_bwd_kernel_matches_plain(cuda, b, i_dtype, reverse):
+    g = torch.Generator().manual_seed(b + 100)
+    p = types.SimpleNamespace(**{
+        n: AttentionUnit(*geo, generator=g).to(cuda)
+        for n, geo in zip(rca_fused.UNITS, rca_fused._GEOM)})
+    t = torch.randn((b, 16, 48), generator=g).to(cuda)
+    i = torch.randn((b, 16, 80), generator=g).to(cuda, i_dtype)
+    gt, gi = (torch.randn((b, 16, 48), generator=g).to(cuda)
+              for _ in range(2))
+    before = rca_fused.rca_fused_bwd.launches
+    got = rca_fused.rca_fused_bwd(p, t, i, gt, gi, reverse=reverse)
+    torch.cuda.synchronize()
+    assert rca_fused.rca_fused_bwd.launches == before + 1
+    want = rca_fused.rca_fused_bwd_reference(p, t, i, gt, gi,
+                                             reverse=reverse)
+    assert got[1].dtype == i_dtype
+    _grad_close(got[0], want[0], torch.float32)
+    _grad_close(got[1], want[1], i_dtype)
+    for x, y in zip(got[2], want[2]):
+        _grad_close(x, y, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,causal", [(16, 64, False), (4, 512, False),
+                                        (3, 100, True)])
+def test_mha_train_kernels_match_plain(cuda, b, n, causal, dtype):
+    g = torch.Generator().manual_seed(n + 7)
+    q, k, v, do = (torch.randn((b, n, 768), generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    lens = torch.randint(1, n + 1, (b,), generator=g)
+    m = (torch.arange(n)[None] < lens[:, None]).to(torch.int32).to(cuda)
+    before = (mha_fused.mha_fwd_lse.launches,
+              mha_fused.mha_flash_bwd.launches)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, heads=12, mask=m, causal=causal)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, heads=12, mask=m,
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert (mha_fused.mha_fwd_lse.launches,
+            mha_fused.mha_flash_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, heads=12, mask=m,
+                                                 causal=causal)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_w, rtol=1e-5, atol=1e-5)
+    else:
+        _grad_close(o, o_w, dtype)
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=12,
+                                             mask=m, causal=causal)
+    for x, y in zip(grads, want):
+        _grad_close(x, y, dtype)
+
+
+def test_train_wrappers_launch_their_kernels(cuda):
+    """Under autograd the training wrappers launch K1 + K3 and K4a + K4b."""
+    g = torch.Generator().manual_seed(3)
+    p = types.SimpleNamespace(**{
+        n: AttentionUnit(*geo, generator=g).to(cuda)
+        for n, geo in zip(rca_fused.UNITS, rca_fused._GEOM)})
+    t = torch.randn((4, 16, 48), generator=g).to(cuda).requires_grad_()
+    i = torch.randn((4, 16, 80), generator=g).to(cuda, torch.bfloat16)
+    q = torch.randn((2, 64, 768), generator=g).to(cuda).requires_grad_()
+    counts = lambda: (rca_fused.rca_fused.launches,
+                      rca_fused.rca_fused_bwd.launches,
+                      mha_fused.mha_fwd_lse.launches,
+                      mha_fused.mha_flash_bwd.launches)
+    before = counts()
+    with torch.enable_grad():
+        ti, it = rca_fused.rca_fused_trainable(p, t, i.requires_grad_(),
+                                               reverse=True)
+        o = mha_fused.mha_flash_train(q, q, q, heads=12)
+        (ti.sum() + it.sum() + o.sum()).backward()
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    assert t.grad is not None and i.grad.dtype == torch.bfloat16
+    assert p.rca_it.k.w.grad is not None and q.grad is not None
+
+
+@pytest.mark.parametrize("shape,heads,dtype", [
+    ((2, 64, 768), 12, torch.float16), ((2, 513, 768), 12, torch.float32),
+    ((2, 8, 96), 2, torch.float32)])
+def test_flash_train_raises_on_cuda_misfit(cuda, shape, heads, dtype):
+    """On the card a shape or dtype the flash kernels do not take raises;
+    only CPU tensors go through the plain version."""
+    q = torch.zeros(shape, dtype=dtype, device=cuda, requires_grad=True)
+    before = mha_fused.mha_fwd_lse.launches
+    with torch.enable_grad(), pytest.raises(ValueError):
+        mha_fused.mha_flash_train(q, q, q, heads=heads)
+    assert mha_fused.mha_fwd_lse.launches == before

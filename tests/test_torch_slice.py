@@ -104,7 +104,7 @@ def _port_logits(cfg, params, state, batch, fold=False, **kw):
     if fold:
         tfold(model.image, SHORT.bn_eps)
     ids, mask, images = (torch.from_numpy(a) for a in batch)
-    return model(ids, mask, images, eval_mode=True, **kw).numpy()
+    return model(ids, mask, images, **kw).numpy()
 
 
 def _check(got, want):
