@@ -26,7 +26,18 @@ Phases, each of which fails the run when it fails:
      microbatch's loss and gradients on the kernel path against the plain
      path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
      epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
-     BEST checkpoint.
+     BEST checkpoint;
+  6. text eval: BERT-base at full width and depth (12 layers, seq 64,
+     batch 256, bf16, random seeded weights, WordPiece ids) through
+     ``run_eval`` with ``cli.test_text``'s step: launches per batch K5a 12,
+     K5b 12, K2 0; logits against the plain path (bf16, and fp32 with TF32
+     off); samples/s, p50, peak memory, a profiler breakdown; one batch
+     each of DistilBERT (6 + 6 launches) and RoBERTa (12 + 12);
+  7. image eval: ViT-B/16 at full width and depth (batch 64, 224x224,
+     bf16) through ``run_image_eval``: K6a 12 and K6b 12 per batch, the
+     same readings; then ``cli.test_text`` (DistilBERT) and
+     ``cli.test_image`` (ViT-B/16) evaluate reference-layout ``.pth`` files
+     on a synthetic JPEG tree.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -45,9 +56,16 @@ Tolerances (kernel vs plain version, same inputs, same card):
     output by at most its ulp times |v|); gradients: one ulp + 2e-3 of
     the tensor's largest |x| (a rounded dS element moves every sum it
     enters by about its ulp).
+  * the fused transformer blocks (postnorm_attn_block, postnorm_mlp_block,
+    attn_block, mlp_block): fp32 |d| <= 2e-5 + 2e-5|x| (fp32 sums in
+    another order over K up to 3072); bf16 one ulp of the value + 1e-2 of
+    the tensor's largest |x| (q / k / v, the softmax weights and the MLP
+    hidden are rounded to bf16 inside the block, and an element that
+    rounds to the neighbouring value moves every sum it enters).
   * eval model, bf16: argmax agreement >= 0.98 and max |logit difference|
     <= 0.05 between the kernel path and the plain path; fp32 (TF32 off):
-    max |logit difference| <= 1e-4 and equal argmax.
+    max |logit difference| <= 1e-4 and equal argmax. The same limits hold
+    the text and image eval models.
   * train microbatches (``compare_train_paths``, three of them): fp32
     images, TF32 off, the loss within 1e-5 relative and every gradient
     within 1e-4 of its tensor's largest |g|; bf16 images, the loss within
@@ -91,10 +109,11 @@ def max_err_ok(got, want, dtype, kind):
     g, w = got.float(), want.float()
     d = (g - w).abs()
     if dtype == torch.float32:
-        tol = (2e-5 + 2e-5 * w.abs()) if kind == "rca" else \
+        tol = (2e-5 + 2e-5 * w.abs()) if kind in ("rca", "block") else \
             (1e-5 + 1e-5 * w.abs())
     else:
-        extra = 1e-5 if kind == "rca" else 1e-3
+        extra = {"rca": 1e-5, "block": 1e-2 * float(w.abs().max())}.get(
+            kind, 1e-3)
         tol = bf16_ulp(torch.maximum(g.abs(), w.abs())) + extra
     finite = bool(torch.isfinite(g).all())
     return float(d.max()), finite and bool((d <= tol).all())
@@ -473,6 +492,179 @@ def check_mha_train(device, report):
     return ok_all
 
 
+def _block_weights(d, ffn, dtype, device, gen):
+    """Input-major weights in `dtype`, fp32 biases and LN parameters (what
+    a layer's ``packed()`` hands the wrappers)."""
+    import torch
+
+    w = lambda i, o: (torch.randn((i, o), generator=gen) * i ** -0.5).to(
+        device, dtype)
+    vec = lambda k: (torch.randn((k,), generator=gen) * 0.1).to(device)
+    ls = (1.0 + torch.randn((d,), generator=gen) * 0.1).to(device)
+    return dict(ls=ls, lb=vec(d), wqkv=w(d, 3 * d), bqkv=vec(3 * d),
+                wout=w(d, d), bout=vec(d), w1=w(d, ffn), b1=vec(ffn),
+                w2=w(ffn, d), b2=vec(d))
+
+
+def _library_attn(x, mask, p, heads, eps, post):
+    """The unfused chain of library calls for an attention block (no single
+    PyTorch call computes one): F.linear + scaled_dot_product_attention +
+    F.linear + F.layer_norm, weights in F.linear's [out, in] layout."""
+    import torch.nn.functional as F
+
+    b, n, d = x.shape
+    h = x if post else F.layer_norm(x, (d,), p["ls_t"], p["lb_t"], eps)
+    q, k, v = F.linear(h, p["wqkv_oi"], p["bqkv_t"]).chunk(3, dim=-1)
+    rs = lambda a: a.reshape(b, n, heads, d // heads).transpose(1, 2)
+    am = None if mask is None else mask.bool()[:, None, None, :]
+    a = F.scaled_dot_product_attention(rs(q), rs(k), rs(v), attn_mask=am)
+    y = x + F.linear(a.transpose(1, 2).reshape(b, n, d), p["wout_oi"],
+                     p["bout_t"])
+    return F.layer_norm(y, (d,), p["ls_t"], p["lb_t"], eps) if post else y
+
+
+def _library_mlp(x, p, eps, post):
+    import torch.nn.functional as F
+
+    d = x.shape[-1]
+    h = x if post else F.layer_norm(x, (d,), p["ls_t"], p["lb_t"], eps)
+    y = x + F.linear(F.gelu(F.linear(h, p["w1_oi"], p["b1_t"])), p["w2_oi"],
+                     p["b2_t"])
+    return F.layer_norm(y, (d,), p["ls_t"], p["lb_t"], eps) if post else y
+
+
+def _check_blocks(device, report, *, post, main, odd, seed):
+    """The two fused blocks of one family (post-norm: K5a / K5b; pre-norm:
+    K6a / K6b) against their plain versions: fp32 (TF32 off) and bf16, at
+    the main path's shape `main` and the odd one `odd` (both (B, N, D,
+    heads, FFN)); post-norm with random key lengths and, at the odd shape, a
+    fully masked row; the MLP with gelu and, at the odd shape, relu. Then
+    the times at the main shape in bf16: kernel, plain version, and the
+    unfused chain of library calls."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as K)
+
+    gen = torch.Generator().manual_seed(seed)
+    eps = 1e-12 if post else 1e-6
+    a_name, m_name = (("postnorm_attn_block", "postnorm_mlp_block") if post
+                      else ("attn_block", "mlp_block"))
+    lines = {"postnorm_attn_block": 346, "postnorm_mlp_block": 361,
+             "attn_block": 88, "mlp_block": 127}
+
+    def attn(fn, x, mask, p, heads):
+        if post:
+            return fn(x, mask, p["wqkv"], p["bqkv"], p["wout"], p["bout"],
+                      p["ls"], p["lb"], heads=heads, eps=eps)
+        return fn(x, p["ls"], p["lb"], p["wqkv"], p["bqkv"], p["wout"],
+                  p["bout"], heads=heads, eps=eps)
+
+    def mlp(fn, x, p, act="gelu"):
+        if post:
+            return fn(x, p["w1"], p["b1"], p["w2"], p["b2"], p["ls"],
+                      p["lb"], eps=eps, act=act)
+        return fn(x, p["ls"], p["lb"], p["w1"], p["b1"], p["w2"], p["b2"],
+                  eps=eps, act=act)
+
+    a_ref = getattr(K, a_name + "_reference")
+    m_ref = getattr(K, m_name + "_reference")
+    ok_all, kept = True, None
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in (main, odd):
+            b, n, d, heads, ffn = shape
+            p = _block_weights(d, ffn, dtype, device, gen)
+            x = torch.randn((b, n, d), generator=gen).to(device, dtype)
+            mask = None
+            if post:
+                mask = _mask(b, n, gen, device)
+                if shape == odd:
+                    mask[-1] = 0          # every key of this sample masked
+            cases = [(a_name, attn(getattr(K, a_name), x, mask, p, heads),
+                      lambda: attn(a_ref, x, mask, p, heads)),
+                     (m_name, mlp(getattr(K, m_name), x, p),
+                      lambda: mlp(m_ref, x, p))]
+            if shape == odd:
+                cases.append((m_name + " relu",
+                              mlp(getattr(K, m_name), x, p, "relu"),
+                              lambda: mlp(m_ref, x, p, "relu")))
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, plain in cases:
+                err, ok = max_err_ok(got, plain(), dtype, "block")
+                ok_all &= ok
+                errs[name] = err
+                print(f"  {name:24s} {str(dtype)[6:]:8s} B={b:3d} N={n:3d} "
+                      f"D={d} H={heads} FFN={ffn}: max|d|={err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+            if dtype == torch.bfloat16 and shape == main:
+                kept = (x, mask, p, heads, errs)
+    x, mask, p, heads, errs = kept
+    b, n, d = x.shape
+    ffn = p["w1"].shape[1]
+    for k in ("wqkv", "wout", "w1", "w2"):
+        p[k + "_oi"] = p[k].t().contiguous()
+    for k in ("ls", "lb", "bqkv", "bout", "b1", "b2"):
+        p[k + "_t"] = p[k].to(x.dtype)
+    item = x.element_size()
+    tokens = b * n
+    rows = (
+        (a_name, lambda: attn(getattr(K, a_name), x, mask, p, heads),
+         lambda: attn(a_ref, x, mask, p, heads),
+         lambda: _library_attn(x, mask, p, heads, eps, post),
+         tokens * (2 * (d * 3 * d + d * d) + 4 * n * d),
+         2 * x.numel() * item + 4 * d * d * item + 6 * d * 4
+         + (mask.numel() * 4 if post else 0)),
+        (m_name, lambda: mlp(getattr(K, m_name), x, p),
+         lambda: mlp(m_ref, x, p),
+         lambda: _library_mlp(x, p, eps, post),
+         tokens * 4 * d * ffn,
+         2 * x.numel() * item + 2 * d * ffn * item + (3 * d + ffn) * 4))
+    for name, kern, plain, lib, flops, nbytes in rows:
+        ms, lo, hi = time_ms(kern, reps=5)
+        plain_ms = time_ms(plain, reps=5)[0]
+        lib_ms = time_ms(lib, reps=5)[0]
+        bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        report[name] = {
+            "name": name, "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/"
+                      "transformer_block.cu",
+            "replaces": "garbage_classification_rca_tpu/kernels/"
+                        f"transformer_block.py:{lines[name]}",
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": lib_ms,
+            "library_is": "unfused chain: F.linear + scaled_dot_product_"
+                          "attention + F.layer_norm" if "attn" in name else
+                          "unfused chain: F.linear + F.gelu + F.layer_norm",
+            "gflops": flops / 1e9, "tflops_per_s": flops / ms / 1e9}
+        print(f"  {name} B={b} N={n} D={d} FFN={ffn} bf16 (median of 5 [min, "
+              f"max]): kernel {ms:.4f} [{lo:.4f}, {hi:.4f}] ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"library chain {lib_ms:.4f} ms, bound "
+              f"{report[name]['bound_ms']:.4f} ms "
+              f"({report[name]['bound_by']})", flush=True)
+    return ok_all
+
+
+def check_postnorm_blocks(device, report):
+    """K5a / K5b at the BERT-family eval shape (256 x 64 x 768, 12 heads,
+    FFN 3072) and at N = 17 with a batch of 3."""
+    return _check_blocks(device, report, post=True,
+                         main=(256, 64, 768, 12, 3072),
+                         odd=(3, 17, 768, 12, 3072), seed=SEED + 20)
+
+
+def check_prenorm_blocks(device, report):
+    """K6a / K6b at the ViT-B/16 eval shape (64 x 197 x 768, 12 heads, FFN
+    3072) and at N = 17 with ViT-L/16's widths (1024, 16 heads, 4096)."""
+    return _check_blocks(device, report, post=False,
+                         main=(64, 197, 768, 12, 3072),
+                         odd=(3, 17, 1024, 16, 4096), seed=SEED + 21)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model
 # ---------------------------------------------------------------------------
@@ -517,10 +709,18 @@ def plain_versions():
     train; the plain versions are differentiable by autograd)."""
     from garbage_classification_rca_tpu_torch.kernels import mha_fused
     from garbage_classification_rca_tpu_torch.kernels import rca_fused
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.models.image import vit
     from garbage_classification_rca_tpu_torch.models.text import encoder_common
 
-    sites = ((encoder_common, "mha", mha_fused.mha_reference),
+    sites = ((tb, "postnorm_attn_block", tb.postnorm_attn_block_reference),
+             (tb, "postnorm_mlp_block", tb.postnorm_mlp_block_reference),
+             (tb, "attn_block", tb.attn_block_reference),
+             (tb, "mlp_block", tb.mlp_block_reference),
+             (vit, "mha", mha_fused.mha_reference),
+             (encoder_common, "mha", mha_fused.mha_reference),
              (encoder_common, "mha_flash_train", mha_fused.mha_reference),
              (multimodal, "rca_fused", rca_fused.rca_fused_reference),
              (multimodal, "rca_fused_trainable",
@@ -569,6 +769,10 @@ def _kind(name: str) -> str:
         return "rca_fused kernel"
     if "mha_kernel" in n:
         return "mha kernel"
+    if "attn_heads_kernel" in n or "attn_out_kernel" in n:
+        return "fused attention block kernels"
+    if "mlp_kernel" in n:
+        return "fused MLP block kernel"
     if "rca_bwd" in n:
         return "rca_fused_bwd kernel"
     if "mha_bwd" in n:
@@ -583,6 +787,14 @@ def _kind(name: str) -> str:
 
 
 def profile_batch(model, batch, dtype, device, reps=3):
+    from garbage_classification_rca_tpu_torch.cli.test_both import (
+        make_both_eval_step)
+
+    return profile_step(make_both_eval_step(model, dtype), batch, device,
+                        reps)
+
+
+def profile_step(step, batch, device, reps=3):
     """torch.profiler (CUPTI) over `reps` eval steps of one batch: device
     time per batch by kind of kernel, the top kernels, and the device's idle
     share of the window (1 - kernel time / host wall time)."""
@@ -590,10 +802,6 @@ def profile_batch(model, batch, dtype, device, reps=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from garbage_classification_rca_tpu_torch.cli.test_both import (
-        make_both_eval_step)
-
-    step = make_both_eval_step(model, dtype)
     with torch.inference_mode():
         dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         step(dev)[0].cpu()
@@ -687,8 +895,7 @@ def check_model(device, n_batches, batch_size, results):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(device)
     results["launches"] = launches
-    want = {"rca_fused": n_batches, "mha": 6 * n_batches,
-            "rca_fused_bwd": 0, "mha_fwd_lse": 0, "mha_flash_bwd": 0}
+    want = _want_launches(rca_fused=n_batches, mha=6 * n_batches)
     ok &= launches == want and len(preds) == n_batches * batch_size
     print(f"  launches over {n_batches} batches: {launches} (want {want})",
           flush=True)
@@ -746,11 +953,25 @@ TRAIN_LAUNCHES = {"rca_fused": 1, "rca_fused_bwd": 1, "mha_fwd_lse": 6,
 def _counters():
     from garbage_classification_rca_tpu_torch.kernels import mha_fused
     from garbage_classification_rca_tpu_torch.kernels import rca_fused
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
 
     return {"rca_fused": rca_fused.rca_fused, "mha": mha_fused.mha,
             "rca_fused_bwd": rca_fused.rca_fused_bwd,
             "mha_fwd_lse": mha_fused.mha_fwd_lse,
-            "mha_flash_bwd": mha_fused.mha_flash_bwd}
+            "mha_flash_bwd": mha_fused.mha_flash_bwd,
+            "postnorm_attn_block": tb.postnorm_attn_block,
+            "postnorm_mlp_block": tb.postnorm_mlp_block,
+            "attn_block": tb.attn_block, "mlp_block": tb.mlp_block}
+
+
+BLOCK_KERNELS = ("postnorm_attn_block", "postnorm_mlp_block", "attn_block",
+                 "mlp_block")
+
+
+def _want_launches(**counts):
+    """Every counter's expected value: the named ones, 0 for the rest."""
+    return {k: counts.get(k, 0) for k in _counters()}
 
 
 def _zero_counters():
@@ -1149,7 +1370,8 @@ def check_train(device, results):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(device)
     n_mb = 4 * ACC_STEPS
-    want = {k: v * n_mb for k, v in TRAIN_LAUNCHES.items()}
+    want = _want_launches(**{k: v * n_mb
+                             for k, v in TRAIN_LAUNCHES.items()})
     ok &= launches == want
     print(f"  launches over 4 steps x {ACC_STEPS} microbatches: {launches} "
           f"(want {want})", flush=True)
@@ -1262,6 +1484,346 @@ def check_cli(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the unimodal eval paths
+# ---------------------------------------------------------------------------
+
+TEXT_BATCH, TEXT_BATCHES, TEXT_SEQ = 256, 4, 64    # TEXT_ARCHS eval batch
+IMAGE_BATCH, IMAGE_BATCHES, IMAGE_SIZE = 64, 4, 224   # IMAGE_ARCHS, B/16
+
+
+class SyntheticEvalBatcher:
+    """Batcher stand-in for the unimodal eval loops: seeded token ids from
+    the tokenizer's vocabulary (text) or uint8 images, fixed-shape batches
+    made before the run."""
+
+    def __init__(self, n_batches, batch_size, seed, *, tokenizer=None,
+                 seq_len=0, image_size=0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.m = list(range(n_batches * batch_size))
+        self.batches = []
+        words = tokenizer and [w for w in tokenizer.vocab if w.isalpha()]
+        for _ in range(n_batches):
+            batch = {"label": rng.integers(0, 4, batch_size).astype(np.int32),
+                     "valid": np.ones(batch_size, np.int32)}
+            if tokenizer is not None:
+                texts = [" ".join(rng.choice(words, rng.integers(2, 40)))
+                         for _ in range(batch_size)]
+                enc = tokenizer.encode_batch(texts, seq_len)
+                batch["input_ids"] = enc.input_ids
+                batch["attention_mask"] = enc.attention_mask
+            else:
+                batch["image"] = rng.integers(
+                    0, 256, (batch_size, image_size, image_size, 3),
+                    dtype=np.uint8)
+            self.batches.append(batch)
+
+    def iter_batches(self, batch_size, *, shuffle=False, **_):
+        assert batch_size == len(self.batches[0]["label"]) and not shuffle
+        yield from self.batches
+
+
+def _eval_path(title, model32, data, run, step_of, logits_of, per_batch,
+               device, results, key):
+    """One unimodal eval path on the card. fp32 (TF32 off) on 16 samples:
+    kernel path against plain path. Then bf16: a warm-up run, the measured
+    run with the counters zeroed before and read after, two more runs for
+    the spread, a profile of one batch, and the logits of two batches
+    against the plain path."""
+    import copy
+
+    import torch
+
+    ok = True
+    batch_size = len(data.batches[0]["label"])
+    n_batches = len(data.batches)
+    print(f"  {title}: {n_batches} batches of {batch_size}", flush=True)
+    small = {k: v[:16] for k, v in data.batches[0].items()}
+    torch.backends.cudnn.allow_tf32 = False
+    lk = logits_of(model32, small, torch.float32)
+    with plain_versions():
+        lp = logits_of(model32, small, torch.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    d32 = float((lk - lp).abs().max())
+    same32 = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+    fin = bool(torch.isfinite(lk).all())
+    ok &= fin and same32 and d32 <= 1e-4 and tuple(lk.shape) == (16, 4)
+    print(f"  fp32 logits kernel vs plain: max|d|={d32:.3e}, argmax equal="
+          f"{same32}, finite={fin}", flush=True)
+
+    model = copy.deepcopy(model32).to(torch.bfloat16)
+    del model32
+    torch.cuda.empty_cache()
+    run(model, data)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_counters()
+    acc, labels, preds, stats = run(model, data)
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = _want_launches(**{k: v * n_batches for k, v in per_batch.items()})
+    ok &= launches == want and len(preds) == n_batches * batch_size
+    print(f"  launches over {n_batches} batches: "
+          f"{ {k: v for k, v in launches.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }, every other 0)",
+          flush=True)
+    results[key + "_launches"] = launches
+    rates, p50s = [stats["samples_per_s"]], [stats["p50_step_s"] * 1e3]
+    for _ in range(2):
+        st = run(model, data)[3]
+        rates.append(st["samples_per_s"])
+        p50s.append(st["p50_step_s"] * 1e3)
+    print(f"  run_eval x3 over {n_batches} batches of {batch_size}: "
+          f"samples/s {sorted(rates)}, p50 batch ms {sorted(p50s)} (the p50 "
+          f"includes the prediction readback); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    results[key] = {"samples_per_s": sorted(rates)[1],
+                    "samples_per_s_runs": rates,
+                    "p50_batch_ms": sorted(p50s)[1],
+                    "peak_mem_gib": peak / 2**30, "batches": n_batches,
+                    "batch": batch_size,
+                    "profile": profile_step(step_of(model), data.batches[0],
+                                            device)}
+    agree, n, dmax = 0, 0, 0.0
+    for batch in data.batches[:2]:
+        lk = logits_of(model, batch, torch.bfloat16)
+        with plain_versions():
+            lp = logits_of(model, batch, torch.bfloat16)
+        ok &= bool(torch.isfinite(lk).all())
+        ok &= tuple(lk.shape) == (batch_size, 4)
+        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+        n += lk.shape[0]
+        dmax = max(dmax, float((lk - lp).abs().max()))
+    ok &= agree / n >= 0.98 and dmax <= 0.05
+    results[key].update(argmax_agreement=agree / n, max_logit_diff=dmax,
+                        fp32_max_logit_diff=d32)
+    print(f"  bf16 logits kernel vs plain over {n} samples: argmax "
+          f"agreement {agree / n:.4f}, max|d|={dmax:.3e}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _text_logits(model, batch, dtype):
+    import torch
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        return model(torch.from_numpy(batch["input_ids"]).to(dev),
+                     torch.from_numpy(batch["attention_mask"]).to(dev)
+                     ).float()
+
+
+def _image_logits(model, batch, dtype):
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        return model(normalize_on_device(
+            torch.from_numpy(batch["image"]).to(dev), dtype=dtype)).float()
+
+
+def check_text_eval(device, results):
+    """BERT-base at full width and depth through ``run_eval`` with
+    ``cli.test_text``'s step; then one batch each of DistilBERT and
+    RoBERTa for the launch counts and the agreement with the plain path."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.test_text import (
+        make_text_eval_step)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.eval.harness import run_eval
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_text_model)
+
+    keys = ("input_ids", "attention_mask", "label", "valid")
+
+    def run(model, data):
+        return run_eval(make_text_eval_step(model), data,
+                        len(data.batches[0]["label"]), device, keys=keys,
+                        progress=False)
+
+    def build(name, seed):
+        return get_text_model(name).build(
+            4, generator=torch.Generator().manual_seed(seed)).to(device).eval()
+
+    tok = get_tokenizer("bert", vocab_dir="tests/fixtures/vocab/wordpiece")
+    data = SyntheticEvalBatcher(TEXT_BATCHES, TEXT_BATCH, SEED + 30,
+                                tokenizer=tok, seq_len=TEXT_SEQ)
+    ok = _eval_path("bert", build("bert", SEED + 31), data, run,
+                    make_text_eval_step, _text_logits,
+                    {"postnorm_attn_block": 12, "postnorm_mlp_block": 12},
+                    device, results, "text_eval")
+    for name, vocab, layers in (("distilbert", "wordpiece", 6),
+                                ("roberta", "bpe", 12)):
+        tok = get_tokenizer(name, vocab_dir=f"tests/fixtures/vocab/{vocab}")
+        one = SyntheticEvalBatcher(1, TEXT_BATCH, SEED + 32, tokenizer=tok,
+                                   seq_len=TEXT_SEQ)
+        model = build(name, SEED + 33).to(torch.bfloat16)
+        _zero_counters()
+        preds = run(model, one)[2]
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        want = _want_launches(postnorm_attn_block=layers,
+                              postnorm_mlp_block=layers)
+        lk = _text_logits(model, one.batches[0], torch.bfloat16)
+        with plain_versions():
+            lp = _text_logits(model, one.batches[0], torch.bfloat16)
+        frac = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        dmax = float((lk - lp).abs().max())
+        good = (launches == want and len(preds) == TEXT_BATCH
+                and bool(torch.isfinite(lk).all()) and frac >= 0.98
+                and dmax <= 0.05)
+        ok &= good
+        print(f"  {name}: one batch of {TEXT_BATCH}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, bf16 kernel vs "
+              f"plain argmax agreement {frac:.4f}, max|d|={dmax:.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        results[f"text_eval_{name}"] = {"argmax_agreement": frac,
+                                        "max_logit_diff": dmax}
+        del model
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_image_eval(device, results):
+    """ViT-B/16 at full width and depth through ``run_image_eval``."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.eval.harness import (
+        make_eval_step, run_image_eval)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+
+    def run(model, data):
+        return run_image_eval(model, data, len(data.batches[0]["label"]),
+                              device, torch.bfloat16, progress=False)
+
+    model = get_image_model("transformer_B16").build(
+        4, generator=torch.Generator().manual_seed(SEED + 41)).to(device).eval()
+    with torch.no_grad():    # torchvision's class token starts at zero
+        model.class_token.normal_(0.0, 0.02, generator=torch.Generator(
+            device=device).manual_seed(SEED + 42))
+    data = SyntheticEvalBatcher(IMAGE_BATCHES, IMAGE_BATCH, SEED + 40,
+                                image_size=IMAGE_SIZE)
+    return _eval_path("transformer_B16", model, data, run,
+                      lambda m: make_eval_step(m, torch.bfloat16),
+                      _image_logits, {"attn_block": 12, "mlp_block": 12},
+                      device, results, "image_eval")
+
+
+_DISTILBERT_KEYS = {"q": "attention.q_lin", "k": "attention.k_lin",
+                    "v": "attention.v_lin", "out": "attention.out_lin",
+                    "ln_att": "sa_layer_norm", "fc1": "ffn.lin1",
+                    "fc2": "ffn.lin2", "ln_ffn": "output_layer_norm"}
+_VIT_KEYS = {"ln_1": "ln_1", "ln_2": "ln_2", "out": "self_attention.out_proj",
+             "fc1": "mlp.linear_1", "fc2": "mlp.linear_2"}
+_LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+
+
+def _reference_state_dict(model, kind):
+    """The port model's weights under the reference checkpoint's key names
+    (HF DistilBERT classifier under ``model.`` / ``out.``; torchvision ViT):
+    the port's parameters already have torch's layouts."""
+    sd = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        leaf = _LEAF.get(parts[-1])
+        if kind == "distilbert":
+            if parts[0] == "head":
+                key = f"out.{leaf}"
+            elif parts[1] == "layers":
+                key = (f"model.transformer.layer.{parts[2]}."
+                       f"{_DISTILBERT_KEYS[parts[3]]}.{leaf}")
+            else:
+                key = "model.embeddings." + {
+                    "word_emb": "word_embeddings.weight",
+                    "pos_emb": "position_embeddings.weight",
+                    "ln_emb": f"LayerNorm.{leaf}"}[parts[1]]
+        elif parts[0] == "layers":
+            pre = f"encoder.layers.encoder_layer_{parts[1]}."
+            key = pre + (f"self_attention.in_proj_{leaf}" if parts[2] == "qkv"
+                         else f"{_VIT_KEYS[parts[2]]}.{leaf}")
+        else:
+            key = {"class_token": "class_token",
+                   "pos_embedding": "encoder.pos_embedding",
+                   "conv_proj": f"conv_proj.{leaf}",
+                   "ln": f"encoder.ln.{leaf}",
+                   "head": f"heads.head.{leaf}"}[parts[0]]
+        sd[key] = t.detach().cpu().contiguous()
+    return sd
+
+
+def check_eval_clis(device, results):
+    """``cli.test_text`` (DistilBERT, 6 layers) and ``cli.test_image``
+    (ViT-B/16, 12 layers) on reference-layout ``.pth`` files with random
+    seeded weights and a synthetic 32-image JPEG tree: the CLIs' own
+    loading, tokenizing, decoding and evaluation (their report step writes
+    a seaborn PNG and a pandas CSV, packages the card's machine lacks),
+    with the launch counts of two batches of 16 asserted."""
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import test_image, test_text
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model, get_text_model)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_eval_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+    out = {}
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 32, SEED + 50)
+        val = os.path.join(work, "garbage_Val")
+        for cli, flag, name, kind, counts in (
+                (test_text, "text_model", "distilbert", "distilbert",
+                 {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
+                (test_image, "image_model", "transformer_B16", "vit",
+                 {"attn_block": 12, "mlp_block": 12})):
+            getter = get_text_model if kind == "distilbert" else \
+                get_image_model
+            model = getter(name).build(
+                4, generator=torch.Generator().manual_seed(SEED + 51))
+            ckpt = os.path.join(work, f"{name}.pth")
+            torch.save(_reference_state_dict(model, kind), ckpt)
+            del model
+            _zero_counters()
+            t0 = time.perf_counter()
+            res = cli.evaluate(args_parser([
+                f"--{flag}={name}", f"--model_path={ckpt}",
+                f"--dataset_folder_name={val}", f"--vocab_dir={vocab}",
+                "--eval_batch_size=16"]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            acc, labels, preds = res[0], res[1], res[2]
+            launches = _read_counters()
+            want = _want_launches(**{k: 2 * v for k, v in counts.items()})
+            good = (launches == want and len(preds) == 32
+                    and 0.0 <= acc <= 100.0
+                    and sorted(set(labels.tolist())) == [0, 1, 2, 3])
+            print(f"  cli.{cli.__name__.rsplit('.', 1)[-1]} --{flag}={name} "
+                  f"on 32 JPEGs in {secs:.1f} s: accuracy {acc:.2f} %, "
+                  f"launches { {k: v for k, v in launches.items() if v} } "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"seconds": secs, "acc": acc, "ok": good}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    results["eval_clis"] = out
+    return all(v["ok"] for v in out.values())
+
+
 def main() -> int:
     import torch
 
@@ -1275,7 +1837,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/5] device", flush=True)
+    print("[1/7] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1285,7 +1847,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/5] build", flush=True)
+    print("[2/7] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -1298,13 +1860,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
 
-    print("[3/5] kernels vs plain versions", flush=True)
+    print("[3/7] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
         ok &= check_mha(device, report)
         ok &= check_rca_bwd(device, report)
         ok &= check_mha_train(device, report)
+        ok &= check_postnorm_blocks(device, report)
+        ok &= check_prenorm_blocks(device, report)
     except Exception as e:  # noqa: BLE001 — reported, run fails
         import traceback
 
@@ -1315,12 +1879,18 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/5] MM-RCA eval path",
+            ("[4/7] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/5] MM-RCA train path: full-width train step",
+            ("[5/7] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/5] MM-RCA train path: cli.main_both -> cli.test_both",
-             lambda: check_cli(device, results))):
+            ("[5/7] MM-RCA train path: cli.main_both -> cli.test_both",
+             lambda: check_cli(device, results)),
+            ("[6/7] text eval path: BERT-base, DistilBERT, RoBERTa",
+             lambda: check_text_eval(device, results)),
+            ("[7/7] image eval path: ViT-B/16",
+             lambda: check_image_eval(device, results)),
+            ("[7/7] unimodal eval CLIs: cli.test_text, cli.test_image",
+             lambda: check_eval_clis(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -1331,19 +1901,33 @@ def main() -> int:
             return _fail(f"{title}: {type(e).__name__}: {e}")
         if not ok:
             return _fail(f"{title}: check failed")
-    # launches on each kernel's own main path: the eval path for K1 / K2,
-    # the train path for K3 / K4a / K4b (K1 runs on both)
+    # launches on each kernel's own main path: the MM-RCA eval path for K1 /
+    # K2, its train path for K3 / K4a / K4b (K1 runs on both), the text
+    # eval path for K5a / K5b, the image eval path for K6a / K6b
+    by_path = {"eval": results["launches"], "train": results["train_launches"],
+               "text_eval": results["text_eval_launches"],
+               "image_eval": results["image_eval_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha", "eval"),
                       ("rca_fused_bwd", "train"), ("mha_fwd_lse", "train"),
-                      ("mha_flash_bwd", "train")):
+                      ("mha_flash_bwd", "train"),
+                      ("postnorm_attn_block", "text_eval"),
+                      ("postnorm_mlp_block", "text_eval"),
+                      ("attn_block", "image_eval"),
+                      ("mlp_block", "image_eval")):
         row = dict(report[key])
-        row["launches"] = results[{"eval": "launches",
-                                   "train": "train_launches"}[path]][key]
-        row["launches_by_path"] = {"eval": results["launches"][key],
-                                   "train": results["train_launches"][key]}
+        row["launches"] = by_path[path][key]
+        row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         kernels.append(row)
+        if row["launches"] <= 0:
+            return _fail(f"{key} was not launched on the {path} path")
     print(json.dumps({"model": results["model"], "train": results["train"],
+                      "text_eval": results["text_eval"],
+                      "text_eval_others": {
+                          k: results[f"text_eval_{k}"]
+                          for k in ("distilbert", "roberta")},
+                      "image_eval": results["image_eval"],
+                      "eval_clis": results["eval_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16")},
                       "card": smi_line}))

@@ -1,8 +1,9 @@
 """Load a parameter tree in the JAX package's layout into a port model.
 
-The single path for weights: the tests hand over a JAX model's
+The single path for weights, for every model of the port (the fusion
+model, the text classifiers, ViT): the tests hand over a JAX model's
 ``(params, state)`` converted to numpy, and the port's ``convert_torch``
-builds the same numpy tree from a reference ``.pth`` first.
+functions build the same numpy tree from a reference ``.pth`` first.
 
 The walk follows the tree: a dict key names a child module, parameter or
 buffer of the same name; a list indexes a ``ModuleList``. Leaves are

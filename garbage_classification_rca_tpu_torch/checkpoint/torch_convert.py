@@ -31,6 +31,20 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def convert_checked(convert_fn, sd, what: str, **kw):
+    """Run a converter with a readable error when the checkpoint's key
+    layout does not match the requested architecture."""
+    try:
+        return convert_fn(sd, **kw)
+    except KeyError as e:
+        sample = sorted(sd)[:3]
+        raise SystemExit(
+            f"checkpoint does not match {what}: converter needs key {e} "
+            f"but the file contains keys like {sample}. Did you pass the "
+            "right --image_model/--text_model/--late_fusion for this "
+            ".pth?") from e
+
+
 def subdict(sd, prefix: str):
     """Prefix-stripped sub-dict."""
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}

@@ -140,7 +140,7 @@ class RunConfig:
     int8_weights: bool = False         # weight-only int8 on the OPT
                                        # tower for multi-token decode
                                        # (ops/quant.py quantize_opt_
-                                       # weights; 1.3-1.45x measured) —
+                                       # weights) —
                                        # numerics contract test_quant.py
     serve_slots: int = 8               # cli.serve: continuous-batching
                                        # slot-grid width
@@ -183,8 +183,8 @@ class ArchRunSpec:
 
     Mirrors the reference's hard-coded ladders: resize (H, W) from
     main_image.py:49-58, train/FT batch + acc-steps from main_image.py:269-359,
-    eval batch from calculate_test_accuracy_image.py:152-216. The TPU eval
-    batch default is our own (larger; v5e HBM >> V100-32GB for inference).
+    eval batch from calculate_test_accuracy_image.py:152-216. The eval batch
+    defaults are the JAX package's own (larger than the reference's).
     """
 
     input_size: Tuple[int, int]        # (H, W) after pad-to-AR + resize
@@ -211,7 +211,7 @@ IMAGE_ARCHS: dict[str, ArchRunSpec] = {
     "res152":        ArchRunSpec((224, 224), 128, 32, 2, 128),
     "convnext":      ArchRunSpec((224, 224), 128, 64, 2, 256),
     "mb":            ArchRunSpec((224, 224), 128, 128, 0, 256),
-    "transformer_B16": ArchRunSpec((224, 224), 128, 200, 0, 64),  # v5e sweep: 64 -> 2625 img/s (128 -> 2413, 192 -> 2280)
+    "transformer_B16": ArchRunSpec((224, 224), 128, 200, 0, 64),
     "transformer_L16": ArchRunSpec((224, 224), 128, 52, 3, 128),
     "shuffle_net":   ArchRunSpec((224, 224), 128, 52, 3, 256),
 }
@@ -231,7 +231,7 @@ TEXT_ARCHS: dict[str, ArchRunSpec] = {
 MULTIMODAL_IMAGE_SIZE = (480, 480)
 
 # reference: calculate_test_accuracy_both.py:159 uses bs=16 on V100; ours
-MULTIMODAL_EVAL_BATCH = 128   # bs sweep on v5e: 32->1181, 64->1437, 128->1582 img/s
+MULTIMODAL_EVAL_BATCH = 128   # the JAX package's value, kept
 
 LATE_FUSION_STRATEGIES = (
     "gated", "classic", "normalized", "clip", "MM_RCA",

@@ -10,7 +10,8 @@ The port's own copy of the JAX package's ``data/pipeline.py``:
     batches ahead, so the copy of the next batch overlaps the current step.
 
 Batch dict layout:
-  image: uint8 [B, H, W, 3]       (normalized on the device)
+  image: uint8 [B, H, W, 3]       (normalized on the device; left out
+                                   with ``with_images=False``, text eval)
   input_ids / attention_mask: int32 [B, L]   (when text is requested)
   label: int32 [B]
   valid: int32 [B]  (1 = real sample, 0 = tail padding)
@@ -56,16 +57,19 @@ class ImageTextBatcher:
     def __init__(self, manifest: Manifest, image_size: Tuple[int, int],
                  tokenizer: Optional[BaseTokenizer] = None,
                  seq_len: int = 64, extended_desc: bool = False,
-                 workers: int = 8):
+                 workers: int = 8, with_images: bool = True):
         self.m = manifest
         self.image_size = image_size
         self.tokenizer = tokenizer
         self.seq_len = seq_len
         self.extended = extended_desc
-        self.pool = cf.ThreadPoolExecutor(max_workers=workers)
+        self.with_images = with_images
+        self.pool = (cf.ThreadPoolExecutor(max_workers=workers)
+                     if with_images else None)
 
     def close(self):
-        self.pool.shutdown(wait=False)
+        if self.pool:
+            self.pool.shutdown(wait=False)
 
     def make_batch(self, indices: np.ndarray,
                    batch_size: int) -> Dict[str, np.ndarray]:
@@ -77,11 +81,13 @@ class ImageTextBatcher:
             "label": np.asarray([s.label for s in samples], np.int32),
             "valid": np.asarray([1] * n + [0] * (batch_size - n), np.int32),
         }
-        h, w = self.image_size
-        raw = list(self.pool.map(lambda s: load_rgb(s.image_path), samples))
-        out = np.stack([resize_linear(pad_to_aspect_ratio(im, w / h), h, w)
-                        for im in raw])
-        batch["image"] = out.astype(np.uint8, copy=False)
+        if self.with_images:
+            h, w = self.image_size
+            raw = list(self.pool.map(lambda s: load_rgb(s.image_path),
+                                     samples))
+            out = np.stack([resize_linear(pad_to_aspect_ratio(im, w / h), h,
+                                          w) for im in raw])
+            batch["image"] = out.astype(np.uint8, copy=False)
         if self.tokenizer is not None:
             texts = [s.effective_text(self.extended) for s in samples]
             enc = self.tokenizer.encode_batch(texts, self.seq_len)

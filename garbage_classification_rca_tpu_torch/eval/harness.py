@@ -1,7 +1,9 @@
 """Evaluation loop: host batches -> device -> step -> predictions.
 
-The port of the JAX package's ``eval/harness.py::run_eval``: the same
-return value ``(acc %, labels, preds, stats)`` and the same stats keys.
+The port of the JAX package's ``eval/harness.py``: ``run_eval`` with the
+same return value ``(acc %, labels, preds, stats)`` and the same stats
+keys, and the image-only step (``make_eval_step`` / ``run_image_eval``:
+normalize on the device -> model -> argmax + masked correct count).
 Batches reach the device through pinned memory with non_blocking copies
 (``data/pipeline.to_device``); the step runs under ``inference_mode``.
 """
@@ -14,7 +16,20 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from ..data.images import normalize_on_device
 from ..data.pipeline import to_device
+
+
+def make_eval_step(model, compute_dtype=torch.bfloat16):
+    """The eval step of an image model: ``model(ImageNet-normalized NHWC
+    images) -> logits``."""
+    def step(batch):
+        x = normalize_on_device(batch["image"], dtype=compute_dtype)
+        preds = model(x).float().argmax(dim=-1).to(torch.int32)
+        correct = ((preds == batch["label"]) * batch["valid"]).sum()
+        return preds, correct
+
+    return step
 
 
 def run_eval(step: Callable, batcher, batch_size: int, device,
@@ -60,3 +75,14 @@ def run_eval(step: Callable, batcher, batch_size: int, device,
         "n": n_total,
     }
     return acc, labels, preds, stats
+
+
+def run_image_eval(model, batcher, batch_size: int, device,
+                   compute_dtype=torch.bfloat16, progress: bool = True,
+                   prefetch_depth: int = 2
+                   ) -> Tuple[float, np.ndarray, np.ndarray, Dict]:
+    """Full-dataset image eval. Returns (acc %, labels, preds, stats)."""
+    return run_eval(make_eval_step(model, compute_dtype), batcher,
+                    batch_size, device,
+                    keys=("image", "label", "valid"), progress=progress,
+                    prefetch_depth=prefetch_depth)

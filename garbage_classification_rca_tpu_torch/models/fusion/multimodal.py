@@ -214,7 +214,10 @@ def mm_rca_block(cfg: FusionConfig, p: FusionModel, img_feat, txt_feat):
 
 def _fwd_mm_rca(cfg: FusionConfig, p: FusionModel, images, ids, mask, *,
                 train=False, key=None, keeps=(None, None)):
-    text = distil_mod.encode(p.text, ids, mask, train=train)[:, 0]
+    # the fusion tower stays off the fused post-norm blocks, as in the JAX
+    # package: its eval attention is the mha kernel
+    text = distil_mod.encode(p.text, ids, mask, train=train,
+                             fused_blocks=False)[:, 0]
     _, _, img = effv2.extractor_features(p.image, images, p.image_cfg,
                                          train=train, key=key)
     img_keep, txt_keep = keeps

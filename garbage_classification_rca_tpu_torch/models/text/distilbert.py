@@ -1,8 +1,10 @@
-"""DistilBERT encoder: word + position embeddings ->
-LayerNorm (eps 1e-12) -> post-norm layers (12 heads, GELU FFN 3072).
+"""DistilBERT encoder + CLS classifier head: word + position embeddings
+-> LayerNorm (eps 1e-12) -> post-norm layers (12 heads, GELU FFN 3072);
+the classifier pools the CLS token into ``Linear(768, n_classes)``.
 
 ``encode`` runs as many layers as the model holds; ``convert_encoder``
-reads as many as the HF checkpoint holds, into the JAX tree layout.
+reads as many as the HF checkpoint holds, into the JAX tree layout
+(``convert_torch`` adds the head's ``out.{weight,bias}``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import torch
 from torch import nn
 
 from ...nn import core
-from .encoder_common import PostNormLayer, lin, ln_, postnorm_layer, strip_prefix
+from ..registry import ModelDef
+from .encoder_common import (PostNormLayer, TextClassifier, convert_classifier,
+                             lin, ln_, postnorm_layer, strip_prefix)
 
 HIDDEN = 768
 LAYERS = 6
@@ -38,17 +42,19 @@ class DistilBertEncoder(nn.Module):
 
 
 def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor, *, train: bool = False
-           ) -> torch.Tensor:
+           attention_mask: torch.Tensor, *, train: bool = False,
+           fused_blocks: bool = True) -> torch.Tensor:
     """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L].
     ``train`` routes attention through the training kernels; the tower
     has no random site (HF-internal dropout, --hf_internal_dropout, is
-    not ported)."""
+    not ported). ``fused_blocks=False`` (the fusion tower) keeps the eval
+    layers off the fused block kernels."""
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     h = model.word_emb(input_ids) + model.pos_emb(pos)[None]
     h = model.ln_emb(h)
     for lp in model.layers:
-        h = postnorm_layer(lp, h, attention_mask, HEADS, train=train)
+        h = postnorm_layer(lp, h, attention_mask, HEADS, train=train,
+                           fused_blocks=fused_blocks)
     return h
 
 
@@ -78,3 +84,15 @@ def convert_encoder(sd) -> dict:
             "ln_ffn": ln_(sd, pre + "output_layer_norm"),
         })
     return p
+
+
+def model_def(name: str = "distilbert") -> ModelDef:
+    def build(num_classes: int = 4, *, layers: int = LAYERS, generator=None):
+        return TextClassifier(DistilBertEncoder(layers, generator=generator),
+                              encode, HIDDEN, num_classes,
+                              generator=generator)
+
+    return ModelDef(
+        name=name, build=build,
+        convert_torch=lambda sd, num_classes=4: convert_classifier(
+            sd, convert_encoder, num_classes))

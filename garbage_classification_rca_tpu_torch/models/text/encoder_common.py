@@ -1,22 +1,30 @@
 """Shared pieces of the BERT-family text encoders: the post-norm
 transformer layer and the HF-checkpoint helpers.
 
-The layer's attention takes the raw [B, L] key mask. In eval it goes
-through ``kernels/mha_fused.mha``; in train mode through
-``kernels/mha_fused.mha_flash_train`` (the forward that saves the
-logsumexp and the flash backward), as the JAX package's train path does.
-Each is the hand-written CUDA kernel on the card and its plain version on
-the CPU.
+The layer takes the raw [B, L] key mask. Its route is a pure function of
+the call's shape, dtype and flags, mirroring the JAX ``postnorm_layer``:
+  * eval with ``fused_blocks=True`` and a shape the fused pair takes
+    (``transformer_block.blocks_fit``): the two fused block kernels,
+    ``postnorm_attn_block`` + ``postnorm_mlp_block``, on the layer's
+    weights packed input-major once (``PostNormLayer.packed``);
+  * eval otherwise (the fusion tower passes ``fused_blocks=False``; a
+    sequence over 224 tokens does not fit): ``core.Linear``s around the
+    ``kernels/mha_fused.mha`` attention kernel;
+  * train: the same with ``mha_flash_train`` (the forward that saves the
+    logsumexp and the flash backward).
+Each kernel is the hand-written CUDA kernel on the card and its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ...kernels import transformer_block
 from ...kernels.mha_fused import mha, mha_flash_train
 from ...nn import core
 
@@ -34,16 +42,90 @@ class PostNormLayer(nn.Module):
         self.fc1 = core.Linear(hidden, ffn, generator=g)
         self.fc2 = core.Linear(ffn, hidden, generator=g)
         self.ln_ffn = core.LayerNorm(hidden, ln_eps)
+        self._packed = transformer_block.PackedWeights()
+
+    def packed(self):
+        """The layer's weights as the fused blocks take them: (attention
+        arguments, MLP arguments) after x and the mask. Built at first use
+        and again only when a parameter changed (a load, a cast, a move)."""
+        lins = (self.q, self.k, self.v, self.out, self.fc1, self.fc2)
+        lns = (self.ln_att, self.ln_ffn)
+
+        def build():
+            wqkv = torch.cat([self.q.w, self.k.w, self.v.w], 0).t().contiguous()
+            bqkv = torch.cat([self.q.b, self.k.b, self.v.b]).float()
+            attn = (wqkv, bqkv, self.out.w.t().contiguous(),
+                    self.out.b.float(), self.ln_att.scale.float(),
+                    self.ln_att.bias.float())
+            mlp = (self.fc1.w.t().contiguous(), self.fc1.b.float(),
+                   self.fc2.w.t().contiguous(), self.fc2.b.float(),
+                   self.ln_ffn.scale.float(), self.ln_ffn.bias.float())
+            return attn, mlp
+
+        return self._packed.get(
+            [t for m in lins for t in (m.w, m.b)]
+            + [t for m in lns for t in (m.scale, m.bias)], build)
+
+
+def takes_fused_blocks(p: PostNormLayer, x: torch.Tensor, heads: int, *,
+                       train: bool, fused_blocks: bool) -> bool:
+    """The routing rule of ``postnorm_layer``."""
+    b, n, d = x.shape
+    return (fused_blocks and not train and p.q.w.dtype == x.dtype
+            and transformer_block.blocks_fit(n, d, p.fc1.w.shape[0], heads,
+                                             x.dtype))
 
 
 def postnorm_layer(p: PostNormLayer, x: torch.Tensor, mask: torch.Tensor,
-                   heads: int, *, train: bool = False) -> torch.Tensor:
+                   heads: int, *, train: bool = False,
+                   fused_blocks: bool = True) -> torch.Tensor:
     """MHA -> add & LayerNorm -> GELU FFN -> add & LayerNorm."""
+    if takes_fused_blocks(p, x, heads, train=train,
+                          fused_blocks=fused_blocks):
+        attn, mlp = p.packed()
+        h = transformer_block.postnorm_attn_block(
+            x, mask, *attn, heads=heads, eps=p.ln_att.eps)
+        return transformer_block.postnorm_mlp_block(
+            h, *mlp, eps=p.ln_ffn.eps, act="gelu")
     attention = mha_flash_train if train else mha
     att = attention(p.q(x), p.k(x), p.v(x), heads=heads, mask=mask)
     x = p.ln_att(x + p.out(att))
     h = p.fc2(core.gelu(p.fc1(x)))
     return p.ln_ffn(x + h)
+
+
+class TextClassifier(nn.Module):
+    """A BERT-family encoder + ``Linear(hidden, n_classes)`` on the CLS
+    token — the JAX modules' ``apply`` in eval mode (its dropout is the
+    identity there; the train mode comes with the text trainer). The tree
+    layout is ``{"encoder": ..., "head": ...}``."""
+
+    def __init__(self, encoder: nn.Module, encode: Callable, hidden: int,
+                 num_classes: int = 4, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.encoder = encoder
+        self.encode = encode
+        self.head = core.Linear(hidden, num_classes, generator=generator)
+
+    def forward(self, input_ids, attention_mask):
+        """int32 [B, L] ids and mask -> logits [B, n_classes]."""
+        return self.head(self.encode(self.encoder, input_ids,
+                                     attention_mask)[:, 0])
+
+
+def convert_classifier(sd: Dict[str, np.ndarray], convert_encoder: Callable,
+                       num_classes: int = 4):
+    """Reference text-classifier .pth (encoder under ``model.`` or the HF
+    name, head under ``out.``) -> (params, state) in the JAX tree layout.
+    A checkpoint without the head gives the encoder only."""
+    params = {"encoder": convert_encoder(sd)}
+    if "out.weight" in sd:
+        head = lin(sd, "out")
+        if head["w"].shape[1] != num_classes:
+            raise ValueError("head class-count mismatch")
+        params["head"] = head
+    return params, {}
 
 
 def lin(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:

@@ -167,3 +167,93 @@ def test_flash_train_raises_on_cuda_misfit(cuda, shape, heads, dtype):
     with torch.enable_grad(), pytest.raises(ValueError):
         mha_fused.mha_flash_train(q, q, q, heads=heads)
     assert mha_fused.mha_fwd_lse.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the fused transformer blocks (csrc/transformer_block.cu)
+# ---------------------------------------------------------------------------
+
+
+def _block_inputs(b, n, d, ffn, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale)
+    w = lambda *s: r(*s, scale=s[0] ** -0.5).to(device, dtype)
+    vec = lambda k: r(k, scale=0.1).to(device, dtype)
+    x = r(b, n, d).to(device, dtype)
+    ls = (1.0 + r(d, scale=0.1)).to(device, dtype)
+    lb = vec(d)
+    attn = (w(d, 3 * d), vec(3 * d), w(d, d), vec(d))
+    mlp = (w(d, ffn), vec(ffn), w(ffn, d), vec(d))
+    lens = torch.randint(1, n + 1, (b,), generator=g)
+    m = (torch.arange(n)[None] < lens[:, None]).to(torch.int32)
+    m[0] = 0                                  # a fully masked row
+    return x, ls, lb, attn, mlp, m.to(device)
+
+
+def _block_close(got, want, dtype):
+    """fp32: |d| <= 2e-5 + 2e-5 |x| (summation order only). bf16: one ulp
+    of the value + 1e-2 of the tensor's largest |x| (a q/k/v, weight or
+    hidden element rounded to the neighbouring bf16 value moves the sums
+    it enters)."""
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    if dtype == torch.float32:
+        tol = 2e-5 + 2e-5 * w.abs()
+    else:
+        e = torch.floor(torch.log2(torch.maximum(g.abs(), w.abs())
+                                   .clamp_min(2.0 ** -126)))
+        tol = torch.pow(2.0, e - 7) + 1e-2 * float(w.abs().max())
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,heads,ffn", [
+    (5, 64, 768, 12, 3072), (3, 17, 128, 2, 272), (2, 197, 768, 12, 3072),
+    (2, 50, 1024, 16, 4096)])
+def test_transformer_block_kernels_match_plain(cuda, b, n, d, heads, ffn,
+                                               dtype):
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(b, n, d, ffn, dtype, cuda,
+                                            n + d)
+    fns = (tb.postnorm_attn_block, tb.postnorm_mlp_block, tb.attn_block,
+           tb.mlp_block)
+    before = [f.launches for f in fns]
+    got = [tb.postnorm_attn_block(x, m, *attn, ls, lb, heads=heads),
+           tb.postnorm_mlp_block(x, *mlp, ls, lb),
+           tb.attn_block(x, ls, lb, *attn, heads=heads),
+           tb.mlp_block(x, ls, lb, *mlp),
+           tb.mlp_block(x, ls, lb, *mlp, act="relu")]
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + k for c, k in
+                                         zip(before, (1, 1, 1, 2))]
+    want = [tb.postnorm_attn_block_reference(x, m, *attn, ls, lb,
+                                             heads=heads),
+            tb.postnorm_mlp_block_reference(x, *mlp, ls, lb),
+            tb.attn_block_reference(x, ls, lb, *attn, heads=heads),
+            tb.mlp_block_reference(x, ls, lb, *mlp),
+            tb.mlp_block_reference(x, ls, lb, *mlp, act="relu")]
+    for a, c in zip(got, want):
+        _block_close(a, c, dtype)
+
+
+def test_transformer_blocks_raise_on_cuda_misfit(cuda):
+    """On the card a shape the kernels do not take raises; so does a call
+    that would need a gradient (the kernels are forward only)."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(2, 16, 96, 64, torch.float32,
+                                            cuda, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        tb.attn_block(x, ls, lb, *attn, heads=3)          # head dim 32
+    x, ls, lb, attn, mlp, m = _block_inputs(1, 225, 128, 64, torch.float32,
+                                            cuda, 0)
+    with pytest.raises(ValueError, match="N <= 224"):
+        tb.postnorm_attn_block(x, m, *attn, ls, lb, heads=2)
+    x, ls, lb, attn, mlp, m = _block_inputs(1, 8, 128, 64, torch.float32,
+                                            cuda, 0)
+    with torch.enable_grad(), pytest.raises(RuntimeError,
+                                            match="forward-only"):
+        tb.mlp_block(x.requires_grad_(), ls, lb, *mlp)

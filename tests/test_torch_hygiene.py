@@ -25,7 +25,8 @@ from garbage_classification_rca_tpu_torch.data import images as timages
 from garbage_classification_rca_tpu_torch.data import manifest as tmanifest
 from garbage_classification_rca_tpu_torch.data import pipeline as tpipeline
 from garbage_classification_rca_tpu_torch.data import tokenizer as ttokenizer
-from garbage_classification_rca_tpu_torch.kernels import mha_fused, rca_fused
+from garbage_classification_rca_tpu_torch.kernels import (mha_fused, rca_fused,
+                                                          transformer_block)
 from garbage_classification_rca_tpu_torch.models.fusion import multimodal as tmm
 
 torch.set_num_threads(2)
@@ -46,15 +47,21 @@ bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib",
              "garbage_classification_rca_tpu"))
 print(len(names))
 print(bad)
+print(sorted(names))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, check=True)
-    n, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n) >= 20          # every module of the port was imported
+    n, bad, names = out.stdout.strip().splitlines()[-3:]
+    assert int(n) >= 30          # every module of the port was imported
     assert bad == "[]", bad
+    pkg = "garbage_classification_rca_tpu_torch."
+    for mod in ("kernels.transformer_block", "models.text.bert",
+                "models.text.roberta", "models.image.vit", "models.registry",
+                "cli.test_text", "cli.test_image", "utils.dtype"):
+        assert f"'{pkg}{mod}'" in names, mod
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -68,6 +75,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_both.main(["--late_fusion=MM_RCA", "--model_path=x.pth"])
+    from garbage_classification_rca_tpu_torch.cli import test_image, test_text
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model, get_text_model)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_text.main(["--text_model=bert", "--model_path=x.pth"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_image.main(["--image_model=transformer_B16",
+                         "--model_path=x.pth"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_text_model("distilbert").load_tree({"encoder": {"layers": []}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_image_model("transformer_B16").load_tree({"layers": []})
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -86,6 +106,22 @@ def test_kernel_wrappers_refuse_other_devices():
     q = torch.empty(2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         mha_fused.mha(q, q, q, heads=4)
+    e = lambda *shape: torch.empty(shape, device="meta")
+    attn = (e(64, 192), e(192), e(64, 64), e(64))
+    mlp = (e(64, 32), e(32), e(32, 64), e(64))
+    for call in (
+            lambda: transformer_block.postnorm_attn_block(
+                q, None, *attn, e(64), e(64), heads=1),
+            lambda: transformer_block.postnorm_mlp_block(q, *mlp, e(64),
+                                                         e(64)),
+            lambda: transformer_block.attn_block(q, e(64), e(64), *attn,
+                                                 heads=1),
+            lambda: transformer_block.mlp_block(q, e(64), e(64), *mlp)):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            call()
+    with pytest.raises(ValueError, match="different devices"):
+        transformer_block.mlp_block(torch.zeros(2, 8, 64), e(64), e(64),
+                                    *[torch.zeros(t.shape) for t in mlp])
 
 
 @pytest.mark.parametrize("script", sorted((ROOT / "scripts" / "reference")
@@ -104,12 +140,71 @@ def test_compute_dtype_mapping():
     assert tconfig.torch_compute_dtype("float32") is torch.float32
 
 
+def test_arch_tables_and_dtype_policy_match_jax():
+    """The port's own copies: the per-arch run tables, the eval CLIs'
+    param-dtype policy, the model constants and the registry's names."""
+    import types
+
+    import jax.numpy as jnp_
+
+    from garbage_classification_rca_tpu.models import registry as jreg
+    from garbage_classification_rca_tpu.models.image import vit as jvit
+    from garbage_classification_rca_tpu.models.text import bert as jbert
+    from garbage_classification_rca_tpu.models.text import roberta as jrob
+    from garbage_classification_rca_tpu.utils import dtype as jdtype
+    from garbage_classification_rca_tpu_torch.models import registry as treg
+    from garbage_classification_rca_tpu_torch.models.image import vit as tvit
+    from garbage_classification_rca_tpu_torch.models.text import bert as tbert
+    from garbage_classification_rca_tpu_torch.models.text import (
+        roberta as trob)
+    from garbage_classification_rca_tpu_torch.utils import dtype as tdtype
+
+    for table in ("TEXT_ARCHS", "IMAGE_ARCHS"):
+        want = {k: dataclasses.astuple(v)
+                for k, v in getattr(jconfig, table).items()}
+        got = {k: dataclasses.astuple(v)
+               for k, v in getattr(tconfig, table).items()}
+        assert got == want
+    same = {jnp_.bfloat16: torch.bfloat16, jnp_.float32: torch.float32}
+    for param in ("", "float32", "bfloat16"):
+        for default in ("float32", "bfloat16"):
+            args = types.SimpleNamespace(param_dtype=param)
+            assert tdtype.resolve_param_dtype(args, default) is same[
+                jdtype.resolve_param_dtype(args, default)]
+    assert set(treg.IMAGE_MODELS) == set(jreg.IMAGE_MODELS)
+    assert set(treg.TEXT_MODELS) == set(jreg.TEXT_MODELS)
+    assert {k: dataclasses.astuple(v) for k, v in tvit.CONFIGS.items()} == {
+        k: dataclasses.astuple(v) for k, v in jvit.CONFIGS.items()}
+    for name in ("HIDDEN", "LAYERS", "HEADS", "FFN", "VOCAB", "MAX_POS",
+                 "TYPE_VOCAB", "LN_EPS"):
+        assert getattr(tbert, name) == getattr(jbert, name), name
+    for name in ("HIDDEN", "LAYERS", "VOCAB", "MAX_POS", "PAD_IDX"):
+        assert getattr(trob, name) == getattr(jrob, name), name
+    import garbage_classification_rca_tpu as jpkg
+    import garbage_classification_rca_tpu_torch as tpkg
+
+    assert tpkg.NUM_CLASSES == jpkg.NUM_CLASSES
+
+
+def test_convert_checked_reports_a_wrong_architecture():
+    from garbage_classification_rca_tpu_torch.checkpoint.torch_convert import (
+        convert_checked)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+
+    sd = {"features.0.weight": np.zeros((2, 2), np.float32)}
+    with pytest.raises(SystemExit, match="does not match --image_model=x"):
+        convert_checked(get_image_model("transformer_B16").convert_torch, sd,
+                        "--image_model=x", num_classes=4)
+
+
 def test_tokenizers_match_jax():
     texts = ["coffee cup", "greasy pizza box with sauce", "", "UNKNOWNWORD!",
              "water bottle " * 40]
-    for name in ("distilbert", "bert", "gpt2"):
-        tt = ttokenizer.get_tokenizer(name, vocab_dir=str(VOCAB))
-        jt = jtokenizer.get_tokenizer(name, vocab_dir=str(VOCAB))
+    for name in ("distilbert", "bert", "gpt2", "roberta"):
+        vocab = VOCAB.parent / "bpe" if name == "roberta" else VOCAB
+        tt = ttokenizer.get_tokenizer(name, vocab_dir=str(vocab))
+        jt = jtokenizer.get_tokenizer(name, vocab_dir=str(vocab))
         for seq in (16, 64):
             a, b = tt.encode_batch(texts, seq), jt.encode_batch(texts, seq)
             assert np.array_equal(a.input_ids, b.input_ids)
