@@ -23,8 +23,9 @@ Phases, each of which fails the run when it fails:
      three optimizer steps all trainable and one with the phase-1 mask,
      launch counters read around them (per microbatch: K1 1, K3 1, K4a 6,
      K4b 6); steps/s, samples/s, peak memory, a profiler breakdown; one
-     microbatch's loss and gradients on the kernel path against the plain
-     path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
+     more step with ``hf_internal_dropout`` (per microbatch K1 1, K3 1,
+     K7a 6, K7b 6); microbatches' loss and gradients on the kernel path
+     against the plain path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
      epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
      BEST checkpoint;
   6. text eval: BERT-base at full width and depth (12 layers, seq 64,
@@ -37,7 +38,21 @@ Phases, each of which fails the run when it fails:
      bf16) through ``run_image_eval``: K6a 12 and K6b 12 per batch, the
      same readings; then ``cli.test_text`` (DistilBERT) and
      ``cli.test_image`` (ViT-B/16) evaluate reference-layout ``.pth`` files
-     on a synthetic JPEG tree.
+     on a synthetic JPEG tree;
+  8. text train: the DistilBERT classifier at full width and depth (batch
+     128, seq 64, fp32, SGD, head dropout 0.6, class weights) with
+     ``--hf_internal_dropout``: three steps all trainable and one head
+     only, per microbatch K7a 6, K7b 6, K4a 0, K4b 0; a step with the flag
+     off (K4a 6, K4b 6, K7 0); a step of BERT-base with the flag (12 + 12);
+     one microbatch's loss and gradients on the kernel path against the
+     plain path from the same key; steps/s, samples/s, peak memory, a
+     profiler breakdown; then ``cli.main_text --hf_internal_dropout`` for
+     1 + 1 epochs on a synthetic tree and ``cli.test_text`` on its BEST
+     file;
+  9. image train: ViT-B/16 at full width and depth (batch 128, 224x224,
+     bf16 images over fp32 master weights, augmentation p=1.0): K4a 12 and
+     K4b 12 per microbatch, the same readings; ``cli.main_image`` ->
+     ``cli.test_image``.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -48,7 +63,9 @@ Tolerances (kernel vs plain version, same inputs, same card):
     kernel); mha and mha_fwd_lse |d| <= 1e-5 + 1e-5|x|. They compute in
     fp32 and differ only in summation order. The backward kernels
     (rca_fused_bwd, mha_flash_bwd): |d| <= 5e-5 (1 + |x|), the JAX
-    package's backward bar.
+    package's backward bar. The dropout pair (mha_fwd_lse_drop,
+    mha_flash_bwd_drop) is held to its plain pair's limits, fp32 and bf16,
+    on the same keep mask.
   * bf16: |d| <= one bf16 ulp of the value + 1e-5 (rca_fused: fp32 math,
     one final rounding that may land on either neighbour) and + 1e-3 for
     mha (its softmax weights are rounded to bf16 before the PV product,
@@ -73,12 +90,16 @@ Tolerances (kernel vs plain version, same inputs, same card):
     bf16 image tower, whose gradients move that far when the RCA block's
     di moves by one bf16 ulp in a few elements — measured in the same run);
     biases whose gradient is rounding noise around an exact zero are held
-    to their sibling weight's scale.
+    to their sibling weight's scale. The unimodal train paths
+    (``compare_unimodal_paths``) are held the same way: fp32 1e-5 / 1e-4,
+    bf16 images (ViT) 1e-3 and cosine >= 0.999.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -140,6 +161,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, trials: int = 5):
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out), min(out), max(out)
+
+
+def time_ms_eager(fn, reps: int = 20, warmup: int = 3, trials: int = 5):
+    """Device time of one call without a CUDA graph, for calls that seed a
+    generator (a CUDA graph cannot capture that): CUDA events around
+    `reps` eager calls, `trials` times; host launch gaps count. Returns
+    (median, min, max) in ms per call."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / reps)
@@ -489,6 +535,196 @@ def check_mha_train(device, report):
           f"[{b_lo:.4f}, {b_hi:.4f}] ms, plain {plain_b:.4f} ms, efficient "
           f"attention backward {lib_b:.4f} ms, bound "
           f"{report['mha_flash_bwd']['bound_ms']:.4f} ms", flush=True)
+    ok_all &= _mha_train_vit_shape(device, report, gen)
+    return ok_all
+
+
+def _mha_train_vit_shape(device, report, gen):
+    """K4a / K4b at the image trainer's shape: ViT-B/16, batch 128, 197
+    tokens, no mask, bf16. Checked against the plain versions and timed;
+    the readings go under ``vit_shape`` of the two kernels' rows."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    b, n, d, h, dtype = 128, 197, 768, 12, torch.bfloat16
+    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device, dtype)
+                   for _ in range(4))
+    o, lse = K.mha_fwd_lse(q, k, v, heads=h)
+    grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h)
+    torch.cuda.synchronize()
+    o_w, lse_w = K.mha_fwd_lse_reference(q, k, v, heads=h)
+    e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
+    e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
+    want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h)
+    errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
+    del o_w, lse_w, want
+    ok = ok_o and ok_l and all(o_ for _, o_ in errs)
+    ms_f = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h), reps=5)[0]
+    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h),
+                      reps=5)[0]
+    ms_b = time_ms(lambda: K.mha_flash_bwd(q, k, v, o, do, lse, heads=h),
+                   reps=5)[0]
+    plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
+        q, k, v, o, do, lse, heads=h), reps=5)[0]
+    lib = _efficient_attention(q, k, v, None, h)
+    lib_f = time_ms(lambda: _efficient_attention(q, k, v, None, h),
+                    reps=5)[0]
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    lib_b = time_ms(lambda: torch.ops.aten.
+                    _scaled_dot_product_efficient_attention_backward(
+                        rs(do), rs(q), rs(k), rs(v), None, lib[0], lib[1],
+                        lib[2], lib[3], 0.0, [True, True, True, False]),
+                    reps=5)[0]
+    item = q.element_size()
+    rows = (("mha_fwd_lse", ms_f, plain_f, lib_f, 4 * b * n * n * d,
+             4 * q.numel() * item + b * h * n * 4, max(e_o, e_l)),
+            ("mha_flash_bwd", ms_b, plain_b, lib_b, 10 * b * n * n * d,
+             8 * q.numel() * item + b * h * n * 4,
+             max(e for e, _ in errs)))
+    for name, ms, plain, lib_ms, flops, nbytes, err in rows:
+        bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        report[name]["vit_shape"] = {
+            "shape": [b, n, d], "heads": h, "dtype": "bfloat16",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": lib_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+        print(f"  {name} B={b} N={n} D={d} bf16 unmasked (ViT-B/16 train): "
+              f"max|d|={err:.3e} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, efficient attention {lib_ms:.4f} "
+              f"ms, bound {report[name]['vit_shape']['bound_ms']:.4f} ms",
+              flush=True)
+    return ok
+
+
+def check_mha_drop(device, report):
+    """K7a and K7b against their plain versions on the same keep mask: the
+    text trainer's shape (fp32 [128, 64, 768], 12 heads, p 0.1, random key
+    lengths), bf16, causal, unmasked, N = 197 and N = 50 (odd rows of mask
+    bytes), N = 512, p = 0.5; every masked case with a fully masked sample
+    and every case with a fully dropped row. The mask is drawn twice from
+    the key and must come out the same, bit for bit. Times: the kernels on
+    a mask drawn before (CUDA graph) and with the draw (eager), the plain
+    versions, and the library's efficient attention with dropout_p (it
+    draws its own mask inside: a yardstick of time, never an oracle)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    ok_all, main = True, None
+    cases = [(128, 64, 768, 12, True, False, 0.1),
+             (16, 64, 768, 12, True, True, 0.1),
+             (8, 197, 768, 12, False, False, 0.1),
+             (8, 50, 768, 12, True, False, 0.1),
+             (4, 512, 768, 12, True, False, 0.1),
+             (16, 64, 768, 12, True, False, 0.5),
+             (4, 197, 1024, 16, False, False, 0.1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (b, n, d, h, masked, causal, p) in enumerate(cases):
+            q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device,
+                                                                  dtype)
+                           for _ in range(4))
+            m = None
+            if masked:
+                m = _mask(b, n, gen, device)
+                m[-1] = 0                     # every key of this sample
+            key = Key(SEED + 61 + ci)
+            dm = K.drop_keep_mask(key, p, b, h, n, device)
+            same = torch.equal(dm, K.drop_keep_mask(key, p, b, h, n, device))
+            dm[0, 0, 1] = 0                   # a fully dropped row
+            kw = dict(heads=h, keep=1.0 - p, mask=m, causal=causal)
+            o, lse = K.mha_fwd_lse_drop(q, k, v, dm, **kw)
+            grads = K.mha_flash_bwd_drop(q, k, v, o, do, lse, dm, **kw)
+            torch.cuda.synchronize()
+            o_w, lse_w = K.mha_fwd_lse_drop_reference(q, k, v, dm, **kw)
+            e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
+            e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
+            want = K.mha_flash_bwd_drop_reference(q, k, v, o, do, lse, dm,
+                                                  **kw)
+            errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
+            e_b = max(e for e, _ in errs)
+            zero_row = bool((o[0, 1, :d // h] == 0).all())
+            ok = (same and ok_o and ok_l and zero_row
+                  and all(o_ for _, o_ in errs))
+            ok_all &= ok
+            print(f"  mha_fwd_lse_drop/mha_flash_bwd_drop {str(dtype)[6:]:8s} "
+                  f"B={b:3d} N={n:3d} D={d} p={p} mask={masked!s:5s} causal="
+                  f"{causal!s:5s}: fwd max|d|={e_o:.3e} lse {e_l:.3e} bwd "
+                  f"{e_b:.3e} redraw equal={same} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if dtype == torch.float32 and ci == 0:
+                main = dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o, lse=lse,
+                            dm=dm, key=key, p=p, e_f=max(e_o, e_l), e_b=e_b)
+            del o_w, lse_w, want
+    q, k, v, do, m, h, o, lse, dm, key, p = (main[x] for x in (
+        "q", "k", "v", "do", "m", "h", "o", "lse", "dm", "key", "p"))
+    b, n, d = q.shape
+    kw = dict(heads=h, keep=1.0 - p, mask=m)
+    ms_f, f_lo, f_hi = time_ms(lambda: K.mha_fwd_lse_drop(q, k, v, dm, **kw))
+    ms_b, b_lo, b_hi = time_ms(lambda: K.mha_flash_bwd_drop(
+        q, k, v, o, do, lse, dm, **kw))
+    plain_f = time_ms(lambda: K.mha_fwd_lse_drop_reference(q, k, v, dm,
+                                                           **kw))[0]
+    plain_b = time_ms(lambda: K.mha_flash_bwd_drop_reference(
+        q, k, v, o, do, lse, dm, **kw))[0]
+    draw = time_ms_eager(lambda: K.drop_keep_mask(key, p, b, h, n, device))[0]
+    with_draw_f = time_ms_eager(lambda: K.mha_fwd_lse_drop(
+        q, k, v, K.drop_keep_mask(key, p, b, h, n, device), **kw))[0]
+    with_draw_b = time_ms_eager(lambda: K.mha_flash_bwd_drop(
+        q, k, v, o, do, lse, K.drop_keep_mask(key, p, b, h, n, device),
+        **kw))[0]
+    bias = ((m.float() - 1.0) * 1e30)[:, None, None, :].expand(
+        b, h, n, n).contiguous()
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    lib_call = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        rs(q), rs(k), rs(v), bias, True, p)
+    lib = lib_call()
+    lib_f = time_ms_eager(lib_call)[0]
+    lib_b = time_ms_eager(
+        lambda: torch.ops.aten.
+        _scaled_dot_product_efficient_attention_backward(
+            rs(do), rs(q), rs(k), rs(v), bias, lib[0], lib[1], lib[2],
+            lib[3], p, [True, True, True, False]))[0]
+    item = q.element_size()
+    small = m.numel() * 4 + b * h * n * 4            # key mask and lse
+    rows = (("mha_fwd_lse_drop", ms_f, plain_f, lib_f, with_draw_f,
+             4 * b * n * n * d, 4 * q.numel() * item + dm.numel() + small,
+             main["e_f"], 560),
+            ("mha_flash_bwd_drop", ms_b, plain_b, lib_b, with_draw_b,
+             10 * b * n * n * d, 8 * q.numel() * item + dm.numel() + small,
+             main["e_b"], 610))
+    for name, ms, plain, lib_ms, with_draw, flops, nbytes, err, line in rows:
+        bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        report[name] = {
+            "name": name, "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
+            "replaces": f"garbage_classification_rca_tpu/kernels/mha_fused.py:"
+                        f"{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": lib_ms,
+            "library_is": "efficient attention with dropout_p (draws its own "
+                          "mask inside), eager",
+            "ms_with_mask_draw_eager": with_draw, "mask_draw_ms_eager": draw,
+            "bytes": nbytes, "gflops": flops / 1e9}
+    print(f"  mha_fwd_lse_drop B={b} N={n} D={d} fp32 p={p} (median of 5 "
+          f"[min, max]): kernel {ms_f:.4f} [{f_lo:.4f}, {f_hi:.4f}] ms, with "
+          f"the mask draw (eager) {with_draw_f:.4f} ms (the draw alone "
+          f"{draw:.4f} ms), plain {plain_f:.4f} ms, efficient attention with "
+          f"dropout (eager) {lib_f:.4f} ms, bound "
+          f"{report['mha_fwd_lse_drop']['bound_ms']:.4f} ms "
+          f"({report['mha_fwd_lse_drop']['bound_by']})", flush=True)
+    print(f"  mha_flash_bwd_drop same shape: kernel {ms_b:.4f} [{b_lo:.4f}, "
+          f"{b_hi:.4f}] ms, with the mask draw (eager) {with_draw_b:.4f} ms, "
+          f"plain {plain_b:.4f} ms, efficient attention backward with "
+          f"dropout (eager) {lib_b:.4f} ms, bound "
+          f"{report['mha_flash_bwd_drop']['bound_ms']:.4f} ms "
+          f"({report['mha_flash_bwd_drop']['bound_by']})", flush=True)
     return ok_all
 
 
@@ -715,11 +951,21 @@ def plain_versions():
     from garbage_classification_rca_tpu_torch.models.image import vit
     from garbage_classification_rca_tpu_torch.models.text import encoder_common
 
+    def plain_dropout(q, k, v, *, heads, key, p, scale=0.0, mask=None,
+                      causal=False):
+        b, n, _ = q.shape
+        dm = mha_fused.drop_keep_mask(key, p, b, heads, n, q.device)
+        return mha_fused.mha_fwd_lse_drop_reference(
+            q, k, v, dm, heads=heads, keep=1.0 - p, scale=scale, mask=mask,
+            causal=causal)[0]
+
     sites = ((tb, "postnorm_attn_block", tb.postnorm_attn_block_reference),
              (tb, "postnorm_mlp_block", tb.postnorm_mlp_block_reference),
              (tb, "attn_block", tb.attn_block_reference),
              (tb, "mlp_block", tb.mlp_block_reference),
              (vit, "mha", mha_fused.mha_reference),
+             (vit, "mha_flash_train", mha_fused.mha_reference),
+             (encoder_common, "mha_flash_train_dropout", plain_dropout),
              (encoder_common, "mha", mha_fused.mha_reference),
              (encoder_common, "mha_flash_train", mha_fused.mha_reference),
              (multimodal, "rca_fused", rca_fused.rca_fused_reference),
@@ -960,6 +1206,8 @@ def _counters():
             "rca_fused_bwd": rca_fused.rca_fused_bwd,
             "mha_fwd_lse": mha_fused.mha_fwd_lse,
             "mha_flash_bwd": mha_fused.mha_flash_bwd,
+            "mha_fwd_lse_drop": mha_fused.mha_fwd_lse_drop,
+            "mha_flash_bwd_drop": mha_fused.mha_flash_bwd_drop,
             "postnorm_attn_block": tb.postnorm_attn_block,
             "postnorm_mlp_block": tb.postnorm_mlp_block,
             "attn_block": tb.attn_block, "mlp_block": tb.mlp_block}
@@ -1260,7 +1508,7 @@ def compare_train_paths(model, cfg, stack, class_weights, results):
     return ok
 
 
-def profile_train_step(step, stack, key, reps=1):
+def profile_train_step(step, stack, key, reps=1, acc_steps=None):
     """torch.profiler over `reps` train steps: device time by kind of
     kernel and the device's idle share of the window."""
     import torch
@@ -1291,7 +1539,8 @@ def profile_train_step(step, stack, key, reps=1):
            "idle_share": 1.0 - busy / (wall * 1e3 / reps),
            "device_ops_per_step": ops // reps,
            "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
-    print(f"  profile of one train step ({ACC_STEPS} microbatches): device "
+    print(f"  profile of one train step ({acc_steps or ACC_STEPS} "
+          f"microbatches): device "
           f"{busy:.1f} ms, wall {out['wall_ms_per_step']:.1f} ms, idle share "
           f"{out['idle_share']:.3f}, {out['device_ops_per_step']} device "
           f"operations (kernels, copies, fills) launched", flush=True)
@@ -1393,15 +1642,31 @@ def check_train(device, results):
     results["train_launches"] = launches
     results["train"]["profile"] = profile_train_step(step_all, stack,
                                                      key.fold_in(200))
+    # one further step with the DistilBERT tower's internal dropout on
+    model.cfg = dataclasses.replace(cfg, hf_internal_dropout=True)
+    _zero_counters()
+    loss_hf = float(step_all(stack, key.fold_in(300))[0])
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    model.cfg = cfg
+    want = _want_launches(rca_fused=ACC_STEPS, rca_fused_bwd=ACC_STEPS,
+                          mha_fwd_lse_drop=6 * ACC_STEPS,
+                          mha_flash_bwd_drop=6 * ACC_STEPS)
+    ok &= launches == want and loss_hf == loss_hf
+    print(f"  one step with hf_internal_dropout: loss {loss_hf:.4f}, "
+          f"launches { {k: v for k, v in launches.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }, every other 0)",
+          flush=True)
+    results["train_hf_dropout_launches"] = launches
     ok &= compare_train_paths(model, cfg, stack, class_weights, results)
     del model, stack
     torch.cuda.empty_cache()
     return ok
 
 
-def _write_jpeg_tree(root, n_train, n_val, seed):
-    """A 4-class tree ``<root>_Train`` / ``<root>_Val`` of 480x480 JPEGs
-    whose file names carry the text."""
+def _write_jpeg_tree(root, n_train, n_val, seed, size=480):
+    """A 4-class tree ``<root>_Train`` / ``<root>_Val`` of `size` x `size`
+    JPEGs whose file names carry the text."""
     import os
 
     import numpy as np
@@ -1415,7 +1680,7 @@ def _write_jpeg_tree(root, n_train, n_val, seed):
             d = os.path.join(root + split, cls)
             os.makedirs(d, exist_ok=True)
             for j in range(n // 4):
-                arr = rng.integers(0, 256, (480, 480, 3), dtype=np.uint8)
+                arr = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
                 arr[..., c % 3] //= 2
                 Image.fromarray(arr).save(
                     os.path.join(d, f"{text.replace(' ', '_')}_{j}.jpg"),
@@ -1824,6 +2089,380 @@ def check_eval_clis(device, results):
     return all(v["ok"] for v in out.values())
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the unimodal train paths
+# ---------------------------------------------------------------------------
+
+TEXT_TRAIN_BATCH, BERT_TRAIN_BATCH = 128, 64     # TEXT_ARCHS train batches
+IMAGE_TRAIN_BATCH = 128                          # IMAGE_ARCHS, B/16
+UNIMODAL_LR, UNIMODAL_REG = 0.001, 0.01          # the CLIs' defaults
+
+
+def _unimodal_grads(model, forward, inputs, mb, class_weights, key):
+    """One microbatch's loss and {name: grad} through the model's current
+    call sites (kernels or plain versions)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.train.loss import (
+        cross_entropy_loss_and_weight)
+
+    for p in model.parameters():
+        p.grad = None
+    with torch.enable_grad():
+        logits = forward(*inputs, train=True, key=key)
+        loss, _ = cross_entropy_loss_and_weight(
+            logits, mb["label"], class_weights, 0.0, mb["valid"])
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def compare_unimodal_paths(title, model, forward, inputs, mb, class_weights,
+                           key, fp32):
+    """Kernel path against plain path from the same key (the dropout masks
+    are drawn outside the kernels, so both paths see the same ones). fp32
+    with TF32 off: the loss within 1e-5 relative, every gradient within
+    1e-4 of its tensor's largest |g|; bf16 activations: 1e-3 and cosine >=
+    BF16_COS. The attention key biases, whose gradient is zero in exact
+    arithmetic, are held to their sibling weight's scale as
+    ``compare_train_paths`` holds them."""
+    import torch
+
+    exact_zero = {n for n, _ in model.named_parameters()
+                  if n.endswith("k.b")}
+    torch.backends.cudnn.allow_tf32 = not fp32
+    lk, gk = _unimodal_grads(model, forward, inputs, mb, class_weights, key)
+    with plain_versions():
+        lp, gp = _unimodal_grads(model, forward, inputs, mb, class_weights,
+                                 key)
+    torch.backends.cudnn.allow_tf32 = True
+    rel = abs(lk - lp) / max(abs(lp), 1e-30)
+    scores, biases, zeros, finite = _grad_scores(gk, gp, fp32, exact_zero)
+    ok = finite and lk == lk and rel <= (1e-5 if fp32 else 1e-3)
+    ok &= all(z <= 0.1 for z, _ in zeros)
+    ok &= all(r <= (1e-4 if fp32 else BF16_NOISE_BIAS) for r, _ in biases)
+    ok &= all((r <= 1e-4) if fp32 else (r >= BF16_COS) for r, _ in scores)
+    row = {"loss_kernel": lk, "loss_plain": lp, "loss_rel": rel,
+           "worst": _worst(scores), "worst_key_bias": _worst(biases),
+           "exact_zero_worst": _worst(zeros)}
+    print(f"  {title}, kernel vs plain, {'fp32' if fp32 else 'bf16'}: "
+          f"{json.dumps(row)} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, row
+
+
+def _timed_steps(steps, stack, key, device):
+    """Run the steps; (wall seconds, losses, launches, peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_counters()
+    t0 = time.perf_counter()
+    losses = [float(step(stack, key.fold_in(s))[0])
+              for s, step in enumerate(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, losses, _read_counters(), torch.cuda.max_memory_allocated(
+        device)
+
+
+def _shown(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def check_text_train(device, results):
+    """The text trainer's step at full width and depth: DistilBERT, batch
+    128, seq 64, fp32, SGD, head dropout 0.6, class weights, with and
+    without ``hf_internal_dropout``; one step of BERT-base with it."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.main_text import (
+        HEAD_DROPOUT, head_keys_for)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_text_model)
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        head_only_mask, make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    ok = True
+    tok = get_tokenizer("distilbert",
+                        vocab_dir="tests/fixtures/vocab/wordpiece")
+    class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
+    key = Key(SEED + 70)
+
+    def stack_of(batch):
+        data = SyntheticEvalBatcher(1, batch, SEED + 71, tokenizer=tok,
+                                    seq_len=TEXT_SEQ)
+        return {k: torch.from_numpy(v)[None].to(device)
+                for k, v in data.batches[0].items()}
+
+    def inputs(mb, key):
+        return (mb["input_ids"], mb["attention_mask"])
+
+    def make(model, flag, trainable=None):
+        opt = make_optimizer("sgd", model.named_parameters(), UNIMODAL_LR,
+                             UNIMODAL_REG, trainable)
+        return make_train_step(
+            model, opt, batch_to_inputs=inputs, class_weights=class_weights,
+            forward=functools.partial(model, drop_ratio=HEAD_DROPOUT,
+                                      hf_internal_dropout=flag))
+
+    model = get_text_model("distilbert").build(
+        4, generator=torch.Generator().manual_seed(SEED + 72)).to(
+            device).eval()
+    stack = stack_of(TEXT_TRAIN_BATCH)
+    step_on = make(model, True)
+    step_heads = make(model, True, head_only_mask(
+        model, head_keys_for("distilbert")))
+    step_off = make(model, False)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in ("encoder.layers.0.q.w", "encoder.word_emb.w",
+                       "head.w")}
+    float(step_on(stack, key.fold_in(100))[0])             # warm-up
+    float(step_off(stack, key.fold_in(101))[0])
+    wall, losses, launches, peak = _timed_steps(
+        (step_on, step_on, step_on, step_heads), stack, key, device)
+    want = _want_launches(mha_fwd_lse_drop=6 * 4, mha_flash_bwd_drop=6 * 4)
+    changed = {n: bool((p.detach() != before[n]).any())
+               for n, p in model.named_parameters() if n in before}
+    finite = all(l == l and abs(l) < float("inf") for l in losses)
+    ok &= launches == want and finite and all(changed.values())
+    print(f"  distilbert, hf_internal_dropout: 4 steps of {TEXT_TRAIN_BATCH} "
+          f"in {wall:.3f} s: {4 / wall:.2f} steps/s, "
+          f"{4 * TEXT_TRAIN_BATCH / wall:.1f} samples/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses}; launches "
+          f"{_shown(launches)} (want {_shown(want)}, every other 0); params "
+          f"changed {changed}", flush=True)
+    results["text_train_launches"] = launches
+    results["text_train"] = {
+        "steps_per_s": 4 / wall, "samples_per_s": 4 * TEXT_TRAIN_BATCH / wall,
+        "step_ms": wall / 4 * 1e3, "peak_mem_gib": peak / 2**30,
+        "losses": losses, "batch": TEXT_TRAIN_BATCH, "seq": TEXT_SEQ}
+    wall, losses, launches, _ = _timed_steps((step_off,) * 4, stack, key,
+                                             device)
+    want = _want_launches(mha_fwd_lse=6 * 4, mha_flash_bwd=6 * 4)
+    ok &= launches == want and all(l == l for l in losses)
+    print(f"  distilbert, flag off: 4 steps in {wall:.3f} s: "
+          f"{4 / wall:.2f} steps/s; launches {_shown(launches)} (want "
+          f"{_shown(want)}, every other 0)", flush=True)
+    results["text_train"]["flag_off_steps_per_s"] = 4 / wall
+    results["text_train_flag_off_launches"] = launches
+    results["text_train"]["profile"] = profile_train_step(
+        step_on, stack, key.fold_in(200), reps=3, acc_steps=1)
+    results["text_train"]["profile_flag_off"] = profile_train_step(
+        step_off, stack, key.fold_in(201), reps=3, acc_steps=1)
+    mb = {k: v[0] for k, v in stack.items()}
+    good, row = compare_unimodal_paths(
+        "distilbert microbatch with hf_internal_dropout", model,
+        functools.partial(model, drop_ratio=HEAD_DROPOUT,
+                          hf_internal_dropout=True),
+        inputs(mb, None), mb, class_weights, Key(SEED + 73), True)
+    ok &= good
+    results["text_train"]["grad_check"] = row
+    del model, step_on, step_heads, step_off
+    torch.cuda.empty_cache()
+
+    bert = get_text_model("bert").build(
+        4, generator=torch.Generator().manual_seed(SEED + 74)).to(
+            device).eval()
+    stack = stack_of(BERT_TRAIN_BATCH)
+    step = make(bert, True)
+    wall, losses, launches, _ = _timed_steps((step,), stack, key, device)
+    want = _want_launches(mha_fwd_lse_drop=12, mha_flash_bwd_drop=12)
+    ok &= launches == want and losses[0] == losses[0]
+    print(f"  bert, hf_internal_dropout: one step of {BERT_TRAIN_BATCH}: "
+          f"loss {losses[0]:.4f}, launches {_shown(launches)} (want "
+          f"{_shown(want)}, every other 0)", flush=True)
+    del bert, step
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_image_train(device, results):
+    """The image trainer's step at full width and depth: ViT-B/16, batch
+    128, 224x224, bf16 images over fp32 master weights, augmentation at
+    p=1.0, SGD, class weights."""
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.main_image import (
+        head_keys_for)
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        head_only_mask, make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    ok = True
+    model = get_image_model("transformer_B16").build(
+        4, generator=torch.Generator().manual_seed(SEED + 80)).to(
+            device).eval()
+    with torch.no_grad():    # torchvision's class token starts at zero
+        model.class_token.normal_(0.0, 0.02, generator=torch.Generator(
+            device=device).manual_seed(SEED + 81))
+    rng = np.random.default_rng(SEED + 82)
+    stack = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (1, IMAGE_TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+                 dtype=np.uint8)).to(device),
+             "label": torch.from_numpy(rng.integers(
+                 0, 4, (1, IMAGE_TRAIN_BATCH)).astype(np.int32)).to(device),
+             "valid": torch.ones((1, IMAGE_TRAIN_BATCH), dtype=torch.int32,
+                                 device=device)}
+    class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
+    key = Key(SEED + 83)
+
+    def inputs_in(dtype):
+        def batch_to_inputs(mb, key):
+            x = augment_batch(mb["image"], 1.0, key.generator(device))
+            return (normalize_on_device(x, dtype=dtype),)
+        return batch_to_inputs
+
+    def make(trainable=None):
+        opt = make_optimizer("sgd", model.named_parameters(), UNIMODAL_LR,
+                             UNIMODAL_REG, trainable)
+        return make_train_step(model, opt,
+                               batch_to_inputs=inputs_in(torch.bfloat16),
+                               class_weights=class_weights)
+
+    step_all = make()
+    step_heads = make(head_only_mask(model, head_keys_for("transformer_B16")))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in ("layers.0.qkv.w", "conv_proj.w", "head.w")}
+    float(step_all(stack, key.fold_in(100))[0])            # warm-up
+    wall, losses, launches, peak = _timed_steps(
+        (step_all, step_all, step_all, step_heads), stack, key, device)
+    want = _want_launches(mha_fwd_lse=12 * 4, mha_flash_bwd=12 * 4)
+    changed = {n: bool((p.detach() != before[n]).any())
+               for n, p in model.named_parameters() if n in before}
+    finite = all(l == l and abs(l) < float("inf") for l in losses)
+    ok &= launches == want and finite and all(changed.values())
+    print(f"  transformer_B16: 4 steps of {IMAGE_TRAIN_BATCH} in {wall:.3f} "
+          f"s: {4 / wall:.2f} steps/s, {4 * IMAGE_TRAIN_BATCH / wall:.1f} "
+          f"samples/s; peak memory {peak / 2**30:.2f} GiB; losses {losses}; "
+          f"launches {_shown(launches)} (want {_shown(want)}, every other "
+          f"0); params changed {changed}", flush=True)
+    results["image_train_launches"] = launches
+    results["image_train"] = {
+        "steps_per_s": 4 / wall,
+        "samples_per_s": 4 * IMAGE_TRAIN_BATCH / wall,
+        "step_ms": wall / 4 * 1e3, "peak_mem_gib": peak / 2**30,
+        "losses": losses, "batch": IMAGE_TRAIN_BATCH,
+        "profile": profile_train_step(step_all, stack, key.fold_in(200),
+                                      reps=2, acc_steps=1)}
+    # kernel path against plain path on 32 samples
+    mb = {k: v[0, :32] for k, v in stack.items()}
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k_in, k_model = Key(SEED + 84).split(2)
+        good, row = compare_unimodal_paths(
+            "transformer_B16 microbatch of 32", model, model,
+            inputs_in(dtype)(mb, k_in), mb, class_weights, k_model,
+            dtype == torch.float32)
+        ok &= good
+        checks[str(dtype)[6:]] = row
+    results["image_train"]["grad_check"] = checks
+    del model, step_all, step_heads, stack
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_train_clis(device, results):
+    """``cli.main_text --hf_internal_dropout`` and ``cli.main_image`` for
+    1 + 1 epochs on a synthetic 224x224 JPEG tree (64 train, 32 val; the
+    file names carry the text), then ``cli.test_text`` / ``cli.test_image``
+    evaluate the BEST files (``evaluate()``: the report step needs packages
+    the card's machine lacks). In this process, in a work directory of the
+    checkout, deleted afterwards."""
+    import glob
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (
+        main_image, main_text, test_image, test_text)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_train_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+    cwd = os.getcwd()
+    out = {}
+    common = ["--dataset_folder_name=garbage", "--epochs=1", "--ft_epochs=1",
+              "--batch_size=16", "--batch_size_FT=16", "--balance_weights",
+              "--opt=sgd", f"--vocab_dir={vocab}"]
+    # phase 1 and 2: 4 steps each; the val eval: 32 samples in one batch
+    runs = (
+        ("main_text", main_text, test_text,
+         ["--text_model=distilbert", "--hf_internal_dropout", "--seq_len=64"],
+         ["--text_model=distilbert", "--seq_len=64"], "distilbert",
+         {"mha_fwd_lse_drop": 48, "mha_flash_bwd_drop": 48,
+          "postnorm_attn_block": 12, "postnorm_mlp_block": 12},
+         {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
+        ("main_image", main_image, test_image,
+         ["--image_model=transformer_B16", "--prob_aug=1.0"],
+         ["--image_model=transformer_B16"], "transformer_B16",
+         {"mha_fwd_lse": 96, "mha_flash_bwd": 96, "mha": 24},
+         {"attn_block": 12, "mlp_block": 12}))
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 64, 32, SEED + 90,
+                         size=IMAGE_SIZE)
+        os.chdir(work)
+        for name, trainer, tester, flags, test_flags, model_name, want_train, \
+                want_test in runs:
+            _zero_counters()
+            t0 = time.perf_counter()
+            best = trainer.main(common + flags + [f"--name={name}"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _read_counters()
+            rows = [_json.loads(line)
+                    for f in glob.glob(f"runs/{name}_*.jsonl")
+                    for line in open(f)]
+            _zero_counters()
+            res = tester.evaluate(args_parser(test_flags + [
+                f"--model_path={best.best_path}",
+                "--dataset_folder_name=garbage_Val", f"--vocab_dir={vocab}",
+                "--eval_batch_size=32"]))
+            torch.cuda.synchronize()
+            test_launches = _read_counters()
+            acc, preds = res[0], res[2]
+            good = (len(rows) == 2
+                    and all(r["avg_loss"] == r["avg_loss"] for r in rows)
+                    and {r["phase"] for r in rows} == {"train", "fine_tune"}
+                    and launches == _want_launches(**want_train)
+                    and test_launches == _want_launches(**want_test)
+                    and os.path.isfile(best.best_path)
+                    and os.path.dirname(best.best_path).endswith(model_name)
+                    and 0.0 <= acc <= 100.0 and len(preds) == 32)
+            print(f"  cli.{name} 1+1 epochs in {train_s:.1f} s: "
+                  f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
+                  f", launches {_shown(launches)}; its BEST file in the test "
+                  f"CLI: accuracy {acc:.2f} %, launches "
+                  f"{_shown(test_launches)} {'ok' if good else 'FAIL'}",
+                  flush=True)
+            out[name] = {"train_s": train_s, "rows": rows, "test_acc": acc,
+                         "ok": good}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    results["train_clis"] = out
+    return all(v["ok"] for v in out.values())
+
+
 def main() -> int:
     import torch
 
@@ -1837,7 +2476,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/7] device", flush=True)
+    print("[1/9] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1847,7 +2486,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/7] build", flush=True)
+    print("[2/9] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -1860,13 +2499,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
 
-    print("[3/7] kernels vs plain versions", flush=True)
+    print("[3/9] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
         ok &= check_mha(device, report)
         ok &= check_rca_bwd(device, report)
         ok &= check_mha_train(device, report)
+        ok &= check_mha_drop(device, report)
         ok &= check_postnorm_blocks(device, report)
         ok &= check_prenorm_blocks(device, report)
     except Exception as e:  # noqa: BLE001 — reported, run fails
@@ -1879,18 +2519,26 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/7] MM-RCA eval path",
+            ("[4/9] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/7] MM-RCA train path: full-width train step",
+            ("[5/9] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/7] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/9] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/7] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/9] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/7] image eval path: ViT-B/16",
+            ("[7/9] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/7] unimodal eval CLIs: cli.test_text, cli.test_image",
-             lambda: check_eval_clis(device, results))):
+            ("[7/9] unimodal eval CLIs: cli.test_text, cli.test_image",
+             lambda: check_eval_clis(device, results)),
+            ("[8/9] text train path: DistilBERT and BERT-base with "
+             "hf_internal_dropout",
+             lambda: check_text_train(device, results)),
+            ("[9/9] image train path: ViT-B/16",
+             lambda: check_image_train(device, results)),
+            ("[9/9] unimodal train CLIs: cli.main_text -> cli.test_text, "
+             "cli.main_image -> cli.test_image",
+             lambda: check_train_clis(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -1903,10 +2551,16 @@ def main() -> int:
             return _fail(f"{title}: check failed")
     # launches on each kernel's own main path: the MM-RCA eval path for K1 /
     # K2, its train path for K3 / K4a / K4b (K1 runs on both), the text
-    # eval path for K5a / K5b, the image eval path for K6a / K6b
+    # eval path for K5a / K5b, the image eval path for K6a / K6b, the text
+    # train path (hf_internal_dropout) for K7a / K7b
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "text_eval": results["text_eval_launches"],
-               "image_eval": results["image_eval_launches"]}
+               "image_eval": results["image_eval_launches"],
+               "text_train": results["text_train_launches"],
+               "text_train_flag_off":
+                   results["text_train_flag_off_launches"],
+               "image_train": results["image_train_launches"],
+               "train_hf_dropout": results["train_hf_dropout_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha", "eval"),
                       ("rca_fused_bwd", "train"), ("mha_fwd_lse", "train"),
@@ -1914,7 +2568,9 @@ def main() -> int:
                       ("postnorm_attn_block", "text_eval"),
                       ("postnorm_mlp_block", "text_eval"),
                       ("attn_block", "image_eval"),
-                      ("mlp_block", "image_eval")):
+                      ("mlp_block", "image_eval"),
+                      ("mha_fwd_lse_drop", "text_train"),
+                      ("mha_flash_bwd_drop", "text_train")):
         row = dict(report[key])
         row["launches"] = by_path[path][key]
         row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
@@ -1928,6 +2584,9 @@ def main() -> int:
                           for k in ("distilbert", "roberta")},
                       "image_eval": results["image_eval"],
                       "eval_clis": results["eval_clis"],
+                      "text_train": results["text_train"],
+                      "image_train": results["image_train"],
+                      "train_clis": results["train_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16")},
                       "card": smi_line}))

@@ -27,9 +27,52 @@ def resolve_model(getter, name: str):
         raise SystemExit(1)
 
 
+def check_unported_flags(args) -> None:
+    """Raise on the training flags whose paths the port does not have
+    yet (shared by the three trainers)."""
+    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1)"
+    if args.fsdp:
+        raise NotImplementedError(f"--fsdp {todo}")
+    if args.mesh_shape not in ("", "data:-1", "data:1"):
+        raise NotImplementedError(f"--mesh_shape={args.mesh_shape} {todo}; "
+                                  "the port trains on one device")
+    if os.environ.get("GC_RCA_MULTIHOST"):
+        raise NotImplementedError(f"multi-host training {todo}")
+    if args.resume_every_steps or args.resume_from or (
+            args.model_path and os.path.basename(
+                os.path.normpath(args.model_path)) == "RESUME"):
+        raise NotImplementedError(f"RESUME / mid-epoch resume {todo}")
+    if args.wandb:
+        raise NotImplementedError(f"--wandb {todo}; the port logs JSONL "
+                                  "under runs/")
+
+
+def load_unimodal_model(mdef, path: str, what: str, device):
+    """The text or image model held by `path`, on `device` in eval mode: a
+    BEST checkpoint of the port's trainers (built at the depth its meta
+    records) or a reference ``.pth`` (through the model's converter;
+    `what` names the flag in the error for a wrong architecture)."""
+    from .. import NUM_CLASSES
+    from ..checkpoint.torch_convert import (convert_checked,
+                                            load_torch_state_dict)
+    from ..train.engine import load_checkpoint
+
+    payload = load_checkpoint(path)
+    if payload is None:
+        params, state = convert_checked(
+            mdef.convert_torch, load_torch_state_dict(path), what,
+            num_classes=NUM_CLASSES)
+        return mdef.load_tree(params, state, num_classes=NUM_CLASSES,
+                              device=device)
+    model = mdef.build(NUM_CLASSES, layers=payload["meta"]["layers"])
+    model.load_state_dict(payload["state_dict"])
+    return model.to(device).eval()
+
+
 def check_eval_flags(args) -> None:
     """Raise on what the unimodal eval CLIs do not run yet: they evaluate
-    on one device, from a reference .pth."""
+    on one device, from a reference .pth or a BEST checkpoint of the
+    port's trainers."""
     todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1, items 2 and 3)"
     if args.mesh_shape not in ("", "data:-1", "data:1"):
         raise NotImplementedError(

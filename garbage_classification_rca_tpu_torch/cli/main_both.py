@@ -16,10 +16,12 @@ Same flags as the JAX CLI; fp32 master weights (``--param_dtype``
 overrides) and images in ``--compute_dtype``. The model is trained
 unfolded; val evals run in eval mode under no_grad. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and ``GC_RCA_MM_IMAGE_SIZE``
-shrinks the 480x480 input for small drives. Flags of paths not ported
-yet raise NotImplementedError: --hf_internal_dropout, --wandb, --fsdp,
---mesh_shape other than one device, RESUME (--model_path=.../RESUME,
---resume_from, --resume_every_steps) and multi-host runs.
+shrinks the 480x480 input for small drives. ``--hf_internal_dropout``
+switches on the DistilBERT tower's own p = 0.1 dropout sites (the dropout
+attention kernels). Flags of paths not ported yet raise
+NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device,
+RESUME (--model_path=.../RESUME, --resume_from, --resume_every_steps) and
+multi-host runs.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..models.fusion.multimodal import (FusionModel, build_fusion_model,
 from ..train.engine import BATCH_KEYS, MetricsLogger, run_phase
 from ..train.loop import make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
-from . import cli_device, test_both
+from . import check_unported_flags, cli_device, test_both
 from .test_both import fusion_config_from_args
 
 TRAIN_SUFFIX = "_Train"
@@ -61,25 +63,6 @@ def _image_size():
 def fusion_head_mask(model: torch.nn.Module):
     return {n: n.split(".")[0] not in TOWER_KEYS
             for n, _ in model.named_parameters()}
-
-
-def check_unported_flags(args) -> None:
-    """Raise on the flags whose paths the port does not have yet."""
-    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1)"
-    if args.fsdp:
-        raise NotImplementedError(f"--fsdp {todo}")
-    if args.mesh_shape not in ("", "data:-1", "data:1"):
-        raise NotImplementedError(f"--mesh_shape={args.mesh_shape} {todo}; "
-                                  "the port trains on one device")
-    if os.environ.get("GC_RCA_MULTIHOST"):
-        raise NotImplementedError(f"multi-host training {todo}")
-    if args.resume_every_steps or args.resume_from or (
-            args.model_path and os.path.basename(
-                os.path.normpath(args.model_path)) == "RESUME"):
-        raise NotImplementedError(f"RESUME / mid-epoch resume {todo}")
-    if args.wandb:
-        raise NotImplementedError(f"--wandb {todo}; the port logs JSONL "
-                                  "under runs/")
 
 
 def load_model(args, cfg, device) -> FusionModel:

@@ -83,7 +83,9 @@ def load_model(path: str, cfg: FusionConfig, device) -> FusionModel:
     if payload is None:
         params, state = convert_torch(load_torch_state_dict(path), cfg)
         return load_fusion_model(params, state, cfg, device=device)
-    model = FusionModel(cfg, text_layers=payload["meta"]["text_layers"])
+    meta = payload["meta"]      # "text_layers": files of earlier versions
+    model = FusionModel(cfg, text_layers=meta.get("layers")
+                        or meta["text_layers"])
     model.load_state_dict(payload["state_dict"])
     return model.to(device).eval()
 

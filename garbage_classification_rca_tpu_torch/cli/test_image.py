@@ -3,7 +3,8 @@
 ``python -m garbage_classification_rca_tpu_torch.cli.test_image
   --image_model=transformer_B16 --model_path=<ckpt.pth>
   --dataset_folder_name=<test-root>``
-loads the reference ``.pth``, evaluates the test folder, prints accuracy +
+loads the reference ``.pth`` (or a BEST file of the port's
+``cli.main_image``), evaluates the test folder, prints accuracy +
 report, and writes the confusion-matrix PNG + report CSV under
 ``test_set_reports/<arch>/``. The images are normalized on the device and
 the forward runs in ``--compute_dtype`` (ViT's encoder layers are the fused
@@ -19,8 +20,6 @@ from __future__ import annotations
 import os
 import sys
 
-from .. import NUM_CLASSES
-from ..checkpoint.torch_convert import convert_checked, load_torch_state_dict
 from ..config import IMAGE_ARCHS, args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
@@ -30,7 +29,8 @@ from ..eval.report import generate_report_and_image
 from ..models.registry import get_image_model
 from ..nn.fold import fold_batchnorm
 from ..utils.dtype import resolve_param_dtype
-from . import check_eval_flags, cli_device, resolve_model
+from . import (check_eval_flags, cli_device, load_unimodal_model,
+               resolve_model)
 
 BASE_PATH = "./test_set_reports"
 
@@ -47,12 +47,8 @@ def evaluate(args):
     spec = IMAGE_ARCHS[args.image_model]
     device = resolve_device(cli_device())
     print(f"Image Model: {args.image_model}")
-    sd = load_torch_state_dict(args.model_path)
-    params, state = convert_checked(
-        mdef.convert_torch, sd, f"--image_model={args.image_model}",
-        num_classes=NUM_CLASSES)
-    model = mdef.load_tree(params, state, num_classes=NUM_CLASSES,
-                           device=device)
+    model = load_unimodal_model(mdef, args.model_path,
+                                f"--image_model={args.image_model}", device)
     if "bn_eps" in mdef.extras:
         # inference-time conv + BN folding, for the models that have BN
         fold_batchnorm(model, mdef.extras["bn_eps"])

@@ -1,7 +1,8 @@
 """Text-model test-set evaluation CLI.
 
 ``python -m garbage_classification_rca_tpu_torch.cli.test_text
-  --text_model=distilbert --model_path=<ckpt.pth>
+  --text_model=distilbert --model_path=<ckpt.pth or a BEST file of
+  the port's cli.main_text>
   --dataset_folder_name=<test-root>``
 Text comes from the filename stems (or the --extended_desc_val captions
 CSV), tokenized on the host; the encoder + head forward runs on the device
@@ -20,8 +21,6 @@ import sys
 
 import torch
 
-from .. import NUM_CLASSES
-from ..checkpoint.torch_convert import convert_checked, load_torch_state_dict
 from ..config import TEXT_ARCHS, args_parser
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
@@ -31,7 +30,8 @@ from ..eval.harness import run_eval
 from ..eval.report import generate_report_and_image
 from ..models.registry import get_text_model
 from ..utils.dtype import resolve_param_dtype
-from . import check_eval_flags, cli_device, resolve_model
+from . import (check_eval_flags, cli_device, load_unimodal_model,
+               resolve_model)
 
 BASE_PATH = "./test_set_reports"
 
@@ -59,12 +59,8 @@ def evaluate(args):
             "--param_dtype different from --compute_dtype is not ported "
             "to PyTorch yet (ROADMAP.md, queue 1 item 2)")
     device = resolve_device(cli_device())
-    sd = load_torch_state_dict(args.model_path)
-    params, state = convert_checked(
-        mdef.convert_torch, sd, f"--text_model={args.text_model}",
-        num_classes=NUM_CLASSES)
-    model = mdef.load_tree(params, state, num_classes=NUM_CLASSES,
-                           device=device)
+    model = load_unimodal_model(mdef, args.model_path,
+                                f"--text_model={args.text_model}", device)
     model.to(resolve_param_dtype(args, args.compute_dtype))
 
     manifest = build_manifest(args.dataset_folder_name,

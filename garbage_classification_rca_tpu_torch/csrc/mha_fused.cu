@@ -1,6 +1,7 @@
 // Masked / causal multi-head attention for Hopper (sm_90a): the eval
-// forward, the training forward that also writes the logsumexp, and the
-// flash training backward.
+// forward, the training forward that also writes the logsumexp, the flash
+// training backward, and the pair of the two with dropout on the softmax
+// weights.
 //
 // mha_forward replaces garbage_classification_rca_tpu/kernels/mha_fused.py
 // ::mha (Pallas bodies `_kernel` / `_kernel_masked`). mha_forward_lse
@@ -42,6 +43,30 @@
 // across blocks, so no atomics and the same gradients on every run. Bound,
 // as for the forward: device-memory bytes at the DistilBERT shapes; the
 // products run on the fp32 CUDA cores in this first version.
+//
+// mha_forward_lse_drop / mha_flash_backward_drop replace
+// ::_mha_fwd_lse_drop (body `_fwd_lse_drop_kernel`) and
+// ::_mha_flash_bwd_drop (body `_bwd_drop_kernel`): the same three kernels
+// with the compile-time flag DROP, which applies a keep mask dm (uint8
+// [B, H, N, N], drawn by the caller) to the softmax weights:
+//   forward:  wl = (e / sum) in V's dtype; wld = dm ? wl / keep : 0, the
+//             division in V's dtype (keep itself rounded to it);
+//             out = wld V; lse = max + log(sum), the softmax before dropout;
+//   backward: W = exp(S - lse) fp32; dV = wld^T dO with wld from W rounded
+//             to V's dtype as in the forward; dW = dm ? dP / keep : 0 in
+//             fp32; Delta = rowsum(dO * O) as without dropout, because
+//             rowsum(dW * W) = rowsum(dP * wld) = rowsum(dO * O);
+//             dS = W * (dW - Delta) in q's dtype.
+// What bounds them on the H100: still device-memory bytes. At the text
+// trainer's shape (B=128, N=64, D=768, 12 heads, fp32) the mask adds 6.3 MB
+// to the forward's 100.7 MB of q/k/v/o and to the backward's 201.3 MB. The
+// design reads each mask byte once per kernel that needs it: the forward and
+// the dQ kernel read their 32 rows of dm along the rows; the dK/dV kernel
+// needs 32 columns of every row, which it stages through shared memory in
+// tiles of 64 queries x 32 keys, each warp load covering one 32-byte run of
+// a row, so that no load is strided by N. All mask loads are single bytes:
+// any N (odd ones, too) takes the same path. With DROP off the kernels
+// compile to what they were.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,12 +103,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int DH, bool LSE>
+template <typename T, int DH, bool LSE, bool DROP>
 __global__ void __launch_bounds__(THREADS)
     mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ mask,
-               T* __restrict__ o, float* __restrict__ lse, int N, int D,
-               float scale, int causal) {
+               const uint8_t* __restrict__ dm, T* __restrict__ o,
+               float* __restrict__ lse, int N, int D, float scale, int causal,
+               float keep) {
   constexpr int LDH = DH + 1;    // odd stride: conflict-free column reads
   constexpr int CPT = DH / 16;   // output columns per thread in PV
   extern __shared__ float sm[];
@@ -155,7 +181,20 @@ __global__ void __launch_bounds__(THREADS)
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) row[j] = round_to(row[j] / sum, v);
+    if constexpr (DROP) {
+      // wl / keep in V's dtype on the kept weights, 0 on the dropped ones
+      const bool live = q0 + r < N;
+      const uint8_t* dmr =
+          dm + ((b * gridDim.y + h) * N + (live ? q0 + r : 0)) *
+                   static_cast<size_t>(N);
+      const float keep_v = round_to(keep, v);
+      for (int j = lane; j < N; j += 32) {
+        const float wl = round_to(row[j] / sum, v);
+        row[j] = live && dmr[j] ? round_to(wl / keep_v, v) : 0.f;
+      }
+    } else {
+      for (int j = lane; j < N; j += 32) row[j] = round_to(row[j] / sum, v);
+    }
     if (LSE && lane == 0 && q0 + r < N)
       lse[(b * gridDim.y + h) * static_cast<size_t>(N) + q0 + r] =
           mx + logf(sum);
@@ -195,11 +234,14 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* mask, void* o, float* lse, int B, int N, int D,
-                   int heads, float scale, int causal, cudaStream_t stream) {
+                   const int* mask, const uint8_t* dm, void* o, float* lse,
+                   int B, int N, int D, int heads, float scale, int causal,
+                   float keep, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((BQ + BK) * (DH + 1) + static_cast<size_t>(BQ) * N);
-  auto kern = lse ? mha_kernel<T, DH, true> : mha_kernel<T, DH, false>;
+  auto kern = dm    ? mha_kernel<T, DH, true, true>
+              : lse ? mha_kernel<T, DH, true, false>
+                    : mha_kernel<T, DH, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -207,8 +249,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((N + BQ - 1) / BQ, heads, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, N, D, scale,
-      causal);
+      static_cast<const T*>(v), mask, dm, static_cast<T*>(o), lse, N, D,
+      scale, causal, keep);
   return cudaGetLastError();
 }
 
@@ -218,6 +260,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 constexpr int BKV = 32;  // keys per block of the dK / dV kernel
 constexpr int BQC = 64;  // queries per shared-memory chunk there
+constexpr int DMS = BKV + 4;  // row stride of its keep-mask tile, in bytes
 
 __device__ __forceinline__ float key_bias(const int* mask, size_t b, int N,
                                           int key) {
@@ -226,15 +269,16 @@ __device__ __forceinline__ float key_bias(const int* mask, size_t b, int N,
 
 // dQ and Delta for 32 query rows of one head of one sample; keys and values
 // stream through shared memory in chunks of 64.
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
     mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ o,
                       const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const int* __restrict__ mask, T* __restrict__ dq,
+                      const int* __restrict__ mask,
+                      const uint8_t* __restrict__ dm, T* __restrict__ dq,
                       float* __restrict__ delta, int N, int D, float scale,
-                      int causal) {
+                      int causal, float keep) {
   constexpr int LDH = DH + 1;
   constexpr int CPT = DH / 16;
   extern __shared__ float sm[];
@@ -320,7 +364,13 @@ __global__ void __launch_bounds__(THREADS)
           float sv = s[i][j] * scale + bias;
           if (causal && key > q0 + r) sv = NEG;
           const float w = expf(sv - L[r]);
-          ds = round_to(w * (dp[i][j] - Dl[r]), q);
+          float dw = dp[i][j];
+          if constexpr (DROP) {
+            // dW = dm ? dP / keep : 0, along this block's rows of dm
+            const int n = q0 + r;
+            dw = n < N && dm[(rbase + n) * N + key] ? dw / keep : 0.f;
+          }
+          ds = round_to(w * (dw - Dl[r]), q);
         }
         dS[r * (BK + 1) + c] = ds;
       }
@@ -351,15 +401,16 @@ __global__ void __launch_bounds__(THREADS)
 
 // dK and dV for 32 keys of one head of one sample; queries, dO, lse and
 // Delta stream through shared memory in chunks of 64.
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
     mha_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ mask, T* __restrict__ dk,
+                        const int* __restrict__ mask,
+                        const uint8_t* __restrict__ dm, T* __restrict__ dk,
                         T* __restrict__ dv, int N, int D, float scale,
-                        int causal) {
+                        int causal, float keep) {
   constexpr int LDH = DH + 1;
   constexpr int CPT = DH / 16;
   extern __shared__ float sm[];
@@ -371,6 +422,9 @@ __global__ void __launch_bounds__(THREADS)
   float* dST = WT + BKV * (BQC + 1); // [BKV][BQC + 1]  dS^T, q's dtype
   float* L = dST + BKV * (BQC + 1);  // [BQC]
   float* Dl = L + BQC;               // [BQC]
+  // [BQC][DMS] keep-mask tile (DROP only): this block's 32 columns of dm
+  uint8_t* DM = reinterpret_cast<uint8_t*>(Dl + BQC);
+  const float keep_v = round_to(keep, v);
 
   const int k0 = blockIdx.x * BKV, h = blockIdx.y, H = gridDim.y;
   const size_t b = blockIdx.z;
@@ -404,6 +458,13 @@ __global__ void __launch_bounds__(THREADS)
     for (int r = tid; r < qn; r += THREADS) {
       L[r] = lse[rbase + c0 + r];
       Dl[r] = delta[rbase + c0 + r];
+    }
+    if constexpr (DROP) {
+      // a warp reads the 32 consecutive bytes of one query's row
+      for (int e = tid; e < qn * BKV; e += THREADS) {
+        const int c = e / BKV, r = e - c * BKV, key = k0 + r;
+        DM[c * DMS + r] = key < N ? dm[(rbase + c0 + c) * N + key] : 0;
+      }
     }
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
@@ -439,7 +500,13 @@ __global__ void __launch_bounds__(THREADS)
           if (causal && key > query) sv = NEG;
           const float wf = expf(sv - L[c]);
           w = round_to(wf, v);
-          ds = round_to(wf * (dp[i][j] - Dl[c]), q);
+          float dw = dp[i][j];
+          if constexpr (DROP) {
+            const bool kept = DM[c * DMS + r] != 0;
+            w = kept ? round_to(w / keep_v, v) : 0.f;
+            dw = kept ? dw / keep : 0.f;
+          }
+          ds = round_to(wf * (dw - Dl[c]), q);
         }
         WT[r * (BQC + 1) + c] = w;
         dST[r * (BQC + 1) + c] = ds;
@@ -480,19 +547,21 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
-                       const int* mask, void* dq, void* dk, void* dv,
-                       float* delta, int B, int N, int D, int heads,
-                       float scale, int causal, cudaStream_t stream) {
+                       const int* mask, const uint8_t* dm, void* dq, void* dk,
+                       void* dv, float* delta, int B, int N, int D, int heads,
+                       float scale, int causal, float keep,
+                       cudaStream_t stream) {
   constexpr int LDH = DH + 1;
   const size_t smem_q =
       sizeof(float) * ((2 * BQ + 2 * BK) * LDH + BQ * (BK + 1) + 2 * BQ);
   const size_t smem_kv = sizeof(float) *
-      ((2 * BKV + 2 * BQC) * LDH + 2 * BKV * (BQC + 1) + 2 * BQC);
-  auto kq = mha_bwd_dq_kernel<T, DH>;
-  auto kkv = mha_bwd_dkdv_kernel<T, DH>;
+      ((2 * BKV + 2 * BQC) * LDH + 2 * BKV * (BQC + 1) + 2 * BQC) +
+      (DROP ? BQC * DMS : 0);
+  auto kq = mha_bwd_dq_kernel<T, DH, DROP>;
+  auto kkv = mha_bwd_dkdv_kernel<T, DH, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_q));
@@ -505,13 +574,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
   kq<<<dim3((N + BQ - 1) / BQ, heads, B), THREADS, smem_q, stream>>>(
-      tq, tk, tv, static_cast<const T*>(o), tdo, lse, mask,
-      static_cast<T*>(dq), delta, N, D, scale, causal);
+      tq, tk, tv, static_cast<const T*>(o), tdo, lse, mask, dm,
+      static_cast<T*>(dq), delta, N, D, scale, causal, keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kkv<<<dim3((N + BKV - 1) / BKV, heads, B), THREADS, smem_kv, stream>>>(
-      tq, tk, tv, tdo, lse, delta, mask, static_cast<T*>(dk),
-      static_cast<T*>(dv), N, D, scale, causal);
+      tq, tk, tv, tdo, lse, delta, mask, dm, static_cast<T*>(dk),
+      static_cast<T*>(dv), N, D, scale, causal, keep);
   return cudaGetLastError();
 }
 
@@ -529,28 +598,40 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   }                                                               \
   return cudaErrorInvalidValue;
 
+// `dm` non-null selects the dropout variant (and needs `lse`).
 cudaError_t forward(const void* q, const void* k, const void* v,
-                    const int* mask, void* o, float* lse, int B, int N, int D,
-                    int heads, float scale, int causal, int dtype,
-                    cudaStream_t s) {
-  if (N <= 0 || N > 512 || heads <= 0 || D % heads)
+                    const int* mask, const uint8_t* dm, void* o, float* lse,
+                    int B, int N, int D, int heads, float scale, int causal,
+                    float keep, int dtype, cudaStream_t s) {
+  if (N <= 0 || N > 512 || heads <= 0 || D % heads || (dm && !lse) ||
+      (dm && !(keep > 0.f)))
     return cudaErrorInvalidValue;
-#define FWD(T, DH) \
-  launch<T, DH>(q, k, v, mask, o, lse, B, N, D, heads, scale, causal, s)
+#define FWD(T, DH)                                                          \
+  launch<T, DH>(q, k, v, mask, dm, o, lse, B, N, D, heads, scale, causal, \
+                keep, s)
   MHA_DISPATCH(dtype, D / heads, FWD)
 #undef FWD
 }
 
 cudaError_t backward(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
-                     const int* mask, void* dq, void* dk, void* dv,
-                     float* delta, int B, int N, int D, int heads,
-                     float scale, int causal, int dtype, cudaStream_t s) {
-  if (N <= 0 || heads <= 0 || D % heads) return cudaErrorInvalidValue;
-#define BWD(T, DH)                                                       \
-  launch_bwd<T, DH>(q, k, v, o, dout, lse, mask, dq, dk, dv, delta, B, N, \
-                    D, heads, scale, causal, s)
-  MHA_DISPATCH(dtype, D / heads, BWD)
+                     const int* mask, const uint8_t* dm, void* dq, void* dk,
+                     void* dv, float* delta, int B, int N, int D, int heads,
+                     float scale, int causal, float keep, int dtype,
+                     cudaStream_t s) {
+  if (N <= 0 || heads <= 0 || D % heads || (dm && !(keep > 0.f)))
+    return cudaErrorInvalidValue;
+#define BWD(T, DH, DROP)                                                   \
+  launch_bwd<T, DH, DROP>(q, k, v, o, dout, lse, mask, dm, dq, dk, dv,     \
+                          delta, B, N, D, heads, scale, causal, keep, s)
+#define BWD_DROP(T, DH) BWD(T, DH, true)
+#define BWD_PLAIN(T, DH) BWD(T, DH, false)
+  if (dm) {
+    MHA_DISPATCH(dtype, D / heads, BWD_DROP)
+  }
+  MHA_DISPATCH(dtype, D / heads, BWD_PLAIN)
+#undef BWD_PLAIN
+#undef BWD_DROP
 #undef BWD
 }
 
@@ -564,9 +645,10 @@ extern "C" int mha_forward(const void* q, const void* k, const void* v,
                            int heads, float scale, int causal, int dtype,
                            void* stream) {
   if (B <= 0) return 0;
-  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask), o,
-                                  nullptr, B, N, D, heads, scale, causal,
-                                  dtype, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask),
+                                  nullptr, o, nullptr, B, N, D, heads, scale,
+                                  causal, 1.f, dtype,
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 // mha_forward that also writes lse [B, heads, N] (float32): the training
@@ -576,9 +658,27 @@ extern "C" int mha_forward_lse(const void* q, const void* k, const void* v,
                                int N, int D, int heads, float scale,
                                int causal, int dtype, void* stream) {
   if (B <= 0) return 0;
-  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask), o,
+  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask),
+                                  nullptr, o, static_cast<float*>(lse), B, N,
+                                  D, heads, scale, causal, 1.f, dtype,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// mha_forward_lse with dropout on the softmax weights. dm: uint8
+// [B, heads, N, N], non-zero = kept; keep = 1 - p > 0. lse is the logsumexp
+// of the scores before dropout.
+extern "C" int mha_forward_lse_drop(const void* q, const void* k,
+                                    const void* v, const void* mask,
+                                    const void* dm, void* o, void* lse, int B,
+                                    int N, int D, int heads, float scale,
+                                    int causal, float keep, int dtype,
+                                    void* stream) {
+  if (B <= 0) return 0;
+  if (!dm) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(forward(q, k, v, static_cast<const int*>(mask),
+                                  static_cast<const uint8_t*>(dm), o,
                                   static_cast<float*>(lse), B, N, D, heads,
-                                  scale, causal, dtype,
+                                  scale, causal, keep, dtype,
                                   static_cast<cudaStream_t>(stream)));
 }
 
@@ -595,7 +695,25 @@ extern "C" int mha_flash_backward(const void* q, const void* k,
   if (B <= 0) return 0;
   return static_cast<int>(backward(
       q, k, v, o, dout, static_cast<const float*>(lse),
-      static_cast<const int*>(mask), dq, dk, dv, static_cast<float*>(delta),
-      B, N, D, heads, scale, causal, dtype,
+      static_cast<const int*>(mask), nullptr, dq, dk, dv,
+      static_cast<float*>(delta), B, N, D, heads, scale, causal, 1.f, dtype,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Flash backward of mha_forward_lse_drop, with the same dm and keep.
+extern "C" int mha_flash_backward_drop(const void* q, const void* k,
+                                       const void* v, const void* o,
+                                       const void* dout, const void* lse,
+                                       const void* mask, const void* dm,
+                                       void* dq, void* dk, void* dv,
+                                       void* delta, int B, int N, int D,
+                                       int heads, float scale, int causal,
+                                       float keep, int dtype, void* stream) {
+  if (B <= 0) return 0;
+  if (!dm) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(backward(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<const int*>(mask), static_cast<const uint8_t*>(dm), dq, dk,
+      dv, static_cast<float*>(delta), B, N, D, heads, scale, causal, keep,
+      dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -9,8 +9,10 @@ Train mode (``train=True`` with a ``core.Key``) adds, as the JAX forward
 does: modality dropout (two coin flips per batch, ``drop_modalities``)
 with the dropped tower's cotangent cut (``_grad_gate``), stochastic depth
 and batch-statistics BatchNorm in the image tower, the training attention
-kernels in the text tower, the differentiable RCA kernel pair
-(``rca_fused_trainable``), and dropout on the head's input. BN running
+kernels in the text tower (with ``hf_internal_dropout``, the HF tower's
+own p = 0.1 dropout sites and the dropout attention pair), the
+differentiable RCA kernel pair (``rca_fused_trainable``), and dropout on
+the head's input. BN running
 stats update in place; the model must be unfolded to train. The other six strategies
 (gated, classic, normalized, clip, hierarchical, bimodal) and the
 bert/bart towers are still to port (ROADMAP.md); asking for them raises
@@ -99,12 +101,6 @@ def check_config(cfg: FusionConfig) -> None:
         raise NotImplementedError(
             f"text tower '{cfg.text_model_name}' is not ported to PyTorch "
             "yet (ROADMAP.md, queue 1); the JAX package runs it")
-    if cfg.hf_internal_dropout:
-        raise NotImplementedError(
-            "--hf_internal_dropout is not ported to PyTorch yet: its "
-            "attention-probs dropout needs the K7 kernels "
-            "(_mha_fwd_lse_drop / _mha_flash_bwd_drop; ROADMAP.md, queue "
-            "2); the JAX package runs it")
 
 
 class FusionModel(nn.Module):
@@ -214,9 +210,14 @@ def mm_rca_block(cfg: FusionConfig, p: FusionModel, img_feat, txt_feat):
 
 def _fwd_mm_rca(cfg: FusionConfig, p: FusionModel, images, ids, mask, *,
                 train=False, key=None, keeps=(None, None)):
+    drop = None
+    if cfg.hf_internal_dropout and train and key is not None:
+        # fold_in, not split: the image tower's stream, and with it every
+        # flag-off run, stays as it was
+        drop = core.HFDropout(key.fold_in(0x4F1D))
     # the fusion tower stays off the fused post-norm blocks, as in the JAX
     # package: its eval attention is the mha kernel
-    text = distil_mod.encode(p.text, ids, mask, train=train,
+    text = distil_mod.encode(p.text, ids, mask, train=train, drop=drop,
                              fused_blocks=False)[:, 0]
     _, _, img = effv2.extractor_features(p.image, images, p.image_cfg,
                                          train=train, key=key)

@@ -108,8 +108,10 @@ class ViT(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg, generator=g)
                                     for _ in range(cfg.layers))
 
-    def forward(self, x, *, train: bool = False):
-        """Normalized NHWC images -> logits [B, n_classes]."""
+    def forward(self, x, *, train: bool = False, key=None):
+        """Normalized NHWC images -> logits [B, n_classes]. `key` is
+        unused: torchvision's ViT dropout is 0.0, so the train mode has no
+        random site (it routes attention through the training kernels)."""
         return self.head(features(self, x, train=train))
 
 

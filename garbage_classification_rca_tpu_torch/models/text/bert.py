@@ -32,6 +32,10 @@ VOCAB = 30522
 MAX_POS = 512
 TYPE_VOCAB = 2
 LN_EPS = 1e-12
+# HF bert-base-uncased config: hidden_dropout_prob /
+# attention_probs_dropout_prob (RoBERTa-base has the same two)
+HIDDEN_DROPOUT = 0.1
+ATTN_DROPOUT = 0.1
 
 
 class BertEncoder(nn.Module):
@@ -50,12 +54,20 @@ class BertEncoder(nn.Module):
 
 
 def run_layers(model: BertEncoder, h, attention_mask, *, train, fused_blocks,
-               output_hidden_states=False):
-    """LayerNorm of the summed embeddings, then the post-norm layers."""
+               drop=None, output_hidden_states=False):
+    """LayerNorm of the summed embeddings, then the post-norm layers.
+    `drop`: an optional ``core.HFDropout`` — HF BERT's internal sites:
+    embeddings output, attention probabilities, attention output
+    (BertSelfOutput), FFN output (BertOutput)."""
     h = model.ln_emb(h)
+    if drop is not None:
+        h = drop(h, HIDDEN_DROPOUT)
     hiddens = [h]
     for lp in model.layers:
         h = postnorm_layer(lp, h, attention_mask, HEADS, train=train,
+                           drop=drop, attn_p=ATTN_DROPOUT,
+                           attn_out_p=HIDDEN_DROPOUT,
+                           hidden_p=HIDDEN_DROPOUT,
                            fused_blocks=fused_blocks)
         hiddens.append(h)
     return (h, hiddens) if output_hidden_states else h
@@ -64,6 +76,7 @@ def run_layers(model: BertEncoder, h, attention_mask, *, train, fused_blocks,
 def encode(model: BertEncoder, input_ids: torch.Tensor,
            attention_mask: torch.Tensor, *,
            output_hidden_states: bool = False, train: bool = False,
+           drop: Optional[core.HFDropout] = None,
            fused_blocks: bool = True):
     """-> last_hidden_state [B, L, 768], or (it, [embeddings output, every
     layer's output]) with ``output_hidden_states``. `attention_mask` is
@@ -71,7 +84,7 @@ def encode(model: BertEncoder, input_ids: torch.Tensor,
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     h = model.word_emb(input_ids) + model.pos_emb(pos)[None]
     h = h + model.type_emb.w[0][None, None, :]       # token_type_ids = 0
-    return run_layers(model, h, attention_mask, train=train,
+    return run_layers(model, h, attention_mask, train=train, drop=drop,
                       fused_blocks=fused_blocks,
                       output_hidden_states=output_hidden_states)
 

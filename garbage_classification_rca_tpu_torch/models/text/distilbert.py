@@ -27,6 +27,10 @@ FFN = 3072
 VOCAB = 30522
 MAX_POS = 512
 LN_EPS = 1e-12
+# HF distilbert-base-uncased config: dropout / attention_dropout, active in
+# the reference's train-mode towers (--hf_internal_dropout reproduces them)
+DROPOUT = 0.1
+ATTN_DROPOUT = 0.1
 
 
 class DistilBertEncoder(nn.Module):
@@ -43,17 +47,23 @@ class DistilBertEncoder(nn.Module):
 
 def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
            attention_mask: torch.Tensor, *, train: bool = False,
+           drop: Optional[core.HFDropout] = None,
            fused_blocks: bool = True) -> torch.Tensor:
     """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L].
-    ``train`` routes attention through the training kernels; the tower
-    has no random site (HF-internal dropout, --hf_internal_dropout, is
-    not ported). ``fused_blocks=False`` (the fusion tower) keeps the eval
-    layers off the fused block kernels."""
+    ``train`` routes attention through the training kernels. `drop`: an
+    optional ``core.HFDropout`` reproducing HF DistilBERT's internal
+    train-mode dropout: embeddings output, attention probabilities, FFN
+    output (the HF model has no attention-output site).
+    ``fused_blocks=False`` (the fusion tower) keeps the eval layers off
+    the fused block kernels."""
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     h = model.word_emb(input_ids) + model.pos_emb(pos)[None]
     h = model.ln_emb(h)
+    if drop is not None:
+        h = drop(h, DROPOUT)
     for lp in model.layers:
         h = postnorm_layer(lp, h, attention_mask, HEADS, train=train,
+                           drop=drop, attn_p=ATTN_DROPOUT, hidden_p=DROPOUT,
                            fused_blocks=fused_blocks)
     return h
 

@@ -11,9 +11,16 @@ the call's shape, dtype and flags, mirroring the JAX ``postnorm_layer``:
     sequence over 224 tokens does not fit): ``core.Linear``s around the
     ``kernels/mha_fused.mha`` attention kernel;
   * train: the same with ``mha_flash_train`` (the forward that saves the
-    logsumexp and the flash backward).
+    logsumexp and the flash backward), or, when an active ``HFDropout``
+    drops the softmax weights (``--hf_internal_dropout``),
+    ``mha_flash_train_dropout``.
 Each kernel is the hand-written CUDA kernel on the card and its plain
 version on the CPU.
+
+HF-internal dropout sites of a layer, in the HF forward's call order:
+the attention probabilities (``attn_p``), the attention output before the
+residual (``attn_out_p``: BERT / RoBERTa; DistilBERT has no such site),
+the FFN output before the residual (``hidden_p``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch
 from torch import nn
 
 from ...kernels import transformer_block
-from ...kernels.mha_fused import mha, mha_flash_train
+from ...kernels.mha_fused import (mha, mha_flash_train,
+                                  mha_flash_train_dropout)
 from ...nn import core
 
 
@@ -76,10 +84,32 @@ def takes_fused_blocks(p: PostNormLayer, x: torch.Tensor, heads: int, *,
                                              x.dtype))
 
 
+def multi_head_attention(q, k, v, mask, heads: int, *, train: bool = False,
+                         drop=None, attn_p: float = 0.0) -> torch.Tensor:
+    """[B, L, D] x3 + int32 [B, L] key mask -> [B, L, D].
+
+    Eval: the ``mha`` kernel. Train: ``mha_flash_train``; with an active
+    `drop` (``core.HFDropout`` or anything with its interface) and
+    ``attn_p > 0``, ``mha_flash_train_dropout`` on the site's key, which
+    consumes the site whether or not the dropout pair takes the shape: a
+    misfit on CPU tensors goes through the plain graph with the site's
+    mask, on CUDA tensors it raises."""
+    if not train:
+        return mha(q, k, v, heads=heads, mask=mask)
+    if drop is None or attn_p <= 0.0 or not drop.active:
+        # no site is consumed, as HFDropout.__call__ consumes none
+        return mha_flash_train(q, k, v, heads=heads, mask=mask)
+    return mha_flash_train_dropout(q, k, v, heads=heads, mask=mask,
+                                   key=drop.site_key(attn_p), p=attn_p)
+
+
 def postnorm_layer(p: PostNormLayer, x: torch.Tensor, mask: torch.Tensor,
-                   heads: int, *, train: bool = False,
+                   heads: int, *, train: bool = False, drop=None,
+                   attn_p: float = 0.0, attn_out_p: float = 0.0,
+                   hidden_p: float = 0.0,
                    fused_blocks: bool = True) -> torch.Tensor:
-    """MHA -> add & LayerNorm -> GELU FFN -> add & LayerNorm."""
+    """MHA -> add & LayerNorm -> GELU FFN -> add & LayerNorm. `drop`: an
+    optional ``core.HFDropout`` with the three sites' probabilities."""
     if takes_fused_blocks(p, x, heads, train=train,
                           fused_blocks=fused_blocks):
         attn, mlp = p.packed()
@@ -87,18 +117,22 @@ def postnorm_layer(p: PostNormLayer, x: torch.Tensor, mask: torch.Tensor,
             x, mask, *attn, heads=heads, eps=p.ln_att.eps)
         return transformer_block.postnorm_mlp_block(
             h, *mlp, eps=p.ln_ffn.eps, act="gelu")
-    attention = mha_flash_train if train else mha
-    att = attention(p.q(x), p.k(x), p.v(x), heads=heads, mask=mask)
-    x = p.ln_att(x + p.out(att))
+    att = multi_head_attention(p.q(x), p.k(x), p.v(x), mask, heads,
+                               train=train, drop=drop, attn_p=attn_p)
+    out = p.out(att)
+    if drop is not None:
+        out = drop(out, attn_out_p)
+    x = p.ln_att(x + out)
     h = p.fc2(core.gelu(p.fc1(x)))
+    if drop is not None:
+        h = drop(h, hidden_p)
     return p.ln_ffn(x + h)
 
 
 class TextClassifier(nn.Module):
     """A BERT-family encoder + ``Linear(hidden, n_classes)`` on the CLS
-    token — the JAX modules' ``apply`` in eval mode (its dropout is the
-    identity there; the train mode comes with the text trainer). The tree
-    layout is ``{"encoder": ..., "head": ...}``."""
+    token — the JAX modules' ``apply``. The tree layout is ``{"encoder":
+    ..., "head": ...}``."""
 
     def __init__(self, encoder: nn.Module, encode: Callable, hidden: int,
                  num_classes: int = 4, *,
@@ -108,10 +142,26 @@ class TextClassifier(nn.Module):
         self.encode = encode
         self.head = core.Linear(hidden, num_classes, generator=generator)
 
-    def forward(self, input_ids, attention_mask):
-        """int32 [B, L] ids and mask -> logits [B, n_classes]."""
-        return self.head(self.encode(self.encoder, input_ids,
-                                     attention_mask)[:, 0])
+    def forward(self, input_ids, attention_mask, *, train: bool = False,
+                key: Optional[core.Key] = None, drop_ratio: float = 0.6,
+                hf_internal_dropout: bool = False):
+        """int32 [B, L] ids and mask -> logits [B, n_classes].
+
+        Train mode with a `key` drops the pooled feature with
+        ``drop_ratio``. With ``hf_internal_dropout`` the key is split
+        first: one half makes the encoder's ``HFDropout``, the other draws
+        the head dropout; without the flag the key is used unsplit, so a
+        flag-off run draws what it drew before the flag existed."""
+        drop = None
+        if hf_internal_dropout and train and key is not None:
+            key, k_int = key.split(2)
+            drop = core.HFDropout(k_int)
+        pooled = self.encode(self.encoder, input_ids, attention_mask,
+                             train=train, drop=drop)[:, 0]
+        if train and key is not None:
+            pooled = core.dropout(pooled, drop_ratio,
+                                  key.generator(pooled.device))
+        return self.head(pooled)
 
 
 def convert_classifier(sd: Dict[str, np.ndarray], convert_encoder: Callable,

@@ -25,14 +25,15 @@ PAD_IDX = 1
 
 
 def encode(model: _bert.BertEncoder, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor, *, train: bool = False,
+           attention_mask: torch.Tensor, *, train: bool = False, drop=None,
            fused_blocks: bool = True) -> torch.Tensor:
-    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L]."""
+    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L].
+    `drop`: an optional ``core.HFDropout``, at BERT's sites."""
     mask = attention_mask.to(torch.int32)
     pos_ids = torch.cumsum(mask, dim=1, dtype=torch.int32) * mask + PAD_IDX
     h = model.word_emb(input_ids) + model.pos_emb(pos_ids)
     h = h + model.type_emb.w[0][None, None, :]
-    return _bert.run_layers(model, h, attention_mask, train=train,
+    return _bert.run_layers(model, h, attention_mask, train=train, drop=drop,
                             fused_blocks=fused_blocks)
 
 

@@ -57,6 +57,14 @@ class Key:
         g.manual_seed(self.seed)
         return g
 
+    def keep_mask(self, shape, rate: float, device) -> torch.Tensor:
+        """The dropout keep mask this key stands for: bool `shape` on
+        `device`, True with probability 1 - rate. The same key, shape and
+        device give the same mask again (a backward pass redraws it instead
+        of holding it)."""
+        return torch.rand(tuple(shape), generator=self.generator(device),
+                          device=device) < 1.0 - rate
+
 
 # ---------------------------------------------------------------------------
 # functions
@@ -215,6 +223,51 @@ def dropout(x: torch.Tensor, rate: float,
     mask = torch.rand(x.shape, generator=generator,
                       device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+class HFDropout:
+    """Site-ordered encoder-internal dropout (``--hf_internal_dropout``):
+    the HF text towers' own p = 0.1 hidden / attention dropout, which the
+    reference leaves active while it trains.
+
+    Identity when made without a key or called with ``p <= 0``, and then no
+    site is consumed. With a key, the n-th site folds the counter n into
+    it, so every site has its own reproducible mask. Inverted dropout (kept
+    elements divided by 1 - p)."""
+
+    __slots__ = ("key", "_n")
+
+    def __init__(self, key: Optional[Key] = None):
+        self.key = key
+        self._n = 0
+
+    @property
+    def active(self) -> bool:
+        return self.key is not None
+
+    def site_key(self, p: float) -> Optional[Key]:
+        """Consume one site and return its key (None when inactive or
+        ``p <= 0``, and then nothing is consumed). For a site whose mask
+        is applied elsewhere: the flash training attention draws
+        ``key.keep_mask`` on the [B, H, N, N] weights, in its forward and
+        again in its backward."""
+        if self.key is None or p <= 0.0:
+            return None
+        self._n += 1
+        return self.key.fold_in(self._n)
+
+    def keep_mask(self, shape, p: float, device) -> Optional[torch.Tensor]:
+        """Consume one site and return its bool keep mask of `shape` (None
+        when ``site_key`` gives None)."""
+        key = self.site_key(p)
+        return None if key is None else key.keep_mask(shape, p, device)
+
+    def __call__(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        mask = self.keep_mask(x.shape, p, x.device)
+        if mask is None:
+            return x
+        return torch.where(mask, x / (1.0 - p), torch.zeros_like(x)).to(
+            x.dtype)
 
 
 def stochastic_depth(x: torch.Tensor, rate: float,

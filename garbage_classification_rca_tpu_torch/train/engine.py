@@ -1,7 +1,8 @@
 """Two-phase training engine (the port of the JAX package's
-``train/engine.py``, the part the MM-RCA trainer runs).
+``train/engine.py``, the part the three trainers run).
 
-Phase 1 trains the heads with the towers frozen for ``--epochs``; phase 2
+Phase 1 trains the heads with the rest frozen (the unimodal trainers: only
+with ``--tl``) for ``--epochs``; phase 2
 unfreezes everything at lr / ``--fraction_lr`` for ``--ft_epochs`` with
 ReduceLROnPlateau on val accuracy. Each epoch: the host batches grouped
 into ``[acc, B, ...]`` stacks (the trailing stack padded with valid = 0
@@ -95,13 +96,24 @@ def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
     path = os.path.abspath(os.path.join(base, name))
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     meta = {"epoch": epoch, "val_acc": val_acc, "fine_tuning": fine_tuning,
-            "text_layers": len(model.text.layers)}
+            "layers": model_depth(model)}
     torch.save({"format": CHECKPOINT_FORMAT, "state_dict": state,
                 "meta": meta}, path)
     print(f"Saving weights to {path}")
     if keep_top_k:
         _prune_best(base, keep_top_k, protect=name)
     return path
+
+
+def model_depth(model: torch.nn.Module) -> int:
+    """How many transformer layers the model holds (the fusion model's
+    text tower, a text classifier's encoder, ViT): what a BEST checkpoint
+    records so that a model of the same depth can be built to load it."""
+    for holder in (getattr(model, "text", None),
+                   getattr(model, "encoder", None), model):
+        if holder is not None and hasattr(holder, "layers"):
+            return len(holder.layers)
+    raise ValueError(f"{type(model).__name__} holds no transformer layers")
 
 
 def load_checkpoint(path: str) -> Optional[Dict]:
@@ -144,11 +156,11 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
               best: Optional[PhaseResult] = None,
               balanced_sampler: bool = False,
               extra_evals: Optional[Dict[str, Callable]] = None,
-              fine_tuning: bool = False, keep_top_k: int = 0
-              ) -> PhaseResult:
+              fine_tuning: bool = False, keep_top_k: int = 0,
+              keys=BATCH_KEYS) -> PhaseResult:
     """One training phase; the model is updated in place. ``eval_fn(model)
     -> (val_acc, report)``; each ``extra_evals`` entry ``fn(model) ->
-    acc`` adds a metric."""
+    acc`` adds a metric. `keys`: the batch entries the step reads."""
     best = best or PhaseResult(0.0, 0, None)
     key = Key(args.seed)
     n_batches = math.ceil(len(batcher.m) / batch_size)
@@ -159,7 +171,8 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
             order = imbalanced_sample_order(batcher.m,
                                             seed=args.seed * 1000 + epoch)
         host = stacked_batches(batcher, batch_size, acc_steps,
-                               seed=args.seed * 77 + epoch, order=order)
+                               seed=args.seed * 77 + epoch, order=order,
+                               keys=keys)
         losses, grad_norms, param_norm = [], [], None
         for bi, stack in enumerate(to_device(host, device,
                                              depth=args.prefetch_depth)):

@@ -35,16 +35,36 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
+def head_only_mask(model: torch.nn.Module, head_keys=("head",)
+                   ) -> Dict[str, bool]:
+    """Trainable mask over ``named_parameters()``: True only for the
+    parameters under a top-level child named in `head_keys` (transfer
+    learning: the backbone frozen, the replaced head trains)."""
+    return {n: n.split(".")[0] in head_keys
+            for n, _ in model.named_parameters()}
+
+
+def all_trainable_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    return {n: True for n, _ in model.named_parameters()}
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, *,
                     batch_to_inputs: Callable,
+                    forward: Optional[Callable] = None,
                     class_weights: Optional[torch.Tensor] = None,
                     label_smoothing: float = 0.0):
-    """``batch_to_inputs(mb, key) -> (input_ids, attention_mask, images)``
-    builds the model's input from one microbatch dict (augmentation and
-    normalisation on the device). Returns ``step(stack, key) -> (loss,
-    per-microbatch losses [acc], {"grad_norm", "param_norm"})``."""
+    """``batch_to_inputs(mb, key)`` builds the tuple of the model's
+    positional inputs from one microbatch dict (augmentation and
+    normalisation on the device): ``(input_ids, attention_mask, images)``
+    for the fusion model, ``(input_ids, attention_mask)`` for a text
+    classifier, ``(images,)`` for an image model. The model is called as
+    ``model(*inputs, train=True, key=k)``; `forward` replaces that callable
+    (the model with a CLI's flags bound) while the parameters stay
+    `model`'s. Returns ``step(stack, key) ->
+    (loss, per-microbatch losses [acc], {"grad_norm", "param_norm"})``."""
     params = [p for p in model.parameters()]
+    forward = forward or model
 
     def step(stack: Dict[str, torch.Tensor], key: Key):
         acc = stack["label"].shape[0]
@@ -56,8 +76,8 @@ def make_train_step(model: torch.nn.Module,
             mb = {k: v[m] for k, v in stack.items()}
             k_in, k_model = mkey.split(2)
             with torch.enable_grad():
-                ids, mask, images = batch_to_inputs(mb, k_in)
-                logits = model(ids, mask, images, train=True, key=k_model)
+                logits = forward(*batch_to_inputs(mb, k_in), train=True,
+                                 key=k_model)
                 loss, w_sum = cross_entropy_loss_and_weight(
                     logits, mb["label"], class_weights, label_smoothing,
                     mb.get("valid"))

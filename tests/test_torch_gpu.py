@@ -5,7 +5,8 @@ a machine with an NVIDIA H100:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances as in chip_smoke.py: fp32 2e-5 (rca_fused) and 1e-5 (mha);
+Tolerances as in chip_smoke.py: fp32 2e-5 (rca_fused) and 1e-5 (mha, with
+and without dropout);
 the backward kernels 5e-5 (1 + |x|) in fp32 (the JAX package's backward
 bar), and one bf16 ulp + 2e-3 of the tensor's largest |x| for bf16
 gradients."""
@@ -167,6 +168,76 @@ def test_flash_train_raises_on_cuda_misfit(cuda, shape, heads, dtype):
     with torch.enable_grad(), pytest.raises(ValueError):
         mha_fused.mha_flash_train(q, q, q, heads=heads)
     assert mha_fused.mha_fwd_lse.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,masked,causal,p", [
+    (16, 64, True, False, 0.1), (3, 197, False, False, 0.1),
+    (5, 50, True, True, 0.5), (2, 512, True, False, 0.1)])
+def test_mha_dropout_kernels_match_plain(cuda, b, n, masked, causal, p,
+                                         dtype):
+    """K7a / K7b against their plain versions on the same keep mask, with a
+    fully masked sample and a fully dropped row."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    g = torch.Generator().manual_seed(n + 11)
+    q, k, v, do = (torch.randn((b, n, 768), generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    m = None
+    if masked:
+        lens = torch.randint(1, n + 1, (b,), generator=g)
+        m = (torch.arange(n)[None] < lens[:, None]).to(torch.int32)
+        m[-1] = 0
+        m = m.to(cuda)
+    dm = mha_fused.drop_keep_mask(Key(n), p, b, 12, n, cuda)
+    assert torch.equal(dm, mha_fused.drop_keep_mask(Key(n), p, b, 12, n,
+                                                    cuda))
+    dm[0, 0, 1] = 0
+    before = (mha_fused.mha_fwd_lse_drop.launches,
+              mha_fused.mha_flash_bwd_drop.launches)
+    kw = dict(heads=12, keep=1.0 - p, mask=m, causal=causal)
+    o, lse = mha_fused.mha_fwd_lse_drop(q, k, v, dm, **kw)
+    grads = mha_fused.mha_flash_bwd_drop(q, k, v, o, do, lse, dm, **kw)
+    torch.cuda.synchronize()
+    assert (mha_fused.mha_fwd_lse_drop.launches,
+            mha_fused.mha_flash_bwd_drop.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    o_w, lse_w = mha_fused.mha_fwd_lse_drop_reference(q, k, v, dm, **kw)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_w, rtol=1e-5, atol=1e-5)
+    else:
+        _grad_close(o, o_w, dtype)
+    want = mha_fused.mha_flash_bwd_drop_reference(q, k, v, o, do, lse, dm,
+                                                  **kw)
+    for x, y in zip(grads, want):
+        assert bool(torch.isfinite(x).all())
+        _grad_close(x, y, dtype)
+
+
+def test_dropout_train_wrapper_launches_and_raises_on_cuda_misfit(cuda):
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 64, 768), generator=g).to(cuda).requires_grad_()
+    counts = lambda: (mha_fused.mha_fwd_lse_drop.launches,
+                      mha_fused.mha_flash_bwd_drop.launches,
+                      mha_fused.mha_fwd_lse.launches)
+    before = counts()
+    with torch.enable_grad():
+        mha_fused.mha_flash_train_dropout(q, q, q, heads=12, key=Key(1),
+                                          p=0.1).sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert bool(torch.isfinite(q.grad).all())
+    for shape, heads, dtype in (((2, 64, 768), 12, torch.float16),
+                                ((2, 513, 768), 12, torch.float32),
+                                ((2, 8, 96), 2, torch.float32)):
+        x = torch.zeros(shape, dtype=dtype, device=cuda, requires_grad=True)
+        with torch.enable_grad(), pytest.raises(ValueError):
+            mha_fused.mha_flash_train_dropout(x, x, x, heads=heads,
+                                              key=Key(1), p=0.1)
+    assert counts()[0] == before[0] + 1
 
 
 # ---------------------------------------------------------------------------

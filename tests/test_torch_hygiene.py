@@ -1,8 +1,8 @@
 """PyTorch port, package rules and host copies: the port imports neither
 jax nor the JAX package; its entry points raise without CUDA unless the
 caller asks for the CPU; its own copies of the host modules (config,
-tokenizer, manifest, batcher, normalization) behave exactly like the JAX
-package's originals."""
+tokenizer, manifest, batcher, normalization, synonymizer) behave exactly
+like the JAX package's originals."""
 
 import dataclasses
 import pathlib
@@ -60,7 +60,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     pkg = "garbage_classification_rca_tpu_torch."
     for mod in ("kernels.transformer_block", "models.text.bert",
                 "models.text.roberta", "models.image.vit", "models.registry",
-                "cli.test_text", "cli.test_image", "utils.dtype"):
+                "cli.test_text", "cli.test_image", "utils.dtype",
+                "cli.main_text", "cli.main_image", "data.synonymize"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -236,6 +237,47 @@ def test_batcher_matches_jax(tiny_dataset, monkeypatch):
         assert g.keys() == w.keys()
         for k in g:
             assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+
+
+def test_synonymizer_and_synonym_batcher_match_jax(tiny_dataset):
+    from garbage_classification_rca_tpu.cli import main_text as jmain_text
+    from garbage_classification_rca_tpu.data import synonymize as jsyn
+    from garbage_classification_rca_tpu_torch.cli import (
+        main_text as tmain_text)
+    from garbage_classification_rca_tpu_torch.data import synonymize as tsyn
+
+    assert tsyn.SYNONYMS == jsyn.SYNONYMS and tsyn.MAX_SWAPS == jsyn.MAX_SWAPS
+    texts = ["old plastic water bottle with a broken lid", "battery",
+             "nothing to swap here", "", "Small GLASS jar and a paper bag"]
+    a, b = tsyn.Synonymizer(seed=3), jsyn.Synonymizer(seed=3)
+    assert [a.augment(t) for t in texts * 3] == [b.augment(t)
+                                                 for t in texts * 3]
+    assert tsyn.Synonymizer(llm_fn=str.upper).augment("a cup") == "A CUP"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsyn.make_hf_llm_fn("/some/llama")
+    assert tmain_text.HEAD_KEYS_BY_MODEL == jmain_text.HEAD_KEYS_BY_MODEL
+    # the batcher: the gate's draws and the re-tokenized text
+    tok = ttokenizer.get_tokenizer("distilbert", vocab_dir=str(VOCAB))
+    jtok = jtokenizer.get_tokenizer("distilbert", vocab_dir=str(VOCAB))
+    kw = dict(seq_len=16, workers=2, with_images=False, prob=0.6, seed=1)
+    tb = tmain_text.SynonymBatcher(
+        tmanifest.build_manifest(str(tiny_dataset)), (0, 0), tokenizer=tok,
+        synonymizer=tsyn.Synonymizer(seed=1), **kw)
+    jb = jmain_text.SynonymBatcher(
+        jmanifest.build_manifest(str(tiny_dataset)), (0, 0), tokenizer=jtok,
+        synonymizer=jsyn.Synonymizer(seed=1), **kw)
+    got = list(tb.iter_batches(5, shuffle=True, seed=2))
+    want = list(jb.iter_batches(5, shuffle=True, seed=2))
+    plain = list(tpipeline.ImageTextBatcher(
+        tb.m, (0, 0), tokenizer=tok, seq_len=16, with_images=False
+    ).iter_batches(5, shuffle=True, seed=2))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and "image" not in g
+        for k in g:
+            assert np.array_equal(g[k], w[k]), k
+    assert any(not np.array_equal(g["input_ids"], p["input_ids"])
+               for g, p in zip(got, plain))        # some word was swapped
 
 
 def test_normalize_and_to_device_match_jax():

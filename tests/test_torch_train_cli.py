@@ -135,8 +135,7 @@ def test_port_trainer_matches_jax_trainer(inputs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--hf_internal_dropout", "K7"), ("--wandb", "wandb"),
-    ("--fsdp", "fsdp"), ("--mesh_shape=data:2", "mesh_shape"),
+    ("--wandb", "wandb"), ("--fsdp", "fsdp"), ("--mesh_shape=data:2", "mesh_shape"),
     ("--resume_every_steps=5", "RESUME"),
     ("--model_path=model_weights/x/RESUME", "RESUME")])
 def test_unported_train_flags_raise(monkeypatch, flag, match):
