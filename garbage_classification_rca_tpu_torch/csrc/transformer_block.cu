@@ -29,9 +29,34 @@
 // does 2 (3 D^2 + D^2) + 4 N D and the MLP block 4 D FFN operations against
 // a few bytes of x and y (the weights are shared by every token), so at
 // batch 256 x 64 tokens x 768 / 3072 the bound is the matrix rate, not the
-// memory. This first version runs the products on the fp32 CUDA cores with
-// shared-memory tiles and register micro-tiles; tensor cores (wgmma) are
-// later work. What the design does about the 227 KB of shared memory
+// memory.
+//
+// The MLP blocks in bf16 run on the tensor cores (tc_gemm.cuh: wgmma fed
+// by TMA), as two GEMM kernels with their epilogues in registers plus one
+// LayerNorm row kernel:
+//   pre-norm:  ln_rows_kernel  A = round(LN(x))            [rows, D] ws
+//              GEMM1           H = round(act(A W1 + b1))   [rows, FFN] ws
+//              GEMM2           y = round(x + (H W2 + b2))  fp32 add
+//   post-norm: GEMM1           H = round(act(x W1 + b1))
+//              GEMM2           y = round(x + round(H W2 + b2))
+//              ln_rows_kernel  y = round(LN(y)) in place
+// The hidden H passes through device memory (100.7 MB at 256 x 64 tokens,
+// FFN 3072), unlike the Pallas kernel, which keeps it in VMEM: a wgmma tile
+// has at least 64 rows, and 64 x 3072 bf16 = 384 KB does not fit the
+// 227 KB of shared memory; the design that kept 32 rows of it on chip
+// re-read all of W1 and W2 from L2 for every 32 rows (4.8 GB per launch at
+// that shape). Writing and reading H once costs ~0.06 ms of HBM time,
+// below the 0.16 ms operations bound. The pre-norm LN output goes through a
+// [rows, D] workspace (25 MB at that shape) rather than being applied to
+// A's tile in shared memory, which keeps the GEMM core free of
+// block-specific code. The wrapper allocates both workspaces.
+//
+// The fp32 blocks (the trainers' val evals) stay on the CUDA cores: TF32
+// would miss their 2e-5 bar. tb_mlp_block dispatches by dtype; a bf16
+// shape the tensor-core route does not take is refused, never sent to the
+// fp32 body. The fp32 MLP body and both attention stages run their
+// products on the fp32 CUDA cores with shared-memory tiles and register
+// micro-tiles; what their design does about the 227 KB of shared memory
 // (the Pallas kernels held a batch tile's qkv and all weights in 16 MB):
 //   * attention, stage 1 (`attn_heads_kernel`): one block per (sample, head)
 //     computes that head's q, k, v columns from x (LN applied while x is
@@ -43,9 +68,9 @@
 //   * attention, stage 2 (`attn_out_kernel`): one block per 32 rows of
 //     B * N does the out-projection, bias, residual and (post-norm) LN. It
 //     needs all heads of a row, hence the second kernel;
-//   * MLP (`mlp_kernel`): one block per tile of 32 / 16 / 8 rows holds the
-//     [rows, FFN] hidden in shared memory in T (32 x 3072 bf16 = 192 KB)
-//     and streams W1 / W2 through L2; the hidden never leaves the SM.
+//   * fp32 MLP (`mlp_kernel`): one block per tile of 32 / 16 / 8 rows holds
+//     the [rows, FFN] hidden in shared memory and streams W1 / W2 through
+//     L2; the hidden never leaves the SM.
 //   * post-norm: the rounded sum x + out is stored in y (it is already a T
 //     value, so nothing is lost), and after a block barrier the same block
 //     normalises its own rows of y in place; those bytes stay in L2.
@@ -56,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -430,45 +457,45 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// MLP: one block per RT rows; the hidden [RT, FFN] stays in shared memory
+// fp32 MLP: one block per RT rows; the hidden [RT, FFN] stays in shared
+// memory
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
 }
 
-template <typename T, bool POST, int RT>
+template <bool POST, int RT>
 __global__ void __launch_bounds__(THREADS)
-    mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, const T* __restrict__ w1,
-               const float* __restrict__ b1, const T* __restrict__ w2,
-               const float* __restrict__ b2, T* y, long long rows, int D,
+    mlp_kernel(const float* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, const float* __restrict__ w1,
+               const float* __restrict__ b1, const float* __restrict__ w2,
+               const float* __restrict__ b2, float* y, long long rows, int D,
                int FFN, float eps, int relu) {
   extern __shared__ __align__(16) float sm[];
   float* As = sm;                    // [BK][RT + 4]
   float* Bs = As + BK * (RT + 4);    // [BK][BNC]
   float* mean = Bs + BK * BNC;       // [32]
   float* rstd = mean + 32;           // [32]
-  T* Hs = reinterpret_cast<T*>(rstd + 32);  // [RT][FFN]
+  float* Hs = rstd + 32;             // [RT][FFN]
 
   const int tid = threadIdx.x, tr = tid >> 5, lane = tid & 31;
   const size_t r0 = static_cast<size_t>(blockIdx.x) * RT;
   const int nrows = static_cast<int>(min(static_cast<long long>(RT),
                                          rows - static_cast<long long>(r0)));
-  const T* xr = x + r0 * D;
+  const float* xr = x + r0 * D;
   if (!POST) row_stats(xr, nrows, D, eps, mean, rstd);
 
   for (int n0 = 0; n0 < FFN; n0 += BNC) {
     float acc[RT / 8][BNC / 32] = {};
     auto a = [&](int m, int k) -> float {
       if (m >= nrows) return 0.f;
-      float v = to_f(xr[static_cast<size_t>(m) * D + k]);
-      if (!POST) v = round_to((v - mean[m]) * rstd[m] * ln_s[k] + ln_b[k], x);
+      float v = xr[static_cast<size_t>(m) * D + k];
+      if (!POST) v = (v - mean[m]) * rstd[m] * ln_s[k] + ln_b[k];
       return v;
     };
     auto bw = [&](int k, int c) -> float {
-      return n0 + c < FFN ? to_f(w1[static_cast<size_t>(k) * FFN + n0 + c])
-                          : 0.f;
+      return n0 + c < FFN ? w1[static_cast<size_t>(k) * FFN + n0 + c] : 0.f;
     };
     block_gemm<RT, BNC, 4>(acc, D, a, bw, As, Bs);
 #pragma unroll
@@ -480,7 +507,7 @@ __global__ void __launch_bounds__(THREADS)
         if (c >= FFN) continue;
         float v = acc[i][jj] + b1[c];
         v = relu ? fmaxf(v, 0.f) : gelu_exact(v);
-        st(Hs, static_cast<size_t>(r) * FFN + c, v);
+        Hs[static_cast<size_t>(r) * FFN + c] = v;
       }
     }
   }
@@ -488,19 +515,197 @@ __global__ void __launch_bounds__(THREADS)
   for (int n0 = 0; n0 < D; n0 += BNC) {
     float acc[RT / 8][BNC / 32] = {};
     auto a = [&](int m, int k) -> float {
-      return to_f(Hs[static_cast<size_t>(m) * FFN + k]);
+      return Hs[static_cast<size_t>(m) * FFN + k];
     };
     auto bw = [&](int k, int c) -> float {
-      return n0 + c < D ? to_f(w2[static_cast<size_t>(k) * D + n0 + c]) : 0.f;
+      return n0 + c < D ? w2[static_cast<size_t>(k) * D + n0 + c] : 0.f;
     };
     block_gemm<RT, BNC, 4>(acc, FFN, a, bw, As, Bs);
-    residual_store<T, POST, RT / 8, BNC / 32, 4>(acc, x, b2, y, r0, nrows, n0,
-                                                 D);
+    residual_store<float, POST, RT / 8, BNC / 32, 4>(acc, x, b2, y, r0, nrows,
+                                                     n0, D);
   }
   if (POST) {
     __syncthreads();
     ln_rows_inplace(y + r0 * D, nrows, D, ln_s, ln_b, eps);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 MLP on the tensor cores: LayerNorm rows + two GEMMs (tc_gemm.cuh)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int LN_WARPS = 8;   // rows per block of ln_rows_kernel
+
+// out[r] = round(LN(in[r])), fp32 two-pass, one warp per row, 16-byte
+// loads (D a multiple of 8). Rows of up to 32 * 8 * LN_CHUNKS values are
+// read once into registers (every registered model's width); wider rows
+// are read three times. `in` may be `out`: each lane rewrites the chunks it
+// read.
+constexpr int LN_CHUNKS = 4;
+
+__device__ __forceinline__ float2 bf2(uint4 u, int e) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&u)[e]);
+}
+
+__global__ void __launch_bounds__(LN_WARPS * 32)
+    ln_rows_kernel(const bf16* in, bf16* out, const float* __restrict__ ln_s,
+                   const float* __restrict__ ln_b, long long rows, int D,
+                   float eps) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * LN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const uint4* p = reinterpret_cast<const uint4*>(in + r * D);
+  uint4* q = reinterpret_cast<uint4*>(out + r * D);
+  const int nv = D / 8;
+  const bool held = nv <= 32 * LN_CHUNKS;  // the same for the whole grid
+  uint4 u[LN_CHUNKS];
+  float s = 0.f;
+  if (held) {
+#pragma unroll
+    for (int c = 0; c < LN_CHUNKS; ++c)
+      if (lane + 32 * c < nv) u[c] = p[lane + 32 * c];
+#pragma unroll
+    for (int c = 0; c < LN_CHUNKS; ++c)
+      if (lane + 32 * c < nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = bf2(u[c], e);
+          s += f.x + f.y;
+        }
+  } else {
+    for (int i = lane; i < nv; i += 32)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = bf2(p[i], e);
+        s += f.x + f.y;
+      }
+  }
+  const float mu = warp_sum(s) / D;
+  float v = 0.f;
+  if (held) {
+#pragma unroll
+    for (int c = 0; c < LN_CHUNKS; ++c)
+      if (lane + 32 * c < nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = bf2(u[c], e);
+          v = fmaf(f.x - mu, f.x - mu, v);
+          v = fmaf(f.y - mu, f.y - mu, v);
+        }
+  } else {
+    for (int i = lane; i < nv; i += 32)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = bf2(p[i], e);
+        v = fmaf(f.x - mu, f.x - mu, v);
+        v = fmaf(f.y - mu, f.y - mu, v);
+      }
+  }
+  const float rs = rsqrtf(warp_sum(v) / D + eps);
+  auto norm = [&](int i, uint4 w) {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 8 * i + 2 * e;
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn((f.x - mu) * rs * ln_s[d] + ln_b[d],
+                                   (f.y - mu) * rs * ln_s[d + 1] + ln_b[d + 1]);
+    }
+    q[i] = w;
+  };
+  if (held) {
+#pragma unroll
+    for (int c = 0; c < LN_CHUNKS; ++c)
+      if (lane + 32 * c < nv) norm(lane + 32 * c, u[c]);
+  } else {
+    for (int i = lane; i < nv; i += 32) norm(i, p[i]);
+  }
+}
+
+// GEMM1's epilogue: H = round(act(acc + b1)), act in fp32.
+template <bool RELU>
+struct HiddenEpi {
+  bf16* h;
+  const float* b1;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    v0 += b1[c];
+    v1 += b1[c + 1];
+    v0 = RELU ? fmaxf(v0, 0.f) : gelu_exact(v0);
+    v1 = RELU ? fmaxf(v1, 0.f) : gelu_exact(v1);
+    *reinterpret_cast<__nv_bfloat162*>(h + static_cast<size_t>(r) * ld + c) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+// GEMM2's epilogue: o = acc + b2; POST: y = round(x + round(o)), the add
+// of two bf16 values; else y = round(x + o), the add in fp32.
+template <bool POST>
+struct ResidualEpi {
+  bf16* y;
+  const bf16* x;
+  const float* b2;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    const float2 xi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
+    float o0 = v0 + b2[c], o1 = v1 + b2[c + 1];
+    if (POST) {
+      o0 = __bfloat162float(__float2bfloat16(o0));
+      o1 = __bfloat162float(__float2bfloat16(o1));
+    }
+    *reinterpret_cast<__nv_bfloat162*>(y + i) =
+        __floats2bfloat162_rn(xi.x + o0, xi.y + o1);
+  }
+};
+
+// C = A . B with epilogue `epi` at tile width bn (192 or 256) on `grid`
+// blocks.
+template <class Epi>
+cudaError_t gemm_bn(int bn, int grid, const void* a, const void* b,
+                    long long M, int N, int K, const Epi& epi,
+                    cudaStream_t s) {
+  const int m = static_cast<int>(M);
+  if (bn == 256) return tc::gemm<256>(a, b, m, N, K, epi, grid, s);
+  if (bn == 192) return tc::gemm<192>(a, b, m, N, K, epi, grid, s);
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 block: launch order and workspaces as in the header comment.
+// hidden: [rows, FFN]; normed: [rows, D] (pre-norm only).
+template <bool POST>
+cudaError_t launch_mlp_tc(const bf16* x, const float* ln_s, const float* ln_b,
+                          const bf16* w1, const float* b1, const bf16* w2,
+                          const float* b2, bf16* y, bf16* hidden,
+                          bf16* normed, long long rows, int D, int FFN,
+                          float eps, int relu, int bn1, int grid1, int bn2,
+                          int grid2, cudaStream_t s) {
+  const unsigned ln_grid =
+      static_cast<unsigned>((rows + LN_WARPS - 1) / LN_WARPS);
+  const bf16* a = x;
+  cudaError_t err;
+  if (!POST) {
+    ln_rows_kernel<<<ln_grid, LN_WARPS * 32, 0, s>>>(x, normed, ln_s, ln_b,
+                                                     rows, D, eps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    a = normed;
+  }
+  err = relu ? gemm_bn(bn1, grid1, a, w1, rows, FFN, D,
+                       HiddenEpi<true>{hidden, b1, FFN}, s)
+             : gemm_bn(bn1, grid1, a, w1, rows, FFN, D,
+                       HiddenEpi<false>{hidden, b1, FFN}, s);
+  if (err != cudaSuccess) return err;
+  err = gemm_bn(bn2, grid2, hidden, w2, rows, D, FFN,
+                ResidualEpi<POST>{y, x, b2, D}, s);
+  if (err != cudaSuccess || !POST) return err;
+  ln_rows_kernel<<<ln_grid, LN_WARPS * 32, 0, s>>>(y, y, ln_s, ln_b, rows, D,
+                                                   eps);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -512,9 +717,9 @@ size_t attn_smem(int N) {
                           static_cast<size_t>(N) * (3 * (DH + 1) + BQ + 2));
 }
 
-size_t mlp_smem(int rt, int FFN, size_t item) {
-  return sizeof(float) * (BK * (rt + 4) + BK * BNC + 64) +
-         static_cast<size_t>(rt) * FFN * item;
+size_t mlp_smem(int rt, int FFN) {
+  return sizeof(float) * (BK * (rt + 4) + BK * BNC + 64 +
+                          static_cast<size_t>(rt) * FFN);
 }
 
 template <typename T, bool POST>
@@ -543,32 +748,32 @@ cudaError_t launch_attn(const void* x, const int* mask, const float* ln_s,
   return cudaGetLastError();
 }
 
-template <typename T, bool POST, int RT>
+template <bool POST, int RT>
 cudaError_t launch_mlp_rt(const void* x, const float* ln_s, const float* ln_b,
                           const void* w1, const float* b1, const void* w2,
                           const float* b2, void* y, long long rows, int D,
                           int FFN, float eps, int relu, cudaStream_t s) {
-  const size_t smem = mlp_smem(RT, FFN, sizeof(T));
-  auto k = mlp_kernel<T, POST, RT>;
+  const size_t smem = mlp_smem(RT, FFN);
+  auto k = mlp_kernel<POST, RT>;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   k<<<static_cast<unsigned>((rows + RT - 1) / RT), THREADS, smem, s>>>(
-      static_cast<const T*>(x), ln_s, ln_b, static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, static_cast<T*>(y), rows, D, FFN, eps,
-      relu);
+      static_cast<const float*>(x), ln_s, ln_b,
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
+      static_cast<float*>(y), rows, D, FFN, eps, relu);
   return cudaGetLastError();
 }
 
-template <typename T, bool POST>
+template <bool POST>
 cudaError_t launch_mlp(const void* x, const float* ln_s, const float* ln_b,
                        const void* w1, const float* b1, const void* w2,
                        const float* b2, void* y, long long rows, int D,
                        int FFN, float eps, int relu, cudaStream_t s) {
 #define MLP_RT(RT)                                                         \
-  if (mlp_smem(RT, FFN, sizeof(T)) <= MAX_SMEM)                            \
-    return launch_mlp_rt<T, POST, RT>(x, ln_s, ln_b, w1, b1, w2, b2, y,    \
-                                      rows, D, FFN, eps, relu, s);
+  if (mlp_smem(RT, FFN) <= MAX_SMEM)                                       \
+    return launch_mlp_rt<POST, RT>(x, ln_s, ln_b, w1, b1, w2, b2, y, rows, \
+                                   D, FFN, eps, relu, s);
   MLP_RT(32)
   MLP_RT(16)
   MLP_RT(8)
@@ -608,28 +813,53 @@ extern "C" int tb_attn_block(const void* x, const void* mask,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, y: [rows, D] contiguous in `dtype`; w1 [D, FFN] and w2 [FFN, D]
-// input-major in `dtype`; b1, b2, ln_s, ln_b float32. post = 1:
-// y = LN(x + act(x W1 + b1) W2 + b2); post = 0: y = x + act(LN(x) W1 + b1)
-// W2 + b2; act is exact GELU, or ReLU when relu != 0. D and FFN multiples of
-// 16. Returns cudaGetLastError().
+// x, y: [rows, D] contiguous in `dtype` (0 = float32, 1 = bfloat16); w1
+// [D, FFN] and w2 [FFN, D] input-major in `dtype`; b1, b2, ln_s, ln_b
+// float32. post = 1: y = LN(x + act(x W1 + b1) W2 + b2); post = 0:
+// y = x + act(LN(x) W1 + b1) W2 + b2; act is exact GELU, or ReLU when
+// relu != 0. D and FFN multiples of 16. Routes by dtype: float32 on the
+// CUDA cores (hidden and normed unused, bn1 = grid1 = bn2 = grid2 = 0);
+// bfloat16 on the tensor cores with the workspaces hidden [rows, FFN] and,
+// pre-norm, normed [rows, D] in bf16, every pointer 16-byte aligned, and
+// the caller's launch plan for the two GEMMs: tile widths bn1 / bn2 (192
+// or 256) on grid1 / grid2 blocks. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what a route refuses.
 extern "C" int tb_mlp_block(const void* x, const void* ln_s, const void* ln_b,
                             const void* w1, const void* b1, const void* w2,
-                            const void* b2, void* y, long long rows, int D,
-                            int FFN, float eps, int post, int relu, int dtype,
-                            void* stream) {
+                            const void* b2, void* y, void* hidden,
+                            void* normed, long long rows, int D, int FFN,
+                            float eps, int post, int relu, int dtype, int bn1,
+                            int grid1, int bn2, int grid2, void* stream) {
   if (rows <= 0) return 0;
   if (D <= 0 || FFN <= 0 || D % BK || FFN % BK)
     return static_cast<int>(cudaErrorInvalidValue);
-#define MLP(T, POST)                                                        \
-  return static_cast<int>(launch_mlp<T, POST>(                              \
-      x, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),  \
-      w1, static_cast<const float*>(b1), w2, static_cast<const float*>(b2), \
-      y, rows, D, FFN, eps, relu, static_cast<cudaStream_t>(stream)))
-  if (dtype == 0 && post) MLP(float, true);
-  if (dtype == 0) MLP(float, false);
-  if (dtype == 1 && post) MLP(__nv_bfloat16, true);
-  if (dtype == 1) MLP(__nv_bfloat16, false);
-#undef MLP
-  return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *lns = static_cast<const float*>(ln_s),
+              *lnb = static_cast<const float*>(ln_b),
+              *fb1 = static_cast<const float*>(b1),
+              *fb2 = static_cast<const float*>(b2);
+  if (dtype == 0 && (bn1 | grid1 | bn2 | grid2) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return static_cast<int>(
+        post ? launch_mlp<true>(x, lns, lnb, w1, fb1, w2, fb2, y, rows, D,
+                                FFN, eps, relu, s)
+             : launch_mlp<false>(x, lns, lnb, w1, fb1, w2, fb2, y, rows, D,
+                                 FFN, eps, relu, s));
+  if (dtype != 1 || hidden == nullptr || (!post && normed == nullptr) ||
+      (bn1 != 192 && bn1 != 256) || (bn2 != 192 && bn2 != 256) ||
+      grid1 <= 0 || grid2 <= 0 ||
+      (reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(x) |
+       reinterpret_cast<uintptr_t>(hidden) |
+       reinterpret_cast<uintptr_t>(normed)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MLP_TC(POST)                                                        \
+  return static_cast<int>(launch_mlp_tc<POST>(                              \
+      static_cast<const bf16*>(x), lns, lnb, static_cast<const bf16*>(w1),  \
+      fb1, static_cast<const bf16*>(w2), fb2, static_cast<bf16*>(y),        \
+      static_cast<bf16*>(hidden), static_cast<bf16*>(normed), rows, D, FFN, \
+      eps, relu, bn1, grid1, bn2, grid2, s))
+  if (post) MLP_TC(true);
+  MLP_TC(false);
+#undef MLP_TC
 }

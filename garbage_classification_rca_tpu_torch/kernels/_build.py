@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 Every ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``csrc/build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so a changed source never loads a stale library). Building happens
+into ``csrc/build/lib<name>-<hash>.so`` (the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so a changed source never loads
+a stale library). Building happens
 at first use; ``build_all()`` starts one nvcc per source, all at once.
 Nothing here runs when a module is imported: the CPU tests import every
 module on machines without nvcc.
@@ -43,6 +44,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -29,12 +29,19 @@ the card streams the weights through L2, so the JAX package's
 weights-resident-in-VMEM limits do not apply. ``csrc/transformer_block.cu``
 explains what bounds the kernels on the H100 and which intermediate still
 passes through device memory.
+
+The MLP blocks take one of two routes by dtype (``mlp_plan``): bf16 on the
+tensor cores (a LayerNorm row kernel and two wgmma GEMM kernels, the hidden
+in a [rows, FFN] workspace this module allocates), fp32 on the CUDA cores
+(one kernel, the hidden in shared memory). A bf16 shape the tensor-core
+route refuses raises; it never goes to the fp32 body.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,10 +54,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = ("gelu", "relu")
 
 
-def _mlp_smem(rows: int, ffn: int, itemsize: int) -> int:
-    """Shared memory of the MLP kernel with `rows` rows per block (the
+def _mlp_smem(rows: int, ffn: int) -> int:
+    """Shared memory of the fp32 MLP kernel with `rows` rows per block (the
     formula of ``mlp_smem`` in the CUDA source)."""
-    return 4 * (16 * (rows + 4) + 16 * 256 + 64) + rows * ffn * itemsize
+    return 4 * (16 * (rows + 4) + 16 * 256 + 64 + rows * ffn)
 
 
 def attn_fits(n: int, d: int, heads: int, dtype) -> bool:
@@ -62,13 +69,59 @@ def attn_fits(n: int, d: int, heads: int, dtype) -> bool:
 
 
 def mlp_fits(d: int, ffn: int, dtype) -> bool:
-    """Whether the MLP kernel takes widths d / ffn: fp32 or bf16, both
-    multiples of 16, and an 8-row tile of the hidden fits shared memory
-    (ffn <= 13,440 in bf16, 6,720 in fp32)."""
-    return (dtype in _DTYPES and d > 0 and ffn > 0 and d % 16 == 0
-            and ffn % 16 == 0
-            and _mlp_smem(8, ffn, 4 if dtype == torch.float32 else 2)
-            <= MAX_SMEM)
+    """Whether the MLP kernels take widths d / ffn: both multiples of 16;
+    in fp32 an 8-row tile of the hidden must also fit shared memory (ffn <=
+    6,720). bf16 has no limit on ffn: its hidden lives in device memory."""
+    if dtype not in _DTYPES or d <= 0 or ffn <= 0 or d % 16 or ffn % 16:
+        return False
+    return dtype == torch.bfloat16 or _mlp_smem(8, ffn) <= MAX_SMEM
+
+
+H100_SMS = 132       # streaming multiprocessors the launch plan fills
+TC_BM = 128          # rows of a tensor-core GEMM tile
+TC_BNS = (256, 192)  # its widths, the wider first (fewer bytes per FLOP)
+
+
+@dataclass(frozen=True)
+class MlpPlan:
+    """How one MLP-block call runs on the card; ``_launch_mlp`` hands it to
+    ``tb_mlp_block`` as it is. `route`: "tensor_cores" (bf16) or
+    "cuda_cores" (fp32); `workspaces`: bf16 buffers the wrapper allocates,
+    name -> shape; `gemms`: (tile width, grid) of GEMM1 and GEMM2 (bf16
+    only; each GEMM's grid walks its tiles persistently)."""
+    route: str
+    workspaces: Dict[str, Tuple[int, int]]
+    gemms: Tuple[Tuple[int, int], ...] = ()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _gemm_launch(m: int, n: int, sms: int) -> Tuple[int, int]:
+    """(tile width, grid) of an [m, n] GEMM on `sms` SMs. The width gives
+    the fewest waves of tiles times the width (a wave's time grows with
+    it), ties to the wider tile; the grid is one block per SM, or one per
+    tile when there are fewer."""
+    def cost(bn):
+        return _cdiv(_cdiv(n, bn) * _cdiv(m, TC_BM), sms) * bn
+    bn = min(TC_BNS, key=cost)
+    return bn, min(sms, _cdiv(n, bn) * _cdiv(m, TC_BM))
+
+
+def mlp_plan(rows: int, d: int, ffn: int, dtype, post: bool,
+             sms: int = H100_SMS) -> MlpPlan:
+    """The launch plan of ``tb_mlp_block`` for `rows` tokens of widths
+    d / ffn (which ``mlp_fits``): fp32 on the CUDA-core body; bf16 on the
+    tensor cores with the hidden in a [rows, FFN] workspace and, pre-norm,
+    the LayerNorm output in a [rows, D] one."""
+    if dtype == torch.float32:
+        return MlpPlan("cuda_cores", {})
+    workspaces = {"hidden": (rows, ffn)}
+    if not post:
+        workspaces["normed"] = (rows, d)
+    return MlpPlan("tensor_cores", workspaces,
+                   (_gemm_launch(rows, ffn, sms), _gemm_launch(rows, d, sms)))
 
 
 def blocks_fit(n: int, d: int, ffn: int, heads: int, dtype) -> bool:
@@ -242,25 +295,36 @@ def _launch_mlp(name, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, act, post):
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if not mlp_fits(d, ffn, x.dtype):
         raise ValueError(
-            f"{name}: the kernel takes D and FFN multiples of 16 with 8 "
-            f"rows of the hidden in shared memory, got D={d} FFN={ffn} in "
-            f"{x.dtype}")
+            f"{name}: the kernels take D and FFN multiples of 16 (FFN <= "
+            f"6,720 in float32), got D={d} FFN={ffn} in {x.dtype}")
     _forward_only(name, x)
     from . import _build
 
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = mlp_plan(b * n, d, ffn, x.dtype, post, sms)
+    if plan.route == "tensor_cores" and any(
+            t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError(f"{name}: the tensor-core route needs x, w1 and w2 "
+                         "16-byte aligned")
+    ws = {k: torch.empty(shape, device=x.device, dtype=torch.bfloat16)
+          for k, shape in plan.workspaces.items()}
     fn = _build.library("transformer_block").tb_mlp_block
-    fn.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     vecs = [v.float().contiguous() for v in (ln_scale, ln_bias, b1, b2)]
+    (bn1, grid1), (bn2, grid2) = plan.gemms or ((0, 0), (0, 0))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), vecs[0].data_ptr(), vecs[1].data_ptr(), _ptr(w1),
                  vecs[2].data_ptr(), _ptr(w2), vecs[3].data_ptr(),
-                 y.data_ptr(), b * n, d, ffn, float(eps), int(post),
-                 int(act == "relu"), _DTYPES[x.dtype], stream)
+                 y.data_ptr(),
+                 ws["hidden"].data_ptr() if "hidden" in ws else None,
+                 ws["normed"].data_ptr() if "normed" in ws else None,
+                 b * n, d, ffn, float(eps), int(post), int(act == "relu"),
+                 _DTYPES[x.dtype], bn1, grid1, bn2, grid2, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return y

@@ -214,8 +214,13 @@ def test_wrappers_check_their_arguments():
     (512, 768, 12, 3072, torch.bfloat16, False, True),
     (64, 768, 8, 3072, torch.bfloat16, False, True),     # head dim 96
     (64, 768, 12, 3072, torch.float16, False, False),
-    (64, 768, 12, 13456, torch.bfloat16, True, False),   # hidden too wide
+    (64, 768, 12, 13456, torch.float32, True, False),    # hidden too wide
     (64, 768, 12, 3000, torch.bfloat16, True, False),    # not a multiple of 16
+    # bf16 keeps the hidden in device memory: no limit on FFN; fp32 keeps
+    # 8 rows of it in shared memory: FFN <= 6,720
+    (64, 768, 12, 13456, torch.bfloat16, True, True),
+    (64, 768, 12, 6720, torch.float32, True, True),
+    (64, 768, 12, 6736, torch.float32, True, False),
 ])
 def test_fit_rules(n, d, heads, ffn, dtype, attn, mlp):
     assert ttb.attn_fits(n, d, heads, dtype) is attn

@@ -328,3 +328,90 @@ def test_transformer_blocks_raise_on_cuda_misfit(cuda):
     with torch.enable_grad(), pytest.raises(RuntimeError,
                                             match="forward-only"):
         tb.mlp_block(x.requires_grad_(), ls, lb, *mlp)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("post", [True, False])
+@pytest.mark.parametrize("b,n,d,ffn", [
+    (5, 64, 768, 3072),       # BERT family, 320 rows: 2.5 row tiles
+    (2, 197, 768, 3072),      # ViT-B/16, 394 rows
+    (64, 197, 768, 3072),     # ViT-B/16 eval batch: blocks walk several tiles
+    (1, 197, 1024, 4096),     # ViT-L/16, 197 rows
+    (3, 17, 768, 3072),       # 51 rows, one partial tile
+    (3, 17, 128, 272)])       # widths that are no multiple of a tile
+def test_mlp_blocks_tensor_core_route_matches_plain(cuda, b, n, d, ffn, post,
+                                                    act):
+    """The bf16 MLP blocks on the tensor cores (LayerNorm row kernel + two
+    wgmma GEMMs) against their plain versions; one launch counted per
+    call."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(b, n, d, ffn, torch.bfloat16,
+                                            cuda, 7 * n + d)
+    fn = tb.postnorm_mlp_block if post else tb.mlp_block
+    before = fn.launches
+    if post:
+        got = fn(x, *mlp, ls, lb, act=act)
+        want = tb.postnorm_mlp_block_reference(x, *mlp, ls, lb, act=act)
+    else:
+        got = fn(x, ls, lb, *mlp, act=act)
+        want = tb.mlp_block_reference(x, ls, lb, *mlp, act=act)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert tb.mlp_plan(b * n, d, ffn, x.dtype, post).route == "tensor_cores"
+    _block_close(got, want, torch.bfloat16)
+
+
+def test_mlp_entry_refuses_a_plan_of_the_other_route(cuda):
+    """The CUDA entry launches the GEMMs the wrapper's plan gives: a fp32
+    call that brings a tensor-core plan, or a bf16 one without it, is
+    refused before anything is launched."""
+    import ctypes
+
+    from garbage_classification_rca_tpu_torch.kernels import (
+        _build, transformer_block as tb)
+
+    fn = _build.library("transformer_block").tb_mlp_block
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for dtype, plan in ((torch.float32, ((256, 4), (256, 4))),
+                        (torch.bfloat16, ((0, 0), (0, 0)))):
+        x, ls, lb, attn, mlp, m = _block_inputs(2, 8, 128, 256, dtype, cuda,
+                                                0)
+        w1, b1, w2, b2 = mlp
+        ls, lb, b1, b2 = (v.float() for v in (ls, lb, b1, b2))
+        hidden = torch.empty(16, 256, device=cuda, dtype=torch.bfloat16)
+        y = torch.empty_like(x)
+        err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
+                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                 hidden.data_ptr(), None, 16, 128, 256, 1e-6, 1, 0,
+                 tb._DTYPES[dtype], *plan[0], *plan[1],
+                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0, dtype
+
+
+def test_mlp_blocks_raise_on_bf16_misfit(cuda):
+    """A bf16 call the tensor-core route refuses raises on the card: widths
+    that are no multiple of 16, an x that is not 16-byte aligned. Nothing
+    falls back to the plain version or to the fp32 body."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(2, 8, 128, 264, torch.bfloat16,
+                                            cuda, 0)
+    before = tb.mlp_block.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tb.mlp_block(x, ls, lb, *mlp)
+    x, ls, lb, attn, mlp, m = _block_inputs(2, 8, 128, 256, torch.bfloat16,
+                                            cuda, 0)
+    shifted = torch.empty(x.numel() + 4, device=cuda,
+                          dtype=torch.bfloat16)[4:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb.mlp_block(shifted, ls, lb, *mlp)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb.postnorm_mlp_block(shifted, *mlp, ls, lb)
+    assert tb.mlp_block.launches == before

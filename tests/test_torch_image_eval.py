@@ -147,10 +147,11 @@ def test_convert_torch_gives_the_jax_tree_and_ref_logits(name, monkeypatch):
     (197, 768, 12, 3072, torch.bfloat16, False, "fused"),
     (197, 768, 12, 3072, torch.float32, False, "fused"),
     (197, 1024, 16, 4096, torch.bfloat16, False, "fused"),
-    (5, 128, 2, 13456, torch.bfloat16, False, "fused_attn"),
+    (5, 128, 2, 13456, torch.float32, False, "fused_attn"),  # fp32 hidden
     (225, 128, 2, 256, torch.float32, False, "mha"),
     (5, 128, 4, 256, torch.float32, False, "mha"),        # head dim 32
     (5, 128, 2, 256, torch.float32, True, "mha"),
+    (5, 128, 2, 13456, torch.bfloat16, False, "fused"),   # bf16: any FFN
 ])
 def test_layer_route_rule(n, hidden, heads, mlp, dtype, train, want):
     cfg = tvit.ViTConfig(layers=1, heads=heads, hidden=hidden, mlp=mlp)
