@@ -13,7 +13,13 @@ Phases, each of which fails the run when it fails:
      events after a warm-up (median of 5); for the bf16 MLP blocks (K5b,
      K6b) also each kernel's time (GEMM1, GEMM2, LayerNorm pass) from the
      profiler, the share of the bound, and K6b at ViT-L/16's full width;
-     the build's ptxas report (registers, spills) per kernel;
+     the flash pair's tensor-core route (K4a / K4b in bf16 at head dim 64,
+     N <= 256: ``mha_fwd_lse_tc`` / ``mha_flash_bwd_tc``) at N = 1 .. 256
+     unmasked, key-masked with a fully masked sample, and causal, its
+     gradients bit-identical over two runs, and timed against the CUDA-core
+     kernels in one call (new-old-old-new) at 128x197x768 (ViT-B/16 train)
+     and 128x64x768, beside the plain pair, the library call and the
+     bound; the build's ptxas report (registers, spills) per kernel;
   4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
@@ -25,12 +31,14 @@ Phases, each of which fails the run when it fails:
      weights, augmentation p=1.0, head dropout 0.6, stochastic depth) —
      three optimizer steps all trainable and one with the phase-1 mask,
      launch counters read around them (per microbatch: K1 1, K3 1, K4a 6,
-     K4b 6); steps/s, samples/s, peak memory, a profiler breakdown; one
-     more step with ``hf_internal_dropout`` (per microbatch K1 1, K3 1,
-     K7a 6, K7b 6); microbatches' loss and gradients on the kernel path
+     K4b 6, fp32: the CUDA-core route, none on the tensor cores); steps/s,
+     samples/s, peak memory, a profiler breakdown; one more step with
+     ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6);
+     microbatches' loss and gradients on the kernel path
      against the plain path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
      epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
-     BEST checkpoint;
+     BEST checkpoint: ``evaluate()``, then ``main()`` end to end, whose
+     report CSV must carry the same accuracy;
   6. text eval: BERT-base at full width and depth (12 layers, seq 64,
      batch 256, bf16, random seeded weights, WordPiece ids) through
      ``run_eval`` with ``cli.test_text``'s step: launches per batch K5a 12,
@@ -46,16 +54,18 @@ Phases, each of which fails the run when it fails:
      128, seq 64, fp32, SGD, head dropout 0.6, class weights) with
      ``--hf_internal_dropout``: three steps all trainable and one head
      only, per microbatch K7a 6, K7b 6, K4a 0, K4b 0; a step with the flag
-     off (K4a 6, K4b 6, K7 0); a step of BERT-base with the flag (12 + 12);
+     off (K4a 6, K4b 6 on the CUDA-core route, K7 0); a step of BERT-base
+     with the flag (12 + 12);
      one microbatch's loss and gradients on the kernel path against the
      plain path from the same key; steps/s, samples/s, peak memory, a
      profiler breakdown; then ``cli.main_text --hf_internal_dropout`` for
      1 + 1 epochs on a synthetic tree and ``cli.test_text`` on its BEST
-     file;
+     file (``evaluate()`` and ``main()``);
   9. image train: ViT-B/16 at full width and depth (batch 128, 224x224,
      bf16 images over fp32 master weights, augmentation p=1.0): K4a 12 and
-     K4b 12 per microbatch, the same readings; ``cli.main_image`` ->
-     ``cli.test_image``.
+     K4b 12 per microbatch, all on the tensor-core route, the same
+     readings; ``cli.main_image`` -> ``cli.test_image`` (``evaluate()`` and
+     ``main()``).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -75,7 +85,14 @@ Tolerances (kernel vs plain version, same inputs, same card):
     and a weight that rounds to the neighbouring bf16 value moves the
     output by at most its ulp times |v|); gradients: one ulp + 2e-3 of
     the tensor's largest |x| (a rounded dS element moves every sum it
-    enters by about its ulp).
+    enters by about its ulp). The tensor-core route of K4a / K4b is held
+    to these limits at the ViT-B/16 shape and at 128x64x768; in its edge
+    cases (``_held_to_plain(edge=True)``) a row whose largest softmax
+    weight w is large (a causal row with few keys) holds the output to one
+    ulp + ulp(w) max|v| (one weight rounding the other way, since S is
+    summed in another order), and at N = 1, where dQ and dK are zero in
+    exact arithmetic, they are held to the rounding of the fp32 dot
+    products they come from.
   * the fused transformer blocks (postnorm_attn_block, postnorm_mlp_block,
     attn_block, mlp_block): fp32 |d| <= 2e-5 + 2e-5|x| (fp32 sums in
     another order over K up to 3072); bf16 one ulp of the value + 1e-2 of
@@ -546,67 +563,226 @@ def check_mha_train(device, report):
           f"[{b_lo:.4f}, {b_hi:.4f}] ms, plain {plain_b:.4f} ms, efficient "
           f"attention backward {lib_b:.4f} ms, bound "
           f"{report['mha_flash_bwd']['bound_ms']:.4f} ms", flush=True)
-    ok_all &= _mha_train_vit_shape(device, report, gen)
+    ok_all &= check_mha_tc(device, report, gen)
     return ok_all
 
 
-def _mha_train_vit_shape(device, report, gen):
-    """K4a / K4b at the image trainer's shape: ViT-B/16, batch 128, 197
-    tokens, no mask, bf16. Checked against the plain versions and timed;
-    the readings go under ``vit_shape`` of the two kernels' rows."""
+TC_EDGE_NS = (1, 17, 63, 64, 65, 128, 197, 256)   # the tc route's lengths
+TC_AB_SHAPES = ((128, 197, 768), (128, 64, 768))  # ViT-B/16 train; B x 64
+
+
+def _flash_pair(plan, q, k, v, do, h, m=None, causal=False):
+    """(out, lse, (dq, dk, dv)) of the flash pair launched under `plan`."""
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    o, lse = K.launch_fwd_lse(plan, q, k, v, heads=h, mask=m, causal=causal)
+    grads = K.launch_flash_bwd(plan, q, k, v, o, do, lse, heads=h, mask=m,
+                               causal=causal)
+    return o, lse, grads
+
+
+def _held_to_plain(q, k, v, do, h, m, causal, o, lse, grads, edge=False):
+    """(max |d| forward, max |d| backward, ok) of the pair's outputs
+    against the plain pair on the same inputs (the backward from the
+    kernel's own out and lse), under the bf16 limits of the module
+    docstring. With `edge` (the tensor-core route's edge cases): a row
+    whose largest softmax weight w is large (a causal row with few keys)
+    holds the output to one ulp + ulp(w) max|v| instead of 1e-3, and at
+    N = 1 dQ / dK are held to their exact value, zero (``_single_key``)."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
 
-    b, n, d, h, dtype = 128, 197, 768, 12, torch.bfloat16
-    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device, dtype)
-                   for _ in range(4))
-    o, lse = K.mha_fwd_lse(q, k, v, heads=h)
-    grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h)
-    torch.cuda.synchronize()
-    o_w, lse_w = K.mha_fwd_lse_reference(q, k, v, heads=h)
-    e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
-    e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
-    want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h)
-    errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
-    del o_w, lse_w, want
-    ok = ok_o and ok_l and all(o_ for _, o_ in errs)
-    ms_f = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h), reps=5)[0]
-    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h),
-                      reps=5)[0]
-    ms_b = time_ms(lambda: K.mha_flash_bwd(q, k, v, o, do, lse, heads=h),
-                   reps=5)[0]
-    plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
-        q, k, v, o, do, lse, heads=h), reps=5)[0]
-    lib = _efficient_attention(q, k, v, None, h)
-    lib_f = time_ms(lambda: _efficient_attention(q, k, v, None, h),
-                    reps=5)[0]
-    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
-    lib_b = time_ms(lambda: torch.ops.aten.
-                    _scaled_dot_product_efficient_attention_backward(
-                        rs(do), rs(q), rs(k), rs(v), None, lib[0], lib[1],
-                        lib[2], lib[3], 0.0, [True, True, True, False]),
-                    reps=5)[0]
-    item = q.element_size()
-    rows = (("mha_fwd_lse", ms_f, plain_f, lib_f, 4 * b * n * n * d,
-             4 * q.numel() * item + b * h * n * 4, max(e_o, e_l)),
-            ("mha_flash_bwd", ms_b, plain_b, lib_b, 10 * b * n * n * d,
-             8 * q.numel() * item + b * h * n * 4,
-             max(e for e, _ in errs)))
-    for name, ms, plain, lib_ms, flops, nbytes, err in rows:
-        bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        report[name]["vit_shape"] = {
-            "shape": [b, n, d], "heads": h, "dtype": "bfloat16",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": lib_ms, "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
-        print(f"  {name} B={b} N={n} D={d} bf16 unmasked (ViT-B/16 train): "
-              f"max|d|={err:.3e} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} "
-              f"ms, plain {plain:.4f} ms, efficient attention {lib_ms:.4f} "
-              f"ms, bound {report[name]['vit_shape']['bound_ms']:.4f} ms",
-              flush=True)
-    return ok
+    o_w, lse_w = K.mha_fwd_lse_reference(q, k, v, heads=h, mask=m,
+                                         causal=causal)
+    e_o, ok_o = max_err_ok(o, o_w, q.dtype, "mha")
+    e_l, ok_l = max_err_ok(lse, lse_w, lse.dtype, "mha")
+    if edge and not ok_o:
+        ok_o = bool(((o.float() - o_w.float()).abs()
+                     <= _one_flip_tol(q, k, v, h, m, causal, o, o_w)).all())
+    want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h, mask=m,
+                                     causal=causal)
+    errs = [grad_err_ok(a, c, q.dtype) for a, c in zip(grads, want)]
+    if edge and q.shape[1] == 1:
+        errs[:2] = _single_key(q, k, v, do, h, grads)
+    return (max(e_o, e_l), max(e for e, _ in errs),
+            ok_o and ok_l and all(x for _, x in errs))
+
+
+def _one_flip_tol(q, k, v, h, m, causal, o, o_w):
+    """One bf16 ulp of the output + the larger of 1e-3 and the move of one
+    softmax weight to its neighbouring bf16 value: ulp(w) |v| for the
+    row's largest weight w and the head's largest |v|. The kernel sums S
+    on the tensor cores in another order than the plain version, so a
+    weight near a bf16 rounding boundary may round the other way; where
+    the weights are small that move is under 1e-3."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    b, n, d = q.shape
+    s = K._scores(q, k, h, 1.0 / (d // h) ** 0.5, m, causal)
+    # [B, H, N]; a weight of 1 is exact: the largest that can round
+    # the other way lies below 1
+    w_max = torch.softmax(s, dim=-1).amax(-1).clamp(max=1 - 2.0 ** -9)
+    v_max = K._heads(v, h).abs().amax(dim=(2, 3))             # [B, H]
+    flip = bf16_ulp(w_max) * v_max[:, :, None]
+    flip = flip.transpose(1, 2).repeat_interleave(d // h, dim=2)
+    return bf16_ulp(torch.maximum(o.float().abs(), o_w.float().abs())) + \
+        torch.clamp(flip, min=1e-3)
+
+
+def _single_key(q, k, v, do, h, grads):
+    """[(max |dq|, ok), (max |dk|, ok)] at N = 1, where dS = W (dP - Delta)
+    with W = 1 and O = V is zero in exact arithmetic: what the kernel and
+    the plain version give is the rounding of the two fp32 dot products
+    dP = dO . v and Delta = dO . O, each within dh 2^-23 sum |dO v| (up to
+    one fp32 ulp per addition), times |k| (dQ) or |q| (dK) and the
+    scale."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    b, n, d = q.shape
+    dh = d // h
+    dots = (K._heads(do, h) * K._heads(v, h)).abs().sum(-1, keepdim=True)
+    ds = 2 * dh * 2.0 ** -23 * dots                           # [B, H, 1, 1]
+    out = []
+    for g, x in zip(grads[:2], (k, q)):
+        tol = K._merge(ds * K._heads(x, h).abs() / dh ** 0.5, torch.float32)
+        out.append((float(g.float().abs().max()),
+                    bool((g.float().abs() <= tol).all())))
+    return out
+
+
+def check_mha_tc(device, report, gen):
+    """The tensor-core route of K4a / K4b (``flash_plan`` "tc": bf16, head
+    dim 64, N <= 256) against the plain pair: every N of TC_EDGE_NS
+    unmasked, key-masked (the last sample fully masked) and causal; the
+    ViT-B/16 train shape (128 x 197 x 768) with its gradients bit-identical
+    over two runs. Then, at each TC_AB_SHAPES shape, the two routes timed
+    in one call in the order new-old-old-new, beside the plain pair, the
+    library's efficient attention (forward + lse, and its backward) and
+    the bound. Rows ``mha_fwd_lse_tc`` / ``mha_flash_bwd_tc``; the old
+    kernels' times at these shapes under ``ab`` of ``mha_fwd_lse`` /
+    ``mha_flash_bwd``."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    ok_all, dtype = True, torch.bfloat16
+    for n in TC_EDGE_NS:
+        b, d, h = 4, 256, 4
+        q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device, dtype)
+                       for _ in range(4))
+        m = _mask(b, n, gen, device)
+        m[-1] = 0
+        plan = K.flash_plan(q.shape, h, dtype)
+        for masked, causal in ((False, False), (True, False), (True, True),
+                               (False, True)):
+            mm = m if masked else None
+            out = _flash_pair(plan, q, k, v, do, h, mm, causal)
+            torch.cuda.synchronize()
+            e_f, e_b, ok = _held_to_plain(q, k, v, do, h, mm, causal, *out,
+                                          edge=True)
+            ok &= plan.route == "tc" and all(
+                bool(torch.isfinite(g).all()) for g in out[2])
+            ok_all &= ok
+            print(f"  tc route bf16 B={b} N={n:3d} (np {plan.np:3d}) "
+                  f"masked={masked!s:5s} causal={causal!s:5s}: fwd max|d|="
+                  f"{e_f:.3e} bwd {e_b:.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+
+    rows = {}
+    for b, n, d in TC_AB_SHAPES:
+        h = d // 64
+        q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device, dtype)
+                       for _ in range(4))
+        tc = K.flash_plan(q.shape, h, dtype)
+        old = K.flash_plan(q.shape, h, dtype, route="cuda_core")
+        o, lse, grads = _flash_pair(tc, q, k, v, do, h)
+        again = _flash_pair(tc, q, k, v, do, h)[2]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        e_f, e_b, ok = _held_to_plain(q, k, v, do, h, None, False, o, lse,
+                                      grads)
+        ok &= same and tc.route == "tc"
+        ok_all &= ok
+        print(f"  tc route bf16 {b}x{n}x{d}: fwd max|d|={e_f:.3e} bwd "
+              f"{e_b:.3e}; gradients bit-identical over two runs: {same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        o_old, lse_old = K.launch_fwd_lse(old, q, k, v, heads=h)
+        f = {"tc": lambda: K.launch_fwd_lse(tc, q, k, v, heads=h),
+             "cuda_core": lambda: K.launch_fwd_lse(old, q, k, v, heads=h)}
+        g = {"tc": lambda: K.launch_flash_bwd(tc, q, k, v, o, do, lse,
+                                              heads=h),
+             "cuda_core": lambda: K.launch_flash_bwd(old, q, k, v, o_old, do,
+                                                     lse_old, heads=h)}
+        ab = {"fwd": {"tc": [], "cuda_core": []},
+              "bwd": {"tc": [], "cuda_core": []}}
+        for route in ("tc", "cuda_core", "cuda_core", "tc"):
+            ab["fwd"][route].append(time_ms(f[route], reps=5)[0])
+            ab["bwd"][route].append(time_ms(g[route], reps=5)[0])
+        plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h),
+                          reps=5)[0]
+        plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
+            q, k, v, o, do, lse, heads=h), reps=5)[0]
+        lib = _efficient_attention(q, k, v, None, h)
+        lib_f = time_ms(lambda: _efficient_attention(q, k, v, None, h),
+                        reps=5)[0]
+        rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+        lib_b = time_ms(lambda: torch.ops.aten.
+                        _scaled_dot_product_efficient_attention_backward(
+                            rs(do), rs(q), rs(k), rs(v), None, lib[0],
+                            lib[1], lib[2], lib[3], 0.0,
+                            [True, True, True, False]), reps=5)[0]
+        del lib
+        item = q.element_size()
+        for name, key, plain, lib_ms, flops, nbytes, err, line in (
+                ("mha_fwd_lse", "fwd", plain_f, lib_f, 4 * b * n * n * d,
+                 4 * q.numel() * item + b * h * n * 4, e_f, 274),
+                ("mha_flash_bwd", "bwd", plain_b, lib_b, 10 * b * n * n * d,
+                 8 * q.numel() * item + b * h * n * 4, e_b, 317)):
+            bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound = max(bound_ops, bound_bytes)
+            t_new = sum(ab[key]["tc"]) / 2        # mean of the two runs
+            t_old = sum(ab[key]["cuda_core"]) / 2
+            row = {"shape": [b, n, d], "heads": h, "dtype": "bfloat16",
+                   "np": tc.np, "max_abs_err": err, "ms": t_new,
+                   "ms_runs": ab[key]["tc"], "old_ms": t_old,
+                   "old_ms_runs": ab[key]["cuda_core"], "plain_ms": plain,
+                   "library_ms": lib_ms, "bound_ms": bound,
+                   "bound_by": "operations" if bound_ops >= bound_bytes
+                   else "bytes", "share_of_bound": bound / t_new,
+                   "old_share_of_bound": bound / t_old,
+                   "line": line}
+            rows.setdefault(name, []).append(row)
+            print(f"  {name} bf16 {b}x{n}x{d} unmasked, new-old-old-new: "
+                  f"tc {ab[key]['tc'][0]:.4f} / {ab[key]['tc'][1]:.4f} ms, "
+                  f"CUDA cores {ab[key]['cuda_core'][0]:.4f} / "
+                  f"{ab[key]['cuda_core'][1]:.4f} ms; plain {plain:.4f} ms, "
+                  f"efficient attention {lib_ms:.4f} ms, bound {bound:.4f} "
+                  f"ms ({row['bound_by']}); share of the bound: tc "
+                  f"{bound / t_new:.3f}, CUDA cores {bound / t_old:.3f}",
+                  flush=True)
+        del o, lse, grads, again, o_old, lse_old
+        torch.cuda.empty_cache()
+    for name, (main, *others) in rows.items():
+        report[name]["ab"] = rows[name]
+        report[f"{name}_tc"] = {
+            "name": f"{name}_tc", "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
+            "replaces": f"garbage_classification_rca_tpu/kernels/mha_fused.py:"
+                        f"{main['line']}",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "shape", "np", "share_of_bound",
+                                    "old_ms")},
+            "other_shapes": [{k: r[k] for k in (
+                "shape", "ms", "old_ms", "plain_ms", "library_ms",
+                "bound_ms", "share_of_bound")} for r in others]}
+    return ok_all
 
 
 def check_mha_drop(device, report):
@@ -1165,6 +1341,9 @@ def _kind(name: str) -> str:
                 "ln": "MLP block LayerNorm rows"}[part]
     if "rca_fused_kernel" in n:
         return "rca_fused kernel"
+    if "ftc::" in n:            # the flash pair's tensor-core route
+        return ("mha_fwd_lse kernel (tensor cores)" if "fwd_kernel" in n
+                else "mha_flash_bwd kernels (tensor cores)")
     if "mha_kernel" in n:
         return "mha kernel"
     if "attn_heads_kernel" in n or "attn_out_kernel" in n:
@@ -1371,16 +1550,27 @@ BLOCK_KERNELS = ("postnorm_attn_block", "postnorm_mlp_block", "attn_block",
 
 def _want_launches(**counts):
     """Every counter's expected value: the named ones, 0 for the rest."""
-    return {k: counts.get(k, 0) for k in _counters()}
+    return {k: counts.get(k, 0) for k in _read_counters()}
 
 
 def _zero_counters():
     for fn in _counters().values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = {r: 0 for r in fn.route_launches}
 
 
 def _read_counters():
-    return {k: fn.launches for k, fn in _counters().items()}
+    """{kernel: launches}; K4a / K4b count each route on its own: "mha_fwd_lse"
+    is the CUDA-core kernel, "mha_fwd_lse_tc" the tensor-core one."""
+    out = {}
+    for k, fn in _counters().items():
+        if hasattr(fn, "route_launches"):
+            out[k] = fn.route_launches["cuda_core"]
+            out[f"{k}_tc"] = fn.route_launches["tc"]
+        else:
+            out[k] = fn.launches
+    return out
 
 
 def _train_stack(tok, acc, batch, seed, device):
@@ -1839,12 +2029,41 @@ def _write_jpeg_tree(root, n_train, n_val, seed, size=480):
                     quality=90)
 
 
+def drive_eval_main(cli, argv, acc):
+    """The eval CLI's ``main(argv)`` end to end, its report step included,
+    in the current directory: (ok, csv name). Its report CSV must be the
+    only one under ``test_set_reports/``, carry `acc` (``evaluate()``'s
+    accuracy on the same files, in %) in its name and in its "accuracy"
+    column, and ``main`` must return `acc`."""
+    import csv
+    import glob
+    import os
+    import shutil
+
+    shutil.rmtree("test_set_reports", ignore_errors=True)
+    got = cli.main(argv)
+    csvs = glob.glob("test_set_reports/*/*_report_test_set_acc_*.csv")
+    ok = len(csvs) == 1 and got == acc
+    name = os.path.basename(csvs[0]) if csvs else None
+    if len(csvs) == 1:
+        with open(csvs[0], newline="") as f:
+            rows = list(csv.reader(f))
+        col = rows[0].index("accuracy")
+        ok &= (name.endswith(f"_acc_{acc:.2f}.csv")
+               and all(abs(float(r[col]) * 100.0 - acc) <= 1e-9
+                       for r in rows[1:]))
+    print(f"  cli.{cli.__name__.rsplit('.', 1)[-1]}.main: accuracy {got}, "
+          f"report {name} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, name
+
+
 def check_cli(device, results):
     """``cli.main_both`` with the MM_RCA.sh flags for 1 + 1 epochs on a
     synthetic 480x480 tree (64 train, 32 val), then ``cli.test_both``'s
-    evaluation on its BEST checkpoint (its report step writes a seaborn
-    PNG and a pandas CSV, packages the card's machine lacks); both in this
-    process, in a work directory of the checkout, deleted afterwards."""
+    ``evaluate()`` on its BEST checkpoint and its ``main()`` end to end
+    (``drive_eval_main``: the report CSV; the PNG only where matplotlib
+    and seaborn import); in this process, in a work directory of the
+    checkout, deleted afterwards."""
     import glob
     import json as _json
     import os
@@ -1875,12 +2094,13 @@ def check_cli(device, results):
                 for line in open(f)]
         bests = glob.glob("model_weights/MM_RCA_distilbert/BEST_*")
         t0 = time.perf_counter()
-        acc, _, preds, _ = test_both.evaluate(args_parser([
-            "--late_fusion=MM_RCA", "--reverse", "--text_model=distilbert",
-            f"--model_path={best.best_path}",
-            "--dataset_folder_name=garbage_Val", f"--vocab_dir={vocab}",
-            "--eval_batch_size=16"]))
+        argv = ["--late_fusion=MM_RCA", "--reverse",
+                "--text_model=distilbert", f"--model_path={best.best_path}",
+                "--dataset_folder_name=garbage_Val", f"--vocab_dir={vocab}",
+                "--eval_batch_size=16"]
+        acc, _, preds, _ = test_both.evaluate(args_parser(argv))
         test_s = time.perf_counter() - t0
+        main_ok, report = drive_eval_main(test_both, argv, acc)
         bests = [os.path.join(work, b) for b in bests]
     finally:
         os.chdir(cwd)
@@ -1890,14 +2110,14 @@ def check_cli(device, results):
           and {r["phase"] for r in rows} == {"train", "fine_tune"}
           and all({"val_acc_image_only", "val_acc_text_only"} <= set(r)
                   for r in rows)
-          and best.best_path in bests
+          and best.best_path in bests and main_ok
           and 0.0 <= acc <= 100.0 and len(preds) == 32)
     print(f"  cli.main_both 1+1 epochs in {train_s:.1f} s: "
           f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
           f", BEST {os.path.basename(best.best_path or '')}; cli.test_both "
           f"on it in {test_s:.1f} s: accuracy {acc:.2f} %", flush=True)
     results["cli"] = {"train_s": train_s, "test_s": test_s, "rows": rows,
-                      "test_acc": acc}
+                      "test_acc": acc, "report": report}
     return ok
 
 
@@ -2231,9 +2451,9 @@ def check_eval_clis(device, results):
     """``cli.test_text`` (DistilBERT, 6 layers) and ``cli.test_image``
     (ViT-B/16, 12 layers) on reference-layout ``.pth`` files with random
     seeded weights and a synthetic 32-image JPEG tree: the CLIs' own
-    loading, tokenizing, decoding and evaluation (their report step writes
-    a seaborn PNG and a pandas CSV, packages the card's machine lacks),
-    with the launch counts of two batches of 16 asserted."""
+    loading, tokenizing, decoding and evaluation (``evaluate()``; the
+    report step runs in phases 5 and 9, on the trainers' BEST files), with
+    the launch counts of two batches of 16 asserted."""
     import os
     import shutil
 
@@ -2542,7 +2762,7 @@ def check_image_train(device, results):
     float(step_all(stack, key.fold_in(100))[0])            # warm-up
     wall, losses, launches, peak = _timed_steps(
         (step_all, step_all, step_all, step_heads), stack, key, device)
-    want = _want_launches(mha_fwd_lse=12 * 4, mha_flash_bwd=12 * 4)
+    want = _want_launches(mha_fwd_lse_tc=12 * 4, mha_flash_bwd_tc=12 * 4)
     changed = {n: bool((p.detach() != before[n]).any())
                for n, p in model.named_parameters() if n in before}
     finite = all(l == l and abs(l) < float("inf") for l in losses)
@@ -2581,9 +2801,9 @@ def check_train_clis(device, results):
     """``cli.main_text --hf_internal_dropout`` and ``cli.main_image`` for
     1 + 1 epochs on a synthetic 224x224 JPEG tree (64 train, 32 val; the
     file names carry the text), then ``cli.test_text`` / ``cli.test_image``
-    evaluate the BEST files (``evaluate()``: the report step needs packages
-    the card's machine lacks). In this process, in a work directory of the
-    checkout, deleted afterwards."""
+    evaluate the BEST files (``evaluate()``, launches counted) and run
+    end to end on them (``main()``, ``drive_eval_main``). In this process,
+    in a work directory of the checkout, deleted afterwards."""
     import glob
     import json as _json
     import os
@@ -2616,7 +2836,7 @@ def check_train_clis(device, results):
         ("main_image", main_image, test_image,
          ["--image_model=transformer_B16", "--prob_aug=1.0"],
          ["--image_model=transformer_B16"], "transformer_B16",
-         {"mha_fwd_lse": 96, "mha_flash_bwd": 96, "mha": 24},
+         {"mha_fwd_lse_tc": 96, "mha_flash_bwd_tc": 96, "mha": 24},
          {"attn_block": 12, "mlp_block": 12}))
     try:
         _write_jpeg_tree(os.path.join(work, "garbage"), 64, 32, SEED + 90,
@@ -2634,13 +2854,15 @@ def check_train_clis(device, results):
                     for f in glob.glob(f"runs/{name}_*.jsonl")
                     for line in open(f)]
             _zero_counters()
-            res = tester.evaluate(args_parser(test_flags + [
+            argv = test_flags + [
                 f"--model_path={best.best_path}",
                 "--dataset_folder_name=garbage_Val", f"--vocab_dir={vocab}",
-                "--eval_batch_size=32"]))
+                "--eval_batch_size=32"]
+            res = tester.evaluate(args_parser(argv))
             torch.cuda.synchronize()
             test_launches = _read_counters()
             acc, preds = res[0], res[2]
+            main_ok, report = drive_eval_main(tester, argv, acc)
             good = (len(rows) == 2
                     and all(r["avg_loss"] == r["avg_loss"] for r in rows)
                     and {r["phase"] for r in rows} == {"train", "fine_tune"}
@@ -2648,7 +2870,8 @@ def check_train_clis(device, results):
                     and test_launches == _want_launches(**want_test)
                     and os.path.isfile(best.best_path)
                     and os.path.dirname(best.best_path).endswith(model_name)
-                    and 0.0 <= acc <= 100.0 and len(preds) == 32)
+                    and 0.0 <= acc <= 100.0 and len(preds) == 32
+                    and main_ok)
             print(f"  cli.{name} 1+1 epochs in {train_s:.1f} s: "
                   f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
                   f", launches {_shown(launches)}; its BEST file in the test "
@@ -2656,7 +2879,7 @@ def check_train_clis(device, results):
                   f"{_shown(test_launches)} {'ok' if good else 'FAIL'}",
                   flush=True)
             out[name] = {"train_s": train_s, "rows": rows, "test_acc": acc,
-                         "ok": good}
+                         "report": report, "ok": good}
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -2683,6 +2906,10 @@ def ptxas_report(log: str):
                        "ResidualEpi0": "GEMM2 pre-norm",
                        "ResidualEpi1": "GEMM2 post-norm"}[g[2] + g[3]]
                 entry = f"gemm_kernel<{g[1]}> ({epi})"
+            elif re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name):
+                f = re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name)
+                # the flash pair's tensor-core kernels
+                entry = f"{f[1]}<masked={f[2]}, causal={f[3]}> (tc)"
             else:  # the mangled <length><identifier> that ends in _kernel
                 cands = (name[i:i + int(name[j:i])]
                          for i in range(1, len(name))
@@ -2806,7 +3033,9 @@ def main() -> int:
                       ("attn_block", "image_eval"),
                       ("mlp_block", "image_eval"),
                       ("mha_fwd_lse_drop", "text_train"),
-                      ("mha_flash_bwd_drop", "text_train")):
+                      ("mha_flash_bwd_drop", "text_train"),
+                      ("mha_fwd_lse_tc", "image_train"),
+                      ("mha_flash_bwd_tc", "image_train")):
         row = dict(report[key])
         row["launches"] = by_path[path][key]
         row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

@@ -24,9 +24,13 @@
 // N up to 512 fits: the fp32 score rows of the block (32 x N) are the only
 // buffer that grows with N. Softmax normalisation is two-pass over the
 // stored scores (not online), which is what lets the weights be rounded
-// exactly as the reference rounds them. The products run on the fp32 CUDA
-// cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles; moving them onto
-// the tensor cores (mma / wgmma) is later work.
+// exactly as the reference rounds them. In these kernels the products run
+// on the fp32 CUDA cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles:
+// they serve mha_forward (K2), fp32, head dims 32 / 128, N > 256 and the
+// dropout pair. The training pair in bf16 at head dim 64 and N <= 256 (the
+// ViT-B/16 trainer's attention) has a tensor-core route of its own,
+// mha_forward_lse_tc / mha_flash_backward_tc (namespace ftc below), which
+// kernels/mha_fused.py::flash_plan picks.
 
 //
 // mha_flash_backward replaces ::_mha_flash_bwd (body `_bwd_kernel`): the
@@ -42,7 +46,8 @@
 // shared memory in chunks of 64 and gives dK and dV. Nothing is summed
 // across blocks, so no atomics and the same gradients on every run. Bound,
 // as for the forward: device-memory bytes at the DistilBERT shapes; the
-// products run on the fp32 CUDA cores in this first version.
+// products run on the fp32 CUDA cores (the bf16 / head dim 64 / N <= 256
+// case goes to ftc's tensor-core kernels instead).
 //
 // mha_forward_lse_drop / mha_flash_backward_drop replace
 // ::_mha_fwd_lse_drop (body `_fwd_lse_drop_kernel`) and
@@ -72,6 +77,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "tc_gemm.cuh"  // mbarrier, TMA and wgmma-descriptor primitives
 
 namespace {
 
@@ -635,6 +644,739 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 #undef BWD
 }
 
+// ---------------------------------------------------------------------------
+// the flash pair on the tensor cores: bf16, head dim 64, 1 <= N <= 256
+// ---------------------------------------------------------------------------
+//
+// mha_forward_lse_tc and mha_flash_backward_tc compute what mha_forward_lse
+// and mha_flash_backward compute, at the same rounding points, with every
+// product on wgmma (bf16 operands, fp32 sums: the products the reference
+// takes, summed in another order). One warpgroup (128 threads) per block,
+// two blocks per SM; every tile of q / k / v / dO comes by TMA (3-D map over
+// [B, N, D], box 1 x 64 x 64, 128-byte swizzle: rows past N read as zeros,
+// not as the next sample's) and is read from shared memory by wgmma, K-major
+// where d is the product's depth (S = Q K^T, dP = dO V^T) and MN-major
+// where the keys or queries are (O = W V, dQ = dS K, dV = W^T dO,
+// dK = dS^T Q: A then comes from registers, the accumulator of the product
+// before it, rounded to bf16 pairwise: the fp32 accumulator of a 64 x 16
+// slab is laid out as wgmma's A fragment).
+//   * forward: one block per (head, sample). K and V of the head (N x 64
+//     each, <= 32 KB) and all its query tiles are loaded once. For each
+//     query tile S = Q K^T is m64nNPk16 (NP = N rounded up to 16, as up to
+//     three n64 products and one n16..n64 tail), in registers (up to 128
+//     fp32 a thread); the softmax is exact and two-pass over the registers
+//     (row max and row sum across the 4 threads of a row), keys >= N left
+//     out of both; w = e * (1 / sum) is rounded to bf16 after the division;
+//     O = W V over NP keys; lse = max + log(sum).
+//   * backward: two kernels, no atomics, the same bits on every run, each
+//     one block per (head, sample) that keeps one side of the head in
+//     shared memory and streams the other side's 64-row tiles through two
+//     stages (a block per 64-row tile re-read the kept side from L2 for
+//     every tile: 2.5x the L2 traffic, 14% slower). The dQ kernel keeps K
+//     and V; per query tile it writes Delta = rowsum(dO O) (fp32) and walks
+//     the keys in tiles of 64: S and dP (64 x 64 each), W = exp(S - lse),
+//     dS = W (dP - Delta) rounded to bf16, dQ += dS K. The dK / dV kernel
+//     keeps Q and dO; per key tile it walks the queries: S^T = K Q^T,
+//     dP^T = V dO^T, W^T and dS^T, then dV += W^T dO (W rounded to bf16)
+//     and dK += dS^T Q.
+// What bounds it: bytes (0.047 / 0.093 ms for the forward / backward at
+// 128 x 197 x 768 on 3.35 TB/s against 0.015 / 0.039 ms of bf16 tensor-core
+// time for 4 / 10 B N^2 D operations); the softmax's exp and the masking
+// run on the CUDA cores beside the products.
+
+namespace ftc {
+
+constexpr int DH = 64;            // head dim
+constexpr int T = 64;             // rows of a query / key tile
+constexpr int MAX_N = 256;        // four tiles: a query tile's S in registers
+constexpr int BOX = T * DH * 2;   // one 64 x 64 bf16 tile, 8 KB
+constexpr int THREADS = 128;      // one warpgroup
+
+__host__ __device__ inline int tiles(int n) { return (n + T - 1) / T; }
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+// dynamic shared memory of each kernel (+ 1024: the 1 KB alignment that
+// the 128-byte swizzle needs); kept equal to the plan's in
+// kernels/mha_fused.py::flash_plan
+__host__ __device__ inline int fwd_smem(int nt) {
+  return 3 * nt * BOX + MAX_N * 4 + 2 * 8 + 1024;
+}
+__host__ __device__ inline int dq_smem(int nt) {
+  return (2 * nt + 4) * BOX + MAX_N * 4 + T * 4 + (nt + 2) * 8 + 1024;
+}
+__host__ __device__ inline int dkdv_smem(int nt) {
+  return (2 * nt + 4) * BOX + 2 * MAX_N * 4 + (nt + 2) * 8 + 1024;
+}
+
+// D[64, N] += A[64, 16] . B[16, N], A and B K-major in shared memory, for
+// N = 16, 32, 48, 64 (d[0 .. N / 2)); `acc` 0 overwrites D.
+template <int N>
+struct SS;
+
+template <>
+struct SS<16> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct SS<32> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct SS<48> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct SS<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+// D[64, 64] += A[64, 16] . B[16, 64]: A the bf16 pairs a0..a3 in registers,
+// B MN-major in shared memory.
+__device__ __forceinline__ void rs64(float (&d)[32], uint32_t a0,
+                                     uint32_t a1, uint32_t a2, uint32_t a3,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// One k16 step of a product whose N is w (16, 32, 48 or >= 64: 64).
+__device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                   int w, int acc) {
+  if (w >= 64)
+    SS<64>::mma(d, da, db, acc);
+  else if (w == 48)
+    SS<48>::mma(d, da, db, acc);
+  else if (w == 32)
+    SS<32>::mma(d, da, db, acc);
+  else
+    SS<16>::mma(d, da, db, acc);
+}
+
+// descriptors of a 64-row, 128-byte-swizzled tile: K-major (a k16 step adds
+// 32 bytes) and MN-major (a k16 step adds 16 rows, 2048 bytes)
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return tc::sw128_desc(addr, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
+  return tc::sw128_desc(addr, 8192, 1024);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The accumulator x of a 64 x 64 product (thread t: rows r, r + 8 with
+// r = 16 (t / 32) + (t % 32) / 4; x[4 j + 2 h + e] at row r + 8 h, column
+// 8 j + 2 (t % 4) + e) rounded to bf16 as the A fragments of the four k16
+// steps over its columns: a[4 kk ..] = (r, 16 kk + 2 (t % 4) + {0, 1}),
+// (r + 8, same), (r, + 8), (r + 8, + 8).
+__device__ __forceinline__ void frag(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[4 * kk + 0] = pack(x[8 * kk + 0], x[8 * kk + 1]);
+    a[4 * kk + 1] = pack(x[8 * kk + 2], x[8 * kk + 3]);
+    a[4 * kk + 2] = pack(x[8 * kk + 4], x[8 * kk + 5]);
+    a[4 * kk + 3] = pack(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ uint8_t* align1k(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bar, int n) {
+  for (int i = 0; i < n; ++i) tc::mbar_init(bar + i, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the reference's key bias, (mask - 1) 1e30
+__device__ __forceinline__ float key_bias_of(const int* mask, size_t b,
+                                             int N, int key) {
+  return mask ? (static_cast<float>(mask[b * N + key]) - 1.f) * 1e30f : 0.f;
+}
+
+// MASKED / CAUSAL: the call has a key mask / is causal. The elementwise
+// work per score is what bounds these kernels beside the loads, so a call
+// without them runs none of their instructions, and only the slab holding
+// the last keys checks for pad keys.
+template <bool MASKED, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 2)
+    fwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int N, int D, int NP, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1k(smem_raw);
+  const int nt = tiles(N);
+  const uint32_t ks = tc::smem_u32(smem), vs = ks + nt * BOX,
+                 qs = vs + nt * BOX;
+  float* kb = reinterpret_cast<float*>(smem + 3 * nt * BOX);   // [MAX_N]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(kb + MAX_N);     // K + Q, V
+  const int h = blockIdx.x, H = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid == 0) init_bars(bar, 2);
+  __syncthreads();
+  if (tid == 0) {
+    tc::mbar_expect_tx(bar, 2 * nt * BOX);
+    for (int t = 0; t < nt; ++t) {
+      tc::tma_load_3d(ks + t * BOX, &tk, bar, h * DH, t * T, b);
+      tc::tma_load_3d(qs + t * BOX, &tq, bar, h * DH, t * T, b);
+    }
+    tc::mbar_expect_tx(bar + 1, nt * BOX);
+    for (int t = 0; t < nt; ++t)
+      tc::tma_load_3d(vs + t * BOX, &tv, bar + 1, h * DH, t * T, b);
+  }
+  if (MASKED)
+    for (int j = tid; j < N; j += THREADS) kb[j] = key_bias_of(mask, b, N, j);
+  __syncthreads();
+
+  const int lane = tid & 31, r0 = 16 * (tid >> 5) + (lane >> 2),
+            c0 = 2 * (lane & 3);
+  tc::mbar_wait(bar, 0);
+  for (int t = 0; t < nt; ++t) {
+    // S = Q K^T over NP keys, in four 64-column slabs
+    float s[4][32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c * T >= NP) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss(s[c], kmajor(qs + t * BOX + 32 * kk),
+           kmajor(ks + c * BOX + 32 * kk), NP - c * T, kk);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tc::fence_acc(s[c]);
+
+    // scale, key bias, causal; the row max over the N real keys
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c * T >= NP) continue;
+      const bool tail = c * T + T > N;  // the slab that holds pad keys
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = c * T + 8 * (i >> 2) + c0 + (i & 1);
+        float x = s[c][i] * scale;
+        if (MASKED) x += kb[key];
+        if (CAUSAL && key > t * T + r0 + 8 * hh) x = NEG;
+        if (tail && key >= N) x = -INFINITY;  // out of the max and the sum
+        s[c][i] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c * T >= NP) continue;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        s[c][i] = expf(s[c][i] - mx[hh]);
+        sum[hh] += s[c][i];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+    // the weights, normalised in fp32, then rounded to bf16 as A fragments
+    uint32_t p[4][16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c * T >= NP) continue;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[c][i] *= inv[(i >> 1) & 1];
+      frag(p[c], s[c]);
+    }
+
+    // O = W V over NP keys
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    tc::mbar_wait(bar + 1, 0);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (c * T + 16 * kk < NP)
+          rs64(acc, p[c][4 * kk], p[c][4 * kk + 1], p[c][4 * kk + 2],
+               p[c][4 * kk + 3], mnmajor(vs + c * BOX + 2048 * kk));
+      }
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(acc);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = t * T + r0 + 8 * hh;
+      if (qi >= N) continue;  // a pad query row: not stored
+      __nv_bfloat16* orow = o + (static_cast<size_t>(b) * N + qi) * D + h * DH;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh],
+                                  acc[4 * j + 2 * hh + 1]);
+      if ((lane & 3) == 0)
+        lse[(static_cast<size_t>(b) * H + h) * N + qi] =
+            mx[hh] + logf(sum[hh]);
+    }
+  }
+}
+
+// Q and dO (dQ kernel) or K and V (dK / dV kernel) of 64-row tile t into
+// stage t % 2 of the two-stage ring at `st`; completion on sbar[t % 2].
+__device__ __forceinline__ void load_pair(uint32_t st, uint64_t* sbar,
+                                          const CUtensorMap* a,
+                                          const CUtensorMap* b2, int h,
+                                          int t, int b) {
+  const uint32_t dst = st + 2 * (t & 1) * BOX;
+  tc::mbar_expect_tx(sbar + (t & 1), 2 * BOX);
+  tc::tma_load_3d(dst, a, sbar + (t & 1), h * DH, t * T, b);
+  tc::tma_load_3d(dst + BOX, b2, sbar + (t & 1), h * DH, t * T, b);
+}
+
+// dQ and Delta for all query tiles of one (head, sample): K and V of the
+// head stay in shared memory, the query tiles' Q and dO stream through two
+// stages.
+template <bool MASKED, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 2)
+    dq_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
+              const __nv_bfloat16* __restrict__ o,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const int* __restrict__ mask,
+              __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+              int N, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1k(smem_raw);
+  const int nt = tiles(N), np = pad16(N);
+  const uint32_t ks = tc::smem_u32(smem), vs = ks + nt * BOX,
+                 st = vs + nt * BOX;
+  float* kb = reinterpret_cast<float*>(smem + (2 * nt + 4) * BOX);  // [MAX_N]
+  float* dl = kb + MAX_N;                                            // [T]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(dl + T);  // K_c + V_c
+  uint64_t* sbar = bar + nt;                            // the two stages
+  const int h = blockIdx.x, H = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid == 0) init_bars(bar, nt + 2);
+  __syncthreads();
+  if (tid == 0) {
+    load_pair(st, sbar, &tq, &tdo, h, 0, b);
+    for (int c = 0; c < nt; ++c) {
+      tc::mbar_expect_tx(bar + c, 2 * BOX);
+      tc::tma_load_3d(ks + c * BOX, &tk, bar + c, h * DH, c * T, b);
+      tc::tma_load_3d(vs + c * BOX, &tv, bar + c, h * DH, c * T, b);
+    }
+    if (nt > 1) load_pair(st, sbar, &tq, &tdo, h, 1, b);
+  }
+  if (MASKED)
+    for (int j = tid; j < N; j += THREADS) kb[j] = key_bias_of(mask, b, N, j);
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+  const int lane = tid & 31, r0 = 16 * (tid >> 5) + (lane >> 2),
+            c0 = 2 * (lane & 3);
+  for (int qt = 0; qt < nt; ++qt) {
+    // every thread is done with tile qt - 1: its stage and dl are free
+    __syncthreads();
+    if (tid == 0 && qt >= 1 && qt + 1 < nt)
+      load_pair(st, sbar, &tq, &tdo, h, qt + 1, b);
+    {
+      // Delta = rowsum(dO O) in fp32, two threads a row, 32 columns each
+      const int row = tid >> 1, qi = qt * T + row;
+      float acc = 0.f;
+      if (qi < N) {
+        const size_t a =
+            (static_cast<size_t>(b) * N + qi) * D + h * DH + 32 * (tid & 1);
+#pragma unroll
+        for (int d = 0; d < 32; d += 8) {
+          const uint4 x = *reinterpret_cast<const uint4*>(dout + a + d);
+          const uint4 y = *reinterpret_cast<const uint4*>(o + a + d);
+          const __nv_bfloat162* xp =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* yp =
+              reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 xf = __bfloat1622float2(xp[i]);
+            const float2 yf = __bfloat1622float2(yp[i]);
+            acc = fmaf(xf.x, yf.x, acc);
+            acc = fmaf(xf.y, yf.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if ((tid & 1) == 0) {
+        dl[row] = acc;
+        if (qi < N) delta[rbase + qi] = acc;
+      }
+    }
+    __syncthreads();
+    float L[2], Dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qt * T + r0 + 8 * hh;
+      L[hh] = qi < N ? lse[rbase + qi] : 0.f;  // a pad row's lse is not read
+      Dl[hh] = dl[r0 + 8 * hh];
+    }
+    const uint32_t qs = st + 2 * (qt & 1) * BOX, dos = qs + BOX;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    tc::mbar_wait(sbar + (qt & 1), (qt >> 1) & 1);
+    for (int c = 0; c < nt; ++c) {
+      const int w = np - c * T;  // keys of this tile that the products cover
+      tc::mbar_wait(bar + c, 0);
+      float s[32], dp[32];
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss(s, kmajor(qs + 32 * kk), kmajor(ks + c * BOX + 32 * kk), w, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss(dp, kmajor(dos + 32 * kk), kmajor(vs + c * BOX + 32 * kk), w, kk);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(s);
+      tc::fence_acc(dp);
+      // dS = W (dP - Delta), W = exp(S - lse); 0 on pad keys
+      const bool tail = c * T + T > N;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = c * T + 8 * (i >> 2) + c0 + (i & 1);
+        float sv = s[i] * scale;
+        if (MASKED) sv += kb[key];
+        if (CAUSAL && key > qt * T + r0 + 8 * hh) sv = NEG;
+        float x = expf(sv - L[hh]) * (dp[i] - Dl[hh]);
+        if (tail && key >= N) x = 0.f;
+        s[i] = x;
+      }
+      uint32_t a[16];
+      frag(a, s);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (16 * kk < w)
+          rs64(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+               mnmajor(ks + c * BOX + 2048 * kk));
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(acc);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qt * T + r0 + 8 * hh;
+      if (qi >= N) continue;
+      __nv_bfloat16* row =
+          dq + (static_cast<size_t>(b) * N + qi) * D + h * DH;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh] * scale,
+                                  acc[4 * j + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+// dK and dV for all key tiles of one (head, sample): Q and dO of the head
+// stay in shared memory, the key tiles' K and V stream through two stages.
+template <bool MASKED, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 2)
+    dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, const int* __restrict__ mask,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                int N, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1k(smem_raw);
+  const int nt = tiles(N), np = pad16(N);
+  const uint32_t qs = tc::smem_u32(smem), dos = qs + nt * BOX,
+                 st = dos + nt * BOX;
+  float* Ls = reinterpret_cast<float*>(smem + (2 * nt + 4) * BOX);  // [MAX_N]
+  float* Ds = Ls + MAX_N;                                            // [MAX_N]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Ds + MAX_N);  // Q_c + dO_c
+  uint64_t* sbar = bar + nt;                                // the two stages
+  const int h = blockIdx.x, H = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid == 0) init_bars(bar, nt + 2);
+  __syncthreads();
+  if (tid == 0) {
+    load_pair(st, sbar, &tk, &tv, h, 0, b);
+    for (int c = 0; c < nt; ++c) {
+      tc::mbar_expect_tx(bar + c, 2 * BOX);
+      tc::tma_load_3d(qs + c * BOX, &tq, bar + c, h * DH, c * T, b);
+      tc::tma_load_3d(dos + c * BOX, &tdo, bar + c, h * DH, c * T, b);
+    }
+    if (nt > 1) load_pair(st, sbar, &tk, &tv, h, 1, b);
+  }
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+  for (int j = tid; j < nt * T; j += THREADS) {
+    Ls[j] = j < N ? lse[rbase + j] : 0.f;
+    Ds[j] = j < N ? delta[rbase + j] : 0.f;
+  }
+  const int lane = tid & 31, r0 = 16 * (tid >> 5) + (lane >> 2),
+            c0 = 2 * (lane & 3);
+  for (int kt = 0; kt < nt; ++kt) {
+    // every thread is done with tile kt - 1: its stage is free
+    __syncthreads();
+    if (tid == 0 && kt >= 1 && kt + 1 < nt)
+      load_pair(st, sbar, &tk, &tv, h, kt + 1, b);
+    float kbias[2];
+    bool live[2];  // this thread's two keys are real ones
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = kt * T + r0 + 8 * hh;
+      live[hh] = key < N;
+      kbias[hh] = MASKED && live[hh] ? key_bias_of(mask, b, N, key) : 0.f;
+    }
+    const uint32_t ks = st + 2 * (kt & 1) * BOX, vs = ks + BOX;
+    float dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+    tc::mbar_wait(sbar + (kt & 1), (kt >> 1) & 1);
+    for (int c = 0; c < nt; ++c) {
+      const int w = np - c * T;  // queries of this tile the products cover
+      tc::mbar_wait(bar + c, 0);
+      float stt[32], dpt[32];
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss(stt, kmajor(ks + 32 * kk), kmajor(qs + c * BOX + 32 * kk), w, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss(dpt, kmajor(vs + 32 * kk), kmajor(dos + c * BOX + 32 * kk), w,
+           kk);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(stt);
+      tc::fence_acc(dpt);
+      // rows are keys, columns queries: W^T and dS^T, 0 on pad keys /
+      // queries
+      const bool tail = c * T + T > N;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = kt * T + r0 + 8 * hh;
+        const int qi = c * T + 8 * (i >> 2) + c0 + (i & 1);
+        float sv = stt[i] * scale;
+        if (MASKED) sv += kbias[hh];
+        if (CAUSAL && key > qi) sv = NEG;
+        float wv = expf(sv - Ls[qi]);
+        float x = wv * (dpt[i] - Ds[qi]);
+        if (!live[hh] || (tail && qi >= N)) wv = x = 0.f;
+        stt[i] = wv;
+        dpt[i] = x;
+      }
+      uint32_t aw[16], ad[16];
+      frag(aw, stt);
+      frag(ad, dpt);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (16 * kk < w) {
+          rs64(dva, aw[4 * kk], aw[4 * kk + 1], aw[4 * kk + 2],
+               aw[4 * kk + 3], mnmajor(dos + c * BOX + 2048 * kk));
+          rs64(dka, ad[4 * kk], ad[4 * kk + 1], ad[4 * kk + 2],
+               ad[4 * kk + 3], mnmajor(qs + c * BOX + 2048 * kk));
+        }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(dva);
+      tc::fence_acc(dka);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = kt * T + r0 + 8 * hh;
+      if (key >= N) continue;
+      const size_t a = (static_cast<size_t>(b) * N + key) * D + h * DH;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + a + 8 * j + c0) =
+            __floats2bfloat162_rn(dka[4 * j + 2 * hh] * scale,
+                                  dka[4 * j + 2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + a + 8 * j + c0) =
+            __floats2bfloat162_rn(dva[4 * j + 2 * hh],
+                                  dva[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// The plan of kernels/mha_fused.py::flash_plan, checked against what these
+// kernels take: the entries launch exactly the grid and shared memory they
+// are given, and refuse any other.
+bool plan_ok(int B, int N, int D, int heads, int np) {
+  return B > 0 && heads > 0 && D == heads * DH && N >= 1 && N <= MAX_N &&
+         np == pad16(N);
+}
+
+cudaError_t forward(const void* q, const void* k, const void* v,
+                    const int* mask, void* o, float* lse, int B, int N, int D,
+                    int heads, float scale, int causal, int np, dim3 grid,
+                    int smem, cudaStream_t stream) {
+  if (!plan_ok(B, N, D, heads, np) || grid.x != unsigned(heads) ||
+      grid.y != unsigned(B) || grid.z != 1 || smem != fwd_smem(tiles(N)) ||
+      !aligned16({q, k, v, o}))
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = tc::make_map_3d(&mq, q, B, N, D, T);
+  if (err == cudaSuccess) err = tc::make_map_3d(&mk, k, B, N, D, T);
+  if (err == cudaSuccess) err = tc::make_map_3d(&mv, v, B, N, D, T);
+  auto kern = mask ? (causal ? fwd_kernel<true, true>
+                             : fwd_kernel<true, false>)
+                   : (causal ? fwd_kernel<false, true>
+                             : fwd_kernel<false, false>);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, mask, static_cast<__nv_bfloat16*>(o), lse, N, D, np,
+      scale);
+  return cudaGetLastError();
+}
+
+cudaError_t backward(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     const int* mask, void* dq, void* dk, void* dv,
+                     float* delta, int B, int N, int D, int heads,
+                     float scale, int causal, int np, dim3 grid_q,
+                     int smem_q, dim3 grid_kv, int smem_kv,
+                     cudaStream_t stream) {
+  const int nt = tiles(N);
+  if (!plan_ok(B, N, D, heads, np) || grid_q.x != unsigned(heads) ||
+      grid_q.y != unsigned(B) || grid_q.z != 1 || grid_kv.x != grid_q.x ||
+      grid_kv.y != grid_q.y || grid_kv.z != 1 || smem_q != dq_smem(nt) ||
+      smem_kv != dkdv_smem(nt) || !aligned16({q, k, v, o, dout, dq, dk, dv}))
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = tc::make_map_3d(&mq, q, B, N, D, T);
+  if (err == cudaSuccess) err = tc::make_map_3d(&mk, k, B, N, D, T);
+  if (err == cudaSuccess) err = tc::make_map_3d(&mv, v, B, N, D, T);
+  if (err == cudaSuccess) err = tc::make_map_3d(&mdo, dout, B, N, D, T);
+  auto kq = mask ? (causal ? dq_kernel<true, true> : dq_kernel<true, false>)
+                 : (causal ? dq_kernel<false, true>
+                           : dq_kernel<false, false>);
+  auto kkv = mask ? (causal ? dkdv_kernel<true, true>
+                            : dkdv_kernel<true, false>)
+                  : (causal ? dkdv_kernel<false, true>
+                            : dkdv_kernel<false, false>);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  kq<<<grid_q, THREADS, smem_q, stream>>>(
+      mq, mk, mv, mdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, mask,
+      static_cast<__nv_bfloat16*>(dq), delta, N, D, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<grid_kv, THREADS, smem_kv, stream>>>(
+      mq, mk, mv, mdo, lse, delta, mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), N, D, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace ftc
+
 }  // namespace
 
 // q/k/v/o: [B, N, D] contiguous, head h = columns h*dh:(h+1)*dh; mask:
@@ -716,4 +1458,38 @@ extern "C" int mha_flash_backward_drop(const void* q, const void* k,
       static_cast<const int*>(mask), static_cast<const uint8_t*>(dm), dq, dk,
       dv, static_cast<float*>(delta), B, N, D, heads, scale, causal, keep,
       dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core route of mha_forward_lse (bf16, head dim 64, 1 <= N <=
+// 256): the launch plan of kernels/mha_fused.py::flash_plan as it is (np =
+// N rounded up to 16, grid = (heads, B, 1), its dynamic shared memory),
+// refused (cudaErrorInvalidValue) if it is not the plan of this shape;
+// q / k / v / o 16-byte aligned.
+extern "C" int mha_forward_lse_tc(const void* q, const void* k,
+                                  const void* v, const void* mask, void* o,
+                                  void* lse, int B, int N, int D, int heads,
+                                  float scale, int causal, int np, int gx,
+                                  int gy, int gz, int smem, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(ftc::forward(
+      q, k, v, static_cast<const int*>(mask), o, static_cast<float*>(lse), B,
+      N, D, heads, scale, causal, np, dim3(gx, gy, gz), smem,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core route of mha_flash_backward, under the same plan: the dQ
+// kernel on grid_q = (heads, B, 1) with smem_q, then the dK / dV kernel on
+// grid_kv (the same grid) with smem_kv.
+extern "C" int mha_flash_backward_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* mask, void* dq, void* dk,
+    void* dv, void* delta, int B, int N, int D, int heads, float scale,
+    int causal, int np, int gqx, int gqy, int gqz, int smem_q, int gkx,
+    int gky, int gkz, int smem_kv, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(ftc::backward(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<const int*>(mask), dq, dk, dv, static_cast<float*>(delta),
+      B, N, D, heads, scale, causal, np, dim3(gqx, gqy, gqz), smem_q,
+      dim3(gkx, gky, gkz), smem_kv, static_cast<cudaStream_t>(stream)));
 }

@@ -26,17 +26,28 @@ Replaces, in ``garbage_classification_rca_tpu/kernels/mha_fused.py``:
 ``csrc/mha_fused.cu`` explains what bounds the kernels on the H100 and how
 their design answers that.
 
+The training pair takes one of two routes on the card, chosen by the
+host-side plan ``flash_plan``: bf16 at head dim 64 and N <= 256 on the
+tensor cores ("tc": wgmma products fed by TMA, the exact two-pass softmax
+in registers), every other shape on the fp32 CUDA-core kernels
+("cuda_core"). A failure of either route raises; neither gives way to the
+other. ``launch_fwd_lse`` / ``launch_flash_bwd`` run a given plan (the A/B
+timing of the two routes).
+
 The wrappers run the plain versions for tensors on the CPU and the kernels
 for tensors on a CUDA device; ``mha.launches``, ``mha_fwd_lse.launches``,
 ``mha_flash_bwd.launches``, ``mha_fwd_lse_drop.launches`` and
-``mha_flash_bwd_drop.launches`` count kernel launches.
+``mha_flash_bwd_drop.launches`` count kernel launches, and
+``mha_fwd_lse.route_launches`` / ``mha_flash_bwd.route_launches`` count
+them by route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +55,10 @@ NEG = -1e30
 MAX_N = 512          # DistilBERT's position table, the most --seq_len gives
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
+TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
+TC_TILE = 64         # registers)
+_TC_BOX = TC_TILE * TC_HEAD_DIM * 2   # one 64 x 64 bf16 tile in shared memory
 
 
 def _heads(a, heads):
@@ -185,86 +200,225 @@ def mha(q, k, v, *, heads: int, scale: float = 0.0,
 mha.launches = 0
 
 
+@dataclass(frozen=True)
+class FlashPlan:
+    """How one call of the flash pair (``mha_fwd_lse`` / ``mha_flash_bwd``)
+    runs on the card. `route`: "tc" (bf16, head dim 64, N <= 256: wgmma
+    products fed by TMA, ``csrc/mha_fused.cu`` namespace ``ftc``) or
+    "cuda_core" (every other shape the pair takes: the fp32 CUDA-core
+    kernels). `np`: the keys the forward's score product covers (N rounded
+    up to 16 on "tc", N on "cuda_core"). Grids (x, y, z) and dynamic shared
+    memory in bytes of the forward, the dQ kernel and the dK / dV kernel.
+    The C entry of the "tc" route launches exactly this plan and refuses
+    any other; the "cuda_core" entries compute the same grids themselves."""
+    route: str
+    np: int
+    grid_fwd: Tuple[int, int, int]
+    smem_fwd: int
+    grid_dq: Tuple[int, int, int]
+    smem_dq: int
+    grid_dkdv: Tuple[int, int, int]
+    smem_dkdv: int
+
+
+def flash_plan(shape, heads: int, dtype, route: Optional[str] = None
+               ) -> FlashPlan:
+    """The launch plan of the flash pair for q / k / v of `shape` [B, N, D]
+    with `heads` heads: "tc" where it takes the shape, else "cuda_core".
+    `route` asks for one route (the A/B timing of the two); a route that
+    does not take the shape raises."""
+    b, n, d = shape
+    if dtype not in _DTYPES:
+        raise TypeError(f"the flash pair takes float32 / bfloat16, got "
+                        f"{dtype}")
+    if heads <= 0 or d % heads or d // heads not in HEAD_DIMS:
+        raise ValueError(f"the flash pair takes head dims {HEAD_DIMS}, got "
+                         f"D={d} with {heads} heads")
+    if n < 1:
+        raise ValueError(f"the flash pair takes N >= 1, got {n}")
+    dh = d // heads
+    tc_fits = (dtype == torch.bfloat16 and dh == TC_HEAD_DIM
+               and n <= TC_MAX_N)
+    route = route or ("tc" if tc_fits else "cuda_core")
+    if route == "tc":
+        if not tc_fits:
+            raise ValueError(f"the tensor-core route takes bfloat16, head "
+                             f"dim {TC_HEAD_DIM}, N <= {TC_MAX_N}; got "
+                             f"{tuple(shape)} with {heads} heads in {dtype}")
+        nt = -(-n // TC_TILE)
+        grid = (heads, b, 1)          # every kernel: a block per head
+        # the formulas of ftc::fwd_smem / dq_smem / dkdv_smem: the tiles a
+        # block keeps (K, V and Q; one side of the head and two stages of
+        # the other), per-key / per-query floats, mbarriers, + 1 KB for the
+        # 128-byte swizzle's alignment
+        return FlashPlan(
+            "tc", -(-n // 16) * 16,
+            grid, 3 * nt * _TC_BOX + TC_MAX_N * 4 + 2 * 8 + 1024,
+            grid, (2 * nt + 4) * _TC_BOX + TC_MAX_N * 4 + TC_TILE * 4
+            + (nt + 2) * 8 + 1024,
+            grid, (2 * nt + 4) * _TC_BOX + 2 * TC_MAX_N * 4 + (nt + 2) * 8
+            + 1024)
+    if route != "cuda_core":
+        raise ValueError(f"unknown route {route!r}")
+    # csrc/mha_fused.cu: blocks of 32 rows, keys / queries streamed in
+    # chunks of 64, fp32 tiles of stride dh + 1; the forward holds 32 score
+    # rows of N
+    grid, ldh = (-(-n // 32), heads, b), dh + 1
+    return FlashPlan("cuda_core", n, grid, 4 * (96 * ldh + 32 * n),
+                     grid, 4 * (192 * ldh + 32 * 65 + 64),
+                     grid, 4 * (192 * ldh + 2 * 32 * 65 + 128))
+
+
+def _count(fn, plan):
+    fn.launches += 1
+    fn.route_launches[plan.route] += 1
+
+
+def _tc_aligned(name, tensors):
+    if any(a.data_ptr() % 16 for a in tensors):
+        raise ValueError(f"{name}: the tensor-core route needs 16-byte "
+                         "aligned tensors (TMA)")
+
+
 def mha_fwd_lse(q, k, v, *, heads: int, scale: float = 0.0,
                 mask: Optional[torch.Tensor] = None, causal: bool = False):
     """The training forward: (out [B, N, D] in q's dtype, lse [B, H, N]
-    fp32)."""
+    fp32). On the card it runs ``flash_plan``'s route."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_fwd_lse_reference(q, k, v, heads=heads, scale=scale,
                                      mask=mask, causal=causal)
+    return launch_fwd_lse(flash_plan(q.shape, heads, q.dtype), q, k, v,
+                          heads=heads, scale=scale, mask=mask, causal=causal)
+
+
+def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
+                   scale: float = 0.0, mask: Optional[torch.Tensor] = None,
+                   causal: bool = False):
+    """``mha_fwd_lse`` on CUDA tensors under `plan` (``flash_plan`` of this
+    shape, either route)."""
+    _check(q, k, v, heads, mask)
     b, n, d = q.shape
     _kernel_args([q, k, v, mask], b, d, heads)
+    if q.device.type != "cuda":
+        raise ValueError("launch_fwd_lse takes CUDA tensors")
     from . import _build
 
-    fn = _build.library("mha_fused").mha_forward_lse
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.library("mha_fused")
     o = torch.empty_like(q)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask.data_ptr() if mask is not None else None, o.data_ptr(),
+            lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr() if mask is not None else None, o.data_ptr(),
-                 lse.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
-                 int(bool(causal)), _DTYPES[q.dtype], stream)
+        if plan.route == "tc":
+            _tc_aligned("mha_fwd_lse", (q, k, v))
+            fn = lib.mha_forward_lse_tc
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), plan.np, *plan.grid_fwd,
+                     plan.smem_fwd, stream)
+        else:
+            fn = lib.mha_forward_lse
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha_fwd_lse kernel launch failed: CUDA error "
-                           f"{err}")
-    mha_fwd_lse.launches += 1
+        raise RuntimeError(f"mha_fwd_lse kernel launch failed ({plan.route} "
+                           f"route): CUDA error {err}")
+    _count(mha_fwd_lse, plan)
     return o, lse
 
 
 mha_fwd_lse.launches = 0
+mha_fwd_lse.route_launches = {"tc": 0, "cuda_core": 0}
 
 
 def mha_flash_bwd(q, k, v, o, do, lse, *, heads: int, scale: float = 0.0,
                   mask: Optional[torch.Tensor] = None, causal: bool = False):
     """Flash backward of ``mha_fwd_lse``: (dq, dk, dv) in q's dtype. `do`
     is the output cotangent; it is taken in q's dtype, as the JAX rule
-    casts it."""
+    casts it. On the card it runs ``flash_plan``'s route."""
     _check(q, k, v, heads, mask, max_n=None)
-    b, n, d = q.shape
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        _check_lse(q, lse, heads)
+        return mha_flash_bwd_reference(q, k, v, o, do, lse, heads=heads,
+                                       scale=scale, mask=mask, causal=causal)
+    return launch_flash_bwd(flash_plan(q.shape, heads, q.dtype), q, k, v, o,
+                            do, lse, heads=heads, scale=scale, mask=mask,
+                            causal=causal)
+
+
+def _check_lse(q, lse, heads):
+    b, n, _ = q.shape
     if tuple(lse.shape) != (b, heads, n) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [B, H, N], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    do = do.to(q.dtype)
-    if q.device.type == "cpu":
-        return mha_flash_bwd_reference(q, k, v, o, do, lse, heads=heads,
-                                       scale=scale, mask=mask, causal=causal)
-    do = do.contiguous()
+
+
+def launch_flash_bwd(plan: FlashPlan, q, k, v, o, do, lse, *, heads: int,
+                     scale: float = 0.0,
+                     mask: Optional[torch.Tensor] = None,
+                     causal: bool = False):
+    """``mha_flash_bwd`` on CUDA tensors under `plan` (``flash_plan`` of
+    this shape, either route)."""
+    _check(q, k, v, heads, mask, max_n=None)
+    _check_lse(q, lse, heads)
+    b, n, d = q.shape
+    do = do.to(q.dtype).contiguous()
     _kernel_args([q, k, v, o, do, lse, mask], b, d, heads)
+    if q.device.type != "cuda":
+        raise ValueError("launch_flash_bwd takes CUDA tensors")
     from . import _build
 
-    fn = _build.library("mha_fused").mha_flash_backward
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.library("mha_fused")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 delta.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
-                 int(bool(causal)), _DTYPES[q.dtype], stream)
+        if plan.route == "tc":
+            _tc_aligned("mha_flash_bwd", (q, k, v, o, do))
+            fn = lib.mha_flash_backward_tc
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+                ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), plan.np, *plan.grid_dq, plan.smem_dq,
+                     *plan.grid_dkdv, plan.smem_dkdv, stream)
+        else:
+            fn = lib.mha_flash_backward
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha_flash_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    mha_flash_bwd.launches += 1
+        raise RuntimeError(f"mha_flash_bwd kernel launch failed "
+                           f"({plan.route} route): CUDA error {err}")
+    _count(mha_flash_bwd, plan)
     return dq, dk, dv
 
 
 mha_flash_bwd.launches = 0
+mha_flash_bwd.route_launches = {"tc": 0, "cuda_core": 0}
 
 
 def flash_train_fits(shape, heads: int, dtype) -> bool:
-    """Whether the flash pair takes [B, N, D] with `heads` heads: the
-    forward holds 32 fp32 score rows of N in shared memory (N <= 512) and
-    both kernels are built for head dims 32 / 64 / 128 in fp32 or bf16."""
+    """Whether the flash pair takes [B, N, D] with `heads` heads: fp32 or
+    bf16, head dims 32 / 64 / 128, 1 <= N <= 512 (the CUDA-core forward
+    holds 32 fp32 score rows of N in shared memory), B <= 65535. Within
+    that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to the
+    tensor-core route and the rest to the CUDA-core kernels."""
     b, n, d = shape
     return (dtype in _DTYPES and heads > 0 and d % heads == 0
             and d // heads in HEAD_DIMS and 1 <= n <= MAX_N and b <= 65535)

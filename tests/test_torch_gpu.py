@@ -9,7 +9,11 @@ Tolerances as in chip_smoke.py: fp32 2e-5 (rca_fused) and 1e-5 (mha, with
 and without dropout);
 the backward kernels 5e-5 (1 + |x|) in fp32 (the JAX package's backward
 bar), and one bf16 ulp + 2e-3 of the tensor's largest |x| for bf16
-gradients."""
+gradients. The flash pair's tensor-core route sums S in another order
+than the plain version: its bf16 output is held to one ulp + the larger of
+1e-3 and one weight's rounding move (``_out_close``), and at N = 1, where
+dQ and dK are zero in exact arithmetic, to the rounding of the two dot
+products they come from (``_single_key_close``)."""
 
 import types
 
@@ -415,3 +419,128 @@ def test_mlp_blocks_raise_on_bf16_misfit(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         tb.postnorm_mlp_block(shifted, *mlp, ls, lb)
     assert tb.mlp_block.launches == before
+
+
+# the flash pair's tensor-core route (flash_plan "tc": bf16, head dim 64,
+# N <= 256), held to the plain pair with the bf16 limits above
+
+def _tc_inputs(b, n, d, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda,
+                                                          torch.bfloat16)
+                   for _ in range(4))
+    lens = torch.randint(1, n + 1, (b,), generator=g)
+    m = (torch.arange(n)[None] < lens[:, None]).to(torch.int32)
+    m[-1] = 0                                   # a fully masked sample
+    return q, k, v, do, m.to(cuda)
+
+
+def _bf16_ulp(x):
+    return torch.pow(2.0, torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _out_close(o, o_w, q, k, v, heads, m, causal):
+    """The bf16 forward output: one ulp + the larger of 1e-3 and ulp(w)
+    max|v| for the row's largest softmax weight w. S is summed on the
+    tensor cores in another order than in the plain version, so a weight
+    near a bf16 rounding boundary may round the other way and move the
+    output by its ulp times |v|: under 1e-3 where the weights are small,
+    more in a causal row with few keys."""
+    b, n, d = q.shape
+    s = mha_fused._scores(q, k, heads, 1.0 / (d // heads) ** 0.5, m, causal)
+    w_max = torch.softmax(s, -1).amax(-1).clamp(max=1 - 2.0 ** -9)
+    flip = _bf16_ulp(w_max) * mha_fused._heads(
+        v, heads).abs().amax(dim=(2, 3))[:, :, None]
+    flip = flip.transpose(1, 2).repeat_interleave(d // heads, dim=2)
+    g, w = o.float(), o_w.float()
+    tol = _bf16_ulp(torch.maximum(g.abs(), w.abs())) + flip.clamp_min(1e-3)
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+def _single_key_close(grads, q, k, v, do, heads):
+    """N = 1: dS = W (dP - Delta) with W = 1 and O = V is zero in exact
+    arithmetic, so dQ and dK are rounding noise of the two fp32 dot
+    products dP = dO . v and Delta = dO . O (each within dh 2^-23
+    sum |dO v|), times |k| or |q| and the scale."""
+    dh = q.shape[2] // heads
+    dots = (mha_fused._heads(do, heads) * mha_fused._heads(v, heads)).abs()
+    ds = 2 * dh * 2.0 ** -23 * dots.sum(-1, keepdim=True)
+    for g, x in zip(grads[:2], (k, q)):
+        tol = mha_fused._merge(ds * mha_fused._heads(x, heads).abs()
+                               / dh ** 0.5, torch.float32)
+        assert bool((g.float().abs() <= tol).all())
+
+
+@pytest.mark.parametrize("masked,causal", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+@pytest.mark.parametrize("n", [1, 17, 64, 65, 128, 197, 256])
+def test_flash_tc_route_matches_plain(cuda, n, masked, causal):
+    q, k, v, do, m = _tc_inputs(3, n, 256, n, cuda)
+    m = m if masked else None
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype)
+    assert plan.route == "tc" and plan.np == -(-n // 16) * 16
+    before = (dict(mha_fused.mha_fwd_lse.route_launches),
+              dict(mha_fused.mha_flash_bwd.route_launches))
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, heads=4, mask=m, causal=causal)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, heads=4, mask=m,
+                                    causal=causal)
+    torch.cuda.synchronize()
+    for fn, was in zip((mha_fused.mha_fwd_lse, mha_fused.mha_flash_bwd),
+                       before):
+        assert fn.route_launches == {"tc": was["tc"] + 1,
+                                     "cuda_core": was["cuda_core"]}
+    o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, heads=4, mask=m,
+                                                 causal=causal)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    _out_close(o, o_w, q, k, v, 4, m, causal)
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=4,
+                                             mask=m, causal=causal)
+    for j, (x, y) in enumerate(zip(grads, want)):
+        assert bool(torch.isfinite(x).all())
+        if n > 1 or j == 2:
+            _grad_close(x, y, torch.bfloat16)
+    if n == 1:
+        _single_key_close(grads, q, k, v, do, 4)
+
+
+def test_flash_tc_route_is_deterministic_and_beside_the_old_route(cuda):
+    """The same inputs give bit-identical gradients on two runs; the
+    CUDA-core route on the same bf16 inputs agrees within the bf16 limits;
+    fp32 goes to the CUDA-core route."""
+    q, k, v, do, m = _tc_inputs(8, 197, 768, 5, cuda)
+    tc = mha_fused.flash_plan(q.shape, 12, q.dtype)
+    old = mha_fused.flash_plan(q.shape, 12, q.dtype, route="cuda_core")
+    runs = []
+    for plan in (tc, tc, old):
+        o, lse = mha_fused.launch_fwd_lse(plan, q, k, v, heads=12, mask=m)
+        runs.append((o, lse) + mha_fused.launch_flash_bwd(
+            plan, q, k, v, o, do, lse, heads=12, mask=m))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+    for x, y in zip(runs[0][2:], runs[2][2:]):
+        _grad_close(x, y, torch.bfloat16)
+    before = dict(mha_fused.mha_fwd_lse.route_launches)
+    mha_fused.mha_fwd_lse(q.float(), k.float(), v.float(), heads=12)
+    assert mha_fused.mha_fwd_lse.route_launches == {
+        "tc": before["tc"], "cuda_core": before["cuda_core"] + 1}
+
+
+def test_flash_tc_entry_refuses_another_plan(cuda):
+    """The C entry launches the plan it is given or none: a plan of
+    another shape raises, and nothing is counted."""
+    import dataclasses
+
+    q, k, v, do, _ = _tc_inputs(2, 100, 256, 9, cuda)
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype)
+    before = dict(mha_fused.mha_fwd_lse.route_launches)
+    for bad in (dataclasses.replace(plan, smem_fwd=plan.smem_fwd + 16),
+                dataclasses.replace(plan, np=plan.np + 16),
+                mha_fused.flash_plan((2, 200, 256), 4, q.dtype)):
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_fwd_lse(bad, q, k, v, heads=4)
+    assert mha_fused.mha_fwd_lse.route_launches == before
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    shifted = shifted.view(q.shape).copy_(q)      # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        mha_fused.launch_fwd_lse(plan, shifted, k, v, heads=4)

@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""A/B of variants of the port's ``csrc/mha_fused.cu`` on one card, in one
+process: the flash pair's tensor-core route (K4a ``mha_fwd_lse`` / K4b
+``mha_flash_bwd``, bf16, head dim 64) at the ViT-B/16 train shape, and the
+CUDA-core kernels of the same source at chip_smoke.py's phase-3 shapes
+(K2 ``mha`` bf16 128x64x768; the fp32 pair 16x64x768; K7a / K7b fp32
+128x64x768, p 0.1; all key-masked).
+
+    python3 tools/ab_mha_fused.py tree DIR [DIR ...]
+
+``tree`` is the package's own ``csrc/``; each DIR holds another
+``mha_fused.cu`` (and the headers it includes), e.g. a parent commit's.
+Each is built with the package's nvcc flags (all at once), its registers
+and spills printed, held to the plain pair (128x197x768 unmasked under
+chip_smoke.py's bf16 limits, bit-identical gradients over two runs, and
+four masked / causal edge cases under its edge limits; a source without
+the tensor-core route is timed on its CUDA-core kernels only), then timed
+with CUDA graphs (chip_smoke.time_ms, median of 5) in the order given and
+again in reverse, so every variant is read twice around the others. Needs
+one CUDA device and nvcc.
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from garbage_classification_rca_tpu_torch.kernels import _build  # noqa: E402
+from garbage_classification_rca_tpu_torch.kernels import mha_fused as K  # noqa: E402
+
+
+def build(dirs):
+    procs = {}
+    for d in dirs:
+        src = os.path.join(_build.CSRC if d == "tree" else d, "mha_fused.cu")
+        out = os.path.join(_build.BUILD_DIR, f"ab_{len(procs)}.so")
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        procs[d] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for d, (out, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {d}:\n{log[-3000:]}")
+        for entry, used, spills in cs.ptxas_report(log):
+            if "(tc)" in entry:
+                print(f"{d}: {entry}: {used}; {spills}", flush=True)
+        libs[d] = ctypes.CDLL(out)
+    return libs
+
+
+def _cuda_core_calls(gen, dev):
+    """{name: (call, reps)} of the CUDA-core kernels at phase 3's shapes."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    def inputs(b, n, dtype, count):
+        return [torch.randn((b, n, 768), generator=gen).to(dev, dtype)
+                for _ in range(count)]
+
+    q2, k2, v2 = inputs(128, 64, torch.bfloat16, 3)
+    m2 = cs._mask(128, 64, gen, dev)
+    q4, k4, v4, do4 = inputs(16, 64, torch.float32, 4)
+    m4 = cs._mask(16, 64, gen, dev)
+    o4, lse4 = K.mha_fwd_lse_reference(q4, k4, v4, heads=12, mask=m4)
+    q7, k7, v7, do7 = inputs(128, 64, torch.float32, 4)
+    m7 = cs._mask(128, 64, gen, dev)
+    dm = K.drop_keep_mask(Key(7), 0.1, 128, 12, 64, dev)
+    kw = dict(heads=12, keep=0.9, mask=m7)
+    o7, lse7 = K.mha_fwd_lse_drop_reference(q7, k7, v7, dm, **kw)
+    return {
+        "mha bf16 128x64x768": (
+            lambda: K.mha(q2, k2, v2, heads=12, mask=m2), 20),
+        "mha_fwd_lse fp32 16x64x768": (
+            lambda: K.mha_fwd_lse(q4, k4, v4, heads=12, mask=m4), 20),
+        "mha_flash_bwd fp32 16x64x768": (
+            lambda: K.mha_flash_bwd(q4, k4, v4, o4, do4, lse4, heads=12,
+                                    mask=m4), 20),
+        "mha_fwd_lse_drop fp32 128x64x768": (
+            lambda: K.mha_fwd_lse_drop(q7, k7, v7, dm, **kw), 20),
+        "mha_flash_bwd_drop fp32 128x64x768": (
+            lambda: K.mha_flash_bwd_drop(q7, k7, v7, o7, do7, lse7, dm,
+                                         **kw), 20)}
+
+
+def main(dirs):
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    libs = build(dirs)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    b, n, d, h = 128, 197, 768, 12
+    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    edges = []
+    for eb, en, masked, causal in ((4, 65, True, True), (4, 197, True, False),
+                                   (4, 256, False, True), (4, 17, True, True)):
+        x = [torch.randn((eb, en, 256), generator=gen).to(dev, torch.bfloat16)
+             for _ in range(4)]
+        m = cs._mask(eb, en, gen, dev) if masked else None
+        if m is not None:
+            m[-1] = 0
+        edges.append((x, m, causal))
+    plan = K.flash_plan(q.shape, h, q.dtype)
+    tc = {name: hasattr(lib, "mha_forward_lse_tc")
+          for name, lib in libs.items()}
+    others = _cuda_core_calls(gen, dev)
+    ok_all = True
+    for name, lib in libs.items():
+        _build._libs["mha_fused"] = lib
+        if not tc[name]:
+            continue
+        o, lse, g = cs._flash_pair(plan, q, k, v, do, h)
+        again = cs._flash_pair(plan, q, k, v, do, h)[2]
+        torch.cuda.synchronize()
+        e_f, e_b, ok = cs._held_to_plain(q, k, v, do, h, None, False, o, lse,
+                                         g)
+        same = all(torch.equal(x, y) for x, y in zip(g, again))
+        for x, m, causal in edges:
+            p = K.flash_plan(x[0].shape, 4, x[0].dtype)
+            out = cs._flash_pair(p, *x, 4, m, causal)
+            torch.cuda.synchronize()
+            ok &= cs._held_to_plain(*x, 4, m, causal, *out, edge=True)[2]
+        ok_all &= ok and same
+        print(f"{name}: fwd max|d| {e_f:.3e}, bwd {e_b:.3e}, edge cases and "
+              f"limits {'ok' if ok else 'FAIL'}, gradients bit-identical "
+              f"over two runs: {same}", flush=True)
+    times = {name: {} for name in libs}
+    for name in list(libs) + list(reversed(list(libs))):
+        _build._libs["mha_fused"] = libs[name]
+        calls = dict(others)
+        if tc[name]:
+            calls["mha_fwd_lse tc bf16 128x197x768"] = (
+                lambda: K.launch_fwd_lse(plan, q, k, v, heads=h), 5)
+            calls["mha_flash_bwd tc bf16 128x197x768"] = (
+                lambda: K.launch_flash_bwd(plan, q, k, v, o, do, lse,
+                                           heads=h), 5)
+        for call, (fn, reps) in calls.items():
+            times[name].setdefault(call, []).append(
+                cs.time_ms(fn, reps=reps)[0])
+    for name, rows in times.items():
+        for call, ms in rows.items():
+            print(f"{name}: {call}: {ms} ms (in the order given, then "
+                  f"reversed)", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0 if ok_all else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:] or ["tree"]))
