@@ -19,23 +19,32 @@ Phases, each of which fails the run when it fails:
      gradients bit-identical over two runs, and timed against the CUDA-core
      kernels in one call (new-old-old-new) at 128x197x768 (ViT-B/16 train)
      and 128x64x768, beside the plain pair, the library call and the
-     bound; the build's ptxas report (registers, spills) per kernel;
+     bound; K2's tensor-core route (``mha_tc``, the same bf16 forward
+     without lse) the same way at N = 1 .. 256, timed against the CUDA-core
+     K2 at 128x64x768 masked and 128x197x768 beside SDPA; the fp32
+     backward's 3xTF32 route (``mha_flash_bwd_tc32``,
+     ``mha_flash_bwd_drop_tc32``: K4b and K7b at head dim 64, N <= 64)
+     beside the CUDA-core pair on every fp32 case, bit-identical over two
+     runs, timed new-old-old-new at 16x64x768 and 128x64x768, p 0.1; the
+     build's ptxas report (registers, spills) per kernel;
   4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
-     launch counters zeroed before and read after that run; logits against
-     the same model on the plain versions; samples/s, p50 batch latency,
-     peak memory;
+     launch counters zeroed before and read after that run (K2 on the
+     tensor cores); logits against the same model on the plain versions;
+     samples/s, p50 batch latency, peak memory; one batch of 8 at
+     ``--seq_len=512``, where K2 runs on the CUDA cores;
   5. train: the MM_RCA.sh recipe at full width (fp32 master weights, bf16
      images, batch 16 x acc_steps 10, SGD lr 0.0016 reg 0.03, class
      weights, augmentation p=1.0, head dropout 0.6, stochastic depth) —
      three optimizer steps all trainable and one with the phase-1 mask,
-     launch counters read around them (per microbatch: K1 1, K3 1, K4a 6,
-     K4b 6, fp32: the CUDA-core route, none on the tensor cores); steps/s,
+     launch counters read around them (per microbatch: K1 1, K3 1, K4a 6
+     on the CUDA cores, K4b 6 on 3xTF32); steps/s,
      samples/s, peak memory, a profiler breakdown; one more step with
-     ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6);
-     microbatches' loss and gradients on the kernel path
-     against the plain path; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
+     ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6 on
+     3xTF32); microbatches' loss and gradients on the kernel path
+     against the plain path, on the seeded weights restored after the
+     steps; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
      epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
      BEST checkpoint: ``evaluate()``, then ``main()`` end to end, whose
      report CSV must carry the same accuracy;
@@ -53,19 +62,27 @@ Phases, each of which fails the run when it fails:
   8. text train: the DistilBERT classifier at full width and depth (batch
      128, seq 64, fp32, SGD, head dropout 0.6, class weights) with
      ``--hf_internal_dropout``: three steps all trainable and one head
-     only, per microbatch K7a 6, K7b 6, K4a 0, K4b 0; a step with the flag
-     off (K4a 6, K4b 6 on the CUDA-core route, K7 0); a step of BERT-base
+     only, per microbatch K7a 6, K7b 6 (3xTF32), K4a 0, K4b 0; a step with
+     the flag off (K4a 6, K4b 6 on 3xTF32, K7 0); a step of BERT-base
      with the flag (12 + 12);
      one microbatch's loss and gradients on the kernel path against the
      plain path from the same key; steps/s, samples/s, peak memory, a
-     profiler breakdown; then ``cli.main_text --hf_internal_dropout`` for
+     profiler breakdown, and the step's device time with the backward on
+     3xTF32 and on the CUDA cores (``backward_route``), new-old-old-new;
+     a step at ``--seq_len=512`` (batch 8) with the flag and without, where
+     K7b / K4b run on the CUDA cores, and its gradients against the plain
+     path; then ``cli.main_text --hf_internal_dropout`` for
      1 + 1 epochs on a synthetic tree and ``cli.test_text`` on its BEST
-     file (``evaluate()`` and ``main()``);
+     file (``evaluate()`` and ``main()``), and on that file the bf16
+     kernel path against the plain path and the fp32 model
+     (``best_file_agreement``: the agreement over every sample beside the
+     one above the noise floor, recorded);
   9. image train: ViT-B/16 at full width and depth (batch 128, 224x224,
      bf16 images over fp32 master weights, augmentation p=1.0): K4a 12 and
      K4b 12 per microbatch, all on the tensor-core route, the same
-     readings; ``cli.main_image`` -> ``cli.test_image`` (``evaluate()`` and
-     ``main()``).
+     readings; ``cli.main_image`` (its val eval: K2 on the tensor cores) ->
+     ``cli.test_image`` (``evaluate()`` and ``main()``), and
+     ``best_file_agreement`` on its BEST file.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -79,6 +96,8 @@ Tolerances (kernel vs plain version, same inputs, same card):
     package's backward bar. The dropout pair (mha_fwd_lse_drop,
     mha_flash_bwd_drop) is held to its plain pair's limits, fp32 and bf16,
     on the same keep mask.
+  * the fp32 backward's 3xTF32 route (K4b, K7b): the fp32 backward bar
+    above; its products carry about 2^-21 relative error each.
   * bf16: |d| <= one bf16 ulp of the value + 1e-5 (rca_fused: fp32 math,
     one final rounding that may land on either neighbour) and + 1e-3 for
     mha (its softmax weights are rounded to bf16 before the PV product,
@@ -92,7 +111,11 @@ Tolerances (kernel vs plain version, same inputs, same card):
     ulp + ulp(w) max|v| (one weight rounding the other way, since S is
     summed in another order), and at N = 1, where dQ and dK are zero in
     exact arithmetic, they are held to the rounding of the fp32 dot
-    products they come from.
+    products they come from. K2's tensor-core route, the same kernel
+    without lse, is held to the same one-flip limit everywhere (its S is
+    summed in another order than the plain version's, so a weight near a
+    bf16 boundary may round the other way); the number of elements over
+    one ulp + 1e-3 is printed and reported beside it.
   * the fused transformer blocks (postnorm_attn_block, postnorm_mlp_block,
     attn_block, mlp_block): fp32 |d| <= 2e-5 + 2e-5|x| (fp32 sums in
     another order over K up to 3072); bf16 one ulp of the value + 1e-2 of
@@ -134,9 +157,10 @@ import sys
 import time
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 SEED = 0
 N_BATCHES, BATCH = 8, 128        # eval batch 128: config.MULTIMODAL_EVAL_BATCH
+SEQ512_BATCH = 8                 # the paths driven at --seq_len=512
 
 
 def _fail(msg: str) -> int:
@@ -321,7 +345,36 @@ def _mask(b, n, gen, device):
     return m.to(device)
 
 
+MHA_TC_NS = (1, 17, 64, 65, 197, 256)      # K2's tensor-core lengths
+MHA_AB_SHAPES = ((128, 64, 768, True), (128, 197, 768, False))
+
+
+def _k2_held(got, want, q, k, v, h, m, causal, edge):
+    """(max |d|, ok, elements over one ulp + 1e-3) of K2's bf16 output:
+    one ulp + 1e-3, and with `edge` (the tensor-core route, whose S is
+    summed in another order) one ulp + the larger of 1e-3 and one weight's
+    rounding move (``_one_flip_tol``)."""
+    import torch
+
+    err, ok = max_err_ok(got, want, q.dtype, "mha")
+    g, w = got.float(), want.float()
+    over = int(((g - w).abs() > bf16_ulp(torch.maximum(g.abs(), w.abs()))
+                + 1e-3).sum()) if q.dtype == torch.bfloat16 else 0
+    if edge and not ok:
+        ok = bool(((g - w).abs() <= _one_flip_tol(q, k, v, h, m, causal,
+                                                  got, want)).all())
+    return err, ok, over
+
+
 def check_mha(device, report):
+    """K2 against its plain version on both routes: the CUDA cores (fp32,
+    and bf16 forced by ``route``) at 128x64x768 masked, N = 512 and N =
+    100 causal; the tensor cores (bf16, head dim 64, N <= 256) at those of
+    the shapes it takes and at every N of MHA_TC_NS unmasked, key-masked
+    with a fully masked sample and causal, bit-identical over two runs.
+    Then the two routes timed in one call, new-old-old-new, at
+    MHA_AB_SHAPES beside SDPA, the plain version and the bound. Rows
+    ``mha`` (CUDA cores) and ``mha_tc``."""
     import torch
     import torch.nn.functional as F
 
@@ -337,46 +390,116 @@ def check_mha(device, report):
             q, k, v = (torch.randn((b, n, d), generator=gen).to(device, dtype)
                        for _ in range(3))
             m = _mask(b, n, gen, device)
-            got = K.mha(q, k, v, heads=h, mask=m, causal=causal)
-            torch.cuda.synchronize()
             want = K.mha_reference(q, k, v, heads=h, mask=m, causal=causal)
-            err, ok = max_err_ok(got, want, dtype, "mha")
+            routes = ["cuda_core"]
+            if K.flash_plan(q.shape, h, dtype).route == "tc":
+                routes.append("tc")
+            for route in routes:
+                got = K.mha(q, k, v, heads=h, mask=m, causal=causal,
+                            route=route)
+                torch.cuda.synchronize()
+                err, ok, over = _k2_held(got, want, q, k, v, h, m, causal,
+                                         edge=route == "tc")
+                if route == "tc":
+                    again = K.mha(q, k, v, heads=h, mask=m, causal=causal)
+                    torch.cuda.synchronize()
+                    ok &= torch.equal(got, again)
+                ok_all &= ok
+                print(f"  mha {route:9s} {str(dtype)[6:]:8s} B={b:3d} "
+                      f"N={n:3d} D={d} H={h} causal={causal!s:5s}: "
+                      f"max|d|={err:.3e}, elements over one ulp + 1e-3: "
+                      f"{over} {'ok' if ok else 'FAIL'}", flush=True)
+                if dtype == torch.bfloat16 and (b, n, causal) == (128, 64,
+                                                                  False):
+                    main = main or {}
+                    main[route] = (err, over)
+    for n in MHA_TC_NS:
+        b, d, h = 4, 256, 4
+        q, k, v = (torch.randn((b, n, d), generator=gen).to(
+            device, torch.bfloat16) for _ in range(3))
+        m = _mask(b, n, gen, device)
+        m[-1] = 0
+        for masked, causal in ((False, False), (True, False), (True, True),
+                               (False, True)):
+            mm = m if masked else None
+            got = K.mha(q, k, v, heads=h, mask=mm, causal=causal)
+            again = K.mha(q, k, v, heads=h, mask=mm, causal=causal)
+            torch.cuda.synchronize()
+            want = K.mha_reference(q, k, v, heads=h, mask=mm, causal=causal)
+            err, ok, over = _k2_held(got, want, q, k, v, h, mm, causal, True)
+            ok &= (torch.equal(got, again)
+                   and K.flash_plan(q.shape, h, q.dtype).route == "tc")
             ok_all &= ok
-            print(f"  mha {str(dtype)[6:]:8s} B={b:3d} N={n:3d} D={d} H={h} "
-                  f"causal={causal!s:5s}: max|d|={err:.3e} "
+            print(f"  mha tc bf16 B={b} N={n:3d} masked={masked!s:5s} "
+                  f"causal={causal!s:5s}: max|d|={err:.3e}, over one ulp + "
+                  f"1e-3: {over}; bit-identical over two runs "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
-            if dtype == torch.bfloat16 and (b, n, causal) == (128, 64, False):
-                main = (q, k, v, m, h, err)
-    q, k, v, m, h, err = main
-    b, n, d = q.shape
-    ms, ms_lo, ms_hi = time_ms(lambda: K.mha(q, k, v, heads=h, mask=m))
-    plain_ms, p_lo, p_hi = time_ms(
-        lambda: K.mha_reference(q, k, v, heads=h, mask=m))
 
-    def sdpa():
-        rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
-        o = F.scaled_dot_product_attention(
-            rs(q), rs(k), rs(v), attn_mask=m.bool()[:, None, None, :])
-        return o.transpose(1, 2).reshape(b, n, d)
+    rows = {}
+    for b, n, d, masked in MHA_AB_SHAPES:
+        h = d // 64
+        q, k, v = (torch.randn((b, n, d), generator=gen).to(
+            device, torch.bfloat16) for _ in range(3))
+        m = _mask(b, n, gen, device) if masked else None
+        fn = {r: functools.partial(K.mha, q, k, v, heads=h, mask=m, route=r)
+              for r in ("tc", "cuda_core")}
+        ab = {"tc": [], "cuda_core": []}
+        for route in ("tc", "cuda_core", "cuda_core", "tc"):
+            ab[route].append(time_ms(fn[route])[0])
+        plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=m))[0]
 
-    library_ms, l_lo, l_hi = time_ms(sdpa)
-    flops = 4 * b * n * n * d                # QK^T and PV, every head
-    nbytes = 4 * q.numel() * q.element_size() + m.numel() * 4
-    bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    report["mha"] = {
-        "name": "mha", "route": "cuda",
-        "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
-        "replaces": "garbage_classification_rca_tpu/kernels/mha_fused.py:91",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": library_ms}
-    print(f"  mha B=128 N=64 D=768 bf16 (median of 5 [min, max]): kernel "
-          f"{ms:.4f} [{ms_lo:.4f}, {ms_hi:.4f}] ms, plain {plain_ms:.4f} "
-          f"[{p_lo:.4f}, {p_hi:.4f}] ms, sdpa {library_ms:.4f} [{l_lo:.4f}, "
-          f"{l_hi:.4f}] ms, bound {report['mha']['bound_ms']:.4f} ms",
-          flush=True)
+        def sdpa():
+            rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+            o = F.scaled_dot_product_attention(
+                rs(q), rs(k), rs(v),
+                attn_mask=None if m is None else m.bool()[:, None, None, :])
+            return o.transpose(1, 2).reshape(b, n, d)
+
+        library = time_ms(sdpa)[0]
+        flops = 4 * b * n * n * d                # QK^T and PV, every head
+        nbytes = 4 * q.numel() * q.element_size() + (
+            m.numel() * 4 if m is not None else 0)
+        bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
+        err = {}
+        for route in ("tc", "cuda_core"):
+            got = fn[route]()
+            torch.cuda.synchronize()
+            err[route] = _k2_held(got, K.mha_reference(q, k, v, heads=h,
+                                                       mask=m),
+                                  q, k, v, h, m, False, route == "tc")
+            ok_all &= err[route][1]
+        for route in ("tc", "cuda_core"):
+            t = sum(ab[route]) / 2
+            rows.setdefault(route, []).append({
+                "shape": [b, n, d], "masked": masked, "ms": t,
+                "ms_runs": ab[route], "plain_ms": plain,
+                "library_ms": library, "bound_ms": bound,
+                "bound_by": "operations" if bound_ops >= bound_bytes
+                else "bytes", "share_of_bound": bound / t,
+                "max_abs_err": err[route][0],
+                "over_one_ulp_1e-3": err[route][2]})
+        print(f"  mha bf16 {b}x{n}x{d} masked={masked}, new-old-old-new: tc "
+              f"{ab['tc'][0]:.4f} / {ab['tc'][1]:.4f} ms, CUDA cores "
+              f"{ab['cuda_core'][0]:.4f} / {ab['cuda_core'][1]:.4f} ms; "
+              f"plain {plain:.4f} ms, sdpa {library:.4f} ms, bound "
+              f"{bound:.4f} ms; share of the bound: tc "
+              f"{bound / (sum(ab['tc']) / 2):.3f}; max|d| tc "
+              f"{err['tc'][0]:.3e} ({err['tc'][2]} elements over one ulp + "
+              f"1e-3), CUDA cores {err['cuda_core'][0]:.3e}", flush=True)
+    for name, route in (("mha", "cuda_core"), ("mha_tc", "tc")):
+        first, *others = rows[route]
+        report[name] = {
+            "name": name, "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
+            "replaces": "garbage_classification_rca_tpu/kernels/mha_fused.py:91",
+            **{key: first[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "share_of_bound", "ms_runs",
+                "over_one_ulp_1e-3")},
+            "other_shapes": others}
+    report["mha"]["checks_at_main_shape"] = main
     return ok_all
 
 
@@ -498,22 +621,32 @@ def check_mha_train(device, report):
                                                  causal=causal)
             e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
             e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
-            grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h, mask=m,
-                                    causal=causal)
-            torch.cuda.synchronize()
             want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h,
                                              mask=m, causal=causal)
-            errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
-            e_b = max(e for e, _ in errs)
-            ok = ok_o and ok_l and all(o_ for _, o_ in errs)
-            ok_all &= ok
-            print(f"  mha_fwd_lse/mha_flash_bwd {str(dtype)[6:]:8s} B={b:3d} "
-                  f"N={n:3d} causal={causal!s:5s}: fwd max|d|={e_o:.3e} "
-                  f"lse {e_l:.3e} bwd {e_b:.3e} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            if dtype == torch.float32 and (b, n) == (16, 64):
-                main = dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o, lse=lse,
-                            e_f=max(e_o, e_l), e_b=e_b)
+            plan = K.flash_plan(q.shape, h, dtype)
+            for bwd in sorted({plan.bwd_route, "cuda_core"}):
+                grads = K.launch_flash_bwd(
+                    K.flash_plan(q.shape, h, dtype, bwd_route=bwd), q, k, v,
+                    o, do, lse, heads=h, mask=m, causal=causal)
+                again = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h,
+                                        mask=m, causal=causal) \
+                    if bwd == plan.bwd_route else grads
+                torch.cuda.synchronize()
+                errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads,
+                                                                  want)]
+                e_b = max(e for e, _ in errs)
+                same = all(torch.equal(x, y) for x, y in zip(grads, again))
+                ok = ok_o and ok_l and same and all(o_ for _, o_ in errs)
+                ok_all &= ok
+                print(f"  mha_fwd_lse/mha_flash_bwd ({bwd}) "
+                      f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} "
+                      f"causal={causal!s:5s}: fwd max|d|={e_o:.3e} lse "
+                      f"{e_l:.3e} bwd {e_b:.3e}, bit-identical over two "
+                      f"runs {same} {'ok' if ok else 'FAIL'}", flush=True)
+                if dtype == torch.float32 and (b, n) == (16, 64):
+                    main = main or dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o,
+                                        lse=lse, e_f=max(e_o, e_l), e_b={})
+                    main["e_b"][bwd] = e_b
     q, k, v, do, m, h = (main[x] for x in ("q", "k", "v", "do", "m", "h"))
     o, lse = main["o"], main["lse"]
     b, n, d = q.shape
@@ -521,8 +654,13 @@ def check_mha_train(device, report):
                                                      mask=m))
     plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h,
                                                       mask=m))[0]
-    ms_b, b_lo, b_hi = time_ms(lambda: K.mha_flash_bwd(
-        q, k, v, o, do, lse, heads=h, mask=m))
+    bwd = {r: functools.partial(
+        K.launch_flash_bwd, K.flash_plan(q.shape, h, q.dtype, bwd_route=r),
+        q, k, v, o, do, lse, heads=h, mask=m) for r in ("tc32", "cuda_core")}
+    ab_b = {"tc32": [], "cuda_core": []}
+    for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
+        ab_b[r].append(time_ms(bwd[r])[0])
+    ms_b = sum(ab_b["cuda_core"]) / 2
     plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
         q, k, v, o, do, lse, heads=h, mask=m))[0]
     bias = ((m.float() - 1.0) * 1e30)[:, None, None, :].expand(
@@ -539,12 +677,14 @@ def check_mha_train(device, report):
     bytes_f = 4 * q.numel() * item + m.numel() * 4 + b * h * n * 4
     flops_b = 10 * b * n * n * d      # S, dP, dV, dQ, dK
     bytes_b = 8 * q.numel() * item + m.numel() * 4 + b * h * n * 4
-    for name, ms, plain, lib_ms, flops, nbytes, err, line in (
+    for name, ms, plain, lib_ms, flops, nbytes, err, line, flop_peak in (
             ("mha_fwd_lse", ms_f, plain_f, lib_f, flops_f, bytes_f,
-             main["e_f"], 274),
+             main["e_f"], 274, "float32"),
             ("mha_flash_bwd", ms_b, plain_b, lib_b, flops_b, bytes_b,
-             main["e_b"], 317)):
-        bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
+             main["e_b"]["cuda_core"], 317, "float32"),
+            ("mha_flash_bwd_tc32", sum(ab_b["tc32"]) / 2, plain_b, lib_b,
+             3 * flops_b, bytes_b, main["e_b"]["tc32"], 317, "tf32")):
+        bound_ops = flops / PEAK_FLOPS[flop_peak] * 1e3
         bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         report[name] = {
             "name": name, "route": "cuda",
@@ -555,14 +695,19 @@ def check_mha_train(device, report):
             "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "library_ms": lib_ms}
+    report["mha_flash_bwd_tc32"]["ms_runs"] = ab_b["tc32"]
+    report["mha_flash_bwd"]["ms_runs"] = ab_b["cuda_core"]
     print(f"  mha_fwd_lse B=16 N=64 D=768 fp32 (median of 5 [min, max]): "
           f"kernel {ms_f:.4f} [{f_lo:.4f}, {f_hi:.4f}] ms, plain "
           f"{plain_f:.4f} ms, efficient attention {lib_f:.4f} ms, bound "
           f"{report['mha_fwd_lse']['bound_ms']:.4f} ms", flush=True)
-    print(f"  mha_flash_bwd B=16 N=64 D=768 fp32: kernel {ms_b:.4f} "
-          f"[{b_lo:.4f}, {b_hi:.4f}] ms, plain {plain_b:.4f} ms, efficient "
-          f"attention backward {lib_b:.4f} ms, bound "
-          f"{report['mha_flash_bwd']['bound_ms']:.4f} ms", flush=True)
+    print(f"  mha_flash_bwd B=16 N=64 D=768 fp32, new-old-old-new: 3xTF32 "
+          f"{ab_b['tc32'][0]:.4f} / {ab_b['tc32'][1]:.4f} ms, CUDA cores "
+          f"{ab_b['cuda_core'][0]:.4f} / {ab_b['cuda_core'][1]:.4f} ms; "
+          f"plain {plain_b:.4f} ms, efficient attention backward "
+          f"{lib_b:.4f} ms, bound "
+          f"{report['mha_flash_bwd_tc32']['bound_ms']:.4f} ms "
+          f"({report['mha_flash_bwd_tc32']['bound_by']})", flush=True)
     ok_all &= check_mha_tc(device, report, gen)
     return ok_all
 
@@ -824,35 +969,53 @@ def check_mha_drop(device, report):
             dm[0, 0, 1] = 0                   # a fully dropped row
             kw = dict(heads=h, keep=1.0 - p, mask=m, causal=causal)
             o, lse = K.mha_fwd_lse_drop(q, k, v, dm, **kw)
-            grads = K.mha_flash_bwd_drop(q, k, v, o, do, lse, dm, **kw)
             torch.cuda.synchronize()
             o_w, lse_w = K.mha_fwd_lse_drop_reference(q, k, v, dm, **kw)
             e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
             e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
             want = K.mha_flash_bwd_drop_reference(q, k, v, o, do, lse, dm,
                                                   **kw)
-            errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads, want)]
-            e_b = max(e for e, _ in errs)
             zero_row = bool((o[0, 1, :d // h] == 0).all())
-            ok = (same and ok_o and ok_l and zero_row
-                  and all(o_ for _, o_ in errs))
-            ok_all &= ok
-            print(f"  mha_fwd_lse_drop/mha_flash_bwd_drop {str(dtype)[6:]:8s} "
-                  f"B={b:3d} N={n:3d} D={d} p={p} mask={masked!s:5s} causal="
-                  f"{causal!s:5s}: fwd max|d|={e_o:.3e} lse {e_l:.3e} bwd "
-                  f"{e_b:.3e} redraw equal={same} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            if dtype == torch.float32 and ci == 0:
-                main = dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o, lse=lse,
-                            dm=dm, key=key, p=p, e_f=max(e_o, e_l), e_b=e_b)
+            plan = K.flash_plan(q.shape, h, dtype, dropout=True)
+            for bwd in sorted({plan.bwd_route, "cuda_core"}):
+                grads = K.launch_flash_bwd_drop(
+                    K.flash_plan(q.shape, h, dtype, bwd_route=bwd,
+                                 dropout=True),
+                    q, k, v, o, do, lse, dm, **kw)
+                again = K.mha_flash_bwd_drop(q, k, v, o, do, lse, dm, **kw) \
+                    if bwd == plan.bwd_route else grads
+                torch.cuda.synchronize()
+                errs = [grad_err_ok(a, c, dtype) for a, c in zip(grads,
+                                                                  want)]
+                e_b = max(e for e, _ in errs)
+                bits = all(torch.equal(x, y) for x, y in zip(grads, again))
+                ok = (same and ok_o and ok_l and zero_row and bits
+                      and all(o_ for _, o_ in errs))
+                ok_all &= ok
+                print(f"  mha_fwd_lse_drop/mha_flash_bwd_drop ({bwd}) "
+                      f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} D={d} p={p} "
+                      f"mask={masked!s:5s} causal={causal!s:5s}: fwd max|d|="
+                      f"{e_o:.3e} lse {e_l:.3e} bwd {e_b:.3e} redraw equal="
+                      f"{same}, bit-identical over two runs {bits} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if dtype == torch.float32 and ci == 0:
+                    main = main or dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o,
+                                        lse=lse, dm=dm, key=key, p=p,
+                                        e_f=max(e_o, e_l), e_b={})
+                    main["e_b"][bwd] = e_b
             del o_w, lse_w, want
     q, k, v, do, m, h, o, lse, dm, key, p = (main[x] for x in (
         "q", "k", "v", "do", "m", "h", "o", "lse", "dm", "key", "p"))
     b, n, d = q.shape
     kw = dict(heads=h, keep=1.0 - p, mask=m)
     ms_f, f_lo, f_hi = time_ms(lambda: K.mha_fwd_lse_drop(q, k, v, dm, **kw))
-    ms_b, b_lo, b_hi = time_ms(lambda: K.mha_flash_bwd_drop(
-        q, k, v, o, do, lse, dm, **kw))
+    plans = {r: K.flash_plan(q.shape, h, q.dtype, bwd_route=r, dropout=True)
+             for r in ("tc32", "cuda_core")}
+    ab_b = {"tc32": [], "cuda_core": []}
+    for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
+        ab_b[r].append(time_ms(functools.partial(
+            K.launch_flash_bwd_drop, plans[r], q, k, v, o, do, lse, dm,
+            **kw))[0])
     plain_f = time_ms(lambda: K.mha_fwd_lse_drop_reference(q, k, v, dm,
                                                            **kw))[0]
     plain_b = time_ms(lambda: K.mha_flash_bwd_drop_reference(
@@ -860,9 +1023,10 @@ def check_mha_drop(device, report):
     draw = time_ms_eager(lambda: K.drop_keep_mask(key, p, b, h, n, device))[0]
     with_draw_f = time_ms_eager(lambda: K.mha_fwd_lse_drop(
         q, k, v, K.drop_keep_mask(key, p, b, h, n, device), **kw))[0]
-    with_draw_b = time_ms_eager(lambda: K.mha_flash_bwd_drop(
-        q, k, v, o, do, lse, K.drop_keep_mask(key, p, b, h, n, device),
-        **kw))[0]
+    with_draw_b = {r: time_ms_eager(lambda: K.launch_flash_bwd_drop(
+        plans[r], q, k, v, o, do, lse,
+        K.drop_keep_mask(key, p, b, h, n, device), **kw))[0]
+        for r in ("tc32", "cuda_core")}
     bias = ((m.float() - 1.0) * 1e30)[:, None, None, :].expand(
         b, h, n, n).contiguous()
     rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
@@ -877,14 +1041,19 @@ def check_mha_drop(device, report):
             lib[3], p, [True, True, True, False]))[0]
     item = q.element_size()
     small = m.numel() * 4 + b * h * n * 4            # key mask and lse
+    bytes_b = 8 * q.numel() * item + dm.numel() + small
     rows = (("mha_fwd_lse_drop", ms_f, plain_f, lib_f, with_draw_f,
              4 * b * n * n * d, 4 * q.numel() * item + dm.numel() + small,
-             main["e_f"], 560),
-            ("mha_flash_bwd_drop", ms_b, plain_b, lib_b, with_draw_b,
-             10 * b * n * n * d, 8 * q.numel() * item + dm.numel() + small,
-             main["e_b"], 610))
-    for name, ms, plain, lib_ms, with_draw, flops, nbytes, err, line in rows:
-        bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
+             main["e_f"], 560, "float32"),
+            ("mha_flash_bwd_drop", sum(ab_b["cuda_core"]) / 2, plain_b,
+             lib_b, with_draw_b["cuda_core"], 10 * b * n * n * d, bytes_b,
+             main["e_b"]["cuda_core"], 610, "float32"),
+            ("mha_flash_bwd_drop_tc32", sum(ab_b["tc32"]) / 2, plain_b,
+             lib_b, with_draw_b["tc32"], 3 * 10 * b * n * n * d, bytes_b,
+             main["e_b"]["tc32"], 610, "tf32"))
+    for name, ms, plain, lib_ms, with_draw, flops, nbytes, err, line, \
+            flop_peak in rows:
+        bound_ops = flops / PEAK_FLOPS[flop_peak] * 1e3
         bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         report[name] = {
             "name": name, "route": "cuda",
@@ -906,12 +1075,18 @@ def check_mha_drop(device, report):
           f"dropout (eager) {lib_f:.4f} ms, bound "
           f"{report['mha_fwd_lse_drop']['bound_ms']:.4f} ms "
           f"({report['mha_fwd_lse_drop']['bound_by']})", flush=True)
-    print(f"  mha_flash_bwd_drop same shape: kernel {ms_b:.4f} [{b_lo:.4f}, "
-          f"{b_hi:.4f}] ms, with the mask draw (eager) {with_draw_b:.4f} ms, "
-          f"plain {plain_b:.4f} ms, efficient attention backward with "
-          f"dropout (eager) {lib_b:.4f} ms, bound "
-          f"{report['mha_flash_bwd_drop']['bound_ms']:.4f} ms "
-          f"({report['mha_flash_bwd_drop']['bound_by']})", flush=True)
+    report["mha_flash_bwd_drop_tc32"]["ms_runs"] = ab_b["tc32"]
+    report["mha_flash_bwd_drop"]["ms_runs"] = ab_b["cuda_core"]
+    print(f"  mha_flash_bwd_drop same shape, new-old-old-new: 3xTF32 "
+          f"{ab_b['tc32'][0]:.4f} / {ab_b['tc32'][1]:.4f} ms, CUDA cores "
+          f"{ab_b['cuda_core'][0]:.4f} / {ab_b['cuda_core'][1]:.4f} ms; with "
+          f"the mask draw (eager) {with_draw_b['tc32']:.4f} / "
+          f"{with_draw_b['cuda_core']:.4f} ms, plain {plain_b:.4f} ms, "
+          f"efficient attention backward with dropout (eager) {lib_b:.4f} "
+          f"ms, bound {report['mha_flash_bwd_drop_tc32']['bound_ms']:.4f} ms "
+          f"({report['mha_flash_bwd_drop_tc32']['bound_by']}); CUDA-core "
+          f"bound {report['mha_flash_bwd_drop']['bound_ms']:.4f} ms",
+          flush=True)
     return ok_all
 
 
@@ -1292,6 +1467,31 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def backward_route(bwd):
+    """Every flash backward planned inside takes the route `bwd` where its
+    plan would take the 3xTF32 kernel ("tc32"): the old side of phase 8's
+    A/B of the text trainer's step."""
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused
+
+    plan = mha_fused.flash_plan
+
+    def forced(shape, heads, dtype, route=None, *, bwd_route=None,
+               dropout=False):
+        p = plan(shape, heads, dtype, route, bwd_route=bwd_route,
+                 dropout=dropout)
+        if bwd_route is None and p.bwd_route == "tc32":
+            p = plan(shape, heads, dtype, route, bwd_route=bwd,
+                     dropout=dropout)
+        return p
+
+    mha_fused.flash_plan = forced
+    try:
+        yield
+    finally:
+        mha_fused.flash_plan = plan
+
+
 def _randomize_bn(model, gen):
     import torch
 
@@ -1341,9 +1541,13 @@ def _kind(name: str) -> str:
                 "ln": "MLP block LayerNorm rows"}[part]
     if "rca_fused_kernel" in n:
         return "rca_fused kernel"
-    if "ftc::" in n:            # the flash pair's tensor-core route
-        return ("mha_fwd_lse kernel (tensor cores)" if "fwd_kernel" in n
-                else "mha_flash_bwd kernels (tensor cores)")
+    if "ftc::" in n:            # the tensor-core route: K2, K4a, K4b
+        if "fwd_kernel" in n:
+            return ("mha kernel (tensor cores)" if "false>" in n
+                    else "mha_fwd_lse kernel (tensor cores)")
+        return "mha_flash_bwd kernels (tensor cores)"
+    if "tc32::" in n:           # the fp32 backward on 3xTF32: K4b, K7b
+        return "mha_flash_bwd kernel (3xTF32)"
     if "mha_kernel" in n:
         return "mha kernel"
     if "attn_heads_kernel" in n or "attn_out_kernel" in n:
@@ -1472,7 +1676,7 @@ def check_model(device, n_batches, batch_size, results):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(device)
     results["launches"] = launches
-    want = _want_launches(rca_fused=n_batches, mha=6 * n_batches)
+    want = _want_launches(rca_fused=n_batches, mha_tc=6 * n_batches)
     ok &= launches == want and len(preds) == n_batches * batch_size
     print(f"  launches over {n_batches} batches: {launches} (want {want})",
           flush=True)
@@ -1514,6 +1718,32 @@ def check_model(device, n_batches, batch_size, results):
     results["model"].update(argmax_agreement=frac, max_logit_diff=dmax)
     print(f"  bf16 logits kernel vs plain over {n} samples: argmax "
           f"agreement {frac:.4f}, max|d|={dmax:.3e}", flush=True)
+
+    # one batch at --seq_len=512 (the exact-parity length, config.py): the
+    # fusion tower's attention past the tensor-core route's N, on the CUDA
+    # cores
+    data = SyntheticBatcher(SEQ512_BATCH, SEQ512_BATCH, (480, 480), tok, 512,
+                            SEED + 6)
+    _zero_counters()
+    run_multimodal_eval(model, data, SEQ512_BATCH, device, dtype,
+                        progress=False)
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    results["launches_seq512"] = launches
+    lk = _logits(model, data.batches[0], dtype, device)
+    with plain_versions():
+        lp = _logits(model, data.batches[0], dtype, device)
+    d512 = float((lk - lp).abs().max())
+    want = _want_launches(rca_fused=1, mha=6)
+    good = (launches == want and bool(torch.isfinite(lk).all())
+            and d512 <= 0.05)
+    ok &= good
+    results["model"]["seq512"] = {"batch": SEQ512_BATCH,
+                                  "max_logit_diff": d512}
+    print(f"  one batch of {SEQ512_BATCH} at seq 512: launches "
+          f"{_shown(launches)} (want {_shown(want)}, every other 0), bf16 "
+          f"logits kernel vs plain max|d|={d512:.3e} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
     return ok
 
 
@@ -1524,7 +1754,7 @@ def check_model(device, n_batches, batch_size, results):
 TRAIN_BATCH, ACC_STEPS = 16, 10        # the MM_RCA.sh recipe
 TRAIN_IMAGE = 480
 TRAIN_LAUNCHES = {"rca_fused": 1, "rca_fused_bwd": 1, "mha_fwd_lse": 6,
-                  "mha_flash_bwd": 6, "mha": 0}     # per microbatch
+                  "mha_flash_bwd_tc32": 6}          # per microbatch
 
 
 def _counters():
@@ -1561,13 +1791,15 @@ def _zero_counters():
 
 
 def _read_counters():
-    """{kernel: launches}; K4a / K4b count each route on its own: "mha_fwd_lse"
-    is the CUDA-core kernel, "mha_fwd_lse_tc" the tensor-core one."""
+    """{kernel: launches}; K2 and K4a / K4b / K7b count each route on its
+    own: "mha_fwd_lse" is the CUDA-core kernel, "mha_fwd_lse_tc" the
+    tensor-core one, "mha_flash_bwd_tc32" / "mha_flash_bwd_drop_tc32" the
+    3xTF32 one."""
     out = {}
     for k, fn in _counters().items():
         if hasattr(fn, "route_launches"):
-            out[k] = fn.route_launches["cuda_core"]
-            out[f"{k}_tc"] = fn.route_launches["tc"]
+            for route, n in fn.route_launches.items():
+                out[k if route == "cuda_core" else f"{k}_{route}"] = n
         else:
             out[k] = fn.launches
     return out
@@ -1850,9 +2082,11 @@ def compare_train_paths(model, cfg, stack, class_weights, results):
     return ok
 
 
-def profile_train_step(step, stack, key, reps=1, acc_steps=None):
+def profile_train_step(step, stack, key, reps=1, acc_steps=None,
+                       quiet=False):
     """torch.profiler over `reps` train steps: device time by kind of
-    kernel and the device's idle share of the window."""
+    kernel and the device's idle share of the window (printed unless
+    `quiet`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1881,6 +2115,8 @@ def profile_train_step(step, stack, key, reps=1, acc_steps=None):
            "idle_share": 1.0 - busy / (wall * 1e3 / reps),
            "device_ops_per_step": ops // reps,
            "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    if quiet:
+        return out
     print(f"  profile of one train step ({acc_steps or ACC_STEPS} "
           f"microbatches): device "
           f"{busy:.1f} ms, wall {out['wall_ms_per_step']:.1f} ms, idle share "
@@ -1899,7 +2135,9 @@ def check_train(device, results):
     0.0016 reg 0.03, class weights, augmentation at p=1.0, head dropout
     0.6. Three optimizer steps all trainable and one with the phase-1
     mask, launch counts per microbatch asserted; then the kernel path
-    against the plain path on one microbatch."""
+    against the plain path (``compare_train_paths``) on the seeded weights,
+    restored after the steps, so that the check does not depend on the
+    steps' nondeterministic convolution backward."""
     import torch
 
     from garbage_classification_rca_tpu_torch.cli.main_both import (
@@ -1928,6 +2166,10 @@ def check_train(device, results):
     stack = _train_stack(tok, ACC_STEPS, TRAIN_BATCH, SEED + 9, device)
     class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
     dtype = torch.bfloat16
+    # the seeded weights, which the kernel-vs-plain gradient check runs on
+    # (the steps below change them through cuDNN's nondeterministic
+    # backward atomics and every train-path kernel's rounding)
+    seeded = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     def batch_to_inputs(mb, key):
         x = augment_batch(mb["image"], 1.0, key.generator(device))
@@ -1993,13 +2235,15 @@ def check_train(device, results):
     model.cfg = cfg
     want = _want_launches(rca_fused=ACC_STEPS, rca_fused_bwd=ACC_STEPS,
                           mha_fwd_lse_drop=6 * ACC_STEPS,
-                          mha_flash_bwd_drop=6 * ACC_STEPS)
+                          mha_flash_bwd_drop_tc32=6 * ACC_STEPS)
     ok &= launches == want and loss_hf == loss_hf
     print(f"  one step with hf_internal_dropout: loss {loss_hf:.4f}, "
           f"launches { {k: v for k, v in launches.items() if v} } (want "
           f"{ {k: v for k, v in want.items() if v} }, every other 0)",
           flush=True)
     results["train_hf_dropout_launches"] = launches
+    model.load_state_dict(seeded)
+    del seeded
     ok &= compare_train_paths(model, cfg, stack, class_weights, results)
     del model, stack
     torch.cuda.empty_cache()
@@ -2615,9 +2859,9 @@ def check_text_train(device, results):
     class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
     key = Key(SEED + 70)
 
-    def stack_of(batch):
+    def stack_of(batch, seq=TEXT_SEQ):
         data = SyntheticEvalBatcher(1, batch, SEED + 71, tokenizer=tok,
-                                    seq_len=TEXT_SEQ)
+                                    seq_len=seq)
         return {k: torch.from_numpy(v)[None].to(device)
                 for k, v in data.batches[0].items()}
 
@@ -2647,7 +2891,8 @@ def check_text_train(device, results):
     float(step_off(stack, key.fold_in(101))[0])
     wall, losses, launches, peak = _timed_steps(
         (step_on, step_on, step_on, step_heads), stack, key, device)
-    want = _want_launches(mha_fwd_lse_drop=6 * 4, mha_flash_bwd_drop=6 * 4)
+    want = _want_launches(mha_fwd_lse_drop=6 * 4,
+                          mha_flash_bwd_drop_tc32=6 * 4)
     changed = {n: bool((p.detach() != before[n]).any())
                for n, p in model.named_parameters() if n in before}
     finite = all(l == l and abs(l) < float("inf") for l in losses)
@@ -2665,7 +2910,7 @@ def check_text_train(device, results):
         "losses": losses, "batch": TEXT_TRAIN_BATCH, "seq": TEXT_SEQ}
     wall, losses, launches, _ = _timed_steps((step_off,) * 4, stack, key,
                                              device)
-    want = _want_launches(mha_fwd_lse=6 * 4, mha_flash_bwd=6 * 4)
+    want = _want_launches(mha_fwd_lse=6 * 4, mha_flash_bwd_tc32=6 * 4)
     ok &= launches == want and all(l == l for l in losses)
     print(f"  distilbert, flag off: 4 steps in {wall:.3f} s: "
           f"{4 / wall:.2f} steps/s; launches {_shown(launches)} (want "
@@ -2676,6 +2921,21 @@ def check_text_train(device, results):
         step_on, stack, key.fold_in(200), reps=3, acc_steps=1)
     results["text_train"]["profile_flag_off"] = profile_train_step(
         step_off, stack, key.fold_in(201), reps=3, acc_steps=1)
+    # the step's device time on the 3xTF32 backward and on the CUDA-core
+    # backward, in this call, new-old-old-new
+    for flag, step in (("on", step_on), ("off", step_off)):
+        ab = {"tc32": [], "cuda_core": []}
+        for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
+            with backward_route(r):
+                ab[r].append(profile_train_step(
+                    step, stack, key.fold_in(210), reps=3, acc_steps=1,
+                    quiet=True)["device_ms_per_step"])
+        less = sum(ab["tc32"]) < sum(ab["cuda_core"])
+        results["text_train"][f"backward_ab_flag_{flag}"] = {
+            **ab, "tc32_less": less}
+        print(f"  distilbert, flag {flag}: device ms per step, new-old-old-"
+              f"new: 3xTF32 backward {ab['tc32']}, CUDA-core backward "
+              f"{ab['cuda_core']}; less on 3xTF32: {less}", flush=True)
     mb = {k: v[0] for k, v in stack.items()}
     good, row = compare_unimodal_paths(
         "distilbert microbatch with hf_internal_dropout", model,
@@ -2684,6 +2944,31 @@ def check_text_train(device, results):
         inputs(mb, None), mb, class_weights, Key(SEED + 73), True)
     ok &= good
     results["text_train"]["grad_check"] = row
+
+    # --seq_len=512 (config.py's exact-parity length): the backward past
+    # the 3xTF32 route's N, on the CUDA cores, with the flag and without
+    stack = stack_of(SEQ512_BATCH, 512)
+    for flag, step, want in (
+            ("on", step_on, _want_launches(mha_fwd_lse_drop=6,
+                                           mha_flash_bwd_drop=6)),
+            ("off", step_off, _want_launches(mha_fwd_lse=6,
+                                             mha_flash_bwd=6))):
+        _, losses, launches, _ = _timed_steps((step,), stack, key, device)
+        results[f"text_train_seq512_{flag}_launches"] = launches
+        good = launches == want and losses[0] == losses[0]
+        ok &= good
+        print(f"  distilbert at seq 512, batch {SEQ512_BATCH}, flag {flag}: "
+              f"loss {losses[0]:.4f}, launches {_shown(launches)} (want "
+              f"{_shown(want)}, every other 0) {'ok' if good else 'FAIL'}",
+              flush=True)
+    mb = {k: v[0] for k, v in stack.items()}
+    good, row = compare_unimodal_paths(
+        "distilbert microbatch at seq 512 with hf_internal_dropout", model,
+        functools.partial(model, drop_ratio=HEAD_DROPOUT,
+                          hf_internal_dropout=True),
+        inputs(mb, None), mb, class_weights, Key(SEED + 75), True)
+    ok &= good
+    results["text_train"]["grad_check_seq512"] = row
     del model, step_on, step_heads, step_off
     torch.cuda.empty_cache()
 
@@ -2693,7 +2978,7 @@ def check_text_train(device, results):
     stack = stack_of(BERT_TRAIN_BATCH)
     step = make(bert, True)
     wall, losses, launches, _ = _timed_steps((step,), stack, key, device)
-    want = _want_launches(mha_fwd_lse_drop=12, mha_flash_bwd_drop=12)
+    want = _want_launches(mha_fwd_lse_drop=12, mha_flash_bwd_drop_tc32=12)
     ok &= launches == want and losses[0] == losses[0]
     print(f"  bert, hf_internal_dropout: one step of {BERT_TRAIN_BATCH}: "
           f"loss {losses[0]:.4f}, launches {_shown(launches)} (want "
@@ -2830,13 +3115,13 @@ def check_train_clis(device, results):
         ("main_text", main_text, test_text,
          ["--text_model=distilbert", "--hf_internal_dropout", "--seq_len=64"],
          ["--text_model=distilbert", "--seq_len=64"], "distilbert",
-         {"mha_fwd_lse_drop": 48, "mha_flash_bwd_drop": 48,
+         {"mha_fwd_lse_drop": 48, "mha_flash_bwd_drop_tc32": 48,
           "postnorm_attn_block": 12, "postnorm_mlp_block": 12},
          {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
         ("main_image", main_image, test_image,
          ["--image_model=transformer_B16", "--prob_aug=1.0"],
          ["--image_model=transformer_B16"], "transformer_B16",
-         {"mha_fwd_lse_tc": 96, "mha_flash_bwd_tc": 96, "mha": 24},
+         {"mha_fwd_lse_tc": 96, "mha_flash_bwd_tc": 96, "mha_tc": 24},
          {"attn_block": 12, "mlp_block": 12}))
     try:
         _write_jpeg_tree(os.path.join(work, "garbage"), 64, 32, SEED + 90,
@@ -2878,13 +3163,56 @@ def check_train_clis(device, results):
                   f"CLI: accuracy {acc:.2f} %, launches "
                   f"{_shown(test_launches)} {'ok' if good else 'FAIL'}",
                   flush=True)
+            agr = best_file_agreement(tester, argv)
+            print(f"  its BEST file, bf16 kernel path against the plain "
+                  f"path and the fp32 model: {_agreement_line(agr)} "
+                  f"(recorded, not a gate)", flush=True)
             out[name] = {"train_s": train_s, "rows": rows, "test_acc": acc,
-                         "report": report, "ok": good}
+                         "report": report, "ok": good, "agreement": agr}
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     results["train_clis"] = out
     return all(v["ok"] for v in out.values())
+
+
+def best_file_agreement(tester, argv):
+    """The bf16 eval check of ``argmax_check`` on a trainer's BEST file
+    (weights with trained margins, where the random-weight models of
+    phases 6 and 7 have near ties): the test CLI's ``evaluate()`` three
+    times, the model's logits caught by a forward hook: bf16 on the
+    kernels, bf16 on the plain versions, fp32 (TF32 off) on the plain
+    versions. Returns argmax_check's numbers, among them the agreement over
+    every sample beside the one above the noise floor."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    load = tester.load_unimodal_model
+
+    def logits(extra):
+        caught = []
+
+        def hooked(*a, **kw):
+            model = load(*a, **kw)
+            model.register_forward_hook(lambda mod, inp, out: caught.append(
+                (out if torch.is_tensor(out) else out[0]).detach().float()))
+            return model
+
+        tester.load_unimodal_model = hooked
+        try:
+            tester.evaluate(args_parser(argv + extra))
+        finally:
+            tester.load_unimodal_model = load
+        return torch.cat(caught)
+
+    lk = logits(["--compute_dtype=bfloat16"])
+    with plain_versions():
+        lp = logits(["--compute_dtype=bfloat16"])
+        torch.backends.cudnn.allow_tf32 = False
+        truth = logits(["--compute_dtype=float32"])
+        torch.backends.cudnn.allow_tf32 = True
+    return argmax_check(lk, lp, truth)[1]
 
 
 def ptxas_report(log: str):
@@ -2907,9 +3235,18 @@ def ptxas_report(log: str):
                        "ResidualEpi1": "GEMM2 post-norm"}[g[2] + g[3]]
                 entry = f"gemm_kernel<{g[1]}> ({epi})"
             elif re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name):
-                f = re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name)
-                # the flash pair's tensor-core kernels
-                entry = f"{f[1]}<masked={f[2]}, causal={f[3]}> (tc)"
+                f = re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E"
+                              r"(?:Lb(\d)E)?", name)
+                # the tensor-core forward (lse=1: K4a, 0: K2) and K4b
+                lse = f", lse={f[4]}" if f[4] else ""
+                entry = f"{f[1]}<masked={f[2]}, causal={f[3]}{lse}> (tc)"
+            elif re.search(r"4tc32\d+(\w+?_kernel)ILb(\d)ELb(\d)ELb(\d)E",
+                           name):
+                f = re.search(r"4tc32\d+(\w+?_kernel)ILb(\d)ELb(\d)ELb"
+                              r"(\d)E", name)
+                # the fp32 backward on 3xTF32 (K4b, K7b with drop=1)
+                entry = (f"{f[1]}<masked={f[2]}, causal={f[3]}, "
+                         f"drop={f[4]}> (tc32)")
             else:  # the mangled <length><identifier> that ends in _kernel
                 cands = (name[i:i + int(name[j:i])]
                          for i in range(1, len(name))
@@ -3013,27 +3350,37 @@ def main() -> int:
         if not ok:
             return _fail(f"{title}: check failed")
     # launches on each kernel's own main path: the MM-RCA eval path for K1 /
-    # K2, its train path for K3 / K4a / K4b (K1 runs on both), the text
-    # eval path for K5a / K5b, the image eval path for K6a / K6b, the text
-    # train path (hf_internal_dropout) for K7a / K7b
+    # K2 (the tensor cores; the CUDA cores at --seq_len=512), its train path
+    # for K3 / K4a / K4b (K1 runs on both; K4b on 3xTF32, the CUDA-core K4b
+    # in the text trainer at seq 512 without dropout), the text eval path
+    # for K5a / K5b, the image eval path for K6a / K6b, the text train path
+    # (hf_internal_dropout) for K7a / K7b (3xTF32; the CUDA-core K7b at seq
+    # 512), the image train path for the bf16 tensor-core K4a / K4b
     by_path = {"eval": results["launches"], "train": results["train_launches"],
+               "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
                "image_eval": results["image_eval_launches"],
                "text_train": results["text_train_launches"],
                "text_train_flag_off":
                    results["text_train_flag_off_launches"],
+               "text_train_seq512": results["text_train_seq512_on_launches"],
+               "text_train_seq512_flag_off":
+                   results["text_train_seq512_off_launches"],
                "image_train": results["image_train_launches"],
                "train_hf_dropout": results["train_hf_dropout_launches"]}
     kernels = []
-    for key, path in (("rca_fused", "eval"), ("mha", "eval"),
+    for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
+                      ("mha", "eval_seq512"),
                       ("rca_fused_bwd", "train"), ("mha_fwd_lse", "train"),
-                      ("mha_flash_bwd", "train"),
+                      ("mha_flash_bwd_tc32", "train"),
+                      ("mha_flash_bwd", "text_train_seq512_flag_off"),
                       ("postnorm_attn_block", "text_eval"),
                       ("postnorm_mlp_block", "text_eval"),
                       ("attn_block", "image_eval"),
                       ("mlp_block", "image_eval"),
                       ("mha_fwd_lse_drop", "text_train"),
-                      ("mha_flash_bwd_drop", "text_train"),
+                      ("mha_flash_bwd_drop_tc32", "text_train"),
+                      ("mha_flash_bwd_drop", "text_train_seq512"),
                       ("mha_fwd_lse_tc", "image_train"),
                       ("mha_flash_bwd_tc", "image_train")):
         row = dict(report[key])

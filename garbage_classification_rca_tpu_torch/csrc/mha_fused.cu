@@ -26,9 +26,10 @@
 // stored scores (not online), which is what lets the weights be rounded
 // exactly as the reference rounds them. In these kernels the products run
 // on the fp32 CUDA cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles:
-// they serve mha_forward (K2), fp32, head dims 32 / 128, N > 256 and the
-// dropout pair. The training pair in bf16 at head dim 64 and N <= 256 (the
-// ViT-B/16 trainer's attention) has a tensor-core route of its own,
+// they serve fp32, head dims 32 / 128, N > 256 and the dropout forward. In
+// bf16 at head dim 64 and N <= 256 (the MM-RCA eval's DistilBERT, the ViT
+// val eval and the ViT-B/16 trainer) the eval forward and the training pair
+// have a tensor-core route of their own, mha_forward_tc /
 // mha_forward_lse_tc / mha_flash_backward_tc (namespace ftc below), which
 // kernels/mha_fused.py::flash_plan picks.
 
@@ -47,7 +48,9 @@
 // across blocks, so no atomics and the same gradients on every run. Bound,
 // as for the forward: device-memory bytes at the DistilBERT shapes; the
 // products run on the fp32 CUDA cores (the bf16 / head dim 64 / N <= 256
-// case goes to ftc's tensor-core kernels instead).
+// case goes to ftc's tensor-core kernels instead, and the fp32 / head dim
+// 64 / N <= 64 case, with or without dropout, to the fused 3xTF32 kernel
+// of namespace tc32, mha_flash_backward_tc32).
 //
 // mha_forward_lse_drop / mha_flash_backward_drop replace
 // ::_mha_fwd_lse_drop (body `_fwd_lse_drop_kernel`) and
@@ -869,8 +872,13 @@ __device__ __forceinline__ float key_bias_of(const int* mask, size_t b,
 // MASKED / CAUSAL: the call has a key mask / is causal. The elementwise
 // work per score is what bounds these kernels beside the loads, so a call
 // without them runs none of their instructions, and only the slab holding
-// the last keys checks for pad keys.
-template <bool MASKED, bool CAUSAL>
+// the last keys checks for pad keys. LSE: the training forward (K4a), which
+// stores lse; without it the eval forward (K2). Both normalise by w = e *
+// (1 / sum): an exact division (e / sum, as the reference) cost the eval
+// forward 29% at 128 x 197 x 768 and moved no output past the bf16 bar
+// that the reciprocal does not (PERF.md §6); S summed in another order
+// than the reference's is what rounds the odd weight the other way.
+template <bool MASKED, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
     fwd_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -1001,7 +1009,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
             __floats2bfloat162_rn(acc[4 * j + 2 * hh],
                                   acc[4 * j + 2 * hh + 1]);
-      if ((lane & 3) == 0)
+      if (LSE && (lane & 3) == 0)
         lse[(static_cast<size_t>(b) * H + h) * N + qi] =
             mx[hh] + logf(sum[hh]);
     }
@@ -1317,10 +1325,15 @@ cudaError_t forward(const void* q, const void* k, const void* v,
   cudaError_t err = tc::make_map_3d(&mq, q, B, N, D, T);
   if (err == cudaSuccess) err = tc::make_map_3d(&mk, k, B, N, D, T);
   if (err == cudaSuccess) err = tc::make_map_3d(&mv, v, B, N, D, T);
-  auto kern = mask ? (causal ? fwd_kernel<true, true>
-                             : fwd_kernel<true, false>)
-                   : (causal ? fwd_kernel<false, true>
-                             : fwd_kernel<false, false>);
+  // lse null: the eval forward (K2)
+  auto kern = lse ? (mask ? (causal ? fwd_kernel<true, true, true>
+                                    : fwd_kernel<true, false, true>)
+                          : (causal ? fwd_kernel<false, true, true>
+                                    : fwd_kernel<false, false, true>))
+                  : (mask ? (causal ? fwd_kernel<true, true, false>
+                                    : fwd_kernel<true, false, false>)
+                          : (causal ? fwd_kernel<false, true, false>
+                                    : fwd_kernel<false, false, false>));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1376,6 +1389,405 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 }
 
 }  // namespace ftc
+
+// ---------------------------------------------------------------------------
+// the fp32 flash backward on the tensor cores: 3xTF32, head dim 64, N <= 64
+// ---------------------------------------------------------------------------
+//
+// mha_flash_backward_tc32 computes what mha_flash_backward (dm null) and
+// mha_flash_backward_drop compute in fp32 at head dim 64 and N <= 64 (the
+// DistilBERT attention of the text and MM-RCA trainers, with and without
+// --hf_internal_dropout), in one kernel where the CUDA-core route takes two.
+// One block per (head, sample) holds the whole head in shared memory: Q, K,
+// V and dO (64 x 64 fp32 each), its N x N keep-mask bytes (read once, along
+// the rows), lse and Delta = rowsum(dO O). Each of its eight warps owns 16
+// query rows and 32 of the keys: S = Q K^T and dP = dO V^T, then per score
+// W = exp(S - lse), the weights after dropout wld = dm ? W / keep : 0, dW =
+// dm ? dP / keep : 0 and dS = W (dW - Delta) (the CUDA-core kernels'
+// rounding points; fp32 throughout), then its part of dQ = dS K * scale
+// from dS still in registers; the two warps of a row slab add their parts
+// through the freed V tile, in a fixed order. wld and dS go to shared
+// memory; after a block barrier each warp owns 16 keys and 32 columns: dV =
+// wld^T dO and dK = dS^T Q * scale. Five N x N x 64 products where the two
+// CUDA-core kernels take seven, the mask read once, nothing summed across
+// blocks: no atomics, the same bits on every run. Eight warps, not four:
+// the products are chains of dependent mma.sync, so the SM needs warps in
+// flight to hide their latency (two 107 KB blocks, 16 warps, an SM).
+//
+// Products: mma.sync m16n8k8 tf32 with fp32 sums. Each fp32 operand x is
+// split as hi = tf32(x), lo = tf32(x - hi) (cvt.rna) and the product taken
+// as lo.hi + hi.lo + hi.hi ("3xTF32", CUTLASS's fast fp32 multiply-add):
+// about 2^-21 relative per product, inside the fp32 backward bar 5e-5
+// (1 + |x|). Not wgmma: it reads tf32 operands from shared memory K-major
+// only, and four of the five products (dQ, dV, dK: K, wld, dS, dO and Q)
+// read an operand whose depth runs down the tile's rows. With mma.sync each
+// fragment is loaded from a tile of row stride 68 floats (= 4 mod 32) in
+// the orientation its product needs, free of bank conflicts: along a row for
+// S and dP ((row g, column t): banks 4g + t) and down the rows for the
+// other three, with the depth index permuted inside each group of 8 (k = t
+// reads row 2t, k = t + 4 row 2t + 1: banks 8t + g and 8t + 4 + g). The
+// same permutation makes the accumulator of S's n8 tile j the A fragment of
+// dQ's k8 step j. Rows and keys past N are zeros in the tiles and are set
+// to zero in wld and dS, so every product runs over the full 64.
+// What bounds it: bytes. At 128 x 64 x 768 with the mask 208 MB move
+// (0.062 ms at 3.35 TB/s), against 12.1 GFLOP of tf32 products (0.025 ms
+// at 495 TFLOP/s); with two blocks an SM, one block's loads run beside
+// the other's products.
+
+namespace tc32 {
+
+constexpr int DH = 64;        // head dim
+constexpr int MAX_N = 64;     // the whole head in one block
+constexpr int THREADS = 256;  // eight warps: four 16-row slabs x two
+                              // 32-column halves
+constexpr int LD = 68;        // row stride of the fp32 tiles, in floats
+constexpr int DMS = 68;       // row stride of the keep-mask tile, in bytes
+// dynamic shared memory: Q, K, V, dO, wld and dS ([64][LD] fp32 each),
+// lse, Delta and the key bias ([64] fp32 each), the keep mask ([64][DMS]
+// bytes); kept equal to the plan's in kernels/mha_fused.py::flash_plan
+constexpr int SMEM = 6 * MAX_N * LD * 4 + 3 * MAX_N * 4 + MAX_N * DMS;
+
+// a / b rounded to nearest from rb = 1 / b (rounded to nearest): a * rb,
+// then two Markstein corrections q + (a - q b) rb, each one exact residual
+// and one rounding. For the finite, normal operands here it gives the bits
+// of IEEE division without its branch to a slow path, which took 10% of
+// a first version's time (0.391 -> 0.350 ms at 128 x 64 x 768, p 0.1).
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  float q = a * rb;
+  q = fmaf(fmaf(-q, b, a), rb, q);
+  return fmaf(fmaf(-q, b, a), rb, q);
+}
+
+struct Frag4 {  // an A fragment split in two tf32 halves
+  uint32_t hi[4], lo[4];
+};
+struct Frag2 {  // a B fragment
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+__device__ __forceinline__ Frag4 split4(float a0, float a1, float a2,
+                                        float a3) {
+  Frag4 f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ Frag2 split2(float b0, float b1) {
+  Frag2 f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// D[16, 8] += A[16, 8] . B[8, 8] in tf32, fp32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag4& a,
+                                     const Frag2& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   tc::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// MASKED / CAUSAL: a key mask / causal; DROP: the keep mask dm
+template <bool MASKED, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(THREADS, 2)
+    bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ o,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const int* __restrict__ mask, const uint8_t* __restrict__ dm,
+               float* __restrict__ dq, float* __restrict__ dk,
+               float* __restrict__ dv, int N, int D, float scale,
+               float keep) {
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [64][LD] each
+  float* Ks = Qs + MAX_N * LD;
+  float* Vs = Ks + MAX_N * LD;
+  float* dOs = Vs + MAX_N * LD;
+  float* Ws = dOs + MAX_N * LD;   // [query][key] wld
+  float* dSs = Ws + MAX_N * LD;   // [query][key] dS
+  float* Ls = dSs + MAX_N * LD;   // [64] lse
+  float* Dl = Ls + MAX_N;         // [64] Delta
+  float* kb = Dl + MAX_N;         // [64] the key bias
+  uint8_t* DM = reinterpret_cast<uint8_t*>(kb + MAX_N);  // [64][DMS]
+
+  const int h = blockIdx.x, H = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's 16-row slab and its half of the 64 columns
+  const int m0 = 16 * (warp & 3), half = warp >> 2, c0 = 32 * half;
+  const size_t base = static_cast<size_t>(b) * N * D + h * DH;
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+
+  // Q, K, V and dO of the head, 16 bytes a copy; rows past N are zeros
+  for (int e = tid; e < 4 * MAX_N * 16; e += THREADS) {
+    const int x = e >> 10, r = (e >> 4) & (MAX_N - 1), c = 4 * (e & 15);
+    float* dst = Qs + x * MAX_N * LD + r * LD + c;
+    if (r < N) {
+      const float* src = x == 0 ? q : x == 1 ? k : x == 2 ? v : dout;
+      cp_async16(dst, src + base + static_cast<size_t>(r) * D + c);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int j = tid; j < MAX_N; j += THREADS) {
+    Ls[j] = j < N ? lse[rbase + j] : 0.f;
+    kb[j] = MASKED && j < N
+                ? (static_cast<float>(mask[static_cast<size_t>(b) * N + j]) -
+                   1.f) * 1e30f
+                : 0.f;
+  }
+  if constexpr (DROP) {
+    // the head's N x N mask bytes, once, along the rows
+    const uint8_t* src = dm + rbase * N;
+    if ((N & 3) == 0 && (reinterpret_cast<uintptr_t>(dm) & 3) == 0) {
+      const int words = N >> 2;
+      for (int e = tid; e < N * words; e += THREADS) {
+        const int r = e / words, c = e - r * words;
+        *reinterpret_cast<uint32_t*>(DM + r * DMS + 4 * c) =
+            reinterpret_cast<const uint32_t*>(src +
+                                              static_cast<size_t>(r) * N)[c];
+      }
+    } else {
+      for (int e = tid; e < N * N; e += THREADS) {
+        const int r = e / N;
+        DM[r * DMS + e - r * N] = src[e];
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp < 4) {
+    // Delta = rowsum(dO O) in fp32: lane l of warp w sums half l / 16 of
+    // row 16 w + l % 16
+    const int r = m0 + (lane & 15), cd = 32 * (lane >> 4);
+    float acc = 0.f;
+    if (r < N) {
+      const float4* orow = reinterpret_cast<const float4*>(
+          o + base + static_cast<size_t>(r) * D + cd);
+      const float4* drow = reinterpret_cast<const float4*>(dOs + r * LD + cd);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 x = __ldg(orow + i), y = drow[i];
+        acc = fmaf(y.x, x.x, acc);
+        acc = fmaf(y.y, x.y, acc);
+        acc = fmaf(y.z, x.z, acc);
+        acc = fmaf(y.w, x.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    if (lane < 16) Dl[r] = acc;
+  }
+  __syncthreads();
+
+  // S = Q K^T and dP = dO V^T: this warp's 16 query rows, its 32 keys
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float* qa = Qs + (m0 + g) * LD + 8 * kk + t;
+    const float* oa = dOs + (m0 + g) * LD + 8 * kk + t;
+    const Frag4 aq = split4(qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]);
+    const Frag4 ao = split4(oa[0], oa[8 * LD], oa[4], oa[8 * LD + 4]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* kr = Ks + (c0 + 8 * j + g) * LD + 8 * kk + t;
+      const float* vr = Vs + (c0 + 8 * j + g) * LD + 8 * kk + t;
+      mma3(s[j], aq, split2(kr[0], kr[4]));
+      mma3(dp[j], ao, split2(vr[0], vr[4]));
+    }
+  }
+
+  // W, wld and dS per score (accumulator element e of tile j: row
+  // m0 + g + 8 (e / 2), key c0 + 8 j + 2 t + e % 2); dS stays in s
+  const float L[2] = {Ls[m0 + g], Ls[m0 + g + 8]};
+  const float Dd[2] = {Dl[m0 + g], Dl[m0 + g + 8]};
+  const float rkeep = 1.f / keep;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + g + 8 * hh, key = c0 + 8 * j + 2 * t;
+      uint32_t kept = 0x0101u;
+      if constexpr (DROP)
+        kept = *reinterpret_cast<const uint16_t*>(DM + row * DMS + key);
+      float wd[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float sv = s[j][2 * hh + e] * scale;
+        if (MASKED) sv += kb[key + e];
+        if (CAUSAL && key + e > row) sv = NEG;
+        const float w = expf(sv - L[hh]);
+        float x = w, dw = dp[j][2 * hh + e];
+        if constexpr (DROP) {
+          const bool on = (kept >> (8 * e)) & 0xffu;
+          x = on ? div_rn(w, keep, rkeep) : 0.f;
+          dw = on ? div_rn(dw, keep, rkeep) : 0.f;
+        }
+        float y = w * (dw - Dd[hh]);
+        if (row >= N || key + e >= N) x = y = 0.f;
+        wd[e] = x;
+        ds[e] = y;
+        s[j][2 * hh + e] = y;
+      }
+      *reinterpret_cast<float2*>(Ws + row * LD + key) =
+          make_float2(wd[0], wd[1]);
+      *reinterpret_cast<float2*>(dSs + row * LD + key) =
+          make_float2(ds[0], ds[1]);
+    }
+  }
+
+  // dQ over this warp's 32 keys, all 64 columns, dS from the registers
+  // (k = t: key c0 + 8 kk + 2 t); the two halves' sums meet below
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const Frag4 a = split4(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+    const float* kr = Ks + (c0 + 8 * kk + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mma3(acc[n], a, split2(kr[8 * n], kr[LD + 8 * n]));
+  }
+  __syncthreads();  // V is free, and every warp's wld and dS are in place
+  // the other half's columns of this warp's sum go through V's tile
+  float* P = Vs;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if ((n >> 2) == half) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(P + (m0 + g + 8 * hh) * LD + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+  }
+  __syncthreads();
+  // dQ = (both halves' sums) * scale, this warp's 32 columns
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + g + 8 * hh;
+    if (row >= N) continue;
+    float* out = dq + base + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if ((n >> 2) != half) continue;
+      const float2 y = *reinterpret_cast<const float2*>(P + row * LD +
+                                                        8 * n + 2 * t);
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2((acc[n][2 * hh] + y.x) * scale,
+                      (acc[n][2 * hh + 1] + y.y) * scale);
+    }
+  }
+
+  // dV = wld^T dO and dK = dS^T Q * scale: this warp's 16 keys, its 32
+  // columns, over all 64 queries
+  float av[4][4], ak[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[n][e] = ak[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int r = (8 * kk + 2 * t) * LD;  // query 8 kk + 2 t
+    const float* wr = Ws + r + m0 + g;
+    const float* sr = dSs + r + m0 + g;
+    const Frag4 aw = split4(wr[0], wr[8], wr[LD], wr[LD + 8]);
+    const Frag4 as = split4(sr[0], sr[8], sr[LD], sr[LD + 8]);
+    const float* orr = dOs + r + c0 + g;
+    const float* qr = Qs + r + c0 + g;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      mma3(av[n], aw, split2(orr[8 * n], orr[LD + 8 * n]));
+      mma3(ak[n], as, split2(qr[8 * n], qr[LD + 8 * n]));
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = m0 + g + 8 * hh;
+    if (key >= N) continue;
+    const size_t a = base + static_cast<size_t>(key) * D + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      *reinterpret_cast<float2*>(dv + a + 8 * n) =
+          make_float2(av[n][2 * hh], av[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dk + a + 8 * n) = make_float2(
+          ak[n][2 * hh] * scale, ak[n][2 * hh + 1] * scale);
+    }
+  }
+}
+
+// The plan of kernels/mha_fused.py::flash_plan's "tc32" backward (one block
+// per (head, sample), SMEM bytes), checked against what the kernel takes.
+cudaError_t backward(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     const int* mask, const uint8_t* dm, void* dq, void* dk,
+                     void* dv, int B, int N, int D, int heads, float scale,
+                     int causal, float keep, dim3 grid, int smem,
+                     cudaStream_t stream) {
+  if (B <= 0 || heads <= 0 || D != heads * DH || N < 1 || N > MAX_N ||
+      grid.x != unsigned(heads) || grid.y != unsigned(B) || grid.z != 1 ||
+      smem != SMEM || (dm && !(keep > 0.f)) ||
+      !ftc::aligned16({q, k, v, o, dout, dq, dk, dv}))
+    return cudaErrorInvalidValue;
+  using Kern = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, const float*, const int*,
+                        const uint8_t*, float*, float*, float*, int, int,
+                        float, float);
+  Kern kern;
+  if (dm)
+    kern = mask ? (causal ? bwd_kernel<true, true, true>
+                          : bwd_kernel<true, false, true>)
+                : (causal ? bwd_kernel<false, true, true>
+                          : bwd_kernel<false, false, true>);
+  else
+    kern = mask ? (causal ? bwd_kernel<true, true, false>
+                          : bwd_kernel<true, false, false>)
+                : (causal ? bwd_kernel<false, true, false>
+                          : bwd_kernel<false, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), lse, mask, dm,
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), N, D, scale, keep);
+  return cudaGetLastError();
+}
+
+}  // namespace tc32
 
 }  // namespace
 
@@ -1471,6 +1883,7 @@ extern "C" int mha_forward_lse_tc(const void* q, const void* k,
                                   float scale, int causal, int np, int gx,
                                   int gy, int gz, int smem, void* stream) {
   if (B <= 0) return 0;
+  if (!lse) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ftc::forward(
       q, k, v, static_cast<const int*>(mask), o, static_cast<float*>(lse), B,
       N, D, heads, scale, causal, np, dim3(gx, gy, gz), smem,
@@ -1492,4 +1905,41 @@ extern "C" int mha_flash_backward_tc(
       static_cast<const int*>(mask), dq, dk, dv, static_cast<float*>(delta),
       B, N, D, heads, scale, causal, np, dim3(gqx, gqy, gqz), smem_q,
       dim3(gkx, gky, gkz), smem_kv, static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core route of mha_forward (K2; bf16, head dim 64, 1 <= N <=
+// 256): the forward part of kernels/mha_fused.py::flash_plan (np, grid =
+// (heads, B, 1), its dynamic shared memory) as it is, refused
+// (cudaErrorInvalidValue) if it is not the plan of this shape; the same
+// kernel as mha_forward_lse_tc without the lse store.
+extern "C" int mha_forward_tc(const void* q, const void* k, const void* v,
+                              const void* mask, void* o, int B, int N, int D,
+                              int heads, float scale, int causal, int np,
+                              int gx, int gy, int gz, int smem,
+                              void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(ftc::forward(
+      q, k, v, static_cast<const int*>(mask), o, nullptr, B, N, D, heads,
+      scale, causal, np, dim3(gx, gy, gz), smem,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The fp32 flash backward on the tensor cores (3xTF32; head dim 64, 1 <= N
+// <= 64), of mha_forward_lse (dm null) or of mha_forward_lse_drop (dm the
+// same keep mask, keep = 1 - p > 0): one fused kernel on grid = (heads, B,
+// 1) with `smem` bytes, the "tc32" backward of
+// kernels/mha_fused.py::flash_plan as it is, refused (cudaErrorInvalidValue)
+// for another plan; q / k / v / o / dout / dq / dk / dv float32, 16-byte
+// aligned.
+extern "C" int mha_flash_backward_tc32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* mask, const void* dm,
+    void* dq, void* dk, void* dv, int B, int N, int D, int heads, float scale,
+    int causal, float keep, int gx, int gy, int gz, int smem, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(tc32::backward(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<const int*>(mask), static_cast<const uint8_t*>(dm), dq, dk,
+      dv, B, N, D, heads, scale, causal, keep, dim3(gx, gy, gz), smem,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -26,20 +26,23 @@ Replaces, in ``garbage_classification_rca_tpu/kernels/mha_fused.py``:
 ``csrc/mha_fused.cu`` explains what bounds the kernels on the H100 and how
 their design answers that.
 
-The training pair takes one of two routes on the card, chosen by the
-host-side plan ``flash_plan``: bf16 at head dim 64 and N <= 256 on the
-tensor cores ("tc": wgmma products fed by TMA, the exact two-pass softmax
-in registers), every other shape on the fp32 CUDA-core kernels
-("cuda_core"). A failure of either route raises; neither gives way to the
-other. ``launch_fwd_lse`` / ``launch_flash_bwd`` run a given plan (the A/B
-timing of the two routes).
+Each call takes a route on the card, chosen by the host-side plan
+``flash_plan``: the forwards (``mha``, ``mha_fwd_lse``) in bf16 at head dim
+64 and N <= 256 on the tensor cores ("tc": wgmma products fed by TMA, the
+exact two-pass softmax in registers), and so the plain backward; the fp32
+backward at head dim 64 and N <= 64, with or without dropout, in one fused
+kernel on 3xTF32 tensor-core products ("tc32"); every other shape, and the
+dropout forward, on the fp32 CUDA-core kernels ("cuda_core"). A failure of
+any route raises; none gives way to another. ``launch_mha`` /
+``launch_fwd_lse`` / ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run
+a given plan (the A/B timing of the routes).
 
 The wrappers run the plain versions for tensors on the CPU and the kernels
 for tensors on a CUDA device; ``mha.launches``, ``mha_fwd_lse.launches``,
 ``mha_flash_bwd.launches``, ``mha_fwd_lse_drop.launches`` and
-``mha_flash_bwd_drop.launches`` count kernel launches, and
-``mha_fwd_lse.route_launches`` / ``mha_flash_bwd.route_launches`` count
-them by route.
+``mha_flash_bwd_drop.launches`` count kernel launches, and the
+``route_launches`` of ``mha``, ``mha_fwd_lse``, ``mha_flash_bwd`` and
+``mha_flash_bwd_drop`` count them by route.
 """
 
 from __future__ import annotations
@@ -59,6 +62,13 @@ TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
 TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
 TC_TILE = 64         # registers)
 _TC_BOX = TC_TILE * TC_HEAD_DIM * 2   # one 64 x 64 bf16 tile in shared memory
+TC32_HEAD_DIM = 64   # the fp32 backward's tensor-core route (3xTF32): head
+TC32_MAX_N = 64      # dim 64, N <= 64, the whole head in one block
+_TC32_LD = 68        # its tiles' row stride (floats; the mask's, bytes)
+# csrc/mha_fused.cu tc32::SMEM: Q, K, V, dO, wld and dS tiles, lse / Delta /
+# key bias, the keep-mask bytes
+TC32_SMEM = (6 * TC32_MAX_N * _TC32_LD * 4 + 3 * TC32_MAX_N * 4
+             + TC32_MAX_N * _TC32_LD)
 
 
 def _heads(a, heads):
@@ -167,66 +177,103 @@ def _kernel_args(tensors, b, d, heads):
 
 
 def mha(q, k, v, *, heads: int, scale: float = 0.0,
-        mask: Optional[torch.Tensor] = None,
-        causal: bool = False) -> torch.Tensor:
+        mask: Optional[torch.Tensor] = None, causal: bool = False,
+        route: Optional[str] = None) -> torch.Tensor:
     """q/k/v: [B, N, D]; mask: optional int32 [B, N] key validity
-    (1 = attendable). Returns [B, N, D] in q's dtype."""
+    (1 = attendable). Returns [B, N, D] in q's dtype. On the card it runs
+    ``flash_plan``'s forward route ("tc" for bf16 at head dim 64 and
+    N <= 256, else "cuda_core"); `route` asks for one (the A/B)."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, heads=heads, scale=scale, mask=mask,
                              causal=causal)
+    return launch_mha(flash_plan(q.shape, heads, q.dtype, route=route), q,
+                      k, v, heads=heads, scale=scale, mask=mask,
+                      causal=causal)
+
+
+def launch_mha(plan: "FlashPlan", q, k, v, *, heads: int, scale: float = 0.0,
+               mask: Optional[torch.Tensor] = None,
+               causal: bool = False) -> torch.Tensor:
+    """``mha`` on CUDA tensors under the forward route of `plan`
+    (``flash_plan`` of this shape)."""
+    _check(q, k, v, heads, mask)
     b, n, d = q.shape
     _kernel_args([q, k, v, mask], b, d, heads)
-    scale = _scale(d, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError("launch_mha takes CUDA tensors")
     from . import _build
 
-    fn = _build.library("mha_fused").mha_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.library("mha_fused")
     o = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask.data_ptr() if mask is not None else None, o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr() if mask is not None else None, o.data_ptr(),
-                 b, n, d, heads, float(scale), int(bool(causal)),
-                 _DTYPES[q.dtype], stream)
+        if plan.route == "tc":
+            _tc_aligned("mha", (q, k, v))
+            fn = lib.mha_forward_tc
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), plan.np, *plan.grid_fwd,
+                     plan.smem_fwd, stream)
+        else:
+            fn = lib.mha_forward
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                     int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
-    mha.launches += 1
+        raise RuntimeError(f"mha kernel launch failed ({plan.route} route): "
+                           f"CUDA error {err}")
+    _count(mha, plan.route)
     return o
 
 
 mha.launches = 0
+mha.route_launches = {"tc": 0, "cuda_core": 0}
 
 
 @dataclass(frozen=True)
 class FlashPlan:
-    """How one call of the flash pair (``mha_fwd_lse`` / ``mha_flash_bwd``)
-    runs on the card. `route`: "tc" (bf16, head dim 64, N <= 256: wgmma
+    """How one attention call (``mha``, the flash pair ``mha_fwd_lse`` /
+    ``mha_flash_bwd``, the dropout pair's backward) runs on the card.
+    `route`: the forward's, "tc" (bf16, head dim 64, N <= 256: wgmma
     products fed by TMA, ``csrc/mha_fused.cu`` namespace ``ftc``) or
-    "cuda_core" (every other shape the pair takes: the fp32 CUDA-core
-    kernels). `np`: the keys the forward's score product covers (N rounded
-    up to 16 on "tc", N on "cuda_core"). Grids (x, y, z) and dynamic shared
-    memory in bytes of the forward, the dQ kernel and the dK / dV kernel.
-    The C entry of the "tc" route launches exactly this plan and refuses
+    "cuda_core" (every other shape: the fp32 CUDA-core kernels).
+    `bwd_route`: the backward's, "tc" (as the forward), "tc32" (fp32, head
+    dim 64, N <= 64, with or without dropout: one fused kernel on 3xTF32
+    products, namespace ``tc32``) or "cuda_core". `np`: the keys the
+    tensor-core score products cover (N rounded up to 16 where a route is
+    "tc", else N). Grids (x, y, z) and dynamic shared memory in bytes of the
+    forward, and of the backward's dQ kernel and dK / dV kernel; the "tc32"
+    backward is one kernel, on grid_dq with smem_dq (grid_dkdv empty). The
+    C entries of the tensor-core routes launch exactly this plan and refuse
     any other; the "cuda_core" entries compute the same grids themselves."""
     route: str
     np: int
     grid_fwd: Tuple[int, int, int]
     smem_fwd: int
+    bwd_route: str
     grid_dq: Tuple[int, int, int]
     smem_dq: int
     grid_dkdv: Tuple[int, int, int]
     smem_dkdv: int
 
 
-def flash_plan(shape, heads: int, dtype, route: Optional[str] = None
-               ) -> FlashPlan:
-    """The launch plan of the flash pair for q / k / v of `shape` [B, N, D]
-    with `heads` heads: "tc" where it takes the shape, else "cuda_core".
-    `route` asks for one route (the A/B timing of the two); a route that
-    does not take the shape raises."""
+def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
+               bwd_route: Optional[str] = None,
+               dropout: bool = False) -> FlashPlan:
+    """The launch plan of an attention call on q / k / v of `shape`
+    [B, N, D] with `heads` heads (`dropout`: the dropout pair, whose
+    forward has no tensor-core route): each side on the tensor cores where
+    a route takes the shape, else "cuda_core". `route` asks for the
+    forward's route and, unless `bwd_route` is given too, the backward's
+    (the A/B timing of the routes); a route that does not take the shape
+    raises."""
     b, n, d = shape
     if dtype not in _DTYPES:
         raise TypeError(f"the flash pair takes float32 / bfloat16, got "
@@ -237,41 +284,60 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None
     if n < 1:
         raise ValueError(f"the flash pair takes N >= 1, got {n}")
     dh = d // heads
-    tc_fits = (dtype == torch.bfloat16 and dh == TC_HEAD_DIM
-               and n <= TC_MAX_N)
+    tc_fits = (not dropout and dtype == torch.bfloat16
+               and dh == TC_HEAD_DIM and n <= TC_MAX_N)
+    tc32_fits = (dtype == torch.float32 and dh == TC32_HEAD_DIM
+                 and n <= TC32_MAX_N)
+    if route is not None and bwd_route is None:
+        bwd_route = route
     route = route or ("tc" if tc_fits else "cuda_core")
-    if route == "tc":
-        if not tc_fits:
-            raise ValueError(f"the tensor-core route takes bfloat16, head "
-                             f"dim {TC_HEAD_DIM}, N <= {TC_MAX_N}; got "
-                             f"{tuple(shape)} with {heads} heads in {dtype}")
-        nt = -(-n // TC_TILE)
-        grid = (heads, b, 1)          # every kernel: a block per head
-        # the formulas of ftc::fwd_smem / dq_smem / dkdv_smem: the tiles a
-        # block keeps (K, V and Q; one side of the head and two stages of
-        # the other), per-key / per-query floats, mbarriers, + 1 KB for the
-        # 128-byte swizzle's alignment
-        return FlashPlan(
-            "tc", -(-n // 16) * 16,
-            grid, 3 * nt * _TC_BOX + TC_MAX_N * 4 + 2 * 8 + 1024,
-            grid, (2 * nt + 4) * _TC_BOX + TC_MAX_N * 4 + TC_TILE * 4
-            + (nt + 2) * 8 + 1024,
-            grid, (2 * nt + 4) * _TC_BOX + 2 * TC_MAX_N * 4 + (nt + 2) * 8
-            + 1024)
-    if route != "cuda_core":
+    bwd_route = bwd_route or ("tc" if tc_fits else
+                              "tc32" if tc32_fits else "cuda_core")
+    if route not in ("tc", "cuda_core"):
         raise ValueError(f"unknown route {route!r}")
-    # csrc/mha_fused.cu: blocks of 32 rows, keys / queries streamed in
-    # chunks of 64, fp32 tiles of stride dh + 1; the forward holds 32 score
-    # rows of N
-    grid, ldh = (-(-n // 32), heads, b), dh + 1
-    return FlashPlan("cuda_core", n, grid, 4 * (96 * ldh + 32 * n),
-                     grid, 4 * (192 * ldh + 32 * 65 + 64),
-                     grid, 4 * (192 * ldh + 2 * 32 * 65 + 128))
+    if bwd_route not in ("tc", "tc32", "cuda_core"):
+        raise ValueError(f"unknown backward route {bwd_route!r}")
+    if "tc" in (route, bwd_route) and not tc_fits:
+        raise ValueError(f"the tensor-core route takes bfloat16, head dim "
+                         f"{TC_HEAD_DIM}, N <= {TC_MAX_N}, no dropout; got "
+                         f"{tuple(shape)} with {heads} heads in {dtype}")
+    if bwd_route == "tc32" and not tc32_fits:
+        raise ValueError(f"the 3xTF32 backward takes float32, head dim "
+                         f"{TC32_HEAD_DIM}, N <= {TC32_MAX_N}; got "
+                         f"{tuple(shape)} with {heads} heads in {dtype}")
+    nt = -(-n // TC_TILE)
+    grid = (heads, b, 1)              # the tensor-core kernels: a block a head
+    # csrc/mha_fused.cu's CUDA-core kernels: blocks of 32 rows, keys /
+    # queries streamed in chunks of 64, fp32 tiles of stride dh + 1; the
+    # forward holds 32 score rows of N, the dK / dV kernel with dropout a
+    # 64 x 36-byte mask tile
+    grid_cc, ldh = (-(-n // 32), heads, b), dh + 1
+    np_ = -(-n // 16) * 16 if "tc" in (route, bwd_route) else n
+    if route == "tc":
+        # the formula of ftc::fwd_smem: K, V and Q tiles, per-key floats,
+        # mbarriers, + 1 KB for the 128-byte swizzle's alignment
+        fwd = (grid, 3 * nt * _TC_BOX + TC_MAX_N * 4 + 2 * 8 + 1024)
+    else:
+        fwd = (grid_cc, 4 * (96 * ldh + 32 * n))
+    if bwd_route == "tc":
+        # ftc::dq_smem / dkdv_smem: one side of the head and two stages of
+        # the other, per-key / per-query floats, mbarriers, + 1 KB
+        bwd = (grid, (2 * nt + 4) * _TC_BOX + TC_MAX_N * 4 + TC_TILE * 4
+               + (nt + 2) * 8 + 1024,
+               grid, (2 * nt + 4) * _TC_BOX + 2 * TC_MAX_N * 4
+               + (nt + 2) * 8 + 1024)
+    elif bwd_route == "tc32":
+        bwd = (grid, TC32_SMEM, (0, 0, 0), 0)
+    else:
+        bwd = (grid_cc, 4 * (192 * ldh + 32 * 65 + 64),
+               grid_cc, 4 * (192 * ldh + 2 * 32 * 65 + 128)
+               + (64 * 36 if dropout else 0))
+    return FlashPlan(route, np_, *fwd, bwd_route, *bwd)
 
 
-def _count(fn, plan):
+def _count(fn, route):
     fn.launches += 1
-    fn.route_launches[plan.route] += 1
+    fn.route_launches[route] += 1
 
 
 def _tc_aligned(name, tensors):
@@ -331,7 +397,7 @@ def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
     if err != 0:
         raise RuntimeError(f"mha_fwd_lse kernel launch failed ({plan.route} "
                            f"route): CUDA error {err}")
-    _count(mha_fwd_lse, plan)
+    _count(mha_fwd_lse, plan.route)
     return o, lse
 
 
@@ -343,7 +409,7 @@ def mha_flash_bwd(q, k, v, o, do, lse, *, heads: int, scale: float = 0.0,
                   mask: Optional[torch.Tensor] = None, causal: bool = False):
     """Flash backward of ``mha_fwd_lse``: (dq, dk, dv) in q's dtype. `do`
     is the output cotangent; it is taken in q's dtype, as the JAX rule
-    casts it. On the card it runs ``flash_plan``'s route."""
+    casts it. On the card it runs ``flash_plan``'s backward route."""
     _check(q, k, v, heads, mask, max_n=None)
     do = do.to(q.dtype)
     if q.device.type == "cpu":
@@ -362,12 +428,33 @@ def _check_lse(q, lse, heads):
                          f"{tuple(lse.shape)}")
 
 
+def _launch_tc32(lib, plan, q, k, v, o, do, lse, mask, dm, keep, heads,
+                 scale, causal, stream):
+    """The fused 3xTF32 backward under `plan`: (CUDA error, dq, dk, dv)."""
+    b, n, d = q.shape
+    _tc_aligned("the 3xTF32 backward", (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    fn = lib.mha_flash_backward_tc32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(),
+             mask.data_ptr() if mask is not None else None,
+             dm.data_ptr() if dm is not None else None, dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, n, d, heads,
+             _scale(d, heads, scale), int(bool(causal)), float(keep),
+             *plan.grid_dq, plan.smem_dq, stream)
+    return err, dq, dk, dv
+
+
 def launch_flash_bwd(plan: FlashPlan, q, k, v, o, do, lse, *, heads: int,
                      scale: float = 0.0,
                      mask: Optional[torch.Tensor] = None,
                      causal: bool = False):
-    """``mha_flash_bwd`` on CUDA tensors under `plan` (``flash_plan`` of
-    this shape, either route)."""
+    """``mha_flash_bwd`` on CUDA tensors under the backward route of `plan`
+    (``flash_plan`` of this shape, any route that takes it)."""
     _check(q, k, v, heads, mask, max_n=None)
     _check_lse(q, lse, heads)
     b, n, d = q.shape
@@ -378,39 +465,49 @@ def launch_flash_bwd(plan: FlashPlan, q, k, v, o, do, lse, *, heads: int,
     from . import _build
 
     lib = _build.library("mha_fused")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(),
-            mask.data_ptr() if mask is not None else None,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
+    route = plan.bwd_route
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "tc":
-            _tc_aligned("mha_flash_bwd", (q, k, v, o, do))
-            fn = lib.mha_flash_backward_tc
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-                ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
-                     int(bool(causal)), plan.np, *plan.grid_dq, plan.smem_dq,
-                     *plan.grid_dkdv, plan.smem_dkdv, stream)
+        if route == "tc32":
+            err, dq, dk, dv = _launch_tc32(lib, plan, q, k, v, o, do, lse,
+                                           mask, None, 1.0, heads, scale,
+                                           causal, stream)
         else:
-            fn = lib.mha_flash_backward
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
-                     int(bool(causal)), _DTYPES[q.dtype], stream)
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+            delta = torch.empty((b, heads, n), dtype=torch.float32,
+                                device=q.device)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(),
+                    mask.data_ptr() if mask is not None else None,
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    delta.data_ptr())
+            if route == "tc":
+                _tc_aligned("mha_flash_bwd", (q, k, v, o, do))
+                fn = lib.mha_flash_backward_tc
+                fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+                    ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                         int(bool(causal)), plan.np, *plan.grid_dq,
+                         plan.smem_dq, *plan.grid_dkdv, plan.smem_dkdv,
+                         stream)
+            else:
+                fn = lib.mha_flash_backward
+                fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                err = fn(*ptrs, b, n, d, heads, _scale(d, heads, scale),
+                         int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha_flash_bwd kernel launch failed "
-                           f"({plan.route} route): CUDA error {err}")
-    _count(mha_flash_bwd, plan)
+        raise RuntimeError(f"mha_flash_bwd kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
+    _count(mha_flash_bwd, route)
     return dq, dk, dv
 
 
 mha_flash_bwd.launches = 0
-mha_flash_bwd.route_launches = {"tc": 0, "cuda_core": 0}
+mha_flash_bwd.route_launches = {"tc": 0, "tc32": 0, "cuda_core": 0}
 
 
 def flash_train_fits(shape, heads: int, dtype) -> bool:
@@ -567,45 +664,75 @@ def mha_flash_bwd_drop(q, k, v, o, do, lse, dm, *, heads: int, keep: float,
                        mask: Optional[torch.Tensor] = None,
                        causal: bool = False):
     """Flash backward of ``mha_fwd_lse_drop`` with the same keep mask:
-    (dq, dk, dv) in q's dtype."""
+    (dq, dk, dv) in q's dtype. On the card it runs ``flash_plan``'s
+    backward route for the dropout pair ("tc32" for fp32 at head dim 64 and
+    N <= 64, else "cuda_core")."""
     _check(q, k, v, heads, mask, max_n=None)
     _check_drop(q, dm, heads, keep)
-    b, n, d = q.shape
-    if tuple(lse.shape) != (b, heads, n) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be float32 [B, H, N], got {lse.dtype} "
-                         f"{tuple(lse.shape)}")
+    _check_lse(q, lse, heads)
     do = do.to(q.dtype)
     if q.device.type == "cpu":
         return mha_flash_bwd_drop_reference(
             q, k, v, o, do, lse, dm, heads=heads, keep=keep, scale=scale,
             mask=mask, causal=causal)
-    do = do.contiguous()
+    return launch_flash_bwd_drop(
+        flash_plan(q.shape, heads, q.dtype, dropout=True), q, k, v, o, do,
+        lse, dm, heads=heads, keep=keep, scale=scale, mask=mask,
+        causal=causal)
+
+
+def launch_flash_bwd_drop(plan: FlashPlan, q, k, v, o, do, lse, dm, *,
+                          heads: int, keep: float, scale: float = 0.0,
+                          mask: Optional[torch.Tensor] = None,
+                          causal: bool = False):
+    """``mha_flash_bwd_drop`` on CUDA tensors under the backward route of
+    `plan` (``flash_plan(..., dropout=True)`` of this shape: "tc32" or
+    "cuda_core")."""
+    _check(q, k, v, heads, mask, max_n=None)
+    _check_drop(q, dm, heads, keep)
+    _check_lse(q, lse, heads)
+    b, n, d = q.shape
+    do = do.to(q.dtype).contiguous()
     _kernel_args([q, k, v, o, do, lse, mask, dm], b, d, heads)
+    if q.device.type != "cuda":
+        raise ValueError("launch_flash_bwd_drop takes CUDA tensors")
+    route = plan.bwd_route
+    if route not in ("tc32", "cuda_core"):
+        raise ValueError(f"the dropout backward has no {route!r} route")
     from . import _build
 
-    fn = _build.library("mha_fused").mha_flash_backward_drop
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    lib = _build.library("mha_fused")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 dm.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 delta.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
-                 int(bool(causal)), float(keep), _DTYPES[q.dtype], stream)
+        if route == "tc32":
+            err, dq, dk, dv = _launch_tc32(lib, plan, q, k, v, o, do, lse,
+                                           mask, dm, keep, heads, scale,
+                                           causal, stream)
+        else:
+            fn = lib.mha_flash_backward_drop
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+            delta = torch.empty((b, heads, n), dtype=torch.float32,
+                                device=q.device)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(),
+                     mask.data_ptr() if mask is not None else None,
+                     dm.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), delta.data_ptr(), b, n, d, heads,
+                     _scale(d, heads, scale), int(bool(causal)), float(keep),
+                     _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha_flash_bwd_drop kernel launch failed: CUDA "
-                           f"error {err}")
-    mha_flash_bwd_drop.launches += 1
+        raise RuntimeError(f"mha_flash_bwd_drop kernel launch failed "
+                           f"({route} route): CUDA error {err}")
+    _count(mha_flash_bwd_drop, route)
     return dq, dk, dv
 
 
 mha_flash_bwd_drop.launches = 0
+mha_flash_bwd_drop.route_launches = {"tc32": 0, "cuda_core": 0}
 
 
 def flash_drop_fits(shape, heads: int, dtype) -> bool:

@@ -13,7 +13,10 @@ gradients. The flash pair's tensor-core route sums S in another order
 than the plain version: its bf16 output is held to one ulp + the larger of
 1e-3 and one weight's rounding move (``_out_close``), and at N = 1, where
 dQ and dK are zero in exact arithmetic, to the rounding of the two dot
-products they come from (``_single_key_close``)."""
+products they come from (``_single_key_close``). K2's tensor-core route
+(bf16, head dim 64, N <= 256) is held to ``mha_reference`` the same way;
+the fp32 backward's 3xTF32 route (K4b and K7b at head dim 64, N <= 64) to
+the fp32 bar, its gradients bit-identical over two runs."""
 
 import types
 
@@ -488,8 +491,7 @@ def test_flash_tc_route_matches_plain(cuda, n, masked, causal):
     torch.cuda.synchronize()
     for fn, was in zip((mha_fused.mha_fwd_lse, mha_fused.mha_flash_bwd),
                        before):
-        assert fn.route_launches == {"tc": was["tc"] + 1,
-                                     "cuda_core": was["cuda_core"]}
+        assert fn.route_launches == {**was, "tc": was["tc"] + 1}
     o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, heads=4, mask=m,
                                                  causal=causal)
     torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
@@ -523,7 +525,7 @@ def test_flash_tc_route_is_deterministic_and_beside_the_old_route(cuda):
     before = dict(mha_fused.mha_fwd_lse.route_launches)
     mha_fused.mha_fwd_lse(q.float(), k.float(), v.float(), heads=12)
     assert mha_fused.mha_fwd_lse.route_launches == {
-        "tc": before["tc"], "cuda_core": before["cuda_core"] + 1}
+        **before, "cuda_core": before["cuda_core"] + 1}
 
 
 def test_flash_tc_entry_refuses_another_plan(cuda):
@@ -544,3 +546,200 @@ def test_flash_tc_entry_refuses_another_plan(cuda):
     shifted = shifted.view(q.shape).copy_(q)      # contiguous, 2 bytes off
     with pytest.raises(ValueError, match="aligned"):
         mha_fused.launch_fwd_lse(plan, shifted, k, v, heads=4)
+
+
+# K2's tensor-core route (flash_plan's forward "tc": bf16, head dim 64,
+# N <= 256), held to mha_reference with the bf16 limits above
+
+@pytest.mark.parametrize("masked,causal", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+@pytest.mark.parametrize("n", [1, 17, 64, 65, 197, 256])
+def test_mha_tc_route_matches_plain(cuda, n, masked, causal):
+    q, k, v, _, m = _tc_inputs(3, n, 256, n + 1, cuda)
+    m = m if masked else None
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype)
+    assert plan.route == "tc"
+    before = dict(mha_fused.mha.route_launches)
+    o = mha_fused.mha(q, k, v, heads=4, mask=m, causal=causal)
+    again = mha_fused.mha(q, k, v, heads=4, mask=m, causal=causal)
+    torch.cuda.synchronize()
+    assert mha_fused.mha.route_launches == {**before,
+                                            "tc": before["tc"] + 2}
+    assert torch.equal(o, again)
+    want = mha_fused.mha_reference(q, k, v, heads=4, mask=m, causal=causal)
+    assert bool(torch.isfinite(o.float()).all())
+    _out_close(o, want, q, k, v, 4, m, causal)
+
+
+def test_mha_tc_route_at_the_eval_shape_and_beside_the_old_route(cuda):
+    """bf16 128 x 64 x 768 key-masked (the MM-RCA eval's DistilBERT):
+    bit-identical over two runs and within one weight's rounding move of
+    the plain version (``_out_close``: S summed on the tensor cores in
+    another order can round a weight the other way); the CUDA-core route
+    on the same inputs within one ulp + 1e-3; fp32 and N > 256 go to the
+    CUDA cores."""
+    q, k, v, _, m = _tc_inputs(128, 64, 768, 21, cuda)
+    before = dict(mha_fused.mha.route_launches)
+    runs = [mha_fused.mha(q, k, v, heads=12, mask=m) for _ in range(2)]
+    old = mha_fused.mha(q, k, v, heads=12, mask=m, route="cuda_core")
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    want = mha_fused.mha_reference(q, k, v, heads=12, mask=m)
+    _out_close(runs[0], want, q, k, v, 12, m, False)
+    g, w = old.float(), want.float()
+    tol = _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-3
+    assert bool(((g - w).abs() <= tol).all())
+    mha_fused.mha(q.float(), k.float(), v.float(), heads=12, mask=m)
+    x = torch.randn((2, 300, 768), device=cuda).to(torch.bfloat16)
+    mha_fused.mha(x, x, x, heads=12)
+    assert mha_fused.mha.route_launches == {
+        "tc": before["tc"] + 2, "cuda_core": before["cuda_core"] + 3}
+
+
+def test_mha_tc_entry_refuses_another_plan(cuda):
+    """mha_forward_tc launches the plan it is given or none: a plan of
+    another shape raises, and nothing is counted."""
+    import dataclasses
+
+    q, k, v, _, _ = _tc_inputs(2, 100, 256, 9, cuda)
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype)
+    before = dict(mha_fused.mha.route_launches)
+    for bad in (dataclasses.replace(plan, smem_fwd=plan.smem_fwd + 16),
+                dataclasses.replace(plan, np=plan.np + 16),
+                dataclasses.replace(plan, grid_fwd=(4, 3, 1)),
+                mha_fused.flash_plan((2, 200, 256), 4, q.dtype)):
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_mha(bad, q, k, v, heads=4)
+    assert mha_fused.mha.route_launches == before
+
+
+# the fp32 backward's 3xTF32 route (flash_plan's backward "tc32": head dim
+# 64, N <= 64, K4b and K7b), held to the plain pair at the fp32 bar
+
+def _fp32_inputs(b, n, d, seed, cuda, fully_masked=True):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda)
+                   for _ in range(4))
+    lens = torch.randint(1, n + 1, (b,), generator=g)
+    m = (torch.arange(n)[None] < lens[:, None]).to(torch.int32)
+    if fully_masked:
+        m[-1] = 0
+    return q, k, v, do, m.to(cuda)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("masked,causal", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+@pytest.mark.parametrize("n", [1, 17, 64])
+def test_fp32_backward_tc32_route_matches_plain(cuda, n, masked, causal, p):
+    """K4b (p 0) and K7b on the fused 3xTF32 kernel: within 5e-5 (1 + |x|)
+    of the plain pair, bit-identical over two runs, counted on its route."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, do, m = _fp32_inputs(3, n, 256, 40 + n, cuda)
+    m = m if masked else None
+    kw = dict(heads=4, mask=m, causal=causal)
+    if p:
+        dm = mha_fused.drop_keep_mask(Key(n), p, 3, 4, n, cuda)
+        dm[0, 0, 0] = 0                               # a fully dropped row
+        o, lse = mha_fused.mha_fwd_lse_drop(q, k, v, dm, keep=1.0 - p, **kw)
+        fn = mha_fused.mha_flash_bwd_drop
+        call = lambda: fn(q, k, v, o, do, lse, dm, keep=1.0 - p, **kw)
+        want = mha_fused.mha_flash_bwd_drop_reference(
+            q, k, v, o, do, lse, dm, keep=1.0 - p, **kw)
+    else:
+        o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
+        fn = mha_fused.mha_flash_bwd
+        call = lambda: fn(q, k, v, o, do, lse, **kw)
+        want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+    assert mha_fused.flash_plan(q.shape, 4, q.dtype,
+                                dropout=bool(p)).bwd_route == "tc32"
+    before = dict(fn.route_launches)
+    grads, again = call(), call()
+    torch.cuda.synchronize()
+    assert fn.route_launches == {**before, "tc32": before["tc32"] + 2}
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    for x, y in zip(grads, want):
+        assert bool(torch.isfinite(x).all())
+        _grad_close(x, y, torch.float32)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_fp32_backward_tc32_at_the_train_shapes_and_beside_the_old_route(
+        cuda, p):
+    """128 x 64 x 768 (the text trainer's DistilBERT) with p 0.1, and
+    16 x 64 x 768 without dropout (the MM-RCA trainer's): the fused kernel
+    and the CUDA-core pair on the same inputs, each within the fp32 bar of
+    the plain pair; N = 65 goes to the CUDA cores."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    b = 128 if p else 16
+    q, k, v, do, m = _fp32_inputs(b, 64, 768, 77, cuda, fully_masked=False)
+    new = mha_fused.flash_plan(q.shape, 12, q.dtype, dropout=bool(p))
+    old = mha_fused.flash_plan(q.shape, 12, q.dtype, dropout=bool(p),
+                               route="cuda_core")
+    assert (new.bwd_route, old.bwd_route) == ("tc32", "cuda_core")
+    if p:
+        dm = mha_fused.drop_keep_mask(Key(3), p, b, 12, 64, cuda)
+        o, lse = mha_fused.mha_fwd_lse_drop(q, k, v, dm, heads=12,
+                                            keep=1.0 - p, mask=m)
+        runs = [mha_fused.launch_flash_bwd_drop(
+            plan, q, k, v, o, do, lse, dm, heads=12, keep=1.0 - p, mask=m)
+            for plan in (new, old)]
+        want = mha_fused.mha_flash_bwd_drop_reference(
+            q, k, v, o, do, lse, dm, heads=12, keep=1.0 - p, mask=m)
+    else:
+        o, lse = mha_fused.mha_fwd_lse(q, k, v, heads=12, mask=m)
+        runs = [mha_fused.launch_flash_bwd(plan, q, k, v, o, do, lse,
+                                           heads=12, mask=m)
+                for plan in (new, old)]
+        want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse,
+                                                 heads=12, mask=m)
+    torch.cuda.synchronize()
+    for grads in runs:
+        for x, y in zip(grads, want):
+            _grad_close(x, y, torch.float32)
+    q, k, v, do, _ = _fp32_inputs(2, 65, 768, 78, cuda)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, heads=12)
+    before = dict(mha_fused.mha_flash_bwd.route_launches)
+    mha_fused.mha_flash_bwd(q, k, v, o, do, lse, heads=12)
+    assert mha_fused.mha_flash_bwd.route_launches == {
+        **before, "cuda_core": before["cuda_core"] + 1}
+
+
+def test_fp32_backward_tc32_entry_refuses_another_plan(cuda):
+    """mha_flash_backward_tc32 launches the plan it is given or none; the
+    dropout backward has no bf16 tensor-core route."""
+    import dataclasses
+
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, do, _ = _fp32_inputs(2, 40, 256, 9, cuda)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, heads=4)
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype)
+    dm = mha_fused.drop_keep_mask(Key(2), 0.1, 2, 4, 40, cuda)
+    before = (dict(mha_fused.mha_flash_bwd.route_launches),
+              dict(mha_fused.mha_flash_bwd_drop.route_launches))
+    for bad in (dataclasses.replace(plan, smem_dq=plan.smem_dq - 16),
+                dataclasses.replace(plan, grid_dq=(4, 1, 1)),
+                dataclasses.replace(plan, grid_dq=(2, 2, 1))):
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_flash_bwd(bad, q, k, v, o, do, lse, heads=4)
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_flash_bwd_drop(bad, q, k, v, o, do, lse, dm,
+                                            heads=4, keep=0.9)
+    # a plan of a longer N (the route's limit is 64)
+    x, _, _, _, _ = _fp32_inputs(2, 65, 256, 10, cuda)
+    bad = dataclasses.replace(mha_fused.flash_plan(x.shape, 4, x.dtype),
+                              bwd_route="tc32", grid_dq=(4, 2, 1),
+                              smem_dq=mha_fused.TC32_SMEM)
+    xo, xl = mha_fused.mha_fwd_lse(x, x, x, heads=4)
+    with pytest.raises(RuntimeError):
+        mha_fused.launch_flash_bwd(bad, x, x, x, xo, x, xl, heads=4)
+    with pytest.raises(ValueError, match="no 'tc' route"):
+        mha_fused.launch_flash_bwd_drop(
+            dataclasses.replace(plan, bwd_route="tc"), q, k, v, o, do, lse,
+            dm, heads=4, keep=0.9)
+    assert (mha_fused.mha_flash_bwd.route_launches,
+            mha_fused.mha_flash_bwd_drop.route_launches) == before
+

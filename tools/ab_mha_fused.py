@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """A/B of variants of the port's ``csrc/mha_fused.cu`` on one card, in one
 process: the flash pair's tensor-core route (K4a ``mha_fwd_lse`` / K4b
-``mha_flash_bwd``, bf16, head dim 64) at the ViT-B/16 train shape, and the
+``mha_flash_bwd``, bf16, head dim 64) at the ViT-B/16 train shape, the
 CUDA-core kernels of the same source at chip_smoke.py's phase-3 shapes
 (K2 ``mha`` bf16 128x64x768; the fp32 pair 16x64x768; K7a / K7b fp32
-128x64x768, p 0.1; all key-masked).
+128x64x768, p 0.1; all key-masked), and, where the source has them, K2's
+tensor-core route (128x64x768 masked, 128x197x768 unmasked) and the fp32
+backward's 3xTF32 route (K4b 16x64x768, K7b 128x64x768, p 0.1).
 
     python3 tools/ab_mha_fused.py tree DIR [DIR ...]
 
@@ -49,14 +51,19 @@ def build(dirs):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {d}:\n{log[-3000:]}")
         for entry, used, spills in cs.ptxas_report(log):
-            if "(tc)" in entry:
+            if "(tc" in entry:
                 print(f"{d}: {entry}: {used}; {spills}", flush=True)
         libs[d] = ctypes.CDLL(out)
     return libs
 
 
-def _cuda_core_calls(gen, dev):
-    """{name: (call, reps)} of the CUDA-core kernels at phase 3's shapes."""
+def _kernel_calls(gen, dev):
+    """{name: (call, reps, needs)} at phase 3's shapes: the CUDA-core
+    kernels (K2 bf16 128x64x768 and the fp32 pair 16x64x768, key-masked;
+    K7a / K7b fp32 128x64x768, p 0.1) and the routes of this tree that a
+    parent's source may lack (`needs`: the C entry): K2 on the tensor cores
+    at 128x64x768 masked and 128x197x768 unmasked, the fp32 backward on
+    3xTF32 (K4b 16x64x768, K7b 128x64x768)."""
     from garbage_classification_rca_tpu_torch.nn.core import Key
 
     def inputs(b, n, dtype, count):
@@ -65,6 +72,7 @@ def _cuda_core_calls(gen, dev):
 
     q2, k2, v2 = inputs(128, 64, torch.bfloat16, 3)
     m2 = cs._mask(128, 64, gen, dev)
+    q9, k9, v9 = inputs(128, 197, torch.bfloat16, 3)
     q4, k4, v4, do4 = inputs(16, 64, torch.float32, 4)
     m4 = cs._mask(16, 64, gen, dev)
     o4, lse4 = K.mha_fwd_lse_reference(q4, k4, v4, heads=12, mask=m4)
@@ -73,19 +81,46 @@ def _cuda_core_calls(gen, dev):
     dm = K.drop_keep_mask(Key(7), 0.1, 128, 12, 64, dev)
     kw = dict(heads=12, keep=0.9, mask=m7)
     o7, lse7 = K.mha_fwd_lse_drop_reference(q7, k7, v7, dm, **kw)
+    o8, lse8 = K.mha_fwd_lse_reference(q7, k7, v7, heads=12, mask=m7)
+    plan = {(name, x.shape): K.flash_plan(x.shape, 12, x.dtype, dropout=drop,
+                                          route=route)
+            for name, x, drop, route in (
+                ("old", q4, False, "cuda_core"), ("new", q4, False, None),
+                ("old", q7, True, "cuda_core"), ("new", q7, True, None))}
+    p4 = lambda name: plan[(name, q4.shape)]
+    p7 = lambda name: plan[(name, q7.shape)]
     return {
-        "mha bf16 128x64x768": (
-            lambda: K.mha(q2, k2, v2, heads=12, mask=m2), 20),
+        "mha bf16 128x64x768 (CUDA cores)": (
+            lambda: K.mha(q2, k2, v2, heads=12, mask=m2, route="cuda_core"),
+            20, None),
         "mha_fwd_lse fp32 16x64x768": (
-            lambda: K.mha_fwd_lse(q4, k4, v4, heads=12, mask=m4), 20),
-        "mha_flash_bwd fp32 16x64x768": (
-            lambda: K.mha_flash_bwd(q4, k4, v4, o4, do4, lse4, heads=12,
-                                    mask=m4), 20),
+            lambda: K.mha_fwd_lse(q4, k4, v4, heads=12, mask=m4), 20, None),
+        "mha_flash_bwd fp32 16x64x768 (CUDA cores)": (
+            lambda: K.launch_flash_bwd(p4("old"), q4, k4, v4, o4, do4, lse4,
+                                       heads=12, mask=m4), 20, None),
         "mha_fwd_lse_drop fp32 128x64x768": (
-            lambda: K.mha_fwd_lse_drop(q7, k7, v7, dm, **kw), 20),
-        "mha_flash_bwd_drop fp32 128x64x768": (
-            lambda: K.mha_flash_bwd_drop(q7, k7, v7, o7, do7, lse7, dm,
-                                         **kw), 20)}
+            lambda: K.mha_fwd_lse_drop(q7, k7, v7, dm, **kw), 20, None),
+        "mha_flash_bwd_drop fp32 128x64x768 (CUDA cores)": (
+            lambda: K.launch_flash_bwd_drop(p7("old"), q7, k7, v7, o7, do7,
+                                            lse7, dm, **kw), 20, None),
+        "mha tc bf16 128x64x768": (
+            lambda: K.mha(q2, k2, v2, heads=12, mask=m2, route="tc"), 20,
+            "mha_forward_tc"),
+        "mha tc bf16 128x197x768 unmasked": (
+            lambda: K.mha(q9, k9, v9, heads=12, route="tc"), 20,
+            "mha_forward_tc"),
+        "mha_flash_bwd tc32 fp32 16x64x768": (
+            lambda: K.launch_flash_bwd(p4("new"), q4, k4, v4, o4, do4, lse4,
+                                       heads=12, mask=m4), 20,
+            "mha_flash_backward_tc32"),
+        "mha_flash_bwd tc32 fp32 128x64x768 (no dropout)": (
+            lambda: K.launch_flash_bwd(
+                K.flash_plan(q7.shape, 12, q7.dtype), q7, k7, v7, o8, do7,
+                lse8, heads=12, mask=m7), 20, "mha_flash_backward_tc32"),
+        "mha_flash_bwd_drop tc32 fp32 128x64x768": (
+            lambda: K.launch_flash_bwd_drop(p7("new"), q7, k7, v7, o7, do7,
+                                            lse7, dm, **kw), 20,
+            "mha_flash_backward_tc32")}
 
 
 def main(dirs):
@@ -110,7 +145,7 @@ def main(dirs):
     plan = K.flash_plan(q.shape, h, q.dtype)
     tc = {name: hasattr(lib, "mha_forward_lse_tc")
           for name, lib in libs.items()}
-    others = _cuda_core_calls(gen, dev)
+    others = _kernel_calls(gen, dev)
     ok_all = True
     for name, lib in libs.items():
         _build._libs["mha_fused"] = lib
@@ -134,7 +169,8 @@ def main(dirs):
     times = {name: {} for name in libs}
     for name in list(libs) + list(reversed(list(libs))):
         _build._libs["mha_fused"] = libs[name]
-        calls = dict(others)
+        calls = {k: (fn, reps) for k, (fn, reps, needs) in others.items()
+                 if needs is None or hasattr(libs[name], needs)}
         if tc[name]:
             calls["mha_fwd_lse tc bf16 128x197x768"] = (
                 lambda: K.launch_fwd_lse(plan, q, k, v, heads=h), 5)
