@@ -22,11 +22,15 @@ Phases, each of which fails the run when it fails:
      bound; K2's tensor-core route (``mha_tc``, the same bf16 forward
      without lse) the same way at N = 1 .. 256, timed against the CUDA-core
      K2 at 128x64x768 masked and 128x197x768 beside SDPA; the fp32
-     backward's 3xTF32 route (``mha_flash_bwd_tc32``,
-     ``mha_flash_bwd_drop_tc32``: K4b and K7b at head dim 64, N <= 64)
-     beside the CUDA-core pair on every fp32 case, bit-identical over two
-     runs, timed new-old-old-new at 16x64x768 and 128x64x768, p 0.1; the
-     build's ptxas report (registers, spills) per kernel;
+     training pair's 3xTF32 routes (``mha_fwd_lse_drop_tc32``,
+     ``mha_flash_bwd_tc32``, ``mha_flash_bwd_drop_tc32``: K7a and K4b /
+     K7b at head dim 64, N <= 64; K4a's 3xTF32 forward, on request only,
+     reported with the ``mha_fwd_lse`` row) beside the CUDA-core kernels
+     on every fp32 case, bit-identical over two runs, the forwards timed
+     new-old-old-new at 16x64x768, 128x64x768 and 128x64x768 with p 0.1,
+     beside the plain versions, the library call, the bound and the share
+     of the bound reached; the build's ptxas report (registers, spills) per
+     kernel;
   4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
@@ -44,8 +48,10 @@ Phases, each of which fails the run when it fails:
      ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6 on
      3xTF32); microbatches' loss and gradients on the kernel path
      against the plain path, on the seeded weights restored after the
-     steps; then ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1
-     epochs on a synthetic 480x480 JPEG tree and ``cli.test_both`` on its
+     steps, and the same check with K4a on its 3xTF32 forward (recorded,
+     not judged: PERF.md §6 says why K4a keeps the CUDA cores); then
+     ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1 epochs on a
+     synthetic 480x480 JPEG tree and ``cli.test_both`` on its
      BEST checkpoint: ``evaluate()``, then ``main()`` end to end, whose
      report CSV must carry the same accuracy;
   6. text eval: BERT-base at full width and depth (12 layers, seq 64,
@@ -63,15 +69,16 @@ Phases, each of which fails the run when it fails:
      128, seq 64, fp32, SGD, head dropout 0.6, class weights) with
      ``--hf_internal_dropout``: three steps all trainable and one head
      only, per microbatch K7a 6, K7b 6 (3xTF32), K4a 0, K4b 0; a step with
-     the flag off (K4a 6, K4b 6 on 3xTF32, K7 0); a step of BERT-base
-     with the flag (12 + 12);
+     the flag off (K4a 6 on the CUDA cores, K4b 6 on 3xTF32, K7 0); a step
+     of BERT-base with the flag (12 + 12);
      one microbatch's loss and gradients on the kernel path against the
      plain path from the same key; steps/s, samples/s, peak memory, a
-     profiler breakdown, and the step's device time with the backward on
-     3xTF32 and on the CUDA cores (``backward_route``), new-old-old-new;
+     profiler breakdown, and the step's device time with both kernels on
+     3xTF32, both on the CUDA cores, and the 3xTF32 backward beside the
+     CUDA-core forward (``flash_routes``), in turns;
      a step at ``--seq_len=512`` (batch 8) with the flag and without, where
-     K7b / K4b run on the CUDA cores, and its gradients against the plain
-     path; then ``cli.main_text --hf_internal_dropout`` for
+     K7a / K7b and K4a / K4b run on the CUDA cores, and its gradients
+     against the plain path; then ``cli.main_text --hf_internal_dropout`` for
      1 + 1 epochs on a synthetic tree and ``cli.test_text`` on its BEST
      file (``evaluate()`` and ``main()``), and on that file the bf16
      kernel path against the plain path and the fp32 model
@@ -96,8 +103,9 @@ Tolerances (kernel vs plain version, same inputs, same card):
     package's backward bar. The dropout pair (mha_fwd_lse_drop,
     mha_flash_bwd_drop) is held to its plain pair's limits, fp32 and bf16,
     on the same keep mask.
-  * the fp32 backward's 3xTF32 route (K4b, K7b): the fp32 backward bar
-    above; its products carry about 2^-21 relative error each.
+  * the fp32 training pair's 3xTF32 routes: K4a / K7a the fp32 forward bar
+    1e-5 + 1e-5|x| on out and lse, K4b / K7b the fp32 backward bar above;
+    their products carry about 2^-21 relative error each.
   * bf16: |d| <= one bf16 ulp of the value + 1e-5 (rca_fused: fp32 math,
     one final rounding that may land on either neighbour) and + 1e-3 for
     mha (its softmax weights are rounded to bf16 before the PV product,
@@ -597,10 +605,71 @@ def _efficient_attention(q, k, v, bias, h):
         rs(q), rs(k), rs(v), bias, True)
 
 
+def _forward_ab(launch, plans):
+    """Device times of a forward under its 3xTF32 plan and its CUDA-core
+    plan, new-old-old-new: {route: [ms, ms]}."""
+    ab = {"tc32": [], "cuda_core": []}
+    for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
+        ab[r].append(time_ms(functools.partial(launch, plans[r]))[0])
+    return ab
+
+
+def _fwd_row(name, ms, plain, lib_ms, flops, nbytes, err, line, flop_peak,
+             **extra):
+    """A forward's report row: its bound from this run's shapes, the share
+    of the bound reached."""
+    bound_ops = flops / PEAK_FLOPS[flop_peak] * 1e3
+    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(bound_ops, bound_bytes)
+    return {"name": name, "route": "cuda",
+            "source": "garbage_classification_rca_tpu_torch/csrc/mha_fused.cu",
+            "replaces": f"garbage_classification_rca_tpu/kernels/mha_fused.py:"
+                        f"{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "library_ms": lib_ms, "share_of_bound": bound / ms, **extra}
+
+
+def _check_fwd_routes(name, run, plain, shape, h, dtype, dropout, label):
+    """The forward `run(route)` (None: the wrapper's own route) against
+    `plain` (out, lse) on every route that takes the shape, each run twice:
+    ({route: max error}, all ok)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    default = K.flash_plan(shape, h, dtype, dropout=dropout).route
+    routes = {default, "cuda_core"}
+    try:
+        K.flash_plan(shape, h, dtype, route="tc32", dropout=dropout)
+        routes.add("tc32")
+    except ValueError:
+        pass
+    errs, ok_all = {}, True
+    for route in sorted(routes):
+        got, again = (run(None if route == default else route)
+                      for _ in range(2))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        torch.cuda.synchronize()
+        e_o, ok_o = max_err_ok(got[0], plain[0], dtype, "mha")
+        e_l, ok_l = max_err_ok(got[1], plain[1], torch.float32, "mha")
+        ok = ok_o and ok_l and same
+        ok_all &= ok
+        errs[route] = max(e_o, e_l)
+        print(f"  {name} ({route}{', default' if route == default else ''})"
+              f" {label}: out max|d|={e_o:.3e} lse {e_l:.3e}, bit-identical "
+              f"over two runs {same} {'ok' if ok else 'FAIL'}", flush=True)
+    return errs, ok_all
+
+
 def check_mha_train(device, report):
     """K4a and K4b against their plain versions: (16, 64, 768, 12 heads),
     the DistilBERT training shape, and N=512, fp32 (the training dtype)
-    and bf16, random key lengths, and a causal case."""
+    and bf16, random key lengths, and a causal case; in fp32 at N = 64 K4a
+    on the CUDA cores (its default) and on the 3xTF32 route (on request),
+    timed new-old-old-new at 16x64x768 and 128x64x768 (the text trainer's
+    shape without ``--hf_internal_dropout``)."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
@@ -608,19 +677,34 @@ def check_mha_train(device, report):
     gen = torch.Generator().manual_seed(SEED + 7)
     ok_all, main = True, {}
     cases = [(16, 64, 768, 12, False), (4, 512, 768, 12, False),
-             (6, 100, 768, 12, True)]
+             (6, 100, 768, 12, True), (128, 64, 768, 12, False)]
+    # the forward-only 128x64x768 case draws from a generator of its own,
+    # so that the other cases (and check_mha_tc, which continues `gen`)
+    # keep their inputs
+    gen_big = torch.Generator().manual_seed(SEED + 17)
     for dtype in (torch.float32, torch.bfloat16):
         for b, n, d, h, causal in cases:
-            q, k, v, do = (torch.randn((b, n, d), generator=gen).to(device,
-                                                                  dtype)
+            if b == 128 and dtype != torch.float32:
+                continue
+            g = gen_big if b == 128 else gen
+            q, k, v, do = (torch.randn((b, n, d), generator=g).to(device,
+                                                                dtype)
                            for _ in range(4))
-            m = _mask(b, n, gen, device)
-            o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=m, causal=causal)
-            torch.cuda.synchronize()
+            m = _mask(b, n, g, device)
             o_w, lse_w = K.mha_fwd_lse_reference(q, k, v, heads=h, mask=m,
                                                  causal=causal)
-            e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
-            e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
+            kw = dict(heads=h, mask=m, causal=causal)
+            e_f, ok_f = _check_fwd_routes(
+                "mha_fwd_lse", lambda r: K.mha_fwd_lse(q, k, v, **kw)
+                if r is None else K.launch_fwd_lse(
+                    K.flash_plan(q.shape, h, dtype, route=r), q, k, v, **kw),
+                (o_w, lse_w), q.shape, h, dtype, False,
+                f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} causal={causal!s:5s}")
+            ok_all &= ok_f
+            o, lse = K.mha_fwd_lse(q, k, v, **kw)
+            if dtype == torch.float32 and b == 128:
+                main["big"] = dict(q=q, k=k, v=v, m=m, e_f=e_f)
+                continue
             want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, heads=h,
                                              mask=m, causal=causal)
             plan = K.flash_plan(q.shape, h, dtype)
@@ -636,24 +720,67 @@ def check_mha_train(device, report):
                                                                   want)]
                 e_b = max(e for e, _ in errs)
                 same = all(torch.equal(x, y) for x, y in zip(grads, again))
-                ok = ok_o and ok_l and same and all(o_ for _, o_ in errs)
+                ok = same and all(o_ for _, o_ in errs)
                 ok_all &= ok
-                print(f"  mha_fwd_lse/mha_flash_bwd ({bwd}) "
-                      f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} "
-                      f"causal={causal!s:5s}: fwd max|d|={e_o:.3e} lse "
-                      f"{e_l:.3e} bwd {e_b:.3e}, bit-identical over two "
-                      f"runs {same} {'ok' if ok else 'FAIL'}", flush=True)
+                print(f"  mha_flash_bwd ({bwd}) {str(dtype)[6:]:8s} "
+                      f"B={b:3d} N={n:3d} causal={causal!s:5s}: max|d|="
+                      f"{e_b:.3e}, bit-identical over two runs {same} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
                 if dtype == torch.float32 and (b, n) == (16, 64):
-                    main = main or dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o,
-                                        lse=lse, e_f=max(e_o, e_l), e_b={})
+                    if "q" not in main:
+                        main.update(q=q, k=k, v=v, do=do, m=m, h=h, o=o,
+                                    lse=lse, e_f=e_f, e_b={})
                     main["e_b"][bwd] = e_b
     q, k, v, do, m, h = (main[x] for x in ("q", "k", "v", "do", "m", "h"))
     o, lse = main["o"], main["lse"]
     b, n, d = q.shape
-    ms_f, f_lo, f_hi = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h,
-                                                     mask=m))
-    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(q, k, v, heads=h,
-                                                      mask=m))[0]
+    # K4a, new-old-old-new, at 16x64x768 (the MM-RCA trainer) and
+    # 128x64x768 (the text trainer without --hf_internal_dropout)
+    fwd = {}
+    for tag, x in (("16x64x768", main), ("128x64x768", main["big"])):
+        xq, xk, xv, xm = (x[y] for y in ("q", "k", "v", "m"))
+        xb = xq.shape[0]
+        plans = {r: K.flash_plan(xq.shape, h, xq.dtype, route=r)
+                 for r in ("tc32", "cuda_core")}
+        ab = _forward_ab(lambda p: K.launch_fwd_lse(p, xq, xk, xv, heads=h,
+                                                    mask=xm), plans)
+        bias = ((xm.float() - 1.0) * 1e30)[:, None, None, :].expand(
+            xb, h, n, n).contiguous()
+        fwd[tag] = dict(
+            ab=ab, plain=time_ms(lambda: K.mha_fwd_lse_reference(
+                xq, xk, xv, heads=h, mask=xm))[0],
+            lib=time_ms(lambda: _efficient_attention(xq, xk, xv, bias,
+                                                     h))[0],
+            flops=4 * xb * n * n * d,
+            bytes=4 * xq.numel() * 4 + xm.numel() * 4 + xb * h * n * 4,
+            e_f=x["e_f"])
+        del bias
+    for route, name, peak, passes in (("cuda_core", "mha_fwd_lse", "float32",
+                                       1),
+                                      ("tc32", "mha_fwd_lse_tc32", "tf32", 3)):
+        rows = {tag: _fwd_row(name, sum(f["ab"][route]) / 2, f["plain"],
+                              f["lib"], passes * f["flops"], f["bytes"],
+                              f["e_f"][route], 274, peak,
+                              ms_runs=f["ab"][route])
+                for tag, f in fwd.items()}
+        report[name] = {**rows["16x64x768"],
+                        "at_128x64x768": rows["128x64x768"]}
+    # K4a keeps the CUDA cores on its main paths: the 3xTF32 forward's
+    # readings go with that row
+    report["mha_fwd_lse"]["tc32_on_request"] = report.pop("mha_fwd_lse_tc32")
+    for tag, f in fwd.items():
+        old = report["mha_fwd_lse"]
+        new = old["tc32_on_request"]
+        if tag != "16x64x768":
+            new, old = new["at_" + tag], old["at_" + tag]
+        print(f"  mha_fwd_lse fp32 {tag}, new-old-old-new: 3xTF32 "
+              f"{f['ab']['tc32'][0]:.4f} / {f['ab']['tc32'][1]:.4f} ms, CUDA "
+              f"cores {f['ab']['cuda_core'][0]:.4f} / "
+              f"{f['ab']['cuda_core'][1]:.4f} ms; plain {f['plain']:.4f} ms, "
+              f"efficient attention {f['lib']:.4f} ms, bound "
+              f"{new['bound_ms']:.5f} ms ({new['bound_by']}): share of the "
+              f"bound 3xTF32 {new['share_of_bound']:.3f}, CUDA cores "
+              f"{old['share_of_bound']:.3f}", flush=True)
     bwd = {r: functools.partial(
         K.launch_flash_bwd, K.flash_plan(q.shape, h, q.dtype, bwd_route=r),
         q, k, v, o, do, lse, heads=h, mask=m) for r in ("tc32", "cuda_core")}
@@ -666,20 +793,15 @@ def check_mha_train(device, report):
     bias = ((m.float() - 1.0) * 1e30)[:, None, None, :].expand(
         b, h, n, n).contiguous()
     lib = _efficient_attention(q, k, v, bias, h)
-    lib_f = time_ms(lambda: _efficient_attention(q, k, v, bias, h))[0]
     rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
     lib_b = time_ms(lambda: torch.ops.aten.
                     _scaled_dot_product_efficient_attention_backward(
                         rs(do), rs(q), rs(k), rs(v), bias, lib[0], lib[1],
                         lib[2], lib[3], 0.0, [True, True, True, False]))[0]
     item = q.element_size()
-    flops_f = 4 * b * n * n * d
-    bytes_f = 4 * q.numel() * item + m.numel() * 4 + b * h * n * 4
     flops_b = 10 * b * n * n * d      # S, dP, dV, dQ, dK
     bytes_b = 8 * q.numel() * item + m.numel() * 4 + b * h * n * 4
     for name, ms, plain, lib_ms, flops, nbytes, err, line, flop_peak in (
-            ("mha_fwd_lse", ms_f, plain_f, lib_f, flops_f, bytes_f,
-             main["e_f"], 274, "float32"),
             ("mha_flash_bwd", ms_b, plain_b, lib_b, flops_b, bytes_b,
              main["e_b"]["cuda_core"], 317, "float32"),
             ("mha_flash_bwd_tc32", sum(ab_b["tc32"]) / 2, plain_b, lib_b,
@@ -697,10 +819,6 @@ def check_mha_train(device, report):
             "library_ms": lib_ms}
     report["mha_flash_bwd_tc32"]["ms_runs"] = ab_b["tc32"]
     report["mha_flash_bwd"]["ms_runs"] = ab_b["cuda_core"]
-    print(f"  mha_fwd_lse B=16 N=64 D=768 fp32 (median of 5 [min, max]): "
-          f"kernel {ms_f:.4f} [{f_lo:.4f}, {f_hi:.4f}] ms, plain "
-          f"{plain_f:.4f} ms, efficient attention {lib_f:.4f} ms, bound "
-          f"{report['mha_fwd_lse']['bound_ms']:.4f} ms", flush=True)
     print(f"  mha_flash_bwd B=16 N=64 D=768 fp32, new-old-old-new: 3xTF32 "
           f"{ab_b['tc32'][0]:.4f} / {ab_b['tc32'][1]:.4f} ms, CUDA cores "
           f"{ab_b['cuda_core'][0]:.4f} / {ab_b['cuda_core'][1]:.4f} ms; "
@@ -939,7 +1057,9 @@ def check_mha_drop(device, report):
     the key and must come out the same, bit for bit. Times: the kernels on
     a mask drawn before (CUDA graph) and with the draw (eager), the plain
     versions, and the library's efficient attention with dropout_p (it
-    draws its own mask inside: a yardstick of time, never an oracle)."""
+    draws its own mask inside: a yardstick of time, never an oracle). In
+    fp32 at N <= 64 K7a runs on its 3xTF32 route and, beside it, on the
+    CUDA cores; the two are timed new-old-old-new, as the backward's are."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
@@ -968,11 +1088,16 @@ def check_mha_drop(device, report):
             same = torch.equal(dm, K.drop_keep_mask(key, p, b, h, n, device))
             dm[0, 0, 1] = 0                   # a fully dropped row
             kw = dict(heads=h, keep=1.0 - p, mask=m, causal=causal)
+            o_w, lse_w = K.mha_fwd_lse_drop_reference(q, k, v, dm, **kw)
+            e_f, ok_f = _check_fwd_routes(
+                "mha_fwd_lse_drop", lambda r: K.mha_fwd_lse_drop(
+                    q, k, v, dm, **kw) if r is None else K.launch_fwd_lse_drop(
+                    K.flash_plan(q.shape, h, dtype, route=r, dropout=True), q,
+                    k, v, dm, **kw), (o_w, lse_w), q.shape, h, dtype, True,
+                f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} D={d} p={p} "
+                f"mask={masked!s:5s} causal={causal!s:5s}")
             o, lse = K.mha_fwd_lse_drop(q, k, v, dm, **kw)
             torch.cuda.synchronize()
-            o_w, lse_w = K.mha_fwd_lse_drop_reference(q, k, v, dm, **kw)
-            e_o, ok_o = max_err_ok(o, o_w, dtype, "mha")
-            e_l, ok_l = max_err_ok(lse, lse_w, torch.float32, "mha")
             want = K.mha_flash_bwd_drop_reference(q, k, v, o, do, lse, dm,
                                                   **kw)
             zero_row = bool((o[0, 1, :d // h] == 0).all())
@@ -989,28 +1114,30 @@ def check_mha_drop(device, report):
                                                                   want)]
                 e_b = max(e for e, _ in errs)
                 bits = all(torch.equal(x, y) for x, y in zip(grads, again))
-                ok = (same and ok_o and ok_l and zero_row and bits
+                ok = (same and ok_f and zero_row and bits
                       and all(o_ for _, o_ in errs))
                 ok_all &= ok
-                print(f"  mha_fwd_lse_drop/mha_flash_bwd_drop ({bwd}) "
-                      f"{str(dtype)[6:]:8s} B={b:3d} N={n:3d} D={d} p={p} "
-                      f"mask={masked!s:5s} causal={causal!s:5s}: fwd max|d|="
-                      f"{e_o:.3e} lse {e_l:.3e} bwd {e_b:.3e} redraw equal="
-                      f"{same}, bit-identical over two runs {bits} "
+                print(f"  mha_flash_bwd_drop ({bwd}) {str(dtype)[6:]:8s} "
+                      f"B={b:3d} N={n:3d} D={d} p={p} mask={masked!s:5s} "
+                      f"causal={causal!s:5s}: max|d|={e_b:.3e}, redraw "
+                      f"equal={same}, a dropped row's output zero "
+                      f"{zero_row}, bit-identical over two runs {bits} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if dtype == torch.float32 and ci == 0:
                     main = main or dict(q=q, k=k, v=v, do=do, m=m, h=h, o=o,
                                         lse=lse, dm=dm, key=key, p=p,
-                                        e_f=max(e_o, e_l), e_b={})
+                                        e_f=e_f, e_b={})
                     main["e_b"][bwd] = e_b
             del o_w, lse_w, want
     q, k, v, do, m, h, o, lse, dm, key, p = (main[x] for x in (
         "q", "k", "v", "do", "m", "h", "o", "lse", "dm", "key", "p"))
     b, n, d = q.shape
     kw = dict(heads=h, keep=1.0 - p, mask=m)
-    ms_f, f_lo, f_hi = time_ms(lambda: K.mha_fwd_lse_drop(q, k, v, dm, **kw))
-    plans = {r: K.flash_plan(q.shape, h, q.dtype, bwd_route=r, dropout=True)
+    # each route for both kernels: the forward's A/B, then the backward's
+    plans = {r: K.flash_plan(q.shape, h, q.dtype, route=r, dropout=True)
              for r in ("tc32", "cuda_core")}
+    ab_f = _forward_ab(lambda pl: K.launch_fwd_lse_drop(pl, q, k, v, dm,
+                                                        **kw), plans)
     ab_b = {"tc32": [], "cuda_core": []}
     for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
         ab_b[r].append(time_ms(functools.partial(
@@ -1021,8 +1148,9 @@ def check_mha_drop(device, report):
     plain_b = time_ms(lambda: K.mha_flash_bwd_drop_reference(
         q, k, v, o, do, lse, dm, **kw))[0]
     draw = time_ms_eager(lambda: K.drop_keep_mask(key, p, b, h, n, device))[0]
-    with_draw_f = time_ms_eager(lambda: K.mha_fwd_lse_drop(
-        q, k, v, K.drop_keep_mask(key, p, b, h, n, device), **kw))[0]
+    with_draw_f = {r: time_ms_eager(lambda: K.launch_fwd_lse_drop(
+        plans[r], q, k, v, K.drop_keep_mask(key, p, b, h, n, device),
+        **kw))[0] for r in ("tc32", "cuda_core")}
     with_draw_b = {r: time_ms_eager(lambda: K.launch_flash_bwd_drop(
         plans[r], q, k, v, o, do, lse,
         K.drop_keep_mask(key, p, b, h, n, device), **kw))[0]
@@ -1042,9 +1170,13 @@ def check_mha_drop(device, report):
     item = q.element_size()
     small = m.numel() * 4 + b * h * n * 4            # key mask and lse
     bytes_b = 8 * q.numel() * item + dm.numel() + small
-    rows = (("mha_fwd_lse_drop", ms_f, plain_f, lib_f, with_draw_f,
-             4 * b * n * n * d, 4 * q.numel() * item + dm.numel() + small,
-             main["e_f"], 560, "float32"),
+    bytes_f = 4 * q.numel() * item + dm.numel() + small
+    rows = (("mha_fwd_lse_drop", sum(ab_f["cuda_core"]) / 2, plain_f, lib_f,
+             with_draw_f["cuda_core"], 4 * b * n * n * d, bytes_f,
+             main["e_f"]["cuda_core"], 560, "float32"),
+            ("mha_fwd_lse_drop_tc32", sum(ab_f["tc32"]) / 2, plain_f, lib_f,
+             with_draw_f["tc32"], 3 * 4 * b * n * n * d, bytes_f,
+             main["e_f"]["tc32"], 560, "tf32"),
             ("mha_flash_bwd_drop", sum(ab_b["cuda_core"]) / 2, plain_b,
              lib_b, with_draw_b["cuda_core"], 10 * b * n * n * d, bytes_b,
              main["e_b"]["cuda_core"], 610, "float32"),
@@ -1067,14 +1199,21 @@ def check_mha_drop(device, report):
             "library_is": "efficient attention with dropout_p (draws its own "
                           "mask inside), eager",
             "ms_with_mask_draw_eager": with_draw, "mask_draw_ms_eager": draw,
-            "bytes": nbytes, "gflops": flops / 1e9}
-    print(f"  mha_fwd_lse_drop B={b} N={n} D={d} fp32 p={p} (median of 5 "
-          f"[min, max]): kernel {ms_f:.4f} [{f_lo:.4f}, {f_hi:.4f}] ms, with "
-          f"the mask draw (eager) {with_draw_f:.4f} ms (the draw alone "
-          f"{draw:.4f} ms), plain {plain_f:.4f} ms, efficient attention with "
-          f"dropout (eager) {lib_f:.4f} ms, bound "
-          f"{report['mha_fwd_lse_drop']['bound_ms']:.4f} ms "
-          f"({report['mha_fwd_lse_drop']['bound_by']})", flush=True)
+            "bytes": nbytes, "gflops": flops / 1e9,
+            "share_of_bound": max(bound_ops, bound_bytes) / ms}
+    report["mha_fwd_lse_drop_tc32"]["ms_runs"] = ab_f["tc32"]
+    report["mha_fwd_lse_drop"]["ms_runs"] = ab_f["cuda_core"]
+    new, old = report["mha_fwd_lse_drop_tc32"], report["mha_fwd_lse_drop"]
+    print(f"  mha_fwd_lse_drop B={b} N={n} D={d} fp32 p={p}, new-old-old-new: "
+          f"3xTF32 {ab_f['tc32'][0]:.4f} / {ab_f['tc32'][1]:.4f} ms, CUDA "
+          f"cores {ab_f['cuda_core'][0]:.4f} / {ab_f['cuda_core'][1]:.4f} ms; "
+          f"with the mask draw (eager) {with_draw_f['tc32']:.4f} / "
+          f"{with_draw_f['cuda_core']:.4f} ms (the draw alone {draw:.4f} "
+          f"ms), plain {plain_f:.4f} ms, efficient attention with dropout "
+          f"(eager) {lib_f:.4f} ms, bound {new['bound_ms']:.4f} ms "
+          f"({new['bound_by']}): share of the bound 3xTF32 "
+          f"{new['share_of_bound']:.3f}, CUDA cores "
+          f"{old['share_of_bound']:.3f}", flush=True)
     report["mha_flash_bwd_drop_tc32"]["ms_runs"] = ab_b["tc32"]
     report["mha_flash_bwd_drop"]["ms_runs"] = ab_b["cuda_core"]
     print(f"  mha_flash_bwd_drop same shape, new-old-old-new: 3xTF32 "
@@ -1468,10 +1607,11 @@ def plain_versions():
 
 
 @contextlib.contextmanager
-def backward_route(bwd):
-    """Every flash backward planned inside takes the route `bwd` where its
-    plan would take the 3xTF32 kernel ("tc32"): the old side of phase 8's
-    A/B of the text trainer's step."""
+def flash_routes(fwd=None, bwd=None):
+    """Every flash plan made inside without a route asked for, of a shape
+    the 3xTF32 routes take, takes the forward route `fwd` and the backward
+    route `bwd` ("tc32" or "cuda_core"; None keeps a side's default): the
+    sides of phase 8's A/B of the text trainer's step."""
     from garbage_classification_rca_tpu_torch.kernels import mha_fused
 
     plan = mha_fused.flash_plan
@@ -1480,9 +1620,9 @@ def backward_route(bwd):
                dropout=False):
         p = plan(shape, heads, dtype, route, bwd_route=bwd_route,
                  dropout=dropout)
-        if bwd_route is None and p.bwd_route == "tc32":
-            p = plan(shape, heads, dtype, route, bwd_route=bwd,
-                     dropout=dropout)
+        if route is None and bwd_route is None and p.bwd_route == "tc32":
+            p = plan(shape, heads, dtype, fwd or p.route,
+                     bwd_route=bwd or p.bwd_route, dropout=dropout)
         return p
 
     mha_fused.flash_plan = forced
@@ -1546,8 +1686,9 @@ def _kind(name: str) -> str:
             return ("mha kernel (tensor cores)" if "false>" in n
                     else "mha_fwd_lse kernel (tensor cores)")
         return "mha_flash_bwd kernels (tensor cores)"
-    if "tc32::" in n:           # the fp32 backward on 3xTF32: K4b, K7b
-        return "mha_flash_bwd kernel (3xTF32)"
+    if "tc32::" in n:           # the fp32 pair on 3xTF32: K4a / K7a, K4b / K7b
+        return ("mha_fwd_lse kernel (3xTF32)" if "fwd_kernel" in n
+                else "mha_flash_bwd kernel (3xTF32)")
     if "mha_kernel" in n:
         return "mha kernel"
     if "attn_heads_kernel" in n or "attn_out_kernel" in n:
@@ -2234,7 +2375,7 @@ def check_train(device, results):
     launches = _read_counters()
     model.cfg = cfg
     want = _want_launches(rca_fused=ACC_STEPS, rca_fused_bwd=ACC_STEPS,
-                          mha_fwd_lse_drop=6 * ACC_STEPS,
+                          mha_fwd_lse_drop_tc32=6 * ACC_STEPS,
                           mha_flash_bwd_drop_tc32=6 * ACC_STEPS)
     ok &= launches == want and loss_hf == loss_hf
     print(f"  one step with hf_internal_dropout: loss {loss_hf:.4f}, "
@@ -2245,6 +2386,17 @@ def check_train(device, results):
     model.load_state_dict(seeded)
     del seeded
     ok &= compare_train_paths(model, cfg, stack, class_weights, results)
+    # the same check with K4a on its 3xTF32 forward, which the MM-RCA path
+    # does not take by default: recorded for PERF.md, not judged
+    print("  the same check with K4a on its 3xTF32 forward (recorded, not "
+          "judged):", flush=True)
+    on_request = {}
+    with flash_routes(fwd="tc32"):
+        on_request["passes_its_bars"] = compare_train_paths(
+            model, cfg, stack, class_weights, on_request)
+    results["grad_check_k4a_tc32"] = on_request
+    print(f"  with K4a on 3xTF32 the check's bars hold: "
+          f"{on_request['passes_its_bars']}", flush=True)
     del model, stack
     torch.cuda.empty_cache()
     return ok
@@ -2891,7 +3043,7 @@ def check_text_train(device, results):
     float(step_off(stack, key.fold_in(101))[0])
     wall, losses, launches, peak = _timed_steps(
         (step_on, step_on, step_on, step_heads), stack, key, device)
-    want = _want_launches(mha_fwd_lse_drop=6 * 4,
+    want = _want_launches(mha_fwd_lse_drop_tc32=6 * 4,
                           mha_flash_bwd_drop_tc32=6 * 4)
     changed = {n: bool((p.detach() != before[n]).any())
                for n, p in model.named_parameters() if n in before}
@@ -2921,21 +3073,26 @@ def check_text_train(device, results):
         step_on, stack, key.fold_in(200), reps=3, acc_steps=1)
     results["text_train"]["profile_flag_off"] = profile_train_step(
         step_off, stack, key.fold_in(201), reps=3, acc_steps=1)
-    # the step's device time on the 3xTF32 backward and on the CUDA-core
-    # backward, in this call, new-old-old-new
+    # the step's device time with both kernels on 3xTF32 ("new"; the
+    # default with the flag), both on the CUDA cores ("old") and the 3xTF32
+    # backward beside the CUDA-core forward ("new_bwd"; the default without
+    # the flag), in this call: new, old, new_bwd, new_bwd, old, new
+    forced = {"new": dict(fwd="tc32"),
+              "old": dict(fwd="cuda_core", bwd="cuda_core"),
+              "new_bwd": dict(fwd="cuda_core")}
     for flag, step in (("on", step_on), ("off", step_off)):
-        ab = {"tc32": [], "cuda_core": []}
-        for r in ("tc32", "cuda_core", "cuda_core", "tc32"):
-            with backward_route(r):
+        ab = {r: [] for r in forced}
+        for r in ("new", "old", "new_bwd", "new_bwd", "old", "new"):
+            with flash_routes(**forced[r]):
                 ab[r].append(profile_train_step(
                     step, stack, key.fold_in(210), reps=3, acc_steps=1,
                     quiet=True)["device_ms_per_step"])
-        less = sum(ab["tc32"]) < sum(ab["cuda_core"])
-        results["text_train"][f"backward_ab_flag_{flag}"] = {
-            **ab, "tc32_less": less}
-        print(f"  distilbert, flag {flag}: device ms per step, new-old-old-"
-              f"new: 3xTF32 backward {ab['tc32']}, CUDA-core backward "
-              f"{ab['cuda_core']}; less on 3xTF32: {less}", flush=True)
+        results["text_train"][f"route_ab_flag_{flag}"] = ab
+        print(f"  distilbert, flag {flag}: device ms per step (new, old, "
+              f"new_bwd, new_bwd, old, new): both kernels on 3xTF32 "
+              f"{ab['new']}, both on the CUDA cores {ab['old']}, the 3xTF32 "
+              f"backward beside the CUDA-core forward {ab['new_bwd']}",
+              flush=True)
     mb = {k: v[0] for k, v in stack.items()}
     good, row = compare_unimodal_paths(
         "distilbert microbatch with hf_internal_dropout", model,
@@ -2945,8 +3102,8 @@ def check_text_train(device, results):
     ok &= good
     results["text_train"]["grad_check"] = row
 
-    # --seq_len=512 (config.py's exact-parity length): the backward past
-    # the 3xTF32 route's N, on the CUDA cores, with the flag and without
+    # --seq_len=512 (config.py's exact-parity length): the pair past the
+    # 3xTF32 routes' N, on the CUDA cores, with the flag and without
     stack = stack_of(SEQ512_BATCH, 512)
     for flag, step, want in (
             ("on", step_on, _want_launches(mha_fwd_lse_drop=6,
@@ -2978,7 +3135,8 @@ def check_text_train(device, results):
     stack = stack_of(BERT_TRAIN_BATCH)
     step = make(bert, True)
     wall, losses, launches, _ = _timed_steps((step,), stack, key, device)
-    want = _want_launches(mha_fwd_lse_drop=12, mha_flash_bwd_drop_tc32=12)
+    want = _want_launches(mha_fwd_lse_drop_tc32=12,
+                          mha_flash_bwd_drop_tc32=12)
     ok &= launches == want and losses[0] == losses[0]
     print(f"  bert, hf_internal_dropout: one step of {BERT_TRAIN_BATCH}: "
           f"loss {losses[0]:.4f}, launches {_shown(launches)} (want "
@@ -3115,7 +3273,7 @@ def check_train_clis(device, results):
         ("main_text", main_text, test_text,
          ["--text_model=distilbert", "--hf_internal_dropout", "--seq_len=64"],
          ["--text_model=distilbert", "--seq_len=64"], "distilbert",
-         {"mha_fwd_lse_drop": 48, "mha_flash_bwd_drop_tc32": 48,
+         {"mha_fwd_lse_drop_tc32": 48, "mha_flash_bwd_drop_tc32": 48,
           "postnorm_attn_block": 12, "postnorm_mlp_block": 12},
          {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
         ("main_image", main_image, test_image,
@@ -3352,10 +3510,11 @@ def main() -> int:
     # launches on each kernel's own main path: the MM-RCA eval path for K1 /
     # K2 (the tensor cores; the CUDA cores at --seq_len=512), its train path
     # for K3 / K4a / K4b (K1 runs on both; K4b on 3xTF32, the CUDA-core K4b
-    # in the text trainer at seq 512 without dropout), the text eval path
-    # for K5a / K5b, the image eval path for K6a / K6b, the text train path
-    # (hf_internal_dropout) for K7a / K7b (3xTF32; the CUDA-core K7b at seq
-    # 512), the image train path for the bf16 tensor-core K4a / K4b
+    # in the text trainer at seq 512 without dropout),
+    # the text eval path for K5a / K5b, the image eval path for K6a / K6b,
+    # the text train path (hf_internal_dropout) for K7a / K7b (3xTF32; the
+    # CUDA-core K7a / K7b at seq 512), the image train path for the bf16
+    # tensor-core K4a / K4b
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -3378,7 +3537,8 @@ def main() -> int:
                       ("postnorm_mlp_block", "text_eval"),
                       ("attn_block", "image_eval"),
                       ("mlp_block", "image_eval"),
-                      ("mha_fwd_lse_drop", "text_train"),
+                      ("mha_fwd_lse_drop_tc32", "text_train"),
+                      ("mha_fwd_lse_drop", "text_train_seq512"),
                       ("mha_flash_bwd_drop_tc32", "text_train"),
                       ("mha_flash_bwd_drop", "text_train_seq512"),
                       ("mha_fwd_lse_tc", "image_train"),
@@ -3400,7 +3560,8 @@ def main() -> int:
                       "image_train": results["image_train"],
                       "train_clis": results["train_clis"],
                       "grad_checks": {k: results[k] for k in (
-                          "grad_check_fp32", "grad_check_bf16")},
+                          "grad_check_fp32", "grad_check_bf16",
+                          "grad_check_k4a_tc32")},
                       "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

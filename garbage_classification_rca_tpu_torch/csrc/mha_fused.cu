@@ -26,12 +26,18 @@
 // stored scores (not online), which is what lets the weights be rounded
 // exactly as the reference rounds them. In these kernels the products run
 // on the fp32 CUDA cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles:
-// they serve fp32, head dims 32 / 128, N > 256 and the dropout forward. In
-// bf16 at head dim 64 and N <= 256 (the MM-RCA eval's DistilBERT, the ViT
-// val eval and the ViT-B/16 trainer) the eval forward and the training pair
-// have a tensor-core route of their own, mha_forward_tc /
-// mha_forward_lse_tc / mha_flash_backward_tc (namespace ftc below), which
-// kernels/mha_fused.py::flash_plan picks.
+// they serve head dims 32 / 128, fp32 at N > 64, bf16 at N > 256, the fp32
+// eval forward, the fp32 training forward without dropout (its sums are
+// taken in the plain version's order, bit for bit) and the bf16 dropout
+// forward. In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
+// DistilBERT, the ViT val eval and the ViT-B/16 trainer) the eval forward
+// and the training pair have a tensor-core route of their own,
+// mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc (namespace
+// ftc below); in fp32 at head dim 64 and N <= 64 (the DistilBERT attention
+// of the text and MM-RCA trainers) the backward, with or without dropout,
+// and the dropout forward run on 3xTF32 products, mha_flash_backward_tc32
+// / mha_forward_lse_tc32 (namespace tc32; the forward without dropout on
+// request). kernels/mha_fused.py::flash_plan picks the route.
 
 //
 // mha_flash_backward replaces ::_mha_flash_bwd (body `_bwd_kernel`): the
@@ -1433,6 +1439,28 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 // (0.062 ms at 3.35 TB/s), against 12.1 GFLOP of tf32 products (0.025 ms
 // at 495 TFLOP/s); with two blocks an SM, one block's loads run beside
 // the other's products.
+//
+// mha_forward_lse_tc32 is the forward of the same pair, K7a (dm the keep
+// mask) and K4a (dm null; flash_plan takes it only on request, PERF.md §6
+// says why), replacing ::_mha_fwd_lse_drop (body `_fwd_lse_drop_kernel`)
+// and ::_mha_fwd_lse (`_fwd_lse_kernel`: the same body without the mask)
+// in fp32 at head dim 64 and N <= 64, where the CUDA-core kernel above runs
+// its products on fp32 SIMT, stores the score rows in shared memory and
+// reads them back twice, and reads each head's K and V twice (a block per
+// 32 rows). One block per (head, sample) with the same eight warps and
+// tiles: cp.async brings Q and K, then V in a second group that lands while
+// S is formed; S = Q K^T by the backward's own function (abt: the same
+// bits, so the backward's W = exp(S - lse) meets this lse); scale, key
+// bias and causal in the plain version's order; the exact two-pass softmax
+// in registers, each row's max and sum over the quad and then over the two
+// key halves through shared memory (half 0's sum first); lse = max +
+// log(sum); wl = e / sum and, with dropout, wld = dm ? wl / keep : 0, both
+// correctly rounded by div_rn; then O = wld V with wld still in registers
+// (S's accumulator is the A fragment of the k8 steps, as dS is for dQ in
+// the backward) over each warp's 32 keys, the halves' partial sums added
+// through Q's freed tile, float2 stores. 58 KB of shared memory, three
+// blocks an SM. Bound: bytes, 107 MB at 128 x 64 x 768 with the mask
+// (0.032 ms) against 4.8 GFLOP of tf32 products (0.010 ms).
 
 namespace tc32 {
 
@@ -1446,6 +1474,12 @@ constexpr int DMS = 68;       // row stride of the keep-mask tile, in bytes
 // lse, Delta and the key bias ([64] fp32 each), the keep mask ([64][DMS]
 // bytes); kept equal to the plan's in kernels/mha_fused.py::flash_plan
 constexpr int SMEM = 6 * MAX_N * LD * 4 + 3 * MAX_N * 4 + MAX_N * DMS;
+// the forward's: Q, K and V ([64][LD] fp32 each), the key bias ([64]
+// fp32), the row max / sum of each key half ([2][2][64] fp32), the keep
+// mask ([64][DMS] bytes): 57,856 bytes, three blocks to an SM; kept equal
+// to TC32_FWD_SMEM in kernels/mha_fused.py
+constexpr int FWD_SMEM = 3 * MAX_N * LD * 4 + 5 * MAX_N * 4 + MAX_N * DMS;
+constexpr int FWD_BLOCKS = 3;  // blocks an SM the forward is compiled for
 
 // a / b rounded to nearest from rb = 1 / b (rounded to nearest): a * rb,
 // then two Markstein corrections q + (a - q b) rb, each one exact residual
@@ -1512,6 +1546,57 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   tc::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// acc = A B^T over 16 rows of A from m0 and 32 rows of B from c0, both
+// [64][LD] tiles in shared memory, depth 64, in 3xTF32: S = Q K^T in the
+// forward and in the backward (the same bits, so the backward's W = exp(S -
+// lse) meets the forward's lse), and dP = dO V^T. Accumulator element e of
+// n8 tile j: row m0 + g + 8 (e / 2), column c0 + 8 j + 2 t + e % 2.
+__device__ __forceinline__ void abt(float (&acc)[4][4], const float* A,
+                                    const float* Bt, int m0, int c0, int g,
+                                    int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float* a = A + (m0 + g) * LD + 8 * kk + t;
+    const Frag4 fa = split4(a[0], a[8 * LD], a[4], a[8 * LD + 4]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* br = Bt + (c0 + 8 * j + g) * LD + 8 * kk + t;
+      mma3(acc[j], fa, split2(br[0], br[4]));
+    }
+  }
+}
+
+// The head's N x N keep-mask bytes into DM ([64][DMS]), once, along the
+// rows: 4-byte cp.async copies where N and the mask's address allow them
+// (they land with the caller's next cp.async wait), else bytes.
+__device__ __forceinline__ void load_keep_mask(uint8_t* DM,
+                                               const uint8_t* src, int N,
+                                               bool words_ok, int tid) {
+  if (words_ok) {
+    const int words = N >> 2;
+    for (int e = tid; e < N * words; e += THREADS) {
+      const int r = e / words, c = e - r * words;
+      cp_async4(DM + r * DMS + 4 * c, src + static_cast<size_t>(r) * N + 4 * c);
+    }
+  } else {
+    for (int e = tid; e < N * N; e += THREADS) {
+      const int r = e / N;
+      DM[r * DMS + e - r * N] = src[e];
+    }
+  }
+}
+
 // MASKED / CAUSAL: a key mask / causal; DROP: the keep mask dm
 template <bool MASKED, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -1561,24 +1646,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                    1.f) * 1e30f
                 : 0.f;
   }
-  if constexpr (DROP) {
-    // the head's N x N mask bytes, once, along the rows
-    const uint8_t* src = dm + rbase * N;
-    if ((N & 3) == 0 && (reinterpret_cast<uintptr_t>(dm) & 3) == 0) {
-      const int words = N >> 2;
-      for (int e = tid; e < N * words; e += THREADS) {
-        const int r = e / words, c = e - r * words;
-        *reinterpret_cast<uint32_t*>(DM + r * DMS + 4 * c) =
-            reinterpret_cast<const uint32_t*>(src +
-                                              static_cast<size_t>(r) * N)[c];
-      }
-    } else {
-      for (int e = tid; e < N * N; e += THREADS) {
-        const int r = e / N;
-        DM[r * DMS + e - r * N] = src[e];
-      }
-    }
-  }
+  if constexpr (DROP)
+    load_keep_mask(DM, dm + rbase * N, N,
+                   (N & 3) == 0 && (reinterpret_cast<uintptr_t>(dm) & 3) == 0,
+                   tid);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -1607,24 +1678,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   // S = Q K^T and dP = dO V^T: this warp's 16 query rows, its 32 keys
   float s[4][4], dp[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const float* qa = Qs + (m0 + g) * LD + 8 * kk + t;
-    const float* oa = dOs + (m0 + g) * LD + 8 * kk + t;
-    const Frag4 aq = split4(qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]);
-    const Frag4 ao = split4(oa[0], oa[8 * LD], oa[4], oa[8 * LD + 4]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* kr = Ks + (c0 + 8 * j + g) * LD + 8 * kk + t;
-      const float* vr = Vs + (c0 + 8 * j + g) * LD + 8 * kk + t;
-      mma3(s[j], aq, split2(kr[0], kr[4]));
-      mma3(dp[j], ao, split2(vr[0], vr[4]));
-    }
-  }
+  abt(s, Qs, Ks, m0, c0, g, t);
+  abt(dp, dOs, Vs, m0, c0, g, t);
 
   // W, wld and dS per score (accumulator element e of tile j: row
   // m0 + g + 8 (e / 2), key c0 + 8 j + 2 t + e % 2); dS stays in s
@@ -1787,6 +1842,209 @@ cudaError_t backward(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The forward: out and lse of one head, DROP the keep mask dm. Warp w owns
+// query rows m0 = 16 (w % 4) .. + 16 and keys c0 = 32 (w / 4) .. + 32.
+template <bool MASKED, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(THREADS, FWD_BLOCKS)
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ mask,
+               const uint8_t* __restrict__ dm, float* __restrict__ o,
+               float* __restrict__ lse, int N, int D, float scale,
+               float keep) {
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [64][LD] each
+  float* Ks = Qs + MAX_N * LD;
+  float* Vs = Ks + MAX_N * LD;
+  float* kb = Vs + MAX_N * LD;    // [64] the key bias
+  float* red = kb + MAX_N;        // [half][max, sum][64 rows]
+  uint8_t* DM = reinterpret_cast<uint8_t*>(red + 4 * MAX_N);  // [64][DMS]
+
+  const int h = blockIdx.x, H = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (warp & 3), half = warp >> 2, c0 = 32 * half;
+  const size_t base = static_cast<size_t>(b) * N * D + h * DH;
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+
+  // Q and K, then V and the keep mask in a second group that lands while S
+  // is formed; 16 bytes a copy, rows past N zeros
+  static_assert(2 * MAX_N * 16 % THREADS == 0, "V starts a round of copies");
+  for (int e = tid; e < 3 * MAX_N * 16; e += THREADS) {
+    if (e - tid == 2 * MAX_N * 16)  // this thread's first copy of V
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int x = e >> 10, r = (e >> 4) & (MAX_N - 1), c = 4 * (e & 15);
+    float* dst = Qs + x * MAX_N * LD + r * LD + c;
+    if (r < N) {
+      const float* src = x == 0 ? q : x == 1 ? k : v;
+      cp_async16(dst, src + base + static_cast<size_t>(r) * D + c);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if constexpr (DROP)  // with V's group: needed after the softmax
+    load_keep_mask(DM, dm + rbase * N, N,
+                   (N & 3) == 0 && (reinterpret_cast<uintptr_t>(dm) & 3) == 0,
+                   tid);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int j = tid; j < MAX_N; j += THREADS)
+    kb[j] = MASKED && j < N
+                ? (static_cast<float>(mask[static_cast<size_t>(b) * N + j]) -
+                   1.f) * 1e30f
+                : 0.f;
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+
+  // S = Q K^T, then scale, key bias, causal (the plain version's order);
+  // keys past N leave the max and the sum
+  float s[4][4];
+  abt(s, Qs, Ks, m0, c0, g, t);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int hh = i >> 1, key = c0 + 8 * j + 2 * t + (i & 1);
+      float x = s[j][i] * scale;
+      if (MASKED) x += kb[key];
+      if (CAUSAL && key > m0 + g + 8 * hh) x = NEG;
+      if (key >= N) x = -INFINITY;
+      s[j][i] = x;
+      mx[hh] = fmaxf(mx[hh], x);
+    }
+  // the row max: over the quad, then the two key halves through `red`
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    if (t == 0) red[half * 2 * MAX_N + m0 + g + 8 * hh] = mx[hh];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // V is in place, Q is free, both halves' maxima too
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + g + 8 * hh;
+    mx[hh] = fmaxf(red[row], red[2 * MAX_N + row]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = expf(s[j][i] - mx[i >> 1]);
+      sum[i >> 1] += s[j][i];
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    if (t == 0) red[(2 * half + 1) * MAX_N + m0 + g + 8 * hh] = sum[hh];
+  }
+  __syncthreads();
+  // the row sum, half 0's part first; lse; wl = e / sum correctly rounded,
+  // then wld = dm ? wl / keep : 0; rows past N get 0
+  const float rkeep = 1.f / keep;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + g + 8 * hh;
+    const float tot = red[MAX_N + row] + red[3 * MAX_N + row];
+    const float rs = 1.f / tot;
+    if (half == 0 && t == 0 && row < N) lse[rbase + row] = mx[hh] + logf(tot);
+    uint32_t kept = 0x01010101u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = c0 + 8 * j + 2 * t;
+      if constexpr (DROP)
+        kept = *reinterpret_cast<const uint16_t*>(DM + row * DMS + key);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float w = div_rn(s[j][2 * hh + e], tot, rs);
+        if constexpr (DROP)
+          w = (kept >> (8 * e)) & 0xffu ? div_rn(w, keep, rkeep) : 0.f;
+        s[j][2 * hh + e] = row < N ? w : 0.f;
+      }
+    }
+  }
+
+  // O = wld V over this warp's 32 keys, all 64 columns: wld from the
+  // registers (k = t: key c0 + 8 kk + 2 t, k = t + 4: the key after), V
+  // read down its rows; the two halves' sums meet below
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const Frag4 a = split4(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+    const float* vr = Vs + (c0 + 8 * kk + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mma3(acc[n], a, split2(vr[8 * n], vr[LD + 8 * n]));
+  }
+  // the other half's columns of this warp's sum go through Q's tile
+  float* P = Qs;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if ((n >> 2) == half) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(P + (m0 + g + 8 * hh) * LD + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + g + 8 * hh;
+    if (row >= N) continue;
+    float* out = o + base + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if ((n >> 2) != half) continue;
+      const float2 y = *reinterpret_cast<const float2*>(P + row * LD +
+                                                        8 * n + 2 * t);
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * hh] + y.x, acc[n][2 * hh + 1] + y.y);
+    }
+  }
+}
+
+// The plan of kernels/mha_fused.py::flash_plan's "tc32" forward (one block
+// per (head, sample), FWD_SMEM bytes), checked against what the kernel
+// takes.
+cudaError_t forward(const void* q, const void* k, const void* v,
+                    const int* mask, const uint8_t* dm, void* o, float* lse,
+                    int B, int N, int D, int heads, float scale, int causal,
+                    float keep, dim3 grid, int smem, cudaStream_t stream) {
+  if (B <= 0 || heads <= 0 || D != heads * DH || N < 1 || N > MAX_N ||
+      grid.x != unsigned(heads) || grid.y != unsigned(B) || grid.z != 1 ||
+      smem != FWD_SMEM || !lse || (dm && !(keep > 0.f)) ||
+      !ftc::aligned16({q, k, v, o}))
+    return cudaErrorInvalidValue;
+  using Kern = void (*)(const float*, const float*, const float*, const int*,
+                        const uint8_t*, float*, float*, int, int, float,
+                        float);
+  Kern kern;
+  if (dm)
+    kern = mask ? (causal ? fwd_kernel<true, true, true>
+                          : fwd_kernel<true, false, true>)
+                : (causal ? fwd_kernel<false, true, true>
+                          : fwd_kernel<false, false, true>);
+  else
+    kern = mask ? (causal ? fwd_kernel<true, true, false>
+                          : fwd_kernel<true, false, false>)
+                : (causal ? fwd_kernel<false, true, false>
+                          : fwd_kernel<false, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, dm, static_cast<float*>(o), lse, N,
+      D, scale, dm ? keep : 1.f);
+  return cudaGetLastError();
+}
+
 }  // namespace tc32
 
 }  // namespace
@@ -1942,4 +2200,23 @@ extern "C" int mha_flash_backward_tc32(
       static_cast<const int*>(mask), static_cast<const uint8_t*>(dm), dq, dk,
       dv, B, N, D, heads, scale, causal, keep, dim3(gx, gy, gz), smem,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The fp32 training forward on the tensor cores (3xTF32; head dim 64, 1 <= N
+// <= 64): mha_forward_lse (dm null) or mha_forward_lse_drop (dm the keep
+// mask, keep = 1 - p > 0) in one kernel on grid = (heads, B, 1) with `smem`
+// bytes, the "tc32" forward of kernels/mha_fused.py::flash_plan as it is,
+// refused (cudaErrorInvalidValue) for another plan; q / k / v / o float32,
+// 16-byte aligned; lse [B, heads, N] float32.
+extern "C" int mha_forward_lse_tc32(const void* q, const void* k,
+                                    const void* v, const void* mask,
+                                    const void* dm, void* o, void* lse, int B,
+                                    int N, int D, int heads, float scale,
+                                    int causal, float keep, int gx, int gy,
+                                    int gz, int smem, void* stream) {
+  if (B <= 0) return 0;
+  return static_cast<int>(tc32::forward(
+      q, k, v, static_cast<const int*>(mask), static_cast<const uint8_t*>(dm),
+      o, static_cast<float*>(lse), B, N, D, heads, scale, causal, keep,
+      dim3(gx, gy, gz), smem, static_cast<cudaStream_t>(stream)));
 }

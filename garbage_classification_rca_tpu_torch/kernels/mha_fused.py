@@ -30,19 +30,21 @@ Each call takes a route on the card, chosen by the host-side plan
 ``flash_plan``: the forwards (``mha``, ``mha_fwd_lse``) in bf16 at head dim
 64 and N <= 256 on the tensor cores ("tc": wgmma products fed by TMA, the
 exact two-pass softmax in registers), and so the plain backward; the fp32
-backward at head dim 64 and N <= 64, with or without dropout, in one fused
-kernel on 3xTF32 tensor-core products ("tc32"); every other shape, and the
-dropout forward, on the fp32 CUDA-core kernels ("cuda_core"). A failure of
-any route raises; none gives way to another. ``launch_mha`` /
-``launch_fwd_lse`` / ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run
-a given plan (the A/B timing of the routes).
+backward at head dim 64 and N <= 64, with or without dropout, and the
+fp32 dropout forward at those shapes on 3xTF32 tensor-core products
+("tc32": one kernel a side, a block per (head, sample)); every other
+shape, the fp32 eval forward and the fp32 training forward without
+dropout on the fp32 CUDA-core kernels ("cuda_core"; the last takes "tc32"
+on request). A failure of any route raises; none gives way to another.
+``launch_mha`` / ``launch_fwd_lse`` / ``launch_fwd_lse_drop`` /
+``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run a given plan (the A/B
+timing of the routes).
 
 The wrappers run the plain versions for tensors on the CPU and the kernels
 for tensors on a CUDA device; ``mha.launches``, ``mha_fwd_lse.launches``,
 ``mha_flash_bwd.launches``, ``mha_fwd_lse_drop.launches`` and
-``mha_flash_bwd_drop.launches`` count kernel launches, and the
-``route_launches`` of ``mha``, ``mha_fwd_lse``, ``mha_flash_bwd`` and
-``mha_flash_bwd_drop`` count them by route.
+``mha_flash_bwd_drop.launches`` count kernel launches, and their
+``route_launches`` count them by route.
 """
 
 from __future__ import annotations
@@ -62,13 +64,17 @@ TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
 TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
 TC_TILE = 64         # registers)
 _TC_BOX = TC_TILE * TC_HEAD_DIM * 2   # one 64 x 64 bf16 tile in shared memory
-TC32_HEAD_DIM = 64   # the fp32 backward's tensor-core route (3xTF32): head
-TC32_MAX_N = 64      # dim 64, N <= 64, the whole head in one block
+TC32_HEAD_DIM = 64   # the fp32 training pair's tensor-core route (3xTF32):
+TC32_MAX_N = 64      # head dim 64, N <= 64, the whole head in one block
 _TC32_LD = 68        # its tiles' row stride (floats; the mask's, bytes)
 # csrc/mha_fused.cu tc32::SMEM: Q, K, V, dO, wld and dS tiles, lse / Delta /
 # key bias, the keep-mask bytes
 TC32_SMEM = (6 * TC32_MAX_N * _TC32_LD * 4 + 3 * TC32_MAX_N * 4
              + TC32_MAX_N * _TC32_LD)
+# tc32::FWD_SMEM: Q, K and V tiles, the key bias and each key half's row max
+# and sum, the keep-mask bytes (three blocks to an SM)
+TC32_FWD_SMEM = (3 * TC32_MAX_N * _TC32_LD * 4 + 5 * TC32_MAX_N * 4
+                 + TC32_MAX_N * _TC32_LD)
 
 
 def _heads(a, heads):
@@ -202,6 +208,8 @@ def launch_mha(plan: "FlashPlan", q, k, v, *, heads: int, scale: float = 0.0,
     _kernel_args([q, k, v, mask], b, d, heads)
     if q.device.type != "cuda":
         raise ValueError("launch_mha takes CUDA tensors")
+    if plan.route not in mha.route_launches:
+        raise ValueError(f"mha has no {plan.route!r} route")
     from . import _build
 
     lib = _build.library("mha_fused")
@@ -240,19 +248,23 @@ mha.route_launches = {"tc": 0, "cuda_core": 0}
 @dataclass(frozen=True)
 class FlashPlan:
     """How one attention call (``mha``, the flash pair ``mha_fwd_lse`` /
-    ``mha_flash_bwd``, the dropout pair's backward) runs on the card.
-    `route`: the forward's, "tc" (bf16, head dim 64, N <= 256: wgmma
-    products fed by TMA, ``csrc/mha_fused.cu`` namespace ``ftc``) or
-    "cuda_core" (every other shape: the fp32 CUDA-core kernels).
+    ``mha_flash_bwd``, the dropout pair ``mha_fwd_lse_drop`` /
+    ``mha_flash_bwd_drop``) runs on the card. `route`: the forward's, "tc"
+    (bf16, head dim 64, N <= 256: wgmma products fed by TMA,
+    ``csrc/mha_fused.cu`` namespace ``ftc``), "tc32" (the fp32 training
+    forward, with or without dropout, at head dim 64 and N <= 64: one
+    kernel per (head, sample) on 3xTF32 products, namespace ``tc32``; the
+    eval forward ``mha`` has none) or "cuda_core" (every other shape: the
+    fp32 CUDA-core kernels).
     `bwd_route`: the backward's, "tc" (as the forward), "tc32" (fp32, head
     dim 64, N <= 64, with or without dropout: one fused kernel on 3xTF32
-    products, namespace ``tc32``) or "cuda_core". `np`: the keys the
-    tensor-core score products cover (N rounded up to 16 where a route is
-    "tc", else N). Grids (x, y, z) and dynamic shared memory in bytes of the
-    forward, and of the backward's dQ kernel and dK / dV kernel; the "tc32"
-    backward is one kernel, on grid_dq with smem_dq (grid_dkdv empty). The
-    C entries of the tensor-core routes launch exactly this plan and refuse
-    any other; the "cuda_core" entries compute the same grids themselves."""
+    products) or "cuda_core". `np`: the keys the tensor-core score products
+    cover (N rounded up to 16 where a route is "tc", else N). Grids
+    (x, y, z) and dynamic shared memory in bytes of the forward, and of the
+    backward's dQ kernel and dK / dV kernel; the "tc32" backward is one
+    kernel, on grid_dq with smem_dq (grid_dkdv empty). The C entries of the
+    tensor-core routes launch exactly this plan and refuse any other; the
+    "cuda_core" entries compute the same grids themselves."""
     route: str
     np: int
     grid_fwd: Tuple[int, int, int]
@@ -268,9 +280,14 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
                bwd_route: Optional[str] = None,
                dropout: bool = False) -> FlashPlan:
     """The launch plan of an attention call on q / k / v of `shape`
-    [B, N, D] with `heads` heads (`dropout`: the dropout pair, whose
-    forward has no tensor-core route): each side on the tensor cores where
-    a route takes the shape, else "cuda_core". `route` asks for the
+    [B, N, D] with `heads` heads (`dropout`: the dropout pair, which has no
+    "tc" route): each side on the tensor cores where a route takes the
+    shape, else "cuda_core". The fp32 forward without dropout keeps
+    "cuda_core" unless asked for "tc32": the CUDA-core kernel takes the
+    same fp32 fused multiply-adds in the same order as the plain version's
+    products, bit for bit, and the 3xTF32 kernel's fp32-level differences
+    move bf16 roundings downstream in the MM-RCA trainer past what its
+    kernel-vs-plain gradient check holds (PERF.md §6). `route` asks for the
     forward's route and, unless `bwd_route` is given too, the backward's
     (the A/B timing of the routes); a route that does not take the shape
     raises."""
@@ -290,10 +307,11 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
                  and n <= TC32_MAX_N)
     if route is not None and bwd_route is None:
         bwd_route = route
-    route = route or ("tc" if tc_fits else "cuda_core")
+    route = route or ("tc" if tc_fits else "tc32" if tc32_fits and dropout
+                      else "cuda_core")
     bwd_route = bwd_route or ("tc" if tc_fits else
                               "tc32" if tc32_fits else "cuda_core")
-    if route not in ("tc", "cuda_core"):
+    if route not in ("tc", "tc32", "cuda_core"):
         raise ValueError(f"unknown route {route!r}")
     if bwd_route not in ("tc", "tc32", "cuda_core"):
         raise ValueError(f"unknown backward route {bwd_route!r}")
@@ -301,8 +319,8 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
         raise ValueError(f"the tensor-core route takes bfloat16, head dim "
                          f"{TC_HEAD_DIM}, N <= {TC_MAX_N}, no dropout; got "
                          f"{tuple(shape)} with {heads} heads in {dtype}")
-    if bwd_route == "tc32" and not tc32_fits:
-        raise ValueError(f"the 3xTF32 backward takes float32, head dim "
+    if "tc32" in (route, bwd_route) and not tc32_fits:
+        raise ValueError(f"the 3xTF32 route takes float32, head dim "
                          f"{TC32_HEAD_DIM}, N <= {TC32_MAX_N}; got "
                          f"{tuple(shape)} with {heads} heads in {dtype}")
     nt = -(-n // TC_TILE)
@@ -317,6 +335,8 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
         # the formula of ftc::fwd_smem: K, V and Q tiles, per-key floats,
         # mbarriers, + 1 KB for the 128-byte swizzle's alignment
         fwd = (grid, 3 * nt * _TC_BOX + TC_MAX_N * 4 + 2 * 8 + 1024)
+    elif route == "tc32":
+        fwd = (grid, TC32_FWD_SMEM)
     else:
         fwd = (grid_cc, 4 * (96 * ldh + 32 * n))
     if bwd_route == "tc":
@@ -349,7 +369,9 @@ def _tc_aligned(name, tensors):
 def mha_fwd_lse(q, k, v, *, heads: int, scale: float = 0.0,
                 mask: Optional[torch.Tensor] = None, causal: bool = False):
     """The training forward: (out [B, N, D] in q's dtype, lse [B, H, N]
-    fp32). On the card it runs ``flash_plan``'s route."""
+    fp32). On the card it runs ``flash_plan``'s route ("tc" for bf16 at
+    head dim 64 and N <= 256, else "cuda_core"; ``launch_fwd_lse`` takes
+    "tc32" too)."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_fwd_lse_reference(q, k, v, heads=heads, scale=scale,
@@ -361,8 +383,8 @@ def mha_fwd_lse(q, k, v, *, heads: int, scale: float = 0.0,
 def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
                    scale: float = 0.0, mask: Optional[torch.Tensor] = None,
                    causal: bool = False):
-    """``mha_fwd_lse`` on CUDA tensors under `plan` (``flash_plan`` of this
-    shape, either route)."""
+    """``mha_fwd_lse`` on CUDA tensors under the forward route of `plan`
+    (``flash_plan`` of this shape, any route that takes it)."""
     _check(q, k, v, heads, mask)
     b, n, d = q.shape
     _kernel_args([q, k, v, mask], b, d, heads)
@@ -378,7 +400,10 @@ def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
             lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "tc":
+        if plan.route == "tc32":
+            err = _launch_fwd_tc32(lib, plan, q, k, v, o, lse, mask, None,
+                                   1.0, heads, scale, causal, stream)
+        elif plan.route == "tc":
             _tc_aligned("mha_fwd_lse", (q, k, v))
             fn = lib.mha_forward_lse_tc
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
@@ -402,7 +427,25 @@ def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
 
 
 mha_fwd_lse.launches = 0
-mha_fwd_lse.route_launches = {"tc": 0, "cuda_core": 0}
+mha_fwd_lse.route_launches = {"tc": 0, "tc32": 0, "cuda_core": 0}
+
+
+def _launch_fwd_tc32(lib, plan, q, k, v, o, lse, mask, dm, keep, heads,
+                     scale, causal, stream):
+    """The 3xTF32 forward under `plan` into `o` / `lse`: its CUDA error."""
+    b, n, d = q.shape
+    _tc_aligned("the 3xTF32 forward", (q, k, v, o))
+    fn = lib.mha_forward_lse_tc32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              mask.data_ptr() if mask is not None else None,
+              dm.data_ptr() if dm is not None else None, o.data_ptr(),
+              lse.data_ptr(), b, n, d, heads, _scale(d, heads, scale),
+              int(bool(causal)), float(keep), *plan.grid_fwd, plan.smem_fwd,
+              stream)
 
 
 def mha_flash_bwd(q, k, v, o, do, lse, *, heads: int, scale: float = 0.0,
@@ -515,7 +558,8 @@ def flash_train_fits(shape, heads: int, dtype) -> bool:
     bf16, head dims 32 / 64 / 128, 1 <= N <= 512 (the CUDA-core forward
     holds 32 fp32 score rows of N in shared memory), B <= 65535. Within
     that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to the
-    tensor-core route and the rest to the CUDA-core kernels."""
+    "tc" route, the fp32 backward at head dim 64 and N <= 64 to "tc32" and
+    the rest to the CUDA-core kernels."""
     b, n, d = shape
     return (dtype in _DTYPES and heads > 0 and d % heads == 0
             and d // heads in HEAD_DIMS and 1 <= n <= MAX_N and b <= 65535)
@@ -624,39 +668,66 @@ def mha_fwd_lse_drop(q, k, v, dm, *, heads: int, keep: float,
                      causal: bool = False):
     """The training forward with dropout on the softmax weights: (out
     [B, N, D] in q's dtype, lse [B, H, N] fp32, of the scores before
-    dropout). dm: uint8 [B, H, N, N] keep mask; keep = 1 - p."""
+    dropout). dm: uint8 [B, H, N, N] keep mask; keep = 1 - p. On the card
+    it runs ``flash_plan(..., dropout=True)``'s forward route ("tc32" for
+    fp32 at head dim 64 and N <= 64, else "cuda_core")."""
     _check(q, k, v, heads, mask)
     _check_drop(q, dm, heads, keep)
     if q.device.type == "cpu":
         return mha_fwd_lse_drop_reference(q, k, v, dm, heads=heads,
                                           keep=keep, scale=scale, mask=mask,
                                           causal=causal)
+    return launch_fwd_lse_drop(
+        flash_plan(q.shape, heads, q.dtype, dropout=True), q, k, v, dm,
+        heads=heads, keep=keep, scale=scale, mask=mask, causal=causal)
+
+
+def launch_fwd_lse_drop(plan: FlashPlan, q, k, v, dm, *, heads: int,
+                        keep: float, scale: float = 0.0,
+                        mask: Optional[torch.Tensor] = None,
+                        causal: bool = False):
+    """``mha_fwd_lse_drop`` on CUDA tensors under the forward route of
+    `plan` (``flash_plan(..., dropout=True)`` of this shape: "tc32" or
+    "cuda_core")."""
+    _check(q, k, v, heads, mask)
+    _check_drop(q, dm, heads, keep)
     b, n, d = q.shape
     _kernel_args([q, k, v, mask, dm], b, d, heads)
+    if q.device.type != "cuda":
+        raise ValueError("launch_fwd_lse_drop takes CUDA tensors")
+    route = plan.route
+    if route not in mha_fwd_lse_drop.route_launches:
+        raise ValueError(f"the dropout forward has no {route!r} route")
     from . import _build
 
-    fn = _build.library("mha_fused").mha_forward_lse_drop
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.library("mha_fused")
     o = torch.empty_like(q)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 dm.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, d, heads,
-                 _scale(d, heads, scale), int(bool(causal)), float(keep),
-                 _DTYPES[q.dtype], stream)
+        if route == "tc32":
+            err = _launch_fwd_tc32(lib, plan, q, k, v, o, lse, mask, dm, keep,
+                                   heads, scale, causal, stream)
+        else:
+            fn = lib.mha_forward_lse_drop
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     mask.data_ptr() if mask is not None else None,
+                     dm.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, d,
+                     heads, _scale(d, heads, scale), int(bool(causal)),
+                     float(keep), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"mha_fwd_lse_drop kernel launch failed: CUDA "
-                           f"error {err}")
-    mha_fwd_lse_drop.launches += 1
+        raise RuntimeError(f"mha_fwd_lse_drop kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
+    _count(mha_fwd_lse_drop, route)
     return o, lse
 
 
 mha_fwd_lse_drop.launches = 0
+mha_fwd_lse_drop.route_launches = {"tc32": 0, "cuda_core": 0}
 
 
 def mha_flash_bwd_drop(q, k, v, o, do, lse, dm, *, heads: int, keep: float,

@@ -15,8 +15,9 @@ than the plain version: its bf16 output is held to one ulp + the larger of
 dQ and dK are zero in exact arithmetic, to the rounding of the two dot
 products they come from (``_single_key_close``). K2's tensor-core route
 (bf16, head dim 64, N <= 256) is held to ``mha_reference`` the same way;
-the fp32 backward's 3xTF32 route (K4b and K7b at head dim 64, N <= 64) to
-the fp32 bar, its gradients bit-identical over two runs."""
+the fp32 training pair's 3xTF32 route (K4a / K7a and K4b / K7b at head
+dim 64, N <= 64) to the fp32 bars (1e-5 + 1e-5 |x| forward, 5e-5 (1 + |x|)
+backward), its outputs bit-identical over two runs."""
 
 import types
 
@@ -743,3 +744,177 @@ def test_fp32_backward_tc32_entry_refuses_another_plan(cuda):
     assert (mha_fused.mha_flash_bwd.route_launches,
             mha_fused.mha_flash_bwd_drop.route_launches) == before
 
+
+# the fp32 training forward's 3xTF32 route (flash_plan's "tc32" forward:
+# head dim 64, N <= 64, K4a and K7a), held to the plain forward at the fp32
+# bar 1e-5 + 1e-5 |x| on out and lse
+
+def _fwd_close(got, want):
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("masked,causal", [(False, False), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("n", [1, 17, 63, 64])
+def test_fp32_forward_tc32_route_matches_plain(cuda, n, masked, causal, p):
+    """K7a, and K4a (p 0) asked for the route, on the 3xTF32 forward: out
+    and lse within the fp32 bar of the plain forward (a fully masked sample
+    where masked, a fully dropped row with dropout), bit-identical over two
+    runs, counted on its route."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, _, m = _fp32_inputs(3, n, 256, 60 + n, cuda)
+    kw = dict(heads=4, mask=m if masked else None, causal=causal)
+    if p:
+        dm = mha_fused.drop_keep_mask(Key(n + 1), p, 3, 4, n, cuda)
+        dm[0, 0, 0] = 0                               # a fully dropped row
+        fn = mha_fused.mha_fwd_lse_drop
+        want = mha_fused.mha_fwd_lse_drop_reference(q, k, v, dm,
+                                                    keep=1.0 - p, **kw)
+    else:
+        fn = mha_fused.mha_fwd_lse
+        want = mha_fused.mha_fwd_lse_reference(q, k, v, **kw)
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype, route="tc32",
+                                dropout=bool(p))
+    if p:
+        assert mha_fused.flash_plan(q.shape, 4, q.dtype,
+                                    dropout=True).route == "tc32"
+        call = lambda: mha_fused.launch_fwd_lse_drop(plan, q, k, v, dm,
+                                                     keep=1.0 - p, **kw)
+    else:                                 # K4a: "tc32" on request
+        call = lambda: mha_fused.launch_fwd_lse(plan, q, k, v, **kw)
+    before = dict(fn.route_launches)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert fn.route_launches == {**before, "tc32": before["tc32"] + 2}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _fwd_close(got, want)
+    if p:
+        assert bool((got[0][0, 0, :64] == 0).all())
+
+
+@pytest.mark.parametrize("b,p", [(128, 0.1), (16, 0.0), (128, 0.0)])
+def test_fp32_forward_tc32_at_the_train_shapes_and_beside_the_old_route(
+        cuda, b, p):
+    """128 x 64 x 768 with p 0.1 (the text trainer's DistilBERT with
+    --hf_internal_dropout), 16 x 64 x 768 (the MM-RCA trainer's) and
+    128 x 64 x 768 without dropout: the 3xTF32 forward and the CUDA-core
+    forward on the same inputs, each within the fp32 bar of the plain
+    forward; N = 65 goes to the CUDA cores."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, _, m = _fp32_inputs(b, 64, 768, 79, cuda, fully_masked=False)
+    new, old = (mha_fused.flash_plan(q.shape, 12, q.dtype, route=r,
+                                     dropout=bool(p))
+                for r in ("tc32", "cuda_core"))
+    # the default: K7a on 3xTF32, K4a on the CUDA cores
+    assert mha_fused.flash_plan(q.shape, 12, q.dtype,
+                                dropout=bool(p)).route == (
+        "tc32" if p else "cuda_core")
+    if p:
+        dm = mha_fused.drop_keep_mask(Key(4), p, b, 12, 64, cuda)
+        runs = [mha_fused.launch_fwd_lse_drop(plan, q, k, v, dm, heads=12,
+                                              keep=1.0 - p, mask=m)
+                for plan in (new, old)]
+        want = mha_fused.mha_fwd_lse_drop_reference(q, k, v, dm, heads=12,
+                                                    keep=1.0 - p, mask=m)
+    else:
+        runs = [mha_fused.launch_fwd_lse(plan, q, k, v, heads=12, mask=m)
+                for plan in (new, old)]
+        want = mha_fused.mha_fwd_lse_reference(q, k, v, heads=12, mask=m)
+    torch.cuda.synchronize()
+    for got in runs:
+        _fwd_close(got, want)
+    q, k, v, _, _ = _fp32_inputs(2, 65, 768, 80, cuda)
+    before = dict(mha_fused.mha_fwd_lse.route_launches)
+    mha_fused.mha_fwd_lse(q, k, v, heads=12)
+    assert mha_fused.mha_fwd_lse.route_launches == {
+        **before, "cuda_core": before["cuda_core"] + 1}
+
+
+def test_fp32_forward_tc32_entry_refuses_another_plan(cuda):
+    """mha_forward_lse_tc32 launches the plan it is given or none; neither
+    forward route gives way to the other."""
+    import dataclasses
+
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, _, _ = _fp32_inputs(2, 40, 256, 11, cuda)
+    plan = mha_fused.flash_plan(q.shape, 4, q.dtype, route="tc32")
+    dm = mha_fused.drop_keep_mask(Key(2), 0.1, 2, 4, 40, cuda)
+    before = (dict(mha_fused.mha_fwd_lse.route_launches),
+              dict(mha_fused.mha_fwd_lse_drop.route_launches))
+    for bad in (dataclasses.replace(plan, smem_fwd=plan.smem_fwd - 16),
+                dataclasses.replace(plan, smem_fwd=mha_fused.TC32_SMEM),
+                dataclasses.replace(plan, grid_fwd=(4, 1, 1)),
+                dataclasses.replace(plan, grid_fwd=(2, 2, 1))):
+        with pytest.raises(RuntimeError, match="tc32 route"):
+            mha_fused.launch_fwd_lse(bad, q, k, v, heads=4)
+        with pytest.raises(RuntimeError, match="tc32 route"):
+            mha_fused.launch_fwd_lse_drop(bad, q, k, v, dm, heads=4,
+                                          keep=0.9)
+    # a plan of a longer N (the route's limit is 64), and head dim 32
+    x, _, _, _, _ = _fp32_inputs(2, 65, 256, 12, cuda)
+    bad = dataclasses.replace(
+        mha_fused.flash_plan(x.shape, 4, x.dtype), route="tc32",
+        grid_fwd=(4, 2, 1), smem_fwd=mha_fused.TC32_FWD_SMEM)
+    with pytest.raises(RuntimeError):
+        mha_fused.launch_fwd_lse(bad, x, x, x, heads=4)
+    with pytest.raises(RuntimeError):
+        mha_fused.launch_fwd_lse(dataclasses.replace(plan, grid_fwd=(8, 2, 1)),
+                                 q, k, v, heads=8)
+    with pytest.raises(ValueError, match="no 'tc' route"):
+        mha_fused.launch_fwd_lse_drop(dataclasses.replace(plan, route="tc"),
+                                      q, k, v, dm, heads=4, keep=0.9)
+    with pytest.raises(ValueError, match="no 'tc32' route"):
+        mha_fused.launch_mha(plan, q, k, v, heads=4)
+    assert (mha_fused.mha_fwd_lse.route_launches,
+            mha_fused.mha_fwd_lse_drop.route_launches) == before
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_train_autograd_on_the_default_routes_matches_plain(cuda, p):
+    """``mha_flash_train`` / ``mha_flash_train_dropout`` at 8 x 64 x 768
+    on their default routes (with dropout both kernels on 3xTF32; without,
+    the CUDA-core forward and the 3xTF32 backward) under autograd against
+    autograd of the plain forward on the same keep mask, one launch of
+    each on its route.
+    No sample is fully masked here: the flash backward, as the JAX pair's,
+    recomputes W = exp(S - lse), and for such a row lse = -1e30 + log N
+    rounds to -1e30, so W is 1 where autograd of the plain forward has
+    1 / N (the kernels are held to the plain pair there, above)."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    q, k, v, do, m = _fp32_inputs(8, 64, 768, 81, cuda, fully_masked=False)
+    fwd, bwd = ((mha_fused.mha_fwd_lse_drop, mha_fused.mha_flash_bwd_drop)
+                if p else (mha_fused.mha_fwd_lse, mha_fused.mha_flash_bwd))
+    route = "tc32" if p else "cuda_core"
+    before = (fwd.route_launches[route], bwd.route_launches["tc32"])
+
+    def grads(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            (fn(*x) * do).sum().backward()
+        return [t.grad for t in x]
+
+    if p:
+        key = Key(6)
+        got = grads(lambda a, b, c: mha_fused.mha_flash_train_dropout(
+            a, b, c, heads=12, key=key, p=p, mask=m))
+        dm = mha_fused.drop_keep_mask(key, p, 8, 12, 64, cuda)
+        want = grads(lambda a, b, c: mha_fused.mha_fwd_lse_drop_reference(
+            a, b, c, dm, heads=12, keep=1.0 - p, mask=m)[0])
+    else:
+        got = grads(lambda a, b, c: mha_fused.mha_flash_train(
+            a, b, c, heads=12, mask=m))
+        want = grads(lambda a, b, c: mha_fused.mha_reference(
+            a, b, c, heads=12, mask=m))
+    torch.cuda.synchronize()
+    assert (fwd.route_launches[route], bwd.route_launches["tc32"]) == (
+        before[0] + 1, before[1] + 1)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        _grad_close(x, y, torch.float32)

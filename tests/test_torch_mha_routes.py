@@ -1,7 +1,8 @@
 """PyTorch port, the routes of K2 (``mha``, the eval attention) and of the
-fp32 flash backward (K4b ``mha_flash_bwd`` and K7b ``mha_flash_bwd_drop``)
-on the card, and the numerics they rest on (CPU tensors; the kernels
-themselves run on the card: ``tests/test_torch_gpu.py``):
+fp32 flash pair (K4a ``mha_fwd_lse`` / K4b ``mha_flash_bwd`` and K7a
+``mha_fwd_lse_drop`` / K7b ``mha_flash_bwd_drop``) on the card, and the
+numerics they rest on (CPU tensors; the kernels themselves run on the card:
+``tests/test_torch_gpu.py``):
 
   * ``flash_plan``'s forward route, which ``mha`` takes: the tensor cores
     ("tc") for bf16 at head dim 64 and 1 <= N <= 256, the CUDA cores for
@@ -11,6 +12,10 @@ themselves run on the card: ``tests/test_torch_gpu.py``):
     a block per (head, sample) whose shared memory lets two blocks share
     an SM; longer N, other head dims and bf16 dropout stay on the CUDA
     cores; route requests for the A/B, and refusals;
+  * the fp32 training forward's route: K7a (with dropout) takes "tc32" at
+    the same shapes, one kernel per (head, sample) on 3xTF32 products whose
+    shared memory lets three blocks share an SM; K4a (without) keeps the
+    CUDA cores and takes "tc32" on request;
   * ``mha_reference`` (what ``mha`` runs on the CPU and what the card's
     kernels are held to) against the Pallas ``mha`` in interpret mode at
     the tensor-core route's lengths, key-masked, causal and with a fully
@@ -25,7 +30,13 @@ themselves run on the card: ``tests/test_torch_gpu.py``):
     ``_mha_flash_bwd`` (interpret) at 64 x 64 x 768, p 0.1; one TF32 pass
     (hi.hi alone) does not. (A fully masked sample under causal masking is
     held to the port's plain pair: the Pallas kernels add the causal mask
-    as a bias there, ``tests/test_torch_mha_tc.py``.)
+    as a bias there, ``tests/test_torch_mha_tc.py``.) The forward in the
+    kernel's own order (``_mm_k8``: one fp32 accumulator, each k8 step
+    adding lo.hi, hi.lo, hi.hi, modelled as exact 8-term sums rounded to
+    nearest; wld V over each 32-key half, the halves added) lands within
+    the fp32 forward bar 1e-5 + 1e-5 |x| of the Pallas ``_mha_fwd_lse`` /
+    ``_mha_fwd_lse_drop`` (interpret) at N = 64, also where |S| reaches
+    30; one TF32 pass does not.
 """
 
 import jax
@@ -89,7 +100,10 @@ def test_mha_on_cpu_runs_the_plain_version_on_any_route():
 @pytest.mark.parametrize("dropout", [False, True])
 def test_fp32_backward_route_is_the_fused_3xtf32_kernel(n, dropout):
     plan = K.flash_plan((128, n, 768), 12, FP32, dropout=dropout)
-    assert (plan.route, plan.bwd_route) == ("cuda_core", "tc32")
+    # the dropout pair's forward takes the 3xTF32 forward too; without
+    # dropout the forward keeps the CUDA cores unless asked
+    assert (plan.route, plan.bwd_route) == (
+        "tc32" if dropout else "cuda_core", "tc32")
     # one block per (head, sample), one kernel: no dK / dV grid
     assert plan.grid_dq == (12, 128, 1) and plan.grid_dkdv == (0, 0, 0)
     assert plan.smem_dq == K.TC32_SMEM and plan.smem_dkdv == 0
@@ -147,6 +161,82 @@ def test_backward_launch_helpers_refuse_cpu_tensors():
                                               "cuda_core": 0}
     assert K.mha_flash_bwd_drop.route_launches == {"tc32": 0,
                                                    "cuda_core": 0}
+
+
+@pytest.mark.parametrize("n", [1, 17, 64])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_fp32_forward_route_is_the_3xtf32_kernel(n, dropout):
+    # K7a by default, K4a on request (its default stays the CUDA cores)
+    default = K.flash_plan((128, n, 768), 12, FP32, dropout=dropout)
+    assert default.route == ("tc32" if dropout else "cuda_core")
+    plan = K.flash_plan((128, n, 768), 12, FP32, dropout=dropout,
+                        route=None if dropout else "tc32")
+    assert (plan.route, plan.bwd_route, plan.np) == ("tc32", "tc32", n)
+    # one block per (head, sample) on both sides
+    assert plan.grid_fwd == plan.grid_dq == (12, 128, 1)
+    assert plan.smem_fwd == K.TC32_FWD_SMEM
+    # Q, K and V at stride 68 floats, five [64] fp32 rows (the key bias,
+    # each key half's row max and sum), the mask's 64 rows of 68 bytes:
+    # three blocks to an SM, with the 1 KB the SM keeps for each
+    assert K.TC32_FWD_SMEM == 3 * 64 * 68 * 4 + 5 * 64 * 4 + 64 * 68
+    assert 3 * (plan.smem_fwd + 1024) <= 228 * 1024
+    assert plan.smem_fwd <= MAX_SMEM
+
+
+@pytest.mark.parametrize("shape,heads,dtype,dropout", [
+    ((128, 65, 768), 12, FP32, False),        # past the route's N limit
+    ((4, 512, 768), 12, FP32, True),
+    ((16, 64, 768), 24, FP32, True),          # head dim 32
+    ((16, 64, 768), 6, FP32, False),          # head dim 128
+    ((128, 64, 768), 12, BF16, True),         # bf16 with dropout
+    ((128, 64, 768), 12, BF16, False)])       # bf16: the "tc" route
+def test_fp32_forward_route_limits(shape, heads, dtype, dropout):
+    plan = K.flash_plan(shape, heads, dtype, dropout=dropout)
+    assert plan.route != "tc32"
+    with pytest.raises(ValueError):
+        K.flash_plan(shape, heads, dtype, route="tc32", dropout=dropout)
+
+
+def test_fp32_forward_route_requests():
+    shape = (16, 64, 768)
+    # the A/B's old side: both kernels on the CUDA cores
+    old = K.flash_plan(shape, 12, FP32, route="cuda_core", dropout=True)
+    assert (old.route, old.bwd_route) == ("cuda_core", "cuda_core")
+    assert old.grid_fwd == (2, 12, 16)
+    # the old forward beside the new backward, and the new forward asked
+    # for by name, which brings the backward's along
+    mixed = K.flash_plan(shape, 12, FP32, route="cuda_core",
+                         bwd_route="tc32", dropout=True)
+    assert (mixed.route, mixed.bwd_route) == ("cuda_core", "tc32")
+    new = K.flash_plan(shape, 12, FP32, route="tc32", dropout=True)
+    assert (new.route, new.bwd_route) == ("tc32", "tc32")
+    # K4a's 3xTF32 forward on request, beside either backward
+    asked = K.flash_plan(shape, 12, FP32, route="tc32")
+    assert (asked.route, asked.bwd_route) == ("tc32", "tc32")
+    assert asked.grid_fwd == (12, 16, 1)
+    assert K.flash_plan(shape, 12, FP32, route="tc32",
+                        bwd_route="cuda_core").bwd_route == "cuda_core"
+    with pytest.raises(ValueError):
+        K.flash_plan(shape, 12, BF16, route="tc32")
+
+
+def test_forward_launch_helpers_refuse_cpu_tensors():
+    q = torch.zeros((2, 64, 128))
+    dm = torch.ones((2, 2, 64, 64), dtype=torch.uint8)
+    plan = K.flash_plan(q.shape, 2, FP32, dropout=True)
+    assert plan.route == "tc32"
+    with pytest.raises(ValueError):
+        K.launch_fwd_lse(plan, q, q, q, heads=2)
+    with pytest.raises(ValueError):
+        K.launch_fwd_lse_drop(plan, q, q, q, dm, heads=2, keep=0.9)
+    # CPU tensors take the plain versions on every route
+    o, lse = K.mha_fwd_lse_drop(q, q, q, dm, heads=2, keep=0.9)
+    want = K.mha_fwd_lse_drop_reference(q, q, q, dm, heads=2, keep=0.9)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    assert K.mha_fwd_lse.route_launches == {"tc": 0, "tc32": 0,
+                                            "cuda_core": 0}
+    assert K.mha_fwd_lse_drop.route_launches == {"tc32": 0, "cuda_core": 0}
+    assert K.mha_fwd_lse_drop.launches == 0
 
 
 def _inputs(b, n, d, seed, fully_masked=False):
@@ -302,3 +392,103 @@ def test_3xtf32_products_hold_the_fp32_bar_against_jax(masked, causal, p):
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert float((x - hi - _tf32(x - hi)).abs().max()) <= 2.0 ** -21 * float(
         x.abs().max())
+
+
+def _mm_k8(a, b, halves=1):
+    """a @ b the way the "tc32" kernels' mma.sync chains take it: the depth
+    cut into `halves` equal parts, each summed in one fp32 accumulator per
+    output to which every k8 step adds lo.hi, then hi.lo, then hi.hi (each
+    8-term sum exact, in fp64, rounded to nearest once into the
+    accumulator), the parts' sums then added in order."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    depth = a.shape[-1] // halves
+    out = None
+    for h0 in range(0, a.shape[-1], depth):
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=FP32)
+        for k0 in range(h0, h0 + depth, 8):
+            k = slice(k0, k0 + 8)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                acc = (acc.double() + x[..., k].double()
+                       @ y[..., k, :].double()).float()
+        out = acc if out is None else out + acc
+    return out
+
+
+def _fwd_emulated(mm_s, mm_o, q, k, v, dm, *, heads, keep, mask, causal):
+    """``mha_fwd_lse_drop_reference`` (``mha_fwd_lse_reference`` when `dm`
+    is None) in fp32 with S = Q K^T taken by `mm_s` and wld V by `mm_o`:
+    (out, lse)."""
+    b, n, d = q.shape
+    scale = 1.0 / np.sqrt(d // heads)
+    qh, kh, vh = (K._heads(a, heads) for a in (q, k, v))
+    s = mm_s(qh, kh.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + ((mask.float() - 1.0) * -K.NEG)[:, None, None, :]
+    if causal:
+        tri = torch.ones((n, n), dtype=torch.bool).tril()
+        s = torch.where(tri, s, torch.full_like(s, K.NEG))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    ssum = e.sum(-1, keepdim=True)
+    wld = e / ssum
+    if dm is not None:
+        wld = K._apply_keep(wld, dm, keep)
+    out = K._merge(mm_o(wld, vh), FP32)
+    return out, (m + torch.log(ssum))[..., 0]
+
+
+def _fwd_bar_excess(got, want):
+    """max of |d| / (1e-5 + 1e-5 |x|): at most 1 within the bar."""
+    g, w = got.numpy(), np.asarray(want)
+    return float((np.abs(g - w) / (1e-5 + 1e-5 * np.abs(w))).max())
+
+
+@pytest.mark.parametrize("masked,causal,p,amp", [
+    (True, False, 0.1, 1.0), (True, True, 0.1, 1.0), (False, False, 0.1, 1.0),
+    (True, False, 0.0, 1.0), (False, True, 0.0, 1.0),
+    (True, False, 0.1, 2.4)])         # scores up to |S| = 30
+def test_3xtf32_forward_holds_the_fp32_bar_against_jax(masked, causal, p,
+                                                       amp):
+    """32 x 64 x 768 (12 heads of 64), a fully masked sample where masked;
+    p 0.1 on the JAX keep mask (p 0: ``_mha_fwd_lse``). q and k scaled by
+    `amp`: at 2.4 the largest |S| is about 30, as in a trained encoder's
+    sharper heads, where the bar is tightest."""
+    b, n, d, heads = 32, 64, 768, 12
+    q, k, v, _, m = _inputs(b, n, d, 31 + causal, fully_masked=masked)
+    q, k = q * np.float32(amp), k * np.float32(amp)
+    jm = jnp.asarray(m) if masked else None
+    tm = torch.from_numpy(m) if masked else None
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    kw = dict(heads=heads, scale=float(1.0 / np.sqrt(d // heads)), mask=jm,
+              causal=causal, interpret=True)
+    if p:
+        jdm = jmha._drop_keep_mask(jax.random.PRNGKey(5), p, b, heads, n)
+        want = jmha._mha_fwd_lse_drop(jq, jk, jv, jdm, keep=1.0 - p, **kw)
+        dm = torch.from_numpy(np.array(jdm))
+    else:
+        want = jmha._mha_fwd_lse(jq, jk, jv, **kw)
+        dm = None
+    args = [torch.from_numpy(a) for a in (q, k, v)] + [dm]
+    opts = dict(heads=heads, keep=1.0 - p, mask=tm, causal=causal)
+    s_max = float((K._heads(args[0], heads) @ K._heads(
+        args[1], heads).transpose(-1, -2)).abs().max()) / 8.0
+    assert s_max > 29.0 if amp > 1.0 else s_max < 8.0
+    got = _fwd_emulated(_mm_k8, lambda a, b: _mm_k8(a, b, halves=2), *args,
+                        **opts)
+    one_pass = _fwd_emulated(_mm_tf32, _mm_tf32, *args, **opts)
+    rows = slice(None)
+    if masked and causal:
+        # the fully masked sample: the Pallas kernel adds the causal mask
+        # as a bias, the port's forward uses where; held to the port's
+        # plain forward
+        rows = slice(0, b - 1)
+        plain = (K.mha_fwd_lse_drop_reference(*args, **opts) if p else
+                 K.mha_fwd_lse_reference(*args[:3], heads=heads, mask=tm,
+                                         causal=causal))
+        for g3, w in zip(got, plain):
+            assert _fwd_bar_excess(g3[-1:], w[-1:]) <= 1.0
+    for g3, g1, w in zip(got, one_pass, want):
+        assert g3.dtype == FP32 and bool(torch.isfinite(g3).all())
+        assert _fwd_bar_excess(g3[rows], w[rows]) <= 1.0
+        assert _fwd_bar_excess(g1[rows], w[rows]) > 1.0

@@ -167,7 +167,8 @@ def test_plain_pair_matches_jax_kernels_at_tc_lengths(b, n, d, heads, masked,
         assert got.dtype == BF16
         _bf16_close(got, want, rel_to_max=2e-3 if j else 0.0)
     assert K.mha_fwd_lse.launches == 0 and K.mha_flash_bwd.launches == 0
-    assert K.mha_fwd_lse.route_launches == {"tc": 0, "cuda_core": 0}
+    assert K.mha_fwd_lse.route_launches == {"tc": 0, "tc32": 0,
+                                            "cuda_core": 0}
 
 
 def test_fully_masked_causal_row_follows_mha_reference():

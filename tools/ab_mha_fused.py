@@ -6,7 +6,10 @@ CUDA-core kernels of the same source at chip_smoke.py's phase-3 shapes
 (K2 ``mha`` bf16 128x64x768; the fp32 pair 16x64x768; K7a / K7b fp32
 128x64x768, p 0.1; all key-masked), and, where the source has them, K2's
 tensor-core route (128x64x768 masked, 128x197x768 unmasked) and the fp32
-backward's 3xTF32 route (K4b 16x64x768, K7b 128x64x768, p 0.1).
+training pair's 3xTF32 routes (K4a / K4b 16x64x768 and 128x64x768, K7a /
+K7b 128x64x768, p 0.1). The 3xTF32 forward of each source that has it is
+first held to the plain forward (out and lse within 1e-5 + 1e-5 |x|,
+bit-identical over two runs) at those shapes and at 4x50x768 causal.
 
     python3 tools/ab_mha_fused.py tree DIR [DIR ...]
 
@@ -85,21 +88,37 @@ def _kernel_calls(gen, dev):
     plan = {(name, x.shape): K.flash_plan(x.shape, 12, x.dtype, dropout=drop,
                                           route=route)
             for name, x, drop, route in (
-                ("old", q4, False, "cuda_core"), ("new", q4, False, None),
-                ("old", q7, True, "cuda_core"), ("new", q7, True, None))}
+                ("old", q4, False, "cuda_core"), ("new", q4, False, "tc32"),
+                ("old", q7, True, "cuda_core"), ("new", q7, True, "tc32"))}
     p4 = lambda name: plan[(name, q4.shape)]
     p7 = lambda name: plan[(name, q7.shape)]
     return {
         "mha bf16 128x64x768 (CUDA cores)": (
             lambda: K.mha(q2, k2, v2, heads=12, mask=m2, route="cuda_core"),
             20, None),
-        "mha_fwd_lse fp32 16x64x768": (
-            lambda: K.mha_fwd_lse(q4, k4, v4, heads=12, mask=m4), 20, None),
+        "mha_fwd_lse fp32 16x64x768 (CUDA cores)": (
+            lambda: K.launch_fwd_lse(p4("old"), q4, k4, v4, heads=12,
+                                     mask=m4), 20, None),
+        "mha_fwd_lse fp32 128x64x768 (CUDA cores)": (
+            lambda: K.launch_fwd_lse(K.flash_plan(
+                q7.shape, 12, q7.dtype, route="cuda_core"), q7, k7,
+                v7, heads=12, mask=m7), 20, None),
+        "mha_fwd_lse tc32 fp32 16x64x768": (
+            lambda: K.launch_fwd_lse(p4("new"), q4, k4, v4, heads=12,
+                                     mask=m4), 20, "mha_forward_lse_tc32"),
+        "mha_fwd_lse tc32 fp32 128x64x768": (
+            lambda: K.launch_fwd_lse(K.flash_plan(
+                q7.shape, 12, q7.dtype, route="tc32"), q7, k7, v7, heads=12,
+                mask=m7), 20, "mha_forward_lse_tc32"),
+        "mha_fwd_lse_drop tc32 fp32 128x64x768": (
+            lambda: K.launch_fwd_lse_drop(p7("new"), q7, k7, v7, dm, **kw),
+            20, "mha_forward_lse_tc32"),
         "mha_flash_bwd fp32 16x64x768 (CUDA cores)": (
             lambda: K.launch_flash_bwd(p4("old"), q4, k4, v4, o4, do4, lse4,
                                        heads=12, mask=m4), 20, None),
-        "mha_fwd_lse_drop fp32 128x64x768": (
-            lambda: K.mha_fwd_lse_drop(q7, k7, v7, dm, **kw), 20, None),
+        "mha_fwd_lse_drop fp32 128x64x768 (CUDA cores)": (
+            lambda: K.launch_fwd_lse_drop(p7("old"), q7, k7, v7, dm, **kw),
+            20, None),
         "mha_flash_bwd_drop fp32 128x64x768 (CUDA cores)": (
             lambda: K.launch_flash_bwd_drop(p7("old"), q7, k7, v7, o7, do7,
                                             lse7, dm, **kw), 20, None),
@@ -121,6 +140,47 @@ def _kernel_calls(gen, dev):
             lambda: K.launch_flash_bwd_drop(p7("new"), q7, k7, v7, o7, do7,
                                             lse7, dm, **kw), 20,
             "mha_flash_backward_tc32")}
+
+
+def _tc32_forward_cases(gen, dev):
+    """(q, k, v, mask, keep mask or None, keep, causal) at the 3xTF32
+    forward's main shapes and a causal edge case."""
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    out = []
+    for b, n, p, causal in ((16, 64, 0.0, False), (128, 64, 0.0, False),
+                            (128, 64, 0.1, False), (4, 50, 0.1, True)):
+        q, k, v = (torch.randn((b, n, 768), generator=gen).to(dev)
+                   for _ in range(3))
+        m = cs._mask(b, n, gen, dev)
+        m[-1] = 0
+        dm = K.drop_keep_mask(Key(b + n), p, b, 12, n, dev) if p else None
+        out.append((q, k, v, m, dm, 1.0 - p, causal))
+    return out
+
+
+def check_tc32_forward(cases):
+    """The 3xTF32 forward of the loaded source against the plain forward:
+    (max error, ok)."""
+    worst, ok = 0.0, True
+    for q, k, v, m, dm, keep, causal in cases:
+        kw = dict(heads=12, mask=m, causal=causal)
+        if dm is None:
+            plan = K.flash_plan(q.shape, 12, q.dtype, route="tc32")
+            run = lambda: K.launch_fwd_lse(plan, q, k, v, **kw)
+            want = K.mha_fwd_lse_reference(q, k, v, **kw)
+        else:
+            plan = K.flash_plan(q.shape, 12, q.dtype, dropout=True)
+            run = lambda: K.launch_fwd_lse_drop(plan, q, k, v, dm, keep=keep,
+                                                **kw)
+            want = K.mha_fwd_lse_drop_reference(q, k, v, dm, keep=keep, **kw)
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(x, y) for x, y in zip(got, again))
+        for x, y in zip(got, want):
+            e, good = cs.max_err_ok(x, y, torch.float32, "mha")
+            worst, ok = max(worst, e), ok and good
+    return worst, ok
 
 
 def main(dirs):
@@ -146,9 +206,16 @@ def main(dirs):
     tc = {name: hasattr(lib, "mha_forward_lse_tc")
           for name, lib in libs.items()}
     others = _kernel_calls(gen, dev)
+    fwd_cases = _tc32_forward_cases(gen, dev)
     ok_all = True
     for name, lib in libs.items():
         _build._libs["mha_fused"] = lib
+        if hasattr(lib, "mha_forward_lse_tc32"):
+            e, ok = check_tc32_forward(fwd_cases)
+            ok_all &= ok
+            print(f"{name}: 3xTF32 forward max|d| {e:.3e}, within 1e-5 + "
+                  f"1e-5|x| and bit-identical over two runs: "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
         if not tc[name]:
             continue
         o, lse, g = cs._flash_pair(plan, q, k, v, do, h)
