@@ -10,9 +10,13 @@ Phases, each of which fails the run when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main paths' shapes and edge cases, with the tolerances below;
      kernel / plain / library-call times from CUDA graphs timed with CUDA
-     events after a warm-up (median of 5); for the bf16 MLP blocks (K5b,
-     K6b) also each kernel's time (GEMM1, GEMM2, LayerNorm pass) from the
-     profiler, the share of the bound, and K6b at ViT-L/16's full width;
+     events after a warm-up (median of 5); for the bf16 blocks on the
+     tensor cores also each kernel's time from the profiler (MLP, K5b /
+     K6b: GEMM1, GEMM2, LayerNorm pass; attention, K5a / K6a: LayerNorm
+     pass, QKV GEMM, per-head core, out-projection GEMM), the share of the
+     bound, and K6a / K6b at ViT-L/16's full width; the bf16 attention
+     blocks' CUDA-core body held to the same plain version and timed
+     against the tensor-core route in one call (new-old-old-new);
      the flash pair's tensor-core route (K4a / K4b in bf16 at head dim 64,
      N <= 256: ``mha_fwd_lse_tc`` / ``mha_flash_bwd_tc``) at N = 1 .. 256
      unmasked, key-masked with a fully masked sample, and causal, its
@@ -56,13 +60,14 @@ Phases, each of which fails the run when it fails:
      report CSV must carry the same accuracy;
   6. text eval: BERT-base at full width and depth (12 layers, seq 64,
      batch 256, bf16, random seeded weights, WordPiece ids) through
-     ``run_eval`` with ``cli.test_text``'s step: launches per batch K5a 12,
-     K5b 12, K2 0; logits against the plain path (bf16, and fp32 with TF32
-     off); samples/s, p50, peak memory, a profiler breakdown; one batch
-     each of DistilBERT (6 + 6 launches) and RoBERTa (12 + 12);
+     ``run_eval`` with ``cli.test_text``'s step: launches per batch K5a 12
+     (all on the tensor cores), K5b 12, K2 0; logits against the plain
+     path (bf16, and fp32 with TF32 off); samples/s, p50, peak memory, a
+     profiler breakdown; one batch each of DistilBERT (6 + 6 launches) and
+     RoBERTa (12 + 12);
   7. image eval: ViT-B/16 at full width and depth (batch 64, 224x224,
-     bf16) through ``run_image_eval``: K6a 12 and K6b 12 per batch, the
-     same readings; then ``cli.test_text`` (DistilBERT) and
+     bf16) through ``run_image_eval``: K6a 12 (tensor cores) and K6b 12
+     per batch, the same readings; then ``cli.test_text`` (DistilBERT) and
      ``cli.test_image`` (ViT-B/16) evaluate reference-layout ``.pth`` files
      on a synthetic JPEG tree;
   8. text train: the DistilBERT classifier at full width and depth (batch
@@ -1270,9 +1275,10 @@ def _library_mlp(x, p, eps, post):
     return F.layer_norm(y, (d,), p["ls_t"], p["lb_t"], eps) if post else y
 
 
-def mlp_parts(fn, reps=5):
-    """Device ms per call of each kernel of a bf16 MLP block (GEMM1, GEMM2,
-    the LayerNorm pass): torch.profiler over `reps` eager calls."""
+def block_parts(fn, parts, reps=5):
+    """Device ms per call of each kernel of a bf16 block, by
+    ``_block_part``'s name, for the names in `parts`: torch.profiler over
+    `reps` eager calls of `fn`, which runs that block alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1283,16 +1289,37 @@ def mlp_parts(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = {"gemm1": 0.0, "gemm2": 0.0, "ln": 0.0}
+    out = {k: 0.0 for k in parts}
     for e in prof.key_averages():
-        part = _mlp_part(e.key)
-        if e.device_type != DeviceType.CUDA or part is None:
+        part = _block_part(e.key)
+        if e.device_type != DeviceType.CUDA or part not in out:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        parts[part] += us / 1e3 / reps
-    return parts
+        out[part] += us / 1e3 / reps
+    return out
+
+
+def mlp_parts(fn, reps=5):
+    """Device ms per call of each kernel of a bf16 MLP block (GEMM1, GEMM2,
+    the LayerNorm pass)."""
+    p = block_parts(fn, ("gemm1", "residual", "ln"), reps)
+    return {"gemm1": p["gemm1"], "gemm2": p["residual"], "ln": p["ln"]}
+
+
+def attn_parts(fn, reps=5):
+    """Device ms per call of each kernel of a bf16 attention block on the
+    tensor cores: the LayerNorm pass (pre-norm before the QKV GEMM,
+    post-norm after the out GEMM), the QKV GEMM, the per-head core, the
+    out-projection GEMM."""
+    p = block_parts(fn, ("ln", "qkv", "core", "residual"), reps)
+    return {"ln": p["ln"], "qkv_gemm": p["qkv"], "core": p["core"],
+            "out_gemm": p["residual"]}
+
+
+def _parts_line(parts):
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms"
 
 
 def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
@@ -1302,10 +1329,12 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
     heads, FFN)); post-norm with random key lengths and, at the odd shape, a
     fully masked row; the MLP with gelu and, at the odd shape, relu. Then
     the times at the main shape in bf16: kernel, plain version, and the
-    unfused chain of library calls; for the MLP block also the split into
-    its kernels (GEMM1, GEMM2, LayerNorm pass) and the share of the bound.
-    `wide`: one more bf16 shape for the MLP block alone (gelu and relu),
-    checked and timed the same way."""
+    unfused chain of library calls; the split of each block into its
+    kernels and the share of the bound. The bf16 attention block runs on
+    the tensor cores; its CUDA-core body (``route="cuda_cores"``) is held
+    to the same plain version at both shapes and timed beside it in one
+    call, new-old-old-new. `wide`: one more bf16 shape for both blocks
+    (the MLP with gelu and relu), checked and timed the same way."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import (
@@ -1318,12 +1347,12 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
     lines = {"postnorm_attn_block": 346, "postnorm_mlp_block": 361,
              "attn_block": 88, "mlp_block": 127}
 
-    def attn(fn, x, mask, p, heads):
+    def attn(fn, x, mask, p, heads, **route):
         if post:
             return fn(x, mask, p["wqkv"], p["bqkv"], p["wout"], p["bout"],
-                      p["ls"], p["lb"], heads=heads, eps=eps)
+                      p["ls"], p["lb"], heads=heads, eps=eps, **route)
         return fn(x, p["ls"], p["lb"], p["wqkv"], p["bqkv"], p["wout"],
-                  p["bout"], heads=heads, eps=eps)
+                  p["bout"], heads=heads, eps=eps, **route)
 
     def mlp(fn, x, p, act="gelu"):
         if post:
@@ -1345,10 +1374,21 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
                 mask = _mask(b, n, gen, device)
                 if shape == odd:
                     mask[-1] = 0          # every key of this sample masked
+            before = dict(getattr(K, a_name).route_launches)
             cases = [(a_name, attn(getattr(K, a_name), x, mask, p, heads),
                       lambda: attn(a_ref, x, mask, p, heads)),
                      (m_name, mlp(getattr(K, m_name), x, p),
                       lambda: mlp(m_ref, x, p))]
+            route = ("tensor_cores" if dtype == torch.bfloat16
+                     else "cuda_cores")
+            routed = getattr(K, a_name).route_launches == {
+                **before, route: before[route] + 1}
+            ok_all &= routed
+            if dtype == torch.bfloat16:
+                cases.append((a_name + " cuda_cores",
+                              attn(getattr(K, a_name), x, mask, p, heads,
+                                   route="cuda_cores"),
+                              lambda: attn(a_ref, x, mask, p, heads)))
             if shape == odd:
                 cases.append((m_name + " relu",
                               mlp(getattr(K, m_name), x, p, "relu"),
@@ -1359,8 +1399,10 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
                 err, ok = max_err_ok(got, plain(), dtype, "block")
                 ok_all &= ok
                 errs[name] = err
+                where = (f" ({route}, counted {routed})" if name == a_name
+                         else "")
                 print(f"  {name:24s} {str(dtype)[6:]:8s} B={b:3d} N={n:3d} "
-                      f"D={d} H={heads} FFN={ffn}: max|d|={err:.3e} "
+                      f"D={d} H={heads} FFN={ffn}{where}: max|d|={err:.3e} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
             if dtype == torch.bfloat16 and shape == main:
                 kept = (x, mask, p, heads, errs)
@@ -1386,7 +1428,19 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
          tokens * 4 * d * ffn,
          2 * x.numel() * item + 2 * d * ffn * item + (3 * d + ffn) * 4))
     for name, kern, plain, lib, flops, nbytes in rows:
-        ms, lo, hi = time_ms(kern, reps=5)
+        if name == a_name:
+            # the two routes in one call, new-old-old-new
+            old = lambda: attn(getattr(K, a_name), x, mask, p, heads,
+                               route="cuda_cores")
+            ab = {"tensor_cores": [], "cuda_cores": []}
+            for r in ("tensor_cores", "cuda_cores", "cuda_cores",
+                      "tensor_cores"):
+                ab[r].append(time_ms(kern if r == "tensor_cores" else old,
+                                     reps=5)[0])
+            ms = sum(ab["tensor_cores"]) / 2
+            lo, hi = min(ab["tensor_cores"]), max(ab["tensor_cores"])
+        else:
+            ms, lo, hi = time_ms(kern, reps=5)
         plain_ms = time_ms(plain, reps=5)[0]
         lib_ms = time_ms(lib, reps=5)[0]
         bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
@@ -1405,14 +1459,29 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
             "library_is": "unfused chain: F.linear + scaled_dot_product_"
                           "attention + F.layer_norm" if "attn" in name else
                           "unfused chain: F.linear + F.gelu + F.layer_norm",
+            "plan_route": "tensor_cores", "shape": [b, n, d],
             "gflops": flops / 1e9, "tflops_per_s": flops / ms / 1e9,
-            "bound_share": bound / ms}
-        print(f"  {name} B={b} N={n} D={d} FFN={ffn} bf16 (median of 5 [min, "
-              f"max]): kernel {ms:.4f} [{lo:.4f}, {hi:.4f}] ms "
+            "bound_share": bound / ms, "chain_ratio": ms / lib_ms}
+        print(f"  {name} B={b} N={n} D={d} FFN={ffn} bf16 (tensor cores; "
+              f"{'mean of 2 A/B turns' if name == a_name else 'median of 5'}"
+              f" [min, max]): kernel {ms:.4f} [{lo:.4f}, {hi:.4f}] ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.1%} of the "
-              f"bound), plain {plain_ms:.4f} ms, library chain {lib_ms:.4f} "
-              f"ms, bound {bound:.4f} ms ({report[name]['bound_by']})",
-              flush=True)
+              f"bound, {ms / lib_ms:.2f}x the chain), plain {plain_ms:.4f} "
+              f"ms, library chain {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({report[name]['bound_by']})", flush=True)
+        if name == a_name:
+            parts = attn_parts(kern)
+            report[name]["parts_ms"] = parts
+            report[name]["cuda_cores"] = {
+                "ms_runs": ab["cuda_cores"],
+                "ms": sum(ab["cuda_cores"]) / 2,
+                "max_abs_err": errs[a_name + " cuda_cores"]}
+            report[name]["ms_runs"] = ab["tensor_cores"]
+            print(f"    {name} new-old-old-new: tensor cores "
+                  f"{ab['tensor_cores'][0]:.4f} / {ab['tensor_cores'][1]:.4f}"
+                  f" ms, CUDA cores {ab['cuda_cores'][0]:.4f} / "
+                  f"{ab['cuda_cores'][1]:.4f} ms; kernels (profiler, mean of "
+                  f"5 calls): {_parts_line(parts)}", flush=True)
         if name == m_name:
             parts = mlp_parts(kern)
             relu = mlp_parts(lambda: mlp(getattr(K, m_name), x, p, "relu"))
@@ -1427,6 +1496,8 @@ def _check_blocks(device, report, *, post, main, odd, seed, wide=None):
     if wide is not None:
         ok_all &= _check_wide_mlp(device, report, m_name, mlp, m_ref, wide,
                                   eps, post, gen)
+        ok_all &= _check_wide_attn(device, report, a_name, attn, a_ref, wide,
+                                   eps, post, gen)
     return ok_all
 
 
@@ -1505,6 +1576,59 @@ def _check_wide_mlp(device, report, m_name, mlp, m_ref, shape, eps, post,
           f"GEMM1 {out['parts_ms']['gemm1']:.4f} ms, GEMM2 "
           f"{out['parts_ms']['gemm2']:.4f} ms, LayerNorm pass "
           f"{out['parts_ms']['ln']:.4f} ms", flush=True)
+    return ok
+
+
+def _check_wide_attn(device, report, a_name, attn, a_ref, shape, eps, post,
+                     gen):
+    """The bf16 attention block alone at `shape` (ViT-L/16's full eval
+    width) on the tensor cores: against its plain version, then kernel /
+    plain / library-chain times, its kernels' split and the share of the
+    bound."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as K)
+
+    b, n, d, heads, ffn = shape
+    p = _block_weights(d, ffn, torch.bfloat16, device, gen)
+    x = torch.randn((b, n, d), generator=gen).to(device, torch.bfloat16)
+    mask = _mask(b, n, gen, device) if post else None
+    before = dict(getattr(K, a_name).route_launches)
+    got = attn(getattr(K, a_name), x, mask, p, heads)
+    err, ok = max_err_ok(got, attn(a_ref, x, mask, p, heads), torch.bfloat16,
+                         "block")
+    ok &= getattr(K, a_name).route_launches["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    print(f"  {a_name:24s} bfloat16 B={b:3d} N={n:3d} D={d} H={heads} "
+          f"(tensor_cores): max|d|={err:.3e} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    p["wqkv_oi"], p["wout_oi"] = (p["wqkv"].t().contiguous(),
+                                  p["wout"].t().contiguous())
+    for k in ("ls", "lb", "bqkv", "bout"):
+        p[k + "_t"] = p[k].to(x.dtype)
+    kern = lambda: attn(getattr(K, a_name), x, mask, p, heads)
+    ms = time_ms(kern, reps=5)[0]
+    flops = b * n * (2 * 4 * d * d + 4 * n * d)
+    nbytes = 2 * x.numel() * 2 + 4 * d * d * 2 + 6 * d * 4 + (
+        mask.numel() * 4 if post else 0)
+    bound = max(flops / PEAK_FLOPS["bfloat16"],
+                nbytes / PEAK_BYTES_PER_S) * 1e3
+    out = {"shape": [b, n, d], "heads": heads, "max_abs_err": err, "ms": ms,
+           "plain_ms": time_ms(lambda: attn(a_ref, x, mask, p, heads),
+                               reps=5)[0],
+           "library_ms": time_ms(lambda: _library_attn(x, mask, p, heads, eps,
+                                                       post), reps=5)[0],
+           "bound_ms": bound, "tflops_per_s": flops / ms / 1e9,
+           "bound_share": bound / ms, "parts_ms": attn_parts(kern)}
+    out["chain_ratio"] = ms / out["library_ms"]
+    report[a_name + "_wide"] = out
+    print(f"  {a_name} B={b} N={n} D={d} H={heads} bf16 (tensor cores): "
+          f"kernel {ms:.4f} ms ({out['tflops_per_s']:.2f} TFLOP/s, "
+          f"{bound / ms:.1%} of the bound, {out['chain_ratio']:.2f}x the "
+          f"chain), plain {out['plain_ms']:.4f} ms, library chain "
+          f"{out['library_ms']:.4f} ms, bound {bound:.4f} ms (operations); "
+          f"{_parts_line(out['parts_ms'])}", flush=True)
     return ok
 
 
@@ -1660,31 +1784,41 @@ def _logits(model, batch, dtype, device):
         return model(ids, mask, x).float()
 
 
-def _mlp_part(name: str):
-    """Which kernel of a bf16 MLP block a profiler event is: "gemm1",
-    "gemm2", "ln" or None."""
+def _block_part(name: str):
+    """Which kernel of a bf16 block on the tensor cores a profiler event is:
+    "ln" (LayerNorm rows), "gemm1" (the MLP's hidden GEMM), "qkv" (the
+    attention's QKV GEMM), "residual" (the attention's out-projection or
+    the MLP's second GEMM: one epilogue), "core" (the ftc forward without
+    lse, which K2 runs too) or None."""
+    n = name.lower()
     if "ln_rows_kernel" in name:
         return "ln"
     if "gemm_kernel" in name and "HiddenEpi" in name:
         return "gemm1"
+    if "gemm_kernel" in name and "QkvEpi" in name:
+        return "qkv"
     if "gemm_kernel" in name and "ResidualEpi" in name:
-        return "gemm2"
+        return "residual"
+    if "ftc::" in n and "fwd_kernel" in n and "false>" in n:
+        return "core"
     return None
 
 
 def _kind(name: str) -> str:
     n = name.lower()
-    part = _mlp_part(name)
+    part = _block_part(name)
     if part is not None:
         return {"gemm1": "MLP block GEMM1 (wgmma)",
-                "gemm2": "MLP block GEMM2 (wgmma)",
-                "ln": "MLP block LayerNorm rows"}[part]
+                "qkv": "attention block QKV GEMM (wgmma)",
+                "residual": "block residual GEMMs (wgmma: attention out, "
+                            "MLP GEMM2)",
+                "core": "ftc forward, no lse (K2; attention-block core)",
+                "ln": "block LayerNorm rows"}[part]
     if "rca_fused_kernel" in n:
         return "rca_fused kernel"
-    if "ftc::" in n:            # the tensor-core route: K2, K4a, K4b
+    if "ftc::" in n:            # the tensor-core route: K4a, K4b
         if "fwd_kernel" in n:
-            return ("mha kernel (tensor cores)" if "false>" in n
-                    else "mha_fwd_lse kernel (tensor cores)")
+            return "mha_fwd_lse kernel (tensor cores)"
         return "mha_flash_bwd kernels (tensor cores)"
     if "tc32::" in n:           # the fp32 pair on 3xTF32: K4a / K7a, K4b / K7b
         return ("mha_fwd_lse kernel (3xTF32)" if "fwd_kernel" in n
@@ -1692,7 +1826,7 @@ def _kind(name: str) -> str:
     if "mha_kernel" in n:
         return "mha kernel"
     if "attn_heads_kernel" in n or "attn_out_kernel" in n:
-        return "fused attention block kernels"
+        return "attention block kernels (CUDA cores)"
     if "mlp_kernel" in n:
         return "fused MLP block kernel (fp32)"
     if "rca_bwd" in n:
@@ -1931,16 +2065,21 @@ def _zero_counters():
             fn.route_launches = {r: 0 for r in fn.route_launches}
 
 
+_ROUTE_KEYS = {"cuda_core": "", "cuda_cores": "", "tc": "_tc",
+               "tensor_cores": "_tc", "tc32": "_tc32"}
+
+
 def _read_counters():
-    """{kernel: launches}; K2 and K4a / K4b / K7b count each route on its
-    own: "mha_fwd_lse" is the CUDA-core kernel, "mha_fwd_lse_tc" the
-    tensor-core one, "mha_flash_bwd_tc32" / "mha_flash_bwd_drop_tc32" the
-    3xTF32 one."""
+    """{kernel: launches}; K2, K4a / K4b / K7a / K7b and K5a / K6a count
+    each route on its own: "mha_fwd_lse" is the CUDA-core kernel,
+    "mha_fwd_lse_tc" the tensor-core one, "mha_flash_bwd_tc32" /
+    "mha_flash_bwd_drop_tc32" the 3xTF32 one; "attn_block" the CUDA-core
+    body, "attn_block_tc" the tensor-core chain."""
     out = {}
     for k, fn in _counters().items():
         if hasattr(fn, "route_launches"):
             for route, n in fn.route_launches.items():
-                out[k if route == "cuda_core" else f"{k}_{route}"] = n
+                out[k + _ROUTE_KEYS[route]] = n
         else:
             out[k] = fn.launches
     return out
@@ -2740,7 +2879,7 @@ def check_text_eval(device, results):
                                 tokenizer=tok, seq_len=TEXT_SEQ)
     ok = _eval_path("bert", build("bert", SEED + 31), data, run,
                     make_text_eval_step, _text_logits,
-                    {"postnorm_attn_block": 12, "postnorm_mlp_block": 12},
+                    {"postnorm_attn_block_tc": 12, "postnorm_mlp_block": 12},
                     device, results, "text_eval")
     for name, vocab, layers in (("distilbert", "wordpiece", 6),
                                 ("roberta", "bpe", 12)):
@@ -2754,7 +2893,7 @@ def check_text_eval(device, results):
         preds = run(model, one)[2]
         torch.cuda.synchronize()
         launches = _read_counters()
-        want = _want_launches(postnorm_attn_block=layers,
+        want = _want_launches(postnorm_attn_block_tc=layers,
                               postnorm_mlp_block=layers)
         lk = _text_logits(model, one.batches[0], torch.bfloat16)
         with plain_versions():
@@ -2797,7 +2936,7 @@ def check_image_eval(device, results):
                                 image_size=IMAGE_SIZE)
     return _eval_path("transformer_B16", model, data, run,
                       lambda m: make_eval_step(m, torch.bfloat16),
-                      _image_logits, {"attn_block": 12, "mlp_block": 12},
+                      _image_logits, {"attn_block_tc": 12, "mlp_block": 12},
                       device, results, "image_eval")
 
 
@@ -2871,9 +3010,9 @@ def check_eval_clis(device, results):
         val = os.path.join(work, "garbage_Val")
         for cli, flag, name, kind, counts in (
                 (test_text, "text_model", "distilbert", "distilbert",
-                 {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
+                 {"postnorm_attn_block_tc": 6, "postnorm_mlp_block": 6}),
                 (test_image, "image_model", "transformer_B16", "vit",
-                 {"attn_block": 12, "mlp_block": 12})):
+                 {"attn_block_tc": 12, "mlp_block": 12})):
             getter = get_text_model if kind == "distilbert" else \
                 get_image_model
             model = getter(name).build(
@@ -3275,12 +3414,12 @@ def check_train_clis(device, results):
          ["--text_model=distilbert", "--seq_len=64"], "distilbert",
          {"mha_fwd_lse_drop_tc32": 48, "mha_flash_bwd_drop_tc32": 48,
           "postnorm_attn_block": 12, "postnorm_mlp_block": 12},
-         {"postnorm_attn_block": 6, "postnorm_mlp_block": 6}),
+         {"postnorm_attn_block_tc": 6, "postnorm_mlp_block": 6}),
         ("main_image", main_image, test_image,
          ["--image_model=transformer_B16", "--prob_aug=1.0"],
          ["--image_model=transformer_B16"], "transformer_B16",
          {"mha_fwd_lse_tc": 96, "mha_flash_bwd_tc": 96, "mha_tc": 24},
-         {"attn_block": 12, "mlp_block": 12}))
+         {"attn_block_tc": 12, "mlp_block": 12}))
     try:
         _write_jpeg_tree(os.path.join(work, "garbage"), 64, 32, SEED + 90,
                          size=IMAGE_SIZE)
@@ -3385,12 +3524,13 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            g = re.search(r"gemm_kernelILi(\d+)E.*?(HiddenEpi|ResidualEpi)"
-                          r"ILb(\d)", name)
+            g = re.search(r"gemm_kernelILi(\d+)E.*?(HiddenEpi|ResidualEpi|"
+                          r"QkvEpi)(?:ILb(\d))?", name)
             if g:
                 epi = {"HiddenEpi0": "GEMM1 gelu", "HiddenEpi1": "GEMM1 relu",
-                       "ResidualEpi0": "GEMM2 pre-norm",
-                       "ResidualEpi1": "GEMM2 post-norm"}[g[2] + g[3]]
+                       "ResidualEpi0": "residual pre-norm",
+                       "ResidualEpi1": "residual post-norm",
+                       "QkvEpi": "attention QKV"}[g[2] + (g[3] or "")]
                 entry = f"gemm_kernel<{g[1]}> ({epi})"
             elif re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name):
                 f = re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E"
@@ -3511,7 +3651,9 @@ def main() -> int:
     # K2 (the tensor cores; the CUDA cores at --seq_len=512), its train path
     # for K3 / K4a / K4b (K1 runs on both; K4b on 3xTF32, the CUDA-core K4b
     # in the text trainer at seq 512 without dropout),
-    # the text eval path for K5a / K5b, the image eval path for K6a / K6b,
+    # the text eval path for K5a / K5b, the image eval path for K6a / K6b
+    # (K5a / K6a on the tensor cores, counted as "<name>_tc"; the CUDA-core
+    # body, fp32, on the trainers' val evals),
     # the text train path (hf_internal_dropout) for K7a / K7b (3xTF32; the
     # CUDA-core K7a / K7b at seq 512), the image train path for the bf16
     # tensor-core K4a / K4b
@@ -3544,8 +3686,13 @@ def main() -> int:
                       ("mha_fwd_lse_tc", "image_train"),
                       ("mha_flash_bwd_tc", "image_train")):
         row = dict(report[key])
-        row["launches"] = by_path[path][key]
-        row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        counter = key + "_tc" if key in ("postnorm_attn_block",
+                                         "attn_block") else key
+        row["launches"] = by_path[path][counter]
+        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
+        if counter != key:
+            row["cuda_cores_launches_by_path"] = {p: c[key]
+                                                  for p, c in by_path.items()}
         kernels.append(row)
         if row["launches"] <= 0:
             return _fail(f"{key} was not launched on the {path} path")

@@ -31,16 +31,34 @@
 // batch 256 x 64 tokens x 768 / 3072 the bound is the matrix rate, not the
 // memory.
 //
-// The MLP blocks in bf16 run on the tensor cores (tc_gemm.cuh: wgmma fed
-// by TMA), as two GEMM kernels with their epilogues in registers plus one
-// LayerNorm row kernel:
-//   pre-norm:  ln_rows_kernel  A = round(LN(x))            [rows, D] ws
-//              GEMM1           H = round(act(A W1 + b1))   [rows, FFN] ws
-//              GEMM2           y = round(x + (H W2 + b2))  fp32 add
-//   post-norm: GEMM1           H = round(act(x W1 + b1))
-//              GEMM2           y = round(x + round(H W2 + b2))
-//              ln_rows_kernel  y = round(LN(y)) in place
-// The hidden H passes through device memory (100.7 MB at 256 x 64 tokens,
+// In bf16 all four blocks run on the tensor cores (tc_gemm.cuh: wgmma fed
+// by TMA), as short chains of kernels launched by one C entry, each GEMM's
+// epilogue in registers:
+//   MLP, pre-norm:   ln_rows_kernel  A = round(LN(x))            [rows, D] ws
+//                    GEMM1           H = round(act(A W1 + b1))   [rows, FFN] ws
+//                    GEMM2           y = round(x + (H W2 + b2))  fp32 add
+//   MLP, post-norm:  GEMM1           H = round(act(x W1 + b1))
+//                    GEMM2           y = round(x + round(H W2 + b2))
+//                    ln_rows_kernel  y = round(LN(y)) in place
+//   attn, pre-norm:  ln_rows_kernel  A = round(LN(x))            [rows, D] ws
+//                    QKV GEMM        q | k | v = round(A Wqkv + bqkv), three
+//                                    [rows, D] ws (QkvEpi)
+//                    core            att = round(softmax(q k^T s) v) per head
+//                                    (flash_tc.cuh)              [rows, D] ws
+//                    out GEMM        y = round(x + (att Wout + bout))
+//   attn, post-norm: QKV GEMM        q | k | v = round(x Wqkv + bqkv)
+//                    core            with the key bias (mask - 1) 1e30
+//                    out GEMM        y = round(x + round(att Wout + bout))
+//                    ln_rows_kernel  y = round(LN(y)) in place
+// The attention core is K2's tensor-core forward without lse, shared with
+// mha_fused.cu through flash_tc.cuh: one warpgroup per (head, sample) that
+// loads the head's K, V and query tiles by TMA from the q / k / v
+// workspaces (3-D maps over [B, N, D]: rows past N read as zeros), S and
+// O = W V on wgmma, the exact two-pass softmax in registers. q / k / v are
+// formed once per token by one GEMM over all heads, where the CUDA-core
+// body re-reads x (and re-applies the LayerNorm) once per head and runs
+// its products on the fp32 CUDA cores. The MLP hidden H passes through
+// device memory (100.7 MB at 256 x 64 tokens,
 // FFN 3072), unlike the Pallas kernel, which keeps it in VMEM: a wgmma tile
 // has at least 64 rows, and 64 x 3072 bf16 = 384 KB does not fit the
 // 227 KB of shared memory; the design that kept 32 rows of it on chip
@@ -49,12 +67,18 @@
 // below the 0.16 ms operations bound. The pre-norm LN output goes through a
 // [rows, D] workspace (25 MB at that shape) rather than being applied to
 // A's tile in shared memory, which keeps the GEMM core free of
-// block-specific code. The wrapper allocates both workspaces.
+// block-specific code; q, k, v and att pass through device memory the same
+// way (4 x 19.4 MB at ViT-B/16's 64 x 197 x 768), each written once and
+// read once or twice (the core reads each head's tiles once). The wrappers
+// allocate every workspace; kernels/transformer_block.py's mlp_plan and
+// attn_plan give their shapes and each kernel's launch, which the C entries
+// run as they are and refuse otherwise.
 //
 // The fp32 blocks (the trainers' val evals) stay on the CUDA cores: TF32
-// would miss their 2e-5 bar. tb_mlp_block dispatches by dtype; a bf16
-// shape the tensor-core route does not take is refused, never sent to the
-// fp32 body. The fp32 MLP body and both attention stages run their
+// would miss their 2e-5 bar. The plans route by dtype; a bf16 shape the
+// tensor-core route does not take is refused, never sent to the CUDA-core
+// body, which runs bf16 attention only when a plan asks for it (the A/B of
+// the two routes). The fp32 MLP body and both attention stages run their
 // products on the fp32 CUDA cores with shared-memory tiles and register
 // micro-tiles; what their design does about the 227 KB of shared memory
 // (the Pallas kernels held a batch tile's qkv and all weights in 16 MB):
@@ -82,6 +106,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -709,6 +734,73 @@ cudaError_t launch_mlp_tc(const bf16* x, const float* ln_s, const float* ln_b,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 attention on the tensor cores: LayerNorm rows, the QKV GEMM, the
+// per-head core of flash_tc.cuh, the out-projection GEMM
+// ---------------------------------------------------------------------------
+
+// The QKV GEMM's epilogue: round(acc + bqkv[c]) into q, k or v ([rows, D]
+// each, the [B, N, D] arrays the core maps through TMA): column c goes to
+// buffer c / D at column c % D. D is even, so a column pair never
+// straddles two buffers.
+struct QkvEpi {
+  bf16* q;
+  bf16* k;
+  bf16* v;
+  const float* b;
+  int D;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    const int part = c / D, cc = c - part * D;
+    bf16* out = part == 0 ? q : part == 1 ? k : v;
+    *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * D +
+                                       cc) =
+        __floats2bfloat162_rn(v0 + b[c], v1 + b[c + 1]);
+  }
+};
+
+// The bf16 attention block: launch order and workspaces as in the header
+// comment; the plan (both GEMMs' tile width and grid, the core's np, grid
+// and shared memory) checked by the caller.
+template <bool POST>
+cudaError_t launch_attn_tc(const bf16* x, const int* mask, const float* ln_s,
+                           const float* ln_b, const bf16* wqkv,
+                           const float* bqkv, const bf16* wout,
+                           const float* bout, bf16* y, bf16* att, bf16* q,
+                           bf16* k, bf16* v, bf16* normed, int B, int N,
+                           int D, int heads, float eps, int bn1, int grid1,
+                           int bn2, int grid2, int np, dim3 core_grid,
+                           int core_smem, cudaStream_t s) {
+  const long long rows = static_cast<long long>(B) * N;
+  const unsigned ln_grid =
+      static_cast<unsigned>((rows + LN_WARPS - 1) / LN_WARPS);
+  const bf16* a = x;
+  cudaError_t err;
+  if (!POST) {
+    ln_rows_kernel<<<ln_grid, LN_WARPS * 32, 0, s>>>(x, normed, ln_s, ln_b,
+                                                     rows, D, eps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    a = normed;
+  }
+  err = gemm_bn(bn1, grid1, a, wqkv, rows, 3 * D, D,
+                QkvEpi{q, k, v, bqkv, D}, s);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf(static_cast<float>(DH));
+  err = mask ? ftc::launch_forward<true, false, false>(
+                   q, k, v, mask, att, nullptr, B, N, D, heads, scale, np,
+                   core_grid, core_smem, s)
+             : ftc::launch_forward<false, false, false>(
+                   q, k, v, nullptr, att, nullptr, B, N, D, heads, scale, np,
+                   core_grid, core_smem, s);
+  if (err != cudaSuccess) return err;
+  err = gemm_bn(bn2, grid2, att, wout, rows, D, D,
+                ResidualEpi<POST>{y, x, bout, D}, s);
+  if (err != cudaSuccess || !POST) return err;
+  ln_rows_kernel<<<ln_grid, LN_WARPS * 32, 0, s>>>(y, y, ln_s, ln_b, rows, D,
+                                                   eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -783,34 +875,76 @@ cudaError_t launch_mlp(const void* x, const float* ln_s, const float* ln_b,
 
 }  // namespace
 
-// x, att (workspace), y: [B, N, D] contiguous in `dtype` (0 = float32,
-// 1 = bfloat16); wqkv [D, 3D] (q | k | v columns) and wout [D, D]
-// input-major in `dtype`; bqkv, bout, ln_s, ln_b float32; mask [B, N] int32
-// key validity or null. post = 1: y = LN(x + out_proj(MHA(x))); post = 0:
-// y = x + out_proj(MHA(LN(x))). Head dim 64, 1 <= N <= 224. Returns
-// cudaGetLastError().
+// x, y: [B, N, D] contiguous in `dtype` (0 = float32, 1 = bfloat16); wqkv
+// [D, 3D] (q | k | v columns) and wout [D, D] input-major in `dtype`;
+// bqkv, bout, ln_s, ln_b float32; mask [B, N] int32 key validity or null.
+// post = 1: y = LN(x + out_proj(MHA(x))); post = 0: y = x + out_proj(
+// MHA(LN(x))). Head dim 64, 1 <= N <= 224. The launch plan of
+// kernels/transformer_block.py::attn_plan, run as it is: route 0, the
+// CUDA-core body (float32; bfloat16 only when asked for), with att a
+// [B, N, D] workspace in `dtype`, q / k / v / normed null and every plan
+// number 0; route 1, the tensor cores (bfloat16 only), with the bf16
+// [B * N, D] workspaces q, k, v, att and, pre-norm, normed, every pointer
+// 16-byte aligned, the two GEMMs' tile widths bn1 / bn2 (192 or 256) on
+// grid1 / grid2 blocks, and the core's np (N rounded up to 16), grid
+// (core_gx, core_gy) = (heads, B) and core_smem bytes. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan the route does not
+// take, before anything is launched.
 extern "C" int tb_attn_block(const void* x, const void* mask,
                              const void* ln_s, const void* ln_b,
                              const void* wqkv, const void* bqkv,
-                             const void* wout, const void* bout, void* att,
-                             void* y, int B, int N, int D, int heads,
-                             float eps, int post, int dtype, void* stream) {
+                             const void* wout, const void* bout, void* y,
+                             void* att, void* q, void* k, void* v,
+                             void* normed, int B, int N, int D, int heads,
+                             float eps, int post, int dtype, int route,
+                             int bn1, int grid1, int bn2, int grid2, int np,
+                             int core_gx, int core_gy, int core_smem,
+                             void* stream) {
   if (B <= 0) return 0;
-  if (N <= 0 || heads <= 0 || D != heads * DH || attn_smem(N) > MAX_SMEM)
+  if (N <= 0 || heads <= 0 || D != heads * DH || attn_smem(N) > MAX_SMEM ||
+      att == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* m = static_cast<const int*>(mask);
+  const float *lns = static_cast<const float*>(ln_s),
+              *lnb = static_cast<const float*>(ln_b),
+              *fbqkv = static_cast<const float*>(bqkv),
+              *fbout = static_cast<const float*>(bout);
+  if (route == 0) {
+    if ((bn1 | grid1 | bn2 | grid2 | np | core_gx | core_gy | core_smem) !=
+            0 ||
+        q != nullptr || k != nullptr || v != nullptr || normed != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
 #define ATTN(T, POST)                                                       \
   return static_cast<int>(launch_attn<T, POST>(                             \
-      x, static_cast<const int*>(mask), static_cast<const float*>(ln_s),    \
-      static_cast<const float*>(ln_b), wqkv,                                \
-      static_cast<const float*>(bqkv), wout,                                \
-      static_cast<const float*>(bout), att, y, B, N, D, heads, eps,         \
-      static_cast<cudaStream_t>(stream)))
-  if (dtype == 0 && post) ATTN(float, true);
-  if (dtype == 0) ATTN(float, false);
-  if (dtype == 1 && post) ATTN(__nv_bfloat16, true);
-  if (dtype == 1) ATTN(__nv_bfloat16, false);
+      x, m, lns, lnb, wqkv, fbqkv, wout, fbout, att, y, B, N, D, heads, eps, \
+      s))
+    if (dtype == 0 && post) ATTN(float, true);
+    if (dtype == 0) ATTN(float, false);
+    if (dtype == 1 && post) ATTN(__nv_bfloat16, true);
+    if (dtype == 1) ATTN(__nv_bfloat16, false);
 #undef ATTN
-  return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route != 1 || dtype != 1 || q == nullptr ||
+      k == nullptr || v == nullptr || (!post && normed == nullptr) ||
+      (bn1 != 192 && bn1 != 256) || (bn2 != 192 && bn2 != 256) ||
+      grid1 <= 0 || grid2 <= 0 || !ftc::plan_ok(B, N, D, heads, np) ||
+      core_gx != heads || core_gy != B ||
+      core_smem != ftc::fwd_smem(ftc::tiles(N)) ||
+      !ftc::aligned16({x, y, wqkv, wout, att, q, k, v, normed}))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define ATTN_TC(POST)                                                       \
+  return static_cast<int>(launch_attn_tc<POST>(                             \
+      static_cast<const bf16*>(x), m, lns, lnb,                             \
+      static_cast<const bf16*>(wqkv), fbqkv, static_cast<const bf16*>(wout), \
+      fbout, static_cast<bf16*>(y), static_cast<bf16*>(att),                \
+      static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v),  \
+      static_cast<bf16*>(normed), B, N, D, heads, eps, bn1, grid1, bn2,     \
+      grid2, np, dim3(core_gx, core_gy, 1), core_smem, s))
+  if (post) ATTN_TC(true);
+  ATTN_TC(false);
+#undef ATTN_TC
 }
 
 // x, y: [rows, D] contiguous in `dtype` (0 = float32, 1 = bfloat16); w1

@@ -30,11 +30,19 @@ weights-resident-in-VMEM limits do not apply. ``csrc/transformer_block.cu``
 explains what bounds the kernels on the H100 and which intermediate still
 passes through device memory.
 
-The MLP blocks take one of two routes by dtype (``mlp_plan``): bf16 on the
-tensor cores (a LayerNorm row kernel and two wgmma GEMM kernels, the hidden
-in a [rows, FFN] workspace this module allocates), fp32 on the CUDA cores
-(one kernel, the hidden in shared memory). A bf16 shape the tensor-core
-route refuses raises; it never goes to the fp32 body.
+Each block takes one of two routes by dtype, from a host-side launch plan
+that the C entry runs as it is. ``mlp_plan``: bf16 on the tensor cores (a
+LayerNorm row kernel and two wgmma GEMM kernels, the hidden in a [rows, FFN]
+workspace this module allocates), fp32 on the CUDA cores (one kernel, the
+hidden in shared memory). ``attn_plan``: bf16 on the tensor cores (the
+LayerNorm row kernel, a QKV GEMM into three [rows, D] workspaces, the
+per-head core of ``csrc/flash_tc.cuh`` and the out-projection GEMM; K2's
+forward is that core), fp32 on the CUDA-core body (two kernels). A bf16
+shape the tensor-core route refuses raises; it never goes to the CUDA-core
+body, which takes bf16 attention only when asked for
+(``route="cuda_cores"``, the A/B of the two routes).
+``attn_block.route_launches`` and ``postnorm_attn_block.route_launches``
+count the attention launches by route.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .mha_fused import mha_reference
+from .mha_fused import flash_plan, mha_reference
 
 HEAD_DIM = 64        # the kernels' head dim (BERT-base, ViT-B/16, ViT-L/16)
 MAX_N = 224          # q, k, v of one head [N, 65] fp32 + 32 score rows
@@ -62,8 +70,9 @@ def _mlp_smem(rows: int, ffn: int) -> int:
 
 def attn_fits(n: int, d: int, heads: int, dtype) -> bool:
     """Whether the attention kernels take [*, n, d] with `heads` heads:
-    fp32 or bf16, head dim 64, 1 <= n <= 224 (one head's q, k, v and 32
-    score rows live in shared memory)."""
+    fp32 or bf16, head dim 64, 1 <= n <= 224 (the CUDA-core body keeps one
+    head's q, k, v and 32 score rows in shared memory; the tensor-core
+    route's per-head core would take n <= 256)."""
     return (dtype in _DTYPES and heads > 0 and d == heads * HEAD_DIM
             and 1 <= n <= MAX_N)
 
@@ -122,6 +131,59 @@ def mlp_plan(rows: int, d: int, ffn: int, dtype, post: bool,
         workspaces["normed"] = (rows, d)
     return MlpPlan("tensor_cores", workspaces,
                    (_gemm_launch(rows, ffn, sms), _gemm_launch(rows, d, sms)))
+
+
+ATTN_ROUTES = ("tensor_cores", "cuda_cores")
+MAX_GRID_Y = 65535   # the core's grid is (heads, B): B <= 65535
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """How one attention-block call runs on the card; ``_launch_attn``
+    hands it to ``tb_attn_block`` as it is. `route`: "tensor_cores" (bf16)
+    or "cuda_cores" (fp32; bf16 only on request); `workspaces`: bf16
+    buffers of the tensor-core route the wrapper allocates, name -> shape
+    (q, k, v, the heads' output att and, pre-norm, the LayerNorm output
+    normed); `gemms`: (tile width, grid) of the QKV GEMM and of the
+    out-projection GEMM; `core`: (np, grid, dynamic shared memory) of the
+    per-head core, the forward of ``flash_plan(..., route="tc")``."""
+    route: str
+    workspaces: Dict[str, Tuple[int, int]]
+    gemms: Tuple[Tuple[int, int], ...] = ()
+    core: Tuple = ()
+
+
+def attn_plan(shape, heads: int, dtype, post: bool, sms: int = H100_SMS,
+              route: Optional[str] = None) -> AttnPlan:
+    """The launch plan of ``tb_attn_block`` for x of `shape` [B, N, D] with
+    `heads` heads (a shape ``attn_fits``): bf16 on the tensor cores, fp32
+    on the CUDA-core body, whose intermediate the wrapper keeps itself (no
+    workspaces). `route` asks for one: "cuda_cores" takes bf16 too (the
+    A/B); "tensor_cores" raises for fp32, as for any shape it refuses."""
+    b, n, d = shape
+    if dtype not in _DTYPES:
+        raise TypeError(f"the attention blocks take float32 / bfloat16, got "
+                        f"{dtype}")
+    route = route or ("tensor_cores" if dtype == torch.bfloat16
+                      else "cuda_cores")
+    if route not in ATTN_ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {ATTN_ROUTES}")
+    if route == "cuda_cores":
+        return AttnPlan("cuda_cores", {})
+    if dtype != torch.bfloat16 or not attn_fits(n, d, heads, dtype) \
+            or not 1 <= b <= MAX_GRID_Y:
+        raise ValueError(
+            f"the tensor-core attention route takes bfloat16, head dim "
+            f"{HEAD_DIM}, 1 <= N <= {MAX_N}, 1 <= B <= {MAX_GRID_Y}; got "
+            f"{tuple(shape)} with {heads} heads in {dtype}")
+    rows = b * n
+    core = flash_plan((b, n, d), heads, dtype, route="tc")
+    workspaces = {k: (rows, d) for k in ("q", "k", "v", "att")}
+    if not post:
+        workspaces["normed"] = (rows, d)
+    return AttnPlan("tensor_cores", workspaces,
+                    (_gemm_launch(rows, 3 * d, sms), _gemm_launch(rows, d, sms)),
+                    (core.np, core.grid_fwd, core.smem_fwd))
 
 
 def blocks_fit(n: int, d: int, ffn: int, heads: int, dtype) -> bool:
@@ -259,7 +321,8 @@ def _ptr(t):
 
 
 def _launch_attn(name, x, mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                 heads, eps, post):
+                 heads, eps, post, route):
+    """Runs ``attn_plan``'s route for this call; returns (y, route)."""
     b, n, d = x.shape
     if not attn_fits(n, d, heads, x.dtype):
         raise ValueError(
@@ -269,23 +332,43 @@ def _launch_attn(name, x, mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     _forward_only(name, x)
     from . import _build
 
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = attn_plan(x.shape, heads, x.dtype, post, sms, route)
+    tc = plan.route == "tensor_cores"
+    if tc and any(t.data_ptr() % 16 for t in (x, wqkv, wout)):
+        raise ValueError(f"{name}: the tensor-core route needs x, wqkv and "
+                         "wout 16-byte aligned")
+    ws = {k: torch.empty(shape, device=x.device, dtype=torch.bfloat16)
+          for k, shape in plan.workspaces.items()}
+    # the CUDA-core body's one intermediate: the heads' outputs in x's dtype
+    att = ws["att"] if tc else torch.empty_like(x)
     fn = _build.library("transformer_block").tb_attn_block
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     vecs = [v.float().contiguous() for v in (ln_scale, ln_bias, bqkv, bout)]
-    att = torch.empty_like(x)      # the heads' outputs, between the kernels
+    (bn1, grid1), (bn2, grid2) = plan.gemms or ((0, 0), (0, 0))
+    np_, (gx, gy, _), core_smem = plan.core or (0, (0, 0, 1), 0)
     y = torch.empty_like(x)
+    ptr = lambda k: ws[k].data_ptr() if k in ws else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), _ptr(mask) if mask is not None else None,
                  vecs[0].data_ptr(), vecs[1].data_ptr(), _ptr(wqkv),
                  vecs[2].data_ptr(), _ptr(wout), vecs[3].data_ptr(),
-                 att.data_ptr(), y.data_ptr(), b, n, d, heads, float(eps),
-                 int(post), _DTYPES[x.dtype], stream)
+                 y.data_ptr(), att.data_ptr(), ptr("q"), ptr("k"), ptr("v"),
+                 ptr("normed"), b, n, d, heads, float(eps), int(post),
+                 _DTYPES[x.dtype], int(tc), bn1, grid1, bn2, grid2, np_, gx,
+                 gy, core_smem, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return y
+        raise RuntimeError(f"{name} kernel launch failed ({plan.route} "
+                           f"route): CUDA error {err}")
+    return y, plan.route
+
+
+def _count(fn, route):
+    fn.launches += 1
+    fn.route_launches[route] += 1
 
 
 def _launch_mlp(name, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, act, post):
@@ -353,9 +436,12 @@ def _mlp_args(name, x, w1, b1, w2, b2, ln_scale, ln_bias):
 
 def postnorm_attn_block(x, mask: Optional[torch.Tensor], wqkv, bqkv, wout,
                         bout, ln_scale, ln_bias, *, heads: int,
-                        eps: float = 1e-12) -> torch.Tensor:
+                        eps: float = 1e-12,
+                        route: Optional[str] = None) -> torch.Tensor:
     """x: [B, N, D]; mask: int32 [B, N] key validity (or None); wqkv:
-    [D, 3D] packed q | k | v; wout: [D, D] -> LN(x + out_proj(MHA(x)))."""
+    [D, 3D] packed q | k | v; wout: [D, D] -> LN(x + out_proj(MHA(x))).
+    On the card it runs ``attn_plan``'s route; `route` asks for one (the
+    A/B)."""
     name = "postnorm_attn_block"
     _attn_args(name, x, mask, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
                heads)
@@ -363,13 +449,14 @@ def postnorm_attn_block(x, mask: Optional[torch.Tensor], wqkv, bqkv, wout,
         return postnorm_attn_block_reference(
             x, mask, wqkv, bqkv, wout, bout, ln_scale, ln_bias, heads=heads,
             eps=eps)
-    y = _launch_attn(name, x, mask, ln_scale, ln_bias, wqkv, bqkv, wout,
-                     bout, heads, eps, post=True)
-    postnorm_attn_block.launches += 1
+    y, used = _launch_attn(name, x, mask, ln_scale, ln_bias, wqkv, bqkv,
+                           wout, bout, heads, eps, True, route)
+    _count(postnorm_attn_block, used)
     return y
 
 
 postnorm_attn_block.launches = 0
+postnorm_attn_block.route_launches = {r: 0 for r in ATTN_ROUTES}
 
 
 def postnorm_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, *,
@@ -391,22 +478,25 @@ postnorm_mlp_block.launches = 0
 
 
 def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *, heads: int,
-               eps: float = 1e-6) -> torch.Tensor:
+               eps: float = 1e-6,
+               route: Optional[str] = None) -> torch.Tensor:
     """x: [B, N, D] -> x + out_proj(MHA(LN(x))). wqkv: [D, 3D] packed
-    q | k | v (the transposed torchvision in_proj layout)."""
+    q | k | v (the transposed torchvision in_proj layout). On the card it
+    runs ``attn_plan``'s route; `route` asks for one (the A/B)."""
     name = "attn_block"
     _attn_args(name, x, None, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
                heads)
     if x.device.type == "cpu":
         return attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
                                     bout, heads=heads, eps=eps)
-    y = _launch_attn(name, x, None, ln_scale, ln_bias, wqkv, bqkv, wout,
-                     bout, heads, eps, post=False)
-    attn_block.launches += 1
+    y, used = _launch_attn(name, x, None, ln_scale, ln_bias, wqkv, bqkv,
+                           wout, bout, heads, eps, False, route)
+    _count(attn_block, used)
     return y
 
 
 attn_block.launches = 0
+attn_block.route_launches = {r: 0 for r in ATTN_ROUTES}
 
 
 def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-6,

@@ -425,6 +425,129 @@ def test_mlp_blocks_raise_on_bf16_misfit(cuda):
     assert tb.mlp_block.launches == before
 
 
+@pytest.mark.parametrize("post", [True, False])
+@pytest.mark.parametrize("b,n,d,heads", [
+    (5, 64, 768, 12),         # BERT family, 320 rows
+    (64, 197, 768, 12),       # ViT-B/16 eval batch: 768 core blocks
+    (2, 197, 1024, 16),       # ViT-L/16
+    (3, 17, 768, 12),         # 51 rows, pad keys in the core's one tile
+    (3, 17, 128, 2),          # a width of two heads
+    (2, 1, 128, 2)])          # one token
+def test_attn_blocks_tensor_core_route_matches_plain(cuda, b, n, d, heads,
+                                                     post):
+    """The bf16 attention blocks on the tensor cores (LayerNorm rows, the
+    QKV GEMM, the per-head core, the out-projection GEMM) against their
+    plain versions, post-norm with key lengths and a fully masked sample;
+    one launch counted on the "tensor_cores" route."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(b, n, d, 64, torch.bfloat16,
+                                            cuda, 5 * n + d)
+    fn = tb.postnorm_attn_block if post else tb.attn_block
+    before = dict(fn.route_launches)
+    if post:
+        got = fn(x, m, *attn, ls, lb, heads=heads)
+        want = tb.postnorm_attn_block_reference(x, m, *attn, ls, lb,
+                                                heads=heads)
+    else:
+        got = fn(x, ls, lb, *attn, heads=heads)
+        want = tb.attn_block_reference(x, ls, lb, *attn, heads=heads)
+    torch.cuda.synchronize()
+    assert fn.route_launches == {**before,
+                                 "tensor_cores": before["tensor_cores"] + 1}
+    _block_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("post", [True, False])
+def test_attn_blocks_cuda_core_route_on_request(cuda, post):
+    """route="cuda_cores" runs the CUDA-core body in bf16 (the A/B of the
+    two routes), counted on its route; both routes meet the plain
+    version's bar on the same inputs."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(4, 64, 768, 64, torch.bfloat16,
+                                            cuda, 11)
+    fn = tb.postnorm_attn_block if post else tb.attn_block
+    args = (x, m, *attn, ls, lb) if post else (x, ls, lb, *attn)
+    ref = (tb.postnorm_attn_block_reference if post
+           else tb.attn_block_reference)(*args, heads=12)
+    before = dict(fn.route_launches)
+    old = fn(*args, heads=12, route="cuda_cores")
+    new = fn(*args, heads=12)
+    torch.cuda.synchronize()
+    assert fn.route_launches == {
+        "cuda_cores": before["cuda_cores"] + 1,
+        "tensor_cores": before["tensor_cores"] + 1}
+    _block_close(old, ref, torch.bfloat16)
+    _block_close(new, ref, torch.bfloat16)
+
+
+def test_attn_entry_refuses_another_plan(cuda):
+    """The CUDA entry launches the plan it is given: a fp32 call with the
+    tensor-core route, a core plan of another N, or a CUDA-core call that
+    brings plan numbers is refused before anything is launched."""
+    import ctypes
+
+    from garbage_classification_rca_tpu_torch.kernels import (
+        _build, transformer_block as tb)
+
+    fn = _build.library("transformer_block").tb_attn_block
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    plan = tb.attn_plan((2, 17, 128), 2, torch.bfloat16, True)
+    np_, (gx, gy, _), smem = plan.core
+    good = (*plan.gemms[0], *plan.gemms[1], np_, gx, gy, smem)
+    bad_np = (*plan.gemms[0], *plan.gemms[1], np_ + 16, gx, gy, smem)
+    for dtype, route, numbers in ((torch.float32, 1, good),
+                                  (torch.bfloat16, 1, bad_np),
+                                  (torch.bfloat16, 0, good)):
+        x, ls, lb, attn, mlp, m = _block_inputs(2, 17, 128, 64, dtype, cuda,
+                                                0)
+        wqkv, bqkv, wout, bout = attn
+        ls, lb, bqkv, bout = (t.float() for t in (ls, lb, bqkv, bout))
+        ws = [torch.empty(34, 128, device=cuda, dtype=torch.bfloat16)
+              for _ in range(4)]
+        y = torch.zeros_like(x)
+        err = fn(x.data_ptr(), m.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+                 wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(),
+                 bout.data_ptr(), y.data_ptr(), ws[3].data_ptr(),
+                 *(w.data_ptr() for w in ws[:3]), None, 2, 17, 128, 2, 1e-12,
+                 1, tb._DTYPES[dtype], route, *numbers,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err != 0, (dtype, route)
+        assert not bool(y.any())
+
+
+def test_attn_blocks_raise_on_bf16_misfit(cuda):
+    """A bf16 call the tensor-core route refuses raises on the card (an x
+    that is not 16-byte aligned; the route asked for in fp32); nothing
+    falls back to the CUDA-core body or to the plain version."""
+    from garbage_classification_rca_tpu_torch.kernels import (
+        transformer_block as tb)
+
+    x, ls, lb, attn, mlp, m = _block_inputs(2, 8, 128, 64, torch.bfloat16,
+                                            cuda, 0)
+    shifted = torch.empty(x.numel() + 4, device=cuda,
+                          dtype=torch.bfloat16)[4:].view_as(x)
+    shifted.copy_(x)
+    before = (dict(tb.attn_block.route_launches),
+              dict(tb.postnorm_attn_block.route_launches))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb.attn_block(shifted, ls, lb, *attn, heads=2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb.postnorm_attn_block(shifted, m, *attn, ls, lb, heads=2)
+    x, ls, lb, attn, mlp, m = _block_inputs(2, 8, 128, 64, torch.float32,
+                                            cuda, 0)
+    with pytest.raises(ValueError, match="tensor-core attention route"):
+        tb.attn_block(x, ls, lb, *attn, heads=2, route="tensor_cores")
+    assert (tb.attn_block.route_launches,
+            tb.postnorm_attn_block.route_launches) == before
+
+
 # the flash pair's tensor-core route (flash_plan "tc": bf16, head dim 64,
 # N <= 256), held to the plain pair with the bf16 limits above
 
