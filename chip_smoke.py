@@ -33,8 +33,11 @@ Phases, each of which fails the run when it fails:
      on every fp32 case, bit-identical over two runs, the forwards timed
      new-old-old-new at 16x64x768, 128x64x768 and 128x64x768 with p 0.1,
      beside the plain versions, the library call, the bound and the share
-     of the bound reached; the build's ptxas report (registers, spills) per
-     kernel;
+     of the bound reached; K3 (``rca_fused_bwd``) at B = 16, 13, 1, 64 on
+     its staged route against the plain version and, bit for bit, against
+     its per-sample route, timed new-old-old-new at B = 16 with each stage
+     kernel's time from the profiler; the build's ptxas report (registers,
+     spills) per kernel;
   4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
@@ -540,62 +543,128 @@ def rca_bwd_flops(b):
     return 8601600 * b
 
 
+RCA_BWD_BATCHES = (16, 13, 1, 64)       # the train microbatch, ragged, edges
+RCA_BWD_STAGES = ("rca_bwd_self_fwd", "rca_bwd_cross", "rca_bwd_self_bwd",
+                  "rca_bwd_wgrad")
+
+
+def _rca_bwd_stage(name):
+    """Which kernel of K3's staged route a profiler event is, or None."""
+    return next((s for s in RCA_BWD_STAGES if s in name), None)
+
+
+def _rca_bwd_pairs(got, want, t_dtype, i_dtype):
+    """(got, want, dtype) of dt, di and the 32 weight gradients."""
+    import torch
+
+    return ([(got[0], want[0], t_dtype), (got[1], want[1], i_dtype)]
+            + [(a, c, torch.float32) for a, c in zip(got[2], want[2])])
+
+
 def check_rca_bwd(device, report):
-    """K3 against the autograd of the plain version: B=16 (the train
-    microbatch) and a ragged 13, (t fp32, i bf16) as training gives them
-    and all fp32, reverse on and off."""
+    """K3 against the autograd of the plain version: its staged route (the
+    default) at B = 16 (the train microbatch), 13, 1 and 64, (t fp32, i
+    bf16) as training gives them and all fp32, reverse on and off, and
+    once with bf16 weights; the
+    per-sample route (its first version) on the same inputs, held to the
+    plain version too and to the staged route bit for bit (the same fp32
+    chains: max|d| printed for dt, di and the weight gradients); both
+    timed new-old-old-new at B = 16 (t fp32, i bf16, reverse), each
+    staged kernel's time from the profiler."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import rca_fused as K
 
     gen = torch.Generator().manual_seed(SEED + 6)
     p = _rca_params(torch.float32, device, gen)
-    ok_all, main = True, None
+    ok_all, main, same_all = True, None, True
     for i_dtype in (torch.bfloat16, torch.float32):
-        for b in (16, 13):
+        for b in RCA_BWD_BATCHES:
             t = torch.randn((b, 16, 48), generator=gen).to(device)
             i = torch.randn((b, 16, 80), generator=gen).to(device, i_dtype)
             g = [torch.randn((b, 16, 48), generator=gen).to(device)
                  for _ in range(2)]
             for reverse in (True, False):
                 got = K.rca_fused_bwd(p, t, i, *g, reverse=reverse)
+                old = K.rca_fused_bwd(p, t, i, *g, reverse=reverse,
+                                      route="per_sample")
                 torch.cuda.synchronize()
                 want = K.rca_fused_bwd_reference(p, t, i, *g,
                                                  reverse=reverse)
-                pairs = [(got[0], want[0], t.dtype), (got[1], want[1], i_dtype)]
-                pairs += [(a, c, torch.float32)
-                          for a, c in zip(got[2], want[2])]
-                errs = [grad_err_ok(a, c, dt) for a, c, dt in pairs]
+                errs = [grad_err_ok(a, c, dt) for a, c, dt in
+                        _rca_bwd_pairs(got, want, t.dtype, i_dtype)]
+                old_ok = all(grad_err_ok(a, c, dt)[1] for a, c, dt in
+                             _rca_bwd_pairs(old, want, t.dtype, i_dtype))
+                diffs = [float((a.float() - c.float()).abs().max())
+                         for a, c, _ in _rca_bwd_pairs(got, old, t.dtype,
+                                                       i_dtype)]
+                same = all(torch.equal(a, c) for a, c, _ in
+                           _rca_bwd_pairs(got, old, t.dtype, i_dtype))
                 err = max(e for e, _ in errs)
-                ok = all(o for _, o in errs)
+                ok = all(o for _, o in errs) and old_ok and same
                 ok_all &= ok
+                same_all &= same
                 print(f"  rca_fused_bwd i={str(i_dtype)[6:]:8s} B={b:3d} "
-                      f"reverse={reverse!s:5s}: max|d|={err:.3e} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                      f"reverse={reverse!s:5s}: staged max|d|={err:.3e}, "
+                      f"per-sample within the bars {old_ok}; staged vs "
+                      f"per-sample max|d| dt {diffs[0]:.3e} di "
+                      f"{diffs[1]:.3e} weights {max(diffs[2:]):.3e} "
+                      f"(bit-identical {same}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
                 if i_dtype == torch.bfloat16 and b == 16 and reverse:
                     main = (t, i, g, err)
     t, i, g, err = main
-    ms, ms_lo, ms_hi = time_ms(lambda: K.rca_fused_bwd(p, t, i, *g,
-                                                       reverse=True))
+    # bf16 weights (the staging that converts on the way to shared memory)
+    p16 = _rca_params(torch.bfloat16, device, gen)
+    got = K.rca_fused_bwd(p16, t, i, *g, reverse=True)
+    old = K.rca_fused_bwd(p16, t, i, *g, reverse=True, route="per_sample")
+    want = K.rca_fused_bwd_reference(p16, t, i, *g, reverse=True)
+    errs = [grad_err_ok(a, c, dt) for a, c, dt in
+            _rca_bwd_pairs(got, want, t.dtype, i.dtype)]
+    same = all(torch.equal(a, c) for a, c, _ in
+               _rca_bwd_pairs(got, old, t.dtype, i.dtype))
+    ok = all(o for _, o in errs) and same
+    ok_all &= ok
+    same_all &= same
+    print(f"  rca_fused_bwd bf16 weights, i=bfloat16 B= 16 reverse=True : "
+          f"staged max|d|={max(e for e, _ in errs):.3e}, bit-identical to "
+          f"per-sample {same} {'ok' if ok else 'FAIL'}", flush=True)
+    run = {r: functools.partial(K.rca_fused_bwd, p, t, i, *g, reverse=True,
+                                route=r) for r in K.BWD_ROUTES}
+    ab = {r: [] for r in K.BWD_ROUTES}
+    for r in ("staged", "per_sample", "per_sample", "staged"):
+        ab[r].append(time_ms(run[r])[0])
     plain_ms, p_lo, p_hi = time_ms(
         lambda: K.rca_fused_bwd_reference(p, t, i, *g, reverse=True))
+    parts = block_parts(run["staged"], RCA_BWD_STAGES, part_of=_rca_bwd_stage)
     b = t.shape[0]
     nbytes = (t.numel() * 4 * 2 + i.numel() * i.element_size() * 2
               + sum(a.numel() * 4 for a in g) + 2 * K.N_WEIGHTS * 4)
     bound_ops = rca_bwd_flops(b) / PEAK_FLOPS["float32"] * 1e3
     bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(bound_ops, bound_bytes)
+    ms = sum(ab["staged"]) / 2
+    old_ms = sum(ab["per_sample"]) / 2
     report["rca_fused_bwd"] = {
         "name": "rca_fused_bwd", "route": "cuda",
         "source": "garbage_classification_rca_tpu_torch/csrc/rca_fused.cu",
         "replaces": "garbage_classification_rca_tpu/kernels/rca_fused.py:219",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_ms": bound,
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": None}
-    print(f"  rca_fused_bwd B=16 t fp32 i bf16 (median of 5 [min, max]): "
-          f"kernel {ms:.4f} [{ms_lo:.4f}, {ms_hi:.4f}] ms, plain "
-          f"{plain_ms:.4f} [{p_lo:.4f}, {p_hi:.4f}] ms, bound "
-          f"{report['rca_fused_bwd']['bound_ms']:.4f} ms", flush=True)
+        "library_ms": None, "bwd_route": "staged",
+        "share_of_bound": bound / ms,
+        "ms_runs": ab["staged"], "parts_ms": parts,
+        "bit_identical_to_per_sample": same_all,
+        "per_sample": {"ms": old_ms, "ms_runs": ab["per_sample"],
+                       "share_of_bound": bound / old_ms}}
+    print(f"  rca_fused_bwd B=16 t fp32 i bf16, new-old-old-new: staged "
+          f"{ab['staged'][0]:.4f} / {ab['staged'][1]:.4f} ms, per-sample "
+          f"{ab['per_sample'][0]:.4f} / {ab['per_sample'][1]:.4f} ms; plain "
+          f"{plain_ms:.4f} [{p_lo:.4f}, {p_hi:.4f}] ms; bound {bound:.5f} ms "
+          f"({report['rca_fused_bwd']['bound_by']}), share staged "
+          f"{bound / ms:.4f}, per-sample {bound / old_ms:.4f}; staged "
+          f"parts: {_parts_line(parts)}", flush=True)
     return ok_all
 
 
@@ -1275,10 +1344,11 @@ def _library_mlp(x, p, eps, post):
     return F.layer_norm(y, (d,), p["ls_t"], p["lb_t"], eps) if post else y
 
 
-def block_parts(fn, parts, reps=5):
+def block_parts(fn, parts, reps=5, part_of=None):
     """Device ms per call of each kernel of a bf16 block, by
-    ``_block_part``'s name, for the names in `parts`: torch.profiler over
-    `reps` eager calls of `fn`, which runs that block alone."""
+    ``_block_part``'s name (or `part_of`'s), for the names in `parts`:
+    torch.profiler over `reps` eager calls of `fn`, which runs that block
+    alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1291,7 +1361,7 @@ def block_parts(fn, parts, reps=5):
         torch.cuda.synchronize()
     out = {k: 0.0 for k in parts}
     for e in prof.key_averages():
-        part = _block_part(e.key)
+        part = (part_of or _block_part)(e.key)
         if e.device_type != DeviceType.CUDA or part not in out:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -2066,7 +2136,8 @@ def _zero_counters():
 
 
 _ROUTE_KEYS = {"cuda_core": "", "cuda_cores": "", "tc": "_tc",
-               "tensor_cores": "_tc", "tc32": "_tc32"}
+               "tensor_cores": "_tc", "tc32": "_tc32", "staged": "",
+               "per_sample": "_per_sample"}
 
 
 def _read_counters():
@@ -2074,7 +2145,8 @@ def _read_counters():
     each route on its own: "mha_fwd_lse" is the CUDA-core kernel,
     "mha_fwd_lse_tc" the tensor-core one, "mha_flash_bwd_tc32" /
     "mha_flash_bwd_drop_tc32" the 3xTF32 one; "attn_block" the CUDA-core
-    body, "attn_block_tc" the tensor-core chain."""
+    body, "attn_block_tc" the tensor-core chain; "rca_fused_bwd" K3's
+    staged route, "rca_fused_bwd_per_sample" its first version."""
     out = {}
     for k, fn in _counters().items():
         if hasattr(fn, "route_launches"):
@@ -3550,8 +3622,8 @@ def ptxas_report(log: str):
                          for i in range(1, len(name))
                          for j in range(max(0, i - 3), i)
                          if name[j:i].isdigit() and not name[i].isdigit())
-                entry = next((c for c in cands if c.endswith("_kernel")),
-                             name[:60])
+                entry = next((c for c in cands if c.endswith("_kernel")
+                              or c in RCA_BWD_STAGES), name[:60])
             continue
         if "spill" in line:
             spills = line.strip()
@@ -3693,6 +3765,9 @@ def main() -> int:
         if counter != key:
             row["cuda_cores_launches_by_path"] = {p: c[key]
                                                   for p, c in by_path.items()}
+        if key == "rca_fused_bwd":
+            row["per_sample_launches_by_path"] = {
+                p: c["rca_fused_bwd_per_sample"] for p, c in by_path.items()}
         kernels.append(row)
         if row["launches"] <= 0:
             return _fail(f"{key} was not launched on the {path} path")

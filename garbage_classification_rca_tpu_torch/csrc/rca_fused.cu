@@ -15,29 +15,65 @@
 // as the Pallas kernel writes them.
 //
 // Backward (rca_fused_backward) replaces rca_fused.py::rca_fused_bwd
-// (Pallas body `_bwd_kernel`, helpers `_unit_fwd_res` / `_unit_bwd`): it
-// recomputes the block's forward from t and i, then gives dt, di and all
-// 32 weight gradients in fp32. The TPU kernel summed the weight gradients
-// across its sequential grid; blocks here run in no order, so each block
-// writes its sample's partial gradients to a workspace and a second kernel
-// sums them over the batch in a fixed order (no atomics: the same
+// (Pallas body `_bwd_kernel`, helpers `_unit_fwd_res` / `_unit_bwd`): dt,
+// di and all 32 weight gradients in fp32. The TPU kernel summed the weight
+// gradients across its sequential grid; blocks here run in no order, so
+// the batch is summed by one pass in a fixed order (no atomics: the same
 // gradients on every run).
 //
 // What bounds both on the H100: arithmetic. 2.87 MFLOP per sample forward
-// (about three times that backward, with the recomputation) against ~13 KB
-// of activations in and out, all in fp32 (no tensor-core path keeps fp32
-// exact), so the fp32 CUDA-core rate is the roof. The 32 weight tensors
-// (80,480 values, 322 KB in fp32) do not fit one block's 227 KB of shared
-// memory, so the design stages ONE attention unit's weights at a time (the
-// largest, sa_img, is 110 KB), transposed to [in][out] with an odd leading
-// dimension so both the transposing stores and the column-parallel reads
-// are free of bank conflicts. Every intermediate stays in shared memory.
-// One block per sample, so no batch padding: the ragged edge of the TPU
-// tiling does not exist here. The backward keeps only one unit's residuals
-// at a time: it recomputes each unit's forward right before that unit's
-// backward, with the unit's weights staged once for both. Re-staging the
-// weights per sample is the known cost of this first version (they come
-// from L2 after the first block).
+// (about three times that backward) against ~13 KB of activations in and
+// out, all in fp32 (no tensor-core path keeps fp32 exact), so the fp32
+// CUDA-core rate is the roof. The 32 weight tensors (80,480 values, 322 KB
+// in fp32) do not fit one block's 227 KB of shared memory, so a block
+// stages ONE attention unit's weights at a time (the largest, sa_img, is
+// 110 KB), transposed to [in][out] with an odd leading dimension so both
+// the transposing stores and the column-parallel reads are free of bank
+// conflicts. One block per sample (and unit), so no batch padding: the
+// ragged edge of the TPU tiling does not exist here.
+//
+// The backward has two routes. Every output of both is the same chain of
+// fp32 fmaf / add operations in the same order (bit for bit; the stage
+// kernels share unit_fwd_attn / unit_bwd_attn with the first version, and
+// their own loops only give a thread several outputs):
+// - "staged", the default: four kernels. A training microbatch is 16
+//   samples; one block per sample running the whole chain (six unit passes
+//   in order, the self-attentions' forward twice) kept 16 of the 132 SMs
+//   busy at ~11% of their fp32 rate. The chain's dependencies allow two
+//   units side by side at each step, so each stage is a grid of (sample,
+//   unit) blocks:
+//     1 rca_bwd_self_fwd  sa_txt | sa_img forward, once; its residuals
+//                         (P = q|k|v, softmax A, yhat, 1/std) and output
+//                         go to a global fp32 workspace (L2-resident: ~2.7
+//                         MB at B = 16)
+//     2 rca_bwd_cross     rca_ti | rca_it forward from the stored outputs,
+//                         then backward to dq|dk|dv, the unit's dx_q and
+//                         dx_kv (four separate slots), the LayerNorm affine
+//                         gradients of the sample
+//     3 rca_bwd_self_bwd  dtsa = ti's dx_q + it's dx_kv, disa = ti's dx_kv
+//                         + it's dx_q, then sa_txt | sa_img backward from
+//                         the stored residuals to dq|dk|dv and dt / di
+//     4 rca_bwd_wgrad     every weight gradient as one thread's sum over
+//                         the batch in order, sample by sample: each
+//                         sample's 16-term fmaf chain, then added, as the
+//                         per-sample route's partials and reduce add them
+//   The weight gradients no longer make a 5 MB round trip through
+//   per-sample partials (B x 322 KB). Inside a stage block, what the first
+//   version's loops left exposed is answered: the weights are staged by
+//   cp.async, all in flight at once (stage 3's land while its attention
+//   backward runs); the projection and dx loops give a thread 8 x 4 / 4 x 4
+//   and 2 x 4 outputs, loading 4 terms before their FMAs, dx from the
+//   weights in their own [out][in] layout and dq|dk|dv transposed (16- and
+//   8-byte loads). What bounds it now: each stage block's serial chain on
+//   one SM (2B of the 132 busy), about half of it the shared attention
+//   phases (the 16-row softmax and LayerNorm passes with few threads
+//   active), and four launches.
+// - "per_sample" (rca_bwd_kernel + rca_bwd_reduce), the first version:
+//   one block per sample recomputes the forward and runs the whole chain,
+//   writing its sample's partial gradients for a second kernel to sum.
+//   Kept for the A/B on the card; taken only when asked for.
+// rca_bwd_plan (kernels/rca_fused.py) gives each route's grids, shared
+// memory and workspace layout; the C entry refuses any other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,12 +323,9 @@ __global__ void __launch_bounds__(THREADS)
 // backward
 // ---------------------------------------------------------------------------
 
-// Forward of one unit keeping what its backward needs, with the unit's
-// weights already staged: P (q | k | v), A (softmax a), YH (yhat), INV.
-// Writes relu(yhat * g + be) to `out` when it is not null.
-__device__ void unit_fwd_res(const float* xq, const float* xkv, int din,
-                             int dkq, int dv, bool reverse, float* sm,
-                             float* out) {
+// unit_fwd_res from the projections in P on.
+__device__ void unit_fwd_attn(int dkq, int dv, bool reverse, float* sm,
+                              float* out) {
   const float* gam = sm + OFF_GAM;
   const float* bet = sm + OFF_BET;
   float* P = sm + B_P;
@@ -302,8 +335,6 @@ __device__ void unit_fwd_res(const float* xq, const float* xkv, int din,
   const int tid = threadIdx.x;
   const int LD = 2 * dkq + dv + 1;
 
-  project(xq, xkv, din, dkq, dv, sm, P);
-  __syncthreads();
   scores_softmax(P, dkq, LD, A);
   __syncthreads();
   for (int e = tid; e < NP * dv; e += THREADS) {
@@ -338,15 +369,23 @@ __device__ void unit_fwd_res(const float* xq, const float* xkv, int din,
   __syncthreads();
 }
 
-// Backward of one unit whose weights are staged and whose residuals
-// unit_fwd_res left in shared memory. The cotangent of the unit's output is
-// in G ([16][dv]). Writes this sample's 8 weight gradients (torch layouts,
-// in the kernel's weight order) to `wg`, and dx_q / dx_kv to `dxq` /
-// `dxkv`, added to what they hold when `acc_q` / `acc_kv`.
-__device__ void unit_bwd(const float* xq, const float* xkv, int din, int dkq,
-                         int dv, bool reverse, float* sm, float* __restrict__ wg,
-                         float* dxq, bool acc_q, float* dxkv, bool acc_kv) {
-  const float* Wt = sm;
+// Forward of one unit keeping what its backward needs, with the unit's
+// weights already staged: P (q | k | v), A (softmax a), YH (yhat), INV.
+// Writes relu(yhat * g + be) to `out` when it is not null.
+__device__ void unit_fwd_res(const float* xq, const float* xkv, int din,
+                             int dkq, int dv, bool reverse, float* sm,
+                             float* out) {
+  project(xq, xkv, din, dkq, dv, sm, sm + B_P);
+  __syncthreads();
+  unit_fwd_attn(dkq, dv, reverse, sm, out);
+}
+
+// The attention part of one unit's backward, with the LayerNorm affine
+// staged and the residuals of unit_fwd_res in shared memory. The cotangent
+// of the unit's output is in G ([16][dv]). Writes this sample's LayerNorm
+// affine gradients to g_g / g_be and leaves dq | dk | dv in DP.
+__device__ void unit_bwd_attn(int dkq, int dv, bool reverse, float* sm,
+                              float* g_g, float* g_be) {
   const float* gam = sm + OFF_GAM;
   const float* bet = sm + OFF_BET;
   const float* P = sm + B_P;
@@ -358,15 +397,6 @@ __device__ void unit_bwd(const float* xq, const float* xkv, int din, int dkq,
   float* DP = sm + B_DP;
   const int tid = threadIdx.x;
   const int C = 2 * dkq + dv, LD = C + 1;
-  // offsets of the 8 gradients inside this unit's slice of `wg`
-  float* g_wq = wg;
-  float* g_bq = g_wq + dkq * din;
-  float* g_wk = g_bq + dkq;
-  float* g_bk = g_wk + dkq * din;
-  float* g_wv = g_bk + dkq;
-  float* g_bv = g_wv + dv * din;
-  float* g_g = g_bv + dv;
-  float* g_be = g_g + dv;
 
   // dz = dout where z = yhat * g + be > 0
   for (int e = tid; e < NP * dv; e += THREADS) {
@@ -445,6 +475,32 @@ __device__ void unit_bwd(const float* xq, const float* xkv, int din, int dkq,
     DP[r * LD + dkq + c] = ak;
   }
   __syncthreads();
+}
+
+// Backward of one unit whose weights are staged and whose residuals
+// unit_fwd_res left in shared memory (the per-sample route). The cotangent
+// of the unit's output is in G ([16][dv]). Writes this sample's 8 weight
+// gradients (torch layouts, in the kernel's weight order) to `wg`, and
+// dx_q / dx_kv to `dxq` / `dxkv`, added to what they hold when `acc_q` /
+// `acc_kv`.
+__device__ void unit_bwd(const float* xq, const float* xkv, int din, int dkq,
+                         int dv, bool reverse, float* sm, float* __restrict__ wg,
+                         float* dxq, bool acc_q, float* dxkv, bool acc_kv) {
+  const float* Wt = sm;
+  const float* DP = sm + B_DP;
+  const int tid = threadIdx.x;
+  const int C = 2 * dkq + dv, LD = C + 1;
+  // offsets of the 8 gradients inside this unit's slice of `wg`
+  float* g_wq = wg;
+  float* g_bq = g_wq + dkq * din;
+  float* g_wk = g_bq + dkq;
+  float* g_bk = g_wk + dkq * din;
+  float* g_wv = g_bk + dkq;
+  float* g_bv = g_wv + dv * din;
+  float* g_g = g_bv + dv;
+  float* g_be = g_g + dv;
+
+  unit_bwd_attn(dkq, dv, reverse, sm, g_g, g_be);
   // weight gradients: dW[c][k] = sum_n d[n][c] x[n][k] (torch [out][in])
   for (int e = tid; e < C * din; e += THREADS) {
     const int c = e / din, k = e - c * din;
@@ -563,6 +619,8 @@ __global__ void __launch_bounds__(THREADS)
     st(di, b * NP * DI + e, dxi[e]);
 }
 
+constexpr int REDUCE_GRID = (N_WEIGHTS + 255) / 256;
+
 // out[e] = sum_b part[b][e], the batch summed in order.
 __global__ void rca_bwd_reduce(const float* __restrict__ part, int batch,
                                float* __restrict__ out) {
@@ -571,6 +629,601 @@ __global__ void rca_bwd_reduce(const float* __restrict__ part, int batch,
   float a = 0.f;
   for (int b = 0; b < batch; ++b) a += part[static_cast<size_t>(b) * N_WEIGHTS + e];
   out[e] = a;
+}
+
+// ---------------------------------------------------------------------------
+// the staged route
+// ---------------------------------------------------------------------------
+
+constexpr int CA_C = 2 * CA_KQ + CA_V;       // 176 projected columns
+// shared memory past the unit's staged weights and residuals (B_G for the
+// forward, which keeps no gradients; B_XT, the end of DP, for the rest)
+constexpr int S1_X = B_G, S1_OUT = S1_X + NP * DI;
+constexpr int S1_BYTES = sizeof(float) * (S1_OUT + NP * SA_V);
+constexpr int S2_XQ = B_XT, S2_XKV = S2_XQ + NP * SA_V;
+constexpr int S2_BYTES = sizeof(float) * (S2_XKV + NP * SA_V);
+constexpr int S2_DPT = S2_XQ;               // after the projection
+constexpr int S3_DX = B_XT, S3_DPT = S3_DX + NP * DI;
+constexpr int S3_BYTES = sizeof(float) * (S3_DPT + NP * SA_C);
+static_assert(S2_BYTES <= 232448, "stage 2 exceeds shared memory");
+
+// The workspace regions, in rca_bwd_plan's order; (unit, sample) slot s =
+// u * B + b indexes the self-attention residuals and the LayerNorm parts.
+enum Region {
+  R_SA_P,    // [2][B][16][352]  q | k | v of sa_txt, sa_img
+  R_SA_A,    // [2][B][16][16]   softmax
+  R_SA_YH,   // [2][B][16][96]   yhat
+  R_SA_INV,  // [2][B][16]       1 / std
+  R_SA_OUT,  // [2][B][16][96]   t_sa, i_sa
+  R_D0,      // [B][16][C]       dq | dk | dv of sa_txt, sa_img, rca_ti,
+  R_D1,      //                  rca_it (C = 352, 352, 176, 176)
+  R_D2,
+  R_D3,
+  R_DX,      // [4][B][16][96]   dx_q / dx_kv of rca_ti, then of rca_it
+  R_LN,      // [4][B][2][96]    per-sample dg, dbe (the first dv used)
+  N_REGIONS
+};
+
+long long region_floats(int r, long long b) {
+  switch (r) {
+    case R_SA_P: return 2 * b * NP * SA_C;
+    case R_SA_A: return 2 * b * NP * NP;
+    case R_SA_YH: case R_SA_OUT: return 2 * b * NP * SA_V;
+    case R_SA_INV: return 2 * b * NP;
+    case R_D0: case R_D1: return b * NP * SA_C;
+    case R_D2: case R_D3: return b * NP * CA_C;
+    case R_DX: return 4 * b * NP * SA_V;
+    default: return 4 * b * 2 * SA_V;
+  }
+}
+
+struct Ws {
+  float* r[N_REGIONS];
+};
+
+// One sample's 16 x C compact rows from a shared [16][C + 1] buffer.
+template <int C>
+__device__ void rows_out(const float* src, float* dst) {
+  for (int e = threadIdx.x; e < NP * C; e += THREADS) {
+    const int n = e / C;
+    dst[e] = src[n * (C + 1) + e - n * C];
+  }
+}
+__device__ void copy(const float* src, int n, float* dst) {
+  for (int e = threadIdx.x; e < n; e += THREADS) dst[e] = src[e];
+}
+
+// cp.async: 4- or 16-byte copies from global to shared memory that the
+// threads do not wait for; cp_async_wait<N> waits until at most the N
+// newest commit groups are in flight.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+constexpr bool IS_F32 = false;
+template <>
+constexpr bool IS_F32<float> = true;
+
+// One staged value: fp32 by a 4-byte cp.async (the caller commits and
+// waits), other dtypes converted by the thread.
+template <typename TW>
+__device__ __forceinline__ void put(float* dst, const TW* src, int i) {
+  if constexpr (IS_F32<TW>)
+    cp_async4(dst, src + i);
+  else
+    *dst = ld(src, i);
+}
+
+// stage_unit's layout in two parts, the biases and LayerNorm affine
+// (stage_vectors) and the transposed weight matrices (stage_matrices) of a
+// unit of input width DIN, every copy in flight at once.
+template <typename TW, int DIN, int DKQ, int DV>
+__device__ void stage_vectors(const Unit& u, float* sm) {
+  const TW* bq = static_cast<const TW*>(u.bq);
+  const TW* bk = static_cast<const TW*>(u.bk);
+  const TW* bv = static_cast<const TW*>(u.bv);
+  for (int c = threadIdx.x; c < DKQ; c += THREADS) {
+    put(sm + OFF_BIAS + c, bq, c);
+    put(sm + OFF_BIAS + DKQ + c, bk, c);
+  }
+  for (int c = threadIdx.x; c < DV; c += THREADS) {
+    put(sm + OFF_BIAS + 2 * DKQ + c, bv, c);
+    put(sm + OFF_GAM + c, static_cast<const TW*>(u.g), c);
+    put(sm + OFF_BET + c, static_cast<const TW*>(u.be), c);
+  }
+}
+template <typename TW, int DIN, int DKQ, int DV>
+__device__ void stage_matrices(const Unit& u, float* sm) {
+  constexpr int LD = 2 * DKQ + DV + 1;
+  const TW* wq = static_cast<const TW*>(u.wq);
+  const TW* wk = static_cast<const TW*>(u.wk);
+  const TW* wv = static_cast<const TW*>(u.wv);
+  for (int e = threadIdx.x; e < DKQ * DIN; e += THREADS) {
+    const int j = e / DIN, k = e - j * DIN;
+    put(sm + k * LD + j, wq, e);
+    put(sm + k * LD + DKQ + j, wk, e);
+  }
+  for (int e = threadIdx.x; e < DV * DIN; e += THREADS) {
+    const int j = e / DIN, k = e - j * DIN;
+    put(sm + k * LD + 2 * DKQ + j, wv, e);
+  }
+}
+// The self-attention unit u's (0: sa_txt, 1: sa_img) parts.
+template <typename TW>
+__device__ void stage_self(const Unit& un, int u, float* sm, bool matrices) {
+  if (u == 0)
+    matrices ? stage_matrices<TW, DT, SA_KQ, SA_V>(un, sm)
+             : stage_vectors<TW, DT, SA_KQ, SA_V>(un, sm);
+  else
+    matrices ? stage_matrices<TW, DI, SA_KQ, SA_V>(un, sm)
+             : stage_vectors<TW, DI, SA_KQ, SA_V>(un, sm);
+}
+
+// The stage kernels' projection and input-gradient loops: the chains of
+// project and unit_bwd's dx loop (each output's terms in the same order)
+// with several outputs a thread: 6 shared loads per 32 FMAs (projection)
+// or 2 per 8 (dx, 8 and 16 bytes), where those load 5 per 4 or 2 per 1.
+
+// project with x transposed, xT[k][16] (a thread's RN rows n = RN ng + i
+// in RN / 4 16-byte loads). A thread's 4 columns lie in one of q | k | v,
+// each split 4 ways (c = base + cg + j * stride), so a warp's weight loads
+// are consecutive. RN = 8 for the self-attentions (352 columns: 176
+// threads, one pass), 4 for the cross-attentions (176 columns).
+template <int RN>
+__device__ void project_tiled(const float* xqT, const float* xkvT, int din,
+                              int dkq, int dv, const float* sm, float* P) {
+  const float* Wt = sm;
+  const float* bias = sm + OFF_BIAS;
+  const int C = 2 * dkq + dv, LD = C + 1, Q = C / 4;
+  for (int e = threadIdx.x; e < NP / RN * Q; e += THREADS) {
+    const int ng = e / Q, r = e - ng * Q;
+    const int region = r < dkq / 4 ? 0 : (r < dkq / 2 ? 1 : 2);
+    const int stride = region < 2 ? dkq / 4 : dv / 4;
+    const int c0 = region * dkq + r - region * (dkq / 4);
+    const float* xT = region == 0 ? xqT : xkvT;
+    float a[RN][4] = {};
+    for (int k0 = 0; k0 < din; k0 += 4) {   // 4 k's loads, then their FMAs
+      float xv[4][RN], wv[4][4];
+      for (int q = 0; q < 4; ++q) {
+        for (int h = 0; h < RN; h += 4) {
+          const float4 x4 = *reinterpret_cast<const float4*>(
+              xT + (k0 + q) * NP + RN * ng + h);
+          xv[q][h] = x4.x, xv[q][h + 1] = x4.y, xv[q][h + 2] = x4.z,
+          xv[q][h + 3] = x4.w;
+        }
+        for (int j = 0; j < 4; ++j)
+          wv[q][j] = Wt[(k0 + q) * LD + c0 + j * stride];
+      }
+      for (int q = 0; q < 4; ++q)
+        for (int i = 0; i < RN; ++i)
+          for (int j = 0; j < 4; ++j)
+            a[i][j] = fmaf(xv[q][i], wv[q][j], a[i][j]);
+    }
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + j * stride;
+      const float bc = bias[c];
+      for (int i = 0; i < RN; ++i) P[(RN * ng + i) * LD + c] = a[i][j] + bc;
+    }
+  }
+}
+
+// x [16][DIN] from `src` (fp32 or not) into xT[k][16].
+template <int DIN, typename T>
+__device__ void load_transposed(const T* src, float* xT) {
+  static_assert(NP * DIN % THREADS == 0, "whole rounds of loads");
+#pragma unroll
+  for (int r = 0; r < NP * DIN / THREADS; ++r) {
+    const int e = threadIdx.x + r * THREADS, k = e / NP, n = e - k * NP;
+    xT[e] = ld(src, static_cast<size_t>(n) * DIN + k);
+  }
+}
+
+// The weight matrices in their own layout, Wr[c][DIN] (the q | k | v
+// rows), at the start of shared memory, where stage_matrices puts their
+// transpose: what dx_raw reads. 16-byte cp.async when the three are
+// 16-byte aligned, else 4-byte; other dtypes converted by the threads.
+template <typename TW, int DIN, int DKQ, int DV>
+__device__ void stage_raw(const Unit& u, float* sm) {
+  constexpr int C = 2 * DKQ + DV;
+  const TW* wq = static_cast<const TW*>(u.wq);
+  const TW* wk = static_cast<const TW*>(u.wk);
+  const TW* wv = static_cast<const TW*>(u.wv);
+  auto row = [&](int c) {
+    return c < DKQ ? wq + c * DIN
+                   : (c < 2 * DKQ ? wk + (c - DKQ) * DIN
+                                  : wv + (c - 2 * DKQ) * DIN);
+  };
+  if constexpr (IS_F32<TW>) {
+    if ((reinterpret_cast<uintptr_t>(wq) | reinterpret_cast<uintptr_t>(wk) |
+         reinterpret_cast<uintptr_t>(wv)) % 16 == 0) {
+      for (int q = threadIdx.x; q < C * DIN / 4; q += THREADS) {
+        const int c = q / (DIN / 4), k = 4 * (q - c * (DIN / 4));
+        cp_async16(sm + c * DIN + k, row(c) + k);
+      }
+      return;
+    }
+  }
+  for (int e = threadIdx.x; e < C * DIN; e += THREADS) {
+    const int c = e / DIN;
+    put(sm + e, row(c), e - c * DIN);
+  }
+}
+
+// DPT[c][16] = DP[n][c]: dq | dk | dv transposed for dx_raw.
+template <int C>
+__device__ void transpose_dp(const float* sm, float* DPT) {
+  for (int e = threadIdx.x; e < NP * C; e += THREADS) {
+    const int c = e / NP, n = e - c * NP;
+    DPT[e] = sm[B_DP + n * (C + 1) + c];
+  }
+}
+
+// a[i][j] = sum over c in [c_lo, c_hi) of d[2 ng + i][c] W[c][4 kg + j],
+// 4 c's loads, then their FMAs (c_hi - c_lo a multiple of 4)
+template <int DIN>
+__device__ __forceinline__ void dx_raw_chain(const float* DPT, const float* Wr,
+                                             int ng, int kg, int c_lo,
+                                             int c_hi, float (&a)[2][4]) {
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+  for (int c0 = c_lo; c0 < c_hi; c0 += 4) {
+    float2 d2[4];
+    float4 w4[4];
+    for (int q = 0; q < 4; ++q) {
+      d2[q] = *reinterpret_cast<const float2*>(DPT + (c0 + q) * NP + 2 * ng);
+      w4[q] = *reinterpret_cast<const float4*>(Wr + (c0 + q) * DIN + 4 * kg);
+    }
+    for (int q = 0; q < 4; ++q) {
+      const float d[2] = {d2[q].x, d2[q].y};
+      const float w[4] = {w4[q].x, w4[q].y, w4[q].z, w4[q].w};
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 4; ++j) a[i][j] = fmaf(d[i], w[j], a[i][j]);
+    }
+  }
+}
+
+// unit_bwd's dx chains from DPT and the weights' own layout at the start of
+// shared memory (stage_raw): rows n = 2 ng + i, inputs k = 4 kg + j (2 din
+// threads), each c an 8- and a 16-byte load for 8 FMAs.
+template <int DIN, int DKQ, int DV>
+__device__ void dx_raw(const float* sm, const float* DPT, float* dxq,
+                       bool acc_q, float* dxkv, bool acc_kv) {
+  constexpr int K4 = DIN / 4;
+  for (int e = threadIdx.x; e < NP / 2 * K4; e += THREADS) {
+    const int ng = e / K4, kg = e - ng * K4;
+    float aq[2][4], akv[2][4];
+    dx_raw_chain<DIN>(DPT, sm, ng, kg, 0, DKQ, aq);
+    dx_raw_chain<DIN>(DPT, sm, ng, kg, DKQ, 2 * DKQ + DV, akv);
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 4; ++j) {
+        const int o = (2 * ng + i) * DIN + 4 * kg + j;
+        dxq[o] = acc_q ? dxq[o] + aq[i][j] : aq[i][j];
+        dxkv[o] = acc_kv ? dxkv[o] + akv[i][j] : akv[i][j];
+      }
+  }
+}
+
+// Stage 1, grid (B, 2): the forward of sa_txt (y = 0) or sa_img (y = 1)
+// of sample b, with its residuals and output stored for stages 2-4.
+template <typename TT, typename TI, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    rca_bwd_self_fwd(const TT* __restrict__ t, const TI* __restrict__ im,
+                     Weights w, Ws ws) {
+  extern __shared__ float sm[];
+  const int u = blockIdx.y;
+  const size_t b = blockIdx.x, s = u * gridDim.x + b;
+  const int din = u == 0 ? DT : DI;
+  float* xT = sm + S1_X;
+  float* out = sm + S1_OUT;
+  const Unit& un = u == 0 ? w.u[0] : w.u[1];
+  stage_self<TW>(un, u, sm, false);
+  stage_self<TW>(un, u, sm, true);
+  cp_async_commit();
+  if (u == 0)
+    load_transposed<DT>(t + b * NP * DT, xT);
+  else
+    load_transposed<DI>(im + b * NP * DI, xT);
+  cp_async_wait<0>();
+  __syncthreads();
+  project_tiled<8>(xT, xT, din, SA_KQ, SA_V, sm, sm + B_P);
+  __syncthreads();
+  unit_fwd_attn(SA_KQ, SA_V, false, sm, out);
+  rows_out<SA_C>(sm + B_P, ws.r[R_SA_P] + s * NP * SA_C);
+  copy(sm + B_A, NP * NP, ws.r[R_SA_A] + s * NP * NP);
+  copy(sm + B_YH, NP * SA_V, ws.r[R_SA_YH] + s * NP * SA_V);
+  copy(sm + B_INV, NP, ws.r[R_SA_INV] + s * NP);
+  copy(out, NP * SA_V, ws.r[R_SA_OUT] + s * NP * SA_V);
+}
+
+// Stage 2, grid (B, 2): rca_ti (y = 0: queries t_sa, keys / values i_sa,
+// cotangent g_ti) or rca_it (y = 1: the other way round) of sample b:
+// forward, then backward to dq | dk | dv, dx_q, dx_kv and the LayerNorm
+// parts.
+template <typename TT, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    rca_bwd_cross(const TT* __restrict__ g_ti, const TT* __restrict__ g_it,
+                  Weights w, Ws ws, int reverse) {
+  extern __shared__ float sm[];
+  const int y = blockIdx.y;
+  const size_t B = gridDim.x, b = blockIdx.x;
+  const bool rev = reverse != 0;
+  const float* tsa = ws.r[R_SA_OUT] + b * NP * SA_V;
+  const float* isa = ws.r[R_SA_OUT] + (B + b) * NP * SA_V;
+  float* xqT = sm + S2_XQ;
+  float* xkvT = sm + S2_XKV;
+  const Unit& un = y == 0 ? w.u[2] : w.u[3];
+  stage_vectors<TW, SA_V, CA_KQ, CA_V>(un, sm);
+  stage_matrices<TW, SA_V, CA_KQ, CA_V>(un, sm);
+  for (int e = threadIdx.x; e < NP * SA_V; e += THREADS) {
+    const int k = e / NP, n = e - k * NP;   // xT[k][16]
+    cp_async4(xqT + e, (y == 0 ? tsa : isa) + n * SA_V + k);
+    cp_async4(xkvT + e, (y == 0 ? isa : tsa) + n * SA_V + k);
+  }
+  cp_async_commit();
+  const TT* go = y == 0 ? g_ti : g_it;
+  for (int e = threadIdx.x; e < NP * CA_V; e += THREADS)
+    sm[B_G + e] = ld(go, b * NP * CA_V + e);
+  cp_async_wait<0>();
+  __syncthreads();
+  project_tiled<4>(xqT, xkvT, SA_V, CA_KQ, CA_V, sm, sm + B_P);
+  __syncthreads();
+  // the transposed weights are read; dx's layout lands during the attention
+  stage_raw<TW, SA_V, CA_KQ, CA_V>(un, sm);
+  cp_async_commit();
+  unit_fwd_attn(CA_KQ, CA_V, rev, sm, nullptr);
+  float* ln = ws.r[R_LN] + ((2 + y) * B + b) * 2 * SA_V;
+  unit_bwd_attn(CA_KQ, CA_V, rev, sm, ln, ln + SA_V);
+  rows_out<CA_C>(sm + B_DP, ws.r[R_D2 + y] + b * NP * CA_C);
+  transpose_dp<CA_C>(sm, sm + S2_DPT);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* dx = ws.r[R_DX] + (2 * y * B + b) * NP * SA_V;
+  dx_raw<SA_V, CA_KQ, CA_V>(sm, sm + S2_DPT, dx, false,
+                            dx + B * NP * SA_V, false);
+}
+
+// Stage 3, grid (B, 2): sa_txt (y = 0) or sa_img (y = 1) of sample b:
+// its output's cotangent from the two cross units' dx slots, backward from
+// the stored residuals to dq | dk | dv, the LayerNorm parts and dt / di.
+template <typename TT, typename TI, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    rca_bwd_self_bwd(Weights w, Ws ws, TT* __restrict__ dt,
+                     TI* __restrict__ di) {
+  extern __shared__ float sm[];
+  const int u = blockIdx.y;
+  const size_t B = gridDim.x, b = blockIdx.x, s = u * B + b;
+  // the residuals and the LayerNorm affine first; the weight matrices,
+  // which only dx reads, land while the attention backward runs
+  const float* P = ws.r[R_SA_P] + s * NP * SA_C;
+  for (int e = threadIdx.x; e < NP * SA_C; e += THREADS) {
+    const int n = e / SA_C;
+    cp_async4(sm + B_P + n * (SA_C + 1) + e - n * SA_C, P + e);
+  }
+  const float* A = ws.r[R_SA_A] + s * NP * NP;
+  const float* YH = ws.r[R_SA_YH] + s * NP * SA_V;
+  for (int e = 4 * threadIdx.x; e < NP * NP; e += 4 * THREADS)
+    cp_async16(sm + B_A + e, A + e);
+  for (int e = 4 * threadIdx.x; e < NP * SA_V; e += 4 * THREADS)
+    cp_async16(sm + B_YH + e, YH + e);
+  if (threadIdx.x < NP / 4)
+    cp_async16(sm + B_INV + 4 * threadIdx.x,
+               ws.r[R_SA_INV] + s * NP + 4 * threadIdx.x);
+  const Unit& un = u == 0 ? w.u[0] : w.u[1];
+  stage_self<TW>(un, u, sm, false);
+  cp_async_commit();
+  if (u == 0)
+    stage_raw<TW, DT, SA_KQ, SA_V>(un, sm);
+  else
+    stage_raw<TW, DI, SA_KQ, SA_V>(un, sm);
+  cp_async_commit();
+  // dtsa = ti's dx_q + it's dx_kv; disa = ti's dx_kv + it's dx_q
+  const size_t slot = B * NP * SA_V;
+  const float* dx = ws.r[R_DX] + b * NP * SA_V;
+  const float* first = dx + (u == 0 ? 0 : slot);
+  const float* second = dx + (u == 0 ? 3 * slot : 2 * slot);
+#pragma unroll
+  for (int r = 0; r < NP * SA_V / THREADS; ++r) {
+    const int e = threadIdx.x + r * THREADS;
+    sm[B_G + e] = first[e] + second[e];
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  float* ln = ws.r[R_LN] + s * 2 * SA_V;
+  unit_bwd_attn(SA_KQ, SA_V, false, sm, ln, ln + SA_V);
+  rows_out<SA_C>(sm + B_DP, ws.r[R_D0 + u] + b * NP * SA_C);
+  transpose_dp<SA_C>(sm, sm + S3_DPT);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* dxs = sm + S3_DX;   // dx = dx_q + dx_kv (the same input)
+  if (u == 0)
+    dx_raw<DT, SA_KQ, SA_V>(sm, sm + S3_DPT, dxs, false, dxs, true);
+  else
+    dx_raw<DI, SA_KQ, SA_V>(sm, sm + S3_DPT, dxs, false, dxs, true);
+  __syncthreads();
+  if (u == 0)
+    for (int e = threadIdx.x; e < NP * DT; e += THREADS)
+      st(dt, b * NP * DT + e, dxs[e]);
+  else
+    for (int e = threadIdx.x; e < NP * DI; e += THREADS)
+      st(di, b * NP * DI + e, dxs[e]);
+}
+
+// Stage 4: every weight gradient, each one thread's sum over the batch in
+// order. A block's outputs are two 16 x 16 tiles of a unit's [C][din]
+// q | k | v weight matrix (4 x 4 outputs a lane), walked in rca_bwd_plan's
+// tile order (unit by unit, column tiles, then input tiles), or, past the
+// WG_TILES / 2 tile blocks, 32 of the 1,632 bias and LayerNorm values.
+// Its eight warps take eight samples at once, each a sample's 16-term
+// chain for every output (a chain of L2 loads per sample in one warp was
+// the pass's whole time); then each output's owner adds the eight sums in
+// batch order.
+constexpr int WG_THREADS = 256, WG_WARPS = WG_THREADS / 32, WG_TILE = 16;
+constexpr int WG_TILES = (SA_C * DT + SA_C * DI + 2 * CA_C * SA_V) /
+                         (WG_TILE * WG_TILE);              // 308
+constexpr int WG_VECS = 2 * (SA_C + 2 * SA_V) + 2 * (CA_C + 2 * CA_V);
+constexpr int WG_GRID = WG_TILES / 2 + (WG_VECS + 31) / 32;
+constexpr int WG_LD = 17;   // a lane's 16 sums, padded: no bank conflicts
+static_assert(WG_TILES * WG_TILE * WG_TILE + WG_VECS == N_WEIGHTS,
+              "the wgrad pass covers every weight");
+
+// p[i][j] = sum_n d[b][n][c0 + i] x[b][n][k0 + j], one fmaf chain from
+// n = 0, for sample b.
+template <typename TX>
+__device__ __forceinline__ void wgrad_sample(const float* __restrict__ d,
+                                             int C, int c0,
+                                             const TX* __restrict__ x,
+                                             int din, int k0, size_t b,
+                                             float (&p)[4][4]) {
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
+  // half a sample's loads first, so they are in flight at once
+  constexpr int H = NP / 2;
+#pragma unroll
+  for (int h = 0; h < NP; h += H) {
+    float4 d4[H];
+    float xv[H][4];
+#pragma unroll
+    for (int n = 0; n < H; ++n) {
+      const size_t row = b * NP + h + n;
+      // the workspace's rows are 16-byte aligned (rca_bwd_plan)
+      d4[n] = *reinterpret_cast<const float4*>(d + row * C + c0);
+      for (int j = 0; j < 4; ++j) xv[n][j] = ld(x, row * din + k0 + j);
+    }
+#pragma unroll
+    for (int n = 0; n < H; ++n) {
+      const float dv[4] = {d4[n].x, d4[n].y, d4[n].z, d4[n].w};
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) p[i][j] = fmaf(dv[i], xv[n][j], p[i][j]);
+    }
+  }
+}
+
+// Unit u's geometry: input width, q|k|v columns, d_kq, d_v, offset in dw.
+struct UnitGeo {
+  int din, C, dkq, dv, off;
+};
+__device__ UnitGeo unit_geo(int u) {
+  const int din = u == 0 ? DT : (u == 1 ? DI : SA_V);
+  const int dkq = u < 2 ? SA_KQ : CA_KQ, dv = u < 2 ? SA_V : CA_V;
+  constexpr int SZ_T = SA_C * DT + SA_C + 2 * SA_V;
+  constexpr int SZ_I = SA_C * DI + SA_C + 2 * SA_V;
+  constexpr int SZ_C = CA_C * SA_V + CA_C + 2 * CA_V;
+  const int off = u == 0 ? 0 : (u == 1 ? SZ_T : SZ_T + SZ_I + (u - 2) * SZ_C);
+  return UnitGeo{din, 2 * dkq + dv, dkq, dv, off};
+}
+
+// The dw index of weight-matrix element (c, k) of unit g: torch [out][in]
+// layouts in the order wq, bq, wk, bk, wv, bv, g, be.
+__device__ int w_index(const UnitGeo& g, int c, int k) {
+  const int part = c < g.dkq ? 0 : (c < 2 * g.dkq ? 1 : 2);
+  return g.off + part * (g.dkq * g.din + g.dkq) + (c - part * g.dkq) * g.din +
+         k;
+}
+
+// A lane's tile of the tile blocks: unit, first column, first input.
+__device__ void lane_tile(int lane, int& u, int& c0, int& k0) {
+  int tile = 2 * blockIdx.x + (lane >> 4);
+  u = 0;
+  while (tile >= unit_geo(u).C * unit_geo(u).din / (WG_TILE * WG_TILE)) {
+    tile -= unit_geo(u).C * unit_geo(u).din / (WG_TILE * WG_TILE);
+    ++u;
+  }
+  const int kt = unit_geo(u).din / WG_TILE, l = lane & 15;
+  c0 = (tile / kt) * WG_TILE + (l >> 2) * 4;
+  k0 = (tile % kt) * WG_TILE + (l & 3) * 4;
+}
+
+template <typename TT, typename TI>
+__global__ void __launch_bounds__(WG_THREADS, 2)   // one wave: 2 a SM
+    rca_bwd_wgrad(const TT* __restrict__ t, const TI* __restrict__ im, Ws ws,
+                  int batch, float* __restrict__ dw) {
+  __shared__ float part[WG_WARPS][32 * WG_LD];   // a group's per-sample sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t B = batch;
+  const bool tiles = blockIdx.x < WG_TILES / 2;
+  // the lane's outputs in the tile blocks
+  int u, c0 = 0, k0 = 0, v = 0;
+  if (tiles) {
+    lane_tile(lane, u, c0, k0);
+  } else {
+    v = (blockIdx.x - WG_TILES / 2) * 32 + lane;
+    for (u = 0; u < 3 && v >= unit_geo(u).C + 2 * unit_geo(u).dv; ++u)
+      v -= unit_geo(u).C + 2 * unit_geo(u).dv;
+  }
+  const UnitGeo g = unit_geo(u);
+  const float* d = ws.r[R_D0 + u];
+  const float* tsa = ws.r[R_SA_OUT];
+  const float* isa = tsa + B * NP * SA_V;
+  // what each thread owns when the sums are added: tile blocks two of the
+  // 512 outputs, vector blocks (warp 0) one of 32
+  const int n_own = tiles ? 2 : (warp == 0 ? 1 : 0);
+  float acc[2] = {0.f, 0.f};
+  for (size_t b0 = 0; b0 < B; b0 += WG_WARPS) {
+    const size_t b = b0 + warp;
+    if (b < B) {
+      float* mine = part[warp] + lane * WG_LD;
+      if (tiles) {
+        float p[4][4];
+        if (u == 0)
+          wgrad_sample(d, g.C, c0, t, g.din, k0, b, p);
+        else if (u == 1)
+          wgrad_sample(d, g.C, c0, im, g.din, k0, b, p);
+        else  // rca_ti: q from t_sa, k | v from i_sa; rca_it the other way
+          wgrad_sample(d, g.C, c0, (c0 < g.dkq) == (u == 2) ? tsa : isa,
+                       g.din, k0, b, p);
+        for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 4; ++j) mine[4 * i + j] = p[i][j];
+      } else if (v < g.C) {   // a bias: sum_n d[b][n][c]
+        float a = 0.f;
+#pragma unroll
+        for (int n = 0; n < NP; ++n) a += d[(b * NP + n) * g.C + v];
+        mine[0] = a;
+      } else if (v < g.C + 2 * g.dv) {   // LayerNorm scale, then shift
+        const int j = v - g.C;
+        mine[0] = ws.r[R_LN][(u * B + b) * 2 * SA_V +
+                             (j < g.dv ? j : SA_V + j - g.dv)];
+      }
+    }
+    __syncthreads();
+    const int nb = static_cast<int>(B - b0 < WG_WARPS ? B - b0 : WG_WARPS);
+    for (int o = 0; o < n_own; ++o) {
+      const int e = threadIdx.x + o * WG_THREADS;   // lane e / 16, sum e % 16
+      const int at = tiles ? (e >> 4) * WG_LD + (e & 15) : lane * WG_LD;
+      for (int w = 0; w < nb; ++w) acc[o] += part[w][at];
+    }
+    __syncthreads();
+  }
+  if (tiles) {
+    for (int o = 0; o < 2; ++o) {
+      const int e = threadIdx.x + o * WG_THREADS, l = e >> 4, q = e & 15;
+      int uo, co, ko;
+      lane_tile(l, uo, co, ko);
+      dw[w_index(unit_geo(uo), co + (q >> 2), ko + (q & 3))] = acc[o];
+    }
+  } else if (warp == 0 && v < g.C) {
+    const int part_ = v < g.dkq ? 0 : (v < 2 * g.dkq ? 1 : 2);
+    dw[g.off + part_ * (g.dkq * g.din + g.dkq) +
+       (part_ < 2 ? g.dkq * g.din + v - part_ * g.dkq
+                  : g.dv * g.din + v - 2 * g.dkq)] = acc[0];
+  } else if (warp == 0 && v < g.C + 2 * g.dv) {
+    dw[g.off + 2 * (g.dkq * g.din + g.dkq) + g.dv * g.din + g.dv +
+       (v - g.C)] = acc[0];
+  }
 }
 
 template <typename TT, typename TI, typename TW>
@@ -603,7 +1256,38 @@ cudaError_t launch_bwd(const void* t, const void* i, const Weights& w,
       static_cast<TT*>(dt), static_cast<TI*>(di), part, reverse);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rca_bwd_reduce<<<(N_WEIGHTS + 255) / 256, 256, 0, stream>>>(part, batch, dw);
+  rca_bwd_reduce<<<REDUCE_GRID, 256, 0, stream>>>(part, batch, dw);
+  return cudaGetLastError();
+}
+
+template <typename TT, typename TI, typename TW>
+cudaError_t launch_staged(const void* t, const void* i, const Weights& w,
+                          const void* g_ti, const void* g_it, void* dt,
+                          void* di, const Ws& ws, float* dw, int batch,
+                          int reverse, cudaStream_t stream) {
+  auto k1 = rca_bwd_self_fwd<TT, TI, TW>;
+  auto k2 = rca_bwd_cross<TT, TW>;
+  auto k3 = rca_bwd_self_bwd<TT, TI, TW>;
+  const auto smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(k1, smem, S1_BYTES)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(k2, smem, S2_BYTES)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(k3, smem, S3_BYTES)) != cudaSuccess)
+    return err;
+  const dim3 grid(batch, 2);
+  const TT* tt = static_cast<const TT*>(t);
+  const TI* ti = static_cast<const TI*>(i);
+  k1<<<grid, THREADS, S1_BYTES, stream>>>(tt, ti, w, ws);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k2<<<grid, THREADS, S2_BYTES, stream>>>(static_cast<const TT*>(g_ti),
+                                          static_cast<const TT*>(g_it), w,
+                                          ws, reverse);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k3<<<grid, THREADS, S3_BYTES, stream>>>(w, ws, static_cast<TT*>(dt),
+                                          static_cast<TI*>(di));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  rca_bwd_wgrad<TT, TI><<<WG_GRID, WG_THREADS, 0, stream>>>(tt, ti, ws, batch,
+                                                            dw);
   return cudaGetLastError();
 }
 
@@ -641,13 +1325,17 @@ cudaError_t forward(const void* t, const void* i, const Weights& w, void* ti,
 #undef FWD
 }
 
+// route 0: per-sample, `part` the workspace; 1: staged, `ws` its regions
 cudaError_t backward(const void* t, const void* i, const Weights& w,
                      const void* g_ti, const void* g_it, void* dt, void* di,
-                     float* part, float* dw, int batch, int t_dt, int i_dt,
-                     int w_dt, int reverse, cudaStream_t s) {
-#define BWD(TT, TI, TW)                                                  \
-  launch_bwd<TT, TI, TW>(t, i, w, g_ti, g_it, dt, di, part, dw, batch,   \
-                         reverse, s)
+                     int route, float* part, const Ws& ws, float* dw,
+                     int batch, int t_dt, int i_dt, int w_dt, int reverse,
+                     cudaStream_t s) {
+#define BWD(TT, TI, TW)                                                    \
+  (route == 0 ? launch_bwd<TT, TI, TW>(t, i, w, g_ti, g_it, dt, di, part,  \
+                                       dw, batch, reverse, s)              \
+              : launch_staged<TT, TI, TW>(t, i, w, g_ti, g_it, dt, di, ws, \
+                                          dw, batch, reverse, s))
   RCA_DISPATCH(t_dt, i_dt, w_dt, BWD)
 #undef BWD
 }
@@ -670,21 +1358,55 @@ extern "C" int rca_fused_forward(const void* t, const void* i,
                                   w_dtype, reverse, s));
 }
 
-// Backward of rca_fused_forward. g_ti / g_it: output cotangents in t's
-// dtype; dt / di are written in t's / i's dtype. `part` is a float32
-// workspace of batch * 80,480 values; `dw` receives the 80,480 float32
-// weight gradients, the 32 tensors back to back in the order of `weights`.
+// Backward of rca_fused_forward on the launch plan of
+// kernels/rca_fused.py::rca_bwd_plan(batch, route). g_ti / g_it: output
+// cotangents in t's dtype; dt / di are written in t's / i's dtype; `dw`
+// receives the 80,480 float32 weight gradients, the 32 tensors back to back
+// in the order of `weights`. `ws`: the plan's float32 workspace of
+// `ws_floats` values, its regions at `offsets` (in floats, the plan's
+// order); route 1 is "staged", 0 "per_sample" (`ws` = batch x 80,480
+// per-sample partials); smem1..3: the plan's dynamic shared memory of its
+// first three kernels (per-sample: 215,680, 0, 0); grid4: the grid of its
+// last (the weight-gradient pass, or the per-sample route's reduce). Any
+// other plan is refused with cudaErrorInvalidValue before a launch.
 extern "C" int rca_fused_backward(const void* t, const void* i,
                                   const void* const* weights,
                                   const void* g_ti, const void* g_it,
-                                  void* dt, void* di, void* part, void* dw,
-                                  int batch, int t_dtype, int i_dtype,
-                                  int w_dtype, int reverse, void* stream) {
+                                  void* dt, void* di, void* ws,
+                                  const long long* offsets,
+                                  long long ws_floats, void* dw, int batch,
+                                  int t_dtype, int i_dtype, int w_dtype,
+                                  int reverse, int route, int smem1,
+                                  int smem2, int smem3, int grid4,
+                                  void* stream) {
   if (batch <= 0) return 0;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (offsets == nullptr || reinterpret_cast<uintptr_t>(ws) % 16)
+    return invalid;
+  Ws regions{};
+  if (route == 0) {
+    if (smem1 != static_cast<int>(B_SMEM_BYTES) || smem2 != 0 || smem3 != 0 ||
+        grid4 != REDUCE_GRID || offsets[0] != 0 ||
+        ws_floats != static_cast<long long>(batch) * N_WEIGHTS)
+      return invalid;
+  } else if (route == 1) {
+    if (smem1 != S1_BYTES || smem2 != S2_BYTES || smem3 != S3_BYTES ||
+        grid4 != WG_GRID)
+      return invalid;
+    long long at = 0;
+    for (int r = 0; r < N_REGIONS; ++r) {
+      if (offsets[r] != at) return invalid;
+      regions.r[r] = static_cast<float*>(ws) + at;
+      at += (region_floats(r, batch) + 3) / 4 * 4;   // 16-byte aligned
+    }
+    if (at != ws_floats) return invalid;
+  } else {
+    return invalid;
+  }
   const Weights w = unpack(weights);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(backward(t, i, w, g_ti, g_it, dt, di,
-                                   static_cast<float*>(part),
+  return static_cast<int>(backward(t, i, w, g_ti, g_it, dt, di, route,
+                                   static_cast<float*>(ws), regions,
                                    static_cast<float*>(dw), batch, t_dtype,
                                    i_dtype, w_dtype, reverse, s));
 }

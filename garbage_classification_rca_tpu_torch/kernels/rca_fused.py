@@ -14,14 +14,21 @@ their design answers that.
 
 The wrappers run the plain versions for tensors on the CPU and the kernels
 for tensors on a CUDA device; ``rca_fused.launches`` and
-``rca_fused_bwd.launches`` count kernel launches.
+``rca_fused_bwd.launches`` count kernel launches. The backward has two
+routes (``rca_bwd_plan``): "staged", the default, four kernels over
+(sample, unit) blocks and one batch-ordered weight-gradient pass, and
+"per_sample", the first version (one block per sample + a batch reduce),
+taken only on request; ``rca_fused_bwd.route_launches`` counts each. Both
+give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import types
-from typing import List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -169,15 +176,108 @@ def rca_fused(p, t: torch.Tensor, i: torch.Tensor, *,
 rca_fused.launches = 0
 
 
-def rca_fused_bwd(p, t, i, g_ti, g_it, *, reverse: bool):
+BWD_ROUTES = ("staged", "per_sample")
+_SA_C, _CA_C = 2 * SA_KQ + SA_V, 2 * CA_KQ + CA_V    # q | k | v columns
+# csrc/rca_fused.cu's shared-memory carve-up, in floats: a unit's staged
+# weights (sa_img's [80][353] the largest) + biases + LayerNorm affine, its
+# residuals P, A, yhat, 1/std (up to B_G), the cotangent G, dS and
+# dq | dk | dv (up to B_XT), then each kernel's own inputs and outputs
+_B_G = (80 * (_SA_C + 1) + _SA_C + 2 * SA_V + N_PATCH * (_SA_C + 1)
+        + N_PATCH * N_PATCH + N_PATCH * SA_V + N_PATCH)
+_B_XT = _B_G + N_PATCH * SA_V + N_PATCH * N_PATCH + N_PATCH * (_SA_C + 1)
+STAGE_SMEM = (4 * (_B_G + N_PATCH * (80 + SA_V)),      # x, then t_sa | i_sa
+              4 * (_B_XT + 2 * N_PATCH * SA_V),        # xq, xkv
+              4 * (_B_XT + N_PATCH * (80 + _SA_C)))    # dx, dq|dk|dv^T
+PER_SAMPLE_SMEM = 4 * (_B_XT + 2 * N_PATCH * (48 + 80) + 4 * N_PATCH * SA_V)
+WGRAD_TILE, WGRAD_VECS_PER_BLOCK = 16, 32
+
+
+def wgrad_tiles() -> Tuple[Tuple[int, int, int], ...]:
+    """The staged weight-gradient pass's tiles, (unit, first q|k|v column,
+    first input feature), in block order: block j computes tiles 2j and
+    2j + 1 (16 x 16 outputs each, 4 x 4 a lane of a warp, each warp for
+    its own samples); the blocks after them the bias and LayerNorm values,
+    WGRAD_VECS_PER_BLOCK a block, unit by unit (q | k | v biases, then the
+    scale, then the shift)."""
+    return tuple((u, c0, k0) for u, (d_in, _, dkq, dv) in enumerate(_GEOM)
+                 for c0 in range(0, 2 * dkq + dv, WGRAD_TILE)
+                 for k0 in range(0, d_in, WGRAD_TILE))
+
+
+WGRAD_VECTORS = sum(2 * dkq + 3 * dv for _, _, dkq, dv in _GEOM)   # 1,632
+
+
+@dataclass(frozen=True)
+class RcaBwdPlan:
+    """How one ``rca_fused_bwd`` call runs on the card; the wrapper hands
+    it to ``rca_fused_backward`` as it is. `route`: "staged" or
+    "per_sample"; `stages`: (kernel, grid (x, y), dynamic shared memory
+    bytes) in launch order, 256 threads a block; `workspace`: the float32
+    regions the kernels share, name -> (offset in floats, shape), each
+    16-byte aligned, in one buffer of `floats` values."""
+    route: str
+    stages: Tuple[Tuple[str, Tuple[int, int], int], ...]
+    workspace: Dict[str, Tuple[int, Tuple[int, ...]]]
+    floats: int
+
+
+def _staged_regions(b: int):
+    """The staged route's workspace regions at batch `b`, in the order the
+    C entry lays them out; slot (unit, sample) = unit * b + sample."""
+    d = tuple((f"d_{name}", (b, N_PATCH, 2 * dkq + dv))
+              for name, (_, _, dkq, dv) in zip(UNITS, _GEOM))
+    return ((("sa_p", (2, b, N_PATCH, _SA_C)),          # q | k | v
+             ("sa_a", (2, b, N_PATCH, N_PATCH)),        # softmax
+             ("sa_yh", (2, b, N_PATCH, SA_V)),          # yhat
+             ("sa_inv", (2, b, N_PATCH)),               # 1 / std
+             ("sa_out", (2, b, N_PATCH, SA_V)))         # t_sa, i_sa
+            + d                                         # dq | dk | dv
+            # dx_q, dx_kv of rca_ti, then of rca_it
+            + (("dx", (4, b, N_PATCH, SA_V)),
+               # per-sample LayerNorm scale / shift gradients (first d_v)
+               ("ln", (4, b, 2, SA_V))))
+
+
+def rca_bwd_plan(batch: int, route: Optional[str] = None) -> RcaBwdPlan:
+    """The launch plan of ``rca_fused_bwd`` at `batch` samples: "staged"
+    (the default) or "per_sample" (on request, for the A/B)."""
+    route = route or "staged"
+    if route not in BWD_ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {BWD_ROUTES}")
+    if batch < 0:
+        raise ValueError(f"batch must be >= 0, got {batch}")
+    if route == "per_sample":
+        return RcaBwdPlan(route, (
+            ("rca_bwd_kernel", (batch, 1), PER_SAMPLE_SMEM),
+            ("rca_bwd_reduce", (-(-N_WEIGHTS // 256), 1), 0)),
+            {"part": (0, (batch, N_WEIGHTS))}, batch * N_WEIGHTS)
+    workspace, at = {}, 0
+    for name, shape in _staged_regions(batch):
+        workspace[name] = (at, shape)
+        at += -(-math.prod(shape) // 4) * 4
+    grid4 = (len(wgrad_tiles()) // 2
+             + -(-WGRAD_VECTORS // WGRAD_VECS_PER_BLOCK))
+    return RcaBwdPlan(route, (
+        ("rca_bwd_self_fwd", (batch, 2), STAGE_SMEM[0]),
+        ("rca_bwd_cross", (batch, 2), STAGE_SMEM[1]),
+        ("rca_bwd_self_bwd", (batch, 2), STAGE_SMEM[2]),
+        ("rca_bwd_wgrad", (grid4, 1), 0)), workspace, at)
+
+
+def rca_fused_bwd(p, t, i, g_ti, g_it, *, reverse: bool,
+                  route: Optional[str] = None):
     """Backward of ``rca_fused``: (dt, di, [32 weight grads]); dt / di in
     t's / i's dtype, the weight grads in fp32 in ``_weights`` order.
-    g_ti / g_it: [B, 16, 48] cotangents of the two outputs."""
+    g_ti / g_it: [B, 16, 48] cotangents of the two outputs. On CUDA the
+    plan of ``rca_bwd_plan(B, route)`` runs; CPU tensors take the plain
+    version."""
     ws = _check(p, t, i)
     for g in (g_ti, g_it):
         if tuple(g.shape) != (t.shape[0], N_PATCH, CA_V) or g.device != t.device:
             raise ValueError(f"output cotangents must be [B, 16, 48] on "
                              f"{t.device}, got {tuple(g.shape)}")
+    b = t.shape[0]
+    plan = rca_bwd_plan(b, route)
     if t.device.type == "cpu":
         return rca_fused_bwd_reference(p, t, i, g_ti, g_it, reverse=reverse)
     g_ti = g_ti.to(t.dtype).contiguous()
@@ -187,26 +287,32 @@ def rca_fused_bwd(p, t, i, g_ti, g_it, *, reverse: bool):
 
     fn = _build.library("rca_fused").rca_fused_backward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5 \
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
+           ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    b = t.shape[0]
     dt = torch.empty_like(t)
     di = torch.empty_like(i)
-    part = torch.empty((b, N_WEIGHTS), dtype=torch.float32, device=t.device)
+    work = torch.empty((plan.floats,), dtype=torch.float32, device=t.device)
     dw = torch.empty((N_WEIGHTS,), dtype=torch.float32, device=t.device)
     ptrs = (ctypes.c_void_p * 32)(*[w.data_ptr() for w in ws])
+    offsets = [o for o, _ in plan.workspace.values()]
+    offsets = (ctypes.c_longlong * len(offsets))(*offsets)
+    # the first three kernels' shared memory (per-sample: its one kernel's)
+    smem = ([s for _, _, s in plan.stages[:-1]] + [0, 0])[:3]
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(t.data_ptr(), i.data_ptr(), ptrs, g_ti.data_ptr(),
                  g_it.data_ptr(), dt.data_ptr(), di.data_ptr(),
-                 part.data_ptr(), dw.data_ptr(), b, _DTYPES[t.dtype],
-                 _DTYPES[i.dtype], _DTYPES[ws[0].dtype], int(bool(reverse)),
-                 stream)
+                 work.data_ptr(), offsets, plan.floats, dw.data_ptr(), b,
+                 _DTYPES[t.dtype], _DTYPES[i.dtype], _DTYPES[ws[0].dtype],
+                 int(bool(reverse)), int(plan.route == "staged"), *smem,
+                 plan.stages[-1][1][0], stream)
     if err != 0:
-        raise RuntimeError(f"rca_fused_bwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"rca_fused_bwd kernel launch failed "
+                           f"({plan.route} route): CUDA error {err}")
     rca_fused_bwd.launches += 1
+    rca_fused_bwd.route_launches[plan.route] += 1
     grads, off = [], 0
     for w in ws:
         grads.append(dw[off:off + w.numel()].view(w.shape))
@@ -215,6 +321,7 @@ def rca_fused_bwd(p, t, i, g_ti, g_it, *, reverse: bool):
 
 
 rca_fused_bwd.launches = 0
+rca_fused_bwd.route_launches = {r: 0 for r in BWD_ROUTES}
 
 
 class _RcaTrainable(torch.autograd.Function):

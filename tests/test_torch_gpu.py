@@ -17,7 +17,9 @@ products they come from (``_single_key_close``). K2's tensor-core route
 (bf16, head dim 64, N <= 256) is held to ``mha_reference`` the same way;
 the fp32 training pair's 3xTF32 route (K4a / K7a and K4b / K7b at head
 dim 64, N <= 64) to the fp32 bars (1e-5 + 1e-5 |x| forward, 5e-5 (1 + |x|)
-backward), its outputs bit-identical over two runs."""
+backward), its outputs bit-identical over two runs. K3's staged route is
+held to the backward bars and, with ``torch.equal``, to its per-sample
+route."""
 
 import types
 
@@ -107,6 +109,44 @@ def test_rca_fused_bwd_kernel_matches_plain(cuda, b, i_dtype, reverse):
     _grad_close(got[1], want[1], i_dtype)
     for x, y in zip(got[2], want[2]):
         _grad_close(x, y, torch.float32)
+
+
+@pytest.mark.parametrize("b,w_dtype", [(1, torch.float32),
+                                       (13, torch.float32),
+                                       (16, torch.float32),
+                                       (64, torch.float32),
+                                       (16, torch.bfloat16)])
+@pytest.mark.parametrize("i_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rca_fused_bwd_routes_bit_identical(cuda, b, w_dtype, i_dtype,
+                                            reverse):
+    """K3's staged route (the default) against the plain version at the
+    backward bars, and against the per-sample route bit for bit: both
+    compute every output by the same chain of fp32 operations."""
+    g = torch.Generator().manual_seed(b + 200)
+    p = types.SimpleNamespace(**{
+        n: AttentionUnit(*geo, generator=g).to(cuda, w_dtype)
+        for n, geo in zip(rca_fused.UNITS, rca_fused._GEOM)})
+    t = torch.randn((b, 16, 48), generator=g).to(cuda)
+    i = torch.randn((b, 16, 80), generator=g).to(cuda, i_dtype)
+    gt, gi = (torch.randn((b, 16, 48), generator=g).to(cuda)
+              for _ in range(2))
+    before = dict(rca_fused.rca_fused_bwd.route_launches)
+    got = rca_fused.rca_fused_bwd(p, t, i, gt, gi, reverse=reverse)
+    old = rca_fused.rca_fused_bwd(p, t, i, gt, gi, reverse=reverse,
+                                  route="per_sample")
+    torch.cuda.synchronize()
+    assert rca_fused.rca_fused_bwd.route_launches == {
+        "staged": before["staged"] + 1,
+        "per_sample": before["per_sample"] + 1}
+    want = rca_fused.rca_fused_bwd_reference(p, t, i, gt, gi,
+                                             reverse=reverse)
+    _grad_close(got[0], want[0], torch.float32)
+    _grad_close(got[1], want[1], i_dtype)
+    for x, y in zip(got[2], want[2]):
+        _grad_close(x, y, torch.float32)
+    for x, y in zip(got[:2] + tuple(got[2]), old[:2] + tuple(old[2])):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
