@@ -33,24 +33,27 @@ Phases, each of which fails the run when it fails:
      on every fp32 case, bit-identical over two runs, the forwards timed
      new-old-old-new at 16x64x768, 128x64x768 and 128x64x768 with p 0.1,
      beside the plain versions, the library call, the bound and the share
-     of the bound reached; K3 (``rca_fused_bwd``) at B = 16, 13, 1, 64 on
-     its staged route against the plain version and, bit for bit, against
-     its per-sample route, timed new-old-old-new at B = 16 with each stage
-     kernel's time from the profiler; the build's ptxas report (registers,
-     spills) per kernel;
+     of the bound reached; K1 (``rca_fused``) at B = 128, 13, 1 (fp32,
+     bf16) and 16 (t fp32, i bf16; fp32 and bf16 weights) and K3
+     (``rca_fused_bwd``) at B = 16, 13, 1, 64, each on its staged route
+     against the plain version and, bit for bit, against its per-sample
+     route; K1 timed new-old-old-new at B = 128 bf16 and at B = 16 in the
+     training mix, K3 at B = 16, each stage kernel's time from the
+     profiler; the build's ptxas report (registers, spills) per kernel;
   4. eval: the MM-RCA eval path (EfficientNetV2-M at 480x480, 6-layer
      DistilBERT at seq 64, the MM-RCA block, eval batch 128, bf16) with
      random seeded weights over synthetic batches through ``run_eval``;
-     launch counters zeroed before and read after that run (K2 on the
-     tensor cores); logits against the same model on the plain versions;
+     launch counters zeroed before and read after that run (K1 on its
+     staged route, K2 on the tensor cores); logits against the same model
+     on the plain versions;
      samples/s, p50 batch latency, peak memory; one batch of 8 at
      ``--seq_len=512``, where K2 runs on the CUDA cores;
   5. train: the MM_RCA.sh recipe at full width (fp32 master weights, bf16
      images, batch 16 x acc_steps 10, SGD lr 0.0016 reg 0.03, class
      weights, augmentation p=1.0, head dropout 0.6, stochastic depth) —
      three optimizer steps all trainable and one with the phase-1 mask,
-     launch counters read around them (per microbatch: K1 1, K3 1, K4a 6
-     on the CUDA cores, K4b 6 on 3xTF32); steps/s,
+     launch counters read around them (per microbatch: K1 1, K3 1, both
+     staged, K4a 6 on the CUDA cores, K4b 6 on 3xTF32); steps/s,
      samples/s, peak memory, a profiler breakdown; one more step with
      ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6 on
      3xTF32); microbatches' loss and gradients on the kernel path
@@ -286,69 +289,134 @@ def _rca_params(dtype, device, gen):
     return p
 
 
+RCA_FWD_STAGES = ("rca_fwd_self", "rca_fwd_cross")
+
+
+def _rca_fwd_stage(name):
+    """Which kernel of K1's staged route a profiler event is, or None."""
+    return next((s for s in RCA_FWD_STAGES if s in name), None)
+
+
+def _rca_fwd_bound(p, t, i):
+    """(bound ms, side) of K1 on these inputs: 2,867,200 operations a
+    sample (csrc note) at the fp32 rate; t, i and the weights read once,
+    ti and it written once in t's dtype."""
+    from garbage_classification_rca_tpu_torch.kernels import rca_fused as K
+
+    b = t.shape[0]
+    nbytes = (t.numel() * t.element_size() + i.numel() * i.element_size()
+              + 2 * b * 16 * 48 * t.element_size()
+              + K.N_WEIGHTS * p.sa_txt.q.w.element_size())
+    ops = 2867200 * b / PEAK_FLOPS["float32"] * 1e3
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops, by_bytes), "operations" if ops >= by_bytes else "bytes"
+
+
+def _rca_fwd_ab(p, t, i):
+    """K1's two routes timed new-old-old-new on (t, i), reverse, beside the
+    plain version, each staged kernel's time from the profiler, the bound
+    and the share of it reached."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import rca_fused as K
+
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    run = {r: functools.partial(K.rca_fused, p, t, i, reverse=True, route=r)
+           for r in K.FWD_ROUTES}
+    ab = {r: [] for r in K.FWD_ROUTES}
+    for r in ("staged", "per_sample", "per_sample", "staged"):
+        ab[r].append(time_ms(run[r])[0])
+    plain_ms = time_ms(lambda: K.rca_fused_reference(p, t, i,
+                                                     reverse=True))[0]
+    parts = block_parts(run["staged"], RCA_FWD_STAGES,
+                        part_of=_rca_fwd_stage)
+    bound, side = _rca_fwd_bound(p, t, i)
+    ms, old_ms = sum(ab["staged"]) / 2, sum(ab["per_sample"]) / 2
+    return {"ms": ms, "ms_runs": ab["staged"], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": side, "share_of_bound": bound / ms,
+            "parts_ms": parts,
+            "groups": K.rca_fwd_plan(t.shape[0], sms=sms).groups,
+            "per_sample": {"ms": old_ms, "ms_runs": ab["per_sample"],
+                           "share_of_bound": bound / old_ms}}
+
+
 def check_rca(device, report):
+    """K1 on its staged route (the default) against the plain version, and
+    against its per-sample route (the first version) bit for bit: fp32 and
+    bf16 at B = 128 (the eval batch), 13 and 1, reverse on and off; the
+    training mix (t fp32, i bf16, fp32 weights) at B = 16 and once with
+    bf16 weights. Both routes timed new-old-old-new at B = 128 bf16 and at
+    B = 16 in the training mix."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import rca_fused as K
 
     gen = torch.Generator().manual_seed(SEED)
-    main = None
-    ok_all = True
+    ok_all, same_all, main = True, True, None
+
+    def held(label, p, t, i, reverse, dtype):
+        nonlocal ok_all, same_all
+        got = K.rca_fused(p, t, i, reverse=reverse)
+        old = K.rca_fused(p, t, i, reverse=reverse, route="per_sample")
+        torch.cuda.synchronize()
+        want = K.rca_fused_reference(p, t, i, reverse=reverse)
+        errs = [max_err_ok(g, w, dtype, "rca") for g, w in zip(got, want)]
+        old_ok = all(max_err_ok(g, w, dtype, "rca")[1]
+                     for g, w in zip(old, want))
+        diff = max(float((g.float() - o.float()).abs().max())
+                   for g, o in zip(got, old))
+        same = all(torch.equal(g, o) for g, o in zip(got, old))
+        err = max(e for e, _ in errs)
+        ok = (all(o for _, o in errs) and old_ok and same
+              and got[0].dtype == t.dtype)
+        ok_all &= ok
+        same_all &= same
+        print(f"  rca_fused {label} reverse={reverse!s:5s}: staged max|d|="
+              f"{err:.3e}, per-sample within the bars {old_ok}; staged vs "
+              f"per-sample max|d| {diff:.3e} (bit-identical {same}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        return err
+
     for dtype in (torch.float32, torch.bfloat16):
         p = _rca_params(dtype, device, gen)
-        for b in (128, 13):
+        for b in (128, 13, 1):
             t = torch.randn((b, 16, 48), generator=gen).to(device, dtype)
             i = torch.randn((b, 16, 80), generator=gen).to(device, dtype)
             for reverse in (True, False):
-                got = K.rca_fused(p, t, i, reverse=reverse)
-                torch.cuda.synchronize()
-                want = K.rca_fused_reference(p, t, i, reverse=reverse)
-                errs = [max_err_ok(g, w, dtype, "rca")
-                        for g, w in zip(got, want)]
-                err = max(e for e, _ in errs)
-                ok = all(o for _, o in errs)
-                ok_all &= ok
-                print(f"  rca_fused {str(dtype)[6:]:8s} B={b:3d} "
-                      f"reverse={reverse!s:5s}: max|d|={err:.3e} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                err = held(f"{str(dtype)[6:]:8s} B={b:3d}", p, t, i, reverse,
+                           dtype)
                 if dtype == torch.bfloat16 and b == 128 and reverse:
                     main = (p, t, i, err)
     # the training path's mixed input: t fp32 (text tower), i bf16 (image
-    # tower), fp32 weights; outputs in t's dtype
+    # tower), fp32 weights; outputs in t's dtype; then bf16 weights
     p32 = _rca_params(torch.float32, device, gen)
     t = torch.randn((16, 16, 48), generator=gen).to(device)
     i = torch.randn((16, 16, 80), generator=gen).to(device, torch.bfloat16)
-    got = K.rca_fused(p32, t, i, reverse=True)
-    torch.cuda.synchronize()
-    want = K.rca_fused_reference(p32, t, i, reverse=True)
-    errs = [max_err_ok(g, w, torch.float32, "rca") for g, w in zip(got, want)]
-    ok = all(o for _, o in errs) and got[0].dtype == torch.float32
-    ok_all &= ok
-    print(f"  rca_fused t float32 i bfloat16 B= 16 reverse=True : max|d|="
-          f"{max(e for e, _ in errs):.3e} {'ok' if ok else 'FAIL'}",
-          flush=True)
+    for reverse in (True, False):
+        held("t float32 i bfloat16 B= 16", p32, t, i, reverse, torch.float32)
+    held("bf16 weights, t float32 i bfloat16 B= 16",
+         _rca_params(torch.bfloat16, device, gen), t, i, True, torch.float32)
+    train = _rca_fwd_ab(p32, t, i)
     p, t, i, err = main
-    ms, ms_lo, ms_hi = time_ms(lambda: K.rca_fused(p, t, i, reverse=True))
-    plain_ms, p_lo, p_hi = time_ms(
-        lambda: K.rca_fused_reference(p, t, i, reverse=True))
-    b = t.shape[0]
-    flops = 2867200 * b                      # per sample, see csrc note
-    nbytes = (t.numel() + i.numel() + 2 * b * 16 * 48) * t.element_size() \
-        + K.N_WEIGHTS * p.sa_txt.q.w.element_size()
-    bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    ev = _rca_fwd_ab(p, t, i)
     report["rca_fused"] = {
         "name": "rca_fused", "route": "cuda",
         "source": "garbage_classification_rca_tpu_torch/csrc/rca_fused.cu",
         "replaces": "garbage_classification_rca_tpu/kernels/rca_fused.py:69",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": None}
-    print(f"  rca_fused B=128 bf16 (median of 5 [min, max]): kernel {ms:.4f} "
-          f"[{ms_lo:.4f}, {ms_hi:.4f}] ms, plain {plain_ms:.4f} [{p_lo:.4f}, "
-          f"{p_hi:.4f}] ms, bound {report['rca_fused']['bound_ms']:.4f} ms",
-          flush=True)
+        "max_abs_err": err, "library_ms": None, "fwd_route": "staged",
+        **{k: ev[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound", "ms_runs", "parts_ms",
+                              "groups", "per_sample")},
+        "bit_identical_to_per_sample": same_all, "train_b16": train}
+    for label, r in (("B=128 bf16", ev), ("B=16 t fp32 i bf16", train)):
+        print(f"  rca_fused {label}, new-old-old-new: staged "
+              f"{r['ms_runs'][0]:.4f} / {r['ms_runs'][1]:.4f} ms (G "
+              f"{r['groups']}), per-sample {r['per_sample']['ms_runs'][0]:.4f}"
+              f" / {r['per_sample']['ms_runs'][1]:.4f} ms; plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), share staged {r['share_of_bound']:.4f}, "
+              f"per-sample {r['per_sample']['share_of_bound']:.4f}; staged "
+              f"parts: {_parts_line(r['parts_ms'])}", flush=True)
     return ok_all
 
 
@@ -1884,7 +1952,7 @@ def _kind(name: str) -> str:
                             "MLP GEMM2)",
                 "core": "ftc forward, no lse (K2; attention-block core)",
                 "ln": "block LayerNorm rows"}[part]
-    if "rca_fused_kernel" in n:
+    if "rca_fused_kernel" in n or "rca_fwd_" in n:
         return "rca_fused kernel"
     if "ftc::" in n:            # the tensor-core route: K4a, K4b
         if "fwd_kernel" in n:
@@ -2145,8 +2213,9 @@ def _read_counters():
     each route on its own: "mha_fwd_lse" is the CUDA-core kernel,
     "mha_fwd_lse_tc" the tensor-core one, "mha_flash_bwd_tc32" /
     "mha_flash_bwd_drop_tc32" the 3xTF32 one; "attn_block" the CUDA-core
-    body, "attn_block_tc" the tensor-core chain; "rca_fused_bwd" K3's
-    staged route, "rca_fused_bwd_per_sample" its first version."""
+    body, "attn_block_tc" the tensor-core chain; "rca_fused" /
+    "rca_fused_bwd" K1's / K3's staged route, "rca_fused_per_sample" /
+    "rca_fused_bwd_per_sample" their first versions."""
     out = {}
     for k, fn in _counters().items():
         if hasattr(fn, "route_launches"):
@@ -3623,7 +3692,8 @@ def ptxas_report(log: str):
                          for j in range(max(0, i - 3), i)
                          if name[j:i].isdigit() and not name[i].isdigit())
                 entry = next((c for c in cands if c.endswith("_kernel")
-                              or c in RCA_BWD_STAGES), name[:60])
+                              or c in RCA_BWD_STAGES + RCA_FWD_STAGES),
+                             name[:60])
             continue
         if "spill" in line:
             spills = line.strip()
@@ -3765,9 +3835,9 @@ def main() -> int:
         if counter != key:
             row["cuda_cores_launches_by_path"] = {p: c[key]
                                                   for p, c in by_path.items()}
-        if key == "rca_fused_bwd":
+        if key in ("rca_fused", "rca_fused_bwd"):
             row["per_sample_launches_by_path"] = {
-                p: c["rca_fused_bwd_per_sample"] for p, c in by_path.items()}
+                p: c[key + "_per_sample"] for p, c in by_path.items()}
         kernels.append(row)
         if row["launches"] <= 0:
             return _fail(f"{key} was not launched on the {path} path")

@@ -2,7 +2,7 @@
 //
 // Forward (rca_fused_forward) replaces
 // garbage_classification_rca_tpu/kernels/rca_fused.py::rca_fused (Pallas
-// body `_kernel`). One launch computes the whole block:
+// body `_kernel`). It computes the whole block:
 //   t_sa = relu(LN(softmax(q_t k_t^T / sqrt 128) v_t))        [16, 96]
 //   i_sa = relu(LN(softmax(q_i k_i^T / sqrt 128) v_i))        [16, 96]
 //   ti   = relu(LN(W(q(t_sa), k(i_sa)) v(i_sa)))              [16, 48]
@@ -27,15 +27,50 @@
 // CUDA-core rate is the roof. The 32 weight tensors (80,480 values, 322 KB
 // in fp32) do not fit one block's 227 KB of shared memory, so a block
 // stages ONE attention unit's weights at a time (the largest, sa_img, is
-// 110 KB), transposed to [in][out] with an odd leading dimension so both
-// the transposing stores and the column-parallel reads are free of bank
-// conflicts. One block per sample (and unit), so no batch padding: the
-// ragged edge of the TPU tiling does not exist here.
+// 110 KB). The first versions transpose them to [in][out] with an odd
+// leading dimension (conflict-free transposing stores and column-parallel
+// reads); the stage kernels keep the [out][in] rows, padded to in + 4
+// (16-byte copies, one 16-byte load for a column's 4 inputs, a
+// quarter-warp's rows on distinct banks). One block per sample, or sample
+// group, and unit, so no batch padding: the ragged edge of the TPU tiling
+// does not exist here.
+//
+// The forward has two routes, every output the same chain of fp32
+// operations in the same order (bit for bit):
+// - "staged", the default: two kernels over (sample group, unit) blocks,
+//     1 rca_fwd_self   sa_txt | sa_img of G samples; t_sa, i_sa to a
+//                      global fp32 workspace (1.5 MB at B = 128: L2)
+//     2 rca_fwd_cross  rca_ti | rca_it of G samples from it; ti, it
+//   G = 1 while the 2B blocks are no more than the SMs (the train
+//   microbatch, 16), else 2 (the eval batch, 128: one staged copy of a
+//   unit's weights serves two samples). Stage 2 is launched as a
+//   programmatic dependent of stage 1: its blocks stage their weights on
+//   the SMs stage 1 leaves free and wait (griddepcontrol) before reading
+//   the workspace. The first version ran the four units one after another
+//   in one block a sample: 16 of 132 SMs busy at B = 16, each re-staging
+//   322 KB. Stage 1 of the backward's staged route is stage 1 here with
+//   the residuals stored (self_fwd<.., RES>), its stage 2 starts as stage
+//   2 here (cross_load, project_group, attn_fwd_group). Inside a block:
+//   the weights by cp.async (bf16: 16-byte loads, all of a thread's in
+//   flight, converted exactly); the projection 8 x 4 outputs a thread; the
+//   softmax of a row on the lanes of a warp (the max by shuffles, the sum
+//   of the exponentials in order from the shuffled values) and each mixing
+//   weight, a division when `reverse`, computed once; LayerNorm's warp
+//   sums on 16 / G lanes a row, their butterfly's first steps in
+//   registers. What bounds it now: each stage block's serial chain of
+//   dependent phases (staging from L2, the projection at the rate shared
+//   memory hands out its operands, the score chains of 128 / 64 dependent
+//   FMAs), not the operations.
+// - "per_sample" (rca_fused_kernel), the first version; taken only when
+//   asked for.
+// rca_fwd_plan (kernels/rca_fused.py) gives each route's grids, samples a
+// block, shared memory and workspace; the C entry refuses any other.
 //
 // The backward has two routes. Every output of both is the same chain of
 // fp32 fmaf / add operations in the same order (bit for bit; the stage
-// kernels share unit_fwd_attn / unit_bwd_attn with the first version, and
-// their own loops only give a thread several outputs):
+// kernels share unit_bwd_attn with the first version, their forward
+// halves are the forward's stage code, and their own loops only give a
+// thread several outputs):
 // - "staged", the default: four kernels. A training microbatch is 16
 //   samples; one block per sample running the whole chain (six unit passes
 //   in order, the self-attentions' forward twice) kept 16 of the 132 SMs
@@ -63,11 +98,11 @@
 //   cp.async, all in flight at once (stage 3's land while its attention
 //   backward runs); the projection and dx loops give a thread 8 x 4 / 4 x 4
 //   and 2 x 4 outputs, loading 4 terms before their FMAs, dx from the
-//   weights in their own [out][in] layout and dq|dk|dv transposed (16- and
-//   8-byte loads). What bounds it now: each stage block's serial chain on
-//   one SM (2B of the 132 busy), about half of it the shared attention
-//   phases (the 16-row softmax and LayerNorm passes with few threads
-//   active), and four launches.
+//   weights in their own [out][in] layout (stage 2: the rows its
+//   projection read) and dq|dk|dv transposed (16- and 8-byte loads). What
+//   bounds it now: each stage block's serial chain on one SM (2B of the
+//   132 busy), the attention backward's phases with few threads active,
+//   and four launches.
 // - "per_sample" (rca_bwd_kernel + rca_bwd_reduce), the first version:
 //   one block per sample recomputes the forward and runs the whole chain,
 //   writing its sample's partial gradients for a second kernel to sum.
@@ -636,10 +671,11 @@ __global__ void rca_bwd_reduce(const float* __restrict__ part, int batch,
 // ---------------------------------------------------------------------------
 
 constexpr int CA_C = 2 * CA_KQ + CA_V;       // 176 projected columns
-// shared memory past the unit's staged weights and residuals (B_G for the
-// forward, which keeps no gradients; B_XT, the end of DP, for the rest)
-constexpr int S1_X = B_G, S1_OUT = S1_X + NP * DI;
-constexpr int S1_BYTES = sizeof(float) * (S1_OUT + NP * SA_V);
+// K3's stage blocks' shared memory: stage 1 in the forward's compact
+// carve-up (Lay below; its plan keeps the first version's size), stages 2
+// and 3 in the per-sample kernel's, their own buffers past B_XT (the end
+// of DP)
+constexpr int S1_BYTES = sizeof(float) * (B_G + NP * (DI + SA_V));
 constexpr int S2_XQ = B_XT, S2_XKV = S2_XQ + NP * SA_V;
 constexpr int S2_BYTES = sizeof(float) * (S2_XKV + NP * SA_V);
 constexpr int S2_DPT = S2_XQ;               // after the projection
@@ -729,49 +765,132 @@ __device__ __forceinline__ void put(float* dst, const TW* src, int i) {
     *dst = ld(src, i);
 }
 
-// stage_unit's layout in two parts, the biases and LayerNorm affine
-// (stage_vectors) and the transposed weight matrices (stage_matrices) of a
-// unit of input width DIN, every copy in flight at once.
-template <typename TW, int DIN, int DKQ, int DV>
-__device__ void stage_vectors(const Unit& u, float* sm) {
+// Where a stage block keeps one unit's staged weights, in their own
+// [out][in] layout, rows padded to DIN + 4 (stage_rows), its biases and
+// LayerNorm affine, and, for each of its samples s (at + s * stride), the
+// x tile(s) transposed to xT[in][16] and the attention buffers P (q | k |
+// v, [16][C + 1]), W (the mixing weights mix(a)), A (the softmax a, kept
+// for K3), Y (the attention output, then yhat) and 1/std.
+struct Buf {
+  float* wt;
+  float *bias, *gam, *bet;
+  float *xq, *xkv;   // the same tile for a self-attention
+  float *P, *W, *A, *YH, *INV;
+  int stride;
+};
+
+// The per-sample kernel's carve-up, which K3's stages 2 and 3 keep (their
+// attention backward reads it), with the x tiles at xq / xkv; W in dS,
+// which the backward writes later.
+__device__ Buf fixed_buf(float* sm, int xq, int xkv) {
+  return Buf{sm,          sm + OFF_BIAS, sm + OFF_GAM, sm + OFF_BET,
+             sm + xq,     sm + xkv,      sm + B_P,     sm + B_DS,
+             sm + B_A,    sm + B_YH,     sm + B_INV,   0};
+}
+
+// The forward's compact carve-up for a unit of input width DIN and NX x
+// tiles a sample (1: self-attention, 2: cross): the weights and vectors,
+// then a 16-byte aligned slot of PER floats per sample; W takes the x
+// tile's place once the projection has read it (K1 keeps no A).
+template <int DIN, int DKQ, int DV, int NX>
+struct Lay {
+  static constexpr int C = 2 * DKQ + DV, LD = C + 1, LDW = DIN + 4;
+  static constexpr int HEAD = (C * LDW + C + 2 * DV + 3) / 4 * 4;
+  static constexpr int P = NX * DIN * NP, A = P + NP * LD, Y = A + NP * NP,
+                       INV = Y + NP * DV, PER = (INV + NP + 3) / 4 * 4;
+  static constexpr int floats(int g) { return HEAD + g * PER; }
+  static __device__ Buf buf(float* sm) {
+    float* v = sm + C * LDW;
+    float* s = sm + HEAD;
+    return Buf{sm, v, v + C, v + C + DV, s, s + (NX - 1) * DIN * NP,
+               s + P, s, s + A, s + Y, s + INV, PER};
+  }
+};
+
+// stage_unit's biases and LayerNorm affine, every copy in flight at once
+// (fp32; other dtypes converted by the threads).
+template <typename TW, int DKQ, int DV>
+__device__ void stage_vectors(const Unit& u, const Buf& m) {
   const TW* bq = static_cast<const TW*>(u.bq);
   const TW* bk = static_cast<const TW*>(u.bk);
   const TW* bv = static_cast<const TW*>(u.bv);
   for (int c = threadIdx.x; c < DKQ; c += THREADS) {
-    put(sm + OFF_BIAS + c, bq, c);
-    put(sm + OFF_BIAS + DKQ + c, bk, c);
+    put(m.bias + c, bq, c);
+    put(m.bias + DKQ + c, bk, c);
   }
   for (int c = threadIdx.x; c < DV; c += THREADS) {
-    put(sm + OFF_BIAS + 2 * DKQ + c, bv, c);
-    put(sm + OFF_GAM + c, static_cast<const TW*>(u.g), c);
-    put(sm + OFF_BET + c, static_cast<const TW*>(u.be), c);
+    put(m.bias + 2 * DKQ + c, bv, c);
+    put(m.gam + c, static_cast<const TW*>(u.g), c);
+    put(m.bet + c, static_cast<const TW*>(u.be), c);
   }
 }
-template <typename TW, int DIN, int DKQ, int DV>
-__device__ void stage_matrices(const Unit& u, float* sm) {
-  constexpr int LD = 2 * DKQ + DV + 1;
+
+// A unit's q | k | v weight matrices in their own [out][in] layout, the
+// rows stacked (c: q, then k, then v) at stride LDW: Wr[c][LDW]. fp32 by
+// 16-byte cp.async (the caller commits and waits), bf16 8 values a 16-byte
+// load, all of a thread's loads before their conversions and stores; a matrix
+// that is not 16-byte aligned value by value. LDW = DIN + 4 where
+// project_group reads them (a quarter-warp's rows on distinct banks), DIN
+// where only dx_raw does.
+template <typename TW, int DIN, int DKQ, int DV, int LDW>
+__device__ void stage_rows(const Unit& u, float* wr) {
+  constexpr int C = 2 * DKQ + DV;
   const TW* wq = static_cast<const TW*>(u.wq);
   const TW* wk = static_cast<const TW*>(u.wk);
   const TW* wv = static_cast<const TW*>(u.wv);
-  for (int e = threadIdx.x; e < DKQ * DIN; e += THREADS) {
-    const int j = e / DIN, k = e - j * DIN;
-    put(sm + k * LD + j, wq, e);
-    put(sm + k * LD + DKQ + j, wk, e);
+  auto row = [&](int c) {
+    return c < DKQ ? wq + c * DIN
+                   : (c < 2 * DKQ ? wk + (c - DKQ) * DIN
+                                  : wv + (c - 2 * DKQ) * DIN);
+  };
+  const bool aligned = (reinterpret_cast<uintptr_t>(wq) |
+                        reinterpret_cast<uintptr_t>(wk) |
+                        reinterpret_cast<uintptr_t>(wv)) % 16 == 0;
+  if constexpr (IS_F32<TW>) {
+    if (aligned) {
+      for (int q = threadIdx.x; q < C * DIN / 4; q += THREADS) {
+        const int c = q / (DIN / 4), k = 4 * (q - c * (DIN / 4));
+        cp_async16(wr + c * LDW + k, row(c) + k);
+      }
+      return;
+    }
+  } else {
+    if (aligned) {
+      // a thread's loads all in flight (at most 14 = 56 registers)
+      constexpr int K8 = DIN / 8, N8 = C * K8,
+                    R = (N8 + THREADS - 1) / THREADS < 14
+                            ? (N8 + THREADS - 1) / THREADS : 14;
+      static_assert(DIN % 8 == 0, "whole 16-byte loads");
+      for (int q0 = threadIdx.x; q0 < N8; q0 += R * THREADS) {
+        uint4 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int q = q0 + r * THREADS, c = q / K8, k = 8 * (q - c * K8);
+          if (q < N8) v[r] = *reinterpret_cast<const uint4*>(row(c) + k);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int q = q0 + r * THREADS, c = q / K8, k = 8 * (q - c * K8);
+          if (q >= N8) break;
+          // bf16 -> fp32 exactly: the bits in the upper half
+          float4* d = reinterpret_cast<float4*>(wr + c * LDW + k);
+          d[0] = make_float4(__uint_as_float(v[r].x << 16),
+                             __uint_as_float(v[r].x & 0xffff0000u),
+                             __uint_as_float(v[r].y << 16),
+                             __uint_as_float(v[r].y & 0xffff0000u));
+          d[1] = make_float4(__uint_as_float(v[r].z << 16),
+                             __uint_as_float(v[r].z & 0xffff0000u),
+                             __uint_as_float(v[r].w << 16),
+                             __uint_as_float(v[r].w & 0xffff0000u));
+        }
+      }
+      return;
+    }
   }
-  for (int e = threadIdx.x; e < DV * DIN; e += THREADS) {
-    const int j = e / DIN, k = e - j * DIN;
-    put(sm + k * LD + 2 * DKQ + j, wv, e);
+  for (int e = threadIdx.x; e < C * DIN; e += THREADS) {
+    const int c = e / DIN;
+    put(wr + c * LDW + e - c * DIN, row(c), e - c * DIN);
   }
-}
-// The self-attention unit u's (0: sa_txt, 1: sa_img) parts.
-template <typename TW>
-__device__ void stage_self(const Unit& un, int u, float* sm, bool matrices) {
-  if (u == 0)
-    matrices ? stage_matrices<TW, DT, SA_KQ, SA_V>(un, sm)
-             : stage_vectors<TW, DT, SA_KQ, SA_V>(un, sm);
-  else
-    matrices ? stage_matrices<TW, DI, SA_KQ, SA_V>(un, sm)
-             : stage_vectors<TW, DI, SA_KQ, SA_V>(un, sm);
 }
 
 // The stage kernels' projection and input-gradient loops: the chains of
@@ -779,47 +898,198 @@ __device__ void stage_self(const Unit& un, int u, float* sm, bool matrices) {
 // with several outputs a thread: 6 shared loads per 32 FMAs (projection)
 // or 2 per 8 (dx, 8 and 16 bytes), where those load 5 per 4 or 2 per 1.
 
-// project with x transposed, xT[k][16] (a thread's RN rows n = RN ng + i
-// in RN / 4 16-byte loads). A thread's 4 columns lie in one of q | k | v,
-// each split 4 ways (c = base + cg + j * stride), so a warp's weight loads
-// are consecutive. RN = 8 for the self-attentions (352 columns: 176
-// threads, one pass), 4 for the cross-attentions (176 columns).
-template <int RN>
-__device__ void project_tiled(const float* xqT, const float* xkvT, int din,
-                              int dkq, int dv, const float* sm, float* P) {
-  const float* Wt = sm;
-  const float* bias = sm + OFF_BIAS;
-  const int C = 2 * dkq + dv, LD = C + 1, Q = C / 4;
-  for (int e = threadIdx.x; e < NP / RN * Q; e += THREADS) {
-    const int ng = e / Q, r = e - ng * Q;
-    const int region = r < dkq / 4 ? 0 : (r < dkq / 2 ? 1 : 2);
-    const int stride = region < 2 ? dkq / 4 : dv / 4;
-    const int c0 = region * dkq + r - region * (dkq / 4);
-    const float* xT = region == 0 ? xqT : xkvT;
-    float a[RN][4] = {};
-    for (int k0 = 0; k0 < din; k0 += 4) {   // 4 k's loads, then their FMAs
-      float xv[4][RN], wv[4][4];
-      for (int q = 0; q < 4; ++q) {
+// project for the ng samples of a block, x transposed, xT[k][16], the
+// weights in their own layout (stage_rows, LDW = DIN + 4): a thread's RN
+// rows n = RN ng + i of one sample in RN / 4 16-byte loads, its NC columns'
+// 4 weights of a k step in one 16-byte load each. A thread's columns lie
+// in one of q | k | v, each split NC ways (c = base + cg + j * stride), so
+// a warp's columns are consecutive. Shared memory hands a warp 32 values a
+// clock, the SM's FMA units take 128: a thread's RN + NC values per k for
+// RN x NC FMAs keep the loads in their shadow only from 8 x 8 on, which
+// leaves too few threads; self-attentions take 8 x 4 (176 threads a
+// sample), cross-attentions 4 x 4 (176).
+template <int RN, int NC, int DIN, int DKQ, int DV>
+__device__ void project_group(const Buf& m, int ng) {
+  constexpr int C = 2 * DKQ + DV, LD = C + 1, LDW = DIN + 4, Q = C / NC,
+                T = NP / RN * Q;
+  for (int e = threadIdx.x; e < ng * T; e += THREADS) {
+    const int s = e / T, f = e - s * T, ng_ = f / Q, r = f - ng_ * Q;
+    const int region = r < DKQ / NC ? 0 : (r < 2 * DKQ / NC ? 1 : 2);
+    const int stride = (region < 2 ? DKQ : DV) / NC;
+    const int c0 = region * DKQ + r - region * (DKQ / NC);
+    const float* xT = (region == 0 ? m.xq : m.xkv) + s * m.stride;
+    float* P = m.P + s * m.stride;
+    float a[RN][NC] = {};
+    // two k steps a pass: the second's loads issue under the first's FMAs
+    // (1 - 2 warps a scheduler cannot hide them otherwise; unrolled whole,
+    // the code outgrew the instruction cache)
+#pragma unroll 2
+    for (int k0 = 0; k0 < DIN; k0 += 4) {   // 4 k's loads, then their FMAs
+      float xv[4][RN], wv[NC][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
         for (int h = 0; h < RN; h += 4) {
           const float4 x4 = *reinterpret_cast<const float4*>(
-              xT + (k0 + q) * NP + RN * ng + h);
+              xT + (k0 + q) * NP + RN * ng_ + h);
           xv[q][h] = x4.x, xv[q][h + 1] = x4.y, xv[q][h + 2] = x4.z,
           xv[q][h + 3] = x4.w;
         }
-        for (int j = 0; j < 4; ++j)
-          wv[q][j] = Wt[(k0 + q) * LD + c0 + j * stride];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const float4 w4 = *reinterpret_cast<const float4*>(
+            m.wt + (c0 + j * stride) * LDW + k0);
+        wv[j][0] = w4.x, wv[j][1] = w4.y, wv[j][2] = w4.z, wv[j][3] = w4.w;
       }
+#pragma unroll
       for (int q = 0; q < 4; ++q)
+#pragma unroll
         for (int i = 0; i < RN; ++i)
-          for (int j = 0; j < 4; ++j)
-            a[i][j] = fmaf(xv[q][i], wv[q][j], a[i][j]);
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+            a[i][j] = fmaf(xv[q][i], wv[j][q], a[i][j]);
     }
-    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
       const int c = c0 + j * stride;
-      const float bc = bias[c];
-      for (int i = 0; i < RN; ++i) P[(RN * ng + i) * LD + c] = a[i][j] + bc;
+      const float bc = m.bias[c];
+#pragma unroll
+      for (int i = 0; i < RN; ++i) P[(RN * ng_ + i) * LD + c] = a[i][j] + bc;
     }
   }
+}
+
+// warp_sum of one LayerNorm row as unit_fwd_attn takes it (lane l's terms
+// j = l, l + 32, .. added in order, then the xor butterfly 16, 8, 4, 2, 1)
+// with L lanes a row: this thread holds lanes h + L r, r < 32 / L, in v
+// and takes the butterfly's steps 16 .. L in registers, each lane's own
+// value first as the shuffles add it; the same sums, bit for bit.
+template <int L>
+__device__ __forceinline__ float row_sum(float (&v)[32 / L]) {
+#pragma unroll
+  for (int o = 16; o >= L; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < 32 / L; ++r)
+      if (!(r & (o / L))) v[r] = v[r] + v[r + o / L];
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  return v[0];
+}
+
+// unit_fwd_attn for the ng <= G samples of a block, from their projections
+// in P on: every output the same chain of operations (bit for bit), with
+// more threads at work. Scores and softmax in one pass, a row's 16 (n, m)
+// pairs on the lanes of a warp: the max by shuffles (fmaxf is exact in any
+// order), the sum of the exponentials in order from m = 0 from shuffles,
+// and the mixing weight mix(a) once per pair (reverse: a division, which
+// the W V loop took per use); W V with 4 rows a thread; LayerNorm 16 / G
+// lanes a row (row_sum). Hands relu(yhat * g + be) of sample s, element
+// n * DV + j, to out(s, e, v); with RES it also leaves a in A, yhat in YH
+// and 1/std in INV.
+template <int DKQ, int DV, int G, bool RES, typename Out>
+__device__ void attn_fwd_group(const Buf& m, int ng, bool reverse, Out out) {
+  constexpr int LD = 2 * DKQ + DV + 1;
+  // a thread's G x G pairs: rows n = G np + i, columns m = mp + 16 / G j,
+  // a row's 16 on 16 / G lanes. One pair a thread at G = 1 (2 shared loads
+  // per FMA, 8 warps); 2 x 2 at G = 2 (1 per FMA: two warps a sample, the
+  // pairs of G = 1 would load 4,096 values a sample)
+  constexpr int LR = NP / G, PER = NP * NP / (G * G);
+  static_assert(G * PER <= THREADS, "a thread for each pair group");
+  if (static_cast<int>(threadIdx.x) < ng * PER) {
+    const int s = threadIdx.x / PER, u = threadIdx.x - s * PER,
+              np = u / LR, mp = u - np * LR;
+    const float* q0 = m.P + s * m.stride + G * np * LD;
+    const float* k0 = m.P + s * m.stride + mp * LD + DKQ;
+    float a[G][G] = {};
+#pragma unroll 8
+    for (int d = 0; d < DKQ; ++d) {
+      float x[G], y[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        x[i] = q0[i * LD + d], y[i] = k0[i * LR * LD + d];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int j = 0; j < G; ++j) a[i][j] = fmaf(x[i], y[j], a[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      float sc[G], ex[G];
+      float mx = a[i][0] / sqrtf(static_cast<float>(DKQ));
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        sc[j] = a[i][j] / sqrtf(static_cast<float>(DKQ));
+        mx = fmaxf(mx, sc[j]);
+      }
+      for (int o = LR / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+#pragma unroll
+      for (int j = 0; j < G; ++j) ex[j] = expf(sc[j] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        sum += __shfl_sync(0xffffffffu, ex[q / LR], q % LR, LR);
+      const int row = s * m.stride + (G * np + i) * NP + mp;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float w = ex[j] / sum;
+        if constexpr (RES) m.A[row + LR * j] = w;
+        m.W[row + LR * j] = mix(w, reverse);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ng * 4 * DV; e += THREADS) {
+    const int s = e / (4 * DV), f = e - s * 4 * DV, nq = f / DV,
+              j = f - nq * DV;
+    const float* P = m.P + s * m.stride;
+    const float* W = m.W + s * m.stride;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const float v = P[k * LD + 2 * DKQ + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = fmaf(W[(nq + 4 * i) * NP + k], v, a[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      m.YH[s * m.stride + (nq + 4 * i) * DV + j] = a[i];
+  }
+  __syncthreads();
+  constexpr int L = NP / G, R = 32 / L;   // all G x 16 rows at once
+  for (int row = threadIdx.x / L; row < ng * NP; row += THREADS / L) {
+    const int h = threadIdx.x % L, s = row / NP, n = row - s * NP;
+    float* y = m.YH + s * m.stride + n * DV;
+    float v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float a = 0.f;
+      for (int j = h + L * r; j < DV; j += 32) a += y[j];
+      v[r] = a;
+    }
+    const float mean = row_sum<L>(v) / static_cast<float>(DV);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float q = 0.f;
+      for (int j = h + L * r; j < DV; j += 32) {
+        const float d = y[j] - mean;
+        q = fmaf(d, d, q);
+      }
+      v[r] = q;
+    }
+    const float var = row_sum<L>(v) / static_cast<float>(DV);
+    const float inv = 1.f / sqrtf(var + 1e-5f);
+    __syncwarp();
+    for (int j = h; j < DV; j += L) {
+      const float yh = (y[j] - mean) * inv;
+      if constexpr (RES) y[j] = yh;
+      out(s, n * DV + j, fmaxf(yh * m.gam[j] + m.bet[j], 0.f));
+    }
+    if (RES && h == 0) m.INV[s * m.stride + n] = inv;
+  }
+  __syncthreads();
 }
 
 // x [16][DIN] from `src` (fp32 or not) into xT[k][16].
@@ -830,37 +1100,6 @@ __device__ void load_transposed(const T* src, float* xT) {
   for (int r = 0; r < NP * DIN / THREADS; ++r) {
     const int e = threadIdx.x + r * THREADS, k = e / NP, n = e - k * NP;
     xT[e] = ld(src, static_cast<size_t>(n) * DIN + k);
-  }
-}
-
-// The weight matrices in their own layout, Wr[c][DIN] (the q | k | v
-// rows), at the start of shared memory, where stage_matrices puts their
-// transpose: what dx_raw reads. 16-byte cp.async when the three are
-// 16-byte aligned, else 4-byte; other dtypes converted by the threads.
-template <typename TW, int DIN, int DKQ, int DV>
-__device__ void stage_raw(const Unit& u, float* sm) {
-  constexpr int C = 2 * DKQ + DV;
-  const TW* wq = static_cast<const TW*>(u.wq);
-  const TW* wk = static_cast<const TW*>(u.wk);
-  const TW* wv = static_cast<const TW*>(u.wv);
-  auto row = [&](int c) {
-    return c < DKQ ? wq + c * DIN
-                   : (c < 2 * DKQ ? wk + (c - DKQ) * DIN
-                                  : wv + (c - 2 * DKQ) * DIN);
-  };
-  if constexpr (IS_F32<TW>) {
-    if ((reinterpret_cast<uintptr_t>(wq) | reinterpret_cast<uintptr_t>(wk) |
-         reinterpret_cast<uintptr_t>(wv)) % 16 == 0) {
-      for (int q = threadIdx.x; q < C * DIN / 4; q += THREADS) {
-        const int c = q / (DIN / 4), k = 4 * (q - c * (DIN / 4));
-        cp_async16(sm + c * DIN + k, row(c) + k);
-      }
-      return;
-    }
-  }
-  for (int e = threadIdx.x; e < C * DIN; e += THREADS) {
-    const int c = e / DIN;
-    put(sm + e, row(c), e - c * DIN);
   }
 }
 
@@ -875,7 +1114,7 @@ __device__ void transpose_dp(const float* sm, float* DPT) {
 
 // a[i][j] = sum over c in [c_lo, c_hi) of d[2 ng + i][c] W[c][4 kg + j],
 // 4 c's loads, then their FMAs (c_hi - c_lo a multiple of 4)
-template <int DIN>
+template <int LDW>
 __device__ __forceinline__ void dx_raw_chain(const float* DPT, const float* Wr,
                                              int ng, int kg, int c_lo,
                                              int c_hi, float (&a)[2][4]) {
@@ -886,7 +1125,7 @@ __device__ __forceinline__ void dx_raw_chain(const float* DPT, const float* Wr,
     float4 w4[4];
     for (int q = 0; q < 4; ++q) {
       d2[q] = *reinterpret_cast<const float2*>(DPT + (c0 + q) * NP + 2 * ng);
-      w4[q] = *reinterpret_cast<const float4*>(Wr + (c0 + q) * DIN + 4 * kg);
+      w4[q] = *reinterpret_cast<const float4*>(Wr + (c0 + q) * LDW + 4 * kg);
     }
     for (int q = 0; q < 4; ++q) {
       const float d[2] = {d2[q].x, d2[q].y};
@@ -898,17 +1137,17 @@ __device__ __forceinline__ void dx_raw_chain(const float* DPT, const float* Wr,
 }
 
 // unit_bwd's dx chains from DPT and the weights' own layout at the start of
-// shared memory (stage_raw): rows n = 2 ng + i, inputs k = 4 kg + j (2 din
-// threads), each c an 8- and a 16-byte load for 8 FMAs.
-template <int DIN, int DKQ, int DV>
+// shared memory (stage_rows, rows at stride LDW): rows n = 2 ng + i, inputs
+// k = 4 kg + j (2 din threads), each c an 8- and a 16-byte load for 8 FMAs.
+template <int DIN, int DKQ, int DV, int LDW>
 __device__ void dx_raw(const float* sm, const float* DPT, float* dxq,
                        bool acc_q, float* dxkv, bool acc_kv) {
   constexpr int K4 = DIN / 4;
   for (int e = threadIdx.x; e < NP / 2 * K4; e += THREADS) {
     const int ng = e / K4, kg = e - ng * K4;
     float aq[2][4], akv[2][4];
-    dx_raw_chain<DIN>(DPT, sm, ng, kg, 0, DKQ, aq);
-    dx_raw_chain<DIN>(DPT, sm, ng, kg, DKQ, 2 * DKQ + DV, akv);
+    dx_raw_chain<LDW>(DPT, sm, ng, kg, 0, DKQ, aq);
+    dx_raw_chain<LDW>(DPT, sm, ng, kg, DKQ, 2 * DKQ + DV, akv);
     for (int i = 0; i < 2; ++i)
       for (int j = 0; j < 4; ++j) {
         const int o = (2 * ng + i) * DIN + 4 * kg + j;
@@ -918,42 +1157,148 @@ __device__ void dx_raw(const float* sm, const float* DPT, float* dxq,
   }
 }
 
+// The self-attention forward of a (sample group, unit) block: sa_txt (u =
+// 0, x = t) or sa_img (u = 1, x = i) of samples b0 .. b0 + ng - 1 (ng <=
+// G), in the compact carve-up. The outputs t_sa / i_sa go to sa_out
+// ([2][B][16][96], slot u * B + b); with RES also the residuals K3's later
+// stages read (P, A, yhat, 1/std).
+template <typename TX, typename TW, int DIN, int G, bool RES>
+__device__ void self_fwd(const Unit& un, const TX* __restrict__ x, int u,
+                         int B, int b0, int ng, float* sm,
+                         float* __restrict__ sa_out, const Ws* ws) {
+  const Buf m = Lay<DIN, SA_KQ, SA_V, 1>::buf(sm);
+  stage_vectors<TW, SA_KQ, SA_V>(un, m);
+  stage_rows<TW, DIN, SA_KQ, SA_V, DIN + 4>(un, m.wt);
+  cp_async_commit();
+  for (int s = 0; s < ng; ++s)
+    load_transposed<DIN>(x + static_cast<size_t>(b0 + s) * NP * DIN,
+                         m.xq + s * m.stride);
+  cp_async_wait<0>();
+  __syncthreads();
+  project_group<8, 4, DIN, SA_KQ, SA_V>(m, ng);
+  __syncthreads();
+  float* out = sa_out + (static_cast<size_t>(u) * B + b0) * NP * SA_V;
+  attn_fwd_group<SA_KQ, SA_V, G, RES>(
+      m, ng, false,
+      [&](int s, int e, float v) { out[s * NP * SA_V + e] = v; });
+  if constexpr (RES) {
+    for (int s = 0; s < ng; ++s) {
+      const size_t slot = static_cast<size_t>(u) * B + b0 + s;
+      const int o = s * m.stride;
+      rows_out<SA_C>(m.P + o, ws->r[R_SA_P] + slot * NP * SA_C);
+      copy(m.A + o, NP * NP, ws->r[R_SA_A] + slot * NP * NP);
+      copy(m.YH + o, NP * SA_V, ws->r[R_SA_YH] + slot * NP * SA_V);
+      copy(m.INV + o, NP, ws->r[R_SA_INV] + slot * NP);
+    }
+  }
+}
+
+// A cross unit's weights (rca_ti for y = 0, rca_it for 1), then its ng
+// samples' x tiles from sa_out, transposed (queries t_sa, keys / values
+// i_sa for rca_ti; the other way round for rca_it), in one cp.async commit
+// group (other weight dtypes are converted by the threads).
+template <typename TW>
+__device__ void cross_load(const Unit& un, const Buf& m,
+                           const float* __restrict__ sa_out, int B, int y,
+                           int b0, int ng) {
+  stage_vectors<TW, CA_KQ, CA_V>(un, m);
+  stage_rows<TW, SA_V, CA_KQ, CA_V, SA_V + 4>(un, m.wt);
+  // launched as a programmatic dependent (K1's stage 2), the block has
+  // started its weights while stage 1 ran: wait for stage 1 to finish and
+  // its sa_out to be visible (a no-op in a kernel launched plainly)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int e = threadIdx.x; e < ng * NP * SA_V; e += THREADS) {
+    const int s = e / (NP * SA_V), f = e - s * NP * SA_V;
+    const int k = f / NP, n = f - k * NP;   // xT[k][16]
+    const float* tsa = sa_out + static_cast<size_t>(b0 + s) * NP * SA_V;
+    const float* isa = tsa + static_cast<size_t>(B) * NP * SA_V;
+    cp_async4(m.xq + s * m.stride + f, (y == 0 ? tsa : isa) + n * SA_V + k);
+    cp_async4(m.xkv + s * m.stride + f, (y == 0 ? isa : tsa) + n * SA_V + k);
+  }
+  cp_async_commit();
+}
+
+// ---------------------------------------------------------------------------
+// the forward's staged route: two kernels over (sample group, unit) blocks
+// ---------------------------------------------------------------------------
+
+using SelfLay = Lay<DI, SA_KQ, SA_V, 1>;    // sa_img's, the larger
+using CrossLay = Lay<SA_V, CA_KQ, CA_V, 2>;
+constexpr int fwd_self_bytes(int g) { return 4 * SelfLay::floats(g); }
+constexpr int fwd_cross_bytes(int g) { return 4 * CrossLay::floats(g); }
+static_assert(Lay<DT, SA_KQ, SA_V, 1>::floats(2) <= SelfLay::floats(2) &&
+                  fwd_self_bytes(2) <= 232448 &&
+                  fwd_cross_bytes(2) <= 232448,
+              "forward stages exceed shared memory");
+static_assert(fwd_self_bytes(1) <= S1_BYTES, "K3's stage 1 fits its plan");
+
+// Stage 1, grid (ceil(B / G), 2): sa_txt (y = 0) or sa_img (y = 1) of the
+// block's G samples (the last block: those left); t_sa / i_sa to sa_out.
+template <typename TT, typename TI, typename TW, int G>
+__global__ void __launch_bounds__(THREADS)
+    rca_fwd_self(const TT* __restrict__ t, const TI* __restrict__ im,
+                 Weights w, float* __restrict__ sa_out, int batch) {
+  extern __shared__ float sm[];
+  // stage 2's blocks may start (and stage their weights) on the SMs left
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int b0 = blockIdx.x * G;
+  const int ng = batch - b0 < G ? batch - b0 : G;
+  if (blockIdx.y == 0)
+    self_fwd<TT, TW, DT, G, false>(w.u[0], t, 0, batch, b0, ng, sm, sa_out,
+                                   nullptr);
+  else
+    self_fwd<TI, TW, DI, G, false>(w.u[1], im, 1, batch, b0, ng, sm, sa_out,
+                                   nullptr);
+}
+
+// Stage 2, grid (ceil(B / G), 2): rca_ti (y = 0) or rca_it (y = 1) of the
+// block's samples from sa_out; ti / it written in t's dtype. Two blocks an
+// SM at G = 1. Launched as a programmatic dependent of stage 1.
+template <typename TT, typename TW, int G>
+__global__ void __launch_bounds__(THREADS, 2)
+    rca_fwd_cross(Weights w, const float* __restrict__ sa_out,
+                  TT* __restrict__ ti, TT* __restrict__ it, int batch,
+                  int reverse) {
+  extern __shared__ float sm[];
+  const int y = blockIdx.y, b0 = blockIdx.x * G;
+  const int ng = batch - b0 < G ? batch - b0 : G;
+  const Buf m = CrossLay::buf(sm);
+  cross_load<TW>(y == 0 ? w.u[2] : w.u[3], m, sa_out, batch, y, b0, ng);
+  cp_async_wait<0>();
+  __syncthreads();
+  project_group<4, 4, SA_V, CA_KQ, CA_V>(m, ng);
+  __syncthreads();
+  TT* out = (y == 0 ? ti : it) + static_cast<size_t>(b0) * NP * CA_V;
+  attn_fwd_group<CA_KQ, CA_V, G, false>(
+      m, ng, reverse != 0,
+      [&](int s, int e, float v) { st(out, s * NP * CA_V + e, v); });
+}
+
+// ---------------------------------------------------------------------------
+// the backward's staged route
+// ---------------------------------------------------------------------------
+
 // Stage 1, grid (B, 2): the forward of sa_txt (y = 0) or sa_img (y = 1)
-// of sample b, with its residuals and output stored for stages 2-4.
+// of sample b (the forward's stage 1 at G = 1), with its residuals and
+// output stored for stages 2-4.
 template <typename TT, typename TI, typename TW>
 __global__ void __launch_bounds__(THREADS)
     rca_bwd_self_fwd(const TT* __restrict__ t, const TI* __restrict__ im,
                      Weights w, Ws ws) {
   extern __shared__ float sm[];
-  const int u = blockIdx.y;
-  const size_t b = blockIdx.x, s = u * gridDim.x + b;
-  const int din = u == 0 ? DT : DI;
-  float* xT = sm + S1_X;
-  float* out = sm + S1_OUT;
-  const Unit& un = u == 0 ? w.u[0] : w.u[1];
-  stage_self<TW>(un, u, sm, false);
-  stage_self<TW>(un, u, sm, true);
-  cp_async_commit();
-  if (u == 0)
-    load_transposed<DT>(t + b * NP * DT, xT);
+  const int b = blockIdx.x, B = gridDim.x;
+  if (blockIdx.y == 0)
+    self_fwd<TT, TW, DT, 1, true>(w.u[0], t, 0, B, b, 1, sm,
+                                  ws.r[R_SA_OUT], &ws);
   else
-    load_transposed<DI>(im + b * NP * DI, xT);
-  cp_async_wait<0>();
-  __syncthreads();
-  project_tiled<8>(xT, xT, din, SA_KQ, SA_V, sm, sm + B_P);
-  __syncthreads();
-  unit_fwd_attn(SA_KQ, SA_V, false, sm, out);
-  rows_out<SA_C>(sm + B_P, ws.r[R_SA_P] + s * NP * SA_C);
-  copy(sm + B_A, NP * NP, ws.r[R_SA_A] + s * NP * NP);
-  copy(sm + B_YH, NP * SA_V, ws.r[R_SA_YH] + s * NP * SA_V);
-  copy(sm + B_INV, NP, ws.r[R_SA_INV] + s * NP);
-  copy(out, NP * SA_V, ws.r[R_SA_OUT] + s * NP * SA_V);
+    self_fwd<TI, TW, DI, 1, true>(w.u[1], im, 1, B, b, 1, sm,
+                                  ws.r[R_SA_OUT], &ws);
 }
 
 // Stage 2, grid (B, 2): rca_ti (y = 0: queries t_sa, keys / values i_sa,
 // cotangent g_ti) or rca_it (y = 1: the other way round) of sample b:
-// forward, then backward to dq | dk | dv, dx_q, dx_kv and the LayerNorm
-// parts.
+// forward (the forward's stage 2 at G = 1, in the per-sample carve-up),
+// then backward to dq | dk | dv, dx_q, dx_kv and the LayerNorm parts.
 template <typename TT, typename TW>
 __global__ void __launch_bounds__(THREADS)
     rca_bwd_cross(const TT* __restrict__ g_ti, const TT* __restrict__ g_it,
@@ -962,39 +1307,26 @@ __global__ void __launch_bounds__(THREADS)
   const int y = blockIdx.y;
   const size_t B = gridDim.x, b = blockIdx.x;
   const bool rev = reverse != 0;
-  const float* tsa = ws.r[R_SA_OUT] + b * NP * SA_V;
-  const float* isa = ws.r[R_SA_OUT] + (B + b) * NP * SA_V;
-  float* xqT = sm + S2_XQ;
-  float* xkvT = sm + S2_XKV;
   const Unit& un = y == 0 ? w.u[2] : w.u[3];
-  stage_vectors<TW, SA_V, CA_KQ, CA_V>(un, sm);
-  stage_matrices<TW, SA_V, CA_KQ, CA_V>(un, sm);
-  for (int e = threadIdx.x; e < NP * SA_V; e += THREADS) {
-    const int k = e / NP, n = e - k * NP;   // xT[k][16]
-    cp_async4(xqT + e, (y == 0 ? tsa : isa) + n * SA_V + k);
-    cp_async4(xkvT + e, (y == 0 ? isa : tsa) + n * SA_V + k);
-  }
-  cp_async_commit();
+  const Buf m = fixed_buf(sm, S2_XQ, S2_XKV);
+  cross_load<TW>(un, m, ws.r[R_SA_OUT], B, y, b, 1);
   const TT* go = y == 0 ? g_ti : g_it;
   for (int e = threadIdx.x; e < NP * CA_V; e += THREADS)
     sm[B_G + e] = ld(go, b * NP * CA_V + e);
   cp_async_wait<0>();
   __syncthreads();
-  project_tiled<4>(xqT, xkvT, SA_V, CA_KQ, CA_V, sm, sm + B_P);
+  project_group<4, 4, SA_V, CA_KQ, CA_V>(m, 1);
   __syncthreads();
-  // the transposed weights are read; dx's layout lands during the attention
-  stage_raw<TW, SA_V, CA_KQ, CA_V>(un, sm);
-  cp_async_commit();
-  unit_fwd_attn(CA_KQ, CA_V, rev, sm, nullptr);
+  attn_fwd_group<CA_KQ, CA_V, 1, true>(m, 1, rev, [](int, int, float) {});
   float* ln = ws.r[R_LN] + ((2 + y) * B + b) * 2 * SA_V;
   unit_bwd_attn(CA_KQ, CA_V, rev, sm, ln, ln + SA_V);
   rows_out<CA_C>(sm + B_DP, ws.r[R_D2 + y] + b * NP * CA_C);
   transpose_dp<CA_C>(sm, sm + S2_DPT);
-  cp_async_wait<0>();
   __syncthreads();
+  // dx from the weight rows the projection read
   float* dx = ws.r[R_DX] + (2 * y * B + b) * NP * SA_V;
-  dx_raw<SA_V, CA_KQ, CA_V>(sm, sm + S2_DPT, dx, false,
-                            dx + B * NP * SA_V, false);
+  dx_raw<SA_V, CA_KQ, CA_V, SA_V + 4>(sm, sm + S2_DPT, dx, false,
+                                      dx + B * NP * SA_V, false);
 }
 
 // Stage 3, grid (B, 2): sa_txt (y = 0) or sa_img (y = 1) of sample b:
@@ -1024,12 +1356,12 @@ __global__ void __launch_bounds__(THREADS)
     cp_async16(sm + B_INV + 4 * threadIdx.x,
                ws.r[R_SA_INV] + s * NP + 4 * threadIdx.x);
   const Unit& un = u == 0 ? w.u[0] : w.u[1];
-  stage_self<TW>(un, u, sm, false);
+  stage_vectors<TW, SA_KQ, SA_V>(un, fixed_buf(sm, 0, 0));
   cp_async_commit();
   if (u == 0)
-    stage_raw<TW, DT, SA_KQ, SA_V>(un, sm);
+    stage_rows<TW, DT, SA_KQ, SA_V, DT>(un, sm);
   else
-    stage_raw<TW, DI, SA_KQ, SA_V>(un, sm);
+    stage_rows<TW, DI, SA_KQ, SA_V, DI>(un, sm);
   cp_async_commit();
   // dtsa = ti's dx_q + it's dx_kv; disa = ti's dx_kv + it's dx_q
   const size_t slot = B * NP * SA_V;
@@ -1051,9 +1383,9 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   float* dxs = sm + S3_DX;   // dx = dx_q + dx_kv (the same input)
   if (u == 0)
-    dx_raw<DT, SA_KQ, SA_V>(sm, sm + S3_DPT, dxs, false, dxs, true);
+    dx_raw<DT, SA_KQ, SA_V, DT>(sm, sm + S3_DPT, dxs, false, dxs, true);
   else
-    dx_raw<DI, SA_KQ, SA_V>(sm, sm + S3_DPT, dxs, false, dxs, true);
+    dx_raw<DI, SA_KQ, SA_V, DI>(sm, sm + S3_DPT, dxs, false, dxs, true);
   __syncthreads();
   if (u == 0)
     for (int e = threadIdx.x; e < NP * DT; e += THREADS)
@@ -1227,6 +1559,41 @@ __global__ void __launch_bounds__(WG_THREADS, 2)   // one wave: 2 a SM
 }
 
 template <typename TT, typename TI, typename TW>
+cudaError_t launch_fwd_staged(const void* t, const void* i, const Weights& w,
+                              void* ti, void* it, float* sa_out, int g1,
+                              int g2, int batch, int reverse,
+                              cudaStream_t stream) {
+  cudaError_t err;
+  const auto smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const int s1 = fwd_self_bytes(g1), s2 = fwd_cross_bytes(g2);
+  auto k1 =
+      g1 == 1 ? rca_fwd_self<TT, TI, TW, 1> : rca_fwd_self<TT, TI, TW, 2>;
+  auto k2 = g2 == 1 ? rca_fwd_cross<TT, TW, 1> : rca_fwd_cross<TT, TW, 2>;
+  if ((err = cudaFuncSetAttribute(k1, smem, s1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(k2, smem, s2)) != cudaSuccess)
+    return err;
+  k1<<<dim3((batch + g1 - 1) / g1, 2), THREADS, s1, stream>>>(
+      static_cast<const TT*>(t), static_cast<const TI*>(i), w, sa_out, batch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // stage 2 as a programmatic dependent of stage 1 (griddepcontrol)
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((batch + g2 - 1) / g2, 2);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = s2;
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, k2, w, static_cast<const float*>(sa_out),
+                                static_cast<TT*>(ti), static_cast<TT*>(it),
+                                batch, reverse)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+template <typename TT, typename TI, typename TW>
 cudaError_t launch(const void* t, const void* i, const Weights& w, void* ti,
                    void* it, int batch, int reverse, cudaStream_t stream) {
   auto kern = rca_fused_kernel<TT, TI, TW>;
@@ -1317,13 +1684,26 @@ Weights unpack(const void* const* weights) {
     default: return CALL(__nv_bfloat16, __nv_bfloat16, __nv_bfloat16);   \
   }
 
+// route 0: per-sample; 1: staged, sa_out its workspace, g1 / g2 the
+// samples a block of its two kernels
 cudaError_t forward(const void* t, const void* i, const Weights& w, void* ti,
-                    void* it, int batch, int t_dt, int i_dt, int w_dt,
-                    int reverse, cudaStream_t s) {
-#define FWD(TT, TI, TW) launch<TT, TI, TW>(t, i, w, ti, it, batch, reverse, s)
+                    void* it, int route, float* sa_out, int g1, int g2,
+                    int batch, int t_dt, int i_dt, int w_dt, int reverse,
+                    cudaStream_t s) {
+#define FWD(TT, TI, TW)                                                    \
+  (route == 0 ? launch<TT, TI, TW>(t, i, w, ti, it, batch, reverse, s)     \
+              : launch_fwd_staged<TT, TI, TW>(t, i, w, ti, it, sa_out, g1, \
+                                              g2, batch, reverse, s))
   RCA_DISPATCH(t_dt, i_dt, w_dt, FWD)
 #undef FWD
 }
+
+// The staged forward's samples a block, both stages: 1 while the (B, 2)
+// blocks are no more than the SMs, else 2, so that one staged copy of a
+// unit's weights serves two samples where an SM would otherwise stage it
+// for two blocks (measured: PERF.md). kernels/rca_fused.py::rca_fwd_plan
+// takes the same.
+int fwd_group(int batch, int sms) { return 2LL * batch <= sms ? 1 : 2; }
 
 // route 0: per-sample, `part` the workspace; 1: staged, `ws` its regions
 cudaError_t backward(const void* t, const void* i, const Weights& w,
@@ -1345,17 +1725,47 @@ cudaError_t backward(const void* t, const void* i, const Weights& w,
 // dtype codes: 0 = float32, 1 = bfloat16, given for t, i and the weights
 // separately. `weights` holds 32 device pointers, per unit (sa_txt, sa_img,
 // rca_ti, rca_it): q.w [out,in], q.b, k.w, k.b, v.w, v.b, norm.scale,
-// norm.bias. ti / it are written in t's dtype. Returns cudaGetLastError().
+// norm.bias. ti / it are written in t's dtype. Runs the launch plan of
+// kernels/rca_fused.py::rca_fwd_plan(batch, route, SMs of the current
+// device): route 1 "staged", `ws` its float32 workspace of `ws_floats`
+// values (t_sa | i_sa, [2][batch][16][96], at offsets[0] = 0), g1 / g2 the
+// samples a block of its two kernels, smem1 / smem2 their dynamic shared
+// memory; route 0 "per_sample" (the first version): no workspace, g1 = 1, g2 =
+// 0, smem1 = 165,376, smem2 = 0. Any other plan is refused with
+// cudaErrorInvalidValue before a launch. Returns cudaGetLastError().
 extern "C" int rca_fused_forward(const void* t, const void* i,
                                  const void* const* weights, void* ti,
-                                 void* it, int batch, int t_dtype,
+                                 void* it, void* ws, const long long* offsets,
+                                 long long ws_floats, int batch, int t_dtype,
                                  int i_dtype, int w_dtype, int reverse,
-                                 void* stream) {
+                                 int route, int g1, int g2, int smem1,
+                                 int smem2, void* stream) {
   if (batch <= 0) return 0;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0) {
+    if (g1 != 1 || g2 != 0 || smem1 != static_cast<int>(SMEM_BYTES) ||
+        smem2 != 0 || ws_floats != 0)
+      return invalid;
+  } else if (route == 1) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (g1 != fwd_group(batch, sms) || g2 != g1 ||
+        smem1 != fwd_self_bytes(g1) || smem2 != fwd_cross_bytes(g2) ||
+        offsets == nullptr || offsets[0] != 0 ||
+        ws_floats != 2LL * batch * NP * SA_V || ws == nullptr ||
+        reinterpret_cast<uintptr_t>(ws) % 16)
+      return invalid;
+  } else {
+    return invalid;
+  }
   const Weights w = unpack(weights);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(forward(t, i, w, ti, it, batch, t_dtype, i_dtype,
-                                  w_dtype, reverse, s));
+  return static_cast<int>(forward(t, i, w, ti, it, route,
+                                  static_cast<float*>(ws), g1, g2, batch,
+                                  t_dtype, i_dtype, w_dtype, reverse, s));
 }
 
 // Backward of rca_fused_forward on the launch plan of

@@ -14,12 +14,15 @@ their design answers that.
 
 The wrappers run the plain versions for tensors on the CPU and the kernels
 for tensors on a CUDA device; ``rca_fused.launches`` and
-``rca_fused_bwd.launches`` count kernel launches. The backward has two
-routes (``rca_bwd_plan``): "staged", the default, four kernels over
-(sample, unit) blocks and one batch-ordered weight-gradient pass, and
-"per_sample", the first version (one block per sample + a batch reduce),
-taken only on request; ``rca_fused_bwd.route_launches`` counts each. Both
-give the same bits.
+``rca_fused_bwd.launches`` count kernel launches. Both have two routes,
+which give the same bits; ``.route_launches`` counts each. The forward
+(``rca_fwd_plan``): "staged", the default, two kernels over (sample group,
+unit) blocks, and "per_sample", the first version (one block per sample
+running the four units in turn). The backward (``rca_bwd_plan``):
+"staged", the default, four kernels over (sample, unit) blocks and one
+batch-ordered weight-gradient pass, and "per_sample", the first version
+(one block per sample + a batch reduce). A "per_sample" route runs only on
+request.
 """
 
 from __future__ import annotations
@@ -143,41 +146,127 @@ def _contiguous(*tensors):
                          "weights")
 
 
-def rca_fused(p, t: torch.Tensor, i: torch.Tensor, *,
-              reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+FWD_ROUTES = ("staged", "per_sample")
+H100_SMS = 132
+_SA_C = 2 * SA_KQ + SA_V        # q | k | v columns of a self-attention
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _stage_floats(d_in: int, dkq: int, dv: int, n_x: int, g: int) -> int:
+    """csrc/rca_fused.cu's ``Lay``: a stage block's shared memory in floats,
+    one unit's staged weights [C][d_in + 4], biases and LayerNorm affine,
+    then per sample (16-byte aligned) its n_x x tiles [d_in][16] and the
+    attention buffers P [16][C + 1], A [16][16], Y [16][d_v], 1/std [16]."""
+    c = 2 * dkq + dv
+    head = _r4(c * (d_in + 4) + c + 2 * dv)
+    per = _r4(N_PATCH * (n_x * d_in + c + 1 + N_PATCH + dv + 1))
+    return head + g * per
+
+
+# dynamic shared memory of the staged forward's blocks at G = 1, 2 samples
+# (stage 1 sized by sa_img, the wider input), and of the per-sample kernel
+FWD_STAGE_SMEM = tuple({g: 4 * _stage_floats(d, dkq, dv, nx, g)
+                        for g in (1, 2)}
+                       for d, dkq, dv, nx in ((80, SA_KQ, SA_V, 1),
+                                              (SA_V, CA_KQ, CA_V, 2)))
+PER_SAMPLE_FWD_SMEM = 4 * (80 * (_SA_C + 1) + _SA_C + 2 * SA_V + N_PATCH * (
+    48 + 80 + 2 * SA_V + _SA_C + 1 + N_PATCH + SA_V))
+
+
+@dataclass(frozen=True)
+class RcaFwdPlan:
+    """How one ``rca_fused`` call runs on the card; the wrapper hands it to
+    ``rca_fused_forward`` as it is. `route`: "staged" or "per_sample";
+    `stages`: (kernel, grid (x, y), dynamic shared memory bytes) in launch
+    order, 256 threads a block; `groups`: the samples a block of each
+    stage; `workspace`: the float32 regions the kernels share, name ->
+    (offset in floats, shape), in one buffer of `floats` values."""
+    route: str
+    stages: Tuple[Tuple[str, Tuple[int, int], int], ...]
+    groups: Tuple[int, ...]
+    workspace: Dict[str, Tuple[int, Tuple[int, ...]]]
+    floats: int
+
+
+def rca_fwd_plan(batch: int, route: Optional[str] = None,
+                 sms: int = H100_SMS) -> RcaFwdPlan:
+    """The launch plan of ``rca_fused`` at `batch` samples on a card of
+    `sms` SMs: "staged" (the default) or "per_sample" (on request, for the
+    A/B). Staged: ``rca_fwd_self`` (sa_txt | sa_img of G1 samples a block)
+    writes t_sa | i_sa to the workspace, ``rca_fwd_cross`` (rca_ti |
+    rca_it of G2 samples) reads them. G1 = G2 = 1 while the (batch, 2)
+    blocks are no more than the SMs, else 2: one staged copy of a unit's
+    weights then serves two samples where an SM would stage it for two
+    blocks (the cross blocks fit two an SM)."""
+    route = route or "staged"
+    if route not in FWD_ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {FWD_ROUTES}")
+    if batch < 0:
+        raise ValueError(f"batch must be >= 0, got {batch}")
+    if route == "per_sample":
+        return RcaFwdPlan(route, (("rca_fused_kernel", (batch, 1),
+                                   PER_SAMPLE_FWD_SMEM),), (1,), {}, 0)
+    g1 = g2 = 1 if 2 * batch <= sms else 2
+    shape = (2, batch, N_PATCH, SA_V)
+    return RcaFwdPlan(route, (
+        ("rca_fwd_self", (-(-batch // g1), 2), FWD_STAGE_SMEM[0][g1]),
+        ("rca_fwd_cross", (-(-batch // g2), 2), FWD_STAGE_SMEM[1][g2])),
+        (g1, g2), {"sa_out": (0, shape)}, math.prod(shape))
+
+
+def rca_fused(p, t: torch.Tensor, i: torch.Tensor, *, reverse: bool,
+              route: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """t: [B, 16, 48], i: [B, 16, 80] -> (ti, it): 2x [B, 16, 48] in t's
-    dtype."""
+    dtype. On CUDA the plan of ``rca_fwd_plan(B, route, SMs)`` runs; CPU
+    tensors take the plain version."""
     ws = _check(p, t, i)
+    b = t.shape[0]
     if t.device.type == "cpu":
+        rca_fwd_plan(b, route)          # an unknown route raises here too
         return rca_fused_reference(p, t, i, reverse=reverse)
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    plan = rca_fwd_plan(b, route, sms)
     _contiguous(t, i, *ws)
     from . import _build
 
     fn = _build.library("rca_fused").rca_fused_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                   ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 3 \
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong] \
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    b = t.shape[0]
     ti = torch.empty((b, N_PATCH, CA_V), dtype=t.dtype, device=t.device)
     it = torch.empty_like(ti)
+    work = torch.empty((plan.floats,), dtype=torch.float32, device=t.device)
     ptrs = (ctypes.c_void_p * 32)(*[w.data_ptr() for w in ws])
+    offsets = (ctypes.c_longlong * 1)(
+        *[o for o, _ in plan.workspace.values()][:1])
+    g1, g2 = (plan.groups + (0,))[:2]
+    smem1, smem2 = ([s for _, _, s in plan.stages] + [0])[:2]
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(t.data_ptr(), i.data_ptr(), ptrs, ti.data_ptr(),
-                 it.data_ptr(), b, _DTYPES[t.dtype], _DTYPES[i.dtype],
-                 _DTYPES[ws[0].dtype], int(bool(reverse)), stream)
+                 it.data_ptr(), work.data_ptr() if plan.floats else None,
+                 offsets, plan.floats, b, _DTYPES[t.dtype], _DTYPES[i.dtype],
+                 _DTYPES[ws[0].dtype], int(bool(reverse)),
+                 int(plan.route == "staged"), g1, g2, smem1, smem2, stream)
     if err != 0:
-        raise RuntimeError(f"rca_fused kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rca_fused kernel launch failed ({plan.route} "
+                           f"route): CUDA error {err}")
     rca_fused.launches += 1
+    rca_fused.route_launches[plan.route] += 1
     return ti, it
 
 
 rca_fused.launches = 0
+rca_fused.route_launches = {r: 0 for r in FWD_ROUTES}
 
 
 BWD_ROUTES = ("staged", "per_sample")
-_SA_C, _CA_C = 2 * SA_KQ + SA_V, 2 * CA_KQ + CA_V    # q | k | v columns
 # csrc/rca_fused.cu's shared-memory carve-up, in floats: a unit's staged
 # weights (sa_img's [80][353] the largest) + biases + LayerNorm affine, its
 # residuals P, A, yhat, 1/std (up to B_G), the cotangent G, dS and

@@ -17,9 +17,9 @@ products they come from (``_single_key_close``). K2's tensor-core route
 (bf16, head dim 64, N <= 256) is held to ``mha_reference`` the same way;
 the fp32 training pair's 3xTF32 route (K4a / K7a and K4b / K7b at head
 dim 64, N <= 64) to the fp32 bars (1e-5 + 1e-5 |x| forward, 5e-5 (1 + |x|)
-backward), its outputs bit-identical over two runs. K3's staged route is
-held to the backward bars and, with ``torch.equal``, to its per-sample
-route."""
+backward), its outputs bit-identical over two runs. K1's and K3's staged
+routes are held to their bars and, with ``torch.equal``, to their
+per-sample routes."""
 
 import types
 
@@ -57,6 +57,50 @@ def test_rca_fused_kernel_matches_plain(cuda, b, reverse):
     want = rca_fused.rca_fused_reference(p, t, i, reverse=reverse)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5)
+
+
+# (t, i, weights) dtypes: fp32, bf16 (the eval path), the train mix, and
+# the train mix with bf16 weights
+RCA_FWD_DTYPES = {"fp32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
+                  "train": (torch.float32, torch.bfloat16, torch.float32),
+                  "bf16_weights": (torch.float32, torch.bfloat16,
+                                   torch.bfloat16)}
+
+
+@pytest.mark.parametrize("b", [1, 13, 16, 128])
+@pytest.mark.parametrize("dtypes", list(RCA_FWD_DTYPES))
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rca_fused_routes_bit_identical(cuda, b, dtypes, reverse):
+    """K1's staged route (the default) against the plain version at its
+    bars (fp32 2e-5 (1 + |x|); bf16 outputs one ulp + 1e-5), and against
+    the per-sample route (the first version) bit for bit; each call counts one
+    launch of its own route."""
+    t_dt, i_dt, w_dt = RCA_FWD_DTYPES[dtypes]
+    g = torch.Generator().manual_seed(b + 300)
+    p = types.SimpleNamespace(**{
+        n: AttentionUnit(*geo, generator=g).to(cuda, w_dt)
+        for n, geo in zip(rca_fused.UNITS, rca_fused._GEOM)})
+    t = torch.randn((b, 16, 48), generator=g).to(cuda, t_dt)
+    i = torch.randn((b, 16, 80), generator=g).to(cuda, i_dt)
+    before = dict(rca_fused.rca_fused.route_launches)
+    got = rca_fused.rca_fused(p, t, i, reverse=reverse)
+    assert rca_fused.rca_fused.route_launches == {
+        "staged": before["staged"] + 1, "per_sample": before["per_sample"]}
+    old = rca_fused.rca_fused(p, t, i, reverse=reverse, route="per_sample")
+    torch.cuda.synchronize()
+    assert rca_fused.rca_fused.route_launches == {
+        "staged": before["staged"] + 1,
+        "per_sample": before["per_sample"] + 1}
+    want = rca_fused.rca_fused_reference(p, t, i, reverse=reverse)
+    for x, y, z in zip(got, old, want):
+        assert x.dtype == t_dt and torch.equal(x, y)
+        if t_dt == torch.float32:
+            torch.testing.assert_close(x, z, rtol=2e-5, atol=2e-5)
+        else:
+            e = torch.floor(torch.log2(torch.maximum(
+                x.float().abs(), z.float().abs()).clamp_min(2.0 ** -126)))
+            tol = torch.pow(2.0, e - 7) + 1e-5
+            assert bool(((x.float() - z.float()).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("b,n,causal", [(128, 64, False), (4, 512, False),
@@ -181,7 +225,8 @@ def test_mha_train_kernels_match_plain(cuda, b, n, causal, dtype):
 
 
 def test_train_wrappers_launch_their_kernels(cuda):
-    """Under autograd the training wrappers launch K1 + K3 and K4a + K4b."""
+    """Under autograd the training wrappers launch K1 + K3 (both on their
+    staged routes) and K4a + K4b."""
     g = torch.Generator().manual_seed(3)
     p = types.SimpleNamespace(**{
         n: AttentionUnit(*geo, generator=g).to(cuda)
@@ -194,6 +239,8 @@ def test_train_wrappers_launch_their_kernels(cuda):
                       mha_fused.mha_fwd_lse.launches,
                       mha_fused.mha_flash_bwd.launches)
     before = counts()
+    routes = (dict(rca_fused.rca_fused.route_launches),
+              dict(rca_fused.rca_fused_bwd.route_launches))
     with torch.enable_grad():
         ti, it = rca_fused.rca_fused_trainable(p, t, i.requires_grad_(),
                                                reverse=True)
@@ -201,6 +248,10 @@ def test_train_wrappers_launch_their_kernels(cuda):
         (ti.sum() + it.sum() + o.sum()).backward()
     torch.cuda.synchronize()
     assert counts() == tuple(c + 1 for c in before)
+    for fn, was in zip((rca_fused.rca_fused, rca_fused.rca_fused_bwd),
+                       routes):
+        assert fn.route_launches == {"staged": was["staged"] + 1,
+                                     "per_sample": was["per_sample"]}
     assert t.grad is not None and i.grad.dtype == torch.bfloat16
     assert p.rca_it.k.w.grad is not None and q.grad is not None
 
