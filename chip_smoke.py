@@ -100,7 +100,23 @@ Phases, each of which fails the run when it fails:
      K4b 12 per microbatch, all on the tensor-core route, the same
      readings; ``cli.main_image`` (its val eval: K2 on the tensor cores) ->
      ``cli.test_image`` (``evaluate()`` and ``main()``), and
-     ``best_file_agreement`` on its BEST file.
+     ``best_file_agreement`` on its BEST file;
+ 10. conv image eval: the 12 conv backbones of the registry (ShuffleNetV2
+     x2.0, ResNet-18 / 50 / 152, MobileNetV3-L, ConvNeXt-B, EfficientNet
+     B0 / B4 / B5, EfficientNetV2 S / M / L) at full width with random
+     seeded weights and BatchNorm statistics, on cuDNN convolutions and
+     PyTorch ops (no hand-written kernel): for each, on 32 images at its
+     ``IMAGE_ARCHS`` input size, the BN-folded model against the unfolded
+     one in fp32 (TF32 off) and in bf16 against itself in fp32
+     (``bf16_vs_fp32``); ShuffleNetV2 in bf16, BN folded, through
+     ``run_image_eval`` (8 batches of 256, 224x224) with the counters
+     zeroed before and read after (every hand-written kernel 0): samples/s,
+     p50, peak memory, a profiler breakdown (convolutions, elementwise,
+     copies / casts / transposes) and the idle share, the same runs with
+     ``cudnn.benchmark`` on (the phase leaves it off), one batch of 512;
+     one timed batch of each other model at its eval batch and input size;
+     then ``cli.test_image --image_model=shuffle_net`` on a
+     torchvision-layout ``.pth`` (``evaluate()`` and ``main()``).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -163,6 +179,13 @@ Tolerances (kernel vs plain version, same inputs, same card):
     to their sibling weight's scale. The unimodal train paths
     (``compare_unimodal_paths``) are held the same way: fp32 1e-5 / 1e-4,
     bf16 images (ViT) 1e-3 and cosine >= 0.999.
+  * conv eval (phase 10): fp32 folded against unfolded, max |logit
+    difference| <= 1e-4 and equal argmax (the fp32 eval bar); bf16 against
+    the fp32 model, max |d| <= 0.05 and <= 5% of the largest |logit|, and
+    argmax agreement >= 0.98 over the samples whose fp32 top-2 margin is
+    above the noise floor 2 max |d| (``bf16_vs_fp32`` says why it does not
+    ask for half the samples above the floor). bf16 depthwise convolutions
+    sum in whatever order cuDNN picks: nothing is held bit for bit.
 """
 
 from __future__ import annotations
@@ -1988,10 +2011,25 @@ def profile_batch(model, batch, dtype, device, reps=3):
                         reps)
 
 
-def profile_step(step, batch, device, reps=3):
+def _conv_kind(name: str) -> str:
+    """Phase 10's kinds: convolutions (cuDNN runs the 1x1 ones as CUTLASS
+    GEMMs; the one fc GEMM of a batch counts here too), the copy, cast and
+    layout kernels (``.contiguous``, stack / concat, dtype casts, memcpy,
+    NCHW <-> NHWC transposes), and the rest (bias adds, activations,
+    pooling, normalization)."""
+    n = name.lower()
+    if any(k in n for k in ("copy", "memcpy", "memset", "nchwtonhwc",
+                            "nhwctonchw", "transpose", "catarray")):
+        return "copies, casts, transposes"
+    if _kind(name) in ("convolutions", "matmuls"):
+        return "convolutions (1x1 as GEMMs)"
+    return "elementwise + reductions"
+
+
+def profile_step(step, batch, device, reps=3, kind=_kind):
     """torch.profiler (CUPTI) over `reps` eval steps of one batch: device
-    time per batch by kind of kernel, the top kernels, and the device's idle
-    share of the window (1 - kernel time / host wall time)."""
+    time per batch by `kind` of kernel, the top kernels, and the device's
+    idle share of the window (1 - kernel time / host wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2013,7 +2051,7 @@ def profile_step(step, batch, device, reps=3):
         if us is None:
             us = e.self_cuda_time_total
         ms = us / 1e3 / reps
-        kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + ms
+        kinds[kind(e.key)] = kinds.get(kind(e.key), 0.0) + ms
         top.append((ms, e.count // reps, e.key.replace("void at::native::",
                                                        "")[:160]))
     busy = sum(kinds.values())
@@ -3088,17 +3126,42 @@ _DISTILBERT_KEYS = {"q": "attention.q_lin", "k": "attention.k_lin",
 _VIT_KEYS = {"ln_1": "ln_1", "ln_2": "ln_2", "out": "self_attention.out_proj",
              "fc1": "mlp.linear_1", "fc2": "mlp.linear_2"}
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+_SHUFFLE_UNIT = {"b1_dw": ("branch1.0", "branch1.1"),
+                 "b1_pw": ("branch1.2", "branch1.3"),
+                 "b2_pw1": ("branch2.0", "branch2.1"),
+                 "b2_dw": ("branch2.3", "branch2.4"),
+                 "b2_pw2": ("branch2.5", "branch2.6")}
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _shufflenet_key(parts):
+    """torchvision's ShuffleNetV2 key of a port parameter or buffer
+    (``stages.0.1.b2_dw.bn.mean`` -> ``stage2.1.branch2.4.running_mean``)."""
+    if parts[0] == "fc":
+        return f"fc.{_LEAF[parts[1]]}"
+    if parts[0] == "stages":
+        pre = f"stage{int(parts[1]) + 2}.{parts[2]}."
+        conv, bn = (pre + k for k in _SHUFFLE_UNIT[parts[3]])
+    else:                                     # conv1, conv5
+        conv, bn = f"{parts[0]}.0", f"{parts[0]}.1"
+    if parts[-2] == "conv":
+        return f"{conv}.weight"
+    return f"{bn}.{_BN_LEAF[parts[-1]]}"
 
 
 def _reference_state_dict(model, kind):
     """The port model's weights under the reference checkpoint's key names
-    (HF DistilBERT classifier under ``model.`` / ``out.``; torchvision ViT):
-    the port's parameters already have torch's layouts."""
+    (HF DistilBERT classifier under ``model.`` / ``out.``; torchvision ViT
+    and ShuffleNetV2): the port's parameters already have torch's
+    layouts."""
     sd = {}
     for name, t in model.state_dict().items():
         parts = name.split(".")
         leaf = _LEAF.get(parts[-1])
-        if kind == "distilbert":
+        if kind == "shuffle_net":
+            key = _shufflenet_key(parts)
+        elif kind == "distilbert":
             if parts[0] == "head":
                 key = f"out.{leaf}"
             elif parts[1] == "layers":
@@ -3653,6 +3716,286 @@ def best_file_agreement(tester, argv):
     return argmax_check(lk, lp, truth)[1]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the conv image backbones (cuDNN convolutions, no hand-written
+# kernel)
+# ---------------------------------------------------------------------------
+
+CONV_NAMES = ("shuffle_net", "res18", "res50", "res152", "mb", "convnext",
+              "b0", "b4", "b5", "eff_v2_small", "eff_v2_medium",
+              "eff_v2_large")
+CONV_BATCHES = 8           # ShuffleNetV2's run_image_eval: 8 batches of 256
+CONV_CHECK = 32            # samples of each model's fp32 / bf16 checks
+SHUFFLE_BENCH_BATCH = 512  # bench.py's bench_shufflenet batch
+
+
+def _conv_model(name, seed, device):
+    """`name` at full width with random seeded weights and BatchNorm
+    statistics, fp32, unfolded, on the device."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+
+    model = get_image_model(name).build(
+        4, generator=torch.Generator().manual_seed(seed))
+    _randomize_bn(model, torch.Generator().manual_seed(seed + 1))
+    return model.to(device).eval()
+
+
+def bf16_vs_fp32(l16, l32):
+    """Phase 10's bf16 check: the bf16 model's logits against the same
+    (folded) model's in fp32 with TF32 off (no kernel runs here, so the
+    fp32 model is the reference). max |d| <= 0.05 and <= 5% of the largest
+    fp32 |logit|, over every sample; argmax agreement >= 0.98 over the
+    samples whose fp32 top-2 margin is above the noise floor 2 max |d|.
+    Unlike ``argmax_check`` it does not ask for half the samples above
+    the floor: a random-weight tower gives i.i.d. noise images nearly the
+    same pooled feature (the global pool averages the noise out), so every
+    sample's margin is the classifier bias's, and for some towers (the
+    first chip run: ResNet-152, 0 of 32) it lies under the floor; the
+    relative bar is what holds such a tower. The count above the floor and
+    the agreement over every sample are reported beside it."""
+    d = float((l16 - l32).abs().max())
+    top2 = l32.topk(2, dim=-1).values
+    keep = (top2[:, 0] - top2[:, 1]) > 2.0 * d
+    n, kept = len(l32), int(keep.sum())
+    agree = lambda m: float((l16[m].argmax(-1) == l32[m].argmax(-1))
+                            .float().mean()) if int(m.sum()) else None
+    out = {"max_logit_diff": d, "noise_floor": 2.0 * d,
+           "agreement": agree(keep), "agreement_all": agree(keep | ~keep),
+           "samples": n, "excluded": n - kept,
+           "max_abs_logit": float(l32.abs().max())}
+    ok = (d <= 0.05 and d <= 0.05 * out["max_abs_logit"]
+          and (kept == 0 or out["agreement"] >= 0.98))
+    return ok, out
+
+
+def _conv_checks(name, model32, batch):
+    """fp32 folded against unfolded (TF32 off) and bf16 folded against
+    fp32 folded on ``batch["image"]`` (uint8 NHWC, numpy): (ok, the folded
+    bf16 model, numbers). BatchNorm is folded in fp32 before the cast, as
+    ``cli.test_image`` does; ConvNeXt has no BatchNorm."""
+    import copy
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+    from garbage_classification_rca_tpu_torch.nn.fold import fold_batchnorm
+
+    eps = get_image_model(name).extras.get("bn_eps")
+    torch.backends.cudnn.allow_tf32 = False
+    unfolded = _image_logits(model32, batch, torch.float32)
+    folded = model32
+    if eps is not None:
+        folded = fold_batchnorm(copy.deepcopy(model32), eps)
+    l32 = _image_logits(folded, batch, torch.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    model16 = folded.to(torch.bfloat16)
+    l16 = _image_logits(model16, batch, torch.bfloat16)
+    d_fold = float((l32 - unfolded).abs().max())
+    same = bool((l32.argmax(-1) == unfolded.argmax(-1)).all())
+    good16, nums = bf16_vs_fp32(l16, l32)
+    fin = bool(torch.isfinite(l16).all() and torch.isfinite(l32).all())
+    n = len(batch["image"])
+    ok = (fin and good16 and d_fold <= 1e-4 and same
+          and tuple(l16.shape) == (n, 4))
+    nums.update(fold_max_logit_diff=d_fold, fold_argmax_equal=same,
+                folded=eps is not None)
+    print(f"  {name}: fp32 folded vs unfolded max|d|={d_fold:.3e}, argmax "
+          f"equal={same}{'' if eps is not None else ' (no BatchNorm)'}; "
+          f"bf16 vs fp32 max|d|={nums['max_logit_diff']:.3e} (max|logit| "
+          f"{nums['max_abs_logit']:.3f}), argmax agreement "
+          f"{nums['agreement']} over the {n - nums['excluded']} of {n} "
+          f"samples above the noise floor "
+          f"{nums['noise_floor']:.3e} (over all {nums['agreement_all']:.4f})"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, model16, nums
+
+
+def _timed_batch(model, batch, hw, device):
+    """One eval step (normalize, forward, argmax, correct count) on a
+    uint8 batch already on the device: ms, the median of 3 after a
+    warm-up (``time_ms_eager``)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.eval.harness import (
+        make_eval_step)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 160)
+    b = {"image": torch.randint(0, 256, (batch, *hw, 3), dtype=torch.uint8,
+                                device=device, generator=g),
+         "label": torch.zeros(batch, dtype=torch.int32, device=device),
+         "valid": torch.ones(batch, dtype=torch.int32, device=device)}
+    step = make_eval_step(model, torch.bfloat16)
+    with torch.inference_mode():
+        return time_ms_eager(lambda: step(b), reps=1, warmup=1, trials=3)[0]
+
+
+def _shufflenet_eval(model, device, results):
+    """ShuffleNetV2 x2.0 in bf16, BN folded, through ``run_image_eval``
+    over CONV_BATCHES synthetic batches of its eval batch at 224x224:
+    a warm-up, the measured run with the counters zeroed before and read
+    after (every hand-written kernel: 0), two more runs, a profile of one
+    batch, the same three runs with ``cudnn.benchmark`` on (the phase
+    leaves it off), and one timed batch of SHUFFLE_BENCH_BATCH."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import IMAGE_ARCHS
+    from garbage_classification_rca_tpu_torch.eval.harness import (
+        make_eval_step, run_image_eval)
+
+    spec = IMAGE_ARCHS["shuffle_net"]
+    data = SyntheticEvalBatcher(CONV_BATCHES, spec.eval_batch, SEED + 150,
+                                image_size=spec.input_size[0])
+
+    def run():
+        return run_image_eval(model, data, spec.eval_batch, device,
+                              torch.bfloat16, progress=False)
+
+    def three():
+        st = [run()[3] for _ in range(3)]
+        return ([x["samples_per_s"] for x in st],
+                [x["p50_step_s"] * 1e3 for x in st])
+
+    run()                                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_counters()
+    acc, labels, preds, stats = run()
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    n = CONV_BATCHES * spec.eval_batch
+    ok = launches == _want_launches() and len(preds) == n
+    results["conv_eval_launches"] = launches
+    rates, p50s = three()
+    rates.append(stats["samples_per_s"])
+    p50s.append(stats["p50_step_s"] * 1e3)
+    h, w = spec.input_size
+    print(f"  shuffle_net run_image_eval x4 over {CONV_BATCHES} batches of "
+          f"{spec.eval_batch} ({h}x{w}, bf16, BN folded): samples/s "
+          f"{sorted(rates)}, p50 batch ms {sorted(p50s)} (the p50 includes "
+          f"the prediction readback); peak memory {peak / 2**30:.2f} GiB; "
+          f"launches of the hand-written kernels "
+          f"{ {k: v for k, v in launches.items() if v} } (want none)",
+          flush=True)
+    prof = profile_step(make_eval_step(model, torch.bfloat16),
+                        data.batches[0], device, kind=_conv_kind)
+    torch.backends.cudnn.benchmark = True
+    try:
+        run()                                         # the autotuning run
+        rates_b, p50s_b = three()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    print(f"  the same with cudnn.benchmark on: samples/s {sorted(rates_b)}"
+          f", p50 batch ms {sorted(p50s_b)}", flush=True)
+    ms512 = _timed_batch(model, SHUFFLE_BENCH_BATCH, spec.input_size, device)
+    print(f"  one batch of {SHUFFLE_BENCH_BATCH}: {ms512:.2f} ms "
+          f"({SHUFFLE_BENCH_BATCH / ms512 * 1e3:.1f} samples/s)", flush=True)
+    results["conv_eval_shuffle_net"] = {
+        "samples_per_s": sorted(rates)[len(rates) // 2],
+        "samples_per_s_runs": rates, "p50_batch_ms": sorted(p50s)[
+            len(p50s) // 2], "p50_batch_ms_runs": p50s,
+        "peak_mem_gib": peak / 2**30, "batches": CONV_BATCHES,
+        "batch": spec.eval_batch, "profile": prof,
+        "cudnn_benchmark": {"samples_per_s_runs": rates_b,
+                            "p50_batch_ms_runs": p50s_b},
+        "batch_512_ms": ms512}
+    return ok
+
+
+def check_conv_eval(device, results):
+    """The 12 conv backbones at full width, random seeded weights: each
+    model's fp32 / bf16 checks (``_conv_checks``) on CONV_CHECK samples at
+    its ``IMAGE_ARCHS`` input size, then ShuffleNetV2 x2.0's eval run
+    (``_shufflenet_eval``), and for the other 11 one timed batch at their
+    ``IMAGE_ARCHS`` eval batch and input size."""
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import IMAGE_ARCHS
+
+    ok, out = True, {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(CONV_NAMES):
+        spec = IMAGE_ARCHS[name]
+        images = np.random.default_rng(SEED + 120 + i).integers(
+            0, 256, (CONV_CHECK, *spec.input_size, 3), dtype=np.uint8)
+        good, model, nums = _conv_checks(
+            name, _conv_model(name, SEED + 100 + 2 * i, device),
+            {"image": images})
+        if name == "shuffle_net":
+            good &= _shufflenet_eval(model, device, results)
+        else:
+            ms = _timed_batch(model, spec.eval_batch, spec.input_size, device)
+            nums.update(batch=spec.eval_batch, input_size=spec.input_size,
+                        batch_ms=ms, samples_per_s=spec.eval_batch / ms * 1e3)
+            print(f"  {name}: one batch of {spec.eval_batch} at "
+                  f"{spec.input_size[0]}x{spec.input_size[1]}: {ms:.2f} ms "
+                  f"({nums['samples_per_s']:.1f} samples/s)", flush=True)
+        out[name] = nums
+        ok &= good
+        del model
+        torch.cuda.empty_cache()
+    results["conv_eval"] = out
+    print(f"  phase 10's models in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return ok
+
+
+def check_conv_cli(device, results):
+    """``cli.test_image --image_model=shuffle_net`` on a reference-layout
+    (torchvision) ``.pth`` written from a random port model and a
+    synthetic 32-image JPEG tree: ``evaluate()`` (two batches of 16, no
+    hand-written kernel launched), then ``main()`` end to end
+    (``drive_eval_main``)."""
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import test_image
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_conv_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 32, SEED + 170,
+                         size=224)
+        model = _conv_model("shuffle_net", SEED + 171, "cpu")
+        ckpt = os.path.join(work, "shuffle_net.pth")
+        torch.save(_reference_state_dict(model, "shuffle_net"), ckpt)
+        del model
+        argv = ["--image_model=shuffle_net", f"--model_path={ckpt}",
+                "--dataset_folder_name=garbage_Val", "--eval_batch_size=16"]
+        os.chdir(work)
+        _zero_counters()
+        t0 = time.perf_counter()
+        acc, labels, preds = test_image.evaluate(args_parser(argv))[:3]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_counters()
+        main_ok, report = drive_eval_main(test_image, argv, acc)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    good = (launches == _want_launches() and len(preds) == 32
+            and 0.0 <= acc <= 100.0 and main_ok
+            and sorted(set(labels.tolist())) == [0, 1, 2, 3])
+    print(f"  cli.test_image --image_model=shuffle_net on 32 JPEGs in "
+          f"{secs:.1f} s: accuracy {acc:.2f} %, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (want none) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    results["conv_cli"] = {"seconds": secs, "acc": acc, "report": report,
+                           "ok": good}
+    return good
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -3717,7 +4060,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/9] device", flush=True)
+    print("[1/10] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3727,7 +4070,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/9] build", flush=True)
+    print("[2/10] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -3739,7 +4082,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/9] kernels vs plain versions", flush=True)
+    print("[3/10] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -3759,26 +4102,32 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/9] MM-RCA eval path",
+            ("[4/10] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/9] MM-RCA train path: full-width train step",
+            ("[5/10] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/9] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/10] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/9] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/10] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/9] image eval path: ViT-B/16",
+            ("[7/10] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/9] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/10] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/9] text train path: DistilBERT and BERT-base with "
+            ("[8/10] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/9] image train path: ViT-B/16",
+            ("[9/10] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/9] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/10] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
-             lambda: check_train_clis(device, results))):
+             lambda: check_train_clis(device, results)),
+            ("[10/10] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+             "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
+             lambda: check_conv_eval(device, results)),
+            ("[10/10] conv image eval CLI: cli.test_image "
+             "--image_model=shuffle_net",
+             lambda: check_conv_cli(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -3810,7 +4159,8 @@ def main() -> int:
                "text_train_seq512_flag_off":
                    results["text_train_seq512_off_launches"],
                "image_train": results["image_train_launches"],
-               "train_hf_dropout": results["train_hf_dropout_launches"]}
+               "train_hf_dropout": results["train_hf_dropout_launches"],
+               "conv_eval": results["conv_eval_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -3851,6 +4201,10 @@ def main() -> int:
                       "text_train": results["text_train"],
                       "image_train": results["image_train"],
                       "train_clis": results["train_clis"],
+                      "conv_eval": results["conv_eval"],
+                      "conv_eval_shuffle_net":
+                          results["conv_eval_shuffle_net"],
+                      "conv_cli": results["conv_cli"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

@@ -20,7 +20,8 @@ models: transformer_B16, transformer_L16 (their attention trains through
 the flash pair ``mha_flash_train``). Runs on CUDA; ``GC_RCA_PLATFORM=cpu``
 runs it on the CPU. Not ported yet (NotImplementedError):
 ``--calculate_dataset_stats``, --wandb, --fsdp, --mesh_shape other than
-one device, RESUME and multi-host runs, the conv backbones.
+one device, RESUME and multi-host runs, training the conv backbones (the
+port evaluates them in ``cli.test_image``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ from . import (check_unported_flags, cli_device, load_unimodal_model,
 TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
 IMAGE_KEYS = ("image", "label", "valid")
+
+# the image models this trainer trains (the conv backbones run eval only)
+TRAINABLE = ("transformer_B16", "transformer_L16")
 
 # head subtrees that stay trainable in phase 1: exactly the replaced
 # classifier Linear per arch
@@ -75,6 +79,11 @@ def main(argv=None):
             "dropout) — it is consumed by main_text/main_both/blip2_train/"
             "qformer_train only. Remove the flag.")
     mdef = resolve_model(get_image_model, args.image_model)
+    if args.image_model not in TRAINABLE:
+        raise NotImplementedError(
+            f"training --image_model={args.image_model} is not ported to "
+            "PyTorch yet (ROADMAP.md, queue 1 item 4: training of the conv "
+            "backbones); cli.test_image evaluates it")
     check_unported_flags(args)
     if args.calculate_dataset_stats:
         raise NotImplementedError(

@@ -8,11 +8,14 @@ loads the reference ``.pth`` (or a BEST file of the port's
 report, and writes the confusion-matrix PNG + report CSV under
 ``test_set_reports/<arch>/``. The images are normalized on the device and
 the forward runs in ``--compute_dtype`` (ViT's encoder layers are the fused
-pre-norm block kernels where the shape fits). Same flags as the JAX
-package's ``cli/test_image.py``; one device: other ``--mesh_shape``s,
-multi-host runs, orbax checkpoint directories and ``--profile_dir`` are not
-ported yet. Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Image
-models: transformer_B16, transformer_L16.
+pre-norm block kernels where the shape fits; the conv backbones are cuDNN
+convolutions and PyTorch ops, their BatchNorm folded into the convs first,
+in fp32). Same flags as the JAX package's ``cli/test_image.py``; one
+device: other ``--mesh_shape``s, multi-host runs, orbax checkpoint
+directories and ``--profile_dir`` are not ported yet. Runs on CUDA;
+``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Image models: transformer_B16,
+transformer_L16, shuffle_net, res18, res50, res152, mb, convnext, b0, b4,
+b5, eff_v2_small, eff_v2_medium, eff_v2_large.
 """
 
 from __future__ import annotations

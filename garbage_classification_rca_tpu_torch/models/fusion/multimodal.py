@@ -289,51 +289,6 @@ def _image_sd_to_features(sd: dict) -> dict:
     return out
 
 
-def _c_cna(sd, pre):
-    p = {"conv": {"w": sd[pre + ".0.weight"].transpose(2, 3, 1, 0)},
-         "bn": {"scale": sd[pre + ".1.weight"], "bias": sd[pre + ".1.bias"]}}
-    s = {"bn": {"mean": sd[pre + ".1.running_mean"],
-                "var": sd[pre + ".1.running_var"]}}
-    return p, s
-
-
-def convert_effnet(sd, cfg: eff.EffNetConfig):
-    """torchvision features.{i} keys -> the JAX (params, state) trees."""
-    params = {"stages": []}
-    state = {"stages": []}
-    params["stem"], state["stem"] = _c_cna(sd, "features.0")
-    for si, (btype, expand, _, _, _, _, n) in enumerate(cfg.stages):
-        sp, ss = [], []
-        for j in range(n):
-            pre = f"features.{si + 1}.{j}.block"
-            p, s = {}, {}
-            if btype == "fused":
-                if expand != 1:
-                    p["expand"], s["expand"] = _c_cna(sd, pre + ".0")
-                    p["project"], s["project"] = _c_cna(sd, pre + ".1")
-                else:
-                    p["single"], s["single"] = _c_cna(sd, pre + ".0")
-            else:
-                i = 0
-                if expand != 1:
-                    p["expand"], s["expand"] = _c_cna(sd, pre + f".{i}")
-                    i += 1
-                p["dw"], s["dw"] = _c_cna(sd, pre + f".{i}")
-                i += 1
-                p["se"] = {fc: {
-                    "w": sd[pre + f".{i}.{fc}.weight"].transpose(2, 3, 1, 0),
-                    "b": sd[pre + f".{i}.{fc}.bias"]} for fc in ("fc1", "fc2")}
-                i += 1
-                p["project"], s["project"] = _c_cna(sd, pre + f".{i}")
-            sp.append(p)
-            ss.append(s)
-        params["stages"].append(sp)
-        state["stages"].append(ss)
-    params["head"], state["head"] = _c_cna(
-        sd, f"features.{len(cfg.stages) + 1}")
-    return params, state
-
-
 def _att_block(sd, pre):
     return {"q": _lin(sd, pre + ".W_query"), "k": _lin(sd, pre + ".W_key"),
             "v": _lin(sd, pre + ".W_value"),
@@ -347,8 +302,8 @@ def convert_torch(sd: dict, cfg: FusionConfig,
     in the JAX layout, with the MM-RCA entries (other heads are left out)."""
     check_config(cfg)
     image_cfg = image_cfg or effv2.CONFIGS["eff_v2_medium"]
-    img_params, img_state = convert_effnet(_image_sd_to_features(sd),
-                                           image_cfg)
+    img_params, img_state = eff.convert_torch(_image_sd_to_features(sd),
+                                              image_cfg)
     params = {
         "text": distil_mod.convert_encoder(subdict(sd, "text_model.")),
         "image": img_params,

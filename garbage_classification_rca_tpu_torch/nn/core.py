@@ -94,8 +94,28 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """torch.nn.Hardsigmoid as the JAX package writes it: relu6(x + 3) / 6."""
+    return F.relu6(x + 3.0) / 6.0
+
+
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    return x * hardsigmoid(x)
+
+
 def embedding(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, w)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int = 0) -> torch.Tensor:
+    """NCHW max pool, torch MaxPool2d semantics: the padding never wins (the
+    JAX package pads with -inf)."""
+    return F.max_pool2d(x, window, stride, padding)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

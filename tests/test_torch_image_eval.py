@@ -11,8 +11,13 @@ the JAX package on the same weights and inputs.
     the port's logits match the torch replica's;
   * the layer's routing rule, with a call-count spy;
   * ``cli.test_image`` writes a report CSV byte-identical to the JAX CLI's
-    on ``tiny_dataset`` at 224x224 (197 tokens; a 2-layer checkpoint, the
-    ``CONFIGS`` entry patched on both sides for the test).
+    on ``tiny_dataset`` at 224x224: ViT-B/16 (197 tokens; a 2-layer
+    checkpoint, the ``CONFIGS`` entry patched on both sides for the test),
+    ShuffleNetV2 x2.0 and ResNet-18 (full size, random BatchNorm
+    statistics; both CLIs fold BN), each from a torchvision-layout ``.pth``
+    written from the replicas in ``tests/torch_refs``;
+  * the flags that stay refused: other meshes, ``--profile_dir``, and
+    training a conv backbone in ``cli.main_image``.
 """
 
 import dataclasses
@@ -33,6 +38,7 @@ from garbage_classification_rca_tpu_torch.eval.harness import make_eval_step
 from garbage_classification_rca_tpu_torch.models.image import vit as tvit
 from garbage_classification_rca_tpu_torch.models.registry import (
     get_image_model)
+from tests.test_torch_conv_backbones import _ref as _conv_ref
 from tests.torch_refs.vit_ref import VisionTransformerRef
 
 torch.set_num_threads(2)
@@ -224,7 +230,9 @@ def _run_cli(main, argv, tmp_path, monkeypatch, sub):
     return _csv_bytes(str(d / "test_set_reports"))
 
 
-def test_port_cli_report_matches_jax_cli(tiny_dataset, tmp_path,
+@pytest.mark.parametrize("name", ["transformer_B16", "shuffle_net",
+                                  "res18"])
+def test_port_cli_report_matches_jax_cli(name, tiny_dataset, tmp_path,
                                          monkeypatch):
     from garbage_classification_rca_tpu import native
     from garbage_classification_rca_tpu.cli import test_image as jax_cli
@@ -232,10 +240,12 @@ def test_port_cli_report_matches_jax_cli(tiny_dataset, tmp_path,
     # the JAX batcher on its PIL + cv2 route, the one the port copies
     monkeypatch.setattr(native, "pad_resize_batch", lambda *a, **k: None)
     monkeypatch.setattr(native, "decode_enabled", lambda: False)
-    name = "transformer_B16"
-    _small(monkeypatch, name, 224)
-    ckpt = tmp_path / "vit_b16.pth"
-    torch.save(_ref(name, 224, seed=5).state_dict(), ckpt)
+    ckpt = tmp_path / f"{name}.pth"
+    if name == "transformer_B16":
+        _small(monkeypatch, name, 224)
+        torch.save(_ref(name, 224, seed=5).state_dict(), ckpt)
+    else:
+        torch.save(_conv_ref(name).state_dict(), ckpt)
     argv = [f"--image_model={name}", f"--model_path={ckpt}",
             f"--dataset_folder_name={tiny_dataset}",
             "--compute_dtype=float32", "--eval_batch_size=8",
@@ -255,12 +265,19 @@ def test_port_cli_exits_and_unported_flags(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["--model_path=x.pth", "--image_model=nope"])
     assert e.value.code == 1
-    for flags in (["--image_model=shuffle_net"], ["--image_model=res50"],
-                  ["--image_model=eff_v2_medium"], ["--image_model=b4"],
+    for flags in (["--image_model=shuffle_net", "--mesh_shape=data:4"],
+                  ["--image_model=res50", "--profile_dir=p"],
                   ["--image_model=transformer_B16", "--mesh_shape=data:4"],
                   ["--image_model=transformer_B16", "--profile_dir=p"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_cli.main(["--model_path=x.pth"] + flags)
+    from garbage_classification_rca_tpu_torch.cli import main_image
+
+    for name in ("shuffle_net", "res50", "eff_v2_medium", "b4"):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 4: training of the conv"):
+            main_image.main([f"--image_model={name}",
+                             "--dataset_folder_name=x"])
     with pytest.raises(SystemExit, match="orbax"):
         port_cli.main(["--image_model=transformer_L16",
                        f"--model_path={tmp_path}"])
