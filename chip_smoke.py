@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~4 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~6 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -116,7 +116,28 @@ Phases, each of which fails the run when it fails:
      ``cudnn.benchmark`` on (the phase leaves it off), one batch of 512;
      one timed batch of each other model at its eval batch and input size;
      then ``cli.test_image --image_model=shuffle_net`` on a
-     torchvision-layout ``.pth`` (``evaluate()`` and ``main()``).
+     torchvision-layout ``.pth`` (``evaluate()`` and ``main()``);
+ 11. fusion eval: the late-fusion heads at full width with random seeded
+     weights, on one EfficientNetV2-M at 480x480 (random BN statistics,
+     folded) and three text towers (DistilBERT 6 layers, BERT-base 12,
+     BART-large 12 + 12), seq 64, bf16, built once and shared by the
+     heads: gated, classic, normalized, hierarchical and bimodal with
+     DistilBERT over 4 batches of 128, clip over 4 batches of 16
+     (``--batch_size``); gated, MM_RCA and hierarchical with BERT and
+     classic and clip with BART, one timed batch each. Per run: the fp32
+     kernel path against the plain path on 16 samples, the bf16
+     ``run_multimodal_eval`` with the counters zeroed before and read
+     after (K2 6 a DistilBERT batch, 12 a BERT batch, 0 with BART; K1 1 a
+     batch on the BERT MM_RCA run; every other 0; their sum is the
+     ``fusion_eval`` path), samples/s, p50, device ms, peak memory, the
+     bf16 kernel path against the plain path (BART: bf16 against fp32) and
+     a split of one batch by CUDA events: towers / head, the bimodal GRU
+     scan on its own with its launches from the profiler; then
+     ``cli.test_both`` with the default --late_fusion (gated) and with
+     --late_fusion=clip on BEST files written from random port models
+     (``evaluate()`` with its launches, ``main()``), and ``cli.test_text
+     --text_model=bart`` ``evaluate()`` on a
+     ``BartForSequenceClassification``-layout ``.pth`` of the same BART.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -179,6 +200,13 @@ Tolerances (kernel vs plain version, same inputs, same card):
     to their sibling weight's scale. The unimodal train paths
     (``compare_unimodal_paths``) are held the same way: fp32 1e-5 / 1e-4,
     bf16 images (ViT) 1e-3 and cosine >= 0.999.
+  * fusion eval (phase 11): the DistilBERT / BERT runs as the eval model
+    above, fp32 on 16 samples; in bf16, max |d| <= 0.05 and argmax
+    agreement >= 0.98 over the samples above the noise floor, without the
+    half-the-samples condition (``fusion_agreement`` says why); BART, which
+    runs no kernel, bf16 against fp32 as phase 10's towers
+    (``bf16_vs_fp32``), the CLIP head without the relative bar
+    (``_kernel_less_check`` says why).
   * conv eval (phase 10): fp32 folded against unfolded, max |logit
     difference| <= 1e-4 and equal argmax (the fp32 eval bar); bf16 against
     the fp32 model, max |d| <= 0.05 and <= 5% of the largest |logit|, and
@@ -3153,14 +3181,16 @@ def _shufflenet_key(parts):
 def _reference_state_dict(model, kind):
     """The port model's weights under the reference checkpoint's key names
     (HF DistilBERT classifier under ``model.`` / ``out.``; torchvision ViT
-    and ShuffleNetV2): the port's parameters already have torch's
-    layouts."""
+    and ShuffleNetV2; HF ``BartForSequenceClassification``): the port's
+    parameters already have torch's layouts."""
     sd = {}
     for name, t in model.state_dict().items():
         parts = name.split(".")
         leaf = _LEAF.get(parts[-1])
         if kind == "shuffle_net":
             key = _shufflenet_key(parts)
+        elif kind == "bart":
+            key = _bart_key(parts)
         elif kind == "distilbert":
             if parts[0] == "head":
                 key = f"out.{leaf}"
@@ -3996,6 +4026,510 @@ def check_conv_cli(device, results):
     return good
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the late-fusion family's eval path (the six other heads; the
+# BERT and BART-large fusion towers)
+# ---------------------------------------------------------------------------
+
+FUSION_BATCH, FUSION_BATCHES = 128, 4   # the eval batch; DistilBERT runs
+FUSION_CLIP_BATCH = 16                  # --batch_size: CLIP's eval batch
+# (tower, strategy, batches): DistilBERT over 4 batches, BERT and BART one
+# timed batch; CLIP at FUSION_CLIP_BATCH, every other at FUSION_BATCH
+FUSION_RUNS = tuple(
+    [("distilbert", s, FUSION_BATCHES) for s in (
+        "gated", "classic", "normalized", "hierarchical", "bimodal", "clip")]
+    + [("bert", s, 1) for s in ("gated", "MM_RCA", "hierarchical")]
+    + [("bart", s, 1) for s in ("classic", "clip")])
+# K2 launches a batch: one a tower layer (BART runs no kernel)
+FUSION_K2 = {"distilbert": 6, "bert": 12, "bart": 0}
+_BART_ATTN = {"self": "self_attn", "cross": "encoder_attn"}
+_BART_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "out": "out_proj"}
+_BART_SUB = {"ln_self": "self_attn_layer_norm",
+             "ln_cross": "encoder_attn_layer_norm", "fc1": "fc1",
+             "fc2": "fc2", "ln_final": "final_layer_norm"}
+
+
+def _bart_key(parts):
+    """A port BartClassifier parameter -> its
+    ``BartForSequenceClassification`` key."""
+    leaf = _LEAF[parts[-1]]
+    head = {"head_dense": "dense", "head_out": "out_proj"}
+    if parts[0] in head:
+        return f"classification_head.{head[parts[0]]}.{leaf}"
+    if parts[0] == "shared":
+        return "model.shared.weight"
+    stack = "encoder" if parts[0].startswith("enc") else "decoder"
+    if parts[0].endswith("_pos"):
+        return f"model.{stack}.embed_positions.weight"
+    if parts[0].endswith("_ln_emb"):
+        return f"model.{stack}.layernorm_embedding.{leaf}"
+    pre = f"model.{stack}.layers.{parts[1]}."
+    if parts[2] in _BART_ATTN:
+        return pre + f"{_BART_ATTN[parts[2]]}.{_BART_PROJ[parts[3]]}.{leaf}"
+    return pre + f"{_BART_SUB[parts[2]]}.{leaf}"
+
+
+def _fusion_towers(device):
+    """The towers the runs share, on the card in fp32: EfficientNetV2-M
+    (random BN statistics, folded) and DistilBERT (6 layers), BERT-base
+    (12) and BART-large (12 + 12, vocabulary 50,265; built as the
+    classifier, whose head the tower does not read, so that phase 11's
+    ``cli.test_text`` drive saves the same weights), random weights from
+    seeds."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.models.image import (
+        efficientnet_common as eff, efficientnet_v2 as effv2)
+    from garbage_classification_rca_tpu_torch.models.text import bart
+    from garbage_classification_rca_tpu_torch.nn.fold import fold_batchnorm
+
+    gen = lambda s: torch.Generator().manual_seed(s)
+    image = eff.EffNet(effv2.CONFIGS["eff_v2_medium"],
+                       generator=gen(SEED + 200)).to(device).eval()
+    _randomize_bn(image, torch.Generator(device=device).manual_seed(
+        SEED + 201))
+    fold_batchnorm(image, 1e-3)
+    towers = {"image": image, "bart": bart.BartClassifier(
+        generator=gen(SEED + 202)).to(device).eval()}
+    for i, name in enumerate(("distilbert", "bert")):
+        towers[name] = multimodal.TEXT_TOWERS[name](
+            generator=gen(SEED + 203 + i)).to(device).eval()
+    return towers
+
+
+def _fusion_heads(cfg, seed):
+    """A FusionModel of `cfg` with its heads drawn from `seed` and no
+    towers (``text`` and ``image`` None), for the caller to give it towers
+    built once for every head: it is built on a one-stage stand-in image
+    tower and no text layer."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.models.image import (
+        efficientnet_common as eff, efficientnet_v2 as effv2)
+
+    stub = eff.EffNetConfig(stages=(("fused", 1, 3, 1, 8, 8, 1),),
+                            stem_out=8, head_out=multimodal.IMG_FEAT,
+                            bn_eps=1e-3)
+    model = multimodal.FusionModel(
+        cfg, text_layers=0, image_cfg=stub,
+        generator=torch.Generator().manual_seed(seed))
+    model.text = model.image = None
+    model.image_cfg = effv2.CONFIGS["eff_v2_medium"]
+    return model
+
+
+def _fusion_pair(cfg, towers32, towers16, seed, device):
+    """(fp32, bf16) FusionModels of `cfg` on the card: the same heads, the
+    shared towers of each dtype."""
+    import copy
+
+    import torch
+
+    m32 = _fusion_heads(cfg, seed).to(device).eval()
+    m16 = copy.deepcopy(m32).to(torch.bfloat16)
+    for m, towers in ((m32, towers32), (m16, towers16)):
+        m.text, m.image = towers[cfg.text_model_name], towers["image"]
+    return m32, m16
+
+
+def _sliced(data, n, batches=None):
+    """The first `batches` (all) of `data`'s batches, each cut to its
+    first `n` samples."""
+    out = SyntheticBatcher.__new__(SyntheticBatcher)
+    out.batches = [{k: v[:n] for k, v in b.items()}
+                   for b in data.batches[:batches]]
+    out.m = list(range(n * len(out.batches)))
+    return out
+
+
+def fusion_agreement(lk, lp, truth):
+    """The bf16 check of phase 11's kernel path `lk` against its plain path
+    `lp` on one batch, `truth` the fp32 model's plain logits: max |d| <=
+    0.05 over every sample, and argmax agreement >= 0.98 over the samples
+    whose fp32 top-2 margin is above the noise floor 2 max |lp - truth|
+    (``argmax_check``'s floor). Unlike ``argmax_check`` it does not ask for
+    half the samples above the floor: the i.i.d. noise images give every
+    sample nearly one pooled image feature (``bf16_vs_fp32`` says why), so
+    a random head's margins may all be small; the count above the floor
+    and the agreement over all samples are reported beside it."""
+    d = float((lk - lp).abs().max())
+    floor = 2.0 * float((lp - truth).abs().max())
+    top2 = truth.topk(2, dim=-1).values
+    keep = (top2[:, 0] - top2[:, 1]) > floor
+    agree = lambda m: float((lk[m].argmax(-1) == lp[m].argmax(-1))
+                            .float().mean()) if int(m.sum()) else None
+    out = {"max_logit_diff": d, "noise_floor": floor,
+           "agreement": agree(keep), "agreement_all": agree(keep | ~keep),
+           "samples": len(truth), "excluded": len(truth) - int(keep.sum()),
+           "bf16_vs_fp32": float((lk - truth).abs().max())}
+    ok = d <= 0.05 and (out["agreement"] is None or out["agreement"] >= 0.98)
+    return ok, out
+
+
+def fusion_split(model, batch):
+    """One bf16 batch's forward (normalized images and ids already on the
+    card) split by CUDA events recorded around the towers (``_towers``)
+    and around each bimodal GRU scan: towers / head / GRU ms of the
+    device's timeline (a span includes the time the device waits for the
+    host inside it), and for bimodal the scan's kernel launches and device
+    time from the profiler over the three GRU calls on their inputs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.nn import core
+
+    marks = {"towers": [], "gru": []}
+    inputs = []
+    real_towers, real_gru = multimodal._towers, core.GRU.forward
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def towers(*a, **kw):
+        start = event()
+        out = real_towers(*a, **kw)
+        marks["towers"].append((start, event()))
+        return out
+
+    def gru(self, x):
+        start = event()
+        out = real_gru(self, x)
+        marks["gru"].append((start, event()))
+        inputs.append((self, x))
+        return out
+
+    ids, mask, x = batch
+    with torch.inference_mode():
+        model(ids, mask, x)                                 # warm-up
+        multimodal._towers, core.GRU.forward = towers, gru
+        try:
+            start = event()
+            model(ids, mask, x)
+            end = event()
+        finally:
+            multimodal._towers, core.GRU.forward = real_towers, real_gru
+        torch.cuda.synchronize()
+        span = lambda key: sum(a.elapsed_time(b) for a, b in marks[key])
+        out = {"batch_ms": start.elapsed_time(end), "towers_ms": span("towers"),
+               "gru_ms": span("gru")}
+        out["head_ms"] = out["batch_ms"] - out["towers_ms"]
+        if inputs:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for mod, xi in inputs:
+                    mod(xi)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            out.update(
+                gru_launches=sum(e.count for e in dev),
+                gru_device_ms=sum(getattr(e, "self_device_time_total", 0.0)
+                                  for e in dev) / 1e3,
+                gru_wall_ms=wall * 1e3, gru_steps=sum(
+                    xi.shape[0] for _, xi in inputs))
+    return out
+
+
+def _kernel_less_check(m32, m16, strategy, batch, lk, truth, device):
+    """The bf16 check of a run with no kernel (the BART tower): the bf16
+    model's logits `lk` against the fp32 model's `truth` by
+    ``bf16_vs_fp32``'s bars. Beside it, recorded and not judged, the bf16
+    towers' features through the fp32 head against `truth`: the towers'
+    own bf16 error as the head reads it. The CLIP head is held to |d| <=
+    0.05 and the argmax agreement, without the relative bar: it
+    L2-normalizes both features and multiplies their dot products by
+    exp(logit_scale) = 14.3, so it magnifies the towers' bf16 error while
+    its random-weight logits stay small (on an H100 80GB HBM3 at 700 W:
+    5.6% of the largest |logit| 0.23, and 6.0% through the fp32 head, so
+    not the head's own rounding), where the classic head over the same
+    BART tower reads 2.1%."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+
+    good, agr = bf16_vs_fp32(lk, truth)
+    cfg = m32.cfg
+    with torch.inference_mode():
+        dev = {k: torch.from_numpy(batch[k]).to(device)
+               for k in ("input_ids", "attention_mask", "image")}
+        x = normalize_on_device(dev["image"], dtype=torch.bfloat16)
+        text, hid, s3, s6, img = multimodal._towers(
+            cfg, m16, x, dev["input_ids"], dev["attention_mask"],
+            need_hiddens=strategy == "hierarchical")
+        up = lambda t: None if t is None else t.float()
+        lt = multimodal._EVAL_HEADS[strategy](
+            cfg, m32, up(text), up(img), hiddens=hid and [up(h) for h in hid],
+            s3=up(s3), s6=up(s6)).float()
+    agr["towers"] = bf16_vs_fp32(lt, truth)[1]
+    if strategy == "clip":
+        good = agr["max_logit_diff"] <= 0.05 and (
+            agr["agreement"] is None or agr["agreement"] >= 0.98)
+    return good, agr
+
+
+def _fusion_run(tower, strategy, n_batches, pair, data, device):
+    """One (tower, strategy) run; returns (ok, numbers, launches)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.test_both import (
+        make_both_eval_step, run_multimodal_eval)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+
+    m32, m16 = pair
+    batch_size = len(data.batches[0]["label"])
+    first = data.batches[0]
+    ok, nums = True, {"batch": batch_size, "batches": n_batches}
+    torch.backends.cudnn.allow_tf32 = False
+    if FUSION_K2[tower]:
+        # fp32, TF32 off, 16 samples: kernel path (K2 on the CUDA cores)
+        # against plain path
+        small = {k: v[:16] for k, v in first.items()}
+        _zero_counters()
+        lk = _logits(m32, small, torch.float32, device)
+        ran = _read_counters() == _want_launches(
+            mha=FUSION_K2[tower], rca_fused=int(strategy == "MM_RCA"))
+        with plain_versions():
+            lp = _logits(m32, small, torch.float32, device)
+        d32 = float((lk - lp).abs().max())
+        ok &= (ran and d32 <= 1e-4
+               and bool((lk.argmax(-1) == lp.argmax(-1)).all())
+               and bool(torch.isfinite(lk).all()))
+        nums["fp32_max_logit_diff"] = d32
+    with plain_versions():
+        truth = _logits(m32, first, torch.float32, device)
+    torch.backends.cudnn.allow_tf32 = True
+
+    run = lambda: run_multimodal_eval(m16, data, batch_size, device,
+                                      torch.bfloat16, progress=False)
+    run()                                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_counters()
+    _, _, preds, stats = run()
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = _want_launches(
+        mha_tc=FUSION_K2[tower] * n_batches,
+        rca_fused=n_batches if strategy == "MM_RCA" else 0)
+    ok &= launches == want and len(preds) == n_batches * batch_size
+    prof = profile_step(make_both_eval_step(m16, torch.bfloat16), first,
+                        device, reps=2)
+    lk = _logits(m16, first, torch.bfloat16, device)
+    ok &= bool(torch.isfinite(lk).all()) and tuple(lk.shape) == (
+        batch_size, 4)
+    if FUSION_K2[tower]:
+        with plain_versions():
+            lp = _logits(m16, first, torch.bfloat16, device)
+        good, agr = fusion_agreement(lk, lp, truth)
+    else:
+        good, agr = _kernel_less_check(m32, m16, strategy, first, lk, truth,
+                                       device)
+    ok &= good
+    with torch.inference_mode():
+        dev = {k: torch.from_numpy(first[k]).to(device)
+               for k in ("input_ids", "attention_mask", "image")}
+        split = fusion_split(m16, (dev["input_ids"], dev["attention_mask"],
+                                   normalize_on_device(dev["image"],
+                                                       dtype=torch.bfloat16)))
+    nums.update(samples_per_s=stats["samples_per_s"],
+                p50_batch_ms=stats["p50_step_s"] * 1e3,
+                device_ms_per_batch=prof["device_ms_per_batch"],
+                idle_share=prof["idle_share"], peak_mem_gib=peak / 2**30,
+                split=split, agreement=agr,
+                launches={k: v for k, v in launches.items() if v})
+    gru = (f", GRU scan {split['gru_steps']} steps: {split['gru_launches']} "
+           f"launches, device {split['gru_device_ms']:.2f} ms, wall "
+           f"{split['gru_wall_ms']:.2f} ms" if "gru_launches" in split
+           else "")
+    check = (f"kernel vs plain max|d|={agr['max_logit_diff']:.3e}, "
+             f"agreement {agr['agreement']} above the floor "
+             f"{agr['noise_floor']:.3e} ({agr['samples'] - agr['excluded']} "
+             f"of {agr['samples']}; all {agr['agreement_all']:.4f}), bf16 vs "
+             f"fp32 max|d|={agr['bf16_vs_fp32']:.3e}, fp32 kernel vs plain "
+             f"max|d|={nums['fp32_max_logit_diff']:.3e}"
+             if FUSION_K2[tower] else
+             f"no kernel; bf16 vs fp32 max|d|={agr['max_logit_diff']:.3e} "
+             f"(max|logit| {agr['max_abs_logit']:.3e}), agreement "
+             f"{agr['agreement']} above the floor ({agr['samples'] - agr['excluded']}"
+             f" of {agr['samples']}; all {agr['agreement_all']:.4f}); the "
+             f"bf16 towers through the fp32 head: max|d|="
+             f"{agr['towers']['max_logit_diff']:.3e}, agreement "
+             f"{agr['towers']['agreement']}")
+    print(f"  {strategy} + {tower}: {n_batches} x {batch_size}: "
+          f"{stats['samples_per_s']:.1f} samples/s, p50 "
+          f"{nums['p50_batch_ms']:.2f} ms, device "
+          f"{prof['device_ms_per_batch']:.2f} ms a batch, peak "
+          f"{peak / 2**30:.2f} GiB; launches {nums['launches']} (want "
+          f"{ {k: v for k, v in want.items() if v} }); split of one batch: "
+          f"towers {split['towers_ms']:.2f} ms, head {split['head_ms']:.2f} "
+          f"ms{gru}; {check} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, nums, launches
+
+
+def check_fusion_eval(device, results):
+    """The seven late-fusion heads at full width with random seeded
+    weights (``FUSION_RUNS``): each run's fp32 check, its bf16
+    ``run_multimodal_eval`` with the counters zeroed before and read after
+    (K2 6 a DistilBERT batch, 12 a BERT batch, 0 with BART; K1 on the BERT
+    MM-RCA run), a profile, the kernel path against the plain path (BART:
+    bf16 against fp32) and the towers / head split; the counts summed over
+    the runs are the ``fusion_eval`` path's."""
+    import copy
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+
+    t0 = time.perf_counter()
+    towers32 = _fusion_towers(device)
+    towers16 = {k: copy.deepcopy(v).to(torch.bfloat16)
+                for k, v in towers32.items()}
+    toks = {name: get_tokenizer(name, vocab_dir=f"tests/fixtures/vocab/{v}")
+            for name, v in (("distilbert", "wordpiece"), ("bart", "bpe"))}
+    data = {"distilbert": SyntheticBatcher(
+        FUSION_BATCHES * FUSION_BATCH, FUSION_BATCH, (480, 480),
+        toks["distilbert"], 64, SEED + 210)}
+    data["bert"] = _sliced(data["distilbert"], FUSION_BATCH, 1)
+    data["bart"] = SyntheticBatcher(FUSION_BATCH, FUSION_BATCH, (480, 480),
+                                    toks["bart"], 64, SEED + 211)
+    print(f"  towers and data in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ok, out, total = True, {}, {}
+    for i, (tower, strategy, n) in enumerate(FUSION_RUNS):
+        cfg = multimodal.FusionConfig(strategy=strategy,
+                                      text_model_name=tower, reverse=True,
+                                      batch_size=FUSION_CLIP_BATCH)
+        run_data = data[tower]
+        if strategy == "clip":
+            run_data = _sliced(run_data, FUSION_CLIP_BATCH)
+        pair = _fusion_pair(cfg, towers32, towers16, SEED + 220 + i, device)
+        good, nums, launches = _fusion_run(tower, strategy, n, pair,
+                                           run_data, device)
+        ok &= good
+        out[f"{strategy}_{tower}"] = nums
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del pair
+        torch.cuda.empty_cache()
+    results["fusion_eval"] = out
+    results["fusion_eval_launches"] = total
+    print(f"  fusion_eval launches over the {len(FUSION_RUNS)} runs: "
+          f"{ {k: v for k, v in total.items() if v} }; phase 11's runs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    results["fusion_bart"] = towers32["bart"]
+    return ok
+
+
+def check_fusion_clis(device, results):
+    """``cli.test_both`` with the default --late_fusion (gated) and with
+    --late_fusion=clip on BEST checkpoints written from random unfolded
+    port models (DistilBERT tower), over a synthetic 32-image 480x480 JPEG
+    tree: ``evaluate()`` with its launches (K2 6 a batch: one batch of 32
+    for gated, two of 16 for clip) and ``main()`` end to end; then
+    ``cli.test_text --text_model=bart`` ``evaluate()`` on a
+    ``BartForSequenceClassification``-layout ``.pth`` of phase 11's
+    BART-large (no kernel launched)."""
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import test_both, test_text
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.train.engine import save_best
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_fusion_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab")
+    bart = results.pop("fusion_bart")
+    cwd = os.getcwd()
+    ok, out = True, {}
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 32, SEED + 230)
+        os.chdir(work)
+        gated = multimodal.FusionModel(
+            multimodal.FusionConfig(strategy="gated"),
+            generator=torch.Generator().manual_seed(SEED + 231))
+        clip = _fusion_heads(multimodal.FusionConfig(strategy="clip"),
+                             SEED + 232)
+        clip.text, clip.image = gated.text, gated.image
+        for flags, model, batches in (([], gated, 1),
+                                      (["--late_fusion=clip"], clip, 2)):
+            name = flags[0].split("=")[1] if flags else "gated (default)"
+            path = save_best(model, model_name=name.split()[0], epoch=0,
+                             val_acc=0.0, args=args_parser([]),
+                             fine_tuning=False)
+            argv = flags + [f"--model_path={path}",
+                            "--dataset_folder_name=garbage_Val",
+                            f"--vocab_dir={vocab}/wordpiece"]
+            _zero_counters()
+            t0 = time.perf_counter()
+            acc, labels, preds, _ = test_both.evaluate(args_parser(argv))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _read_counters()
+            main_ok, report = drive_eval_main(test_both, argv, acc)
+            good = (launches == _want_launches(mha_tc=6 * batches)
+                    and len(preds) == 32 and main_ok
+                    and sorted(set(labels.tolist())) == [0, 1, 2, 3])
+            print(f"  cli.test_both {name} on 32 JPEGs in {secs:.1f} s: "
+                  f"accuracy {acc:.2f} %, launches "
+                  f"{ {k: v for k, v in launches.items() if v} } "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[f"test_both_{name.split()[0]}"] = {
+                "seconds": secs, "acc": acc, "report": report, "ok": good}
+            ok &= good
+        del gated, clip
+        ckpt = os.path.join(work, "bart.pth")
+        t0 = time.perf_counter()
+        torch.save(_reference_state_dict(bart, "bart"), ckpt)
+        depth = len(bart.enc_layers)
+        del bart
+        save_s = time.perf_counter() - t0
+        _zero_counters()
+        t0 = time.perf_counter()
+        acc, labels, preds = test_text.evaluate(args_parser([
+            "--text_model=bart", f"--model_path={ckpt}",
+            "--dataset_folder_name=garbage_Val",
+            f"--vocab_dir={vocab}/bpe"]))[:3]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_counters()
+        good = (launches == _want_launches() and len(preds) == 32
+                and 0.0 <= acc <= 100.0
+                and sorted(set(labels.tolist())) == [0, 1, 2, 3])
+        print(f"  cli.test_text --text_model=bart ({depth} + {depth} "
+              f"layers) on 32 "
+              f"samples in {secs:.1f} s (the .pth written in {save_s:.1f} "
+              f"s): accuracy {acc:.2f} %, launches "
+              f"{ {k: v for k, v in launches.items() if v} } (want none) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        out["test_text_bart"] = {"seconds": secs, "save_s": save_s,
+                                 "acc": acc, "ok": good}
+        ok &= good
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    results["fusion_clis"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -4060,7 +4594,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/10] device", flush=True)
+    print("[1/11] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4070,7 +4604,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/10] build", flush=True)
+    print("[2/11] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -4082,7 +4616,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/10] kernels vs plain versions", flush=True)
+    print("[3/11] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -4102,32 +4636,38 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/10] MM-RCA eval path",
+            ("[4/11] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/10] MM-RCA train path: full-width train step",
+            ("[5/11] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/10] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/11] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/10] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/11] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/10] image eval path: ViT-B/16",
+            ("[7/11] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/10] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/11] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/10] text train path: DistilBERT and BERT-base with "
+            ("[8/11] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/10] image train path: ViT-B/16",
+            ("[9/11] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/10] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/11] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/10] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/11] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/10] conv image eval CLI: cli.test_image "
+            ("[10/11] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
-             lambda: check_conv_cli(device, results))):
+             lambda: check_conv_cli(device, results)),
+            ("[11/11] fusion eval: gated, classic, normalized, clip, "
+             "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
+             lambda: check_fusion_eval(device, results)),
+            ("[11/11] fusion eval CLIs: cli.test_both (gated, clip), "
+             "cli.test_text --text_model=bart",
+             lambda: check_fusion_clis(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -4147,7 +4687,9 @@ def main() -> int:
     # body, fp32, on the trainers' val evals),
     # the text train path (hf_internal_dropout) for K7a / K7b (3xTF32; the
     # CUDA-core K7a / K7b at seq 512), the image train path for the bf16
-    # tensor-core K4a / K4b
+    # tensor-core K4a / K4b; every row also reads the late-fusion eval
+    # path ("fusion_eval": K2 on the DistilBERT / BERT towers, K1 on the
+    # BERT MM-RCA run)
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -4160,7 +4702,8 @@ def main() -> int:
                    results["text_train_seq512_off_launches"],
                "image_train": results["image_train_launches"],
                "train_hf_dropout": results["train_hf_dropout_launches"],
-               "conv_eval": results["conv_eval_launches"]}
+               "conv_eval": results["conv_eval_launches"],
+               "fusion_eval": results["fusion_eval_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -4205,6 +4748,8 @@ def main() -> int:
                       "conv_eval_shuffle_net":
                           results["conv_eval_shuffle_net"],
                       "conv_cli": results["conv_cli"],
+                      "fusion_eval": results["fusion_eval"],
+                      "fusion_clis": results["fusion_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

@@ -8,7 +8,8 @@ functions build the same numpy tree from a reference ``.pth`` first.
 The walk follows the tree: a dict key names a child module, parameter or
 buffer of the same name; a list indexes a ``ModuleList``. Leaves are
 converted by the kind of module that owns them: a ``Linear`` weight goes
-from ``[in, out]`` to ``[out, in]``, a ``Conv2d`` weight from HWIO to OIHW;
+from ``[in, out]`` to ``[out, in]``, a ``Conv2d`` weight from HWIO to OIHW,
+a ``GRU``'s ``w_ih`` / ``w_hh`` from ``[in, 3H]`` to ``[3H, in]``;
 everything else is copied as is. Shapes must match, and every parameter
 and buffer of the model must be filled.
 
@@ -33,6 +34,8 @@ def _convert(owner: nn.Module, name: str, a: np.ndarray) -> np.ndarray:
         return a.T
     if name == "w" and isinstance(owner, core.Conv2d):
         return a.transpose(3, 2, 0, 1)
+    if name in ("w_ih", "w_hh") and isinstance(owner, core.GRU):
+        return a.T
     return a
 
 
@@ -108,5 +111,7 @@ def export_jax_tree(model: nn.Module) -> Dict[str, np.ndarray]:
             a = a.T
         elif leaf == "w" and isinstance(owner, core.Conv2d):
             a = a.transpose(2, 3, 1, 0)
+        elif leaf in ("w_ih", "w_hh") and isinstance(owner, core.GRU):
+            a = a.T
         out[name] = a
     return out

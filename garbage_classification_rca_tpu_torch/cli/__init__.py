@@ -70,10 +70,10 @@ def load_unimodal_model(mdef, path: str, what: str, device):
 
 
 def check_eval_flags(args) -> None:
-    """Raise on what the unimodal eval CLIs do not run yet: they evaluate
-    on one device, from a reference .pth or a BEST checkpoint of the
-    port's trainers."""
-    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1, items 2 and 3)"
+    """Raise on what the eval CLIs do not run yet: they evaluate on one
+    device, from a reference .pth or a BEST checkpoint of the port's
+    trainers."""
+    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1, items 1 to 3)"
     if args.mesh_shape not in ("", "data:-1", "data:1"):
         raise NotImplementedError(
             f"--mesh_shape={args.mesh_shape} {todo}; the port evaluates on "
@@ -83,4 +83,4 @@ def check_eval_flags(args) -> None:
     if os.path.isdir(args.model_path):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass a reference "
-                         ".pth")
+                         ".pth or a BEST checkpoint of the port's trainer")

@@ -1,4 +1,4 @@
-"""Multimodal training CLI — the MM-RCA training path.
+"""Multimodal training CLI — the MM-RCA training path (DistilBERT tower).
 
 ``python -m garbage_classification_rca_tpu_torch.cli.main_both
   --late_fusion=MM_RCA --reverse --text_model=distilbert
@@ -19,7 +19,8 @@ unfolded; val evals run in eval mode under no_grad. Runs on CUDA;
 shrinks the 480x480 input for small drives. ``--hf_internal_dropout``
 switches on the DistilBERT tower's own p = 0.1 dropout sites (the dropout
 attention kernels). Flags of paths not ported yet raise
-NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device,
+NotImplementedError: another --late_fusion or --text_model (the port
+evaluates them in ``cli.test_both``), --wandb, --fsdp, --mesh_shape other than one device,
 RESUME (--model_path=.../RESUME, --resume_from, --resume_every_steps) and
 multi-host runs.
 """
@@ -41,7 +42,7 @@ from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.fusion.multimodal import (FusionModel, build_fusion_model,
-                                        check_config)
+                                        check_config, check_trainable)
 from ..train.engine import BATCH_KEYS, MetricsLogger, run_phase
 from ..train.loop import make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
@@ -89,6 +90,7 @@ def main(argv=None):
         raise SystemExit(1)
     cfg = fusion_config_from_args(args)
     check_config(cfg)
+    check_trainable(cfg)
     check_unported_flags(args)
     device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)

@@ -1,15 +1,20 @@
-"""Multimodal test-set evaluation CLI — the headline MM-RCA path.
+"""Multimodal test-set evaluation CLI — the seven late-fusion strategies.
 
 ``python -m garbage_classification_rca_tpu_torch.cli.test_both
   --late_fusion=MM_RCA --reverse --text_model=distilbert
   --model_path=<ckpt.pth> --dataset_folder_name=<test-root>``
-builds the fusion model, loads the reference all-heads checkpoint (or a
-BEST checkpoint written by the port's ``cli.main_both``), folds
+builds the fusion model of ``--late_fusion`` (gated by default; the
+DistilBERT, BERT or BART-large tower of ``--text_model``), loads the
+reference all-heads checkpoint (or a BEST checkpoint written by the
+port's ``cli.main_both``), folds
 the image tower's BatchNorm (eps 1e-3), casts the weights to the compute
 dtype, evaluates with eval=True, and writes the confusion PNG + report CSV
-under ``test_set_reports/<late_fusion>/``. Same flags as the JAX package's
-``cli/test_both.py``; one device (the mesh / multi-host branches are not
-ported yet). Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU.
+under ``test_set_reports/<late_fusion>/``. ``clip`` evaluates at exactly
+``--batch_size`` (its head is a Linear of that width; the padded tail
+batch keeps the pad hack from firing), every other strategy at
+``--eval_batch_size`` (128 by default). Same flags as the JAX package's
+``cli/test_both.py``; one device (the mesh / multi-host branches and
+orbax directories raise: not ported yet). Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from ..models.fusion.multimodal import (FusionConfig, FusionModel,
                                         load_fusion_model)
 from ..nn.fold import fold_batchnorm
 from ..train.engine import load_checkpoint
-from . import cli_device
+from . import check_eval_flags, cli_device
 
 BASE_PATH = "./test_set_reports"
 
@@ -46,6 +51,8 @@ def fusion_config_from_args(args) -> FusionConfig:
         drop_ratio=args.model_dropout,
         image_or_text_dropout_chance=args.image_text_dropout,
         img_prob_dropout=args.image_prob_dropout,
+        num_neurons_fc=args.num_neurons_FC,
+        batch_size=args.batch_size,
         reverse=args.reverse,
         features_only=args.features_only,
         cross_attention_only=args.cross_attention_only,
@@ -98,11 +105,8 @@ def evaluate(args):
         raise SystemExit(1)
     cfg = fusion_config_from_args(args)
     check_config(cfg)
+    check_eval_flags(args)
     device = resolve_device(cli_device())
-    if os.path.isdir(args.model_path):
-        raise SystemExit("orbax checkpoint directories are not read by the "
-                         "PyTorch port yet (ROADMAP.md); pass a reference "
-                         ".pth or a BEST checkpoint of the port's trainer")
     model = load_model(args.model_path, cfg, device)
     fold_batchnorm(model.image, 1e-3)   # EffNetV2 bn eps
     model.to(torch_compute_dtype(args.param_dtype or args.compute_dtype))
@@ -111,8 +115,11 @@ def evaluate(args):
                               extended_desc=args.extended_desc_val)
     print(f"Num of test images: {len(manifest)}")
     tok = get_tokenizer(args.text_model, vocab_dir=resolve_vocab_dir(args))
-    batch_size = max(1, min(args.eval_batch_size or MULTIMODAL_EVAL_BATCH,
-                            len(manifest)))
+    if cfg.strategy == "clip":
+        batch_size = cfg.batch_size
+    else:
+        batch_size = max(1, min(args.eval_batch_size
+                                or MULTIMODAL_EVAL_BATCH, len(manifest)))
     batcher = ImageTextBatcher(
         manifest, MULTIMODAL_IMAGE_SIZE, tokenizer=tok,
         seq_len=args.seq_len or DEFAULT_SEQ_LEN,

@@ -6,12 +6,13 @@
   --dataset_folder_name=<test-root>``
 Text comes from the filename stems (or the --extended_desc_val captions
 CSV), tokenized on the host; the encoder + head forward runs on the device
-(the fused post-norm block kernels where the shape fits). Reports land
+(the fused post-norm block kernels where the shape fits; BART-large runs
+no hand-written kernel). Reports land
 under ``test_set_reports/<text_model>/``. Same flags as the JAX package's
 ``cli/test_text.py``; one device: a ``--mesh_shape`` with a ``seq`` axis
 (sequence parallelism), multi-host runs and orbax checkpoint directories
 are not ported yet. Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the
-CPU. Text models: distilbert, bert, roberta.
+CPU. Text models: distilbert, bert, roberta, bart (eval batch 64).
 """
 
 from __future__ import annotations

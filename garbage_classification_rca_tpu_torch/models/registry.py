@@ -77,10 +77,11 @@ _TEXT_MODULES = {
     "distilbert": f"{_PKG}.text.distilbert",
     "bert": f"{_PKG}.text.bert",
     "roberta": f"{_PKG}.text.roberta",
+    "bart": f"{_PKG}.text.bart",
 }
 
 # names of the JAX package's registry that are still to port
-_UNPORTED_TEXT = ("bart", "gpt2", "mobilebert", "mobile_bert")
+_UNPORTED_TEXT = ("gpt2", "mobilebert", "mobile_bert")
 
 IMAGE_MODELS = tuple(_IMAGE_MODULES)
 TEXT_MODELS = tuple(_TEXT_MODULES) + _UNPORTED_TEXT

@@ -48,8 +48,11 @@ class DistilBertEncoder(nn.Module):
 def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
            attention_mask: torch.Tensor, *, train: bool = False,
            drop: Optional[core.HFDropout] = None,
-           fused_blocks: bool = True) -> torch.Tensor:
-    """-> last_hidden_state [B, L, 768]. `attention_mask` is int32 [B, L].
+           fused_blocks: bool = True, output_hidden_states: bool = False):
+    """-> last_hidden_state [B, L, 768], or (it, [embeddings LayerNorm
+    output, every layer's output]) with ``output_hidden_states`` (the
+    hierarchical fusion head taps entries 2 and 4). `attention_mask` is
+    int32 [B, L].
     ``train`` routes attention through the training kernels. `drop`: an
     optional ``core.HFDropout`` reproducing HF DistilBERT's internal
     train-mode dropout: embeddings output, attention probabilities, FFN
@@ -61,11 +64,13 @@ def encode(model: DistilBertEncoder, input_ids: torch.Tensor,
     h = model.ln_emb(h)
     if drop is not None:
         h = drop(h, DROPOUT)
+    hiddens = [h]
     for lp in model.layers:
         h = postnorm_layer(lp, h, attention_mask, HEADS, train=train,
                            drop=drop, attn_p=ATTN_DROPOUT, hidden_p=DROPOUT,
                            fused_blocks=fused_blocks)
-    return h
+        hiddens.append(h)
+    return (h, hiddens) if output_hidden_states else h
 
 
 def convert_encoder(sd) -> dict:

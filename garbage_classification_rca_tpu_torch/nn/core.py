@@ -118,6 +118,16 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return F.max_pool2d(x, window, stride, padding)
 
 
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: int = 0) -> torch.Tensor:
+    """NHWC average pool with torch AvgPool2d semantics (the padding counts
+    in the mean, the last partial window is dropped), summed in fp32 and
+    cast back, as the JAX package's ``avg_pool``. Returns NHWC."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).float(), window,
+                     window if stride is None else stride, padding)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> NC mean over the spatial axes, accumulated in fp32."""
     return x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)
@@ -225,6 +235,54 @@ class BatchNorm(nn.Module):
         shift = self.bias.float() - self.mean.float() * inv
         y = x.float() * inv[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
+
+
+class GRU(nn.Module):
+    """torch.nn.GRU's weights (one layer, gate order r, z, n) under the JAX
+    tree's names, in torch's layout: ``w_ih`` [3H, D], ``w_hh`` [3H, H];
+    torch's init, U(+-1/sqrt(H)). ``checkpoint/from_jax.py`` transposes
+    the JAX [D, 3H] / [H, 3H] weights into them."""
+
+    def __init__(self, d_in: int, d_hidden: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, h = generator, d_hidden
+        self.w_ih = nn.Parameter(_uniform((3 * h, d_in), h, g))
+        self.w_hh = nn.Parameter(_uniform((3 * h, h), h, g))
+        self.b_ih = nn.Parameter(_uniform((3 * h,), h, g))
+        self.b_hh = nn.Parameter(_uniform((3 * h,), h, g))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Scan the rows of x [T, D] in order from a zero state -> every
+        step's state [T, H]. The input projection of all steps is one
+        product; each step then adds its recurrent one."""
+        gi = linear(x, self.w_ih, self.b_ih)
+        w_hh, b_hh = self.w_hh.to(x.dtype), self.b_hh.to(x.dtype)
+        d = self.w_hh.shape[1]
+        h = x.new_zeros(d)
+        out = []
+        for t in range(x.shape[0]):
+            gh = torch.addmv(b_hh, w_hh, h)
+            r, z = torch.sigmoid(gi[t, :2 * d] + gh[:2 * d]).chunk(2)
+            n = torch.tanh(gi[t, 2 * d:] + r * gh[2 * d:])
+            h = (1 - z) * n + z * h
+            out.append(h)
+        return torch.stack(out)
+
+
+class Hadamard(nn.Module):
+    """The bimodal head's gated sum ``tanh(a * kernel1 + b * kernel2 +
+    bias)`` (the reference's ``Hadamard2``; kernels N(0, 1), bias 0)."""
+
+    def __init__(self, d: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel1 = nn.Parameter(torch.randn(d, generator=generator))
+        self.kernel2 = nn.Parameter(torch.randn(d, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, a, b):
+        return torch.tanh(a * self.kernel1 + b * self.kernel2 + self.bias)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 ``tiny_dataset`` fixture (``GC_RCA_PLATFORM=cpu``, fp32) with a
 reference-layout all-heads checkpoint synthesized from the torch replica
 ``tests/torch_refs/fusion_ref.FusionRef``. Its report CSV must be
-byte-identical to the one computed from FusionRef's own predictions (and,
-in the slow twin, to the JAX CLI's CSV)."""
+byte-identical to the one computed from FusionRef's own predictions on the
+same padded batches (MM_RCA, gated, clip at ``--batch_size=16``, bimodal;
+and, in the slow twin, to the JAX CLI's CSV)."""
 
 import glob
 import os
@@ -63,15 +64,20 @@ def checkpoint(tmp_path_factory):
     return ref, ckpt
 
 
-def _argv(ckpt, dataset):
-    return ["--late_fusion=MM_RCA", "--reverse", "--text_model=distilbert",
-            f"--model_path={ckpt}", f"--dataset_folder_name={dataset}",
-            f"--vocab_dir={VOCAB}", "--compute_dtype=float32",
-            "--eval_batch_size=8", "--data_workers=2"]
+def _argv(ckpt, dataset, strategy="MM_RCA"):
+    return [f"--late_fusion={strategy}", "--reverse",
+            "--text_model=distilbert", f"--model_path={ckpt}",
+            f"--dataset_folder_name={dataset}", f"--vocab_dir={VOCAB}",
+            "--compute_dtype=float32", "--eval_batch_size=8",
+            "--batch_size=16", "--data_workers=2"]
 
 
+@pytest.mark.parametrize("strategy", ["MM_RCA", "gated", "clip", "bimodal"])
 def test_port_cli_report_matches_fusion_ref(checkpoint, tiny_dataset,
-                                            tmp_path, monkeypatch):
+                                            tmp_path, monkeypatch, strategy):
+    """CLIP evaluates at --batch_size (16: one batch, 12 samples and 4
+    padding rows); bimodal's GRUs scan the rows of each padded batch of
+    8."""
     from garbage_classification_rca_tpu.data.images import (IMAGENET_MEAN,
                                                             IMAGENET_STD)
     from garbage_classification_rca_tpu.data.manifest import build_manifest
@@ -83,15 +89,16 @@ def test_port_cli_report_matches_fusion_ref(checkpoint, tiny_dataset,
     ref, ckpt = checkpoint
     _pil_route(monkeypatch)
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
-    name, got = _run_cli(port_cli.main, _argv(ckpt, tiny_dataset), tmp_path,
-                         monkeypatch, "port")
+    name, got = _run_cli(port_cli.main, _argv(ckpt, tiny_dataset, strategy),
+                         tmp_path, monkeypatch, "port")
+    batch_size = 16 if strategy == "clip" else 8
 
     b = ImageTextBatcher(build_manifest(str(tiny_dataset)), (480, 480),
                          tokenizer=get_tokenizer("distilbert",
                                                  vocab_dir=VOCAB),
                          seq_len=64, workers=2)
     preds, labels = [], []
-    for batch in b.iter_batches(8):
+    for batch in b.iter_batches(batch_size):
         x = (batch["image"].astype(np.float32) / 255.0 - IMAGENET_MEAN) \
             / IMAGENET_STD
         with torch.no_grad():
@@ -99,15 +106,15 @@ def test_port_cli_report_matches_fusion_ref(checkpoint, tiny_dataset,
                          torch.tensor(batch["attention_mask"].astype(
                              np.int64)),
                          torch.tensor(x.transpose(0, 3, 1, 2)),
-                         strategy="MM_RCA")
+                         strategy=strategy)
         valid = batch["valid"].astype(bool)
         preds.append(logits.numpy().argmax(-1)[valid])
         labels.append(batch["label"][valid])
     b.close()
     labels, preds = np.concatenate(labels), np.concatenate(preds)
     acc = 100.0 * float((labels == preds).mean())
-    out = tmp_path / "ref" / "MM_RCA"
-    generate_report_and_image(labels, preds, acc, str(out), "MM_RCA",
+    out = tmp_path / "ref" / strategy
+    generate_report_and_image(labels, preds, acc, str(out), strategy,
                               kind="both")
     assert (name, got) == _csv_bytes(str(tmp_path / "ref"))
 
@@ -136,4 +143,7 @@ def test_port_cli_exits_like_the_reference(tmp_path, monkeypatch):
         port_cli.main(["--model_path=x.pth", "--late_fusion=nope"])
     assert e.value.code == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(["--model_path=x.pth", "--late_fusion=gated"])
+        port_cli.main(["--model_path=x.pth", "--mesh_shape=data:2"])
+    with pytest.raises(ValueError, match="per-layer hidden states"):
+        port_cli.main(["--model_path=x.pth", "--late_fusion=hierarchical",
+                       "--text_model=bart"])

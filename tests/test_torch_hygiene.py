@@ -61,7 +61,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("kernels.transformer_block", "models.text.bert",
                 "models.text.roberta", "models.image.vit", "models.registry",
                 "cli.test_text", "cli.test_image", "utils.dtype",
-                "cli.main_text", "cli.main_image", "data.synonymize"):
+                "cli.main_text", "cli.main_image", "data.synonymize",
+                "models.text.bart"):
         assert f"'{pkg}{mod}'" in names, mod
 
 

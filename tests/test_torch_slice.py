@@ -152,11 +152,22 @@ def test_slice_eval_modality_removal_matches_jax(setup, monkeypatch, drop):
     _check(_port_logits(cfg, params, state, batch, **{drop: True}), want)
 
 
-@pytest.mark.parametrize("strategy,text", [("gated", "distilbert"),
-                                           ("MM_RCA", "bert")])
-def test_unported_configurations_raise(strategy, text):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmm.FusionModel(tmm.FusionConfig(strategy=strategy,
-                                         text_model_name=text))
+@pytest.mark.parametrize("strategy,text,train", [
+    ("MM_RCA", "bart", False), ("bimodal", "bart", False),
+    ("gated", "distilbert", True)])
+def test_unported_configurations_raise(strategy, text, train):
+    """What still raises: the pairs the JAX package refuses or cannot run
+    (MM-RCA and bimodal need a 768-d tower; BART gives 1024), and training
+    any strategy but MM-RCA."""
+    cfg = tmm.FusionConfig(strategy=strategy, text_model_name=text)
+    if train:
+        from garbage_classification_rca_tpu_torch.nn.core import Key
+
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmm.forward(cfg, None, (None, None, None), train=True,
+                        key=Key(0))
+    else:
+        with pytest.raises(ValueError, match="768-d text tower"):
+            tmm.FusionModel(cfg)
     with pytest.raises(ValueError, match="unknown"):
         tmm.FusionModel(tmm.FusionConfig(strategy="nope"))

@@ -293,8 +293,7 @@ def test_port_cli_exits_and_unported_flags(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["--model_path=x.pth", "--text_model=nope"])
     assert e.value.code == 1
-    for flags in (["--text_model=gpt2"], ["--text_model=bart"],
-                  ["--text_model=mobilebert"],
+    for flags in (["--text_model=gpt2"], ["--text_model=mobilebert"],
                   ["--mesh_shape=data:2,seq:4"],
                   ["--param_dtype=float32", "--compute_dtype=bfloat16"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

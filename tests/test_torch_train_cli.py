@@ -137,7 +137,9 @@ def test_port_trainer_matches_jax_trainer(inputs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,match", [
     ("--wandb", "wandb"), ("--fsdp", "fsdp"), ("--mesh_shape=data:2", "mesh_shape"),
     ("--resume_every_steps=5", "RESUME"),
-    ("--model_path=model_weights/x/RESUME", "RESUME")])
+    ("--model_path=model_weights/x/RESUME", "RESUME"),
+    ("--late_fusion=gated", "queue 1 item 9"),
+    ("--text_model=bert", "queue 1 item 9")])
 def test_unported_train_flags_raise(monkeypatch, flag, match):
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=match):
