@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~6 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~7 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -137,7 +137,26 @@ Phases, each of which fails the run when it fails:
      --late_fusion=clip on BEST files written from random port models
      (``evaluate()`` with its launches, ``main()``), and ``cli.test_text
      --text_model=bart`` ``evaluate()`` on a
-     ``BartForSequenceClassification``-layout ``.pth`` of the same BART.
+     ``BartForSequenceClassification``-layout ``.pth`` of the same BART;
+ 12. VLM eval: BLIP-2 (blip2-opt-2.7b: EVA ViT-g 39 layers of 1408,
+     Q-Former 12 of 768, OPT-2.7B 32 of 2560; 3.74 B parameters) at full
+     width and depth on random seeded weights, adapters with B != 0, a
+     Q-Former classifier, fp32 and bf16 copies, over seeded 224x224 images
+     and hash-tokenized knowledge prompts left-padded to 100: K2 at the
+     path's two shapes (EVA 16 x 257 x 1408, 16 heads of 88, unmasked; OPT
+     16 x 132 x 2560, 32 heads of 80, causal with the left-pad mask; with
+     a fully masked sample and a single-key one) against its plain
+     version in fp32 and bf16, timed beside the plain version, SDPA with
+     the equivalent additive bias and the bound; the fp32 and bf16 kernel
+     paths against the plain path (next-token logits over the four answer
+     tokens, classifier logits) with K2's launches counted (71 a BLIP-2
+     batch, 39 a Q-Former batch); BLIP-2 eval at batch 16 and 8 and the
+     Q-Former eval at 16 through ``vlm_eval`` with the counters zeroed
+     before and read after: samples/s, p50, peak memory, device ms, idle
+     share, K2's share, the EVA / Q-Former / OPT split by CUDA events;
+     then ``cli.blip2_test`` and ``cli.qformer_test`` ``main()`` on a 4 x 4
+     JPEG tree from the phase's weights written as a peft-wrapped HF
+     ``.pth`` and a MultimodalClassifier ``.pth``.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -207,6 +226,12 @@ Tolerances (kernel vs plain version, same inputs, same card):
     runs no kernel, bf16 against fp32 as phase 10's towers
     (``bf16_vs_fp32``), the CLIP head without the relative bar
     (``_kernel_less_check`` says why).
+  * VLM eval (phase 12): K2 at head dims 88 / 80 to the CUDA-core K2's
+    bars (fp32 1e-5 + 1e-5|x|, bf16 one ulp + 1e-3); the fp32 kernel path
+    against the plain path within 1e-4 of the largest |logit| (the
+    next-token logits come out of a 50272-wide tied lm head over 32 + 39
+    layers: an absolute 1e-4 has no scale); bf16 as phase 11
+    (``fusion_agreement``: 0.05, and 0.98 above the noise floor).
   * conv eval (phase 10): fp32 folded against unfolded, max |logit
     difference| <= 1e-4 and equal argmax (the fp32 eval bar); bf16 against
     the fp32 model, max |d| <= 0.05 and <= 5% of the largest |logit|, and
@@ -1888,6 +1913,8 @@ def plain_versions():
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
     from garbage_classification_rca_tpu_torch.models.image import vit
     from garbage_classification_rca_tpu_torch.models.text import encoder_common
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2_vision
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as vlm_opt
 
     def plain_dropout(q, k, v, *, heads, key, p, scale=0.0, mask=None,
                       causal=False):
@@ -1906,6 +1933,8 @@ def plain_versions():
              (encoder_common, "mha_flash_train_dropout", plain_dropout),
              (encoder_common, "mha", mha_fused.mha_reference),
              (encoder_common, "mha_flash_train", mha_fused.mha_reference),
+             (blip2_vision, "mha", mha_fused.mha_reference),
+             (vlm_opt, "mha", mha_fused.mha_reference),
              (multimodal, "rca_fused", rca_fused.rca_fused_reference),
              (multimodal, "rca_fused_trainable",
               rca_fused.rca_fused_reference))
@@ -2771,12 +2800,13 @@ def _write_jpeg_tree(root, n_train, n_val, seed, size=480):
                     quality=90)
 
 
-def drive_eval_main(cli, argv, acc):
+def drive_eval_main(cli, argv, acc=None):
     """The eval CLI's ``main(argv)`` end to end, its report step included,
     in the current directory: (ok, csv name). Its report CSV must be the
     only one under ``test_set_reports/``, carry `acc` (``evaluate()``'s
-    accuracy on the same files, in %) in its name and in its "accuracy"
-    column, and ``main`` must return `acc`."""
+    accuracy on the same files, in %; None: the accuracy ``main``
+    returns) in its name and in its "accuracy" column, and ``main`` must
+    return `acc`."""
     import csv
     import glob
     import os
@@ -2784,6 +2814,7 @@ def drive_eval_main(cli, argv, acc):
 
     shutil.rmtree("test_set_reports", ignore_errors=True)
     got = cli.main(argv)
+    acc = got if acc is None else acc
     csvs = glob.glob("test_set_reports/*/*_report_test_set_acc_*.csv")
     ok = len(csvs) == 1 and got == acc
     name = os.path.basename(csvs[0]) if csvs else None
@@ -4530,6 +4561,527 @@ def check_fusion_clis(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the VLM eval path (BLIP-2 / Q-Former: EVA ViT-g, Q-Former,
+# OPT-2.7B; K2 at head dims 88 and 80)
+# ---------------------------------------------------------------------------
+
+VLM_BATCH = 16          # cli.blip2_test / cli.qformer_test's --eval_batch_size
+VLM_BENCH_BATCH = 8     # bench.py bench_blip2's batch
+VLM_BATCHES = 4         # timed batches of VLM_BATCH (8 of VLM_BENCH_BATCH)
+VLM_K2 = {"blip2": 71, "qformer": 39}   # K2 a batch: 39 EVA + 32 OPT layers
+VLM_CLASSES = ("black", "blue", "green", "ttr")
+VLM_ITEMS = ("coffee cup", "water bottle", "banana peel", "battery pack",
+             "greasy pizza box", "glass jar", "paint can", "old phone",
+             "newspaper", "apple core", "styrofoam plate", "tin can")
+
+
+class SyntheticVLMBatcher:
+    """``cli.blip2_common.Blip2Batcher`` stand-in: seeded uint8 224x224
+    images and the knowledge prompt around random item words, tokenized
+    by the OPT hash tokenizer and left-padded to 100, all made before the
+    run; ``batches(size)`` cuts the same samples into batches of `size`."""
+
+    def __init__(self, n, tokenizer, seed):
+        import numpy as np
+
+        from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+            left_pad)
+        from garbage_classification_rca_tpu_torch.models.vlm.prompts import (
+            MAX_PROMPT_TOKENS, build_prompt)
+
+        rng = np.random.default_rng(seed)
+        self.m = list(range(n))
+        rows = [left_pad(tokenizer.encode_one(build_prompt(" ".join(
+            rng.choice(VLM_ITEMS, rng.integers(1, 4)))),
+            MAX_PROMPT_TOKENS)[0], MAX_PROMPT_TOKENS, tokenizer.pad_id)
+            for _ in range(n)]
+        self.samples = {
+            "image": rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+            "input_ids": np.asarray([r[0] for r in rows], np.int32),
+            "attention_mask": np.asarray([r[1] for r in rows], np.int32),
+            "label": rng.integers(0, 4, n).astype(np.int32),
+            "valid": np.ones(n, np.int32)}
+
+    def batch(self, start, size):
+        return {k: v[start:start + size] for k, v in self.samples.items()}
+
+    def iter_batches(self, batch_size, *, shuffle=False, **_):
+        assert not shuffle and len(self.m) % batch_size == 0
+        for start in range(0, len(self.m), batch_size):
+            yield self.batch(start, batch_size)
+
+
+def _vlm_answer_tokens(tok):
+    """``answer_first_token_table`` of the four classes under `tok`."""
+    import types
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_train import (
+        answer_first_token_table)
+    from garbage_classification_rca_tpu_torch.models.vlm.prompts import (
+        FOLDER_TO_ANSWER)
+
+    stub = types.SimpleNamespace(answer_token_ids={
+        c: tok.encode_one(FOLDER_TO_ANSWER[c], 4)[0] for c in VLM_CLASSES})
+    return answer_first_token_table(stub, VLM_CLASSES)
+
+
+def _vlm_step(what, model, aft, dtype):
+    from garbage_classification_rca_tpu_torch.cli import blip2_train
+    from garbage_classification_rca_tpu_torch.cli import qformer_train
+
+    if what == "blip2":
+        return blip2_train.make_eval_step(model, aft, dtype)
+    return qformer_train.make_eval_step(model, dtype)
+
+
+def _vlm_logits(what, model, batch, aft, dtype, device):
+    """fp32 [B, 4] class logits of one host batch: the four answer tokens'
+    next-token logits (blip2), the classifier's (qformer)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        normalize_clip)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    with torch.inference_mode():
+        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        x = normalize_clip(dev["image"], dtype)
+        if what == "qformer":
+            return model.classifier(
+                blip2.qformer_cls_feature(model, x).float()).float()
+        out = blip2.next_token_logits(model, x, dev["input_ids"],
+                                      dev["attention_mask"])
+        return out.float()[:, torch.as_tensor(aft, device=device).long()]
+
+
+def vlm_split(model, batch, device):
+    """One bf16 BLIP-2 batch's ``next_token_logits`` split by CUDA events
+    that forward hooks record around the EVA tower and the Q-Former: EVA,
+    Q-Former, and the rest (projection, OPT decoder, lm head), in ms of
+    the device's timeline, after a warm-up call."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        normalize_clip)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    ev = {}
+
+    def mark(name):
+        def hook(*_):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+        return hook
+
+    hooks = [model.vision.register_forward_pre_hook(mark("start")),
+             model.vision.register_forward_hook(mark("eva")),
+             model.qformer.register_forward_hook(mark("qformer"))]
+    try:
+        with torch.inference_mode():
+            dev = {k: torch.from_numpy(v).to(device)
+                   for k, v in batch.items()}
+            x = normalize_clip(dev["image"], torch.bfloat16)
+            for _ in range(2):
+                blip2.next_token_logits(model, x, dev["input_ids"],
+                                        dev["attention_mask"])
+                mark("end")()
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"eva_ms": ev["start"].elapsed_time(ev["eva"]),
+            "qformer_ms": ev["eva"].elapsed_time(ev["qformer"]),
+            "opt_ms": ev["qformer"].elapsed_time(ev["end"])}
+
+
+def _k2_flops(b, n, d, mask, causal):
+    """QK^T and PV multiply-adds x 2 over the keys each query attends to:
+    every key (no mask), its valid keys at or before it (causal + mask)."""
+    import torch
+
+    if not causal:
+        return 4 * b * n * n * d
+    m = mask.bool().cpu()
+    tri = torch.ones((n, n), dtype=torch.bool).tril()
+    pairs = int((tri[None] & m[:, None, :]).sum())
+    return 4 * pairs * d
+
+
+def check_vlm_kernels(device, path_mask, results):
+    """K2 at the path's two shapes, batch VLM_BATCH: the EVA tower's
+    16 heads of 88 over 257 tokens unmasked (and once with a key mask
+    holding a fully masked sample and one with a single valid key), the
+    OPT decoder's 32 heads of 80 over 132 tokens, causal, with the path's
+    mask (32 query tokens + the left-padded prompt) and with such edge
+    samples; fp32 and bf16 against ``mha_reference`` (1e-5 + 1e-5|x|; one
+    ulp + 1e-3), the bf16 call timed as phase 3 times K2 (a CUDA graph of
+    20 launches, median of 5) beside the plain version, SDPA with the
+    equivalent additive bias and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 250)
+    ok_all, rows = True, []
+    shapes = {"eva": (VLM_BATCH, 257, 1408, 16, False, None),
+              "opt": (VLM_BATCH, 132, 2560, 32, True, path_mask)}
+    for name, (b, n, d, h, causal, m) in shapes.items():
+        edge = torch.ones((b, n), dtype=torch.int32)
+        if m is not None:
+            edge = m.cpu().clone()
+        edge[0] = 0                                   # every key a pad
+        edge[1] = 0
+        edge[1, -1] = 1                               # one valid key
+        edge = edge.to(device)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, n, d), generator=gen).to(device, dtype)
+                       for _ in range(3))
+            for label, mm in (("path", m), ("edge", edge)):
+                plan = K.mha_plan(q.shape, h, dtype)
+                got = K.mha(q, k, v, heads=h, mask=mm, causal=causal)
+                torch.cuda.synchronize()
+                want = K.mha_reference(q, k, v, heads=h, mask=mm,
+                                       causal=causal)
+                err, ok = max_err_ok(got, want, dtype, "mha")
+                ok &= plan.route == "cuda_core" and plan.bwd_route == "none"
+                ok_all &= ok
+                errs[f"{str(dtype)[6:]}_{label}"] = err
+                print(f"  mha cuda_core {str(dtype)[6:]:8s} {name} B={b} "
+                      f"N={n} D={d} H={h} (head dim {d // h}) causal="
+                      f"{causal!s:5s} mask={label}: max|d|={err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+        # the path's call in bf16, timed
+        q, k, v = (torch.randn((b, n, d), generator=gen).to(
+            device, torch.bfloat16) for _ in range(3))
+        ms = time_ms(lambda: K.mha(q, k, v, heads=h, mask=m, causal=causal))
+        plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=m,
+                                                causal=causal))[0]
+        allowed = torch.ones((b, n, n), dtype=torch.bool, device=device)
+        if m is not None:
+            allowed &= m.bool()[:, None, :]
+        if causal:
+            allowed &= torch.ones((n, n), dtype=torch.bool,
+                                  device=device).tril()[None]
+        bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
+        rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+        library = time_ms(lambda: F.scaled_dot_product_attention(
+            rs(q), rs(k), rs(v), attn_mask=bias))[0]
+        flops = _k2_flops(b, n, d, m, causal)
+        nbytes = 4 * q.numel() * q.element_size() + (
+            m.numel() * 4 if m is not None else 0)
+        bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(bound_ops, bound_bytes)
+        rows.append({"tower": name, "shape": [b, n, d], "heads": h,
+                     "head_dim": d // h, "causal": causal,
+                     "masked": m is not None, "ms": ms[0],
+                     "ms_min_max": ms[1:], "plain_ms": plain,
+                     "library_ms": library, "bound_ms": bound,
+                     "bound_by": "operations" if bound_ops >= bound_bytes
+                     else "bytes", "share_of_bound": bound / ms[0],
+                     "tflops": flops / ms[0] / 1e9, "max_abs_err": errs})
+        print(f"  mha bf16 {name} {b}x{n}x{d}, {h} heads: {ms[0]:.4f} ms "
+              f"({ms[1]:.4f}-{ms[2]:.4f}), {flops / ms[0] / 1e9:.2f} "
+              f"TFLOP/s; plain {plain:.4f} ms, sdpa (additive bias) "
+              f"{library:.4f} ms, bound {bound:.4f} ms "
+              f"({rows[-1]['bound_by']}); share of the bound "
+              f"{bound / ms[0]:.3f}", flush=True)
+    results["vlm_k2"] = rows
+    return ok_all
+
+
+def check_vlm_eval(device, results):
+    """Full-width, full-depth BLIP-2 (blip2-opt-2.7b) on random weights
+    from fixed seeds, adapters with B != 0 and a Q-Former classifier, in
+    fp32 and bf16: K2 at its two shapes (``check_vlm_kernels``); the fp32
+    kernel path against the plain path (TF32 off) on one batch of
+    VLM_BATCH, next-token class logits and classifier logits within 1e-4
+    of the largest |logit|, with K2's launches counted (71 / 39); the bf16
+    kernel path against the plain path (``fusion_agreement``, the fp32
+    plain logits its truth); then BLIP-2 eval at batch 16 and 8 and the
+    Q-Former eval at 16 through ``vlm_eval`` with the counters zeroed
+    before and read after: samples/s, p50, peak memory, a profile (device
+    ms, idle share, K2's ms) and the EVA / Q-Former / OPT split of a batch
+    by CUDA events. The bf16 model is kept for the CLIs' checkpoint."""
+    import copy
+    import gc
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        blip2_config, vlm_eval)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory held at the start: "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB",
+          flush=True)
+    cfg = blip2_config()
+    m32 = blip2.build_model(cfg, device, lora=True, classifier=True)
+    blip2.init_(m32, SEED + 240)
+    blip2.init_lora_(m32.lora, SEED + 241, b_std=0.01)
+    blip2.init_classifier_(m32.classifier, SEED + 242)
+    m16 = copy.deepcopy(m32).cast_(torch.bfloat16)
+    n_params = sum(t.numel() for t in m32.parameters())
+    tok = get_tokenizer("opt")
+    aft = _vlm_answer_tokens(tok)
+    data = SyntheticVLMBatcher(VLM_BATCHES * VLM_BATCH, tok, SEED + 243)
+    first = data.batch(0, VLM_BATCH)
+    print(f"  BLIP-2 (blip2-opt-2.7b) {n_params / 1e9:.3f} B parameters "
+          f"with the adapters and the classifier, fp32 and bf16 copies, "
+          f"and {len(data.m)} samples in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # OPT's mask on the path: the full model's 32 query tokens, then the
+    # left-padded prompt
+    n_query = blip2.Blip2Config().qformer.n_query
+    path_mask = torch.cat([torch.ones((VLM_BATCH, n_query),
+                                      dtype=torch.int32),
+                           torch.from_numpy(first["attention_mask"])], 1)
+    ok = check_vlm_kernels(device, path_mask.to(device), results)
+
+    out, total = {"parameters": n_params, "k2": results["vlm_k2"]}, {}
+    for what in ("blip2", "qformer"):
+        _zero_counters()
+        lk = _vlm_logits(what, m32, first, aft, torch.float32, device)
+        ran = _read_counters() == _want_launches(mha=VLM_K2[what])
+        with plain_versions():
+            truth = _vlm_logits(what, m32, first, aft, torch.float32, device)
+        d32 = float((lk - truth).abs().max())
+        rel = d32 / float(truth.abs().max())
+        good = (ran and rel <= 1e-4 and bool(torch.isfinite(lk).all())
+                and tuple(lk.shape) == (VLM_BATCH, 4))
+        _zero_counters()
+        lk16 = _vlm_logits(what, m16, first, aft, torch.bfloat16, device)
+        ran16 = _read_counters() == _want_launches(mha=VLM_K2[what])
+        with plain_versions():
+            lp16 = _vlm_logits(what, m16, first, aft, torch.bfloat16,
+                               device)
+        agree_ok, agr = fusion_agreement(lk16, lp16, truth)
+        good &= ran16 and agree_ok and bool(torch.isfinite(lk16).all())
+        ok &= good
+        out[f"{what}_checks"] = {"fp32_max_logit_diff": d32,
+                                 "fp32_relative": rel,
+                                 "fp32_max_abs_logit":
+                                     float(truth.abs().max()),
+                                 "bf16": agr}
+        print(f"  {what}: fp32 kernel vs plain max|d|={d32:.3e} "
+              f"({rel:.2e} of max|logit| {float(truth.abs().max()):.3e}), "
+              f"K2 {VLM_K2[what]} launches a batch; bf16 kernel vs plain "
+              f"max|d|={agr['max_logit_diff']:.3e}, agreement "
+              f"{agr['agreement']} above the floor {agr['noise_floor']:.3e} "
+              f"({agr['samples'] - agr['excluded']} of {agr['samples']}; "
+              f"all {agr['agreement_all']:.4f}), bf16 vs fp32 max|d|="
+              f"{agr['bf16_vs_fp32']:.3e} {'ok' if good else 'FAIL'}",
+              flush=True)
+
+    del m32                        # the throughput runs hold bf16 alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, bs in (("blip2", VLM_BATCH), ("blip2", VLM_BENCH_BATCH),
+                     ("qformer", VLM_BATCH)):
+        step = _vlm_step(what, m16, aft, torch.bfloat16)
+        n_batches = len(data.m) // bs
+        vlm_eval(step, data, bs, device)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _zero_counters()
+        _, _, preds, stats = vlm_eval(step, data, bs, device)
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        peak = torch.cuda.max_memory_allocated(device)
+        want = _want_launches(mha=VLM_K2[what] * n_batches)
+        good = launches == want and len(preds) == len(data.m)
+        prof = profile_step(step, data.batch(0, bs), device, reps=2)
+        k2_ms = prof["by_kind_ms"].get("mha kernel", 0.0)
+        split = vlm_split(m16, data.batch(0, bs), device) \
+            if what == "blip2" else None
+        ok &= good
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        out[f"{what}_{bs}"] = {
+            "batch": bs, "batches": n_batches,
+            "samples_per_s": stats["samples_per_s"],
+            "p50_batch_ms": stats["p50_step_s"] * 1e3,
+            "peak_mem_gib": peak / 2**30,
+            "device_ms_per_batch": prof["device_ms_per_batch"],
+            "idle_share": prof["idle_share"], "k2_ms_per_batch": k2_ms,
+            "k2_share": k2_ms / prof["device_ms_per_batch"],
+            "by_kind_ms": prof["by_kind_ms"], "split": split,
+            "launches": {k: v for k, v in launches.items() if v}}
+        split_s = (f"; split of one batch: EVA {split['eva_ms']:.2f} ms, "
+                   f"Q-Former {split['qformer_ms']:.2f} ms, OPT "
+                   f"{split['opt_ms']:.2f} ms" if split else "")
+        print(f"  {what} eval {n_batches} x {bs}: {stats['samples_per_s']:.1f}"
+              f" samples/s, p50 {stats['p50_step_s'] * 1e3:.2f} ms, peak "
+              f"{peak / 2**30:.2f} GiB, device "
+              f"{prof['device_ms_per_batch']:.2f} ms a batch (idle "
+              f"{prof['idle_share']:.3f}), K2 {k2_ms:.2f} ms "
+              f"({k2_ms / prof['device_ms_per_batch']:.1%}); launches "
+              f"{out[f'{what}_{bs}']['launches']} (want "
+              f"{ {k: v for k, v in want.items() if v} }){split_s} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    results["vlm_eval"] = out
+    results["vlm_eval_launches"] = total
+    results["vlm_model"] = m16
+    results["vlm_seconds"] = time.perf_counter() - t0
+    print(f"  vlm_eval launches over the three runs: "
+          f"{ {k: v for k, v in total.items() if v} }; in "
+          f"{results['vlm_seconds']:.1f} s", flush=True)
+    return ok
+
+
+def blip2_hf_state_dict(model):
+    """The port model's weights as a peft-wrapped HF
+    ``Blip2ForConditionalGeneration`` state dict on the host, in bf16: the
+    layout ``models.vlm.blip2.convert_torch`` reads (``base_model.model.``
+    prefixes, ``.base_layer`` names, ``lora_A`` [r, in] / ``lora_B``
+    [out, r]), the tied lm head included."""
+    import torch
+
+    sd = {}
+
+    def put(key, t):
+        sd["base_model.model." + key] = t.detach().to(
+            "cpu", torch.bfloat16).contiguous()
+
+    def lin(key, m):
+        put(key + ".weight", m.w)
+        put(key + ".bias", m.b)
+
+    def ln(key, m):
+        put(key + ".weight", m.scale)
+        put(key + ".bias", m.bias)
+
+    def attn(pre, a):
+        for leaf, m in (("attention.query", a.q), ("attention.key", a.k),
+                        ("attention.value", a.v), ("output.dense", a.out)):
+            lin(pre + leaf, m)
+        ln(pre + "output.LayerNorm", a.ln)
+
+    v = model.vision
+    put("vision_model.embeddings.class_embedding", v.class_emb[None, None])
+    put("vision_model.embeddings.position_embedding", v.pos_emb[None])
+    put("vision_model.embeddings.patch_embedding.weight", v.patch_emb.w)
+    put("vision_model.embeddings.patch_embedding.bias", v.patch_emb.b)
+    for i, lay in enumerate(v.layers):
+        pre = f"vision_model.encoder.layers.{i}."
+        ln(pre + "layer_norm1", lay.ln1)
+        lin(pre + "self_attn.qkv", lay.qkv)
+        lin(pre + "self_attn.projection", lay.proj)
+        ln(pre + "layer_norm2", lay.ln2)
+        lin(pre + "mlp.fc1", lay.fc1)
+        lin(pre + "mlp.fc2", lay.fc2)
+    ln("vision_model.post_layernorm", v.post_ln)
+    qf = model.qformer
+    put("query_tokens", qf.query_tokens[None])
+    ln("qformer.layernorm", qf.ln_emb)
+    for i, lay in enumerate(qf.layers):
+        pre = f"qformer.encoder.layer.{i}."
+        attn(pre + "attention.", lay.att)
+        if lay.cross is not None:
+            attn(pre + "crossattention.", lay.cross)
+        lin(pre + "intermediate_query.dense", lay.fc1_q)
+        lin(pre + "output_query.dense", lay.fc2_q)
+        ln(pre + "output_query.LayerNorm", lay.ln_ffn_q)
+    lin("language_projection", model.projection)
+    o, dec = model.opt, "language_model.model.decoder."
+    put(dec + "embed_tokens.weight", o.embed_tokens.w)
+    put(dec + "embed_positions.weight", o.embed_positions.w)
+    ln(dec + "final_layer_norm", o.final_ln)
+    for i, lay in enumerate(o.layers):
+        pre = f"{dec}layers.{i}."
+        ln(pre + "self_attn_layer_norm", lay.ln1)
+        for name in ("q", "k"):
+            proj = f"{pre}self_attn.{name}_proj."
+            lin(proj + "base_layer", getattr(lay, name))
+            pair = getattr(model.lora[str(i)], name)
+            put(proj + "lora_A.default.weight", pair.a.t())
+            put(proj + "lora_B.default.weight", pair.b.t())
+        lin(pre + "self_attn.v_proj", lay.v)
+        lin(pre + "self_attn.out_proj", lay.out)
+        ln(pre + "final_layer_norm", lay.ln2)
+        lin(pre + "fc1", lay.fc1)
+        lin(pre + "fc2", lay.fc2)
+    sd["base_model.model.language_model.lm_head.weight"] = \
+        sd["base_model.model." + dec + "embed_tokens.weight"]
+    return sd
+
+
+def check_vlm_clis(device, results):
+    """``cli.blip2_test`` and ``cli.qformer_test`` ``main()`` at full width
+    on a generated 4 x 4 JPEG tree, from the phase's bf16 weights written
+    as a peft-wrapped HF ``.pth`` (``blip2_hf_state_dict``) and, for the
+    Q-Former, its classifier as a MultimodalClassifier ``.pth``: K2 71 /
+    39 launches (one batch of 16), the report CSV (``drive_eval_main``)."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (blip2_test,
+                                                          qformer_test)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_vlm_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model = results.pop("vlm_model")
+    cwd = os.getcwd()
+    ok, out, t1 = True, {}, time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 16, SEED + 260,
+                         size=320)
+        blip = os.path.join(work, "BLIP2_epoch_1_acc_0.5.pth")
+        torch.save(blip2_hf_state_dict(model), blip)
+        clf = os.path.join(work, "Classifier_epoch_1_acc_0.5.pth")
+        torch.save({"classifier.weight": model.classifier.w.detach().cpu(),
+                    "classifier.bias": model.classifier.b.detach().cpu()},
+                   clf)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t0
+        print(f"  the JPEG tree and the .pth files "
+              f"({os.path.getsize(blip) / 2**30:.2f} GiB) in {save_s:.1f} s",
+              flush=True)
+        os.chdir(work)
+        for cli, extra in ((blip2_test, []),
+                           (qformer_test, [f"--classifier_weights={clf}"])):
+            name = cli.__name__.rsplit(".", 1)[-1]
+            argv = [f"--model_path={blip}", "--dataset_folder_name="
+                    "garbage_Val"] + extra
+            _zero_counters()
+            t0 = time.perf_counter()
+            main_ok, report = drive_eval_main(cli, argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _read_counters()
+            what = "blip2" if cli is blip2_test else "qformer"
+            good = main_ok and launches == _want_launches(mha=VLM_K2[what])
+            print(f"  cli.{name} on 16 JPEGs in {secs:.1f} s (the .pth "
+                  f"read included): launches "
+                  f"{ {k: v for k, v in launches.items() if v} } "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"seconds": secs, "report": report, "ok": good}
+            ok &= good
+        out["save_s"] = save_s
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_seconds"] = results["vlm_seconds"] + time.perf_counter() - t1
+    print(f"  phase 12 in {out['phase_seconds']:.1f} s", flush=True)
+    results["vlm_clis"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -4594,7 +5146,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/11] device", flush=True)
+    print("[1/12] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4604,7 +5156,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/11] build", flush=True)
+    print("[2/12] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -4616,7 +5168,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/11] kernels vs plain versions", flush=True)
+    print("[3/12] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -4636,38 +5188,43 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/11] MM-RCA eval path",
+            ("[4/12] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/11] MM-RCA train path: full-width train step",
+            ("[5/12] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/11] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/12] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/11] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/12] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/11] image eval path: ViT-B/16",
+            ("[7/12] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/11] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/12] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/11] text train path: DistilBERT and BERT-base with "
+            ("[8/12] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/11] image train path: ViT-B/16",
+            ("[9/12] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/11] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/12] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/11] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/12] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/11] conv image eval CLI: cli.test_image "
+            ("[10/12] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/11] fusion eval: gated, classic, normalized, clip, "
+            ("[11/12] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/11] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/12] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
-             lambda: check_fusion_clis(device, results))):
+             lambda: check_fusion_clis(device, results)),
+            ("[12/12] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+             "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
+             lambda: check_vlm_eval(device, results)),
+            ("[12/12] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+             lambda: check_vlm_clis(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -4689,7 +5246,8 @@ def main() -> int:
     # CUDA-core K7a / K7b at seq 512), the image train path for the bf16
     # tensor-core K4a / K4b; every row also reads the late-fusion eval
     # path ("fusion_eval": K2 on the DistilBERT / BERT towers, K1 on the
-    # BERT MM-RCA run)
+    # BERT MM-RCA run) and the VLM eval path ("vlm_eval": K2 on the CUDA
+    # cores at head dims 88 and 80, 71 a BLIP-2 batch, 39 a Q-Former one)
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -4703,7 +5261,8 @@ def main() -> int:
                "image_train": results["image_train_launches"],
                "train_hf_dropout": results["train_hf_dropout_launches"],
                "conv_eval": results["conv_eval_launches"],
-               "fusion_eval": results["fusion_eval_launches"]}
+               "fusion_eval": results["fusion_eval_launches"],
+               "vlm_eval": results["vlm_eval_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -4728,6 +5287,8 @@ def main() -> int:
         if counter != key:
             row["cuda_cores_launches_by_path"] = {p: c[key]
                                                   for p, c in by_path.items()}
+        if key == "mha":
+            row["vlm_shapes"] = results["vlm_k2"]
         if key in ("rca_fused", "rca_fused_bwd"):
             row["per_sample_launches_by_path"] = {
                 p: c[key + "_per_sample"] for p, c in by_path.items()}
@@ -4750,6 +5311,8 @@ def main() -> int:
                       "conv_cli": results["conv_cli"],
                       "fusion_eval": results["fusion_eval"],
                       "fusion_clis": results["fusion_clis"],
+                      "vlm_eval": results["vlm_eval"],
+                      "vlm_clis": results["vlm_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

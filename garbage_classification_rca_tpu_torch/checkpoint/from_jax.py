@@ -1,7 +1,8 @@
 """Load a parameter tree in the JAX package's layout into a port model.
 
 The single path for weights, for every model of the port (the fusion
-model, the text classifiers, ViT): the tests hand over a JAX model's
+model, the text classifiers, ViT, BLIP-2 with its adapters and the
+Q-Former classifier: ``load_blip2_tree``): the tests hand over a JAX model's
 ``(params, state)`` converted to numpy, and the port's ``convert_torch``
 functions build the same numpy tree from a reference ``.pth`` first.
 
@@ -115,3 +116,27 @@ def export_jax_tree(model: nn.Module) -> Dict[str, np.ndarray]:
             a = a.T
         out[name] = a
     return out
+
+
+def load_blip2_tree(model: nn.Module, params, lora=None, trainable=None
+                    ) -> nn.Module:
+    """Fill a ``models.vlm.blip2.Blip2Model`` from the JAX package's BLIP-2
+    trees, as numpy arrays: ``params`` (vision, qformer, projection, opt),
+    the str-keyed ``lora`` adapters ({"0": {"q": {"a", "b"}, "k": ...},
+    ...}) and the Q-Former ``trainable`` tree ({"classifier": {"w",
+    "b"}}). Each part given fills its module whole and uses every leaf;
+    a part not given is left as it is; a part for a slot the model lacks
+    raises."""
+    if set(params) != {"vision", "qformer", "projection", "opt"}:
+        raise ValueError(f"BLIP-2 params hold {sorted(params)}")
+    parts = dict(params)
+    if lora is not None:
+        parts["lora"] = lora
+    if trainable is not None:
+        parts.update(trainable)
+    for name, tree in parts.items():
+        sub = getattr(model, name, None)
+        if sub is None:
+            raise ValueError(f"the model has no {name!r} for the tree")
+        load_jax_tree(sub, tree, allow_skipped=())
+    return model

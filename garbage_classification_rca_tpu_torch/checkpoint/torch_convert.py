@@ -46,5 +46,8 @@ def convert_checked(convert_fn, sd, what: str, **kw):
 
 
 def subdict(sd, prefix: str):
-    """Prefix-stripped sub-dict."""
-    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    """Prefix-stripped sub-dict. A state dict that records its reads
+    (``child``, as the JAX package's ``TrackingDict``) hands out a child
+    whose reads it records too."""
+    out = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd.child(prefix, out) if hasattr(sd, "child") else out

@@ -69,11 +69,11 @@ def load_unimodal_model(mdef, path: str, what: str, device):
     return model.to(device).eval()
 
 
-def check_eval_flags(args) -> None:
+def check_eval_flags(args, items: str = "items 1 to 3") -> None:
     """Raise on what the eval CLIs do not run yet: they evaluate on one
     device, from a reference .pth or a BEST checkpoint of the port's
-    trainers."""
-    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1, items 1 to 3)"
+    trainers. `items` names the ROADMAP queue 1 items that port the rest."""
+    todo = f"is not ported to PyTorch yet (ROADMAP.md, queue 1, {items})"
     if args.mesh_shape not in ("", "data:-1", "data:1"):
         raise NotImplementedError(
             f"--mesh_shape={args.mesh_shape} {todo}; the port evaluates on "

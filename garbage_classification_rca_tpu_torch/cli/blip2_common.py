@@ -1,0 +1,185 @@
+"""Shared plumbing of the BLIP-2 / Q-Former CLIs (eval).
+
+The port of the eval part of the JAX package's ``cli/blip2_common.py``:
+builds the model from an HF ``Blip2ForConditionalGeneration`` state dict
+(``--model_path``, plain or peft-wrapped) or from random weights
+(``--seed``), makes the host batches (CLIP-preprocessed uint8 images,
+prompts left-padded to 100 tokens, answer-word label tokens; reference
+blip_2_training.py:47-107) and runs the single-process eval loop.
+
+``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
+geometry for the JAX package's tiny test configuration (CPU drives only:
+its head dims, 16, are not the kernels').
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..data.images import CLIP_MEAN, CLIP_STD, blip_preprocess_image
+from ..data.manifest import Manifest
+from ..data.tokenizer import BaseTokenizer, get_tokenizer, resolve_vocab_dir
+from ..eval.harness import run_eval
+from ..models.vlm import blip2
+from ..models.vlm.prompts import (FOLDER_TO_ANSWER, MAX_PROMPT_TOKENS,
+                                  build_prompt, prompt_text_from_path)
+
+def normalize_clip(x_uint8: torch.Tensor, dtype=torch.bfloat16):
+    """uint8 NHWC -> CLIP-normalized NHWC in `dtype`: ``x * (1 / (255
+    std)) + (-mean / std)`` in fp32 (the JAX package's formula)."""
+    scale = torch.from_numpy((1.0 / (255.0 * CLIP_STD)).astype(np.float32))
+    shift = torch.from_numpy((-CLIP_MEAN / CLIP_STD).astype(np.float32))
+    dev = x_uint8.device
+    return (x_uint8.float() * scale.to(dev) + shift.to(dev)).to(dtype)
+
+
+def left_pad(ids: List[int], max_len: int, pad_id: int
+             ) -> Tuple[List[int], List[int]]:
+    """BLIP-2 prompts are LEFT-padded to 100 (blip_2_training.py:66)."""
+    ids = ids[-max_len:]
+    pad = max_len - len(ids)
+    return [pad_id] * pad + ids, [0] * pad + [1] * len(ids)
+
+
+class Blip2Batcher:
+    """Host batches: CLIP-preprocessed uint8 images + left-padded prompt
+    tokens + answer-word label tokens + class labels."""
+
+    def __init__(self, manifest: Manifest, tokenizer: BaseTokenizer,
+                 workers: int = 8, label_token_len: int = 4):
+        import concurrent.futures as cf
+
+        self.m = manifest
+        self.tok = tokenizer
+        self.label_token_len = label_token_len
+        self.pool = cf.ThreadPoolExecutor(max_workers=workers)
+        # one label-token sequence per class (fixed, computed once)
+        self.answer_token_ids = {}
+        for folder, word in FOLDER_TO_ANSWER.items():
+            ids, _ = self.tok.encode_one(word, label_token_len)
+            self.answer_token_ids[folder] = ids
+
+    def close(self):
+        self.pool.shutdown(wait=False)
+
+    def make_batch(self, indices, batch_size) -> Dict[str, np.ndarray]:
+        n = len(indices)
+        padded = np.concatenate([indices, np.zeros(batch_size - n, np.int64)]) \
+            if n < batch_size else indices
+        samples = [self.m.samples[i] for i in padded]
+        imgs = list(self.pool.map(
+            lambda s: blip_preprocess_image(s.image_path), samples))
+        ids_rows, mask_rows, lab_rows = [], [], []
+        pad_id = self.tok.pad_id
+        for s in samples:
+            prompt = build_prompt(prompt_text_from_path(s.image_path))
+            pids, _ = self.tok.encode_one(prompt, MAX_PROMPT_TOKENS)
+            ids, mask = left_pad(pids, MAX_PROMPT_TOKENS, pad_id)
+            folder = self.m.classes[s.label]
+            lab = self.answer_token_ids[folder][:self.label_token_len]
+            lab = lab + [pad_id] * (self.label_token_len - len(lab))
+            ids_rows.append(ids)
+            mask_rows.append(mask)
+            lab_rows.append(lab)
+        return {
+            "image": np.stack(imgs).astype(np.uint8),
+            "input_ids": np.asarray(ids_rows, np.int32),
+            "attention_mask": np.asarray(mask_rows, np.int32),
+            "label_tokens": np.asarray(lab_rows, np.int32),
+            "label": np.asarray([s.label for s in samples], np.int32),
+            "valid": np.asarray([1] * n + [0] * (batch_size - n), np.int32),
+        }
+
+    def iter_batches(self, batch_size: int, *, shuffle=False, seed=0):
+        from ..data.pipeline import batch_indices
+
+        for plan in batch_indices(len(self.m), batch_size, shuffle=shuffle,
+                                  seed=seed):
+            yield self.make_batch(plan, batch_size)
+
+
+def tiny_blip2_config() -> blip2.Blip2Config:
+    """The JAX package's reduced geometry for hermetic CPU drives
+    (GC_RCA_TINY_BLIP2=1): same code paths, ~1000x fewer FLOPs."""
+    from ..models.vlm import blip2_vision, opt as opt_mod, qformer as qf
+
+    return blip2.Blip2Config(
+        vision=blip2_vision.VisionConfig(layers=2, hidden=64, heads=4,
+                                         ffn=128, patch=14, image_size=224),
+        qformer=qf.QFormerConfig(layers=2, hidden=32, heads=4, ffn=64,
+                                 n_query=8, cross_frequency=2,
+                                 vision_hidden=64),
+        opt=opt_mod.OPTConfig(layers=2, hidden=64, heads=4, ffn=128,
+                              vocab=50272, max_pos=256),
+        lora_r=4, lora_alpha=8)
+
+
+def blip2_config() -> blip2.Blip2Config:
+    """blip2-opt-2.7b, or the tiny geometry under GC_RCA_TINY_BLIP2."""
+    if os.environ.get("GC_RCA_TINY_BLIP2"):
+        return tiny_blip2_config()
+    return blip2.Blip2Config()
+
+
+def build_blip2(args, device, compute_dtype, *, with_lora: bool = True,
+                classifier: bool = False):
+    """-> (cfg, model, tokenizer). Loads ``--model_path`` when it is a file
+    (an HF / peft state dict, with its adapters when it holds them), else
+    draws random towers from ``--seed``, held at bf16 precision as the JAX
+    package inits them in bf16. With `with_lora` and no adapters in the
+    file, the adapters are drawn from ``--seed + 1`` with B = 0; the
+    classifier, when asked, from ``--seed + 2`` (``cli.qformer_test``
+    loads ``--classifier_weights`` over it). The weights end in
+    `compute_dtype`, the LayerNorms and the classifier in fp32
+    (``Blip2Model.cast_``)."""
+    from ..checkpoint.from_jax import load_blip2_tree
+
+    cfg = blip2_config()
+    tok = get_tokenizer("opt", vocab_dir=resolve_vocab_dir(args))
+    model = blip2.build_model(cfg, device, lora=with_lora,
+                              classifier=classifier)
+    lora = None
+    if args.model_path and os.path.isfile(args.model_path):
+        from ..checkpoint.torch_convert import load_torch_state_dict
+
+        params, lora = blip2.convert_torch(
+            load_torch_state_dict(args.model_path), cfg)
+        lora = lora if with_lora else None
+        load_blip2_tree(model, params, lora)
+    else:
+        blip2.init_(model, args.seed).cast_(torch.bfloat16)
+    if with_lora and lora is None:
+        blip2.init_lora_(model.lora, args.seed + 1)
+    if classifier:
+        blip2.init_classifier_(model.classifier, args.seed + 2)
+    return cfg, model.cast_(compute_dtype), tok
+
+
+def class_logits_from_next_token(next_logits: torch.Tensor,
+                                 answer_first_tokens: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Constrained 1-token decode: each answer word's first-token logit
+    (the argmax over the 4 bins equals the reference's generate +
+    find_closest_string when the decoded token is one of them)."""
+    return next_logits[:, answer_first_tokens]
+
+
+def clamp_eval_batch(batch_size: int, n_samples: int) -> int:
+    """The eval batch for n_samples on one device: no bigger than the
+    dataset, at least 1 (the JAX ``clamp_eval_batch`` without a mesh)."""
+    return max(1, min(batch_size, n_samples))
+
+
+def vlm_eval(step, batcher: Blip2Batcher, batch_size: int, device,
+             prefetch_depth: int = 2):
+    """The single-process VLM eval loop: ``step(batch) -> (preds, masked
+    correct count)`` over every batch of the test set; accuracy over the
+    real dataset size (not the reference's hard-coded 2000). Returns
+    (acc %, labels, preds, stats), padding rows masked out."""
+    return run_eval(step, batcher, batch_size, device,
+                    keys=("image", "input_ids", "attention_mask", "label",
+                          "valid"), prefetch_depth=prefetch_depth)

@@ -25,11 +25,13 @@
 // buffer that grows with N. Softmax normalisation is two-pass over the
 // stored scores (not online), which is what lets the weights be rounded
 // exactly as the reference rounds them. In these kernels the products run
-// on the fp32 CUDA cores with 4x4 (QK) and 4x(dh/16) (PV) register tiles:
-// they serve head dims 32 / 128, fp32 at N > 64, bf16 at N > 256, the fp32
-// eval forward, the fp32 training forward without dropout (its sums are
-// taken in the plain version's order, bit for bit) and the bf16 dropout
-// forward. In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
+// on the fp32 CUDA cores with 4x4 (QK) and 4x ceil(dh/16) (PV) register
+// tiles: they serve head dims 32 / 128, fp32 at N > 64, bf16 at N > 256, the
+// fp32 eval forward, the fp32 training forward without dropout (its sums are
+// taken in the plain version's order, bit for bit), the bf16 dropout
+// forward, and the eval forward alone at head dims 80 (OPT-2.7B, causal with
+// a key mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose
+// last column lies past the head skips it. In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
 // DistilBERT, the ViT val eval and the ViT-B/16 trainer) the eval forward
 // and the training pair have a tensor-core route of their own,
 // mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc (namespace
@@ -130,7 +132,9 @@ __global__ void __launch_bounds__(THREADS)
                float* __restrict__ lse, int N, int D, float scale, int causal,
                float keep) {
   constexpr int LDH = DH + 1;    // odd stride: conflict-free column reads
-  constexpr int CPT = DH / 16;   // output columns per thread in PV
+  // output columns per thread in PV: column tc + 16 j; at DH = 88 (EVA
+  // ViT-g) the last j covers only lanes tc < 8, the others skip it
+  constexpr int CPT = (DH + 15) / 16;
   extern __shared__ float sm[];
   float* Qs = sm;                // [BQ][LDH]
   float* KVs = Qs + BQ * LDH;    // [BK][LDH]: K chunk, later V chunk
@@ -234,7 +238,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) wv[i] = S[(tr * 4 + i) * N + k0 + c];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) vv[j] = KVs[c * LDH + tc + 16 * j];
+      for (int j = 0; j < CPT; ++j)
+        vv[j] = tc + 16 * j < DH ? KVs[c * LDH + tc + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -247,20 +252,22 @@ __global__ void __launch_bounds__(THREADS)
     if (n >= N) continue;
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
-      st(o, base + static_cast<size_t>(n) * D + tc + 16 * j, acc[i][j]);
+      if (tc + 16 * j < DH)
+        st(o, base + static_cast<size_t>(n) * D + tc + 16 * j, acc[i][j]);
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* mask, const uint8_t* dm, void* o, float* lse,
-                   int B, int N, int D, int heads, float scale, int causal,
-                   float keep, cudaStream_t stream) {
+template <typename T, int DH, bool LSE, bool DROP>
+cudaError_t launch_kernel(const void* q, const void* k, const void* v,
+                          const int* mask, const uint8_t* dm, void* o,
+                          float* lse, int B, int N, int D, int heads,
+                          float scale, int causal, float keep,
+                          cudaStream_t stream) {
+  // (BQ + BK) x (DH + 1) fp32 tiles + BQ x N fp32 scores: 67,072 bytes at
+  // EVA ViT-g's DH = 88, N = 257, over the 48 KB a launch gets by default
   const size_t smem =
       sizeof(float) * ((BQ + BK) * (DH + 1) + static_cast<size_t>(BQ) * N);
-  auto kern = dm    ? mha_kernel<T, DH, true, true>
-              : lse ? mha_kernel<T, DH, true, false>
-                    : mha_kernel<T, DH, false, false>;
+  auto kern = mha_kernel<T, DH, LSE, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -271,6 +278,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), mask, dm, static_cast<T*>(o), lse, N, D,
       scale, causal, keep);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* mask, const uint8_t* dm, void* o, float* lse,
+                   int B, int N, int D, int heads, float scale, int causal,
+                   float keep, cudaStream_t stream) {
+  auto go = dm    ? launch_kernel<T, DH, true, true>
+            : lse ? launch_kernel<T, DH, true, false>
+                  : launch_kernel<T, DH, false, false>;
+  return go(q, k, v, mask, dm, o, lse, B, N, D, heads, scale, causal, keep,
+            stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -617,6 +636,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   }                                                               \
   return cudaErrorInvalidValue;
 
+// The eval forward alone (no lse, no dropout) also takes head dims 80
+// (OPT-2.7B: 2560 / 32 heads) and 88 (EVA ViT-g: 1408 / 16 heads): calls
+// CALL(T, DH) for them and falls through otherwise.
+#define EVAL_ONLY_DISPATCH(DTYPE, DH, CALL)                       \
+  if ((DTYPE) == 0) {                                             \
+    if ((DH) == 80) return CALL(float, 80);                       \
+    if ((DH) == 88) return CALL(float, 88);                       \
+  } else if ((DTYPE) == 1) {                                      \
+    if ((DH) == 80) return CALL(__nv_bfloat16, 80);               \
+    if ((DH) == 88) return CALL(__nv_bfloat16, 88);               \
+  }
+
 // `dm` non-null selects the dropout variant (and needs `lse`).
 cudaError_t forward(const void* q, const void* k, const void* v,
                     const int* mask, const uint8_t* dm, void* o, float* lse,
@@ -625,6 +656,13 @@ cudaError_t forward(const void* q, const void* k, const void* v,
   if (N <= 0 || N > 512 || heads <= 0 || D % heads || (dm && !lse) ||
       (dm && !(keep > 0.f)))
     return cudaErrorInvalidValue;
+  if (!lse) {
+#define EVAL(T, DH)                                                       \
+  launch_kernel<T, DH, false, false>(q, k, v, mask, nullptr, o, nullptr, B, \
+                                     N, D, heads, scale, causal, 1.f, s)
+    EVAL_ONLY_DISPATCH(dtype, D / heads, EVAL)
+#undef EVAL
+  }
 #define FWD(T, DH)                                                          \
   launch<T, DH>(q, k, v, mask, dm, o, lse, B, N, D, heads, scale, causal, \
                 keep, s)
@@ -1712,7 +1750,8 @@ cudaError_t forward(const void* q, const void* k, const void* v,
 
 // q/k/v/o: [B, N, D] contiguous, head h = columns h*dh:(h+1)*dh; mask:
 // [B, N] int32 key validity or null. dtype: 0 = float32, 1 = bfloat16.
-// Supports dh in {32, 64, 128} and 1 <= N <= 512. Returns cudaGetLastError().
+// Supports dh in {32, 64, 80, 88, 128} and 1 <= N <= 512 (the forwards with
+// lse and the backward: dh in {32, 64, 128}). Returns cudaGetLastError().
 extern "C" int mha_forward(const void* q, const void* k, const void* v,
                            const void* mask, void* o, int B, int N, int D,
                            int heads, float scale, int causal, int dtype,

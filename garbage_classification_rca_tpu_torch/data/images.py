@@ -4,7 +4,9 @@ The port's own copy of the JAX package's ``data/images.py`` host path:
   * host: JPEG decode (PIL), pad-to-aspect-ratio (np.pad), INTER_LINEAR
     resize (cv2) -> fixed-shape uint8 [H, W, 3]; uint8 keeps the
     host-to-device copy 4x smaller than fp32;
-  * device: ``(x/255 - mean)/std`` as one torch op on the batch's device.
+  * device: ``(x/255 - mean)/std`` as one torch op on the batch's device;
+  * the BLIP-2 host path: PIL bicubic to 224 x 224 uint8
+    (``blip_preprocess_image``), CLIP statistics.
 
 Geometry parity with the reference eval pipeline (PadToAR -> Resize ->
 Normalize), including the quirks of its pad transform (see
@@ -59,6 +61,21 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
 # ImageNet stats — the reference's default normalization
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+# OpenAI-CLIP stats — HF BlipImageProcessor defaults (BLIP-2 pipelines)
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def blip_preprocess_image(path: str, size: int = 224) -> np.ndarray:
+    """HF BlipImageProcessor host path: PIL bicubic resize to (size, size),
+    uint8 out (the CLIP normalization runs on the device). PIL's bicubic
+    scales its filter to the reduction factor, as HF's processors do."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im = im.convert("RGB").resize((size, size), Image.BICUBIC)
+        return np.asarray(im)
 
 
 def normalize_on_device(x_uint8, mean=None, std=None, dtype=None):

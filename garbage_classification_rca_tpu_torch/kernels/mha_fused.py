@@ -35,7 +35,9 @@ fp32 dropout forward at those shapes on 3xTF32 tensor-core products
 ("tc32": one kernel a side, a block per (head, sample)); every other
 shape, the fp32 eval forward and the fp32 training forward without
 dropout on the fp32 CUDA-core kernels ("cuda_core"; the last takes "tc32"
-on request). A failure of any route raises; none gives way to another.
+on request). The eval forward ``mha`` alone also takes head dims 80
+(OPT-2.7B) and 88 (EVA ViT-g), on the CUDA cores (``mha_plan``); the flash
+pairs refuse them. A failure of any route raises; none gives way to another.
 ``launch_mha`` / ``launch_fwd_lse`` / ``launch_fwd_lse_drop`` /
 ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run a given plan (the A/B
 timing of the routes).
@@ -58,7 +60,8 @@ import torch
 
 NEG = -1e30
 MAX_N = 512          # DistilBERT's position table, the most --seq_len gives
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)          # every kernel: K2, the flash pairs
+MHA_HEAD_DIMS = (32, 64, 80, 88, 128)   # K2 alone: + OPT-2.7B, EVA ViT-g
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
 TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
@@ -171,10 +174,10 @@ def _check(q, k, v, heads, mask, max_n=MAX_N):
         raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
 
 
-def _kernel_args(tensors, b, d, heads):
+def _kernel_args(tensors, b, d, heads, head_dims=HEAD_DIMS):
     """Checks the kernels' own limits on CUDA tensors."""
-    if d // heads not in HEAD_DIMS:
-        raise ValueError(f"the mha kernels take head dims {HEAD_DIMS}, got "
+    if d // heads not in head_dims:
+        raise ValueError(f"the mha kernels take head dims {head_dims}, got "
                          f"{d // heads}")
     if b > 65535:
         raise ValueError(f"the mha kernels take B <= 65535, got {b}")
@@ -187,25 +190,48 @@ def mha(q, k, v, *, heads: int, scale: float = 0.0,
         route: Optional[str] = None) -> torch.Tensor:
     """q/k/v: [B, N, D]; mask: optional int32 [B, N] key validity
     (1 = attendable). Returns [B, N, D] in q's dtype. On the card it runs
-    ``flash_plan``'s forward route ("tc" for bf16 at head dim 64 and
-    N <= 256, else "cuda_core"); `route` asks for one (the A/B)."""
+    ``mha_plan``'s route ("tc" for bf16 at head dim 64 and N <= 256, else
+    "cuda_core"); `route` asks for one (the A/B)."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, heads=heads, scale=scale, mask=mask,
                              causal=causal)
-    return launch_mha(flash_plan(q.shape, heads, q.dtype, route=route), q,
-                      k, v, heads=heads, scale=scale, mask=mask,
-                      causal=causal)
+    return launch_mha(mha_plan(q.shape, heads, q.dtype, route=route), q, k,
+                      v, heads=heads, scale=scale, mask=mask, causal=causal)
+
+
+def mha_plan(shape, heads: int, dtype, route: Optional[str] = None
+             ) -> "FlashPlan":
+    """The launch plan of ``mha`` (the eval forward) on q / k / v of
+    `shape`: ``flash_plan``'s at head dims 32 / 64 / 128; at head dims 80
+    (OPT-2.7B) and 88 (EVA ViT-g), which only this forward takes, the
+    CUDA-core kernel, and no backward (``bwd_route`` "none")."""
+    b, n, d = shape
+    dh = d // heads if heads > 0 and d % heads == 0 else None
+    if dh in HEAD_DIMS:
+        return flash_plan(shape, heads, dtype, route=route)
+    if dh not in MHA_HEAD_DIMS:
+        raise ValueError(f"mha takes head dims {MHA_HEAD_DIMS}, got D={d} "
+                         f"with {heads} heads")
+    if dtype not in _DTYPES:
+        raise TypeError(f"mha takes float32 / bfloat16, got {dtype}")
+    if route not in (None, "cuda_core"):
+        raise ValueError(f"at head dim {dh} mha runs on the CUDA cores "
+                         f"only, not {route!r}")
+    if n < 1:
+        raise ValueError(f"mha takes N >= 1, got {n}")
+    return FlashPlan("cuda_core", n, *_cuda_core_fwd(b, n, heads, dh),
+                     "none", (0, 0, 0), 0, (0, 0, 0), 0)
 
 
 def launch_mha(plan: "FlashPlan", q, k, v, *, heads: int, scale: float = 0.0,
                mask: Optional[torch.Tensor] = None,
                causal: bool = False) -> torch.Tensor:
     """``mha`` on CUDA tensors under the forward route of `plan`
-    (``flash_plan`` of this shape)."""
+    (``mha_plan`` of this shape)."""
     _check(q, k, v, heads, mask)
     b, n, d = q.shape
-    _kernel_args([q, k, v, mask], b, d, heads)
+    _kernel_args([q, k, v, mask], b, d, heads, MHA_HEAD_DIMS)
     if q.device.type != "cuda":
         raise ValueError("launch_mha takes CUDA tensors")
     if plan.route not in mha.route_launches:
@@ -258,7 +284,8 @@ class FlashPlan:
     fp32 CUDA-core kernels).
     `bwd_route`: the backward's, "tc" (as the forward), "tc32" (fp32, head
     dim 64, N <= 64, with or without dropout: one fused kernel on 3xTF32
-    products) or "cuda_core". `np`: the keys the tensor-core score products
+    products), "cuda_core", or "none" (``mha_plan`` at head dims 80 / 88,
+    which no backward takes). `np`: the keys the tensor-core score products
     cover (N rounded up to 16 where a route is "tc", else N). Grids
     (x, y, z) and dynamic shared memory in bytes of the forward, and of the
     backward's dQ kernel and dK / dV kernel; the "tc32" backward is one
@@ -327,8 +354,7 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     grid = (heads, b, 1)              # the tensor-core kernels: a block a head
     # csrc/mha_fused.cu's CUDA-core kernels: blocks of 32 rows, keys /
     # queries streamed in chunks of 64, fp32 tiles of stride dh + 1; the
-    # forward holds 32 score rows of N, the dK / dV kernel with dropout a
-    # 64 x 36-byte mask tile
+    # dK / dV kernel with dropout holds a 64 x 36-byte mask tile
     grid_cc, ldh = (-(-n // 32), heads, b), dh + 1
     np_ = -(-n // 16) * 16 if "tc" in (route, bwd_route) else n
     if route == "tc":
@@ -338,7 +364,7 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     elif route == "tc32":
         fwd = (grid, TC32_FWD_SMEM)
     else:
-        fwd = (grid_cc, 4 * (96 * ldh + 32 * n))
+        fwd = _cuda_core_fwd(b, n, heads, dh)
     if bwd_route == "tc":
         # ftc::dq_smem / dkdv_smem: one side of the head and two stages of
         # the other, per-key / per-query floats, mbarriers, + 1 KB
@@ -353,6 +379,13 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
                grid_cc, 4 * (192 * ldh + 2 * 32 * 65 + 128)
                + (64 * 36 if dropout else 0))
     return FlashPlan(route, np_, *fwd, bwd_route, *bwd)
+
+
+def _cuda_core_fwd(b, n, heads, dh):
+    """(grid, shared memory) of the CUDA-core forward: a block per 32 query
+    rows, head and sample; Q and a 64-key chunk in fp32 tiles of stride
+    dh + 1, and the block's 32 fp32 score rows of N."""
+    return (-(-n // 32), heads, b), 4 * (96 * (dh + 1) + 32 * n)
 
 
 def _count(fn, route):

@@ -119,6 +119,44 @@ def test_mha_kernel_matches_plain(cuda, b, n, causal):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# K2 at the VLM's head dims, the eval forward only: EVA ViT-g (16 heads of
+# 88, N 257, no mask) and OPT-2.7B (32 heads of 80, N 132, causal with a
+# left-pad key mask; sample 0 all pad, sample 1 one valid key)
+VLM_SHAPES = {"eva": (3, 257, 1408, 16, False), "opt": (3, 132, 2560, 32, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(VLM_SHAPES))
+def test_mha_kernel_at_vlm_head_dims_matches_plain(cuda, name, dtype):
+    """fp32 |d| <= 1e-5 + 1e-5 |x|; bf16 one ulp + 1e-3 (the CUDA-core K2's
+    bars); one launch on the CUDA-core route; the flash pair refuses the
+    head dim."""
+    b, n, d, heads, causal = VLM_SHAPES[name]
+    g = torch.Generator().manual_seed(n)
+    q, k, v = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
+               for _ in range(3))
+    m = None
+    if causal:
+        pad = torch.tensor([n, n - 1, 40])[:, None]      # left pads a row
+        m = (torch.arange(n)[None] >= pad).to(torch.int32).to(cuda)
+    before = dict(mha_fused.mha.route_launches)
+    got = mha_fused.mha(q, k, v, heads=heads, mask=m, causal=causal)
+    torch.cuda.synchronize()
+    assert mha_fused.mha.route_launches == {
+        **before, "cuda_core": before["cuda_core"] + 1}
+    want = mha_fused.mha_reference(q, k, v, heads=heads, mask=m,
+                                   causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        g_, w_ = got.float(), want.float()
+        e = torch.floor(torch.log2(torch.maximum(g_.abs(), w_.abs())
+                                   .clamp_min(2.0 ** -126)))
+        assert bool(((g_ - w_).abs() <= torch.pow(2.0, e - 7) + 1e-3).all())
+    with pytest.raises(ValueError, match="head dim"):
+        mha_fused.mha_fwd_lse(q, k, v, heads=heads, mask=m, causal=causal)
+
+
 def _grad_close(got, want, dtype):
     g, w = got.float(), want.float()
     if dtype == torch.float32:

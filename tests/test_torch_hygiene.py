@@ -62,7 +62,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.text.roberta", "models.image.vit", "models.registry",
                 "cli.test_text", "cli.test_image", "utils.dtype",
                 "cli.main_text", "cli.main_image", "data.synonymize",
-                "models.text.bart"):
+                "models.text.bart", "models.vlm.prompts",
+                "models.vlm.blip2_vision", "models.vlm.qformer",
+                "models.vlm.opt", "models.vlm.blip2", "cli.blip2_common",
+                "cli.blip2_train", "cli.blip2_test", "cli.qformer_train",
+                "cli.qformer_test"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -290,3 +294,82 @@ def test_normalize_and_to_device_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert timages.normalize_on_device(
         batches[0]["image"], dtype=torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_vlm_host_copies_match_jax(tmp_path):
+    """The port's own copies of ``models/vlm/prompts.py`` and the CLIP part
+    of ``data/images.py``, the BLIP-2 configurations (defaults and the
+    tiny test geometry) and the prompt batcher's host arrays."""
+    from PIL import Image
+
+    from garbage_classification_rca_tpu.cli import blip2_common as jbc
+    from garbage_classification_rca_tpu.models.vlm import blip2 as jblip2
+    from garbage_classification_rca_tpu.models.vlm import prompts as jp
+    from garbage_classification_rca_tpu_torch.cli import blip2_common as tbc
+    from garbage_classification_rca_tpu_torch.models.vlm import (
+        blip2 as tblip2)
+    from garbage_classification_rca_tpu_torch.models.vlm import prompts as tp
+
+    for name in ("ANSWER_WORDS", "FOLDER_TO_ANSWER", "ANSWER_TO_CLASS_IDX",
+                 "PROMPT_TEMPLATE", "MAX_PROMPT_TOKENS"):
+        assert getattr(tp, name) == getattr(jp, name), name
+    for path in ("/d/blue/water_bottle_12.jpg", "x/ttr/old_phone_11.png"):
+        assert tp.prompt_text_from_path(path) == jp.prompt_text_from_path(
+            path)
+        assert tp.build_prompt(tp.prompt_text_from_path(path)) == \
+            jp.build_prompt(jp.prompt_text_from_path(path))
+    for text in ("Yel", "Blu", "Gre", "Bla", "Answer: Greenish", "purple",
+                 "Answer:  Black label", ""):
+        assert tp.find_closest_string(text) == jp.find_closest_string(text)
+    assert np.array_equal(timages.CLIP_MEAN, jimages.CLIP_MEAN)
+    assert np.array_equal(timages.CLIP_STD, jimages.CLIP_STD)
+    rng = np.random.default_rng(0)
+    for i, hw in enumerate([(90, 60), (300, 410)]):
+        path = tmp_path / f"{i}.jpg"
+        Image.fromarray(rng.integers(0, 256, hw + (3,), np.uint8)).save(path)
+        got = timages.blip_preprocess_image(str(path))
+        assert got.shape == (224, 224, 3) and got.dtype == np.uint8
+        assert np.array_equal(got, jimages.blip_preprocess_image(str(path)))
+    x = rng.integers(0, 256, (2, 8, 8, 3), np.uint8)
+    np.testing.assert_allclose(
+        tbc.normalize_clip(torch.from_numpy(x), torch.float32).numpy(),
+        np.asarray(jbc.normalize_clip(jnp.asarray(x), jnp.float32)),
+        rtol=1e-6, atol=1e-6)
+    assert tbc.left_pad([5, 6], 4, 1) == jbc.left_pad([5, 6], 4, 1)
+    assert tbc.left_pad(list(range(9)), 4, 1) == jbc.left_pad(
+        list(range(9)), 4, 1)
+    # every field of the port's configurations (eval ones: the JAX
+    # package's also carry train-time dropout) equal to the JAX package's
+    for t, j in ((tblip2.Blip2Config(), jblip2.Blip2Config()),
+                 (tbc.tiny_blip2_config(), jbc.tiny_blip2_config())):
+        for part in ("vision", "qformer", "opt"):
+            tp, jp_ = getattr(t, part), getattr(j, part)
+            for f in dataclasses.fields(tp):
+                assert getattr(tp, f.name) == getattr(jp_, f.name), f.name
+        assert (t.lora_r, t.lora_alpha, t.lora_scale) == (
+            j.lora_r, j.lora_alpha, j.lora_scale)
+
+
+def test_blip2_batcher_matches_jax(tiny_dataset):
+    from garbage_classification_rca_tpu.cli import blip2_common as jbc
+    from garbage_classification_rca_tpu.cli import blip2_train as jtrain
+    from garbage_classification_rca_tpu_torch.cli import blip2_common as tbc
+    from garbage_classification_rca_tpu_torch.cli import blip2_train as ttrain
+
+    bpe = str(VOCAB.parent / "bpe")
+    tm = tmanifest.build_manifest(str(tiny_dataset))
+    jm = jmanifest.build_manifest(str(tiny_dataset))
+    tb = tbc.Blip2Batcher(tm, ttokenizer.get_tokenizer("opt", vocab_dir=bpe),
+                          workers=2)
+    jb = jbc.Blip2Batcher(jm, jtokenizer.get_tokenizer("opt", vocab_dir=bpe),
+                          workers=2)
+    got, want = list(tb.iter_batches(5)), list(jb.iter_batches(5))
+    assert np.array_equal(ttrain.answer_first_token_table(tb, tm.classes),
+                          jtrain.answer_first_token_table(jb, jm.classes))
+    tb.close()
+    jb.close()
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
