@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~7 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~10 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -156,7 +156,25 @@ Phases, each of which fails the run when it fails:
      share, K2's share, the EVA / Q-Former / OPT split by CUDA events;
      then ``cli.blip2_test`` and ``cli.qformer_test`` ``main()`` on a 4 x 4
      JPEG tree from the phase's weights written as a peft-wrapped HF
-     ``.pth`` and a MultimodalClassifier ``.pth``.
+     ``.pth`` and a MultimodalClassifier ``.pth``;
+ 13. VLM train: K4a / K4b at OPT-2.7B's LoRA shape (16 x 136 x 2560, 32
+     heads of 80, causal, the path's left-pad mask; a fully masked and a
+     single-key sample; N = 1) against the plain pair in fp32 and bf16,
+     the bf16 pair timed beside the plain pair, the library's efficient
+     attention with the equivalent additive bias (and its backward) and
+     the bound; BLIP-2 LoRA training at full width and depth (phase 12's
+     seeded towers in bf16, fp32 adapters with B != 0, microbatch 16 x acc
+     8): one warm-up optimizer step and two timed with the counters zeroed
+     before and read after (per microbatch K2 39, K4a 32, K4b 32, the rest
+     0), train samples/s, steps/s, peak memory, a profile (device ms a
+     step, idle share, K2 / K4a / K4b / GEMMs / elementwise); one step
+     with ``hf_internal_dropout`` (the same launches); a microbatch's loss
+     and adapter gradients on the kernel path against the plain path, bf16
+     at 16 and fp32 at 4; the Q-Former classifier's step at 16 x 8 (K2 39
+     a microbatch); then ``cli.blip2_train`` and ``cli.qformer_train`` for
+     one epoch from phase 12's ``.pth`` on a 16 + 16 JPEG tree, their
+     launches counted, and ``cli.blip2_test`` / ``cli.qformer_test`` on
+     the BEST files they wrote.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -232,6 +250,21 @@ Tolerances (kernel vs plain version, same inputs, same card):
     next-token logits come out of a 50272-wide tied lm head over 32 + 39
     layers: an absolute 1e-4 has no scale); bf16 as phase 11
     (``fusion_agreement``: 0.05, and 0.98 above the noise floor).
+  * VLM train (phase 13): K4a / K4b at head dim 80 to the flash pair's
+    bars above (fp32 1e-5 + 1e-5|x| and 5e-5 (1 + |x|); bf16 one ulp +
+    1e-3 and one ulp + 2e-3 max; at N = 1 in bf16 dQ / dK held to the
+    rounding of their two dot products, as the tensor-core route's edge
+    cases); the LoRA microbatch, kernel path against the same path with
+    OPT's flash pair on its plain versions (EVA on K2 on both sides), with
+    the train bars: fp32 (TF32 off) loss within 1e-5 relative and every
+    adapter gradient within 1e-4 of its tensor's largest |g|, bf16 loss
+    within 1e-3 relative and every gradient's cosine >= 0.999; a gradient
+    that misses its bar passes if the kernel path moves it no further than
+    the plain path's query embeddings moved by one ulp (the control,
+    measured in the same run: the random model's first OPT layers are
+    ill-conditioned; three draws) move the furthest-moved gradient
+    (``compare_vlm_train_paths``); the count within the bar itself is
+    printed.
   * conv eval (phase 10): fp32 folded against unfolded, max |logit
     difference| <= 1e-4 and equal argmax (the fp32 eval bar); bf16 against
     the fp32 model, max |d| <= 0.05 and <= 5% of the largest |logit|, and
@@ -1935,6 +1968,7 @@ def plain_versions():
              (encoder_common, "mha_flash_train", mha_fused.mha_reference),
              (blip2_vision, "mha", mha_fused.mha_reference),
              (vlm_opt, "mha", mha_fused.mha_reference),
+             (vlm_opt, "mha_flash_train", mha_fused.mha_reference),
              (multimodal, "rca_fused", rca_fused.rca_fused_reference),
              (multimodal, "rca_fused_trainable",
               rca_fused.rca_fused_reference))
@@ -2599,10 +2633,11 @@ def compare_train_paths(model, cfg, stack, class_weights, results):
 
 
 def profile_train_step(step, stack, key, reps=1, acc_steps=None,
-                       quiet=False):
-    """torch.profiler over `reps` train steps: device time by kind of
-    kernel and the device's idle share of the window (printed unless
-    `quiet`)."""
+                       quiet=False, kind=None):
+    """torch.profiler over `reps` train steps: device time by `kind` of
+    kernel (default ``_kind``) and the device's idle share of the window
+    (printed unless `quiet`)."""
+    kind = kind or _kind
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2622,7 +2657,7 @@ def profile_train_step(step, stack, key, reps=1, acc_steps=None,
         if us is None:
             us = e.self_cuda_time_total
         ms = us / 1e3 / reps
-        kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + ms
+        kinds[kind(e.key)] = kinds.get(kind(e.key), 0.0) + ms
         ops += e.count
         top.append((ms, e.count // reps, e.key.replace("void at::native::",
                                                        "")[:160]))
@@ -5034,8 +5069,9 @@ def check_vlm_clis(device, results):
     os.makedirs(work)
     model = results.pop("vlm_model")
     cwd = os.getcwd()
-    ok, out, t1 = True, {}, time.perf_counter()
+    ok, out, t1 = False, {}, time.perf_counter()
     try:
+        ok = True
         t0 = time.perf_counter()
         _write_jpeg_tree(os.path.join(work, "garbage"), 0, 16, SEED + 260,
                          size=320)
@@ -5073,12 +5109,547 @@ def check_vlm_clis(device, results):
             out[name] = {"seconds": secs, "report": report, "ok": good}
             ok &= good
         out["save_s"] = save_s
+        # phase 13's train CLIs start from the same .pth; it removes `work`
+        results["vlm_work"], results["vlm_pth"] = work, blip
     finally:
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
+        if not ok or "vlm_pth" not in results:
+            shutil.rmtree(work, ignore_errors=True)
     out["phase_seconds"] = results["vlm_seconds"] + time.perf_counter() - t1
     print(f"  phase 12 in {out['phase_seconds']:.1f} s", flush=True)
     results["vlm_clis"] = out
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the VLM train path (BLIP-2 LoRA fine-tuning, the Q-Former
+# classifier; K4a / K4b at head dim 80, K2 at head dim 88)
+# ---------------------------------------------------------------------------
+
+VLM_TRAIN_BATCH, VLM_ACC = 16, 8     # --batch_size and the recipes' acc 8
+VLM_TRAIN_FP32_BATCH = 4             # the fp32 check beside the bf16 model
+# per microbatch: K2 39 (EVA), K4a 32 and K4b 32 (OPT); the Q-Former K2 39
+VLM_TRAIN_LAUNCHES = {"blip2": {"mha": 39, "mha_fwd_lse": 32,
+                                "mha_flash_bwd": 32},
+                      "qformer": {"mha": 39}}
+VLM_LABEL_TOKENS = 4
+
+
+def _vlm_train_kind(name: str) -> str:
+    """Phase 13's kinds: the CUDA-core K2 / K4a (one kernel template,
+    ``mha_kernel<T, DH, LSE, DROP>``: K4a writes the lse), K4b's two
+    kernels, and ``_kind``'s for the rest."""
+    n = name.lower()
+    if "mha_kernel" in n:
+        return ("K4a mha_fwd_lse (head dim 80)" if ", true, false>" in n
+                else "K2 mha (head dim 88)")
+    if "mha_bwd" in n:
+        return "K4b mha_flash_bwd (head dim 80)"
+    return _kind(name)
+
+
+def _vlm_train_window(n_micro, batch, tok, seed, device, label_tokens=True):
+    """[n_micro, batch, ...] device window of SyntheticVLMBatcher samples
+    with the answer word's label tokens of each label (pad id 1 after
+    them), as ``cli.blip2_common.Blip2Batcher`` makes them."""
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.vlm.prompts import (
+        FOLDER_TO_ANSWER)
+
+    data = SyntheticVLMBatcher(n_micro * batch, tok, seed)
+    if label_tokens:
+        rows = []
+        for c in VLM_CLASSES:
+            ids = tok.encode_one(FOLDER_TO_ANSWER[c], VLM_LABEL_TOKENS)[0]
+            rows.append(ids + [tok.pad_id] * (VLM_LABEL_TOKENS - len(ids)))
+        data.samples["label_tokens"] = np.asarray(rows, np.int32)[
+            data.samples["label"]]
+    return {k: torch.from_numpy(v.reshape((n_micro, batch) + v.shape[1:]))
+            .to(device) for k, v in data.samples.items()}
+
+
+def _vlm_train_bound(q, mask, causal=True):
+    """(flops_fwd, bytes_fwd, flops_bwd, bytes_bwd) of the flash pair on
+    q [B, N, D] with this run's mask: the products over the (query, key)
+    pairs the causal mask and the key mask allow (QK^T and PV forward; S,
+    dP, dV, dQ, dK backward), each input read once and each output
+    written once (q, k, v, out, lse, mask; + dO, dQ, dK, dV backward)."""
+    b, n, d = q.shape
+    h = d // 80
+    pairs_flops = _k2_flops(b, n, d, mask, causal)        # 4 * pairs * d
+    item = q.element_size()
+    lse = b * h * n * 4
+    m = mask.numel() * 4
+    return (pairs_flops, 4 * q.numel() * item + lse + m,
+            pairs_flops // 4 * 10, 8 * q.numel() * item + lse + m)
+
+
+def check_vlm_train_kernels(device, path_mask, results):
+    """K4a / K4b at OPT-2.7B's LoRA shape, 16 x 136 x 2560 (32 heads of 80,
+    causal, the path's left-pad key mask), fp32 and bf16, against the
+    plain pair (``_held_to_plain``: fp32 1e-5 + 1e-5|x| / 5e-5 (1 + |x|);
+    bf16 one ulp + 1e-3 / one ulp + 2e-3 max), with a fully masked and a
+    single-key sample, and at N = 1; each on the CUDA-core route, once; the
+    bf16 pair timed (CUDA graphs of 20 launches, median of 5) beside the
+    plain pair, the library's efficient attention with the equivalent
+    additive bias (forward + lse, and its backward) and the bound."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 280)
+    b, n, d, h = path_mask.shape[0], path_mask.shape[1], 2560, 32
+    edge = path_mask.clone()
+    edge[0] = 0                                       # every key a pad
+    edge[1] = 0
+    edge[1, -1] = 1                                   # one valid key
+    ok_all, errs = True, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, nn_, m in (("path", n, path_mask), ("edge", n, edge),
+                              ("N=1", 1, torch.ones((b, 1), dtype=torch.int32,
+                                                    device=device))):
+            q, k, v, do = (torch.randn((b, nn_, d), generator=gen).to(
+                device, dtype) for _ in range(4))
+            plan = K.flash_plan(q.shape, h, dtype)
+            f0 = dict(K.mha_fwd_lse.route_launches)
+            b0 = dict(K.mha_flash_bwd.route_launches)
+            o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=m, causal=True)
+            grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h, mask=m,
+                                    causal=True)
+            torch.cuda.synchronize()
+            e_f, e_b, ok = _held_to_plain(
+                q, k, v, do, h, m, True, o, lse, grads,
+                edge=dtype == torch.bfloat16 and nn_ == 1)
+            ok &= (plan.route, plan.bwd_route) == ("cuda_core", "cuda_core")
+            ok &= K.mha_fwd_lse.route_launches["cuda_core"] == \
+                f0["cuda_core"] + 1
+            ok &= K.mha_flash_bwd.route_launches["cuda_core"] == \
+                b0["cuda_core"] + 1
+            ok_all &= ok
+            errs[f"{str(dtype)[6:]}_{label}"] = {"fwd": e_f, "bwd": e_b}
+            print(f"  flash pair cuda_core {str(dtype)[6:]:8s} B={b} "
+                  f"N={nn_:3d} D={d} H={h} (head dim 80) causal mask="
+                  f"{label}: fwd max|d|={e_f:.3e} bwd {e_b:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+    # the path's call in bf16, timed
+    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
+        device, torch.bfloat16) for _ in range(4))
+    o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=path_mask, causal=True)
+    ms_f = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h, mask=path_mask,
+                                         causal=True))
+    ms_b = time_ms(lambda: K.mha_flash_bwd(q, k, v, o, do, lse, heads=h,
+                                           mask=path_mask, causal=True))
+    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(
+        q, k, v, heads=h, mask=path_mask, causal=True))[0]
+    plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
+        q, k, v, o, do, lse, heads=h, mask=path_mask, causal=True))[0]
+    allowed = path_mask.bool()[:, None, :] & torch.ones(
+        (n, n), dtype=torch.bool, device=device).tril()[None]
+    bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
+    bias = bias.expand(b, h, n, n).contiguous()
+    lib = _efficient_attention(q, k, v, bias, h)
+    lib_f = time_ms(lambda: _efficient_attention(q, k, v, bias, h))[0]
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    lib_b = time_ms(lambda: torch.ops.aten.
+                    _scaled_dot_product_efficient_attention_backward(
+                        rs(do), rs(q), rs(k), rs(v), bias, lib[0], lib[1],
+                        lib[2], lib[3], 0.0, [True, True, True, False]))[0]
+    del lib, bias
+    fl_f, by_f, fl_b, by_b = _vlm_train_bound(q, path_mask)
+    rows = {}
+    for name, line, ms, plain, lib_ms, flops, nbytes, side in (
+            ("mha_fwd_lse_hd80", 274, ms_f, plain_f, lib_f, fl_f, by_f,
+             "fwd"),
+            ("mha_flash_bwd_hd80", 317, ms_b, plain_b, lib_b, fl_b, by_b,
+             "bwd")):
+        row = _fwd_row(name, ms[0], plain, lib_ms, flops, nbytes,
+                       max(e[side] for e in errs.values()), line,
+                       "bfloat16", max_abs_err_by_case={
+                           k_: e[side] for k_, e in errs.items()},
+                       ms_min_max=ms[1:], shape=[b, n, d],
+                       heads=h, head_dim=80, causal=True, dtype="bfloat16",
+                       operations=flops, bytes_moved=nbytes)
+        rows[name] = row
+        print(f"  {name} bf16 {b}x{n}x{d}, 32 heads of 80, causal + mask: "
+              f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}); plain "
+              f"{plain:.4f} ms, efficient attention (additive bias) "
+              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); share of the bound "
+              f"{row['share_of_bound']:.3f}", flush=True)
+    results["vlm_train_kernels"] = rows
+    return ok_all
+
+
+def _adapter_grads(model, mb, dtype):
+    """(loss, {adapter: grad}) of ``blip2.lm_loss`` on one microbatch."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_train import (
+        _assemble_lm_batch)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    model.lora.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = blip2.lm_loss(model, *_assemble_lm_batch(mb, dtype))
+        loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                         for n, p in model.lora.named_parameters()}
+
+
+VLM_CONTROL_DRAWS = 3    # draws of the one-ulp control
+
+
+@functools.cache
+def flash_pair_plain():
+    """OPT's flash pair on its plain versions under one autograd function:
+    ``mha_fwd_lse_reference`` forward, ``mha_flash_bwd_reference``
+    backward (the kernels' own rounding points), with ``mha_flash_train``'s
+    signature."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    class FlashPairPlain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, heads, scale, causal):
+            o, lse = K.mha_fwd_lse_reference(q, k, v, heads=heads,
+                                             scale=scale, mask=mask,
+                                             causal=causal)
+            ctx.save_for_backward(q, k, v, o, lse, mask)
+            ctx.args = (heads, scale, causal)
+            return o
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, o, lse, mask = ctx.saved_tensors
+            heads, scale, causal = ctx.args
+            grads = K.mha_flash_bwd_reference(
+                q, k, v, o, g.to(q.dtype), lse, heads=heads, scale=scale,
+                mask=mask, causal=causal)
+            return (*grads, None, None, None, None)
+
+    def call(q, k, v, *, heads, scale=0.0, mask=None, causal=False):
+        return FlashPairPlain.apply(q, k, v, mask, heads, scale, causal)
+
+    return call
+
+
+@contextlib.contextmanager
+def opt_attention(model, fn=None, ulp=0.0, seed=5):
+    """OPT's training attention on `fn` where given (else the flash pair);
+    with `ulp`, the projection's output (OPT's query embeddings) moved by
+    N(0, 1) ulps of that size, drawn from `seed`."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.vlm import opt
+
+    saved = opt.mha_flash_train
+    opt.mha_flash_train = fn or saved
+    hook = None
+    if ulp:
+        g = torch.Generator(device=model.projection.w.device).manual_seed(
+            seed)
+        hook = model.projection.register_forward_hook(
+            lambda mod, i, o: o * (1.0 + ulp * torch.randn(
+                o.shape, generator=g, device=o.device)).to(o.dtype))
+    try:
+        yield
+    finally:
+        opt.mha_flash_train = saved
+        if hook is not None:
+            hook.remove()
+
+
+def grad_score(got, want, dtype):
+    """fp32: max |got - want| over the tensor's largest |want|; bf16: the
+    cosine of the two."""
+    import torch
+
+    if dtype == torch.float32:
+        return float((got - want).abs().max() / want.abs().max())
+    return float(torch.nn.functional.cosine_similarity(
+        got.flatten().double(), want.flatten().double(), dim=0))
+
+
+def compare_vlm_train_paths(model, mb, dtype):
+    """The LoRA loss and every adapter gradient of one microbatch on the
+    kernel path against the same path with OPT's flash pair on its plain
+    versions (``flash_pair_plain``); EVA runs K2 on both sides (held to its
+    plain version at this head dim in phase 12), so the two differ only in
+    K4a / K4b. PERF.md §2's train bars: fp32 loss within 1e-5 relative
+    and each gradient within 1e-4 of its tensor's largest |g|; bf16 loss
+    within 1e-3 relative and each gradient's cosine >= 0.999.
+
+    The random 3.74 B model's adapter gradients are ill-conditioned there:
+    the plain path with OPT's query embeddings moved by one ulp of the
+    compute dtype (the control, in the same run, drawn VLM_CONTROL_DRAWS
+    times) moves those of the first 20 OPT layers by about 3e-3 of their
+    largest |g| (fp32) and to a cosine of about 0.998 (bf16), past either
+    bar (PERF.md §6). So a gradient that misses its bar passes if the
+    kernel path moves it no further than the furthest any control draw
+    moves any gradient (factor 1). The count within the bar itself, the
+    control's worst and the kernel path's worst are reported.
+    Returns (ok, summary)."""
+    import torch
+
+    plain = flash_pair_plain()
+    lk, gk = _adapter_grads(model, mb, dtype)
+    with opt_attention(model, plain):
+        lp, gp = _adapter_grads(model, mb, dtype)
+    fp32 = dtype == torch.float32
+    pick = max if fp32 else min
+    worse = (lambda a, b: a > b) if fp32 else (lambda a, b: a < b)
+    control, loss_control = {}, 0.0
+    for seed in range(5, 5 + VLM_CONTROL_DRAWS):
+        with opt_attention(model, plain, ulp=2.0 ** -23 if fp32
+                           else 2.0 ** -8, seed=seed):
+            lc, gc_ = _adapter_grads(model, mb, dtype)
+        loss_control = max(loss_control, abs(lc - lp) / abs(lp))
+        for n, g in gc_.items():
+            s_ = grad_score(g, gp[n], dtype)
+            control[n] = pick(control.get(n, s_), s_)
+        del gc_
+    rel = abs(lk - lp) / abs(lp)
+    ok = rel <= (1e-5 if fp32 else 1e-3)
+    score = {n: grad_score(g, gp[n], dtype) for n, g in gk.items()}
+    bar = 1e-4 if fp32 else 0.999
+    limit = pick(control.values())
+    met = [n for n, s_ in score.items() if not worse(s_, bar)]
+    for n, g in gk.items():
+        ok &= not worse(score[n], bar) or not worse(score[n], limit)
+        ok &= bool(torch.isfinite(g).all())
+    worst = pick(score, key=score.get)
+    model.lora.zero_grad(set_to_none=True)
+    return ok, {"loss_kernel": lk, "loss_plain": lp, "loss_relative": rel,
+                "loss_control_relative": loss_control,
+                "gradients": len(gk), "met_the_bar": len(met), "bar": bar,
+                "worst_gradient": (worst, score[worst], control[worst]),
+                "control_worst": limit,
+                "control_draws": VLM_CONTROL_DRAWS,
+                "missed_the_bar": {n: (s_, control[n]) for n, s_ in
+                                   score.items() if n not in met}}
+
+
+def _vlm_check_line(c):
+    name, score, ctl = c["worst_gradient"]
+    return (f"loss {c['loss_kernel']:.6f} / {c['loss_plain']:.6f} (relative "
+            f"{c['loss_relative']:.2e}; control "
+            f"{c['loss_control_relative']:.2e}); {c['met_the_bar']} of "
+            f"{c['gradients']} gradients within the bar {c['bar']}; worst "
+            f"{name} {score:.6g} (the control there {ctl:.6g}); the "
+            f"control's worst over {c['control_draws']} draws "
+            f"{c['control_worst']:.6g}")
+
+
+def check_vlm_train(device, results):
+    """BLIP-2 LoRA training at full width and depth (blip2-opt-2.7b, bf16
+    towers, fp32 adapters with B != 0), microbatch 16 x acc 8: K4a / K4b at
+    16 x 136 x 2560 (``check_vlm_train_kernels``); one warm-up optimizer
+    step and two timed, the counters zeroed before and read after (per
+    microbatch K2 39, K4a 32, K4b 32, the rest 0): train samples/s, steps/s,
+    peak memory, a profile (device ms a step, idle share, by kind); one
+    step with ``hf_internal_dropout`` (the same launches, K7 0); the loss
+    and adapter gradients of a microbatch on the kernel path against OPT's
+    flash pair on its plain versions in bf16 (batch 16) and fp32 (batch
+    4, TF32 off in matmuls and convolutions); then the
+    Q-Former classifier's step at 16 x 8 (K2 39 a microbatch)."""
+    import gc
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import blip2_train
+    from garbage_classification_rca_tpu_torch.cli import qformer_train
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        blip2_config)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = blip2_config()
+    tok = get_tokenizer("opt")
+    window = _vlm_train_window(VLM_ACC, VLM_TRAIN_BATCH, tok, SEED + 271,
+                               device)
+    n_query = cfg.qformer.n_query
+    path_mask = torch.cat(
+        [torch.ones((VLM_TRAIN_BATCH, n_query), dtype=torch.int32,
+                    device=device), window["attention_mask"][0],
+         (window["label_tokens"][0] != tok.pad_id).to(torch.int32)], 1)
+    ok = check_vlm_train_kernels(device, path_mask, results)
+
+    model = blip2.build_model(cfg, device, lora=True, classifier=True)
+    blip2.init_(model, SEED + 240)
+    blip2.init_lora_(model.lora, SEED + 241, b_std=0.01)
+    blip2.init_classifier_(model.classifier, SEED + 242)
+    model.cast_(torch.bfloat16, keep_fp32=("lora",))
+    print(f"  BLIP-2 bf16 with fp32 adapters (B != 0) and {VLM_ACC} x "
+          f"{VLM_TRAIN_BATCH} samples in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out, total = {}, {}
+    samples = VLM_ACC * VLM_TRAIN_BATCH
+    key = Key(SEED + 272)
+    for what, flag in (("blip2", False), ("blip2", True), ("qformer", False)):
+        if what == "blip2":
+            _, step = blip2_train.make_lora_train_step(
+                model, compute_dtype=torch.bfloat16, hf_internal_dropout=flag)
+        else:
+            _, step, _ = qformer_train.make_steps(
+                model, compute_dtype=torch.bfloat16)
+        tag = f"{what}{'_hf_dropout' if flag else ''}"
+        n_steps = 1 if flag else 2
+        float(step(window, key.fold_in(99)))                    # warm-up
+        wall, losses, launches, peak = _timed_steps(
+            [lambda s_, k_: (step(s_, k_),)] * n_steps, window, key, device)
+        want = _want_launches(**{k: v * VLM_ACC * n_steps for k, v in
+                                 VLM_TRAIN_LAUNCHES[what].items()})
+        good = launches == want and all(
+            torch.isfinite(torch.tensor(losses)).tolist())
+        prof = profile_train_step(lambda s, k_: (step(s, k_),), window, key,
+                                  acc_steps=VLM_ACC, kind=_vlm_train_kind)
+        ok &= good
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        out[tag] = {
+            "microbatch": VLM_TRAIN_BATCH, "acc_steps": VLM_ACC,
+            "steps": n_steps, "losses": losses,
+            "train_samples_per_s": samples * n_steps / wall,
+            "steps_per_s": n_steps / wall, "peak_mem_gib": peak / 2**30,
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "idle_share": prof["idle_share"],
+            "by_kind_ms": prof["by_kind_ms"], "launches": _shown(launches)}
+        print(f"  {tag} train, {n_steps} x ({VLM_ACC} x {VLM_TRAIN_BATCH}): "
+              f"{samples * n_steps / wall:.1f} train samples/s, "
+              f"{n_steps / wall:.3f} steps/s, peak {peak / 2**30:.2f} GiB, "
+              f"losses {[round(x, 5) for x in losses]}; launches "
+              f"{_shown(launches)} (want {_shown(want)}) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+
+    # the kernel path against the plain path on a microbatch
+    checks = {}
+    mb16 = {k: v[0] for k, v in window.items()}
+    model.requires_grad_(False)
+    model.lora.requires_grad_(True)
+    good, checks["bf16"] = compare_vlm_train_paths(model, mb16,
+                                                   torch.bfloat16)
+    ok &= good
+    print(f"  bf16 LoRA microbatch of {VLM_TRAIN_BATCH}, kernel vs the "
+          f"pair's plain versions: "
+          f"{_vlm_check_line(checks['bf16'])} {'ok' if good else 'FAIL'}",
+          flush=True)
+    m32 = blip2.build_model(cfg, device, lora=True)
+    blip2.init_(m32, SEED + 240)
+    blip2.init_lora_(m32.lora, SEED + 241, b_std=0.01)
+    m32.lora.requires_grad_(True)
+    mb4 = {k: v[:VLM_TRAIN_FP32_BATCH] for k, v in mb16.items()}
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False        # EVA's patch conv too
+    try:
+        good, checks["fp32"] = compare_vlm_train_paths(m32, mb4,
+                                                       torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    ok &= good
+    print(f"  fp32 LoRA microbatch of {VLM_TRAIN_FP32_BATCH} (TF32 off), "
+          f"kernel vs the pair's plain versions: "
+          f"{_vlm_check_line(checks['fp32'])} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    del m32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kernel_vs_plain"] = checks
+    results["vlm_train"] = out
+    results["vlm_train_launches"] = total
+    results["vlm_train_seconds"] = time.perf_counter() - t0
+    print(f"  vlm_train launches over the four runs: {_shown(total)}; in "
+          f"{results['vlm_train_seconds']:.1f} s", flush=True)
+    return ok
+
+
+def check_vlm_train_clis(device, results):
+    """``cli.blip2_train.main`` and ``cli.qformer_train.main`` for one
+    epoch (``--batch_size=16``) from phase 12's ``.pth`` on a generated
+    4-class ``_Train`` / ``_Val`` tree of 16 + 16 JPEGs, each run's
+    launches counted (BLIP-2: a train microbatch K2 39 + K4a 32 + K4b 32
+    and a val batch K2 71; the Q-Former: K2 39 + 39); then
+    ``cli.blip2_test`` on the adapters' BEST file and ``cli.qformer_test``
+    on the classifier's (``drive_eval_main``). Removes phase 12's work
+    directory."""
+    import glob
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (blip2_test,
+                                                          blip2_train,
+                                                          qformer_test,
+                                                          qformer_train)
+
+    work, blip = results["vlm_work"], results["vlm_pth"]
+    cwd = os.getcwd()
+    ok, out, t1 = True, {}, time.perf_counter()
+    try:
+        _write_jpeg_tree(os.path.join(work, "vlm"), 16, 16, SEED + 273,
+                         size=320)
+        os.chdir(work)
+        base = ["--dataset_folder_name=vlm", "--batch_size=16",
+                "--epochs=1"]
+        want = {"blip2_train": {"mha": 39 + 71, "mha_fwd_lse": 32,
+                                "mha_flash_bwd": 32},
+                "qformer_train": {"mha": 39 + 39}}
+        best = {}
+        for cli in (blip2_train, qformer_train):
+            name = cli.__name__.rsplit(".", 1)[-1]
+            _zero_counters()
+            t0 = time.perf_counter()
+            result = cli.main(base + [f"--model_path={blip}"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _read_counters()
+            files = glob.glob(os.path.join("model_weights", "*",
+                                           "BEST_*"))
+            kind = "blip2_lora" if cli is blip2_train else \
+                "qformer_classifier"
+            best[name] = [f for f in files if f"/{kind}/" in f]
+            good = (launches == _want_launches(**want[name])
+                    and len(best[name]) == 1
+                    and result.best_path == os.path.abspath(best[name][0]))
+            print(f"  cli.{name} one epoch in {secs:.1f} s (the .pth read "
+                  f"included): best val acc {result.best_val_acc:.2f}, "
+                  f"launches {_shown(launches)} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"seconds": secs, "val_acc": result.best_val_acc,
+                         "launches": _shown(launches), "ok": good}
+            ok &= good
+        for cli, argv, k2 in (
+                (blip2_test, [f"--model_path={best['blip2_train'][0]}"], 71),
+                (qformer_test, [f"--model_path={blip}",
+                                "--classifier_weights="
+                                f"{best['qformer_train'][0]}"], 39)):
+            name = cli.__name__.rsplit(".", 1)[-1]
+            _zero_counters()
+            t0 = time.perf_counter()
+            main_ok, report = drive_eval_main(
+                cli, argv + ["--dataset_folder_name=vlm_Val"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            good = main_ok and _read_counters() == _want_launches(mha=k2)
+            print(f"  cli.{name} on the BEST file in {secs:.1f} s "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"seconds": secs, "report": report, "ok": good}
+            ok &= good
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_seconds"] = (results["vlm_train_seconds"]
+                            + time.perf_counter() - t1)
+    print(f"  phase 13 in {out['phase_seconds']:.1f} s", flush=True)
+    results["vlm_train_clis"] = out
     return ok
 
 
@@ -5115,6 +5686,17 @@ def ptxas_report(log: str):
                 # the fp32 backward on 3xTF32 (K4b, K7b with drop=1)
                 entry = (f"{f[1]}<masked={f[2]}, causal={f[3]}, "
                          f"drop={f[4]}> (tc32)")
+            elif re.search(r"(mha_kernel|mha_bwd_dq_kernel|"
+                           r"mha_bwd_dkdv_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                           name):
+                # K2 / K4a / K7a <T, DH, lse, drop>, K4b / K7b <T, DH, drop>
+                g = re.search(r"(mha_kernel|mha_bwd_dq_kernel|"
+                              r"mha_bwd_dkdv_kernel)I(f|13__nv_bfloat16)"
+                              r"Li(\d+)E((?:Lb\dE)*)", name)
+                flags = "".join(f", {x}" for x in re.findall(r"Lb(\d)E",
+                                                             g[4]))
+                entry = (f"{g[1]}<{'float' if g[2] == 'f' else 'bf16'}, "
+                         f"{g[3]}{flags}>")
             else:  # the mangled <length><identifier> that ends in _kernel
                 cands = (name[i:i + int(name[j:i])]
                          for i in range(1, len(name))
@@ -5146,7 +5728,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/12] device", flush=True)
+    print("[1/13] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5156,7 +5738,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/12] build", flush=True)
+    print("[2/13] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -5168,7 +5750,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/12] kernels vs plain versions", flush=True)
+    print("[3/13] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -5188,43 +5770,49 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/12] MM-RCA eval path",
+            ("[4/13] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/12] MM-RCA train path: full-width train step",
+            ("[5/13] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/12] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/13] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/12] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/13] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/12] image eval path: ViT-B/16",
+            ("[7/13] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/12] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/13] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/12] text train path: DistilBERT and BERT-base with "
+            ("[8/13] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/12] image train path: ViT-B/16",
+            ("[9/13] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/12] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/13] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/12] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/13] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/12] conv image eval CLI: cli.test_image "
+            ("[10/13] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/12] fusion eval: gated, classic, normalized, clip, "
+            ("[11/13] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/12] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/13] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/12] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/13] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/12] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
-             lambda: check_vlm_clis(device, results))):
+            ("[12/13] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+             lambda: check_vlm_clis(device, results)),
+            ("[13/13] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+             "and the Q-Former classifier",
+             lambda: check_vlm_train(device, results)),
+            ("[13/13] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+             "cli.qformer_train -> cli.qformer_test",
+             lambda: check_vlm_train_clis(device, results))):
         print(title, flush=True)
         try:
             ok = check()
@@ -5262,7 +5850,8 @@ def main() -> int:
                "train_hf_dropout": results["train_hf_dropout_launches"],
                "conv_eval": results["conv_eval_launches"],
                "fusion_eval": results["fusion_eval_launches"],
-               "vlm_eval": results["vlm_eval_launches"]}
+               "vlm_eval": results["vlm_eval_launches"],
+               "vlm_train": results["vlm_train_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -5295,6 +5884,16 @@ def main() -> int:
         kernels.append(row)
         if row["launches"] <= 0:
             return _fail(f"{key} was not launched on the {path} path")
+    # K4a / K4b at head dim 80 (the CUDA-core kernels' instantiations for
+    # OPT-2.7B): launched on the VLM train path, read from its counters
+    for key, counter in (("mha_fwd_lse_hd80", "mha_fwd_lse"),
+                         ("mha_flash_bwd_hd80", "mha_flash_bwd")):
+        row = dict(results["vlm_train_kernels"][key])
+        row["launches"] = by_path["vlm_train"][counter]
+        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
+        kernels.append(row)
+        if row["launches"] <= 0:
+            return _fail(f"{key} was not launched on the vlm_train path")
     print(json.dumps({"model": results["model"], "train": results["train"],
                       "text_eval": results["text_eval"],
                       "text_eval_others": {
@@ -5313,6 +5912,8 @@ def main() -> int:
                       "fusion_clis": results["fusion_clis"],
                       "vlm_eval": results["vlm_eval"],
                       "vlm_clis": results["vlm_clis"],
+                      "vlm_train": results["vlm_train"],
+                      "vlm_train_clis": results["vlm_train_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

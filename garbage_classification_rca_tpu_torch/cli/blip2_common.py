@@ -1,11 +1,15 @@
-"""Shared plumbing of the BLIP-2 / Q-Former CLIs (eval).
+"""Shared plumbing of the BLIP-2 / Q-Former CLIs.
 
-The port of the eval part of the JAX package's ``cli/blip2_common.py``:
-builds the model from an HF ``Blip2ForConditionalGeneration`` state dict
-(``--model_path``, plain or peft-wrapped) or from random weights
-(``--seed``), makes the host batches (CLIP-preprocessed uint8 images,
-prompts left-padded to 100 tokens, answer-word label tokens; reference
-blip_2_training.py:47-107) and runs the single-process eval loop.
+The port of the single-process part of the JAX package's
+``cli/blip2_common.py``: builds the model from an HF
+``Blip2ForConditionalGeneration`` state dict (``--model_path``, plain or
+peft-wrapped), from random weights (``--seed``) or, for the adapters, from
+a BEST file of ``cli.blip2_train``; makes the host batches
+(CLIP-preprocessed uint8 images, prompts left-padded to 100 tokens,
+answer-word label tokens; reference blip_2_training.py:47-107); runs the
+eval loop; and gives both trainers their input stream
+(``vlm_train_stream``: shuffled windows of ``acc_steps`` microbatches) and
+their grad-accumulating optimizer step (``make_accum_step``).
 
 ``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
 geometry for the JAX package's tiny test configuration (CPU drives only:
@@ -126,37 +130,48 @@ def blip2_config() -> blip2.Blip2Config:
 
 
 def build_blip2(args, device, compute_dtype, *, with_lora: bool = True,
-                classifier: bool = False):
-    """-> (cfg, model, tokenizer). Loads ``--model_path`` when it is a file
-    (an HF / peft state dict, with its adapters when it holds them), else
-    draws random towers from ``--seed``, held at bf16 precision as the JAX
-    package inits them in bf16. With `with_lora` and no adapters in the
-    file, the adapters are drawn from ``--seed + 1`` with B = 0; the
-    classifier, when asked, from ``--seed + 2`` (``cli.qformer_test``
-    loads ``--classifier_weights`` over it). The weights end in
-    `compute_dtype`, the LayerNorms and the classifier in fp32
-    (``Blip2Model.cast_``)."""
+                classifier: bool = False, train: bool = False):
+    """-> (cfg, model, tokenizer). Loads ``--model_path`` when it is an HF /
+    peft state dict (with its adapters when it holds them), else draws
+    random towers from ``--seed``, held at bf16 precision as the JAX
+    package inits them in bf16; a BEST file of ``cli.blip2_train`` as
+    ``--model_path`` gives the adapters over the random towers (the JAX
+    CLI's BEST directory: ``build_blip2`` as for no file, then the
+    adapters restored). With `with_lora` and no adapters in the file, the
+    adapters are drawn from ``--seed + 1`` with B = 0; the classifier,
+    when asked, from ``--seed + 2`` (``cli.qformer_test`` loads
+    ``--classifier_weights`` over it). The weights end in `compute_dtype`,
+    the LayerNorms and the classifier in fp32 (``Blip2Model.cast_``), and
+    with `train` the adapters too (the LoRA trainer's fp32 master
+    weights, as the JAX trainer keeps them)."""
     from ..checkpoint.from_jax import load_blip2_tree
+    from ..train.engine import load_checkpoint
 
     cfg = blip2_config()
     tok = get_tokenizer("opt", vocab_dir=resolve_vocab_dir(args))
     model = blip2.build_model(cfg, device, lora=with_lora,
                               classifier=classifier)
-    lora = None
-    if args.model_path and os.path.isfile(args.model_path):
+    keep = ("lora",) if train and with_lora else ()
+    lora, path = None, args.model_path
+    is_file = bool(path) and os.path.isfile(path)
+    best = load_checkpoint(path) if is_file else None
+    if is_file and best is None:
         from ..checkpoint.torch_convert import load_torch_state_dict
 
-        params, lora = blip2.convert_torch(
-            load_torch_state_dict(args.model_path), cfg)
+        params, lora = blip2.convert_torch(load_torch_state_dict(path), cfg)
         lora = lora if with_lora else None
         load_blip2_tree(model, params, lora)
     else:
-        blip2.init_(model, args.seed).cast_(torch.bfloat16)
+        # the BEST file's fp32 adapters are read as they are
+        blip2.init_(model, args.seed).cast_(
+            torch.bfloat16, ("lora",) if best is not None else keep)
     if with_lora and lora is None:
         blip2.init_lora_(model.lora, args.seed + 1)
+    if with_lora and best is not None:
+        model.lora.load_state_dict(best["state_dict"])
     if classifier:
         blip2.init_classifier_(model.classifier, args.seed + 2)
-    return cfg, model.cast_(compute_dtype), tok
+    return cfg, model.cast_(compute_dtype, keep), tok
 
 
 def class_logits_from_next_token(next_logits: torch.Tensor,
@@ -183,3 +198,70 @@ def vlm_eval(step, batcher: Blip2Batcher, batch_size: int, device,
     return run_eval(step, batcher, batch_size, device,
                     keys=("image", "input_ids", "attention_mask", "label",
                           "valid"), prefetch_depth=prefetch_depth)
+
+
+def iter_accum_windows(batcher, batch_size: int, acc_steps: int, *,
+                       shuffle: bool = False, seed: int = 0):
+    """Stacked [W, ...] host windows of microbatches: W == acc_steps, and
+    one trailing partial window (the JAX ``iter_accum_windows``)."""
+    stack = []
+    for batch in batcher.iter_batches(batch_size, shuffle=shuffle,
+                                      seed=seed):
+        stack.append(batch)
+        if len(stack) == acc_steps:
+            yield {k: np.stack([b[k] for b in stack]) for k in stack[0]}
+            stack = []
+    if stack:
+        yield {k: np.stack([b[k] for b in stack]) for k in stack[0]}
+
+
+def vlm_train_stream(batcher, batch_size: int, acc_steps: int, device, *,
+                     seed: int, prefetch_depth: int = 2):
+    """The trainers' input stream on one process: ``iter_accum_windows``
+    shuffled with `seed`, moved to `device` ahead of use (the JAX
+    ``vlm_train_stream`` without its multi-host branch)."""
+    from ..data.pipeline import to_device
+
+    return to_device(iter_accum_windows(batcher, batch_size, acc_steps,
+                                        shuffle=True, seed=seed),
+                     device, depth=prefetch_depth)
+
+
+def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
+                    acc_steps: int, with_key: bool = False):
+    """The grad-accumulating optimizer step of both VLM trainers (the JAX
+    ``make_accum_step``; they differ only in the loss).
+
+    ``loss_fn(microbatch)``, or ``loss_fn(microbatch, key)`` with
+    `with_key`, gives a scalar loss whose graph reaches the optimizer's
+    parameters. Returns ``step(window, key=None) -> mean loss`` over a
+    window of W <= acc_steps microbatches (a leading axis on every entry):
+    each microbatch's backward adds its gradient into the fp32 sums held
+    in ``.grad``, the sums are divided by `acc_steps` (a trailing partial
+    window too: reference blip_2_training.py:274-293 steps every acc_steps
+    batches with loss / acc_steps), and the optimizer steps once. A
+    parameter no gradient reached gets zeros, as the JAX tree does.
+    Microbatch i draws its dropout from ``key.fold_in(i)``."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def step(window, key=None):
+        w = window["valid"].shape[0]
+        for p in params:
+            p.grad = None
+        loss_sum = None
+        for i in range(w):
+            mb = {k: v[i] for k, v in window.items()}
+            with torch.enable_grad():      # also under a caller's no_grad
+                loss = loss_fn(mb, key.fold_in(i)) if with_key \
+                    else loss_fn(mb)
+                loss.backward()
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.div_(acc_steps)
+        optimizer.step()
+        return loss_sum / w
+
+    return step

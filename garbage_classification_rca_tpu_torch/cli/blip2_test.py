@@ -2,7 +2,8 @@
 
 ``python -m garbage_classification_rca_tpu_torch.cli.blip2_test
   --model_path=<HF Blip2ForConditionalGeneration .pth, plain or
-  peft-wrapped; random weights from --seed without one>
+  peft-wrapped; or a BEST file of cli.blip2_train: its adapters over the
+  towers drawn from --seed, as with no file>
   --dataset_folder_name=<test-root> [--eval_batch_size=16]``
 
 Parity with reference blip_2_test_set.py:222-266 through the JAX
@@ -17,7 +18,8 @@ Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and
 ``GC_RCA_TINY_BLIP2=1`` swaps in the tiny test geometry. Not ported yet:
 ``--max_new_tokens`` > 1, ``--gen_temperature``, ``--int8_weights`` and
 ``--kv_cache_dtype`` (the generate / serving path, ROADMAP.md queue 1
-item 6), meshes, multi-host runs and orbax adapter directories.
+item 6), meshes, multi-host runs (item 7) and the JAX package's orbax
+adapter directories.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def check_vlm_flags(args) -> None:
         raise NotImplementedError(f"--int8_weights {todo}")
     if args.kv_cache_dtype:
         raise NotImplementedError(f"--kv_cache_dtype {todo}")
-    check_eval_flags(args, items="items 5 and 7")
+    check_eval_flags(args, items="item 7")
 
 
 def evaluate(args):

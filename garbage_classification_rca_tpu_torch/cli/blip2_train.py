@@ -1,28 +1,114 @@
-"""BLIP-2 LoRA fine-tuning CLI: the eval step only, so far.
+"""BLIP-2 LoRA fine-tuning CLI.
 
-The port of the JAX package's ``cli/blip2_train.py`` holds what the eval
-CLI shares with it: ``make_eval_step`` (the 1-token constrained decode:
-next-token logits at each row's last valid prompt token, argmax over the
-four answer words' first tokens) and ``answer_first_token_table``. The
-trainer itself (LoRA r=32 on OPT q / k, AdamW, accumulation 8; its
-attention backward is the flash pair at head dim 80) is not ported yet:
-``main`` raises (ROADMAP.md, queue 1 item 5).
+``python -m garbage_classification_rca_tpu_torch.cli.blip2_train
+  --dataset_folder_name=<base with _Train / _Val> [--model_path=<HF .pth>]
+  [--batch_size=16] [--epochs=N] [--hf_internal_dropout]``
+
+The port of the JAX package's ``cli/blip2_train.py`` (reference
+blip_2_training.py:176-311), on one device:
+  * the knowledge prompt of each image, left-padded to 100 tokens, and the
+    answer word's 4 label tokens after it (N = 32 + 100 + 4 = 136 in OPT);
+  * LoRA r = 32, alpha = 8 on OPT's q / k projections: only the fp32
+    adapters train, EVA ViT-g, the Q-Former, the projection and OPT stay
+    frozen;
+  * the loss is the shifted next-token CE over the text segment, -100 on
+    the prompt, on pad label tokens and on rows with valid = 0
+    (``_assemble_lm_batch``, ``models.vlm.blip2.lm_loss``);
+  * AdamW(lr 5e-4, eps 1e-5, weight decay 0.01), stepping every 8
+    microbatches of ``--batch_size`` (``blip2_common.make_accum_step``);
+  * after each epoch the validation accuracy of the 1-token constrained
+    decode (``make_eval_step``), a JSONL row under ``runs/``, and the
+    adapters saved as a BEST file (``model_weights/blip2_lora/``, the
+    adapters alone, as the JAX trainer saves only the trained leaves)
+    when the accuracy improves; ``cli.blip2_test --model_path=<BEST>``
+    reads it;
+  * ``--hf_internal_dropout``: the Q-Former's p = 0.1 sites, OPT's p = 0.1
+    sites on the attention and FFN outputs and peft's lora_dropout 0.05,
+    with a key per microbatch folded from the window's.
+
+On the card each microbatch runs K2 39 times (EVA, head dim 88), K4a 32
+times and K4b 32 times (OPT, head dim 80, causal with the key mask). Runs
+on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
+(``cli.check_unported_flags`` raises): meshes (data, model and pipe
+axes), multi-host runs, RESUME files and ``--wandb``.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from ..config import args_parser
+from ..config import args_parser, torch_compute_dtype
+from ..data.manifest import build_manifest
+from ..device import resolve_device
 from ..models.vlm import blip2
-from .blip2_common import (Blip2Batcher, class_logits_from_next_token,
-                           normalize_clip)
+from ..nn.core import HFDropout, Key
+from ..train.engine import MetricsLogger, PhaseResult, save_best
+from . import check_unported_flags, cli_device
+from .blip2_common import (Blip2Batcher, build_blip2,
+                           class_logits_from_next_token, make_accum_step,
+                           normalize_clip, vlm_eval, vlm_train_stream)
+
+TRAIN_SUFFIX = "_Train"
+VAL_SUFFIX = "_Val"
+BLIP2_LR = 5e-4          # reference blip_2_training.py:228
+BLIP2_ACC = 8            # reference :229
+PAD_ID = 1               # OPT's pad token
+
+
+def _assemble_lm_batch(mb, compute_dtype):
+    """Microbatch dict of device tensors -> (pixels, ids, mask, labels) of
+    the LM CE: ids are the prompt then the label tokens; the labels are
+    -100 on the prompt, on pad label tokens and on rows with valid = 0
+    (the batch padding of a tail microbatch)."""
+    x = normalize_clip(mb["image"], compute_dtype)
+    lt = mb["label_tokens"]
+    pad = lt == PAD_ID
+    if "valid" in mb:
+        pad = pad | (mb["valid"][:, None] == 0)
+    labels = torch.where(pad, -100, lt)
+    ids = torch.cat([mb["input_ids"], lt], 1)
+    mask = torch.cat([mb["attention_mask"],
+                      (lt != PAD_ID).to(mb["attention_mask"].dtype)], 1)
+    full_labels = torch.cat([torch.full_like(mb["input_ids"], -100),
+                             labels], 1)
+    return x, ids, mask, full_labels
+
+
+def blip2_adamw(params) -> torch.optim.AdamW:
+    """Reference ``torch.optim.AdamW(lr=5e-4, eps=1e-05)`` with torch's
+    default weight decay 0.01 (the JAX trainer spells all three out)."""
+    return torch.optim.AdamW(params, lr=BLIP2_LR, betas=(0.9, 0.999),
+                             eps=1e-5, weight_decay=0.01, foreach=True)
+
+
+def make_lora_train_step(model, acc_steps: int = BLIP2_ACC,
+                         compute_dtype=torch.bfloat16,
+                         hf_internal_dropout: bool = False):
+    """-> (optimizer, ``step(window, key) -> mean loss``): the adapters of
+    `model` (fp32) train, everything else stays frozen; one AdamW step a
+    window of microbatches (``make_accum_step``). With
+    `hf_internal_dropout` microbatch i draws its dropout sites from
+    ``key.fold_in(i)``; without it the key is not read."""
+    model.requires_grad_(False)
+    model.lora.requires_grad_(True)
+    opt = blip2_adamw(model.lora.parameters())
+
+    def loss_fn(mb, key=None):
+        x, ids, mask, labels = _assemble_lm_batch(mb, compute_dtype)
+        drop = HFDropout(key) if key is not None else None
+        return blip2.lm_loss(model, x, ids, mask, labels, drop=drop)
+
+    return opt, make_accum_step(loss_fn, opt, acc_steps,
+                                with_key=hf_internal_dropout)
 
 
 def make_eval_step(model, answer_first_tokens, compute_dtype=torch.bfloat16):
     """``step(batch of device tensors) -> (preds int32 [B], masked correct
-    count)``."""
+    count)``: next-token logits at each row's last valid prompt token,
+    argmax over the four answer words' first tokens."""
     aft = torch.as_tensor(np.asarray(answer_first_tokens), dtype=torch.long)
 
     def step(batch):
@@ -47,11 +133,53 @@ def answer_first_token_table(batcher: Blip2Batcher, classes) -> np.ndarray:
 
 
 def main(argv=None):
-    args_parser(argv)
-    raise NotImplementedError(
-        "BLIP-2 LoRA training is not ported to PyTorch yet (ROADMAP.md, "
-        "queue 1 item 5: the flash pair at head dim 80); "
-        "cli.blip2_test evaluates")
+    args = args_parser(argv)
+    check_unported_flags(args)
+    device = resolve_device(cli_device())
+    dtype = torch_compute_dtype(args.compute_dtype)
+    cfg, model, tok = build_blip2(args, device, dtype, train=True)
+    train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
+    val_m = build_manifest((args.dataset_folder_name_val or
+                            args.dataset_folder_name) + VAL_SUFFIX)
+    print(f"train {len(train_m)} / val {len(val_m)}")
+    train_b = Blip2Batcher(train_m, tok, workers=args.data_workers)
+    val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
+    _, step = make_lora_train_step(
+        model, compute_dtype=dtype,
+        hf_internal_dropout=args.hf_internal_dropout)
+    eval_step = make_eval_step(
+        model, answer_first_token_table(train_b, train_m.classes), dtype)
+    logger = MetricsLogger(args.name or "blip2_lora")
+    best = PhaseResult(0.0, 0, None)
+    key = Key(args.seed)
+    try:
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for window in vlm_train_stream(
+                    train_b, args.batch_size, BLIP2_ACC, device,
+                    seed=args.seed + epoch,
+                    prefetch_depth=args.prefetch_depth):
+                key, step_key = key.split(2)
+                losses.append(step(window, step_key))
+            losses = [float(l) for l in losses]
+            val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
+                               prefetch_depth=args.prefetch_depth)[0]
+            logger.log({"epoch": epoch, "avg_loss": float(np.mean(losses)),
+                        "val_acc": val_acc,
+                        "epoch_time_seconds": time.time() - t0})
+            print(f"epoch {epoch}: loss={np.mean(losses):.4f} "
+                  f"val_acc={val_acc:.2f}")
+            if val_acc > best.best_val_acc:
+                best = PhaseResult(val_acc, epoch, save_best(
+                    model.lora, model_name="blip2_lora", epoch=epoch,
+                    val_acc=val_acc, args=args, fine_tuning=False,
+                    layers=cfg.opt.layers))
+    finally:
+        train_b.close()
+        val_b.close()
+    print(f"best val acc {best.best_val_acc:.2f} @ epoch {best.best_epoch}")
+    return best
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 ``python -m garbage_classification_rca_tpu_torch.cli.qformer_test
   --model_path=<HF Blip2ForConditionalGeneration .pth>
   --classifier_weights=<MultimodalClassifier .pth: classifier.weight /
-  classifier.bias> --dataset_folder_name=<test-root>``
+  classifier.bias; or a BEST file of cli.qformer_train>
+  --dataset_folder_name=<test-root>``
 
 Parity with reference q_former_test_set.py:229-278 through the JAX
 package's ``cli/qformer_test.py``: the BLIP-2 backbone (its EVA ViT-g
@@ -12,7 +13,8 @@ head on the Q-Former's first query output; the report goes under
 ``test_set_reports/qformer/``. Without ``--classifier_weights`` the head
 is drawn from ``--seed + 2``. Accuracy divides by the real dataset size.
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet:
-meshes, multi-host runs and orbax directories.
+meshes, multi-host runs (ROADMAP.md queue 1 item 7) and the JAX package's
+orbax directories.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def load_classifier(path: str, hidden: int):
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_eval_flags(args, items="items 5 and 7")
+    check_eval_flags(args, items="item 7")
     if args.classifier_weights and os.path.isdir(args.classifier_weights):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass the "
@@ -73,9 +75,15 @@ def evaluate(args):
                                   classifier=True)
     if args.classifier_weights and os.path.isfile(args.classifier_weights):
         from ..checkpoint.from_jax import load_jax_tree
+        from ..train.engine import load_checkpoint
 
-        load_jax_tree(model.classifier, load_classifier(
-            args.classifier_weights, cfg.qformer.hidden), allow_skipped=())
+        best = load_checkpoint(args.classifier_weights)
+        if best is not None:                  # cli.qformer_train's BEST
+            model.classifier.load_state_dict(best["state_dict"])
+        else:
+            load_jax_tree(model.classifier, load_classifier(
+                args.classifier_weights, cfg.qformer.hidden),
+                allow_skipped=())
     m = build_manifest(args.dataset_folder_name)
     print(f"Num of test images: {len(m)}")
     b = Blip2Batcher(m, tok, workers=args.data_workers)

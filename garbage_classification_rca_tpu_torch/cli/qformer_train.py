@@ -1,19 +1,75 @@
-"""Q-Former classifier training CLI: the eval step only, so far.
+"""Q-Former classifier training CLI.
 
-The port of the JAX package's ``cli/qformer_train.py`` holds the eval
-step the test CLI shares with it: the Q-Former's first query output
-(``qformer_cls_feature``, in fp32) into the Linear(768, 4) classifier,
-argmax. The trainer (the classifier alone trains, the backbone frozen) is
-not ported yet: ``main`` raises (ROADMAP.md, queue 1 item 5).
+``python -m garbage_classification_rca_tpu_torch.cli.qformer_train
+  --dataset_folder_name=<base with _Train / _Val> [--model_path=<HF .pth>]
+  [--batch_size=16] [--epochs=N] [--hf_internal_dropout]``
+
+The port of the JAX package's ``cli/qformer_train.py`` (reference
+q_former_training.py:189-332), on one device: the frozen BLIP-2 backbone,
+the Linear(768, 4) classifier on the Q-Former's first query output (read
+in fp32), CE on the class ids over the valid rows, AdamW(lr 5e-4, eps
+1e-5, weight decay 0.01) every 8 microbatches of ``--batch_size``
+(``blip2_common.make_accum_step``). Only the classifier trains: the
+reference's peft adapters sit on OPT, which this loss never reaches. After
+each epoch the validation accuracy, a JSONL row under ``runs/``, and the
+classifier saved as a BEST file (``model_weights/qformer_classifier/``)
+when the accuracy improves; ``cli.qformer_test --classifier_weights=<BEST>``
+reads it. ``--hf_internal_dropout`` runs the Q-Former's p = 0.1 sites,
+with a key a window folded from ``--seed``, the epoch and the window.
+
+On the card each microbatch runs K2 39 times (EVA, head dim 88). Runs on
+CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
+(``cli.check_unported_flags`` raises): meshes, multi-host runs, RESUME
+files and ``--wandb``.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
-from ..config import args_parser
+from ..config import args_parser, torch_compute_dtype
+from ..data.manifest import build_manifest
+from ..device import resolve_device
 from ..models.vlm import blip2
-from .blip2_common import normalize_clip
+from ..nn.core import HFDropout, Key
+from ..train.engine import MetricsLogger, PhaseResult, save_best
+from ..train.loss import cross_entropy_loss_and_weight
+from . import check_unported_flags, cli_device
+from .blip2_common import (Blip2Batcher, build_blip2, make_accum_step,
+                           normalize_clip, vlm_eval, vlm_train_stream)
+from .blip2_train import blip2_adamw
+
+TRAIN_SUFFIX = "_Train"
+VAL_SUFFIX = "_Val"
+QF_ACC = 8               # reference q_former_training.py:241
+
+
+def make_steps(model, acc_steps: int = QF_ACC, compute_dtype=torch.bfloat16,
+               hf_internal_dropout: bool = False):
+    """-> (optimizer, ``train_step(window, key) -> mean loss``,
+    ``eval_step(batch) -> (preds, masked correct count)``): the
+    classifier of `model` trains, the backbone stays frozen and runs
+    without autograd. The reference's AdamW (q_former_training.py:243) is
+    the LoRA trainer's."""
+    model.requires_grad_(False)
+    model.classifier.requires_grad_(True)
+    opt = blip2_adamw(model.classifier.parameters())
+
+    def loss_fn(mb, key=None):
+        x = normalize_clip(mb["image"], compute_dtype)
+        with torch.no_grad():
+            feat = blip2.qformer_cls_feature(
+                model, x, HFDropout(key) if key is not None else None)
+        return cross_entropy_loss_and_weight(
+            model.classifier(feat.float()), mb["label"],
+            valid=mb["valid"])[0]
+
+    return opt, make_accum_step(loss_fn, opt, acc_steps,
+                                with_key=hf_internal_dropout), \
+        make_eval_step(model, compute_dtype)
 
 
 def make_eval_step(model, compute_dtype=torch.bfloat16):
@@ -30,10 +86,52 @@ def make_eval_step(model, compute_dtype=torch.bfloat16):
 
 
 def main(argv=None):
-    args_parser(argv)
-    raise NotImplementedError(
-        "Q-Former classifier training is not ported to PyTorch yet "
-        "(ROADMAP.md, queue 1 item 5); cli.qformer_test evaluates")
+    args = args_parser(argv)
+    check_unported_flags(args)
+    device = resolve_device(cli_device())
+    dtype = torch_compute_dtype(args.compute_dtype)
+    _, model, tok = build_blip2(args, device, dtype, with_lora=False,
+                                classifier=True)
+    train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
+    val_m = build_manifest((args.dataset_folder_name_val or
+                            args.dataset_folder_name) + VAL_SUFFIX)
+    train_b = Blip2Batcher(train_m, tok, workers=args.data_workers)
+    val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
+    _, train_step, eval_step = make_steps(
+        model, compute_dtype=dtype,
+        hf_internal_dropout=args.hf_internal_dropout)
+    logger = MetricsLogger(args.name or "qformer_cls")
+    best = PhaseResult(0.0, 0, None)
+    try:
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for w, window in enumerate(vlm_train_stream(
+                    train_b, args.batch_size, QF_ACC, device,
+                    seed=args.seed + epoch,
+                    prefetch_depth=args.prefetch_depth)):
+                # the window's key, derived rather than carried (the JAX
+                # trainer's fold_in(fold_in(seed, epoch), window))
+                losses.append(train_step(
+                    window, Key(args.seed).fold_in(epoch).fold_in(w)))
+            losses = [float(l) for l in losses]
+            val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
+                               prefetch_depth=args.prefetch_depth)[0]
+            logger.log({"epoch": epoch, "avg_loss": float(np.mean(losses)),
+                        "val_acc": val_acc,
+                        "epoch_time_seconds": time.time() - t0})
+            print(f"epoch {epoch}: loss={np.mean(losses):.4f} "
+                  f"val_acc={val_acc:.2f}")
+            if val_acc > best.best_val_acc:
+                best = PhaseResult(val_acc, epoch, save_best(
+                    model.classifier, model_name="qformer_classifier",
+                    epoch=epoch, val_acc=val_acc, args=args,
+                    fine_tuning=False, layers=0))
+    finally:
+        train_b.close()
+        val_b.close()
+    print(f"best val acc {best.best_val_acc:.2f} @ epoch {best.best_epoch}")
+    return best
 
 
 if __name__ == "__main__":

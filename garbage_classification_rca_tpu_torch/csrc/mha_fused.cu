@@ -29,9 +29,11 @@
 // tiles: they serve head dims 32 / 128, fp32 at N > 64, bf16 at N > 256, the
 // fp32 eval forward, the fp32 training forward without dropout (its sums are
 // taken in the plain version's order, bit for bit), the bf16 dropout
-// forward, and the eval forward alone at head dims 80 (OPT-2.7B, causal with
-// a key mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose
-// last column lies past the head skips it. In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
+// forward, the eval forward at head dims 80 (OPT-2.7B, causal with a key
+// mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose last
+// column lies past the head skips it, and the training pair without dropout
+// at head dim 80 (OPT-2.7B's LoRA training, N = 136, fp32 and bf16: five
+// columns a lane in the backward). In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
 // DistilBERT, the ViT val eval and the ViT-B/16 trainer) the eval forward
 // and the training pair have a tensor-core route of their own,
 // mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc (namespace
@@ -648,6 +650,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     if ((DH) == 88) return CALL(__nv_bfloat16, 88);               \
   }
 
+// The flash pair without dropout (the lse forward and the backward) also
+// takes head dim 80 (OPT-2.7B's LoRA training: 2560 / 32 heads, causal with
+// the left-pad key mask, N = 136): calls CALL(T, 80) and falls through
+// otherwise. The backward's lanes take DH / 16 = 5 columns each there; 88
+// (EVA ViT-g, which never trains) does not divide into 16 lanes and stays
+// refused, as the dropout pair stays at {32, 64, 128}.
+#define TRAIN80_DISPATCH(DTYPE, DH, CALL)                         \
+  if ((DH) == 80) {                                               \
+    if ((DTYPE) == 0) return CALL(float, 80);                     \
+    if ((DTYPE) == 1) return CALL(__nv_bfloat16, 80);             \
+  }
+
 // `dm` non-null selects the dropout variant (and needs `lse`).
 cudaError_t forward(const void* q, const void* k, const void* v,
                     const int* mask, const uint8_t* dm, void* o, float* lse,
@@ -662,6 +676,12 @@ cudaError_t forward(const void* q, const void* k, const void* v,
                                      N, D, heads, scale, causal, 1.f, s)
     EVAL_ONLY_DISPATCH(dtype, D / heads, EVAL)
 #undef EVAL
+  } else if (!dm) {
+#define FWD_LSE(T, DH)                                                    \
+  launch_kernel<T, DH, true, false>(q, k, v, mask, nullptr, o, lse, B, N, D, \
+                                    heads, scale, causal, 1.f, s)
+    TRAIN80_DISPATCH(dtype, D / heads, FWD_LSE)
+#undef FWD_LSE
   }
 #define FWD(T, DH)                                                          \
   launch<T, DH>(q, k, v, mask, dm, o, lse, B, N, D, heads, scale, causal, \
@@ -686,6 +706,7 @@ cudaError_t backward(const void* q, const void* k, const void* v,
   if (dm) {
     MHA_DISPATCH(dtype, D / heads, BWD_DROP)
   }
+  TRAIN80_DISPATCH(dtype, D / heads, BWD_PLAIN)
   MHA_DISPATCH(dtype, D / heads, BWD_PLAIN)
 #undef BWD_PLAIN
 #undef BWD_DROP
@@ -1750,8 +1771,9 @@ cudaError_t forward(const void* q, const void* k, const void* v,
 
 // q/k/v/o: [B, N, D] contiguous, head h = columns h*dh:(h+1)*dh; mask:
 // [B, N] int32 key validity or null. dtype: 0 = float32, 1 = bfloat16.
-// Supports dh in {32, 64, 80, 88, 128} and 1 <= N <= 512 (the forwards with
-// lse and the backward: dh in {32, 64, 128}). Returns cudaGetLastError().
+// Supports dh in {32, 64, 80, 88, 128} and 1 <= N <= 512 (the forward with
+// lse and the backward: dh in {32, 64, 80, 128}; the dropout pair: {32, 64,
+// 128}). Returns cudaGetLastError().
 extern "C" int mha_forward(const void* q, const void* k, const void* v,
                            const void* mask, void* o, int B, int N, int D,
                            int heads, float scale, int causal, int dtype,

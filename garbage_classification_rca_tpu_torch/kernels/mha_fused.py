@@ -35,9 +35,11 @@ fp32 dropout forward at those shapes on 3xTF32 tensor-core products
 ("tc32": one kernel a side, a block per (head, sample)); every other
 shape, the fp32 eval forward and the fp32 training forward without
 dropout on the fp32 CUDA-core kernels ("cuda_core"; the last takes "tc32"
-on request). The eval forward ``mha`` alone also takes head dims 80
-(OPT-2.7B) and 88 (EVA ViT-g), on the CUDA cores (``mha_plan``); the flash
-pairs refuse them. A failure of any route raises; none gives way to another.
+on request). The eval forward ``mha`` also takes head dims 80 (OPT-2.7B)
+and 88 (EVA ViT-g), on the CUDA cores (``mha_plan``); the flash pair without
+dropout takes 80 too (OPT-2.7B's LoRA training, on the CUDA cores), and
+refuses 88; the dropout pair refuses both. A failure of any route raises;
+none gives way to another.
 ``launch_mha`` / ``launch_fwd_lse`` / ``launch_fwd_lse_drop`` /
 ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run a given plan (the A/B
 timing of the routes).
@@ -60,8 +62,9 @@ import torch
 
 NEG = -1e30
 MAX_N = 512          # DistilBERT's position table, the most --seq_len gives
-HEAD_DIMS = (32, 64, 128)          # every kernel: K2, the flash pairs
-MHA_HEAD_DIMS = (32, 64, 80, 88, 128)   # K2 alone: + OPT-2.7B, EVA ViT-g
+HEAD_DIMS = (32, 64, 128)          # every kernel: K2, both flash pairs
+FLASH_HEAD_DIMS = (32, 64, 80, 128)     # K2, K4a / K4b: + OPT-2.7B's LoRA
+MHA_HEAD_DIMS = (32, 64, 80, 88, 128)   # K2 alone: + EVA ViT-g
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
 TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
@@ -308,8 +311,8 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
                dropout: bool = False) -> FlashPlan:
     """The launch plan of an attention call on q / k / v of `shape`
     [B, N, D] with `heads` heads (`dropout`: the dropout pair, which has no
-    "tc" route): each side on the tensor cores where a route takes the
-    shape, else "cuda_core". The fp32 forward without dropout keeps
+    "tc" route and no head dim 80): each side on the tensor cores where a
+    route takes the shape, else "cuda_core" (head dim 80 always). The fp32 forward without dropout keeps
     "cuda_core" unless asked for "tc32": the CUDA-core kernel takes the
     same fp32 fused multiply-adds in the same order as the plain version's
     products, bit for bit, and the 3xTF32 kernel's fp32-level differences
@@ -322,9 +325,11 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     if dtype not in _DTYPES:
         raise TypeError(f"the flash pair takes float32 / bfloat16, got "
                         f"{dtype}")
-    if heads <= 0 or d % heads or d // heads not in HEAD_DIMS:
-        raise ValueError(f"the flash pair takes head dims {HEAD_DIMS}, got "
-                         f"D={d} with {heads} heads")
+    dims = HEAD_DIMS if dropout else FLASH_HEAD_DIMS
+    if heads <= 0 or d % heads or d // heads not in dims:
+        raise ValueError(f"the flash {'dropout ' if dropout else ''}pair "
+                         f"takes head dims {dims}, got D={d} with {heads} "
+                         f"heads")
     if n < 1:
         raise ValueError(f"the flash pair takes N >= 1, got {n}")
     dh = d // heads
@@ -420,7 +425,7 @@ def launch_fwd_lse(plan: FlashPlan, q, k, v, *, heads: int,
     (``flash_plan`` of this shape, any route that takes it)."""
     _check(q, k, v, heads, mask)
     b, n, d = q.shape
-    _kernel_args([q, k, v, mask], b, d, heads)
+    _kernel_args([q, k, v, mask], b, d, heads, FLASH_HEAD_DIMS)
     if q.device.type != "cuda":
         raise ValueError("launch_fwd_lse takes CUDA tensors")
     from . import _build
@@ -535,7 +540,7 @@ def launch_flash_bwd(plan: FlashPlan, q, k, v, o, do, lse, *, heads: int,
     _check_lse(q, lse, heads)
     b, n, d = q.shape
     do = do.to(q.dtype).contiguous()
-    _kernel_args([q, k, v, o, do, lse, mask], b, d, heads)
+    _kernel_args([q, k, v, o, do, lse, mask], b, d, heads, FLASH_HEAD_DIMS)
     if q.device.type != "cuda":
         raise ValueError("launch_flash_bwd takes CUDA tensors")
     from . import _build
@@ -588,14 +593,15 @@ mha_flash_bwd.route_launches = {"tc": 0, "tc32": 0, "cuda_core": 0}
 
 def flash_train_fits(shape, heads: int, dtype) -> bool:
     """Whether the flash pair takes [B, N, D] with `heads` heads: fp32 or
-    bf16, head dims 32 / 64 / 128, 1 <= N <= 512 (the CUDA-core forward
-    holds 32 fp32 score rows of N in shared memory), B <= 65535. Within
-    that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to the
-    "tc" route, the fp32 backward at head dim 64 and N <= 64 to "tc32" and
-    the rest to the CUDA-core kernels."""
+    bf16, head dims 32 / 64 / 80 / 128, 1 <= N <= 512 (the CUDA-core
+    forward holds 32 fp32 score rows of N in shared memory), B <= 65535.
+    Within that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to
+    the "tc" route, the fp32 backward at head dim 64 and N <= 64 to "tc32"
+    and the rest (head dim 80 among it) to the CUDA-core kernels."""
     b, n, d = shape
     return (dtype in _DTYPES and heads > 0 and d % heads == 0
-            and d // heads in HEAD_DIMS and 1 <= n <= MAX_N and b <= 65535)
+            and d // heads in FLASH_HEAD_DIMS and 1 <= n <= MAX_N
+            and b <= 65535)
 
 
 class _FlashTrain(torch.autograd.Function):
@@ -630,8 +636,8 @@ def mha_flash_train(q, k, v, *, heads: int, scale: float = 0.0,
                                  mask=mask, causal=causal)
         raise ValueError(
             f"the flash train kernels take N <= {MAX_N}, head dims "
-            f"{HEAD_DIMS} and float32/bfloat16, got {tuple(q.shape)} with "
-            f"{heads} heads in {q.dtype}")
+            f"{FLASH_HEAD_DIMS} and float32/bfloat16, got {tuple(q.shape)} "
+            f"with {heads} heads in {q.dtype}")
     return _FlashTrain.apply(q, k, v, mask, heads, float(scale),
                              bool(causal))
 
@@ -843,9 +849,11 @@ def flash_drop_fits(shape, heads: int, dtype) -> bool:
     """Whether the dropout pair takes [B, N, D] with `heads` heads. The
     keep mask is read from device memory a tile at a time and costs the
     kernels no shared memory that grows with N, so the limits are the
-    plain pair's (``flash_train_fits``). A caller asks this before it
-    consumes the dropout site."""
-    return flash_train_fits(shape, heads, dtype)
+    plain pair's (``flash_train_fits``) at head dims 32 / 64 / 128 (no path
+    drops OPT-2.7B's attention weights: head dim 80 has no dropout pair).
+    A caller asks this before it consumes the dropout site."""
+    return (flash_train_fits(shape, heads, dtype)
+            and shape[2] // heads in HEAD_DIMS)
 
 
 def drop_keep_mask(key, p: float, b: int, heads: int, n: int,

@@ -1,12 +1,21 @@
-"""BLIP-2 assembly, eval: vision -> Q-Former -> projection -> OPT, with
-LoRA on the OPT q / k projections.
+"""BLIP-2 assembly: vision -> Q-Former -> projection -> OPT, with LoRA on
+the OPT q / k projections.
 
-The port of the eval part of the JAX package's ``models/vlm/blip2.py``:
+The port of the JAX package's ``models/vlm/blip2.py`` without its serving
+paths:
   * ``next_token_logits``: the reference's ``generate(max_new_tokens=1)``
     eval as one forward -> the logits after each row's last valid prompt
     token (left- or right-padded), gathered BEFORE the 50272-wide lm head;
   * ``qformer_cls_feature``: ``last_hidden_state[:, 0, :]`` of the
     Q-Former, the feature of the Linear(768, 4) classifier;
+  * ``lm_loss``: the LoRA trainer's loss (reference blip_2_training.py:
+    280-293), the shifted next-token CE over the text segment, -100
+    labels ignored; with an ``HFDropout`` the Q-Former's and OPT's HF
+    train-mode sites and peft's lora_dropout run. EVA, the Q-Former and
+    the projection run without autograd (their weights are frozen), so
+    the graph starts at OPT, as XLA prunes the JAX package's gradient with
+    respect to the adapters; the lm head runs only at the positions whose
+    shifted label counts;
   * ``convert_torch``: an HF ``Blip2ForConditionalGeneration`` state dict,
     plain or peft-wrapped (``base_model.model.`` prefixes, ``.base_layer``
     names, ``lora_A`` / ``lora_B``), into the JAX package's trees.
@@ -22,11 +31,14 @@ classifier stay fp32 (the JAX code reads them in fp32).
 
 On the card the model runs K2 71 times a forward: 39 in the EVA tower
 (head dim 88), 32 in the OPT decoder (head dim 80, causal + key mask);
-``qformer_cls_feature`` runs the EVA tower's 39.
+``qformer_cls_feature`` runs the EVA tower's 39. ``lm_loss`` runs K2 39
+times (EVA), K4a 32 times and, in its backward, K4b 32 times (OPT, head
+dim 80).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
@@ -50,6 +62,7 @@ class Blip2Config:
     opt: opt_mod.OPTConfig = field(default_factory=opt_mod.OPTConfig)
     lora_r: int = 32
     lora_alpha: int = 8
+    lora_dropout: float = 0.05      # train-time only, with an HFDropout
 
     @property
     def lora_scale(self) -> float:
@@ -73,13 +86,15 @@ class Blip2Model(nn.Module):
                            if classifier else None)
 
     @torch.no_grad()
-    def cast_(self, dtype: torch.dtype) -> "Blip2Model":
-        """Cast every parameter but the LayerNorms' and the classifier's
-        to `dtype`, in place."""
+    def cast_(self, dtype: torch.dtype, keep_fp32=()) -> "Blip2Model":
+        """Cast every parameter but the LayerNorms', the classifier's and
+        those of the child modules named in `keep_fp32` (the trainer's fp32
+        adapters: ``("lora",)``) to `dtype`, in place."""
         keep = {id(t) for m in self.modules()
                 if isinstance(m, core.LayerNorm) for t in m.parameters()}
-        if self.classifier is not None:
-            keep |= {id(t) for t in self.classifier.parameters()}
+        for name in ("classifier",) + tuple(keep_fp32):
+            if getattr(self, name) is not None:
+                keep |= {id(t) for t in getattr(self, name).parameters()}
         for t in self.parameters():
             if id(t) not in keep:
                 t.data = t.data.to(dtype)
@@ -147,26 +162,51 @@ def init_classifier_(clf: core.Linear, seed: int):
     return clf
 
 
-def query_features(model: Blip2Model, pixel_values) -> torch.Tensor:
-    """NHWC CLIP-normalized images -> Q-Former outputs [B, 32, 768]."""
-    return model.qformer(model.vision(pixel_values))
+def query_features(model: Blip2Model, pixel_values, drop=None
+                   ) -> torch.Tensor:
+    """NHWC CLIP-normalized images -> Q-Former outputs [B, 32, 768].
+    `drop`: an optional ``HFDropout`` for the Q-Former's train-mode sites
+    (the EVA tower has none: its attention_dropout is 0.0)."""
+    return model.qformer(model.vision(pixel_values), drop)
 
 
-def qformer_cls_feature(model: Blip2Model, pixel_values) -> torch.Tensor:
-    return query_features(model, pixel_values)[:, 0]
+def qformer_cls_feature(model: Blip2Model, pixel_values, drop=None
+                        ) -> torch.Tensor:
+    return query_features(model, pixel_values, drop)[:, 0]
 
 
-def _lm_hidden(model: Blip2Model, pixel_values, input_ids, attention_mask
-               ) -> torch.Tensor:
-    """-> OPT final hidden [B, 32 + L, H] over the combined sequence."""
-    q_emb = model.projection(query_features(model, pixel_values))
-    t_emb = opt_mod.embed_tokens(model.opt, input_ids).to(q_emb.dtype)
+def _lm_hidden(model: Blip2Model, pixel_values, input_ids, attention_mask,
+               train: bool = False, drop=None) -> torch.Tensor:
+    """-> OPT final hidden [B, 32 + L, H] over the combined sequence.
+    `train`: the frozen towers before OPT run without autograd and OPT's
+    attention is the differentiable flash pair."""
+    with torch.no_grad() if train else contextlib.nullcontext():
+        q_emb = model.projection(query_features(model, pixel_values, drop))
+        t_emb = opt_mod.embed_tokens(model.opt, input_ids).to(q_emb.dtype)
     embeds = torch.cat([q_emb, t_emb], dim=1)
     q_mask = torch.ones(q_emb.shape[:2], dtype=attention_mask.dtype,
                         device=attention_mask.device)
     mask = torch.cat([q_mask, attention_mask], dim=1)
     return opt_mod.decode_hidden(model.opt, embeds, mask, lora=model.lora,
-                                 lora_scale=model.cfg.lora_scale)
+                                 lora_scale=model.cfg.lora_scale,
+                                 train=train, drop=drop,
+                                 lora_p=model.cfg.lora_dropout)
+
+
+def lm_loss(model: Blip2Model, pixel_values, input_ids, attention_mask,
+            labels, drop=None) -> torch.Tensor:
+    """HF ``Blip2ForConditionalGeneration``'s loss: the next-token CE over
+    the text segment of [32 query tokens, input_ids], labels [B, L] with
+    -100 where nothing counts (``opt.shifted_ce``'s value, through its
+    ``token_ce``). `drop`: an optional ``HFDropout``
+    (``--hf_internal_dropout``). The lm head runs on the counted positions
+    alone; the mean divides by their number (at least 1)."""
+    h = _lm_hidden(model, pixel_values, input_ids, attention_mask,
+                   train=True, drop=drop)
+    target = labels[:, 1:]
+    keep = target != -100
+    h = h[:, model.cfg.qformer.n_query:-1][keep]          # [M, H]
+    return opt_mod.token_ce(opt_mod.lm_head(model.opt, h), target[keep])
 
 
 def _last_valid_index(mask: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""BLIP-2 Q-Former, the image-grounded feature extractor (eval).
+"""BLIP-2 Q-Former, the image-grounded feature extractor.
 
-The port of the JAX package's ``models/vlm/qformer.py`` without its
-dropout sites. 32 learned query tokens attend to the frozen vision states:
+The port of the JAX package's ``models/vlm/qformer.py``. 32 learned query
+tokens attend to the frozen vision states:
 BERT-style self-attention every layer, cross-attention to the image
 embeddings every ``cross_frequency`` layers (2 for blip2-opt-2.7b), the
 query FFN (``intermediate_query`` / ``output_query``); post-norm, LayerNorm
-eps 1e-12.
+eps 1e-12. With an active ``nn.core.HFDropout`` (``--hf_internal_dropout``)
+the HF model's train-mode sites run, in the JAX package's order: the
+embeddings' output after its LayerNorm, then per layer the self-attention
+weights and output, the cross-attention weights and output, the FFN
+output (p = 0.1 each).
 
 The attention is the JAX package's own einsum attention (it calls no
 kernel there either): scores summed in fp32 from the activations' values,
@@ -26,6 +30,10 @@ from ...nn import core
 from ..text.encoder_common import lin, ln_
 
 LN_EPS = 1e-12
+# Salesforce/blip2-opt-2.7b's qformer config: hidden_dropout_prob and
+# attention_probs_dropout_prob, active only with an HFDropout
+HIDDEN_DROPOUT = 0.1
+ATTN_DROPOUT = 0.1
 
 
 @dataclass(frozen=True)
@@ -50,7 +58,7 @@ class Attention(nn.Module):
         self.out = core.Linear(d, d)
         self.ln = core.LayerNorm(d, LN_EPS)
 
-    def forward(self, x_q, x_kv, heads: int):
+    def forward(self, x_q, x_kv, heads: int, drop=None):
         b, nq, d = x_q.shape
         nk, hd = x_kv.shape[1], d // heads
         q = self.q(x_q).reshape(b, nq, heads, hd).transpose(1, 2)
@@ -59,8 +67,12 @@ class Attention(nn.Module):
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
             / math.sqrt(hd)
         w = torch.softmax(scores, dim=-1).to(v.dtype)
-        att = torch.matmul(w, v).transpose(1, 2).reshape(b, nq, d)
-        return self.ln(x_q + self.out(att))
+        if drop is not None:
+            w = drop(w, ATTN_DROPOUT)
+        att = self.out(torch.matmul(w, v).transpose(1, 2).reshape(b, nq, d))
+        if drop is not None:
+            att = drop(att, HIDDEN_DROPOUT)
+        return self.ln(x_q + att)
 
 
 class QFormerLayer(nn.Module):
@@ -87,18 +99,23 @@ class QFormer(nn.Module):
             QFormerLayer(cfg, i % cfg.cross_frequency == 0)
             for i in range(cfg.layers))
 
-    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+    def forward(self, image_embeds: torch.Tensor, drop=None
+                ) -> torch.Tensor:
         """image_embeds [B, 257, vision_hidden] -> query outputs
-        [B, n_query, hidden]."""
+        [B, n_query, hidden]; `drop`: an optional ``HFDropout``."""
         cfg = self.cfg
         h = self.query_tokens.to(image_embeds.dtype).expand(
             image_embeds.shape[0], -1, -1)
         h = self.ln_emb(h)
+        if drop is not None:
+            h = drop(h, HIDDEN_DROPOUT)
         for lp in self.layers:
-            h = lp.att(h, h, cfg.heads)
+            h = lp.att(h, h, cfg.heads, drop)
             if lp.cross is not None:
-                h = lp.cross(h, image_embeds, cfg.heads)
+                h = lp.cross(h, image_embeds, cfg.heads, drop)
             ff = lp.fc2_q(core.gelu(lp.fc1_q(h)))
+            if drop is not None:
+                ff = drop(ff, HIDDEN_DROPOUT)
             h = lp.ln_ffn_q(h + ff)
         return h
 

@@ -25,6 +25,7 @@ import math
 import os
 import re
 import time
+import zipfile
 from dataclasses import dataclass
 from datetime import datetime
 from typing import Callable, Dict, Iterable, List, Optional
@@ -79,10 +80,13 @@ def stacked_batches(batcher, batch_size: int, acc_steps: int, *, seed: int,
 
 def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
               val_acc: float, args: RunConfig, fine_tuning: bool,
-              keep_top_k: int = 0) -> str:
+              keep_top_k: int = 0, layers: Optional[int] = None) -> str:
     """A BEST checkpoint under the JAX package's name
     (``model_weights/<model>/BEST_model_..._VAL_ACC_<acc>_<time>``): one
-    ``torch.save`` file holding the state_dict (on the CPU) and meta."""
+    ``torch.save`` file holding the state_dict (on the CPU) and meta.
+    `layers`: the depth to record for a module without transformer layers
+    of its own (the VLM trainers' adapters and classifier; default
+    ``model_depth``)."""
     base = os.path.join("model_weights", model_name)
     os.makedirs(base, exist_ok=True)
     if fine_tuning:
@@ -96,7 +100,7 @@ def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
     path = os.path.abspath(os.path.join(base, name))
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     meta = {"epoch": epoch, "val_acc": val_acc, "fine_tuning": fine_tuning,
-            "layers": model_depth(model)}
+            "layers": model_depth(model) if layers is None else layers}
     torch.save({"format": CHECKPOINT_FORMAT, "state_dict": state,
                 "meta": meta}, path)
     print(f"Saving weights to {path}")
@@ -118,8 +122,13 @@ def model_depth(model: torch.nn.Module) -> int:
 
 def load_checkpoint(path: str) -> Optional[Dict]:
     """The payload of a ``save_best`` file, or None when `path` holds
-    something else (e.g. a reference .pth state dict)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    something else (e.g. a reference .pth state dict). The tensors are
+    mapped, not read, so that telling a multi-GiB reference .pth from a
+    BEST file costs its header; a file not in torch's zip format is not
+    a ``save_best`` one."""
+    if not zipfile.is_zipfile(path):
+        return None
+    obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     if isinstance(obj, dict) and obj.get("format") == CHECKPOINT_FORMAT:
         return obj
     return None

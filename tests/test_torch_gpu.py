@@ -129,8 +129,8 @@ VLM_SHAPES = {"eva": (3, 257, 1408, 16, False), "opt": (3, 132, 2560, 32, True)}
 @pytest.mark.parametrize("name", sorted(VLM_SHAPES))
 def test_mha_kernel_at_vlm_head_dims_matches_plain(cuda, name, dtype):
     """fp32 |d| <= 1e-5 + 1e-5 |x|; bf16 one ulp + 1e-3 (the CUDA-core K2's
-    bars); one launch on the CUDA-core route; the flash pair refuses the
-    head dim."""
+    bars); one launch on the CUDA-core route; the flash pair refuses head
+    dim 88 (EVA never trains; OPT's 80 is held below)."""
     b, n, d, heads, causal = VLM_SHAPES[name]
     g = torch.Generator().manual_seed(n)
     q, k, v = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
@@ -153,8 +153,55 @@ def test_mha_kernel_at_vlm_head_dims_matches_plain(cuda, name, dtype):
         e = torch.floor(torch.log2(torch.maximum(g_.abs(), w_.abs())
                                    .clamp_min(2.0 ** -126)))
         assert bool(((g_ - w_).abs() <= torch.pow(2.0, e - 7) + 1e-3).all())
-    with pytest.raises(ValueError, match="head dim"):
-        mha_fused.mha_fwd_lse(q, k, v, heads=heads, mask=m, causal=causal)
+    if d // heads == 88:
+        with pytest.raises(ValueError, match="head dim"):
+            mha_fused.mha_fwd_lse(q, k, v, heads=heads, mask=m,
+                                  causal=causal)
+
+
+@pytest.mark.parametrize("n", [136, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_pair_at_head_dim_80_matches_plain(cuda, dtype, n):
+    """K4a / K4b at OPT-2.7B's LoRA training shape (32 heads of 80, N 136
+    = 32 query tokens + 100 prompt + 4 label tokens, causal with a
+    left-pad key mask; sample 0 all pad, sample 1 one valid key) and at
+    N = 1, on the CUDA cores: out / lse at the forward bars, dQ / dK / dV
+    at the backward bars (bf16 dQ / dK at N = 1, zero in exact arithmetic,
+    at ``_single_key_close``'s); one launch of each."""
+    b, d, heads = 3, 2560, 32
+    g = torch.Generator().manual_seed(80 + n)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    pad = torch.tensor([n, n - 1, min(40, n - 1)])[:, None]
+    m = (torch.arange(n)[None] >= pad).to(torch.int32).to(cuda)
+    kw = dict(heads=heads, mask=m, causal=True)
+    assert mha_fused.flash_plan(q.shape, heads, dtype) == mha_fused.flash_plan(
+        q.shape, heads, dtype, route="cuda_core")
+    f0 = dict(mha_fused.mha_fwd_lse.route_launches)
+    b0 = dict(mha_fused.mha_flash_bwd.route_launches)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert mha_fused.mha_fwd_lse.route_launches == {
+        **f0, "cuda_core": f0["cuda_core"] + 1}
+    assert mha_fused.mha_flash_bwd.route_launches == {
+        **b0, "cuda_core": b0["cuda_core"] + 1}
+    o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_w, rtol=1e-5, atol=1e-5)
+    else:
+        g_, w_ = o.float(), o_w.float()
+        e = torch.floor(torch.log2(torch.maximum(g_.abs(), w_.abs())
+                                   .clamp_min(2.0 ** -126)))
+        assert bool(((g_ - w_).abs() <= torch.pow(2.0, e - 7) + 1e-3).all())
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+    if n == 1 and dtype == torch.bfloat16:
+        # dQ / dK are zero in exact arithmetic: rounding noise of two dots
+        _single_key_close(grads, q, k, v, do, heads)
+        grads, want = grads[2:], want[2:]
+    for x, y in zip(grads, want):
+        _grad_close(x, y, dtype)
 
 
 def _grad_close(got, want, dtype):

@@ -90,6 +90,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_image.main(["--image_model=transformer_B16",
                          "--model_path=x.pth"])
+    from garbage_classification_rca_tpu_torch.cli import (blip2_train,
+                                                          qformer_train)
+
+    for trainer in (blip2_train, qformer_train):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.main(["--dataset_folder_name=x"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_text_model("distilbert").load_tree({"encoder": {"layers": []}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -338,16 +344,18 @@ def test_vlm_host_copies_match_jax(tmp_path):
     assert tbc.left_pad([5, 6], 4, 1) == jbc.left_pad([5, 6], 4, 1)
     assert tbc.left_pad(list(range(9)), 4, 1) == jbc.left_pad(
         list(range(9)), 4, 1)
-    # every field of the port's configurations (eval ones: the JAX
-    # package's also carry train-time dropout) equal to the JAX package's
+    # every field of the port's configurations (with the train-time
+    # dropout rates) equal to the JAX package's
     for t, j in ((tblip2.Blip2Config(), jblip2.Blip2Config()),
                  (tbc.tiny_blip2_config(), jbc.tiny_blip2_config())):
         for part in ("vision", "qformer", "opt"):
             tp, jp_ = getattr(t, part), getattr(j, part)
             for f in dataclasses.fields(tp):
                 assert getattr(tp, f.name) == getattr(jp_, f.name), f.name
-        assert (t.lora_r, t.lora_alpha, t.lora_scale) == (
-            j.lora_r, j.lora_alpha, j.lora_scale)
+            assert {f.name for f in dataclasses.fields(tp)} == {
+                f.name for f in dataclasses.fields(jp_)}, part
+        assert (t.lora_r, t.lora_alpha, t.lora_scale, t.lora_dropout) == (
+            j.lora_r, j.lora_alpha, j.lora_scale, j.lora_dropout)
 
 
 def test_blip2_batcher_matches_jax(tiny_dataset):
@@ -373,3 +381,43 @@ def test_blip2_batcher_matches_jax(tiny_dataset):
         assert g.keys() == w.keys()
         for k in g:
             assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+
+
+def test_vlm_train_windows_and_constants_match_jax(tiny_dataset):
+    """The trainers' host side: the shuffled windows of ``acc_steps``
+    microbatches (a trailing partial one) of ``iter_accum_windows`` with
+    every batch key, the recipes' constants and the Q-Former's dropout
+    rates."""
+    from garbage_classification_rca_tpu.cli import blip2_common as jbc
+    from garbage_classification_rca_tpu.cli import blip2_train as jtrain
+    from garbage_classification_rca_tpu.cli import qformer_train as jqtrain
+    from garbage_classification_rca_tpu.models.vlm import qformer as jqf
+    from garbage_classification_rca_tpu_torch.cli import blip2_common as tbc
+    from garbage_classification_rca_tpu_torch.cli import blip2_train as ttrain
+    from garbage_classification_rca_tpu_torch.cli import (
+        qformer_train as tqtrain)
+    from garbage_classification_rca_tpu_torch.models.vlm import qformer as tqf
+
+    bpe = str(VOCAB.parent / "bpe")
+    tb = tbc.Blip2Batcher(tmanifest.build_manifest(str(tiny_dataset)),
+                          ttokenizer.get_tokenizer("opt", vocab_dir=bpe),
+                          workers=2)
+    jb = jbc.Blip2Batcher(jmanifest.build_manifest(str(tiny_dataset)),
+                          jtokenizer.get_tokenizer("opt", vocab_dir=bpe),
+                          workers=2)
+    got = list(tbc.iter_accum_windows(tb, 2, 4, shuffle=True, seed=3))
+    want = list(jbc.iter_accum_windows(jb, 2, 4, shuffle=True, seed=3))
+    tb.close()
+    jb.close()
+    assert [w["valid"].shape[0] for w in got] == [4, 2]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g) == jbc.BATCH_KEYS
+        for k in g:
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+    assert (ttrain.BLIP2_LR, ttrain.BLIP2_ACC, tqtrain.QF_ACC) == (
+        jtrain.BLIP2_LR, jtrain.BLIP2_ACC, jqtrain.QF_ACC)
+    for mod in (ttrain, tqtrain):
+        assert (mod.TRAIN_SUFFIX, mod.VAL_SUFFIX) == ("_Train", "_Val")
+    assert (tqf.HIDDEN_DROPOUT, tqf.ATTN_DROPOUT) == (jqf.HIDDEN_DROPOUT,
+                                                      jqf.ATTN_DROPOUT)

@@ -114,9 +114,11 @@ def test_k2_plain_matches_pallas_at_vlm_head_dims(name):
 def test_mha_plan_takes_vlm_head_dims_for_the_eval_forward_only(shape,
                                                                 heads):
     """``mha_plan`` sends head dims 88 / 80 to the CUDA-core forward with
-    no backward (its grid and shared memory: 67,072 bytes at N 257);
-    ``flash_plan`` (the training pairs) and the tensor-core route refuse
-    them; another head dim still raises."""
+    no backward (its grid and shared memory: 67,072 bytes at N 257); the
+    tensor-core route refuses them. ``flash_plan`` refuses 88 for both
+    training pairs and 80 for the dropout pair; the flash pair without
+    dropout takes 80 on the CUDA cores (OPT-2.7B's LoRA training:
+    ``tests/test_torch_vlm_train.py``). Another head dim still raises."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = K.mha_plan(shape, heads, dtype)
         b, n, d = shape
@@ -124,7 +126,12 @@ def test_mha_plan_takes_vlm_head_dims_for_the_eval_forward_only(shape,
             "cuda_core", "none", (-(-n // 32), heads, b))
         assert plan.smem_fwd == 4 * (96 * (d // heads + 1) + 32 * n)
         with pytest.raises(ValueError, match="head dims"):
-            K.flash_plan(shape, heads, dtype)
+            K.flash_plan(shape, heads, dtype, dropout=True)
+        if d // heads == 88:
+            with pytest.raises(ValueError, match="head dims"):
+                K.flash_plan(shape, heads, dtype)
+        else:
+            assert K.flash_plan(shape, heads, dtype).bwd_route == "cuda_core"
         with pytest.raises(ValueError, match="CUDA cores only"):
             K.mha_plan(shape, heads, dtype, route="tc")
     assert K.mha_plan((16, 257, 1408), 16, torch.bfloat16).smem_fwd == 67072

@@ -9,7 +9,7 @@ on the ``tiny_dataset`` fixture (``GC_RCA_TINY_BLIP2=1``, the CPU):
     ``MultimodalClassifier`` state dict. fp32 compute (``--compute_dtype``),
     so that no bf16 rounding of either framework decides an argmax;
   * the flags of the paths the port does not run yet raise, each as its
-    message says (ROADMAP.md queue 1 items 5 to 7), and the Q-Former
+    message says (ROADMAP.md queue 1 items 6 and 7), and the Q-Former
     classifier file's diagnostics match the JAX CLI's.
 """
 
@@ -192,8 +192,8 @@ def _port(cli):
     ("--gen_temperature=0.7", "item 6"),
     ("--int8_weights", "item 6"),
     ("--kv_cache_dtype=int8", "item 6"),
-    ("--mesh_shape=data:2", "items 5 and 7"),
-    ("--mesh_shape=data:1,pipe:2", "items 5 and 7"),
+    ("--mesh_shape=data:2", "item 7"),
+    ("--mesh_shape=data:1,pipe:2", "item 7"),
 ])
 def test_blip2_test_refuses_unported_flags(flag, match, tiny_dataset):
     with pytest.raises(NotImplementedError, match=match):
@@ -209,11 +209,14 @@ def test_vlm_clis_refuse_orbax_dirs_multihost_and_training(
     with pytest.raises(SystemExit, match="orbax"):
         _port("qformer_test")(base + [f"--classifier_weights={tmp_path}"])
     for cli in ("blip2_train", "qformer_train"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _port(cli)(base)
+        with pytest.raises(NotImplementedError, match="RESUME"):
+            _port(cli)(base + ["--resume_every_steps=2"])
+        with pytest.raises(NotImplementedError, match="mesh_shape"):
+            _port(cli)(base + ["--mesh_shape=data:1,pipe:2"])
     monkeypatch.setenv("GC_RCA_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        _port("qformer_test")(base)
+    for cli in ("qformer_test", "blip2_train", "qformer_train"):
+        with pytest.raises(NotImplementedError, match="multi-host"):
+            _port(cli)(base)
 
 
 @pytest.mark.parametrize("bad,match", [
