@@ -146,8 +146,12 @@ Phases, each of which fails the run when it fails:
      path's two shapes (EVA 16 x 257 x 1408, 16 heads of 88, unmasked; OPT
      16 x 132 x 2560, 32 heads of 80, causal with the left-pad mask; with
      a fully masked sample and a single-key one) against its plain
-     version in fp32 and bf16, timed beside the plain version, SDPA with
-     the equivalent additive bias and the bound; the fp32 and bf16 kernel
+     version: fp32 on the CUDA cores, bf16 on the tensor cores (the
+     default; also at N = 1 and with a sample whose first 100 keys are
+     pads) and on the CUDA cores (``route="cuda_core"``) on the same
+     inputs; both bf16 routes timed new-old-old-new beside the plain
+     version, SDPA with the equivalent additive bias and the bound; the
+     fp32 and bf16 kernel
      paths against the plain path (next-token logits over the four answer
      tokens, classifier logits) with K2's launches counted (71 a BLIP-2
      batch, 39 a Q-Former batch); BLIP-2 eval at batch 16 and 8 and the
@@ -159,10 +163,14 @@ Phases, each of which fails the run when it fails:
      ``.pth`` and a MultimodalClassifier ``.pth``;
  13. VLM train: K4a / K4b at OPT-2.7B's LoRA shape (16 x 136 x 2560, 32
      heads of 80, causal, the path's left-pad mask; a fully masked and a
-     single-key sample; N = 1) against the plain pair in fp32 and bf16,
-     the bf16 pair timed beside the plain pair, the library's efficient
-     attention with the equivalent additive bias (and its backward) and
-     the bound; BLIP-2 LoRA training at full width and depth (phase 12's
+     single-key sample; N = 1) against the plain pair in fp32 (the CUDA
+     cores) and bf16 (the default plan, K4a on the tensor cores and K4b on
+     the CUDA cores, also with a sample whose first 100 keys are pads; and
+     the CUDA-core pair on request, on the same inputs), the bf16 K4a
+     timed on both routes new-old-old-new and K4b, beside the plain pair,
+     the library's efficient attention with the equivalent additive bias
+     (and its backward) and the bound; BLIP-2 LoRA training at full
+     width and depth (phase 12's
      seeded towers in bf16, fp32 adapters with B != 0, microbatch 16 x acc
      8): one warm-up optimizer step and two timed with the counters zeroed
      before and read after (per microbatch K2 39, K4a 32, K4b 32, the rest
@@ -244,8 +252,10 @@ Tolerances (kernel vs plain version, same inputs, same card):
     runs no kernel, bf16 against fp32 as phase 10's towers
     (``bf16_vs_fp32``), the CLIP head without the relative bar
     (``_kernel_less_check`` says why).
-  * VLM eval (phase 12): K2 at head dims 88 / 80 to the CUDA-core K2's
-    bars (fp32 1e-5 + 1e-5|x|, bf16 one ulp + 1e-3); the fp32 kernel path
+  * VLM eval (phase 12): K2 at head dims 88 / 80 on the CUDA cores to
+    their bars (fp32 1e-5 + 1e-5|x|, bf16 one ulp + 1e-3), on the tensor
+    cores to the one-flip limit of K2's tensor-core route above, with the
+    count over one ulp + 1e-3 printed; the fp32 kernel path
     against the plain path within 1e-4 of the largest |logit| (the
     next-token logits come out of a 50272-wide tied lm head over 32 + 39
     layers: an absolute 1e-4 has no scale); bf16 as phase 11
@@ -254,15 +264,16 @@ Tolerances (kernel vs plain version, same inputs, same card):
     bars above (fp32 1e-5 + 1e-5|x| and 5e-5 (1 + |x|); bf16 one ulp +
     1e-3 and one ulp + 2e-3 max; at N = 1 in bf16 dQ / dK held to the
     rounding of their two dot products, as the tensor-core route's edge
-    cases); the LoRA microbatch, kernel path against the same path with
-    OPT's flash pair on its plain versions (EVA on K2 on both sides), with
-    the train bars: fp32 (TF32 off) loss within 1e-5 relative and every
-    adapter gradient within 1e-4 of its tensor's largest |g|, bf16 loss
-    within 1e-3 relative and every gradient's cosine >= 0.999; a gradient
-    that misses its bar passes if the kernel path moves it no further than
-    the plain path's query embeddings moved by one ulp (the control,
-    measured in the same run: the random model's first OPT layers are
-    ill-conditioned; three draws) move the furthest-moved gradient
+    cases; the tensor-core K4a's output to the one-flip limit, its lse to
+    1e-5 + 1e-5|x|); the LoRA microbatch, kernel path against the same
+    path with OPT's flash pair on its plain versions (EVA on K2 on both
+    sides), with the train bars: fp32 (TF32 off) loss within 1e-5 relative
+    and every adapter gradient within 1e-4 of its tensor's largest |g|,
+    bf16 loss within 1e-3 relative and every gradient's cosine >= 0.999; a
+    gradient that misses its bar passes if the kernel path moves it no
+    further than the plain path's query embeddings moved by one ulp (the
+    control, measured in the same run: the random model's first OPT layers
+    are ill-conditioned; three draws) move the furthest-moved gradient
     (``compare_vlm_train_paths``); the count within the bar itself is
     printed.
   * conv eval (phase 10): fp32 folded against unfolded, max |logit
@@ -2056,6 +2067,15 @@ def _block_part(name: str):
     return None
 
 
+def _wide_lse(n: str) -> bool:
+    """Whether a profiler name of ``ftc::wide_kernel<DH, MASKED, CAUSAL,
+    LSE>`` is the instance with lse (K4a)."""
+    import re
+
+    f = re.search(r"wide_kernel<\d+, *\w+, *\w+, *(\w+)>", n)
+    return bool(f) and f[1] in ("true", "1")
+
+
 def _kind(name: str) -> str:
     n = name.lower()
     part = _block_part(name)
@@ -2068,6 +2088,9 @@ def _kind(name: str) -> str:
                 "ln": "block LayerNorm rows"}[part]
     if "rca_fused_kernel" in n or "rca_fwd_" in n:
         return "rca_fused kernel"
+    if "wide_kernel" in n:      # the tensor-core forward at head dims 80 / 88
+        return ("mha_fwd_lse kernel (tensor cores)" if _wide_lse(n)
+                else "mha kernel")
     if "ftc::" in n:            # the tensor-core route: K4a, K4b
         if "fwd_kernel" in n:
             return "mha_fwd_lse kernel (tensor cores)"
@@ -4743,15 +4766,33 @@ def _k2_flops(b, n, d, mask, causal):
     return 4 * pairs * d
 
 
+def _late_mask(m, n, first):
+    """`m` with sample 2's first `first` keys padded: its causal rows 0 ..
+    first - 1 attend no key at or before the diagonal, and the query tile
+    that holds row `first` holds both kinds of rows."""
+    import torch
+
+    late = m.cpu().clone()
+    late[2] = (torch.arange(n) >= first).to(torch.int32)
+    return late.to(m.device)
+
+
 def check_vlm_kernels(device, path_mask, results):
     """K2 at the path's two shapes, batch VLM_BATCH: the EVA tower's
     16 heads of 88 over 257 tokens unmasked (and once with a key mask
     holding a fully masked sample and one with a single valid key), the
     OPT decoder's 32 heads of 80 over 132 tokens, causal, with the path's
     mask (32 query tokens + the left-padded prompt) and with such edge
-    samples; fp32 and bf16 against ``mha_reference`` (1e-5 + 1e-5|x|; one
-    ulp + 1e-3), the bf16 call timed as phase 3 times K2 (a CUDA graph of
-    20 launches, median of 5) beside the plain version, SDPA with the
+    samples. fp32 runs the CUDA cores (its one route), bf16 both routes on
+    the same inputs: the CUDA cores (``route="cuda_core"``) against
+    ``mha_reference`` at 1e-5 + 1e-5|x| / one ulp + 1e-3, the tensor cores
+    (the default) at the one-flip bar (``_k2_held``: one ulp + one
+    weight's rounding move, the count past one ulp + 1e-3 beside it),
+    bit-identical over two runs, each launch on its route's counter; the
+    tensor cores also at N = 1 and, for OPT, with a sample whose first 100
+    keys are pads (``_late_mask``). Then the path's bf16 call on both
+    routes timed new-old-old-new as phase 3 times K2 (a CUDA graph of 20
+    launches, median of 5) beside the plain version, SDPA with the
     equivalent additive bias and the bound."""
     import torch
     import torch.nn.functional as F
@@ -4759,6 +4800,7 @@ def check_vlm_kernels(device, path_mask, results):
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
 
     gen = torch.Generator().manual_seed(SEED + 250)
+    gen_tc = torch.Generator().manual_seed(SEED + 251)
     ok_all, rows = True, []
     shapes = {"eva": (VLM_BATCH, 257, 1408, 16, False, None),
               "opt": (VLM_BATCH, 132, 2560, 32, True, path_mask)}
@@ -4770,28 +4812,59 @@ def check_vlm_kernels(device, path_mask, results):
         edge[1] = 0
         edge[1, -1] = 1                               # one valid key
         edge = edge.to(device)
-        errs = {}
+        errs, over = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((b, n, d), generator=gen).to(device, dtype)
                        for _ in range(3))
+            bf16 = dtype == torch.bfloat16
             for label, mm in (("path", m), ("edge", edge)):
                 plan = K.mha_plan(q.shape, h, dtype)
-                got = K.mha(q, k, v, heads=h, mask=mm, causal=causal)
+                c0 = dict(K.mha.route_launches)
+                got = K.mha(q, k, v, heads=h, mask=mm, causal=causal,
+                            route="cuda_core")
                 torch.cuda.synchronize()
                 want = K.mha_reference(q, k, v, heads=h, mask=mm,
                                        causal=causal)
                 err, ok = max_err_ok(got, want, dtype, "mha")
-                ok &= plan.route == "cuda_core" and plan.bwd_route == "none"
+                ok &= (plan.route == ("tc" if bf16 else "cuda_core")
+                       and plan.bwd_route == "none")
+                ok &= K.mha.route_launches == {
+                    **c0, "cuda_core": c0["cuda_core"] + 1}
                 ok_all &= ok
                 errs[f"{str(dtype)[6:]}_{label}"] = err
                 print(f"  mha cuda_core {str(dtype)[6:]:8s} {name} B={b} "
                       f"N={n} D={d} H={h} (head dim {d // h}) causal="
                       f"{causal!s:5s} mask={label}: max|d|={err:.3e} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
-        # the path's call in bf16, timed
+                if bf16:
+                    ok_all &= _vlm_k2_tc(K, q, k, v, h, mm, causal, want,
+                                         name, label, errs, over)
+            if not bf16:
+                continue
+            # the tensor cores' own edge cases: N = 1; a late first key
+            q1, k1, v1 = (torch.randn((b, 1, d), generator=gen_tc).to(
+                device, dtype) for _ in range(3))
+            m1 = torch.ones((b, 1), dtype=torch.int32, device=device)
+            m1[0] = 0
+            for label, mm, qq, kk, vv in (
+                    ("N=1", m1 if causal else None, q1, k1, v1),
+                    ("late", _late_mask(m, n, 100) if causal else None,
+                     q, k, v)):
+                if label == "late" and not causal:
+                    continue
+                want = K.mha_reference(qq, kk, vv, heads=h, mask=mm,
+                                       causal=causal)
+                ok_all &= _vlm_k2_tc(K, qq, kk, vv, h, mm, causal, want,
+                                     name, label, errs, over)
+        # the path's call in bf16, both routes timed
         q, k, v = (torch.randn((b, n, d), generator=gen).to(
             device, torch.bfloat16) for _ in range(3))
-        ms = time_ms(lambda: K.mha(q, k, v, heads=h, mask=m, causal=causal))
+        run = {r: functools.partial(K.mha, q, k, v, heads=h, mask=m,
+                                    causal=causal, route=r)
+               for r in ("tc", "cuda_core")}
+        ab = {"tc": [], "cuda_core": []}
+        for route in ("tc", "cuda_core", "cuda_core", "tc"):
+            ab[route].append(time_ms(run[route])[0])
         plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=m,
                                                 causal=causal))[0]
         allowed = torch.ones((b, n, n), dtype=torch.bool, device=device)
@@ -4810,22 +4883,54 @@ def check_vlm_kernels(device, path_mask, results):
         bound_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound = max(bound_ops, bound_bytes)
+        ms, cc = sum(ab["tc"]) / 2, sum(ab["cuda_core"]) / 2
         rows.append({"tower": name, "shape": [b, n, d], "heads": h,
                      "head_dim": d // h, "causal": causal,
-                     "masked": m is not None, "ms": ms[0],
-                     "ms_min_max": ms[1:], "plain_ms": plain,
-                     "library_ms": library, "bound_ms": bound,
+                     "masked": m is not None, "ms": ms,
+                     "ms_runs": ab["tc"], "cuda_core_ms": cc,
+                     "cuda_core_ms_runs": ab["cuda_core"],
+                     "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bound,
                      "bound_by": "operations" if bound_ops >= bound_bytes
-                     else "bytes", "share_of_bound": bound / ms[0],
-                     "tflops": flops / ms[0] / 1e9, "max_abs_err": errs})
-        print(f"  mha bf16 {name} {b}x{n}x{d}, {h} heads: {ms[0]:.4f} ms "
-              f"({ms[1]:.4f}-{ms[2]:.4f}), {flops / ms[0] / 1e9:.2f} "
-              f"TFLOP/s; plain {plain:.4f} ms, sdpa (additive bias) "
-              f"{library:.4f} ms, bound {bound:.4f} ms "
-              f"({rows[-1]['bound_by']}); share of the bound "
-              f"{bound / ms[0]:.3f}", flush=True)
+                     else "bytes", "share_of_bound": bound / ms,
+                     "cuda_core_share_of_bound": bound / cc,
+                     "tflops": flops / ms / 1e9, "max_abs_err": errs,
+                     "over_one_ulp_1e-3": over})
+        print(f"  mha bf16 {name} {b}x{n}x{d}, {h} heads, new-old-old-new: "
+              f"tc {ab['tc'][0]:.4f} / {ab['tc'][1]:.4f} ms, CUDA cores "
+              f"{ab['cuda_core'][0]:.4f} / {ab['cuda_core'][1]:.4f} ms; tc "
+              f"{flops / ms / 1e9:.2f} TFLOP/s; plain {plain:.4f} ms, sdpa "
+              f"(additive bias) {library:.4f} ms, bound {bound:.4f} ms "
+              f"({rows[-1]['bound_by']}); share of the bound tc "
+              f"{bound / ms:.3f}, CUDA cores {bound / cc:.3f}; tc / sdpa "
+              f"{ms / library:.2f}", flush=True)
     results["vlm_k2"] = rows
     return ok_all
+
+
+def _vlm_k2_tc(K, q, k, v, h, m, causal, want, tower, label, errs, over):
+    """K2's default (tensor-core) route on one case against `want`, the
+    plain version's output: the one-flip bar, bit-identical over two runs,
+    two launches on the "tc" counter. Records the error and the count of
+    elements past one ulp + 1e-3 under `label`."""
+    import torch
+
+    c0 = dict(K.mha.route_launches)
+    plan = K.mha_plan(q.shape, h, q.dtype)
+    got = K.mha(q, k, v, heads=h, mask=m, causal=causal)
+    again = K.mha(q, k, v, heads=h, mask=m, causal=causal)
+    torch.cuda.synchronize()
+    err, ok, n_over = _k2_held(got, want, q, k, v, h, m, causal, True)
+    ok &= (torch.equal(got, again) and plan.route == "tc"
+           and K.mha.route_launches == {**c0, "tc": c0["tc"] + 2})
+    errs[f"tc_{label}"] = err
+    over[f"tc_{label}"] = n_over
+    b, n, d = q.shape
+    print(f"  mha tc        bfloat16 {tower} B={b} N={n} D={d} H={h} (head "
+          f"dim {d // h}) causal={causal!s:5s} mask={label}: max|d|="
+          f"{err:.3e}, over one ulp + 1e-3: {n_over}; bit-identical over two "
+          f"runs {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def check_vlm_eval(device, results):
@@ -4894,7 +4999,7 @@ def check_vlm_eval(device, results):
                 and tuple(lk.shape) == (VLM_BATCH, 4))
         _zero_counters()
         lk16 = _vlm_logits(what, m16, first, aft, torch.bfloat16, device)
-        ran16 = _read_counters() == _want_launches(mha=VLM_K2[what])
+        ran16 = _read_counters() == _want_launches(mha_tc=VLM_K2[what])
         with plain_versions():
             lp16 = _vlm_logits(what, m16, first, aft, torch.bfloat16,
                                device)
@@ -4931,7 +5036,7 @@ def check_vlm_eval(device, results):
         torch.cuda.synchronize()
         launches = _read_counters()
         peak = torch.cuda.max_memory_allocated(device)
-        want = _want_launches(mha=VLM_K2[what] * n_batches)
+        want = _want_launches(mha_tc=VLM_K2[what] * n_batches)
         good = launches == want and len(preds) == len(data.m)
         prof = profile_step(step, data.batch(0, bs), device, reps=2)
         k2_ms = prof["by_kind_ms"].get("mha kernel", 0.0)
@@ -5101,7 +5206,8 @@ def check_vlm_clis(device, results):
             secs = time.perf_counter() - t0
             launches = _read_counters()
             what = "blip2" if cli is blip2_test else "qformer"
-            good = main_ok and launches == _want_launches(mha=VLM_K2[what])
+            good = main_ok and launches == _want_launches(
+                mha_tc=VLM_K2[what])
             print(f"  cli.{name} on 16 JPEGs in {secs:.1f} s (the .pth "
                   f"read included): launches "
                   f"{ {k: v for k, v in launches.items() if v} } "
@@ -5129,17 +5235,21 @@ def check_vlm_clis(device, results):
 VLM_TRAIN_BATCH, VLM_ACC = 16, 8     # --batch_size and the recipes' acc 8
 VLM_TRAIN_FP32_BATCH = 4             # the fp32 check beside the bf16 model
 # per microbatch: K2 39 (EVA), K4a 32 and K4b 32 (OPT); the Q-Former K2 39
-VLM_TRAIN_LAUNCHES = {"blip2": {"mha": 39, "mha_fwd_lse": 32,
+VLM_TRAIN_LAUNCHES = {"blip2": {"mha_tc": 39, "mha_fwd_lse_tc": 32,
                                 "mha_flash_bwd": 32},
-                      "qformer": {"mha": 39}}
+                      "qformer": {"mha_tc": 39}}
 VLM_LABEL_TOKENS = 4
 
 
 def _vlm_train_kind(name: str) -> str:
-    """Phase 13's kinds: the CUDA-core K2 / K4a (one kernel template,
-    ``mha_kernel<T, DH, LSE, DROP>``: K4a writes the lse), K4b's two
+    """Phase 13's kinds: K2 / K4a on the tensor cores (one kernel template,
+    ``ftc::wide_kernel<DH, MASKED, CAUSAL, LSE>``) or the CUDA cores
+    (``mha_kernel<T, DH, LSE, DROP>``; K4a writes the lse), K4b's two
     kernels, and ``_kind``'s for the rest."""
     n = name.lower()
+    if "wide_kernel" in n:
+        return ("K4a mha_fwd_lse (head dim 80)" if _wide_lse(n)
+                else "K2 mha (head dim 88)")
     if "mha_kernel" in n:
         return ("K4a mha_fwd_lse (head dim 80)" if ", true, false>" in n
                 else "K2 mha (head dim 88)")
@@ -5191,10 +5301,17 @@ def check_vlm_train_kernels(device, path_mask, results):
     causal, the path's left-pad key mask), fp32 and bf16, against the
     plain pair (``_held_to_plain``: fp32 1e-5 + 1e-5|x| / 5e-5 (1 + |x|);
     bf16 one ulp + 1e-3 / one ulp + 2e-3 max), with a fully masked and a
-    single-key sample, and at N = 1; each on the CUDA-core route, once; the
-    bf16 pair timed (CUDA graphs of 20 launches, median of 5) beside the
-    plain pair, the library's efficient attention with the equivalent
-    additive bias (forward + lse, and its backward) and the bound."""
+    single-key sample, and at N = 1. fp32 runs the CUDA cores on both
+    sides; bf16 runs the pair on both of its plans on the same inputs: the
+    CUDA cores (``route="cuda_core"``) as in fp32, and the default, K4a on
+    the tensor cores (the one-flip bar on the output, lse 1e-5 + 1e-5|x|)
+    with K4b on the CUDA cores from that forward's out and lse; each
+    launch on its route's counter; the default also with a sample whose
+    first 100 keys are pads (``_late_mask``). Then the path's bf16 call
+    timed (CUDA graphs of 20 launches, median of 5): K4a on both routes
+    new-old-old-new, K4b, beside the plain pair, the library's efficient
+    attention with the equivalent additive bias (forward + lse, and its
+    backward) and the bound."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
@@ -5207,38 +5324,37 @@ def check_vlm_train_kernels(device, path_mask, results):
     edge[1, -1] = 1                                   # one valid key
     ok_all, errs = True, {}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for label, nn_, m in (("path", n, path_mask), ("edge", n, edge),
                               ("N=1", 1, torch.ones((b, 1), dtype=torch.int32,
                                                     device=device))):
             q, k, v, do = (torch.randn((b, nn_, d), generator=gen).to(
                 device, dtype) for _ in range(4))
-            plan = K.flash_plan(q.shape, h, dtype)
-            f0 = dict(K.mha_fwd_lse.route_launches)
-            b0 = dict(K.mha_flash_bwd.route_launches)
-            o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=m, causal=True)
-            grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h, mask=m,
-                                    causal=True)
-            torch.cuda.synchronize()
-            e_f, e_b, ok = _held_to_plain(
-                q, k, v, do, h, m, True, o, lse, grads,
-                edge=dtype == torch.bfloat16 and nn_ == 1)
-            ok &= (plan.route, plan.bwd_route) == ("cuda_core", "cuda_core")
-            ok &= K.mha_fwd_lse.route_launches["cuda_core"] == \
-                f0["cuda_core"] + 1
-            ok &= K.mha_flash_bwd.route_launches["cuda_core"] == \
-                b0["cuda_core"] + 1
-            ok_all &= ok
-            errs[f"{str(dtype)[6:]}_{label}"] = {"fwd": e_f, "bwd": e_b}
-            print(f"  flash pair cuda_core {str(dtype)[6:]:8s} B={b} "
-                  f"N={nn_:3d} D={d} H={h} (head dim 80) causal mask="
-                  f"{label}: fwd max|d|={e_f:.3e} bwd {e_b:.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            routes = [("cuda_core", ("cuda_core", "cuda_core"))]
+            if bf16:
+                routes.append((None, ("tc", "cuda_core")))
+            for route, want_plan in routes:
+                ok_all &= _vlm_pair_case(K, q, k, v, do, h, m, route,
+                                         want_plan, label, errs)
+        if bf16:
+            q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
+                device, dtype) for _ in range(4))
+            ok_all &= _vlm_pair_case(K, q, k, v, do, h,
+                                     _late_mask(path_mask, n, 100), None,
+                                     ("tc", "cuda_core"), "late", errs)
     # the path's call in bf16, timed
     q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
         device, torch.bfloat16) for _ in range(4))
     o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=path_mask, causal=True)
-    ms_f = time_ms(lambda: K.mha_fwd_lse(q, k, v, heads=h, mask=path_mask,
-                                         causal=True))
+    tc = K.flash_plan(q.shape, h, q.dtype)
+    old = K.flash_plan(q.shape, h, q.dtype, route="cuda_core")
+    fwd = {r: functools.partial(K.launch_fwd_lse, p, q, k, v, heads=h,
+                                mask=path_mask, causal=True)
+           for r, p in (("tc", tc), ("cuda_core", old))}
+    ab = {"tc": [], "cuda_core": []}
+    for route in ("tc", "cuda_core", "cuda_core", "tc"):
+        ab[route].append(time_ms(fwd[route])[0])
+    ms_f = sum(ab["tc"]) / 2
     ms_b = time_ms(lambda: K.mha_flash_bwd(q, k, v, o, do, lse, heads=h,
                                            mask=path_mask, causal=True))
     plain_f = time_ms(lambda: K.mha_fwd_lse_reference(
@@ -5259,27 +5375,79 @@ def check_vlm_train_kernels(device, path_mask, results):
     del lib, bias
     fl_f, by_f, fl_b, by_b = _vlm_train_bound(q, path_mask)
     rows = {}
-    for name, line, ms, plain, lib_ms, flops, nbytes, side in (
-            ("mha_fwd_lse_hd80", 274, ms_f, plain_f, lib_f, fl_f, by_f,
-             "fwd"),
+    for name, line, ms, plain, lib_ms, flops, nbytes, side, extra in (
+            ("mha_fwd_lse_hd80", 274, (ms_f, min(ab["tc"]), max(ab["tc"])),
+             plain_f, lib_f, fl_f, by_f, "fwd",
+             {"kernel_route": "tc", "ms_runs": ab["tc"],
+              "cuda_core_ms": sum(ab["cuda_core"]) / 2,
+              "cuda_core_ms_runs": ab["cuda_core"]}),
             ("mha_flash_bwd_hd80", 317, ms_b, plain_b, lib_b, fl_b, by_b,
-             "bwd")):
+             "bwd", {"kernel_route": "cuda_core"})):
         row = _fwd_row(name, ms[0], plain, lib_ms, flops, nbytes,
                        max(e[side] for e in errs.values()), line,
                        "bfloat16", max_abs_err_by_case={
                            k_: e[side] for k_, e in errs.items()},
                        ms_min_max=ms[1:], shape=[b, n, d],
                        heads=h, head_dim=80, causal=True, dtype="bfloat16",
-                       operations=flops, bytes_moved=nbytes)
+                       operations=flops, bytes_moved=nbytes, **extra)
+        if "cuda_core_ms" in extra:
+            row["cuda_core_share_of_bound"] = (row["bound_ms"]
+                                               / extra["cuda_core_ms"])
         rows[name] = row
-        print(f"  {name} bf16 {b}x{n}x{d}, 32 heads of 80, causal + mask: "
-              f"{ms[0]:.4f} ms ({ms[1]:.4f}-{ms[2]:.4f}); plain "
-              f"{plain:.4f} ms, efficient attention (additive bias) "
-              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); share of the bound "
-              f"{row['share_of_bound']:.3f}", flush=True)
+        old_s = (f", CUDA cores {ab['cuda_core'][0]:.4f} / "
+                 f"{ab['cuda_core'][1]:.4f} ms (new-old-old-new: tc "
+                 f"{ab['tc'][0]:.4f} / {ab['tc'][1]:.4f})"
+                 if side == "fwd" else "")
+        print(f"  {name} bf16 {b}x{n}x{d}, 32 heads of 80, causal + mask, "
+              f"{extra['kernel_route']}: {ms[0]:.4f} ms ({ms[1]:.4f}-"
+              f"{ms[2]:.4f}){old_s}; plain {plain:.4f} ms, efficient "
+              f"attention (additive bias) {lib_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); share of the "
+              f"bound {row['share_of_bound']:.3f}; / library "
+              f"{ms[0] / lib_ms:.2f}", flush=True)
     results["vlm_train_kernels"] = rows
     return ok_all
+
+
+def _vlm_pair_case(K, q, k, v, do, h, m, route, want_plan, label, errs):
+    """The flash pair at head dim 80, causal, on one case under `route`
+    (None: the default plan), against the plain pair: `want_plan` its
+    (forward, backward) routes, one launch on each route's counter; the
+    tensor-core forward at the one-flip bar (``_held_to_plain``'s
+    `edge`), the CUDA-core pair at the plain bars (``_single_key`` at
+    N = 1 in bf16). Records the errors under "<dtype>_<label>" (with
+    "_tc" for the default route in bf16)."""
+    import torch
+
+    plan = K.flash_plan(q.shape, h, q.dtype, route=route)
+    f0 = dict(K.mha_fwd_lse.route_launches)
+    b0 = dict(K.mha_flash_bwd.route_launches)
+    o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=m, causal=True) \
+        if route is None else K.launch_fwd_lse(plan, q, k, v, heads=h,
+                                               mask=m, causal=True)
+    grads = K.mha_flash_bwd(q, k, v, o, do, lse, heads=h, mask=m,
+                            causal=True) if route is None else \
+        K.launch_flash_bwd(plan, q, k, v, o, do, lse, heads=h, mask=m,
+                           causal=True)
+    torch.cuda.synchronize()
+    bf16 = q.dtype == torch.bfloat16
+    nn_ = q.shape[1]
+    e_f, e_b, ok = _held_to_plain(
+        q, k, v, do, h, m, True, o, lse, grads,
+        edge=bf16 and (plan.route == "tc" or nn_ == 1))
+    ok &= (plan.route, plan.bwd_route) == want_plan
+    ok &= K.mha_fwd_lse.route_launches == {
+        **f0, want_plan[0]: f0[want_plan[0]] + 1}
+    ok &= K.mha_flash_bwd.route_launches == {
+        **b0, want_plan[1]: b0[want_plan[1]] + 1}
+    tag = f"{str(q.dtype)[6:]}_{label}" + ("_tc" if route is None and bf16
+                                           else "")
+    errs[tag] = {"fwd": e_f, "bwd": e_b}
+    print(f"  flash pair {plan.route}/{plan.bwd_route} {str(q.dtype)[6:]:8s} "
+          f"B={q.shape[0]} N={nn_:3d} D={q.shape[2]} H={h} (head dim 80) "
+          f"causal mask={label}: fwd max|d|={e_f:.3e} bwd {e_b:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def _adapter_grads(model, mb, dtype):
@@ -5599,9 +5767,9 @@ def check_vlm_train_clis(device, results):
         os.chdir(work)
         base = ["--dataset_folder_name=vlm", "--batch_size=16",
                 "--epochs=1"]
-        want = {"blip2_train": {"mha": 39 + 71, "mha_fwd_lse": 32,
+        want = {"blip2_train": {"mha_tc": 39 + 71, "mha_fwd_lse_tc": 32,
                                 "mha_flash_bwd": 32},
-                "qformer_train": {"mha": 39 + 39}}
+                "qformer_train": {"mha_tc": 39 + 39}}
         best = {}
         for cli in (blip2_train, qformer_train):
             name = cli.__name__.rsplit(".", 1)[-1]
@@ -5638,7 +5806,8 @@ def check_vlm_train_clis(device, results):
                 cli, argv + ["--dataset_folder_name=vlm_Val"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            good = main_ok and _read_counters() == _want_launches(mha=k2)
+            good = main_ok and _read_counters() == _want_launches(
+                mha_tc=k2)
             print(f"  cli.{name} on the BEST file in {secs:.1f} s "
                   f"{'ok' if good else 'FAIL'}", flush=True)
             out[name] = {"seconds": secs, "report": report, "ok": good}
@@ -5673,6 +5842,13 @@ def ptxas_report(log: str):
                        "ResidualEpi1": "residual post-norm",
                        "QkvEpi": "attention QKV"}[g[2] + (g[3] or "")]
                 entry = f"gemm_kernel<{g[1]}> ({epi})"
+            elif re.search(r"3ftc\d+wide_kernelILi(\d+)ELb(\d)ELb(\d)ELb"
+                           r"(\d)E", name):
+                # the tensor-core forward at head dims 80 / 88 (K2, K4a)
+                f = re.search(r"wide_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                              name)
+                entry = (f"wide_kernel<dh={f[1]}, masked={f[2]}, causal="
+                         f"{f[3]}, lse={f[4]}> (tc)")
             elif re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E", name):
                 f = re.search(r"3ftc\d+(\w+?_kernel)ILb(\d)ELb(\d)E"
                               r"(?:Lb(\d)E)?", name)
@@ -5884,16 +6060,36 @@ def main() -> int:
         kernels.append(row)
         if row["launches"] <= 0:
             return _fail(f"{key} was not launched on the {path} path")
-    # K4a / K4b at head dim 80 (the CUDA-core kernels' instantiations for
-    # OPT-2.7B): launched on the VLM train path, read from its counters
-    for key, counter in (("mha_fwd_lse_hd80", "mha_fwd_lse"),
+    # K2 at head dims 88 / 80 on the tensor cores (ftc::wide_kernel, the
+    # only attention of the VLM eval path: EVA 39 and OPT 32 a BLIP-2
+    # batch, EVA 39 a Q-Former batch), timed in phase 12; K4a at head dim
+    # 80 on the tensor cores and K4b on the CUDA cores (OPT-2.7B's LoRA
+    # training), timed in phase 13: launched on the VLM paths, read from
+    # their counters
+    k2 = results["vlm_k2"]
+    tc_errs = [e for r in k2 for key, e in r["max_abs_err"].items()
+               if key.startswith("tc_")]
+    vlm_rows = [("mha_tc_vlm", "mha_tc", "vlm_eval", {
+        "name": "mha_tc_vlm", "route": "cuda",
+        "source": "garbage_classification_rca_tpu_torch/csrc/flash_tc.cuh",
+        "replaces": "garbage_classification_rca_tpu/kernels/mha_fused.py:91",
+        "max_abs_err": max(tc_errs),
+        **{key: k2[0][key] for key in (
+            "ms", "ms_runs", "cuda_core_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "share_of_bound", "shape", "heads",
+            "head_dim", "over_one_ulp_1e-3")},
+        "other_shapes": k2[1:]})]
+    for key, counter in (("mha_fwd_lse_hd80", "mha_fwd_lse_tc"),
                          ("mha_flash_bwd_hd80", "mha_flash_bwd")):
-        row = dict(results["vlm_train_kernels"][key])
-        row["launches"] = by_path["vlm_train"][counter]
+        vlm_rows.append((key, counter, "vlm_train",
+                         results["vlm_train_kernels"][key]))
+    for key, counter, path, row in vlm_rows:
+        row = dict(row)
+        row["launches"] = by_path[path][counter]
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
         kernels.append(row)
         if row["launches"] <= 0:
-            return _fail(f"{key} was not launched on the vlm_train path")
+            return _fail(f"{key} was not launched on the {path} path")
     print(json.dumps({"model": results["model"], "train": results["train"],
                       "text_eval": results["text_eval"],
                       "text_eval_others": {

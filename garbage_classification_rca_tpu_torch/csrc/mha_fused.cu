@@ -29,19 +29,24 @@
 // tiles: they serve head dims 32 / 128, fp32 at N > 64, bf16 at N > 256, the
 // fp32 eval forward, the fp32 training forward without dropout (its sums are
 // taken in the plain version's order, bit for bit), the bf16 dropout
-// forward, the eval forward at head dims 80 (OPT-2.7B, causal with a key
-// mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose last
-// column lies past the head skips it, and the training pair without dropout
-// at head dim 80 (OPT-2.7B's LoRA training, N = 136, fp32 and bf16: five
-// columns a lane in the backward). In bf16 at head dim 64 and N <= 256 (the MM-RCA eval's
-// DistilBERT, the ViT val eval and the ViT-B/16 trainer) the eval forward
-// and the training pair have a tensor-core route of their own,
-// mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc (namespace
-// ftc below); in fp32 at head dim 64 and N <= 64 (the DistilBERT attention
-// of the text and MM-RCA trainers) the backward, with or without dropout,
-// and the dropout forward run on 3xTF32 products, mha_flash_backward_tc32
-// / mha_forward_lse_tc32 (namespace tc32; the forward without dropout on
-// request). kernels/mha_fused.py::flash_plan picks the route.
+// forward, the fp32 eval forward at head dims 80 (OPT-2.7B, causal with a
+// key mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose
+// last column lies past the head skips it, and the training pair without
+// dropout at head dim 80 (OPT-2.7B's LoRA training, N = 136: the fp32
+// pair and the bf16 backward, five columns a lane there); the bf16 forward
+// at 80 / 88 runs there only on request (route "cuda_core", the A/B) or
+// past the tensor cores' N. In bf16 at head dim 64 and N <= 256 (the
+// MM-RCA eval's DistilBERT, the ViT val eval and the ViT-B/16 trainer) the
+// eval forward and the training pair have a tensor-core route of their
+// own, mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc
+// (namespace ftc below); so do the bf16 forwards at head dims 88 (EVA's
+// K2, N <= 272) and 80 (OPT's K2 and K4a, N <= 256), through the same C
+// entries (flash_tc.cuh's wide_kernel); in fp32 at head dim 64 and N <=
+// 64 (the DistilBERT attention of the text and MM-RCA trainers) the
+// backward, with or without dropout, and the dropout forward run on 3xTF32
+// products, mha_flash_backward_tc32 / mha_forward_lse_tc32 (namespace tc32;
+// the forward without dropout on request). kernels/mha_fused.py::flash_plan
+// (mha_plan for K2) picks the route.
 
 //
 // mha_flash_backward replaces ::_mha_flash_bwd (body `_bwd_kernel`): the
@@ -714,7 +719,8 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// the flash pair on the tensor cores: bf16, head dim 64, 1 <= N <= 256
+// the flash pair on the tensor cores: bf16, head dim 64, 1 <= N <= 256 (the
+// forward also at head dims 80 / 88: flash_tc.cuh's wide_kernel)
 // ---------------------------------------------------------------------------
 //
 // mha_forward_lse_tc and mha_flash_backward_tc compute what mha_forward_lse
@@ -1044,12 +1050,50 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// The forward of flash_tc.cuh at head dim 80 or 88 (wide_kernel), its
+// instance picked from the call; with lse (K4a) at head dim 80 only, the
+// one the flash pair takes.
+template <int DH>
+cudaError_t forward_wide(const void* q, const void* k, const void* v,
+                         const int* mask, void* o, float* lse, int B, int N,
+                         int D, int heads, float scale, int causal, int np,
+                         dim3 grid, int smem, cudaStream_t stream) {
+#define WIDE(M, C, L)                                                       \
+  return launch_wide<DH, M, C, L>(q, k, v, mask, o, lse, B, N, D, heads,  \
+                                  scale, np, grid, smem, stream)
+  if (lse) {
+    if constexpr (DH == 80) {
+      if (mask) {
+        if (causal) WIDE(true, true, true);
+        WIDE(true, false, true);
+      }
+      if (causal) WIDE(false, true, true);
+      WIDE(false, false, true);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (mask) {
+    if (causal) WIDE(true, true, false);
+    WIDE(true, false, false);
+  }
+  if (causal) WIDE(false, true, false);
+  WIDE(false, false, false);
+#undef WIDE
+}
+
 // The forward of flash_tc.cuh with lse (K4a) or without (K2), its instance
-// picked from the call.
+// picked from the call: fwd_kernel at head dim 64, wide_kernel at 80 / 88.
 cudaError_t forward(const void* q, const void* k, const void* v,
                     const int* mask, void* o, float* lse, int B, int N, int D,
                     int heads, float scale, int causal, int np, dim3 grid,
                     int smem, cudaStream_t stream) {
+  if (heads > 0 && D % heads == 0 && D / heads == 80)
+    return forward_wide<80>(q, k, v, mask, o, lse, B, N, D, heads, scale,
+                            causal, np, grid, smem, stream);
+  if (heads > 0 && D % heads == 0 && D / heads == 88)
+    return forward_wide<88>(q, k, v, mask, o, lse, B, N, D, heads, scale,
+                            causal, np, grid, smem, stream);
 #define FWD(M, C, L)                                                          \
   return launch_forward<M, C, L>(q, k, v, mask, o, lse, B, N, D, heads,    \
                                  scale, np, grid, smem, stream)
@@ -1853,10 +1897,11 @@ extern "C" int mha_flash_backward_drop(const void* q, const void* k,
 }
 
 // The tensor-core route of mha_forward_lse (bf16, head dim 64, 1 <= N <=
-// 256): the launch plan of kernels/mha_fused.py::flash_plan as it is (np =
-// N rounded up to 16, grid = (heads, B, 1), its dynamic shared memory),
-// refused (cudaErrorInvalidValue) if it is not the plan of this shape;
-// q / k / v / o 16-byte aligned.
+// 256; head dim 80, 1 <= N <= 256): the launch plan of
+// kernels/mha_fused.py::flash_plan as it is (np = N rounded up to 16, grid
+// = (heads, B, 1) at 64, (query tiles, heads, B) at 80, its dynamic shared
+// memory), refused (cudaErrorInvalidValue) if it is not the plan of this
+// shape; q / k / v / o 16-byte aligned.
 extern "C" int mha_forward_lse_tc(const void* q, const void* k,
                                   const void* v, const void* mask, void* o,
                                   void* lse, int B, int N, int D, int heads,
@@ -1888,10 +1933,11 @@ extern "C" int mha_flash_backward_tc(
 }
 
 // The tensor-core route of mha_forward (K2; bf16, head dim 64, 1 <= N <=
-// 256): the forward part of kernels/mha_fused.py::flash_plan (np, grid =
-// (heads, B, 1), its dynamic shared memory) as it is, refused
-// (cudaErrorInvalidValue) if it is not the plan of this shape; the same
-// kernel as mha_forward_lse_tc without the lse store.
+// 256; head dims 80 / 88, 1 <= N <= 256 / 272): the forward part of
+// kernels/mha_fused.py::flash_plan / mha_plan (np, grid = (heads, B, 1) at
+// 64, (query tiles, heads, B) at 80 / 88, its dynamic shared memory) as it
+// is, refused (cudaErrorInvalidValue) if it is not the plan of this shape;
+// the same kernel as mha_forward_lse_tc without the lse store.
 extern "C" int mha_forward_tc(const void* q, const void* k, const void* v,
                               const void* mask, void* o, int B, int N, int D,
                               int heads, float scale, int causal, int np,

@@ -36,10 +36,13 @@ fp32 dropout forward at those shapes on 3xTF32 tensor-core products
 shape, the fp32 eval forward and the fp32 training forward without
 dropout on the fp32 CUDA-core kernels ("cuda_core"; the last takes "tc32"
 on request). The eval forward ``mha`` also takes head dims 80 (OPT-2.7B)
-and 88 (EVA ViT-g), on the CUDA cores (``mha_plan``); the flash pair without
-dropout takes 80 too (OPT-2.7B's LoRA training, on the CUDA cores), and
-refuses 88; the dropout pair refuses both. A failure of any route raises;
-none gives way to another.
+and 88 (EVA ViT-g) (``mha_plan``): in bf16 on the tensor cores up to
+``TC_WIDE_MAX_N`` keys (a block per (query tile, head, sample)), in fp32,
+longer or with ``route="cuda_core"`` on the CUDA cores; the flash pair
+without dropout takes 80 too (OPT-2.7B's LoRA training: the bf16 forward
+on the tensor cores, the backward on the CUDA cores), and refuses 88; the
+dropout pair refuses both. A failure of any route raises; none gives way
+to another.
 ``launch_mha`` / ``launch_fwd_lse`` / ``launch_fwd_lse_drop`` /
 ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run a given plan (the A/B
 timing of the routes).
@@ -70,6 +73,12 @@ TC_HEAD_DIM = 64     # the flash pair's tensor-core route: bf16, head dim 64,
 TC_MAX_N = 256       # N <= 256 (four 64-row tiles: a tile's scores in
 TC_TILE = 64         # registers)
 _TC_BOX = TC_TILE * TC_HEAD_DIM * 2   # one 64 x 64 bf16 tile in shared memory
+# the tensor-core forward at head dims 80 / 88 (csrc/flash_tc.cuh
+# wide_kernel): bf16, N up to four 64-key slabs, and a fifth of 16 keys at 88
+# (EVA ViT-g's N = 257); 64-row tiles of three 32-column chunks
+TC_WIDE_MAX_N = {80: 256, 88: 272}
+_TC_WIDE_TILE = TC_TILE * 96 * 2
+_TC_WIDE_KB = 272    # the key-bias entries a block holds
 TC32_HEAD_DIM = 64   # the fp32 training pair's tensor-core route (3xTF32):
 TC32_MAX_N = 64      # head dim 64, N <= 64, the whole head in one block
 _TC32_LD = 68        # its tiles' row stride (floats; the mask's, bytes)
@@ -193,8 +202,9 @@ def mha(q, k, v, *, heads: int, scale: float = 0.0,
         route: Optional[str] = None) -> torch.Tensor:
     """q/k/v: [B, N, D]; mask: optional int32 [B, N] key validity
     (1 = attendable). Returns [B, N, D] in q's dtype. On the card it runs
-    ``mha_plan``'s route ("tc" for bf16 at head dim 64 and N <= 256, else
-    "cuda_core"); `route` asks for one (the A/B)."""
+    ``mha_plan``'s route ("tc" for bf16 at head dim 64 and N <= 256, and
+    at head dims 80 / 88 and N <= ``TC_WIDE_MAX_N``; else "cuda_core");
+    `route` asks for one (the A/B)."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, heads=heads, scale=scale, mask=mask,
@@ -207,8 +217,10 @@ def mha_plan(shape, heads: int, dtype, route: Optional[str] = None
              ) -> "FlashPlan":
     """The launch plan of ``mha`` (the eval forward) on q / k / v of
     `shape`: ``flash_plan``'s at head dims 32 / 64 / 128; at head dims 80
-    (OPT-2.7B) and 88 (EVA ViT-g), which only this forward takes, the
-    CUDA-core kernel, and no backward (``bwd_route`` "none")."""
+    (OPT-2.7B) and 88 (EVA ViT-g) the tensor-core forward for bf16 and
+    N <= ``TC_WIDE_MAX_N`` (grid (query tiles, heads, B)), else or on
+    request (``route="cuda_core"``) the CUDA-core kernel; no backward
+    (``bwd_route`` "none": the eval forward is all this call plans)."""
     b, n, d = shape
     dh = d // heads if heads > 0 and d % heads == 0 else None
     if dh in HEAD_DIMS:
@@ -218,12 +230,20 @@ def mha_plan(shape, heads: int, dtype, route: Optional[str] = None
                          f"with {heads} heads")
     if dtype not in _DTYPES:
         raise TypeError(f"mha takes float32 / bfloat16, got {dtype}")
-    if route not in (None, "cuda_core"):
-        raise ValueError(f"at head dim {dh} mha runs on the CUDA cores "
-                         f"only, not {route!r}")
     if n < 1:
         raise ValueError(f"mha takes N >= 1, got {n}")
-    return FlashPlan("cuda_core", n, *_cuda_core_fwd(b, n, heads, dh),
+    tc_fits = dtype == torch.bfloat16 and n <= TC_WIDE_MAX_N[dh]
+    route = route or ("tc" if tc_fits else "cuda_core")
+    if route not in ("tc", "cuda_core"):
+        raise ValueError(f"at head dim {dh} mha runs on the tensor cores "
+                         f"or the CUDA cores, not {route!r}")
+    if route == "tc" and not tc_fits:
+        raise ValueError(f"the tensor-core route takes bfloat16 and N <= "
+                         f"{TC_WIDE_MAX_N[dh]} at head dim {dh}; got "
+                         f"{tuple(shape)} with {heads} heads in {dtype}")
+    fwd = _tc_wide_fwd(b, n, heads) if route == "tc" else \
+        _cuda_core_fwd(b, n, heads, dh)
+    return FlashPlan(route, _pad16(n) if route == "tc" else n, *fwd,
                      "none", (0, 0, 0), 0, (0, 0, 0), 0)
 
 
@@ -279,9 +299,10 @@ class FlashPlan:
     """How one attention call (``mha``, the flash pair ``mha_fwd_lse`` /
     ``mha_flash_bwd``, the dropout pair ``mha_fwd_lse_drop`` /
     ``mha_flash_bwd_drop``) runs on the card. `route`: the forward's, "tc"
-    (bf16, head dim 64, N <= 256: wgmma products fed by TMA,
-    ``csrc/mha_fused.cu`` namespace ``ftc``), "tc32" (the fp32 training
-    forward, with or without dropout, at head dim 64 and N <= 64: one
+    (bf16, head dim 64, N <= 256, a block per (head, sample); head dims 80
+    / 88, N <= ``TC_WIDE_MAX_N``, a block per (query tile, head, sample):
+    wgmma products fed by TMA, ``csrc/flash_tc.cuh``), "tc32" (the fp32
+    training forward, with or without dropout, at head dim 64 and N <= 64: one
     kernel per (head, sample) on 3xTF32 products, namespace ``tc32``; the
     eval forward ``mha`` has none) or "cuda_core" (every other shape: the
     fp32 CUDA-core kernels).
@@ -312,7 +333,9 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     """The launch plan of an attention call on q / k / v of `shape`
     [B, N, D] with `heads` heads (`dropout`: the dropout pair, which has no
     "tc" route and no head dim 80): each side on the tensor cores where a
-    route takes the shape, else "cuda_core" (head dim 80 always). The fp32 forward without dropout keeps
+    route takes the shape, else "cuda_core" (at head dim 80 the bf16
+    forward takes "tc" up to 256 keys, the backward "cuda_core" always).
+    The fp32 forward without dropout keeps
     "cuda_core" unless asked for "tc32": the CUDA-core kernel takes the
     same fp32 fused multiply-adds in the same order as the plain version's
     products, bit for bit, and the 3xTF32 kernel's fp32-level differences
@@ -335,22 +358,28 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     dh = d // heads
     tc_fits = (not dropout and dtype == torch.bfloat16
                and dh == TC_HEAD_DIM and n <= TC_MAX_N)
+    # the forward alone at head dim 80 (OPT-2.7B's LoRA training)
+    tc_fwd_fits = tc_fits or (not dropout and dtype == torch.bfloat16
+                              and dh == 80 and n <= TC_WIDE_MAX_N[80])
     tc32_fits = (dtype == torch.float32 and dh == TC32_HEAD_DIM
                  and n <= TC32_MAX_N)
     if route is not None and bwd_route is None:
         bwd_route = route
-    route = route or ("tc" if tc_fits else "tc32" if tc32_fits and dropout
-                      else "cuda_core")
+    route = route or ("tc" if tc_fwd_fits else
+                      "tc32" if tc32_fits and dropout else "cuda_core")
     bwd_route = bwd_route or ("tc" if tc_fits else
                               "tc32" if tc32_fits else "cuda_core")
     if route not in ("tc", "tc32", "cuda_core"):
         raise ValueError(f"unknown route {route!r}")
     if bwd_route not in ("tc", "tc32", "cuda_core"):
         raise ValueError(f"unknown backward route {bwd_route!r}")
-    if "tc" in (route, bwd_route) and not tc_fits:
+    if (route == "tc" and not tc_fwd_fits) or (bwd_route == "tc"
+                                               and not tc_fits):
         raise ValueError(f"the tensor-core route takes bfloat16, head dim "
-                         f"{TC_HEAD_DIM}, N <= {TC_MAX_N}, no dropout; got "
-                         f"{tuple(shape)} with {heads} heads in {dtype}")
+                         f"{TC_HEAD_DIM}, N <= {TC_MAX_N}, no dropout (the "
+                         f"forward also head dim 80, N <= "
+                         f"{TC_WIDE_MAX_N[80]}); got {tuple(shape)} with "
+                         f"{heads} heads in {dtype}")
     if "tc32" in (route, bwd_route) and not tc32_fits:
         raise ValueError(f"the 3xTF32 route takes float32, head dim "
                          f"{TC32_HEAD_DIM}, N <= {TC32_MAX_N}; got "
@@ -361,8 +390,10 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     # queries streamed in chunks of 64, fp32 tiles of stride dh + 1; the
     # dK / dV kernel with dropout holds a 64 x 36-byte mask tile
     grid_cc, ldh = (-(-n // 32), heads, b), dh + 1
-    np_ = -(-n // 16) * 16 if "tc" in (route, bwd_route) else n
-    if route == "tc":
+    np_ = _pad16(n) if "tc" in (route, bwd_route) else n
+    if route == "tc" and dh != TC_HEAD_DIM:
+        fwd = _tc_wide_fwd(b, n, heads)
+    elif route == "tc":
         # the formula of ftc::fwd_smem: K, V and Q tiles, per-key floats,
         # mbarriers, + 1 KB for the 128-byte swizzle's alignment
         fwd = (grid, 3 * nt * _TC_BOX + TC_MAX_N * 4 + 2 * 8 + 1024)
@@ -384,6 +415,21 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
                grid_cc, 4 * (192 * ldh + 2 * 32 * 65 + 128)
                + (64 * 36 if dropout else 0))
     return FlashPlan(route, np_, *fwd, bwd_route, *bwd)
+
+
+def _pad16(n):
+    return -(-n // 16) * 16
+
+
+def _tc_wide_fwd(b, n, heads):
+    """(grid, shared memory) of the tensor-core forward at head dims 80 /
+    88, the formula of ftc::wide_smem: a block per (64-row query tile, head,
+    sample); the key-side tiles (K, then V in their place) and the query
+    tile, 96 columns each, the key biases, the mbarriers and the first
+    attendable key, + 1 KB for the swizzle's alignment."""
+    nt = -(-n // TC_TILE)
+    return ((nt, heads, b),
+            (nt + 1) * _TC_WIDE_TILE + _TC_WIDE_KB * 4 + 4 * 8 + 1024)
 
 
 def _cuda_core_fwd(b, n, heads, dh):
@@ -408,8 +454,8 @@ def mha_fwd_lse(q, k, v, *, heads: int, scale: float = 0.0,
                 mask: Optional[torch.Tensor] = None, causal: bool = False):
     """The training forward: (out [B, N, D] in q's dtype, lse [B, H, N]
     fp32). On the card it runs ``flash_plan``'s route ("tc" for bf16 at
-    head dim 64 and N <= 256, else "cuda_core"; ``launch_fwd_lse`` takes
-    "tc32" too)."""
+    head dims 64 / 80 and N <= 256, else "cuda_core"; ``launch_fwd_lse``
+    takes "tc32" too)."""
     _check(q, k, v, heads, mask)
     if q.device.type == "cpu":
         return mha_fwd_lse_reference(q, k, v, heads=heads, scale=scale,
@@ -596,8 +642,9 @@ def flash_train_fits(shape, heads: int, dtype) -> bool:
     bf16, head dims 32 / 64 / 80 / 128, 1 <= N <= 512 (the CUDA-core
     forward holds 32 fp32 score rows of N in shared memory), B <= 65535.
     Within that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to
-    the "tc" route, the fp32 backward at head dim 64 and N <= 64 to "tc32"
-    and the rest (head dim 80 among it) to the CUDA-core kernels."""
+    the "tc" route (at head dim 80 the forward alone), the fp32 backward
+    at head dim 64 and N <= 64 to "tc32" and the rest to the CUDA-core
+    kernels."""
     b, n, d = shape
     return (dtype in _DTYPES and heads > 0 and d % heads == 0
             and d // heads in FLASH_HEAD_DIMS and 1 <= n <= MAX_N

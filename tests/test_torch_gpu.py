@@ -14,7 +14,8 @@ than the plain version: its bf16 output is held to one ulp + the larger of
 1e-3 and one weight's rounding move (``_out_close``), and at N = 1, where
 dQ and dK are zero in exact arithmetic, to the rounding of the two dot
 products they come from (``_single_key_close``). K2's tensor-core route
-(bf16, head dim 64, N <= 256) is held to ``mha_reference`` the same way;
+(bf16, head dim 64, N <= 256; head dims 88 / 80, N <= 272 / 256, with K4a
+at 80) is held to ``mha_reference`` the same way;
 the fp32 training pair's 3xTF32 route (K4a / K7a and K4b / K7b at head
 dim 64, N <= 64) to the fp32 bars (1e-5 + 1e-5 |x| forward, 5e-5 (1 + |x|)
 backward), its outputs bit-identical over two runs. K1's and K3's staged
@@ -128,9 +129,11 @@ VLM_SHAPES = {"eva": (3, 257, 1408, 16, False), "opt": (3, 132, 2560, 32, True)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(VLM_SHAPES))
 def test_mha_kernel_at_vlm_head_dims_matches_plain(cuda, name, dtype):
-    """fp32 |d| <= 1e-5 + 1e-5 |x|; bf16 one ulp + 1e-3 (the CUDA-core K2's
-    bars); one launch on the CUDA-core route; the flash pair refuses head
-    dim 88 (EVA never trains; OPT's 80 is held below)."""
+    """The CUDA-core K2 (fp32's route, bf16's on request): fp32 |d| <=
+    1e-5 + 1e-5 |x|; bf16 one ulp + 1e-3; one launch on the CUDA-core
+    route; the flash pair refuses head dim 88 (EVA never trains; OPT's 80
+    is held below). bf16's default route, the tensor cores, is held in
+    ``test_mha_tc_route_at_vlm_head_dims_matches_plain``."""
     b, n, d, heads, causal = VLM_SHAPES[name]
     g = torch.Generator().manual_seed(n)
     q, k, v = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
@@ -140,7 +143,8 @@ def test_mha_kernel_at_vlm_head_dims_matches_plain(cuda, name, dtype):
         pad = torch.tensor([n, n - 1, 40])[:, None]      # left pads a row
         m = (torch.arange(n)[None] >= pad).to(torch.int32).to(cuda)
     before = dict(mha_fused.mha.route_launches)
-    got = mha_fused.mha(q, k, v, heads=heads, mask=m, causal=causal)
+    got = mha_fused.mha(q, k, v, heads=heads, mask=m, causal=causal,
+                        route="cuda_core")
     torch.cuda.synchronize()
     assert mha_fused.mha.route_launches == {
         **before, "cuda_core": before["cuda_core"] + 1}
@@ -165,9 +169,11 @@ def test_flash_pair_at_head_dim_80_matches_plain(cuda, dtype, n):
     """K4a / K4b at OPT-2.7B's LoRA training shape (32 heads of 80, N 136
     = 32 query tokens + 100 prompt + 4 label tokens, causal with a
     left-pad key mask; sample 0 all pad, sample 1 one valid key) and at
-    N = 1, on the CUDA cores: out / lse at the forward bars, dQ / dK / dV
-    at the backward bars (bf16 dQ / dK at N = 1, zero in exact arithmetic,
-    at ``_single_key_close``'s); one launch of each."""
+    N = 1, on the CUDA cores (fp32's plan, bf16's on request): out / lse
+    at the forward bars, dQ / dK / dV at the backward bars (bf16 dQ / dK
+    at N = 1, zero in exact arithmetic, at ``_single_key_close``'s); one
+    launch of each. bf16's default forward, the tensor cores, is held in
+    ``test_flash_pair_tc_forward_at_head_dim_80_matches_plain``."""
     b, d, heads = 3, 2560, 32
     g = torch.Generator().manual_seed(80 + n)
     q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
@@ -175,12 +181,14 @@ def test_flash_pair_at_head_dim_80_matches_plain(cuda, dtype, n):
     pad = torch.tensor([n, n - 1, min(40, n - 1)])[:, None]
     m = (torch.arange(n)[None] >= pad).to(torch.int32).to(cuda)
     kw = dict(heads=heads, mask=m, causal=True)
-    assert mha_fused.flash_plan(q.shape, heads, dtype) == mha_fused.flash_plan(
-        q.shape, heads, dtype, route="cuda_core")
+    plan = mha_fused.flash_plan(q.shape, heads, dtype, route="cuda_core")
+    assert (plan.route, plan.bwd_route) == ("cuda_core", "cuda_core")
+    assert mha_fused.flash_plan(q.shape, heads, dtype).bwd_route == \
+        "cuda_core"
     f0 = dict(mha_fused.mha_fwd_lse.route_launches)
     b0 = dict(mha_fused.mha_flash_bwd.route_launches)
-    o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
-    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    o, lse = mha_fused.launch_fwd_lse(plan, q, k, v, **kw)
+    grads = mha_fused.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert mha_fused.mha_fwd_lse.route_launches == {
         **f0, "cuda_core": f0["cuda_core"] + 1}
@@ -911,6 +919,113 @@ def test_mha_tc_entry_refuses_another_plan(cuda):
         with pytest.raises(RuntimeError):
             mha_fused.launch_mha(bad, q, k, v, heads=4)
     assert mha_fused.mha.route_launches == before
+
+
+# the tensor-core forward at head dims 88 (EVA ViT-g) and 80 (OPT-2.7B):
+# K2 and K4a on ftc::wide_kernel, held to the plain version with
+# _out_close (one ulp + one weight's rounding move) and lse at 1e-5
+
+def _vlm_edge_mask(n, cuda):
+    """Left pads a row: sample 0 all pad, sample 1 one valid key (the
+    last), sample 2 its first min(100, n - 1) keys; with causal, the rows
+    before a sample's first valid key attend no key at or before the
+    diagonal and spread over all N keys."""
+    pad = torch.tensor([n, n - 1, min(100, n - 1)])[:, None]
+    return (torch.arange(n)[None] >= pad).to(torch.int32).to(cuda)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("length", ["path", "one"])
+@pytest.mark.parametrize("name", sorted(VLM_SHAPES))
+def test_mha_tc_route_at_vlm_head_dims_matches_plain(cuda, name, length,
+                                                     masked):
+    """K2's default bf16 route at 16 heads of 88 (EVA, N 257) and 32 of 80
+    (OPT, causal, N 132) and at N = 1, unmasked and with
+    ``_vlm_edge_mask``; bit-identical over two runs, beside the CUDA-core
+    route on the same inputs (held to the same bar), each launch on its
+    route's counter."""
+    b, n, d, heads, causal = VLM_SHAPES[name]
+    n = n if length == "path" else 1
+    g = torch.Generator().manual_seed(17 + n)
+    q, k, v = (torch.randn((b, n, d), generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    m = _vlm_edge_mask(n, cuda) if masked else None
+    plan = mha_fused.mha_plan(q.shape, heads, q.dtype)
+    assert (plan.route, plan.grid_fwd) == ("tc", (-(-n // 64), heads, b))
+    before = dict(mha_fused.mha.route_launches)
+    runs = [mha_fused.mha(q, k, v, heads=heads, mask=m, causal=causal)
+            for _ in range(2)]
+    old = mha_fused.mha(q, k, v, heads=heads, mask=m, causal=causal,
+                        route="cuda_core")
+    torch.cuda.synchronize()
+    assert mha_fused.mha.route_launches == {
+        "tc": before["tc"] + 2, "cuda_core": before["cuda_core"] + 1}
+    assert torch.equal(runs[0], runs[1])
+    assert bool(torch.isfinite(runs[0].float()).all())
+    want = mha_fused.mha_reference(q, k, v, heads=heads, mask=m,
+                                   causal=causal)
+    _out_close(runs[0], want, q, k, v, heads, m, causal)
+    _out_close(old, want, q, k, v, heads, m, causal)
+
+
+@pytest.mark.parametrize("n", [136, 65, 1])
+def test_flash_pair_tc_forward_at_head_dim_80_matches_plain(cuda, n):
+    """K4a's default bf16 route at head dim 80 (OPT-2.7B's LoRA shape, 32
+    heads, causal, ``_vlm_edge_mask``): the tensor-core forward, lse within
+    1e-5 + 1e-5 |x| and the output at ``_out_close``, bit-identical over
+    two runs; K4b on the CUDA cores from its out and lse at the backward
+    bars (``_single_key_close`` at N = 1); one launch on each route."""
+    b, d, heads = 3, 2560, 32
+    g = torch.Generator().manual_seed(800 + n)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda,
+                                                          torch.bfloat16)
+                   for _ in range(4))
+    m = _vlm_edge_mask(n, cuda)
+    kw = dict(heads=heads, mask=m, causal=True)
+    plan = mha_fused.flash_plan(q.shape, heads, q.dtype)
+    assert (plan.route, plan.bwd_route) == ("tc", "cuda_core")
+    f0 = dict(mha_fused.mha_fwd_lse.route_launches)
+    b0 = dict(mha_fused.mha_flash_bwd.route_launches)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
+    again = mha_fused.launch_fwd_lse(plan, q, k, v, **kw)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert mha_fused.mha_fwd_lse.route_launches == {**f0, "tc": f0["tc"] + 2}
+    assert mha_fused.mha_flash_bwd.route_launches == {
+        **b0, "cuda_core": b0["cuda_core"] + 1}
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    _out_close(o, o_w, q, k, v, heads, m, True)
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+    if n == 1:
+        _single_key_close(grads, q, k, v, do, heads)
+        grads, want = grads[2:], want[2:]
+    for x, y in zip(grads, want):
+        _grad_close(x, y, torch.bfloat16)
+
+
+def test_wide_tc_entry_refuses_another_plan(cuda):
+    """At head dims 80 / 88 the C entries launch the plan they are given or
+    none: another grid, shared memory or np, a plan of another length, or
+    the lse forward at 88 raises, and nothing is counted."""
+    import dataclasses
+
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 100, 1408), generator=g).to(cuda, torch.bfloat16)
+    plan = mha_fused.mha_plan(q.shape, 16, q.dtype)
+    before = (dict(mha_fused.mha.route_launches),
+              dict(mha_fused.mha_fwd_lse.route_launches))
+    for bad in (dataclasses.replace(plan, smem_fwd=plan.smem_fwd + 16),
+                dataclasses.replace(plan, np=plan.np + 16),
+                dataclasses.replace(plan, grid_fwd=(16, 2, 1)),
+                mha_fused.mha_plan((2, 200, 1408), 16, q.dtype)):
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_mha(bad, q, q, q, heads=16)
+    with pytest.raises(ValueError, match="head dims"):
+        mha_fused.launch_fwd_lse(plan, q, q, q, heads=16)
+    assert (mha_fused.mha.route_launches,
+            mha_fused.mha_fwd_lse.route_launches) == before
 
 
 # the fp32 backward's 3xTF32 route (flash_plan's backward "tc32": head dim

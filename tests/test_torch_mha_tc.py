@@ -8,6 +8,10 @@ on the card: ``tests/test_torch_gpu.py``):
     within the H100's 227 KB, two blocks to an SM); fp32, longer
     N and other head dims go to the CUDA-core kernels; head dims the
     kernels are not built for are refused;
+  * ``mha_plan`` / ``flash_plan`` at head dims 80 and 88: bf16 up to 256
+    (80) / 272 (88) keys on the tensor-core forward (a block per (query
+    tile, head, sample)), the backward at 80 on the CUDA cores; fp32 and
+    longer N on the CUDA cores;
   * the plain pair ``mha_fwd_lse_reference`` / ``mha_flash_bwd_reference``
     (what the wrappers run on the CPU and what the card's kernels are held
     to) against the Pallas ``_mha_fwd_lse`` / ``_mha_flash_bwd`` in
@@ -89,6 +93,75 @@ def test_flash_plan_sends_the_rest_to_the_cuda_cores(shape, heads, dtype):
 def test_flash_plan_refuses_head_dims_without_a_kernel(shape, heads):
     with pytest.raises(ValueError):
         K.flash_plan(shape, heads, BF16)
+
+
+# the forward at head dims 80 (OPT-2.7B) and 88 (EVA ViT-g): bf16 up to
+# four 64-key slabs, and at 88 a fifth of 16 keys (EVA's N = 257)
+WIDE_NS = {80: [1, 17, 64, 65, 132, 136, 256],
+           88: [1, 17, 64, 65, 256, 257, 272]}
+
+
+@pytest.mark.parametrize("dh,n", [(dh, n) for dh, ns in WIDE_NS.items()
+                                  for n in ns])
+def test_mha_plan_takes_bf16_head_dims_80_88_on_the_tensor_cores(dh, n):
+    heads = 2560 // dh if dh == 80 else 1408 // dh
+    shape = (16, n, heads * dh)
+    plan = K.mha_plan(shape, heads, BF16)
+    tiles = -(-n // 64)
+    assert (plan.route, plan.bwd_route) == ("tc", "none")
+    assert plan.np == -(-n // 16) * 16 and plan.np - n < 16
+    # a block per (64-row query tile, head, sample)
+    assert plan.grid_fwd == (tiles, heads, 16)
+    # ftc::wide_smem: the key-side tiles and the query tile (64 x 96 bf16
+    # each), 272 key biases, three mbarriers and an int, 1 KB alignment
+    assert plan.smem_fwd == (tiles + 1) * 12288 + 272 * 4 + 32 + 1024
+    # three blocks to an SM: the SM's 228 KB, 1 KB of it reserved a block
+    assert 3 * (plan.smem_fwd + 1024) <= 228 * 1024
+    # the training forward takes the same plan at head dim 80, its
+    # backward stays on the CUDA cores
+    if dh == 80:
+        pair = K.flash_plan(shape, heads, BF16)
+        assert (pair.route, pair.bwd_route, pair.grid_fwd, pair.smem_fwd,
+                pair.np) == ("tc", "cuda_core", plan.grid_fwd,
+                             plan.smem_fwd, plan.np)
+        assert pair.grid_dq == (-(-n // 32), heads, 16)
+
+
+@pytest.mark.parametrize("dh,n", [(80, 257), (80, 512), (88, 273),
+                                  (88, 512)])
+def test_head_dims_80_88_past_the_tensor_core_limit_stay_on_the_cuda_cores(
+        dh, n):
+    heads = 2560 // dh if dh == 80 else 1408 // dh
+    shape = (4, n, heads * dh)
+    plan = K.mha_plan(shape, heads, BF16)
+    assert (plan.route, plan.np, plan.grid_fwd) == (
+        "cuda_core", n, (-(-n // 32), heads, 4))
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.mha_plan(shape, heads, BF16, route="tc")
+    if dh == 80:
+        pair = K.flash_plan(shape, heads, BF16)
+        assert (pair.route, pair.bwd_route) == ("cuda_core", "cuda_core")
+        with pytest.raises(ValueError, match="tensor-core route"):
+            K.flash_plan(shape, heads, BF16, route="tc",
+                         bwd_route="cuda_core")
+
+
+def test_head_dim_80_route_requests():
+    """At head dim 80 only the forward has a tensor-core route: asking for
+    "tc" on both sides raises, the forward alone is taken; fp32 and
+    ``route="cuda_core"`` give the CUDA-core pair."""
+    shape = (16, 136, 2560)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.flash_plan(shape, 32, BF16, route="tc")
+    plan = K.flash_plan(shape, 32, BF16, route="tc", bwd_route="cuda_core")
+    assert plan == K.flash_plan(shape, 32, BF16)
+    for dtype, route in ((torch.float32, None), (BF16, "cuda_core")):
+        plan = K.flash_plan(shape, 32, dtype, route=route)
+        assert (plan.route, plan.bwd_route, plan.np) == ("cuda_core",
+                                                         "cuda_core", 136)
+    with pytest.raises(ValueError):
+        K.flash_plan(shape, 32, torch.float32, route="tc",
+                     bwd_route="cuda_core")
 
 
 def test_flash_plan_route_request():

@@ -38,6 +38,8 @@ from garbage_classification_rca_tpu.models.vlm import qformer as jqf
 from garbage_classification_rca_tpu_torch.checkpoint.from_jax import (
     load_blip2_tree)
 from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+from garbage_classification_rca_tpu_torch.kernels.transformer_block import (
+    MAX_SMEM)
 from garbage_classification_rca_tpu_torch.models.vlm import blip2
 from garbage_classification_rca_tpu_torch.models.vlm import (
     blip2_vision as tvision)
@@ -113,28 +115,52 @@ def test_k2_plain_matches_pallas_at_vlm_head_dims(name):
                                          ((16, 132, 2560), 32)])
 def test_mha_plan_takes_vlm_head_dims_for_the_eval_forward_only(shape,
                                                                 heads):
-    """``mha_plan`` sends head dims 88 / 80 to the CUDA-core forward with
-    no backward (its grid and shared memory: 67,072 bytes at N 257); the
-    tensor-core route refuses them. ``flash_plan`` refuses 88 for both
-    training pairs and 80 for the dropout pair; the flash pair without
-    dropout takes 80 on the CUDA cores (OPT-2.7B's LoRA training:
-    ``tests/test_torch_vlm_train.py``). Another head dim still raises."""
+    """``mha_plan`` sends bf16 at head dims 88 / 80 to the tensor-core
+    forward (a block per (64-row query tile, head, sample), np = N rounded
+    up to 16, ``ftc::wide_smem``'s shared memory: K then V and the query
+    tile at 12 KB a 64-row tile of 96 columns) and fp32, or any dtype with
+    ``route="cuda_core"``, to the CUDA-core forward (67,072 bytes at N
+    257), in both cases with no backward. ``flash_plan`` refuses 88 for
+    both training pairs and 80 for the dropout pair; the flash pair
+    without dropout takes 80 in bf16 as ("tc", "cuda_core"): the forward
+    on the tensor cores, the backward on the CUDA cores (OPT-2.7B's LoRA
+    training: ``tests/test_torch_vlm_train.py``). Another head dim still
+    raises."""
+    b, n, d = shape
+    dh = d // heads
+    tiles = -(-n // 64)
+    plan = K.mha_plan(shape, heads, torch.bfloat16)
+    assert (plan.route, plan.bwd_route, plan.np) == ("tc", "none",
+                                                    -(-n // 16) * 16)
+    assert plan.grid_fwd == (tiles, heads, b)
+    assert plan.smem_fwd == (tiles + 1) * 64 * 96 * 2 + 272 * 4 + 32 + 1024
+    # three blocks to an SM (ftc::wide_kernel's launch bounds): the SM's
+    # 228 KB, 1 KB of it reserved a block
+    assert plan.smem_fwd <= MAX_SMEM
+    assert 3 * (plan.smem_fwd + 1024) <= 228 * 1024
+    assert K.mha_plan(shape, heads, torch.bfloat16, route="tc") == plan
+    for dtype, route in ((torch.float32, None), (torch.float32, "cuda_core"),
+                         (torch.bfloat16, "cuda_core")):
+        plan = K.mha_plan(shape, heads, dtype, route=route)
+        assert (plan.route, plan.bwd_route, plan.grid_fwd, plan.np) == (
+            "cuda_core", "none", (-(-n // 32), heads, b), n)
+        assert plan.smem_fwd == 4 * (96 * (dh + 1) + 32 * n)
     for dtype in (torch.float32, torch.bfloat16):
-        plan = K.mha_plan(shape, heads, dtype)
-        b, n, d = shape
-        assert (plan.route, plan.bwd_route, plan.grid_fwd) == (
-            "cuda_core", "none", (-(-n // 32), heads, b))
-        assert plan.smem_fwd == 4 * (96 * (d // heads + 1) + 32 * n)
         with pytest.raises(ValueError, match="head dims"):
             K.flash_plan(shape, heads, dtype, dropout=True)
-        if d // heads == 88:
+        if dh == 88:
             with pytest.raises(ValueError, match="head dims"):
                 K.flash_plan(shape, heads, dtype)
         else:
-            assert K.flash_plan(shape, heads, dtype).bwd_route == "cuda_core"
-        with pytest.raises(ValueError, match="CUDA cores only"):
-            K.mha_plan(shape, heads, dtype, route="tc")
-    assert K.mha_plan((16, 257, 1408), 16, torch.bfloat16).smem_fwd == 67072
+            plan = K.flash_plan(shape, heads, dtype)
+            assert (plan.route, plan.bwd_route) == (
+                ("tc", "cuda_core") if dtype == torch.bfloat16
+                else ("cuda_core", "cuda_core"))
+        with pytest.raises(ValueError, match="tensor-core route"):
+            K.mha_plan(shape, heads, torch.float32, route="tc")
+        with pytest.raises(ValueError):
+            K.mha_plan(shape, heads, dtype, route="tc32")
+    assert K.mha_plan((16, 257, 1408), 16, torch.float32).smem_fwd == 67072
     with pytest.raises(ValueError, match="head dims"):
         K.mha_plan((2, 8, 96), 1, torch.float32)
     assert K.mha_plan((2, 64, 768), 12, torch.bfloat16) == K.flash_plan(

@@ -143,10 +143,22 @@ def test_mha_flash_train_at_head_dim_80_matches_jax_vjp():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_plans_take_head_dim_80_on_the_cuda_cores(dtype):
+    """The backward at head dim 80 runs on the CUDA cores in both dtypes,
+    and so does the fp32 forward; the bf16 forward takes the tensor cores
+    (a block per (64-row query tile, head, sample)) unless asked for
+    ``route="cuda_core"``, which gives the CUDA-core pair."""
     shape = (16, 136, 2560)                    # OPT-2.7B's LoRA microbatch
     assert K.flash_train_fits(shape, 32, dtype)
     assert not K.flash_drop_fits(shape, 32, dtype)
     plan = K.flash_plan(shape, 32, dtype)
+    if dtype == torch.bfloat16:
+        assert (plan.route, plan.bwd_route, plan.np) == ("tc", "cuda_core",
+                                                         144)
+        assert plan.grid_fwd == (3, 32, 16)
+        assert plan.smem_fwd == 4 * 12288 + 272 * 4 + 32 + 1024
+        assert plan.grid_dq == plan.grid_dkdv == (5, 32, 16)
+        assert (plan.smem_dq, plan.smem_dkdv) == (70784, 79360)
+        plan = K.flash_plan(shape, 32, dtype, route="cuda_core")
     assert (plan.route, plan.bwd_route, plan.np) == ("cuda_core",
                                                      "cuda_core", 136)
     assert plan.grid_fwd == plan.grid_dq == plan.grid_dkdv == (5, 32, 16)
