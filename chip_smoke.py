@@ -164,18 +164,20 @@ Phases, each of which fails the run when it fails:
  13. VLM train: K4a / K4b at OPT-2.7B's LoRA shape (16 x 136 x 2560, 32
      heads of 80, causal, the path's left-pad mask; a fully masked and a
      single-key sample; N = 1) against the plain pair in fp32 (the CUDA
-     cores) and bf16 (the default plan, K4a on the tensor cores and K4b on
-     the CUDA cores, also with a sample whose first 100 keys are pads; and
-     the CUDA-core pair on request, on the same inputs), the bf16 K4a
-     timed on both routes new-old-old-new and K4b, beside the plain pair,
-     the library's efficient attention with the equivalent additive bias
-     (and its backward) and the bound; BLIP-2 LoRA training at full
+     cores) and bf16 (the default plan, K4a and K4b on the tensor cores,
+     also with a sample whose first 100 keys are pads; and the CUDA-core
+     pair on request, on the same inputs), the bf16 K4a and K4b each
+     timed on both routes new-old-old-new, beside the plain pair, the
+     library's efficient attention with the equivalent additive bias (and
+     its backward) and the bound, the tensor-core K4b bit-identical over
+     two runs; BLIP-2 LoRA training at full
      width and depth (phase 12's
      seeded towers in bf16, fp32 adapters with B != 0, microbatch 16 x acc
      8): one warm-up optimizer step and two timed with the counters zeroed
-     before and read after (per microbatch K2 39, K4a 32, K4b 32, the rest
-     0), train samples/s, steps/s, peak memory, a profile (device ms a
-     step, idle share, K2 / K4a / K4b / GEMMs / elementwise); one step
+     before and read after (per microbatch K2 39, K4a 32, K4b 32, all on
+     the tensor cores, the rest 0), train samples/s, steps/s, peak
+     memory, a profile (device ms a step, idle share, K2 / K4a / K4b /
+     GEMMs / elementwise); one step
      with ``hf_internal_dropout`` (the same launches); a microbatch's loss
      and adapter gradients on the kernel path against the plain path, bf16
      at 16 and fp32 at 4; the Q-Former classifier's step at 16 x 8 (K2 39
@@ -265,7 +267,9 @@ Tolerances (kernel vs plain version, same inputs, same card):
     1e-3 and one ulp + 2e-3 max; at N = 1 in bf16 dQ / dK held to the
     rounding of their two dot products, as the tensor-core route's edge
     cases; the tensor-core K4a's output to the one-flip limit, its lse to
-    1e-5 + 1e-5|x|); the LoRA microbatch, kernel path against the same
+    1e-5 + 1e-5|x|; the tensor-core K4b, the default in bf16, at the bf16
+    bars and bit-identical over two runs); the LoRA microbatch, kernel
+    path against the same
     path with OPT's flash pair on its plain versions (EVA on K2 on both
     sides), with the train bars: fp32 (TF32 off) loss within 1e-5 relative
     and every adapter gradient within 1e-4 of its tensor's largest |g|,
@@ -2076,6 +2080,12 @@ def _wide_lse(n: str) -> bool:
     return bool(f) and f[1] in ("true", "1")
 
 
+def _wide_bwd(n: str) -> bool:
+    """Whether a profiler name is one of K4b's tensor-core kernels at head
+    dim 80 (``ftc::dq_wide_kernel`` / ``dkdv_wide_kernel``)."""
+    return "dq_wide_kernel" in n or "dkdv_wide_kernel" in n
+
+
 def _kind(name: str) -> str:
     n = name.lower()
     part = _block_part(name)
@@ -2088,6 +2098,8 @@ def _kind(name: str) -> str:
                 "ln": "block LayerNorm rows"}[part]
     if "rca_fused_kernel" in n or "rca_fwd_" in n:
         return "rca_fused kernel"
+    if _wide_bwd(n):            # K4b on the tensor cores at head dim 80
+        return "mha_flash_bwd kernels (tensor cores)"
     if "wide_kernel" in n:      # the tensor-core forward at head dims 80 / 88
         return ("mha_fwd_lse kernel (tensor cores)" if _wide_lse(n)
                 else "mha kernel")
@@ -5234,9 +5246,10 @@ def check_vlm_clis(device, results):
 
 VLM_TRAIN_BATCH, VLM_ACC = 16, 8     # --batch_size and the recipes' acc 8
 VLM_TRAIN_FP32_BATCH = 4             # the fp32 check beside the bf16 model
-# per microbatch: K2 39 (EVA), K4a 32 and K4b 32 (OPT); the Q-Former K2 39
+# per microbatch: K2 39 (EVA), K4a 32 and K4b 32 (OPT), all three on the
+# tensor cores; the Q-Former K2 39
 VLM_TRAIN_LAUNCHES = {"blip2": {"mha_tc": 39, "mha_fwd_lse_tc": 32,
-                                "mha_flash_bwd": 32},
+                                "mha_flash_bwd_tc": 32},
                       "qformer": {"mha_tc": 39}}
 VLM_LABEL_TOKENS = 4
 
@@ -5245,16 +5258,18 @@ def _vlm_train_kind(name: str) -> str:
     """Phase 13's kinds: K2 / K4a on the tensor cores (one kernel template,
     ``ftc::wide_kernel<DH, MASKED, CAUSAL, LSE>``) or the CUDA cores
     (``mha_kernel<T, DH, LSE, DROP>``; K4a writes the lse), K4b's two
-    kernels, and ``_kind``'s for the rest."""
+    kernels on the tensor cores (``ftc::dq_wide_kernel`` /
+    ``dkdv_wide_kernel``) or the CUDA cores (``mha_bwd_*``), and
+    ``_kind``'s for the rest."""
     n = name.lower()
+    if _wide_bwd(n) or "mha_bwd" in n:
+        return "K4b mha_flash_bwd (head dim 80)"
     if "wide_kernel" in n:
         return ("K4a mha_fwd_lse (head dim 80)" if _wide_lse(n)
                 else "K2 mha (head dim 88)")
     if "mha_kernel" in n:
         return ("K4a mha_fwd_lse (head dim 80)" if ", true, false>" in n
                 else "K2 mha (head dim 88)")
-    if "mha_bwd" in n:
-        return "K4b mha_flash_bwd (head dim 80)"
     return _kind(name)
 
 
@@ -5303,15 +5318,17 @@ def check_vlm_train_kernels(device, path_mask, results):
     bf16 one ulp + 1e-3 / one ulp + 2e-3 max), with a fully masked and a
     single-key sample, and at N = 1. fp32 runs the CUDA cores on both
     sides; bf16 runs the pair on both of its plans on the same inputs: the
-    CUDA cores (``route="cuda_core"``) as in fp32, and the default, K4a on
-    the tensor cores (the one-flip bar on the output, lse 1e-5 + 1e-5|x|)
-    with K4b on the CUDA cores from that forward's out and lse; each
-    launch on its route's counter; the default also with a sample whose
-    first 100 keys are pads (``_late_mask``). Then the path's bf16 call
-    timed (CUDA graphs of 20 launches, median of 5): K4a on both routes
-    new-old-old-new, K4b, beside the plain pair, the library's efficient
+    CUDA cores (``route="cuda_core"``) as in fp32, and the default, both
+    sides on the tensor cores (K4a at the one-flip bar on the output, lse
+    1e-5 + 1e-5|x|; K4b from that forward's out and lse at the bf16
+    backward bar, dQ / dK at N = 1 at ``_single_key``'s); each launch on
+    its route's counter; the default also with a sample whose first 100
+    keys are pads (``_late_mask``). Then the path's bf16 call timed (CUDA
+    graphs of 20 launches, median of 5): K4a and K4b each on both routes
+    new-old-old-new, beside the plain pair, the library's efficient
     attention with the equivalent additive bias (forward + lse, and its
-    backward) and the bound."""
+    backward) and the bound; two runs of the tensor-core K4b give the
+    same bits."""
     import torch
 
     from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
@@ -5332,7 +5349,7 @@ def check_vlm_train_kernels(device, path_mask, results):
                 device, dtype) for _ in range(4))
             routes = [("cuda_core", ("cuda_core", "cuda_core"))]
             if bf16:
-                routes.append((None, ("tc", "cuda_core")))
+                routes.append((None, ("tc", "tc")))
             for route, want_plan in routes:
                 ok_all &= _vlm_pair_case(K, q, k, v, do, h, m, route,
                                          want_plan, label, errs)
@@ -5341,7 +5358,7 @@ def check_vlm_train_kernels(device, path_mask, results):
                 device, dtype) for _ in range(4))
             ok_all &= _vlm_pair_case(K, q, k, v, do, h,
                                      _late_mask(path_mask, n, 100), None,
-                                     ("tc", "cuda_core"), "late", errs)
+                                     ("tc", "tc"), "late", errs)
     # the path's call in bf16, timed
     q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
         device, torch.bfloat16) for _ in range(4))
@@ -5355,8 +5372,17 @@ def check_vlm_train_kernels(device, path_mask, results):
     for route in ("tc", "cuda_core", "cuda_core", "tc"):
         ab[route].append(time_ms(fwd[route])[0])
     ms_f = sum(ab["tc"]) / 2
-    ms_b = time_ms(lambda: K.mha_flash_bwd(q, k, v, o, do, lse, heads=h,
-                                           mask=path_mask, causal=True))
+    bwd = {r: functools.partial(K.launch_flash_bwd, p, q, k, v, o, do, lse,
+                                heads=h, mask=path_mask, causal=True)
+           for r, p in (("tc", tc), ("cuda_core", old))}
+    ab_b = {"tc": [], "cuda_core": []}
+    for route in ("tc", "cuda_core", "cuda_core", "tc"):
+        ab_b[route].append(time_ms(bwd[route])[0])
+    ms_b = sum(ab_b["tc"]) / 2
+    same = all(torch.equal(x, y) for x, y in zip(bwd["tc"](), bwd["tc"]()))
+    ok_all &= same
+    print(f"  K4b tensor cores, two runs on the path's inputs: "
+          f"{'the same bits' if same else 'DIFFER'}", flush=True)
     plain_f = time_ms(lambda: K.mha_fwd_lse_reference(
         q, k, v, heads=h, mask=path_mask, causal=True))[0]
     plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
@@ -5381,8 +5407,13 @@ def check_vlm_train_kernels(device, path_mask, results):
              {"kernel_route": "tc", "ms_runs": ab["tc"],
               "cuda_core_ms": sum(ab["cuda_core"]) / 2,
               "cuda_core_ms_runs": ab["cuda_core"]}),
-            ("mha_flash_bwd_hd80", 317, ms_b, plain_b, lib_b, fl_b, by_b,
-             "bwd", {"kernel_route": "cuda_core"})):
+            ("mha_flash_bwd_hd80", 317, (ms_b, min(ab_b["tc"]),
+                                         max(ab_b["tc"])),
+             plain_b, lib_b, fl_b, by_b, "bwd",
+             {"kernel_route": "tc", "ms_runs": ab_b["tc"],
+              "cuda_core_ms": sum(ab_b["cuda_core"]) / 2,
+              "cuda_core_ms_runs": ab_b["cuda_core"],
+              "bit_identical_runs": same})):
         row = _fwd_row(name, ms[0], plain, lib_ms, flops, nbytes,
                        max(e[side] for e in errs.values()), line,
                        "bfloat16", max_abs_err_by_case={
@@ -5390,14 +5421,13 @@ def check_vlm_train_kernels(device, path_mask, results):
                        ms_min_max=ms[1:], shape=[b, n, d],
                        heads=h, head_dim=80, causal=True, dtype="bfloat16",
                        operations=flops, bytes_moved=nbytes, **extra)
-        if "cuda_core_ms" in extra:
-            row["cuda_core_share_of_bound"] = (row["bound_ms"]
-                                               / extra["cuda_core_ms"])
+        row["cuda_core_share_of_bound"] = (row["bound_ms"]
+                                           / extra["cuda_core_ms"])
         rows[name] = row
-        old_s = (f", CUDA cores {ab['cuda_core'][0]:.4f} / "
-                 f"{ab['cuda_core'][1]:.4f} ms (new-old-old-new: tc "
-                 f"{ab['tc'][0]:.4f} / {ab['tc'][1]:.4f})"
-                 if side == "fwd" else "")
+        runs = ab if side == "fwd" else ab_b
+        old_s = (f", CUDA cores {runs['cuda_core'][0]:.4f} / "
+                 f"{runs['cuda_core'][1]:.4f} ms (new-old-old-new: tc "
+                 f"{runs['tc'][0]:.4f} / {runs['tc'][1]:.4f})")
         print(f"  {name} bf16 {b}x{n}x{d}, 32 heads of 80, causal + mask, "
               f"{extra['kernel_route']}: {ms[0]:.4f} ms ({ms[1]:.4f}-"
               f"{ms[2]:.4f}){old_s}; plain {plain:.4f} ms, efficient "
@@ -5414,9 +5444,9 @@ def _vlm_pair_case(K, q, k, v, do, h, m, route, want_plan, label, errs):
     (None: the default plan), against the plain pair: `want_plan` its
     (forward, backward) routes, one launch on each route's counter; the
     tensor-core forward at the one-flip bar (``_held_to_plain``'s
-    `edge`), the CUDA-core pair at the plain bars (``_single_key`` at
-    N = 1 in bf16). Records the errors under "<dtype>_<label>" (with
-    "_tc" for the default route in bf16)."""
+    `edge`), the tensor-core backward and the CUDA-core pair at the plain
+    bars (``_single_key`` at N = 1 in bf16). Records the errors under
+    "<dtype>_<label>" (with "_tc" for the default route in bf16)."""
     import torch
 
     plan = K.flash_plan(q.shape, h, q.dtype, route=route)
@@ -5768,7 +5798,7 @@ def check_vlm_train_clis(device, results):
         base = ["--dataset_folder_name=vlm", "--batch_size=16",
                 "--epochs=1"]
         want = {"blip2_train": {"mha_tc": 39 + 71, "mha_fwd_lse_tc": 32,
-                                "mha_flash_bwd": 32},
+                                "mha_flash_bwd_tc": 32},
                 "qformer_train": {"mha_tc": 39 + 39}}
         best = {}
         for cli in (blip2_train, qformer_train):
@@ -6062,10 +6092,10 @@ def main() -> int:
             return _fail(f"{key} was not launched on the {path} path")
     # K2 at head dims 88 / 80 on the tensor cores (ftc::wide_kernel, the
     # only attention of the VLM eval path: EVA 39 and OPT 32 a BLIP-2
-    # batch, EVA 39 a Q-Former batch), timed in phase 12; K4a at head dim
-    # 80 on the tensor cores and K4b on the CUDA cores (OPT-2.7B's LoRA
-    # training), timed in phase 13: launched on the VLM paths, read from
-    # their counters
+    # batch, EVA 39 a Q-Former batch), timed in phase 12; K4a and K4b at
+    # head dim 80 on the tensor cores (ftc::wide_kernel, dq_wide_kernel /
+    # dkdv_wide_kernel: OPT-2.7B's LoRA training), timed in phase 13:
+    # launched on the VLM paths, read from their counters
     k2 = results["vlm_k2"]
     tc_errs = [e for r in k2 for key, e in r["max_abs_err"].items()
                if key.startswith("tc_")]
@@ -6080,7 +6110,7 @@ def main() -> int:
             "head_dim", "over_one_ulp_1e-3")},
         "other_shapes": k2[1:]})]
     for key, counter in (("mha_fwd_lse_hd80", "mha_fwd_lse_tc"),
-                         ("mha_flash_bwd_hd80", "mha_flash_bwd")):
+                         ("mha_flash_bwd_hd80", "mha_flash_bwd_tc")):
         vlm_rows.append((key, counter, "vlm_train",
                          results["vlm_train_kernels"][key]))
     for key, counter, path, row in vlm_rows:

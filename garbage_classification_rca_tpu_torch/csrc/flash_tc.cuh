@@ -491,6 +491,11 @@ __device__ __forceinline__ uint64_t kmajor64(uint32_t addr) {
 __device__ __forceinline__ uint64_t mnmajor64(uint32_t addr) {
   return sw64_desc(addr, WCB, 512);
 }
+// the byte offset of k16 step j of a product over a head's columns in a
+// tile of 32-column chunks
+__device__ __forceinline__ uint32_t wide_k(int j) {
+  return (j >> 1) * WCB + 32 * (j & 1);
+}
 
 // D[64, 16] += A[64, 16] . B[16, 16], both K-major in shared memory: the
 // 16-key slab of head dim 88; `acc` 0 overwrites D.
@@ -662,18 +667,15 @@ __global__ void __launch_bounds__(THREADS, 3)
   for (int c = 0; c < 4; ++c) {
     if (c >= nk) continue;
 #pragma unroll
-    for (int j = 0; j < KS; ++j) {
-      const uint32_t off = (j >> 1) * WCB + 32 * (j & 1);
-      ss(s[c], kmajor64(qs + off), kmajor64(kvs + c * WTB + off), NP - c * T,
-         j);
-    }
+    for (int j = 0; j < KS; ++j)
+      ss(s[c], kmajor64(qs + wide_k(j)), kmajor64(kvs + c * WTB + wide_k(j)),
+         NP - c * T, j);
   }
   if (SLAB16 && nk > 4) {
 #pragma unroll
-    for (int j = 0; j < KS; ++j) {
-      const uint32_t off = (j >> 1) * WCB + 32 * (j & 1);
-      ss16(s4, kmajor64(qs + off), kmajor64(kvs + 4 * WTB + off), j);
-    }
+    for (int j = 0; j < KS; ++j)
+      ss16(s4, kmajor64(qs + wide_k(j)), kmajor64(kvs + 4 * WTB + wide_k(j)),
+           j);
   }
   tc::wgmma_commit();
   tc::wgmma_wait<0>();

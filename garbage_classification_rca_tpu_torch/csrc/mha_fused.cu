@@ -33,15 +33,17 @@
 // key mask, N = 132) and 88 (EVA ViT-g, N = 257), where a PV lane whose
 // last column lies past the head skips it, and the training pair without
 // dropout at head dim 80 (OPT-2.7B's LoRA training, N = 136: the fp32
-// pair and the bf16 backward, five columns a lane there); the bf16 forward
-// at 80 / 88 runs there only on request (route "cuda_core", the A/B) or
-// past the tensor cores' N. In bf16 at head dim 64 and N <= 256 (the
-// MM-RCA eval's DistilBERT, the ViT val eval and the ViT-B/16 trainer) the
-// eval forward and the training pair have a tensor-core route of their
-// own, mha_forward_tc / mha_forward_lse_tc / mha_flash_backward_tc
-// (namespace ftc below); so do the bf16 forwards at head dims 88 (EVA's
-// K2, N <= 272) and 80 (OPT's K2 and K4a, N <= 256), through the same C
-// entries (flash_tc.cuh's wide_kernel); in fp32 at head dim 64 and N <=
+// pair, five columns a lane in the backward); the bf16 forwards at 80 / 88
+// and the bf16 backward at 80 run there only on request (route
+// "cuda_core", the A/B) or past the tensor cores' N. In bf16 at head dim
+// 64 and N <= 256 (the MM-RCA eval's DistilBERT, the ViT val eval and the
+// ViT-B/16 trainer) the eval forward and the training pair have a
+// tensor-core route of their own, mha_forward_tc / mha_forward_lse_tc /
+// mha_flash_backward_tc (namespace ftc below); so do the bf16 forwards at
+// head dims 88 (EVA's K2, N <= 272) and 80 (OPT's K2 and K4a, N <= 256),
+// through the same C entries (flash_tc.cuh's wide_kernel), and the bf16
+// backward at head dim 80 (OPT's K4b, N <= 256: dq_wide_kernel /
+// dkdv_wide_kernel below); in fp32 at head dim 64 and N <=
 // 64 (the DistilBERT attention of the text and MM-RCA trainers) the
 // backward, with or without dropout, and the dropout forward run on 3xTF32
 // products, mha_flash_backward_tc32 / mha_forward_lse_tc32 (namespace tc32;
@@ -657,10 +659,11 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 // The flash pair without dropout (the lse forward and the backward) also
 // takes head dim 80 (OPT-2.7B's LoRA training: 2560 / 32 heads, causal with
-// the left-pad key mask, N = 136): calls CALL(T, 80) and falls through
-// otherwise. The backward's lanes take DH / 16 = 5 columns each there; 88
-// (EVA ViT-g, which never trains) does not divide into 16 lanes and stays
-// refused, as the dropout pair stays at {32, 64, 128}.
+// the left-pad key mask, N = 136; in fp32, and in bf16 on request or past
+// N = 256, where the tensor cores' kernels stop): calls CALL(T, 80) and
+// falls through otherwise. The backward's lanes take DH / 16 = 5 columns
+// each there; 88 (EVA ViT-g, which never trains) does not divide into 16
+// lanes and stays refused, as the dropout pair stays at {32, 64, 128}.
 #define TRAIN80_DISPATCH(DTYPE, DH, CALL)                         \
   if ((DH) == 80) {                                               \
     if ((DTYPE) == 0) return CALL(float, 80);                     \
@@ -719,8 +722,9 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// the flash pair on the tensor cores: bf16, head dim 64, 1 <= N <= 256 (the
-// forward also at head dims 80 / 88: flash_tc.cuh's wide_kernel)
+// the flash pair on the tensor cores: bf16, head dims 64 and 80, 1 <= N <=
+// 256 (the forward at 80 / 88: flash_tc.cuh's wide_kernel; the backward at
+// 80: dq_wide_kernel / dkdv_wide_kernel)
 // ---------------------------------------------------------------------------
 //
 // mha_forward_lse_tc and mha_flash_backward_tc compute what mha_forward_lse
@@ -765,6 +769,36 @@ __host__ __device__ inline int dq_smem(int nt) {
 }
 __host__ __device__ inline int dkdv_smem(int nt) {
   return (2 * nt + 4) * BOX + 2 * MAX_N * 4 + (nt + 2) * 8 + 1024;
+}
+
+// Delta = rowsum(dO O) of query row qi of head h (0 past N), in fp32 from
+// the stored bf16 rows: two threads a row (`half` 0 / 1), DH / 2 columns
+// each, then summed across the pair; every thread of the warp calls it.
+template <int DH>
+__device__ __forceinline__ float delta_row(const __nv_bfloat16* dout,
+                                           const __nv_bfloat16* o, int b,
+                                           int qi, int N, int D, int h,
+                                           int half) {
+  float acc = 0.f;
+  if (qi < N) {
+    const size_t a =
+        (static_cast<size_t>(b) * N + qi) * D + h * DH + (DH / 2) * half;
+#pragma unroll
+    for (int d = 0; d < DH / 2; d += 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + a + d);
+      const uint4 y = *reinterpret_cast<const uint4*>(o + a + d);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xf = __bfloat1622float2(xp[i]);
+        const float2 yf = __bfloat1622float2(yp[i]);
+        acc = fmaf(xf.x, yf.x, acc);
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+  }
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
 }
 
 // Q and dO (dQ kernel) or K and V (dK / dV kernel) of 64-row tile t into
@@ -826,30 +860,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (tid == 0 && qt >= 1 && qt + 1 < nt)
       load_pair(st, sbar, &tq, &tdo, h, qt + 1, b);
     {
-      // Delta = rowsum(dO O) in fp32, two threads a row, 32 columns each
       const int row = tid >> 1, qi = qt * T + row;
-      float acc = 0.f;
-      if (qi < N) {
-        const size_t a =
-            (static_cast<size_t>(b) * N + qi) * D + h * DH + 32 * (tid & 1);
-#pragma unroll
-        for (int d = 0; d < 32; d += 8) {
-          const uint4 x = *reinterpret_cast<const uint4*>(dout + a + d);
-          const uint4 y = *reinterpret_cast<const uint4*>(o + a + d);
-          const __nv_bfloat162* xp =
-              reinterpret_cast<const __nv_bfloat162*>(&x);
-          const __nv_bfloat162* yp =
-              reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 xf = __bfloat1622float2(xp[i]);
-            const float2 yf = __bfloat1622float2(yp[i]);
-            acc = fmaf(xf.x, yf.x, acc);
-            acc = fmaf(xf.y, yf.y, acc);
-          }
-        }
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      const float acc = delta_row<DH>(dout, o, b, qi, N, D, h, tid & 1);
       if ((tid & 1) == 0) {
         dl[row] = acc;
         if (qi < N) delta[rbase + qi] = acc;
@@ -1050,6 +1062,382 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward at head dim 80 (OPT-2.7B's LoRA training: 32 heads, causal
+// with the left-pad key mask, N = 136), 1 <= N <= 256
+// ---------------------------------------------------------------------------
+//
+// ::_mha_flash_bwd (body `_bwd_kernel`) at this head dim: the same function
+// at the same rounding points as dq_kernel / dkdv_kernel, on the wide
+// forward's tiles (flash_tc.cuh): each 64-row tile of q / k / v
+// / dO is three 64-byte-swizzled chunks of 32 columns, loaded by TMA from
+// the 4-D map over [B, N, H, 80] (columns 80..95 and rows past N read as
+// zeros). S = Q K^T and dP = dO V^T (in the dK / dV kernel S^T = K Q^T and
+// dP^T = V dO^T) take five k16 steps over the 80 columns; dQ = dS K, dV =
+// W^T dO and dK = dS^T Q are one m64n80k16 product a k16 step with A from
+// registers (the accumulator of the product before it, rounded to bf16)
+// and B MN-major across the three chunks, as V in the forward's PV.
+//
+// Two kernels, no atomics on the outputs, the same bits on every run, each
+// one warpgroup per (64-row tile, head, sample): OPT's 32 x 16 (head,
+// sample) pairs become 1,536 blocks a kernel at N = 136, where a block a
+// pair would give 512. A block loads its own tile pair (Q and dO, or K and
+// V) and every tile pair of the other side it reads, all at once, each on
+// its own mbarrier, so its products start on the first while the rest
+// land: 100,648 / 101,416 bytes at N = 136, two blocks to an SM (one from
+// N = 193 on, where the other side has four tiles).
+//   * dq_wide_kernel: per key tile c, S and dP (64 x 64 each), W = exp(S -
+//     lse), dS = W (dP - Delta) rounded to bf16, dQ += dS K; first it
+//     writes Delta = rowsum(dO O) (fp32) of its rows, which the dK / dV
+//     kernel reads.
+//   * dkdv_wide_kernel: per query tile c, S^T and dP^T, W^T and dS^T, then
+//     dV += W^T dO (W rounded to bf16) and dK += dS^T Q.
+// Causal calls skip the tiles past the diagonal, as wide_kernel does: query
+// tile t reads key tiles 0..t, and key tile t query tiles t..nt - 1. A
+// row with an attendable key (mask > 0) at or before its diagonal has
+// weights of exactly 0 past it, so a skipped tile adds exact zeros. A row
+// before the sample's first attendable key spreads its weights over all N
+// keys (every score is -1e30, as in mha_reference), so a query tile that
+// holds such a row reads every key tile, and every key tile reads the
+// query tiles that hold such rows. The first attendable key comes from an
+// atomicMin over the mask, in each block.
+// What bounds it: bytes (89.4 MB, 0.0267 ms at 16 x 136 x 2560 with the
+// path's mask on 3.35 TB/s, against 2.16 GFLOP, 0.0022 ms of bf16
+// tensor-core time: 10 d operations for each (query, key) pair the masks
+// allow); the exp and the masking run on the CUDA cores beside the
+// products.
+
+constexpr int WDH = 80;   // the head dim of the backward's wide kernels
+
+// dynamic shared memory of the two kernels (+ 1024: the swizzled tiles'
+// alignment); kept equal to the plan's in
+// kernels/mha_fused.py::_tc_wide_bwd
+__host__ __device__ inline int wide_dq_smem(int nt) {
+  return (2 * nt + 2) * WTB + MAX_N * 4 + T * 4 + (nt + 1) * 8 + 8 + 1024;
+}
+__host__ __device__ inline int wide_dkdv_smem(int nt) {
+  return (2 * nt + 2) * WTB + 2 * MAX_N * 4 + (nt + 1) * 8 + 8 + 1024;
+}
+
+// Tiles a and b (each 64 rows x 96 columns) of maps ma and mb at rows 64 t
+// of head h of sample b into dst and dst + off; completion on `bar`.
+__device__ __forceinline__ void load_wide_pair(uint32_t dst, uint32_t off,
+                                               const CUtensorMap* ma,
+                                               const CUtensorMap* mb,
+                                               uint64_t* bar, int h, int t,
+                                               int b) {
+  tc::mbar_expect_tx(bar, 2 * WTB);
+  load_wide(dst, ma, bar, h, t, b);
+  load_wide(dst + off, mb, bar, h, t, b);
+}
+
+// dQ and Delta of one 64-row query tile of one (head, sample).
+template <bool MASKED, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 2)
+    dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const int* __restrict__ mask,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                   int N, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1k(smem_raw);
+  const int nt = tiles(N), np = pad16(N);
+  // the query tile's Q and dO, then the head's K and V tiles
+  const uint32_t qs = tc::smem_u32(smem), dos = qs + WTB, ks = dos + WTB,
+                 vs = ks + nt * WTB;
+  float* kb = reinterpret_cast<float*>(smem + (2 * nt + 2) * WTB);  // [MAX_N]
+  float* dl = kb + MAX_N;                                            // [T]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(dl + T);  // Q + dO, K_c + V_c
+  int* first = reinterpret_cast<int*>(bar + nt + 1);    // first attendable
+  const int t = blockIdx.x, h = blockIdx.y, H = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int nk0 = CAUSAL ? t + 1 : nt;  // key tiles up to the diagonal
+  if (tid == 0) {
+    init_bars(bar, nt + 1);
+    *first = MASKED ? N : 0;
+    load_wide_pair(qs, WTB, &tq, &tdo, bar, h, t, b);
+    for (int c = 0; c < nk0; ++c)
+      load_wide_pair(ks + c * WTB, nt * WTB, &tk, &tv, bar + 1 + c, h, c, b);
+  }
+  __syncthreads();
+  if (MASKED)
+    for (int j = tid; j < N; j += THREADS) {
+      const int m = mask[static_cast<size_t>(b) * N + j];
+      kb[j] = (static_cast<float>(m) - 1.f) * 1e30f;
+      if (CAUSAL && m > 0) atomicMin(first, j);
+    }
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+  {
+    const int row = tid >> 1, qi = t * T + row;
+    const float acc = delta_row<WDH>(dout, o, b, qi, N, D, h, tid & 1);
+    if ((tid & 1) == 0) {
+      dl[row] = acc;
+      if (qi < N) delta[rbase + qi] = acc;
+    }
+  }
+  __syncthreads();
+  // a tile with a row before the first attendable key reads every key tile
+  const int nk = CAUSAL && t * T < *first ? nt : nk0;
+  if (CAUSAL && tid == 0)
+    for (int c = nk0; c < nk; ++c)
+      load_wide_pair(ks + c * WTB, nt * WTB, &tk, &tv, bar + 1 + c, h, c, b);
+
+  const int lane = tid & 31, r0 = 16 * (tid >> 5) + (lane >> 2),
+            c0 = 2 * (lane & 3);
+  float L[2], Dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = t * T + r0 + 8 * hh;
+    L[hh] = qi < N ? lse[rbase + qi] : 0.f;  // a pad row's lse is not read
+    Dl[hh] = dl[r0 + 8 * hh];
+  }
+  float acc[WDH / 2];
+#pragma unroll
+  for (int i = 0; i < WDH / 2; ++i) acc[i] = 0.f;
+  tc::mbar_wait(bar, 0);
+  for (int c = 0; c < nk; ++c) {
+    const int w = np - c * T;  // keys of this tile that the products cover
+    const uint32_t kc = ks + c * WTB, vc = vs + c * WTB;
+    tc::mbar_wait(bar + 1 + c, 0);
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      ss(s, kmajor64(qs + wide_k(j)), kmajor64(kc + wide_k(j)), w, j);
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      ss(dp, kmajor64(dos + wide_k(j)), kmajor64(vc + wide_k(j)), w, j);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(s);
+    tc::fence_acc(dp);
+    // dS = W (dP - Delta), W = exp(S - lse); 0 on pad keys
+    const bool tail = c * T + T > N;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int key = c * T + 8 * (i >> 2) + c0 + (i & 1);
+      float sv = s[i] * scale;
+      if (MASKED) sv += kb[key];
+      if (CAUSAL && key > t * T + r0 + 8 * hh) sv = NEG;
+      float x = expf(sv - L[hh]) * (dp[i] - Dl[hh]);
+      if (tail && key >= N) x = 0.f;
+      s[i] = x;
+    }
+    uint32_t a[16];
+    frag(a, s);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (16 * kk < w)
+        RS<WDH>::mma(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                     a[4 * kk + 3], mnmajor64(kc + 1024 * kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(acc);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = t * T + r0 + 8 * hh;
+    if (qi >= N) continue;
+    __nv_bfloat16* row = dq + (static_cast<size_t>(b) * N + qi) * D + h * WDH;
+#pragma unroll
+    for (int j = 0; j < WDH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] * scale,
+                                acc[4 * j + 2 * hh + 1] * scale);
+  }
+}
+
+// dK and dV of one 64-row key tile of one (head, sample).
+template <bool MASKED, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 2)
+    dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int N, int D,
+                     float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1k(smem_raw);
+  const int nt = tiles(N), np = pad16(N);
+  // the key tile's K and V, then the head's Q and dO tiles
+  const uint32_t ks = tc::smem_u32(smem), vs = ks + WTB, qs = vs + WTB,
+                 dos = qs + nt * WTB;
+  float* Ls = reinterpret_cast<float*>(smem + (2 * nt + 2) * WTB);  // [MAX_N]
+  float* Ds = Ls + MAX_N;                                            // [MAX_N]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Ds + MAX_N);  // K + V, Q_c + dO_c
+  int* first = reinterpret_cast<int*>(bar + nt + 1);        // first attendable
+  const int t = blockIdx.x, h = blockIdx.y, H = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int chi = CAUSAL ? t : 0;  // query tiles from the diagonal on
+  if (tid == 0) {
+    init_bars(bar, nt + 1);
+    *first = MASKED ? N : 0;
+    load_wide_pair(ks, WTB, &tk, &tv, bar, h, t, b);
+    for (int c = chi; c < nt; ++c)
+      load_wide_pair(qs + c * WTB, nt * WTB, &tq, &tdo, bar + 1 + c, h, c, b);
+  }
+  __syncthreads();
+  if (MASKED && CAUSAL)
+    for (int j = tid; j < N; j += THREADS)
+      if (mask[static_cast<size_t>(b) * N + j] > 0) atomicMin(first, j);
+  const size_t rbase = (static_cast<size_t>(b) * H + h) * N;
+  for (int j = tid; j < nt * T; j += THREADS) {
+    Ls[j] = j < N ? lse[rbase + j] : 0.f;
+    Ds[j] = j < N ? delta[rbase + j] : 0.f;
+  }
+  __syncthreads();
+  // the query tiles before the diagonal that hold a row before the first
+  // attendable key
+  const int nlo = CAUSAL ? min(chi, (*first + T - 1) / T) : 0;
+  if (CAUSAL && tid == 0)
+    for (int c = 0; c < nlo; ++c)
+      load_wide_pair(qs + c * WTB, nt * WTB, &tq, &tdo, bar + 1 + c, h, c, b);
+
+  const int lane = tid & 31, r0 = 16 * (tid >> 5) + (lane >> 2),
+            c0 = 2 * (lane & 3);
+  float kbias[2];
+  bool live[2];  // this thread's two keys are real ones
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = t * T + r0 + 8 * hh;
+    live[hh] = key < N;
+    kbias[hh] = MASKED && live[hh] ? key_bias_of(mask, b, N, key) : 0.f;
+  }
+  float dka[WDH / 2], dva[WDH / 2];
+#pragma unroll
+  for (int i = 0; i < WDH / 2; ++i) dka[i] = dva[i] = 0.f;
+  tc::mbar_wait(bar, 0);
+  for (int c = 0; c < nt; ++c) {
+    if (c >= nlo && c < chi) continue;  // before the diagonal: exact zeros
+    const int w = np - c * T;  // queries of this tile the products cover
+    const uint32_t qc = qs + c * WTB, dc = dos + c * WTB;
+    tc::mbar_wait(bar + 1 + c, 0);
+    float stt[32], dpt[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      ss(stt, kmajor64(ks + wide_k(j)), kmajor64(qc + wide_k(j)), w, j);
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      ss(dpt, kmajor64(vs + wide_k(j)), kmajor64(dc + wide_k(j)), w, j);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(stt);
+    tc::fence_acc(dpt);
+    // rows are keys, columns queries: W^T and dS^T, 0 on pad keys /
+    // queries
+    const bool tail = c * T + T > N;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int key = t * T + r0 + 8 * hh;
+      const int qi = c * T + 8 * (i >> 2) + c0 + (i & 1);
+      float sv = stt[i] * scale;
+      if (MASKED) sv += kbias[hh];
+      if (CAUSAL && key > qi) sv = NEG;
+      float wv = expf(sv - Ls[qi]);
+      float x = wv * (dpt[i] - Ds[qi]);
+      if (!live[hh] || (tail && qi >= N)) wv = x = 0.f;
+      stt[i] = wv;
+      dpt[i] = x;
+    }
+    uint32_t aw[16], ad[16];
+    frag(aw, stt);
+    frag(ad, dpt);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (16 * kk < w) {
+        RS<WDH>::mma(dva, aw[4 * kk], aw[4 * kk + 1], aw[4 * kk + 2],
+                     aw[4 * kk + 3], mnmajor64(dc + 1024 * kk));
+        RS<WDH>::mma(dka, ad[4 * kk], ad[4 * kk + 1], ad[4 * kk + 2],
+                     ad[4 * kk + 3], mnmajor64(qc + 1024 * kk));
+      }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dva);
+    tc::fence_acc(dka);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = t * T + r0 + 8 * hh;
+    if (key >= N) continue;
+    const size_t a = (static_cast<size_t>(b) * N + key) * D + h * WDH;
+#pragma unroll
+    for (int j = 0; j < WDH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + a + 8 * j + c0) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * hh] * scale,
+                                dka[4 * j + 2 * hh + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + a + 8 * j + c0) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * hh],
+                                dva[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// The backward at head dim 80 under its plan: the dQ kernel on grid_q =
+// (tiles(N), heads, B) with smem_q, then the dK / dV kernel on the same
+// grid with smem_kv; refused (cudaErrorInvalidValue) if the plan is not
+// this shape's or a pointer is not 16-byte aligned. Four TMA descriptors
+// are encoded per call.
+cudaError_t backward_wide(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          const int* mask, void* dq, void* dk, void* dv,
+                          float* delta, int B, int N, int D, int heads,
+                          float scale, int causal, int np, dim3 grid_q,
+                          int smem_q, dim3 grid_kv, int smem_kv,
+                          cudaStream_t stream) {
+  const int nt = tiles(N);
+  if (!wide_plan_ok<WDH>(B, N, D, heads, np) ||
+      grid_q.x != unsigned(nt) || grid_q.y != unsigned(heads) ||
+      grid_q.z != unsigned(B) || grid_kv.x != grid_q.x ||
+      grid_kv.y != grid_q.y || grid_kv.z != grid_q.z ||
+      smem_q != wide_dq_smem(nt) || smem_kv != wide_dkdv_smem(nt) ||
+      !aligned16({q, k, v, o, dout, dq, dk, dv}))
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = make_map_heads(&mq, q, B, N, heads, WDH);
+  if (err == cudaSuccess) err = make_map_heads(&mk, k, B, N, heads, WDH);
+  if (err == cudaSuccess) err = make_map_heads(&mv, v, B, N, heads, WDH);
+  if (err == cudaSuccess) err = make_map_heads(&mdo, dout, B, N, heads, WDH);
+  auto kq = mask ? (causal ? dq_wide_kernel<true, true>
+                           : dq_wide_kernel<true, false>)
+                 : (causal ? dq_wide_kernel<false, true>
+                           : dq_wide_kernel<false, false>);
+  auto kkv = mask ? (causal ? dkdv_wide_kernel<true, true>
+                            : dkdv_wide_kernel<true, false>)
+                  : (causal ? dkdv_wide_kernel<false, true>
+                            : dkdv_wide_kernel<false, false>);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  kq<<<grid_q, THREADS, smem_q, stream>>>(
+      mq, mk, mv, mdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, mask,
+      static_cast<__nv_bfloat16*>(dq), delta, N, D, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<grid_kv, THREADS, smem_kv, stream>>>(
+      mq, mk, mv, mdo, lse, delta, mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), N, D, scale);
+  return cudaGetLastError();
+}
+
 // The forward of flash_tc.cuh at head dim 80 or 88 (wide_kernel), its
 // instance picked from the call; with lse (K4a) at head dim 80 only, the
 // one the flash pair takes.
@@ -1121,6 +1509,10 @@ cudaError_t backward(const void* q, const void* k, const void* v,
                      float scale, int causal, int np, dim3 grid_q,
                      int smem_q, dim3 grid_kv, int smem_kv,
                      cudaStream_t stream) {
+  if (heads > 0 && D % heads == 0 && D / heads == WDH)
+    return backward_wide(q, k, v, o, dout, lse, mask, dq, dk, dv, delta, B,
+                         N, D, heads, scale, causal, np, grid_q, smem_q,
+                         grid_kv, smem_kv, stream);
   const int nt = tiles(N);
   if (!plan_ok(B, N, D, heads, np) || grid_q.x != unsigned(heads) ||
       grid_q.y != unsigned(B) || grid_q.z != 1 || grid_kv.x != grid_q.x ||
@@ -1916,8 +2308,9 @@ extern "C" int mha_forward_lse_tc(const void* q, const void* k,
 }
 
 // The tensor-core route of mha_flash_backward, under the same plan: the dQ
-// kernel on grid_q = (heads, B, 1) with smem_q, then the dK / dV kernel on
-// grid_kv (the same grid) with smem_kv.
+// kernel on grid_q with smem_q, then the dK / dV kernel on grid_kv (the
+// same grid) with smem_kv; the grid (heads, B, 1) at head dim 64,
+// (query / key tiles, heads, B) at 80.
 extern "C" int mha_flash_backward_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* mask, void* dq, void* dk,

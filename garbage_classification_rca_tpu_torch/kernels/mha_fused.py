@@ -39,10 +39,10 @@ on request). The eval forward ``mha`` also takes head dims 80 (OPT-2.7B)
 and 88 (EVA ViT-g) (``mha_plan``): in bf16 on the tensor cores up to
 ``TC_WIDE_MAX_N`` keys (a block per (query tile, head, sample)), in fp32,
 longer or with ``route="cuda_core"`` on the CUDA cores; the flash pair
-without dropout takes 80 too (OPT-2.7B's LoRA training: the bf16 forward
-on the tensor cores, the backward on the CUDA cores), and refuses 88; the
-dropout pair refuses both. A failure of any route raises; none gives way
-to another.
+without dropout takes 80 too (OPT-2.7B's LoRA training: in bf16 both
+sides on the tensor cores up to 256 keys, a block per (64-row tile, head,
+sample)), and refuses 88; the dropout pair refuses both. A failure of
+any route raises; none gives way to another.
 ``launch_mha`` / ``launch_fwd_lse`` / ``launch_fwd_lse_drop`` /
 ``launch_flash_bwd`` / ``launch_flash_bwd_drop`` run a given plan (the A/B
 timing of the routes).
@@ -306,7 +306,9 @@ class FlashPlan:
     kernel per (head, sample) on 3xTF32 products, namespace ``tc32``; the
     eval forward ``mha`` has none) or "cuda_core" (every other shape: the
     fp32 CUDA-core kernels).
-    `bwd_route`: the backward's, "tc" (as the forward), "tc32" (fp32, head
+    `bwd_route`: the backward's, "tc" (bf16, head dims 64 and 80, N <=
+    256: two kernels, at 64 a block per (head, sample) each, at 80 a block
+    per (64-row query / key tile, head, sample)), "tc32" (fp32, head
     dim 64, N <= 64, with or without dropout: one fused kernel on 3xTF32
     products), "cuda_core", or "none" (``mha_plan`` at head dims 80 / 88,
     which no backward takes). `np`: the keys the tensor-core score products
@@ -333,8 +335,8 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     """The launch plan of an attention call on q / k / v of `shape`
     [B, N, D] with `heads` heads (`dropout`: the dropout pair, which has no
     "tc" route and no head dim 80): each side on the tensor cores where a
-    route takes the shape, else "cuda_core" (at head dim 80 the bf16
-    forward takes "tc" up to 256 keys, the backward "cuda_core" always).
+    route takes the shape, else "cuda_core" (bf16 at head dims 64 and 80
+    takes "tc" on both sides up to 256 keys).
     The fp32 forward without dropout keeps
     "cuda_core" unless asked for "tc32": the CUDA-core kernel takes the
     same fp32 fused multiply-adds in the same order as the plain version's
@@ -356,16 +358,15 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
     if n < 1:
         raise ValueError(f"the flash pair takes N >= 1, got {n}")
     dh = d // heads
+    # head dim 80: OPT-2.7B's LoRA training
     tc_fits = (not dropout and dtype == torch.bfloat16
-               and dh == TC_HEAD_DIM and n <= TC_MAX_N)
-    # the forward alone at head dim 80 (OPT-2.7B's LoRA training)
-    tc_fwd_fits = tc_fits or (not dropout and dtype == torch.bfloat16
-                              and dh == 80 and n <= TC_WIDE_MAX_N[80])
+               and (dh == TC_HEAD_DIM and n <= TC_MAX_N
+                    or dh == 80 and n <= TC_WIDE_MAX_N[80]))
     tc32_fits = (dtype == torch.float32 and dh == TC32_HEAD_DIM
                  and n <= TC32_MAX_N)
     if route is not None and bwd_route is None:
         bwd_route = route
-    route = route or ("tc" if tc_fwd_fits else
+    route = route or ("tc" if tc_fits else
                       "tc32" if tc32_fits and dropout else "cuda_core")
     bwd_route = bwd_route or ("tc" if tc_fits else
                               "tc32" if tc32_fits else "cuda_core")
@@ -373,13 +374,10 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
         raise ValueError(f"unknown route {route!r}")
     if bwd_route not in ("tc", "tc32", "cuda_core"):
         raise ValueError(f"unknown backward route {bwd_route!r}")
-    if (route == "tc" and not tc_fwd_fits) or (bwd_route == "tc"
-                                               and not tc_fits):
-        raise ValueError(f"the tensor-core route takes bfloat16, head dim "
-                         f"{TC_HEAD_DIM}, N <= {TC_MAX_N}, no dropout (the "
-                         f"forward also head dim 80, N <= "
-                         f"{TC_WIDE_MAX_N[80]}); got {tuple(shape)} with "
-                         f"{heads} heads in {dtype}")
+    if "tc" in (route, bwd_route) and not tc_fits:
+        raise ValueError(f"the tensor-core route takes bfloat16, head dims "
+                         f"{TC_HEAD_DIM} / 80, N <= {TC_MAX_N}, no dropout; "
+                         f"got {tuple(shape)} with {heads} heads in {dtype}")
     if "tc32" in (route, bwd_route) and not tc32_fits:
         raise ValueError(f"the 3xTF32 route takes float32, head dim "
                          f"{TC32_HEAD_DIM}, N <= {TC32_MAX_N}; got "
@@ -401,7 +399,9 @@ def flash_plan(shape, heads: int, dtype, route: Optional[str] = None, *,
         fwd = (grid, TC32_FWD_SMEM)
     else:
         fwd = _cuda_core_fwd(b, n, heads, dh)
-    if bwd_route == "tc":
+    if bwd_route == "tc" and dh != TC_HEAD_DIM:
+        bwd = _tc_wide_bwd(b, n, heads)
+    elif bwd_route == "tc":
         # ftc::dq_smem / dkdv_smem: one side of the head and two stages of
         # the other, per-key / per-query floats, mbarriers, + 1 KB
         bwd = (grid, (2 * nt + 4) * _TC_BOX + TC_MAX_N * 4 + TC_TILE * 4
@@ -430,6 +430,22 @@ def _tc_wide_fwd(b, n, heads):
     nt = -(-n // TC_TILE)
     return ((nt, heads, b),
             (nt + 1) * _TC_WIDE_TILE + _TC_WIDE_KB * 4 + 4 * 8 + 1024)
+
+
+def _tc_wide_bwd(b, n, heads):
+    """(grid, shared memory) of the dQ kernel and of the dK / dV kernel of
+    the tensor-core backward at head dim 80, the formulas of
+    ftc::wide_dq_smem / wide_dkdv_smem: a block per (64-row query / key
+    tile, head, sample) holding its own tile pair (Q and dO, or K and V)
+    and every tile pair of the other side, 96 columns a tile; the key
+    biases and the tile's Delta (dQ), or the lse and Delta of every query
+    (dK / dV); the mbarriers and the first attendable key; + 1 KB for the
+    swizzle's alignment."""
+    nt = -(-n // TC_TILE)
+    grid, tiles = (nt, heads, b), (2 * nt + 2) * _TC_WIDE_TILE
+    tail = (nt + 1) * 8 + 8 + 1024
+    return (grid, tiles + TC_MAX_N * 4 + TC_TILE * 4 + tail,
+            grid, tiles + 2 * TC_MAX_N * 4 + tail)
 
 
 def _cuda_core_fwd(b, n, heads, dh):
@@ -641,10 +657,9 @@ def flash_train_fits(shape, heads: int, dtype) -> bool:
     """Whether the flash pair takes [B, N, D] with `heads` heads: fp32 or
     bf16, head dims 32 / 64 / 80 / 128, 1 <= N <= 512 (the CUDA-core
     forward holds 32 fp32 score rows of N in shared memory), B <= 65535.
-    Within that, ``flash_plan`` sends bf16 at head dim 64 and N <= 256 to
-    the "tc" route (at head dim 80 the forward alone), the fp32 backward
-    at head dim 64 and N <= 64 to "tc32" and the rest to the CUDA-core
-    kernels."""
+    Within that, ``flash_plan`` sends bf16 at head dims 64 / 80 and N <=
+    256 to the "tc" route, the fp32 backward at head dim 64 and N <= 64 to
+    "tc32" and the rest to the CUDA-core kernels."""
     b, n, d = shape
     return (dtype in _DTYPES and heads > 0 and d % heads == 0
             and d // heads in FLASH_HEAD_DIMS and 1 <= n <= MAX_N

@@ -15,7 +15,8 @@ than the plain version: its bf16 output is held to one ulp + the larger of
 dQ and dK are zero in exact arithmetic, to the rounding of the two dot
 products they come from (``_single_key_close``). K2's tensor-core route
 (bf16, head dim 64, N <= 256; head dims 88 / 80, N <= 272 / 256, with K4a
-at 80) is held to ``mha_reference`` the same way;
+at 80) is held to ``mha_reference`` the same way, and the tensor-core K4b
+at head dim 80 to the bf16 gradient bar as at 64;
 the fp32 training pair's 3xTF32 route (K4a / K7a and K4b / K7b at head
 dim 64, N <= 64) to the fp32 bars (1e-5 + 1e-5 |x| forward, 5e-5 (1 + |x|)
 backward), its outputs bit-identical over two runs. K1's and K3's staged
@@ -172,8 +173,9 @@ def test_flash_pair_at_head_dim_80_matches_plain(cuda, dtype, n):
     N = 1, on the CUDA cores (fp32's plan, bf16's on request): out / lse
     at the forward bars, dQ / dK / dV at the backward bars (bf16 dQ / dK
     at N = 1, zero in exact arithmetic, at ``_single_key_close``'s); one
-    launch of each. bf16's default forward, the tensor cores, is held in
-    ``test_flash_pair_tc_forward_at_head_dim_80_matches_plain``."""
+    launch of each. bf16's default pair, the tensor cores, is held in
+    ``test_flash_pair_tc_forward_at_head_dim_80_matches_plain`` and
+    ``test_flash_pair_tc_backward_at_head_dim_80_matches_plain``."""
     b, d, heads = 3, 2560, 32
     g = torch.Generator().manual_seed(80 + n)
     q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda, dtype)
@@ -183,8 +185,8 @@ def test_flash_pair_at_head_dim_80_matches_plain(cuda, dtype, n):
     kw = dict(heads=heads, mask=m, causal=True)
     plan = mha_fused.flash_plan(q.shape, heads, dtype, route="cuda_core")
     assert (plan.route, plan.bwd_route) == ("cuda_core", "cuda_core")
-    assert mha_fused.flash_plan(q.shape, heads, dtype).bwd_route == \
-        "cuda_core"
+    assert mha_fused.flash_plan(q.shape, heads, dtype).bwd_route == (
+        "tc" if dtype == torch.bfloat16 else "cuda_core")
     f0 = dict(mha_fused.mha_fwd_lse.route_launches)
     b0 = dict(mha_fused.mha_flash_bwd.route_launches)
     o, lse = mha_fused.launch_fwd_lse(plan, q, k, v, **kw)
@@ -973,8 +975,9 @@ def test_flash_pair_tc_forward_at_head_dim_80_matches_plain(cuda, n):
     """K4a's default bf16 route at head dim 80 (OPT-2.7B's LoRA shape, 32
     heads, causal, ``_vlm_edge_mask``): the tensor-core forward, lse within
     1e-5 + 1e-5 |x| and the output at ``_out_close``, bit-identical over
-    two runs; K4b on the CUDA cores from its out and lse at the backward
-    bars (``_single_key_close`` at N = 1); one launch on each route."""
+    two runs; K4b on the CUDA cores (``bwd_route="cuda_core"``) from its
+    out and lse at the backward bars (``_single_key_close`` at N = 1); one
+    launch on each route."""
     b, d, heads = 3, 2560, 32
     g = torch.Generator().manual_seed(800 + n)
     q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda,
@@ -982,13 +985,14 @@ def test_flash_pair_tc_forward_at_head_dim_80_matches_plain(cuda, n):
                    for _ in range(4))
     m = _vlm_edge_mask(n, cuda)
     kw = dict(heads=heads, mask=m, causal=True)
-    plan = mha_fused.flash_plan(q.shape, heads, q.dtype)
+    plan = mha_fused.flash_plan(q.shape, heads, q.dtype, route="tc",
+                                bwd_route="cuda_core")
     assert (plan.route, plan.bwd_route) == ("tc", "cuda_core")
     f0 = dict(mha_fused.mha_fwd_lse.route_launches)
     b0 = dict(mha_fused.mha_flash_bwd.route_launches)
     o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
     again = mha_fused.launch_fwd_lse(plan, q, k, v, **kw)
-    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    grads = mha_fused.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert mha_fused.mha_fwd_lse.route_launches == {**f0, "tc": f0["tc"] + 2}
     assert mha_fused.mha_flash_bwd.route_launches == {
@@ -1003,6 +1007,70 @@ def test_flash_pair_tc_forward_at_head_dim_80_matches_plain(cuda, n):
         grads, want = grads[2:], want[2:]
     for x, y in zip(grads, want):
         _grad_close(x, y, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,n", [("path", 136), ("edge", 136),
+                                    ("edge", 65), ("edge", 1)])
+def test_flash_pair_tc_backward_at_head_dim_80_matches_plain(cuda, case, n):
+    """K4b's default bf16 route at head dim 80 (OPT-2.7B's LoRA shape, 32
+    heads, causal): the tensor-core backward (``dq_wide_kernel`` /
+    ``dkdv_wide_kernel``) from the default forward's out and lse, held to
+    the plain backward at the head-dim-64 tensor-core K4b's bars
+    (``_grad_close``; ``_single_key_close`` for dQ / dK at N = 1),
+    bit-identical over two runs, one launch on the "tc" counter each. The
+    masks: the path's left pads; ``_vlm_edge_mask`` (an all-pad sample, a
+    one-key sample and a sample whose first 100 keys, or all but its last
+    at N = 65, are pads: its rows before the first key read every key
+    tile)."""
+    b, d, heads = 3, 2560, 32
+    g = torch.Generator().manual_seed(1800 + n)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda,
+                                                          torch.bfloat16)
+                   for _ in range(4))
+    m = _vlm_edge_mask(n, cuda) if case == "edge" else (
+        torch.arange(n)[None] >= torch.tensor([0, 17, 40])[:, None]).to(
+        torch.int32).to(cuda)
+    kw = dict(heads=heads, mask=m, causal=True)
+    plan = mha_fused.flash_plan(q.shape, heads, q.dtype)
+    assert (plan.route, plan.bwd_route) == ("tc", "tc")
+    assert plan.grid_dq == plan.grid_dkdv == (-(-n // 64), heads, b)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
+    b0 = dict(mha_fused.mha_flash_bwd.route_launches)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    again = mha_fused.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert mha_fused.mha_flash_bwd.route_launches == {**b0,
+                                                      "tc": b0["tc"] + 2}
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in grads)
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+    if n == 1:
+        _single_key_close(grads, q, k, v, do, heads)
+        grads, want = grads[2:], want[2:]
+    for x, y in zip(grads, want):
+        _grad_close(x, y, torch.bfloat16)
+
+
+def test_wide_tc_backward_entry_refuses_another_plan(cuda):
+    """At head dim 80 the backward's C entry launches the plan it is given
+    or none: another grid or shared memory of either kernel, another np or
+    a plan of another length raises, and nothing is counted."""
+    import dataclasses
+
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 100, 2560), generator=g).to(cuda, torch.bfloat16)
+    o, lse = mha_fused.mha_fwd_lse(q, q, q, heads=32)
+    plan = mha_fused.flash_plan(q.shape, 32, q.dtype)
+    before = dict(mha_fused.mha_flash_bwd.route_launches)
+    for bad in (dataclasses.replace(plan, smem_dq=plan.smem_dq + 16),
+                dataclasses.replace(plan, smem_dkdv=plan.smem_dkdv - 16),
+                dataclasses.replace(plan, np=plan.np + 16),
+                dataclasses.replace(plan, grid_dq=(32, 2, 1)),
+                dataclasses.replace(plan, grid_dkdv=(3, 32, 2)),
+                mha_fused.flash_plan((2, 200, 2560), 32, q.dtype)):
+        with pytest.raises(RuntimeError):
+            mha_fused.launch_flash_bwd(bad, q, q, q, o, q, lse, heads=32)
+    assert mha_fused.mha_flash_bwd.route_launches == before
 
 
 def test_wide_tc_entry_refuses_another_plan(cuda):

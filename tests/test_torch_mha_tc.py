@@ -10,8 +10,11 @@ on the card: ``tests/test_torch_gpu.py``):
     kernels are not built for are refused;
   * ``mha_plan`` / ``flash_plan`` at head dims 80 and 88: bf16 up to 256
     (80) / 272 (88) keys on the tensor-core forward (a block per (query
-    tile, head, sample)), the backward at 80 on the CUDA cores; fp32 and
-    longer N on the CUDA cores;
+    tile, head, sample)), the backward at 80 on the tensor cores too (two
+    kernels, a block per (64-row query / key tile, head, sample), their
+    shared memory the formula of ``csrc/mha_fused.cu``, two blocks to an
+    SM up to 192 keys); fp32, longer N and ``route="cuda_core"`` on the
+    CUDA cores;
   * the plain pair ``mha_fwd_lse_reference`` / ``mha_flash_bwd_reference``
     (what the wrappers run on the CPU and what the card's kernels are held
     to) against the Pallas ``_mha_fwd_lse`` / ``_mha_flash_bwd`` in
@@ -22,6 +25,9 @@ on the card: ``tests/test_torch_gpu.py``):
     largest |x| (both sides round at the same points and sum in another
     order).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,14 +123,14 @@ def test_mha_plan_takes_bf16_head_dims_80_88_on_the_tensor_cores(dh, n):
     assert plan.smem_fwd == (tiles + 1) * 12288 + 272 * 4 + 32 + 1024
     # three blocks to an SM: the SM's 228 KB, 1 KB of it reserved a block
     assert 3 * (plan.smem_fwd + 1024) <= 228 * 1024
-    # the training forward takes the same plan at head dim 80, its
-    # backward stays on the CUDA cores
+    # the training forward takes the same plan at head dim 80, and its
+    # backward the tensor cores on the same grid
     if dh == 80:
         pair = K.flash_plan(shape, heads, BF16)
         assert (pair.route, pair.bwd_route, pair.grid_fwd, pair.smem_fwd,
-                pair.np) == ("tc", "cuda_core", plan.grid_fwd,
-                             plan.smem_fwd, plan.np)
-        assert pair.grid_dq == (-(-n // 32), heads, 16)
+                pair.np) == ("tc", "tc", plan.grid_fwd, plan.smem_fwd,
+                             plan.np)
+        assert pair.grid_dq == pair.grid_dkdv == plan.grid_fwd
 
 
 @pytest.mark.parametrize("dh,n", [(80, 257), (80, 512), (88, 273),
@@ -147,14 +153,20 @@ def test_head_dims_80_88_past_the_tensor_core_limit_stay_on_the_cuda_cores(
 
 
 def test_head_dim_80_route_requests():
-    """At head dim 80 only the forward has a tensor-core route: asking for
-    "tc" on both sides raises, the forward alone is taken; fp32 and
-    ``route="cuda_core"`` give the CUDA-core pair."""
+    """At head dim 80 both sides have a tensor-core route in bf16: asking
+    for "tc" gives the default plan; the CUDA-core backward beside the
+    tensor-core forward stays possible (the A/B), on the CUDA-core
+    kernels' grids; fp32 and ``route="cuda_core"`` give the CUDA-core
+    pair, and fp32 refuses "tc"."""
     shape = (16, 136, 2560)
-    with pytest.raises(ValueError, match="tensor-core route"):
-        K.flash_plan(shape, 32, BF16, route="tc")
-    plan = K.flash_plan(shape, 32, BF16, route="tc", bwd_route="cuda_core")
-    assert plan == K.flash_plan(shape, 32, BF16)
+    plan = K.flash_plan(shape, 32, BF16)
+    assert (plan.route, plan.bwd_route) == ("tc", "tc")
+    assert K.flash_plan(shape, 32, BF16, route="tc") == plan
+    mixed = K.flash_plan(shape, 32, BF16, route="tc", bwd_route="cuda_core")
+    assert (mixed.route, mixed.bwd_route, mixed.grid_fwd, mixed.smem_fwd) \
+        == ("tc", "cuda_core", plan.grid_fwd, plan.smem_fwd)
+    assert mixed.grid_dq == mixed.grid_dkdv == (5, 32, 16)
+    assert (mixed.smem_dq, mixed.smem_dkdv) == (70784, 79360)
     for dtype, route in ((torch.float32, None), (BF16, "cuda_core")):
         plan = K.flash_plan(shape, 32, dtype, route=route)
         assert (plan.route, plan.bwd_route, plan.np) == ("cuda_core",
@@ -162,6 +174,49 @@ def test_head_dim_80_route_requests():
     with pytest.raises(ValueError):
         K.flash_plan(shape, 32, torch.float32, route="tc",
                      bwd_route="cuda_core")
+
+
+CSRC = Path(K.__file__).resolve().parents[1] / "csrc"
+
+
+def _c_smem(fn, nt):
+    """``ftc::<fn>(nt)`` of ``csrc/mha_fused.cu``, its expression evaluated
+    with the integer constants of ``csrc/flash_tc.cuh``."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 (CSRC / "flash_tc.cuh").read_text()):
+        env[name] = eval(expr, {}, dict(env))
+    body = re.search(rf"inline int {fn}\(int nt\) \{{\s*return ([^;]+);",
+                     (CSRC / "mha_fused.cu").read_text())[1]
+    return eval(body, {}, {**env, "nt": nt})
+
+
+def _built_blocks_per_sm(kernel):
+    """The blocks an SM of ``kernel``'s ``__launch_bounds__``."""
+    return int(re.search(rf"__launch_bounds__\(THREADS, (\d+)\)\s*{kernel}\(",
+                         (CSRC / "mha_fused.cu").read_text())[1])
+
+
+@pytest.mark.parametrize("n", [1, 64, 65, 136, 256])
+def test_flash_plan_takes_bf16_head_dim_80_backward_on_the_tensor_cores(n):
+    """K4b at head dim 80 in bf16: the dQ kernel and the dK / dV kernel a
+    block per (64-row query / key tile, head, sample), their shared memory
+    ``ftc::wide_dq_smem`` / ``wide_dkdv_smem`` of the C source; both are
+    built for two blocks an SM, which fit the SM's 228 KB (1 KB reserved a
+    block) up to three tiles (N <= 192); at four tiles one block fits."""
+    plan = K.flash_plan((16, n, 2560), 32, BF16)
+    tiles = -(-n // 64)
+    assert (plan.route, plan.bwd_route) == ("tc", "tc")
+    assert plan.np == -(-n // 16) * 16
+    assert plan.grid_dq == plan.grid_dkdv == (tiles, 32, 16)
+    assert plan.smem_dq == _c_smem("wide_dq_smem", tiles)
+    assert plan.smem_dkdv == _c_smem("wide_dkdv_smem", tiles)
+    for kernel, smem in (("dq_wide_kernel", plan.smem_dq),
+                         ("dkdv_wide_kernel", plan.smem_dkdv)):
+        built = _built_blocks_per_sm(kernel)
+        fit = (228 * 1024) // (smem + 1024)
+        assert built == 2 and smem <= MAX_SMEM
+        assert min(fit, built) == (built if tiles <= 3 else 1)
 
 
 def test_flash_plan_route_request():

@@ -122,10 +122,10 @@ def test_mha_plan_takes_vlm_head_dims_for_the_eval_forward_only(shape,
     ``route="cuda_core"``, to the CUDA-core forward (67,072 bytes at N
     257), in both cases with no backward. ``flash_plan`` refuses 88 for
     both training pairs and 80 for the dropout pair; the flash pair
-    without dropout takes 80 in bf16 as ("tc", "cuda_core"): the forward
-    on the tensor cores, the backward on the CUDA cores (OPT-2.7B's LoRA
-    training: ``tests/test_torch_vlm_train.py``). Another head dim still
-    raises."""
+    without dropout takes 80 in bf16 as ("tc", "tc"): the forward and the
+    backward on the tensor cores (OPT-2.7B's LoRA training:
+    ``tests/test_torch_vlm_train.py``), in fp32 on the CUDA cores. Another
+    head dim still raises."""
     b, n, d = shape
     dh = d // heads
     tiles = -(-n // 64)
@@ -154,7 +154,7 @@ def test_mha_plan_takes_vlm_head_dims_for_the_eval_forward_only(shape,
         else:
             plan = K.flash_plan(shape, heads, dtype)
             assert (plan.route, plan.bwd_route) == (
-                ("tc", "cuda_core") if dtype == torch.bfloat16
+                ("tc", "tc") if dtype == torch.bfloat16
                 else ("cuda_core", "cuda_core"))
         with pytest.raises(ValueError, match="tensor-core route"):
             K.mha_plan(shape, heads, torch.float32, route="tc")

@@ -8,8 +8,10 @@ fp32 on the CPU:
     against the JAX Pallas ``_mha_fwd_lse`` / ``_mha_flash_bwd`` in
     interpret mode, out and lse within 1e-5 + 1e-5|x|, dQ / dK / dV within
     5e-5 (1 + |x|); ``mha_flash_train`` under autograd against
-    ``jax.vjp`` of the JAX ``mha_flash_train``; the plans take head dim 80
-    on the CUDA cores and still refuse 88;
+    ``jax.vjp`` of the JAX ``mha_flash_train``, at N = 40 and at N = 136
+    with a sample whose first 100 keys are pads; the plans take head dim
+    80 on the tensor cores in bf16 (N <= 256), on the CUDA cores in fp32
+    and on request, and still refuse 88;
   * OPT's train branch and ``blip2.lm_loss`` with LoRA (B != 0) on a
     narrow configuration that keeps head dim 80 (OPT 2 layers of 160, 2
     heads, FFN 320; the tiny EVA / Q-Former of ``tiny_blip2_config``)
@@ -86,24 +88,29 @@ def _bwd_close(got, want):
 # ---------------------------------------------------------------------------
 
 
-def _pair_inputs(seed=80):
-    """q / k / v / dO [3, 40, 160], the mask (sample 0 all pad, sample 1
-    only its last key valid, sample 2 left-padded by 12) and the rows with
-    an attendable key at or before the diagonal; dO is 0 on the other rows
-    (pad positions that no valid query reads, whose flash weights follow
-    no softmax: see the module docstring of ``tests/test_torch_vlm.py``)."""
+def _pair_inputs(seed=80, n=L, late=12):
+    """q / k / v / dO [3, n, 160], the mask (sample 0 all pad, sample 1
+    only its last key valid, sample 2 left-padded by `late`) and the rows
+    with an attendable key at or before the diagonal; dO is 0 on the other
+    rows (pad positions that no valid query reads, whose flash weights
+    follow no softmax: see the module docstring of
+    ``tests/test_torch_vlm.py``)."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.normal(size=(B, L, HEADS * DH)).astype(np.float32)
+    q, k, v, do = (rng.normal(size=(B, n, HEADS * DH)).astype(np.float32)
                    for _ in range(4))
-    m = _left_pad_mask(L, [L, L - 1, 12])
+    m = _left_pad_mask(n, [n, n - 1, late])
     rows = np.cumsum(m, axis=1) > 0            # a valid key at or before
     do = do * rows[..., None]
     return q, k, v, do, m, rows
 
 
-def test_flash_pair_plain_matches_pallas_at_head_dim_80():
-    q, k, v, do, m, rows = _pair_inputs()
-    assert rows.sum() < B * L and not rows[0].any() and rows[1].sum() == 1
+# N = 136 is OPT's LoRA length: sample 2's rows before its first key (100
+# pads) span the first 64-row tile and part of the second
+@pytest.mark.parametrize("n,late", [(L, 12), (136, 100)])
+def test_flash_pair_plain_matches_pallas_at_head_dim_80(n, late):
+    q, k, v, do, m, rows = _pair_inputs(n=n, late=late)
+    assert rows.sum() < B * n and not rows[0].any() and rows[1].sum() == 1
+    assert rows[2].sum() == n - late
     tq, tk, tv, tdo, tm = (torch.from_numpy(a) for a in (q, k, v, do, m))
     jq, jk, jv, jdo, jm = (jnp.asarray(a) for a in (q, k, v, do, m))
     scale = 1.0 / np.sqrt(DH)
@@ -111,7 +118,7 @@ def test_flash_pair_plain_matches_pallas_at_head_dim_80():
     jo, jlse = JK._mha_fwd_lse(jq, jk, jv, heads=HEADS, scale=scale,
                                mask=jm, causal=True, interpret=True)
     _fwd_close(o.numpy()[rows], np.asarray(jo)[rows])
-    hrows = np.broadcast_to(rows[:, None], (B, HEADS, L))
+    hrows = np.broadcast_to(rows[:, None], (B, HEADS, n))
     _fwd_close(lse.numpy()[hrows], np.asarray(jlse)[hrows])
     _fwd_close(o.numpy(), np.asarray(JK.mha_reference(
         jq, jk, jv, heads=HEADS, mask=jm, causal=True)))
@@ -143,21 +150,25 @@ def test_mha_flash_train_at_head_dim_80_matches_jax_vjp():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_plans_take_head_dim_80_on_the_cuda_cores(dtype):
-    """The backward at head dim 80 runs on the CUDA cores in both dtypes,
-    and so does the fp32 forward; the bf16 forward takes the tensor cores
-    (a block per (64-row query tile, head, sample)) unless asked for
-    ``route="cuda_core"``, which gives the CUDA-core pair."""
+    """The fp32 pair at head dim 80 runs on the CUDA cores, and so does
+    the bf16 pair on request (``route="cuda_core"``); bf16 takes the
+    tensor cores on both sides by default: the forward and the two
+    backward kernels a block per (64-row tile, head, sample)."""
     shape = (16, 136, 2560)                    # OPT-2.7B's LoRA microbatch
     assert K.flash_train_fits(shape, 32, dtype)
     assert not K.flash_drop_fits(shape, 32, dtype)
     plan = K.flash_plan(shape, 32, dtype)
     if dtype == torch.bfloat16:
-        assert (plan.route, plan.bwd_route, plan.np) == ("tc", "cuda_core",
-                                                         144)
-        assert plan.grid_fwd == (3, 32, 16)
+        assert (plan.route, plan.bwd_route, plan.np) == ("tc", "tc", 144)
+        assert plan.grid_fwd == plan.grid_dq == plan.grid_dkdv == (3, 32,
+                                                                   16)
         assert plan.smem_fwd == 4 * 12288 + 272 * 4 + 32 + 1024
-        assert plan.grid_dq == plan.grid_dkdv == (5, 32, 16)
-        assert (plan.smem_dq, plan.smem_dkdv) == (70784, 79360)
+        # the tile pair of the block's side and three of the other side;
+        # 256 key biases and 64 Delta (dQ) or 2 x 256 lse / Delta (dK /
+        # dV); four mbarriers, the first attendable key, 1 KB alignment
+        assert (plan.smem_dq, plan.smem_dkdv) == (
+            8 * 12288 + 256 * 4 + 64 * 4 + 32 + 8 + 1024,
+            8 * 12288 + 512 * 4 + 32 + 8 + 1024) == (100648, 101416)
         plan = K.flash_plan(shape, 32, dtype, route="cuda_core")
     assert (plan.route, plan.bwd_route, plan.np) == ("cuda_core",
                                                      "cuda_core", 136)
@@ -166,7 +177,11 @@ def test_flash_plans_take_head_dim_80_on_the_cuda_cores(dtype):
     # rows; the dK / dV kernel's 79,360 bytes (csrc/mha_fused.cu)
     assert plan.smem_fwd == 4 * (96 * 81 + 32 * 136)
     assert (plan.smem_dq, plan.smem_dkdv) == (70784, 79360)
-    for route in ("tc", "tc32"):
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        assert K.flash_plan(shape, 32, dtype, route="tc") == \
+            K.flash_plan(shape, 32, dtype)
+    for route in ("tc32",) if bf16 else ("tc", "tc32"):
         with pytest.raises(ValueError, match="route takes"):
             K.flash_plan(shape, 32, dtype, route=route)
     with pytest.raises(ValueError, match="head dims"):

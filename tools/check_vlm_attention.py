@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""The tensor-core attention forward at the VLM head dims on one card, in
-one process: K2 (``mha``) at EVA ViT-g's 16x257x1408 (16 heads of 88, no
+"""The tensor-core attention at the VLM head dims on one card, in one
+process: K2 (``mha``) at EVA ViT-g's 16x257x1408 (16 heads of 88, no
 mask) and OPT-2.7B's 16x132x2560 (32 heads of 80, causal, left-pad key
-mask), and K4a (``mha_fwd_lse``) at OPT's LoRA shape 16x136x2560, bf16.
+mask), K4a (``mha_fwd_lse``) and K4b (``mha_flash_bwd``) at OPT's LoRA
+shape 16x136x2560, bf16.
 
-    python3 tools/check_vlm_attention.py [--no-time]
+    python3 tools/check_vlm_attention.py [--no-time] [--bwd]
+
+``--bwd`` runs K4b alone.
 
 Builds ``csrc/mha_fused.cu`` with the package's nvcc flags and prints the
 registers and spills of its tensor-core kernels. Then, on each shape, the
@@ -18,7 +21,13 @@ all-pad sample, a one-key sample and a sample whose first 100 keys are pads
 Unless ``--no-time``, the two routes timed new-old-old-new (CUDA graphs of
 20 launches, median of 5; chip_smoke.time_ms) beside the plain version,
 the library call with the equivalent additive bias (SDPA for K2, efficient
-attention for K4a) and the bound. Needs one CUDA device and nvcc.
+attention for K4a) and the bound. K4b the same way from the default
+forward's out and lse, both routes on the same inputs, at chip_smoke.py's
+bf16 backward bar (one ulp + 2e-3 of the tensor's largest |x|; at N = 1,
+where dQ and dK are zero in exact arithmetic, the rounding of the two dot
+products they come from), timed beside the plain version, the library's
+efficient-attention backward and the bound. Needs one CUDA device and
+nvcc.
 """
 
 import os
@@ -90,6 +99,84 @@ def plans(name, shape, h, lse):
                                                    route="cuda_core")
 
 
+def check_bwd(dev, gen, timing):
+    """K4b at OPT's LoRA shape on both routes, checked and (with
+    `timing`) timed: whether every case held."""
+    b, n, d, h = 16, 136, 2560, 32
+    masks = shapes(dev)["opt_lse"][6]
+    tc = K.flash_plan((b, n, d), h, BF16)
+    old = K.flash_plan((b, n, d), h, BF16, route="cuda_core")
+    ok_all = (tc.route, tc.bwd_route, old.bwd_route) == ("tc", "tc",
+                                                         "cuda_core")
+    for nn_ in (n, 1):
+        q, k, v, do = (torch.randn((b, nn_, d), generator=gen).to(dev, BF16)
+                       for _ in range(4))
+        cases = masks if nn_ == n else {"N=1": left_pad(
+            b, 1, [1, 0] + [0] * (b - 2), dev)}
+        for label, m in cases.items():
+            kw = dict(heads=h, mask=m, causal=True)
+            o, lse = K.mha_fwd_lse(q, k, v, **kw)
+            want = K.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+            for route in ("tc", "cuda_core"):
+                plan = K.flash_plan((b, nn_, d), h, BF16, route=route)
+                got = K.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
+                again = K.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
+                torch.cuda.synchronize()
+                errs = [cs.grad_err_ok(a, c, BF16)
+                        for a, c in zip(got, want)]
+                if nn_ == 1:
+                    errs[:2] = cs._single_key(q, k, v, do, h, got)
+                ok = all(x for _, x in errs) and all(
+                    torch.equal(a, c) for a, c in zip(got, again))
+                ok_all &= ok
+                print(f"opt_bwd {route:9s} {b}x{nn_}x{d} H={h} causal "
+                      f"mask={label}: max|d| dq {errs[0][0]:.3e} dk "
+                      f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not timing:
+        return ok_all
+    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(dev, BF16)
+                   for _ in range(4))
+    m = masks["path"]
+    kw = dict(heads=h, mask=m, causal=True)
+    o, lse = K.mha_fwd_lse(q, k, v, **kw)
+    run = {"tc": lambda: K.launch_flash_bwd(tc, q, k, v, o, do, lse, **kw),
+           "cuda_core": lambda: K.launch_flash_bwd(old, q, k, v, o, do, lse,
+                                                   **kw)}
+    ab = {"tc": [], "cuda_core": []}
+    for route in ("tc", "cuda_core", "cuda_core", "tc"):
+        ab[route].append(cs.time_ms(run[route])[0])
+    plain = cs.time_ms(lambda: K.mha_flash_bwd_reference(
+        q, k, v, o, do, lse, **kw))[0]
+    allowed = m.bool()[:, None, :] & torch.ones(
+        (n, n), dtype=torch.bool, device=dev).tril()[None]
+    bias = torch.where(allowed, 0.0, K.NEG).to(BF16)[:, None]
+    bias = bias.expand(b, h, n, n).contiguous()
+    lib_out = cs._efficient_attention(q, k, v, bias, h)
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)
+    lib = cs.time_ms(lambda: torch.ops.aten.
+                     _scaled_dot_product_efficient_attention_backward(
+                         rs(do), rs(q), rs(k), rs(v), bias, lib_out[0],
+                         lib_out[1], lib_out[2], lib_out[3], 0.0,
+                         [True, True, True, False]))[0]
+    _, _, flops, nbytes = cs._vlm_train_bound(q, m)
+    bound = max(flops / cs.PEAK_FLOPS["bfloat16"],
+                nbytes / cs.PEAK_BYTES_PER_S) * 1e3
+    t_new, t_old = sum(ab["tc"]) / 2, sum(ab["cuda_core"]) / 2
+    split = cs.block_parts(run["tc"], ("dq", "dkdv"), part_of=lambda k: (
+        "dq" if "dq_wide_kernel" in k else
+        "dkdv" if "dkdv_wide_kernel" in k else None))
+    print(f"opt_bwd {b}x{n}x{d} new-old-old-new: tc {ab['tc'][0]:.4f} / "
+          f"{ab['tc'][1]:.4f} ms (dQ {split['dq']:.4f} + dK / dV "
+          f"{split['dkdv']:.4f}, the profiler), CUDA cores "
+          f"{ab['cuda_core'][0]:.4f} / {ab['cuda_core'][1]:.4f} ms; plain "
+          f"{plain:.4f}, library {lib:.4f}, bound {bound:.4f} ms; share of "
+          f"the bound tc {bound / t_new:.3f}, CUDA cores "
+          f"{bound / t_old:.3f}; tc / library {t_new / lib:.2f}",
+          flush=True)
+    return ok_all
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,7 +188,8 @@ def main() -> int:
     timing = "--no-time" not in sys.argv
     gen = torch.Generator().manual_seed(17)
     ok_all = True
-    for name, (b, n, d, h, causal, lse, masks) in shapes(dev).items():
+    forwards = {} if "--bwd" in sys.argv else shapes(dev)
+    for name, (b, n, d, h, causal, lse, masks) in forwards.items():
         tc, old = plans(name, (b, n, d), h, lse)
         ok_all &= tc.route == "tc"
         for nn_ in (n, 1):
@@ -163,6 +251,7 @@ def main() -> int:
               f"{lib:.4f}, bound {bound:.4f} ms; share of the bound tc "
               f"{bound / t_new:.3f}, CUDA cores {bound / t_old:.3f}; tc / "
               f"library {t_new / lib:.2f}", flush=True)
+    ok_all &= check_bwd(dev, gen, timing)
     print("ALL OK" if ok_all else "FAILED", flush=True)
     return 0 if ok_all else 1
 
