@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~10 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~11 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -58,8 +58,9 @@ Phases, each of which fails the run when it fails:
      ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6 on
      3xTF32); microbatches' loss and gradients on the kernel path
      against the plain path, on the seeded weights restored after the
-     steps, and the same check with K4a on its 3xTF32 forward (recorded,
-     not judged: PERF.md §6 says why K4a keeps the CUDA cores); then
+     steps, and the same check on the first microbatch with K4a on its
+     3xTF32 forward (recorded, not judged: PERF.md §6 says why K4a keeps
+     the CUDA cores); then
      ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1 epochs on a
      synthetic 480x480 JPEG tree and ``cli.test_both`` on its
      BEST checkpoint: ``evaluate()``, then ``main()`` end to end, whose
@@ -122,7 +123,7 @@ Phases, each of which fails the run when it fails:
      folded) and three text towers (DistilBERT 6 layers, BERT-base 12,
      BART-large 12 + 12), seq 64, bf16, built once and shared by the
      heads: gated, classic, normalized, hierarchical and bimodal with
-     DistilBERT over 4 batches of 128, clip over 4 batches of 16
+     DistilBERT over 2 batches of 128, clip over 2 batches of 16
      (``--batch_size``); gated, MM_RCA and hierarchical with BERT and
      classic and clip with BART, one timed batch each. Per run: the fp32
      kernel path against the plain path on 16 samples, the bf16
@@ -185,6 +186,31 @@ Phases, each of which fails the run when it fails:
      one epoch from phase 12's ``.pth`` on a 16 + 16 JPEG tree, their
      launches counted, and ``cli.blip2_test`` / ``cli.qformer_test`` on
      the BEST files they wrote.
+
+ 14. late-fusion train: every pair the JAX package trains but MM-RCA on
+     DistilBERT (phase 5's) — gated, classic, normalized, clip,
+     hierarchical and bimodal on DistilBERT (6 layers) and BERT-base (12),
+     MM_RCA on BERT, gated, classic, normalized and clip on BART-large (12
+     + 12) — at full width on EfficientNetV2-M at 480x480, seq 64, towers
+     built once (random seeded weights and BN statistics, unfolded) and
+     restored to their seeds for each pair, fp32 master weights, bf16
+     images, batch 16 x acc 2 (MM_RCA.sh's acc 10, cut), SGD lr 0.0016 reg
+     0.03, class weights, augmentation p=1.0, head dropout 0.6: per pair
+     one microbatch's loss and gradients on the kernel path against the
+     plain path with phase 5's bars, one optimizer step with the counters
+     zeroed before and read after (per microbatch K4a 6 / 12 on the CUDA
+     cores, K4b 6 / 12 on 3xTF32 on DistilBERT / BERT, K1 1 and K3 1 on
+     MM-RCA, nothing on BART), train samples/s, peak memory, a profiled
+     step (device ms, idle share, time by kind); one more step with
+     ``hf_internal_dropout`` on gated + DistilBERT, hierarchical + BERT
+     (K7a / K7b in place of K4a / K4b) and classic + BART, whose loss the
+     flag must change and repeat from the same key; then ``cli.main_both
+     --late_fusion=hierarchical --text_model=bert``, ``cli.main_both
+     --late_fusion=clip --text_model=bart --batch_size=16`` and
+     ``cli.main_text --text_model=bart`` for 1 + 1 epochs on a 32 + 32
+     480x480 JPEG tree in fp32, launches counted, into ``cli.test_both`` /
+     ``cli.test_text``, whose accuracy on each BEST file must equal the
+     trainer's best val accuracy.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -2427,7 +2453,9 @@ def _microbatch_grads(model, cfg, mb, image_dtype, key, class_weights):
                                                 class_weights, 0.0,
                                                 mb["valid"])
         loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: torch.zeros_like(p) if p.grad is None
+             else p.grad.detach().clone()        # unread (CLIP's trans_conv)
+             for n, p in model.named_parameters()}
     return float(loss.detach()), grads
 
 
@@ -2440,13 +2468,16 @@ def exact_zero_grads(model):
     constant; a 3x3 conv's zero padding would not): the first block of an
     "mb" stage followed by "mb" blocks or the head. A residual block's
     ``project.bn.bias`` joins them whenever stochastic depth keeps every
-    sample of the batch."""
+    sample of the batch. The hierarchical head reads the outputs of stages
+    3 and 6 (its pooled maps), which their blocks' residuals carry from the
+    first block: those stages' first blocks are not among them there."""
     names = {n for n, _ in model.named_parameters() if n.endswith("k.b")}
     stages = model.image_cfg.stages
+    read = (3, 6) if model.cfg.strategy == "hierarchical" else ()
     for si, (btype, _, _, stride, c_in, c_out, n) in enumerate(stages):
         nxt = stages[si + 1][0] if si + 1 < len(stages) else "mb"
         if btype == "mb" and (stride != 1 or c_in != c_out) and (
-                n > 1 or nxt == "mb"):
+                n > 1 or nxt == "mb") and si not in read:
             names.add(f"image.stages.{si}.0.project.bn.bias")
     return names
 
@@ -2565,7 +2596,8 @@ def _worst(xs, image=None, k=3):
     return [(float(f"{v:.5g}"), n) for v, n in xs[:k]]
 
 
-def compare_train_paths(model, cfg, stack, class_weights, results):
+def compare_train_paths(model, cfg, stack, class_weights, results,
+                        seeds=GRAD_CHECK_SEEDS):
     """Kernel path against plain path, same weights and same draws,
     deterministic cuDNN, on GRAD_CHECK_SEEDS microbatches with their own
     draws. fp32 images with TF32 off: the loss within 1e-5 relative, every
@@ -2599,7 +2631,7 @@ def compare_train_paths(model, cfg, stack, class_weights, results):
     # deterministic cuDNN algorithms: the two paths must differ only where
     # the kernels do, not by the atomics of a convolution's backward
     torch.backends.cudnn.deterministic = True
-    for seed in range(GRAD_CHECK_SEEDS):
+    for seed in range(seeds):
         mb = {k: v[seed] for k, v in stack.items()}
         key = Key(SEED + 11 + seed)
         for image_dtype in (torch.float32, torch.bfloat16):
@@ -2668,18 +2700,22 @@ def compare_train_paths(model, cfg, stack, class_weights, results):
 
 
 def profile_train_step(step, stack, key, reps=1, acc_steps=None,
-                       quiet=False, kind=None):
+                       quiet=False, kind=None, cuda_only=False):
     """torch.profiler over `reps` train steps: device time by `kind` of
     kernel (default ``_kind``) and the device's idle share of the window
-    (printed unless `quiet`)."""
+    (printed unless `quiet`). ``cuda_only`` traces the device's activity
+    alone (no host operator events: less overhead in the window, and a
+    tenth of the time to read the trace)."""
     kind = kind or _kind
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for r in range(reps):
             float(step(stack, key.fold_in(r))[0])
@@ -2832,13 +2868,14 @@ def check_train(device, results):
     del seeded
     ok &= compare_train_paths(model, cfg, stack, class_weights, results)
     # the same check with K4a on its 3xTF32 forward, which the MM-RCA path
-    # does not take by default: recorded for PERF.md, not judged
+    # does not take by default: recorded for PERF.md, not judged (on the
+    # first microbatch only)
     print("  the same check with K4a on its 3xTF32 forward (recorded, not "
           "judged):", flush=True)
     on_request = {}
     with flash_routes(fwd="tc32"):
         on_request["passes_its_bars"] = compare_train_paths(
-            model, cfg, stack, class_weights, on_request)
+            model, cfg, stack, class_weights, on_request, seeds=1)
     results["grad_check_k4a_tc32"] = on_request
     print(f"  with K4a on 3xTF32 the check's bars hold: "
           f"{on_request['passes_its_bars']}", flush=True)
@@ -3404,7 +3441,9 @@ def _unimodal_grads(model, forward, inputs, mb, class_weights, key):
         loss, _ = cross_entropy_loss_and_weight(
             logits, mb["label"], class_weights, 0.0, mb["valid"])
         loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: torch.zeros_like(p) if p.grad is None
+             else p.grad.detach().clone()        # unread (CLIP's trans_conv)
+             for n, p in model.named_parameters()}
     return float(loss.detach()), grads
 
 
@@ -4132,9 +4171,9 @@ def check_conv_cli(device, results):
 # BERT and BART-large fusion towers)
 # ---------------------------------------------------------------------------
 
-FUSION_BATCH, FUSION_BATCHES = 128, 4   # the eval batch; DistilBERT runs
+FUSION_BATCH, FUSION_BATCHES = 128, 2   # the eval batch; DistilBERT runs
 FUSION_CLIP_BATCH = 16                  # --batch_size: CLIP's eval batch
-# (tower, strategy, batches): DistilBERT over 4 batches, BERT and BART one
+# (tower, strategy, batches): DistilBERT over 2 batches, BERT and BART one
 # timed batch; CLIP at FUSION_CLIP_BATCH, every other at FUSION_BATCH
 FUSION_RUNS = tuple(
     [("distilbert", s, FUSION_BATCHES) for s in (
@@ -4368,7 +4407,7 @@ def _kernel_less_check(m32, m16, strategy, batch, lk, truth, device):
             cfg, m16, x, dev["input_ids"], dev["attention_mask"],
             need_hiddens=strategy == "hierarchical")
         up = lambda t: None if t is None else t.float()
-        lt = multimodal._EVAL_HEADS[strategy](
+        lt = multimodal._HEADS[strategy](
             cfg, m32, up(text), up(img), hiddens=hid and [up(h) for h in hid],
             s3=up(s3), s6=up(s6)).float()
     agr["towers"] = bf16_vs_fp32(lt, truth)[1]
@@ -5852,6 +5891,379 @@ def check_vlm_train_clis(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the late-fusion train path (every strategy and tower the JAX
+# package trains, MM-RCA on DistilBERT aside: phase 5 trains it)
+# ---------------------------------------------------------------------------
+
+FUSION_TRAIN_ACC = 2        # microbatches a step: MM_RCA.sh's 10, cut
+FUSION_TRAIN_PAIRS = (
+    tuple((t, s) for t in ("distilbert", "bert")
+          for s in ("gated", "classic", "normalized", "clip",
+                    "hierarchical", "bimodal"))
+    + (("bert", "MM_RCA"),)
+    + tuple(("bart", s) for s in ("gated", "classic", "normalized", "clip")))
+# K4a / K4b (K7a / K7b with hf_internal_dropout) a microbatch: one a text
+# layer; BART runs no kernel
+FUSION_TRAIN_LAYERS = {"distilbert": 6, "bert": 12, "bart": 0}
+# one more step with hf_internal_dropout on a pair of each tower
+FUSION_HF_PAIRS = (("distilbert", "gated"), ("bert", "hierarchical"),
+                   ("bart", "classic"))
+
+
+def fusion_train_launches(tower, strategy, n_micro, dropout=False):
+    """Every counter's value after a fusion train step of `n_micro`
+    microbatches: K4a (CUDA cores) and K4b (3xTF32) one a text layer and
+    microbatch, K7a / K7b instead with ``hf_internal_dropout``, K1 / K3 one
+    a microbatch on MM-RCA, the rest 0."""
+    n = FUSION_TRAIN_LAYERS[tower] * n_micro
+    pair = (("mha_fwd_lse_drop_tc32", "mha_flash_bwd_drop_tc32") if dropout
+            else ("mha_fwd_lse", "mha_flash_bwd_tc32"))
+    counts = {k: n for k in pair if n}
+    if strategy == "MM_RCA":
+        counts.update(rca_fused=n_micro, rca_fused_bwd=n_micro)
+    return _want_launches(**counts)
+
+
+def _fusion_train_towers(device):
+    """The towers the pairs share, unfolded on the card in fp32, random
+    weights from seeds: EfficientNetV2-M (random BN statistics),
+    DistilBERT (6 layers), BERT-base (12), BART-large (12 + 12)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.models.image import (
+        efficientnet_common as eff, efficientnet_v2 as effv2)
+
+    gen = lambda s: torch.Generator().manual_seed(s)
+    towers = {"image": eff.EffNet(effv2.CONFIGS["eff_v2_medium"],
+                                  generator=gen(SEED + 300)).to(device)}
+    _randomize_bn(towers["image"], torch.Generator(
+        device=device).manual_seed(SEED + 301))
+    for i, name in enumerate(("distilbert", "bert", "bart")):
+        towers[name] = multimodal.TEXT_TOWERS[name](
+            generator=gen(SEED + 302 + i)).to(device)
+    return towers
+
+
+def compare_fusion_train_paths(model, cfg, mb, class_weights, key):
+    """One microbatch's loss and gradients, the kernel path against the
+    plain path from the same weights and draws, with phase 5's bars
+    (``compare_train_paths``): fp32 images, TF32 off, the loss within 1e-5
+    relative and every gradient within 1e-4 of its tensor's largest |g|;
+    bf16 images, the loss within 1e-3 relative and every gradient's cosine
+    >= BF16_COS (>= BF16_COS_IMAGE in the image tower); the biases that may
+    be rounding noise held to their sibling weights. -> (ok, numbers)."""
+    import torch
+
+    ok, out = True, {}
+    exact_zero = exact_zero_grads(model)
+    torch.backends.cudnn.deterministic = True
+    for image_dtype in (torch.float32, torch.bfloat16):
+        fp32 = image_dtype == torch.float32
+        torch.backends.cudnn.allow_tf32 = not fp32
+        lk, gk = _microbatch_grads(model, cfg, mb, image_dtype, key,
+                                   class_weights)
+        with plain_versions():
+            lp, gp = _microbatch_grads(model, cfg, mb, image_dtype, key,
+                                       class_weights)
+        rel = abs(lk - lp) / max(abs(lp), 1e-30)
+        scores, biases, zeros, finite = _grad_scores(gk, gp, fp32,
+                                                     exact_zero)
+        good = (finite and lk == lk and rel <= (1e-5 if fp32 else 1e-3)
+                and all(z <= 0.1 for z, _ in zeros)
+                and all(r <= (1e-4 if fp32 else BF16_NOISE_BIAS)
+                        for r, _ in biases))
+        if fp32:
+            good &= all(r <= 1e-4 for r, _ in scores)
+        else:
+            good &= all(c >= (BF16_COS_IMAGE if n.startswith("image.")
+                              else BF16_COS) for c, n in scores)
+        out["fp32" if fp32 else "bf16"] = {
+            "loss_kernel": lk, "loss_plain": lp, "loss_rel": rel,
+            "worst_image": _worst(scores, True),
+            "worst_rest": _worst(scores, False),
+            "worst_noise_bias": _worst(biases),
+            "exact_zero_worst": _worst(zeros), "ok": good}
+        ok &= good
+        del gk, gp
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    return ok, out
+
+
+def _hf_flag_check(model, cfg, mb, key):
+    """Train-mode losses of one microbatch with ``hf_internal_dropout``
+    twice from the same key and once without: (changes, repeats)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.train.loss import (
+        cross_entropy_loss_and_weight)
+
+    x = normalize_on_device(mb["image"], dtype=torch.bfloat16)
+    losses = []
+    for flag in (True, True, False):
+        model.cfg = dataclasses.replace(cfg, hf_internal_dropout=flag)
+        with torch.no_grad():
+            logits = model(mb["input_ids"], mb["attention_mask"], x,
+                           train=True, key=key)
+        losses.append(float(cross_entropy_loss_and_weight(
+            logits, mb["label"], None, 0.0, mb["valid"])[0]))
+    model.cfg = cfg
+    return losses[0] != losses[2], losses[0] == losses[1]
+
+
+def check_fusion_train(device, results):
+    """Every late-fusion pair the JAX package trains but MM-RCA on
+    DistilBERT (``FUSION_TRAIN_PAIRS``), at full width on towers built once
+    and restored to their seeded weights for each pair: fp32 master
+    weights, bf16 images at 480x480, seq 64, batch 16 x acc 2 (MM_RCA.sh's
+    acc 10, cut), SGD lr 0.0016 reg 0.03, class weights, augmentation
+    p=1.0, head dropout 0.6, stochastic depth, all trainable. Per pair: one
+    microbatch's loss and gradients on the kernel path against the plain
+    path (``compare_fusion_train_paths``), then one optimizer step with
+    the counters zeroed before and read after (``fusion_train_launches``),
+    its samples/s, peak memory, and a profiled step (device ms, idle share,
+    time by kind). On ``FUSION_HF_PAIRS`` one more step with
+    ``hf_internal_dropout`` (K7a / K7b in place of K4a / K4b) and the
+    flag's loss against the flag-off one from the same key (it must change
+    the loss and repeat)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    t0 = time.perf_counter()
+    towers = _fusion_train_towers(device)
+    seeded = {k: {n: t.detach().clone() for n, t in v.state_dict().items()}
+              for k, v in towers.items()}
+    stacks = {}
+    for i, (tower, vocab) in enumerate((("distilbert", "wordpiece"),
+                                        ("bart", "bpe"))):
+        tok = get_tokenizer(tower, vocab_dir=f"tests/fixtures/vocab/{vocab}")
+        stacks[tower] = _train_stack(tok, FUSION_TRAIN_ACC, TRAIN_BATCH,
+                                     SEED + 310 + i, device)
+    stacks["bert"] = stacks["distilbert"]
+    class_weights = torch.tensor([0.8, 1.1, 0.9, 1.3], device=device)
+    resident = torch.cuda.memory_allocated(device)
+    print(f"  towers, seeded copies and data in "
+          f"{time.perf_counter() - t0:.1f} s, {resident / 2**30:.2f} GiB "
+          f"resident", flush=True)
+
+    def batch_to_inputs(mb, key):
+        x = augment_batch(mb["image"], 1.0, key.generator(device))
+        return (mb["input_ids"], mb["attention_mask"],
+                normalize_on_device(x, dtype=torch.bfloat16))
+
+    ok, out, total, total_hf = True, {}, {}, {}
+    for i, (tower, strategy) in enumerate(FUSION_TRAIN_PAIRS):
+        t1 = time.perf_counter()
+        cfg = multimodal.FusionConfig(strategy=strategy,
+                                      text_model_name=tower, reverse=True,
+                                      batch_size=TRAIN_BATCH,
+                                      image_or_text_dropout_chance=0.0)
+        model = _fusion_heads(cfg, SEED + 320 + i).to(device)
+        model.text, model.image = towers[tower], towers["image"]
+        for name in ("image", tower):
+            towers[name].load_state_dict(seeded[name])
+        stack = stacks[tower]
+        key = Key(SEED + 340 + i)
+        mb = {k: v[0] for k, v in stack.items()}
+        t_check = time.perf_counter()
+        good, checks = compare_fusion_train_paths(model, cfg, mb,
+                                                  class_weights, key)
+        t_check = time.perf_counter() - t_check
+        step = make_train_step(
+            model, make_optimizer("sgd", model.named_parameters(), 0.0016,
+                                  0.03, None),
+            batch_to_inputs=batch_to_inputs, class_weights=class_weights)
+        wall, losses, launches, peak = _timed_steps([step], stack,
+                                                    key.fold_in(1), device)
+        want = fusion_train_launches(tower, strategy, FUSION_TRAIN_ACC)
+        t_prof = time.perf_counter()
+        prof = profile_train_step(step, stack, key.fold_in(2), quiet=True,
+                                  cuda_only=True)
+        t_prof = time.perf_counter() - t_prof
+        good &= launches == want and all(l == l for l in losses)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        samples = FUSION_TRAIN_ACC * TRAIN_BATCH
+        row = {"samples_per_s": samples / wall, "step_ms": wall * 1e3,
+               "device_ms": prof["device_ms_per_step"],
+               "idle_share": prof["idle_share"], "peak_gib": peak / 2**30,
+               "by_kind_ms": prof["by_kind_ms"], "loss": losses[0],
+               "grad_check": checks, "launches": _shown(launches)}
+        if (tower, strategy) in FUSION_HF_PAIRS:
+            model.cfg = dataclasses.replace(cfg, hf_internal_dropout=True)
+            _zero_counters()
+            loss_hf = float(step(stack, key.fold_in(3))[0])
+            torch.cuda.synchronize()
+            hf_launches = _read_counters()
+            model.cfg = cfg
+            changes, repeats = _hf_flag_check(model, cfg, mb, key.fold_in(4))
+            good &= (hf_launches == fusion_train_launches(
+                tower, strategy, FUSION_TRAIN_ACC, dropout=True)
+                and loss_hf == loss_hf and changes and repeats)
+            total_hf = {k: total_hf.get(k, 0) + v
+                        for k, v in hf_launches.items()}
+            row["hf_internal_dropout"] = {
+                "loss": loss_hf, "launches": _shown(hf_launches),
+                "changes_the_loss": changes, "repeats": repeats}
+        row["ok"] = good
+        ok &= good
+        out[f"{strategy}_{tower}"] = row
+        kinds = ", ".join(f"{k} {v:.1f}" for k, v in list(
+            prof["by_kind_ms"].items())[:5])
+        print(f"  {strategy} on {tower}: {row['samples_per_s']:.1f} train "
+              f"samples/s ({wall * 1e3:.1f} ms a step of "
+              f"{FUSION_TRAIN_ACC} x {TRAIN_BATCH}), device "
+              f"{row['device_ms']:.1f} ms, idle {row['idle_share']:.3f}, "
+              f"peak {row['peak_gib']:.2f} GiB; by kind (ms): {kinds}; "
+              f"launches {_shown(launches)} (want {_shown(want)}); kernel "
+              f"vs plain fp32 loss rel {checks['fp32']['loss_rel']:.2e} "
+              f"worst {checks['fp32']['worst_rest'][:1]} image "
+              f"{checks['fp32']['worst_image'][:1]}, bf16 loss rel "
+              f"{checks['bf16']['loss_rel']:.2e} worst "
+              f"{checks['bf16']['worst_rest'][:1]} image "
+              f"{checks['bf16']['worst_image'][:1]}"
+              + (f"; hf_internal_dropout {row['hf_internal_dropout']}"
+                 if "hf_internal_dropout" in row else "")
+              + f" ({time.perf_counter() - t1:.1f} s: the check "
+              f"{t_check:.1f}, the profiled step {t_prof:.1f}) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        model.text = model.image = None
+        del model, step
+        torch.cuda.empty_cache()
+    del towers, seeded, stacks
+    torch.cuda.empty_cache()
+    results["fusion_train"] = out
+    results["fusion_train_launches"] = total
+    results["fusion_train_hf_launches"] = total_hf
+    print(f"  fusion_train launches over the {len(FUSION_TRAIN_PAIRS)} "
+          f"steps: {_shown(total)}; with hf_internal_dropout: "
+          f"{_shown(total_hf)}; phase 14's steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
+def check_fusion_train_clis(device, results):
+    """``cli.main_both --late_fusion=hierarchical --text_model=bert``,
+    ``cli.main_both --late_fusion=clip --text_model=bart --batch_size=16``
+    and ``cli.main_text --text_model=bart`` for 1 + 1 epochs on a synthetic
+    480x480 JPEG tree (32 train, 32 val), fp32 with TF32 off, with their
+    launches counted; then ``cli.test_both`` / ``cli.test_text``
+    ``evaluate()`` on each BEST file, whose accuracy must equal the
+    trainer's best val accuracy (the same weights, batches and dtype; the
+    test CLI folds BN). In this process, in a work directory of the
+    checkout, deleted afterwards."""
+    import glob
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (
+        main_both, main_text, test_both, test_text)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_fusion_train_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab")
+    both = ["--dataset_folder_name=garbage", "--epochs=1", "--ft_epochs=1",
+            "--batch_size=16", "--batch_size_FT=16", "--acc_steps=2",
+            "--acc_steps_FT=2", "--prob_aug=1.0", "--opt=sgd",
+            "--lr=0.0016", "--reg=0.03", "--fraction_lr=3",
+            "--balance_weights", "--image_text_dropout=0.0", "--reverse",
+            "--compute_dtype=float32"]
+    # per run: 2 steps of 2 microbatches; main_both's val: 3 evals a
+    # epoch of one batch of 32; the test CLI: one batch of 32 (fp32: K2 on
+    # the CUDA cores)
+    runs = (
+        ("hierarchical_bert", main_both, test_both,
+         ["--late_fusion=hierarchical", "--text_model=bert",
+          f"--vocab_dir={vocab}/wordpiece"],
+         {"mha_fwd_lse": 48, "mha_flash_bwd_tc32": 48, "mha": 72},
+         {"mha": 12}),
+        ("clip_bart", main_both, test_both,
+         ["--late_fusion=clip", "--text_model=bart", "--batch_size=16",
+          f"--vocab_dir={vocab}/bpe"], {}, {}),
+        ("bart", main_text, test_text,
+         ["--text_model=bart", "--seq_len=64",
+          f"--vocab_dir={vocab}/bpe"], {}, {}))
+    out, ok = {}, True
+    cwd = os.getcwd()
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 32, 32, SEED + 350)
+        os.chdir(work)
+        for name, trainer, tester, flags, want_train, want_test in runs:
+            argv = (both if trainer is main_both else [
+                "--dataset_folder_name=garbage", "--epochs=1",
+                "--ft_epochs=1", "--batch_size=16", "--batch_size_FT=16",
+                "--opt=sgd", "--balance_weights"]) + flags
+            _zero_counters()
+            t0 = time.perf_counter()
+            best = trainer.main(argv + [f"--name={name}"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _read_counters()
+            rows = [_json.loads(line)
+                    for f in glob.glob(f"runs/{name}_*.jsonl")
+                    for line in open(f)]
+            test_argv = [a for a in argv if a.startswith((
+                "--late_fusion", "--text_model", "--batch_size=",
+                "--vocab_dir", "--seq_len", "--reverse"))] + [
+                f"--model_path={best.best_path}",
+                "--dataset_folder_name=garbage_Val",
+                "--compute_dtype=float32"]
+            _zero_counters()
+            t0 = time.perf_counter()
+            acc, _, preds = tester.evaluate(args_parser(test_argv))[:3]
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            test_launches = _read_counters()
+            good = (len(rows) == 2
+                    and all(r["avg_loss"] == r["avg_loss"] for r in rows)
+                    and {r["phase"] for r in rows} == {"train", "fine_tune"}
+                    and launches == _want_launches(**want_train)
+                    and test_launches == _want_launches(**want_test)
+                    and os.path.isfile(best.best_path) and len(preds) == 32
+                    and acc == best.best_val_acc)
+            print(f"  cli.{trainer.__name__.rsplit('.', 1)[-1]} {name} 1+1 "
+                  f"epochs in {train_s:.1f} s: "
+                  f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
+                  f", launches {_shown(launches)}; BEST "
+                  f"{os.path.basename(best.best_path)} in cli."
+                  f"{tester.__name__.rsplit('.', 1)[-1]} in {test_s:.1f} s: "
+                  f"accuracy {acc:.2f} % (trainer's best {best.best_val_acc:.2f}"
+                  f" %), launches {_shown(test_launches)} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"train_s": train_s, "test_s": test_s, "rows": rows,
+                         "test_acc": acc, "best_val_acc": best.best_val_acc,
+                         "ok": good}
+            ok &= good
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    results["fusion_train_clis"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -5931,10 +6343,11 @@ def main() -> int:
     except ImportError as e:
         return _fail(f"the port's package is missing ({e})")
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/13] device", flush=True)
+    print("[1/14] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5944,7 +6357,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/13] build", flush=True)
+    print("[2/14] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -5956,7 +6369,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/13] kernels vs plain versions", flush=True)
+    print("[3/14] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -5973,53 +6386,64 @@ def main() -> int:
         return _fail(f"kernels: {type(e).__name__}: {e}")
     if not ok:
         return _fail("a kernel disagrees with its plain version")
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)",
+          flush=True)
 
     results = {}
     for title, check in (
-            ("[4/13] MM-RCA eval path",
+            ("[4/14] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/13] MM-RCA train path: full-width train step",
+            ("[5/14] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/13] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/14] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/13] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/14] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/13] image eval path: ViT-B/16",
+            ("[7/14] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/13] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/14] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/13] text train path: DistilBERT and BERT-base with "
+            ("[8/14] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/13] image train path: ViT-B/16",
+            ("[9/14] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/13] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/14] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/13] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/14] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/13] conv image eval CLI: cli.test_image "
+            ("[10/14] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/13] fusion eval: gated, classic, normalized, clip, "
+            ("[11/14] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/13] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/14] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/13] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/14] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/13] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/14] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/13] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/14] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/13] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/14] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
-             lambda: check_vlm_train_clis(device, results))):
+             lambda: check_vlm_train_clis(device, results)),
+            ("[14/14] late-fusion train: gated, classic, normalized, clip, "
+             "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
+             "gated, classic, normalized, clip on BART-large",
+             lambda: check_fusion_train(device, results)),
+            ("[14/14] late-fusion train CLIs: cli.main_both (hierarchical + "
+             "BERT, clip + BART) -> cli.test_both, cli.main_text "
+             "--text_model=bart -> cli.test_text",
+             lambda: check_fusion_train_clis(device, results))):
         print(title, flush=True)
+        t_phase = time.perf_counter()
         try:
             ok = check()
         except Exception as e:  # noqa: BLE001 — reported, run fails
@@ -6029,6 +6453,9 @@ def main() -> int:
             return _fail(f"{title}: {type(e).__name__}: {e}")
         if not ok:
             return _fail(f"{title}: check failed")
+        print(f"  ({time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start)",
+              flush=True)
     # launches on each kernel's own main path: the MM-RCA eval path for K1 /
     # K2 (the tensor cores; the CUDA cores at --seq_len=512), its train path
     # for K3 / K4a / K4b (K1 runs on both; K4b on 3xTF32, the CUDA-core K4b
@@ -6040,8 +6467,11 @@ def main() -> int:
     # CUDA-core K7a / K7b at seq 512), the image train path for the bf16
     # tensor-core K4a / K4b; every row also reads the late-fusion eval
     # path ("fusion_eval": K2 on the DistilBERT / BERT towers, K1 on the
-    # BERT MM-RCA run) and the VLM eval path ("vlm_eval": K2 on the CUDA
+    # BERT MM-RCA run), the VLM eval path ("vlm_eval": K2 on the CUDA
     # cores at head dims 88 and 80, 71 a BLIP-2 batch, 39 a Q-Former one)
+    # and the late-fusion train path ("fusion_train": K4a / K4b on the
+    # DistilBERT / BERT towers, K1 / K3 on MM-RCA with BERT; with
+    # hf_internal_dropout K7a / K7b)
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -6057,7 +6487,10 @@ def main() -> int:
                "conv_eval": results["conv_eval_launches"],
                "fusion_eval": results["fusion_eval_launches"],
                "vlm_eval": results["vlm_eval_launches"],
-               "vlm_train": results["vlm_train_launches"]}
+               "vlm_train": results["vlm_train_launches"],
+               "fusion_train": results["fusion_train_launches"],
+               "fusion_train_hf_dropout":
+                   results["fusion_train_hf_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -6140,6 +6573,8 @@ def main() -> int:
                       "vlm_clis": results["vlm_clis"],
                       "vlm_train": results["vlm_train"],
                       "vlm_train_clis": results["vlm_train_clis"],
+                      "fusion_train": results["fusion_train"],
+                      "fusion_train_clis": results["fusion_train_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

@@ -1,4 +1,5 @@
-"""Multimodal training CLI — the MM-RCA training path (DistilBERT tower).
+"""Multimodal training CLI — every late-fusion strategy on every tower the
+JAX package trains it on.
 
 ``python -m garbage_classification_rca_tpu_torch.cli.main_both
   --late_fusion=MM_RCA --reverse --text_model=distilbert
@@ -10,17 +11,21 @@ everything at lr / ``--fraction_lr`` with ReduceLROnPlateau (factor 0.4)
 for ``--ft_epochs``. Each epoch logs a JSONL row under ``runs/`` with the
 val accuracy of both modalities and of each alone, and writes a BEST
 checkpoint under ``model_weights/`` when val accuracy improves (the
-port's ``cli.test_both`` loads it).
+port's ``cli.test_both`` loads it). ``--late_fusion``: gated, classic,
+normalized and clip on DistilBERT, BERT and BART-large; hierarchical,
+bimodal and MM_RCA on DistilBERT and BERT (the other pairs raise the JAX
+package's ValueError). ``clip`` validates at exactly ``--batch_size`` (its
+head is a Linear of that width), every other strategy at
+``--eval_batch_size`` (32 by default).
 
 Same flags as the JAX CLI; fp32 master weights (``--param_dtype``
 overrides) and images in ``--compute_dtype``. The model is trained
 unfolded; val evals run in eval mode under no_grad. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and ``GC_RCA_MM_IMAGE_SIZE``
 shrinks the 480x480 input for small drives. ``--hf_internal_dropout``
-switches on the DistilBERT tower's own p = 0.1 dropout sites (the dropout
-attention kernels). Flags of paths not ported yet raise
-NotImplementedError: another --late_fusion or --text_model (the port
-evaluates them in ``cli.test_both``), --wandb, --fsdp, --mesh_shape other than one device,
+switches on the text tower's own p = 0.1 dropout sites (on DistilBERT /
+BERT the dropout attention kernels). Flags of paths not ported yet raise
+NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device,
 RESUME (--model_path=.../RESUME, --resume_from, --resume_every_steps) and
 multi-host runs.
 """
@@ -42,7 +47,7 @@ from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.fusion.multimodal import (FusionModel, build_fusion_model,
-                                        check_config, check_trainable)
+                                        check_config)
 from ..train.engine import BATCH_KEYS, MetricsLogger, run_phase
 from ..train.loop import make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
@@ -90,7 +95,6 @@ def main(argv=None):
         raise SystemExit(1)
     cfg = fusion_config_from_args(args)
     check_config(cfg)
-    check_trainable(cfg)
     check_unported_flags(args)
     device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)
@@ -132,7 +136,10 @@ def main(argv=None):
                                     class_weights=class_weights,
                                     label_smoothing=args.label_smoothing)
 
-    eval_bs = max(1, min(args.eval_batch_size or 32, len(val_manifest)))
+    # the CLIP head is a Linear of width --batch_size: it validates at
+    # exactly that batch (the padded tail keeps the pad hack from firing)
+    eval_bs = (cfg.batch_size if cfg.strategy == "clip" else
+               max(1, min(args.eval_batch_size or 32, len(val_manifest))))
 
     def mode_eval(model, remove_image=False, remove_text=False,
                   with_report=False):

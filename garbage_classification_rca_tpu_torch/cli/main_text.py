@@ -20,8 +20,9 @@ it; its attention-probabilities site runs in the dropout flash-attention
 kernels. ``--use_synonyms`` swaps words through the rule table at
 ``--prob_aug_text`` per batch. ``--model_path`` warm-starts from a
 reference-layout classifier ``.pth`` or a BEST checkpoint of this trainer.
-Text models: distilbert, bert, roberta (bart is evaluated by
-``cli.test_text``, not trained yet). Runs on CUDA;
+Text models: distilbert, bert, roberta, bart (phase 1 with ``--tl``
+trains BART's ``head_out`` only, the Linear the reference replaces). Runs
+on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
 (NotImplementedError): ``GC_RCA_LLM_PATH``, --wandb, --fsdp, --mesh_shape
 other than one device, RESUME and multi-host runs.
@@ -103,10 +104,6 @@ def main(argv=None):
         print("Invalid optimizer!")   # reference wording, main_image.py:536
         raise SystemExit(1)
     mdef = resolve_model(get_text_model, args.text_model)
-    if args.text_model == "bart":
-        raise NotImplementedError(
-            "training bart is not ported to PyTorch yet (ROADMAP.md, queue "
-            "1 item 9); cli.test_text evaluates it")
     check_unported_flags(args)
     spec = TEXT_ARCHS[args.text_model]
     device = resolve_device(cli_device())

@@ -22,16 +22,21 @@ The DistilBERT and BERT towers run with ``fused_blocks=False``: their eval
 attention is the ``mha`` kernel. BART runs no kernel (``models/text/bart``).
 The model builds the towers and the heads its strategy reads.
 
-Train mode (``train=True`` with a ``core.Key``) is MM-RCA with the
-DistilBERT tower only; it adds, as the JAX forward does: modality dropout
-(two coin flips per batch, ``drop_modalities``) with the dropped tower's
-cotangent cut (``_grad_gate``), stochastic depth and batch-statistics
-BatchNorm in the image tower, the training attention kernels in the text
-tower (with ``hf_internal_dropout``, the HF tower's own p = 0.1 dropout
-sites and the dropout attention pair), the differentiable RCA kernel pair
-(``rca_fused_trainable``), and dropout on the head's input. BN running
-stats update in place; the model must be unfolded to train. Training the
-other strategies or towers raises ``NotImplementedError``.
+Train mode (``train=True`` with a ``core.Key``) runs every strategy on
+every tower the JAX package trains it on; it adds, as the JAX forward
+does: modality dropout (two coin flips per batch, ``drop_modalities``)
+with every output of the dropped tower gated (``_grad_gate``: the pooled
+feature, and the hidden states or the stage maps hierarchical reads),
+stochastic depth and batch-statistics BatchNorm in the image tower, the
+training attention kernels in the DistilBERT / BERT tower (with
+``hf_internal_dropout``, the HF tower's own p = 0.1 dropout sites and the
+dropout attention pair; BART's sites are plain dropout), the
+differentiable RCA kernel pair (``rca_fused_trainable``), and each head's
+dropout where the JAX head has it: gated on the gate, classic /
+normalized on the concat layer's output, MM-RCA on the head's input,
+hierarchical on both concatenations, bimodal at p = 0.86 on the fused GRU
+output and on the projection; CLIP has none. BN running stats update in
+place; the model must be unfolded to train.
 
 ``convert_torch`` reads the reference's all-heads checkpoint into the JAX
 package's tree layout, every head included, and
@@ -148,16 +153,6 @@ def check_config(cfg: FusionConfig) -> None:
             "modality_text_to_dim is Linear(768, 400) (reference "
             f"multimodal_model.py:300-328); --text_model="
             f"{cfg.text_model_name} gives {cfg.text_hidden}")
-
-
-def check_trainable(cfg: FusionConfig) -> None:
-    """The port trains MM-RCA with the DistilBERT tower only."""
-    if cfg.strategy != "MM_RCA" or cfg.text_model_name != "distilbert":
-        raise NotImplementedError(
-            f"training late fusion '{cfg.strategy}' with the "
-            f"{cfg.text_model_name} tower is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1 item 9); the port evaluates it, the JAX "
-            "package trains it")
 
 
 class TransConv(nn.Module):
@@ -303,7 +298,7 @@ def _text_encode(cfg: FusionConfig, p: FusionModel, ids, mask, *,
     the JAX package: their eval attention is the mha kernel), BART's
     decoder state at position 0."""
     if cfg.text_model_name == "bart":
-        return bart_mod.encode_decoder(p.text, ids, mask)[:, 0], None
+        return bart_mod.encode_decoder(p.text, ids, mask, drop)[:, 0], None
     mod = distil_mod if cfg.text_model_name == "distilbert" else bert_mod
     out = mod.encode(p.text, ids, mask, train=train, drop=drop,
                      fused_blocks=False, output_hidden_states=need_hiddens)
@@ -314,7 +309,7 @@ def _text_encode(cfg: FusionConfig, p: FusionModel, ids, mask, *,
 def _towers(cfg: FusionConfig, p: FusionModel, images, ids, mask, *,
             need_hiddens=False, train=False, key=None, keeps=(None, None)):
     """-> (text feature, hidden states or None, stage-3 map NHWC, stage-6
-    map NHWC, pooled image feature)."""
+    map NHWC, pooled image feature), each gated by its tower's keep flag."""
     drop = None
     if cfg.hf_internal_dropout and train and key is not None:
         # fold_in, not split: the image tower's stream, and with it every
@@ -325,8 +320,10 @@ def _towers(cfg: FusionConfig, p: FusionModel, images, ids, mask, *,
     s3, s6, img = effv2.extractor_features(p.image, images, p.image_cfg,
                                            train=train, key=key)
     img_keep, txt_keep = keeps
-    return (_grad_gate(text, txt_keep), hiddens, s3, s6,
-            _grad_gate(img, img_keep))
+    if hiddens is not None:
+        hiddens = [_grad_gate(h, txt_keep) for h in hiddens]
+    return (_grad_gate(text, txt_keep), hiddens, _grad_gate(s3, img_keep),
+            _grad_gate(s6, img_keep), _grad_gate(img, img_keep))
 
 
 def _l2n(x):
@@ -347,37 +344,58 @@ def mm_rca_block(cfg: FusionConfig, p: FusionModel, img_feat, txt_feat):
     return ti.reshape(bs, -1), it.reshape(bs, -1), img_n, txt_n
 
 
-def _mm_rca_head(cfg: FusionConfig, p: FusionModel, text, img):
-    """-> (the head's input, the head)."""
+def _drop(x, rate, key: Optional[core.Key]):
+    """A head's dropout: in train mode (a key given) ``core.dropout`` on
+    the key's stream, else the identity."""
+    return x if key is None else core.dropout(x, rate,
+                                              key.generator(x.device))
+
+
+def _halves(key: Optional[core.Key]):
+    return key.split(2) if key is not None else (None, None)
+
+
+def _mm_rca(cfg, p, text, img, *, key=None, **_):
+    # :636-728
     ti, it, img_n, txt_n = mm_rca_block(cfg, p, img, text)
     if cfg.features_only:
-        return torch.cat([img_n, txt_n], dim=1), p.final_features_only
-    if cfg.cross_attention_only:
-        return torch.cat([ti, it], dim=1), p.final_cross_only
-    return (torch.cat([ti, it, img_n, txt_n], dim=1),
-            p.final_with_everything)
+        concat, head = torch.cat([img_n, txt_n], dim=1), p.final_features_only
+    elif cfg.cross_attention_only:
+        concat, head = torch.cat([ti, it], dim=1), p.final_cross_only
+    else:
+        concat = torch.cat([ti, it, img_n, txt_n], dim=1)
+        head = p.final_with_everything
+    return head(_drop(concat, cfg.drop_ratio, key))
 
 
-def _gated(cfg, p, text, img, **_):
+def _gated(cfg, p, text, img, *, key=None, **_):
     # reference multimodal_model.py:331-395
     ih, th = p.img_feats_hidden(img), p.txt_feats_hidden(text)
-    zl = torch.softmax(p.z(torch.cat([ih, th], dim=1)).float(),
-                       dim=1).to(ih.dtype)
-    return p.fc_gated(zl * torch.tanh(ih) + (1 - zl) * torch.tanh(th))
+    cat = torch.cat([ih, th], dim=1)       # the towers' dtypes promoted
+    zl = torch.softmax(p.z(cat).float(), dim=1).to(cat.dtype)
+    gate = zl * torch.tanh(ih) + (1 - zl) * torch.tanh(th)
+    return p.fc_gated(_drop(gate, cfg.drop_ratio, key))
 
 
-def _concat(cfg, p, text, img, **_):
+def _concat(cfg, p, text, img, *, key=None, **_):
     # classic :489-531, normalized :534-579
     ih, th = p.image_to_hidden(img), p.text_to_hidden(text)
     if cfg.strategy == "normalized":
         ih, th = _l2n(ih), _l2n(th)
-    return p.fc(p.concat(torch.cat([ih, th], dim=1)))
+    h = p.concat(torch.cat([ih, th], dim=1))
+    return p.fc(_drop(h, cfg.drop_ratio, key))
 
 
 def _clip(cfg, p, text, img, **_):
-    # :583-633; the trans_conv pad hack fires when bs != cfg.batch_size
+    # :583-633; the trans_conv pad hack fires when bs != cfg.batch_size;
+    # no dropout in train mode either
     img, txt = _l2n(p.image_to_hidden(img)), _l2n(p.text_to_hidden(text))
-    logits = torch.exp(p.logit_scale) * img @ txt.T        # [bs, bs]
+    # in the promoted dtype, as the JAX head's arrays promote (fp32 when
+    # bf16 images meet the fp32 text tower and weights of training)
+    dt = torch.promote_types(torch.promote_types(img.dtype, txt.dtype),
+                             p.logit_scale.dtype)
+    logits = (torch.exp(p.logit_scale.to(dt)) * img.to(dt)) \
+        @ txt.to(dt).T                                     # [bs, bs]
     if logits.shape[0] != cfg.batch_size:
         # the reference feeds the UNBATCHED [b, b] tensor to
         # ConvTranspose1d(8, 8, 2, stride 2), which takes dim 0 as the
@@ -394,7 +412,7 @@ def _clip(cfg, p, text, img, **_):
     return p.clip_fc(logits)
 
 
-def _hierarchical(cfg, p, text, img, *, hiddens, s3, s6):
+def _hierarchical(cfg, p, text, img, *, hiddens, s3, s6, key=None, **_):
     # :729-818; AvgPool2d(7, 7) of stage 3 [B, 30, 30, 160] -> 4 x 4 x 160,
     # AvgPool2d(6, 6) of stage 6 [B, 15, 15, 512] -> 2 x 2 x 512, each
     # flattened in (h, w, c) order, as the JAX package does
@@ -404,23 +422,29 @@ def _hierarchical(cfg, p, text, img, *, hiddens, s3, s6):
     cat_img = torch.cat([_l2n(img), s3p, s6p], dim=1)
     cat_txt = torch.cat([_l2n(text), _l2n(hiddens[2][:, 0]),
                          _l2n(hiddens[4][:, 0])], dim=1)
-    hi = core.relu(p.hier_img(cat_img))
-    ht = core.relu(p.hier_txt(cat_txt))
+    k1, k2 = _halves(key)
+    hi = core.relu(p.hier_img(_drop(cat_img, cfg.drop_ratio, k1)))
+    ht = core.relu(p.hier_txt(_drop(cat_txt, cfg.drop_ratio, k2)))
     return p.hier_all(torch.cat([hi, ht], dim=1))
 
 
-def _bimodal(cfg, p, text, img, **_):
-    # :835-888: each GRU scans the batch's rows as its time steps
+def _bimodal(cfg, p, text, img, *, key=None, **_):
+    # :835-888: each GRU scans the batch's rows as its time steps; train
+    # mode drops the fused scan and the projection at p = 0.86, not
+    # drop_ratio (the reference's fixed rate)
     x_text = p.mod_txt_to_dim(_l2n(text))                  # [B, 400]
     x_img = p.mod_img_to_dim(_l2n(img))
     fused = p.hadamard(p.gru_text(x_text), p.gru_audio(x_img))
-    combined = torch.cat([fused, p.gru_bimodal(fused)], dim=-1)
-    return p.bimodal_classifier(core.relu(p.concat_fc(combined)))
+    k1, k2 = _halves(key)
+    combined = torch.cat([fused, _drop(p.gru_bimodal(fused), 0.86, k1)],
+                         dim=-1)
+    proj = _drop(core.relu(p.concat_fc(combined)), 0.86, k2)
+    return p.bimodal_classifier(proj)
 
 
-_EVAL_HEADS = {"gated": _gated, "classic": _concat, "normalized": _concat,
-               "clip": _clip, "hierarchical": _hierarchical,
-               "bimodal": _bimodal}
+_HEADS = {"MM_RCA": _mm_rca, "gated": _gated, "classic": _concat,
+          "normalized": _concat, "clip": _clip,
+          "hierarchical": _hierarchical, "bimodal": _bimodal}
 
 
 def forward(cfg: FusionConfig, p: FusionModel, batch, *, train=False,
@@ -431,15 +455,13 @@ def forward(cfg: FusionConfig, p: FusionModel, batch, *, train=False,
     [8, num_classes] whatever the batch's samples).
 
     Eval by default (the JAX forward's ``eval_mode=True``: modalities are
-    removed only when asked). ``train=True`` (MM-RCA with DistilBERT only)
-    needs a ``key``, which splits into the modality-dropout, tower and
-    head streams as the JAX forward's rng does."""
+    removed only when asked). ``train=True`` needs a ``key``, which splits
+    into the modality-dropout, tower and head streams as the JAX forward's
+    rng does."""
     check_config(cfg)
     input_ids, attention_mask, images = batch
-    if train:
-        check_trainable(cfg)
-        if key is None:
-            raise ValueError("train mode needs a key")
+    if train and key is None:
+        raise ValueError("train mode needs a key")
     k_drop, k_model, k_head = key.split(3) if train else (None, None, None)
     uniforms = None
     if train:
@@ -452,14 +474,8 @@ def forward(cfg: FusionConfig, p: FusionModel, batch, *, train=False,
         cfg, p, images, input_ids, attention_mask,
         need_hiddens=cfg.strategy == "hierarchical", train=train,
         key=k_model, keeps=(img_keep, txt_keep))
-    if cfg.strategy != "MM_RCA":
-        return _EVAL_HEADS[cfg.strategy](cfg, p, text, img, hiddens=hiddens,
-                                         s3=s3, s6=s6)
-    concat, head = _mm_rca_head(cfg, p, text, img)
-    if train:
-        concat = core.dropout(concat, cfg.drop_ratio,
-                              k_head.generator(concat.device))
-    return head(concat)
+    return _HEADS[cfg.strategy](cfg, p, text, img, hiddens=hiddens, s3=s3,
+                                s6=s6, key=k_head)
 
 
 # ---------------------------------------------------------------------------

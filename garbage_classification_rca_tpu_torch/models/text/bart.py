@@ -1,6 +1,6 @@
 """BART-large encoder-decoder and its sequence-classification head.
 
-The port of the JAX package's ``models/text/bart.py``, eval only: post-norm
+The port of the JAX package's ``models/text/bart.py``: post-norm
 layers (d 1024, 16 heads, exact-GELU FFN 4096), 12 encoder + 12 decoder
 layers, learned positions with BART's +2 offset, ``layernorm_embedding`` on
 both stacks, no embedding scaling. The decoder reads
@@ -15,8 +15,16 @@ the additive bias ``(1 - mask) * finfo(float32).min`` built and added in
 fp32, the softmax cast back to v's dtype. No hand-written kernel runs
 here; every product is a PyTorch matmul, as every one is plain XLA there.
 
+Train mode takes an optional ``core.HFDropout`` (``--hf_internal_dropout``):
+the HF model's own p = 0.1 sites, in its call order — each stack's
+embeddings, and in every layer the attention probabilities and the
+out-projection of each attention (self, then cross in the decoder), then
+the FFN after its activation and after fc2. ``BartClassifier`` in train
+mode drops its head's input and hidden at ``drop_ratio``.
+
 The fusion models use ``BartModel`` (``encode_decoder``) as a text tower;
-``cli.test_text --text_model=bart`` runs ``BartClassifier``.
+``cli.test_text`` / ``cli.main_text --text_model=bart`` run
+``BartClassifier``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ PAD_ID = 1
 EOS_ID = 2
 START_ID = 2
 NEG = float(np.finfo(np.float32).min)
+# facebook/bart-large's config: dropout / attention_dropout /
+# activation_dropout, active in the reference's train-mode towers
+# (--hf_internal_dropout reproduces them)
+DROPOUT = 0.1
+ATTN_DROPOUT = 0.1
+ACT_DROPOUT = 0.1
 
 
 class Attention(nn.Module):
@@ -107,13 +121,34 @@ class BartClassifier(BartModel):
         self.head_dense = core.Linear(HIDDEN, HIDDEN, generator=generator)
         self.head_out = core.Linear(HIDDEN, num_classes, generator=generator)
 
-    def forward(self, input_ids, attention_mask):
-        """int32 [B, L] ids and mask -> logits [B, n_classes] (eval)."""
-        pooled = eos_pooled(self, input_ids, attention_mask)
-        return self.head_out(torch.tanh(self.head_dense(pooled)))
+    def forward(self, input_ids, attention_mask, *, train: bool = False,
+                key: Optional[core.Key] = None, drop_ratio: float = 0.6,
+                hf_internal_dropout: bool = False):
+        """int32 [B, L] ids and mask -> logits [B, n_classes].
+
+        HF's classification head: dropout -> dense -> tanh -> dropout ->
+        out_proj, both dropouts at ``drop_ratio`` in train mode with a
+        `key`. The key derives as the JAX ``apply``'s rng does: with
+        ``hf_internal_dropout`` it is split first and its second half makes
+        the model's ``HFDropout``; the (remaining) key then splits in two,
+        one for each head site."""
+        drop = None
+        if hf_internal_dropout and train and key is not None:
+            key, k_int = key.split(2)
+            drop = core.HFDropout(k_int)
+        pooled = eos_pooled(self, input_ids, attention_mask, drop=drop)
+        k1, k2 = key.split(2) if train and key is not None else (None, None)
+        h = core.dropout(pooled, drop_ratio, _gen(k1, pooled))
+        h = torch.tanh(self.head_dense(h))
+        h = core.dropout(h, drop_ratio, _gen(k2, h))
+        return self.head_out(h)
 
 
-def _attn(p: Attention, x_q, x_kv, bias):
+def _gen(key: Optional[core.Key], x: torch.Tensor):
+    return None if key is None else key.generator(x.device)
+
+
+def _attn(p: Attention, x_q, x_kv, bias, drop=None):
     b, lq, d = x_q.shape
     lk, hd = x_kv.shape[1], d // HEADS
     q = p.q(x_q).reshape(b, lq, HEADS, hd).transpose(1, 2)
@@ -122,22 +157,30 @@ def _attn(p: Attention, x_q, x_kv, bias):
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         / math.sqrt(hd)
     w = torch.softmax(scores + bias, dim=-1).to(v.dtype)
-    return p.out(torch.matmul(w, v).transpose(1, 2).reshape(b, lq, d))
+    if drop is not None:                  # the attention probabilities
+        w = drop(w, ATTN_DROPOUT)
+    out = p.out(torch.matmul(w, v).transpose(1, 2).reshape(b, lq, d))
+    return out if drop is None else drop(out, DROPOUT)
 
 
-def _ffn(p: EncoderLayer, x):
-    return p.fc2(core.gelu(p.fc1(x)))
+def _ffn(p: EncoderLayer, x, drop=None):
+    """fc1 -> gelu -> activation dropout -> fc2 -> dropout."""
+    h = core.gelu(p.fc1(x))
+    if drop is not None:
+        h = drop(h, ACT_DROPOUT)
+    h = p.fc2(h)
+    return h if drop is None else drop(h, DROPOUT)
 
 
-def _enc_layer(p: EncoderLayer, x, bias):
-    x = p.ln_self(x + _attn(p.self, x, x, bias))
-    return p.ln_final(x + _ffn(p, x))
+def _enc_layer(p: EncoderLayer, x, bias, drop=None):
+    x = p.ln_self(x + _attn(p.self, x, x, bias, drop))
+    return p.ln_final(x + _ffn(p, x, drop))
 
 
-def _dec_layer(p: DecoderLayer, x, enc, self_bias, cross_bias):
-    x = p.ln_self(x + _attn(p.self, x, x, self_bias))
-    x = p.ln_cross(x + _attn(p.cross, x, enc, cross_bias))
-    return p.ln_final(x + _ffn(p, x))
+def _dec_layer(p: DecoderLayer, x, enc, self_bias, cross_bias, drop=None):
+    x = p.ln_self(x + _attn(p.self, x, x, self_bias, drop))
+    x = p.ln_cross(x + _attn(p.cross, x, enc, cross_bias, drop))
+    return p.ln_final(x + _ffn(p, x, drop))
 
 
 def shift_tokens_right(input_ids: torch.Tensor) -> torch.Tensor:
@@ -147,31 +190,37 @@ def shift_tokens_right(input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def encode_decoder(model: BartModel, input_ids: torch.Tensor,
-                   attention_mask: torch.Tensor) -> torch.Tensor:
+                   attention_mask: torch.Tensor,
+                   drop: Optional[core.HFDropout] = None) -> torch.Tensor:
     """BartModel forward -> the decoder's last hidden state [B, L, 1024].
-    `attention_mask` is int32 [B, L]."""
+    `attention_mask` is int32 [B, L]; `drop`: an optional
+    ``core.HFDropout`` for the model's own dropout sites (train mode)."""
     n = input_ids.shape[1]
     h = model.shared(input_ids) \
         + model.enc_pos.w[POS_OFFSET:POS_OFFSET + n][None]
     h = model.enc_ln_emb(h)
+    if drop is not None:
+        h = drop(h, DROPOUT)
     enc_bias = ((1.0 - attention_mask.float()) * NEG)[:, None, None, :]
     for lp in model.enc_layers:
-        h = _enc_layer(lp, h, enc_bias)
+        h = _enc_layer(lp, h, enc_bias, drop)
 
     d = model.shared(shift_tokens_right(input_ids)) \
         + model.dec_pos.w[POS_OFFSET:POS_OFFSET + n][None]
     d = model.dec_ln_emb(d)
+    if drop is not None:
+        d = drop(d, DROPOUT)
     causal = torch.ones((n, n), device=input_ids.device).tril()
     self_bias = ((1.0 - causal) * NEG)[None, None]
     for lp in model.dec_layers:
-        d = _dec_layer(lp, d, h, self_bias, enc_bias)
+        d = _dec_layer(lp, d, h, self_bias, enc_bias, drop)
     return d
 
 
-def eos_pooled(model: BartModel, input_ids, attention_mask):
+def eos_pooled(model: BartModel, input_ids, attention_mask, drop=None):
     """The decoder's hidden state at the LAST eos of each row of
     input_ids (position 0 where a row has none)."""
-    h = encode_decoder(model, input_ids, attention_mask)
+    h = encode_decoder(model, input_ids, attention_mask, drop)
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     last = torch.where(input_ids == EOS_ID, pos, -1).amax(dim=1).clamp(0)
     return h[torch.arange(h.shape[0], device=h.device), last]

@@ -254,8 +254,11 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Scan the rows of x [T, D] in order from a zero state -> every
-        step's state [T, H]. The input projection of all steps is one
-        product; each step then adds its recurrent one."""
+        step's state [T, H], in the dtype x and the weights promote to (the
+        JAX cell's ``x @ w_ih`` promotes so: bf16 rows over fp32 weights run
+        in fp32). The input projection of all steps is one product; each
+        step then adds its recurrent one."""
+        x = x.to(torch.promote_types(x.dtype, self.w_ih.dtype))
         gi = linear(x, self.w_ih, self.b_ih)
         w_hh, b_hh = self.w_hh.to(x.dtype), self.b_hh.to(x.dtype)
         d = self.w_hh.shape[1]

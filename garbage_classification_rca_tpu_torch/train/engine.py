@@ -111,12 +111,14 @@ def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
 
 def model_depth(model: torch.nn.Module) -> int:
     """How many transformer layers the model holds (the fusion model's
-    text tower, a text classifier's encoder, ViT): what a BEST checkpoint
-    records so that a model of the same depth can be built to load it."""
+    text tower, a text classifier's encoder, ViT; BART: per stack): what a
+    BEST checkpoint records so that a model of the same depth can be built
+    to load it."""
     for holder in (getattr(model, "text", None),
                    getattr(model, "encoder", None), model):
-        if holder is not None and hasattr(holder, "layers"):
-            return len(holder.layers)
+        for name in ("layers", "enc_layers"):
+            if holder is not None and hasattr(holder, name):
+                return len(getattr(holder, name))
     raise ValueError(f"{type(model).__name__} holds no transformer layers")
 
 

@@ -1400,3 +1400,128 @@ def test_flash_train_autograd_on_the_default_routes_matches_plain(cuda, p):
     for x, y in zip(got, want):
         assert bool(torch.isfinite(x).all())
         _grad_close(x, y, torch.float32)
+
+
+# the late-fusion train path on the card: one pair a tower
+FUSION_TRAIN_PAIRS = {"distilbert": "hierarchical", "bert": "MM_RCA",
+                      "bart": "clip"}
+
+
+def _fusion_train_table(strategy):
+    """(EfficientNet table, image size, text layers): the short 7-stage
+    table at 64x64, or for hierarchical EfficientNetV2-M's stage-3 /
+    stage-6 widths with strides 1 before stage 5 (60x60 gives the 30x30 and
+    15x15 maps it pools) and 4 layers (it taps hidden states 2 and 4)."""
+    from garbage_classification_rca_tpu_torch.models.image import (
+        efficientnet_common as eff)
+
+    if strategy == "hierarchical":
+        stages = (("fused", 1, 3, 1, 8, 8, 1), ("fused", 1, 3, 1, 8, 8, 1),
+                  ("fused", 1, 3, 1, 8, 16, 1), ("mb", 1, 3, 1, 16, 160, 1),
+                  ("mb", 1, 3, 1, 160, 16, 1), ("mb", 1, 3, 2, 16, 16, 1),
+                  ("mb", 1, 3, 1, 16, 512, 1))
+        size, layers = 60, 4
+    else:
+        stages = (("fused", 1, 3, 1, 8, 8, 1), ("fused", 4, 3, 2, 8, 16, 1),
+                  ("fused", 4, 3, 2, 16, 16, 1), ("mb", 4, 3, 2, 16, 24, 1),
+                  ("mb", 6, 3, 1, 24, 24, 1), ("mb", 6, 3, 2, 24, 32, 1),
+                  ("mb", 6, 3, 1, 32, 40, 1))
+        size, layers = 64, 2
+    return (eff.EffNetConfig(stages=stages, stem_out=8, head_out=1280,
+                             bn_eps=1e-3), size, layers)
+
+
+@pytest.mark.parametrize("tower", sorted(FUSION_TRAIN_PAIRS))
+def test_fusion_train_step_matches_plain_path(cuda, tower, monkeypatch):
+    """One train step (2 microbatches of 4, fp32, TF32 off, deterministic
+    cuDNN, head dropout 0.6, stochastic depth) of hierarchical on
+    DistilBERT, MM-RCA on BERT and CLIP on BART-large (2 + 2 layers, a
+    1000-token vocabulary), full width, through ``make_train_step`` with
+    the kernels and again with their plain versions, from the same weights
+    and key: the loss within 1e-5 relative, every gradient within 1e-4 of
+    its tensor's largest |g| (a key bias or ``project.bn.bias``, zero in
+    exact arithmetic, of its sibling weight's); launches per microbatch K4a
+    (CUDA cores) and K4b (3xTF32) one a text layer, K1 / K3 one on MM-RCA,
+    none on BART."""
+    import copy
+
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.models.fusion import (
+        multimodal)
+    from garbage_classification_rca_tpu_torch.models.text import (
+        bart, encoder_common)
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    strategy = FUSION_TRAIN_PAIRS[tower]
+    table, size, layers = _fusion_train_table(strategy)
+    monkeypatch.setattr(bart, "VOCAB", 1000)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = multimodal.FusionConfig(strategy=strategy, text_model_name=tower,
+                                  reverse=True, batch_size=4,
+                                  image_or_text_dropout_chance=0.0)
+    model = multimodal.FusionModel(
+        cfg, text_layers=layers, image_cfg=table,
+        generator=torch.Generator().manual_seed(3)).to(cuda)
+    g = torch.Generator().manual_seed(4)
+    n = 16
+    lens = torch.randint(3, n + 1, (2, 4), generator=g)
+    mask = (torch.arange(n) < lens[..., None]).int()
+    stack = {k: v.to(cuda) for k, v in {
+        "image": torch.randint(0, 256, (2, 4, size, size, 3), generator=g,
+                               dtype=torch.uint8),
+        "input_ids": torch.randint(3, 1000, (2, 4, n), generator=g).int()
+        * mask,
+        "attention_mask": mask,
+        "label": torch.randint(0, 4, (2, 4), generator=g).int(),
+        "valid": torch.tensor([[1, 1, 1, 1], [1, 1, 1, 0]]).int()}.items()}
+    counters = {"fwd": (mha_fused.mha_fwd_lse, "cuda_core"),
+                "bwd": (mha_fused.mha_flash_bwd, "tc32"),
+                "k1": (rca_fused.rca_fused, "staged"),
+                "k3": (rca_fused.rca_fused_bwd, "staged")}
+
+    def run(plain):
+        m = copy.deepcopy(model)
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(encoder_common, "mha_flash_train",
+                           mha_fused.mha_reference)
+                mp.setattr(multimodal, "rca_fused_trainable",
+                           rca_fused.rca_fused_reference)
+            step = make_train_step(
+                m, make_optimizer("sgd", m.named_parameters(), 0.0, 0.0),
+                batch_to_inputs=lambda mb, key: (
+                    mb["input_ids"], mb["attention_mask"],
+                    normalize_on_device(mb["image"], dtype=torch.float32)))
+            before = {k: fn.route_launches[r]
+                      for k, (fn, r) in counters.items()}
+            loss, _, _ = step(stack, Key(5))
+            torch.cuda.synchronize()
+        launches = {k: fn.route_launches[r] - before[k]
+                    for k, (fn, r) in counters.items()}
+        return float(loss), {k: p.grad for k, p in m.named_parameters()}, \
+            launches
+
+    lk, gk, nk = run(False)
+    lp, gp, np_ = run(True)
+    text = 0 if tower == "bart" else 2 * layers
+    rca = 2 if strategy == "MM_RCA" else 0
+    assert nk == {"fwd": text, "bwd": text, "k1": rca, "k3": rca}
+    assert np_ == {"fwd": 0, "bwd": 0, "k1": 0, "k3": 0}
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    mx = {k: float(v.abs().max()) for k, v in gp.items()}
+    top = max(mx.values())
+    for k in gp:
+        assert bool(torch.isfinite(gk[k]).all()), k
+        scale = mx[k]
+        if k.endswith("k.b"):
+            scale = max(scale, mx[k[:-1] + "w"])
+        elif k.endswith("project.bn.bias"):
+            scale = max(scale, mx[k[:-4] + "scale"])
+        d = float((gk[k] - gp[k]).abs().max())
+        assert d <= 1e-4 * max(scale, 1e-6 * top), (k, d, scale)

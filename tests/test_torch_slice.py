@@ -154,16 +154,17 @@ def test_slice_eval_modality_removal_matches_jax(setup, monkeypatch, drop):
 
 @pytest.mark.parametrize("strategy,text,train", [
     ("MM_RCA", "bart", False), ("bimodal", "bart", False),
-    ("gated", "distilbert", True)])
+    ("hierarchical", "bart", True)])
 def test_unported_configurations_raise(strategy, text, train):
     """What still raises: the pairs the JAX package refuses or cannot run
-    (MM-RCA and bimodal need a 768-d tower; BART gives 1024), and training
-    any strategy but MM-RCA."""
+    (MM-RCA and bimodal need a 768-d tower, BART gives 1024; hierarchical
+    needs per-layer hidden states, which BART does not give), in eval and
+    in train mode."""
     cfg = tmm.FusionConfig(strategy=strategy, text_model_name=text)
     if train:
         from garbage_classification_rca_tpu_torch.nn.core import Key
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="per-layer hidden states"):
             tmm.forward(cfg, None, (None, None, None), train=True,
                         key=Key(0))
     else:

@@ -134,17 +134,21 @@ def test_port_trainer_matches_jax_trainer(inputs, tmp_path, monkeypatch):
     assert acc == pytest.approx(best.best_val_acc)
 
 
-@pytest.mark.parametrize("flag,match", [
-    ("--wandb", "wandb"), ("--fsdp", "fsdp"), ("--mesh_shape=data:2", "mesh_shape"),
-    ("--resume_every_steps=5", "RESUME"),
-    ("--model_path=model_weights/x/RESUME", "RESUME"),
-    ("--late_fusion=gated", "queue 1 item 9"),
-    ("--text_model=bert", "queue 1 item 9")])
-def test_unported_train_flags_raise(monkeypatch, flag, match):
+@pytest.mark.parametrize("flag,exc,match", [
+    ("--wandb", NotImplementedError, "wandb"),
+    ("--fsdp", NotImplementedError, "fsdp"),
+    ("--mesh_shape=data:2", NotImplementedError, "mesh_shape"),
+    ("--resume_every_steps=5", NotImplementedError, "RESUME"),
+    ("--model_path=model_weights/x/RESUME", NotImplementedError, "RESUME"),
+    # the pairs the JAX package refuses, with its messages
+    ("--late_fusion=hierarchical --text_model=bart", ValueError,
+     "hierarchical fusion needs per-layer hidden states"),
+    ("--text_model=bart", ValueError, "MM_RCA requires a 768-d text tower")])
+def test_unported_train_flags_raise(monkeypatch, flag, exc, match):
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        port_cli.main(["--late_fusion=MM_RCA", "--dataset_folder_name=x",
-                       flag])
+    with pytest.raises(exc, match=match):
+        port_cli.main(["--late_fusion=MM_RCA", "--dataset_folder_name=x"]
+                      + flag.split())
 
 
 def test_trainer_exits_like_the_reference_and_needs_cuda(monkeypatch):

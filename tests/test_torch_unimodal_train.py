@@ -468,8 +468,8 @@ def test_main_image_refuses_the_text_flag(monkeypatch):
     (port_text.main, ["--resume_every_steps=5"], NotImplementedError,
      "RESUME"),
     (port_text.main, ["--text_model=gpt2"], NotImplementedError, "ROADMAP"),
-    (port_text.main, ["--text_model=bart"], NotImplementedError,
-     "queue 1 item 9"),
+    (port_text.main, ["--text_model=mobilebert"], NotImplementedError,
+     "queue 1 item 2"),
     (port_text.main, ["--text_model=nope"], SystemExit, "1"),
     (port_text.main, ["--opt=rmsprop"], SystemExit, "1"),
     (port_image.main, ["--image_model=transformer_B16", "--wandb"],
