@@ -212,6 +212,25 @@ Phases, each of which fails the run when it fails:
      ``cli.test_text``, whose accuracy on each BEST file must equal the
      trainer's best val accuracy.
 
+ 15. text family: GPT-2 (12 x 768, vocabulary 50,257) and MobileBERT (24
+     layers, 512 / 128, vocabulary 30,522), the last two text backbones,
+     at full width and depth with random seeded weights, seq 64. Neither
+     runs a hand-written kernel (the JAX modules compute their attention
+     with plain einsums): every kernel counter must read 0 over each run.
+     Per model: fp32 (TF32 off) on the card against the same model on the
+     CPU on 8 samples, within 1e-4 of the largest |logit|; ``run_eval``
+     with ``cli.test_text``'s step in bf16 at its eval batch (128 / 256)
+     over 4 batches, three runs (samples/s, p50, peak memory) and a
+     profile; bf16 against fp32 on the first batch, recorded with its
+     near-tie count (``bf16_vs_fp32``); one timed train step at the
+     recipe's envelope (GPT-2 4 x acc 12, MobileBERT 64), fp32 masters,
+     all trainable, with and without ``hf_internal_dropout``. Then
+     ``cli.main_text --hf_internal_dropout`` for 1 + 1 epochs on a 32 + 32
+     tree into ``cli.test_text`` ``evaluate()`` and ``main()`` on its BEST
+     file (fp32: the trainer's best val accuracy, and the report carries
+     it), and ``cli.test_text --param_dtype=bfloat16
+     --compute_dtype=float32`` on it (bf16 weights).
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
 no result line, when CUDA is absent or any phase fails.
@@ -2884,9 +2903,10 @@ def check_train(device, results):
     return ok
 
 
-def _write_jpeg_tree(root, n_train, n_val, seed, size=480):
+def _write_jpeg_tree(root, n_train, n_val, seed, size=480, vocab=None):
     """A 4-class tree ``<root>_Train`` / ``<root>_Val`` of `size` x `size`
-    JPEGs whose file names carry the text."""
+    JPEGs whose file names carry the text: the class's two words, or with
+    `vocab` (a list of words) 2 to 6 words drawn from it for each file."""
     import os
 
     import numpy as np
@@ -2902,6 +2922,8 @@ def _write_jpeg_tree(root, n_train, n_val, seed, size=480):
             for j in range(n // 4):
                 arr = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
                 arr[..., c % 3] //= 2
+                if vocab:
+                    text = " ".join(rng.choice(vocab, rng.integers(2, 7)))
                 Image.fromarray(arr).save(
                     os.path.join(d, f"{text.replace(' ', '_')}_{j}.jpg"),
                     quality=90)
@@ -3011,17 +3033,19 @@ IMAGE_BATCH, IMAGE_BATCHES, IMAGE_SIZE = 64, 4, 224   # IMAGE_ARCHS, B/16
 
 class SyntheticEvalBatcher:
     """Batcher stand-in for the unimodal eval loops: seeded token ids from
-    the tokenizer's vocabulary (text) or uint8 images, fixed-shape batches
-    made before the run."""
+    the tokenizer's vocabulary (text; `words`: the words to draw the texts
+    from instead, for a tokenizer without a vocabulary) or uint8 images,
+    fixed-shape batches made before the run."""
 
     def __init__(self, n_batches, batch_size, seed, *, tokenizer=None,
-                 seq_len=0, image_size=0):
+                 seq_len=0, image_size=0, words=None):
         import numpy as np
 
         rng = np.random.default_rng(seed)
         self.m = list(range(n_batches * batch_size))
         self.batches = []
-        words = tokenizer and [w for w in tokenizer.vocab if w.isalpha()]
+        words = words or (tokenizer and [w for w in tokenizer.vocab
+                                         if w.isalpha()])
         for _ in range(n_batches):
             batch = {"label": rng.integers(0, 4, batch_size).astype(np.int32),
                      "valid": np.ones(batch_size, np.int32)}
@@ -3507,7 +3531,7 @@ def check_text_train(device, results):
     import torch
 
     from garbage_classification_rca_tpu_torch.cli.main_text import (
-        HEAD_DROPOUT, head_keys_for)
+        head_keys_for, train_forward)
     from garbage_classification_rca_tpu_torch.data.tokenizer import (
         get_tokenizer)
     from garbage_classification_rca_tpu_torch.models.registry import (
@@ -3538,8 +3562,7 @@ def check_text_train(device, results):
                              UNIMODAL_REG, trainable)
         return make_train_step(
             model, opt, batch_to_inputs=inputs, class_weights=class_weights,
-            forward=functools.partial(model, drop_ratio=HEAD_DROPOUT,
-                                      hf_internal_dropout=flag))
+            forward=train_forward(model, flag))
 
     model = get_text_model("distilbert").build(
         4, generator=torch.Generator().manual_seed(SEED + 72)).to(
@@ -3609,8 +3632,7 @@ def check_text_train(device, results):
     mb = {k: v[0] for k, v in stack.items()}
     good, row = compare_unimodal_paths(
         "distilbert microbatch with hf_internal_dropout", model,
-        functools.partial(model, drop_ratio=HEAD_DROPOUT,
-                          hf_internal_dropout=True),
+        train_forward(model, True),
         inputs(mb, None), mb, class_weights, Key(SEED + 73), True)
     ok &= good
     results["text_train"]["grad_check"] = row
@@ -3634,8 +3656,7 @@ def check_text_train(device, results):
     mb = {k: v[0] for k, v in stack.items()}
     good, row = compare_unimodal_paths(
         "distilbert microbatch at seq 512 with hf_internal_dropout", model,
-        functools.partial(model, drop_ratio=HEAD_DROPOUT,
-                          hf_internal_dropout=True),
+        train_forward(model, True),
         inputs(mb, None), mb, class_weights, Key(SEED + 75), True)
     ok &= good
     results["text_train"]["grad_check_seq512"] = row
@@ -6264,6 +6285,301 @@ def check_fusion_train_clis(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the text family (GPT-2 and MobileBERT, the last two text
+# backbones; no hand-written kernel runs on either)
+# ---------------------------------------------------------------------------
+
+# (name, fixture vocabulary or None: the hash tokenizer, whose GPT-2 rows
+# carry the real pad 50256; the repository holds no GPT-2 vocabulary)
+FAMILY = (("gpt2", None), ("mobilebert", "wordpiece"))
+FAMILY_BATCHES = 4          # timed eval batches at TEXT_ARCHS' eval batch
+FAMILY_CPU_SAMPLES = 8      # the fp32 card-against-CPU check
+
+
+def _family_tok(name, vocab):
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+
+    return get_tokenizer(name, vocab_dir=vocab and
+                         f"tests/fixtures/vocab/{vocab}")
+
+
+def _family_data(name, vocab, n_batches, batch, seed):
+    words = [w for w in _family_tok("bert", "wordpiece").vocab if w.isalpha()]
+    return SyntheticEvalBatcher(n_batches, batch, seed,
+                                tokenizer=_family_tok(name, vocab),
+                                seq_len=TEXT_SEQ, words=words)
+
+
+def _family_train(name, model, data, device, out):
+    """One timed step of the recipe's envelope (fp32 masters, all
+    trainable, SGD) with the flag off (two steps after a warm-up, then a
+    device profile) and on (one step): launches must be 0."""
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.main_text import (
+        train_forward)
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    stack = {k: torch.from_numpy(np.stack([b[k] for b in data.batches]))
+             .to(device) for k in data.batches[0]}
+    acc, batch = stack["label"].shape
+    key = Key(SEED + 400)
+    ok, launches = True, {}
+    for flag in (False, True):
+        opt = make_optimizer("sgd", model.named_parameters(), UNIMODAL_LR,
+                             UNIMODAL_REG)
+        step = make_train_step(model, opt, batch_to_inputs=lambda mb, k: (
+            mb["input_ids"], mb["attention_mask"]),
+            forward=train_forward(model, flag))
+        float(step(stack, key.fold_in(9))[0])                   # warm-up
+        steps = (step,) if flag else (step, step)
+        wall, losses, seen, peak = _timed_steps(steps, stack, key, device)
+        for k, v in seen.items():
+            launches[k] = launches.get(k, 0) + v
+        good = (seen == _want_launches()
+                and all(l == l and abs(l) < float("inf") for l in losses))
+        ok &= good
+        row = {"wall_ms_per_step": wall / len(steps) * 1e3,
+               "samples_per_s": len(steps) * acc * batch / wall,
+               "peak_mem_gib": peak / 2**30, "losses": losses}
+        if not flag:
+            row["profile"] = profile_train_step(step, stack, key, reps=1,
+                                                acc_steps=acc, cuda_only=True)
+        out["train_flag_on" if flag else "train"] = row
+        print(f"  {name} train step, {acc} x {batch}, hf_internal_dropout="
+              f"{flag}: {row['wall_ms_per_step']:.1f} ms a step, "
+              f"{row['samples_per_s']:.1f} samples/s, peak "
+              f"{row['peak_mem_gib']:.2f} GiB, losses {losses}, launches "
+              f"{_shown(seen)} (want none) {'ok' if good else 'FAIL'}",
+              flush=True)
+        del opt, step
+    return ok, launches
+
+
+def check_text_family(device, results):
+    """Phase 15's model runs: per model the fp32 card-against-CPU check,
+    bf16 ``run_eval`` with ``cli.test_text``'s step at its eval batch
+    (launches, samples/s, p50, peak memory, profile), bf16 against fp32,
+    and the train step (``_family_train``)."""
+    import copy
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.test_text import (
+        make_text_eval_step)
+    from garbage_classification_rca_tpu_torch.config import TEXT_ARCHS
+    from garbage_classification_rca_tpu_torch.eval.harness import run_eval
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_text_model)
+
+    keys = ("input_ids", "attention_mask", "label", "valid")
+    ok, total, out = True, {}, {}
+    t0 = time.perf_counter()
+    for i, (name, vocab) in enumerate(FAMILY):
+        spec = TEXT_ARCHS[name]
+        row = out[name] = {}
+        cpu = get_text_model(name).build(
+            4, generator=torch.Generator().manual_seed(SEED + 410 + i)).eval()
+        model32 = copy.deepcopy(cpu).to(device)
+        depth = len(model32.layers)
+        small = _family_data(name, vocab, 1, FAMILY_CPU_SAMPLES,
+                             SEED + 420 + i).batches[0]
+        l_card = _text_logits(model32, small, torch.float32).cpu()
+        with torch.inference_mode():
+            l_cpu = cpu(torch.from_numpy(small["input_ids"]),
+                        torch.from_numpy(small["attention_mask"])).float()
+        del cpu
+        rel = float((l_card - l_cpu).abs().max() / l_cpu.abs().max())
+        good = (rel <= 1e-4 and bool(torch.isfinite(l_card).all())
+                and tuple(l_card.shape) == (FAMILY_CPU_SAMPLES, 4))
+        ok &= good
+        row["fp32_card_vs_cpu"] = rel
+        print(f"  {name} ({depth} layers): fp32 card vs CPU on "
+              f"{FAMILY_CPU_SAMPLES} samples, max|d| / max|logit| = "
+              f"{rel:.3e} {'ok' if good else 'FAIL'}", flush=True)
+
+        data = _family_data(name, vocab, FAMILY_BATCHES, spec.eval_batch,
+                            SEED + 430 + i)
+        l32 = _text_logits(model32, data.batches[0], torch.float32)
+        model16 = copy.deepcopy(model32).to(torch.bfloat16)
+
+        def run(model):
+            return run_eval(make_text_eval_step(model), data,
+                            spec.eval_batch, device, keys=keys,
+                            progress=False)
+
+        run(model16)                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        rates, p50s = [], []
+        for r in range(3):
+            _zero_counters()
+            _, _, preds, stats = run(model16)
+            torch.cuda.synchronize()
+            seen = _read_counters()
+            for k, v in seen.items():
+                total[k] = total.get(k, 0) + v
+            good = (seen == _want_launches()
+                    and len(preds) == FAMILY_BATCHES * spec.eval_batch)
+            ok &= good
+            rates.append(stats["samples_per_s"])
+            p50s.append(stats["p50_step_s"] * 1e3)
+        peak = torch.cuda.max_memory_allocated(device)
+        print(f"  {name} run_eval x3 over {FAMILY_BATCHES} batches of "
+              f"{spec.eval_batch}, bf16: samples/s {sorted(rates)}, p50 "
+              f"batch ms {sorted(p50s)}, peak {peak / 2**30:.2f} GiB; "
+              f"launches every run {_shown(seen)} (want none)", flush=True)
+        row.update(samples_per_s=sorted(rates)[1], samples_per_s_runs=rates,
+                   p50_batch_ms=sorted(p50s)[1], p50_runs_ms=p50s,
+                   peak_mem_gib=peak / 2**30, batch=spec.eval_batch,
+                   batches=FAMILY_BATCHES, layers=depth,
+                   profile=profile_step(make_text_eval_step(model16),
+                                        data.batches[0], device))
+        l16 = _text_logits(model16, data.batches[0], torch.bfloat16)
+        within, agr = bf16_vs_fp32(l16, l32)
+        ok &= bool(torch.isfinite(l16).all())
+        row["bf16_vs_fp32"] = dict(agr, within_phase10_bar=within)
+        print(f"  {name} bf16 vs fp32 on {agr['samples']} samples: max|d|="
+              f"{agr['max_logit_diff']:.3e} (max|logit| "
+              f"{agr['max_abs_logit']:.3f}), near ties {agr['excluded']} "
+              f"(fp32 top-2 margin under 2 max|d|), argmax agreement "
+              f"{agr['agreement']} above them, {agr['agreement_all']:.4f} "
+              f"over all (recorded; phase 10's bar would "
+              f"{'hold' if within else 'not hold'})", flush=True)
+        del model16
+        torch.cuda.empty_cache()
+
+        train = _family_data(name, vocab, max(1, spec.acc_steps),
+                             spec.ft_batch, SEED + 440 + i)
+        good, seen = _family_train(name, model32, train, device, row)
+        ok &= good
+        for k, v in seen.items():
+            total[k] = total.get(k, 0) + v
+        del model32
+        torch.cuda.empty_cache()
+    results["text_family_launches"] = total
+    out["phase_seconds"] = time.perf_counter() - t0
+    results["text_family"] = out
+    print(f"  launches over phase 15's model runs: {_shown(total)} (want "
+          f"none); in {out['phase_seconds']:.1f} s", flush=True)
+    return ok
+
+
+def check_text_family_clis(device, results):
+    """``cli.main_text --hf_internal_dropout`` for 1 + 1 epochs (16 a
+    batch) per model on a 32 + 32 tree of drawn texts, launches counted,
+    then
+    ``cli.test_text`` on its BEST file: ``evaluate()`` in fp32 must give
+    the trainer's best val accuracy, ``main()`` a report that carries it
+    (``drive_eval_main``), and ``--param_dtype=bfloat16
+    --compute_dtype=float32`` must evaluate on bf16 weights. In this
+    process, in a work directory of the checkout, deleted afterwards."""
+    import glob
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import main_text, test_text
+    from garbage_classification_rca_tpu_torch.config import args_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_text_family_clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out, ok, total = {}, True, results["text_family_launches"]
+    cwd = os.getcwd()
+    step_of = test_text.make_text_eval_step
+    try:
+        # texts drawn per file: the class's two words alone give four
+        # distinct inputs, on which a random model can score 0% (no BEST)
+        _write_jpeg_tree(os.path.join(work, "garbage"), 32, 32, SEED + 450,
+                         size=32, vocab=[w for w in _family_tok(
+                             "bert", "wordpiece").vocab if w.isalpha()])
+        os.chdir(work)
+        for name, vocab in FAMILY:
+            flags = [f"--text_model={name}", "--seq_len=64"] + (
+                [f"--vocab_dir={here}/tests/fixtures/vocab/{vocab}"]
+                if vocab else [])
+            _zero_counters()
+            t0 = time.perf_counter()
+            best = main_text.main(flags + [
+                "--dataset_folder_name=garbage", "--epochs=1",
+                "--ft_epochs=1", "--batch_size=16", "--batch_size_FT=16",
+                "--opt=sgd", "--balance_weights", "--hf_internal_dropout",
+                f"--name={name}"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            rows = [_json.loads(line)
+                    for f in glob.glob(f"runs/{name}_*.jsonl")
+                    for line in open(f)]
+            if best.best_path is None:
+                print(f"  cli.main_text {name}: no BEST file (val accuracy "
+                      f"0 in every epoch) FAIL", flush=True)
+                ok = False
+                continue
+            test_argv = flags + [f"--model_path={best.best_path}",
+                                 "--dataset_folder_name=garbage_Val"]
+            t0 = time.perf_counter()
+            acc, _, preds = test_text.evaluate(args_parser(
+                test_argv + ["--compute_dtype=float32"]))[:3]
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            main_ok, report = drive_eval_main(
+                test_text, test_argv + ["--compute_dtype=float32"], acc)
+            dtypes = set()
+
+            def recording(model):
+                dtypes.update(p.dtype for p in model.parameters())
+                return step_of(model)
+
+            test_text.make_text_eval_step = recording
+            acc16, _, preds16 = test_text.evaluate(args_parser(
+                test_argv + ["--param_dtype=bfloat16",
+                             "--compute_dtype=float32"]))[:3]
+            test_text.make_text_eval_step = step_of
+            torch.cuda.synchronize()
+            seen = _read_counters()
+            for k, v in seen.items():
+                total[k] = total.get(k, 0) + v
+            good = (len(rows) == 2
+                    and all(r["avg_loss"] == r["avg_loss"] for r in rows)
+                    and {r["phase"] for r in rows} == {"train", "fine_tune"}
+                    and seen == _want_launches() and main_ok
+                    and len(preds) == len(preds16) == 32
+                    and acc == best.best_val_acc
+                    and dtypes == {torch.bfloat16})
+            print(f"  cli.main_text {name} --hf_internal_dropout 1+1 epochs "
+                  f"in {train_s:.1f} s: "
+                  f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
+                  f"; BEST {os.path.basename(best.best_path)} in "
+                  f"cli.test_text in {test_s:.1f} s: accuracy {acc:.2f} % "
+                  f"(trainer's best {best.best_val_acc:.2f} %), report "
+                  f"{report}; --param_dtype=bfloat16 --compute_dtype="
+                  f"float32: weights {sorted(map(str, dtypes))}, accuracy "
+                  f"{acc16:.2f} %; launches {_shown(seen)} (want none) "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            out[name] = {"train_s": train_s, "test_s": test_s, "rows": rows,
+                         "test_acc": acc, "best_val_acc": best.best_val_acc,
+                         "bf16_weights_acc": acc16, "report": report,
+                         "ok": good}
+            ok &= good
+    finally:
+        test_text.make_text_eval_step = step_of
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    results["text_family_clis"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -6347,7 +6663,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/14] device", flush=True)
+    print("[1/15] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6357,7 +6673,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/14] build", flush=True)
+    print("[2/15] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -6369,7 +6685,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/14] kernels vs plain versions", flush=True)
+    print("[3/15] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -6391,57 +6707,63 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/14] MM-RCA eval path",
+            ("[4/15] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/14] MM-RCA train path: full-width train step",
+            ("[5/15] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/14] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/15] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/14] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/15] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/14] image eval path: ViT-B/16",
+            ("[7/15] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/14] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/15] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/14] text train path: DistilBERT and BERT-base with "
+            ("[8/15] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/14] image train path: ViT-B/16",
+            ("[9/15] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/14] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/15] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/14] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/15] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/14] conv image eval CLI: cli.test_image "
+            ("[10/15] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/14] fusion eval: gated, classic, normalized, clip, "
+            ("[11/15] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/14] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/15] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/14] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/15] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/14] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/15] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/14] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/15] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/14] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/15] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[14/14] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/15] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/14] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/15] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
-             lambda: check_fusion_train_clis(device, results))):
+             lambda: check_fusion_train_clis(device, results)),
+            ("[15/15] text family: GPT-2 and MobileBERT at full width and "
+             "depth (no hand-written kernel)",
+             lambda: check_text_family(device, results)),
+            ("[15/15] text family CLIs: cli.main_text "
+             "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
+             lambda: check_text_family_clis(device, results))):
         print(title, flush=True)
         t_phase = time.perf_counter()
         try:
@@ -6471,7 +6793,8 @@ def main() -> int:
     # cores at head dims 88 and 80, 71 a BLIP-2 batch, 39 a Q-Former one)
     # and the late-fusion train path ("fusion_train": K4a / K4b on the
     # DistilBERT / BERT towers, K1 / K3 on MM-RCA with BERT; with
-    # hf_internal_dropout K7a / K7b)
+    # hf_internal_dropout K7a / K7b); "text_family" (GPT-2 and MobileBERT,
+    # phase 15) reads 0 for every kernel
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -6490,7 +6813,8 @@ def main() -> int:
                "vlm_train": results["vlm_train_launches"],
                "fusion_train": results["fusion_train_launches"],
                "fusion_train_hf_dropout":
-                   results["fusion_train_hf_launches"]}
+                   results["fusion_train_hf_launches"],
+               "text_family": results["text_family_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -6575,6 +6899,8 @@ def main() -> int:
                       "vlm_train_clis": results["vlm_train_clis"],
                       "fusion_train": results["fusion_train"],
                       "fusion_train_clis": results["fusion_train_clis"],
+                      "text_family": results["text_family"],
+                      "text_family_clis": results["text_family_clis"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

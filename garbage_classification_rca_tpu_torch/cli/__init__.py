@@ -17,8 +17,7 @@ def cli_device() -> str:
 
 def resolve_model(getter, name: str):
     """Reference-style clean exit on an unknown model name (the reference
-    prints 'Invalid Model: ...' and exits 1 instead of a traceback). A
-    name the port does not run yet raises NotImplementedError."""
+    prints 'Invalid Model: ...' and exits 1 instead of a traceback)."""
     try:
         return getter(name)
     except KeyError as e:
@@ -64,8 +63,10 @@ def load_unimodal_model(mdef, path: str, what: str, device):
             num_classes=NUM_CLASSES)
         return mdef.load_tree(params, state, num_classes=NUM_CLASSES,
                               device=device)
-    model = mdef.build(NUM_CLASSES, layers=payload["meta"]["layers"])
-    model.load_state_dict(payload["state_dict"])
+    sd = payload["state_dict"]
+    model = mdef.build(NUM_CLASSES, layers=payload["meta"]["layers"],
+                       **mdef.build_kwargs(k.split(".")[0] for k in sd))
+    model.load_state_dict(sd)
     return model.to(device).eval()
 
 

@@ -20,9 +20,11 @@ it; its attention-probabilities site runs in the dropout flash-attention
 kernels. ``--use_synonyms`` swaps words through the rule table at
 ``--prob_aug_text`` per batch. ``--model_path`` warm-starts from a
 reference-layout classifier ``.pth`` or a BEST checkpoint of this trainer.
-Text models: distilbert, bert, roberta, bart (phase 1 with ``--tl``
-trains BART's ``head_out`` only, the Linear the reference replaces). Runs
-on CUDA;
+Text models: distilbert, bert, roberta, bart, gpt2, mobilebert (phase 1
+with ``--tl`` trains the Linear the reference replaces: BART's
+``head_out``, GPT-2's ``score``, MobileBERT's ``classifier``; under the
+reference spelling ``mobile_bert`` none, as in the JAX CLI). The head
+drops its input at the model's own default ratio. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
 (NotImplementedError): ``GC_RCA_LLM_PATH``, --wandb, --fsdp, --mesh_shape
 other than one device, RESUME and multi-host runs.
@@ -58,20 +60,28 @@ TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
 TEXT_KEYS = ("input_ids", "attention_mask", "label", "valid")
 
-# exactly the replaced Linear per tower (the reference freezes the rest)
+# exactly the replaced Linear per tower (the reference freezes the rest).
+# The reference spelling "mobile_bert" falls back to ("head",), as in the
+# JAX CLI: with --tl its phase 1 then trains no parameter.
 HEAD_KEYS_BY_MODEL = {
     "bart": ("head_out",),
     "gpt2": ("score",),
     "mobilebert": ("classifier",),
 }
 HEAD_KEYS_DEFAULT = ("head",)
-# dropout on the pooled feature: the classifiers' default, which the text
-# trainer does not take from --model_dropout (nor does the JAX CLI)
-HEAD_DROPOUT = 0.6
 
 
 def head_keys_for(model: str):
     return HEAD_KEYS_BY_MODEL.get(model, HEAD_KEYS_DEFAULT)
+
+
+def train_forward(model, hf_internal_dropout: bool):
+    """The model as the trainer calls it: the head's dropout at the
+    model's own default ratio (0.6 for DistilBERT, BERT, RoBERTa and BART,
+    none for GPT-2, 0.0 for MobileBERT; the JAX trainer passes none
+    either, nor reads --model_dropout), the HF-internal sites on with the
+    flag."""
+    return functools.partial(model, hf_internal_dropout=hf_internal_dropout)
 
 
 class SynonymBatcher(ImageTextBatcher):
@@ -148,9 +158,7 @@ def main(argv=None):
                            .manual_seed(args.seed)).to(device).eval()
     # fp32 master weights unless --param_dtype overrides
     model.to(resolve_param_dtype(args, "float32"))
-    forward = functools.partial(
-        model, drop_ratio=HEAD_DROPOUT,
-        hf_internal_dropout=args.hf_internal_dropout)
+    forward = train_forward(model, args.hf_internal_dropout)
 
     def batch_to_inputs(mb, key):
         return (mb["input_ids"], mb["attention_mask"])

@@ -6,13 +6,16 @@
   --dataset_folder_name=<test-root>``
 Text comes from the filename stems (or the --extended_desc_val captions
 CSV), tokenized on the host; the encoder + head forward runs on the device
-(the fused post-norm block kernels where the shape fits; BART-large runs
-no hand-written kernel). Reports land
+(the fused post-norm block kernels where the shape fits; BART-large,
+GPT-2 and MobileBERT run no hand-written kernel). The weights are cast to
+``--param_dtype``, or ``--compute_dtype`` when it is empty, and the model
+computes in their dtype, as in the JAX CLI. Reports land
 under ``test_set_reports/<text_model>/``. Same flags as the JAX package's
 ``cli/test_text.py``; one device: a ``--mesh_shape`` with a ``seq`` axis
 (sequence parallelism), multi-host runs and orbax checkpoint directories
 are not ported yet. Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the
-CPU. Text models: distilbert, bert, roberta, bart (eval batch 64).
+CPU. Text models: distilbert, bert, roberta, bart, gpt2, mobilebert (or
+mobile_bert), each at its ``config.TEXT_ARCHS`` eval batch.
 """
 
 from __future__ import annotations
@@ -54,11 +57,6 @@ def evaluate(args):
     test folder: (acc %, labels, preds, stats)."""
     mdef = resolve_model(get_text_model, args.text_model)
     check_eval_flags(args)
-    if args.param_dtype and args.param_dtype != args.compute_dtype:
-        raise NotImplementedError(
-            "a text model computes in the dtype of its weights: "
-            "--param_dtype different from --compute_dtype is not ported "
-            "to PyTorch yet (ROADMAP.md, queue 1 item 2)")
     device = resolve_device(cli_device())
     model = load_unimodal_model(mdef, args.model_path,
                                 f"--text_model={args.text_model}", device)

@@ -5,17 +5,16 @@ model here is an ``nn.Module``: ``build`` makes one with random weights
 (from a ``torch.Generator``), ``convert_torch`` maps a reference ``.pth``
 state dict onto the JAX package's tree layout, and ``load_tree`` builds the
 module that tree fits (a transformer's depth read from the tree, by the
-entry's ``depth``) and fills it through ``checkpoint/from_jax.load_jax_tree``
-— the one path for weights. Names that the JAX package knows and the port
-does not run yet raise ``NotImplementedError`` naming the ROADMAP queue
-item.
+entry's ``depth``, and any other build option by its ``options``) and
+fills it through ``checkpoint/from_jax.load_jax_tree`` — the one path for
+weights. The port knows every name of the JAX package's registry.
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 from torch import nn
 
@@ -44,6 +43,14 @@ class ModelDef:
     # the depth `build` takes, read from a JAX-layout tree; None for the
     # models of a fixed depth (the conv backbones)
     depth: Optional[Callable[[dict], int]] = layers_depth
+    # further `build` keywords read from the names of the tree's top-level
+    # entries (MobileBERT's optional pooler); None: there are none
+    options: Optional[Callable[[Iterable[str]], dict]] = None
+
+    def build_kwargs(self, names: Iterable[str]) -> dict:
+        """`build`'s keywords besides `layers` for a tree, or a state
+        dict, whose top-level entries are `names`."""
+        return {} if self.options is None else self.options(set(names))
 
     def load_tree(self, params: dict, state: Optional[dict] = None, *,
                   num_classes: int = 4, device="cuda") -> nn.Module:
@@ -51,6 +58,7 @@ class ModelDef:
         in eval mode; a transformer's depth is the tree's."""
         dev = resolve_device(device)
         kw = {} if self.depth is None else {"layers": self.depth(params)}
+        kw.update(self.build_kwargs(params))
         model = self.build(num_classes, **kw)
         load_jax_tree(model, params, state or None, allow_skipped=())
         return model.to(dev).eval()
@@ -78,29 +86,25 @@ _TEXT_MODULES = {
     "bert": f"{_PKG}.text.bert",
     "roberta": f"{_PKG}.text.roberta",
     "bart": f"{_PKG}.text.bart",
+    "gpt2": f"{_PKG}.text.gpt2",
+    "mobilebert": f"{_PKG}.text.mobilebert",
+    # the reference CLI's spelling
+    "mobile_bert": f"{_PKG}.text.mobilebert",
 }
 
-# names of the JAX package's registry that are still to port
-_UNPORTED_TEXT = ("gpt2", "mobilebert", "mobile_bert")
-
 IMAGE_MODELS = tuple(_IMAGE_MODULES)
-TEXT_MODELS = tuple(_TEXT_MODULES) + _UNPORTED_TEXT
+TEXT_MODELS = tuple(_TEXT_MODULES)
 
 
-def _load(table, unported, item: str, name: str) -> ModelDef:
-    if name in unported:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to PyTorch yet (ROADMAP.md, "
-            f"queue 1 item {item}); the JAX package runs it")
+def _load(table, name: str) -> ModelDef:
     if name not in table:
-        raise KeyError(f"unknown model '{name}'; known: "
-                       f"{sorted(tuple(table) + unported)}")
+        raise KeyError(f"unknown model '{name}'; known: {sorted(table)}")
     return importlib.import_module(table[name]).model_def(name)
 
 
 def get_image_model(name: str) -> ModelDef:
-    return _load(_IMAGE_MODULES, (), "3", name)
+    return _load(_IMAGE_MODULES, name)
 
 
 def get_text_model(name: str) -> ModelDef:
-    return _load(_TEXT_MODULES, _UNPORTED_TEXT, "2", name)
+    return _load(_TEXT_MODULES, name)

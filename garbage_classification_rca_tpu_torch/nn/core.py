@@ -90,6 +90,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (HF's ``gelu_new``; the JAX
+    package's ``gelu(x, approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 

@@ -34,6 +34,11 @@ def make_optimizer(opt: str, named_params: Iterable[Tuple[str,
     maps a name to False to freeze it (default: all trainable)."""
     params = [p for n, p in named_params
               if trainable is None or trainable.get(n, True)]
+    if not params:
+        # everything frozen: a step updates nothing, as the JAX trainer's
+        # all-"freeze" multi_transform does (torch refuses an empty list,
+        # not an empty group)
+        params = [{"params": []}]
     if opt == "sgd":
         return torch.optim.SGD(params, lr=lr, weight_decay=reg, foreach=True)
     if opt == "adamw":

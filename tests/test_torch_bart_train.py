@@ -196,7 +196,8 @@ def test_main_text_bart_matches_jax_cli(train_tree, tmp_path, monkeypatch):
             "--data_workers=2", f"--vocab_dir={BPE}"]
     _, want = _run(jax_cli.main, argv, tmp_path / "jax", monkeypatch)
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
-    monkeypatch.setattr(port_text, "HEAD_DROPOUT", 0.0)
+    monkeypatch.setattr(port_text, "train_forward", lambda m, flag: (
+        functools.partial(m, drop_ratio=0.0, hf_internal_dropout=flag)))
     best, got = _run(port_text.main, argv + [f"--model_path={ckpt}"],
                      tmp_path / "port", monkeypatch)
     _assert_rows(got, want)

@@ -66,7 +66,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.vlm.blip2_vision", "models.vlm.qformer",
                 "models.vlm.opt", "models.vlm.blip2", "cli.blip2_common",
                 "cli.blip2_train", "cli.blip2_test", "cli.qformer_train",
-                "cli.qformer_test"):
+                "cli.qformer_test", "models.text.gpt2",
+                "models.text.mobilebert"):
         assert f"'{pkg}{mod}'" in names, mod
 
 

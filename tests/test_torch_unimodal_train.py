@@ -305,7 +305,8 @@ def test_main_text_matches_jax_cli(train_tree, tmp_path, monkeypatch):
     _, want = _run(jax_cli.main, _text_argv(train_tree), tmp_path / "jax",
                    monkeypatch)
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
-    monkeypatch.setattr(port_text, "HEAD_DROPOUT", 0.0)
+    monkeypatch.setattr(port_text, "train_forward", lambda m, flag: (
+        functools.partial(m, drop_ratio=0.0, hf_internal_dropout=flag)))
     best, got = _run(port_text.main, _text_argv(train_tree)
                      + [f"--model_path={ckpt}"], tmp_path / "port",
                      monkeypatch)
@@ -467,9 +468,6 @@ def test_main_image_refuses_the_text_flag(monkeypatch):
      "mesh_shape"),
     (port_text.main, ["--resume_every_steps=5"], NotImplementedError,
      "RESUME"),
-    (port_text.main, ["--text_model=gpt2"], NotImplementedError, "ROADMAP"),
-    (port_text.main, ["--text_model=mobilebert"], NotImplementedError,
-     "queue 1 item 2"),
     (port_text.main, ["--text_model=nope"], SystemExit, "1"),
     (port_text.main, ["--opt=rmsprop"], SystemExit, "1"),
     (port_image.main, ["--image_model=transformer_B16", "--wandb"],
