@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~11 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~14 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -230,6 +230,40 @@ Phases, each of which fails the run when it fails:
      file (fp32: the trainer's best val accuracy, and the report carries
      it), and ``cli.test_text --param_dtype=bfloat16
      --compute_dtype=float32`` on it (bf16 weights).
+ 16. conv train and resume: the 12 conv backbones of phase 10 in train
+     mode (cuDNN convolutions, BatchNorm on batch statistics; no
+     hand-written kernel: every counter must read 0) at full width and
+     depth, random seeded weights and BN statistics, fp32 master weights,
+     bf16 images, augmentation at ``cli.main_image``'s default p, SGD, class
+     weights: per model one timed all-trainable step at its ``IMAGE_ARCHS``
+     input size, microbatch ``ft_batch`` x acc 2 (the recipes' 0 to 24
+     accumulation steps, cut to 2), and for the six 224x224 models one
+     phase-1 step (head only) at ``train_batch`` x 2; device ms a step,
+     samples/s, peak memory, idle share and a profiler split
+     (convolutions, elementwise, copies). Then, on each family's smallest
+     member (res18, shuffle_net, mb, convnext, b0), one train microbatch of
+     2 (TF32 off, no random draw) on the card against the same
+     model on the CPU, in fp64 and in fp32: every fp64 gradient within
+     1e-4 of its tensor's largest |g| (a BatchNorm bias whose gradient
+     is zero in exact arithmetic sized against its scale's, as phase 5
+     sizes them); in fp32 the loss, the new running statistics within
+     1e-4 of their largest value, and the gradients of the smooth towers
+     (ConvNeXt, b0) as in fp64 (``CONV_FP32_GRADS`` says why the ReLU
+     towers' fp32 gradients are reported, not held).
+     Then ``cli.main_image --image_model=res18`` for 1 + 1 epochs on a
+     32 + 32 224x224 JPEG tree (fp32, TF32 off) into ``cli.test_image``
+     (``drive_eval_main``), which must report the trainer's best val
+     accuracy; and RESUME held to a control: ``cli.main_both
+     --late_fusion=MM_RCA`` at full width (16 + 8 480x480 JPEGs, batch 4 x
+     acc 2, ``--resume_every_steps=1``) run twice uninterrupted (the
+     control: the largest difference between the two final states and
+     logged losses), a third time killed at the second window of its
+     second epoch (the train step raises) and resumed from
+     ``model_weights/MM_RCA_distilbert/RESUME``: the resumed run's final
+     state and losses must be bit-identical to the first run's if the
+     control is, else within it; K1, K2, K3, K4a and K4b must each launch
+     over the resumed run. The same at an epoch boundary on the res18
+     trainer above.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -6580,6 +6614,514 @@ def check_text_family_clis(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the conv backbones' training (cuDNN convolutions, no
+# hand-written kernel) and RESUME of the engine trainers
+# ---------------------------------------------------------------------------
+
+CONV_TRAIN_ACC = 2          # microbatches a step: the recipes' 0 to 24, cut
+CONV_PHASE1 = ("shuffle_net", "res18", "res50", "res152", "mb", "convnext")
+CONV_CPU_CHECK = ("res18", "shuffle_net", "mb", "convnext", "b0")
+CONV_CPU_SAMPLES = 2
+CONV_CPU_BAR = 1e-4         # |d| over the tensor's largest |g| (or value)
+# the towers whose fp32 gradients are held to CONV_CPU_BAR as well as
+# their fp64 ones: GELU (ConvNeXt) and SiLU (EfficientNet) are smooth, so
+# rounding moves their gradients by rounding only. ReLU, hard-swish and
+# max pooling have kinks: an element within an ulp of one takes the other
+# branch when the sum runs in another order, and with 2 samples a flipped
+# element moves a weight's gradient by percents, on the CPU against itself
+# too (ResNet-18 3.5%, ShuffleNetV2 20%, MobileNetV3 1.2% at 2 threads
+# against 8). In fp64 no element comes that close: the towers with
+# BatchNorm run in fp64 too (ConvNeXt has none, and no kink).
+CONV_FP32_GRADS = ("convnext", "b0")
+
+def _conv_stack(name, batch, acc, seed, device):
+    """[acc, batch, H, W, 3] uint8 images at `name`'s input size, labels
+    over the 4 classes, every sample valid, on the device."""
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import IMAGE_ARCHS
+
+    h, w = IMAGE_ARCHS[name].input_size
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.randint(0, 256, (acc, batch, h, w, 3),
+                                   dtype=torch.uint8, device=device,
+                                   generator=g),
+            "label": torch.from_numpy(np.random.default_rng(seed).integers(
+                0, 4, (acc, batch)).astype(np.int32)).to(device),
+            "valid": torch.ones((acc, batch), dtype=torch.int32,
+                                device=device)}
+
+
+def _conv_step(model, trainable=None):
+    """``cli.main_image``'s step: augmentation at its default p on the
+    step key's stream, bf16 images, SGD over the fp32 masters, class
+    weights."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import RunConfig
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    p = RunConfig().prob_aug
+
+    def batch_to_inputs(mb, key):
+        x = augment_batch(mb["image"], p, key.generator(mb["image"].device))
+        return (normalize_on_device(x, dtype=torch.bfloat16),)
+
+    opt = make_optimizer("sgd", model.named_parameters(), UNIMODAL_LR,
+                         UNIMODAL_REG, trainable)
+    weights = torch.tensor([0.8, 1.1, 0.9, 1.3],
+                           device=next(model.parameters()).device)
+    return make_train_step(model, opt, batch_to_inputs=batch_to_inputs,
+                           class_weights=weights)
+
+
+def _conv_timed_step(name, step, stack, key, device, profile):
+    """A warm-up step, then one timed with the counters zeroed before and
+    read after (each must read 0), and with `profile` one profiled: the
+    numbers of the step."""
+    import torch
+
+    t0 = time.perf_counter()
+    float(step(stack, key.fold_in(99))[0])                  # warm-up
+    warm = time.perf_counter() - t0
+    wall, losses, launches, peak = _timed_steps((step,), stack, key, device)
+    acc, batch = stack["label"].shape
+    row = {"microbatch": batch, "acc_steps": acc, "step_ms": wall * 1e3,
+           "samples_per_s": acc * batch / wall, "peak_mem_gib": peak / 2**30,
+           "loss": losses[0], "warmup_s": warm}
+    if profile:
+        t0 = time.perf_counter()
+        prof = profile_train_step(step, stack, key.fold_in(7), reps=1,
+                                  kind=_conv_kind, cuda_only=True, quiet=True)
+        row.update(device_ms_per_step=prof["device_ms_per_step"],
+                   idle_share=prof["idle_share"],
+                   by_kind_ms=prof["by_kind_ms"],
+                   profile_s=time.perf_counter() - t0)
+    ok = (launches == _want_launches() and losses[0] == losses[0]
+          and abs(losses[0]) < float("inf"))
+    torch.cuda.empty_cache()
+    return ok, row, launches
+
+
+def _conv_grads(model, x, label, valid, dev):
+    """(loss, {name: grad}, {name: buffer}) of one train microbatch of
+    `model` on `dev` (no key: no random draw), `x` its normalized NHWC
+    input in the model's dtype."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.train.loss import (
+        cross_entropy_loss_and_weight)
+
+    with torch.enable_grad():
+        loss, _ = cross_entropy_loss_and_weight(
+            model(x.to(dev), train=True), label.to(dev), None, 0.0,
+            valid.to(dev))
+        loss.backward()
+    return (float(loss.detach()),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()})
+
+
+def _grad_scales(g64):
+    """What each gradient's |d| is sized against: its tensor's largest
+    |g| in the CPU's fp64 run, or, for a BatchNorm bias whose fp64
+    gradient is rounding noise (below 1e-9 of its scale's: zero in exact
+    arithmetic, where a train-mode BN after the next conv removes a
+    per-channel shift), its scale's largest |g|."""
+    mx = {n: float(g.abs().max()) for n, g in g64.items()}
+    out = {}
+    for n, m in mx.items():
+        partner = mx.get(n[:-4] + "scale") if n.endswith("bn.bias") else None
+        out[n] = partner if partner and m <= 1e-9 * partner else m
+    return out
+
+
+def _grad_ratios(got, want, scales):
+    """Each gradient's largest |d| over its `scales` entry, sorted."""
+    return sorted(((float((g.double() - want[n].double()).abs().max())
+                    / max(scales[n], 1e-300), n) for n, g in got.items()),
+                  reverse=True)
+
+
+def _conv_card_vs_cpu(name, seed, device):
+    """One train microbatch of `name` (no random draw) on the card and on
+    the CPU from the same weights, in fp32 with TF32 off and, for a
+    tower with BatchNorm, in fp64: (ok, numbers). Every fp64 gradient
+    within CONV_CPU_BAR of its tensor's largest |g| (``_grad_scales``;
+    the ops the port sums in fp32 by design, LayerNorm, the pooled means
+    and the loss, stay fp32 there); in fp32 the loss within
+    CONV_CPU_BAR relative, the new running statistics within CONV_CPU_BAR
+    of their largest value, and on the CONV_FP32_GRADS towers every
+    gradient within CONV_CPU_BAR as in fp64 (on the others the fp32
+    gradients are reported: CONV_FP32_GRADS says why)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.config import IMAGE_ARCHS
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_image_model)
+    from garbage_classification_rca_tpu_torch.nn.core import BatchNorm
+
+    init = get_image_model(name).build(
+        4, generator=torch.Generator().manual_seed(seed))
+    _randomize_bn(init, torch.Generator().manual_seed(seed + 1))
+    with_bn = any(isinstance(m, BatchNorm) for m in init.modules())
+    h, w = IMAGE_ARCHS[name].input_size
+    rng = np.random.default_rng(seed + 2)
+    x = normalize_on_device(torch.from_numpy(rng.integers(
+        0, 256, (CONV_CPU_SAMPLES, h, w, 3), dtype=np.uint8)),
+        dtype=torch.float32)
+    label = torch.from_numpy(rng.integers(0, 4, CONV_CPU_SAMPLES).astype(
+        np.int32))
+    valid = torch.ones(CONV_CPU_SAMPLES, dtype=torch.int32)
+    dtypes = (torch.float64, torch.float32) if with_bn else (torch.float32,)
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dt in dtypes:
+            runs[str(dt)[6:]] = [_conv_grads(copy.deepcopy(init).to(dev, dt),
+                                             x.to(dt), label, valid, dev)
+                                 for dev in ("cpu", device)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    scales = _grad_scales(next(iter(runs.values()))[0][1])
+    loss = {k: abs(card[0] - cpu[0]) / abs(cpu[0])
+            for k, (cpu, card) in runs.items()}
+    grads = {k: _grad_ratios(card[1], cpu[1], scales)
+             for k, (cpu, card) in runs.items()}
+    held = [k for k in grads if k == "float64" or name in CONV_FP32_GRADS]
+    (l32, _, s32), (l32c, _, s32c) = runs["float32"]
+    stats = sorted(((float((b - s32[n]).abs().max())
+                     / float(s32[n].abs().max()), n)
+                    for n, b in s32c.items()), reverse=True)
+    finite = all(bool(torch.isfinite(g).all())
+                 for _, card in runs.values() for g in card[1].values())
+    ok = (finite and all(v <= CONV_CPU_BAR for v in loss.values())
+          and all(grads[k][0][0] <= CONV_CPU_BAR for k in held)
+          and (not stats or stats[0][0] <= CONV_CPU_BAR))
+    out = {"loss_fp32": [l32, l32c], "tensors": len(scales),
+           "zero_in_exact_arithmetic": sum(
+               scales[n] != float(g.abs().max())
+               for n, g in next(iter(runs.values()))[0][1].items()),
+           "worst_running_stats": [(float(f"{v:.4g}"), n)
+                                   for v, n in stats[:2]]}
+    text = []
+    for k, g in grads.items():
+        out[k] = {"loss_rel_diff": loss[k], "held": k in held,
+                  "past_bar": sum(v > CONV_CPU_BAR for v, _ in g),
+                  "worst_grads": [(float(f"{v:.4g}"), n) for v, n in g[:3]]}
+        text.append(f"{k} loss rel {loss[k]:.2e}, worst gradients "
+                    f"{out[k]['worst_grads']} ({out[k]['past_bar']} past "
+                    f"the bar, {'held' if k in held else 'reported'})")
+    print(f"  {name} train microbatch of {CONV_CPU_SAMPLES}, card vs CPU "
+          f"over {len(scales)} tensors: {'; '.join(text)}; fp32 loss "
+          f"{l32c:.6f} vs {l32:.6f}, worst running stats "
+          f"{out['worst_running_stats']} (bar {CONV_CPU_BAR:g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok, out
+
+def check_conv_train(device, results):
+    """Phase 16's model runs: each conv backbone's timed steps
+    (``_conv_timed_step``), then the fp64 and fp32 card-against-CPU
+    microbatch on each family's smallest member (``_conv_card_vs_cpu``).
+    """
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.main_image import (
+        head_keys_for)
+    from garbage_classification_rca_tpu_torch.config import IMAGE_ARCHS
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        head_only_mask)
+
+    ok, out, total = True, {}, {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(CONV_NAMES):
+        t_model = time.perf_counter()
+        spec = IMAGE_ARCHS[name]
+        model = _conv_model(name, SEED + 500 + 2 * i, device)
+        built = time.perf_counter() - t_model
+        key = Key(SEED + 540 + i)
+        runs = [("all", spec.ft_batch, None)]
+        if name in CONV_PHASE1:
+            runs.append(("phase1", spec.train_batch, head_only_mask(
+                model, head_keys_for(name))))
+        row = out[name] = {"input_size": spec.input_size}
+        for what, batch, mask in runs:
+            stack = _conv_stack(name, batch, CONV_TRAIN_ACC,
+                                SEED + 560 + i, device)
+            good, nums, seen = _conv_timed_step(
+                name, _conv_step(model, mask), stack, key, device,
+                profile=what == "all")
+            for k, v in seen.items():
+                total[k] = total.get(k, 0) + v
+            ok &= good
+            row[what] = nums
+            kinds = nums.get("by_kind_ms", {})
+            busy = nums.get("device_ms_per_step")
+            split = ", ".join(f"{k} {ms / busy:.1%}" for k, ms in
+                              kinds.items()) if busy else ""
+            print(f"  {name} {what} step, {CONV_TRAIN_ACC} x {batch} at "
+                  f"{spec.input_size[0]}x{spec.input_size[1]}: "
+                  f"{nums['step_ms']:.1f} ms, {nums['samples_per_s']:.1f} "
+                  f"samples/s, peak {nums['peak_mem_gib']:.2f} GiB"
+                  + (f", device {busy:.1f} ms, idle share "
+                     f"{nums['idle_share']:.3f} ({split})" if busy else "")
+                  + f"; launches {_shown(seen)} (want none) "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            del stack
+        del model
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_model
+        print(f"  ({name}: {row['seconds']:.1f} s; build {built:.1f} s, "
+              f"first steps " + ", ".join(
+                  f"{r['warmup_s']:.1f} s" for w in ("all", "phase1")
+                  if (r := row.get(w)))
+              + f", profile {row['all']['profile_s']:.1f} s)", flush=True)
+    checks = {}
+    for i, name in enumerate(CONV_CPU_CHECK):
+        t_check = time.perf_counter()
+        good, checks[name] = _conv_card_vs_cpu(name, SEED + 580 + 3 * i,
+                                               device)
+        checks[name]["seconds"] = time.perf_counter() - t_check
+        print(f"  ({name} card vs CPU: {checks[name]['seconds']:.1f} s)",
+              flush=True)
+        ok &= good
+    torch.cuda.empty_cache()
+    results["conv_train_launches"] = total
+    results["conv_train"] = {"models": out, "card_vs_cpu": checks,
+                             "acc_steps_cut_to": CONV_TRAIN_ACC,
+                             "seconds": time.perf_counter() - t0}
+    print(f"  phase 16's model runs in {time.perf_counter() - t0:.1f} s; "
+          f"launches {_shown(total)} (want none)", flush=True)
+    return ok
+
+
+class _Killed(Exception):
+    """What a dying train step raises: a run killed mid-training."""
+
+
+@contextlib.contextmanager
+def _dying_step(cli, at):
+    """`cli`'s steps raise at the `at`-th call over the run."""
+    real, calls = cli.make_train_step, {"n": 0}
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def dying(*sa):
+            calls["n"] += 1
+            if calls["n"] == at:
+                raise _Killed
+            return step(*sa)
+
+        return dying
+
+    cli.make_train_step = make
+    try:
+        yield
+    finally:
+        cli.make_train_step = real
+
+
+def _run_end(model_name):
+    """(final RESUME payload, logged rows) of the run in the current
+    directory."""
+    import glob
+    import json as _json
+    import os
+
+    import torch
+
+    rows = [_json.loads(line) for f in sorted(glob.glob("runs/*.jsonl"))
+            for line in open(f)]
+    return (torch.load(os.path.join("model_weights", model_name, "RESUME"),
+                       map_location="cpu", weights_only=True), rows)
+
+
+def _run_gap(a, b):
+    """Largest |d| between two runs' final states (model and optimizer
+    tensors) and their logged losses; None if they do not line up."""
+    import torch
+
+    ta, tb = {}, {}
+    for src, dst in ((a[0], ta), (b[0], tb)):
+        dst.update({"model." + k: v for k, v in src["state_dict"].items()})
+        for i, st in src["optimizer"]["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    dst[f"opt.{i}.{k}"] = v
+    if ta.keys() != tb.keys() or len(a[1]) != len(b[1]):
+        return None
+    state = max((float((ta[k].double() - tb[k].double()).abs().max())
+                 for k in ta), default=0.0)
+    loss = max((abs(ra[k] - rb[k]) for ra, rb in zip(a[1], b[1])
+                for k in ("avg_loss", "max_loss", "min_loss")), default=0.0)
+    meta = ({k: v for k, v in a[0]["meta"].items() if k != "best_path"} ==
+            {k: v for k, v in b[0]["meta"].items() if k != "best_path"})
+    return {"state": state, "loss": loss, "meta_equal": meta}
+
+
+_K_GROUPS = {"K1": ("rca_fused", "rca_fused_per_sample"),
+             "K2": ("mha", "mha_tc"),
+             "K3": ("rca_fused_bwd", "rca_fused_bwd_per_sample"),
+             "K4a": ("mha_fwd_lse", "mha_fwd_lse_tc"),
+             "K4b": ("mha_flash_bwd", "mha_flash_bwd_tc",
+                     "mha_flash_bwd_tc32")}
+
+
+def _resume_case(title, cli, argv, model_name, kill_at, work, want_k=()):
+    """`cli` run twice uninterrupted (the control), then killed at the
+    `kill_at`-th step and resumed from its RESUME: (ok, numbers)."""
+    import os
+
+    import torch
+
+    ends = []
+    for run in ("a", "b"):
+        os.makedirs(os.path.join(work, run))
+        os.chdir(os.path.join(work, run))
+        cli.main(argv)
+        ends.append(_run_end(model_name))
+    os.makedirs(os.path.join(work, "killed"))
+    os.chdir(os.path.join(work, "killed"))
+    try:
+        with _dying_step(cli, kill_at):
+            cli.main(argv)
+        killed_ok = False                     # the kill never came
+    except _Killed:
+        killed_ok = True
+    meta = _run_end(model_name)[0]["meta"]
+    saved = (meta["phase_name"], meta["epoch"], meta["step"])
+    _zero_counters()
+    t0 = time.perf_counter()
+    cli.main(argv + [f"--model_path=model_weights/{model_name}/RESUME"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    seen = _read_counters()
+    launches = {k: sum(seen[c] for c in cs) for k, cs in _K_GROUPS.items()}
+    resumed = _run_end(model_name)
+    control = _run_gap(ends[0], ends[1])
+    gap = _run_gap(ends[0], resumed)
+    ok = (killed_ok and control is not None and gap is not None
+          and gap["meta_equal"] and gap["state"] <= control["state"]
+          and gap["loss"] <= control["loss"]
+          and all(launches[k] > 0 for k in want_k))
+    bitwise = control is not None and control["state"] == 0.0 \
+        and control["loss"] == 0.0
+    print(f"  {title}: killed at step call {kill_at}, RESUME held (phase, "
+          f"epoch, step) {saved}; resumed run in {secs:.1f} s; control "
+          f"(two uninterrupted runs) {control}, resumed vs uninterrupted "
+          f"{gap} ({'bit-identical required' if bitwise else 'within the control'})"
+          + (f"; launches over the resumed run {launches} (want > 0 for "
+             f"{list(want_k)})" if want_k else "")
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, {"kill_at": kill_at, "resume_held": saved, "control": control,
+                "resumed_vs_uninterrupted": gap, "resumed_s": secs,
+                "resumed_launches": launches, "ok": ok}
+
+
+def check_resume(device, results):
+    """``cli.main_image --image_model=res18`` for 1 + 1 epochs into
+    ``cli.test_image`` (``drive_eval_main`` with the trainer's best val
+    accuracy), then RESUME held to a control (``_resume_case``): the res18
+    trainer killed at the epoch boundary, ``cli.main_both
+    --late_fusion=MM_RCA`` killed mid-epoch under
+    ``--resume_every_steps=1``. fp32 images for res18, TF32 off for the
+    phase. In a work directory of the checkout, deleted afterwards."""
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (main_both,
+                                                          main_image,
+                                                          test_image)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_resume")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+    cwd = os.getcwd()
+    out, ok = {}, True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _write_jpeg_tree(os.path.join(work, "conv"), 32, 32, SEED + 600,
+                         size=224)
+        _write_jpeg_tree(os.path.join(work, "mm"), 16, 8, SEED + 601)
+        # res18: 32 train samples at 16 x acc 2 are one window an epoch;
+        # the 2nd call is the fine_tune epoch's first
+        image_argv = [f"--dataset_folder_name={work}/conv",
+                      "--image_model=res18", "--epochs=1", "--ft_epochs=1",
+                      "--batch_size=16", "--batch_size_FT=16",
+                      "--acc_steps=2", "--acc_steps_FT=2", "--opt=sgd",
+                      "--balance_weights", "--compute_dtype=float32",
+                      "--name=res18"]
+        os.makedirs(os.path.join(work, "cli"))
+        os.chdir(os.path.join(work, "cli"))
+        _zero_counters()
+        t0 = time.perf_counter()
+        best = main_image.main(image_argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _read_counters()
+        test_argv = ["--image_model=res18", f"--model_path={best.best_path}",
+                     f"--dataset_folder_name={work}/conv_Val",
+                     "--compute_dtype=float32"]
+        main_ok, report = drive_eval_main(test_image, test_argv,
+                                          best.best_val_acc)
+        good = (main_ok and launches == _want_launches()
+                and os.path.isfile(best.best_path))
+        print(f"  cli.main_image --image_model=res18 1+1 epochs in "
+              f"{train_s:.1f} s: best val accuracy {best.best_val_acc:.2f} % "
+              f"(epoch {best.best_epoch}); launches {_shown(launches)} (want "
+              f"none); its BEST file in cli.test_image: report {report} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        out["main_image_res18"] = {"train_s": train_s, "report": report,
+                                   "best_val_acc": best.best_val_acc,
+                                   "ok": good}
+        ok &= good
+        good, out["res18_epoch_boundary"] = _resume_case(
+            "cli.main_image res18, killed at the epoch boundary",
+            main_image, image_argv, "res18", 2, os.path.join(work, "r18"))
+        ok &= good
+        # MM_RCA: 16 train samples at 4 x acc 2 are 2 windows an epoch;
+        # the 4th call is the fine_tune epoch's second window
+        both_argv = [f"--dataset_folder_name={work}/mm",
+                     "--late_fusion=MM_RCA", "--reverse", "--epochs=1",
+                     "--ft_epochs=1", "--batch_size=4", "--batch_size_FT=4",
+                     "--acc_steps=2", "--acc_steps_FT=2", "--opt=sgd",
+                     "--lr=0.0016", "--reg=0.03", "--fraction_lr=3",
+                     "--balance_weights", "--prob_aug=1.0", "--seq_len=64",
+                     "--resume_every_steps=1", f"--vocab_dir={vocab}",
+                     "--name=mm_rca"]
+        good, out["mm_rca_mid_epoch"] = _resume_case(
+            "cli.main_both MM_RCA, killed mid-epoch", main_both, both_argv,
+            "MM_RCA_distilbert", 4, os.path.join(work, "mm_rca"),
+            want_k=tuple(_K_GROUPS))
+        ok &= good
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    results["resume"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -6663,7 +7205,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/15] device", flush=True)
+    print("[1/16] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6673,7 +7215,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/15] build", flush=True)
+    print("[2/16] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -6685,7 +7227,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/15] kernels vs plain versions", flush=True)
+    print("[3/16] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -6707,63 +7249,70 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/15] MM-RCA eval path",
+            ("[4/16] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/15] MM-RCA train path: full-width train step",
+            ("[5/16] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/15] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/16] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/15] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/16] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/15] image eval path: ViT-B/16",
+            ("[7/16] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/15] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/16] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/15] text train path: DistilBERT and BERT-base with "
+            ("[8/16] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/15] image train path: ViT-B/16",
+            ("[9/16] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/15] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/16] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/15] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/16] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/15] conv image eval CLI: cli.test_image "
+            ("[10/16] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/15] fusion eval: gated, classic, normalized, clip, "
+            ("[11/16] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/15] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/16] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/15] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/16] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/15] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/16] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/15] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/16] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/15] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/16] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[14/15] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/16] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/15] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/16] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/15] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/16] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/15] text family CLIs: cli.main_text "
+            ("[15/16] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
-             lambda: check_text_family_clis(device, results))):
+             lambda: check_text_family_clis(device, results)),
+            ("[16/16] conv train: the 12 conv backbones, a step each; "
+             "fp64 and fp32 card vs CPU",
+             lambda: check_conv_train(device, results)),
+            ("[16/16] conv train CLI and RESUME: cli.main_image res18 -> "
+             "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
+             "killed and resumed, held to a control",
+             lambda: check_resume(device, results))):
         print(title, flush=True)
         t_phase = time.perf_counter()
         try:
@@ -6901,6 +7450,8 @@ def main() -> int:
                       "fusion_train_clis": results["fusion_train_clis"],
                       "text_family": results["text_family"],
                       "text_family_clis": results["text_family_clis"],
+                      "conv_train": results["conv_train"],
+                      "resume": results["resume"],
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

@@ -26,9 +26,12 @@ def resolve_model(getter, name: str):
         raise SystemExit(1)
 
 
-def check_unported_flags(args) -> None:
+def check_unported_flags(args, resume: bool = False) -> None:
     """Raise on the training flags whose paths the port does not have
-    yet (shared by the three trainers)."""
+    yet (shared by the trainers). `resume`: the trainer resumes from
+    ``--model_path=.../RESUME`` (the three engine trainers, which ignore
+    ``--resume_from`` as the JAX CLIs do); by default every resume flag
+    is refused (the VLM trainers)."""
     todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1)"
     if args.fsdp:
         raise NotImplementedError(f"--fsdp {todo}")
@@ -37,10 +40,12 @@ def check_unported_flags(args) -> None:
                                   "the port trains on one device")
     if os.environ.get("GC_RCA_MULTIHOST"):
         raise NotImplementedError(f"multi-host training {todo}")
-    if args.resume_every_steps or args.resume_from or (
+    if not resume and (args.resume_every_steps or args.resume_from or (
             args.model_path and os.path.basename(
-                os.path.normpath(args.model_path)) == "RESUME"):
-        raise NotImplementedError(f"RESUME / mid-epoch resume {todo}")
+                os.path.normpath(args.model_path)) == "RESUME")):
+        raise NotImplementedError(
+            "RESUME / mid-epoch resume of this trainer is not ported to "
+            "PyTorch yet (ROADMAP.md, queue 1 item 4)")
     if args.wandb:
         raise NotImplementedError(f"--wandb {todo}; the port logs JSONL "
                                   "under runs/")
@@ -63,10 +68,22 @@ def load_unimodal_model(mdef, path: str, what: str, device):
             num_classes=NUM_CLASSES)
         return mdef.load_tree(params, state, num_classes=NUM_CLASSES,
                               device=device)
+    return model_from_payload(mdef, payload, device)
+
+
+def model_from_payload(mdef, payload, device):
+    """The model of a BEST or RESUME file of the port's trainers, on
+    `device` in eval mode: built at the depth its meta records (a model of
+    a fixed depth records none), each tensor in the saved dtype."""
+    from .. import NUM_CLASSES
+    from ..train.engine import load_model_state
+
     sd = payload["state_dict"]
-    model = mdef.build(NUM_CLASSES, layers=payload["meta"]["layers"],
-                       **mdef.build_kwargs(k.split(".")[0] for k in sd))
-    model.load_state_dict(sd)
+    kw = mdef.build_kwargs(k.split(".")[0] for k in sd)
+    if mdef.depth is not None:
+        kw["layers"] = payload["meta"]["layers"]
+    model = mdef.build(NUM_CLASSES, **kw)
+    load_model_state(model, sd)
     return model.to(device).eval()
 
 

@@ -11,12 +11,15 @@ everything at lr / ``--fraction_lr`` with ReduceLROnPlateau (factor 0.4)
 for ``--ft_epochs``. Each epoch logs a JSONL row under ``runs/`` with the
 val accuracy of both modalities and of each alone, and writes a BEST
 checkpoint under ``model_weights/`` when val accuracy improves (the
-port's ``cli.test_both`` loads it). ``--late_fusion``: gated, classic,
-normalized and clip on DistilBERT, BERT and BART-large; hierarchical,
-bimodal and MM_RCA on DistilBERT and BERT (the other pairs raise the JAX
-package's ValueError). ``clip`` validates at exactly ``--batch_size`` (its
-head is a Linear of that width), every other strategy at
-``--eval_batch_size`` (32 by default).
+port's ``cli.test_both`` loads it), and after every epoch (and every
+``--resume_every_steps`` optimizer windows) the full training state in
+``model_weights/<late_fusion>_<text_model>/RESUME``, from which
+``--model_path=.../RESUME`` continues a killed run. ``--late_fusion``:
+gated, classic, normalized and clip on DistilBERT, BERT and BART-large;
+hierarchical, bimodal and MM_RCA on DistilBERT and BERT (the other pairs
+raise the JAX package's ValueError). ``clip`` validates at exactly
+``--batch_size`` (its head is a Linear of that width), every other
+strategy at ``--eval_batch_size`` (32 by default).
 
 Same flags as the JAX CLI; fp32 master weights (``--param_dtype``
 overrides) and images in ``--compute_dtype``. The model is trained
@@ -25,9 +28,8 @@ unfolded; val evals run in eval mode under no_grad. Runs on CUDA;
 shrinks the 480x480 input for small drives. ``--hf_internal_dropout``
 switches on the text tower's own p = 0.1 dropout sites (on DistilBERT /
 BERT the dropout attention kernels). Flags of paths not ported yet raise
-NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device,
-RESUME (--model_path=.../RESUME, --resume_from, --resume_every_steps) and
-multi-host runs.
+NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device
+and multi-host runs.
 """
 
 from __future__ import annotations
@@ -48,9 +50,11 @@ from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.fusion.multimodal import (FusionModel, build_fusion_model,
                                         check_config)
-from ..train.engine import BATCH_KEYS, MetricsLogger, run_phase
+from ..train.engine import (BATCH_KEYS, MetricsLogger, ResumePlan,
+                            load_model_state, run_phase)
 from ..train.loop import make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
+from ..utils.dtype import cast_for_training
 from . import check_unported_flags, cli_device, test_both
 from .test_both import fusion_config_from_args
 
@@ -71,18 +75,24 @@ def fusion_head_mask(model: torch.nn.Module):
             for n, _ in model.named_parameters()}
 
 
-def load_model(args, cfg, device) -> FusionModel:
-    """fp32 (or --param_dtype) model on `device`: from --model_path (a BEST
-    checkpoint of this trainer or a reference all-heads .pth), or random
-    from --seed."""
-    if args.model_path:
+def load_model(args, cfg, device, resume=None) -> FusionModel:
+    """fp32 (or --param_dtype) model on `device`: from a RESUME payload
+    (in its own dtype unless --param_dtype is given), from --model_path (a
+    BEST checkpoint of this trainer or a reference all-heads .pth), or
+    random from --seed."""
+    if resume is not None:
+        model = FusionModel(cfg, text_layers=resume["meta"]["layers"])
+        load_model_state(model, resume["state_dict"])
+        model.to(device).eval()
+    elif args.model_path:
         model = test_both.load_model(args.model_path, cfg, device)
         print(f"Warm-started from {args.model_path}")
     else:
         model = build_fusion_model(
             cfg, device=device,
             generator=torch.Generator().manual_seed(args.seed))
-    return model.to(torch_compute_dtype(args.param_dtype or "float32"))
+    cast_for_training(args, model, resume is not None)
+    return model
 
 
 def main(argv=None):
@@ -95,7 +105,7 @@ def main(argv=None):
         raise SystemExit(1)
     cfg = fusion_config_from_args(args)
     check_config(cfg)
-    check_unported_flags(args)
+    check_unported_flags(args, resume=True)
     device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)
 
@@ -119,7 +129,8 @@ def main(argv=None):
         val_manifest, _image_size(), tokenizer=tok, seq_len=seq_len,
         extended_desc=args.extended_desc_val is not None,
         workers=args.data_workers)
-    model = load_model(args, cfg, device)
+    plan = ResumePlan(args.model_path)
+    model = load_model(args, cfg, device, plan.resume)
 
     def batch_to_inputs(mb, key):
         x = mb["image"]
@@ -163,7 +174,7 @@ def main(argv=None):
         m, with_report=True), batcher=train_batcher, args=args,
         model_name=model_name, logger=logger, device=device,
         balanced_sampler=args.balanced_sampler, extra_evals=extra_evals,
-        keep_top_k=3)
+        keep_top_k=3, save_resume=True, resume=plan)
 
     opt, step = make_step(args.lr, fusion_head_mask(model))
     best = run_phase(phase_name="train", epochs=args.epochs, optimizer=opt,

@@ -15,13 +15,17 @@ accuracy improves (the port's ``cli.test_image`` loads it).
 
 Same flags as the JAX CLI. Images in ``--compute_dtype`` over fp32 master
 weights (``--param_dtype`` overrides). ``--model_path`` warm-starts from a
-torchvision-layout ``.pth`` or a BEST checkpoint of this trainer. Image
-models: transformer_B16, transformer_L16 (their attention trains through
-the flash pair ``mha_flash_train``). Runs on CUDA; ``GC_RCA_PLATFORM=cpu``
-runs it on the CPU. Not ported yet (NotImplementedError):
-``--calculate_dataset_stats``, --wandb, --fsdp, --mesh_shape other than
-one device, RESUME and multi-host runs, training the conv backbones (the
-port evaluates them in ``cli.test_image``).
+torchvision-layout ``.pth`` or a BEST checkpoint of this trainer; pointed
+at ``model_weights/<image_model>/RESUME``, which both phases write after
+every epoch (and every ``--resume_every_steps`` optimizer windows), it
+continues the killed run where it stopped. Image models: every name of
+``config.IMAGE_ARCHS``: transformer_B16 and transformer_L16 (their
+attention trains through the flash pair ``mha_flash_train``) and the 12
+conv backbones (cuDNN convolutions; BatchNorm on batch statistics, its
+running statistics fp32; the val eval runs the unfolded model on them).
+Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
+(NotImplementedError): ``--calculate_dataset_stats``, --wandb, --fsdp,
+--mesh_shape other than one device, multi-host runs.
 """
 
 from __future__ import annotations
@@ -38,19 +42,16 @@ from ..device import resolve_device
 from ..eval.harness import run_image_eval
 from ..eval.report import classification_report_dict
 from ..models.registry import get_image_model
-from ..train.engine import MetricsLogger, run_phase
+from ..train.engine import MetricsLogger, ResumePlan, run_phase
 from ..train.loop import all_trainable_mask, head_only_mask, make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
-from ..utils.dtype import resolve_param_dtype
+from ..utils.dtype import cast_for_training
 from . import (check_unported_flags, cli_device, load_unimodal_model,
-               resolve_model)
+               model_from_payload, resolve_model)
 
 TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
 IMAGE_KEYS = ("image", "label", "valid")
-
-# the image models this trainer trains (the conv backbones run eval only)
-TRAINABLE = ("transformer_B16", "transformer_L16")
 
 # head subtrees that stay trainable in phase 1: exactly the replaced
 # classifier Linear per arch
@@ -79,12 +80,7 @@ def main(argv=None):
             "dropout) — it is consumed by main_text/main_both/blip2_train/"
             "qformer_train only. Remove the flag.")
     mdef = resolve_model(get_image_model, args.image_model)
-    if args.image_model not in TRAINABLE:
-        raise NotImplementedError(
-            f"training --image_model={args.image_model} is not ported to "
-            "PyTorch yet (ROADMAP.md, queue 1 item 4: training of the conv "
-            "backbones); cli.test_image evaluates it")
-    check_unported_flags(args)
+    check_unported_flags(args, resume=True)
     if args.calculate_dataset_stats:
         raise NotImplementedError(
             "--calculate_dataset_stats is not ported to PyTorch yet: it "
@@ -107,7 +103,12 @@ def main(argv=None):
                                   dtype=torch.float32, device=device)
                      if args.balance_weights else None)
 
-    if args.model_path:
+    plan = ResumePlan(args.model_path)
+    if plan.resume is not None:
+        # full resume: the model here; optimizer, scheduler, epoch and key
+        # in run_phase
+        model = model_from_payload(mdef, plan.resume, device)
+    elif args.model_path:
         model = load_unimodal_model(
             mdef, args.model_path, f"--image_model={args.image_model}",
             device)
@@ -115,8 +116,9 @@ def main(argv=None):
     else:
         model = mdef.build(NUM_CLASSES, generator=torch.Generator()
                            .manual_seed(args.seed)).to(device).eval()
-    # fp32 master weights unless --param_dtype overrides
-    model.to(resolve_param_dtype(args, "float32"))
+    # fp32 master weights unless --param_dtype overrides; a full resume
+    # keeps the checkpoint's dtype when the flag is left empty
+    cast_for_training(args, model, plan.resume is not None)
 
     train_batcher = ImageTextBatcher(train_manifest, spec.input_size,
                                      workers=args.data_workers)
@@ -150,7 +152,8 @@ def main(argv=None):
     common = dict(model=model, eval_fn=eval_fn, batcher=train_batcher,
                   args=args, model_name=args.image_model, logger=logger,
                   device=device, balanced_sampler=args.balanced_sampler,
-                  keep_top_k=3, keys=IMAGE_KEYS)
+                  keep_top_k=3, keys=IMAGE_KEYS, save_resume=True,
+                  resume=plan, layers=None if mdef.depth else 0)
 
     # phase 1: frozen backbone iff --tl
     mask = head_only_mask(model, head_keys_for(args.image_model)) \

@@ -19,7 +19,12 @@ dropout active while training, as the reference's train-mode towers have
 it; its attention-probabilities site runs in the dropout flash-attention
 kernels. ``--use_synonyms`` swaps words through the rule table at
 ``--prob_aug_text`` per batch. ``--model_path`` warm-starts from a
-reference-layout classifier ``.pth`` or a BEST checkpoint of this trainer.
+reference-layout classifier ``.pth`` or a BEST checkpoint of this trainer;
+pointed at ``model_weights/<text_model>/RESUME``, which both phases write
+after every epoch (and every ``--resume_every_steps`` optimizer windows),
+it continues the killed run where it stopped (the synonymizer's host
+random stream is not saved, as in the JAX package: with
+``--use_synonyms`` a resumed run draws other swaps).
 Text models: distilbert, bert, roberta, bart, gpt2, mobilebert (phase 1
 with ``--tl`` trains the Linear the reference replaces: BART's
 ``head_out``, GPT-2's ``score``, MobileBERT's ``classifier``; under the
@@ -27,7 +32,7 @@ reference spelling ``mobile_bert`` none, as in the JAX CLI). The head
 drops its input at the model's own default ratio. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
 (NotImplementedError): ``GC_RCA_LLM_PATH``, --wandb, --fsdp, --mesh_shape
-other than one device, RESUME and multi-host runs.
+other than one device, multi-host runs.
 """
 
 from __future__ import annotations
@@ -48,12 +53,12 @@ from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.registry import get_text_model
-from ..train.engine import MetricsLogger, run_phase
+from ..train.engine import MetricsLogger, ResumePlan, run_phase
 from ..train.loop import all_trainable_mask, head_only_mask, make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
-from ..utils.dtype import resolve_param_dtype
+from ..utils.dtype import cast_for_training
 from . import (check_unported_flags, cli_device, load_unimodal_model,
-               resolve_model)
+               model_from_payload, resolve_model)
 from .test_text import make_text_eval_step
 
 TRAIN_SUFFIX = "_Train"
@@ -114,7 +119,7 @@ def main(argv=None):
         print("Invalid optimizer!")   # reference wording, main_image.py:536
         raise SystemExit(1)
     mdef = resolve_model(get_text_model, args.text_model)
-    check_unported_flags(args)
+    check_unported_flags(args, resume=True)
     spec = TEXT_ARCHS[args.text_model]
     device = resolve_device(cli_device())
 
@@ -149,15 +154,19 @@ def main(argv=None):
         extended_desc=args.extended_desc_val is not None,
         workers=args.data_workers, with_images=False)
 
-    if args.model_path:
+    plan = ResumePlan(args.model_path)
+    if plan.resume is not None:
+        model = model_from_payload(mdef, plan.resume, device)
+    elif args.model_path:
         model = load_unimodal_model(mdef, args.model_path,
                                     f"--text_model={args.text_model}", device)
         print(f"Warm-started from {args.model_path}")
     else:
         model = mdef.build(NUM_CLASSES, generator=torch.Generator()
                            .manual_seed(args.seed)).to(device).eval()
-    # fp32 master weights unless --param_dtype overrides
-    model.to(resolve_param_dtype(args, "float32"))
+    # fp32 master weights unless --param_dtype overrides; a full resume
+    # keeps the checkpoint's dtype when the flag is left empty
+    cast_for_training(args, model, plan.resume is not None)
     forward = train_forward(model, args.hf_internal_dropout)
 
     def batch_to_inputs(mb, key):
@@ -185,7 +194,8 @@ def main(argv=None):
     common = dict(model=model, eval_fn=eval_fn, batcher=train_batcher,
                   args=args, model_name=args.text_model, logger=logger,
                   device=device, balanced_sampler=args.balanced_sampler,
-                  keep_top_k=3, keys=TEXT_KEYS)
+                  keep_top_k=3, keys=TEXT_KEYS, save_resume=True,
+                  resume=plan)
 
     mask = head_only_mask(model, head_keys_for(args.text_model)) \
         if args.tl else all_trainable_mask(model)

@@ -7,7 +7,9 @@ bias -> LayerNorm eps 1e-6 -> Linear C -> 4C -> exact GELU -> Linear 4C ->
 C -> times the layer scale ``scale`` -> residual); LayerNorm + 2x2 s2 conv
 between stages; the head pools, normalizes and applies the Linear. Widths
 (128, 256, 512, 1024), depths (3, 3, 27, 3). No BatchNorm: nothing to
-fold. Eval only (stochastic depth is a train-mode op).
+fold. Train mode adds stochastic depth (per sample) on block ``idx`` of
+the ``total`` at rate ``SD_PROB * idx / (total - 1)``, drawn from
+``key.fold_in(idx)``, as the JAX ``apply`` draws it.
 
 The model runs channels-last as the JAX one does: its activations are
 contiguous NHWC tensors, every LayerNorm and Linear acts on their last
@@ -28,6 +30,7 @@ from ..registry import ModelDef
 WIDTHS = (128, 256, 512, 1024)
 DEPTHS = (3, 3, 27, 3)
 LN_EPS = 1e-6
+SD_PROB = 0.5
 
 
 class CNBlock(nn.Module):
@@ -75,14 +78,24 @@ class ConvNeXt(nn.Module):
         self.fc = core.Linear(WIDTHS[-1], num_classes, generator=g)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x):
-        """Normalized NHWC images -> logits [B, n_classes] (eval)."""
+    def forward(self, x, *, train: bool = False,
+                key: Optional[core.Key] = None):
+        """Normalized NHWC images -> logits [B, n_classes]; ``train`` with
+        a `key`: stochastic depth on the blocks' residual branches."""
         h = self.stem_ln(_conv_nhwc(self.stem_conv, x, stride=4))
+        total = sum(DEPTHS)
+        idx = 0
         for si, stage in enumerate(self.stages):
             for p in stage:
                 y = _conv_nhwc(p.dw, h, padding=3, groups=h.shape[-1])
                 y = p.fc2(core.gelu(p.fc1(p.ln(y))))
-                h = h + y * p.scale.to(y.dtype)
+                y = y * p.scale.to(y.dtype)
+                if train and key is not None:
+                    y = core.stochastic_depth(
+                        y, SD_PROB * idx / (total - 1),
+                        key.fold_in(idx).generator(y.device))
+                h = h + y
+                idx += 1
             if si < 3:
                 d = self.downsamples[si]
                 h = _conv_nhwc(d.conv, d.ln(h), stride=2)

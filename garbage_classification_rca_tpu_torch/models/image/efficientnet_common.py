@@ -19,7 +19,7 @@ with ``expand``/``project``/``single``/``dw``/``se``, ``head``,
 ``classifier``), so ``checkpoint/from_jax.load_jax_tree`` fills a model
 from it directly. ``EffNet`` is the trunk (the fusion models' image tower),
 ``EffNetClassifier`` the trunk with torchvision's classifier (the
-stand-alone b0 / b4 / b5 and EfficientNetV2 S / M / L models, eval only).
+stand-alone b0 / b4 / b5 and EfficientNetV2 S / M / L models).
 ``ConvBN`` is the conv + BatchNorm pair of every BN tower of the port
 (ResNet, MobileNetV3 and ShuffleNetV2 build on it too).
 
@@ -145,7 +145,9 @@ class EffNet(nn.Module):
 
 class EffNetClassifier(EffNet):
     """The trunk and torchvision's classifier, Linear(head_out, n) on the
-    pooled feature (its dropout is the identity at eval)."""
+    pooled feature; in train mode the pooled feature drops at
+    ``cfg.dropout``, drawn from ``key.fold_in(999)`` as in the JAX
+    ``apply``."""
 
     def __init__(self, cfg: EffNetConfig, num_classes: int = 4, *,
                  generator: Optional[torch.Generator] = None):
@@ -153,9 +155,17 @@ class EffNetClassifier(EffNet):
         self.classifier = core.Linear(cfg.head_out, num_classes,
                                       generator=generator)
 
-    def forward(self, x):
-        """Normalized NHWC images -> logits [B, n_classes] (eval)."""
-        return self.classifier(features_all_stages(self, x, self.cfg)[1])
+    def forward(self, x, *, train: bool = False,
+                key: Optional[core.Key] = None):
+        """Normalized NHWC images -> logits [B, n_classes]. ``train``: BN
+        on batch statistics (running stats updated in place) and, with a
+        `key`, stochastic depth and the classifier's dropout."""
+        pooled = features_all_stages(self, x, self.cfg, train=train,
+                                     key=key)[1]
+        if train and key is not None:
+            pooled = core.dropout(pooled, self.cfg.dropout,
+                                  key.fold_in(999).generator(pooled.device))
+        return self.classifier(pooled)
 
 
 # ---------------------------------------------------------------------------

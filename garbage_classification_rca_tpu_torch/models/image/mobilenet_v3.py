@@ -6,9 +6,11 @@ The port of the JAX package's ``models/image/mobilenet_v3.py``: BN eps
 optional squeeze-excite (ReLU inside, hardsigmoid gate, squeeze
 ``_make_divisible(exp / 4, 8)``), the residual only where stride 1 keeps
 the channels; the last 1x1 conv to 960; the classifier Linear(960, 1280) ->
-hardswish -> dropout (the identity at eval) -> Linear(1280, n). Every conv
-is a ``ConvBN`` pair; the trunk runs NCHW in ``channels_last`` memory.
-Eval only.
+hardswish -> dropout -> Linear(1280, n). Every conv is a ``ConvBN`` pair;
+the trunk runs NCHW in ``channels_last`` memory. Train mode runs every
+BatchNorm on the batch's statistics (momentum 0.01) and the classifier's
+dropout at 0.2, drawn from the step's key itself, as the JAX ``apply``
+draws it.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ STEM_OUT = 16
 LAST_CONV = 960
 HEAD_HIDDEN = 1280
 BN_EPS = 1e-3
+BN_MOM = 0.01
+DROPOUT = 0.2
 
 
 class InvertedResidual(nn.Module):
@@ -89,22 +93,29 @@ class MobileNetV3(nn.Module):
         self.fc2 = core.Linear(HEAD_HIDDEN, num_classes, generator=g)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x):
-        """Normalized NHWC images -> logits [B, n_classes] (eval)."""
+    def forward(self, x, *, train: bool = False,
+                key: Optional[core.Key] = None):
+        """Normalized NHWC images -> logits [B, n_classes]. ``train``: BN
+        on batch statistics, its running stats updated in place, and with
+        a `key` the classifier's dropout."""
+        bn = dict(train=train, momentum=BN_MOM)
         h = core.hardswish(self.stem(x.permute(0, 3, 1, 2), BN_EPS,
-                                     stride=2))
+                                     stride=2, **bn))
         for r, m in zip(ROWS, self.blocks):
             act = core.hardswish if r.hs else core.relu
             y = h
             if m.expand is not None:
-                y = act(m.expand(y, BN_EPS))
-            y = act(m.dw(y, BN_EPS, stride=r.stride, groups=r.exp))
+                y = act(m.expand(y, BN_EPS, **bn))
+            y = act(m.dw(y, BN_EPS, stride=r.stride, groups=r.exp, **bn))
             if m.se is not None:
                 y = _se(m.se, y, core.relu, core.hardsigmoid)
-            y = m.project(y, BN_EPS)
+            y = m.project(y, BN_EPS, **bn)
             h = y + h if r.stride == 1 and h.shape[1] == r.out else y
-        h = core.hardswish(self.last(h, BN_EPS))
-        return self.fc2(core.hardswish(self.fc1(core.global_avg_pool(h))))
+        h = core.hardswish(self.last(h, BN_EPS, **bn))
+        z = core.hardswish(self.fc1(core.global_avg_pool(h)))
+        if train and key is not None:
+            z = core.dropout(z, DROPOUT, key.generator(z.device))
+        return self.fc2(z)
 
 
 def convert_torch(sd, num_classes: int = 4):

@@ -6,7 +6,9 @@ max pool 3 s2 (padding 1), four stages of BasicBlocks (res18) or
 Bottlenecks (res50 / res152, the stride on the 3x3 conv: torchvision's
 v1.5), a 1x1 ``down`` projection at a stage's first block where the shape
 changes, global pool, fc. Every conv is a ``ConvBN`` pair (BN eps 1e-5).
-The trunk runs NCHW in ``channels_last`` memory. Eval only.
+The trunk runs NCHW in ``channels_last`` memory. Train mode runs every
+BatchNorm on the batch's statistics (momentum 0.1); there is no random
+site.
 
 ``convert_torch`` maps torchvision's keys (conv1 / bn1,
 ``layer{1..4}.{j}.conv{1..3}`` + ``bn{1..3}``, ``downsample.0`` / ``.1``,
@@ -26,6 +28,7 @@ from ..registry import ModelDef
 from .efficientnet_common import ConvBN, convert_conv_bn
 
 BN_EPS = 1e-5
+BN_MOM = 0.1
 
 
 @dataclass(frozen=True)
@@ -86,23 +89,26 @@ class ResNet(nn.Module):
         self.fc = core.Linear(c_in, num_classes, generator=g)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x):
-        """Normalized NHWC images -> logits [B, n_classes] (eval)."""
+    def forward(self, x, *, train: bool = False, key=None):
+        """Normalized NHWC images -> logits [B, n_classes]. ``train``: BN
+        on batch statistics, its running stats updated in place; `key` is
+        unused (the model has no dropout)."""
         relu = core.relu
-        h = relu(self.stem(x.permute(0, 3, 1, 2), BN_EPS, stride=2))
+        bn = dict(train=train, momentum=BN_MOM)
+        h = relu(self.stem(x.permute(0, 3, 1, 2), BN_EPS, stride=2, **bn))
         h = core.max_pool(h, 3, 2, padding=1)
         for si, stage in enumerate(self.layers):
             for j, m in enumerate(stage):
                 stride = 2 if (si > 0 and j == 0) else 1
                 if m.c3 is None:
-                    y = relu(m.c1(h, BN_EPS, stride=stride))
-                    y = m.c2(y, BN_EPS)
+                    y = relu(m.c1(h, BN_EPS, stride=stride, **bn))
+                    y = m.c2(y, BN_EPS, **bn)
                 else:
-                    y = relu(m.c1(h, BN_EPS))
-                    y = relu(m.c2(y, BN_EPS, stride=stride))
-                    y = m.c3(y, BN_EPS)
-                identity = h if m.down is None else m.down(h, BN_EPS,
-                                                           stride=stride)
+                    y = relu(m.c1(h, BN_EPS, **bn))
+                    y = relu(m.c2(y, BN_EPS, stride=stride, **bn))
+                    y = m.c3(y, BN_EPS, **bn)
+                identity = h if m.down is None else m.down(
+                    h, BN_EPS, stride=stride, **bn)
                 h = relu(y + identity)
         return self.fc(core.global_avg_pool(h))
 

@@ -12,7 +12,9 @@ ends in a channel shuffle with groups 2. Every conv is a ``ConvBN`` pair
 
 The trunk runs NCHW in ``channels_last`` memory, the JAX package's NHWC
 bytes: the split is a channel slice of that memory, and the concat and the
-shuffle are one copy on the NHWC view (``concat_shuffle``). Eval only.
+shuffle are one copy on the NHWC view (``concat_shuffle``). Train mode
+runs every BatchNorm on the batch's statistics (momentum 0.1); there is no
+random site.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ REPEATS = (4, 8, 4)
 CONV1_OUT = 24
 CONV5_OUT = 2048
 BN_EPS = 1e-5
+BN_MOM = 0.1
 
 
 def concat_shuffle(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,25 +80,28 @@ class ShuffleNetV2(nn.Module):
         self.fc = core.Linear(CONV5_OUT, num_classes, generator=g)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x):
-        """Normalized NHWC images -> logits [B, n_classes] (eval)."""
+    def forward(self, x, *, train: bool = False, key=None):
+        """Normalized NHWC images -> logits [B, n_classes]. ``train``: BN
+        on batch statistics, its running stats updated in place; `key` is
+        unused (the model has no dropout)."""
         relu = core.relu
-        h = relu(self.conv1(x.permute(0, 3, 1, 2), BN_EPS, stride=2))
+        bn = dict(train=train, momentum=BN_MOM)
+        h = relu(self.conv1(x.permute(0, 3, 1, 2), BN_EPS, stride=2, **bn))
         h = core.max_pool(h, 3, 2, padding=1)
         for stage in self.stages:
             for j, u in enumerate(stage):
                 if j == 0:
-                    b1 = u.b1_dw(h, BN_EPS, stride=2, groups=h.shape[1])
-                    b1 = relu(u.b1_pw(b1, BN_EPS))
+                    b1 = u.b1_dw(h, BN_EPS, stride=2, groups=h.shape[1], **bn)
+                    b1 = relu(u.b1_pw(b1, BN_EPS, **bn))
                     b2, stride = h, 2
                 else:
                     b1, b2 = h.chunk(2, dim=1)
                     stride = 1
-                y = relu(u.b2_pw1(b2, BN_EPS))
-                y = u.b2_dw(y, BN_EPS, stride=stride, groups=y.shape[1])
-                y = relu(u.b2_pw2(y, BN_EPS))
+                y = relu(u.b2_pw1(b2, BN_EPS, **bn))
+                y = u.b2_dw(y, BN_EPS, stride=stride, groups=y.shape[1], **bn)
+                y = relu(u.b2_pw2(y, BN_EPS, **bn))
                 h = concat_shuffle(b1, y)
-        h = relu(self.conv5(h, BN_EPS))
+        h = relu(self.conv5(h, BN_EPS, **bn))
         return self.fc(core.global_avg_pool(h))
 
 

@@ -215,7 +215,8 @@ class Conv2d(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm over NCHW channels with fp32 statistics (the JAX
-    ``batchnorm`` semantics). Running stats are fp32 buffers.
+    ``batchnorm`` semantics; fp64 ones for an fp64 input). Running stats
+    are fp32 buffers.
 
     Eval normalizes with the running stats, in fp32. Train normalizes with
     the batch's biased variance and updates the running stats in place as
@@ -233,13 +234,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, eps: float, *, train: bool = False,
                 momentum: float = 0.1):
+        acc = torch.promote_types(x.dtype, torch.float32)
         if train:
-            return F.batch_norm(x, self.mean, self.var, self.scale.float(),
-                                self.bias.float(), training=True,
+            return F.batch_norm(x, self.mean, self.var, self.scale.to(acc),
+                                self.bias.to(acc), training=True,
                                 momentum=momentum, eps=eps)
-        inv = torch.rsqrt(self.var.float() + eps) * self.scale.float()
-        shift = self.bias.float() - self.mean.float() * inv
-        y = x.float() * inv[:, None, None] + shift[:, None, None]
+        inv = torch.rsqrt(self.var.to(acc) + eps) * self.scale.to(acc)
+        shift = self.bias.to(acc) - self.mean.to(acc) * inv
+        y = x.to(acc) * inv[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
 
 

@@ -72,6 +72,14 @@ class PlateauScheduler:
         self.best = -math.inf
         self.num_bad = 0
 
+    def state_dict(self) -> dict:
+        return {"lr": self.lr, "best": self.best, "num_bad": self.num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr = float(d["lr"])
+        self.best = float(d["best"])
+        self.num_bad = int(d["num_bad"])
+
     def step(self, metric: float) -> float:
         """Feed the epoch's val metric; returns the (possibly reduced) lr."""
         if metric > self.best * (1.0 + self.threshold) if self.best > 0 \

@@ -46,6 +46,8 @@ from tests.test_torch_fusion_train import (BART_VOCAB, STRATEGIES_BY_TOWER,
 from tests.test_torch_hf_dropout import MaskStream, StreamDrop, TorchStreamKeys
 from tests.test_torch_unimodal_train import (  # noqa: F401 — fixture
     _assert_rows, _run, train_tree)
+from tests.test_torch_resume import (  # noqa: F401 — fixture
+    _drop_checkpoints)
 
 torch.set_num_threads(2)
 

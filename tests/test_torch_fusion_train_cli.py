@@ -28,6 +28,8 @@ from garbage_classification_rca_tpu_torch.cli import main_both as port_cli
 from garbage_classification_rca_tpu_torch.cli import test_both as port_test
 from garbage_classification_rca_tpu_torch.models.image import efficientnet_v2 as teffv2
 from tests.test_torch_train_cli import STAGES, VOCAB, _run, _tree
+from tests.test_torch_resume import (  # noqa: F401 — fixture
+    _drop_checkpoints)
 
 torch.set_num_threads(2)
 

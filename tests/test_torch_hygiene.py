@@ -67,7 +67,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.vlm.opt", "models.vlm.blip2", "cli.blip2_common",
                 "cli.blip2_train", "cli.blip2_test", "cli.qformer_train",
                 "cli.qformer_test", "models.text.gpt2",
-                "models.text.mobilebert"):
+                "models.text.mobilebert", "models.image.shufflenet_v2",
+                "models.image.resnet", "models.image.mobilenet_v3",
+                "models.image.convnext", "models.image.efficientnet_common",
+                "train.engine", "train.optim", "cli.main_both",
+                "nn.core"):
         assert f"'{pkg}{mod}'" in names, mod
 
 

@@ -33,6 +33,8 @@ from tests.test_torch_gpt2 import gpt2_state_dict
 from tests.test_torch_mobilebert_port import mobilebert_state_dict
 from tests.test_torch_unimodal_train import (  # noqa: F401 — fixture
     _assert_rows, _run, train_tree)
+from tests.test_torch_resume import (  # noqa: F401 — fixture
+    _drop_checkpoints)
 
 torch.set_num_threads(2)
 

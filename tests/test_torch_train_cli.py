@@ -27,6 +27,8 @@ import torch
 from garbage_classification_rca_tpu_torch.cli import main_both as port_cli
 from garbage_classification_rca_tpu_torch.cli import test_both as port_test
 from garbage_classification_rca_tpu_torch.models.image import efficientnet_v2 as teffv2
+from tests.test_torch_resume import (  # noqa: F401 — fixture
+    _drop_checkpoints)
 
 torch.set_num_threads(2)
 
@@ -138,8 +140,6 @@ def test_port_trainer_matches_jax_trainer(inputs, tmp_path, monkeypatch):
     ("--wandb", NotImplementedError, "wandb"),
     ("--fsdp", NotImplementedError, "fsdp"),
     ("--mesh_shape=data:2", NotImplementedError, "mesh_shape"),
-    ("--resume_every_steps=5", NotImplementedError, "RESUME"),
-    ("--model_path=model_weights/x/RESUME", NotImplementedError, "RESUME"),
     # the pairs the JAX package refuses, with its messages
     ("--late_fusion=hierarchical --text_model=bart", ValueError,
      "hierarchical fusion needs per-layer hidden states"),

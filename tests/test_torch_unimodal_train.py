@@ -63,6 +63,8 @@ from garbage_classification_rca_tpu_torch.train.optim import make_optimizer as \
     make_torch_optimizer
 from tests.test_torch_hf_dropout import MaskStream, StreamDrop, TorchStreamKeys
 from tests.torch_refs.vit_ref import VisionTransformerRef
+from tests.test_torch_resume import (  # noqa: F401 — fixture
+    _drop_checkpoints)
 
 torch.set_num_threads(2)
 
@@ -466,20 +468,13 @@ def test_main_image_refuses_the_text_flag(monkeypatch):
     (port_text.main, ["--fsdp"], NotImplementedError, "fsdp"),
     (port_text.main, ["--mesh_shape=data:2"], NotImplementedError,
      "mesh_shape"),
-    (port_text.main, ["--resume_every_steps=5"], NotImplementedError,
-     "RESUME"),
     (port_text.main, ["--text_model=nope"], SystemExit, "1"),
     (port_text.main, ["--opt=rmsprop"], SystemExit, "1"),
     (port_image.main, ["--image_model=transformer_B16", "--wandb"],
      NotImplementedError, "wandb"),
-    (port_image.main, ["--image_model=transformer_L16",
-                       "--model_path=model_weights/x/RESUME"],
-     NotImplementedError, "RESUME"),
     (port_image.main, ["--image_model=transformer_B16",
                        "--calculate_dataset_stats"], NotImplementedError,
      "calculate_mean_std"),
-    (port_image.main, ["--image_model=eff_v2_medium"], NotImplementedError,
-     "ROADMAP"),
     (port_image.main, ["--image_model=nope"], SystemExit, "1"),
     (port_image.main, ["--opt=rmsprop"], SystemExit, "1"),
 ])
