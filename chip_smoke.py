@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~14 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~15 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -179,7 +179,8 @@ Phases, each of which fails the run when it fails:
      the tensor cores, the rest 0), train samples/s, steps/s, peak
      memory, a profile (device ms a step, idle share, K2 / K4a / K4b /
      GEMMs / elementwise); one step
-     with ``hf_internal_dropout`` (the same launches); a microbatch's loss
+     with ``hf_internal_dropout`` (the same launches, not profiled); a
+     microbatch's loss
      and adapter gradients on the kernel path against the plain path, bf16
      at 16 and fp32 at 4; the Q-Former classifier's step at 16 x 8 (K2 39
      a microbatch); then ``cli.blip2_train`` and ``cli.qformer_train`` for
@@ -189,19 +190,21 @@ Phases, each of which fails the run when it fails:
 
  14. late-fusion train: every pair the JAX package trains but MM-RCA on
      DistilBERT (phase 5's) — gated, classic, normalized, clip,
-     hierarchical and bimodal on DistilBERT (6 layers) and BERT-base (12),
-     MM_RCA on BERT, gated, classic, normalized and clip on BART-large (12
-     + 12) — at full width on EfficientNetV2-M at 480x480, seq 64, towers
+     hierarchical and bimodal on DistilBERT (6 layers) and BERT-base (cut
+     to 5 of 12), MM_RCA on BERT, gated, classic, normalized and clip on
+     BART-large (cut to 2 + 2 of 12 + 12) — at full width on
+     EfficientNetV2-M at 480x480, seq 64, towers
      built once (random seeded weights and BN statistics, unfolded) and
      restored to their seeds for each pair, fp32 master weights, bf16
      images, batch 16 x acc 2 (MM_RCA.sh's acc 10, cut), SGD lr 0.0016 reg
      0.03, class weights, augmentation p=1.0, head dropout 0.6: per pair
      one microbatch's loss and gradients on the kernel path against the
      plain path with phase 5's bars, one optimizer step with the counters
-     zeroed before and read after (per microbatch K4a 6 / 12 on the CUDA
-     cores, K4b 6 / 12 on 3xTF32 on DistilBERT / BERT, K1 1 and K3 1 on
-     MM-RCA, nothing on BART), train samples/s, peak memory, a profiled
-     step (device ms, idle share, time by kind); one more step with
+     zeroed before and read after (per microbatch K4a 6 / 5 on the CUDA
+     cores, K4b 6 / 5 on 3xTF32 on DistilBERT / BERT, K1 1 and K3 1 on
+     MM-RCA, nothing on BART), train samples/s, peak memory, on each
+     tower's first pair a profiled step (device ms, idle share, time by
+     kind); one more step with
      ``hf_internal_dropout`` on gated + DistilBERT, hierarchical + BERT
      (K7a / K7b in place of K4a / K4b) and classic + BART, whose loss the
      flag must change and repeat from the same key; then ``cli.main_both
@@ -238,9 +241,10 @@ Phases, each of which fails the run when it fails:
      weights: per model one timed all-trainable step at its ``IMAGE_ARCHS``
      input size, microbatch ``ft_batch`` x acc 2 (the recipes' 0 to 24
      accumulation steps, cut to 2), and for the six 224x224 models one
-     phase-1 step (head only) at ``train_batch`` x 2; device ms a step,
-     samples/s, peak memory, idle share and a profiler split
-     (convolutions, elementwise, copies). Then, on each family's smallest
+     phase-1 step (head only) at ``train_batch`` x 2; samples/s, peak
+     memory, and on ``CONV_PROFILED`` device ms a step, idle share and a
+     profiler split (convolutions, elementwise, copies). Then, on each
+     family's smallest
      member (res18, shuffle_net, mb, convnext, b0), one train microbatch of
      2 (TF32 off, no random draw) on the card against the same
      model on the CPU, in fp64 and in fp32: every fp64 gradient within
@@ -264,6 +268,47 @@ Phases, each of which fails the run when it fails:
      control is, else within it; K1, K2, K3, K4a and K4b must each launch
      over the resumed run. The same at an epoch boundary on the res18
      trainer above.
+ 17. serving: BLIP-2 generation at blip2-opt-2.7b's full width and depth
+     in bf16 (random towers from ``--seed`` through ``build_blip2``,
+     adapters with B != 0, written as a BEST file for the CLIs) over
+     phase 12's kind of prompts (left-padded to 100, 132 with the query
+     tokens), K2 in every prefill: ``blip2.generate`` at batch 16, 32 new
+     tokens, the kernel path against the plain path (each K / V cache
+     layer on the valid slots to the blocks' bf16 bar, or past it no
+     further than the one-ulp control moves it (below), the first-step
+     logits as phase 12's, the greedy streams up to the first near tie);
+     fp32 at batch 4 (streams identical, first-step logits within 1e-4 of
+     max |logit|); the int8 cache and int8 weights, each kernel path
+     against its plain path; the int8 cache against the bf16 run as the
+     JAX package's ``tests/test_quant.py`` holds it, at that test's depth
+     (OPT cut to 3 layers at full width: one decode step's hidden within
+     2% of its largest |value|); int8 weights by their own bounds (each
+     dequantized weight within half a step of its bf16 weight; an int8
+     projection within the blocks' bf16 bar of the fp32 product of its
+     dequantized weights); the first-step logits' and full depth's moves
+     recorded beside a one-ulp control (the prompt embeddings moved by
+     N(0, 1) bf16 ulps); the
+     ``GenerationServer`` at the config defaults (8
+     slots, max_prompt 100, 8 steps a sync, max_new 32) on 24 requests,
+     half image, half text, budgets 1 to 32, an EOS taken from inside a
+     stream: every stream equal to its request's own B = 1 ``generate`` up
+     to the first near tie, slots retired and refilled, the counters zeroed
+     before and read after (the ``serving`` path: K2 32 a prefill); tokens
+     / s, time to first token, p50 / p95 request latency, decode ms a
+     step, a profile of 8 decode steps (device ms, idle share, device
+     operations a step), peak memory; ``speculative_generate`` in fp32 at
+     batch 4 (the full OPT-2.7B target, a draft of OPT-125m's published
+     widths with random weights, draft_k 4) equal to the target's greedy
+     ``generate``; then ``cli.blip2_test --max_new_tokens=4`` (greedy,
+     sampled, ``--int8_weights --kv_cache_dtype=int8``) on a 16-JPEG tree
+     and ``cli.serve`` on 16 JSONL lines (a malformed line and a bad field
+     among them): one answer a request, the error lines, the greedy
+     answers against in-process ``generate``. A near tie: a step whose
+     top-2 logit margin on the reference side is under a same-run floor
+     (``near_tie_agree``): kernel against plain, the largest |d| of the two
+     paths' first-step logits; a server row against its B = 1 run, the
+     largest |d| between the B = 1 and the batched first-step logits of
+     the same requests.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -316,7 +361,7 @@ Tolerances (kernel vs plain version, same inputs, same card):
     printed, with the agreement over all samples beside them
     (``argmax_check``). The 0.05 bound on the logits holds for every
     sample.
-  * train microbatches (``compare_train_paths``, three of them): fp32
+  * train microbatches (``compare_train_paths``, two of them): fp32
     images, TF32 off, the loss within 1e-5 relative and every gradient
     within 1e-4 of its tensor's largest |g|; bf16 images, the loss within
     1e-3 relative and every gradient's cosine >= 0.999 (>= 0.998 in the
@@ -2231,24 +2276,23 @@ def _conv_kind(name: str) -> str:
     return "elementwise + reductions"
 
 
-def profile_step(step, batch, device, reps=3, kind=_kind):
-    """torch.profiler (CUPTI) over `reps` eval steps of one batch: device
-    time per batch by `kind` of kernel, the top kernels, and the device's
-    idle share of the window (1 - kernel time / host wall time)."""
+def _trace(run, reps, kind):
+    """torch.profiler (CUPTI) over `reps` calls ``run(r)``, tracing the
+    device's activity alone (host operator events add overhead to the
+    window and ten times the time to read the trace): (device ms a call by
+    `kind` of kernel, largest first; the kernels as (ms a call, count a
+    call, name); device operations a call; host wall ms a call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        step(dev)[0].cpu()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step(dev)[0].cpu()
-            wall = time.perf_counter() - t0
-    kinds, top = {}, []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in range(reps):
+            run(r)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kinds, top, ops = {}, [], 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -2257,12 +2301,28 @@ def profile_step(step, batch, device, reps=3, kind=_kind):
             us = e.self_cuda_time_total
         ms = us / 1e3 / reps
         kinds[kind(e.key)] = kinds.get(kind(e.key), 0.0) + ms
+        ops += e.count
         top.append((ms, e.count // reps, e.key.replace("void at::native::",
                                                        "")[:160]))
+    return (dict(sorted(kinds.items(), key=lambda kv: -kv[1])), top,
+            ops // reps, wall)
+
+
+def profile_step(step, batch, device, reps=3, kind=_kind):
+    """torch.profiler over `reps` eval steps of one batch (``_trace``):
+    device time per batch by `kind` of kernel, the top kernels, and the
+    device's idle share of the window (1 - kernel time / host wall
+    time)."""
+    import torch
+
+    with torch.inference_mode():
+        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        step(dev)[0].cpu()
+        kinds, top, _, wall = _trace(lambda r: step(dev)[0].cpu(), reps,
+                                     kind)
     busy = sum(kinds.values())
-    out = {"device_ms_per_batch": busy, "wall_ms_per_batch": wall * 1e3 / reps,
-           "idle_share": 1.0 - busy / (wall * 1e3 / reps) if wall else None,
-           "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    out = {"device_ms_per_batch": busy, "wall_ms_per_batch": wall,
+           "idle_share": 1.0 - busy / wall, "by_kind_ms": kinds}
     print(f"  profile of one batch (mean of {reps}): device {busy:.2f} ms, "
           f"wall {out['wall_ms_per_batch']:.2f} ms, idle share "
           f"{out['idle_share']:.3f}", flush=True)
@@ -2540,7 +2600,7 @@ def _sibling(name):
     return name[:-1] + "w" if name.endswith("k.b") else name[:-4] + "scale"
 
 
-GRAD_CHECK_SEEDS = 3          # microbatches (and draws) the paths are held on
+GRAD_CHECK_SEEDS = 2          # microbatches (and draws) the paths are held on
 # bf16 limits of compare_train_paths. The image tower's and the noise
 # biases' are about twice the largest gap that the "one_ulp" noise floor
 # gave on the H100 (lowest image-tower cosine 0.99891, largest noise-bias
@@ -2753,43 +2813,17 @@ def compare_train_paths(model, cfg, stack, class_weights, results,
 
 
 def profile_train_step(step, stack, key, reps=1, acc_steps=None,
-                       quiet=False, kind=None, cuda_only=False):
-    """torch.profiler over `reps` train steps: device time by `kind` of
-    kernel (default ``_kind``) and the device's idle share of the window
-    (printed unless `quiet`). ``cuda_only`` traces the device's activity
-    alone (no host operator events: less overhead in the window, and a
-    tenth of the time to read the trace)."""
-    kind = kind or _kind
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA]
-    if not cuda_only:
-        activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for r in range(reps):
-            float(step(stack, key.fold_in(r))[0])
-        wall = time.perf_counter() - t0
-    kinds, top, ops = {}, [], 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        ms = us / 1e3 / reps
-        kinds[kind(e.key)] = kinds.get(kind(e.key), 0.0) + ms
-        ops += e.count
-        top.append((ms, e.count // reps, e.key.replace("void at::native::",
-                                                       "")[:160]))
+                       quiet=False, kind=None):
+    """torch.profiler over `reps` train steps (``_trace``): device time by
+    `kind` of kernel (default ``_kind``) and the device's idle share of
+    the window (printed unless `quiet`)."""
+    kinds, top, ops, wall = _trace(
+        lambda r: float(step(stack, key.fold_in(r))[0]), reps,
+        kind or _kind)
     busy = sum(kinds.values())
-    out = {"device_ms_per_step": busy, "wall_ms_per_step": wall * 1e3 / reps,
-           "idle_share": 1.0 - busy / (wall * 1e3 / reps),
-           "device_ops_per_step": ops // reps,
-           "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    out = {"device_ms_per_step": busy, "wall_ms_per_step": wall,
+           "idle_share": 1.0 - busy / wall, "device_ops_per_step": ops,
+           "by_kind_ms": kinds}
     if quiet:
         return out
     print(f"  profile of one train step ({acc_steps or ACC_STEPS} "
@@ -5801,8 +5835,12 @@ def check_vlm_train(device, results):
                                  VLM_TRAIN_LAUNCHES[what].items()})
         good = launches == want and all(
             torch.isfinite(torch.tensor(losses)).tolist())
-        prof = profile_train_step(lambda s, k_: (step(s, k_),), window, key,
-                                  acc_steps=VLM_ACC, kind=_vlm_train_kind)
+        # the hf_internal_dropout step runs the same kernels: not profiled
+        prof = {k: None for k in ("device_ms_per_step", "wall_ms_per_step",
+                                  "idle_share", "by_kind_ms")} if flag \
+            else profile_train_step(lambda s, k_: (step(s, k_),), window,
+                                    key, acc_steps=VLM_ACC,
+                                    kind=_vlm_train_kind)
         ok &= good
         total = {k: total.get(k, 0) + v for k, v in launches.items()}
         out[tag] = {
@@ -5958,9 +5996,13 @@ FUSION_TRAIN_PAIRS = (
                     "hierarchical", "bimodal"))
     + (("bert", "MM_RCA"),)
     + tuple(("bart", s) for s in ("gated", "classic", "normalized", "clip")))
+# the towers' depths: DistilBERT's 6; BERT-base's 12 cut to 5 (the
+# hierarchical head taps hidden states 2 and 4) and BART-large's 12 + 12 to
+# 2 + 2, at full width, to keep the script within its time
+FUSION_TRAIN_DEPTH = {"distilbert": 6, "bert": 5, "bart": 2}
 # K4a / K4b (K7a / K7b with hf_internal_dropout) a microbatch: one a text
 # layer; BART runs no kernel
-FUSION_TRAIN_LAYERS = {"distilbert": 6, "bert": 12, "bart": 0}
+FUSION_TRAIN_LAYERS = {"distilbert": 6, "bert": 5, "bart": 0}
 # one more step with hf_internal_dropout on a pair of each tower
 FUSION_HF_PAIRS = (("distilbert", "gated"), ("bert", "hierarchical"),
                    ("bart", "classic"))
@@ -5983,7 +6025,7 @@ def fusion_train_launches(tower, strategy, n_micro, dropout=False):
 def _fusion_train_towers(device):
     """The towers the pairs share, unfolded on the card in fp32, random
     weights from seeds: EfficientNetV2-M (random BN statistics),
-    DistilBERT (6 layers), BERT-base (12), BART-large (12 + 12)."""
+    DistilBERT, BERT-base and BART-large at ``FUSION_TRAIN_DEPTH``."""
     import torch
 
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
@@ -5997,7 +6039,7 @@ def _fusion_train_towers(device):
         device=device).manual_seed(SEED + 301))
     for i, name in enumerate(("distilbert", "bert", "bart")):
         towers[name] = multimodal.TEXT_TOWERS[name](
-            generator=gen(SEED + 302 + i)).to(device)
+            FUSION_TRAIN_DEPTH[name], generator=gen(SEED + 302 + i)).to(device)
     return towers
 
 
@@ -6123,6 +6165,7 @@ def check_fusion_train(device, results):
                 normalize_on_device(x, dtype=torch.bfloat16))
 
     ok, out, total, total_hf = True, {}, {}, {}
+    profiled = set()       # a profiled step on each tower's first pair only
     for i, (tower, strategy) in enumerate(FUSION_TRAIN_PAIRS):
         t1 = time.perf_counter()
         cfg = multimodal.FusionConfig(strategy=strategy,
@@ -6148,8 +6191,13 @@ def check_fusion_train(device, results):
                                                     key.fold_in(1), device)
         want = fusion_train_launches(tower, strategy, FUSION_TRAIN_ACC)
         t_prof = time.perf_counter()
-        prof = profile_train_step(step, stack, key.fold_in(2), quiet=True,
-                                  cuda_only=True)
+        if tower in profiled:
+            prof = {"device_ms_per_step": None, "idle_share": None,
+                    "by_kind_ms": {}}
+        else:
+            profiled.add(tower)
+            prof = profile_train_step(step, stack, key.fold_in(2),
+                                      quiet=True)
         t_prof = time.perf_counter() - t_prof
         good &= launches == want and all(l == l for l in losses)
         total = {k: total.get(k, 0) + v for k, v in launches.items()}
@@ -6180,10 +6228,12 @@ def check_fusion_train(device, results):
         out[f"{strategy}_{tower}"] = row
         kinds = ", ".join(f"{k} {v:.1f}" for k, v in list(
             prof["by_kind_ms"].items())[:5])
+        dev_s = (f"device {row['device_ms']:.1f} ms, idle "
+                 f"{row['idle_share']:.3f}, " if row["device_ms"] is not None
+                 else "not profiled, ")
         print(f"  {strategy} on {tower}: {row['samples_per_s']:.1f} train "
               f"samples/s ({wall * 1e3:.1f} ms a step of "
-              f"{FUSION_TRAIN_ACC} x {TRAIN_BATCH}), device "
-              f"{row['device_ms']:.1f} ms, idle {row['idle_share']:.3f}, "
+              f"{FUSION_TRAIN_ACC} x {TRAIN_BATCH}), {dev_s}"
               f"peak {row['peak_gib']:.2f} GiB; by kind (ms): {kinds}; "
               f"launches {_shown(launches)} (want {_shown(want)}); kernel "
               f"vs plain fp32 loss rel {checks['fp32']['loss_rel']:.2e} "
@@ -6385,7 +6435,7 @@ def _family_train(name, model, data, device, out):
                "peak_mem_gib": peak / 2**30, "losses": losses}
         if not flag:
             row["profile"] = profile_train_step(step, stack, key, reps=1,
-                                                acc_steps=acc, cuda_only=True)
+                                                acc_steps=acc)
         out["train_flag_on" if flag else "train"] = row
         print(f"  {name} train step, {acc} x {batch}, hf_internal_dropout="
               f"{flag}: {row['wall_ms_per_step']:.1f} ms a step, "
@@ -6622,6 +6672,9 @@ def check_text_family_clis(device, results):
 CONV_TRAIN_ACC = 2          # microbatches a step: the recipes' 0 to 24, cut
 CONV_PHASE1 = ("shuffle_net", "res18", "res50", "res152", "mb", "convnext")
 CONV_CPU_CHECK = ("res18", "shuffle_net", "mb", "convnext", "b0")
+# the models whose step is profiled: one of each family's kinds of block
+# (profiling all twelve costs the script ~20 s)
+CONV_PROFILED = ("shuffle_net", "res50", "convnext", "eff_v2_medium")
 CONV_CPU_SAMPLES = 2
 CONV_CPU_BAR = 1e-4         # |d| over the tensor's largest |g| (or value)
 # the towers whose fp32 gradients are held to CONV_CPU_BAR as well as
@@ -6701,7 +6754,7 @@ def _conv_timed_step(name, step, stack, key, device, profile):
     if profile:
         t0 = time.perf_counter()
         prof = profile_train_step(step, stack, key.fold_in(7), reps=1,
-                                  kind=_conv_kind, cuda_only=True, quiet=True)
+                                  kind=_conv_kind, quiet=True)
         row.update(device_ms_per_step=prof["device_ms_per_step"],
                    idle_share=prof["idle_share"],
                    by_kind_ms=prof["by_kind_ms"],
@@ -6865,7 +6918,7 @@ def check_conv_train(device, results):
                                 SEED + 560 + i, device)
             good, nums, seen = _conv_timed_step(
                 name, _conv_step(model, mask), stack, key, device,
-                profile=what == "all")
+                profile=what == "all" and name in CONV_PROFILED)
             for k, v in seen.items():
                 total[k] = total.get(k, 0) + v
             ok &= good
@@ -6890,7 +6943,8 @@ def check_conv_train(device, results):
               f"first steps " + ", ".join(
                   f"{r['warmup_s']:.1f} s" for w in ("all", "phase1")
                   if (r := row.get(w)))
-              + f", profile {row['all']['profile_s']:.1f} s)", flush=True)
+              + (f", profile {row['all']['profile_s']:.1f} s"
+                 if "profile_s" in row["all"] else "") + ")", flush=True)
     checks = {}
     for i, name in enumerate(CONV_CPU_CHECK):
         t_check = time.perf_counter()
@@ -7122,6 +7176,922 @@ def check_resume(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 17: BLIP-2 generation and serving (KV caches, sampling, int8 cache
+# and weights, the continuous-batching server, speculative decoding; K2 in
+# every prefill)
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_NEW = 16, 32     # generate's batch and new tokens
+SERVE_FP32_BATCH = 4
+# cli.serve's defaults (config.py): slots, max_prompt, decode steps a sync
+SERVE_SLOTS, SERVE_PROMPT, SERVE_SYNC = 8, 100, 8
+SERVE_REQUESTS = 24                 # half image, half text
+SPEC_DRAFT_K = 4
+# facebook/opt-125m config.json: the draft's published widths
+OPT_125M = {"layers": 12, "hidden": 768, "heads": 12, "ffn": 3072,
+            "vocab": 50272}
+SERVE_K2 = {"eva": 39, "opt": 32}   # K2 a BLIP-2 batch's towers / a prefill
+# the depth of the JAX package's tests/test_quant.py model, where its int8
+# cache bar is held; a random full-depth OPT-2.7B amplifies any
+# perturbation (a one-ulp move of its inputs moves the logits ~2% of the
+# largest), so full depth is recorded beside that control
+SERVE_QUANT_LAYERS = 3
+
+# the int8 witness: OPT-2.7B's widths cut to SERVE_QUANT_LAYERS layers,
+# weights and biases N(0, 0.02), LayerNorms (1, 0), as ``blip2.init_``
+# draws them, but from numpy, so that the JAX package reads the same model
+# on the CPU; `batch` prompts of `tokens` token embeddings, left-padded
+INT8_WITNESS = {"seed": SEED + 723, "batch": 16, "tokens": 12}
+# what the JAX package reads on it, in fp32 and in bf16 (the model cast,
+# then quantized): the first-step logits with int8 weights, max |d| from
+# the unquantized model's over its largest |logit| (the JAX test_quant.py
+# statistic, which it bars at 0.02 on a 64-wide model).
+# tests/test_torch_sampling_quant.py::test_int8_witness_readings computes
+# them with the JAX package and holds these values.
+INT8_WITNESS_JAX = {"float32": 0.019730020314455032,
+                    "bfloat16": 0.022857142612338066}
+# the JAX test_quant.py bar, for the int8 cache (one decode step's hidden,
+# max |d| from the float cache's over its largest |value|): the JAX
+# package reads under it on the witness too (the same test)
+INT8_CACHE_BAR = 0.02
+
+
+def int8_witness_inputs():
+    """The witness (``INT8_WITNESS``): (the OPT tree in the JAX layout,
+    numpy fp32; token ids [B, T]; mask [B, T] int32, row r left-padded by
+    r % 5)."""
+    import numpy as np
+
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    cfg = o.OPTConfig(layers=SERVE_QUANT_LAYERS)
+    rng = np.random.default_rng(INT8_WITNESS["seed"])
+    normal = lambda *shape: rng.standard_normal(
+        shape, dtype=np.float32) * np.float32(0.02)
+    ln = lambda: {"scale": np.ones(cfg.hidden, np.float32),
+                  "bias": np.zeros(cfg.hidden, np.float32)}
+    lin = lambda i, j: {"w": normal(i, j), "b": normal(j)}
+    h = cfg.hidden
+    params = {
+        "embed_tokens": {"w": normal(cfg.vocab, h)},
+        "embed_positions": {"w": normal(cfg.max_pos + cfg.pos_offset, h)},
+        "final_ln": ln(),
+        "layers": [{"ln1": ln(), "q": lin(h, h), "k": lin(h, h),
+                    "v": lin(h, h), "out": lin(h, h), "ln2": ln(),
+                    "fc1": lin(h, cfg.ffn), "fc2": lin(cfg.ffn, h)}
+                   for _ in range(cfg.layers)]}
+    b, t = INT8_WITNESS["batch"], INT8_WITNESS["tokens"]
+    ids = rng.integers(0, cfg.vocab, (b, t))
+    mask = np.ones((b, t), np.int32)
+    for r in range(b):
+        mask[r, :r % 5] = 0
+    return params, ids, mask
+
+
+def int8_witness_readings(params, ids, mask, device, dtype, control=False):
+    """The port's readings on the witness, the model cast to `dtype` on
+    `device`, then quantized: "weights" (``INT8_WITNESS_JAX``'s statistic)
+    and "cache" (``INT8_CACHE_BAR``'s).
+    With `control`, also each reading's one-ulp control: the unquantized
+    model on the token embeddings moved by N(0, 1) bf16 ulps, from its
+    own output."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.checkpoint.from_jax import (
+        load_jax_tree)
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+    from garbage_classification_rca_tpu_torch.ops.quant import (
+        quantize_opt_weights)
+
+    with torch.device("meta"):
+        model = o.OPTDecoder(o.OPTConfig(layers=SERVE_QUANT_LAYERS))
+    model = model.to_empty(device="cpu").requires_grad_(False)
+    load_jax_tree(model, params)
+    model = model.to(device, dtype)
+    ids_d = torch.from_numpy(ids).to(device)
+    mask_d = torch.from_numpy(mask).to(device)
+    b, t = mask.shape
+    rel = lambda a, ref: float((a.float() - ref.float()).abs().max()
+                               / ref.float().abs().max())
+    out = {}
+    with torch.inference_mode():
+        emb = o.embed_tokens(model, ids_d).to(dtype)
+        step = (o.embed_tokens(model, ids_d[:, 0]).to(dtype),
+                torch.full((b,), t, device=device),
+                mask_d.sum(1) + model.cfg.pos_offset,
+                torch.nn.functional.pad(mask_d, (0, 1), value=1))
+        lg, caches = _first_logits(model, emb, mask_d, None, 1.0)
+        h = o.decode_step(model, caches, *step)[0]
+        _, cq = _first_logits(model, emb, mask_d, None, 1.0, "int8")
+        out["cache"] = rel(o.decode_step(model, cq, *step)[0], h)
+        if control:
+            g = torch.Generator(device=device).manual_seed(SEED + 724)
+            moved = (emb.float() * (1.0 + 2.0 ** -8 * torch.randn(
+                emb.shape, generator=g, device=device))).to(dtype)
+            lu, cu = _first_logits(model, moved, mask_d, None, 1.0)
+            out["weights_control"] = rel(lu, lg)
+            out["cache_control"] = rel(o.decode_step(model, cu, *step)[0],
+                                       h)
+        quantize_opt_weights(model)
+        out["weights"] = rel(_first_logits(model, emb, mask_d, None,
+                                           1.0)[0], lg)
+    return out
+
+
+@contextlib.contextmanager
+def record_margins(logits=None, keep=2):
+    """Every ``opt.lm_head`` call on [R, H] inside: the top-2 margin of
+    each row's logits, appended as an fp32 [R] tensor (``generate`` makes
+    one call a step); the first `keep` calls' fp32 logits appended to the
+    list `logits` where one is given."""
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    real, out = o.lm_head, []
+
+    def rec(model, h):
+        lg = real(model, h)
+        if lg.dim() == 2:
+            top = lg.float().topk(2, dim=-1).values
+            out.append(top[:, 0] - top[:, 1])
+            if logits is not None and len(out) <= keep:
+                logits.append(lg.float())
+        return lg
+
+    o.lm_head = rec
+    try:
+        yield out
+    finally:
+        o.lm_head = real
+
+
+def near_tie_agree(got, want, margins, floor):
+    """Token streams [B, N]: each row of `got` equal to `want` up to the
+    first step whose reference margin (`margins` [B, N], `want`'s side) is
+    under `floor`. -> (ok, numbers: the streams identical, those cut at a
+    near tie, the steps under the floor)."""
+    got, want, under = got.cpu(), want.cpu(), (margins.cpu() < floor)
+    bad, cut = [], 0
+    for r in range(want.shape[0]):
+        diff = (got[r] != want[r]).nonzero()
+        if not len(diff):
+            continue
+        if bool(under[r, :int(diff[0]) + 1].any()):
+            cut += 1
+        else:
+            bad.append(r)
+    same = int((got == want).all(dim=1).sum())
+    return not bad, {"floor": floor, "streams": want.shape[0],
+                     "identical": same, "cut_at_a_near_tie": cut,
+                     "steps_under_floor": int(under.sum()),
+                     "disagreeing": bad}
+
+
+def _agree_one(got, want, marg, floor):
+    """``near_tie_agree`` of one stream (a token list) against its
+    reference (tokens and margins, 1-D), the shorter padded."""
+    import torch
+
+    got = torch.as_tensor(got, dtype=torch.long)
+    want, marg = want.cpu().long(), marg.cpu().float()
+    n = max(len(got), len(want))
+    pad = lambda t, v: torch.nn.functional.pad(t, (0, n - len(t)), value=v)
+    return near_tie_agree(pad(got, -7)[None], pad(want, -9)[None],
+                          pad(marg, float("inf"))[None], floor)
+
+
+def _alone(model_opt, lora, scale, e, m, max_prompt, n_new, budget, eos,
+           logits=None):
+    """A request's own B = 1 ``generate``, padded on the right to
+    `max_prompt` and run for the server's `n_new` tokens as the server's
+    caches hold them: (tokens, margins) up to its EOS and its `budget`."""
+    import torch
+
+    pad = max_prompt - e.shape[0]
+    ee = torch.nn.functional.pad(e, (0, 0, 0, pad))[None]
+    mm = torch.nn.functional.pad(m.to(torch.int32), (0, pad))[None]
+    toks, vv, marg, _ = _gen(model_opt, ee, mm, lora, scale, n_new,
+                             eos_id=eos, logits=logits)
+    keep = min(int(vv[0].sum()), budget)
+    return toks[0, :keep], marg[0, :keep]
+
+
+def _stream_line(name, agr):
+    return (f"{name}: {agr['identical']} of {agr['streams']} streams "
+            f"identical, {agr['cut_at_a_near_tie']} cut at a near tie "
+            f"(floor {agr['floor']:.3e}, {agr['steps_under_floor']} steps "
+            f"under it)")
+
+
+def _first_logits(model_opt, embeds, mask, lora, scale, cache_dtype=None):
+    """(first-step logits fp32 [B, V], caches) of a prefill."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    h, caches = o.prefill(model_opt, embeds, mask, 1, lora=lora,
+                          lora_scale=scale, cache_dtype=cache_dtype)
+    lg = o.lm_head(model_opt, o.last_hidden(h, mask.to(torch.int32)))
+    return lg.float(), caches
+
+
+def _first_layers(model_opt, n):
+    """The OPT decoder cut to its first `n` layers, at full width, sharing
+    the weights (the depth of the JAX package's ``tests/test_quant.py``
+    model, for its bars)."""
+    from torch import nn
+
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    cut = o.OPTDecoder.__new__(o.OPTDecoder)
+    nn.Module.__init__(cut)
+    cut.cfg = dataclasses.replace(model_opt.cfg, layers=n)
+    cut.embed_tokens = model_opt.embed_tokens
+    cut.embed_positions = model_opt.embed_positions
+    cut.final_ln = model_opt.final_ln
+    cut.layers = nn.ModuleList(list(model_opt.layers)[:n])
+    return cut
+
+
+def _gen(model_opt, embeds, mask, lora, scale, n, plain=False, logits=None,
+         **kw):
+    """(tokens, valid, margins [B, n], seconds) of ``opt.generate``, on the
+    plain versions with `plain`; the first two steps' logits appended to
+    `logits` where given."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    ctx = plain_versions() if plain else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx, record_margins(logits) as marg:
+        toks, valid = o.generate(model_opt, embeds, mask, n, lora=lora,
+                                 lora_scale=scale, **kw)
+    torch.cuda.synchronize()
+    return toks, valid, torch.stack(marg, 1), time.perf_counter() - t0
+
+
+def _serving_prompts(tok, n, seed, t_len):
+    """n knowledge prompts around random item words, left-padded to t_len:
+    (ids [n, t_len], mask) int32 numpy."""
+    import numpy as np
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        left_pad)
+    from garbage_classification_rca_tpu_torch.models.vlm.prompts import (
+        build_prompt)
+
+    rng = np.random.default_rng(seed)
+    rows = [left_pad(tok.encode_one(build_prompt(" ".join(rng.choice(
+        VLM_ITEMS, rng.integers(1, 4)))), t_len)[0], t_len, tok.pad_id)
+        for _ in range(n)]
+    return (np.asarray([r[0] for r in rows], np.int32),
+            np.asarray([r[1] for r in rows], np.int32))
+
+
+def _profile_decode(srv, steps):
+    """torch.profiler over `steps` decode steps of the server's lanes
+    (``_trace``): device ms a step, wall ms a step, idle share, device
+    operations a step."""
+    srv._decode(steps)                                     # warm
+    kinds, _, ops, wall = _trace(lambda r: srv._decode(steps), 1, _kind)
+    busy = sum(kinds.values())
+    return {"device_ms_per_step": busy / steps,
+            "wall_ms_per_step": wall / steps,
+            "idle_share": 1.0 - busy / wall,
+            "device_ops_per_step": ops / steps}
+
+
+def check_serving(device, results):
+    """Phase 17's library checks (the module docstring); keeps the bf16
+    model, its tokenizer and the BEST file's path for the CLIs."""
+    import concurrent.futures
+    import copy
+    import gc
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        build_blip2, normalize_clip)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+    from garbage_classification_rca_tpu_torch.ops.quant import (
+        quantize_opt_weights)
+    from garbage_classification_rca_tpu_torch.serving.engine import (
+        GenerationServer)
+    from garbage_classification_rca_tpu_torch.train.engine import save_best
+
+    t0 = time.perf_counter()
+    # the int8 witness's 370 M numpy draws, beside the first checks
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    witness = pool.submit(int8_witness_inputs)
+    pool.shutdown(wait=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results["serving_work"] = work
+    args = args_parser([])
+    cfg, m16, tok = build_blip2(args, device, torch.bfloat16)
+    blip2.init_lora_(m16.lora, SEED + 700, b_std=0.01)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        best = save_best(m16.lora, model_name="blip2_lora", epoch=0,
+                         val_acc=0.0, args=args, fine_tuning=False,
+                         layers=cfg.opt.layers)
+    finally:
+        os.chdir(cwd)
+    opt16, lora16, scale = m16.opt, m16.lora, cfg.lora_scale
+    n_query = cfg.qformer.n_query
+    t_len = SERVE_PROMPT                   # phase 12's prompts: 100 tokens
+    ids, mask = _serving_prompts(tok, SERVE_BATCH, SEED + 701, t_len)
+    img = np.random.default_rng(SEED + 702).integers(
+        0, 256, (SERVE_BATCH, 224, 224, 3), dtype=np.uint8)
+    dev = lambda a: torch.from_numpy(a).to(device)
+    ids_d, mask_d, img_d = dev(ids), dev(mask), dev(img)
+    print(f"  BLIP-2 bf16 from --seed, adapters with B != 0 (the BEST file "
+          f"for the CLIs), {SERVE_BATCH} prompts in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ok, out = True, {}
+    with torch.inference_mode():
+        # --- generate, bf16, batch 16: kernel path against plain path ---
+        _zero_counters()
+        e16, m_full = blip2.prompt_embeds(
+            m16, normalize_clip(img_d, torch.bfloat16), ids_d, mask_d)
+        ran_eva = _read_counters() == _want_launches(mha_tc=SERVE_K2["eva"])
+        m_full = m_full.to(torch.int32)
+        _gen(opt16, e16, m_full, lora16, scale, 2)              # warm-up
+        _zero_counters()
+        tk, vk, mk, sk = _gen(opt16, e16, m_full, lora16, scale, SERVE_NEW,
+                              eos_id=-1)
+        k2_gen = _read_counters()
+        tp, vp, mp, sp = _gen(opt16, e16, m_full, lora16, scale, SERVE_NEW,
+                              eos_id=-1, plain=True)
+        lk, ck = _first_logits(opt16, e16, m_full, lora16, scale)
+        with plain_versions():
+            lpl, cp = _first_logits(opt16, e16, m_full, lora16, scale)
+            # the one-ulp control: the plain path on the prompt
+            # embeddings moved by N(0, 1) bf16 ulps
+            g = torch.Generator(device=device).manual_seed(SEED + 709)
+            e16u = (e16.float() * (1.0 + 2.0 ** -8 * torch.randn(
+                e16.shape, generator=g, device=device))).to(torch.bfloat16)
+            lu, cu = _first_logits(opt16, e16u, m_full, lora16, scale)
+        valid = m_full.bool()
+        cache_ok, cache_err, cache_ctl, layers_over_bar = True, 0.0, 0.0, 0
+        for name in ("k", "v"):
+            for i in range(cfg.opt.layers):
+                got, want, ctl = (c[name][i][:, :-1][valid]
+                                  for c in (ck, cp, cu))
+                err, good = max_err_ok(got, want, torch.bfloat16, "block")
+                control = float((ctl.float() - want.float()).abs().max())
+                if i == 0:
+                    good &= bool(torch.equal(got, want))
+                elif not good:
+                    layers_over_bar += 1
+                    good = err <= control
+                cache_ok &= good
+                cache_err = max(cache_err, err)
+                cache_ctl = max(cache_ctl, control)
+        m32 = copy.deepcopy(m16).float()
+        e32, _ = blip2.prompt_embeds(
+            m32, normalize_clip(img_d, torch.float32), ids_d, mask_d)
+        with plain_versions():
+            truth, _ = _first_logits(m32.opt, e32, m_full, m32.lora, scale)
+        aft = torch.as_tensor(_vlm_answer_tokens(tok), device=device).long()
+        agree_ok, agr = fusion_agreement(lk[:, aft], lpl[:, aft],
+                                         truth[:, aft])
+        path_floor = float((lk - lpl).abs().max())   # the whole vocabulary
+        agr["max_logit_diff_vocab"] = path_floor
+        streams_ok, streams = near_tie_agree(tk, tp, mp, path_floor)
+        k2_ok = k2_gen == _want_launches(mha_tc=SERVE_K2["opt"])
+        good = (ran_eva and k2_ok and cache_ok and agree_ok and streams_ok
+                and bool(vk.all()) and tuple(tk.shape) == (SERVE_BATCH,
+                                                           SERVE_NEW))
+        ok &= good
+        out["generate_bf16"] = {
+            "batch": SERVE_BATCH, "new_tokens": SERVE_NEW,
+            "prompt": n_query + t_len, "seconds_kernel": sk,
+            "seconds_plain": sp, "ms_per_token_step": sk * 1e3 / SERVE_NEW,
+            "cache_max_err": cache_err, "cache_one_ulp_control": cache_ctl,
+            "cache_layers_over_the_block_bar": layers_over_bar,
+            "first_logits": agr, "streams": streams,
+            "k2_launches": _shown(k2_gen), "ok": good}
+        print(f"  generate bf16 {SERVE_BATCH} x ({n_query} + {t_len}) + "
+              f"{SERVE_NEW}: kernel {sk:.2f} s, plain {sp:.2f} s; K2 "
+              f"{_shown(k2_gen)} a generate ({'ok' if k2_ok else 'FAIL'}); "
+              f"caches max|d| {cache_err:.3e}, {layers_over_bar} layer "
+              f"tensors past the block bar, the one-ulp control "
+              f"{cache_ctl:.3e} ({'ok' if cache_ok else 'FAIL'}; layer 0 "
+              f"equal); first-step logits max|d| {path_floor:.3e} (the "
+              f"answer tokens' {agr['max_logit_diff']:.3e}, agreement "
+              f"{agr['agreement']} above {agr['noise_floor']:.3e}: "
+              f"{'ok' if agree_ok else 'FAIL'}); "
+              + _stream_line("kernel vs plain", streams)
+              + f" {'ok' if good else 'FAIL'}", flush=True)
+
+        # --- fp32, batch 4: identical streams, logits within 1e-4 ---
+        b4 = slice(0, SERVE_FP32_BATCH)
+        t32k, _, _, s32 = _gen(m32.opt, e32[b4], m_full[b4], m32.lora,
+                               scale, SERVE_NEW, eos_id=-1)
+        t32p, _, m32p, _ = _gen(m32.opt, e32[b4], m_full[b4], m32.lora,
+                                scale, SERVE_NEW, eos_id=-1, plain=True)
+        l32k, _ = _first_logits(m32.opt, e32[b4], m_full[b4], m32.lora,
+                                scale)
+        d32 = float((l32k - truth[b4]).abs().max())
+        rel32 = d32 / float(truth[b4].abs().max())
+        good = bool(torch.equal(t32k, t32p)) and rel32 <= 1e-4
+        ok &= good
+        out["generate_fp32"] = {"batch": SERVE_FP32_BATCH, "seconds": s32,
+                                "first_logits_rel": rel32,
+                                "identical": bool(torch.equal(t32k, t32p)),
+                                "min_margin": float(m32p.min()), "ok": good}
+        print(f"  generate fp32 {SERVE_FP32_BATCH} x ({n_query} + {t_len}) "
+              f"+ {SERVE_NEW}: streams identical "
+              f"{bool(torch.equal(t32k, t32p))} (smallest plain margin "
+              f"{float(m32p.min()):.3e}), first-step logits {rel32:.2e} of "
+              f"max|logit| {'ok' if good else 'FAIL'}", flush=True)
+        del m32, e32          # the server's peak is read without them
+
+        # --- the int8 witness (INT8_WITNESS): the JAX package's readings
+        # at full width, 3 layers, held on the same model ---
+        params_w, ids_w, mask_w = witness.result()
+        w32 = int8_witness_readings(params_w, ids_w, mask_w, device,
+                                    torch.float32)
+        w16 = int8_witness_readings(params_w, ids_w, mask_w, device,
+                                    torch.bfloat16, control=True)
+        del params_w
+        wj32, wj16 = (INT8_WITNESS_JAX[k] for k in ("float32", "bfloat16"))
+        witness_ok = {
+            "weights_fp32": abs(w32["weights"] - wj32) <= 1e-3 * wj32,
+            "weights_bf16": abs(w16["weights"] - wj16)
+            <= w16["weights_control"],
+            "cache": max(w32["cache"], w16["cache"]) < INT8_CACHE_BAR}
+        good = all(witness_ok.values())
+        ok &= good
+        out["int8_witness"] = {"float32": w32, "bfloat16": w16,
+                               "jax": INT8_WITNESS_JAX, "held": witness_ok,
+                               "ok": good}
+        print(f"  int8 witness (OPT-2.7B widths, {SERVE_QUANT_LAYERS} "
+              f"layers, {INT8_WITNESS['batch']} x {INT8_WITNESS['tokens']}; "
+              f"the JAX package reads weights {wj32:.6e} fp32, "
+              f"{wj16:.6e} bf16): weights fp32 {w32['weights']:.6e} "
+              f"(within 1e-3 of JAX's: {witness_ok['weights_fp32']}), bf16 "
+              f"{w16['weights']:.6e} (within the one-ulp control "
+              f"{w16['weights_control']:.3e} of JAX's: "
+              f"{witness_ok['weights_bf16']}); cache fp32 "
+              f"{w32['cache']:.3e}, bf16 {w16['cache']:.3e} (bar "
+              f"{INT8_CACHE_BAR}; the one-ulp control "
+              f"{w16['cache_control']:.3e}) {'ok' if good else 'FAIL'}",
+              flush=True)
+
+        # --- int8 cache: kernel vs plain, and against the bf16 cache ---
+        t8k, _, _, sec8 = _gen(opt16, e16, m_full, lora16, scale,
+                               SERVE_NEW, eos_id=-1, cache_dtype="int8")
+        t8p, _, m8p, _ = _gen(opt16, e16, m_full, lora16, scale, SERVE_NEW,
+                              eos_id=-1, cache_dtype="int8", plain=True)
+        s8_ok, s8 = near_tie_agree(t8k, t8p, m8p, path_floor)
+        # one decode step's hidden, int8 cache against the bf16 cache: at
+        # the depth of the JAX test (its bar, 0.02 of the largest |value|)
+        # and at full depth beside the one-ulp control (recorded)
+        step_in = (o.embed_tokens(opt16, tk[:, 0]).to(torch.bfloat16),
+                   torch.full((SERVE_BATCH,), m_full.shape[1],
+                              device=device),
+                   m_full.sum(1) + cfg.opt.pos_offset,
+                   torch.nn.functional.pad(m_full, (0, 1), value=1))
+
+        def step_rel(model_opt, caches, ref):
+            h = o.decode_step(model_opt, caches, *step_in, lora=lora16,
+                              lora_scale=scale)[0].float()
+            return h, (None if ref is None else float(
+                (h - ref).abs().max() / ref.abs().max()))
+
+        cut = _first_layers(opt16, SERVE_QUANT_LAYERS)
+        h_cut, _ = step_rel(cut, _first_logits(cut, e16, m_full, lora16,
+                                               scale)[1], None)
+        _, rel8 = step_rel(cut, _first_logits(cut, e16, m_full, lora16,
+                                              scale, "int8")[1], h_cut)
+        _, cq = _first_logits(opt16, e16, m_full, lora16, scale, "int8")
+        h_fp, _ = step_rel(opt16, ck, None)
+        _, rel8_full = step_rel(opt16, cq, h_fp)
+        _, ctl8 = step_rel(opt16, cu, h_fp)
+        good = (s8_ok and rel8 < INT8_CACHE_BAR
+                and cq["k"].dtype == torch.int8)
+        ok &= good
+        out["int8_cache"] = {"streams": s8, "decode_hidden_rel": rel8,
+                             "layers": SERVE_QUANT_LAYERS,
+                             "decode_hidden_rel_full_depth": rel8_full,
+                             "one_ulp_control_full_depth": ctl8,
+                             "seconds": sec8, "ok": good}
+        print(f"  int8 cache: " + _stream_line("kernel vs plain", s8)
+              + f"; one decode step's hidden from the bf16 cache's, "
+              f"{SERVE_QUANT_LAYERS} layers: {rel8:.2e} of its largest "
+              f"|value| (bar {INT8_CACHE_BAR}); all {cfg.opt.layers}: {rel8_full:.2e} "
+              f"(recorded; the one-ulp control {ctl8:.2e}); generate "
+              f"{sec8:.2f} s {'ok' if good else 'FAIL'}", flush=True)
+
+        # --- int8 weights: kernel vs plain, and against bf16 ---
+        q_opt = quantize_opt_weights(copy.deepcopy(opt16))
+        tqk, _, _, sq = _gen(q_opt, e16, m_full, lora16, scale, SERVE_NEW,
+                             eos_id=-1)
+        tqp, _, mqp, _ = _gen(q_opt, e16, m_full, lora16, scale, SERVE_NEW,
+                              eos_id=-1, plain=True)
+        sq_ok, sqa = near_tie_agree(tqk, tqp, mqp, path_floor)
+        # the int8 weights themselves, at full width: every dequantized
+        # weight within half a step of its bf16 weight, and the int8
+        # Linear (x @ w, then the scale, then the bias, in bf16) against
+        # the fp32 product of the dequantized weights, to the blocks' bf16
+        # bar, on layer 0's q projection of the path's input
+        w_ok = True
+        for name in ("q", "k", "v", "out", "fc1", "fc2"):
+            lq8, l16 = (getattr(m.layers[0], name) for m in (q_opt, opt16))
+            deq = lq8.w.float() * lq8.w_scale.t()
+            w_ok &= bool(((deq - l16.w.float()).abs()
+                          <= lq8.w_scale.t() * (0.5 + 1e-5)).all())
+        lin = q_opt.layers[0].q
+        x = opt16.layers[0].ln1(e16)
+        ref = x.float() @ (lin.w.float() * lin.w_scale.t()).t() \
+            + lin.b.float()
+        lin_err, lin_ok = max_err_ok(lin(x), ref, torch.bfloat16, "block")
+        # the first-step logits against bf16's: at the JAX test's depth held
+        # to what the JAX package reads at that depth and width (the
+        # witness's bf16 reading, up to its one-ulp control); at full depth
+        # recorded beside the one-ulp control
+        rel_of = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        relq = rel_of(_first_logits(_first_layers(q_opt, SERVE_QUANT_LAYERS),
+                                    e16, m_full, lora16, scale)[0],
+                      _first_logits(cut, e16, m_full, lora16, scale)[0])
+        relq_full = rel_of(_first_logits(q_opt, e16, m_full, lora16,
+                                         scale)[0], lk)
+        ctlq = rel_of(lu, lpl)
+        relq_bar = wj16 + w16["weights_control"]
+        good = (sq_ok and w_ok and lin_ok and relq <= relq_bar
+                and q_opt.layers[0].q.w.dtype == torch.int8)
+        ok &= good
+        out["int8_weights"] = {"streams": sqa, "weights_in_half_a_step": w_ok,
+                               "linear_max_err": lin_err,
+                               "first_logits_rel": relq,
+                               "first_logits_rel_bar": relq_bar,
+                               "layers": SERVE_QUANT_LAYERS,
+                               "first_logits_rel_full_depth": relq_full,
+                               "one_ulp_control_full_depth": ctlq,
+                               "seconds": sq,
+                               "ms_per_token_step": sq * 1e3 / SERVE_NEW,
+                               "bf16_ms_per_token_step":
+                                   sk * 1e3 / SERVE_NEW, "ok": good}
+        print(f"  int8 weights: " + _stream_line("kernel vs plain", sqa)
+              + f"; layer 0's weights within half a step {w_ok}, its q "
+              f"projection against the fp32 dequantized product max|d| "
+              f"{lin_err:.3e} ({'ok' if lin_ok else 'FAIL'}); first-step "
+              f"logits from bf16's: {SERVE_QUANT_LAYERS} layers {relq:.2e} "
+              f"of max|logit| (bar {relq_bar:.3e}: the witness's bf16 "
+              f"reading and its control), all {cfg.opt.layers} "
+              f"{relq_full:.2e} (recorded; the one-ulp control "
+              f"{ctlq:.2e}); generate "
+              f"{sq:.2f} s against bf16's {sk:.2f} s "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        del q_opt, cq, ck, cp, cu
+
+        # --- the server: 24 requests against their own B = 1 generate ---
+        n_img = SERVE_REQUESTS // 2
+        t_img = SERVE_PROMPT - n_query
+        ids_t, mask_t = _serving_prompts(tok, SERVE_REQUESTS - n_img,
+                                         SEED + 703, SERVE_PROMPT)
+        ids_i, mask_i = _serving_prompts(tok, n_img, SEED + 704, t_img)
+        img_i = dev(np.random.default_rng(SEED + 705).integers(
+            0, 256, (n_img, 224, 224, 3), dtype=np.uint8))
+        reqs = []
+        for g0 in range(0, n_img, SERVE_SLOTS):   # a vision batch of 8
+            e, m = blip2.prompt_embeds(
+                m16, normalize_clip(img_i[g0:g0 + SERVE_SLOTS],
+                                    torch.bfloat16),
+                dev(ids_i[g0:g0 + SERVE_SLOTS]),
+                dev(mask_i[g0:g0 + SERVE_SLOTS]))
+            reqs += [(e[j], m[j]) for j in range(e.shape[0])]
+        txt = o.embed_tokens(opt16, dev(ids_t)).to(torch.bfloat16)
+        reqs += [(txt[j], dev(mask_t[j])) for j in range(len(txt))]
+        order = np.random.default_rng(SEED + 706).permutation(len(reqs))
+        reqs = [reqs[int(i)] for i in order]
+        budgets = [1 + (31 * i) // (len(reqs) - 1) for i in range(len(reqs))]
+        budgets = [budgets[int(i)] for i in np.random.default_rng(
+            SEED + 707).permutation(len(reqs))]
+        # each request alone at B = 1, without an EOS: its whole stream,
+        # margins, and for the first refill's rows the first two steps'
+        # logits
+        alone, first = [], []
+        for j, (e, m) in enumerate(reqs):
+            lg = [] if j < SERVE_SLOTS else None
+            toks, marg = _alone(opt16, lora16, scale, e, m, SERVE_PROMPT,
+                                SERVE_NEW, SERVE_NEW, -1, logits=lg)
+            alone.append((toks.cpu(), marg.cpu()))
+            if lg is not None:
+                first.append(lg)
+        # the EOS: a token inside a few streams, so that some requests
+        # retire on it and others on their budget
+        counts = {}
+        for (toks, _), n in zip(alone, budgets):
+            for t in set(toks[1:n].tolist()):
+                counts[t] = counts.get(t, 0) + 1
+        eos = min(counts, key=lambda t: (abs(counts[t] - 4), t))
+        # the floor: the first refill's rows batched against B = 1, over
+        # the first two steps (the prefill's logits, the first decode
+        # step's)
+        pad = lambda e, m: (torch.nn.functional.pad(
+            e, (0, 0, 0, SERVE_PROMPT - e.shape[0])),
+            torch.nn.functional.pad(m.to(torch.int32),
+                                    (0, SERVE_PROMPT - m.shape[0])))
+        rows = [pad(e, m) for e, m in reqs[:SERVE_SLOTS]]
+        lb = []
+        tb, _, _, _ = _gen(opt16, torch.stack([r[0] for r in rows]),
+                           torch.stack([r[1] for r in rows]), lora16, scale,
+                           SERVE_NEW, logits=lb, eos_id=-1)
+        batch_floor = 0.0
+        for j in range(SERVE_SLOTS):
+            steps = 2 if int(tb[j, 0]) == int(alone[j][0][0]) else 1
+            for s_ in range(steps):
+                batch_floor = max(batch_floor, float(
+                    (lb[s_][j] - first[j][s_][0]).abs().max()))
+        srv = GenerationServer(opt16, slots=SERVE_SLOTS,
+                               max_prompt=SERVE_PROMPT, max_new=SERVE_NEW,
+                               eos_id=eos, lora=lora16, lora_scale=scale,
+                               steps_per_sync=SERVE_SYNC)
+        prefills = {"n": 0}
+        real_prefill = o.prefill
+
+        def counted(*a, **kw):
+            prefills["n"] += 1
+            return real_prefill(*a, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        resident = torch.cuda.memory_allocated(device)   # BLIP-2 bf16, data
+        _zero_counters()
+        o.prefill = counted
+        try:
+            t1 = time.perf_counter()
+            for (e, m), n in zip(reqs, budgets):
+                srv.submit(e, m, max_new=n)
+            srv.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            o.prefill = real_prefill
+        serving = _read_counters()
+        peak = torch.cuda.max_memory_allocated(device)
+        served = srv.requests
+        n_tok = sum(len(r.tokens) for r in served.values())
+        ttft = np.asarray([r.t_first - r.t_submit for r in served.values()])
+        lat = np.asarray([r.t_done - r.t_submit for r in served.values()])
+        prof = _profile_decode(srv, SERVE_SYNC)
+        same = cut = under = 0
+        bad = []
+        for uid, ((toks, marg), n) in enumerate(zip(alone, budgets)):
+            hit = (toks == eos).nonzero()
+            keep = min(n, int(hit[0]) + 1 if len(hit) else SERVE_NEW)
+            a_ok, a = _agree_one(served[uid].tokens, toks[:keep],
+                                 marg[:keep], batch_floor)
+            same += a["identical"]
+            cut += a["cut_at_a_near_tie"]
+            under += a["steps_under_floor"]
+            if not a_ok:
+                bad.append(uid)
+        retired_on_eos = sum(r.done for r in served.values())
+        k2_per_prefill = serving["mha_tc"] / max(prefills["n"], 1)
+        good = (not bad and all(r.finished for r in served.values())
+                and prefills["n"] > 1 and k2_per_prefill == SERVE_K2["opt"]
+                and serving == _want_launches(mha_tc=serving["mha_tc"]))
+        ok &= good
+        out["server"] = {
+            "requests": len(reqs), "slots": SERVE_SLOTS,
+            "max_prompt": SERVE_PROMPT, "steps_per_sync": SERVE_SYNC,
+            "max_new": SERVE_NEW, "budgets": budgets, "eos_id": eos,
+            "generated_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p95_ms": float(np.percentile(ttft, 95)) * 1e3,
+            "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "latency_p95_ms": float(np.percentile(lat, 95)) * 1e3,
+            "decode": prof, "peak_gib": peak / 2**30,
+            "resident_before_gib": resident / 2**30,
+            "peak_above_resident_gib": (peak - resident) / 2**30,
+            "prefills": prefills["n"], "k2_per_prefill": k2_per_prefill,
+            "retired_on_eos": retired_on_eos, "identical_streams": same,
+            "cut_at_a_near_tie": cut, "steps_under_floor": under,
+            "batch_floor": batch_floor, "disagreeing": bad,
+            "launches": _shown(serving), "ok": good}
+        results["serving_launches"] = serving
+        print(f"  server {SERVE_SLOTS} slots, {len(reqs)} requests (half "
+              f"image; budgets 1 to {SERVE_NEW}; EOS id {eos}, "
+              f"{retired_on_eos} retired on it): {n_tok} tokens in "
+              f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s; time to first "
+              f"token p50 {np.percentile(ttft, 50) * 1e3:.1f} / p95 "
+              f"{np.percentile(ttft, 95) * 1e3:.1f} ms; latency p50 "
+              f"{np.percentile(lat, 50) * 1e3:.1f} / p95 "
+              f"{np.percentile(lat, 95) * 1e3:.1f} ms; decode "
+              f"{prof['wall_ms_per_step']:.2f} ms a step (device "
+              f"{prof['device_ms_per_step']:.2f} ms, idle "
+              f"{prof['idle_share']:.3f}, {prof['device_ops_per_step']:.0f} "
+              f"device operations a step); peak {peak / 2**30:.2f} GiB, "
+              f"{(peak - resident) / 2**30:.2f} GiB above the "
+              f"{resident / 2**30:.2f} GiB resident before the server; "
+              f"{prefills['n']} prefills, K2 {k2_per_prefill:g} a prefill; "
+              f"{same} of {len(reqs)} streams identical to their B = 1 "
+              f"run, {cut} cut at a near tie (floor {batch_floor:.3e}, "
+              f"{under} steps under it), disagreeing {bad} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        del srv
+
+        # --- speculative decoding, fp32, batch 4 ---
+        dcfg = o.OPTConfig(**OPT_125M)
+        with torch.device("meta"):
+            draft = o.OPTDecoder(dcfg)
+        draft = draft.to_empty(device=device).requires_grad_(False)
+        g = torch.Generator(device=device).manual_seed(SEED + 708)
+        for mod in draft.modules():
+            if isinstance(mod, type(draft.final_ln)):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+            else:
+                for t in mod.parameters(recurse=False):
+                    t.normal_(0.0, 0.02, generator=g)
+        ids4, mask4 = dev(ids_t[:SERVE_FP32_BATCH]), dev(
+            mask_t[:SERVE_FP32_BATCH])
+        opt32 = copy.deepcopy(opt16).float()
+        lora32 = copy.deepcopy(lora16).float()
+        te = o.embed_tokens(opt32, ids4)
+        de = o.embed_tokens(draft, ids4)
+        _zero_counters()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ts, vs = o.speculative_generate(opt32, draft, te, de, mask4,
+                                        SERVE_NEW, draft_k=SPEC_DRAFT_K,
+                                        lora=lora32, lora_scale=scale)
+        torch.cuda.synchronize()
+        s_spec = time.perf_counter() - t2
+        spec_k2 = _read_counters()
+        tg, vg, _, s_g = _gen(opt32, te, mask4, lora32, scale,
+                              SERVE_NEW)
+        good = (bool(torch.equal(ts, tg)) and bool(torch.equal(vs, vg))
+                and spec_k2 == _want_launches(mha=cfg.opt.layers
+                                              + dcfg.layers))
+        ok &= good
+        out["speculative"] = {
+            "batch": SERVE_FP32_BATCH, "draft_k": SPEC_DRAFT_K,
+            "draft": OPT_125M, "seconds": s_spec, "generate_seconds": s_g,
+            "equal": bool(torch.equal(ts, tg)),
+            "launches": _shown(spec_k2), "ok": good}
+        print(f"  speculative fp32 {SERVE_FP32_BATCH} x {SERVE_NEW}, draft "
+              f"OPT-125m widths, k {SPEC_DRAFT_K}: equal to greedy generate "
+              f"{bool(torch.equal(ts, tg))} ({s_spec:.2f} s against "
+              f"{s_g:.2f} s); launches {_shown(spec_k2)} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        del opt32, lora32, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["serving"] = out
+    results["serving_model"] = (cfg, m16, tok, best)
+    results["serving_seconds"] = time.perf_counter() - t0
+    print(f"  phase 17's library checks in {results['serving_seconds']:.1f} s",
+          flush=True)
+    return ok
+
+
+def check_serving_clis(device, results):
+    """``cli.blip2_test --max_new_tokens=4`` three ways and ``cli.serve``
+    on 16 JSONL lines, on the BEST file of ``check_serving`` (the towers
+    from ``--seed``: the in-process model's weights); the work directory
+    is removed after."""
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import blip2_test, serve
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.vlm import opt as o
+
+    cfg, m16, tok, best = results.pop("serving_model")
+    work = results.pop("serving_work")
+    cwd = os.getcwd()
+    ok, out, t0 = True, {}, time.perf_counter()
+    try:
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 16, SEED + 710,
+                         size=320)
+        os.chdir(work)
+        for tag, flags in (("greedy", []),
+                           ("sampled", ["--gen_temperature=0.7",
+                                        "--gen_top_k=50", "--gen_top_p=0.9",
+                                        "--gen_seed=3"]),
+                           ("int8", ["--int8_weights",
+                                     "--kv_cache_dtype=int8"])):
+            argv = [f"--model_path={best}", "--dataset_folder_name="
+                    "garbage_Val", "--max_new_tokens=4"] + flags
+            _zero_counters()
+            t1 = time.perf_counter()
+            main_ok, report = drive_eval_main(blip2_test, argv)
+            torch.cuda.synchronize()
+            launches = _read_counters()
+            good = main_ok and launches == _want_launches(
+                mha_tc=SERVE_K2["eva"] + SERVE_K2["opt"])
+            ok &= good
+            out[f"blip2_test_{tag}"] = {
+                "seconds": time.perf_counter() - t1, "report": report,
+                "launches": _shown(launches), "ok": good}
+            print(f"  cli.blip2_test --max_new_tokens=4 {tag} on 16 JPEGs in "
+                  f"{time.perf_counter() - t1:.1f} s: launches "
+                  f"{_shown(launches)} {'ok' if good else 'FAIL'}",
+                  flush=True)
+        # cli.serve: 16 lines, a malformed one and a bad field among them
+        imgs = sorted(os.path.join(r, f) for r, _, fs in os.walk(
+            "garbage_Val") for f in fs)[:6]
+        reqs = [{"id": f"t{i}", "text": f"Question: which bin takes a "
+                 f"{VLM_ITEMS[i]}? Answer:", "max_new": 2 + i}
+                for i in range(8)]
+        reqs += [{"id": f"i{i}", "text": "Question: which bin? Answer:",
+                  "image": p, "max_new": 8 - i} for i, p in enumerate(imgs)]
+        lines = [json.dumps(r) for r in reqs]
+        lines[4:4] = ["{not json", json.dumps({"id": "bad", "text": 7})]
+        argv = [f"--model_path={best}", "--max_new_tokens=8"]
+        stdout = io.StringIO()
+        _zero_counters()
+        t1 = time.perf_counter()
+        rc = serve.main(argv, stdin=io.StringIO("\n".join(lines) + "\n"),
+                        stdout=stdout)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = _read_counters()
+        answers = [json.loads(l) for l in stdout.getvalue().splitlines()]
+        by_id = {}
+        for a in answers:
+            by_id.setdefault(a["id"], []).append(a)
+        once = all(len(v) == 1 for v in by_id.values()) and set(by_id) == {
+            r["id"] for r in reqs} | {"bad"}
+        errors = "error" in by_id.get("bad", [{}])[0]
+        # the in-process reference: the CLI's own embedders on m16, then
+        # each request's B = 1 generate as the server pads it
+        sargs = args_parser(argv)
+        embed = serve._build_embedders(cfg, m16, sargs, tok, torch.bfloat16)
+        from garbage_classification_rca_tpu_torch.data.images import (
+            blip_preprocess_image)
+
+        pixs = [blip_preprocess_image(r["image"]).astype(np.uint8)
+                if r.get("image") else None for r in reqs]
+        same = cut = 0
+        bad = []
+        with torch.inference_mode():
+            for r, (e, m) in zip(reqs, embed(reqs, pixs)):
+                want, marg = _alone(m16.opt, m16.lora, cfg.lora_scale, e,
+                                    torch.from_numpy(m).to(device),
+                                    sargs.max_prompt, sargs.max_new_tokens,
+                                    r["max_new"], 2)
+                if len(want) and int(want[-1]) == 2:  # the CLI strips it
+                    want, marg = want[:-1], marg[:-1]
+                a_ok, a = _agree_one(by_id[r["id"]][0].get("tokens", []),
+                                     want, marg,
+                                     results["serving"]["server"][
+                                         "batch_floor"])
+                same += a["identical"]
+                cut += a["cut_at_a_near_tie"]
+                if not a_ok:
+                    bad.append(r["id"])
+        k2 = launches["mha_tc"]
+        # 39 a vision batch (one a round that took image requests), 32 a
+        # prefill: both ran
+        split = any((k2 - SERVE_K2["eva"] * a) % SERVE_K2["opt"] == 0
+                    and k2 - SERVE_K2["eva"] * a >= SERVE_K2["opt"]
+                    for a in range(1, len(imgs) + 1))
+        good = (rc == 0 and once and errors and not bad and split
+                and launches == _want_launches(mha_tc=k2))
+        ok &= good
+        out["serve"] = {"seconds": secs, "lines": len(lines),
+                        "answers": len(answers), "identical": same,
+                        "cut_at_a_near_tie": cut, "disagreeing": bad,
+                        "launches": _shown(launches), "ok": good}
+        print(f"  cli.serve on {len(lines)} lines in {secs:.1f} s: "
+              f"{len(answers)} answer lines, one a request {once}, the bad "
+              f"field's error line {errors}; {same} of {len(reqs)} greedy "
+              f"answers identical to in-process generate, {cut} cut at a "
+              f"near tie; launches {_shown(launches)} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    results["serving_clis"] = out
+    print(f"  phase 17 in {results['serving_seconds'] + out['seconds']:.1f} s",
+          flush=True)
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -7205,7 +8175,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/16] device", flush=True)
+    print("[1/17] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7215,7 +8185,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/16] build", flush=True)
+    print("[2/17] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -7227,7 +8197,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/16] kernels vs plain versions", flush=True)
+    print("[3/17] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -7249,70 +8219,81 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/16] MM-RCA eval path",
+            ("[4/17] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/16] MM-RCA train path: full-width train step",
+            ("[5/17] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/16] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/17] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/16] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/17] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/16] image eval path: ViT-B/16",
+            ("[7/17] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/16] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/17] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/16] text train path: DistilBERT and BERT-base with "
+            ("[8/17] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/16] image train path: ViT-B/16",
+            ("[9/17] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/16] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/17] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/16] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/17] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/16] conv image eval CLI: cli.test_image "
+            ("[10/17] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/16] fusion eval: gated, classic, normalized, clip, "
+            ("[11/17] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/16] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/17] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/16] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/17] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/16] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/17] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/16] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/17] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/16] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/17] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[14/16] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/17] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/16] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/17] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/16] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/17] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/16] text family CLIs: cli.main_text "
+            ("[15/17] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
              lambda: check_text_family_clis(device, results)),
-            ("[16/16] conv train: the 12 conv backbones, a step each; "
+            ("[16/17] conv train: the 12 conv backbones, a step each; "
              "fp64 and fp32 card vs CPU",
              lambda: check_conv_train(device, results)),
-            ("[16/16] conv train CLI and RESUME: cli.main_image res18 -> "
+            ("[16/17] conv train CLI and RESUME: cli.main_image res18 -> "
              "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
              "killed and resumed, held to a control",
-             lambda: check_resume(device, results))):
+             lambda: check_resume(device, results)),
+            ("[17/17] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
+             "weights; K2 in every prefill), the continuous-batching server, "
+             "speculative decoding",
+             lambda: check_serving(device, results)),
+            ("[17/17] serving CLIs: cli.blip2_test --max_new_tokens=4 "
+             "(greedy, sampled, int8), cli.serve",
+             lambda: check_serving_clis(device, results))):
+        if title.startswith("[17/17] serving:"):
+            results["phases_1_16_s"] = time.perf_counter() - t_start
+            print(f"  (phases 1-16 in {results['phases_1_16_s']:.1f} s)",
+                  flush=True)
         print(title, flush=True)
         t_phase = time.perf_counter()
         try:
@@ -7343,7 +8324,8 @@ def main() -> int:
     # and the late-fusion train path ("fusion_train": K4a / K4b on the
     # DistilBERT / BERT towers, K1 / K3 on MM-RCA with BERT; with
     # hf_internal_dropout K7a / K7b); "text_family" (GPT-2 and MobileBERT,
-    # phase 15) reads 0 for every kernel
+    # phase 15) reads 0 for every kernel; "serving" (phase 17's
+    # GenerationServer run: K2 32 a prefill, on the tensor cores)
     by_path = {"eval": results["launches"], "train": results["train_launches"],
                "eval_seq512": results["launches_seq512"],
                "text_eval": results["text_eval_launches"],
@@ -7363,7 +8345,8 @@ def main() -> int:
                "fusion_train": results["fusion_train_launches"],
                "fusion_train_hf_dropout":
                    results["fusion_train_hf_launches"],
-               "text_family": results["text_family_launches"]}
+               "text_family": results["text_family_launches"],
+               "serving": results["serving_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -7452,6 +8435,10 @@ def main() -> int:
                       "text_family_clis": results["text_family_clis"],
                       "conv_train": results["conv_train"],
                       "resume": results["resume"],
+                      "serving": results["serving"],
+                      "serving_clis": results["serving_clis"],
+                      "phases_1_16_s": results["phases_1_16_s"],
+                      "seconds": time.perf_counter() - t_start,
                       "grad_checks": {k: results[k] for k in (
                           "grad_check_fp32", "grad_check_bf16",
                           "grad_check_k4a_tc32")},

@@ -62,8 +62,12 @@ def _walk(module: nn.Module, tree, path: str, filled: set,
                 raise ValueError(f"{where}: shape {tuple(a.shape)} (after "
                                  f"layout conversion), model has "
                                  f"{tuple(child.shape)}")
+            # a writable array is read in place (a converter's transpose
+            # of a transpose is the checkpoint's own array); a read-only one
+            # (a JAX array's view) is copied first
             with torch.no_grad():
-                child.copy_(torch.from_numpy(np.array(a)))
+                child.copy_(torch.from_numpy(
+                    a if a.flags.writeable else np.array(a)))
             filled.add(id(child))
         else:
             skipped.append(where)
@@ -126,9 +130,19 @@ def load_blip2_tree(model: nn.Module, params, lora=None, trainable=None
     ...}) and the Q-Former ``trainable`` tree ({"classifier": {"w",
     "b"}}). Each part given fills its module whole and uses every leaf;
     a part not given is left as it is; a part for a slot the model lacks
-    raises."""
+    raises. An OPT tree that the JAX ``quantize_opt_weights`` made (int8
+    ``w`` with ``w_scale`` in every layer's q, k, v, out, fc1, fc2) makes
+    the model's OPT int8 first (``ops/quant.quantize_opt_weights``)."""
     if set(params) != {"vision", "qformer", "projection", "opt"}:
         raise ValueError(f"BLIP-2 params hold {sorted(params)}")
+    if any("w_scale" in lp["q"] for lp in params["opt"]["layers"]) and \
+            model.opt.layers[0].q._buffers.get("w_scale") is None:
+        from ..ops.quant import quantize_opt_weights
+
+        with torch.no_grad():
+            for p in model.opt.layers.parameters():
+                p.zero_()           # the slots' values are loaded next
+        quantize_opt_weights(model.opt)
     parts = dict(params)
     if lora is not None:
         parts["lora"] = lora

@@ -174,6 +174,17 @@ def build_blip2(args, device, compute_dtype, *, with_lora: bool = True,
     return cfg, model.cast_(compute_dtype, keep), tok
 
 
+def sampler_from_args(args):
+    """The ``ops.sampling.SamplerConfig`` of ``--gen_temperature`` /
+    ``--gen_top_k`` / ``--gen_top_p``; None (greedy) at temperature 0."""
+    if args.gen_temperature <= 0:
+        return None
+    from ..ops.sampling import SamplerConfig
+
+    return SamplerConfig(temperature=args.gen_temperature,
+                         top_k=args.gen_top_k, top_p=args.gen_top_p)
+
+
 def class_logits_from_next_token(next_logits: torch.Tensor,
                                  answer_first_tokens: torch.Tensor
                                  ) -> torch.Tensor:

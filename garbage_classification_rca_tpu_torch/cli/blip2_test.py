@@ -14,58 +14,92 @@ prompts; EVA ViT-g, Q-Former, OPT-2.7B with K2 on the card), write the
 report under ``test_set_reports/blip2/``. Accuracy divides by the real
 dataset size, not the reference's hard-coded 2000.
 
+``--max_new_tokens=N`` > 1 runs the serving path instead: KV-cache
+generation of N tokens (``blip2.generate``; greedy, or sampled with
+``--gen_temperature`` / ``--gen_top_k`` / ``--gen_top_p``, batch i drawing
+from ``Key(--gen_seed).fold_in(i)``; ``--kv_cache_dtype=int8``;
+``--int8_weights``: weight-only int8 on the OPT tower, the adapters on top
+in the compute dtype), each row's valid tokens decoded and mapped to an
+answer word by the reference's ``find_closest_string``.
+
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and
 ``GC_RCA_TINY_BLIP2=1`` swaps in the tiny test geometry. Not ported yet:
-``--max_new_tokens`` > 1, ``--gen_temperature``, ``--int8_weights`` and
-``--kv_cache_dtype`` (the generate / serving path, ROADMAP.md queue 1
-item 6), meshes, multi-host runs (item 7) and the JAX package's orbax
-adapter directories.
+meshes (with them the pipelined ``pp_generate``), multi-host runs
+(ROADMAP.md queue 1 item 7) and the JAX package's orbax adapter
+directories.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+import torch
+
 from ..config import args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
 from ..device import resolve_device
 from ..eval.report import generate_report_and_image
+from ..models.vlm import blip2
+from ..models.vlm.prompts import (ANSWER_TO_CLASS_IDX, ANSWER_WORDS,
+                                  find_closest_string)
+from ..nn.core import Key
 from . import check_eval_flags, cli_device
 from .blip2_common import (Blip2Batcher, build_blip2, clamp_eval_batch,
-                           vlm_eval)
+                           normalize_clip, sampler_from_args, vlm_eval)
 from .blip2_train import answer_first_token_table, make_eval_step
 
 BASE_PATH = "./test_set_reports"
 
 
-def check_vlm_flags(args) -> None:
-    """Raise on the flags of the paths the port does not run yet."""
-    todo = ("is not ported to PyTorch yet (ROADMAP.md, queue 1 item 6: "
-            "generate and serving); the port runs the 1-token decode")
-    if args.max_new_tokens > 1:
-        raise NotImplementedError(f"--max_new_tokens={args.max_new_tokens} "
-                                  f"{todo}")
-    if args.gen_temperature > 0:
-        raise NotImplementedError(f"--gen_temperature {todo}")
-    if args.int8_weights:
-        raise NotImplementedError(f"--int8_weights {todo}")
-    if args.kv_cache_dtype:
-        raise NotImplementedError(f"--kv_cache_dtype {todo}")
-    check_eval_flags(args, items="item 7")
+def make_generate_step(model, tok, args, compute_dtype):
+    """``step(batch) -> (preds int32 [B], masked correct count)`` of the
+    serving path: ``--max_new_tokens`` tokens a row, the valid ones decoded
+    and mapped to an answer word by ``find_closest_string``."""
+    sampler = sampler_from_args(args)
+    cache_dtype = args.kv_cache_dtype or None
+    base_rng = Key(args.gen_seed)
+    batch_idx = 0
+
+    def step(batch):
+        nonlocal batch_idx
+        rng = base_rng.fold_in(batch_idx)
+        batch_idx += 1
+        toks, valid = blip2.generate(
+            model, normalize_clip(batch["image"], compute_dtype),
+            batch["input_ids"], batch["attention_mask"],
+            max_new_tokens=args.max_new_tokens, sampler=sampler, rng=rng,
+            cache_dtype=cache_dtype)
+        toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
+        preds = np.asarray([ANSWER_TO_CLASS_IDX[find_closest_string(
+            tok.decode(toks[r][valid[r]]), ANSWER_WORDS)]
+            for r in range(toks.shape[0])], np.int32)
+        preds = torch.from_numpy(preds).to(batch["label"].device)
+        correct = ((preds == batch["label"]) * batch["valid"]).sum()
+        return preds, correct
+
+    return step
 
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_vlm_flags(args)
+    check_eval_flags(args, items="item 7")
     device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)
     _, model, tok = build_blip2(args, device, dtype)
+    if args.max_new_tokens > 1 and args.int8_weights:
+        from ..ops.quant import quantize_opt_weights
+
+        quantize_opt_weights(model.opt)
     m = build_manifest(args.dataset_folder_name)
     print(f"Num of test images: {len(m)}")
     b = Blip2Batcher(m, tok, workers=args.data_workers)
     try:
-        step = make_eval_step(model, answer_first_token_table(b, m.classes),
-                              dtype)
+        if args.max_new_tokens > 1:
+            step = make_generate_step(model, tok, args, dtype)
+        else:
+            step = make_eval_step(model, answer_first_token_table(
+                b, m.classes), dtype)
         return vlm_eval(step, b, clamp_eval_batch(
             args.eval_batch_size or 16, len(m)), device,
             prefetch_depth=args.prefetch_depth)

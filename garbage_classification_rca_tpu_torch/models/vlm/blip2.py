@@ -1,8 +1,7 @@
 """BLIP-2 assembly: vision -> Q-Former -> projection -> OPT, with LoRA on
 the OPT q / k projections.
 
-The port of the JAX package's ``models/vlm/blip2.py`` without its serving
-paths:
+The port of the JAX package's ``models/vlm/blip2.py``:
   * ``next_token_logits``: the reference's ``generate(max_new_tokens=1)``
     eval as one forward -> the logits after each row's last valid prompt
     token (left- or right-padded), gathered BEFORE the 50272-wide lm head;
@@ -16,6 +15,10 @@ paths:
     the graph starts at OPT, as XLA prunes the JAX package's gradient with
     respect to the adapters; the lm head runs only at the positions whose
     shifted label counts;
+  * ``prompt_embeds`` / ``generate``: the serving prompt (the 32
+    projected query embeddings, then the text embeddings, with an
+    always-valid query mask) and the multi-token KV-cache generation over
+    it (``opt.generate``: greedy, sampled, int8 cache);
   * ``convert_torch``: an HF ``Blip2ForConditionalGeneration`` state dict,
     plain or peft-wrapped (``base_model.model.`` prefixes, ``.base_layer``
     names, ``lora_A`` / ``lora_B``), into the JAX package's trees.
@@ -96,7 +99,8 @@ class Blip2Model(nn.Module):
             if getattr(self, name) is not None:
                 keep |= {id(t) for t in getattr(self, name).parameters()}
         for t in self.parameters():
-            if id(t) not in keep:
+            # int8 weights (ops/quant.py) stay int8
+            if id(t) not in keep and t.is_floating_point():
                 t.data = t.data.to(dtype)
         return self
 
@@ -175,18 +179,29 @@ def qformer_cls_feature(model: Blip2Model, pixel_values, drop=None
     return query_features(model, pixel_values, drop)[:, 0]
 
 
+def prompt_embeds(model: Blip2Model, pixel_values, input_ids,
+                  attention_mask, drop=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The OPT prompt: 32 projected query embeddings before the text
+    embeddings, and the mask with the queries always valid. Returns
+    (embeds [B, 32 + L, H], mask [B, 32 + L]) for ``opt.generate`` or the
+    ``serving.engine.GenerationServer``. `drop`: the Q-Former's sites."""
+    q_emb = model.projection(query_features(model, pixel_values, drop))
+    t_emb = opt_mod.embed_tokens(model.opt, input_ids).to(q_emb.dtype)
+    q_mask = torch.ones(q_emb.shape[:2], dtype=attention_mask.dtype,
+                        device=attention_mask.device)
+    return (torch.cat([q_emb, t_emb], dim=1),
+            torch.cat([q_mask, attention_mask], dim=1))
+
+
 def _lm_hidden(model: Blip2Model, pixel_values, input_ids, attention_mask,
                train: bool = False, drop=None) -> torch.Tensor:
     """-> OPT final hidden [B, 32 + L, H] over the combined sequence.
     `train`: the frozen towers before OPT run without autograd and OPT's
     attention is the differentiable flash pair."""
     with torch.no_grad() if train else contextlib.nullcontext():
-        q_emb = model.projection(query_features(model, pixel_values, drop))
-        t_emb = opt_mod.embed_tokens(model.opt, input_ids).to(q_emb.dtype)
-    embeds = torch.cat([q_emb, t_emb], dim=1)
-    q_mask = torch.ones(q_emb.shape[:2], dtype=attention_mask.dtype,
-                        device=attention_mask.device)
-    mask = torch.cat([q_mask, attention_mask], dim=1)
+        embeds, mask = prompt_embeds(model, pixel_values, input_ids,
+                                     attention_mask, drop)
     return opt_mod.decode_hidden(model.opt, embeds, mask, lora=model.lora,
                                  lora_scale=model.cfg.lora_scale,
                                  train=train, drop=drop,
@@ -225,6 +240,24 @@ def next_token_logits(model: Blip2Model, pixel_values, input_ids,
     last = model.cfg.qformer.n_query + _last_valid_index(attention_mask)
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return opt_mod.lm_head(model.opt, h_last)
+
+
+@torch.no_grad()
+def generate(model: Blip2Model, pixel_values, input_ids, attention_mask,
+             max_new_tokens: int = 8, eos_id: int = 2, sampler=None,
+             rng=None, cache_dtype=None):
+    """Multi-token generation with the model's adapters: ``prompt_embeds``,
+    then ``opt.generate`` (greedy by default; `sampler` + `rng` sample;
+    ``cache_dtype="int8"`` quantizes the cache). Returns (tokens int32
+    [B, max_new_tokens], valid bool), ``valid`` False strictly after each
+    row's EOS."""
+    embeds, mask = prompt_embeds(model, pixel_values, input_ids,
+                                 attention_mask)
+    return opt_mod.generate(model.opt, embeds, mask, max_new_tokens,
+                            eos_id=eos_id, lora=model.lora,
+                            lora_scale=model.cfg.lora_scale,
+                            sampler=sampler, rng=rng,
+                            cache_dtype=cache_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -159,7 +159,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
 
 
 class Linear(nn.Module):
-    """torch.nn.Linear's default init: U(+-1/sqrt(fan_in))."""
+    """torch.nn.Linear's default init: U(+-1/sqrt(fan_in)).
+
+    Weight-only int8 (``ops/quant.quantize_linear``): ``w`` int8 with the
+    fp32 buffer ``w_scale`` [1, out]; the product runs on ``w`` cast to
+    x's dtype, then the scale in x's dtype, then the bias, as the JAX
+    package's ``linear`` orders them."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = True,
                  generator: Optional[torch.Generator] = None):
@@ -169,7 +174,11 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        return linear(x, self.w, self.b)
+        scale = self._buffers.get("w_scale")
+        if scale is None:
+            return linear(x, self.w, self.b)
+        y = F.linear(x, self.w.to(x.dtype)) * scale.to(x.dtype)
+        return y if self.b is None else y + self.b.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

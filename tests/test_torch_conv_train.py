@@ -166,8 +166,11 @@ def _flatten(tree, prefix=""):
 def _tree(name, seed):
     jdef = jreg.get_image_model(name)
     rng = np.random.default_rng(seed)
-    params, state = _fill(jax.eval_shape(jdef.init, jax.random.PRNGKey(0)),
-                          rng)
+    # a new function object each call: jax caches eval_shape by function,
+    # and a tree traced before a depth was patched (another test in the
+    # same process) would come back at the old depth
+    params, state = _fill(jax.eval_shape(lambda k: jdef.init(k),
+                                         jax.random.PRNGKey(0)), rng)
     _norms(params, state, rng)
     return jdef, params, state, rng
 

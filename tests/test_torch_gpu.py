@@ -1525,3 +1525,92 @@ def test_fusion_train_step_matches_plain_path(cuda, tower, monkeypatch):
             scale = max(scale, mx[k[:-4] + "scale"])
         d = float((gk[k] - gp[k]).abs().max())
         assert d <= 1e-4 * max(scale, 1e-6 * top), (k, d, scale)
+
+
+# the serving path on the card: OPT at head dim 80, K2 in every prefill
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_generate_and_server_match_plain_path(cuda, dtype,
+                                                      monkeypatch):
+    """A 2-layer OPT of 160 / 2 heads (head dim 80), 4 prompts of 20 with
+    left and right pads, 8 new tokens: ``generate`` launches K2 once a
+    layer in its prefill (fp32 on the CUDA cores, bf16 on the tensor
+    cores) and nowhere else; its first-step logits against the plain path
+    (``opt.mha`` patched to ``mha_reference``) within 1e-4 of max |logit|
+    in fp32, the blocks' bf16 bar (one ulp + 1e-2 of max) in bf16; the
+    token streams equal in fp32, in bf16 up to the first step whose plain
+    margin is under the largest first-step |d| of the two paths. The
+    server (3 slots, 2 steps a sync) against each request's B = 1
+    ``generate`` on the kernel path, up to the first step whose margin is
+    under the largest |d| between the B = 1 and batched first-step
+    logits."""
+    import chip_smoke
+    from garbage_classification_rca_tpu_torch.models.vlm import opt
+    from garbage_classification_rca_tpu_torch.serving.engine import (
+        GenerationServer)
+
+    cfg = opt.OPTConfig(layers=2, hidden=160, heads=2, ffn=256, vocab=300,
+                        max_pos=64)
+    torch.manual_seed(0)
+    model = opt.OPTDecoder(cfg).requires_grad_(False)
+    with torch.no_grad():
+        model.embed_tokens.w.normal_(0.0, 0.3)
+    model = model.to(cuda, dtype)
+    g = torch.Generator().manual_seed(1)
+    b, l, n = 4, 20, 8
+    emb = torch.randn((b, l, cfg.hidden), generator=g).to(cuda, dtype)
+    mask = torch.ones((b, l), dtype=torch.int32)
+    mask[1, :5] = 0
+    mask[2, -4:] = 0
+    mask = mask.to(cuda)
+
+    def first_logits():
+        h, _ = opt.prefill(model, emb, mask, 1)
+        return opt.lm_head(model, opt.last_hidden(h, mask)).float()
+
+    route = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    before = mha_fused.mha.route_launches[route]
+    tk, vk = opt.generate(model, emb, mask, n, eos_id=-1)
+    torch.cuda.synchronize()
+    assert mha_fused.mha.route_launches[route] == before + cfg.layers
+    lk = first_logits()
+    with monkeypatch.context() as mp:
+        mp.setattr(opt, "mha", mha_fused.mha_reference)
+        with chip_smoke.record_margins() as marg:
+            tp, vp = opt.generate(model, emb, mask, n, eos_id=-1)
+        mp_ = torch.stack(marg, 1)
+        lp = first_logits()
+    d = float((lk - lp).abs().max())
+    if dtype == torch.float32:
+        assert d <= 1e-4 * float(lp.abs().max())
+        assert torch.equal(tk, tp)
+    else:
+        bar = 2.0 ** (torch.floor(torch.log2(lp.abs().max())) - 7) \
+            + 1e-2 * lp.abs().max()
+        assert d <= float(bar)
+        assert chip_smoke.near_tie_agree(tk, tp, mp_, d)[0]
+    assert vk.all() and vp.all()
+
+    # the server against each request's own B = 1 generate
+    reqs = [(emb[i, :l - 3 * i], mask[i, :l - 3 * i]) for i in range(b)]
+    srv = GenerationServer(model, slots=3, max_prompt=l, max_new=n,
+                           eos_id=-1, steps_per_sync=2)
+    served = srv.run(reqs)
+    pads = [l - e.shape[0] for e, _ in reqs]
+    full_e = torch.stack([torch.nn.functional.pad(e, (0, 0, 0, p))
+                          for (e, _), p in zip(reqs, pads)])
+    full_m = torch.stack([torch.nn.functional.pad(m, (0, p))
+                          for (_, m), p in zip(reqs, pads)])
+    h, _ = opt.prefill(model, full_e[:3], full_m[:3], n)
+    batched = opt.lm_head(model, opt.last_hidden(h, full_m[:3])).float()
+    single = torch.cat([opt.lm_head(model, opt.last_hidden(
+        opt.prefill(model, full_e[i:i + 1], full_m[i:i + 1], n)[0],
+        full_m[i:i + 1])).float() for i in range(3)])
+    floor = float((batched - single).abs().max())
+    for i in range(b):
+        with chip_smoke.record_margins() as marg:
+            want, _ = opt.generate(model, full_e[i:i + 1], full_m[i:i + 1],
+                                   n, eos_id=-1)
+        got = torch.tensor(served[i].tokens, device=cuda)[None]
+        assert served[i].finished and got.shape == want.shape
+        assert chip_smoke.near_tie_agree(got, want, torch.stack(marg, 1),
+                                         floor)[0], i

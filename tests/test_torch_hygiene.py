@@ -71,7 +71,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.image.resnet", "models.image.mobilenet_v3",
                 "models.image.convnext", "models.image.efficientnet_common",
                 "train.engine", "train.optim", "cli.main_both",
-                "nn.core"):
+                "nn.core", "ops.sampling", "ops.quant", "serving.engine",
+                "cli.serve"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -426,3 +427,20 @@ def test_vlm_train_windows_and_constants_match_jax(tiny_dataset):
         assert (mod.TRAIN_SUFFIX, mod.VAL_SUFFIX) == ("_Train", "_Val")
     assert (tqf.HIDDEN_DROPOUT, tqf.ATTN_DROPOUT) == (jqf.HIDDEN_DROPOUT,
                                                       jqf.ATTN_DROPOUT)
+
+
+def test_sampler_config_copy_is_the_jax_one():
+    """The port's frozen ``ops/sampling.SamplerConfig`` is a copy of the
+    JAX package's: the same fields and defaults, frozen, GREEDY its
+    default."""
+    from garbage_classification_rca_tpu.ops import sampling as jsmp
+    from garbage_classification_rca_tpu_torch.ops import sampling as tsmp
+
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        tsmp.SamplerConfig)] == [(f.name, f.default) for f in
+                                 dataclasses.fields(jsmp.SamplerConfig)]
+    assert tsmp.GREEDY == tsmp.SamplerConfig()
+    assert dataclasses.astuple(tsmp.GREEDY) == dataclasses.astuple(
+        jsmp.GREEDY)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tsmp.GREEDY.temperature = 1.0

@@ -9,7 +9,7 @@ on the ``tiny_dataset`` fixture (``GC_RCA_TINY_BLIP2=1``, the CPU):
     ``MultimodalClassifier`` state dict. fp32 compute (``--compute_dtype``),
     so that no bf16 rounding of either framework decides an argmax;
   * the flags of the paths the port does not run yet raise, each as its
-    message says (ROADMAP.md queue 1 items 6 and 7), and the Q-Former
+    message says (ROADMAP.md queue 1 item 7), and the Q-Former
     classifier file's diagnostics match the JAX CLI's.
 """
 
@@ -196,8 +196,16 @@ def _port(cli):
     ("--mesh_shape=data:1,pipe:2", "item 7"),
 ])
 def test_blip2_test_refuses_unported_flags(flag, match, tiny_dataset):
+    """Meshes raise (item 7). The serving flags (item 6) run since the
+    generate path was ported (``tests/test_torch_serve_cli.py`` drives
+    them); beside a pipe mesh, the JAX CLI's ``pp_generate``, they raise
+    as item 7."""
+    argv = [f"--dataset_folder_name={tiny_dataset}", flag]
+    if match == "item 6":
+        argv.append("--mesh_shape=data:1,pipe:2")
+        match = "item 7"
     with pytest.raises(NotImplementedError, match=match):
-        _port("blip2_test")([f"--dataset_folder_name={tiny_dataset}", flag])
+        _port("blip2_test")(argv)
 
 
 def test_vlm_clis_refuse_orbax_dirs_multihost_and_training(
