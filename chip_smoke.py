@@ -186,7 +186,15 @@ Phases, each of which fails the run when it fails:
      a microbatch); then ``cli.blip2_train`` and ``cli.qformer_train`` for
      one epoch from phase 12's ``.pth`` on a 16 + 16 JPEG tree, their
      launches counted, and ``cli.blip2_test`` / ``cli.qformer_test`` on
-     the BEST files they wrote.
+     the BEST files they wrote; then RESUME: both trainers at full width
+     (the BLIP-2 base from ``--seed``, bf16, fp32 adapters) on 20 + 4
+     JPEGs at ``--batch_size=2`` (2 windows an epoch), 2 epochs with
+     ``--resume_every_steps=1``, run twice uninterrupted, then killed at
+     epoch 1's first window (RESUME holds epoch 0's end) and at its second
+     (RESUME holds one window) and resumed with ``--resume_from``: each
+     resumed run bit-identical to the uninterrupted one where the two
+     uninterrupted runs are, else no further apart (``_resume_case``); the
+     resumed LoRA runs launch K2, K4a and K4b, the Q-Former's K2.
 
  14. late-fusion train: every pair the JAX package trains but MM-RCA on
      DistilBERT (phase 5's) — gated, classic, normalized, clip,
@@ -309,6 +317,25 @@ Phases, each of which fails the run when it fails:
      paths' first-step logits; a server row against its B = 1 run, the
      largest |d| between the B = 1 and the batched first-step logits of
      the same requests.
+ 18. paraphraser (no hand-written kernel, no counter): ``regex`` and
+     ``jinja2`` import here; the Llama behind ``GC_RCA_LLM_PATH``
+     (``models/text/llama``) at Llama-3.1-8B-Instruct's geometry in fp32,
+     weights drawn on the card from the seed: ``generate`` of the
+     reference's prompts of 8 sentences, rendered with a Llama-3-style
+     template and tokenized by the BPE fixture's vocabulary with Llama-3's
+     specials (at their Llama-3 ids), 6 new at temperature 0.4, top-k 50,
+     top-p 0.9; prefill ms, decode ms a step, the device's idle share over a
+     generate, peak memory, the same tokens twice from one seed; at full
+     width and 2 layers, TF32 off, the card's logits of the 6 steps
+     (prefill, cached decode) against the CPU's teacher-forced forward
+     within max(1e-5, a one-ulp control) of max |logit|; then
+     ``cli.main_text --text_model=distilbert --use_synonyms
+     --prob_aug_text=1`` for one step with ``GC_RCA_LLM_PATH`` at a
+     directory it writes (2 layers at full width, bf16, two safetensors
+     shards and their index, the BPE fixture's vocabulary with Llama-3's
+     specials and Split pattern, a Llama-3-style template of this
+     script's): the paraphraser's parameters on the card, every sentence
+     through it.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -5984,6 +6011,62 @@ def check_vlm_train_clis(device, results):
     return ok
 
 
+# the VLM RESUME cases: 20 train JPEGs at --batch_size=2 are 10
+# microbatches, 2 windows of acc 8 an epoch; the 3rd step call is epoch
+# 1's first window (RESUME holds epoch 0's end), the 4th its second
+# (RESUME holds one window of epoch 1)
+VLM_RESUME_KILLS = [("killed at the epoch boundary", 3),
+                    ("killed mid-epoch", 4)]
+
+
+def check_vlm_resume(device, results):
+    """Phase 13's RESUME cases (``_resume_case``): ``cli.blip2_train``
+    (blip2-opt-2.7b from ``--seed``, bf16 backbone, fp32 LoRA adapters)
+    and ``cli.qformer_train`` at full width on 20 + 4 generated JPEGs,
+    ``--batch_size=2 --epochs=2 --resume_every_steps=1``, each killed at
+    ``VLM_RESUME_KILLS`` and resumed with ``--resume_from``, held to two
+    uninterrupted runs; the resumed LoRA runs launch K2 (EVA's head dim 88
+    and, in the val eval, OPT's 80), K4a and K4b (80), the Q-Former's K2.
+    In a work directory of the checkout, deleted afterwards."""
+    import os
+    import shutil
+
+    from garbage_classification_rca_tpu_torch.cli import (blip2_train,
+                                                          qformer_train)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_vlm_resume")
+    shutil.rmtree(work, ignore_errors=True)
+    cwd = os.getcwd()
+    out, ok, t0 = {}, True, time.perf_counter()
+    try:
+        _write_jpeg_tree(os.path.join(work, "vlm"), 20, 4, SEED + 275,
+                         size=224)
+        argv = [f"--dataset_folder_name={work}/vlm", "--batch_size=2",
+                "--epochs=2", "--resume_every_steps=1",
+                f"--vocab_dir={here}/tests/fixtures/vocab/bpe"]
+        for cli, name, factory, want_k in (
+                (blip2_train, "blip2_lora", "make_lora_train_step",
+                 ("K2", "K4a", "K4b")),
+                (qformer_train, "qformer_classifier", "make_steps",
+                 ("K2",))):
+            short = cli.__name__.rsplit(".", 1)[-1]
+            t1 = time.perf_counter()
+            good, out[short] = _resume_case(
+                f"cli.{short}", cli, argv, name, VLM_RESUME_KILLS,
+                os.path.join(work, short), want_k=want_k, factory=factory,
+                resume_flag="--resume_from")
+            out[short]["seconds"] = time.perf_counter() - t1
+            ok &= good
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 13's RESUME cases in {out['seconds']:.1f} s", flush=True)
+    results["vlm_resume"] = out
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 14: the late-fusion train path (every strategy and tower the JAX
 # package trains, MM-RCA on DistilBERT aside: phase 5 trains it)
@@ -6969,26 +7052,32 @@ class _Killed(Exception):
 
 
 @contextlib.contextmanager
-def _dying_step(cli, at):
-    """`cli`'s steps raise at the `at`-th call over the run."""
-    real, calls = cli.make_train_step, {"n": 0}
+def _dying_step(cli, at, factory="make_train_step"):
+    """`cli`'s steps raise at the `at`-th call over the run. `factory`
+    names `cli`'s step maker: it returns the step, or a tuple whose second
+    item is the train step (the VLM trainers'). Yields the call counter
+    ``{"n": calls so far}``."""
+    real, calls = getattr(cli, factory), {"n": 0}
 
     def make(*a, **kw):
-        step = real(*a, **kw)
+        built = real(*a, **kw)
+        step = built[1] if isinstance(built, tuple) else built
 
-        def dying(*sa):
+        def dying(*sa, **skw):
             calls["n"] += 1
             if calls["n"] == at:
                 raise _Killed
-            return step(*sa)
+            return step(*sa, **skw)
 
+        if isinstance(built, tuple):
+            return (built[0], dying) + tuple(built[2:])
         return dying
 
-    cli.make_train_step = make
+    setattr(cli, factory, make)
     try:
-        yield
+        yield calls
     finally:
-        cli.make_train_step = real
+        setattr(cli, factory, real)
 
 
 def _run_end(model_name):
@@ -7023,7 +7112,8 @@ def _run_gap(a, b):
     state = max((float((ta[k].double() - tb[k].double()).abs().max())
                  for k in ta), default=0.0)
     loss = max((abs(ra[k] - rb[k]) for ra, rb in zip(a[1], b[1])
-                for k in ("avg_loss", "max_loss", "min_loss")), default=0.0)
+                for k in ("avg_loss", "max_loss", "min_loss") if k in ra),
+               default=0.0)
     meta = ({k: v for k, v in a[0]["meta"].items() if k != "best_path"} ==
             {k: v for k, v in b[0]["meta"].items() if k != "best_path"})
     return {"state": state, "loss": loss, "meta_equal": meta}
@@ -7037,9 +7127,15 @@ _K_GROUPS = {"K1": ("rca_fused", "rca_fused_per_sample"),
                      "mha_flash_bwd_tc32")}
 
 
-def _resume_case(title, cli, argv, model_name, kill_at, work, want_k=()):
-    """`cli` run twice uninterrupted (the control), then killed at the
-    `kill_at`-th step and resumed from its RESUME: (ok, numbers)."""
+def _resume_case(title, cli, argv, model_name, kills, work, want_k=(),
+                 factory="make_train_step", resume_flag="--model_path"):
+    """`cli` run twice uninterrupted (the control), then, for each (label,
+    kill_at) of `kills`, killed at the `kill_at`-th step and resumed from
+    its RESUME through `resume_flag`: (ok, {label: numbers}). A resumed
+    run must end bit-identical to the first uninterrupted one where the
+    two uninterrupted runs are, else no further from it than they are
+    from each other; with `want_k`, each of those kernels (``_K_GROUPS``)
+    launched in it."""
     import os
 
     import torch
@@ -7050,42 +7146,48 @@ def _resume_case(title, cli, argv, model_name, kill_at, work, want_k=()):
         os.chdir(os.path.join(work, run))
         cli.main(argv)
         ends.append(_run_end(model_name))
-    os.makedirs(os.path.join(work, "killed"))
-    os.chdir(os.path.join(work, "killed"))
-    try:
-        with _dying_step(cli, kill_at):
-            cli.main(argv)
-        killed_ok = False                     # the kill never came
-    except _Killed:
-        killed_ok = True
-    meta = _run_end(model_name)[0]["meta"]
-    saved = (meta["phase_name"], meta["epoch"], meta["step"])
-    _zero_counters()
-    t0 = time.perf_counter()
-    cli.main(argv + [f"--model_path=model_weights/{model_name}/RESUME"])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    seen = _read_counters()
-    launches = {k: sum(seen[c] for c in cs) for k, cs in _K_GROUPS.items()}
-    resumed = _run_end(model_name)
     control = _run_gap(ends[0], ends[1])
-    gap = _run_gap(ends[0], resumed)
-    ok = (killed_ok and control is not None and gap is not None
-          and gap["meta_equal"] and gap["state"] <= control["state"]
-          and gap["loss"] <= control["loss"]
-          and all(launches[k] > 0 for k in want_k))
     bitwise = control is not None and control["state"] == 0.0 \
         and control["loss"] == 0.0
-    print(f"  {title}: killed at step call {kill_at}, RESUME held (phase, "
-          f"epoch, step) {saved}; resumed run in {secs:.1f} s; control "
-          f"(two uninterrupted runs) {control}, resumed vs uninterrupted "
-          f"{gap} ({'bit-identical required' if bitwise else 'within the control'})"
-          + (f"; launches over the resumed run {launches} (want > 0 for "
-             f"{list(want_k)})" if want_k else "")
-          + f" {'ok' if ok else 'FAIL'}", flush=True)
-    return ok, {"kill_at": kill_at, "resume_held": saved, "control": control,
-                "resumed_vs_uninterrupted": gap, "resumed_s": secs,
-                "resumed_launches": launches, "ok": ok}
+    ok, out = True, {}
+    for label, kill_at in kills:
+        os.makedirs(os.path.join(work, f"killed_{kill_at}"))
+        os.chdir(os.path.join(work, f"killed_{kill_at}"))
+        try:
+            with _dying_step(cli, kill_at, factory):
+                cli.main(argv)
+            killed_ok = False                 # the kill never came
+        except _Killed:
+            killed_ok = True
+        meta = _run_end(model_name)[0]["meta"]
+        saved = (meta["phase_name"], meta["epoch"], meta["step"])
+        _zero_counters()
+        t0 = time.perf_counter()
+        cli.main(argv + [f"{resume_flag}=model_weights/{model_name}/RESUME"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seen = _read_counters()
+        launches = {k: sum(seen[c] for c in cs)
+                    for k, cs in _K_GROUPS.items()}
+        gap = _run_gap(ends[0], _run_end(model_name))
+        good = (killed_ok and control is not None and gap is not None
+                and gap["meta_equal"] and gap["state"] <= control["state"]
+                and gap["loss"] <= control["loss"]
+                and all(launches[k] > 0 for k in want_k))
+        print(f"  {title}, {label}: killed at step call {kill_at}, RESUME "
+              f"held (phase, epoch, step) {saved}; resumed run in "
+              f"{secs:.1f} s; control (two uninterrupted runs) {control}, "
+              f"resumed vs uninterrupted {gap} ("
+              f"{'bit-identical required' if bitwise else 'within the control'})"
+              + (f"; launches over the resumed run {launches} (want > 0 "
+                 f"for {list(want_k)})" if want_k else "")
+              + f" {'ok' if good else 'FAIL'}", flush=True)
+        out[label] = {"kill_at": kill_at, "resume_held": saved,
+                      "control": control, "resumed_vs_uninterrupted": gap,
+                      "resumed_s": secs, "resumed_launches": launches,
+                      "ok": good}
+        ok &= good
+    return ok, out
 
 
 def check_resume(device, results):
@@ -7149,9 +7251,10 @@ def check_resume(device, results):
                                    "best_val_acc": best.best_val_acc,
                                    "ok": good}
         ok &= good
-        good, out["res18_epoch_boundary"] = _resume_case(
-            "cli.main_image res18, killed at the epoch boundary",
-            main_image, image_argv, "res18", 2, os.path.join(work, "r18"))
+        good, cases = _resume_case(
+            "cli.main_image res18", main_image, image_argv, "res18",
+            [("killed at the epoch boundary", 2)], os.path.join(work, "r18"))
+        out["res18_epoch_boundary"] = cases["killed at the epoch boundary"]
         ok &= good
         # MM_RCA: 16 train samples at 4 x acc 2 are 2 windows an epoch;
         # the 4th call is the fine_tune epoch's second window
@@ -7163,10 +7266,11 @@ def check_resume(device, results):
                      "--balance_weights", "--prob_aug=1.0", "--seq_len=64",
                      "--resume_every_steps=1", f"--vocab_dir={vocab}",
                      "--name=mm_rca"]
-        good, out["mm_rca_mid_epoch"] = _resume_case(
-            "cli.main_both MM_RCA, killed mid-epoch", main_both, both_argv,
-            "MM_RCA_distilbert", 4, os.path.join(work, "mm_rca"),
-            want_k=tuple(_K_GROUPS))
+        good, cases = _resume_case(
+            "cli.main_both MM_RCA", main_both, both_argv,
+            "MM_RCA_distilbert", [("killed mid-epoch", 4)],
+            os.path.join(work, "mm_rca"), want_k=tuple(_K_GROUPS))
+        out["mm_rca_mid_epoch"] = cases["killed mid-epoch"]
         ok &= good
     finally:
         torch.backends.cudnn.allow_tf32 = True
@@ -8092,6 +8196,471 @@ def check_serving_clis(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Llama paraphraser behind GC_RCA_LLM_PATH (cli.main_text
+# --use_synonyms); no hand-written kernel, no counter
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-3.1-8B-Instruct's first special tokens, in its order
+# (ids 128000-128010 there; here after the fixture's vocabulary); the 245
+# reserved ones after them are left out
+LLAMA3_SPECIALS = (
+    "<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+    "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+    "<|reserved_special_token_2|>", "<|start_header_id|>",
+    "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>")
+# Llama-3's Split pre-tokenizer pattern (its tokenizer.json)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+# A Llama-3-style chat template written for this script and its tests
+# (headers, eot, a system header, loop controls, raise_exception); it is
+# not Meta's template text.
+LLAMA3_STYLE_TEMPLATE = (
+    "{#- A Llama-3-style chat template written for this repository's "
+    "checks; not Meta's template text. -#}\n"
+    "{{- bos_token }}\n"
+    "{%- if messages[0]['role'] == 'system' %}\n"
+    "    {%- set system = messages[0]['content'] | trim %}\n"
+    "    {%- set messages = messages[1:] %}\n"
+    "{%- else %}\n"
+    "    {%- set system = 'Answer briefly.' %}\n"
+    "{%- endif %}\n"
+    "{{- '<|start_header_id|>system<|end_header_id|>\\n\\n' }}\n"
+    "{{- 'Knowledge cut-off: 2023-12\\n\\n' + system + '<|eot_id|>' }}\n"
+    "{%- for message in messages %}\n"
+    "    {%- if message['role'] not in ['user', 'assistant'] %}\n"
+    "        {{- raise_exception('only user and assistant turns follow "
+    "the system one') }}\n"
+    "    {%- endif %}\n"
+    "    {%- if not message['content'] %}{% continue %}{% endif %}\n"
+    "    {{- '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\\n\\n' + message['content'] | trim + "
+    "'<|eot_id|>' }}\n"
+    "{%- endfor %}\n"
+    "{%- if add_generation_prompt %}\n"
+    "    {{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}\n"
+    "{%- endif %}\n")
+PARA_SEED = SEED + 800
+PARA_NEW = 6                       # the paraphraser's new tokens
+# the sentences of the full-width run's batch (make_hf_llm_fn's 8)
+PARA_SENTENCES = (
+    "a crumpled plastic water bottle", "an empty glass jar of jam",
+    "old newspapers tied with string", "a banana peel in the sink",
+    "a dented soda can", "a used AA battery", "a greasy pizza box",
+    "a broken green wine bottle")
+LLAMA3_FIRST_SPECIAL = 128000      # <|begin_of_text|>'s id in Llama-3
+PARA_CHECK_LAYERS = 2              # the card-vs-CPU and the CLI's model
+# the sampling make_hf_llm_fn runs (GenerationConfig's default top-k)
+PARA_SAMPLING = {"temperature": 0.4, "top_k": 50, "top_p": 0.9}
+
+
+def llama3_tokenizer_spec(vocab_dir):
+    """A ``tokenizer.json`` of Llama-3's form on the byte-level BPE
+    vocabulary of `vocab_dir` (``vocab.json`` + ``merges.txt``): its
+    Split + ByteLevel pre-tokenizer, ``ignore_merges`` and the
+    ``LLAMA3_SPECIALS`` after the vocabulary."""
+    import os
+
+    with open(os.path.join(vocab_dir, "vocab.json"), encoding="utf-8") as f:
+        vocab = json.load(f)
+    with open(os.path.join(vocab_dir, "merges.txt"), encoding="utf-8") as f:
+        merges = [line.rstrip("\n") for n, line in enumerate(f)
+                  if line.strip() and not (n == 0 and line.startswith("#"))]
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(LLAMA3_SPECIALS)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": False}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}
+
+
+def write_safetensors(path, tensors):
+    """`tensors` ({name: CPU tensor}) as one safetensors file."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, blobs, at = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [at, at + b.nbytes]}
+        blobs.append(b)
+        at += b.nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for b in blobs:
+            f.write(b.tobytes())
+
+
+def write_llama_dir(path, model, tokenizer_spec, *, dtype, shards=2,
+                    template=LLAMA3_STYLE_TEMPLATE):
+    """A transformers Llama directory of `model` (a port
+    ``LlamaForCausalLM``) in `dtype`: ``config.json``,
+    ``generation_config.json`` (Llama-3.1-8B-Instruct's sampling: no
+    top-k), the weights in `shards` safetensors files with their index,
+    ``tokenizer.json`` and a ``tokenizer_config.json`` with the chat
+    template, bos ``<|begin_of_text|>`` and eos ``<|eot_id|>``."""
+    import os
+
+    cfg = model.cfg
+    ids = {t["content"]: t["id"] for t in tokenizer_spec["added_tokens"]}
+    bos, eot = ids["<|begin_of_text|>"], ids["<|eot_id|>"]
+    os.makedirs(path, exist_ok=True)
+    config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": cfg.hidden, "intermediate_size": cfg.ffn,
+        "num_hidden_layers": cfg.layers, "num_attention_heads": cfg.heads,
+        "num_key_value_heads": cfg.kv_heads, "vocab_size": cfg.vocab,
+        "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+        "rope_scaling": cfg.rope_scaling,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_positions, "hidden_act": "silu",
+        "attention_bias": False, "mlp_bias": False, "bos_token_id": bos,
+        "eos_token_id": [ids["<|end_of_text|>"], ids["<|eom_id|>"], eot],
+        "torch_dtype": str(dtype).replace("torch.", "")}
+    gen = {"bos_token_id": bos, "eos_token_id": config["eos_token_id"],
+           "do_sample": True, "temperature": 0.6, "top_p": 0.9}
+    tok_cfg = {"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+               "chat_template": template,
+               "clean_up_tokenization_spaces": True,
+               "model_input_names": ["input_ids", "attention_mask"],
+               "tokenizer_class": "PreTrainedTokenizerFast"}
+    for name, obj in (("config.json", config),
+                      ("generation_config.json", gen),
+                      ("tokenizer.json", tokenizer_spec),
+                      ("tokenizer_config.json", tok_cfg)):
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    sd = {k: v.detach().to("cpu", dtype) for k, v in
+          model.hf_state_dict().items()}
+    names = list(sd)
+    cut = [names[i * len(names) // shards:(i + 1) * len(names) // shards]
+           for i in range(shards)]
+    weight_map = {}
+    for i, part in enumerate(cut):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        write_safetensors(os.path.join(path, fname), {k: sd[k] for k in part})
+        weight_map.update({k: fname for k in part})
+    total = sum(v.numel() * v.element_size() for v in sd.values())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def paraphraser_prompts(device):
+    """The reference's prompts (``synonymize.chats``) of
+    ``PARA_SENTENCES``, rendered with ``LLAMA3_STYLE_TEMPLATE`` and
+    tokenized, left padded with <|eot_id|>, by the Llama-3-style tokenizer
+    of the BPE fixture (``llama3_tokenizer_spec``); its specials moved to
+    their Llama-3 ids (``LLAMA3_FIRST_SPECIAL`` on), the rest of its ids
+    being ids of Llama-3's vocabulary too: (ids, mask)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data import synonymize
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        HFTokenizer)
+
+    spec = llama3_tokenizer_spec(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+        "vocab", "bpe"))
+    tok = HFTokenizer(spec, {"bos_token": "<|begin_of_text|>",
+                             "eos_token": "<|eot_id|>"},
+                      LLAMA3_STYLE_TEMPLATE)
+    ids, mask = tok.batch(synonymize.chats(tok, PARA_SENTENCES)[0])
+    base = len(spec["model"]["vocab"])
+    ids = np.where(ids >= base, ids - base + LLAMA3_FIRST_SPECIAL, ids)
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def _para_warp():
+    from garbage_classification_rca_tpu_torch.ops.sampling import (
+        warp_logits_hf)
+
+    return functools.partial(warp_logits_hf, **PARA_SAMPLING)
+
+
+def _para_full_width(device, out):
+    """Llama-3.1-8B-Instruct's geometry, fp32, weights from ``PARA_SEED``
+    on the card: ``generate`` of the ``paraphraser_prompts``, ``PARA_NEW`` new
+    tokens at ``PARA_SAMPLING``; prefill ms, decode ms a step (the draw
+    included), the device's idle share over a whole ``generate``, peak
+    memory; two runs from one seed draw the same tokens."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.text import llama
+
+    cfg = llama.LlamaConfig()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.LlamaForCausalLM.empty(cfg, device).init_(PARA_SEED)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    eot = LLAMA3_FIRST_SPECIAL + LLAMA3_SPECIALS.index("<|eot_id|>")
+    ids, mask = paraphraser_prompts(device)
+    warp = _para_warp()
+
+    def gen(seed):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        return llama.generate(model, ids, mask, max_new_tokens=PARA_NEW,
+                              warp=warp, eos_id=eot, pad_id=eot, generator=g)
+
+    with torch.inference_mode():
+        first = gen(PARA_SEED).cpu()               # warm
+        again = gen(PARA_SEED).cpu()
+        g = torch.Generator(device=device)
+        g.manual_seed(PARA_SEED)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(ids, mask, PARA_NEW)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(PARA_NEW - 1):
+            nxt = torch.multinomial(torch.softmax(warp(logits), -1), 1,
+                                    generator=g).squeeze(1)
+            logits = model.decode_step(nxt, cache)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        kinds, _, n_ops, wall = _trace(lambda r: gen(PARA_SEED).cpu(), 1,
+                                       _kind)
+    busy = sum(kinds.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(logits).all())
+    same = torch.equal(first, again)
+    good = (n_params == cfg.params() and finite and same
+            and ids.shape[1] < first.shape[1] <= ids.shape[1] + PARA_NEW
+            and all(p.is_cuda for p in model.parameters()))
+    row = {"params": n_params, "built_s": built,
+           "prompt_tokens": mask.sum(1).tolist(),
+           "prefill_ms": (t2 - t1) * 1e3,
+           "decode_ms_per_step": (t3 - t2) * 1e3 / (PARA_NEW - 1),
+           "generate_wall_ms": wall, "device_ms": busy,
+           "idle_share": 1.0 - busy / wall, "device_ops": n_ops,
+           "by_kind_ms": kinds, "peak_mem_gib": peak,
+           "same_tokens_from_one_seed": same, "ok": good}
+    print(f"  Llama-3.1-8B-Instruct geometry, fp32, {n_params / 1e9:.3f} B "
+          f"parameters drawn on the card in {built:.1f} s; "
+          f"{ids.shape[0]} rendered prompts of {min(row['prompt_tokens'])}"
+          f"-{max(row['prompt_tokens'])} tokens, {PARA_NEW} new at "
+          f"{PARA_SAMPLING}: prefill {row['prefill_ms']:.2f} ms, decode "
+          f"{row['decode_ms_per_step']:.2f} ms a step; a generate: wall "
+          f"{wall:.2f} ms, device {busy:.2f} ms, idle share "
+          f"{row['idle_share']:.3f}, {n_ops} device operations; peak "
+          f"{peak:.2f} GiB; one seed twice: same tokens {same} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    out["full_width"] = row
+    return good
+
+
+def _para_card_vs_cpu(device, out):
+    """``PARA_CHECK_LAYERS`` layers at full width, fp32, TF32 off: the
+    card's logits of each of ``PARA_NEW`` sampling steps (prefill, then the
+    cached decode) against the CPU's teacher-forced forward over the same
+    tokens. Bar: max |d| / max |logit| <= max(1e-5, the one-ulp control:
+    the card's own teacher-forced logits moved by a one-ulp move of the
+    embedding table)."""
+    import dataclasses as dc
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.models.text import llama
+
+    cfg = dc.replace(llama.LlamaConfig(), layers=PARA_CHECK_LAYERS)
+    model = llama.LlamaForCausalLM.empty(cfg, device).init_(PARA_SEED + 2)
+    eot = LLAMA3_FIRST_SPECIAL + LLAMA3_SPECIALS.index("<|eot_id|>")
+    ids, mask = paraphraser_prompts(device)
+    raw, warp = [], _para_warp()
+
+    def keep(logits):
+        raw.append(logits)
+        return warp(logits)
+
+    g = torch.Generator(device=device)
+    g.manual_seed(PARA_SEED)
+    n = ids.shape[1]
+    with torch.inference_mode():
+        full = llama.generate(model, ids, mask, max_new_tokens=PARA_NEW,
+                              warp=keep, eos_id=eot, pad_id=eot, generator=g)
+        steps = len(raw)
+        card = torch.stack(raw, 1).cpu()                 # [B, steps, V]
+        fmask = torch.cat([mask, torch.ones_like(full[:, n:])], 1)
+        tf = slice(n - 1, n - 1 + steps)
+        card_tf = model(full[:, :n - 1 + steps], fmask[:, :n - 1 + steps],
+                        keep=tf).cpu()
+        cpu_model = llama.LlamaForCausalLM.empty(cfg, "cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        w = model.model.embed_tokens.w
+        w.copy_(torch.nextafter(w, torch.full_like(w, float("inf"))))
+        moved = model(full[:, :n - 1 + steps], fmask[:, :n - 1 + steps],
+                      keep=tf).cpu()
+        del model, w
+        torch.cuda.empty_cache()
+        cpu = cpu_model(full[:, :n - 1 + steps].cpu(),
+                        fmask[:, :n - 1 + steps].cpu(), keep=tf)
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max()) / scale
+    cache_vs_forward = float((card - card_tf).abs().max()) / scale
+    control = float((moved - card_tf).abs().max()) / scale
+    bar = max(1e-5, control)
+    good = err <= bar and bool(torch.isfinite(card).all())
+    row = {"layers": PARA_CHECK_LAYERS, "steps": steps,
+           "max_rel_err": err, "cache_vs_forward_rel": cache_vs_forward,
+           "one_ulp_control": control, "bar": bar, "ok": good}
+    print(f"  {PARA_CHECK_LAYERS} layers at full width, fp32: the card's "
+          f"logits over {steps} sampling steps (prefill + cached decode) "
+          f"against the CPU's teacher-forced forward: max |d| / max |logit| "
+          f"{err:.3e} (the card's cache against its own forward "
+          f"{cache_vs_forward:.3e}; one-ulp control {control:.3e}; bar "
+          f"{bar:.3e}) {'ok' if good else 'FAIL'}", flush=True)
+    del cpu_model
+    out["card_vs_cpu"] = row
+    return good
+
+
+def _para_cli(device, out):
+    """``cli.main_text --text_model=distilbert --use_synonyms
+    --prob_aug_text=1`` for one step with ``GC_RCA_LLM_PATH`` at a
+    directory written here (full width at ``PARA_CHECK_LAYERS`` layers in
+    bf16, two safetensors shards and their index, the fixture's BPE
+    vocabulary with Llama-3's specials and Split pattern,
+    ``LLAMA3_STYLE_TEMPLATE``); the paraphraser's parameters must be on
+    the card and every sentence must go through it."""
+    import dataclasses as dc
+    import os
+    import shutil
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import main_text
+    from garbage_classification_rca_tpu_torch.data import synonymize
+    from garbage_classification_rca_tpu_torch.models.text import llama
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_paraphraser")
+    shutil.rmtree(work, ignore_errors=True)
+    spec = llama3_tokenizer_spec(os.path.join(here, "tests", "fixtures",
+                                              "vocab", "bpe"))
+    vocab = len(spec["model"]["vocab"]) + len(spec["added_tokens"])
+    cfg = dc.replace(llama.LlamaConfig(), layers=PARA_CHECK_LAYERS,
+                     vocab=vocab)
+    model = llama.LlamaForCausalLM.empty(cfg, device).init_(PARA_SEED + 3)
+    t0 = time.perf_counter()
+    size = write_llama_dir(os.path.join(work, "llama"), model, spec,
+                           dtype=torch.bfloat16, shards=2)
+    written = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    _write_jpeg_tree(os.path.join(work, "txt"), 16, 8, PARA_SEED + 4,
+                     size=32)
+    seen = {"on_card": None, "calls": 0, "answers": []}
+    load, make = synonymize.load_llm, main_text.make_hf_llm_fn
+
+    def spy_load(path, dev):
+        m, tok, gen = load(path, dev)
+        seen["on_card"] = all(p.is_cuda for p in m.parameters())
+        seen["dtype"] = str(next(m.parameters()).dtype)
+        return m, tok, gen
+
+    def spy_make(*a, **kw):
+        fn = make(*a, **kw)
+
+        def counted(s):
+            seen["calls"] += 1
+            answer = fn(s)
+            seen["answers"].append(answer)
+            return answer
+
+        return counted
+
+    cwd = os.getcwd()
+    os.makedirs(os.path.join(work, "cli"))
+    os.chdir(os.path.join(work, "cli"))
+    os.environ["GC_RCA_LLM_PATH"] = os.path.join(work, "llama")
+    synonymize.load_llm, main_text.make_hf_llm_fn = spy_load, spy_make
+    try:
+        t1 = time.perf_counter()
+        best = main_text.main([
+            f"--dataset_folder_name={work}/txt", "--text_model=distilbert",
+            "--use_synonyms", "--prob_aug_text=1", "--epochs=1",
+            "--ft_epochs=0", "--batch_size=16", "--acc_steps=1",
+            "--seq_len=64", "--data_workers=1", "--name=paraphraser",
+            f"--vocab_dir={here}/tests/fixtures/vocab/wordpiece"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    finally:
+        synonymize.load_llm, main_text.make_hf_llm_fn = load, make
+        os.environ.pop("GC_RCA_LLM_PATH", None)
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    good = (seen["on_card"] is True and seen["calls"] == 16
+            and all(isinstance(a, str) for a in seen["answers"])
+            and best is not None)
+    row = {"vocab": vocab, "layers": PARA_CHECK_LAYERS,
+           "dir_bytes": size, "write_s": written, "cli_s": secs,
+           "on_card": seen["on_card"], "dtype": seen.get("dtype"),
+           "paraphrased": seen["calls"], "answers": seen["answers"][:4],
+           "ok": good}
+    print(f"  cli.main_text --use_synonyms --prob_aug_text=1, one step, "
+          f"GC_RCA_LLM_PATH at a {size / 2 ** 30:.2f} GiB bf16 directory "
+          f"(2 shards + index, written in {written:.1f} s; vocabulary "
+          f"{vocab}): {secs:.1f} s; paraphraser on the card "
+          f"{seen['on_card']} ({seen.get('dtype')}), {seen['calls']} "
+          f"sentences paraphrased, e.g. {seen['answers'][:2]} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    out["cli"] = row
+    return good
+
+
+def check_paraphraser(device, results):
+    """Phase 18 (``_para_full_width``, ``_para_card_vs_cpu``,
+    ``_para_cli``): ``regex`` and ``jinja2`` import on this machine, the
+    paraphraser runs at full width on the card, agrees with the CPU, and
+    drives ``cli.main_text --use_synonyms``."""
+    import jinja2
+    import regex
+
+    out = {"regex": regex.__version__, "jinja2": jinja2.__version__}
+    print(f"  regex {regex.__version__}, jinja2 {jinja2.__version__}",
+          flush=True)
+    t0 = time.perf_counter()
+    ok = _para_full_width(device, out)
+    ok &= _para_card_vs_cpu(device, out)
+    ok &= _para_cli(device, out)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 in {out['seconds']:.1f} s", flush=True)
+    results["paraphraser"] = out
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -8175,7 +8744,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/17] device", flush=True)
+    print("[1/18] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8185,7 +8754,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/17] build", flush=True)
+    print("[2/18] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -8197,7 +8766,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/17] kernels vs plain versions", flush=True)
+    print("[3/18] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -8219,78 +8788,86 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/17] MM-RCA eval path",
+            ("[4/18] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/17] MM-RCA train path: full-width train step",
+            ("[5/18] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/17] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/18] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/17] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/18] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/17] image eval path: ViT-B/16",
+            ("[7/18] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/17] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/18] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/17] text train path: DistilBERT and BERT-base with "
+            ("[8/18] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/17] image train path: ViT-B/16",
+            ("[9/18] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/17] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/18] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/17] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/18] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/17] conv image eval CLI: cli.test_image "
+            ("[10/18] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/17] fusion eval: gated, classic, normalized, clip, "
+            ("[11/18] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/17] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/18] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/17] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/18] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/17] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/18] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/17] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/18] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/17] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/18] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[14/17] late-fusion train: gated, classic, normalized, clip, "
+            ("[13/18] VLM RESUME: cli.blip2_train and cli.qformer_train "
+             "killed at the epoch boundary and mid-epoch, resumed with "
+             "--resume_from, held to a control",
+             lambda: check_vlm_resume(device, results)),
+            ("[14/18] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/17] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/18] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/17] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/18] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/17] text family CLIs: cli.main_text "
+            ("[15/18] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
              lambda: check_text_family_clis(device, results)),
-            ("[16/17] conv train: the 12 conv backbones, a step each; "
+            ("[16/18] conv train: the 12 conv backbones, a step each; "
              "fp64 and fp32 card vs CPU",
              lambda: check_conv_train(device, results)),
-            ("[16/17] conv train CLI and RESUME: cli.main_image res18 -> "
+            ("[16/18] conv train CLI and RESUME: cli.main_image res18 -> "
              "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
              "killed and resumed, held to a control",
              lambda: check_resume(device, results)),
-            ("[17/17] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
+            ("[17/18] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
              "weights; K2 in every prefill), the continuous-batching server, "
              "speculative decoding",
              lambda: check_serving(device, results)),
-            ("[17/17] serving CLIs: cli.blip2_test --max_new_tokens=4 "
+            ("[17/18] serving CLIs: cli.blip2_test --max_new_tokens=4 "
              "(greedy, sampled, int8), cli.serve",
-             lambda: check_serving_clis(device, results))):
-        if title.startswith("[17/17] serving:"):
+             lambda: check_serving_clis(device, results)),
+            ("[18/18] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
+             "Llama-3.1-8B-Instruct's width, card vs CPU, cli.main_text "
+             "--use_synonyms",
+             lambda: check_paraphraser(device, results))):
+        if title.startswith("[17/18] serving:"):
             results["phases_1_16_s"] = time.perf_counter() - t_start
             print(f"  (phases 1-16 in {results['phases_1_16_s']:.1f} s)",
                   flush=True)
@@ -8305,7 +8882,9 @@ def main() -> int:
             return _fail(f"{title}: {type(e).__name__}: {e}")
         if not ok:
             return _fail(f"{title}: check failed")
-        print(f"  ({time.perf_counter() - t_phase:.1f} s; "
+        secs = time.perf_counter() - t_phase
+        results.setdefault("phase_seconds", {})[title] = secs
+        print(f"  ({secs:.1f} s; "
               f"{time.perf_counter() - t_start:.1f} s since the start)",
               flush=True)
     # launches on each kernel's own main path: the MM-RCA eval path for K1 /
@@ -8437,6 +9016,9 @@ def main() -> int:
                       "resume": results["resume"],
                       "serving": results["serving"],
                       "serving_clis": results["serving_clis"],
+                      "vlm_resume": results["vlm_resume"],
+                      "paraphraser": results["paraphraser"],
+                      "phase_seconds": results["phase_seconds"],
                       "phases_1_16_s": results["phases_1_16_s"],
                       "seconds": time.perf_counter() - t_start,
                       "grad_checks": {k: results[k] for k in (

@@ -26,13 +26,11 @@ def resolve_model(getter, name: str):
         raise SystemExit(1)
 
 
-def check_unported_flags(args, resume: bool = False) -> None:
+def check_unported_flags(args) -> None:
     """Raise on the training flags whose paths the port does not have
-    yet (shared by the trainers). `resume`: the trainer resumes from
-    ``--model_path=.../RESUME`` (the three engine trainers, which ignore
-    ``--resume_from`` as the JAX CLIs do); by default every resume flag
-    is refused (the VLM trainers)."""
-    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1)"
+    yet (shared by the five trainers): ``--fsdp``, meshes and multi-host
+    runs (ROADMAP.md, queue 1 item 7), ``--wandb``."""
+    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1 item 7)"
     if args.fsdp:
         raise NotImplementedError(f"--fsdp {todo}")
     if args.mesh_shape not in ("", "data:-1", "data:1"):
@@ -40,15 +38,10 @@ def check_unported_flags(args, resume: bool = False) -> None:
                                   "the port trains on one device")
     if os.environ.get("GC_RCA_MULTIHOST"):
         raise NotImplementedError(f"multi-host training {todo}")
-    if not resume and (args.resume_every_steps or args.resume_from or (
-            args.model_path and os.path.basename(
-                os.path.normpath(args.model_path)) == "RESUME")):
-        raise NotImplementedError(
-            "RESUME / mid-epoch resume of this trainer is not ported to "
-            "PyTorch yet (ROADMAP.md, queue 1 item 4)")
     if args.wandb:
-        raise NotImplementedError(f"--wandb {todo}; the port logs JSONL "
-                                  "under runs/")
+        raise NotImplementedError(
+            "--wandb is not ported to PyTorch yet (ROADMAP.md, queue 1); "
+            "the port logs JSONL under runs/")
 
 
 def load_unimodal_model(mdef, path: str, what: str, device):

@@ -9,7 +9,8 @@ a BEST file of ``cli.blip2_train``; makes the host batches
 answer-word label tokens; reference blip_2_training.py:47-107); runs the
 eval loop; and gives both trainers their input stream
 (``vlm_train_stream``: shuffled windows of ``acc_steps`` microbatches) and
-their grad-accumulating optimizer step (``make_accum_step``).
+their grad-accumulating optimizer step (``make_accum_step``), and the
+full resume both share (``VlmResume``: ``--resume_from=.../RESUME``).
 
 ``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
 geometry for the JAX package's tiny test configuration (CPU drives only:
@@ -18,8 +19,11 @@ its head dims, 16, are not the kernels').
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +35,7 @@ from ..eval.harness import run_eval
 from ..models.vlm import blip2
 from ..models.vlm.prompts import (FOLDER_TO_ANSWER, MAX_PROMPT_TOKENS,
                                   build_prompt, prompt_text_from_path)
+from ..train.engine import PhaseResult, load_model_state, maybe_load_resume
 
 def normalize_clip(x_uint8: torch.Tensor, dtype=torch.bfloat16):
     """uint8 NHWC -> CLIP-normalized NHWC in `dtype`: ``x * (1 / (255
@@ -227,15 +232,74 @@ def iter_accum_windows(batcher, batch_size: int, acc_steps: int, *,
 
 
 def vlm_train_stream(batcher, batch_size: int, acc_steps: int, device, *,
-                     seed: int, prefetch_depth: int = 2):
+                     seed: int, prefetch_depth: int = 2, skip: int = 0,
+                     epoch: int = 0):
     """The trainers' input stream on one process: ``iter_accum_windows``
     shuffled with `seed`, moved to `device` ahead of use (the JAX
-    ``vlm_train_stream`` without its multi-host branch)."""
+    ``vlm_train_stream`` without its multi-host branch). `skip`: the
+    windows of `epoch` a mid-epoch RESUME has done, dropped from the host
+    stream (the same again for the same seed); more than the epoch holds
+    is a stale RESUME, a ``SystemExit`` with the JAX trainers' words."""
     from ..data.pipeline import to_device
 
-    return to_device(iter_accum_windows(batcher, batch_size, acc_steps,
-                                        shuffle=True, seed=seed),
-                     device, depth=prefetch_depth)
+    host = iter_accum_windows(batcher, batch_size, acc_steps, shuffle=True,
+                              seed=seed)
+    if skip:
+        n_windows = math.ceil(math.ceil(len(batcher.m) / batch_size)
+                              / acc_steps)
+        if skip > n_windows:
+            raise SystemExit(
+                f"RESUME step {skip} > {n_windows} optimizer "
+                f"windows in epoch {epoch} — stale RESUME dir or "
+                "changed --batch_size/dataset? Delete the RESUME "
+                "directory to start the epoch over.")
+        host = itertools.islice(host, skip, None)
+    return to_device(host, device, depth=prefetch_depth)
+
+
+@dataclass
+class VlmResume:
+    """Where a VLM trainer starts: from scratch, or from the RESUME file
+    ``--resume_from`` names (the JAX trainers' full resume). ``epoch`` is
+    the first epoch to run, ``step`` the windows of it already done (a
+    mid-epoch save), ``losses`` their losses, ``key`` the key's seed to
+    carry on with (None: the trainer's own)."""
+
+    epoch: int = 0
+    step: int = 0
+    losses: List[float] = field(default_factory=list)
+    best: PhaseResult = field(
+        default_factory=lambda: PhaseResult(0.0, 0, None))
+    key: Optional[int] = None
+
+    @classmethod
+    def load(cls, path: str, trainable: torch.nn.Module,
+             optimizer: torch.optim.Optimizer) -> "VlmResume":
+        """Restore `trainable` (the adapters or the classifier) and
+        `optimizer` from the RESUME file `path` names; a start from
+        scratch when `path` names none."""
+        payload = maybe_load_resume(path)
+        if payload is None:
+            return cls()
+        load_model_state(trainable, payload["state_dict"])
+        optimizer.load_state_dict(payload["optimizer"])
+        m = payload["meta"]
+        step = int(m.get("step") or 0)
+        print(f"Full-resume from {path} (epoch={m['epoch']}"
+              + (f" step {step}" if step else "") + ")")
+        return cls(epoch=int(m["epoch"]) + (0 if step else 1), step=step,
+                   losses=[float(l) for l in m.get("losses") or ()],
+                   best=PhaseResult(float(m["best_val_acc"]),
+                                    int(m["best_epoch"]),
+                                    m["best_path"] or None),
+                   key=int(m["key"]))
+
+    def skip(self, epoch: int) -> int:
+        return self.step if epoch == self.epoch else 0
+
+    def epoch_losses(self, epoch: int) -> list:
+        """The losses `epoch` starts with: the saved ones on re-entry."""
+        return list(self.losses) if self.skip(epoch) else []
 
 
 def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,

@@ -22,6 +22,12 @@ blip_2_training.py:176-311), on one device:
     adapters alone, as the JAX trainer saves only the trained leaves)
     when the accuracy improves; ``cli.blip2_test --model_path=<BEST>``
     reads it;
+  * ``model_weights/blip2_lora/RESUME`` after each epoch and every
+    ``--resume_every_steps`` windows: the adapters, AdamW's state, the
+    key, epoch, step, the epoch's losses so far and the best;
+    ``--resume_from=.../RESUME`` continues from it bit for bit, past the
+    completed windows of a mid-epoch save (``--model_path`` stays the HF
+    base checkpoint);
   * ``--hf_internal_dropout``: the Q-Former's p = 0.1 sites, OPT's p = 0.1
     sites on the attention and FFN outputs and peft's lora_dropout 0.05,
     with a key per microbatch folded from the window's.
@@ -30,11 +36,12 @@ On the card each microbatch runs K2 39 times (EVA, head dim 88), K4a 32
 times and K4b 32 times (OPT, head dim 80, causal with the key mask). Runs
 on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
 (``cli.check_unported_flags`` raises): meshes (data, model and pipe
-axes), multi-host runs, RESUME files and ``--wandb``.
+axes), multi-host runs and ``--wandb``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -45,9 +52,10 @@ from ..data.manifest import build_manifest
 from ..device import resolve_device
 from ..models.vlm import blip2
 from ..nn.core import HFDropout, Key
-from ..train.engine import MetricsLogger, PhaseResult, save_best
+from ..train.engine import (MetricsLogger, PhaseResult, save_best,
+                            save_train_state)
 from . import check_unported_flags, cli_device
-from .blip2_common import (Blip2Batcher, build_blip2,
+from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
                            class_logits_from_next_token, make_accum_step,
                            normalize_clip, vlm_eval, vlm_train_stream)
 
@@ -144,24 +152,35 @@ def main(argv=None):
     print(f"train {len(train_m)} / val {len(val_m)}")
     train_b = Blip2Batcher(train_m, tok, workers=args.data_workers)
     val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
-    _, step = make_lora_train_step(
+    opt, step = make_lora_train_step(
         model, compute_dtype=dtype,
         hf_internal_dropout=args.hf_internal_dropout)
     eval_step = make_eval_step(
         model, answer_first_token_table(train_b, train_m.classes), dtype)
     logger = MetricsLogger(args.name or "blip2_lora")
-    best = PhaseResult(0.0, 0, None)
-    key = Key(args.seed)
+    # the key is carried, split once a window, so RESUME saves it
+    start = VlmResume.load(args.resume_from, model.lora, opt)
+    best = start.best
+    key = Key(args.seed if start.key is None else start.key)
+    save = functools.partial(
+        save_train_state, model=model.lora, optimizer=opt,
+        model_name="blip2_lora", phase_name="train", scheduler=None,
+        layers=cfg.opt.layers)
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start.epoch, args.epochs):
             t0 = time.time()
-            losses = []
-            for window in vlm_train_stream(
+            skip = start.skip(epoch)
+            losses = start.epoch_losses(epoch)
+            for done, window in enumerate(vlm_train_stream(
                     train_b, args.batch_size, BLIP2_ACC, device,
-                    seed=args.seed + epoch,
-                    prefetch_depth=args.prefetch_depth):
+                    seed=args.seed + epoch, prefetch_depth=args.prefetch_depth,
+                    skip=skip, epoch=epoch), skip + 1):
                 key, step_key = key.split(2)
                 losses.append(step(window, step_key))
+                if args.resume_every_steps and \
+                        done % args.resume_every_steps == 0:
+                    save(key=key, epoch=epoch, best=best, step=done,
+                         losses=losses)
             losses = [float(l) for l in losses]
             val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
                                prefetch_depth=args.prefetch_depth)[0]
@@ -175,6 +194,7 @@ def main(argv=None):
                     model.lora, model_name="blip2_lora", epoch=epoch,
                     val_acc=val_acc, args=args, fine_tuning=False,
                     layers=cfg.opt.layers))
+            save(key=key, epoch=epoch, best=best)
     finally:
         train_b.close()
         val_b.close()

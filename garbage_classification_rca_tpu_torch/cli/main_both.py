@@ -105,7 +105,7 @@ def main(argv=None):
         raise SystemExit(1)
     cfg = fusion_config_from_args(args)
     check_config(cfg)
-    check_unported_flags(args, resume=True)
+    check_unported_flags(args)
     device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)
 

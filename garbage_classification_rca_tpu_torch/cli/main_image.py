@@ -80,7 +80,7 @@ def main(argv=None):
             "dropout) — it is consumed by main_text/main_both/blip2_train/"
             "qformer_train only. Remove the flag.")
     mdef = resolve_model(get_image_model, args.image_model)
-    check_unported_flags(args, resume=True)
+    check_unported_flags(args)
     if args.calculate_dataset_stats:
         raise NotImplementedError(
             "--calculate_dataset_stats is not ported to PyTorch yet: it "

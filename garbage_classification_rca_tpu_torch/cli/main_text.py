@@ -18,7 +18,10 @@ weights). ``--hf_internal_dropout`` keeps the HF tower's own p = 0.1
 dropout active while training, as the reference's train-mode towers have
 it; its attention-probabilities site runs in the dropout flash-attention
 kernels. ``--use_synonyms`` swaps words through the rule table at
-``--prob_aug_text`` per batch. ``--model_path`` warm-starts from a
+``--prob_aug_text`` per batch, or, with ``GC_RCA_LLM_PATH`` naming a local
+transformers Llama directory, paraphrases through it on the trainer's
+device (``data/synonymize.make_hf_llm_fn``, its draws seeded from
+``--seed``). ``--model_path`` warm-starts from a
 reference-layout classifier ``.pth`` or a BEST checkpoint of this trainer;
 pointed at ``model_weights/<text_model>/RESUME``, which both phases write
 after every epoch (and every ``--resume_every_steps`` optimizer windows),
@@ -31,8 +34,8 @@ with ``--tl`` trains the Linear the reference replaces: BART's
 reference spelling ``mobile_bert`` none, as in the JAX CLI). The head
 drops its input at the model's own default ratio. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(NotImplementedError): ``GC_RCA_LLM_PATH``, --wandb, --fsdp, --mesh_shape
-other than one device, multi-host runs.
+(NotImplementedError): --wandb, --fsdp, --mesh_shape other than one
+device, multi-host runs.
 """
 
 from __future__ import annotations
@@ -119,7 +122,7 @@ def main(argv=None):
         print("Invalid optimizer!")   # reference wording, main_image.py:536
         raise SystemExit(1)
     mdef = resolve_model(get_text_model, args.text_model)
-    check_unported_flags(args, resume=True)
+    check_unported_flags(args)
     spec = TEXT_ARCHS[args.text_model]
     device = resolve_device(cli_device())
 
@@ -137,12 +140,16 @@ def main(argv=None):
     tok = get_tokenizer(args.text_model, vocab_dir=resolve_vocab_dir(args))
     syn = None
     if args.use_synonyms:
+        # the reference's Llama paraphraser when local weights are given
         llm_path = os.environ.get("GC_RCA_LLM_PATH")
         if llm_path:
-            syn = Synonymizer(seed=args.seed, llm_fn=make_hf_llm_fn(llm_path))
+            syn = Synonymizer(seed=args.seed, llm_fn=make_hf_llm_fn(
+                llm_path, seed=args.seed, device=device))
+            print(f"Synonymizer: HF LLM backend from {llm_path}")
         else:
             syn = Synonymizer(seed=args.seed)
-            print("Synonymizer: rule-table backend")
+            print("Synonymizer: rule-table backend (set GC_RCA_LLM_PATH "
+                  "to local Llama weights for the reference LLM backend)")
     seq_len = args.seq_len or DEFAULT_SEQ_LEN
     train_batcher = SynonymBatcher(
         train_manifest, (0, 0), tokenizer=tok, seq_len=seq_len,

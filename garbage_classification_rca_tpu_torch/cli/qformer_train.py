@@ -16,15 +16,21 @@ classifier saved as a BEST file (``model_weights/qformer_classifier/``)
 when the accuracy improves; ``cli.qformer_test --classifier_weights=<BEST>``
 reads it. ``--hf_internal_dropout`` runs the Q-Former's p = 0.1 sites,
 with a key a window folded from ``--seed``, the epoch and the window.
+``model_weights/qformer_classifier/RESUME`` is written after each epoch
+and every ``--resume_every_steps`` windows (the classifier, AdamW's
+state, epoch, step, the epoch's losses so far, the best);
+``--resume_from=.../RESUME`` continues from it bit for bit: the window
+keys are derived, not carried, so a mid-epoch resume draws the same.
 
 On the card each microbatch runs K2 39 times (EVA, head dim 88). Runs on
 CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(``cli.check_unported_flags`` raises): meshes, multi-host runs, RESUME
-files and ``--wandb``.
+(``cli.check_unported_flags`` raises): meshes, multi-host runs and
+``--wandb``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -35,11 +41,13 @@ from ..data.manifest import build_manifest
 from ..device import resolve_device
 from ..models.vlm import blip2
 from ..nn.core import HFDropout, Key
-from ..train.engine import MetricsLogger, PhaseResult, save_best
+from ..train.engine import (MetricsLogger, PhaseResult, save_best,
+                            save_train_state)
 from ..train.loss import cross_entropy_loss_and_weight
 from . import check_unported_flags, cli_device
-from .blip2_common import (Blip2Batcher, build_blip2, make_accum_step,
-                           normalize_clip, vlm_eval, vlm_train_stream)
+from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
+                           make_accum_step, normalize_clip, vlm_eval,
+                           vlm_train_stream)
 from .blip2_train import blip2_adamw
 
 TRAIN_SUFFIX = "_Train"
@@ -97,23 +105,33 @@ def main(argv=None):
                             args.dataset_folder_name) + VAL_SUFFIX)
     train_b = Blip2Batcher(train_m, tok, workers=args.data_workers)
     val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
-    _, train_step, eval_step = make_steps(
+    opt, train_step, eval_step = make_steps(
         model, compute_dtype=dtype,
         hf_internal_dropout=args.hf_internal_dropout)
     logger = MetricsLogger(args.name or "qformer_cls")
-    best = PhaseResult(0.0, 0, None)
+    start = VlmResume.load(args.resume_from, model.classifier, opt)
+    best = start.best
+    # RESUME records the seed's key, as the JAX trainer's does
+    save = functools.partial(
+        save_train_state, model=model.classifier, optimizer=opt,
+        model_name="qformer_classifier", phase_name="train", scheduler=None,
+        layers=0, key=Key(args.seed))
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start.epoch, args.epochs):
             t0 = time.time()
-            losses = []
+            skip = start.skip(epoch)
+            losses = start.epoch_losses(epoch)
             for w, window in enumerate(vlm_train_stream(
                     train_b, args.batch_size, QF_ACC, device,
-                    seed=args.seed + epoch,
-                    prefetch_depth=args.prefetch_depth)):
+                    seed=args.seed + epoch, prefetch_depth=args.prefetch_depth,
+                    skip=skip, epoch=epoch), skip):
                 # the window's key, derived rather than carried (the JAX
                 # trainer's fold_in(fold_in(seed, epoch), window))
                 losses.append(train_step(
                     window, Key(args.seed).fold_in(epoch).fold_in(w)))
+                if args.resume_every_steps and \
+                        (w + 1) % args.resume_every_steps == 0:
+                    save(epoch=epoch, best=best, step=w + 1, losses=losses)
             losses = [float(l) for l in losses]
             val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
                                prefetch_depth=args.prefetch_depth)[0]
@@ -127,6 +145,7 @@ def main(argv=None):
                     model.classifier, model_name="qformer_classifier",
                     epoch=epoch, val_acc=val_acc, args=args,
                     fine_tuning=False, layers=0))
+            save(epoch=epoch, best=best)
     finally:
         train_b.close()
         val_b.close()

@@ -15,7 +15,9 @@ self-contained implementations that read vocab files from disk:
   * :class:`ByteLevelBPETokenizer` — GPT-2-style ``vocab.json`` +
     ``merges.txt`` (gpt2, and with <s>/</s> specials roberta, bart),
   * :class:`HashTokenizer` — deterministic hashing fallback so tests,
-    benches and synthetic runs are hermetic when no vocab ships.
+    benches and synthetic runs are hermetic when no vocab ships,
+  * :class:`HFTokenizer` — a Hugging Face ``tokenizer.json`` (byte-level
+    BPE; the Llama paraphraser's), without ``tokenizers``.
 
 ``get_tokenizer(model_name, vocab_dir)`` picks the right scheme +
 special-token convention per text tower (reference text_models.py).
@@ -197,31 +199,13 @@ class ByteLevelBPETokenizer(BaseTokenizer):
         return cls(vocab, merges, **kw)
 
     def _bpe(self, token: str) -> List[str]:
-        if token in self.cache:
-            return self.cache[token]
-        word = list(token)
-        while len(word) > 1:
-            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
-            best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 30))
-            if best not in self.ranks:
-                break
-            a, b = best
-            merged, i = [], 0
-            while i < len(word):
-                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
-                    merged.append(a + b)
-                    i += 2
-                else:
-                    merged.append(word[i])
-                    i += 1
-            word = merged
-        self.cache[token] = word
-        return word
+        if token not in self.cache:
+            self.cache[token] = bpe_merge(token, self.ranks)
+        return self.cache[token]
 
     def encode_one(self, text: str, max_len: int):
         import regex as re_mod  # transformers dep, present in image
-        pat = re_mod.compile(
-            r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
+        pat = re_mod.compile(GPT2_PATTERN)
         ids: List[int] = []
         for tok in pat.findall(text):
             btok = "".join(self.byte_enc[b] for b in tok.encode("utf-8"))
@@ -246,6 +230,33 @@ class ByteLevelBPETokenizer(BaseTokenizer):
             "utf-8", errors="replace")
 
 
+# GPT-2's pre-tokenizer pattern (the ByteLevel pre-tokenizer's regex)
+GPT2_PATTERN = (r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"""
+                r"""| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
+
+
+def bpe_merge(token: str, ranks: Dict[Tuple[str, str], int]) -> List[str]:
+    """Byte-level BPE of one pre-token: merge the adjacent pair of the
+    lowest rank, every occurrence left to right, until none has a rank."""
+    word = list(token)
+    while len(word) > 1:
+        pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        best = min(pairs, key=lambda p: ranks.get(p, 1 << 30))
+        if best not in ranks:
+            break
+        a, b = best
+        merged, i = [], 0
+        while i < len(word):
+            if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
+                merged.append(a + b)
+                i += 2
+            else:
+                merged.append(word[i])
+                i += 1
+        word = merged
+    return word
+
+
 def _bytes_to_unicode() -> Dict[int, str]:
     bs = (list(range(ord("!"), ord("~") + 1)) +
           list(range(ord("\xa1"), ord("\xac") + 1)) +
@@ -258,6 +269,224 @@ def _bytes_to_unicode() -> Dict[int, str]:
             cs.append(256 + n)
             n += 1
     return dict(zip(bs, map(chr, cs)))
+
+
+# transformers' clean_up_tokenization: the spaces its decode drops
+_CLEANUPS = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+             (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"),
+             (" 've", "'ve"), (" 're", "'re"))
+
+
+def _token_content(tok) -> Optional[str]:
+    """A tokenizer_config.json special token: a string or {"content"}."""
+    return tok.get("content") if isinstance(tok, dict) else tok
+
+
+class HFTokenizer:
+    """A Hugging Face ``tokenizer.json`` tokenizer (byte-level BPE), read
+    without ``tokenizers`` or ``transformers``, as the paraphraser
+    (``data/synonymize.make_hf_llm_fn``) calls it:
+
+    * ``added_tokens`` are split out of the text first (leftmost, longest
+      first) and map to their ids;
+    * the rest goes through the pre-tokenizer: ``ByteLevel`` (GPT-2's
+      pattern when ``use_regex``), ``Split`` with a regex pattern and the
+      ``Isolated`` behaviour (Llama-3's ``\\p{L}`` / ``\\p{N}`` pattern),
+      or a ``Sequence`` of them;
+    * then the BPE of ``model.vocab`` / ``model.merges`` (pairs as "a b"
+      strings or two-item lists), a whole pre-token that is in the
+      vocabulary taken as it is under ``ignore_merges``;
+    * no normalizer and no post-processor: the paraphraser encodes with
+      ``add_special_tokens=False``;
+    * ``batch`` pads on the left with the pad id (the eos when the
+      tokenizer has none), mask 0 there;
+    * ``decode`` maps byte-level characters back to bytes (a token with a
+      character outside the byte table keeps its own UTF-8), drops the
+      ``special`` added tokens on request and, where
+      ``tokenizer_config.json`` asks, transformers' cleanup of spaces.
+
+    ``tokenizer_config.json`` gives the bos / eos / pad / unk tokens, the
+    ``chat_template`` (or ``chat_template.jinja`` beside it) and
+    ``clean_up_tokenization_spaces``."""
+
+    def __init__(self, spec: Dict, config: Optional[Dict] = None,
+                 chat_template: Optional[str] = None):
+        import regex
+
+        config = config or {}
+        model = spec["model"]
+        if model.get("type", "BPE") != "BPE":
+            raise ValueError(f"not a BPE tokenizer: {model.get('type')}")
+        if spec.get("normalizer") not in (None, {"type": "Sequence",
+                                                 "normalizers": []}):
+            raise ValueError("tokenizer.json normalizers are not read: "
+                             f"{spec['normalizer']}")
+        self.vocab: Dict[str, int] = dict(model["vocab"])
+        self.ranks = {}
+        for i, m in enumerate(model["merges"]):
+            a, b = m.split(" ", 1) if isinstance(m, str) else m
+            self.ranks[(a, b)] = i
+        self.ignore_merges = bool(model.get("ignore_merges", False))
+        self.added = {t["content"]: t["id"] for t in spec.get("added_tokens",
+                                                              ())}
+        self.special_ids = {t["id"] for t in spec.get("added_tokens", ())
+                            if t.get("special")}
+        self.inv = {i: t for t, i in self.vocab.items()}
+        self.inv.update({i: t for t, i in self.added.items()})
+        self.added_re = (regex.compile("|".join(
+            regex.escape(t) for t in sorted(self.added, key=len,
+                                            reverse=True)))
+            if self.added else None)
+        self.steps = self._pre_tokenizer(spec.get("pre_tokenizer"), regex)
+        self.byte_enc = _bytes_to_unicode()
+        self.byte_dec = {c: b for b, c in self.byte_enc.items()}
+        self.cache: Dict[str, List[str]] = {}
+        names = {k: _token_content(config.get(k))
+                 for k in ("bos_token", "eos_token", "pad_token",
+                           "unk_token")}
+        self.bos_token, self.eos_token = names["bos_token"], names["eos_token"]
+        self.pad_token = names["pad_token"] or self.eos_token
+        self.unk_token = names["unk_token"]
+        self.eos_token_id = self.token_id(self.eos_token)
+        self.pad_token_id = self.token_id(self.pad_token)
+        self.clean_up = bool(config.get("clean_up_tokenization_spaces",
+                                        False))
+        self.chat_template = chat_template or config.get("chat_template")
+
+    @classmethod
+    def from_dir(cls, path: str) -> "HFTokenizer":
+        """The tokenizer ``save_pretrained`` wrote into `path`."""
+        with open(os.path.join(path, "tokenizer.json"),
+                  encoding="utf-8") as f:
+            spec = json.load(f)
+        config, template = {}, None
+        cfg = os.path.join(path, "tokenizer_config.json")
+        if os.path.isfile(cfg):
+            with open(cfg, encoding="utf-8") as f:
+                config = json.load(f)
+        jinja = os.path.join(path, "chat_template.jinja")
+        if os.path.isfile(jinja):
+            with open(jinja, encoding="utf-8") as f:
+                template = f.read()
+        return cls(spec, config, template)
+
+    def token_id(self, token: Optional[str]) -> Optional[int]:
+        if token is None:
+            return None
+        return self.added.get(token, self.vocab.get(token))
+
+    def special_tokens(self) -> Dict[str, str]:
+        """The chat template's special-token variables."""
+        return {k: v for k, v in (("bos_token", self.bos_token),
+                                  ("eos_token", self.eos_token),
+                                  ("unk_token", self.unk_token),
+                                  ("pad_token", self.pad_token))
+                if v is not None}
+
+    @staticmethod
+    def _pre_tokenizer(spec, regex):
+        """The pre-tokenizer as a list of (split function, byte-map)."""
+        if spec is None:
+            return [(None, False)]
+        kind = spec["type"]
+        if kind == "Sequence":
+            return [step for sub in spec["pretokenizers"]
+                    for step in HFTokenizer._pre_tokenizer(sub, regex)]
+        if kind == "ByteLevel":
+            if spec.get("add_prefix_space"):
+                raise ValueError("ByteLevel add_prefix_space is not read")
+            pat = (regex.compile(GPT2_PATTERN)
+                   if spec.get("use_regex", True) else None)
+            return [(pat, True)]
+        if kind == "Split":
+            if spec.get("behavior") != "Isolated" or spec.get("invert") \
+                    or "Regex" not in spec["pattern"]:
+                raise ValueError(f"Split is read with a Regex pattern and "
+                                 f"the Isolated behaviour only: {spec}")
+            return [(regex.compile(spec["pattern"]["Regex"]), False)]
+        raise ValueError(f"pre-tokenizer {kind} is not read")
+
+    def _pre_tokens(self, text: str) -> List[str]:
+        pieces = [text]
+        for pat, byte_map in self.steps:
+            if pat is not None:
+                out = []
+                for piece in pieces:
+                    # Isolated: each match a piece, each gap between too
+                    at = 0
+                    for m in pat.finditer(piece):
+                        if m.start() > at:
+                            out.append(piece[at:m.start()])
+                        if m.end() > m.start():
+                            out.append(m.group())
+                        at = m.end()
+                    if at < len(piece):
+                        out.append(piece[at:])
+                pieces = out
+            if byte_map:
+                pieces = ["".join(self.byte_enc[b] for b in p.encode("utf-8"))
+                          for p in pieces]
+        return pieces
+
+    def _word_ids(self, word: str) -> List[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        if word not in self.cache:
+            self.cache[word] = bpe_merge(word, self.ranks)
+        return [self.vocab[t] for t in self.cache[word] if t in self.vocab]
+
+    def encode(self, text: str) -> List[int]:
+        """`text`'s ids, no special token added around them."""
+        ids: List[int] = []
+        at = 0
+        spans = ([] if self.added_re is None
+                 else list(self.added_re.finditer(text)))
+        for m in spans + [None]:
+            end = len(text) if m is None else m.start()
+            if end > at:
+                for word in self._pre_tokens(text[at:end]):
+                    ids.extend(self._word_ids(word))
+            if m is not None:
+                ids.append(self.added[m.group()])
+                at = m.end()
+        return ids
+
+    def batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, attention mask), int64 [B, L]: left-padded to the longest
+        text with the pad id."""
+        enc = [self.encode(t) for t in texts]
+        n = max(len(e) for e in enc)
+        ids = np.full((len(enc), n), self.pad_token_id, np.int64)
+        mask = np.zeros((len(enc), n), np.int64)
+        for i, e in enumerate(enc):
+            if e:
+                ids[i, n - len(e):] = e
+                mask[i, n - len(e):] = 1
+        return ids, mask
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = False) -> str:
+        out = bytearray()
+        for i in ids:
+            i = int(i)
+            if skip_special_tokens and i in self.special_ids:
+                continue
+            tok = self.inv.get(i)
+            if tok is None:
+                continue
+            if all(c in self.byte_dec for c in tok):
+                out.extend(self.byte_dec[c] for c in tok)
+            else:
+                out.extend(tok.encode("utf-8"))
+        text = out.decode("utf-8", errors="replace")
+        if self.clean_up:
+            for a, b in _CLEANUPS:
+                text = text.replace(a, b)
+        return text
+
+    def batch_decode(self, rows, skip_special_tokens: bool = False
+                     ) -> List[str]:
+        return [self.decode(r, skip_special_tokens) for r in rows]
 
 
 class HashTokenizer(BaseTokenizer):

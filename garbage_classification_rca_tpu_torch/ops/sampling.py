@@ -19,6 +19,11 @@ the survivors by the Gumbel-max trick, from the ``torch.Generator`` of an
 JAX key structure instead (``fold_in(rng, uid)`` per request, then
 ``fold_in(·, t)`` per step), so that a server row reproduces its
 standalone ``generate``.
+
+``warp_logits_hf`` is the paraphraser's (``data/synonymize``): transformers'
+own warpers in their own order and arithmetic, whose top-p differs from
+``filter_logits``'s at ties and at the boundary (an ascending sort,
+removing where the cumulative mass is <= 1 - p).
 """
 
 from __future__ import annotations
@@ -92,3 +97,28 @@ def sample_tokens(key, logits: torch.Tensor, cfg: SamplerConfig
         return torch.argmax(logits, dim=-1).to(torch.int32)
     return gumbel_argmax(filter_logits(logits, cfg),
                          key.generator(logits.device)).to(torch.int32)
+
+
+def warp_logits_hf(scores: torch.Tensor, temperature: float = 1.0,
+                   top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """transformers' ``do_sample`` warpers over fp32 scores [B, V], as its
+    ``generate`` applies them (``min_tokens_to_keep`` 1):
+    TemperatureLogitsWarper (``scores / T``, when T != 1),
+    TopKLogitsWarper (below the k-th largest -> -inf), TopPLogitsWarper
+    (sort ascending, remove where the cumulative softmax is <= 1 - p,
+    never the largest)."""
+    neg = float("-inf")
+    if temperature != 1.0:
+        scores = scores / temperature
+    if top_k:
+        k = min(int(top_k), scores.shape[-1])
+        kth = torch.topk(scores, k)[0][..., -1, None]
+        scores = scores.masked_fill(scores < kth, neg)
+    if top_p < 1.0:
+        sorted_logits, sorted_idx = torch.sort(scores, descending=False)
+        cum = sorted_logits.softmax(dim=-1).cumsum(dim=-1)
+        remove = cum <= (1 - top_p)
+        remove[..., -1:] = False
+        scores = scores.masked_fill(remove.scatter(1, sorted_idx, remove),
+                                    neg)
+    return scores

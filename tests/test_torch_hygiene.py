@@ -72,7 +72,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.image.convnext", "models.image.efficientnet_common",
                 "train.engine", "train.optim", "cli.main_both",
                 "nn.core", "ops.sampling", "ops.quant", "serving.engine",
-                "cli.serve"):
+                "cli.serve", "checkpoint.hf_dir", "data.chat_template",
+                "data.tokenizer", "models.text.llama"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -270,8 +271,27 @@ def test_synonymizer_and_synonym_batcher_match_jax(tiny_dataset):
     assert [a.augment(t) for t in texts * 3] == [b.augment(t)
                                                  for t in texts * 3]
     assert tsyn.Synonymizer(llm_fn=str.upper).augment("a cup") == "A CUP"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsyn.make_hf_llm_fn("/some/llama")
+    # the paraphraser's prompts are copies: the chat the JAX backend
+    # renders, read from its tokenizer
+    seen = []
+
+    class Tok:
+        pad_token = "x"
+
+        def apply_chat_template(self, chat, **kw):
+            seen.append(chat)
+            raise StopIteration
+
+    class Model:
+        def eval(self):
+            return self
+
+    with pytest.raises(StopIteration):
+        jsyn.make_hf_llm_fn(model=Model(), tokenizer=Tok())(' "tin can" ')
+    assert seen == [[{"role": "system", "content": tsyn.system_prompt()},
+                     {"role": "user", "content": tsyn.user_prompt("tin can")}]]
+    with pytest.raises(FileNotFoundError, match="/some/llama"):
+        tsyn.make_hf_llm_fn("/some/llama", device="cpu")
     assert tmain_text.HEAD_KEYS_BY_MODEL == jmain_text.HEAD_KEYS_BY_MODEL
     # the batcher: the gate's draws and the re-tokenized text
     tok = ttokenizer.get_tokenizer("distilbert", vocab_dir=str(VOCAB))

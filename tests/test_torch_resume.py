@@ -19,8 +19,9 @@ running phase 1 again. ``--use_synonyms`` is left out: its host random
 stream is not saved, in either package.
 
 The engine's pieces: the ``RESUME.prev`` fallback of an interrupted swap,
-the stale-RESUME ``SystemExit``, ``cast_for_training`` keeping a bf16
-checkpoint's dtype on a resume, and the VLM trainers' refusal.
+the stale-RESUME ``SystemExit`` and ``cast_for_training`` keeping a bf16
+checkpoint's dtype on a resume. The VLM trainers' resume:
+``tests/test_torch_vlm_resume.py``.
 """
 
 import dataclasses
@@ -34,7 +35,6 @@ import pytest
 import torch
 
 from garbage_classification_rca_tpu_torch import config as tconfig
-from garbage_classification_rca_tpu_torch.cli import blip2_train
 from garbage_classification_rca_tpu_torch.cli import main_both as port_both
 from garbage_classification_rca_tpu_torch.cli import main_image as port_image
 from garbage_classification_rca_tpu_torch.cli import main_text as port_text
@@ -352,11 +352,3 @@ def test_cast_for_training_keeps_a_bf16_checkpoint(train_tree, tmp_path,
     after = torch.load(path, weights_only=True)
     assert after["meta"]["epoch"] == 1
     assert after["state_dict"]["fc.w"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("flag", [
-    "--model_path=model_weights/blip2_lora/RESUME", "--resume_every_steps=2",
-    "--resume_from=model_weights/blip2_lora/RESUME"])
-def test_vlm_trainer_still_refuses_resume(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        blip2_train.main([f"--dataset_folder_name={tmp_path}", flag])

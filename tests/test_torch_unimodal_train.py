@@ -487,7 +487,9 @@ def test_unported_flags_and_clean_exits(monkeypatch, main, flags, exc, match):
 def test_llm_backend_raises_and_trainers_need_cuda(train_tree, monkeypatch):
     monkeypatch.setenv("GC_RCA_PLATFORM", "cpu")
     monkeypatch.setenv("GC_RCA_LLM_PATH", "/nonexistent/llama")
-    with pytest.raises(NotImplementedError, match="GC_RCA_LLM_PATH"):
+    # a missing model directory raises, as from_pretrained does in the
+    # JAX package
+    with pytest.raises(FileNotFoundError, match="/nonexistent/llama"):
         port_text.main(_text_argv(train_tree) + ["--use_synonyms"])
     monkeypatch.delenv("GC_RCA_PLATFORM")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -217,8 +217,6 @@ def test_vlm_clis_refuse_orbax_dirs_multihost_and_training(
     with pytest.raises(SystemExit, match="orbax"):
         _port("qformer_test")(base + [f"--classifier_weights={tmp_path}"])
     for cli in ("blip2_train", "qformer_train"):
-        with pytest.raises(NotImplementedError, match="RESUME"):
-            _port(cli)(base + ["--resume_every_steps=2"])
         with pytest.raises(NotImplementedError, match="mesh_shape"):
             _port(cli)(base + ["--mesh_shape=data:1,pipe:2"])
     monkeypatch.setenv("GC_RCA_MULTIHOST", "1")

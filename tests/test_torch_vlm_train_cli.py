@@ -248,8 +248,7 @@ def test_vlm_trainers_hf_internal_dropout_reaches_the_loss(
 @pytest.mark.parametrize("cli", ["blip2_train", "qformer_train"])
 @pytest.mark.parametrize("flag,match", [
     ("--wandb", "--wandb"), ("--fsdp", "--fsdp"),
-    ("--mesh_shape=data:2", "one device"),
-    ("--resume_from=model_weights/blip2_lora/RESUME", "RESUME")])
+    ("--mesh_shape=data:2", "one device")])
 def test_vlm_trainers_refuse_unported_flags(cli, flag, match, tree):
     with pytest.raises(NotImplementedError, match=match):
         _port(cli).main([f"--dataset_folder_name={tree}", flag])
