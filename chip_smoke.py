@@ -56,11 +56,9 @@ Phases, each of which fails the run when it fails:
      staged, K4a 6 on the CUDA cores, K4b 6 on 3xTF32); steps/s,
      samples/s, peak memory, a profiler breakdown; one more step with
      ``hf_internal_dropout`` (per microbatch K1 1, K3 1, K7a 6, K7b 6 on
-     3xTF32); microbatches' loss and gradients on the kernel path
+     3xTF32); a microbatch's loss and gradients on the kernel path
      against the plain path, on the seeded weights restored after the
-     steps, and the same check on the first microbatch with K4a on its
-     3xTF32 forward (recorded, not judged: PERF.md §6 says why K4a keeps
-     the CUDA cores); then
+     steps; then
      ``cli.main_both`` with the MM_RCA.sh flags for 1 + 1 epochs on a
      synthetic 480x480 JPEG tree and ``cli.test_both`` on its
      BEST checkpoint: ``evaluate()``, then ``main()`` end to end, whose
@@ -130,7 +128,8 @@ Phases, each of which fails the run when it fails:
      ``run_multimodal_eval`` with the counters zeroed before and read
      after (K2 6 a DistilBERT batch, 12 a BERT batch, 0 with BART; K1 1 a
      batch on the BERT MM_RCA run; every other 0; their sum is the
-     ``fusion_eval`` path), samples/s, p50, device ms, peak memory, the
+     ``fusion_eval`` path), samples/s, p50, peak memory, device ms (each
+     tower's first run), the
      bf16 kernel path against the plain path (BART: bf16 against fp32) and
      a split of one batch by CUDA events: towers / head, the bimodal GRU
      scan on its own with its launches from the profiler; then
@@ -199,8 +198,8 @@ Phases, each of which fails the run when it fails:
  14. late-fusion train: every pair the JAX package trains but MM-RCA on
      DistilBERT (phase 5's) — gated, classic, normalized, clip,
      hierarchical and bimodal on DistilBERT (6 layers) and BERT-base (cut
-     to 5 of 12), MM_RCA on BERT, gated, classic, normalized and clip on
-     BART-large (cut to 2 + 2 of 12 + 12) — at full width on
+     to 4 of 12), MM_RCA on BERT, gated, classic, normalized and clip on
+     BART-large (cut to 1 + 1 of 12 + 12) — at full width on
      EfficientNetV2-M at 480x480, seq 64, towers
      built once (random seeded weights and BN statistics, unfolded) and
      restored to their seeds for each pair, fp32 master weights, bf16
@@ -335,7 +334,30 @@ Phases, each of which fails the run when it fails:
      shards and their index, the BPE fixture's vocabulary with Llama-3's
      specials and Split pattern, a Llama-3-style template of this
      script's): the paraphraser's parameters on the card, every sentence
-     through it.
+     through it;
+ 19. data parallelism (``parallel/``; about 130-170 s): (a) the MM_RCA.sh
+     step at full width (EfficientNetV2-M at 480x480, 6-layer DistilBERT,
+     fp32 masters, class weights, augmentation, head dropout, stochastic
+     depth, a padded row) on a global batch of 2 x 16 x acc 2 over two
+     ranks sharing the card on gloo (``parallel.multihost.launch``, each
+     rank ``python3 chip_smoke.py --dp_step=<spec>``), held to the
+     one-rank step of the same global batch with fp32 images, cuDNN and
+     TF32 off (loss 1e-5; gradients, updated weights and BN running
+     statistics within 1e-4 of their scale or 1.5x the one-rank step's
+     own one-ulp control, ``dp_compare``), each rank's counters showing
+     K1, K3, K4a and K4b; then, in the recipe's bf16 images, train
+     samples/s of the two ranks beside one rank's, peak memory per rank
+     and the all-reduce's share of a profiled step (numbers of two ranks
+     sharing one card); (b) ``cli.main_both`` (MM_RCA, 1 + 1 epochs) over
+     two ranks on a synthetic 480x480 JPEG tree, its BEST file evaluated
+     by a one-rank ``cli.test_both``, then ``cli.test_both`` over two
+     ranks (``python3 chip_smoke.py --dp_eval <flags>``) on (a)'s seeded
+     weights: accuracy, labels, predictions (more than one class) and
+     the report CSV equal to a one-rank ``cli.test_both``'s; (c) one
+     ``--fsdp`` step of ``cli.main_text`` (DistilBERT, SGD) in a process
+     group of one rank on NCCL, held to the run without a group (the JAX
+     FSDP tolerance, rtol 3e-4 / atol 1e-6). Any rank's failure fails the
+     phase; no group falls back to one process.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -2614,11 +2636,22 @@ def exact_zero_grads(model):
     names = {n for n, _ in model.named_parameters() if n.endswith("k.b")}
     stages = model.image_cfg.stages
     read = (3, 6) if model.cfg.strategy == "hierarchical" else ()
-    for si, (btype, _, _, stride, c_in, c_out, n) in enumerate(stages):
+    for si, (btype, expand, _, stride, c_in, c_out, n) in enumerate(stages):
         nxt = stages[si + 1][0] if si + 1 < len(stages) else "mb"
-        if btype == "mb" and (stride != 1 or c_in != c_out) and (
-                n > 1 or nxt == "mb") and si not in read:
+        plain = stride != 1 or c_in != c_out
+        if btype == "mb" and plain and (n > 1 or nxt == "mb") \
+                and si not in read:
             names.add(f"image.stages.{si}.0.project.bn.bias")
+        # a lone fused block (cut tables) feeding the 1x1 conv + BN that
+        # opens an "mb" stage or the head
+        if btype == "fused" and expand != 1 and plain and n == 1 \
+                and nxt == "mb" and si not in read:
+            names.add(f"image.stages.{si}.0.project.bn.bias")
+        # without stochastic depth every residual "mb" block keeps every
+        # sample
+        if btype == "mb" and model.image_cfg.sd_prob == 0:
+            names.update(f"image.stages.{si}.{j}.project.bn.bias"
+                         for j in range(n) if j or not plain)
     return names
 
 
@@ -2627,7 +2660,7 @@ def _sibling(name):
     return name[:-1] + "w" if name.endswith("k.b") else name[:-4] + "scale"
 
 
-GRAD_CHECK_SEEDS = 2          # microbatches (and draws) the paths are held on
+GRAD_CHECK_SEEDS = 1          # microbatches (and draws) the paths are held on
 # bf16 limits of compare_train_paths. The image tower's and the noise
 # biases' are about twice the largest gap that the "one_ulp" noise floor
 # gave on the H100 (lowest image-tower cosine 0.99891, largest noise-bias
@@ -2981,18 +3014,6 @@ def check_train(device, results):
     model.load_state_dict(seeded)
     del seeded
     ok &= compare_train_paths(model, cfg, stack, class_weights, results)
-    # the same check with K4a on its 3xTF32 forward, which the MM-RCA path
-    # does not take by default: recorded for PERF.md, not judged (on the
-    # first microbatch only)
-    print("  the same check with K4a on its 3xTF32 forward (recorded, not "
-          "judged):", flush=True)
-    on_request = {}
-    with flash_routes(fwd="tc32"):
-        on_request["passes_its_bars"] = compare_train_paths(
-            model, cfg, stack, class_weights, on_request, seeds=1)
-    results["grad_check_k4a_tc32"] = on_request
-    print(f"  with K4a on 3xTF32 the check's bars hold: "
-          f"{on_request['passes_its_bars']}", flush=True)
     del model, stack
     torch.cuda.empty_cache()
     return ok
@@ -4533,8 +4554,10 @@ def _kernel_less_check(m32, m16, strategy, batch, lk, truth, device):
     return good, agr
 
 
-def _fusion_run(tower, strategy, n_batches, pair, data, device):
-    """One (tower, strategy) run; returns (ok, numbers, launches)."""
+def _fusion_run(tower, strategy, n_batches, pair, data, device,
+                profile=True):
+    """One (tower, strategy) run; returns (ok, numbers, launches).
+    `profile`: the device profile of a batch (each tower's first run)."""
     import torch
 
     from garbage_classification_rca_tpu_torch.cli.test_both import (
@@ -4580,8 +4603,9 @@ def _fusion_run(tower, strategy, n_batches, pair, data, device):
         mha_tc=FUSION_K2[tower] * n_batches,
         rca_fused=n_batches if strategy == "MM_RCA" else 0)
     ok &= launches == want and len(preds) == n_batches * batch_size
-    prof = profile_step(make_both_eval_step(m16, torch.bfloat16), first,
-                        device, reps=2)
+    prof = (profile_step(make_both_eval_step(m16, torch.bfloat16), first,
+                         device, reps=2) if profile else
+            {"device_ms_per_batch": None, "idle_share": None})
     lk = _logits(m16, first, torch.bfloat16, device)
     ok &= bool(torch.isfinite(lk).all()) and tuple(lk.shape) == (
         batch_size, 4)
@@ -4626,7 +4650,7 @@ def _fusion_run(tower, strategy, n_batches, pair, data, device):
     print(f"  {strategy} + {tower}: {n_batches} x {batch_size}: "
           f"{stats['samples_per_s']:.1f} samples/s, p50 "
           f"{nums['p50_batch_ms']:.2f} ms, device "
-          f"{prof['device_ms_per_batch']:.2f} ms a batch, peak "
+          f"{prof['device_ms_per_batch'] or float('nan'):.2f} ms a batch, peak "
           f"{peak / 2**30:.2f} GiB; launches {nums['launches']} (want "
           f"{ {k: v for k, v in want.items() if v} }); split of one batch: "
           f"towers {split['towers_ms']:.2f} ms, head {split['head_ms']:.2f} "
@@ -4639,7 +4663,7 @@ def check_fusion_eval(device, results):
     weights (``FUSION_RUNS``): each run's fp32 check, its bf16
     ``run_multimodal_eval`` with the counters zeroed before and read after
     (K2 6 a DistilBERT batch, 12 a BERT batch, 0 with BART; K1 on the BERT
-    MM-RCA run), a profile, the kernel path against the plain path (BART:
+    MM-RCA run), a profile (each tower's first run), the kernel path against the plain path (BART:
     bf16 against fp32) and the towers / head split; the counts summed over
     the runs are the ``fusion_eval`` path's."""
     import copy
@@ -4673,8 +4697,9 @@ def check_fusion_eval(device, results):
         if strategy == "clip":
             run_data = _sliced(run_data, FUSION_CLIP_BATCH)
         pair = _fusion_pair(cfg, towers32, towers16, SEED + 220 + i, device)
-        good, nums, launches = _fusion_run(tower, strategy, n, pair,
-                                           run_data, device)
+        good, nums, launches = _fusion_run(
+            tower, strategy, n, pair, run_data, device,
+            profile=all(t != tower for t, _, _ in FUSION_RUNS[:i]))
         ok &= good
         out[f"{strategy}_{tower}"] = nums
         total = {k: total.get(k, 0) + v for k, v in launches.items()}
@@ -6079,13 +6104,13 @@ FUSION_TRAIN_PAIRS = (
                     "hierarchical", "bimodal"))
     + (("bert", "MM_RCA"),)
     + tuple(("bart", s) for s in ("gated", "classic", "normalized", "clip")))
-# the towers' depths: DistilBERT's 6; BERT-base's 12 cut to 5 (the
+# the towers' depths: DistilBERT's 6; BERT-base's 12 cut to 4 (the
 # hierarchical head taps hidden states 2 and 4) and BART-large's 12 + 12 to
-# 2 + 2, at full width, to keep the script within its time
-FUSION_TRAIN_DEPTH = {"distilbert": 6, "bert": 5, "bart": 2}
+# 1 + 1, at full width, to keep the script within its time
+FUSION_TRAIN_DEPTH = {"distilbert": 6, "bert": 4, "bart": 1}
 # K4a / K4b (K7a / K7b with hf_internal_dropout) a microbatch: one a text
 # layer; BART runs no kernel
-FUSION_TRAIN_LAYERS = {"distilbert": 6, "bert": 5, "bart": 0}
+FUSION_TRAIN_LAYERS = {"distilbert": 6, "bert": 4, "bart": 0}
 # one more step with hf_internal_dropout on a pair of each tower
 FUSION_HF_PAIRS = (("distilbert", "gated"), ("bert", "hierarchical"),
                    ("bart", "classic"))
@@ -6755,9 +6780,9 @@ def check_text_family_clis(device, results):
 CONV_TRAIN_ACC = 2          # microbatches a step: the recipes' 0 to 24, cut
 CONV_PHASE1 = ("shuffle_net", "res18", "res50", "res152", "mb", "convnext")
 CONV_CPU_CHECK = ("res18", "shuffle_net", "mb", "convnext", "b0")
-# the models whose step is profiled: one of each family's kinds of block
-# (profiling all twelve costs the script ~20 s)
-CONV_PROFILED = ("shuffle_net", "res50", "convnext", "eff_v2_medium")
+# the models whose step is profiled: the BASELINE model and the MM-RCA
+# image tower (profiling all twelve costs the script ~20 s)
+CONV_PROFILED = ("shuffle_net", "eff_v2_medium")
 CONV_CPU_SAMPLES = 2
 CONV_CPU_BAR = 1e-4         # |d| over the tensor's largest |g| (or value)
 # the towers whose fp32 gradients are held to CONV_CPU_BAR as well as
@@ -8661,6 +8686,624 @@ def check_paraphraser(device, results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data parallelism (two ranks sharing the card over gloo; NCCL at
+# world size 1 under --fsdp)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_BATCH, DP_ACC = 16, 2          # per rank: global 2 x 16, acc 2
+DP_TRAIN_KERNELS = ("rca_fused", "rca_fused_bwd", "mha_fwd_lse",
+                    "mha_flash_bwd_tc32")       # K1, K3, K4a, K4b
+DP_FP32_BARS = {"loss": 1e-5, "grad": 1e-4}     # PERF.md §2, fp32 train
+DP_VANISHING = 1e-6        # a gradient below this share of the largest one
+DP_CONTROL_FACTOR = 1.5    # no further than 1.5x the one-ulp control moves
+FSDP_RTOL, FSDP_ATOL = 3e-4, 1e-6               # the JAX tests/test_fsdp.py
+
+
+def run_dp_step(model, spec, mesh, timed=False, control=False):
+    """One train step of `model` (in place) on this rank's rows of the
+    global stack ``spec["stack"]`` ([acc, B, ...] numpy), through the
+    port's ``make_train_step`` on `mesh` (a ``parallel.mesh.DataMesh``; one
+    rank: the one-device step): SGD, class weights, label smoothing,
+    augmentation at ``spec["prob_aug"]``, the model's own dropout and
+    stochastic depth, images in ``spec["image_dtype"]`` (with
+    ``spec["exact_convs"]`` TF32 off and cuDNN off: PyTorch's own
+    convolutions compute each sample alike at any batch size, where cuDNN
+    picks other algorithms for 16 samples than for 32). Returns the loss,
+    per-microbatch losses, norms, the launch counters of the step and, on
+    rank 0, the gradients and the updated state (CPU). `control`: the same
+    step again from the same weights with every normalized image value
+    moved by one fp32 ulp, up or down at random ("control_grads" /
+    "control_state": how far rounding-level noise in the activations
+    moves each tensor). `timed`: three more steps on cuDNN in ``spec["timed_dtype"]``: a
+    warm-up, one timed (global samples/s, peak memory), one under the
+    profiler (the all-reduce's share of its wall)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.augment import (
+        augment_batch)
+    from garbage_classification_rca_tpu_torch.data.images import (
+        normalize_on_device)
+    from garbage_classification_rca_tpu_torch.nn.core import Key
+    from garbage_classification_rca_tpu_torch.train.loop import (
+        make_train_step)
+    from garbage_classification_rca_tpu_torch.train.optim import (
+        make_optimizer)
+
+    dev = mesh.device
+    dtype = [getattr(torch, spec["image_dtype"])]
+    nudge = [None]
+    full = spec["stack"]
+    rows = mesh.local_rows(full["label"].shape[1])
+    stack = {k: torch.from_numpy(v[:, rows]).to(dev) for k, v in full.items()}
+    cw = torch.tensor(spec["class_weights"], device=dev)
+
+    def batch_to_inputs(mb, key):
+        x = mb["image"]
+        if spec["prob_aug"] > 0:
+            x = augment_batch(x, spec["prob_aug"], key.generator(dev))
+        x = normalize_on_device(x, dtype=dtype[0])
+        if nudge[0] is not None:
+            up = torch.rand(x.shape, generator=nudge[0], device=dev) < 0.5
+            x = torch.nextafter(x, torch.where(up, x + 1, x - 1))
+        return (mb["input_ids"], mb["attention_mask"], x)
+
+    opt = make_optimizer("sgd", model.named_parameters(), spec["lr"],
+                         spec["reg"])
+    step = make_train_step(model, opt, batch_to_inputs=batch_to_inputs,
+                           class_weights=cw,
+                           label_smoothing=spec["label_smoothing"],
+                           mesh=mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+    if spec.get("exact_convs"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.enabled = False
+    init = ({k: v.detach().clone() for k, v in model.state_dict().items()}
+            if control else None)
+    _zero_counters()
+    t0 = time.perf_counter()
+    loss, losses, norms = step(stack, Key(spec["key"]))
+    sync()
+    out = {"loss": float(loss), "step1_s": time.perf_counter() - t0,
+           "losses": losses.tolist(), "grad_norm": float(norms["grad_norm"]),
+           "param_norm": float(norms["param_norm"]),
+           "launches": _read_counters(), "rank": mesh.rank,
+           "backend": mesh.backend or "none (one process)"}
+    if mesh.is_primary:
+        out["grads"] = {n: p.grad.detach().cpu()
+                        for n, p in model.named_parameters()}
+        out["state"] = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()}
+    if control:
+        model.load_state_dict(init)
+        del init
+        nudge[0] = torch.Generator(device=dev).manual_seed(spec["key"])
+        out["control_loss"] = float(step(stack, Key(spec["key"]))[0])
+        nudge[0] = None
+        out["control_grads"] = {n: p.grad.detach().cpu()
+                                for n, p in model.named_parameters()}
+        out["control_state"] = {k: v.detach().cpu()
+                                for k, v in model.state_dict().items()}
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = flags
+    if timed:
+        dtype[0] = getattr(torch, spec.get("timed_dtype",
+                                           spec["image_dtype"]))
+        float(step(stack, Key(spec["key"] + 3))[0])
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        float(step(stack, Key(spec["key"] + 1))[0])
+        sync()
+        wall = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            float(step(stack, Key(spec["key"] + 2))[0])
+            sync()
+            prof_wall = time.perf_counter() - t0
+        reduce_us = sum(e.cpu_time_total for e in prof.key_averages()
+                        if "all_reduce" in e.key or "allreduce" in e.key)
+        out.update(step_s=wall, samples_per_s=full["label"].size / wall,
+                   peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                             if dev.type == "cuda" else None),
+                   allreduce_share=reduce_us * 1e-6 / prof_wall,
+                   profiled_step_s=prof_wall)
+    return out
+
+
+def dp_step_worker(spec_paths: str) -> int:
+    """A rank of ``run_dp_step`` (``python3 chip_smoke.py
+    --dp_step=<spec>[,<spec>...]``, spawned by
+    ``parallel.multihost.launch``): the process group from the launcher's
+    environment; for each spec in turn, its pickled model on this rank's
+    device, one step, ``rank<r>.pt`` written into the spec's ``out``
+    directory."""
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.parallel.multihost import (
+        initialize_from_env)
+
+    for path in spec_paths.split(","):
+        spec = torch.load(path, weights_only=False)
+        torch.set_num_threads(spec.get("threads", 2))
+        mesh = initialize_from_env(spec["device"])
+        model = spec.pop("model").to(mesh.device)
+        out = run_dp_step(model, spec, mesh, timed=spec.get("timed", False))
+        torch.save(out, os.path.join(spec["out"], f"rank{mesh.rank}.pt"))
+        del model, out
+    return 0
+
+
+def run_test_both(argv, logits=None):
+    """``cli.test_both.main(argv)`` with TF32 off (an fp32 eval is then
+    fp32 throughout); returns its ``evaluate``'s (acc, labels, preds).
+    `logits`: a list that gets each batch's logits."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import test_both
+
+    kept = []
+    evaluate, load = test_both.evaluate, test_both.load_model
+    test_both.evaluate = lambda args: kept.append(evaluate(args)) or kept[-1]
+
+    def load_hooked(*a, **k):
+        model = load(*a, **k)
+        model.register_forward_hook(
+            lambda mod, inp, out: logits.append(out.float().cpu()))
+        return model
+
+    if logits is not None:
+        test_both.load_model = load_hooked
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        test_both.main(argv)
+    finally:
+        test_both.evaluate, test_both.load_model = evaluate, load
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    return kept[0][:3]
+
+
+def center_head(path, argv, work):
+    """Shift the final head's bias in the BEST file at `path` by the mean
+    of its logits over `argv`'s eval set (a one-rank ``cli.test_both`` in
+    `work`): the centred logits sum to zero over the set, so its
+    predictions cannot all be one class (a random model's are, its
+    features being alike for every sample)."""
+    import torch
+
+    logits = []
+    _in_dir(work, run_test_both, argv, logits)
+    payload = torch.load(path, weights_only=True)
+    b = payload["state_dict"]["final_with_everything.b"]
+    b -= torch.cat(logits).mean(0).to(b.dtype)
+    torch.save(payload, path)
+
+
+def dp_eval_worker(argv) -> int:
+    """A rank of ``cli.test_both`` (``python3 chip_smoke.py --dp_eval
+    <flags>``, spawned by ``parallel.multihost.launch``): writes its
+    (acc, labels, preds) to ``eval_rank<r>.npz``."""
+    import os
+
+    import numpy as np
+
+    acc, labels, preds = run_test_both(argv)
+    np.savez(f"eval_rank{os.environ.get('RANK', '0')}.npz", acc=acc,
+             labels=labels, preds=preds)
+    return 0
+
+
+def dp_grad_errors(got, want, zero=()):
+    """{name: max |got - want| over the tensor's largest |want|}; a
+    gradient that is zero in exact arithmetic (`zero`,
+    ``exact_zero_grads``) is sized against its sibling's, and none against
+    less than ``DP_VANISHING`` of the largest |want| of all (a vanishing
+    gradient, e.g. a cross attention's query at a near-uniform softmax, is
+    rounding noise on both sides)."""
+    floor = DP_VANISHING * max(float(w.float().abs().max())
+                               for w in want.values())
+    out = {}
+    for n, w in want.items():
+        ref = want[_sibling(n)] if n in zero else w
+        scale = max(float(ref.float().abs().max()), floor)
+        d = float((got[n].float() - w.float()).abs().max())
+        out[n] = d / scale if scale else d
+    return out
+
+
+def dp_card_errors(got, want, state=False):
+    """{name: max |got - want| over the tensor's scale} for the card's
+    check: a bias is sized against the larger of its own and its sibling
+    weight's largest |value| (a bias gradient sums a weight gradient's
+    terms without their activations, and may cancel), a BN running mean
+    against the largest running standard deviation of its layer (the
+    spread its batch means are taken over), everything else against its
+    own largest |value|, and none against less than DP_VANISHING of the
+    largest of all."""
+    import math
+
+    mx = {n: float(w.float().abs().max()) for n, w in want.items()}
+    floor = DP_VANISHING * max(mx.values())
+    out = {}
+    for n, w in want.items():
+        scale = mx[n]
+        if state and n.endswith(".mean") and n[:-4] + "var" in want:
+            scale = math.sqrt(mx[n[:-4] + "var"])
+        elif not state and n.endswith((".b", ".bias")) \
+                and _sibling(n) in want:
+            scale = max(scale, mx[_sibling(n)])
+        d = float((got[n].float() - w.float()).abs().max())
+        out[n] = d / max(scale, floor)
+    return out
+
+
+def dp_compare(got, want):
+    """(ok, line, numbers): a data-parallel step's rank-0 result against
+    the one-device step's on the card: the loss within 1e-5; each
+    gradient, updated weight and BN running statistic within 1e-4 of its
+    scale (``dp_card_errors``), or no further than DP_CONTROL_FACTOR times
+    the largest move of the one-device step's one-ulp control. cuBLAS
+    runs other GEMM kernels for 16 samples than for 32, and the
+    squeeze-excitation gradients (sums over the feature map that cancel)
+    and BN batch means near zero turn their fp32 rounding into a large
+    share of their own size; the control measures that amplification."""
+    g = dp_card_errors(got["grads"], want["grads"])
+    st = dp_card_errors(got["state"], want["state"], state=True)
+    cg = dp_card_errors(want["control_grads"], want["grads"])
+    cs = dp_card_errors(want["control_state"], want["state"], state=True)
+    loss_d = abs(got["loss"] - want["loss"])
+    strict = dp_grad_errors(got["grads"], want["grads"])
+    nums = {"grad_worst": max(g.values()), "state_worst": max(st.values()),
+            "control_grad_worst": max(cg.values()),
+            "control_state_worst": max(cs.values()),
+            "control_loss_diff": abs(want["control_loss"] - want["loss"]),
+            "loss_diff": loss_d,
+            "grad_worst_own_scale": max(strict.values())}
+    g_bar = max(DP_FP32_BARS["grad"],
+                DP_CONTROL_FACTOR * nums["control_grad_worst"])
+    s_bar = max(DP_FP32_BARS["grad"],
+                DP_CONTROL_FACTOR * nums["control_state_worst"])
+    nums.update(grad_bar=g_bar, state_bar=s_bar)
+    ok = (loss_d <= DP_FP32_BARS["loss"] * max(1.0, abs(want["loss"]))
+          and nums["grad_worst"] <= g_bar and nums["state_worst"] <= s_bar)
+    top = sorted(g, key=g.get)[-3:]
+    ws = max(st, key=st.get)
+    line = (f"loss {got['loss']:.6f} vs {want['loss']:.6f} (|d| "
+            f"{loss_d:.2e}); worst gradients {[(n, float(f'{g[n]:.3g}')) for n in top]}"
+            f" (bar {g_bar:.2e}; on each tensor's own scale "
+            f"{nums['grad_worst_own_scale']:.2e}); worst state {ws} "
+            f"{st[ws]:.2e} (bar {s_bar:.2e}); the one-ulp control "
+            f"{nums['control_grad_worst']:.2e} / "
+            f"{nums['control_state_worst']:.2e}, loss "
+            f"{nums['control_loss_diff']:.2e}")
+    return ok, line, nums
+
+
+def dp_launch(cmd, nproc, work, *, backend, share_device, timeout=300):
+    """``parallel.multihost.launch`` of `cmd` with the checkout on the
+    path, in `work`: (ok, [(code, output)]); a failed rank's last lines
+    are printed."""
+    import os
+
+    from garbage_classification_rca_tpu_torch.parallel.multihost import (
+        launch)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    res = launch(cmd, nproc, backend=backend, share_device=share_device,
+                 timeout=timeout, env=env, cwd=work)
+    for r, (code, log) in enumerate(res):
+        if code != 0:
+            print(f"  rank {r} of {cmd[:2]} exited {code}:\n"
+                  + "\n".join(log.splitlines()[-25:]), flush=True)
+    return all(code == 0 for code, _ in res), res
+
+
+def _dp_train_step(device, results, work, smi_line):
+    """(a): the MM_RCA.sh step at full width over two ranks sharing the
+    card (gloo), held to the one-rank step of the same global batch in
+    fp32 images with TF32 and cuDNN off (``run_dp_step``), then timed in
+    the recipe's bf16 images on cuDNN."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer)
+    from garbage_classification_rca_tpu_torch.models.fusion import multimodal
+    from garbage_classification_rca_tpu_torch.parallel.mesh import DataMesh
+    from garbage_classification_rca_tpu_torch.train.engine import (
+        CHECKPOINT_FORMAT)
+
+    t0 = time.perf_counter()
+    cfg = multimodal.FusionConfig(strategy="MM_RCA", reverse=True,
+                                  drop_ratio=0.6,
+                                  image_or_text_dropout_chance=0.0)
+    model = multimodal.build_fusion_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 19))
+    tok = WordPieceTokenizer.from_vocab_file(
+        "tests/fixtures/vocab/wordpiece/vocab.txt")
+    data = SyntheticBatcher(DP_ACC * DP_RANKS * DP_BATCH, DP_RANKS * DP_BATCH,
+                            (TRAIN_IMAGE, TRAIN_IMAGE), tok, 64, SEED + 20)
+    stack = {k: np.stack([b[k] for b in data.batches])
+             for k in data.batches[0]}
+    stack["valid"][-1, -3:] = 0      # a padded tail in rank 1's rows
+    spec = {"model": model, "stack": stack, "device": "cuda", "out": work,
+            "image_dtype": "float32", "exact_convs": True,
+            "timed_dtype": "bfloat16",
+            "class_weights": [0.8, 1.1, 0.9, 1.3], "prob_aug": 1.0,
+            "lr": 0.0016, "reg": 0.03, "label_smoothing": 0.0,
+            "key": SEED + 19, "timed": True}
+    path = os.path.join(work, "dp_spec.pt")
+    torch.save(spec, path)
+    # the seeded weights as a BEST file: (b)'s eval model, its head centred
+    # there so that its predictions vary (a 1 + 1 epoch model's are one
+    # class, and so are the seeded model's before the centring)
+    torch.save({"format": CHECKPOINT_FORMAT, "meta": {"layers": 6},
+                "state_dict": model.state_dict()},
+               os.path.join(work, "seeded_best"))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = run_dp_step(model.to(device), spec, DataMesh(0, 1, device),
+                      timed=True, control=True)
+    del model
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok, _ = dp_launch([os.path.abspath(__file__), f"--dp_step={path}"],
+                      DP_RANKS, work, backend="gloo", share_device=True)
+    two_s = time.perf_counter() - t0
+    if not ok:
+        return False
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    held, line, nums = dp_compare(ranks[0], ref)
+    per_rank = [{k: r["launches"][k] for k in DP_TRAIN_KERNELS}
+                for r in ranks]
+    launched = all(all(n > 0 for n in pr.values()) for pr in per_rank)
+    print(f"  two ranks on one card ({ranks[0]['backend']}; {smi_line}), "
+          f"fp32 images, TF32 and cuDNN off: {line}", flush=True)
+    print(f"  launches per rank {per_rank} (one rank: "
+          f"{ {k: ref['launches'][k] for k in DP_TRAIN_KERNELS} }); bf16 "
+          f"images: two ranks sharing the card: "
+          f"{ranks[0]['samples_per_s']:.1f} train "
+          f"samples/s ({ranks[0]['step_s']:.2f} s a step), one rank "
+          f"{ref['samples_per_s']:.1f} ({ref['step_s']:.2f} s); peak memory "
+          f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB (one "
+          f"rank {ref['peak_gib']:.2f}); all-reduce share of a profiled "
+          f"step {[round(r['allreduce_share'], 4) for r in ranks]}; set-up "
+          f"{setup_s:.1f} s, one rank {one_s:.1f} s (first step "
+          f"{ref['step1_s']:.1f} s), two ranks {two_s:.1f} s (first step "
+          f"{ranks[0]['step1_s']:.1f} s)", flush=True)
+    results["dp_step"] = {
+        "backend": ranks[0]["backend"], "held": line, **nums,
+        "launches_per_rank": per_rank,
+        "samples_per_s_two_ranks_one_card": ranks[0]["samples_per_s"],
+        "step_s_two_ranks_one_card": ranks[0]["step_s"],
+        "samples_per_s_one_rank": ref["samples_per_s"],
+        "step_s_one_rank": ref["step_s"],
+        "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+        "peak_gib_one_rank": ref["peak_gib"],
+        "allreduce_share": [r["allreduce_share"] for r in ranks],
+        "global_batch": f"{DP_RANKS} x {DP_BATCH} x acc {DP_ACC}",
+        "held_in": "float32 images, TF32 and cuDNN off",
+        "timed_in": "bfloat16 images, cuDNN", "seconds": {
+            "setup": setup_s, "one_rank": one_s, "two_ranks": two_s},
+        "card": smi_line}
+    results["dp_launches"] = ranks[0]["launches"]
+    return held and launched
+
+
+def _jsonl_rows(d):
+    import glob
+    import json as _json
+
+    return [_json.loads(line) for f in glob.glob(f"{d}/runs/*.jsonl")
+            for line in open(f)]
+
+
+def _report_csv(root):
+    import glob
+
+    csvs = glob.glob(f"{root}/test_set_reports/*/*_report_test_set_acc_*.csv")
+    if len(csvs) != 1:
+        return None, None
+    with open(csvs[0], "rb") as f:
+        return csvs[0].rsplit("/", 1)[-1], f.read()
+
+
+def _in_dir(d, fn, *args):
+    """`fn(*args)` with `d` as the working directory."""
+    import os
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        return fn(*args)
+    finally:
+        os.chdir(cwd)
+
+
+def _dp_clis_and_fsdp(device, results, work):
+    """(b) ``cli.main_both`` over two ranks (1 + 1 epochs) on a synthetic
+    480x480 tree (its BEST file, in a one-rank ``cli.test_both``, gives its
+    best val_acc within a sample), then ``cli.test_both`` in fp32 over two
+    ranks on (a)'s seeded weights with the head centred on the eval set
+    (``center_head``: the predictions vary): every rank's accuracy, labels
+    and predictions and the report CSV equal a one-rank
+    ``cli.test_both``'s (this process, meanwhile); (c), beside (b)'s
+    training, one ``--fsdp`` step of
+    ``cli.main_text`` (DistilBERT, all trainable, SGD: AdamW's sign-like
+    first step would turn rounding on a vanishing gradient into a whole
+    learning rate) in a process group of one rank on NCCL, held to the run
+    without a group (this process, meanwhile): the JSONL row and the BEST
+    file's weights within the JAX FSDP test's rtol 3e-4, atol 1e-6."""
+    import concurrent.futures as cf
+    import glob
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import main_text
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+    pkg = "garbage_classification_rca_tpu_torch.cli."
+    _write_jpeg_tree(os.path.join(work, "garbage"), 16, 8, SEED + 21)
+    text_argv = ["--dataset_folder_name=../garbage", "--text_model=distilbert",
+                 "--epochs=1", "--ft_epochs=0", "--no-tl", "--batch_size=16",
+                 "--acc_steps=1", "--opt=sgd", "--lr=0.01", "--reg=0.01",
+                 "--balance_weights", "--seq_len=64", "--eval_batch_size=8",
+                 f"--vocab_dir={vocab}"]
+    for d in ("fsdp", "plain", "two", "one", "trained", "center"):
+        os.makedirs(os.path.join(work, d))
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(2) as ex:
+        fb = ex.submit(dp_launch, [
+            "-m", pkg + "main_both", "--dataset_folder_name=garbage",
+            "--late_fusion=MM_RCA", "--reverse", "--epochs=1",
+            "--ft_epochs=1", "--batch_size=16", "--batch_size_FT=16",
+            "--acc_steps=1", "--acc_steps_FT=1", "--prob_aug=1.0",
+            "--opt=sgd", "--lr=0.0016", "--reg=0.03", "--fraction_lr=3",
+            "--balance_weights", "--image_text_dropout=0.0",
+            f"--mesh_shape=data:{DP_RANKS}", "--eval_batch_size=4",
+            f"--vocab_dir={vocab}"], DP_RANKS, work, backend="gloo",
+            share_device=True)
+        fc = ex.submit(dp_launch, ["-m", pkg + "main_text", "--fsdp"]
+                       + text_argv, 1, os.path.join(work, "fsdp"),
+                       backend=None, share_device=False)
+        _in_dir(os.path.join(work, "plain"), main_text.main, text_argv)
+        ok_b, _ = fb.result()
+        ok_c, res_c = fc.result()
+    train_s = time.perf_counter() - t0
+    if not (ok_b and ok_c):
+        return False
+    group = [ln for ln in res_c[0][1].splitlines()
+             if ln.startswith("process group:")]
+    runs = {}
+    for what in ("fsdp", "plain"):
+        d = os.path.join(work, what)
+        best = glob.glob(f"{d}/model_weights/distilbert/BEST_*")
+        runs[what] = (_jsonl_rows(d), torch.load(best[0], weights_only=True)[
+            "state_dict"] if len(best) == 1 else None)
+    (rf, sf), (rp, sp) = runs["fsdp"], runs["plain"]
+    ok_c = (len(rf) == len(rp) == 1 and sf is not None and sp is not None
+            and bool(group) and "backend nccl" in group[0])
+    worst = float("inf")
+    if ok_c:
+        for k in ("avg_loss", "grad_norm_last", "param_global_norm"):
+            ok_c &= abs(rf[0][k] - rp[0][k]) <= FSDP_ATOL + FSDP_RTOL * abs(
+                rp[0][k])
+        worst = max(float((sf[k].float() - v.float()).abs().max())
+                    / (FSDP_ATOL + FSDP_RTOL * float(v.float().abs().max()))
+                    for k, v in sp.items())
+        ok_c &= worst <= 1.0
+    print(f"  (c) cli.main_text --fsdp: {group[0] if group else 'no group'};"
+          f" loss {rf[0]['avg_loss'] if rf else None} vs "
+          f"{rp[0]['avg_loss'] if rp else None} without a group; BEST weights"
+          f" at {worst:.3f} of the FSDP tolerance (rtol {FSDP_RTOL}, atol "
+          f"{FSDP_ATOL})", flush=True)
+    rows = _jsonl_rows(work)
+    bests = glob.glob(f"{work}/model_weights/MM_RCA_distilbert/BEST_*")
+    seeded = os.path.join(work, "seeded_best")
+    argv = ["--late_fusion=MM_RCA", "--reverse", "--text_model=distilbert",
+            f"--model_path={seeded}", "--dataset_folder_name=../garbage_Val",
+            f"--vocab_dir={vocab}", "--eval_batch_size=4",
+            "--compute_dtype=float32"]
+    t0 = time.perf_counter()
+    center_head(seeded, argv, os.path.join(work, "center"))
+    with cf.ThreadPoolExecutor(1) as ex:
+        ft = ex.submit(dp_launch, [os.path.abspath(__file__), "--dp_eval"]
+                       + argv + [f"--mesh_shape=data:{DP_RANKS}"],
+                       DP_RANKS, os.path.join(work, "two"), backend="gloo",
+                       share_device=True)
+        one = _in_dir(os.path.join(work, "one"), run_test_both, argv)
+        ok_t, _ = ft.result()
+    # the BEST file of (b)'s two-rank training evaluates to its best
+    # val_acc (the val folder is the test folder here) within one sample:
+    # test_both folds BN, the val eval does not, and a near tie may flip
+    trained = None
+    if bests:
+        best = max(bests, key=os.path.getmtime)
+        trained = _in_dir(os.path.join(work, "trained"), run_test_both,
+                          argv[:3] + [f"--model_path={best}"] + argv[4:-1])
+    test_s = time.perf_counter() - t0
+    name2, csv2 = _report_csv(os.path.join(work, "two"))
+    name1, csv1 = _report_csv(os.path.join(work, "one"))
+    same = csv1 is not None and csv1 == csv2 and name1 == name2
+    import numpy as np
+
+    two = [np.load(os.path.join(work, "two", f"eval_rank{r}.npz"))
+           for r in range(DP_RANKS)] if ok_t else []
+    same_preds = bool(two) and all(
+        float(t["acc"]) == one[0] and np.array_equal(t["labels"], one[1])
+        and np.array_equal(t["preds"], one[2]) for t in two)
+    n_classes = len(np.unique(one[2]))
+    best_acc = max((r["val_acc"] for r in rows), default=None)
+    trained_ok = (trained is not None and best_acc is not None
+                  and abs(trained[0] - best_acc) <= 100.0 / len(one[1])
+                  + 1e-6)
+    ok_b = (ok_t and same and same_preds and n_classes > 1 and trained_ok
+            and len(rows) == 2
+            and {r["phase"] for r in rows} == {"train", "fine_tune"}
+            and all(r["avg_loss"] == r["avg_loss"] for r in rows))
+    print(f"  (b) cli.main_both over {DP_RANKS} ranks, 1 + 1 epochs (beside "
+          f"(c)) in {train_s:.1f} s: "
+          f"{[(r['phase'], round(r['avg_loss'], 4), r['val_acc']) for r in rows]}"
+          f"; its BEST file in a one-rank cli.test_both: "
+          f"{trained[0] if trained else None} % (best val_acc {best_acc}); "
+          f"cli.test_both (fp32) over {DP_RANKS} ranks on (a)'s seeded "
+          f"weights, head centred, beside the one-rank run in {test_s:.1f} "
+          f"s: {n_classes} classes predicted {one[2].tolist()}, "
+          f"acc / labels / preds "
+          f"{'identical on every rank' if same_preds else 'DIFFER'}, "
+          f"report {name2} "
+          f"{'byte-identical to' if same else 'DIFFERS from'} the one-rank "
+          f"run's {name1}", flush=True)
+    results["dp_clis"] = {"train_s": train_s, "test_s": test_s, "rows": rows,
+                          "csv_identical": same, "preds_identical": same_preds,
+                          "classes_predicted": n_classes,
+                          "trained_best_acc": trained[0] if trained else None,
+                          "report": name1}
+    results["dp_fsdp"] = {"backend": group[0] if group else None,
+                          "rows_fsdp": rf, "rows_plain": rp,
+                          "worst_of_tolerance": worst}
+    return ok_b and ok_c
+
+
+def check_data_parallel(device, results, smi_line):
+    """Phase 19: (a) ``_dp_train_step``, then (b) and (c)
+    (``_dp_clis_and_fsdp``), in a work directory of the checkout, deleted
+    after."""
+    import os
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ok = _dp_train_step(device, results, work, smi_line)
+        ok &= _dp_clis_and_fsdp(device, results, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ok
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -8744,7 +9387,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/18] device", flush=True)
+    print("[1/19] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8754,7 +9397,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/18] build", flush=True)
+    print("[2/19] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -8766,7 +9409,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/18] kernels vs plain versions", flush=True)
+    print("[3/19] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -8788,86 +9431,90 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/18] MM-RCA eval path",
+            ("[4/19] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/18] MM-RCA train path: full-width train step",
+            ("[5/19] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/18] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/19] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/18] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/19] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/18] image eval path: ViT-B/16",
+            ("[7/19] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/18] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/19] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/18] text train path: DistilBERT and BERT-base with "
+            ("[8/19] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/18] image train path: ViT-B/16",
+            ("[9/19] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/18] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/19] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/18] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/19] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/18] conv image eval CLI: cli.test_image "
+            ("[10/19] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/18] fusion eval: gated, classic, normalized, clip, "
+            ("[11/19] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/18] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/19] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/18] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/19] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/18] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/19] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/18] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/19] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/18] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/19] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[13/18] VLM RESUME: cli.blip2_train and cli.qformer_train "
+            ("[13/19] VLM RESUME: cli.blip2_train and cli.qformer_train "
              "killed at the epoch boundary and mid-epoch, resumed with "
              "--resume_from, held to a control",
              lambda: check_vlm_resume(device, results)),
-            ("[14/18] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/19] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/18] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/19] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/18] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/19] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/18] text family CLIs: cli.main_text "
+            ("[15/19] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
              lambda: check_text_family_clis(device, results)),
-            ("[16/18] conv train: the 12 conv backbones, a step each; "
+            ("[16/19] conv train: the 12 conv backbones, a step each; "
              "fp64 and fp32 card vs CPU",
              lambda: check_conv_train(device, results)),
-            ("[16/18] conv train CLI and RESUME: cli.main_image res18 -> "
+            ("[16/19] conv train CLI and RESUME: cli.main_image res18 -> "
              "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
              "killed and resumed, held to a control",
              lambda: check_resume(device, results)),
-            ("[17/18] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
+            ("[17/19] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
              "weights; K2 in every prefill), the continuous-batching server, "
              "speculative decoding",
              lambda: check_serving(device, results)),
-            ("[17/18] serving CLIs: cli.blip2_test --max_new_tokens=4 "
+            ("[17/19] serving CLIs: cli.blip2_test --max_new_tokens=4 "
              "(greedy, sampled, int8), cli.serve",
              lambda: check_serving_clis(device, results)),
-            ("[18/18] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
+            ("[18/19] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
              "Llama-3.1-8B-Instruct's width, card vs CPU, cli.main_text "
              "--use_synonyms",
-             lambda: check_paraphraser(device, results))):
-        if title.startswith("[17/18] serving:"):
+             lambda: check_paraphraser(device, results)),
+            ("[19/19] data parallelism: the MM-RCA train step over two "
+             "ranks sharing the card (gloo), cli.main_both -> cli.test_both "
+             "over two ranks, cli.main_text --fsdp on NCCL",
+             lambda: check_data_parallel(device, results, smi_line))):
+        if title.startswith("[17/19] serving:"):
             results["phases_1_16_s"] = time.perf_counter() - t_start
             print(f"  (phases 1-16 in {results['phases_1_16_s']:.1f} s)",
                   flush=True)
@@ -8925,7 +9572,8 @@ def main() -> int:
                "fusion_train_hf_dropout":
                    results["fusion_train_hf_launches"],
                "text_family": results["text_family_launches"],
-               "serving": results["serving_launches"]}
+               "serving": results["serving_launches"],
+               "data_parallel_rank0": results["dp_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -9018,12 +9666,13 @@ def main() -> int:
                       "serving_clis": results["serving_clis"],
                       "vlm_resume": results["vlm_resume"],
                       "paraphraser": results["paraphraser"],
+                      "data_parallel": {k: results[k] for k in (
+                          "dp_step", "dp_clis", "dp_fsdp")},
                       "phase_seconds": results["phase_seconds"],
                       "phases_1_16_s": results["phases_1_16_s"],
                       "seconds": time.perf_counter() - t_start,
                       "grad_checks": {k: results[k] for k in (
-                          "grad_check_fp32", "grad_check_bf16",
-                          "grad_check_k4a_tc32")},
+                          "grad_check_fp32", "grad_check_bf16")},
                       "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -9034,4 +9683,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1].startswith("--dp_step="):
+        sys.exit(dp_step_worker(sys.argv[1].partition("=")[2]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp_eval":
+        sys.exit(dp_eval_worker(sys.argv[2:]))
     sys.exit(main())

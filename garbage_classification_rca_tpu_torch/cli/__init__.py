@@ -3,10 +3,17 @@
 The CLIs run on CUDA. ``GC_RCA_PLATFORM=cpu`` (the JAX package's switch;
 a ``:N`` device-count suffix is accepted and ignored) runs them on the CPU
 instead; without it and without CUDA they raise.
+
+Every trainer and eval CLI runs over the data axis: one process per GPU
+(``torchrun --nproc_per_node=N -m ...cli.<name> --mesh_shape=data:N``, or
+the JAX package's ``GC_RCA_MULTIHOST`` variables), ``data:-1`` the world
+size (``data_mesh``). The model, pipe, seq and expert axes raise
+(ROADMAP.md, queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 
@@ -26,18 +33,69 @@ def resolve_model(getter, name: str):
         raise SystemExit(1)
 
 
+def check_mesh_axes(mesh_shape: str) -> None:
+    """Raise on a ``--mesh_shape`` axis other than ``data``: the model,
+    pipe, seq and expert axes are not ported yet."""
+    other = [part.strip().partition(":")[0]
+             for part in (mesh_shape or "data:-1").split(",")]
+    other = [name for name in other if name != "data"]
+    if other:
+        raise NotImplementedError(
+            f"--mesh_shape={mesh_shape}: the {', '.join(other)} axis is not "
+            "ported to PyTorch yet (ROADMAP.md, queue 1 item 7); the port "
+            "runs the data axis only (data:N over N ranks)")
+
+
+def train_mesh(mesh_shape: str, batch_size: int, ft_batch: int,
+               ft_epochs: int, n_devices: int):
+    """The JAX package's train mesh arithmetic: the axes of `mesh_shape`
+    over `n_devices`, the data axis shrunk to a divisor of every phase's
+    train batch (the gcd of the phase batch sizes)."""
+    from ..parallel.mesh import mesh_for_batch
+
+    div = math.gcd(batch_size, ft_batch) if ft_epochs > 0 else batch_size
+    return mesh_for_batch(mesh_shape, div, n_devices)
+
+
+def data_mesh(args, *, train_batches=None, fsdp: bool = False):
+    """This rank's ``DataMesh`` for a CLI run: forms the process group
+    the environment describes (``--fsdp`` forms one of a single process
+    when none is launched) and holds ``--mesh_shape`` to it. ``data:N``
+    with N other than the world size exits naming the torchrun command.
+    `train_batches` = (batch_size, ft_batch, ft_epochs): where the JAX
+    package would shrink the data axis to a divisor of the train batches,
+    the port exits with its numbers instead of idling ranks."""
+    from ..parallel.mesh import DATA_AXIS, parse_mesh_shape
+    from ..parallel.multihost import env_world_size, initialize_from_env
+
+    spec = args.mesh_shape or "data:-1"
+    check_mesh_axes(spec)
+    world = env_world_size()
+    data = parse_mesh_shape(spec, world)[DATA_AXIS]
+    if data != world:
+        raise SystemExit(
+            f"--mesh_shape={spec} asks for {data} data-parallel ranks and "
+            f"this run has {world}: the port runs one process per GPU; "
+            f"launch it with `torchrun --nproc_per_node={data} -m "
+            f"garbage_classification_rca_tpu_torch.cli.<name> "
+            f"--mesh_shape=data:{data} ...`")
+    if train_batches is not None:
+        shrunk = train_mesh(spec, *train_batches, world)[DATA_AXIS]
+        if shrunk != world:
+            raise SystemExit(
+                f"mesh data axis {world} does not divide the train batch "
+                f"sizes {train_batches[:2]}; the JAX package would use "
+                f"data:{shrunk}. The port does not idle ranks: launch "
+                f"`torchrun --nproc_per_node={shrunk}`, or pick batch sizes "
+                f"that {world} divides")
+    return initialize_from_env(cli_device(), force_group=fsdp)
+
+
 def check_unported_flags(args) -> None:
-    """Raise on the training flags whose paths the port does not have
-    yet (shared by the five trainers): ``--fsdp``, meshes and multi-host
-    runs (ROADMAP.md, queue 1 item 7), ``--wandb``."""
-    todo = "is not ported to PyTorch yet (ROADMAP.md, queue 1 item 7)"
-    if args.fsdp:
-        raise NotImplementedError(f"--fsdp {todo}")
-    if args.mesh_shape not in ("", "data:-1", "data:1"):
-        raise NotImplementedError(f"--mesh_shape={args.mesh_shape} {todo}; "
-                                  "the port trains on one device")
-    if os.environ.get("GC_RCA_MULTIHOST"):
-        raise NotImplementedError(f"multi-host training {todo}")
+    """Raise on the training flags whose paths the port does not have yet
+    (shared by the five trainers): a ``--mesh_shape`` axis other than
+    data (ROADMAP.md, queue 1 item 7), ``--wandb``."""
+    check_mesh_axes(args.mesh_shape)
     if args.wandb:
         raise NotImplementedError(
             "--wandb is not ported to PyTorch yet (ROADMAP.md, queue 1); "
@@ -80,17 +138,12 @@ def model_from_payload(mdef, payload, device):
     return model.to(device).eval()
 
 
-def check_eval_flags(args, items: str = "items 1 to 3") -> None:
-    """Raise on what the eval CLIs do not run yet: they evaluate on one
-    device, from a reference .pth or a BEST checkpoint of the port's
-    trainers. `items` names the ROADMAP queue 1 items that port the rest."""
-    todo = f"is not ported to PyTorch yet (ROADMAP.md, queue 1, {items})"
-    if args.mesh_shape not in ("", "data:-1", "data:1"):
-        raise NotImplementedError(
-            f"--mesh_shape={args.mesh_shape} {todo}; the port evaluates on "
-            "one device (no data, model or seq axis)")
-    if os.environ.get("GC_RCA_MULTIHOST"):
-        raise NotImplementedError(f"multi-host evaluation {todo}")
+def check_eval_flags(args) -> None:
+    """Raise on what the eval CLIs do not run yet: a ``--mesh_shape`` axis
+    other than data (ROADMAP.md, queue 1 item 7), orbax checkpoint
+    directories (they evaluate a reference .pth or a BEST checkpoint of
+    the port's trainers)."""
+    check_mesh_axes(args.mesh_shape)
     if os.path.isdir(args.model_path):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass a reference "

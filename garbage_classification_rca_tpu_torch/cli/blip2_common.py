@@ -11,6 +11,10 @@ eval loop; and gives both trainers their input stream
 (``vlm_train_stream``: shuffled windows of ``acc_steps`` microbatches) and
 their grad-accumulating optimizer step (``make_accum_step``), and the
 full resume both share (``VlmResume``: ``--resume_from=.../RESUME``).
+Each runs over the data axis of a ``DataMesh`` too: a rank decodes its
+rows of every global batch, the step's loss is the global microbatch's
+and the eval gathers the predictions (``vlm_multihost_mesh_check``
+refuses what stays one-process).
 
 ``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
 geometry for the JAX package's tiny test configuration (CPU drives only:
@@ -35,6 +39,8 @@ from ..eval.harness import run_eval
 from ..models.vlm import blip2
 from ..models.vlm.prompts import (FOLDER_TO_ANSWER, MAX_PROMPT_TOKENS,
                                   build_prompt, prompt_text_from_path)
+from ..nn.core import batch_shard
+from ..parallel.fsdp import load_optimizer_state
 from ..train.engine import PhaseResult, load_model_state, maybe_load_resume
 
 def normalize_clip(x_uint8: torch.Tensor, dtype=torch.bfloat16):
@@ -103,12 +109,18 @@ class Blip2Batcher:
             "valid": np.asarray([1] * n + [0] * (batch_size - n), np.int32),
         }
 
-    def iter_batches(self, batch_size: int, *, shuffle=False, seed=0):
-        from ..data.pipeline import batch_indices
+    def iter_batches(self, batch_size: int, *, shuffle=False, seed=0,
+                     rows=None):
+        """Batches of the plan; `rows`: only these rows of each global
+        batch (``data.pipeline.local_plan``)."""
+        from ..data.pipeline import batch_indices, local_plan
 
         for plan in batch_indices(len(self.m), batch_size, shuffle=shuffle,
                                   seed=seed):
-            yield self.make_batch(plan, batch_size)
+            if rows is None:
+                yield self.make_batch(plan, batch_size)
+            else:
+                yield self.make_batch(local_plan(plan, rows), len(rows))
 
 
 def tiny_blip2_config() -> blip2.Blip2Config:
@@ -199,30 +211,42 @@ def class_logits_from_next_token(next_logits: torch.Tensor,
     return next_logits[:, answer_first_tokens]
 
 
-def clamp_eval_batch(batch_size: int, n_samples: int) -> int:
-    """The eval batch for n_samples on one device: no bigger than the
-    dataset, at least 1 (the JAX ``clamp_eval_batch`` without a mesh)."""
-    return max(1, min(batch_size, n_samples))
+def vlm_multihost_mesh_check(mesh, args) -> None:
+    """What stays one-process (the JAX package's
+    ``vlm_multihost_mesh_check`` and its CLI guards): multi-token
+    generation in ``cli.blip2_test``; ``--fsdp`` (the JAX VLM trainers do
+    not shard their weights either)."""
+    if getattr(args, "fsdp", False):
+        raise NotImplementedError(
+            "--fsdp shards the engine trainers' weights (main_both, "
+            "main_text, main_image); the VLM trainers keep theirs whole, as "
+            "the JAX package's do")
+    if mesh.distributed and getattr(args, "max_new_tokens", 1) > 1:
+        raise SystemExit("--max_new_tokens > 1 runs on one rank, as in the "
+                         "JAX package; drop --mesh_shape / torchrun")
 
 
 def vlm_eval(step, batcher: Blip2Batcher, batch_size: int, device,
-             prefetch_depth: int = 2):
-    """The single-process VLM eval loop: ``step(batch) -> (preds, masked
-    correct count)`` over every batch of the test set; accuracy over the
-    real dataset size (not the reference's hard-coded 2000). Returns
-    (acc %, labels, preds, stats), padding rows masked out."""
+             prefetch_depth: int = 2, mesh=None):
+    """The VLM eval loop: ``step(batch) -> (preds, masked correct count)``
+    over every batch of the test set; accuracy over the real dataset size
+    (not the reference's hard-coded 2000). Returns (acc %, labels, preds,
+    stats), padding rows masked out; with a `mesh` of several ranks each
+    evaluates its rows and every rank gets the whole result."""
     return run_eval(step, batcher, batch_size, device,
                     keys=("image", "input_ids", "attention_mask", "label",
-                          "valid"), prefetch_depth=prefetch_depth)
+                          "valid"), prefetch_depth=prefetch_depth, mesh=mesh)
 
 
 def iter_accum_windows(batcher, batch_size: int, acc_steps: int, *,
-                       shuffle: bool = False, seed: int = 0):
+                       shuffle: bool = False, seed: int = 0, rows=None):
     """Stacked [W, ...] host windows of microbatches: W == acc_steps, and
-    one trailing partial window (the JAX ``iter_accum_windows``)."""
+    one trailing partial window (the JAX ``iter_accum_windows``). `rows`:
+    a rank's rows of each global batch."""
     stack = []
+    share = {} if rows is None else {"rows": rows}
     for batch in batcher.iter_batches(batch_size, shuffle=shuffle,
-                                      seed=seed):
+                                      seed=seed, **share):
         stack.append(batch)
         if len(stack) == acc_steps:
             yield {k: np.stack([b[k] for b in stack]) for k in stack[0]}
@@ -233,17 +257,22 @@ def iter_accum_windows(batcher, batch_size: int, acc_steps: int, *,
 
 def vlm_train_stream(batcher, batch_size: int, acc_steps: int, device, *,
                      seed: int, prefetch_depth: int = 2, skip: int = 0,
-                     epoch: int = 0):
-    """The trainers' input stream on one process: ``iter_accum_windows``
-    shuffled with `seed`, moved to `device` ahead of use (the JAX
-    ``vlm_train_stream`` without its multi-host branch). `skip`: the
-    windows of `epoch` a mid-epoch RESUME has done, dropped from the host
-    stream (the same again for the same seed); more than the epoch holds
-    is a stale RESUME, a ``SystemExit`` with the JAX trainers' words."""
+                     epoch: int = 0, mesh=None):
+    """The trainers' input stream: ``iter_accum_windows`` shuffled with
+    `seed`, moved to `device` ahead of use. `skip`: the windows of `epoch`
+    a mid-epoch RESUME has done, dropped from the host stream (the same
+    again for the same seed); more than the epoch holds is a stale RESUME,
+    a ``SystemExit`` with the JAX trainers' words. With a `mesh` of
+    several ranks a rank's windows hold its rows of the global plan; the
+    trailing window stays partial, as in one process (the JAX multi-host
+    stream pads it with valid = 0 microbatches instead, which changes only
+    that window's logged loss)."""
     from ..data.pipeline import to_device
 
+    rows = (mesh.local_rows(batch_size)
+            if mesh is not None and mesh.distributed else None)
     host = iter_accum_windows(batcher, batch_size, acc_steps, shuffle=True,
-                              seed=seed)
+                              seed=seed, rows=rows)
     if skip:
         n_windows = math.ceil(math.ceil(len(batcher.m) / batch_size)
                               / acc_steps)
@@ -274,15 +303,16 @@ class VlmResume:
 
     @classmethod
     def load(cls, path: str, trainable: torch.nn.Module,
-             optimizer: torch.optim.Optimizer) -> "VlmResume":
+             optimizer: torch.optim.Optimizer, mesh=None) -> "VlmResume":
         """Restore `trainable` (the adapters or the classifier) and
         `optimizer` from the RESUME file `path` names; a start from
-        scratch when `path` names none."""
-        payload = maybe_load_resume(path)
+        scratch when `path` names none. With a `mesh` the ranks must agree
+        on the file (``engine.check_resume_agreement``)."""
+        payload = maybe_load_resume(path, mesh)
         if payload is None:
             return cls()
         load_model_state(trainable, payload["state_dict"])
-        optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(optimizer, payload["optimizer"])
         m = payload["meta"]
         step = int(m.get("step") or 0)
         print(f"Full-resume from {path} (epoch={m['epoch']}"
@@ -303,13 +333,19 @@ class VlmResume:
 
 
 def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
-                    acc_steps: int, with_key: bool = False):
+                    acc_steps: int, with_key: bool = False, mesh=None):
     """The grad-accumulating optimizer step of both VLM trainers (the JAX
     ``make_accum_step``; they differ only in the loss).
 
     ``loss_fn(microbatch)``, or ``loss_fn(microbatch, key)`` with
-    `with_key`, gives a scalar loss whose graph reaches the optimizer's
-    parameters. Returns ``step(window, key=None) -> mean loss`` over a
+    `with_key`, gives (scalar mean loss whose graph reaches the
+    optimizer's parameters, its denominator: the counted tokens or the
+    summed class weights). With a `mesh` of several ranks each microbatch
+    holds this rank's rows: the denominators are all-reduced before the
+    backward, which runs on ``loss * weight / global weight`` (the ranks'
+    sum is the global microbatch's mean), under ``core.batch_shard``, and
+    the gradients are all-reduced once after the window. Returns
+    ``step(window, key=None) -> mean loss`` over a
     window of W <= acc_steps microbatches (a leading axis on every entry):
     each microbatch's backward adds its gradient into the fp32 sums held
     in ``.grad``, the sums are divided by `acc_steps` (a trailing partial
@@ -318,6 +354,9 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
     parameter no gradient reached gets zeros, as the JAX tree does.
     Microbatch i draws its dropout from ``key.fold_in(i)``."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    dp = mesh is not None and mesh.distributed
+    if dp:
+        from ..parallel.multihost import all_reduce_sum_
 
     def step(window, key=None):
         w = window["valid"].shape[0]
@@ -326,15 +365,27 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
         loss_sum = None
         for i in range(w):
             mb = {k: v[i] for k, v in window.items()}
-            with torch.enable_grad():      # also under a caller's no_grad
-                loss = loss_fn(mb, key.fold_in(i)) if with_key \
+            # also under a caller's no_grad
+            with torch.enable_grad(), batch_shard(mesh):
+                loss, weight = loss_fn(mb, key.fold_in(i)) if with_key \
                     else loss_fn(mb)
-                loss.backward()
+                if dp:
+                    tot = torch.stack([loss.detach().float() * weight,
+                                       weight.float()])
+                    all_reduce_sum_([tot])
+                    glob = torch.clamp(tot[1], min=1e-30)
+                    (loss * (weight / glob)).backward()
+                    loss = tot[0] / glob
+                else:
+                    loss.backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if dp:
+            all_reduce_sum_([p.grad for p in params])
+        for p in params:
             p.grad.div_(acc_steps)
         optimizer.step()
         return loss_sum / w

@@ -23,10 +23,12 @@ in the compute dtype), each row's valid tokens decoded and mapped to an
 answer word by the reference's ``find_closest_string``.
 
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and
-``GC_RCA_TINY_BLIP2=1`` swaps in the tiny test geometry. Not ported yet:
-meshes (with them the pipelined ``pp_generate``), multi-host runs
-(ROADMAP.md queue 1 item 7) and the JAX package's orbax adapter
-directories.
+``GC_RCA_TINY_BLIP2=1`` swaps in the tiny test geometry. The 1-token
+path runs over N GPUs with ``torchrun --nproc_per_node=N
+--mesh_shape=data:N`` (rank 0 writes the report); generation runs on one
+rank. Not ported yet: the model and pipe axes (with them the pipelined
+``pp_generate``; ROADMAP.md queue 1 item 7) and the JAX package's orbax
+adapter directories.
 """
 
 from __future__ import annotations
@@ -38,15 +40,17 @@ import torch
 
 from ..config import args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
-from ..device import resolve_device
 from ..eval.report import generate_report_and_image
 from ..models.vlm import blip2
 from ..models.vlm.prompts import (ANSWER_TO_CLASS_IDX, ANSWER_WORDS,
                                   find_closest_string)
 from ..nn.core import Key
-from . import check_eval_flags, cli_device
-from .blip2_common import (Blip2Batcher, build_blip2, clamp_eval_batch,
-                           normalize_clip, sampler_from_args, vlm_eval)
+from ..parallel.mesh import clamp_eval_batch
+from ..parallel.multihost import is_primary
+from . import check_eval_flags, data_mesh
+from .blip2_common import (Blip2Batcher, build_blip2, normalize_clip,
+                           sampler_from_args, vlm_eval,
+                           vlm_multihost_mesh_check)
 from .blip2_train import answer_first_token_table, make_eval_step
 
 BASE_PATH = "./test_set_reports"
@@ -83,8 +87,10 @@ def make_generate_step(model, tok, args, compute_dtype):
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_eval_flags(args, items="item 7")
-    device = resolve_device(cli_device())
+    check_eval_flags(args)
+    mesh = data_mesh(args)
+    vlm_multihost_mesh_check(mesh, args)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     _, model, tok = build_blip2(args, device, dtype)
     if args.max_new_tokens > 1 and args.int8_weights:
@@ -101,8 +107,8 @@ def evaluate(args):
             step = make_eval_step(model, answer_first_token_table(
                 b, m.classes), dtype)
         return vlm_eval(step, b, clamp_eval_batch(
-            args.eval_batch_size or 16, len(m)), device,
-            prefetch_depth=args.prefetch_depth)
+            args.eval_batch_size or 16, len(m), mesh), device,
+            prefetch_depth=args.prefetch_depth, mesh=mesh)
     finally:
         b.close()
 
@@ -110,6 +116,8 @@ def evaluate(args):
 def main(argv=None):
     args = args_parser(argv)
     acc, labels, preds, _ = evaluate(args)
+    if not is_primary():
+        return acc
     report = generate_report_and_image(
         labels, preds, acc, os.path.join(BASE_PATH, "blip2"), "blip2",
         kind="blip2")

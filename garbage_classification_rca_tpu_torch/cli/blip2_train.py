@@ -34,9 +34,11 @@ blip_2_training.py:176-311), on one device:
 
 On the card each microbatch runs K2 39 times (EVA, head dim 88), K4a 32
 times and K4b 32 times (OPT, head dim 80, causal with the key mask). Runs
-on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(``cli.check_unported_flags`` raises): meshes (data, model and pipe
-axes), multi-host runs and ``--wandb``.
+on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
+``torchrun --nproc_per_node=N --mesh_shape=data:N`` (``--batch_size`` the
+global microbatch). Not ported yet (``cli.check_unported_flags`` raises):
+the model and pipe axes and ``--wandb``; ``--fsdp`` raises, as the JAX
+trainer does not shard the VLM either.
 """
 
 from __future__ import annotations
@@ -49,15 +51,15 @@ import torch
 
 from ..config import args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
-from ..device import resolve_device
 from ..models.vlm import blip2
 from ..nn.core import HFDropout, Key
 from ..train.engine import (MetricsLogger, PhaseResult, save_best,
                             save_train_state)
-from . import check_unported_flags, cli_device
+from . import check_unported_flags, data_mesh
 from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
                            class_logits_from_next_token, make_accum_step,
-                           normalize_clip, vlm_eval, vlm_train_stream)
+                           normalize_clip, vlm_eval, vlm_multihost_mesh_check,
+                           vlm_train_stream)
 
 TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
@@ -94,12 +96,13 @@ def blip2_adamw(params) -> torch.optim.AdamW:
 
 def make_lora_train_step(model, acc_steps: int = BLIP2_ACC,
                          compute_dtype=torch.bfloat16,
-                         hf_internal_dropout: bool = False):
+                         hf_internal_dropout: bool = False, mesh=None):
     """-> (optimizer, ``step(window, key) -> mean loss``): the adapters of
     `model` (fp32) train, everything else stays frozen; one AdamW step a
     window of microbatches (``make_accum_step``). With
     `hf_internal_dropout` microbatch i draws its dropout sites from
-    ``key.fold_in(i)``; without it the key is not read."""
+    ``key.fold_in(i)``; without it the key is not read. `mesh`: a
+    data-parallel run's ``DataMesh``."""
     model.requires_grad_(False)
     model.lora.requires_grad_(True)
     opt = blip2_adamw(model.lora.parameters())
@@ -107,10 +110,11 @@ def make_lora_train_step(model, acc_steps: int = BLIP2_ACC,
     def loss_fn(mb, key=None):
         x, ids, mask, labels = _assemble_lm_batch(mb, compute_dtype)
         drop = HFDropout(key) if key is not None else None
-        return blip2.lm_loss(model, x, ids, mask, labels, drop=drop)
+        return (blip2.lm_loss(model, x, ids, mask, labels, drop=drop),
+                (labels[:, 1:] != -100).sum())
 
     return opt, make_accum_step(loss_fn, opt, acc_steps,
-                                with_key=hf_internal_dropout)
+                                with_key=hf_internal_dropout, mesh=mesh)
 
 
 def make_eval_step(model, answer_first_tokens, compute_dtype=torch.bfloat16):
@@ -143,7 +147,9 @@ def answer_first_token_table(batcher: Blip2Batcher, classes) -> np.ndarray:
 def main(argv=None):
     args = args_parser(argv)
     check_unported_flags(args)
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0))
+    vlm_multihost_mesh_check(mesh, args)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype, train=True)
     train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
@@ -154,12 +160,12 @@ def main(argv=None):
     val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
     opt, step = make_lora_train_step(
         model, compute_dtype=dtype,
-        hf_internal_dropout=args.hf_internal_dropout)
+        hf_internal_dropout=args.hf_internal_dropout, mesh=mesh)
     eval_step = make_eval_step(
         model, answer_first_token_table(train_b, train_m.classes), dtype)
     logger = MetricsLogger(args.name or "blip2_lora")
     # the key is carried, split once a window, so RESUME saves it
-    start = VlmResume.load(args.resume_from, model.lora, opt)
+    start = VlmResume.load(args.resume_from, model.lora, opt, mesh)
     best = start.best
     key = Key(args.seed if start.key is None else start.key)
     save = functools.partial(
@@ -174,7 +180,7 @@ def main(argv=None):
             for done, window in enumerate(vlm_train_stream(
                     train_b, args.batch_size, BLIP2_ACC, device,
                     seed=args.seed + epoch, prefetch_depth=args.prefetch_depth,
-                    skip=skip, epoch=epoch), skip + 1):
+                    skip=skip, epoch=epoch, mesh=mesh), skip + 1):
                 key, step_key = key.split(2)
                 losses.append(step(window, step_key))
                 if args.resume_every_steps and \
@@ -183,7 +189,8 @@ def main(argv=None):
                          losses=losses)
             losses = [float(l) for l in losses]
             val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
-                               prefetch_depth=args.prefetch_depth)[0]
+                               prefetch_depth=args.prefetch_depth,
+                               mesh=mesh)[0]
             logger.log({"epoch": epoch, "avg_loss": float(np.mean(losses)),
                         "val_acc": val_acc,
                         "epoch_time_seconds": time.time() - t0})

@@ -27,9 +27,12 @@ unfolded; val evals run in eval mode under no_grad. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and ``GC_RCA_MM_IMAGE_SIZE``
 shrinks the 480x480 input for small drives. ``--hf_internal_dropout``
 switches on the text tower's own p = 0.1 dropout sites (on DistilBERT /
-BERT the dropout attention kernels). Flags of paths not ported yet raise
-NotImplementedError: --wandb, --fsdp, --mesh_shape other than one device
-and multi-host runs.
+BERT the dropout attention kernels). Data parallel over N GPUs:
+``torchrun --nproc_per_node=N -m ...cli.main_both --mesh_shape=data:N``
+(``--batch_size`` is the global batch; ``--fsdp`` shards the weights and
+the optimizer state); clip and bimodal, whose heads couple the samples of
+a batch, run on one rank. Flags of paths not ported yet raise
+NotImplementedError: --wandb, a --mesh_shape axis other than data.
 """
 
 from __future__ import annotations
@@ -45,18 +48,19 @@ from ..data.images import normalize_on_device
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
 from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
-from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.fusion.multimodal import (FusionModel, build_fusion_model,
                                         check_config)
+from ..parallel.fsdp import param_placer
+from ..parallel.mesh import clamp_eval_batch
 from ..train.engine import (BATCH_KEYS, MetricsLogger, ResumePlan,
                             load_model_state, run_phase)
 from ..train.loop import make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
 from ..utils.dtype import cast_for_training
-from . import check_unported_flags, cli_device, test_both
-from .test_both import fusion_config_from_args
+from . import check_unported_flags, data_mesh, test_both
+from .test_both import check_batch_coupling, fusion_config_from_args
 
 TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
@@ -106,7 +110,10 @@ def main(argv=None):
     cfg = fusion_config_from_args(args)
     check_config(cfg)
     check_unported_flags(args)
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size_FT,
+                                          args.ft_epochs), fsdp=args.fsdp)
+    check_batch_coupling(cfg, mesh)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
 
     train_manifest = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX,
@@ -129,8 +136,9 @@ def main(argv=None):
         val_manifest, _image_size(), tokenizer=tok, seq_len=seq_len,
         extended_desc=args.extended_desc_val is not None,
         workers=args.data_workers)
-    plan = ResumePlan(args.model_path)
-    model = load_model(args, cfg, device, plan.resume)
+    plan = ResumePlan(args.model_path, mesh)
+    model = param_placer(mesh, args.fsdp)(
+        load_model(args, cfg, device, plan.resume))
 
     def batch_to_inputs(mb, key):
         x = mb["image"]
@@ -145,12 +153,14 @@ def main(argv=None):
         return opt, make_train_step(model, opt,
                                     batch_to_inputs=batch_to_inputs,
                                     class_weights=class_weights,
-                                    label_smoothing=args.label_smoothing)
+                                    label_smoothing=args.label_smoothing,
+                                    mesh=mesh)
 
     # the CLIP head is a Linear of width --batch_size: it validates at
     # exactly that batch (the padded tail keeps the pad hack from firing)
     eval_bs = (cfg.batch_size if cfg.strategy == "clip" else
-               max(1, min(args.eval_batch_size or 32, len(val_manifest))))
+               clamp_eval_batch(args.eval_batch_size or 32, len(val_manifest),
+                                mesh))
 
     def mode_eval(model, remove_image=False, remove_text=False,
                   with_report=False):
@@ -159,7 +169,8 @@ def main(argv=None):
                                              remove_text=remove_text)
         acc, labels, preds, _ = run_eval(step, val_batcher, eval_bs, device,
                                          keys=BATCH_KEYS, progress=False,
-                                         prefetch_depth=args.prefetch_depth)
+                                         prefetch_depth=args.prefetch_depth,
+                                         mesh=mesh)
         if with_report:
             return acc, classification_report_dict(labels, preds)
         return acc
@@ -174,7 +185,7 @@ def main(argv=None):
         m, with_report=True), batcher=train_batcher, args=args,
         model_name=model_name, logger=logger, device=device,
         balanced_sampler=args.balanced_sampler, extra_evals=extra_evals,
-        keep_top_k=3, save_resume=True, resume=plan)
+        keep_top_k=3, save_resume=True, resume=plan, mesh=mesh)
 
     opt, step = make_step(args.lr, fusion_head_mask(model))
     best = run_phase(phase_name="train", epochs=args.epochs, optimizer=opt,

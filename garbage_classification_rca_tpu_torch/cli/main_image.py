@@ -23,9 +23,11 @@ continues the killed run where it stopped. Image models: every name of
 attention trains through the flash pair ``mha_flash_train``) and the 12
 conv backbones (cuDNN convolutions; BatchNorm on batch statistics, its
 running statistics fp32; the val eval runs the unfolded model on them).
-Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(NotImplementedError): ``--calculate_dataset_stats``, --wandb, --fsdp,
---mesh_shape other than one device, multi-host runs.
+Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs
+with ``torchrun --nproc_per_node=N --mesh_shape=data:N`` (``--fsdp``
+shards the weights and the optimizer state). Not ported yet
+(NotImplementedError): ``--calculate_dataset_stats``, --wandb, a
+--mesh_shape axis other than data.
 """
 
 from __future__ import annotations
@@ -38,15 +40,16 @@ from ..data.augment import augment_batch
 from ..data.images import normalize_on_device
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
-from ..device import resolve_device
 from ..eval.harness import run_image_eval
 from ..eval.report import classification_report_dict
 from ..models.registry import get_image_model
+from ..parallel.fsdp import param_placer
+from ..parallel.mesh import clamp_eval_batch
 from ..train.engine import MetricsLogger, ResumePlan, run_phase
 from ..train.loop import all_trainable_mask, head_only_mask, make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
 from ..utils.dtype import cast_for_training
-from . import (check_unported_flags, cli_device, load_unimodal_model,
+from . import (check_unported_flags, data_mesh, load_unimodal_model,
                model_from_payload, resolve_model)
 
 TRAIN_SUFFIX = "_Train"
@@ -88,7 +91,9 @@ def main(argv=None):
     spec = IMAGE_ARCHS[args.image_model]
     batch_size = args.batch_size or spec.train_batch
     ft_batch = args.batch_size_FT or spec.ft_batch
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args, train_batches=(batch_size, ft_batch,
+                                          args.ft_epochs), fsdp=args.fsdp)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
 
     train_manifest = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX,
@@ -103,7 +108,7 @@ def main(argv=None):
                                   dtype=torch.float32, device=device)
                      if args.balance_weights else None)
 
-    plan = ResumePlan(args.model_path)
+    plan = ResumePlan(args.model_path, mesh)
     if plan.resume is not None:
         # full resume: the model here; optimizer, scheduler, epoch and key
         # in run_phase
@@ -119,6 +124,7 @@ def main(argv=None):
     # fp32 master weights unless --param_dtype overrides; a full resume
     # keeps the checkpoint's dtype when the flag is left empty
     cast_for_training(args, model, plan.resume is not None)
+    model = param_placer(mesh, args.fsdp)(model)
 
     train_batcher = ImageTextBatcher(train_manifest, spec.input_size,
                                      workers=args.data_workers)
@@ -137,15 +143,16 @@ def main(argv=None):
         return opt, make_train_step(model, opt,
                                     batch_to_inputs=batch_to_inputs,
                                     class_weights=class_weights,
-                                    label_smoothing=args.label_smoothing)
+                                    label_smoothing=args.label_smoothing,
+                                    mesh=mesh)
 
-    eval_bs = max(1, min(args.eval_batch_size or spec.eval_batch,
-                         len(val_manifest)))
+    eval_bs = clamp_eval_batch(args.eval_batch_size or spec.eval_batch,
+                               len(val_manifest), mesh)
 
     def eval_fn(model):
         acc, labels, preds, _ = run_image_eval(
             model, val_batcher, eval_bs, device, dtype, progress=False,
-            prefetch_depth=args.prefetch_depth)
+            prefetch_depth=args.prefetch_depth, mesh=mesh)
         return acc, classification_report_dict(labels, preds)
 
     logger = MetricsLogger(args.name or f"image_{args.image_model}")
@@ -153,7 +160,7 @@ def main(argv=None):
                   args=args, model_name=args.image_model, logger=logger,
                   device=device, balanced_sampler=args.balanced_sampler,
                   keep_top_k=3, keys=IMAGE_KEYS, save_resume=True,
-                  resume=plan, layers=None if mdef.depth else 0)
+                  resume=plan, layers=None if mdef.depth else 0, mesh=mesh)
 
     # phase 1: frozen backbone iff --tl
     mask = head_only_mask(model, head_keys_for(args.image_model)) \

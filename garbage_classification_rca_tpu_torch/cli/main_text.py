@@ -33,9 +33,11 @@ with ``--tl`` trains the Linear the reference replaces: BART's
 ``head_out``, GPT-2's ``score``, MobileBERT's ``classifier``; under the
 reference spelling ``mobile_bert`` none, as in the JAX CLI). The head
 drops its input at the model's own default ratio. Runs on CUDA;
-``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(NotImplementedError): --wandb, --fsdp, --mesh_shape other than one
-device, multi-host runs.
+``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
+``torchrun --nproc_per_node=N --mesh_shape=data:N`` (``--fsdp`` shards
+the weights and the optimizer state; ``--use_synonyms`` then paraphrases
+each rank's rows with its own draws). Not ported yet
+(NotImplementedError): --wandb, a --mesh_shape axis other than data.
 """
 
 from __future__ import annotations
@@ -52,15 +54,16 @@ from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
 from ..data.synonymize import Synonymizer, make_hf_llm_fn
 from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
-from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import classification_report_dict
 from ..models.registry import get_text_model
+from ..parallel.fsdp import param_placer
+from ..parallel.mesh import clamp_eval_batch
 from ..train.engine import MetricsLogger, ResumePlan, run_phase
 from ..train.loop import all_trainable_mask, head_only_mask, make_train_step
 from ..train.optim import PlateauScheduler, make_optimizer
 from ..utils.dtype import cast_for_training
-from . import (check_unported_flags, cli_device, load_unimodal_model,
+from . import (check_unported_flags, data_mesh, load_unimodal_model,
                model_from_payload, resolve_model)
 from .test_text import make_text_eval_step
 
@@ -124,7 +127,9 @@ def main(argv=None):
     mdef = resolve_model(get_text_model, args.text_model)
     check_unported_flags(args)
     spec = TEXT_ARCHS[args.text_model]
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size_FT,
+                                          args.ft_epochs), fsdp=args.fsdp)
+    device = mesh.device
 
     train_manifest = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX,
                                     extended_desc=args.extended_desc_train)
@@ -161,7 +166,7 @@ def main(argv=None):
         extended_desc=args.extended_desc_val is not None,
         workers=args.data_workers, with_images=False)
 
-    plan = ResumePlan(args.model_path)
+    plan = ResumePlan(args.model_path, mesh)
     if plan.resume is not None:
         model = model_from_payload(mdef, plan.resume, device)
     elif args.model_path:
@@ -174,6 +179,7 @@ def main(argv=None):
     # fp32 master weights unless --param_dtype overrides; a full resume
     # keeps the checkpoint's dtype when the flag is left empty
     cast_for_training(args, model, plan.resume is not None)
+    model = param_placer(mesh, args.fsdp)(model)
     forward = train_forward(model, args.hf_internal_dropout)
 
     def batch_to_inputs(mb, key):
@@ -185,16 +191,17 @@ def main(argv=None):
         return opt, make_train_step(model, opt, forward=forward,
                                     batch_to_inputs=batch_to_inputs,
                                     class_weights=class_weights,
-                                    label_smoothing=args.label_smoothing)
+                                    label_smoothing=args.label_smoothing,
+                                    mesh=mesh)
 
-    eval_bs = max(1, min(args.eval_batch_size or spec.eval_batch,
-                         len(val_manifest)))
+    eval_bs = clamp_eval_batch(args.eval_batch_size or spec.eval_batch,
+                               len(val_manifest), mesh)
 
     def eval_fn(model):
         acc, labels, preds, _ = run_eval(
             make_text_eval_step(model), val_batcher, eval_bs, device,
             keys=TEXT_KEYS, progress=False,
-            prefetch_depth=args.prefetch_depth)
+            prefetch_depth=args.prefetch_depth, mesh=mesh)
         return acc, classification_report_dict(labels, preds)
 
     logger = MetricsLogger(args.name or f"text_{args.text_model}")
@@ -202,7 +209,7 @@ def main(argv=None):
                   args=args, model_name=args.text_model, logger=logger,
                   device=device, balanced_sampler=args.balanced_sampler,
                   keep_top_k=3, keys=TEXT_KEYS, save_resume=True,
-                  resume=plan)
+                  resume=plan, mesh=mesh)
 
     mask = head_only_mask(model, head_keys_for(args.text_model)) \
         if args.tl else all_trainable_mask(model)

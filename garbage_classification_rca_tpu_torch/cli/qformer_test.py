@@ -12,8 +12,9 @@ runs K2 on the card; the OPT tower does not run) and the Linear(768, 4)
 head on the Q-Former's first query output; the report goes under
 ``test_set_reports/qformer/``. Without ``--classifier_weights`` the head
 is drawn from ``--seed + 2``. Accuracy divides by the real dataset size.
-Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet:
-meshes, multi-host runs (ROADMAP.md queue 1 item 7) and the JAX package's
+Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs
+with ``torchrun --nproc_per_node=N --mesh_shape=data:N``. Not ported yet:
+the model and pipe axes (ROADMAP.md queue 1 item 7) and the JAX package's
 orbax directories.
 """
 
@@ -26,11 +27,11 @@ import numpy as np
 from .. import NUM_CLASSES
 from ..config import args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
-from ..device import resolve_device
 from ..eval.report import generate_report_and_image
-from . import check_eval_flags, cli_device
-from .blip2_common import (Blip2Batcher, build_blip2, clamp_eval_batch,
-                           vlm_eval)
+from ..parallel.mesh import clamp_eval_batch
+from ..parallel.multihost import is_primary
+from . import check_eval_flags, data_mesh
+from .blip2_common import Blip2Batcher, build_blip2, vlm_eval
 from .qformer_train import make_eval_step
 
 BASE_PATH = "./test_set_reports"
@@ -64,12 +65,13 @@ def load_classifier(path: str, hidden: int):
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_eval_flags(args, items="item 7")
+    check_eval_flags(args)
     if args.classifier_weights and os.path.isdir(args.classifier_weights):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass the "
                          "reference MultimodalClassifier .pth")
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype, with_lora=False,
                                   classifier=True)
@@ -89,8 +91,8 @@ def evaluate(args):
     b = Blip2Batcher(m, tok, workers=args.data_workers)
     try:
         return vlm_eval(make_eval_step(model, dtype), b, clamp_eval_batch(
-            args.eval_batch_size or 16, len(m)), device,
-            prefetch_depth=args.prefetch_depth)
+            args.eval_batch_size or 16, len(m), mesh), device,
+            prefetch_depth=args.prefetch_depth, mesh=mesh)
     finally:
         b.close()
 
@@ -98,6 +100,8 @@ def evaluate(args):
 def main(argv=None):
     args = args_parser(argv)
     acc, labels, preds, _ = evaluate(args)
+    if not is_primary():
+        return acc
     report = generate_report_and_image(
         labels, preds, acc, os.path.join(BASE_PATH, "qformer"), "qformer",
         kind="qformer")

@@ -5,7 +5,7 @@
   [--batch_size=16] [--epochs=N] [--hf_internal_dropout]``
 
 The port of the JAX package's ``cli/qformer_train.py`` (reference
-q_former_training.py:189-332), on one device: the frozen BLIP-2 backbone,
+q_former_training.py:189-332): the frozen BLIP-2 backbone,
 the Linear(768, 4) classifier on the Q-Former's first query output (read
 in fp32), CE on the class ids over the valid rows, AdamW(lr 5e-4, eps
 1e-5, weight decay 0.01) every 8 microbatches of ``--batch_size``
@@ -23,9 +23,10 @@ state, epoch, step, the epoch's losses so far, the best);
 keys are derived, not carried, so a mid-epoch resume draws the same.
 
 On the card each microbatch runs K2 39 times (EVA, head dim 88). Runs on
-CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Not ported yet
-(``cli.check_unported_flags`` raises): meshes, multi-host runs and
-``--wandb``.
+CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
+``torchrun --nproc_per_node=N --mesh_shape=data:N``. Not ported yet
+(``cli.check_unported_flags`` raises): the model and pipe axes and
+``--wandb``; ``--fsdp`` raises, as the JAX trainer does not shard either.
 """
 
 from __future__ import annotations
@@ -38,16 +39,15 @@ import torch
 
 from ..config import args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
-from ..device import resolve_device
 from ..models.vlm import blip2
 from ..nn.core import HFDropout, Key
 from ..train.engine import (MetricsLogger, PhaseResult, save_best,
                             save_train_state)
 from ..train.loss import cross_entropy_loss_and_weight
-from . import check_unported_flags, cli_device
+from . import check_unported_flags, data_mesh
 from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
                            make_accum_step, normalize_clip, vlm_eval,
-                           vlm_train_stream)
+                           vlm_multihost_mesh_check, vlm_train_stream)
 from .blip2_train import blip2_adamw
 
 TRAIN_SUFFIX = "_Train"
@@ -56,7 +56,7 @@ QF_ACC = 8               # reference q_former_training.py:241
 
 
 def make_steps(model, acc_steps: int = QF_ACC, compute_dtype=torch.bfloat16,
-               hf_internal_dropout: bool = False):
+               hf_internal_dropout: bool = False, mesh=None):
     """-> (optimizer, ``train_step(window, key) -> mean loss``,
     ``eval_step(batch) -> (preds, masked correct count)``): the
     classifier of `model` trains, the backbone stays frozen and runs
@@ -72,11 +72,10 @@ def make_steps(model, acc_steps: int = QF_ACC, compute_dtype=torch.bfloat16,
             feat = blip2.qformer_cls_feature(
                 model, x, HFDropout(key) if key is not None else None)
         return cross_entropy_loss_and_weight(
-            model.classifier(feat.float()), mb["label"],
-            valid=mb["valid"])[0]
+            model.classifier(feat.float()), mb["label"], valid=mb["valid"])
 
     return opt, make_accum_step(loss_fn, opt, acc_steps,
-                                with_key=hf_internal_dropout), \
+                                with_key=hf_internal_dropout, mesh=mesh), \
         make_eval_step(model, compute_dtype)
 
 
@@ -96,7 +95,9 @@ def make_eval_step(model, compute_dtype=torch.bfloat16):
 def main(argv=None):
     args = args_parser(argv)
     check_unported_flags(args)
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0))
+    vlm_multihost_mesh_check(mesh, args)
+    device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     _, model, tok = build_blip2(args, device, dtype, with_lora=False,
                                 classifier=True)
@@ -107,9 +108,9 @@ def main(argv=None):
     val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
     opt, train_step, eval_step = make_steps(
         model, compute_dtype=dtype,
-        hf_internal_dropout=args.hf_internal_dropout)
+        hf_internal_dropout=args.hf_internal_dropout, mesh=mesh)
     logger = MetricsLogger(args.name or "qformer_cls")
-    start = VlmResume.load(args.resume_from, model.classifier, opt)
+    start = VlmResume.load(args.resume_from, model.classifier, opt, mesh)
     best = start.best
     # RESUME records the seed's key, as the JAX trainer's does
     save = functools.partial(
@@ -124,7 +125,7 @@ def main(argv=None):
             for w, window in enumerate(vlm_train_stream(
                     train_b, args.batch_size, QF_ACC, device,
                     seed=args.seed + epoch, prefetch_depth=args.prefetch_depth,
-                    skip=skip, epoch=epoch), skip):
+                    skip=skip, epoch=epoch, mesh=mesh), skip):
                 # the window's key, derived rather than carried (the JAX
                 # trainer's fold_in(fold_in(seed, epoch), window))
                 losses.append(train_step(
@@ -134,7 +135,8 @@ def main(argv=None):
                     save(epoch=epoch, best=best, step=w + 1, losses=losses)
             losses = [float(l) for l in losses]
             val_acc = vlm_eval(eval_step, val_b, args.batch_size, device,
-                               prefetch_depth=args.prefetch_depth)[0]
+                               prefetch_depth=args.prefetch_depth,
+                               mesh=mesh)[0]
             logger.log({"epoch": epoch, "avg_loss": float(np.mean(losses)),
                         "val_acc": val_acc,
                         "epoch_time_seconds": time.time() - t0})

@@ -37,6 +37,7 @@ refused, as in the other VLM CLIs (ROADMAP.md queue 1 item 7).
 from __future__ import annotations
 
 import json
+import os
 import queue
 import sys
 import threading
@@ -146,7 +147,12 @@ def main(argv=None, stdin=None, stdout=None):
     from .blip2_common import build_blip2, sampler_from_args
 
     args = args_parser(argv)
-    check_eval_flags(args, items="item 7")
+    check_eval_flags(args)
+    if args.mesh_shape not in ("", "data:-1", "data:1") \
+            or os.environ.get("GC_RCA_MULTIHOST"):
+        raise NotImplementedError(
+            "cli.serve runs on one device: its meshes are tensor parallel "
+            "(tp.py, ROADMAP.md, queue 1 item 7)")
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     device = resolve_device(cli_device())

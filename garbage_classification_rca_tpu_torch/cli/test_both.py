@@ -12,9 +12,13 @@ dtype, evaluates with eval=True, and writes the confusion PNG + report CSV
 under ``test_set_reports/<late_fusion>/``. ``clip`` evaluates at exactly
 ``--batch_size`` (its head is a Linear of that width; the padded tail
 batch keeps the pad hack from firing), every other strategy at
-``--eval_batch_size`` (128 by default). Same flags as the JAX package's
-``cli/test_both.py``; one device (the mesh / multi-host branches and
-orbax directories raise: not ported yet). Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU.
+``--eval_batch_size`` (128 by default, rounded up to a multiple of the
+ranks). Same flags as the JAX package's ``cli/test_both.py``; data
+parallel over N GPUs with ``torchrun --nproc_per_node=N
+--mesh_shape=data:N`` (rank 0 writes the report; clip and bimodal run on
+one rank); the model / pipe / seq / expert axes and orbax directories
+raise (not ported yet). Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on
+the CPU.
 """
 
 from __future__ import annotations
@@ -31,15 +35,16 @@ from ..data.images import normalize_on_device
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
 from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
-from ..device import resolve_device
 from ..eval.harness import run_eval
 from ..eval.report import generate_report_and_image
 from ..models.fusion.multimodal import (FusionConfig, FusionModel,
                                         check_config, convert_torch,
                                         load_fusion_model)
 from ..nn.fold import fold_batchnorm
+from ..parallel.mesh import clamp_eval_batch
+from ..parallel.multihost import is_primary
 from ..train.engine import load_checkpoint
-from . import check_eval_flags, cli_device
+from . import check_eval_flags, data_mesh
 
 BASE_PATH = "./test_set_reports"
 
@@ -60,6 +65,16 @@ def fusion_config_from_args(args) -> FusionConfig:
     )
 
 
+def check_batch_coupling(cfg: FusionConfig, mesh) -> None:
+    """clip's head is a Linear over the batch and bimodal's GRU scans the
+    samples of a batch: both couple a batch's samples, so they do not split
+    over ranks (the JAX package's GSPMD gathers the batch for them)."""
+    if mesh.distributed and cfg.strategy in ("clip", "bimodal"):
+        raise SystemExit(
+            f"--late_fusion={cfg.strategy} couples the samples of a batch "
+            "and runs on one rank; the port splits batches over ranks")
+
+
 def make_both_eval_step(model, compute_dtype, *, remove_image=False,
                         remove_text=False):
     def step(batch):
@@ -75,12 +90,12 @@ def make_both_eval_step(model, compute_dtype, *, remove_image=False,
 
 def run_multimodal_eval(model, batcher, batch_size, device,
                         compute_dtype=torch.bfloat16, progress=True,
-                        prefetch_depth=2):
+                        prefetch_depth=2, mesh=None):
     step = make_both_eval_step(model, compute_dtype)
     return run_eval(step, batcher, batch_size, device,
                     keys=("image", "input_ids", "attention_mask", "label",
                           "valid"), progress=progress,
-                    prefetch_depth=prefetch_depth)
+                    prefetch_depth=prefetch_depth, mesh=mesh)
 
 
 def load_model(path: str, cfg: FusionConfig, device) -> FusionModel:
@@ -106,7 +121,9 @@ def evaluate(args):
     cfg = fusion_config_from_args(args)
     check_config(cfg)
     check_eval_flags(args)
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args)
+    check_batch_coupling(cfg, mesh)
+    device = mesh.device
     model = load_model(args.model_path, cfg, device)
     fold_batchnorm(model.image, 1e-3)   # EffNetV2 bn eps
     model.to(torch_compute_dtype(args.param_dtype or args.compute_dtype))
@@ -118,8 +135,9 @@ def evaluate(args):
     if cfg.strategy == "clip":
         batch_size = cfg.batch_size
     else:
-        batch_size = max(1, min(args.eval_batch_size
-                                or MULTIMODAL_EVAL_BATCH, len(manifest)))
+        batch_size = clamp_eval_batch(
+            args.eval_batch_size or MULTIMODAL_EVAL_BATCH, len(manifest),
+            mesh)
     batcher = ImageTextBatcher(
         manifest, MULTIMODAL_IMAGE_SIZE, tokenizer=tok,
         seq_len=args.seq_len or DEFAULT_SEQ_LEN,
@@ -129,7 +147,7 @@ def evaluate(args):
         return run_multimodal_eval(
             model, batcher, batch_size, device,
             torch_compute_dtype(args.compute_dtype),
-            prefetch_depth=args.prefetch_depth)
+            prefetch_depth=args.prefetch_depth, mesh=mesh)
     finally:
         batcher.close()
 
@@ -140,6 +158,8 @@ def main(argv=None):
         print("Please provide test model path")
         sys.exit(0)   # exit code 0 is reference-faithful
     acc, labels, preds, stats = evaluate(args)
+    if not is_primary():
+        return acc
     tag = args.late_fusion
     print(f"\nsamples checked for test: {stats['n']}")
     print(f"eval throughput: {stats['samples_per_s']:.1f} samples/s")

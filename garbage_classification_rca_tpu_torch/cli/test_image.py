@@ -10,9 +10,10 @@ report, and writes the confusion-matrix PNG + report CSV under
 the forward runs in ``--compute_dtype`` (ViT's encoder layers are the fused
 pre-norm block kernels where the shape fits; the conv backbones are cuDNN
 convolutions and PyTorch ops, their BatchNorm folded into the convs first,
-in fp32). Same flags as the JAX package's ``cli/test_image.py``; one
-device: other ``--mesh_shape``s, multi-host runs, orbax checkpoint
-directories and ``--profile_dir`` are not ported yet. Runs on CUDA;
+in fp32). Same flags as the JAX package's ``cli/test_image.py``; over N
+GPUs with ``torchrun --nproc_per_node=N --mesh_shape=data:N`` (rank 0
+writes the report); the other mesh axes, orbax checkpoint directories and
+``--profile_dir`` are not ported yet. Runs on CUDA;
 ``GC_RCA_PLATFORM=cpu`` runs it on the CPU. Image models: transformer_B16,
 transformer_L16, shuffle_net, res18, res50, res152, mb, convnext, b0, b4,
 b5, eff_v2_small, eff_v2_medium, eff_v2_large.
@@ -26,13 +27,14 @@ import sys
 from ..config import IMAGE_ARCHS, args_parser, torch_compute_dtype
 from ..data.manifest import build_manifest
 from ..data.pipeline import ImageTextBatcher
-from ..device import resolve_device
 from ..eval.harness import run_image_eval
 from ..eval.report import generate_report_and_image
 from ..models.registry import get_image_model
 from ..nn.fold import fold_batchnorm
+from ..parallel.mesh import clamp_eval_batch
+from ..parallel.multihost import is_primary
 from ..utils.dtype import resolve_param_dtype
-from . import (check_eval_flags, cli_device, load_unimodal_model,
+from . import (check_eval_flags, data_mesh, load_unimodal_model,
                resolve_model)
 
 BASE_PATH = "./test_set_reports"
@@ -48,7 +50,8 @@ def evaluate(args):
             "--profile_dir is not ported to PyTorch yet (ROADMAP.md, queue "
             "1 item 3); chip_smoke.py profiles the image eval path")
     spec = IMAGE_ARCHS[args.image_model]
-    device = resolve_device(cli_device())
+    mesh = data_mesh(args)
+    device = mesh.device
     print(f"Image Model: {args.image_model}")
     model = load_unimodal_model(mdef, args.model_path,
                                 f"--image_model={args.image_model}", device)
@@ -59,15 +62,15 @@ def evaluate(args):
 
     manifest = build_manifest(args.dataset_folder_name)
     print(f"Num of test images: {len(manifest)}")
-    batch_size = max(1, min(args.eval_batch_size or spec.eval_batch,
-                            len(manifest)))
+    batch_size = clamp_eval_batch(args.eval_batch_size or spec.eval_batch,
+                                  len(manifest), mesh)
     batcher = ImageTextBatcher(manifest, spec.input_size,
                                workers=args.data_workers)
     try:
         return run_image_eval(
             model, batcher, batch_size, device,
             torch_compute_dtype(args.compute_dtype),
-            prefetch_depth=args.prefetch_depth) + (manifest,)
+            prefetch_depth=args.prefetch_depth, mesh=mesh) + (manifest,)
     finally:
         batcher.close()
 
@@ -78,6 +81,8 @@ def main(argv=None):
         print("Please provide test model path")
         sys.exit(0)   # exit code 0 is reference-faithful
     acc, labels, preds, stats, manifest = evaluate(args)
+    if not is_primary():
+        return acc
     print(f"\nsamples checked for test: {stats['n']}")
     print(f"eval throughput: {stats['samples_per_s']:.1f} samples/s "
           f"(p50 step {stats['p50_step_s'] * 1e3:.1f} ms)")

@@ -24,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..nn.core import rand_rows
+
 
 def _eye(b, device):
     return torch.eye(3, device=device).expand(b, 3, 3).clone()
@@ -205,8 +207,8 @@ def augment_batch(images_u8: torch.Tensor, prob: float,
     draws from `generator` (on the images' device)."""
     b, h, w, _ = images_u8.shape
     dev = images_u8.device
-    u = torch.rand((b, 17), generator=generator, device=dev)
-    normals = torch.randn((b, 4, 2), generator=generator, device=dev)
+    u = rand_rows((b, 17), generator, dev)
+    normals = rand_rows((b, 4, 2), generator, dev, normal=True)
     x = warp_bilinear(images_u8.float(), homography(u, normals, h, w, prob))
 
     def fires(col):

@@ -31,6 +31,17 @@ from .manifest import Manifest
 from .tokenizer import BaseTokenizer
 
 
+def local_plan(plan: np.ndarray, rows: Optional[np.ndarray]) -> np.ndarray:
+    """The samples of a global batch `plan` at the global rows `rows`
+    (ascending; one rank's share under data parallelism). Rows past the
+    plan are the global tail padding: left out, so that the rank's
+    ``make_batch`` pads them as the global batch does (sample 0, valid
+    0). None: the whole plan."""
+    if rows is None:
+        return plan
+    return np.asarray([plan[r] for r in rows if r < len(plan)], np.int64)
+
+
 def batch_indices(n: int, batch_size: int, *, shuffle: bool,
                   seed: int = 0, order: Optional[np.ndarray] = None
                   ) -> List[np.ndarray]:
@@ -97,12 +108,18 @@ class ImageTextBatcher:
 
     def iter_batches(self, batch_size: int, *, shuffle: bool = False,
                      seed: int = 0, order: Optional[np.ndarray] = None,
-                     prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+                     prefetch: int = 2, rows: Optional[np.ndarray] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield fixed-shape batches, preparing `prefetch` batches ahead on a
         background thread. ``order``: the sample indices to batch (the
-        balanced sampler's draw); default all samples once."""
+        balanced sampler's draw); default all samples once. ``rows``: only
+        these rows of each global batch (``local_plan``), batches of
+        ``len(rows)``."""
         plans = batch_indices(len(self.m), batch_size, shuffle=shuffle,
                               seed=seed, order=order)
+        if rows is not None:
+            plans = [local_plan(p, rows) for p in plans]
+            batch_size = len(rows)
         q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         stop = threading.Event()
 

@@ -6,6 +6,9 @@ keys, and the image-only step (``make_eval_step`` / ``run_image_eval``:
 normalize on the device -> model -> argmax + masked correct count).
 Batches reach the device through pinned memory with non_blocking copies
 (``data/pipeline.to_device``); the step runs under ``inference_mode``.
+With a data-parallel ``DataMesh`` each rank evaluates its rows of every
+batch and the predictions are gathered in the one-process order
+(``parallel/multihost.run_eval_multiprocess``).
 """
 
 from __future__ import annotations
@@ -34,10 +37,18 @@ def make_eval_step(model, compute_dtype=torch.bfloat16):
 
 def run_eval(step: Callable, batcher, batch_size: int, device,
              keys: Tuple[str, ...] = ("image", "label", "valid"),
-             progress: bool = True, prefetch_depth: int = 2
+             progress: bool = True, prefetch_depth: int = 2, mesh=None
              ) -> Tuple[float, np.ndarray, np.ndarray, Dict]:
     """Full-dataset eval. ``step(batch) -> (preds, correct)`` takes a dict
-    of device tensors; returns (acc %, labels, preds, timing stats)."""
+    of device tensors; returns (acc %, labels, preds, timing stats). With
+    a `mesh` of several ranks every rank returns the whole result;
+    `batch_size` is the global batch, which the world size divides."""
+    if mesh is not None and mesh.distributed:
+        from ..parallel.multihost import run_eval_multiprocess
+
+        return run_eval_multiprocess(step, batcher, batch_size, mesh,
+                                     keys=keys, progress=progress,
+                                     prefetch_depth=prefetch_depth)
     n_total = len(batcher.m)
     all_preds, all_labels = [], []
     correct = 0
@@ -79,10 +90,10 @@ def run_eval(step: Callable, batcher, batch_size: int, device,
 
 def run_image_eval(model, batcher, batch_size: int, device,
                    compute_dtype=torch.bfloat16, progress: bool = True,
-                   prefetch_depth: int = 2
+                   prefetch_depth: int = 2, mesh=None
                    ) -> Tuple[float, np.ndarray, np.ndarray, Dict]:
     """Full-dataset image eval. Returns (acc %, labels, preds, stats)."""
     return run_eval(make_eval_step(model, compute_dtype), batcher,
                     batch_size, device,
                     keys=("image", "label", "valid"), progress=progress,
-                    prefetch_depth=prefetch_depth)
+                    prefetch_depth=prefetch_depth, mesh=mesh)

@@ -16,10 +16,16 @@ Randomness (dropout, stochastic depth) draws from an explicit
 folds in data the way a JAX key does, so every random site of a train step
 has its own reproducible stream. The streams differ from JAX's bits; the
 tests feed both sides the same draws where they compare them.
+
+Under data parallelism (``batch_shard``) a train step's tensors hold one
+rank's rows of the global microbatch; the random draws of batch-major
+tensors (``rand_rows``) and BatchNorm's statistics are then the global
+batch's, so that N ranks compute the one-device step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional
 
@@ -33,6 +39,40 @@ from torch import nn
 def _uniform(shape, fan_in: int, generator: Optional[torch.Generator]):
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+_SHARD = None       # the DataMesh of the running data-parallel step
+
+
+@contextlib.contextmanager
+def batch_shard(mesh):
+    """Within: the batch-major tensors hold `mesh`'s rank's rows of the
+    global batch (a contiguous block, ``DataMesh.local_rows``). Random
+    draws through ``rand_rows`` and train-mode ``BatchNorm`` then act on
+    the global batch. A mesh of one rank, or None, changes nothing."""
+    global _SHARD
+    prev = _SHARD
+    _SHARD = mesh if mesh is not None and mesh.distributed else None
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def rand_rows(shape, generator: Optional[torch.Generator], device, *,
+              normal: bool = False) -> torch.Tensor:
+    """``torch.rand`` (``torch.randn`` with `normal`) of a batch-major
+    `shape`. Under ``batch_shard`` it draws the global batch's values,
+    ``shape[0] * world`` rows, and returns this rank's block, so that a
+    rank sees the one-device draw of its samples."""
+    draw = torch.randn if normal else torch.rand
+    shape = tuple(shape)
+    if _SHARD is None:
+        return draw(shape, generator=generator, device=device)
+    n = shape[0]
+    full = draw((n * _SHARD.world,) + shape[1:], generator=generator,
+                device=device)
+    return full[_SHARD.rank * n:(_SHARD.rank + 1) * n]
 
 
 class Key:
@@ -62,8 +102,7 @@ class Key:
         `device`, True with probability 1 - rate. The same key, shape and
         device give the same mask again (a backward pass redraws it instead
         of holding it)."""
-        return torch.rand(tuple(shape), generator=self.generator(device),
-                          device=device) < 1.0 - rate
+        return rand_rows(shape, self.generator(device), device) < 1.0 - rate
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +271,8 @@ class BatchNorm(nn.Module):
     ``new = (1 - m) * old + m * batch``, the variance taken unbiased —
     torch's and the JAX package's rule; it is PyTorch's own batch_norm,
     which accumulates in fp32 for bf16 inputs and returns the input's
-    dtype."""
+    dtype. Under ``batch_shard`` the statistics are the global batch's
+    (``_SyncBatchNorm``)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -244,6 +284,10 @@ class BatchNorm(nn.Module):
     def forward(self, x, eps: float, *, train: bool = False,
                 momentum: float = 0.1):
         acc = torch.promote_types(x.dtype, torch.float32)
+        if train and _SHARD is not None:
+            return _SyncBatchNorm.apply(
+                x, self.scale.to(acc), self.bias.to(acc), self.mean,
+                self.var, eps, momentum, _SHARD)
         if train:
             return F.batch_norm(x, self.mean, self.var, self.scale.to(acc),
                                 self.bias.to(acc), training=True,
@@ -252,6 +296,65 @@ class BatchNorm(nn.Module):
         shift = self.bias.to(acc) - self.mean.to(acc) * inv
         y = x.to(acc) * inv[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a data-parallel step:
+    each rank's per-channel (count, mean, M2) gathered in one collective
+    and combined (Chan's rule); the running variance unbiased over the
+    global count. The backward all-reduces the per-channel sums of dy and
+    dy * x_hat in one collective; the scale and bias gradients are the
+    rank's own (the train step sums them over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, running_mean, running_var, eps,
+                momentum, mesh):
+        from ..parallel.multihost import gather_rows
+
+        acc = scale.dtype
+        xf = x.to(acc)
+        dims = [d for d in range(x.ndim) if d != 1]
+        view = [1, -1] + [1] * (x.ndim - 2)
+        n = x.numel() // x.shape[1]
+        mean_l = xf.mean(dims)
+        m2_l = ((xf - mean_l.view(view)) ** 2).sum(dims)
+        stats = torch.stack([torch.full_like(mean_l, n), mean_l, m2_l])
+        every = gather_rows(stats[None], mesh)            # [world, 3, C]
+        counts, means, m2s = every[:, 0], every[:, 1], every[:, 2]
+        total = counts.sum(0)
+        mean = (counts * means).sum(0) / total
+        m2 = (m2s + counts * (means - mean) ** 2).sum(0)
+        invstd = torch.rsqrt(m2 / total + eps)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(
+                momentum * mean.to(running_mean.dtype))
+            running_var.mul_(1 - momentum).add_(
+                momentum * (m2 / (total - 1)).to(running_var.dtype))
+        ctx.save_for_backward(x, scale, mean, invstd, total)
+        ctx.mesh = mesh
+        y = (xf - mean.view(view)) * (invstd * scale).view(view) \
+            + bias.view(view)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ..parallel.multihost import all_reduce_sum_
+
+        x, scale, mean, invstd, total = ctx.saved_tensors
+        acc = scale.dtype
+        dims = [d for d in range(x.ndim) if d != 1]
+        view = [1, -1] + [1] * (x.ndim - 2)
+        xhat = (x.to(acc) - mean.view(view)) * invstd.view(view)
+        dyf = dy.to(acc)
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        glob = torch.stack([sum_dy, sum_dy_xhat])
+        all_reduce_sum_([glob])
+        dx = (scale * invstd).view(view) * (
+            dyf - (glob[0] / total).view(view)
+            - xhat * (glob[1] / total).view(view))
+        return (dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None, None, None,
+                None)
 
 
 class GRU(nn.Module):
@@ -318,8 +421,7 @@ def dropout(x: torch.Tensor, rate: float,
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep
+    mask = rand_rows(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -377,5 +479,5 @@ def stochastic_depth(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)

@@ -18,8 +18,15 @@ full training state to ``model_weights/<model>/RESUME`` after every epoch
 (and every ``--resume_every_steps`` optimizer windows): the model with
 its BatchNorm buffers, the optimizer, the plateau scheduler, the epoch,
 step, best and key, so that ``--model_path=.../RESUME`` continues a killed
-run bit for bit. Not ported (the CLI raises on the flags that ask for
-them): multi-host input, wandb.
+run bit for bit.
+
+Data parallelism (a ``DataMesh`` of N ranks, ``run_phase(mesh=)``): each
+rank decodes its rows of the global batch plan
+(``stacked_batches(rows=mesh.local_rows(batch_size))``); the checkpoints gather the
+whole state (collective under ``--fsdp``) and rank 0 alone writes them,
+the JSONL rows and the prints; a RESUME file records the world size, and
+ranks that disagree on the resume point, or a file of another world size,
+stop every rank at once. Not ported (the CLI raises on the flag): wandb.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ from ..config import RunConfig
 from ..data.pipeline import to_device
 from ..data.sampler import imbalanced_sample_order
 from ..nn.core import Key
+from ..parallel.fsdp import (full_optimizer_state, full_state_dict,
+                             load_optimizer_state)
+from ..parallel.multihost import agree, barrier, is_primary
 from .optim import PlateauScheduler, get_learning_rate, set_learning_rate
 
 CHECKPOINT_FORMAT = "garbage_classification_rca_tpu_torch/1"
@@ -52,26 +62,37 @@ BATCH_KEYS = ("image", "input_ids", "attention_mask", "label", "valid")
 
 
 class MetricsLogger:
-    """JSONL metrics sink, one row per epoch under ``runs/``."""
+    """JSONL metrics sink, one row per epoch under ``runs/`` (rank 0's
+    alone)."""
 
     def __init__(self, run_name: str):
-        os.makedirs("runs", exist_ok=True)
+        self.primary = is_primary()
         ts = datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
         self.path = os.path.join("runs", f"{run_name}_{ts}.jsonl")
+        if self.primary:
+            os.makedirs("runs", exist_ok=True)
 
     def log(self, metrics: Dict):
+        if not self.primary:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(metrics) + "\n")
 
 
 def stacked_batches(batcher, batch_size: int, acc_steps: int, *, seed: int,
-                    order=None, keys=BATCH_KEYS
+                    order=None, keys=BATCH_KEYS, rows=None
                     ) -> Iterable[Dict[str, np.ndarray]]:
-    """Group the host stream into [acc, B, ...] stacks."""
+    """Group the host stream into [acc, B, ...] stacks. `rows`: only these
+    rows of each global batch of `batch_size` (a rank's share,
+    ``DataMesh.local_rows``: stacks [acc, B / world, ...] whose ranks make
+    the one-process stack, the global tail padding, sample 0 with
+    valid = 0, and the trailing stack's repeat with valid = 0 included).
+    Every rank must drain the stream (the train step is collective)."""
     acc = max(acc_steps, 1)
     buf: List[Dict] = []
+    share = {} if rows is None else {"rows": rows}
     for b in batcher.iter_batches(batch_size, shuffle=order is None,
-                                  seed=seed, order=order):
+                                  seed=seed, order=order, **share):
         buf.append({k: v for k, v in b.items() if k in keys})
         if len(buf) == acc:
             yield {k: np.stack([x[k] for x in buf]) for k in buf[0]}
@@ -88,13 +109,21 @@ def stacked_batches(batcher, batch_size: int, acc_steps: int, *, seed: int,
 
 def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
               val_acc: float, args: RunConfig, fine_tuning: bool,
-              keep_top_k: int = 0, layers: Optional[int] = None) -> str:
+              keep_top_k: int = 0, layers: Optional[int] = None
+              ) -> Optional[str]:
     """A BEST checkpoint under the JAX package's name
     (``model_weights/<model>/BEST_model_..._VAL_ACC_<acc>_<time>``): one
     ``torch.save`` file holding the state_dict (on the CPU) and meta.
     `layers`: the depth to record for a module without transformer layers
     of its own (the VLM trainers' adapters and classifier, 0 for the conv
-    backbones; default ``model_depth``)."""
+    backbones; default ``model_depth``). Every rank of a data-parallel run
+    calls it (the state is gathered); rank 0 writes and gets the path,
+    the others None."""
+    primary = is_primary()
+    state = full_state_dict(model, primary)
+    if not primary:
+        barrier()
+        return None
     base = os.path.join("model_weights", model_name)
     os.makedirs(base, exist_ok=True)
     if fine_tuning:
@@ -109,15 +138,12 @@ def save_best(model: torch.nn.Module, *, model_name: str, epoch: int,
     meta = {"epoch": epoch, "val_acc": val_acc, "fine_tuning": fine_tuning,
             "layers": model_depth(model) if layers is None else layers}
     torch.save({"format": CHECKPOINT_FORMAT,
-                "state_dict": _cpu_state(model), "meta": meta}, path)
+                "state_dict": state, "meta": meta}, path)
     print(f"Saving weights to {path}")
     if keep_top_k:
         _prune_best(base, keep_top_k, protect=name)
+    barrier()
     return path
-
-
-def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
 def model_depth(model: torch.nn.Module) -> int:
@@ -170,17 +196,6 @@ class PhaseResult:
     best_path: Optional[str]
 
 
-def _cpu(obj):
-    """`obj` with every tensor in it moved to the CPU."""
-    if torch.is_tensor(obj):
-        return obj.detach().cpu()
-    if isinstance(obj, dict):
-        return {k: _cpu(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_cpu(v) for v in obj)
-    return obj
-
-
 def save_train_state(*, model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer, model_name: str,
                      key: Key, epoch: int, phase_name: str,
@@ -198,7 +213,16 @@ def save_train_state(*, model: torch.nn.Module,
     far ride along, so that the resumed epoch logs the same row. The file
     is written to ``RESUME.tmp`` and swapped in; the one it replaces waits
     as ``RESUME.prev`` until then, so a kill at any point leaves one
-    whole file."""
+    whole file. Every rank calls it; rank 0 writes (meta ``world``: the
+    run's world size) and gets the path, the others None."""
+    import torch.distributed as dist
+
+    primary = is_primary()
+    state = full_state_dict(model, primary)
+    opt_state = full_optimizer_state(optimizer, primary)
+    if not primary:
+        barrier()
+        return None
     base = os.path.join("model_weights", model_name)
     os.makedirs(base, exist_ok=True)
     path = os.path.abspath(os.path.join(base, RESUME_NAME))
@@ -208,28 +232,59 @@ def save_train_state(*, model: torch.nn.Module,
             "best_val_acc": best.best_val_acc,
             "best_epoch": best.best_epoch,
             "best_path": best.best_path or "",
-            "layers": model_depth(model) if layers is None else layers}
+            "layers": model_depth(model) if layers is None else layers,
+            "world": dist.get_world_size() if dist.is_initialized() else 1}
     if step:
         meta["losses"] = [float(l) for l in losses or ()]
         meta["grad_norms"] = [float(g) for g in grad_norms or ()]
         meta["param_norm"] = (None if param_norm is None
                               else float(param_norm))
     tmp, prev = path + ".tmp", path + ".prev"
-    torch.save({"format": RESUME_FORMAT, "state_dict": _cpu_state(model),
-                "optimizer": _cpu(optimizer.state_dict()), "meta": meta},
-               tmp)
+    torch.save({"format": RESUME_FORMAT, "state_dict": state,
+                "optimizer": opt_state, "meta": meta}, tmp)
     if os.path.exists(path):
         os.replace(path, prev)
     os.replace(tmp, path)
     if os.path.exists(prev):
         os.remove(prev)
+    barrier()
     return path
 
 
-def maybe_load_resume(model_path: str) -> Optional[Dict]:
+def maybe_load_resume(model_path: str, mesh=None) -> Optional[Dict]:
     """The payload of a ``save_train_state`` file when `model_path` names
     one by its basename ``RESUME``, else None. When ``RESUME`` is missing
-    (a kill inside the swap) its ``RESUME.prev`` is read instead."""
+    (a kill inside the swap) its ``RESUME.prev`` is read instead. With a
+    data-parallel `mesh` every rank reads the file and the ranks must
+    agree on it (``check_resume_agreement``)."""
+    payload = _read_resume(model_path)
+    if mesh is not None:
+        check_resume_agreement(payload, mesh)
+    return payload
+
+
+def check_resume_agreement(payload: Optional[Dict], mesh) -> None:
+    """Stop every rank at once when the ranks disagree on the resume point
+    (a RESUME file some ranks see and others not: they would train on
+    different plans and hang in the last collective) or when the file was
+    written by a run of another world size."""
+    if payload is None:
+        point = (0, 0, 0, 0)
+    else:
+        m = payload["meta"]
+        point = (1, PHASES.index(m["phase_name"]), int(m["epoch"]),
+                 int(m.get("step") or 0))
+    agree(point, "resume point", mesh)
+    if payload is not None:
+        saved = int(payload["meta"].get("world", 1))
+        if saved != mesh.world:
+            raise SystemExit(
+                f"the RESUME file was written by a run of {saved} ranks; "
+                f"this run has {mesh.world}: resume with the same world "
+                "size, or start over")
+
+
+def _read_resume(model_path: str) -> Optional[Dict]:
     if not model_path or \
             os.path.basename(os.path.normpath(model_path)) != RESUME_NAME:
         return None
@@ -270,11 +325,13 @@ class ResumePlan:
     payload of ``--model_path=.../RESUME`` (``maybe_load_resume``; None
     when the path names no RESUME file), the phase it continues and the
     best it carries. ``run_phase`` reads it: a phase before the saved one
-    is skipped, the saved one continues, a later one starts fresh."""
+    is skipped, the saved one continues, a later one starts fresh. `mesh`:
+    a data-parallel run's ``DataMesh`` (the ranks must agree on the
+    file)."""
 
-    def __init__(self, model_path: str):
-        self.resume = maybe_load_resume(model_path)
-        if self.resume is not None:
+    def __init__(self, model_path: str, mesh=None):
+        self.resume = maybe_load_resume(model_path, mesh)
+        if self.resume is not None and is_primary():
             m = self.resume["meta"]
             print(f"Full-resume from {model_path} "
                   f"(phase={m['phase_name']} epoch={m['epoch']})")
@@ -307,7 +364,7 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
               fine_tuning: bool = False, keep_top_k: int = 0,
               keys=BATCH_KEYS, save_resume: bool = False,
               resume: Optional[ResumePlan] = None,
-              layers: Optional[int] = None) -> PhaseResult:
+              layers: Optional[int] = None, mesh=None) -> PhaseResult:
     """One training phase; the model is updated in place. ``eval_fn(model)
     -> (val_acc, report)``; each ``extra_evals`` entry ``fn(model) ->
     acc`` adds a metric. `keys`: the batch entries the step reads.
@@ -322,9 +379,11 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
     scheduler are restored, and the run goes on after the saved epoch,
     or, from a mid-epoch save, in the same epoch past its completed
     windows, which are dropped from the host stream before they reach the
-    device."""
+    device. `mesh`: a data-parallel run's ``DataMesh``; every rank runs
+    the phase on its rows (the step must be made with the same mesh)."""
+    say = print if is_primary() else (lambda *a, **k: None)
     if resume is not None and resume.skips(phase_name):
-        print(f"Resume targets {resume.resume['meta']['phase_name']} "
+        say(f"Resume targets {resume.resume['meta']['phase_name']} "
               f"phase; skipping {phase_name}")
         return resume.initial_best()
     best = best or PhaseResult(0.0, 0, None)
@@ -338,11 +397,11 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
         start_epoch = int(meta["epoch"]) + (0 if start_step else 1)
         key = Key(meta["key"])
         best = resume.initial_best()
-        optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(optimizer, payload["optimizer"])
         if scheduler is not None and meta["scheduler"]:
             scheduler.load_state_dict(meta["scheduler"])
             set_learning_rate(optimizer, scheduler.lr)
-        print(f"[{phase_name}] resuming at epoch {start_epoch}"
+        say(f"[{phase_name}] resuming at epoch {start_epoch}"
               + (f" step {start_step}" if start_step else "")
               + f" (best={best.best_val_acc:.3f})")
     n_batches = math.ceil(len(batcher.m) / batch_size)
@@ -358,9 +417,11 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
         if balanced_sampler:
             order = imbalanced_sample_order(batcher.m,
                                             seed=args.seed * 1000 + epoch)
+        rows = (mesh.local_rows(batch_size)
+                if mesh is not None and mesh.distributed else None)
         host = stacked_batches(batcher, batch_size, acc_steps,
                                seed=args.seed * 77 + epoch, order=order,
-                               keys=keys)
+                               keys=keys, rows=rows)
         losses, grad_norms, param_norm = [], [], None
         skip = 0
         if epoch == start_epoch and start_step:
@@ -393,7 +454,7 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
                 save(key=key, epoch=epoch, best=best, step=done,
                      losses=losses, grad_norms=grad_norms,
                      param_norm=param_norm)
-            print(f"Batches {(done - 1) * max(acc_steps, 1)}/{n_batches} "
+            say(f"Batches {(done - 1) * max(acc_steps, 1)}/{n_batches} "
                   f"on epoch {epoch}", end="\r")
         losses = [float(l) for l in losses]
         train_time = time.time() - t0
@@ -417,7 +478,7 @@ def run_phase(*, phase_name: str, epochs: int, model: torch.nn.Module,
         for name, fn in (extra_evals or {}).items():
             metrics[name] = fn(model)
         logger.log(metrics)
-        print(f"\n[{phase_name}] epoch {epoch}: val_acc={val_acc:.3f} "
+        say(f"\n[{phase_name}] epoch {epoch}: val_acc={val_acc:.3f} "
               f"avg_loss={metrics['avg_loss']:.4f} "
               f"({train_time:.1f}s, lr={metrics['lr']:.2e})")
 

@@ -142,8 +142,10 @@ def test_port_cli_exits_like_the_reference(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["--model_path=x.pth", "--late_fusion=nope"])
     assert e.value.code == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node=2"):
         port_cli.main(["--model_path=x.pth", "--mesh_shape=data:2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        port_cli.main(["--model_path=x.pth", "--mesh_shape=data:1,model:2"])
     with pytest.raises(ValueError, match="per-layer hidden states"):
         port_cli.main(["--model_path=x.pth", "--late_fusion=hierarchical",
                        "--text_model=bart"])

@@ -73,8 +73,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "train.engine", "train.optim", "cli.main_both",
                 "nn.core", "ops.sampling", "ops.quant", "serving.engine",
                 "cli.serve", "checkpoint.hf_dir", "data.chat_template",
-                "data.tokenizer", "models.text.llama"):
+                "data.tokenizer", "models.text.llama", "parallel.mesh",
+                "parallel.multihost", "parallel.fsdp"):
         assert f"'{pkg}{mod}'" in names, mod
+
+
+def test_parallel_package_imports_neither_jax_nor_the_jax_package():
+    """``parallel/`` ports the JAX package's ``parallel/`` modules of the
+    same names: its sources import torch, never jax or the JAX package,
+    not even lazily inside a function."""
+    import ast
+
+    files = sorted((ROOT / "garbage_classification_rca_tpu_torch" /
+                    "parallel").glob("*.py"))
+    assert {f.name for f in files} >= {"__init__.py", "mesh.py",
+                                       "multihost.py", "fsdp.py"}
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib",
+                                   "garbage_classification_rca_tpu"), (f, n)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

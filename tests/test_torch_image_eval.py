@@ -266,8 +266,11 @@ def test_port_cli_exits_and_unported_flags(tmp_path, monkeypatch):
         port_cli.main(["--model_path=x.pth", "--image_model=nope"])
     assert e.value.code == 1
     for flags in (["--image_model=shuffle_net", "--mesh_shape=data:4"],
+                  ["--image_model=transformer_B16", "--mesh_shape=data:4"]):
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node=4"):
+            port_cli.main(["--model_path=x.pth"] + flags)
+    for flags in (["--image_model=shuffle_net", "--mesh_shape=data:2,pipe:2"],
                   ["--image_model=res50", "--profile_dir=p"],
-                  ["--image_model=transformer_B16", "--mesh_shape=data:4"],
                   ["--image_model=transformer_B16", "--profile_dir=p"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_cli.main(["--model_path=x.pth"] + flags)

@@ -138,8 +138,12 @@ def test_port_trainer_matches_jax_trainer(inputs, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,exc,match", [
     ("--wandb", NotImplementedError, "wandb"),
-    ("--fsdp", NotImplementedError, "fsdp"),
-    ("--mesh_shape=data:2", NotImplementedError, "mesh_shape"),
+    # --fsdp and data:N run (tests/test_torch_fsdp.py): data:N outside an
+    # N-rank world exits naming the launcher; the other axes stay item 7
+    ("--fsdp --mesh_shape=data:2", SystemExit, "torchrun --nproc_per_node=2"),
+    ("--mesh_shape=data:2", SystemExit, "torchrun --nproc_per_node=2"),
+    ("--mesh_shape=data:1,model:2", NotImplementedError, "item 7"),
+    ("--mesh_shape=pipe:2", NotImplementedError, "item 7"),
     # the pairs the JAX package refuses, with its messages
     ("--late_fusion=hierarchical --text_model=bart", ValueError,
      "hierarchical fusion needs per-layer hidden states"),

@@ -465,9 +465,15 @@ def test_main_image_refuses_the_text_flag(monkeypatch):
 
 @pytest.mark.parametrize("main,flags,exc,match", [
     (port_text.main, ["--wandb"], NotImplementedError, "wandb"),
-    (port_text.main, ["--fsdp"], NotImplementedError, "fsdp"),
-    (port_text.main, ["--mesh_shape=data:2"], NotImplementedError,
-     "mesh_shape"),
+    (port_text.main, ["--fsdp", "--mesh_shape=data:2"], SystemExit,
+     "torchrun --nproc_per_node=2"),
+    (port_text.main, ["--mesh_shape=data:2"], SystemExit,
+     "torchrun --nproc_per_node=2"),
+    (port_text.main, ["--mesh_shape=data:2,seq:4"], NotImplementedError,
+     "item 7"),
+    (port_image.main, ["--image_model=transformer_B16",
+                       "--mesh_shape=data:2,expert:2"], NotImplementedError,
+     "item 7"),
     (port_text.main, ["--text_model=nope"], SystemExit, "1"),
     (port_text.main, ["--opt=rmsprop"], SystemExit, "1"),
     (port_image.main, ["--image_model=transformer_B16", "--wandb"],

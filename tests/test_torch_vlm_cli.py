@@ -192,19 +192,22 @@ def _port(cli):
     ("--gen_temperature=0.7", "item 6"),
     ("--int8_weights", "item 6"),
     ("--kv_cache_dtype=int8", "item 6"),
-    ("--mesh_shape=data:2", "item 7"),
+    ("--mesh_shape=data:2", "torchrun --nproc_per_node=2"),
     ("--mesh_shape=data:1,pipe:2", "item 7"),
 ])
 def test_blip2_test_refuses_unported_flags(flag, match, tiny_dataset):
-    """Meshes raise (item 7). The serving flags (item 6) run since the
-    generate path was ported (``tests/test_torch_serve_cli.py`` drives
-    them); beside a pipe mesh, the JAX CLI's ``pp_generate``, they raise
-    as item 7."""
+    """The pipe and model axes raise (item 7). The serving flags (item 6)
+    run since the generate path was ported
+    (``tests/test_torch_serve_cli.py`` drives them); beside a pipe mesh,
+    the JAX CLI's ``pp_generate``, they raise as item 7. The data axis
+    runs (``tests/test_torch_multihost.py``): data:N outside an N-rank
+    world exits naming the launcher."""
     argv = [f"--dataset_folder_name={tiny_dataset}", flag]
     if match == "item 6":
         argv.append("--mesh_shape=data:1,pipe:2")
         match = "item 7"
-    with pytest.raises(NotImplementedError, match=match):
+    exc = SystemExit if match.startswith("torchrun") else NotImplementedError
+    with pytest.raises(exc, match=match):
         _port("blip2_test")(argv)
 
 
@@ -219,9 +222,10 @@ def test_vlm_clis_refuse_orbax_dirs_multihost_and_training(
     for cli in ("blip2_train", "qformer_train"):
         with pytest.raises(NotImplementedError, match="mesh_shape"):
             _port(cli)(base + ["--mesh_shape=data:1,pipe:2"])
+    # multi-host runs: the JAX package's variables, all of them
     monkeypatch.setenv("GC_RCA_MULTIHOST", "1")
     for cli in ("qformer_test", "blip2_train", "qformer_train"):
-        with pytest.raises(NotImplementedError, match="multi-host"):
+        with pytest.raises(SystemExit, match="needs GC_RCA_COORDINATOR"):
             _port(cli)(base)
 
 
