@@ -356,8 +356,34 @@ Phases, each of which fails the run when it fails:
      the report CSV equal to a one-rank ``cli.test_both``'s; (c) one
      ``--fsdp`` step of ``cli.main_text`` (DistilBERT, SGD) in a process
      group of one rank on NCCL, held to the run without a group (the JAX
-     FSDP tolerance, rtol 3e-4 / atol 1e-6). Any rank's failure fails the
-     phase; no group falls back to one process.
+     FSDP tolerance, rtol 3e-4 / atol 1e-6). (a) also runs the step in
+     the recipe's bf16 images on cuDNN in the same launch, held to the
+     one-rank bf16 step within 1.5x its own one-ulp control and the loss
+     within 1e-3 relative (at random weights a bf16 ulp on the images
+     moves the worst gradients as far as the split over two ranks does:
+     ``tools/dp_bf16_check.py``). Any rank's failure fails the phase; no
+     group falls back to one process;
+ 20. tensor and sequence parallelism (``parallel/tp.py``, ``parallel/
+     sp.py``; a budget of 150 s, printed): K2 at 16 x 132 x 1280 and K4a /
+     K4b at 16 x 136 x 1280 (a rank's 16 heads of 80 at ``model:2``)
+     held to their plain versions and timed; then one launch of two ranks
+     sharing the card on gloo (``python3 chip_smoke.py --tp_worker=
+     <spec>``), each building blip2-opt-2.7b in bf16 from the seed and
+     slicing its OPT tower at ``model:2``: (a) the 1-token eval of 16
+     prompts (the answer logits within 0.05 of one rank's, the argmax
+     equal above the near-tie floor), (b) ``generate`` 16 x (32 + 100) +
+     32 greedy (the streams equal to one rank's up to a near tie, and
+     equal on both ranks), (c) a LoRA step, microbatch 16, acc 2, fp32
+     adapters (the loss within 1e-3 relative or 1.5x a same-run one-ulp
+     control, the adapter gradients within 1.5x that control), (d) the
+     times and peak memory per rank beside one rank's (reported); then in
+     the same processes (e) ``cli.serve --mesh_shape=data:1,model:2`` on 8
+     of phase 17's requests (each line held to the one-rank server's by
+     the near-tie rule, rank 0 alone writing) and (f) ``cli.test_text
+     --text_model=distilbert --seq_len=512 --mesh_shape=seq:2`` on 24
+     texts in bf16 (logits within 0.05 of one rank's, a prediction may
+     differ only at a near tie, the report CSV), with each run's
+     CUDA-event ms a batch.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -8696,6 +8722,7 @@ DP_BATCH, DP_ACC = 16, 2          # per rank: global 2 x 16, acc 2
 DP_TRAIN_KERNELS = ("rca_fused", "rca_fused_bwd", "mha_fwd_lse",
                     "mha_flash_bwd_tc32")       # K1, K3, K4a, K4b
 DP_FP32_BARS = {"loss": 1e-5, "grad": 1e-4}     # PERF.md §2, fp32 train
+DP_BF16_LOSS = 1e-3        # relative, the bf16 train bar (PERF.md §2)
 DP_VANISHING = 1e-6        # a gradient below this share of the largest one
 DP_CONTROL_FACTOR = 1.5    # no further than 1.5x the one-ulp control moves
 FSDP_RTOL, FSDP_ATOL = 3e-4, 1e-6               # the JAX tests/test_fsdp.py
@@ -8949,16 +8976,18 @@ def dp_card_errors(got, want, state=False):
     return out
 
 
-def dp_compare(got, want):
+def dp_compare(got, want, loss_bar=DP_FP32_BARS["loss"]):
     """(ok, line, numbers): a data-parallel step's rank-0 result against
-    the one-device step's on the card: the loss within 1e-5; each
-    gradient, updated weight and BN running statistic within 1e-4 of its
-    scale (``dp_card_errors``), or no further than DP_CONTROL_FACTOR times
-    the largest move of the one-device step's one-ulp control. cuBLAS
-    runs other GEMM kernels for 16 samples than for 32, and the
-    squeeze-excitation gradients (sums over the feature map that cancel)
-    and BN batch means near zero turn their fp32 rounding into a large
-    share of their own size; the control measures that amplification."""
+    the one-device step's on the card: the loss within `loss_bar` of its
+    size (at least 1); each gradient, updated weight and BN running
+    statistic within 1e-4 of its scale (``dp_card_errors``), or no
+    further than DP_CONTROL_FACTOR times the largest move of the
+    one-device step's one-ulp control. cuBLAS and cuDNN run other kernels
+    for 16 samples than for 32, and the squeeze-excitation gradients
+    (sums over the feature map that cancel), BN batch means near zero and,
+    in bf16, the depthwise and stem convolutions' weight gradients turn
+    their rounding into a large share of their own size; the control
+    measures that amplification (``tools/dp_bf16_check.py``)."""
     g = dp_card_errors(got["grads"], want["grads"])
     st = dp_card_errors(got["state"], want["state"], state=True)
     cg = dp_card_errors(want["control_grads"], want["grads"])
@@ -8976,7 +9005,7 @@ def dp_compare(got, want):
     s_bar = max(DP_FP32_BARS["grad"],
                 DP_CONTROL_FACTOR * nums["control_state_worst"])
     nums.update(grad_bar=g_bar, state_bar=s_bar)
-    ok = (loss_d <= DP_FP32_BARS["loss"] * max(1.0, abs(want["loss"]))
+    ok = (loss_d <= loss_bar * max(1.0, abs(want["loss"]))
           and nums["grad_worst"] <= g_bar and nums["state_worst"] <= s_bar)
     top = sorted(g, key=g.get)[-3:]
     ws = max(st, key=st.get)
@@ -9012,24 +9041,18 @@ def dp_launch(cmd, nproc, work, *, backend, share_device, timeout=300):
     return all(code == 0 for code, _ in res), res
 
 
-def _dp_train_step(device, results, work, smi_line):
-    """(a): the MM_RCA.sh step at full width over two ranks sharing the
-    card (gloo), held to the one-rank step of the same global batch in
-    fp32 images with TF32 and cuDNN off (``run_dp_step``), then timed in
-    the recipe's bf16 images on cuDNN."""
-    import os
-
+def dp_step_spec(work):
+    """(model on the CPU, ``run_dp_step`` spec) of phase 19(a): the
+    MM_RCA.sh model from the seed and a global stack of DP_ACC x DP_RANKS
+    x DP_BATCH synthetic rows, a padded tail in the last rank's rows; fp32
+    images with TF32 and cuDNN off, timed in bf16."""
     import numpy as np
     import torch
 
     from garbage_classification_rca_tpu_torch.data.tokenizer import (
         WordPieceTokenizer)
     from garbage_classification_rca_tpu_torch.models.fusion import multimodal
-    from garbage_classification_rca_tpu_torch.parallel.mesh import DataMesh
-    from garbage_classification_rca_tpu_torch.train.engine import (
-        CHECKPOINT_FORMAT)
 
-    t0 = time.perf_counter()
     cfg = multimodal.FusionConfig(strategy="MM_RCA", reverse=True,
                                   drop_ratio=0.6,
                                   image_or_text_dropout_chance=0.0)
@@ -9042,14 +9065,40 @@ def _dp_train_step(device, results, work, smi_line):
     stack = {k: np.stack([b[k] for b in data.batches])
              for k in data.batches[0]}
     stack["valid"][-1, -3:] = 0      # a padded tail in rank 1's rows
-    spec = {"model": model, "stack": stack, "device": "cuda", "out": work,
-            "image_dtype": "float32", "exact_convs": True,
-            "timed_dtype": "bfloat16",
-            "class_weights": [0.8, 1.1, 0.9, 1.3], "prob_aug": 1.0,
-            "lr": 0.0016, "reg": 0.03, "label_smoothing": 0.0,
-            "key": SEED + 19, "timed": True}
+    return model, {"model": model, "stack": stack, "device": "cuda",
+                   "out": work, "image_dtype": "float32",
+                   "exact_convs": True, "timed_dtype": "bfloat16",
+                   "class_weights": [0.8, 1.1, 0.9, 1.3], "prob_aug": 1.0,
+                   "lr": 0.0016, "reg": 0.03, "label_smoothing": 0.0,
+                   "key": SEED + 19, "timed": True}
+
+
+def _dp_train_step(device, results, work, smi_line):
+    """(a): the MM_RCA.sh step at full width over two ranks sharing the
+    card (gloo), held to the one-rank step of the same global batch in
+    fp32 images with TF32 and cuDNN off (``run_dp_step``), then timed in
+    the recipe's bf16 images on cuDNN; and the bf16 step on cuDNN, held
+    to the one-rank bf16 step within its own one-ulp control (at random
+    weights a bf16 ulp on the images moves the worst gradients as far as
+    the split over two ranks does: ``tools/dp_bf16_check.py``), the loss
+    within the bf16 train bar. Both ranks' steps run in one launch."""
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.parallel.mesh import DataMesh
+    from garbage_classification_rca_tpu_torch.train.engine import (
+        CHECKPOINT_FORMAT)
+
+    t0 = time.perf_counter()
+    model, spec = dp_step_spec(work)
     path = os.path.join(work, "dp_spec.pt")
     torch.save(spec, path)
+    spec16 = dict(spec, image_dtype="bfloat16", exact_convs=False,
+                  timed=False, out=os.path.join(work, "bf16"))
+    os.makedirs(spec16["out"])
+    path16 = os.path.join(work, "dp_spec_bf16.pt")
+    torch.save(spec16, path16)
     # the seeded weights as a BEST file: (b)'s eval model, its head centred
     # there so that its predictions vary (a 1 + 1 epoch model's are one
     # class, and so are the seeded model's before the centring)
@@ -9058,13 +9107,17 @@ def _dp_train_step(device, results, work, smi_line):
                os.path.join(work, "seeded_best"))
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
     ref = run_dp_step(model.to(device), spec, DataMesh(0, 1, device),
                       timed=True, control=True)
-    del model
+    model.load_state_dict(init)
+    ref16 = run_dp_step(model, spec16, DataMesh(0, 1, device), control=True)
+    del model, init
     torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ok, _ = dp_launch([os.path.abspath(__file__), f"--dp_step={path}"],
+    ok, _ = dp_launch([os.path.abspath(__file__),
+                       f"--dp_step={path},{path16}"],
                       DP_RANKS, work, backend="gloo", share_device=True)
     two_s = time.perf_counter() - t0
     if not ok:
@@ -9072,11 +9125,18 @@ def _dp_train_step(device, results, work, smi_line):
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(DP_RANKS)]
     held, line, nums = dp_compare(ranks[0], ref)
+    held16, line16, nums16 = dp_compare(
+        torch.load(os.path.join(spec16["out"], "rank0.pt"),
+                   weights_only=False), ref16, loss_bar=DP_BF16_LOSS)
+    del ref16
     per_rank = [{k: r["launches"][k] for k in DP_TRAIN_KERNELS}
                 for r in ranks]
     launched = all(all(n > 0 for n in pr.values()) for pr in per_rank)
     print(f"  two ranks on one card ({ranks[0]['backend']}; {smi_line}), "
           f"fp32 images, TF32 and cuDNN off: {line}", flush=True)
+    print(f"  bf16 images on cuDNN (held to the bf16 one-ulp control, the "
+          f"loss within {DP_BF16_LOSS:g} relative): {line16} "
+          f"{'ok' if held16 else 'FAIL'}", flush=True)
     print(f"  launches per rank {per_rank} (one rank: "
           f"{ {k: ref['launches'][k] for k in DP_TRAIN_KERNELS} }); bf16 "
           f"images: two ranks sharing the card: "
@@ -9091,6 +9151,7 @@ def _dp_train_step(device, results, work, smi_line):
           f"{ranks[0]['step1_s']:.1f} s)", flush=True)
     results["dp_step"] = {
         "backend": ranks[0]["backend"], "held": line, **nums,
+        "bf16": {"held": line16, "ok": held16, **nums16},
         "launches_per_rank": per_rank,
         "samples_per_s_two_ranks_one_card": ranks[0]["samples_per_s"],
         "step_s_two_ranks_one_card": ranks[0]["step_s"],
@@ -9105,7 +9166,7 @@ def _dp_train_step(device, results, work, smi_line):
             "setup": setup_s, "one_rank": one_s, "two_ranks": two_s},
         "card": smi_line}
     results["dp_launches"] = ranks[0]["launches"]
-    return held and launched
+    return held and held16 and launched
 
 
 def _jsonl_rows(d):
@@ -9304,6 +9365,613 @@ def check_data_parallel(device, results, smi_line):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor parallelism (model:2) and sequence parallelism (seq:2)
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_BATCH, TP_NEW, TP_ACC = 16, 32, 2     # (a) / (b) batch, (b)'s new tokens
+TP_HEADS = 16                            # OPT-2.7B's 32 heads over model:2
+TP_LAUNCHES = {"eval": {"mha_tc": 71}, "generate": {"mha_tc": 32},
+               "train": {"mha_tc": 39 * TP_ACC, "mha_fwd_lse_tc": 32 * TP_ACC,
+                         "mha_flash_bwd_tc": 32 * TP_ACC}}
+TP_LOGIT_BAR = 0.05                      # phase 12's bf16 |d logit| bar
+TP_SERVE_NEW = 8
+SP_SEQ_LEN, SP_TEXTS = 512, 24           # cli.test_text: 16 + 8 texts
+PHASE20_BUDGET_S = 150.0
+
+
+def tp_path_work(mesh, spec, control=False):
+    """The BLIP-2 main path on `mesh` (``parallel.mesh.DataMesh``; one
+    rank: the unsharded model): blip2-opt-2.7b in bf16 from the seed, the
+    adapters fp32 with B != 0, the OPT tower sliced over the model axis
+    (``place_blip2``), then (a) the 1-token eval's next-token logits of
+    ``spec["eval"]`` (TP_BATCH rows), (b) ``opt.generate`` of TP_NEW
+    greedy tokens over its prompt embeddings, (c) one LoRA step
+    (``make_lora_train_step``, acc TP_ACC over ``spec["window"]``), with
+    `control` the same step again VLM_CONTROL_DRAWS times with the
+    projection's output moved by N(0, 1) bf16 ulps (``opt_attention``),
+    (d) each timed again, the peak memory of building the whole model and
+    of the work after the slicing.
+    The counters are zeroed before each of (a)-(c) and read after."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import blip2_train
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        build_blip2, normalize_clip, place_blip2)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, model, _ = build_blip2(args_parser([f"--seed={spec['seed']}"]),
+                                dev, torch.bfloat16, train=True)
+    blip2.init_lora_(model.lora, spec["seed"] + 1, b_std=0.01)
+    place_blip2(model, mesh)
+    torch.cuda.synchronize()
+    # the whole model is built before the tower is sliced: the peak of the
+    # work below is read from here on
+    out = {"rank": mesh.rank, "build_s": time.perf_counter() - t0,
+           "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = {k: torch.from_numpy(v).to(dev) for k, v in spec["eval"].items()}
+    x = normalize_clip(ev["image"], torch.bfloat16)
+
+    def logits():
+        return blip2.next_token_logits(model, x, ev["input_ids"],
+                                       ev["attention_mask"])
+
+    with torch.inference_mode():
+        _zero_counters()
+        out["logits"] = logits().float().cpu()
+        out["eval_launches"] = _read_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits()
+        torch.cuda.synchronize()
+        out["eval_s"] = time.perf_counter() - t1
+        e, m = blip2.prompt_embeds(model, x, ev["input_ids"],
+                                   ev["attention_mask"])
+        m = m.to(torch.int32)
+        _zero_counters()
+        toks, _, marg, out["gen_s"] = _gen(model.opt, e, m, model.lora,
+                                           cfg.lora_scale, TP_NEW, eos_id=-1)
+        out["gen_launches"] = _read_counters()
+        out["tokens"], out["margins"] = toks.cpu(), marg.cpu()
+        del e, m
+    win = {k: torch.from_numpy(v).to(dev) for k, v in spec["window"].items()}
+    init = {k: v.clone() for k, v in model.lora.state_dict().items()}
+
+    def train_step(ctx=None):
+        model.lora.load_state_dict(init)
+        _, step = blip2_train.make_lora_train_step(
+            model, acc_steps=TP_ACC, compute_dtype=torch.bfloat16, mesh=mesh)
+        with ctx or contextlib.nullcontext():
+            loss = float(step(win))
+        torch.cuda.synchronize()
+        return loss, {n: p.grad.detach().float().cpu()
+                      for n, p in model.lora.named_parameters()}
+
+    _zero_counters()
+    out["loss"], out["grads"] = train_step()
+    out["train_launches"] = _read_counters()
+    if control:
+        out["controls"] = [train_step(opt_attention(
+            model, ulp=2.0 ** -8, seed=SEED + 2005 + i))
+            for i in range(VLM_CONTROL_DRAWS)]
+    t1 = time.perf_counter()
+    train_step()
+    out["step_s"] = time.perf_counter() - t1
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del model, win
+    return out
+
+
+def sp_text_run(argv):
+    """``cli.test_text.main(argv)`` in the current directory with the
+    head's logits and each batch's step timed by CUDA events: (logits
+    fp32 [batches x B, 4], preds, ms a batch, (csv name, bytes))."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import test_text
+
+    logits, ms, kept = [], [], []
+    load, make = test_text.load_unimodal_model, test_text.make_text_eval_step
+    evaluate = test_text.evaluate
+
+    def load_hooked(*a, **k):
+        model = load(*a, **k)
+        model.head.register_forward_hook(
+            lambda mod, i, o: logits.append(o.float().cpu()))
+        return model
+
+    def make_timed(*a, **k):
+        step = make(*a, **k)
+
+        def timed(batch):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            res = step(batch)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+            return res
+
+        return timed
+
+    test_text.load_unimodal_model, test_text.make_text_eval_step = \
+        load_hooked, make_timed
+    test_text.evaluate = lambda args: kept.append(evaluate(args)) or kept[-1]
+    try:
+        test_text.main(argv)
+    finally:
+        test_text.load_unimodal_model, test_text.make_text_eval_step = \
+            load, make
+        test_text.evaluate = evaluate
+    return torch.cat(logits), kept[0][2], ms, _report_csv(".")
+
+
+def _serve_lines(argv, lines, primary=True):
+    """``cli.serve.main(argv)`` on `lines` (rank 0's stdin); its output
+    lines."""
+    import io
+
+    from garbage_classification_rca_tpu_torch.cli import serve
+
+    stdout = io.StringIO()
+    rc = serve.main(argv, stdin=io.StringIO(
+        "\n".join(lines) + "\n" if primary else ""), stdout=stdout)
+    return rc, stdout.getvalue().splitlines()
+
+
+def tp_worker(spec_path: str) -> int:
+    """A rank of phase 20 (``python3 chip_smoke.py --tp_worker=<spec>``,
+    spawned by ``parallel.multihost.launch``): ``tp_path_work`` at
+    ``model:2``, then ``cli.serve --mesh_shape=data:1,model:2`` and
+    ``cli.test_text --mesh_shape=seq:2`` in this process, each rank's
+    results written into the spec's ``out`` directory."""
+    import gc
+    import json as _json
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.parallel.multihost import (
+        initialize_from_env, make_mesh)
+
+    spec = torch.load(spec_path, weights_only=False)
+    torch.set_grad_enabled(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(initialize_from_env("cuda"), {"model": TP_RANKS})
+    out = tp_path_work(mesh, spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for sub in ("serve", "text"):
+        os.makedirs(os.path.join(spec["out"], f"{sub}{mesh.rank}"))
+    _zero_counters()
+    t0 = time.perf_counter()
+    out["serve_rc"], lines = _in_dir(
+        os.path.join(spec["out"], f"serve{mesh.rank}"), _serve_lines,
+        spec["serve_argv"] + ["--mesh_shape=data:1,model:2"],
+        spec["serve_lines"], mesh.is_primary)
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    out["serve_launches"] = _read_counters()
+    out["serve_lines"] = [_json.loads(ln) for ln in lines]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lg, preds, ms, csv = _in_dir(
+        os.path.join(spec["out"], f"text{mesh.rank}"), sp_text_run,
+        spec["text_argv"] + ["--mesh_shape=seq:2"])
+    out.update(text_logits=lg, text_preds=preds, text_ms=ms, text_csv=csv,
+               text_s=time.perf_counter() - t0)
+    torch.save(out, os.path.join(spec["out"], f"tp_rank{mesh.rank}.pt"))
+    return 0
+
+
+def _tp_kernels(device, mask132, mask136, results):
+    """K2 at 16 x 132 x 1280 (16 heads of 80, causal, the path's mask)
+    and K4a / K4b at 16 x 136 x 1280, bf16, the shapes a rank runs at
+    ``model:2``: K2 against ``mha_reference`` at the one-flip bar
+    (``_vlm_k2_tc``), the pair against the plain pair (``_vlm_pair_case``:
+    the default plan on the tensor cores), then each timed beside its
+    plain version, the library's attention and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 2001)
+    h = TP_HEADS
+    rows = {}
+    b, n, d = mask132.shape[0], mask132.shape[1], 1280
+    q, k, v = (torch.randn((b, n, d), generator=gen).to(
+        device, torch.bfloat16) for _ in range(3))
+    want = K.mha_reference(q, k, v, heads=h, mask=mask132, causal=True)
+    errs, over = {}, {}
+    ok = _vlm_k2_tc(K, q, k, v, h, mask132, True, want, "opt (model:2)",
+                    "path", errs, over)
+    ms = time_ms(lambda: K.mha(q, k, v, heads=h, mask=mask132,
+                               causal=True))[0]
+    plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=mask132,
+                                            causal=True))[0]
+    allowed = mask132.bool()[:, None, :] & torch.ones(
+        (n, n), dtype=torch.bool, device=device).tril()[None]
+    bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)  # noqa: E731
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        rs(q), rs(k), rs(v), attn_mask=bias))[0]
+    rows["mha_tc"] = _fwd_row(
+        "mha_tc_tp", ms, plain, lib, _k2_flops(b, n, d, mask132, True),
+        4 * q.numel() * q.element_size() + mask132.numel() * 4,
+        errs["tc_path"], 116, "bfloat16", shape=[b, n, d], heads=h,
+        head_dim=d // h)
+    rows["mha_tc"]["source"] = \
+        "garbage_classification_rca_tpu_torch/csrc/flash_tc.cuh"
+    n = mask136.shape[1]
+    q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
+        device, torch.bfloat16) for _ in range(4))
+    errs4 = {}
+    ok &= _vlm_pair_case(K, q, k, v, do, h, mask136, None, ("tc", "tc"),
+                         "path", errs4)
+    o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=mask136, causal=True)
+    tc = K.flash_plan(q.shape, h, q.dtype)
+    ms_f = time_ms(functools.partial(K.launch_fwd_lse, tc, q, k, v, heads=h,
+                                     mask=mask136, causal=True))[0]
+    ms_b = time_ms(functools.partial(K.launch_flash_bwd, tc, q, k, v, o, do,
+                                     lse, heads=h, mask=mask136,
+                                     causal=True))[0]
+    plain_f = time_ms(lambda: K.mha_fwd_lse_reference(
+        q, k, v, heads=h, mask=mask136, causal=True))[0]
+    plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
+        q, k, v, o, do, lse, heads=h, mask=mask136, causal=True))[0]
+    allowed = mask136.bool()[:, None, :] & torch.ones(
+        (n, n), dtype=torch.bool, device=device).tril()[None]
+    bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
+    bias = bias.expand(b, h, n, n).contiguous()
+    eff = _efficient_attention(q, k, v, bias, h)
+    lib_f = time_ms(lambda: _efficient_attention(q, k, v, bias, h))[0]
+    rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)  # noqa: E731
+    lib_b = time_ms(lambda: torch.ops.aten.
+                    _scaled_dot_product_efficient_attention_backward(
+                        rs(do), rs(q), rs(k), rs(v), bias, eff[0], eff[1],
+                        eff[2], eff[3], 0.0, [True, True, True, False]))[0]
+    del eff, bias
+    fl_f, by_f, fl_b, by_b = _vlm_train_bound(q, mask136)
+    for key, name, line, t, pl, lb, fl, by, side in (
+            ("mha_fwd_lse_tc", "mha_fwd_lse_tp", 274, ms_f, plain_f, lib_f,
+             fl_f, by_f, "fwd"),
+            ("mha_flash_bwd_tc", "mha_flash_bwd_tp", 317, ms_b, plain_b,
+             lib_b, fl_b, by_b, "bwd")):
+        rows[key] = _fwd_row(name, t, pl, lb, fl, by,
+                             max(e[side] for e in errs4.values()), line,
+                             "bfloat16", shape=[b, n, d], heads=h,
+                             head_dim=d // h)
+    for key, r in rows.items():
+        print(f"  {r['name']} {r['shape']}, {h} heads of {r['head_dim']} "
+              f"(one rank's share at model:2): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), max|d| "
+              f"{r['max_abs_err']:.3e}", flush=True)
+    results["tp_kernels"] = rows
+    return ok
+
+
+def _tp_hold(one, ranks, aft):
+    """(ok, numbers, line) of (a)-(c): rank 0 against the one-rank run,
+    the ranks against each other."""
+    import torch
+
+    lo, lt = one["logits"], ranks[0]["logits"]
+    d_vocab = float((lt - lo).abs().max())
+    d_ans = float((lt[:, aft] - lo[:, aft]).abs().max())
+    top2 = lo[:, aft].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    floor = 2.0 * d_ans
+    keep = margin > floor
+    agree = bool((lt[:, aft].argmax(-1) == lo[:, aft].argmax(-1))[keep].all())
+    a_ok = agree and d_ans <= TP_LOGIT_BAR and bool(torch.isfinite(lt).all())
+    b_ok, streams = near_tie_agree(ranks[0]["tokens"], one["tokens"],
+                                   one["margins"], 2.0 * d_vocab)
+    g = dp_card_errors(ranks[0]["grads"], one["grads"])
+    ctl_g = max(max(dp_card_errors(cg, one["grads"]).values())
+                for _, cg in one["controls"])
+    g_bar = max(DP_FP32_BARS["grad"], DP_CONTROL_FACTOR * ctl_g)
+    loss_d = abs(ranks[0]["loss"] - one["loss"])
+    ctl_d = max(abs(cl - one["loss"]) for cl, _ in one["controls"])
+    loss_bar = max(DP_BF16_LOSS * abs(one["loss"]), DP_CONTROL_FACTOR * ctl_d)
+    c_ok = loss_d <= loss_bar and max(g.values()) <= g_bar
+    same = (torch.equal(ranks[0]["logits"], ranks[1]["logits"])
+            and torch.equal(ranks[0]["tokens"], ranks[1]["tokens"])
+            and all(torch.equal(ranks[0]["grads"][k], ranks[1]["grads"][k])
+                    for k in ranks[0]["grads"]))
+    nums = {"a": {"max_logit_diff_answers": d_ans,
+                  "max_logit_diff_vocab": d_vocab, "floor": floor,
+                  "above_floor": int(keep.sum()), "agree": agree,
+                  "bar": TP_LOGIT_BAR, "ok": a_ok},
+            "b": {**streams, "ok": b_ok},
+            "c": {"loss": ranks[0]["loss"], "loss_one_rank": one["loss"],
+                  "loss_diff": loss_d, "loss_bar": loss_bar,
+                  "control_loss_diff": ctl_d, "grad_worst": max(g.values()),
+                  "grad_bar": g_bar, "control_grad_worst": ctl_g,
+                  "worst": sorted(g, key=g.get)[-3:], "ok": c_ok},
+            "ranks_identical": same}
+    top = sorted(g, key=g.get)[-2:]
+    line = (f"(a) answer logits max|d| {d_ans:.3e} (bar {TP_LOGIT_BAR}), "
+            f"vocab {d_vocab:.3e}; argmax agrees on the {int(keep.sum())} of "
+            f"{len(keep)} rows above the floor {floor:.3e}: {agree}; (b) "
+            + _stream_line("model:2 vs one rank", streams)
+            + f"; (c) loss {ranks[0]['loss']:.6f} vs {one['loss']:.6f} (|d| "
+            f"{loss_d:.2e}, bar {loss_bar:.2e}: bf16 1e-3 or 1.5x the "
+            f"control's {ctl_d:.2e}), worst adapter gradients "
+            f"{[(n, float(f'{g[n]:.3g}')) for n in top]} (bar {g_bar:.2e}, "
+            f"1.5x the one-ulp control's {ctl_g:.2e}, the largest of "
+            f"{len(one['controls'])} draws); the two "
+            f"ranks' logits, tokens and gradients identical: {same}")
+    return a_ok and b_ok and c_ok and same, nums, line
+
+
+def check_model_seq_parallel(device, results, smi_line):
+    """Phase 20: blip2-opt-2.7b at ``model:2`` and DistilBERT at ``seq:2``
+    over two ranks sharing the card (gloo), in one launch
+    (``tp_worker``), each held to the one-rank run of the same inputs in
+    this process: (a) the 1-token eval, (b) ``generate``, (c) a LoRA step
+    (``tp_path_work``, ``_tp_hold``), (d) their times and peak memory per
+    rank (reported), (e) ``cli.serve --mesh_shape=data:1,model:2`` on 8 of
+    phase 17's requests (lines held by the near-tie rule against each
+    request's one-rank B = 1 generate, and against the one-rank server),
+    (f) ``cli.test_text --text_model=distilbert --mesh_shape=seq:2`` at
+    ``--seq_len=512`` on 24 texts (logits within the bf16 bar, argmax
+    above the near-tie floor, the CSV). K2, K4a and K4b at a rank's
+    16 heads of 80 are held to their plain versions first
+    (``_tp_kernels``)."""
+    import gc
+    import json as _json
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import serve
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        build_blip2)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.data.images import (
+        blip_preprocess_image)
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+    from garbage_classification_rca_tpu_torch.models.registry import (
+        get_text_model)
+
+    t_phase = time.perf_counter()
+    print(f"  budget {PHASE20_BUDGET_S:.0f} s; {smi_line}", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        tok = get_tokenizer("opt")
+        data = SyntheticVLMBatcher(TP_BATCH * (1 + TP_ACC), tok, SEED + 2000)
+        ev = data.batch(0, TP_BATCH)
+        window = {k: np.stack([data.batch(TP_BATCH * (1 + i), TP_BATCH)[k]
+                               for i in range(TP_ACC)])
+                  for k in ("image", "input_ids", "attention_mask",
+                            "valid")}
+        rng = np.random.default_rng(SEED + 2002)
+        window["label_tokens"] = rng.integers(
+            3, 50000, (TP_ACC, TP_BATCH, VLM_LABEL_TOKENS)).astype(np.int32)
+        window["label_tokens"][:, ::3, 2:] = 1          # PAD_ID
+        n_query = 32
+        dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        mask132 = torch.cat([torch.ones((TP_BATCH, n_query),
+                                        dtype=torch.int32),
+                             torch.from_numpy(ev["attention_mask"])],
+                            1).to(device)
+        lt = torch.from_numpy(window["label_tokens"][0])
+        mask136 = torch.cat([mask132.cpu(), (lt != 1).to(torch.int32)],
+                            1).to(device)
+        ok = _tp_kernels(device, mask132, mask136, results)
+        del mask132, mask136
+        # (e) / (f) inputs
+        _write_jpeg_tree(os.path.join(work, "garbage"), 0, 16, SEED + 710,
+                         size=320)
+        vocab = os.path.join(here, "tests", "fixtures", "vocab", "wordpiece")
+        _write_jpeg_tree(os.path.join(work, "text"), 0, SP_TEXTS,
+                         SEED + 2010, size=32, vocab=[
+                             w for w in get_tokenizer(
+                                 "distilbert", vocab_dir=vocab).vocab
+                             if w.isalpha()])
+        ckpt = os.path.join(work, "distilbert.pth")
+        torch.save(_reference_state_dict(get_text_model("distilbert").build(
+            4, generator=torch.Generator().manual_seed(SEED + 2011)),
+            "distilbert"), ckpt)
+        imgs = sorted(os.path.join(r, f) for r, _, fs in os.walk(
+            os.path.join(work, "garbage_Val")) for f in fs)[:4]
+        reqs = [{"id": f"t{i}", "text": f"Question: which bin takes a "
+                 f"{VLM_ITEMS[i]}? Answer:", "max_new": 2 + i}
+                for i in range(4)]
+        reqs += [{"id": f"i{i}", "text": "Question: which bin? Answer:",
+                  "image": p, "max_new": 8 - i} for i, p in enumerate(imgs)]
+        lines = [_json.dumps(r) for r in reqs]
+        serve_argv = [f"--max_new_tokens={TP_SERVE_NEW}", "--seed=7"]
+        text_argv = ["--text_model=distilbert", f"--model_path={ckpt}",
+                     f"--dataset_folder_name={work}/text_Val",
+                     f"--vocab_dir={vocab}", "--eval_batch_size=16",
+                     f"--seq_len={SP_SEQ_LEN}", "--compute_dtype=bfloat16"]
+        spec = {"seed": SEED + 2003, "eval": ev, "window": window,
+                "out": work, "serve_argv": serve_argv, "serve_lines": lines,
+                "text_argv": text_argv}
+        spec_path = os.path.join(work, "tp_spec.pt")
+        torch.save(spec, spec_path)
+        # the one-rank runs
+        from garbage_classification_rca_tpu_torch.parallel.mesh import (
+            DataMesh)
+
+        t0 = time.perf_counter()
+        one = tp_path_work(DataMesh(0, 1, device), spec, control=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(work, "serve_one"))
+        _zero_counters()
+        rc1, lines1 = _in_dir(os.path.join(work, "serve_one"), _serve_lines,
+                              serve_argv, lines)
+        one_serve_launches = _read_counters()
+        # each request's B = 1 generate on the CLI's model: the margins of
+        # the near-tie rule
+        sargs = args_parser(serve_argv)
+        cfg, m16, stok = build_blip2(sargs, device, torch.bfloat16)
+        embed = serve._build_embedders(cfg, m16, sargs, stok,
+                                       torch.bfloat16)
+        pixs = [blip_preprocess_image(r["image"]).astype(np.uint8)
+                if r.get("image") else None for r in reqs]
+        alone = []
+        with torch.inference_mode():
+            for r, (e, m) in zip(reqs, embed(reqs, pixs)):
+                want, marg = _alone(m16.opt, m16.lora, cfg.lora_scale, e,
+                                    dev(m), sargs.max_prompt, TP_SERVE_NEW,
+                                    r["max_new"], 2)
+                if len(want) and int(want[-1]) == 2:   # the CLI strips it
+                    want, marg = want[:-1], marg[:-1]
+                alone.append((want, marg))
+        del m16, embed
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(work, "text_one"))
+        tlg1, tpred1, tms1, tcsv1 = _in_dir(os.path.join(work, "text_one"),
+                                            sp_text_run, text_argv)
+        one_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launched, _ = dp_launch([os.path.abspath(__file__),
+                                 f"--tp_worker={spec_path}"], TP_RANKS,
+                                work, backend="gloo", share_device=True,
+                                timeout=600)
+        two_s = time.perf_counter() - t0
+        if not launched:
+            return False
+        ranks = [torch.load(os.path.join(work, f"tp_rank{r}.pt"),
+                            weights_only=False) for r in range(TP_RANKS)]
+        aft = torch.as_tensor(_vlm_answer_tokens(tok)).long()
+        held, nums, line = _tp_hold(one, ranks, aft)
+        runs = [(w, r[f"{w}_launches"]) for r in ranks
+                for w in ("eval", "gen", "train")]
+        want_l = {"eval": TP_LAUNCHES["eval"], "gen": TP_LAUNCHES["generate"],
+                  "train": TP_LAUNCHES["train"]}
+        ran = all(_shown(got) == want_l[w] for w, got in runs) and all(
+            _shown(one[f"{w}_launches"]) == want_l[w]
+            for w in ("eval", "gen", "train"))
+        print(f"  model:2 over two ranks sharing the card (gloo), "
+              f"blip2-opt-2.7b bf16: {line}", flush=True)
+        print(f"  launches a rank: eval {_shown(ranks[0]['eval_launches'])}"
+              f", generate {_shown(ranks[0]['gen_launches'])}, LoRA step "
+              f"{_shown(ranks[0]['train_launches'])} (one rank: "
+              f"{_shown(one['eval_launches'])}, "
+              f"{_shown(one['gen_launches'])}, "
+              f"{_shown(one['train_launches'])}) "
+              f"{'ok' if ran else 'FAIL'}", flush=True)
+        perf = {w: {"one_rank": one[k], "per_rank": [r[k] for r in ranks]}
+                for w, k in (("eval_s", "eval_s"), ("generate_s", "gen_s"),
+                             ("lora_step_s", "step_s"),
+                             ("peak_gib", "peak_gib"),
+                             ("build_peak_gib", "build_peak_gib"),
+                             ("build_s", "build_s"))}
+        print(f"  (d) bf16, one rank vs each of two ranks sharing the card: "
+              f"eval {TP_BATCH / one['eval_s']:.1f} vs "
+              f"{[round(TP_BATCH / r['eval_s'], 1) for r in ranks]} "
+              f"samples/s; generate {TP_BATCH * TP_NEW / one['gen_s']:.1f} "
+              f"vs {[round(TP_BATCH * TP_NEW / r['gen_s'], 1) for r in ranks]}"
+              f" tokens/s; LoRA step (acc {TP_ACC} x {TP_BATCH}) "
+              f"{one['step_s']:.2f} vs {[round(r['step_s'], 2) for r in ranks]}"
+              f" s; peak after the slicing {one['peak_gib']:.2f} vs "
+              f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (building the "
+              f"whole model first: {one['build_peak_gib']:.2f} vs "
+              f"{[round(r['build_peak_gib'], 2) for r in ranks]})",
+              flush=True)
+        # (e)
+        by_id = {a["id"]: a for a in ranks[0]["serve_lines"]}
+        one_by_id = {_json.loads(a)["id"]: _json.loads(a) for a in lines1}
+        same = cut = 0
+        bad = []
+        floor = 2.0 * nums["a"]["max_logit_diff_vocab"]
+        for r, (want, marg) in zip(reqs, alone):
+            for got in (by_id.get(r["id"], {}), one_by_id.get(r["id"], {})):
+                a_ok, a = _agree_one(got.get("tokens", []), want, marg,
+                                     floor)
+                if not a_ok:
+                    bad.append(r["id"])
+            same += by_id.get(r["id"], {}).get("tokens") == one_by_id.get(
+                r["id"], {}).get("tokens")
+        e_ok = (rc1 == 0 and all(r["serve_rc"] == 0 for r in ranks)
+                and set(by_id) == set(one_by_id) == {r["id"] for r in reqs}
+                and not ranks[1]["serve_lines"] and not bad)
+        print(f"  (e) cli.serve --mesh_shape=data:1,model:2 on {len(reqs)} "
+              f"requests in {ranks[0]['serve_s']:.1f} s: {same} of "
+              f"{len(reqs)} lines identical to the one-rank server's, every "
+              f"line held to its request's one-rank generate by the near-tie"
+              f" rule (floor {floor:.3e}): {not bad}; launches rank 0 "
+              f"{_shown(ranks[0]['serve_launches'])}, rank 1 "
+              f"{_shown(ranks[1]['serve_launches'])} (one rank "
+              f"{_shown(one_serve_launches)}) {'ok' if e_ok else 'FAIL'}",
+              flush=True)
+        # (f)
+        n = SP_TEXTS
+        lg2, pred2 = ranks[0]["text_logits"][:n], ranks[0]["text_preds"]
+        tlg1 = tlg1[:n]
+        d_txt = float((lg2 - tlg1).abs().max())
+        top2 = tlg1.topk(2, dim=-1).values
+        tfloor = 2.0 * d_txt
+        near = (top2[:, 0] - top2[:, 1]) <= tfloor
+        differ = torch.from_numpy(np.asarray(pred2) != np.asarray(tpred1))
+        f_ok = (d_txt <= TP_LOGIT_BAR and not bool((differ & ~near).any())
+                and torch.equal(ranks[0]["text_logits"],
+                                ranks[1]["text_logits"])
+                and (ranks[0]["text_csv"] == tcsv1 or bool(differ.any())))
+        print(f"  (f) cli.test_text --text_model=distilbert --seq_len="
+              f"{SP_SEQ_LEN} --mesh_shape=seq:2 on {n} texts (bf16): logits "
+              f"max|d| {d_txt:.3e} (bar {TP_LOGIT_BAR}) against one rank, "
+              f"{int(differ.sum())} predictions differ ({int(near.sum())} "
+              f"rows at a near tie, floor {tfloor:.3e}); report "
+              f"{'byte-identical' if ranks[0]['text_csv'] == tcsv1 else 'DIFFERS'}"
+              f"; device ms a batch (CUDA events around the step): one rank "
+              f"{[round(x, 3) for x in tms1]}, seq:2 rank 0 "
+              f"{[round(x, 3) for x in ranks[0]['text_ms']]} "
+              f"{'ok' if f_ok else 'FAIL'}", flush=True)
+        secs = time.perf_counter() - t_phase
+        results["model_seq_parallel"] = {
+            "held": line, **nums, "launches_ok": ran, "perf": perf,
+            "serve": {"identical_to_one_rank": same, "disagreeing": bad,
+                      "seconds": ranks[0]["serve_s"], "floor": floor,
+                      "ok": e_ok},
+            "test_text_seq2": {"max_logit_diff": d_txt,
+                               "predictions_differ": int(differ.sum()),
+                               "near_ties": int(near.sum()),
+                               "csv_identical": ranks[0]["text_csv"] == tcsv1,
+                               "ms_per_batch_one_rank": tms1,
+                               "ms_per_batch_seq2": [r["text_ms"]
+                                                     for r in ranks],
+                               "ok": f_ok},
+            "seconds": {"one_rank": one_s, "two_ranks": two_s,
+                        "phase": secs, "budget": PHASE20_BUDGET_S},
+            "card": smi_line}
+        results["tp_launches"] = {k: ranks[0]["eval_launches"].get(k, 0)
+                                  + ranks[0]["gen_launches"].get(k, 0)
+                                  + ranks[0]["train_launches"].get(k, 0)
+                                  for k in ranks[0]["eval_launches"]}
+        print(f"  phase 20 in {secs:.1f} s of its {PHASE20_BUDGET_S:.0f} s "
+              f"budget (one rank {one_s:.1f} s, the two-rank launch "
+              f"{two_s:.1f} s)", flush=True)
+        return ok and held and ran and e_ok and f_ok
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def ptxas_report(log: str):
     """(kernel, "Used ... registers ..." line, spill line) for each entry
     function in an nvcc ``-Xptxas -v`` log; the tensor-core GEMMs are
@@ -9387,7 +10055,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/19] device", flush=True)
+    print("[1/20] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9397,7 +10065,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/19] build", flush=True)
+    print("[2/20] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -9409,7 +10077,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/19] kernels vs plain versions", flush=True)
+    print("[3/20] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -9431,90 +10099,94 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/19] MM-RCA eval path",
+            ("[4/20] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/19] MM-RCA train path: full-width train step",
+            ("[5/20] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/19] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/20] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/19] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/20] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/19] image eval path: ViT-B/16",
+            ("[7/20] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/19] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/20] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/19] text train path: DistilBERT and BERT-base with "
+            ("[8/20] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/19] image train path: ViT-B/16",
+            ("[9/20] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/19] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/20] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/19] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/20] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/19] conv image eval CLI: cli.test_image "
+            ("[10/20] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/19] fusion eval: gated, classic, normalized, clip, "
+            ("[11/20] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/19] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/20] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/19] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/20] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/19] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/20] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/19] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/20] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/19] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/20] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[13/19] VLM RESUME: cli.blip2_train and cli.qformer_train "
+            ("[13/20] VLM RESUME: cli.blip2_train and cli.qformer_train "
              "killed at the epoch boundary and mid-epoch, resumed with "
              "--resume_from, held to a control",
              lambda: check_vlm_resume(device, results)),
-            ("[14/19] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/20] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/19] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/20] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/19] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/20] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/19] text family CLIs: cli.main_text "
+            ("[15/20] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
              lambda: check_text_family_clis(device, results)),
-            ("[16/19] conv train: the 12 conv backbones, a step each; "
+            ("[16/20] conv train: the 12 conv backbones, a step each; "
              "fp64 and fp32 card vs CPU",
              lambda: check_conv_train(device, results)),
-            ("[16/19] conv train CLI and RESUME: cli.main_image res18 -> "
+            ("[16/20] conv train CLI and RESUME: cli.main_image res18 -> "
              "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
              "killed and resumed, held to a control",
              lambda: check_resume(device, results)),
-            ("[17/19] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
+            ("[17/20] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
              "weights; K2 in every prefill), the continuous-batching server, "
              "speculative decoding",
              lambda: check_serving(device, results)),
-            ("[17/19] serving CLIs: cli.blip2_test --max_new_tokens=4 "
+            ("[17/20] serving CLIs: cli.blip2_test --max_new_tokens=4 "
              "(greedy, sampled, int8), cli.serve",
              lambda: check_serving_clis(device, results)),
-            ("[18/19] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
+            ("[18/20] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
              "Llama-3.1-8B-Instruct's width, card vs CPU, cli.main_text "
              "--use_synonyms",
              lambda: check_paraphraser(device, results)),
-            ("[19/19] data parallelism: the MM-RCA train step over two "
+            ("[19/20] data parallelism: the MM-RCA train step over two "
              "ranks sharing the card (gloo), cli.main_both -> cli.test_both "
              "over two ranks, cli.main_text --fsdp on NCCL",
-             lambda: check_data_parallel(device, results, smi_line))):
-        if title.startswith("[17/19] serving:"):
+             lambda: check_data_parallel(device, results, smi_line)),
+            ("[20/20] tensor and sequence parallelism: blip2-opt-2.7b at "
+             "model:2 (eval, generate, a LoRA step, cli.serve) and "
+             "cli.test_text at seq:2 over two ranks sharing the card (gloo)",
+             lambda: check_model_seq_parallel(device, results, smi_line))):
+        if title.startswith("[17/20] serving:"):
             results["phases_1_16_s"] = time.perf_counter() - t_start
             print(f"  (phases 1-16 in {results['phases_1_16_s']:.1f} s)",
                   flush=True)
@@ -9573,7 +10245,8 @@ def main() -> int:
                    results["fusion_train_hf_launches"],
                "text_family": results["text_family_launches"],
                "serving": results["serving_launches"],
-               "data_parallel_rank0": results["dp_launches"]}
+               "data_parallel_rank0": results["dp_launches"],
+               "model_parallel_rank0": results["tp_launches"]}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -9629,8 +10302,10 @@ def main() -> int:
                          ("mha_flash_bwd_hd80", "mha_flash_bwd_tc")):
         vlm_rows.append((key, counter, "vlm_train",
                          results["vlm_train_kernels"][key]))
+    # and at a rank's 16 heads of 80 under model:2 (phase 20)
     for key, counter, path, row in vlm_rows:
         row = dict(row)
+        row["model_parallel_16_heads"] = results["tp_kernels"][counter]
         row["launches"] = by_path[path][counter]
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
         kernels.append(row)
@@ -9668,6 +10343,7 @@ def main() -> int:
                       "paraphraser": results["paraphraser"],
                       "data_parallel": {k: results[k] for k in (
                           "dp_step", "dp_clis", "dp_fsdp")},
+                      "model_seq_parallel": results["model_seq_parallel"],
                       "phase_seconds": results["phase_seconds"],
                       "phases_1_16_s": results["phases_1_16_s"],
                       "seconds": time.perf_counter() - t_start,
@@ -9687,4 +10363,6 @@ if __name__ == "__main__":
         sys.exit(dp_step_worker(sys.argv[1].partition("=")[2]))
     if len(sys.argv) > 1 and sys.argv[1] == "--dp_eval":
         sys.exit(dp_eval_worker(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1].startswith("--tp_worker="):
+        sys.exit(tp_worker(sys.argv[1].partition("=")[2]))
     sys.exit(main())

@@ -14,7 +14,10 @@ full resume both share (``VlmResume``: ``--resume_from=.../RESUME``).
 Each runs over the data axis of a ``DataMesh`` too: a rank decodes its
 rows of every global batch, the step's loss is the global microbatch's
 and the eval gathers the predictions (``vlm_multihost_mesh_check``
-refuses what stays one-process).
+refuses what stays one-process). Over the model axis ``place_blip2``
+slices the OPT tower Megatron-style (``parallel/tp.py``); the ranks of a
+model group hold the same rows, and the LoRA step sums the adapters'
+gradients over that group as well.
 
 ``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
 geometry for the JAX package's tiny test configuration (CPU drives only:
@@ -211,19 +214,36 @@ def class_logits_from_next_token(next_logits: torch.Tensor,
     return next_logits[:, answer_first_tokens]
 
 
+def place_blip2(model, mesh):
+    """BLIP-2 on `mesh` (the JAX ``place_blip2_params``): the OPT tower
+    sliced over the model axis when it has more than one rank
+    (``parallel/tp.shard_opt_``: q / k / v / fc1 column-, out / fc2
+    row-parallel); vision, Q-Former, projection, adapters and classifier
+    whole on every rank. Quantize the tower before
+    (``ops/quant.quantize_opt_weights``), as the JAX CLIs do. Returns the
+    model."""
+    from ..parallel.tp import shard_opt_
+
+    shard_opt_(model.opt, mesh)
+    return model
+
+
 def vlm_multihost_mesh_check(mesh, args) -> None:
     """What stays one-process (the JAX package's
     ``vlm_multihost_mesh_check`` and its CLI guards): multi-token
-    generation in ``cli.blip2_test``; ``--fsdp`` (the JAX VLM trainers do
-    not shard their weights either)."""
+    generation in ``cli.blip2_test`` over a data axis of several ranks
+    (the JAX rule is for multi-host data sharding; ``data:1,model:M``
+    generates); ``--fsdp`` (the JAX VLM trainers do not shard their
+    weights either)."""
     if getattr(args, "fsdp", False):
         raise NotImplementedError(
             "--fsdp shards the engine trainers' weights (main_both, "
             "main_text, main_image); the VLM trainers keep theirs whole, as "
             "the JAX package's do")
-    if mesh.distributed and getattr(args, "max_new_tokens", 1) > 1:
-        raise SystemExit("--max_new_tokens > 1 runs on one rank, as in the "
-                         "JAX package; drop --mesh_shape / torchrun")
+    if mesh.size("data") > 1 and getattr(args, "max_new_tokens", 1) > 1:
+        raise SystemExit("--max_new_tokens > 1 runs on one data rank, as in "
+                         "the JAX package; use --mesh_shape=data:1,model:M "
+                         "or drop torchrun")
 
 
 def vlm_eval(step, batcher: Blip2Batcher, batch_size: int, device,
@@ -333,7 +353,8 @@ class VlmResume:
 
 
 def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
-                    acc_steps: int, with_key: bool = False, mesh=None):
+                    acc_steps: int, with_key: bool = False, mesh=None,
+                    model_partial: bool = False):
     """The grad-accumulating optimizer step of both VLM trainers (the JAX
     ``make_accum_step``; they differ only in the loss).
 
@@ -344,7 +365,10 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
     holds this rank's rows: the denominators are all-reduced before the
     backward, which runs on ``loss * weight / global weight`` (the ranks'
     sum is the global microbatch's mean), under ``core.batch_shard``, and
-    the gradients are all-reduced once after the window. Returns
+    the gradients are all-reduced once after the window, over the data
+    axis, and with `model_partial` (the LoRA adapters of a tower sliced
+    over the model axis: each rank's gradients hold its heads' share)
+    over the model axis as well. Returns
     ``step(window, key=None) -> mean loss`` over a
     window of W <= acc_steps microbatches (a leading axis on every entry):
     each microbatch's backward adds its gradient into the fp32 sums held
@@ -353,10 +377,11 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
     batches with loss / acc_steps), and the optimizer steps once. A
     parameter no gradient reached gets zeros, as the JAX tree does.
     Microbatch i draws its dropout from ``key.fold_in(i)``."""
+    from ..parallel.multihost import all_reduce_sum_
+
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    dp = mesh is not None and mesh.distributed
-    if dp:
-        from ..parallel.multihost import all_reduce_sum_
+    dp = mesh is not None and mesh.size("data") > 1
+    tp = model_partial and mesh is not None and mesh.size("model") > 1
 
     def step(window, key=None):
         w = window["valid"].shape[0]
@@ -372,7 +397,7 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
                 if dp:
                     tot = torch.stack([loss.detach().float() * weight,
                                        weight.float()])
-                    all_reduce_sum_([tot])
+                    all_reduce_sum_([tot], group=mesh.group("data"))
                     glob = torch.clamp(tot[1], min=1e-30)
                     (loss * (weight / glob)).backward()
                     loss = tot[0] / glob
@@ -384,7 +409,11 @@ def make_accum_step(loss_fn, optimizer: torch.optim.Optimizer,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if dp:
-            all_reduce_sum_([p.grad for p in params])
+            all_reduce_sum_([p.grad for p in params],
+                            group=mesh.group("data"))
+        if tp:
+            all_reduce_sum_([p.grad for p in params],
+                            group=mesh.group("model"))
         for p in params:
             p.grad.div_(acc_steps)
         optimizer.step()

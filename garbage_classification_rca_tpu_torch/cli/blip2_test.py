@@ -25,10 +25,14 @@ answer word by the reference's ``find_closest_string``.
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU, and
 ``GC_RCA_TINY_BLIP2=1`` swaps in the tiny test geometry. The 1-token
 path runs over N GPUs with ``torchrun --nproc_per_node=N
---mesh_shape=data:N`` (rank 0 writes the report); generation runs on one
-rank. Not ported yet: the model and pipe axes (with them the pipelined
-``pp_generate``; ROADMAP.md queue 1 item 7) and the JAX package's orbax
-adapter directories.
+--mesh_shape=data:N`` (rank 0 writes the report). Both paths run with the
+OPT tower sliced over a model axis (``--mesh_shape=data:1,model:M`` over M
+ranks, ``parallel/tp.py``; data:D,model:M for the 1-token path): every
+rank computes the same logits and draws the same tokens, rank 0 writes
+the report. Generation over a data axis of several ranks exits, as the
+JAX CLI's multi-host rule. Not ported yet: the pipe axis (with it the
+pipelined ``pp_generate``; ROADMAP.md queue 1 item 7) and the JAX
+package's orbax adapter directories.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from ..parallel.mesh import clamp_eval_batch
 from ..parallel.multihost import is_primary
 from . import check_eval_flags, data_mesh
 from .blip2_common import (Blip2Batcher, build_blip2, normalize_clip,
-                           sampler_from_args, vlm_eval,
+                           place_blip2, sampler_from_args, vlm_eval,
                            vlm_multihost_mesh_check)
 from .blip2_train import answer_first_token_table, make_eval_step
 
@@ -87,8 +91,8 @@ def make_generate_step(model, tok, args, compute_dtype):
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_eval_flags(args)
-    mesh = data_mesh(args)
+    check_eval_flags(args, allowed=("model",))
+    mesh = data_mesh(args, allowed=("model",))
     vlm_multihost_mesh_check(mesh, args)
     device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
@@ -97,6 +101,7 @@ def evaluate(args):
         from ..ops.quant import quantize_opt_weights
 
         quantize_opt_weights(model.opt)
+    place_blip2(model, mesh)
     m = build_manifest(args.dataset_folder_name)
     print(f"Num of test images: {len(m)}")
     b = Blip2Batcher(m, tok, workers=args.data_workers)

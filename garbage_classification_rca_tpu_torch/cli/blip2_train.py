@@ -36,9 +36,12 @@ On the card each microbatch runs K2 39 times (EVA, head dim 88), K4a 32
 times and K4b 32 times (OPT, head dim 80, causal with the key mask). Runs
 on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
 ``torchrun --nproc_per_node=N --mesh_shape=data:N`` (``--batch_size`` the
-global microbatch). Not ported yet (``cli.check_unported_flags`` raises):
-the model and pipe axes and ``--wandb``; ``--fsdp`` raises, as the JAX
-trainer does not shard the VLM either.
+global microbatch), and with the OPT tower sliced over a model axis
+(``--mesh_shape=data:D,model:M`` over D x M ranks, ``parallel/tp.py``):
+K4a / K4b run each rank's 32 / M heads, the adapters stay whole on every
+rank and their gradients are summed over the model group. Not ported yet
+(``cli.check_unported_flags`` raises): the pipe axis and ``--wandb``;
+``--fsdp`` raises, as the JAX trainer does not shard the VLM either.
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ from ..train.engine import (MetricsLogger, PhaseResult, save_best,
 from . import check_unported_flags, data_mesh
 from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
                            class_logits_from_next_token, make_accum_step,
-                           normalize_clip, vlm_eval, vlm_multihost_mesh_check,
-                           vlm_train_stream)
+                           normalize_clip, place_blip2, vlm_eval,
+                           vlm_multihost_mesh_check, vlm_train_stream)
 
 TRAIN_SUFFIX = "_Train"
 VAL_SUFFIX = "_Val"
@@ -102,7 +105,8 @@ def make_lora_train_step(model, acc_steps: int = BLIP2_ACC,
     window of microbatches (``make_accum_step``). With
     `hf_internal_dropout` microbatch i draws its dropout sites from
     ``key.fold_in(i)``; without it the key is not read. `mesh`: a
-    data-parallel run's ``DataMesh``."""
+    run's ``DataMesh``: the data axis, and the model axis of a tower that
+    ``place_blip2`` sliced (the adapters' gradients summed over it)."""
     model.requires_grad_(False)
     model.lora.requires_grad_(True)
     opt = blip2_adamw(model.lora.parameters())
@@ -114,7 +118,8 @@ def make_lora_train_step(model, acc_steps: int = BLIP2_ACC,
                 (labels[:, 1:] != -100).sum())
 
     return opt, make_accum_step(loss_fn, opt, acc_steps,
-                                with_key=hf_internal_dropout, mesh=mesh)
+                                with_key=hf_internal_dropout, mesh=mesh,
+                                model_partial=True)
 
 
 def make_eval_step(model, answer_first_tokens, compute_dtype=torch.bfloat16):
@@ -146,12 +151,14 @@ def answer_first_token_table(batcher: Blip2Batcher, classes) -> np.ndarray:
 
 def main(argv=None):
     args = args_parser(argv)
-    check_unported_flags(args)
-    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0))
+    check_unported_flags(args, allowed=("model",))
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0),
+                     allowed=("model",))
     vlm_multihost_mesh_check(mesh, args)
     device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype, train=True)
+    place_blip2(model, mesh)
     train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
     val_m = build_manifest((args.dataset_folder_name_val or
                             args.dataset_folder_name) + VAL_SUFFIX)

@@ -13,8 +13,10 @@ head on the Q-Former's first query output; the report goes under
 ``test_set_reports/qformer/``. Without ``--classifier_weights`` the head
 is drawn from ``--seed + 2``. Accuracy divides by the real dataset size.
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs
-with ``torchrun --nproc_per_node=N --mesh_shape=data:N``. Not ported yet:
-the model and pipe axes (ROADMAP.md queue 1 item 7) and the JAX package's
+with ``torchrun --nproc_per_node=N --mesh_shape=data:N``, and with the OPT
+tower sliced over a model axis (``--mesh_shape=data:D,model:M`` over D x M
+ranks, as the JAX CLI places it; the tower does not run here). Not ported
+yet: the pipe axis (ROADMAP.md queue 1 item 7) and the JAX package's
 orbax directories.
 """
 
@@ -31,7 +33,7 @@ from ..eval.report import generate_report_and_image
 from ..parallel.mesh import clamp_eval_batch
 from ..parallel.multihost import is_primary
 from . import check_eval_flags, data_mesh
-from .blip2_common import Blip2Batcher, build_blip2, vlm_eval
+from .blip2_common import Blip2Batcher, build_blip2, place_blip2, vlm_eval
 from .qformer_train import make_eval_step
 
 BASE_PATH = "./test_set_reports"
@@ -65,12 +67,12 @@ def load_classifier(path: str, hidden: int):
 
 def evaluate(args):
     """(acc %, labels, preds, stats) of the test folder."""
-    check_eval_flags(args)
+    check_eval_flags(args, allowed=("model",))
     if args.classifier_weights and os.path.isdir(args.classifier_weights):
         raise SystemExit("orbax checkpoint directories are not read by the "
                          "PyTorch port yet (ROADMAP.md); pass the "
                          "reference MultimodalClassifier .pth")
-    mesh = data_mesh(args)
+    mesh = data_mesh(args, allowed=("model",))
     device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype, with_lora=False,
@@ -86,6 +88,7 @@ def evaluate(args):
             load_jax_tree(model.classifier, load_classifier(
                 args.classifier_weights, cfg.qformer.hidden),
                 allow_skipped=())
+    place_blip2(model, mesh)
     m = build_manifest(args.dataset_folder_name)
     print(f"Num of test images: {len(m)}")
     b = Blip2Batcher(m, tok, workers=args.data_workers)

@@ -24,9 +24,11 @@ keys are derived, not carried, so a mid-epoch resume draws the same.
 
 On the card each microbatch runs K2 39 times (EVA, head dim 88). Runs on
 CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
-``torchrun --nproc_per_node=N --mesh_shape=data:N``. Not ported yet
-(``cli.check_unported_flags`` raises): the model and pipe axes and
-``--wandb``; ``--fsdp`` raises, as the JAX trainer does not shard either.
+``torchrun --nproc_per_node=N --mesh_shape=data:N``; a model axis
+(``data:D,model:M``) slices the OPT tower as the JAX trainer places it,
+and the classifier and the Q-Former run whole on every rank. Not ported
+yet (``cli.check_unported_flags`` raises): the pipe axis and ``--wandb``;
+``--fsdp`` raises, as the JAX trainer does not shard either.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from ..train.engine import (MetricsLogger, PhaseResult, save_best,
 from ..train.loss import cross_entropy_loss_and_weight
 from . import check_unported_flags, data_mesh
 from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
-                           make_accum_step, normalize_clip, vlm_eval,
+                           make_accum_step, normalize_clip, place_blip2,
+                           vlm_eval,
                            vlm_multihost_mesh_check, vlm_train_stream)
 from .blip2_train import blip2_adamw
 
@@ -94,13 +97,15 @@ def make_eval_step(model, compute_dtype=torch.bfloat16):
 
 def main(argv=None):
     args = args_parser(argv)
-    check_unported_flags(args)
-    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0))
+    check_unported_flags(args, allowed=("model",))
+    mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0),
+                     allowed=("model",))
     vlm_multihost_mesh_check(mesh, args)
     device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     _, model, tok = build_blip2(args, device, dtype, with_lora=False,
                                 classifier=True)
+    place_blip2(model, mesh)
     train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
     val_m = build_manifest((args.dataset_folder_name_val or
                             args.dataset_folder_name) + VAL_SUFFIX)

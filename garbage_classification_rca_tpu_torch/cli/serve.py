@@ -29,9 +29,18 @@ Sampled requests draw from ``Key(--gen_seed).fold_in(uid)``, uids in
 arrival order.
 
 Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU and
-``GC_RCA_TINY_BLIP2=1`` swaps in the tiny geometry. Meshes (the JAX CLI's
-tensor-parallel tower), multi-host runs and orbax adapter directories are
-refused, as in the other VLM CLIs (ROADMAP.md queue 1 item 7).
+``GC_RCA_TINY_BLIP2=1`` swaps in the tiny geometry. ``--mesh_shape=
+model:M`` (or ``data:1,model:M``) runs the JAX CLI's tensor-parallel tower
+over M processes (``torchrun --nproc_per_node=M``; ``parallel/tp.py``):
+rank 0 reads stdin, embeds the requests (the vision tower runs there) and
+writes stdout; each round it broadcasts what it admitted (the count, end
+of input, and each request's budget, mask and prompt embeddings) so that
+every rank submits the same requests in the same order and runs the same
+schedule, the same refills, lanes and steps, and draws the same tokens. A
+rank other than 0 waits in that broadcast while rank 0 waits on stdin,
+for at most ``GC_RCA_DIST_TIMEOUT`` seconds. A data axis of more than one
+rank is refused (the JAX server only replicates there), as are
+``GC_RCA_MULTIHOST`` runs and orbax adapter directories.
 """
 
 from __future__ import annotations
@@ -96,6 +105,38 @@ def _build_embedders(cfg, model, args, tok, compute_dtype):
     return embed_requests
 
 
+def _share_round(mesh, eof, admitted, max_prompt, hidden, dtype, device):
+    """Rank 0's round on every rank: (eof, [(embeds [max_prompt, H] in
+    `dtype`, mask [max_prompt] int32 numpy, budget), ...]); `eof` and
+    `admitted` are read on rank 0 only. The tensors travel as bytes."""
+    from ..parallel.multihost import broadcast_
+
+    group = mesh.group("model")
+    head = torch.tensor([len(admitted), int(eof)], dtype=torch.int64,
+                        device=device)
+    broadcast_(head, group)
+    n, eof = int(head[0]), bool(head[1])
+    if n == 0:
+        return eof, []
+    if mesh.is_primary:
+        emb = torch.stack([torch.nn.functional.pad(
+            e.to(device, dtype), (0, 0, 0, max_prompt - e.shape[0]))
+            for e, _, _ in admitted])
+        rest = torch.tensor(np.stack([np.concatenate(
+            [np.pad(m, (0, max_prompt - len(m))), [b]])
+            for _, m, b in admitted]).astype(np.int64), device=device)
+    else:
+        emb = torch.empty((n, max_prompt, hidden), dtype=dtype,
+                          device=device)
+        rest = torch.empty((n, max_prompt + 1), dtype=torch.int64,
+                           device=device)
+    broadcast_(emb.view(torch.uint8), group)
+    broadcast_(rest, group)
+    rest = rest.cpu().numpy()
+    return eof, [(emb[i], rest[i, :-1].astype(np.int32), int(rest[i, -1]))
+                 for i in range(n)]
+
+
 def _reader(stream, q):
     """stdin thread: request dicts -> q, then _EOF. A line that does not
     parse, or parses to a non-object (no "id" to echo), is reported on
@@ -140,28 +181,34 @@ def _validate_request(item, img_ok, n_query):
 def main(argv=None, stdin=None, stdout=None):
     from ..config import args_parser, torch_compute_dtype
     from ..data.images import blip_preprocess_image
-    from ..device import resolve_device
     from ..nn.core import Key
+    from ..parallel.mesh import DATA_AXIS
     from ..serving.engine import GenerationServer
-    from . import check_eval_flags, cli_device
-    from .blip2_common import build_blip2, sampler_from_args
+    from . import check_eval_flags, data_mesh
+    from .blip2_common import build_blip2, place_blip2, sampler_from_args
 
     args = args_parser(argv)
-    check_eval_flags(args)
-    if args.mesh_shape not in ("", "data:-1", "data:1") \
-            or os.environ.get("GC_RCA_MULTIHOST"):
+    check_eval_flags(args, allowed=("model",))
+    if os.environ.get("GC_RCA_MULTIHOST"):
+        raise SystemExit("multi-host (GC_RCA_MULTIHOST) is not supported by "
+                         "the serve CLI; run its ranks on one host")
+    mesh = data_mesh(args, allowed=("model",))
+    if mesh.size(DATA_AXIS) > 1:
         raise NotImplementedError(
-            "cli.serve runs on one device: its meshes are tensor parallel "
-            "(tp.py, ROADMAP.md, queue 1 item 7)")
+            f"--mesh_shape={args.mesh_shape}: cli.serve runs a model axis "
+            "(data:1,model:M); over a data axis the JAX server only "
+            "replicates the tower, which the port does not run")
+    device = mesh.device
+    tp = mesh.size("model") > 1
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
-    device = resolve_device(cli_device())
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype)
     if args.int8_weights:
         from ..ops.quant import quantize_opt_weights
 
         quantize_opt_weights(model.opt)
+    place_blip2(model, mesh)
     n_query = cfg.qformer.n_query
     img_ok = args.max_prompt > n_query
     if not img_ok:
@@ -180,11 +227,15 @@ def main(argv=None, stdin=None, stdout=None):
     embed_requests = _build_embedders(cfg, model, args, tok, dtype)
 
     q: queue.Queue = queue.Queue()
-    threading.Thread(target=_reader, args=(stdin, q), daemon=True).start()
+    if mesh.is_primary:
+        threading.Thread(target=_reader, args=(stdin, q),
+                         daemon=True).start()
     uid_to_id = {}
     eof = False
 
     def emit(finished):
+        if not mesh.is_primary:
+            return
         for r in finished:
             toks = list(r.tokens)
             if toks and toks[-1] == 2:          # strip the fed EOS
@@ -196,7 +247,7 @@ def main(argv=None, stdin=None, stdout=None):
     while not eof or srv.has_work:
         # take every request already waiting; block only when idle
         pending, pixs = [], []
-        while not eof:
+        while not eof and mesh.is_primary:
             try:
                 item = q.get(block=not srv.has_work and not pending)
             except queue.Empty:
@@ -218,13 +269,20 @@ def main(argv=None, stdin=None, stdout=None):
                 continue
             pending.append(item)
             pixs.append(pix)
-        if pending:
-            # submitted in arrival order: the uid-derived sampling keys
-            # follow the request log
-            for item, (e, m) in zip(pending, embed_requests(pending, pixs)):
-                uid = srv.submit(e, m, max_new=min(int(item.get(
-                    "max_new", max_new)), max_new))
-                uid_to_id[uid] = item.get("id")
+        admitted = [(e, m, min(int(item.get("max_new", max_new)), max_new))
+                    for item, (e, m) in zip(
+                        pending, embed_requests(pending, pixs))] \
+            if pending else []
+        if tp:
+            eof, admitted = _share_round(
+                mesh, eof, admitted, args.max_prompt, cfg.opt.hidden,
+                model.opt.embed_tokens.w.dtype, device)
+        # submitted in arrival order: the uid-derived sampling keys
+        # follow the request log
+        for i, (e, m, budget) in enumerate(admitted):
+            uid = srv.submit(e, m, max_new=budget)
+            if mesh.is_primary:
+                uid_to_id[uid] = pending[i].get("id")
         emit(srv.step())
     emit(srv.drain())
     return 0

@@ -12,9 +12,11 @@ GPT-2 and MobileBERT run no hand-written kernel). The weights are cast to
 computes in their dtype, as in the JAX CLI. Reports land
 under ``test_set_reports/<text_model>/``. Same flags as the JAX package's
 ``cli/test_text.py``; over N GPUs with ``torchrun --nproc_per_node=N
---mesh_shape=data:N`` (rank 0 writes the report); a ``--mesh_shape`` with
-a ``seq`` axis (sequence parallelism) and orbax checkpoint directories
-are not ported yet. Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the
+--mesh_shape=data:N`` (rank 0 writes the report); a ``seq`` axis
+(``--mesh_shape=seq:S`` or ``data:D,seq:S`` over D x S ranks) runs
+DistilBERT sequence-parallel (``parallel/sp.py``), and any other
+``--text_model`` exits 1 with the JAX CLI's message. Orbax checkpoint
+directories are not read. Runs on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the
 CPU. Text models: distilbert, bert, roberta, bart, gpt2, mobilebert (or
 mobile_bert), each at its ``config.TEXT_ARCHS`` eval batch.
 """
@@ -33,7 +35,7 @@ from ..data.tokenizer import DEFAULT_SEQ_LEN, get_tokenizer, resolve_vocab_dir
 from ..eval.harness import run_eval
 from ..eval.report import generate_report_and_image
 from ..models.registry import get_text_model
-from ..parallel.mesh import clamp_eval_batch
+from ..parallel.mesh import SEQ_AXIS, clamp_eval_batch
 from ..parallel.multihost import is_primary
 from ..utils.dtype import resolve_param_dtype
 from . import (check_eval_flags, data_mesh, load_unimodal_model,
@@ -42,11 +44,25 @@ from . import (check_eval_flags, data_mesh, load_unimodal_model,
 BASE_PATH = "./test_set_reports"
 
 
-def make_text_eval_step(model):
+def make_text_eval_step(model, mesh=None, *, text_model: str = ""):
     """``model(input_ids, attention_mask) -> logits`` -> (preds, masked
-    correct count)."""
+    correct count). A `mesh` with a seq axis of more than one rank routes
+    DistilBERT through the sequence-parallel encoder
+    (``parallel/sp.distilbert_classify_sp``); another text model prints
+    the JAX CLI's message and exits 1."""
+    forward = model
+    if mesh is not None and mesh.size(SEQ_AXIS) > 1:
+        if text_model != "distilbert":
+            print(f"--mesh_shape with a seq axis supports only "
+                  f"distilbert (got {text_model}); see parallel/sp.py")
+            raise SystemExit(1)
+        from ..parallel.sp import distilbert_classify_sp
+
+        def forward(ids, mask):
+            return distilbert_classify_sp(model, ids, mask, mesh)
+
     def step(batch):
-        logits = model(batch["input_ids"], batch["attention_mask"])
+        logits = forward(batch["input_ids"], batch["attention_mask"])
         preds = logits.float().argmax(dim=-1).to(torch.int32)
         correct = ((preds == batch["label"]) * batch["valid"]).sum()
         return preds, correct
@@ -58,12 +74,14 @@ def evaluate(args):
     """Build the model the flags name, load its weights and evaluate the
     test folder: (acc %, labels, preds, stats)."""
     mdef = resolve_model(get_text_model, args.text_model)
-    check_eval_flags(args)
-    mesh = data_mesh(args)
+    check_eval_flags(args, allowed=("seq",))
+    mesh = data_mesh(args, allowed=("seq",))
     device = mesh.device
     model = load_unimodal_model(mdef, args.model_path,
                                 f"--text_model={args.text_model}", device)
     model.to(resolve_param_dtype(args, args.compute_dtype))
+    step = (make_text_eval_step(model, mesh, text_model=args.text_model)
+            if mesh.size(SEQ_AXIS) > 1 else make_text_eval_step(model))
 
     manifest = build_manifest(args.dataset_folder_name,
                               extended_desc=args.extended_desc_val)
@@ -79,7 +97,7 @@ def evaluate(args):
         workers=args.data_workers, with_images=False)
     try:
         return run_eval(
-            make_text_eval_step(model), batcher, batch_size, device,
+            step, batcher, batch_size, device,
             keys=("input_ids", "attention_mask", "label", "valid"),
             prefetch_depth=args.prefetch_depth, mesh=mesh)
     finally:

@@ -44,6 +44,16 @@ bias, as the JAX package's decode does outside any Pallas kernel; they
 update the caches in place. The token loops are Python loops of device
 work: ``generate`` reads nothing back per step, ``speculative_generate``
 one flag per round.
+
+Tensor parallelism (``parallel/tp.py``): on a decoder that ``shard_opt_``
+sliced over the mesh's model axis, each layer (``OPTLayer.tp``) runs its
+``heads / M`` local heads (K2 and the flash pair at ``D = hidden / M``),
+its FFN block, the all-reduce after the row-parallel out and fc2 products
+(bias and int8 scale once, after it), the adapters' columns of its heads,
+and, under autograd, Megatron's *f* on the inputs of q / k / v and fc1.
+The KV caches hold the local heads: [layers, B, T, hidden / M]
+(``kv_width``). The hidden state between the layers is whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from ...kernels.mha_fused import mha, mha_flash_train
 from ...nn import core
 from ...ops import quant
 from ...ops import sampling as smp
+from ...parallel.tp import copy_to_model, row_linear
 from ..text.encoder_common import lin, ln_
 
 
@@ -81,6 +92,9 @@ class OPTConfig:
 
 
 class OPTLayer(nn.Module):
+    # the layer's ``parallel.tp.ModelShard`` once ``shard_opt_`` sliced it
+    tp = None
+
     def __init__(self, cfg: OPTConfig):
         super().__init__()
         d = cfg.hidden
@@ -138,15 +152,49 @@ def _layer_lora(lora: Optional[Lora], i: int):
     return None if lora is None else lora[str(i)]
 
 
+def _heads(p: OPTLayer, cfg: OPTConfig) -> int:
+    """The heads layer `p` runs: all, or its share of the model axis."""
+    return cfg.heads if p.tp is None else cfg.heads // p.tp.size
+
+
+def kv_width(model: OPTDecoder) -> int:
+    """The K / V width a cache holds: hidden, or hidden / M under
+    tensor parallelism."""
+    return model.layers[0].k.w.shape[0]
+
+
+def _col_input(p: OPTLayer, h):
+    return h if p.tp is None else copy_to_model(h, p.tp)
+
+
+def _row(p: OPTLayer, lin, x):
+    return lin(x) if p.tp is None else row_linear(lin, x, p.tp)
+
+
+def _adapter(p: OPTLayer, pair: LoraPair, x):
+    """`pair`'s update of x: its whole ``b``, or the columns of this
+    rank's heads."""
+    if p.tp is None:
+        return pair(x)
+    b = pair.b[:, p.tp.cols(pair.b.shape[1])]
+    return (x @ pair.a.to(x.dtype)) @ b.to(x.dtype)
+
+
 def _qkv(p: OPTLayer, h, lora, lora_scale: float, drop=None,
          lora_p: float = 0.0):
     """q, k (with the adapters: peft's lora_dropout on each input in turn)
     and v of the normed hidden `h`."""
+    h = _col_input(p, h)
     q, k = p.q(h), p.k(h)
     if lora is not None:
-        q = q + lora.q(_dropped(drop, h, lora_p)) * lora_scale
-        k = k + lora.k(_dropped(drop, h, lora_p)) * lora_scale
+        q = q + _adapter(p, lora.q, _dropped(drop, h, lora_p)) * lora_scale
+        k = k + _adapter(p, lora.k, _dropped(drop, h, lora_p)) * lora_scale
     return q, k, p.v(h)
+
+
+def _mlp(p: OPTLayer, x):
+    """The residual MLP's update of x."""
+    return _row(p, p.fc2, core.relu(p.fc1(_col_input(p, p.ln2(x)))))
 
 
 def _layer(p: OPTLayer, x, mask, cfg: OPTConfig, lora, lora_scale: float,
@@ -157,8 +205,9 @@ def _layer(p: OPTLayer, x, mask, cfg: OPTConfig, lora, lora_scale: float,
     the layer's K / V projections [B, N, H] (``layer_prefill``: the
     serving prefill runs this same body)."""
     q, k, v = _qkv(p, p.ln1(x), lora, lora_scale, drop, lora_p)
+    heads = _heads(p, cfg)
     if not train:
-        att = mha(q, k, v, heads=cfg.heads, mask=mask, causal=True)
+        att = mha(q, k, v, heads=heads, mask=mask, causal=True)
     else:
         # the attention-weight site takes no key at opt-2.7b's p = 0.0
         if drop is not None and drop.site_key(
@@ -167,11 +216,9 @@ def _layer(p: OPTLayer, x, mask, cfg: OPTConfig, lora, lora_scale: float,
                 "OPT attention_dropout > 0: no configuration drops OPT's "
                 "attention weights, and the flash pair at head dim 80 has "
                 "no dropout variant")
-        att = mha_flash_train(q, k, v, heads=cfg.heads, mask=mask,
-                              causal=True)
-    x = x + _dropped(drop, p.out(att), cfg.dropout)
-    h = p.fc2(core.relu(p.fc1(p.ln2(x))))
-    x = x + _dropped(drop, h, cfg.dropout)
+        att = mha_flash_train(q, k, v, heads=heads, mask=mask, causal=True)
+    x = x + _dropped(drop, _row(p, p.out, att), cfg.dropout)
+    x = x + _dropped(drop, _mlp(p, x), cfg.dropout)
     return (x, k, v) if return_kv else x
 
 
@@ -261,8 +308,8 @@ def prefill(model: OPTDecoder, inputs_embeds, attention_mask,
                          "(None or 'int8')")
     cfg = model.cfg
     h, mask = prompt_prologue(model, inputs_embeds, attention_mask)
-    b, l, d = h.shape
-    shape = (len(model.layers), b, l + max_new_tokens, d)
+    b, l, _ = h.shape
+    shape = (len(model.layers), b, l + max_new_tokens, kv_width(model))
     q8 = cache_dtype == "int8"
     caches = {n: torch.zeros(shape, dtype=torch.int8 if q8 else h.dtype,
                              device=h.device) for n in ("k", "v")}
@@ -318,8 +365,8 @@ def _chunk_layers(model: OPTDecoder, caches, h, rows, slots, bias, lora,
         q, k, v = _qkv(lp, lp.ln1(h), _layer_lora(lora, i), lora_scale)
         kd = _write(caches, i, "k", rows, slots, k)
         vd = _write(caches, i, "v", rows, slots, v)
-        h = h + lp.out(_attend(q, kd, vd, bias, cfg.heads))
-        h = h + lp.fc2(core.relu(lp.fc1(lp.ln2(h))))
+        h = h + _row(lp, lp.out, _attend(q, kd, vd, bias, _heads(lp, cfg)))
+        h = h + _mlp(lp, h)
     return model.final_ln(h), caches
 
 

@@ -52,7 +52,7 @@ def batch_shard(mesh):
     the global batch. A mesh of one rank, or None, changes nothing."""
     global _SHARD
     prev = _SHARD
-    _SHARD = mesh if mesh is not None and mesh.distributed else None
+    _SHARD = mesh if mesh is not None and mesh.size("data") > 1 else None
     try:
         yield
     finally:
@@ -69,10 +69,10 @@ def rand_rows(shape, generator: Optional[torch.Generator], device, *,
     shape = tuple(shape)
     if _SHARD is None:
         return draw(shape, generator=generator, device=device)
-    n = shape[0]
-    full = draw((n * _SHARD.world,) + shape[1:], generator=generator,
+    n, d = shape[0], _SHARD.coord("data")
+    full = draw((n * _SHARD.size("data"),) + shape[1:], generator=generator,
                 device=device)
-    return full[_SHARD.rank * n:(_SHARD.rank + 1) * n]
+    return full[d * n:(d + 1) * n]
 
 
 class Key:
@@ -349,7 +349,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         sum_dy = dyf.sum(dims)
         sum_dy_xhat = (dyf * xhat).sum(dims)
         glob = torch.stack([sum_dy, sum_dy_xhat])
-        all_reduce_sum_([glob])
+        all_reduce_sum_([glob], group=ctx.mesh.group("data"))
         dx = (scale * invstd).view(view) * (
             dyf - (glob[0] / total).view(view)
             - xhat * (glob[1] / total).view(view))

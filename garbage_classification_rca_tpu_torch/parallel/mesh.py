@@ -1,12 +1,17 @@
-"""The data axis: the mesh arithmetic of the JAX package's
-``parallel/mesh.py`` and the rank's view of it.
+"""The device mesh: the mesh arithmetic of the JAX package's
+``parallel/mesh.py`` and one rank's view of it.
 
-JAX drives N chips from one process over a ``Mesh``; the port runs one
-process per GPU, so the data axis is the world size of the process group
-and a ``DataMesh`` is one rank's view of it: its rank, the world size, its
-device and ``local_rows(global_b)``, the rows of a global batch it holds
-(a contiguous ascending block, as JAX's ``P("data")`` lays dim 0 out).
-The batch-size arithmetic (``mesh_for_batch``'s divisor rule,
+JAX drives N chips from one process over a ``Mesh`` of named axes; the
+port runs one process per GPU, so the mesh is laid over the ranks of the
+process group and a ``DataMesh`` is one rank's view of it: its rank, the
+world size, its device, the named axes (``data``, ``model``, ``seq``) in
+spec order, and for each axis of more than one rank the process group of
+the ranks that differ from it only along that axis. Rank order is JAX's
+``np.reshape`` of the devices in spec order: at ``data:D,model:M`` a rank
+is ``d * M + m``. ``local_rows(global_b)`` gives the rows of a global
+batch the rank holds, a contiguous ascending block along the data axis
+only (JAX's ``P("data")``); the ranks of one model or seq group hold the
+same rows. The batch-size arithmetic (``mesh_for_batch``'s divisor rule,
 ``round_up_batch``, ``clamp_eval_batch``, ``pad_batch_to_multiple``) is
 the JAX package's, on the data-axis size instead of a ``Mesh``.
 """
@@ -14,12 +19,14 @@ the JAX package's, on the data-axis size instead of a ``Mesh``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 
 
 def parse_mesh_shape(spec: str, n_devices: int) -> Dict[str, int]:
@@ -61,13 +68,20 @@ def mesh_for_batch(spec: str, batch_size: int,
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """One rank's view of the data axis. World 1 with no process group is
-    the plain one-process run."""
+    """One rank's view of the mesh. World 1 with no process group is the
+    plain one-process run. `axes`: ((name, size), ...) in spec order, the
+    sizes multiplying to the world; None is the data axis alone
+    (``data:world``). `groups`: {axis: process group} for each axis of
+    more than one rank and fewer than the world (None: the world's
+    group), from ``multihost.make_mesh``."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
+    axes: Optional[Tuple[Tuple[str, int], ...]] = None
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict,
+                                               compare=False, repr=False)
 
     @property
     def distributed(self) -> bool:
@@ -77,19 +91,54 @@ class DataMesh:
     def is_primary(self) -> bool:
         return self.rank == 0
 
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes or ((DATA_AXIS, self.world),))
+
+    def size(self, axis: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along `axis` (row-major over the axes in
+        spec order, as JAX reshapes its devices)."""
+        r, out = self.rank, 0
+        for name, n in reversed(list(self.shape.items())):
+            if name == axis:
+                out = r % n
+            r //= n
+        return out
+
+    def root(self, axis: str) -> int:
+        """The global rank of this rank's group member at index 0 along
+        `axis` (the source of a broadcast over the axis)."""
+        stride = 1
+        for name, n in reversed(list(self.shape.items())):
+            if name == axis:
+                return self.rank - self.coord(axis) * stride
+            stride *= n
+        return self.rank
+
+    def group(self, axis: str):
+        """The process group of this rank's ranks along `axis` (None: the
+        whole world, which is the group when the axis spans it)."""
+        return self.groups.get(axis)
+
     def local_rows(self, global_b: int) -> np.ndarray:
         """The global rows (ascending) this rank holds of a batch of
-        `global_b` rows, which the world size must divide."""
-        if global_b % self.world:
+        `global_b` rows, which the data axis must divide."""
+        n_data = self.size(DATA_AXIS)
+        if global_b % n_data:
             raise ValueError(f"a batch of {global_b} rows does not split "
-                             f"over {self.world} ranks")
-        n = global_b // self.world
-        return np.arange(self.rank * n, (self.rank + 1) * n, dtype=np.int64)
+                             f"over {n_data} ranks")
+        n = global_b // n_data
+        d = self.coord(DATA_AXIS)
+        return np.arange(d * n, (d + 1) * n, dtype=np.int64)
 
 
 def round_up_batch(batch_size: int, mesh: Optional[DataMesh]) -> int:
     """Smallest batch >= batch_size divisible by the data-axis size."""
-    n = 1 if mesh is None else mesh.world
+    n = 1 if mesh is None else mesh.size(DATA_AXIS)
     return ((batch_size + n - 1) // n) * n
 
 

@@ -18,9 +18,17 @@
   * ``run_eval_multiprocess``: each rank evaluates its rows; predictions
     are gathered in the one-process order, so accuracy, labels,
     predictions and the report CSV equal a one-process run.
-  * ``all_reduce_sum_`` / ``gather_rows`` / ``agree`` / ``barrier``: the
-    collectives the train step, BatchNorm and the engine use. Under gloo
-    a CUDA tensor is reduced through host memory.
+  * ``make_mesh``: the named axes of ``--mesh_shape`` laid over the
+    ranks, with the process group of each axis (every rank calls
+    ``dist.new_group`` for every group, in the same order).
+  * ``all_reduce_sum_`` / ``gather_rows`` / ``all_gather_dim`` /
+    ``broadcast_`` / ``agree`` / ``barrier``: the collectives the train
+    step, BatchNorm, tensor and sequence parallelism, the server and the
+    engine use, each over a group (the world, or one axis of the mesh).
+    gloo takes CUDA tensors only in broadcast and all-reduce, so under
+    gloo a CUDA tensor goes through host memory and an all-gather is an
+    all-reduce of a zero buffer that holds the rank's block; NCCL gathers
+    with ``all_gather_into_tensor``.
   * ``launch``: spawns N ranks of a command on this host with a
     ``file://`` rendezvous in a temporary directory (the tests, and
     ``chip_smoke.py``'s two ranks on one card); any rank's failure kills
@@ -30,6 +38,7 @@
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import datetime
 import os
 import shutil
@@ -42,7 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import DataMesh
+from .mesh import DATA_AXIS, DataMesh
 
 ENV_BACKEND = "GC_RCA_DIST_BACKEND"
 ENV_INIT = "GC_RCA_INIT_METHOD"
@@ -50,6 +59,7 @@ ENV_TIMEOUT = "GC_RCA_DIST_TIMEOUT"
 DEFAULT_TIMEOUT_S = 600
 
 _MESH: Optional[DataMesh] = None
+_MESHES: Dict[Tuple[Tuple[str, int], ...], DataMesh] = {}
 _RENDEZVOUS_DIR: Optional[str] = None
 
 
@@ -130,6 +140,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _MESH = None
+    _MESHES.clear()
     if _RENDEZVOUS_DIR is not None:
         shutil.rmtree(_RENDEZVOUS_DIR, ignore_errors=True)
         _RENDEZVOUS_DIR = None
@@ -143,46 +154,131 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def _via_host() -> bool:
+def make_mesh(base: DataMesh, axes: Dict[str, int]) -> DataMesh:
+    """`base` (``initialize_from_env``'s view of the world) with the named
+    `axes` (name -> size, spec order, sizes multiplying to the world) and
+    the process group of each axis of more than one rank and fewer than
+    the world: the ranks that differ from this one only along the axis,
+    in JAX's row-major device order. Every rank must call it with the
+    same axes: ``dist.new_group`` is collective. Meshes are kept by their
+    axes, so a second call forms no new groups."""
     import torch.distributed as dist
 
-    return dist.get_backend() == "gloo"
+    sizes = [int(n) for n in axes.values()]
+    if int(np.prod(sizes)) != base.world:
+        raise ValueError(f"mesh axes {axes} do not make the world of "
+                         f"{base.world} ranks")
+    key = tuple((name, int(n)) for name, n in axes.items())
+    if key in _MESHES and _MESHES[key].rank == base.rank:
+        return _MESHES[key]
+    groups = {}
+    if base.world > 1:
+        ranks = np.arange(base.world).reshape(sizes)
+        for i, (name, n) in enumerate(key):
+            if n in (1, base.world):
+                continue
+            for row in np.moveaxis(ranks, i, -1).reshape(-1, n).tolist():
+                g = dist.new_group(row)
+                if base.rank in row:
+                    groups[name] = g
+    mesh = dataclasses.replace(base, axes=key, groups=groups)
+    _MESHES[key] = mesh
+    return mesh
 
 
-def _all_reduce(flat: torch.Tensor) -> None:
+def _via_host(group=None) -> bool:
     import torch.distributed as dist
 
-    if flat.is_cuda and _via_host():
+    return dist.get_backend(group) == "gloo"
+
+
+def _all_reduce(flat: torch.Tensor, group=None) -> None:
+    import torch.distributed as dist
+
+    if flat.is_cuda and _via_host(group):
         host = flat.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=group)
         flat.copy_(host)
     else:
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum each tensor over the ranks, in place: one collective for each
-    dtype, the tensors flattened into one buffer."""
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum each tensor over the ranks of `group` (None: the world), in
+    place: one collective for each dtype, the tensors flattened into one
+    buffer."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        _all_reduce(flat)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        _all_reduce(flat, group)
         off = 0
-        for t in group:
+        for t in same:
             n = t.numel()
             t.copy_(flat[off:off + n].view_as(t))
             off += n
 
 
-def gather_rows(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """[world * n, ...]: every rank's `x` [n, ...] stacked in rank order
-    (an all-gather; every rank must pass the same shape)."""
-    buf = x.new_zeros((mesh.world,) + tuple(x.shape))
-    buf[mesh.rank] = x
-    _all_reduce(buf)
-    return buf.reshape((mesh.world * x.shape[0],) + tuple(x.shape[1:]))
+def _axis(mesh: DataMesh, axis: Optional[str]):
+    """(size, this rank's index, group) of `axis`; None is the world."""
+    if axis is None:
+        return mesh.world, mesh.rank, None
+    return mesh.size(axis), mesh.coord(axis), mesh.group(axis)
+
+
+def _stack(x: torch.Tensor, mesh: DataMesh, axis: Optional[str]
+           ) -> torch.Tensor:
+    """[n, ...]: every rank's `x` along `axis`, in axis order."""
+    import torch.distributed as dist
+
+    n, i, group = _axis(mesh, axis)
+    if n == 1:
+        return x[None].clone()
+    x = x.contiguous()
+    if _via_host(group):
+        buf = x.new_zeros((n,) + tuple(x.shape))
+        buf[i] = x
+        _all_reduce(buf, group)
+        return buf
+    buf = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather_into_tensor(buf, x, group=group)
+    return buf
+
+
+def gather_rows(x: torch.Tensor, mesh: DataMesh,
+                axis: Optional[str] = DATA_AXIS) -> torch.Tensor:
+    """[n * r, ...]: every rank's `x` [r, ...] along `axis` (None: the
+    world), stacked in axis order (an all-gather; every rank must pass
+    the same shape)."""
+    every = _stack(x, mesh, axis)
+    return every.reshape((every.shape[0] * x.shape[0],)
+                         + tuple(x.shape[1:]))
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, mesh: DataMesh,
+                   axis: str) -> torch.Tensor:
+    """Every rank's `x` along `axis` concatenated on `dim` in axis order
+    (JAX's ``all_gather(..., tiled=True)``)."""
+    every = _stack(x, mesh, axis)
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] *= every.shape[0]
+    return every.movedim(0, dim).reshape(shape)
+
+
+def broadcast_(t: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+    """`t` from global rank `src` to every rank of `group` (None: the
+    world), in place."""
+    import torch.distributed as dist
+
+    if t.is_cuda and _via_host(group):
+        host = t.cpu()
+        dist.broadcast(host, src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src, group=group)
+    return t
 
 
 def barrier() -> None:
@@ -203,7 +299,7 @@ def agree(values: Sequence[int], what: str, mesh: DataMesh) -> None:
     if not mesh.distributed:
         return
     mine = torch.tensor(list(values), dtype=torch.int64, device=mesh.device)
-    every = gather_rows(mine[None], mesh).tolist()
+    every = gather_rows(mine[None], mesh, axis=None).tolist()
     if any(v != every[0] for v in every):
         raise SystemExit(
             f"multi-process {what} mismatch: per-rank values {every}; "

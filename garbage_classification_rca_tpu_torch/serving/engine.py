@@ -4,7 +4,9 @@ The port of the JAX package's ``serving/engine.py``. ``opt.generate``
 serves static batches: every row prefills together and the batch ends with
 its slowest row. ``GenerationServer`` keeps a fixed grid of ``slots``
 lanes, with KV caches [layers, slots, max_prompt + max_new, H] on the
-device:
+device (H / M, the local heads, on a decoder that ``parallel/tp.py``
+sliced over M ranks: every rank runs the same schedule, the caller
+feeding each the same requests in the same order):
 
   * ``_refill``: a prefill at the fixed batch of ``slots`` prompts (padded
     to ``max_prompt``; the free slots' requests, the last one repeated)
@@ -107,7 +109,8 @@ class GenerationServer:
         emb = model.embed_tokens.w
         dev, self._emb_dtype = emb.device, emb.dtype
         self.device = dev
-        shape = (len(model.layers), slots, self.t_cache, self.cfg.hidden)
+        shape = (len(model.layers), slots, self.t_cache,
+                 opt_mod.kv_width(model))
         q8 = cache_dtype == "int8"
         self.caches = {n: torch.zeros(shape, device=dev, dtype=(
             torch.int8 if q8 else emb.dtype)) for n in ("k", "v")}

@@ -1051,6 +1051,69 @@ def test_flash_pair_tc_backward_at_head_dim_80_matches_plain(cuda, case, n):
         _grad_close(x, y, torch.bfloat16)
 
 
+@pytest.mark.parametrize("case", ["path", "edge"])
+def test_mha_tc_at_tp_local_heads_matches_plain(cuda, case):
+    """K2's default bf16 route at a rank's share of OPT-2.7B under
+    ``--mesh_shape=model:2``: 16 heads of 80 (D = 1280), causal, N 132,
+    the path's left pads or ``_vlm_edge_mask``; the grid halves with the
+    heads, the output at ``_out_close``, bit-identical over two runs."""
+    b, n, d, heads = 3, 132, 1280, 16
+    g = torch.Generator().manual_seed(2600)
+    q, k, v = (torch.randn((b, n, d), generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    m = _vlm_edge_mask(n, cuda) if case == "edge" else (
+        torch.arange(n)[None] >= torch.tensor([0, 30, 70])[:, None]).to(
+        torch.int32).to(cuda)
+    plan = mha_fused.mha_plan(q.shape, heads, q.dtype)
+    assert (plan.route, plan.grid_fwd) == ("tc", (-(-n // 64), heads, b))
+    before = dict(mha_fused.mha.route_launches)
+    runs = [mha_fused.mha(q, k, v, heads=heads, mask=m, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert mha_fused.mha.route_launches == {**before,
+                                            "tc": before["tc"] + 2}
+    assert torch.equal(runs[0], runs[1])
+    want = mha_fused.mha_reference(q, k, v, heads=heads, mask=m, causal=True)
+    _out_close(runs[0], want, q, k, v, heads, m, True)
+
+
+@pytest.mark.parametrize("case", ["path", "edge"])
+def test_flash_pair_tc_at_tp_local_heads_matches_plain(cuda, case):
+    """K4a / K4b's default bf16 routes at a rank's share of OPT-2.7B's
+    LoRA shape under ``model:2``: 16 heads of 80 (D = 1280), causal, N
+    136; the forward at ``_out_close`` (lse 1e-5 + 1e-5|x|), the backward
+    at ``_grad_close``, both bit-identical over two runs, one "tc" launch
+    each."""
+    b, n, d, heads = 3, 136, 1280, 16
+    g = torch.Generator().manual_seed(2700)
+    q, k, v, do = (torch.randn((b, n, d), generator=g).to(cuda,
+                                                          torch.bfloat16)
+                   for _ in range(4))
+    m = _vlm_edge_mask(n, cuda) if case == "edge" else (
+        torch.arange(n)[None] >= torch.tensor([0, 17, 40])[:, None]).to(
+        torch.int32).to(cuda)
+    kw = dict(heads=heads, mask=m, causal=True)
+    plan = mha_fused.flash_plan(q.shape, heads, q.dtype)
+    assert (plan.route, plan.bwd_route) == ("tc", "tc")
+    assert plan.grid_dq == plan.grid_dkdv == (-(-n // 64), heads, b)
+    f0 = dict(mha_fused.mha_fwd_lse.route_launches)
+    b0 = dict(mha_fused.mha_flash_bwd.route_launches)
+    o, lse = mha_fused.mha_fwd_lse(q, k, v, **kw)
+    grads = mha_fused.mha_flash_bwd(q, k, v, o, do, lse, **kw)
+    again = mha_fused.launch_flash_bwd(plan, q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert mha_fused.mha_fwd_lse.route_launches == {**f0, "tc": f0["tc"] + 1}
+    assert mha_fused.mha_flash_bwd.route_launches == {**b0,
+                                                      "tc": b0["tc"] + 2}
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    o_w, lse_w = mha_fused.mha_fwd_lse_reference(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_w, rtol=1e-5, atol=1e-5)
+    _out_close(o, o_w, q, k, v, heads, m, True)
+    want = mha_fused.mha_flash_bwd_reference(q, k, v, o, do, lse, **kw)
+    for x, y in zip(grads, want):
+        _grad_close(x, y, torch.bfloat16)
+
+
 def test_wide_tc_backward_entry_refuses_another_plan(cuda):
     """At head dim 80 the backward's C entry launches the plan it is given
     or none: another grid or shared memory of either kernel, another np or

@@ -74,7 +74,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "nn.core", "ops.sampling", "ops.quant", "serving.engine",
                 "cli.serve", "checkpoint.hf_dir", "data.chat_template",
                 "data.tokenizer", "models.text.llama", "parallel.mesh",
-                "parallel.multihost", "parallel.fsdp"):
+                "parallel.multihost", "parallel.fsdp", "parallel.tp",
+                "parallel.sp"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -87,7 +88,8 @@ def test_parallel_package_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "garbage_classification_rca_tpu_torch" /
                     "parallel").glob("*.py"))
     assert {f.name for f in files} >= {"__init__.py", "mesh.py",
-                                       "multihost.py", "fsdp.py"}
+                                       "multihost.py", "fsdp.py", "tp.py",
+                                       "sp.py"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names]
@@ -98,6 +100,20 @@ def test_parallel_package_imports_neither_jax_nor_the_jax_package():
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib",
                                    "garbage_classification_rca_tpu"), (f, n)
+
+
+def test_mesh_axis_names_are_the_jax_ones():
+    """The port's own copies of the JAX package's axis names."""
+    from garbage_classification_rca_tpu.parallel import mesh as jmesh
+    from garbage_classification_rca_tpu.parallel import sp as jsp
+    from garbage_classification_rca_tpu_torch.parallel import mesh as tmesh
+    from garbage_classification_rca_tpu_torch.parallel import sp as tsp
+    from garbage_classification_rca_tpu_torch.parallel import tp as ttp
+
+    assert (tmesh.DATA_AXIS, tmesh.MODEL_AXIS, tmesh.SEQ_AXIS) == (
+        jmesh.DATA_AXIS, jmesh.MODEL_AXIS, jsp.SEQ_AXIS)
+    assert ttp.MODEL_AXIS == jmesh.MODEL_AXIS
+    assert tsp.SEQ_AXIS == jsp.SEQ_AXIS
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -126,6 +142,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for trainer in (blip2_train, qformer_train):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer.main(["--dataset_folder_name=x"])
+    from garbage_classification_rca_tpu_torch.cli import serve
+
+    # the model and seq axes take the same road to the device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mesh_shape=data:1,model:1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_text.main(["--text_model=distilbert", "--model_path=x.pth",
+                        "--mesh_shape=seq:1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_text_model("distilbert").load_tree({"encoder": {"layers": []}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -143,8 +143,12 @@ def test_serve_refuses_image_prompts_without_room(blip_pth, tiny_dataset):
     got = {d["id"]: d for d in out}
     assert "max_prompt" in got["i0"]["error"]
     assert got["t0"]["n_tokens"] >= 1
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the model axis runs over M ranks (tests/test_torch_tp_cli.py): in
+    # a one-process run it names the launcher; the pipe axis raises
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node=2"):
         tserve.main(["--mesh_shape=data:1,model:2"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tserve.main(["--mesh_shape=data:1,pipe:2"])
 
 
 def _csv(root):

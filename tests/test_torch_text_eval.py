@@ -293,8 +293,12 @@ def test_port_cli_exits_and_unported_flags(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["--model_path=x.pth", "--text_model=nope"])
     assert e.value.code == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the seq axis runs over ranks (tests/test_torch_tp_cli.py): in a
+    # one-process run it names the launcher; the pipe axis raises
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node=8"):
         port_cli.main(["--model_path=x.pth", "--mesh_shape=data:2,seq:4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_cli.main(["--model_path=x.pth", "--mesh_shape=seq:2,pipe:2"])
     # multi-host runs: the JAX package's variables, all of them
     monkeypatch.setenv("GC_RCA_MULTIHOST", "1")
     with pytest.raises(SystemExit, match="needs GC_RCA_COORDINATOR"):
