@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (garbage_classification_rca_tpu_torch).
 
-    python3 chip_smoke.py        # needs one NVIDIA GPU; ~15 minutes
+    python3 chip_smoke.py        # needs one NVIDIA GPU; ~16 minutes
 
 Phases, each of which fails the run when it fails:
   1. device: the card's name and power limit;
@@ -160,7 +160,10 @@ Phases, each of which fails the run when it fails:
      share, K2's share, the EVA / Q-Former / OPT split by CUDA events;
      then ``cli.blip2_test`` and ``cli.qformer_test`` ``main()`` on a 4 x 4
      JPEG tree from the phase's weights written as a peft-wrapped HF
-     ``.pth`` and a MultimodalClassifier ``.pth``;
+     ``.pth`` and a MultimodalClassifier ``.pth``, at full width with
+     the depth cut to VLM_CLI_DEPTH (EVA's first 4 layers and OPT's first
+     4, as phases 12-13's CLI runs all are: the model runs above hold
+     the full depth, and the cut keeps the script within its time);
  13. VLM train: K4a / K4b at OPT-2.7B's LoRA shape (16 x 136 x 2560, 32
      heads of 80, causal, the path's left-pad mask; a fully masked and a
      single-key sample; N = 1) against the plain pair in fp32 (the CUDA
@@ -186,7 +189,8 @@ Phases, each of which fails the run when it fails:
      one epoch from phase 12's ``.pth`` on a 16 + 16 JPEG tree, their
      launches counted, and ``cli.blip2_test`` / ``cli.qformer_test`` on
      the BEST files they wrote; then RESUME: both trainers at full width
-     (the BLIP-2 base from ``--seed``, bf16, fp32 adapters) on 20 + 4
+     and VLM_CLI_DEPTH (the BLIP-2 base from ``--seed``, bf16, fp32
+     adapters) on 20 + 4
      JPEGs at ``--batch_size=2`` (2 windows an epoch), 2 epochs with
      ``--resume_every_steps=1``, run twice uninterrupted, then killed at
      epoch 1's first window (RESUME holds epoch 0's end) and at its second
@@ -384,6 +388,26 @@ Phases, each of which fails the run when it fails:
      texts in bf16 (logits within 0.05 of one rank's, a prediction may
      differ only at a near tie, the report CSV), with each run's
      CUDA-event ms a batch.
+ 21. pipeline parallelism (``parallel/pp.py``; a budget of 120 s,
+     printed): K2 at 2 x 132 x 2560 and 8 x 132 x 2560 and K4a / K4b at
+     2 x 136 x 2560 (a stage's microbatches at ``pipe:2``) held to their
+     plain versions and timed; then one launch of two ranks sharing the
+     card on gloo (``python3 chip_smoke.py --pp_worker=<spec>``), each
+     building blip2-opt-2.7b in bf16 from phase 20's seed and keeping one
+     stage's 16 layers, held to phase 20's one-rank run on the same
+     inputs: (a) the 1-token eval of 16 prompts in 8 microbatches (phase
+     20's bars), (b) ``pp_generate`` 16 x (32 + 100) + 32 greedy in bf16
+     and with the int8 cache (the streams and ``valid`` identical to one
+     rank's ``opt.generate`` on the same two microbatches of 8, equal on
+     both ranks, ``valid`` obeying the EOS contract),
+     (c) a GPipe LoRA step, microbatch 16 in 8, acc 2, remat (phase 20's
+     bars; both stages' updated adapters gathered, identical on both
+     ranks); (d) ``cli.blip2_train --mesh_shape=pipe:2`` for an epoch on 8
+     JPEGs at ``--batch_size=2``, ``cli.blip2_test --mesh_shape=pipe:2``
+     on its BEST file at 1 token and at 4, the report CSVs against the
+     one-rank CLI's on the same file (a difference only at a near tie);
+     (f) the times, the share of the wall time inside ``ring_step`` and
+     the peak memory per rank beside one rank's (reported).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -4846,6 +4870,34 @@ VLM_BATCH = 16          # cli.blip2_test / cli.qformer_test's --eval_batch_size
 VLM_BENCH_BATCH = 8     # bench.py bench_blip2's batch
 VLM_BATCHES = 4         # timed batches of VLM_BATCH (8 of VLM_BENCH_BATCH)
 VLM_K2 = {"blip2": 71, "qformer": 39}   # K2 a batch: 39 EVA + 32 OPT layers
+# phases 12-13's CLI runs (and their .pth): EVA's 39 layers and OPT's 32
+# cut to their first 4 each, at full width, to keep the script within its
+# time (the model runs of both phases, 17, 20 and 21 run the full depth)
+VLM_CLI_DEPTH = {"vision": 4, "opt": 4}
+VLM_CLI_K2 = {"blip2": VLM_CLI_DEPTH["vision"] + VLM_CLI_DEPTH["opt"],
+              "qformer": VLM_CLI_DEPTH["vision"]}
+
+
+@contextlib.contextmanager
+def vlm_cli_depth():
+    """Within: the BLIP-2 CLIs build blip2-opt-2.7b with its EVA and OPT
+    depths cut to VLM_CLI_DEPTH (``blip2_common.blip2_config``)."""
+    from garbage_classification_rca_tpu_torch.cli import blip2_common
+
+    real = blip2_common.blip2_config
+
+    def cut():
+        cfg = real()
+        return dataclasses.replace(
+            cfg, vision=dataclasses.replace(
+                cfg.vision, layers=VLM_CLI_DEPTH["vision"]),
+            opt=dataclasses.replace(cfg.opt, layers=VLM_CLI_DEPTH["opt"]))
+
+    blip2_common.blip2_config = cut
+    try:
+        yield
+    finally:
+        blip2_common.blip2_config = real
 VLM_CLASSES = ("black", "blue", "green", "ttr")
 VLM_ITEMS = ("coffee cup", "water bottle", "banana peel", "battery pack",
              "greasy pizza box", "glass jar", "paint can", "old phone",
@@ -5373,10 +5425,12 @@ def blip2_hf_state_dict(model):
 
 def check_vlm_clis(device, results):
     """``cli.blip2_test`` and ``cli.qformer_test`` ``main()`` at full width
-    on a generated 4 x 4 JPEG tree, from the phase's bf16 weights written
-    as a peft-wrapped HF ``.pth`` (``blip2_hf_state_dict``) and, for the
-    Q-Former, its classifier as a MultimodalClassifier ``.pth``: K2 71 /
-    39 launches (one batch of 16), the report CSV (``drive_eval_main``)."""
+    and VLM_CLI_DEPTH (``vlm_cli_depth``) on a generated 4 x 4 JPEG tree,
+    from the phase's bf16 weights written, cut to that depth, as a
+    peft-wrapped HF ``.pth`` (``blip2_hf_state_dict``) and, for the
+    Q-Former, its classifier as a MultimodalClassifier ``.pth``: K2
+    VLM_CLI_K2 launches (one batch of 16), the report CSV
+    (``drive_eval_main``)."""
     import gc
     import os
     import shutil
@@ -5399,6 +5453,9 @@ def check_vlm_clis(device, results):
         _write_jpeg_tree(os.path.join(work, "garbage"), 0, 16, SEED + 260,
                          size=320)
         blip = os.path.join(work, "BLIP2_epoch_1_acc_0.5.pth")
+        # the CLIs' depth: the first layers of each tower
+        model.vision.layers = model.vision.layers[:VLM_CLI_DEPTH["vision"]]
+        model.opt.layers = model.opt.layers[:VLM_CLI_DEPTH["opt"]]
         torch.save(blip2_hf_state_dict(model), blip)
         clf = os.path.join(work, "Classifier_epoch_1_acc_0.5.pth")
         torch.save({"classifier.weight": model.classifier.w.detach().cpu(),
@@ -5419,13 +5476,14 @@ def check_vlm_clis(device, results):
                     "garbage_Val"] + extra
             _zero_counters()
             t0 = time.perf_counter()
-            main_ok, report = drive_eval_main(cli, argv)
+            with vlm_cli_depth():
+                main_ok, report = drive_eval_main(cli, argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = _read_counters()
             what = "blip2" if cli is blip2_test else "qformer"
             good = main_ok and launches == _want_launches(
-                mha_tc=VLM_K2[what])
+                mha_tc=VLM_CLI_K2[what])
             print(f"  cli.{name} on 16 JPEGs in {secs:.1f} s (the .pth "
                   f"read included): launches "
                   f"{ {k: v for k, v in launches.items() if v} } "
@@ -5980,10 +6038,11 @@ def check_vlm_train(device, results):
 
 def check_vlm_train_clis(device, results):
     """``cli.blip2_train.main`` and ``cli.qformer_train.main`` for one
-    epoch (``--batch_size=16``) from phase 12's ``.pth`` on a generated
-    4-class ``_Train`` / ``_Val`` tree of 16 + 16 JPEGs, each run's
-    launches counted (BLIP-2: a train microbatch K2 39 + K4a 32 + K4b 32
-    and a val batch K2 71; the Q-Former: K2 39 + 39); then
+    epoch (``--batch_size=16``) from phase 12's ``.pth`` at VLM_CLI_DEPTH
+    on a generated 4-class ``_Train`` / ``_Val`` tree of 16 + 16 JPEGs,
+    each run's launches counted (BLIP-2: a train microbatch K2 and K4a /
+    K4b one an EVA / OPT layer, and a val batch's K2; the Q-Former: K2
+    one an EVA layer a batch, train and val); then
     ``cli.blip2_test`` on the adapters' BEST file and ``cli.qformer_test``
     on the classifier's (``drive_eval_main``). Removes phase 12's work
     directory."""
@@ -6007,15 +6066,17 @@ def check_vlm_train_clis(device, results):
         os.chdir(work)
         base = ["--dataset_folder_name=vlm", "--batch_size=16",
                 "--epochs=1"]
-        want = {"blip2_train": {"mha_tc": 39 + 71, "mha_fwd_lse_tc": 32,
-                                "mha_flash_bwd_tc": 32},
-                "qformer_train": {"mha_tc": 39 + 39}}
+        nv, no = VLM_CLI_DEPTH["vision"], VLM_CLI_DEPTH["opt"]
+        want = {"blip2_train": {"mha_tc": nv + VLM_CLI_K2["blip2"],
+                                "mha_fwd_lse_tc": no, "mha_flash_bwd_tc": no},
+                "qformer_train": {"mha_tc": 2 * nv}}
         best = {}
         for cli in (blip2_train, qformer_train):
             name = cli.__name__.rsplit(".", 1)[-1]
             _zero_counters()
             t0 = time.perf_counter()
-            result = cli.main(base + [f"--model_path={blip}"])
+            with vlm_cli_depth():
+                result = cli.main(base + [f"--model_path={blip}"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = _read_counters()
@@ -6035,15 +6096,18 @@ def check_vlm_train_clis(device, results):
                          "launches": _shown(launches), "ok": good}
             ok &= good
         for cli, argv, k2 in (
-                (blip2_test, [f"--model_path={best['blip2_train'][0]}"], 71),
+                (blip2_test, [f"--model_path={best['blip2_train'][0]}"],
+                 VLM_CLI_K2["blip2"]),
                 (qformer_test, [f"--model_path={blip}",
                                 "--classifier_weights="
-                                f"{best['qformer_train'][0]}"], 39)):
+                                f"{best['qformer_train'][0]}"],
+                 VLM_CLI_K2["qformer"])):
             name = cli.__name__.rsplit(".", 1)[-1]
             _zero_counters()
             t0 = time.perf_counter()
-            main_ok, report = drive_eval_main(
-                cli, argv + ["--dataset_folder_name=vlm_Val"])
+            with vlm_cli_depth():
+                main_ok, report = drive_eval_main(
+                    cli, argv + ["--dataset_folder_name=vlm_Val"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             good = main_ok and _read_counters() == _want_launches(
@@ -6073,7 +6137,8 @@ VLM_RESUME_KILLS = [("killed at the epoch boundary", 3),
 def check_vlm_resume(device, results):
     """Phase 13's RESUME cases (``_resume_case``): ``cli.blip2_train``
     (blip2-opt-2.7b from ``--seed``, bf16 backbone, fp32 LoRA adapters)
-    and ``cli.qformer_train`` at full width on 20 + 4 generated JPEGs,
+    and ``cli.qformer_train`` at full width and VLM_CLI_DEPTH
+    (``vlm_cli_depth``) on 20 + 4 generated JPEGs,
     ``--batch_size=2 --epochs=2 --resume_every_steps=1``, each killed at
     ``VLM_RESUME_KILLS`` and resumed with ``--resume_from``, held to two
     uninterrupted runs; the resumed LoRA runs launch K2 (EVA's head dim 88
@@ -6103,10 +6168,11 @@ def check_vlm_resume(device, results):
                  ("K2",))):
             short = cli.__name__.rsplit(".", 1)[-1]
             t1 = time.perf_counter()
-            good, out[short] = _resume_case(
-                f"cli.{short}", cli, argv, name, VLM_RESUME_KILLS,
-                os.path.join(work, short), want_k=want_k, factory=factory,
-                resume_flag="--resume_from")
+            with vlm_cli_depth():
+                good, out[short] = _resume_case(
+                    f"cli.{short}", cli, argv, name, VLM_RESUME_KILLS,
+                    os.path.join(work, short), want_k=want_k,
+                    factory=factory, resume_flag="--resume_from")
             out[short]["seconds"] = time.perf_counter() - t1
             ok &= good
     finally:
@@ -7247,8 +7313,13 @@ def check_resume(device, results):
     accuracy), then RESUME held to a control (``_resume_case``): the res18
     trainer killed at the epoch boundary, ``cli.main_both
     --late_fusion=MM_RCA`` killed mid-epoch under
-    ``--resume_every_steps=1``. fp32 images for res18, TF32 off for the
-    phase. In a work directory of the checkout, deleted afterwards."""
+    ``--resume_every_steps=1``. fp32 images for res18, TF32 off and
+    deterministic cuDNN for the phase: cuDNN's default convolution
+    backward sums with atomics, so two uninterrupted res18 runs could end
+    a few ulps apart, and a resumed run held to that one sample of the
+    spread could land past it by chance; with deterministic algorithms
+    every case is held bit for bit. In a work directory of the checkout,
+    deleted afterwards."""
     import os
     import shutil
 
@@ -7266,6 +7337,7 @@ def check_resume(device, results):
     cwd = os.getcwd()
     out, ok = {}, True
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         _write_jpeg_tree(os.path.join(work, "conv"), 32, 32, SEED + 600,
                          size=224)
@@ -7325,6 +7397,7 @@ def check_resume(device, results):
         ok &= good
     finally:
         torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     results["resume"] = out
@@ -9392,7 +9465,10 @@ def tp_path_work(mesh, spec, control=False):
     `control` the same step again VLM_CONTROL_DRAWS times with the
     projection's output moved by N(0, 1) bf16 ulps (``opt_attention``),
     (d) each timed again, the peak memory of building the whole model and
-    of the work after the slicing.
+    of the work after the slicing; with `control` also phase 21's
+    reference of (b): ``opt.generate`` (EOS 2) in bf16 and with the int8
+    cache on each of the PP_RANKS microbatches that ``pp_generate`` runs,
+    one call a microbatch, so that every product runs at the pipe's rows.
     The counters are zeroed before each of (a)-(c) and read after."""
     import torch
 
@@ -9440,6 +9516,17 @@ def tp_path_work(mesh, spec, control=False):
                                            cfg.lora_scale, TP_NEW, eos_id=-1)
         out["gen_launches"] = _read_counters()
         out["tokens"], out["margins"] = toks.cpu(), marg.cpu()
+        if control:
+            mb = TP_BATCH // PP_RANKS
+            for sfx, cache in (("", None), ("_int8", "int8")):
+                runs = [_gen(model.opt, e[i:i + mb], m[i:i + mb], model.lora,
+                             cfg.lora_scale, TP_NEW, eos_id=2,
+                             cache_dtype=cache)
+                        for i in range(0, TP_BATCH, mb)]
+                out[f"pp_ref{sfx}"] = (
+                    torch.cat([r[0] for r in runs]).cpu(),
+                    torch.cat([r[1] for r in runs]).cpu())
+                out[f"pp_ref{sfx}_s"] = sum(r[3] for r in runs)
         del e, m
     win = {k: torch.from_numpy(v).to(dev) for k, v in spec["window"].items()}
     init = {k: v.clone() for k, v in model.lora.state_dict().items()}
@@ -9572,63 +9659,64 @@ def tp_worker(spec_path: str) -> int:
     return 0
 
 
-def _tp_kernels(device, mask132, mask136, results):
-    """K2 at 16 x 132 x 1280 (16 heads of 80, causal, the path's mask)
-    and K4a / K4b at 16 x 136 x 1280, bf16, the shapes a rank runs at
-    ``model:2``: K2 against ``mha_reference`` at the one-flip bar
-    (``_vlm_k2_tc``), the pair against the plain pair (``_vlm_pair_case``:
-    the default plan on the tensor cores), then each timed beside its
-    plain version, the library's attention and the bound."""
+def _k2_stage_row(K, device, gen, mask, h, d, name, label):
+    """K2 on bf16 q / k / v [B, N, d] (`h` heads of 80, causal, `mask`
+    [B, N]) against ``mha_reference`` at the one-flip bar
+    (``_vlm_k2_tc``), then timed beside its plain version and SDPA: (ok,
+    report row)."""
     import torch
     import torch.nn.functional as F
 
-    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
-
-    gen = torch.Generator().manual_seed(SEED + 2001)
-    h = TP_HEADS
-    rows = {}
-    b, n, d = mask132.shape[0], mask132.shape[1], 1280
+    b, n = mask.shape
     q, k, v = (torch.randn((b, n, d), generator=gen).to(
         device, torch.bfloat16) for _ in range(3))
-    want = K.mha_reference(q, k, v, heads=h, mask=mask132, causal=True)
+    want = K.mha_reference(q, k, v, heads=h, mask=mask, causal=True)
     errs, over = {}, {}
-    ok = _vlm_k2_tc(K, q, k, v, h, mask132, True, want, "opt (model:2)",
-                    "path", errs, over)
-    ms = time_ms(lambda: K.mha(q, k, v, heads=h, mask=mask132,
-                               causal=True))[0]
-    plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=mask132,
+    ok = _vlm_k2_tc(K, q, k, v, h, mask, True, want, label, "path", errs,
+                    over)
+    ms = time_ms(lambda: K.mha(q, k, v, heads=h, mask=mask, causal=True))[0]
+    plain = time_ms(lambda: K.mha_reference(q, k, v, heads=h, mask=mask,
                                             causal=True))[0]
-    allowed = mask132.bool()[:, None, :] & torch.ones(
+    allowed = mask.bool()[:, None, :] & torch.ones(
         (n, n), dtype=torch.bool, device=device).tril()[None]
     bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
     rs = lambda a: a.view(b, n, h, d // h).transpose(1, 2)  # noqa: E731
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         rs(q), rs(k), rs(v), attn_mask=bias))[0]
-    rows["mha_tc"] = _fwd_row(
-        "mha_tc_tp", ms, plain, lib, _k2_flops(b, n, d, mask132, True),
-        4 * q.numel() * q.element_size() + mask132.numel() * 4,
-        errs["tc_path"], 116, "bfloat16", shape=[b, n, d], heads=h,
-        head_dim=d // h)
-    rows["mha_tc"]["source"] = \
-        "garbage_classification_rca_tpu_torch/csrc/flash_tc.cuh"
-    n = mask136.shape[1]
+    row = _fwd_row(name, ms, plain, lib, _k2_flops(b, n, d, mask, True),
+                   4 * q.numel() * q.element_size() + mask.numel() * 4,
+                   errs["tc_path"], 116, "bfloat16", shape=[b, n, d],
+                   heads=h, head_dim=d // h)
+    row["source"] = "garbage_classification_rca_tpu_torch/csrc/flash_tc.cuh"
+    return ok, row
+
+
+def _pair_stage_rows(K, device, gen, mask, h, d, names):
+    """K4a / K4b on bf16 q / k / v / dO [B, N, d] (`h` heads of 80,
+    causal, `mask` [B, N]) against the plain pair (``_vlm_pair_case``: the
+    default plan on the tensor cores), then each timed beside its plain
+    version, the library's efficient attention and its backward: (ok,
+    {"mha_fwd_lse_tc": row, "mha_flash_bwd_tc": row}) under `names`."""
+    import torch
+
+    b, n = mask.shape
     q, k, v, do = (torch.randn((b, n, d), generator=gen).to(
         device, torch.bfloat16) for _ in range(4))
     errs4 = {}
-    ok &= _vlm_pair_case(K, q, k, v, do, h, mask136, None, ("tc", "tc"),
-                         "path", errs4)
-    o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=mask136, causal=True)
+    ok = _vlm_pair_case(K, q, k, v, do, h, mask, None, ("tc", "tc"),
+                        "path", errs4)
+    o, lse = K.mha_fwd_lse(q, k, v, heads=h, mask=mask, causal=True)
     tc = K.flash_plan(q.shape, h, q.dtype)
     ms_f = time_ms(functools.partial(K.launch_fwd_lse, tc, q, k, v, heads=h,
-                                     mask=mask136, causal=True))[0]
+                                     mask=mask, causal=True))[0]
     ms_b = time_ms(functools.partial(K.launch_flash_bwd, tc, q, k, v, o, do,
-                                     lse, heads=h, mask=mask136,
+                                     lse, heads=h, mask=mask,
                                      causal=True))[0]
     plain_f = time_ms(lambda: K.mha_fwd_lse_reference(
-        q, k, v, heads=h, mask=mask136, causal=True))[0]
+        q, k, v, heads=h, mask=mask, causal=True))[0]
     plain_b = time_ms(lambda: K.mha_flash_bwd_reference(
-        q, k, v, o, do, lse, heads=h, mask=mask136, causal=True))[0]
-    allowed = mask136.bool()[:, None, :] & torch.ones(
+        q, k, v, o, do, lse, heads=h, mask=mask, causal=True))[0]
+    allowed = mask.bool()[:, None, :] & torch.ones(
         (n, n), dtype=torch.bool, device=device).tril()[None]
     bias = torch.where(allowed, 0.0, K.NEG).to(torch.bfloat16)[:, None]
     bias = bias.expand(b, h, n, n).contiguous()
@@ -9640,24 +9728,50 @@ def _tp_kernels(device, mask132, mask136, results):
                         rs(do), rs(q), rs(k), rs(v), bias, eff[0], eff[1],
                         eff[2], eff[3], 0.0, [True, True, True, False]))[0]
     del eff, bias
-    fl_f, by_f, fl_b, by_b = _vlm_train_bound(q, mask136)
+    fl_f, by_f, fl_b, by_b = _vlm_train_bound(q, mask)
+    rows = {}
     for key, name, line, t, pl, lb, fl, by, side in (
-            ("mha_fwd_lse_tc", "mha_fwd_lse_tp", 274, ms_f, plain_f, lib_f,
-             fl_f, by_f, "fwd"),
-            ("mha_flash_bwd_tc", "mha_flash_bwd_tp", 317, ms_b, plain_b,
-             lib_b, fl_b, by_b, "bwd")):
+            ("mha_fwd_lse_tc", names[0], 274, ms_f, plain_f, lib_f, fl_f,
+             by_f, "fwd"),
+            ("mha_flash_bwd_tc", names[1], 317, ms_b, plain_b, lib_b, fl_b,
+             by_b, "bwd")):
         rows[key] = _fwd_row(name, t, pl, lb, fl, by,
                              max(e[side] for e in errs4.values()), line,
                              "bfloat16", shape=[b, n, d], heads=h,
                              head_dim=d // h)
-    for key, r in rows.items():
-        print(f"  {r['name']} {r['shape']}, {h} heads of {r['head_dim']} "
-              f"(one rank's share at model:2): {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}), max|d| "
-              f"{r['max_abs_err']:.3e}", flush=True)
+    return ok, rows
+
+
+def _print_stage_row(r, what):
+    print(f"  {r['name']} {r['shape']}, {r['heads']} heads of "
+          f"{r['head_dim']} ({what}): {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}), max|d| "
+          f"{r['max_abs_err']:.3e}", flush=True)
+
+
+def _tp_kernels(device, mask132, mask136, results):
+    """K2 at 16 x 132 x 1280 (16 heads of 80, causal, the path's mask)
+    and K4a / K4b at 16 x 136 x 1280, bf16, the shapes a rank runs at
+    ``model:2``: K2 against ``mha_reference`` at the one-flip bar
+    (``_vlm_k2_tc``), the pair against the plain pair (``_vlm_pair_case``:
+    the default plan on the tensor cores), then each timed beside its
+    plain version, the library's attention and the bound."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 2001)
+    ok, row = _k2_stage_row(K, device, gen, mask132, TP_HEADS, 1280,
+                            "mha_tc_tp", "opt (model:2)")
+    rows = {"mha_tc": row}
+    ok2, pair = _pair_stage_rows(K, device, gen, mask136, TP_HEADS, 1280,
+                                 ("mha_fwd_lse_tp", "mha_flash_bwd_tp"))
+    rows.update(pair)
+    for r in rows.values():
+        _print_stage_row(r, "one rank's share at model:2")
     results["tp_kernels"] = rows
-    return ok
+    return ok and ok2
 
 
 def _tp_hold(one, ranks, aft):
@@ -9960,6 +10074,8 @@ def check_model_seq_parallel(device, results, smi_line):
             "seconds": {"one_rank": one_s, "two_ranks": two_s,
                         "phase": secs, "budget": PHASE20_BUDGET_S},
             "card": smi_line}
+        # phase 21 holds the pipe to the same one-rank run
+        results["one_rank_blip2"] = {"spec": spec, "one": one}
         results["tp_launches"] = {k: ranks[0]["eval_launches"].get(k, 0)
                                   + ranks[0]["gen_launches"].get(k, 0)
                                   + ranks[0]["train_launches"].get(k, 0)
@@ -9968,6 +10084,598 @@ def check_model_seq_parallel(device, results, smi_line):
               f"budget (one rank {one_s:.1f} s, the two-rank launch "
               f"{two_s:.1f} s)", flush=True)
         return ok and held and ran and e_ok and f_ok
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: pipeline parallelism (pipe:2): GPipe of blip2-opt-2.7b's OPT
+# decoder over two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+PP_RANKS = 2
+PP_MICRO = 8                 # pick_pp_microbatches(16) at pipe:2: rows of 2
+PP_LAYERS = 16               # a stage's share of OPT-2.7B's 32 layers
+PP_CLI_NEW = 4               # cli.blip2_test --max_new_tokens
+PHASE21_BUDGET_S = 120.0
+
+
+def pp_launches(stage):
+    """A stage's launches: (a) the 1-token eval of TP_BATCH rows in
+    PP_MICRO microbatches (EVA's 39 on stage 0), (b) the ring's prefills
+    (one microbatch a stage; the decode ticks attend with einsums), (c)
+    the LoRA step of TP_ACC microbatches of PP_MICRO each, every layer
+    run again in the backward (remat)."""
+    eva = 39 if stage == 0 else 0
+    k4 = PP_LAYERS * PP_MICRO * TP_ACC
+    return {"eval": {"mha_tc": eva + PP_LAYERS * PP_MICRO},
+            "gen": {"mha_tc": PP_LAYERS * PP_RANKS},
+            "train": {"mha_tc": eva * TP_ACC, "mha_fwd_lse_tc": 2 * k4,
+                      "mha_flash_bwd_tc": k4}}
+
+
+class _RingClock:
+    """Within: the wall time spent in ``multihost.ring_step`` by the pipe
+    functions (device to host copies, gloo transfers, and the wait for
+    the peer stage: the bubble), summed in ``seconds``."""
+
+    def __enter__(self):
+        from garbage_classification_rca_tpu_torch.parallel import pp
+
+        self.pp, self.real, self.seconds = pp, pp.ring_step, 0.0
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        pp.ring_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.pp.ring_step = self.real
+
+
+@contextlib.contextmanager
+def _capture(module, name, sink):
+    """Within: `module.name`'s results appended to `sink`."""
+    real = getattr(module, name)
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        sink.append(out)
+        return out
+
+    setattr(module, name, keep)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, real)
+
+
+def pp_path_work(mesh, spec):
+    """The BLIP-2 main path on the pipe: blip2-opt-2.7b in bf16 from the
+    seed (``tp_path_work``'s model), the adapters fp32 with B != 0, cut to
+    this rank's stage (``setup_pipeline``), then (a) the 1-token eval's
+    next-token logits of ``spec["eval"]`` through ``pp_decode_hidden`` in
+    PP_MICRO microbatches (the last stage's), (b) ``pp_generate`` of
+    TP_NEW greedy tokens, bf16 and with the int8 cache (EOS 2), (c) one
+    LoRA step (``make_pp_lora_train_step``, acc TP_ACC over
+    ``spec["window"]``): the loss, the stage's adapter gradients, every
+    stage's updated adapters; (d) each timed again with the time in
+    ``ring_step``, the peak memory of building the whole model and of the
+    work after the cut. The counters are zeroed before each of (a)-(c)
+    and read after."""
+    import gc
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import blip2_train
+    from garbage_classification_rca_tpu_torch.cli.blip2_common import (
+        build_blip2, normalize_clip, setup_pipeline)
+    from garbage_classification_rca_tpu_torch.config import args_parser
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+    from garbage_classification_rca_tpu_torch.parallel import pp
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, model, _ = build_blip2(args_parser([f"--seed={spec['seed']}"]),
+                                dev, torch.bfloat16, train=True)
+    blip2.init_lora_(model.lora, spec["seed"] + 1, b_std=0.01)
+    setup_pipeline(model, mesh)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "stage": mesh.coord("pipe"),
+           "build_s": time.perf_counter() - t0,
+           "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = {k: torch.from_numpy(v).to(dev) for k, v in spec["eval"].items()}
+    x = normalize_clip(ev["image"], torch.bfloat16)
+
+    def logits():
+        return pp.pp_blip2_next_token_logits(
+            model, x, ev["input_ids"], ev["attention_mask"], mesh, PP_MICRO)
+
+    with torch.inference_mode():
+        _zero_counters()
+        lg = logits()
+        out["logits"] = None if lg is None else lg.float().cpu()
+        out["eval_launches"] = _read_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with _RingClock() as clock:
+            logits()
+            torch.cuda.synchronize()
+        out["eval_s"], out["eval_ring_s"] = (time.perf_counter() - t1,
+                                             clock.seconds)
+        e, m = pp._prompt(model, x, ev["input_ids"], ev["attention_mask"],
+                          mesh)
+        for sfx, cache in (("", None), ("_int8", "int8")):
+            _zero_counters()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with _RingClock() as clock:
+                toks, valid = pp.pp_generate(
+                    model.opt, e, m, mesh, TP_NEW, eos_id=2,
+                    cache_dtype=cache, lora=model.lora,
+                    lora_scale=cfg.lora_scale)
+                torch.cuda.synchronize()
+            out[f"gen{sfx}_s"] = time.perf_counter() - t1
+            out[f"gen{sfx}_ring_s"] = clock.seconds
+            out[f"gen{sfx}_launches"] = _read_counters()
+            out[f"tokens{sfx}"], out[f"valid{sfx}"] = toks.cpu(), valid.cpu()
+        del e, m
+    win = {k: torch.from_numpy(v).to(dev) for k, v in spec["window"].items()}
+    init = {k: v.clone() for k, v in model.lora.state_dict().items()}
+
+    def train_step():
+        model.lora.load_state_dict(init)
+        _, step = blip2_train.make_pp_lora_train_step(
+            model, mesh, PP_MICRO, acc_steps=TP_ACC,
+            compute_dtype=torch.bfloat16)
+        loss = float(step(win))
+        torch.cuda.synchronize()
+        return loss, {n: p.grad.detach().float().cpu()
+                      for n, p in model.lora.named_parameters()}
+
+    _zero_counters()
+    out["loss"], out["grads"] = train_step()
+    out["train_launches"] = _read_counters()
+    out["owned"] = {k: v.float().cpu()
+                    for k, v in model.lora.state_dict().items()}
+    out["updated"] = {k: v.float() for k, v in pp.gather_pipeline_lora(
+        model.lora, mesh).state_dict().items()}
+    t1 = time.perf_counter()
+    with _RingClock() as clock:
+        train_step()
+    out["step_s"], out["step_ring_s"] = time.perf_counter() - t1, \
+        clock.seconds
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del model, win
+    return out
+
+
+def pp_cli_runs(mesh, work):
+    """(d) in a rank, in `work` (shared by the ranks; rank 0 writes):
+    ``cli.blip2_train --mesh_shape=pipe:2`` for one epoch at
+    ``--batch_size=2`` on the ``vlm`` JPEG tree, then ``cli.blip2_test
+    --mesh_shape=pipe:2`` on its BEST file at 1 token and at
+    ``--max_new_tokens=PP_CLI_NEW``: each run's seconds and launches, the
+    answer logits and the token streams the runs drew, the report CSVs."""
+    import glob
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (blip2_test,
+                                                          blip2_train)
+    from garbage_classification_rca_tpu_torch.parallel import pp
+    from garbage_classification_rca_tpu_torch.parallel.multihost import (
+        barrier)
+
+    out = {}
+    _zero_counters()
+    t0 = time.perf_counter()
+    best = _in_dir(work, blip2_train.main, [
+        "--dataset_folder_name=vlm", "--batch_size=2", "--epochs=1",
+        "--mesh_shape=pipe:2"])
+    torch.cuda.synchronize()
+    out["train"] = {"seconds": time.perf_counter() - t0,
+                    "launches": _shown(_read_counters()),
+                    "val_acc": best.best_val_acc,
+                    "losses": [r["avg_loss"] for r in _jsonl_rows(work)]}
+    barrier()
+    files = glob.glob(os.path.join(work, "model_weights", "blip2_lora",
+                                   "BEST_*"))
+    out["best"] = files[0] if len(files) == 1 else None
+    for name, extra in (("t1", []), ("gen", [
+            f"--max_new_tokens={PP_CLI_NEW}"])):
+        d = os.path.join(work, f"pp_{name}")
+        os.makedirs(d, exist_ok=True)
+        cls, gen = [], []
+        _zero_counters()
+        t0 = time.perf_counter()
+        with _capture(blip2_train, "class_logits_from_next_token", cls), \
+                _capture(pp, "pp_blip2_generate", gen):
+            _in_dir(d, blip2_test.main, [
+                f"--model_path={out['best']}",
+                f"--dataset_folder_name={work}/vlm_Val",
+                "--mesh_shape=pipe:2"] + extra)
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": _shown(_read_counters()),
+                     "csv": _report_csv(d) if mesh.is_primary else None,
+                     "cls": [c.float().cpu() for c in cls],
+                     "tokens": [t.cpu() for t, _ in gen]}
+    return out
+
+
+def pp_worker(spec_path: str) -> int:
+    """A rank of phase 21 (``python3 chip_smoke.py --pp_worker=<spec>``,
+    spawned by ``parallel.multihost.launch``): ``pp_path_work`` at
+    ``pipe:2``, then the CLIs (``pp_cli_runs``), the rank's results
+    written into the spec's ``out`` directory."""
+    import gc
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.parallel.multihost import (
+        initialize_from_env, make_mesh)
+
+    spec = torch.load(spec_path, weights_only=False)
+    torch.set_grad_enabled(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(initialize_from_env("cuda"), {"pipe": PP_RANKS})
+    out = pp_path_work(mesh, spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = pp_cli_runs(mesh, spec["out"])
+    torch.save(out, os.path.join(spec["out"], f"pp_rank{mesh.rank}.pt"))
+    return 0
+
+
+def _pp_kernels(device, mask2, mask8, mask136, results):
+    """K2 at 2 x 132 x 2560 (the 1-token eval's microbatch) and 8 x 132 x
+    2560 (``pp_generate``'s prefill), K4a / K4b at 2 x 136 x 2560 (the
+    LoRA step's microbatch), 32 heads of 80, causal with the path's
+    masks, bf16: each held to its plain version and timed beside it, the
+    library's attention and the bound (``_k2_stage_row``,
+    ``_pair_stage_rows``)."""
+    import torch
+
+    from garbage_classification_rca_tpu_torch.kernels import mha_fused as K
+
+    gen = torch.Generator().manual_seed(SEED + 2101)
+    ok = True
+    rows = {"mha_tc": []}
+    for mask, name in ((mask2, "mha_tc_pp_eval"), (mask8, "mha_tc_pp_gen")):
+        good, row = _k2_stage_row(K, device, gen, mask, 32, 2560, name,
+                                  "opt (pipe:2)")
+        ok &= good
+        rows["mha_tc"].append(row)
+    good, pair = _pair_stage_rows(K, device, gen, mask136, 32, 2560,
+                                  ("mha_fwd_lse_pp", "mha_flash_bwd_pp"))
+    ok &= good
+    for key, row in pair.items():
+        rows[key] = [row]
+    for rs in rows.values():
+        for r in rs:
+            _print_stage_row(r, "a stage's microbatch at pipe:2")
+    results["pp_kernels"] = rows
+    return ok
+
+
+def _valid_contract(toks, valid, eos=2):
+    """``valid`` False strictly after each row's first EOS, True up to
+    it (``opt.generate``'s contract)."""
+    import torch
+
+    seen = torch.cumsum((toks == eos).int(), dim=1) - (toks == eos).int()
+    return bool(torch.equal(valid, seen == 0))
+
+
+def _pp_hold(one, ranks, aft):
+    """(ok, numbers, line) of (a)-(c): the last stage against the
+    one-rank run (phase 20's), the stages against each other."""
+    import torch
+
+    last = ranks[-1]
+    lo, lt = one["logits"], last["logits"]
+    d_vocab = float((lt - lo).abs().max())
+    d_ans = float((lt[:, aft] - lo[:, aft]).abs().max())
+    top2 = lo[:, aft].topk(2, dim=-1).values
+    floor = 2.0 * d_ans
+    keep = (top2[:, 0] - top2[:, 1]) > floor
+    agree = bool((lt[:, aft].argmax(-1) == lo[:, aft].argmax(-1))[keep].all())
+    a_ok = (agree and d_ans <= TP_LOGIT_BAR and bool(torch.isfinite(lt).all())
+            and ranks[0]["logits"] is None)
+    # the streams against one rank's ``opt.generate`` on the same
+    # microbatches (every product at the same rows): equal, token for
+    # token, with equal ``valid``
+    b, contract = {}, True
+    b_ok = True
+    for sfx in ("", "_int8"):
+        want_t, want_v = one["pp_ref" + sfx]
+        got_t, got_v = last["tokens" + sfx], last["valid" + sfx]
+        rows = (got_t == want_t).all(1) & (got_v == want_v).all(1)
+        differ = (got_t != want_t).any(0).nonzero()
+        b[sfx or "_bf16"] = {
+            "streams": len(rows), "identical": int(rows.sum()),
+            "first_differing_step": (int(differ[0]) if len(differ)
+                                     else None)}
+        contract &= all(_valid_contract(r["tokens" + sfx], r["valid" + sfx])
+                        for r in ranks)
+        b_ok &= bool(rows.all()) and all(
+            torch.equal(r["tokens" + sfx], got_t)
+            and torch.equal(r["valid" + sfx], got_v) for r in ranks)
+    b["valid_obeys_eos"] = contract
+    b_ok &= contract
+    grads = {}
+    for r in ranks:
+        grads.update(r["grads"])
+    g = dp_card_errors(grads, one["grads"])
+    ctl_g = max(max(dp_card_errors(cg, one["grads"]).values())
+                for _, cg in one["controls"])
+    g_bar = max(DP_FP32_BARS["grad"], DP_CONTROL_FACTOR * ctl_g)
+    loss_d = abs(last["loss"] - one["loss"])
+    ctl_d = max(abs(cl - one["loss"]) for cl, _ in one["controls"])
+    loss_bar = max(DP_BF16_LOSS * abs(one["loss"]), DP_CONTROL_FACTOR * ctl_d)
+    same_loss = len({r["loss"] for r in ranks}) == 1
+    owned = all(torch.equal(v, r["updated"][k]) for r in ranks
+                for k, v in r["owned"].items())
+    same_updated = all(set(r["updated"]) == set(one["grads"])
+                       and all(torch.equal(v, ranks[0]["updated"][k])
+                               for k, v in r["updated"].items())
+                       for r in ranks)
+    c_ok = (set(grads) == set(one["grads"]) and loss_d <= loss_bar
+            and max(g.values()) <= g_bar and same_loss and owned
+            and same_updated)
+    nums = {"a": {"max_logit_diff_answers": d_ans,
+                  "max_logit_diff_vocab": d_vocab, "floor": floor,
+                  "above_floor": int(keep.sum()), "agree": agree,
+                  "bar": TP_LOGIT_BAR, "ok": a_ok},
+            "b": {**b, "ok": b_ok},
+            "c": {"loss": last["loss"], "loss_one_rank": one["loss"],
+                  "loss_diff": loss_d, "loss_bar": loss_bar,
+                  "control_loss_diff": ctl_d, "grad_worst": max(g.values()),
+                  "grad_bar": g_bar, "control_grad_worst": ctl_g,
+                  "worst": sorted(g, key=g.get)[-3:],
+                  "stages_hold_their_updated_adapters": owned,
+                  "gathered_adapters_identical": same_updated,
+                  "ok": c_ok}}
+    top = sorted(g, key=g.get)[-2:]
+    line = (f"(a) answer logits max|d| {d_ans:.3e} (bar {TP_LOGIT_BAR}), "
+            f"vocab {d_vocab:.3e}; argmax agrees on the {int(keep.sum())} of "
+            f"{len(keep)} rows above the floor {floor:.3e}: {agree}; (b) "
+            f"streams and valid identical to one rank's on the same "
+            f"microbatches, bf16 {b['_bf16']['identical']} of "
+            f"{b['_bf16']['streams']}, int8 cache {b['_int8']['identical']} "
+            f"of {b['_int8']['streams']} (first differing step "
+            f"{b['_bf16']['first_differing_step']} / "
+            f"{b['_int8']['first_differing_step']}), on both ranks; valid "
+            f"obeys the EOS contract on both ranks: {contract}; (c) "
+            f"loss {last['loss']:.6f} vs {one['loss']:.6f} (|d| "
+            f"{loss_d:.2e}, bar {loss_bar:.2e}: bf16 1e-3 or 1.5x the "
+            f"control's {ctl_d:.2e}), worst adapter gradients "
+            f"{[(n, float(f'{g[n]:.3g}')) for n in top]} (bar {g_bar:.2e}, "
+            f"1.5x the one-ulp control's {ctl_g:.2e}); the loss on both "
+            f"stages: {same_loss}; each stage's updated adapters in the "
+            f"gathered set, identical on both ranks: {owned and same_updated}")
+    return a_ok and b_ok and c_ok, nums, line
+
+
+def _pp_cli_hold(ranks, one_cli, floor):
+    """(d): the pipe CLIs' reports against the one-rank runs on the same
+    BEST file, a difference held to the near-tie rule: 1 token, the rows
+    whose predictions differ under the one-rank answer logits' top-2
+    margin floor; generation, the token streams by ``near_tie_agree``."""
+    import torch
+
+    r0 = ranks[0]["cli"]
+    out, ok = {}, bool(r0["best"]) and ranks[1]["cli"]["best"] == r0["best"]
+    for name in ("t1", "gen"):
+        same = r0[name]["csv"] == one_cli[name]["csv"]
+        near = None
+        if not same and name == "t1":
+            got = torch.cat(ranks[-1]["cli"][name]["cls"])
+            want = torch.cat(one_cli[name]["cls"])
+            fl = 2.0 * float((got - want).abs().max())
+            top2 = want.topk(2, dim=-1).values
+            differ = got.argmax(-1) != want.argmax(-1)
+            near = not bool((differ & ((top2[:, 0] - top2[:, 1]) > fl)).any())
+        elif not same:
+            near = near_tie_agree(torch.cat(r0[name]["tokens"]),
+                                  torch.cat(one_cli[name]["tokens"]),
+                                  torch.cat(one_cli[name]["margins"]),
+                                  floor)[0]
+        good = same or bool(near)
+        out[name] = {"identical": same, "difference_at_a_near_tie": near,
+                     "ok": good}
+        ok &= good and all(r["cli"][name]["csv"] is None for r in ranks[1:])
+    return ok, out
+
+
+def _one_rank_cli(work, best):
+    """``cli.blip2_test`` in this process on the pipe run's BEST file, at
+    1 token and at ``--max_new_tokens=PP_CLI_NEW``: the report CSVs, the
+    answer logits and the streams with their margins."""
+    import os
+
+    import torch
+
+    from garbage_classification_rca_tpu_torch.cli import (blip2_test,
+                                                          blip2_train)
+    from garbage_classification_rca_tpu_torch.models.vlm import blip2
+
+    out = {}
+    for name, extra in (("t1", []), ("gen", [
+            f"--max_new_tokens={PP_CLI_NEW}"])):
+        d = os.path.join(work, f"one_{name}")
+        os.makedirs(d)
+        cls, gen = [], []
+        with _capture(blip2_train, "class_logits_from_next_token", cls), \
+                _capture(blip2, "generate", gen), record_margins() as marg:
+            _in_dir(d, blip2_test.main, [
+                f"--model_path={best}",
+                f"--dataset_folder_name={work}/vlm_Val"] + extra)
+        # one lm_head call a step of each batch's generate
+        n = PP_CLI_NEW
+        out[name] = {"csv": _report_csv(d),
+                     "cls": [c.float().cpu() for c in cls],
+                     "tokens": [t.cpu() for t, _ in gen],
+                     "margins": [torch.stack(marg[i:i + n], 1).cpu()
+                                 for i in range(0, len(marg), n)]}
+    return out
+
+
+def check_pipeline_parallel(device, results, smi_line):
+    """Phase 21: blip2-opt-2.7b at ``pipe:2`` (16 layers a stage) over
+    two ranks sharing the card (gloo), in one launch (``pp_worker``),
+    held to phase 20's one-rank run of the same seed and inputs: (a) the
+    1-token eval in PP_MICRO microbatches, (b) ``pp_generate`` in bf16 and
+    with the int8 cache, (c) a LoRA step (``pp_path_work``,
+    ``_pp_hold``), (d) ``cli.blip2_train --mesh_shape=pipe:2`` for an
+    epoch, ``cli.blip2_test --mesh_shape=pipe:2`` on its BEST file at 1
+    token and at 4, against ``cli.blip2_test`` in this process on the
+    same file (``_pp_cli_hold``); (f) each path's time against one rank's,
+    the time in ``ring_step``, the peak memory per rank. K2, K4a and K4b
+    at the stage shapes are held to their plain versions first (e,
+    ``_pp_kernels``)."""
+    import gc
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from garbage_classification_rca_tpu_torch.data.tokenizer import (
+        get_tokenizer)
+
+    t_phase = time.perf_counter()
+    print(f"  budget {PHASE21_BUDGET_S:.0f} s; {smi_line}", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "runs", "chip_smoke_pp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ref = results.pop("one_rank_blip2")
+        one, spec0 = ref["one"], ref["spec"]
+        ev, window = spec0["eval"], spec0["window"]
+        mask132 = torch.cat([torch.ones((TP_BATCH, 32), dtype=torch.int32),
+                             torch.from_numpy(ev["attention_mask"])], 1)
+        lt = torch.from_numpy(window["label_tokens"][0])
+        mask136 = torch.cat([mask132, (lt != 1).to(torch.int32)], 1)
+        rows = TP_BATCH // PP_MICRO
+        ok = _pp_kernels(device, mask132[:rows].to(device),
+                         mask132[:TP_BATCH // PP_RANKS].to(device),
+                         mask136[:rows].to(device), results)
+        _write_jpeg_tree(os.path.join(work, "vlm"), 8, 8, SEED + 2110,
+                         size=320)
+        spec = {"seed": spec0["seed"], "eval": ev, "window": window,
+                "out": work}
+        spec_path = os.path.join(work, "pp_spec.pt")
+        torch.save(spec, spec_path)
+        t0 = time.perf_counter()
+        launched, _ = dp_launch([os.path.abspath(__file__),
+                                 f"--pp_worker={spec_path}"], PP_RANKS,
+                                work, backend="gloo", share_device=True,
+                                timeout=600)
+        two_s = time.perf_counter() - t0
+        if not launched:
+            return False
+        ranks = [torch.load(os.path.join(work, f"pp_rank{r}.pt"),
+                            weights_only=False) for r in range(PP_RANKS)]
+        aft = torch.as_tensor(_vlm_answer_tokens(get_tokenizer("opt"))).long()
+        held, nums, line = _pp_hold(one, ranks, aft)
+        runs = [(w, r["stage"], r[f"{w}_launches"]) for r in ranks
+                for w in ("eval", "gen", "train")]
+        ran = all(_shown(got) == _shown(pp_launches(st)[w])
+                  for w, st, got in runs) \
+            and all(_shown(r["gen_int8_launches"]) == pp_launches(
+                r["stage"])["gen"] for r in ranks)
+        print(f"  pipe:2 over two ranks sharing the card (gloo), "
+              f"blip2-opt-2.7b bf16, {PP_LAYERS} layers a stage, "
+              f"{PP_MICRO} microbatches of {rows} rows: {line}", flush=True)
+        print("  launches a stage: " + "; ".join(
+            f"stage {r['stage']}: eval {_shown(r['eval_launches'])}, "
+            f"generate {_shown(r['gen_launches'])}, LoRA step "
+            f"{_shown(r['train_launches'])}" for r in ranks)
+            + f" {'ok' if ran else 'FAIL'}", flush=True)
+        # (d) the CLIs, against one rank on the same BEST file
+        gc.collect()
+        torch.cuda.empty_cache()
+        best = ranks[0]["cli"]["best"]
+        one_cli = _one_rank_cli(work, best) if best else {}
+        d_ok, d_nums = _pp_cli_hold(ranks, one_cli,
+                                    2.0 * nums["a"]["max_logit_diff_vocab"]) \
+            if best else (False, {})
+        r0 = ranks[0]["cli"]
+        print(f"  (d) cli.blip2_train --mesh_shape=pipe:2, one epoch at "
+              f"--batch_size=2 in {r0['train']['seconds']:.1f} s (losses "
+              f"{[round(x, 4) for x in r0['train']['losses']]}, launches "
+              f"rank 0 {r0['train']['launches']}, rank 1 "
+              f"{ranks[1]['cli']['train']['launches']}); cli.blip2_test "
+              f"--mesh_shape=pipe:2 on its BEST file: 1 token in "
+              f"{r0['t1']['seconds']:.1f} s, report "
+              f"{d_nums.get('t1')}; --max_new_tokens={PP_CLI_NEW} in "
+              f"{r0['gen']['seconds']:.1f} s, report {d_nums.get('gen')} "
+              f"{'ok' if d_ok else 'FAIL'}", flush=True)
+        perf = {w: {"one_rank": one[k1], "per_rank": [r[k2] for r in ranks]}
+                for w, k1, k2 in (("eval_s", "eval_s", "eval_s"),
+                                  ("generate_s", "gen_s", "gen_s"),
+                                  ("generate_int8_s", "pp_ref_int8_s",
+                                   "gen_int8_s"),
+                                  ("lora_step_s", "step_s", "step_s"),
+                                  ("peak_gib", "peak_gib", "peak_gib"),
+                                  ("build_peak_gib", "build_peak_gib",
+                                   "build_peak_gib"))}
+        ring = {w: [r[f"{w}_ring_s"] / r[f"{w}_s"] for r in ranks]
+                for w in ("eval", "gen", "step")}
+        print(f"  (f) bf16, one rank vs each of two stages sharing the card: "
+              f"eval {TP_BATCH / one['eval_s']:.1f} vs "
+              f"{[round(TP_BATCH / r['eval_s'], 1) for r in ranks]} "
+              f"samples/s; generate {TP_BATCH * TP_NEW / one['gen_s']:.1f} "
+              f"vs {[round(TP_BATCH * TP_NEW / r['gen_s'], 1) for r in ranks]}"
+              f" tokens/s (int8 cache, one rank in {PP_RANKS} calls of "
+              f"{TP_BATCH // PP_RANKS} rows "
+              f"{TP_BATCH * TP_NEW / one['pp_ref_int8_s']:.1f} vs "
+              f"{[round(TP_BATCH * TP_NEW / r['gen_int8_s'], 1) for r in ranks]}"
+              f"); LoRA step (acc {TP_ACC} x {TP_BATCH}, {PP_MICRO} "
+              f"microbatches, remat) {one['step_s']:.2f} vs "
+              f"{[round(r['step_s'], 2) for r in ranks]} s; peak after the "
+              f"cut {one['peak_gib']:.2f} (one rank, whole model) vs "
+              f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (building the "
+              f"whole model first: {[round(r['build_peak_gib'], 2) for r in ranks]}"
+              f"); share of the wall time in ring_step (host-staged gloo "
+              f"p2p and the wait for the peer stage), rank 0 / rank 1: eval "
+              f"{[round(x, 3) for x in ring['eval']]}, generate "
+              f"{[round(x, 3) for x in ring['gen']]}, LoRA step "
+              f"{[round(x, 3) for x in ring['step']]}", flush=True)
+        secs = time.perf_counter() - t_phase
+        results["pipeline_parallel"] = {
+            "held": line, **nums, "launches_ok": ran, "perf": perf,
+            "ring_step_share": ring, "clis": {"train": r0["train"],
+                                              "reports": d_nums,
+                                              "ok": d_ok},
+            "seconds": {"two_ranks": two_s, "phase": secs,
+                        "budget": PHASE21_BUDGET_S},
+            "card": smi_line}
+        results["pp_launches"] = {
+            f"stage{r['stage']}": {k: r["eval_launches"].get(k, 0)
+                                   + r["gen_launches"].get(k, 0)
+                                   + r["train_launches"].get(k, 0)
+                                   for k in r["eval_launches"]}
+            for r in ranks}
+        print(f"  phase 21 in {secs:.1f} s of its {PHASE21_BUDGET_S:.0f} s "
+              f"budget (the two-rank launch {two_s:.1f} s)", flush=True)
+        return ok and held and ran and d_ok
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -10055,7 +10763,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("[1/20] device", flush=True)
+    print("[1/21] device", flush=True)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -10065,7 +10773,7 @@ def main() -> int:
     print(f"  {name}; {smi_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    print("[2/20] build", flush=True)
+    print("[2/21] build", flush=True)
     t0 = time.perf_counter()
     try:
         logs = _build.build_all()
@@ -10077,7 +10785,7 @@ def main() -> int:
         for entry, used, spills in ptxas_report(log):
             print(f"  {n}: {entry}: {used}; {spills}", flush=True)
 
-    print("[3/20] kernels vs plain versions", flush=True)
+    print("[3/21] kernels vs plain versions", flush=True)
     report = {}
     try:
         ok = check_rca(device, report)
@@ -10099,94 +10807,99 @@ def main() -> int:
 
     results = {}
     for title, check in (
-            ("[4/20] MM-RCA eval path",
+            ("[4/21] MM-RCA eval path",
              lambda: check_model(device, N_BATCHES, BATCH, results)),
-            ("[5/20] MM-RCA train path: full-width train step",
+            ("[5/21] MM-RCA train path: full-width train step",
              lambda: check_train(device, results)),
-            ("[5/20] MM-RCA train path: cli.main_both -> cli.test_both",
+            ("[5/21] MM-RCA train path: cli.main_both -> cli.test_both",
              lambda: check_cli(device, results)),
-            ("[6/20] text eval path: BERT-base, DistilBERT, RoBERTa",
+            ("[6/21] text eval path: BERT-base, DistilBERT, RoBERTa",
              lambda: check_text_eval(device, results)),
-            ("[7/20] image eval path: ViT-B/16",
+            ("[7/21] image eval path: ViT-B/16",
              lambda: check_image_eval(device, results)),
-            ("[7/20] unimodal eval CLIs: cli.test_text, cli.test_image",
+            ("[7/21] unimodal eval CLIs: cli.test_text, cli.test_image",
              lambda: check_eval_clis(device, results)),
-            ("[8/20] text train path: DistilBERT and BERT-base with "
+            ("[8/21] text train path: DistilBERT and BERT-base with "
              "hf_internal_dropout",
              lambda: check_text_train(device, results)),
-            ("[9/20] image train path: ViT-B/16",
+            ("[9/21] image train path: ViT-B/16",
              lambda: check_image_train(device, results)),
-            ("[9/20] unimodal train CLIs: cli.main_text -> cli.test_text, "
+            ("[9/21] unimodal train CLIs: cli.main_text -> cli.test_text, "
              "cli.main_image -> cli.test_image",
              lambda: check_train_clis(device, results)),
-            ("[10/20] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
+            ("[10/21] conv image eval: ShuffleNetV2 x2.0, then ResNet, "
              "MobileNetV3, ConvNeXt, EfficientNet v1 / v2",
              lambda: check_conv_eval(device, results)),
-            ("[10/20] conv image eval CLI: cli.test_image "
+            ("[10/21] conv image eval CLI: cli.test_image "
              "--image_model=shuffle_net",
              lambda: check_conv_cli(device, results)),
-            ("[11/20] fusion eval: gated, classic, normalized, clip, "
+            ("[11/21] fusion eval: gated, classic, normalized, clip, "
              "hierarchical, bimodal; DistilBERT, BERT and BART-large towers",
              lambda: check_fusion_eval(device, results)),
-            ("[11/20] fusion eval CLIs: cli.test_both (gated, clip), "
+            ("[11/21] fusion eval CLIs: cli.test_both (gated, clip), "
              "cli.test_text --text_model=bart",
              lambda: check_fusion_clis(device, results)),
-            ("[12/20] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
+            ("[12/21] VLM eval: BLIP-2 and the Q-Former (EVA ViT-g, "
              "Q-Former, OPT-2.7B; K2 at head dims 88 and 80)",
              lambda: check_vlm_eval(device, results)),
-            ("[12/20] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
+            ("[12/21] VLM eval CLIs: cli.blip2_test, cli.qformer_test",
              lambda: check_vlm_clis(device, results)),
-            ("[13/20] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
+            ("[13/21] VLM train: BLIP-2 LoRA (K4a / K4b at head dim 80) "
              "and the Q-Former classifier",
              lambda: check_vlm_train(device, results)),
-            ("[13/20] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
+            ("[13/21] VLM train CLIs: cli.blip2_train -> cli.blip2_test, "
              "cli.qformer_train -> cli.qformer_test",
              lambda: check_vlm_train_clis(device, results)),
-            ("[13/20] VLM RESUME: cli.blip2_train and cli.qformer_train "
+            ("[13/21] VLM RESUME: cli.blip2_train and cli.qformer_train "
              "killed at the epoch boundary and mid-epoch, resumed with "
              "--resume_from, held to a control",
              lambda: check_vlm_resume(device, results)),
-            ("[14/20] late-fusion train: gated, classic, normalized, clip, "
+            ("[14/21] late-fusion train: gated, classic, normalized, clip, "
              "hierarchical, bimodal on DistilBERT and BERT, MM_RCA on BERT, "
              "gated, classic, normalized, clip on BART-large",
              lambda: check_fusion_train(device, results)),
-            ("[14/20] late-fusion train CLIs: cli.main_both (hierarchical + "
+            ("[14/21] late-fusion train CLIs: cli.main_both (hierarchical + "
              "BERT, clip + BART) -> cli.test_both, cli.main_text "
              "--text_model=bart -> cli.test_text",
              lambda: check_fusion_train_clis(device, results)),
-            ("[15/20] text family: GPT-2 and MobileBERT at full width and "
+            ("[15/21] text family: GPT-2 and MobileBERT at full width and "
              "depth (no hand-written kernel)",
              lambda: check_text_family(device, results)),
-            ("[15/20] text family CLIs: cli.main_text "
+            ("[15/21] text family CLIs: cli.main_text "
              "--hf_internal_dropout -> cli.test_text (gpt2, mobilebert)",
              lambda: check_text_family_clis(device, results)),
-            ("[16/20] conv train: the 12 conv backbones, a step each; "
+            ("[16/21] conv train: the 12 conv backbones, a step each; "
              "fp64 and fp32 card vs CPU",
              lambda: check_conv_train(device, results)),
-            ("[16/20] conv train CLI and RESUME: cli.main_image res18 -> "
+            ("[16/21] conv train CLI and RESUME: cli.main_image res18 -> "
              "cli.test_image; cli.main_both MM_RCA and cli.main_image res18 "
              "killed and resumed, held to a control",
              lambda: check_resume(device, results)),
-            ("[17/20] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
+            ("[17/21] serving: BLIP-2 generate (bf16, fp32, int8 cache and "
              "weights; K2 in every prefill), the continuous-batching server, "
              "speculative decoding",
              lambda: check_serving(device, results)),
-            ("[17/20] serving CLIs: cli.blip2_test --max_new_tokens=4 "
+            ("[17/21] serving CLIs: cli.blip2_test --max_new_tokens=4 "
              "(greedy, sampled, int8), cli.serve",
              lambda: check_serving_clis(device, results)),
-            ("[18/20] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
+            ("[18/21] paraphraser: the Llama behind GC_RCA_LLM_PATH at "
              "Llama-3.1-8B-Instruct's width, card vs CPU, cli.main_text "
              "--use_synonyms",
              lambda: check_paraphraser(device, results)),
-            ("[19/20] data parallelism: the MM-RCA train step over two "
+            ("[19/21] data parallelism: the MM-RCA train step over two "
              "ranks sharing the card (gloo), cli.main_both -> cli.test_both "
              "over two ranks, cli.main_text --fsdp on NCCL",
              lambda: check_data_parallel(device, results, smi_line)),
-            ("[20/20] tensor and sequence parallelism: blip2-opt-2.7b at "
+            ("[20/21] tensor and sequence parallelism: blip2-opt-2.7b at "
              "model:2 (eval, generate, a LoRA step, cli.serve) and "
              "cli.test_text at seq:2 over two ranks sharing the card (gloo)",
-             lambda: check_model_seq_parallel(device, results, smi_line))):
-        if title.startswith("[17/20] serving:"):
+             lambda: check_model_seq_parallel(device, results, smi_line)),
+            ("[21/21] pipeline parallelism: blip2-opt-2.7b at pipe:2 (the "
+             "1-token eval, pp_generate bf16 and int8, a GPipe LoRA step, "
+             "cli.blip2_train -> cli.blip2_test) over two ranks sharing the "
+             "card (gloo)",
+             lambda: check_pipeline_parallel(device, results, smi_line))):
+        if title.startswith("[17/21] serving:"):
             results["phases_1_16_s"] = time.perf_counter() - t_start
             print(f"  (phases 1-16 in {results['phases_1_16_s']:.1f} s)",
                   flush=True)
@@ -10246,7 +10959,9 @@ def main() -> int:
                "text_family": results["text_family_launches"],
                "serving": results["serving_launches"],
                "data_parallel_rank0": results["dp_launches"],
-               "model_parallel_rank0": results["tp_launches"]}
+               "model_parallel_rank0": results["tp_launches"],
+               **{f"pipeline_parallel_{k}": v
+                  for k, v in results["pp_launches"].items()}}
     kernels = []
     for key, path in (("rca_fused", "eval"), ("mha_tc", "eval"),
                       ("mha", "eval_seq512"),
@@ -10302,10 +11017,12 @@ def main() -> int:
                          ("mha_flash_bwd_hd80", "mha_flash_bwd_tc")):
         vlm_rows.append((key, counter, "vlm_train",
                          results["vlm_train_kernels"][key]))
-    # and at a rank's 16 heads of 80 under model:2 (phase 20)
+    # and at a rank's 16 heads of 80 under model:2 (phase 20), and at a
+    # pipeline stage's microbatches under pipe:2 (phase 21)
     for key, counter, path, row in vlm_rows:
         row = dict(row)
         row["model_parallel_16_heads"] = results["tp_kernels"][counter]
+        row["pipeline_stage_shapes"] = results["pp_kernels"][counter]
         row["launches"] = by_path[path][counter]
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
         kernels.append(row)
@@ -10344,6 +11061,7 @@ def main() -> int:
                       "data_parallel": {k: results[k] for k in (
                           "dp_step", "dp_clis", "dp_fsdp")},
                       "model_seq_parallel": results["model_seq_parallel"],
+                      "pipeline_parallel": results["pipeline_parallel"],
                       "phase_seconds": results["phase_seconds"],
                       "phases_1_16_s": results["phases_1_16_s"],
                       "seconds": time.perf_counter() - t_start,
@@ -10365,4 +11083,6 @@ if __name__ == "__main__":
         sys.exit(dp_eval_worker(sys.argv[2:]))
     if len(sys.argv) > 1 and sys.argv[1].startswith("--tp_worker="):
         sys.exit(tp_worker(sys.argv[1].partition("=")[2]))
+    if len(sys.argv) > 1 and sys.argv[1].startswith("--pp_worker="):
+        sys.exit(pp_worker(sys.argv[1].partition("=")[2]))
     sys.exit(main())

@@ -14,6 +14,10 @@ a ``GRU``'s ``w_ih`` / ``w_hh`` from ``[in, 3H]`` to ``[3H, in]``;
 everything else is copied as is. Shapes must match, and every parameter
 and buffer of the model must be filled.
 
+``load_pipeline_stage`` fills a pipeline stage (``parallel/pp.py``) from
+the JAX package's stage-stacked trees (leaves [S, L/S, ...]): the stage's
+slice, layer by layer, into its layers and adapters.
+
 ``export_jax_tree`` goes the other way: every parameter and buffer of a
 model as ``{dotted tree path: numpy array in the JAX layout}``, so that a
 trained model can be compared with the JAX package's trees leaf by leaf.
@@ -154,3 +158,39 @@ def load_blip2_tree(model: nn.Module, params, lora=None, trainable=None
             raise ValueError(f"the model has no {name!r} for the tree")
         load_jax_tree(sub, tree, allow_skipped=())
     return model
+
+
+def _stage_slice(tree, stage: int, j: int):
+    if isinstance(tree, dict):
+        return {k: _stage_slice(v, stage, j) for k, v in tree.items()}
+    return np.asarray(tree)[stage, j]
+
+
+def _stacked_lead(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tuple(np.asarray(tree).shape[:2])
+
+
+def load_pipeline_stage(decoder: nn.Module, stage_layers, stage: int,
+                        lora: Optional[nn.Module] = None,
+                        stage_lora=None) -> nn.Module:
+    """Fill stage `stage` of a pipeline (``parallel/pp.stage_layers_``'s
+    decoder; ``pp.stage_lora_``'s `lora`) from the JAX package's
+    ``stack_pipeline_params`` / ``stack_pipeline_lora`` output as numpy
+    trees, leaves [S, L/S, ...]: slice [stage, j] into the stage's j-th
+    layer (global index stage * L/S + j) and its adapters. Every leaf of
+    the slice is used and every tensor of the stage filled."""
+    ids = sorted(int(k) for k in decoder.layers.keys())
+    for tree, mod in ((stage_layers, decoder.layers), (stage_lora, lora)):
+        if tree is None:
+            continue
+        n_stages, per = _stacked_lead(tree)
+        if per != len(ids) or ids[0] != stage * per or stage >= n_stages:
+            raise ValueError(f"a stage-stacked tree of {n_stages} x {per} "
+                             f"layers does not hold stage {stage}'s layers "
+                             f"{ids}")
+        for j, i in enumerate(ids):
+            load_jax_tree(mod[str(i)], _stage_slice(tree, stage, j),
+                          allow_skipped=())
+    return decoder

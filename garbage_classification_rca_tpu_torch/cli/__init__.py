@@ -10,8 +10,11 @@ the JAX package's ``GC_RCA_MULTIHOST`` variables), ``data:-1`` the world
 size (``data_mesh``). The model axis (tensor parallelism of the OPT
 tower) runs in the five BLIP-2 CLIs and ``cli.serve``, the seq axis
 (sequence parallelism of DistilBERT) in ``cli.test_text``: ``--mesh_shape=
-data:D,model:M`` over D x M ranks. The pipe and expert axes, and the model
-or seq axis anywhere else, raise (ROADMAP.md, queue 1 item 7).
+data:D,model:M`` over D x M ranks. The pipe axis (GPipe of the OPT
+decoder) runs in ``cli.blip2_train`` and ``cli.blip2_test``:
+``--mesh_shape=data:D,pipe:S`` over D x S ranks on one host. The expert
+axis, and the model, seq or pipe axis anywhere else, raise (ROADMAP.md,
+queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ def resolve_model(getter, name: str):
 def check_mesh_axes(mesh_shape: str, allowed=()) -> None:
     """Raise on a ``--mesh_shape`` axis other than ``data`` and the
     `allowed` ones (``model`` in the BLIP-2 CLIs and ``cli.serve``,
-    ``seq`` in ``cli.test_text``): the pipe and expert axes are not
-    ported yet."""
+    ``seq`` in ``cli.test_text``, ``pipe`` in ``cli.blip2_train`` and
+    ``cli.blip2_test``): the expert axis is not ported yet."""
     other = [part.strip().partition(":")[0]
              for part in (mesh_shape or "data:-1").split(",")]
     other = [name for name in other

@@ -17,7 +17,10 @@ and the eval gathers the predictions (``vlm_multihost_mesh_check``
 refuses what stays one-process). Over the model axis ``place_blip2``
 slices the OPT tower Megatron-style (``parallel/tp.py``); the ranks of a
 model group hold the same rows, and the LoRA step sums the adapters'
-gradients over that group as well.
+gradients over that group as well. Over the pipe axis ``setup_pipeline``
+keeps a stage's decoder layers and adapters (``parallel/pp.py``; the
+towers stay whole), after ``check_pipe_flags`` refused what the JAX CLIs
+refuse on a pipe mesh.
 
 ``GC_RCA_TINY_BLIP2=1`` swaps the full ``Salesforce/blip2-opt-2.7b``
 geometry for the JAX package's tiny test configuration (CPU drives only:
@@ -228,19 +231,86 @@ def place_blip2(model, mesh):
     return model
 
 
+def check_pipe_flags(args) -> int:
+    """The pipe axis's refusals, made before any rank starts (the JAX
+    CLIs' guards, with their words): a model axis beside it, a pipe size
+    that does not divide the OPT layers, ``--hf_internal_dropout``, and
+    for ``--max_new_tokens > 1`` ``--gen_temperature`` and
+    ``--int8_weights``; and the JAX package's rule that a pipe mesh runs
+    in one process, which the port reads as one host: a launch across
+    hosts (the JAX package's ``GC_RCA_MULTIHOST`` variables, or a
+    torchrun of several nodes) exits. Returns the pipe size."""
+    from ..parallel.mesh import PIPE_AXIS, parse_mesh_shape
+    from ..parallel.multihost import env_world_size
+
+    axes = parse_mesh_shape(args.mesh_shape or "data:-1", env_world_size())
+    n_pipe = axes.get(PIPE_AXIS, 1)
+    if n_pipe <= 1:
+        return 1
+    env = os.environ
+    if env.get("GC_RCA_MULTIHOST", "") in ("1", "true") or int(
+            env.get("LOCAL_WORLD_SIZE") or env_world_size()) \
+            < env_world_size():
+        raise SystemExit(
+            "--mesh_shape with a pipe axis is single-process only; "
+            "multi-host (GC_RCA_MULTIHOST) VLM runs support data / "
+            "data,model meshes")
+    if axes.get("model", 1) > 1:
+        raise SystemExit("--mesh_shape: combine pipe with data only "
+                         "(model-axis TP of a stage-sharded decoder "
+                         "is not supported)")
+    layers = blip2_config().opt.layers
+    if layers % n_pipe:
+        raise SystemExit(f"--mesh_shape pipe:{n_pipe} must divide the "
+                         f"{layers}-layer OPT decoder")
+    if getattr(args, "hf_internal_dropout", False):
+        raise SystemExit("--hf_internal_dropout is not supported on a pipe "
+                         "mesh (the GPipe loss path is deterministic); "
+                         "use a data/data,model mesh")
+    if getattr(args, "max_new_tokens", 1) > 1:
+        if args.gen_temperature > 0:
+            raise SystemExit("--gen_temperature: sampled decode is "
+                             "not supported on pipe meshes (use a "
+                             "data/model mesh)")
+        if args.int8_weights:
+            raise SystemExit("--int8_weights: weight-only int8 is "
+                             "not supported on pipe meshes (use a "
+                             "data/model mesh; --kv_cache_dtype=int8 "
+                             "works on both)")
+    return n_pipe
+
+
+def setup_pipeline(model, mesh):
+    """A BLIP-2 model on a pipe mesh (the JAX ``setup_pipeline``): the
+    OPT decoder cut to this rank's stage, its L/S contiguous layers kept
+    and the others freed, the adapters likewise (keyed by their global
+    index); vision, Q-Former and projection whole. Returns the model."""
+    from ..parallel import pp
+    from ..parallel.mesh import PIPE_AXIS
+
+    n, stage = mesh.size(PIPE_AXIS), mesh.coord(PIPE_AXIS)
+    layers = model.cfg.opt.layers
+    pp.stage_layers_(model.opt, n, stage)
+    if model.lora is not None:
+        pp.stage_lora_(model.lora, layers, n, stage)
+    return model
+
+
 def vlm_multihost_mesh_check(mesh, args) -> None:
     """What stays one-process (the JAX package's
     ``vlm_multihost_mesh_check`` and its CLI guards): multi-token
     generation in ``cli.blip2_test`` over a data axis of several ranks
     (the JAX rule is for multi-host data sharding; ``data:1,model:M``
-    generates); ``--fsdp`` (the JAX VLM trainers do not shard their
-    weights either)."""
+    generates, and so does a pipe mesh with its data axis: JAX runs pipe
+    meshes in one process); ``--fsdp`` (the JAX VLM trainers do not
+    shard their weights either)."""
     if getattr(args, "fsdp", False):
         raise NotImplementedError(
             "--fsdp shards the engine trainers' weights (main_both, "
             "main_text, main_image); the VLM trainers keep theirs whole, as "
             "the JAX package's do")
-    if mesh.size("data") > 1 and getattr(args, "max_new_tokens", 1) > 1:
+    if mesh.size("data") > 1 and mesh.size("pipe") == 1 \
+            and getattr(args, "max_new_tokens", 1) > 1:
         raise SystemExit("--max_new_tokens > 1 runs on one data rank, as in "
                          "the JAX package; use --mesh_shape=data:1,model:M "
                          "or drop torchrun")
@@ -327,12 +397,39 @@ class VlmResume:
         """Restore `trainable` (the adapters or the classifier) and
         `optimizer` from the RESUME file `path` names; a start from
         scratch when `path` names none. With a `mesh` the ranks must agree
-        on the file (``engine.check_resume_agreement``)."""
-        payload = maybe_load_resume(path, mesh)
+        on the file (``engine.check_resume_agreement``). A pipe run's file
+        (meta ``pipe``: its stages' adapters merged, each stage's
+        optimizer state) resumes at the same pipe size only, each stage
+        taking its own; the JAX trainer's words refuse the others."""
+        from ..train.engine import check_resume_agreement
+
+        payload = maybe_load_resume(path)
+        n_pipe = 1 if mesh is None else mesh.size("pipe")
+        if payload is not None:
+            saved = int(payload["meta"].get("pipe", 1))
+            if n_pipe > 1 and saved == 1:
+                raise SystemExit(
+                    "--resume_from payload is per-layer (saved by a dp/tp "
+                    "run); resume with the same --mesh_shape")
+            if n_pipe == 1 and saved > 1:
+                raise SystemExit(
+                    "--resume_from payload is stage-stacked (saved by a "
+                    "pipe:N run); resume with the same --mesh_shape")
+            if saved != n_pipe:
+                raise SystemExit(
+                    f"--resume_from was saved with pipe:{saved}; resume "
+                    f"with the same mesh (got pipe:{n_pipe})")
+        if mesh is not None:
+            check_resume_agreement(payload, mesh)
         if payload is None:
             return cls()
-        load_model_state(trainable, payload["state_dict"])
-        load_optimizer_state(optimizer, payload["optimizer"])
+        state, opt_state = payload["state_dict"], payload["optimizer"]
+        if n_pipe > 1:
+            mine = trainable.state_dict()
+            state = {k: v for k, v in state.items() if k in mine}
+            opt_state = opt_state["stages"][mesh.coord("pipe")]
+        load_model_state(trainable, state)
+        load_optimizer_state(optimizer, opt_state)
         m = payload["meta"]
         step = int(m.get("step") or 0)
         print(f"Full-resume from {path} (epoch={m['epoch']}"

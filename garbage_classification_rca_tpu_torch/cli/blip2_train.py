@@ -39,14 +39,24 @@ on CUDA; ``GC_RCA_PLATFORM=cpu`` runs it on the CPU; over N GPUs with
 global microbatch), and with the OPT tower sliced over a model axis
 (``--mesh_shape=data:D,model:M`` over D x M ranks, ``parallel/tp.py``):
 K4a / K4b run each rank's 32 / M heads, the adapters stay whole on every
-rank and their gradients are summed over the model group. Not ported yet
-(``cli.check_unported_flags`` raises): the pipe axis and ``--wandb``;
-``--fsdp`` raises, as the JAX trainer does not shard the VLM either.
+rank and their gradients are summed over the model group.
+
+``--mesh_shape=data:D,pipe:S`` over D x S ranks on one host GPipe-trains
+the adapters (``parallel/pp.py``): each rank holds one stage's 32 / S
+layers and their adapters, EVA, the Q-Former and the projection run on
+stage 0, each microbatch splits into ``pick_pp_microbatches`` pipeline
+microbatches (K4a / K4b at their rows, the layers recomputed in the
+backward), the loss is logged on every rank. RESUME holds each stage's
+adapters and AdamW state and resumes at the same pipe size; BEST is
+gathered into the per-layer form, which ``cli.blip2_test`` reads at any
+mesh. ``--hf_internal_dropout`` is refused on a pipe mesh, as in the JAX
+CLI. Not ported yet (``cli.check_unported_flags`` raises): the expert
+axis and ``--wandb``; ``--fsdp`` raises, as the JAX trainer does not
+shard the VLM either.
 """
 
 from __future__ import annotations
 
-import functools
 import time
 
 import numpy as np
@@ -60,8 +70,9 @@ from ..train.engine import (MetricsLogger, PhaseResult, save_best,
                             save_train_state)
 from . import check_unported_flags, data_mesh
 from .blip2_common import (Blip2Batcher, VlmResume, build_blip2,
-                           class_logits_from_next_token, make_accum_step,
-                           normalize_clip, place_blip2, vlm_eval,
+                           check_pipe_flags, class_logits_from_next_token,
+                           make_accum_step, normalize_clip, place_blip2,
+                           setup_pipeline, vlm_eval,
                            vlm_multihost_mesh_check, vlm_train_stream)
 
 TRAIN_SUFFIX = "_Train"
@@ -141,6 +152,70 @@ def make_eval_step(model, answer_first_tokens, compute_dtype=torch.bfloat16):
     return step
 
 
+def pick_pp_microbatches(batch_size: int, mesh) -> int:
+    """The JAX rule: the largest pipeline microbatch count M <= 4x the
+    pipe-axis size with batch % M == 0 and (batch / M) % data-axis == 0
+    (the GPipe bubble M / (M + S - 1) shrinks with M; past 4S each
+    microbatch only gets smaller)."""
+    s, d = mesh.size("pipe"), mesh.size("data")
+    for m in range(min(batch_size, 4 * s), 0, -1):
+        if batch_size % m == 0 and (batch_size // m) % d == 0:
+            return m
+    return 1
+
+
+def make_pp_lora_train_step(model, mesh, n_microbatches: int,
+                            acc_steps: int = BLIP2_ACC,
+                            compute_dtype=torch.bfloat16, remat: bool = True):
+    """The GPipe twin of ``make_lora_train_step`` on a model that
+    ``setup_pipeline`` cut to this rank's stage: the stage's adapters
+    train (AdamW over them alone), the same window of ``acc_steps``
+    microbatches and label semantics; each microbatch's loss is
+    ``pp.pp_blip2_lm_loss`` over `n_microbatches` pipeline microbatches,
+    whose backward is the GPipe backward."""
+    from ..parallel import pp
+
+    model.requires_grad_(False)
+    model.lora.requires_grad_(True)
+    opt = blip2_adamw(model.lora.parameters())
+
+    def loss_fn(mb):
+        x, ids, mask, labels = _assemble_lm_batch(mb, compute_dtype)
+        return (pp.pp_blip2_lm_loss(model, x, ids, mask, labels, mesh,
+                                    n_microbatches, remat=remat),
+                (labels[:, 1:] != -100).sum())
+
+    return opt, make_accum_step(loss_fn, opt, acc_steps, mesh=mesh)
+
+
+def make_pp_eval_step(model, answer_first_tokens, mesh, n_microbatches: int,
+                      compute_dtype=torch.bfloat16):
+    """The pipelined twin of ``make_eval_step``: the answer words' logits
+    on the last stage, broadcast over the pipe, so that every rank
+    returns the same (preds, masked correct count)."""
+    from ..parallel import pp
+    from ..parallel.multihost import broadcast_from_
+
+    aft = torch.as_tensor(np.asarray(answer_first_tokens), dtype=torch.long)
+
+    def step(batch):
+        x = normalize_clip(batch["image"], compute_dtype)
+        logits = pp.pp_blip2_next_token_logits(
+            model, x, batch["input_ids"], batch["attention_mask"], mesh,
+            n_microbatches)
+        cls_logits = torch.zeros((x.shape[0], len(aft)), dtype=torch.float32,
+                                 device=x.device)
+        if logits is not None:
+            cls_logits = class_logits_from_next_token(
+                logits.float(), aft.to(logits.device))
+        broadcast_from_(cls_logits, mesh, "pipe")
+        preds = cls_logits.argmax(dim=-1).to(torch.int32)
+        correct = ((preds == batch["label"]) * batch["valid"]).sum()
+        return preds, correct
+
+    return step
+
+
 def answer_first_token_table(batcher: Blip2Batcher, classes) -> np.ndarray:
     """First answer-word token id per class index (sorted-folder order)."""
     return np.asarray([batcher.answer_token_ids[c][1]
@@ -151,34 +226,52 @@ def answer_first_token_table(batcher: Blip2Batcher, classes) -> np.ndarray:
 
 def main(argv=None):
     args = args_parser(argv)
-    check_unported_flags(args, allowed=("model",))
+    check_unported_flags(args, allowed=("model", "pipe"))
+    n_pipe = check_pipe_flags(args)
     mesh = data_mesh(args, train_batches=(args.batch_size, args.batch_size, 0),
-                     allowed=("model",))
+                     allowed=("model", "pipe"))
     vlm_multihost_mesh_check(mesh, args)
     device = mesh.device
     dtype = torch_compute_dtype(args.compute_dtype)
     cfg, model, tok = build_blip2(args, device, dtype, train=True)
-    place_blip2(model, mesh)
     train_m = build_manifest(args.dataset_folder_name + TRAIN_SUFFIX)
     val_m = build_manifest((args.dataset_folder_name_val or
                             args.dataset_folder_name) + VAL_SUFFIX)
     print(f"train {len(train_m)} / val {len(val_m)}")
     train_b = Blip2Batcher(train_m, tok, workers=args.data_workers)
     val_b = Blip2Batcher(val_m, tok, workers=args.data_workers)
-    opt, step = make_lora_train_step(
-        model, compute_dtype=dtype,
-        hf_internal_dropout=args.hf_internal_dropout, mesh=mesh)
-    eval_step = make_eval_step(
-        model, answer_first_token_table(train_b, train_m.classes), dtype)
+    aft = answer_first_token_table(train_b, train_m.classes)
+    if n_pipe > 1:
+        setup_pipeline(model, mesh)
+        n_micro = pick_pp_microbatches(args.batch_size, mesh)
+        print(f"GPipe over pipe:{n_pipe}, {n_micro} pipeline microbatches")
+        opt, step = make_pp_lora_train_step(model, mesh, n_micro,
+                                            compute_dtype=dtype)
+        eval_step = make_pp_eval_step(model, aft, mesh, n_micro, dtype)
+    else:
+        place_blip2(model, mesh)
+        opt, step = make_lora_train_step(
+            model, compute_dtype=dtype,
+            hf_internal_dropout=args.hf_internal_dropout, mesh=mesh)
+        eval_step = make_eval_step(model, aft, dtype)
     logger = MetricsLogger(args.name or "blip2_lora")
     # the key is carried, split once a window, so RESUME saves it
     start = VlmResume.load(args.resume_from, model.lora, opt, mesh)
     best = start.best
     key = Key(args.seed if start.key is None else start.key)
-    save = functools.partial(
-        save_train_state, model=model.lora, optimizer=opt,
-        model_name="blip2_lora", phase_name="train", scheduler=None,
-        layers=cfg.opt.layers)
+
+    def save(**kw):
+        extra = {}
+        if n_pipe > 1:
+            from ..parallel.pp import gather_pipeline_state
+
+            state, stages = gather_pipeline_state(model.lora, opt, mesh)
+            extra = {"state": state, "opt_state": {"stages": stages},
+                     "extra_meta": {"pipe": n_pipe}}
+        save_train_state(model=model.lora, optimizer=opt,
+                         model_name="blip2_lora", phase_name="train",
+                         scheduler=None, layers=cfg.opt.layers, **extra, **kw)
+
     try:
         for epoch in range(start.epoch, args.epochs):
             t0 = time.time()
@@ -204,8 +297,14 @@ def main(argv=None):
             print(f"epoch {epoch}: loss={np.mean(losses):.4f} "
                   f"val_acc={val_acc:.2f}")
             if val_acc > best.best_val_acc:
+                if n_pipe > 1:
+                    from ..parallel.pp import gather_pipeline_lora
+
+                    adapters = gather_pipeline_lora(model.lora, mesh)
+                else:
+                    adapters = model.lora
                 best = PhaseResult(val_acc, epoch, save_best(
-                    model.lora, model_name="blip2_lora", epoch=epoch,
+                    adapters, model_name="blip2_lora", epoch=epoch,
                     val_acc=val_acc, args=args, fine_tuning=False,
                     layers=cfg.opt.layers))
             save(key=key, epoch=epoch, best=best)

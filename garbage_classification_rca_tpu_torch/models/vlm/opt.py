@@ -54,6 +54,11 @@ and, under autograd, Megatron's *f* on the inputs of q / k / v and fc1.
 The KV caches hold the local heads: [layers, B, T, hidden / M]
 (``kv_width``). The hidden state between the layers is whole on every
 rank.
+
+Pipeline parallelism (``parallel/pp.py``): a stage's decoder holds its
+contiguous run of layers in a ``StageLayers``, keyed by their global
+index; the stage runs them through ``_layer``, ``layer_prefill`` and
+``cache_layer``, the bodies the whole decoder runs.
 """
 
 from __future__ import annotations
@@ -119,6 +124,17 @@ class OPTDecoder(nn.Module):
                                               cfg.hidden)
         self.final_ln = core.LayerNorm(cfg.hidden, cfg.ln_eps)
         self.layers = nn.ModuleList(OPTLayer(cfg) for _ in range(cfg.layers))
+
+
+class StageLayers(nn.ModuleDict):
+    """A pipeline stage's decoder layers (``parallel/pp.py``): a contiguous
+    run of the whole decoder's, keyed by their global index, so that the
+    state dict names them as the whole decoder's does. The whole-decoder
+    functions walk ``enumerate(model.layers)``; a stage refuses the walk."""
+
+    def __iter__(self):
+        raise TypeError("a pipeline stage holds its own layers only: run it "
+                        "through parallel/pp.py")
 
 
 class LoraPair(nn.Module):
@@ -309,24 +325,37 @@ def prefill(model: OPTDecoder, inputs_embeds, attention_mask,
     cfg = model.cfg
     h, mask = prompt_prologue(model, inputs_embeds, attention_mask)
     b, l, _ = h.shape
-    shape = (len(model.layers), b, l + max_new_tokens, kv_width(model))
-    q8 = cache_dtype == "int8"
-    caches = {n: torch.zeros(shape, dtype=torch.int8 if q8 else h.dtype,
-                             device=h.device) for n in ("k", "v")}
-    if q8:
-        for n in ("k_scale", "v_scale"):
-            caches[n] = torch.ones(shape[:-1] + (1,), dtype=torch.float32,
-                                   device=h.device)
+    caches = new_caches((len(model.layers), b, l + max_new_tokens,
+                         kv_width(model)), h.dtype, h.device, cache_dtype)
     for i, lp in enumerate(model.layers):
         h, k, v = layer_prefill(lp, h, mask, cfg, _layer_lora(lora, i),
                                 lora_scale)
-        for n, x in (("k", k), ("v", v)):
-            if q8:
-                caches[n][i, :, :l], caches[n + "_scale"][i, :, :l] = \
-                    quant.quantize_rows(x)
-            else:
-                caches[n][i, :, :l] = x
+        fill_prompt(caches, i, k, v)
     return model.final_ln(h), caches
+
+
+def new_caches(shape, dtype, device, cache_dtype: Optional[str] = None):
+    """Zero K / V caches of `shape` (layers first, the width last) in
+    `dtype`, or int8 with fp32 "k_scale" / "v_scale" (scale 1)."""
+    q8 = cache_dtype == "int8"
+    caches = {n: torch.zeros(shape, dtype=torch.int8 if q8 else dtype,
+                             device=device) for n in ("k", "v")}
+    if q8:
+        for n in ("k_scale", "v_scale"):
+            caches[n] = torch.ones(tuple(shape[:-1]) + (1,),
+                                   dtype=torch.float32, device=device)
+    return caches
+
+
+def fill_prompt(caches, i: int, k, v) -> None:
+    """Layer i's prompt K / V [B, L, H] into the cache slots [0, L)."""
+    l = k.shape[1]
+    for n, x in (("k", k), ("v", v)):
+        if n + "_scale" in caches:
+            caches[n][i, :, :l], caches[n + "_scale"][i, :, :l] = \
+                quant.quantize_rows(x)
+        else:
+            caches[n][i, :, :l] = x
 
 
 def _write(caches, i: int, name: str, rows, slots, x):
@@ -360,14 +389,22 @@ def _chunk_layers(model: OPTDecoder, caches, h, rows, slots, bias, lora,
                   lora_scale: float):
     """The decoder over h [B, C, H] whose K / V land at (rows, slots)
     [B, C]; the residual MLP after each layer's cache attention."""
-    cfg = model.cfg
     for i, lp in enumerate(model.layers):
-        q, k, v = _qkv(lp, lp.ln1(h), _layer_lora(lora, i), lora_scale)
-        kd = _write(caches, i, "k", rows, slots, k)
-        vd = _write(caches, i, "v", rows, slots, v)
-        h = h + _row(lp, lp.out, _attend(q, kd, vd, bias, _heads(lp, cfg)))
-        h = h + _mlp(lp, h)
+        h = cache_layer(lp, model.cfg, caches, i, h, rows, slots, bias,
+                        _layer_lora(lora, i), lora_scale)
     return model.final_ln(h), caches
+
+
+def cache_layer(p: OPTLayer, cfg: OPTConfig, caches, i: int, h, rows, slots,
+                bias, lora, lora_scale: float):
+    """One decoder layer over h [B, C, H] at the cache's layer i: its K / V
+    written at (rows, slots), the attention over the cache, the residual
+    MLP."""
+    q, k, v = _qkv(p, p.ln1(h), lora, lora_scale)
+    kd = _write(caches, i, "k", rows, slots, k)
+    vd = _write(caches, i, "v", rows, slots, v)
+    h = h + _row(p, p.out, _attend(q, kd, vd, bias, _heads(p, cfg)))
+    return h + _mlp(p, h)
 
 
 def _positions(model: OPTDecoder, positions: torch.Tensor) -> torch.Tensor:

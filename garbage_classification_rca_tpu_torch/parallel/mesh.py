@@ -4,14 +4,15 @@
 JAX drives N chips from one process over a ``Mesh`` of named axes; the
 port runs one process per GPU, so the mesh is laid over the ranks of the
 process group and a ``DataMesh`` is one rank's view of it: its rank, the
-world size, its device, the named axes (``data``, ``model``, ``seq``) in
-spec order, and for each axis of more than one rank the process group of
-the ranks that differ from it only along that axis. Rank order is JAX's
-``np.reshape`` of the devices in spec order: at ``data:D,model:M`` a rank
-is ``d * M + m``. ``local_rows(global_b)`` gives the rows of a global
-batch the rank holds, a contiguous ascending block along the data axis
-only (JAX's ``P("data")``); the ranks of one model or seq group hold the
-same rows. The batch-size arithmetic (``mesh_for_batch``'s divisor rule,
+world size, its device, the named axes (``data``, ``model``, ``seq``,
+``pipe``) in spec order, and for each axis of more than one rank the
+process group of the ranks that differ from it only along that axis. Rank
+order is JAX's ``np.reshape`` of the devices in spec order: at
+``data:D,model:M`` a rank is ``d * M + m``, at ``data:D,pipe:S`` ``d * S +
+s``. ``local_rows(global_b)`` gives the rows of a global batch the rank
+holds, a contiguous ascending block along the data axis only (JAX's
+``P("data")``); the ranks of one model, seq or pipe group hold the same
+rows. The batch-size arithmetic (``mesh_for_batch``'s divisor rule,
 ``round_up_batch``, ``clamp_eval_batch``, ``pad_batch_to_multiple``) is
 the JAX package's, on the data-axis size instead of a ``Mesh``.
 """
@@ -27,6 +28,7 @@ import torch
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
 
 
 def parse_mesh_shape(spec: str, n_devices: int) -> Dict[str, int]:
@@ -112,10 +114,15 @@ class DataMesh:
     def root(self, axis: str) -> int:
         """The global rank of this rank's group member at index 0 along
         `axis` (the source of a broadcast over the axis)."""
+        return self.peer(axis, 0)
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank of this rank's group member at `index` along
+        `axis` (taken modulo the axis size: a ring's neighbours)."""
         stride = 1
         for name, n in reversed(list(self.shape.items())):
             if name == axis:
-                return self.rank - self.coord(axis) * stride
+                return self.rank + (index % n - self.coord(axis)) * stride
             stride *= n
         return self.rank
 

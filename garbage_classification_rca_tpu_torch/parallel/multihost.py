@@ -29,6 +29,15 @@
     gloo a CUDA tensor goes through host memory and an all-gather is an
     all-reduce of a zero buffer that holds the rank's block; NCCL gathers
     with ``all_gather_into_tensor``.
+  * ``ring_step`` / ``wait_all``: the point-to-point step of a ring over
+    one axis (a pipeline's stages): a tensor to the member `shift` places
+    on and one from the member `shift` places back, posted together
+    (``batch_isend_irecv``: NCCL runs a pair's sends and receives in
+    order, so two stages that send each other first would wait on each
+    other), host-staged under gloo, which sends CPU tensors only;
+    ``broadcast_from_`` sends one member's tensor (the last stage's) to
+    its group, ``gather_objects`` every member's picklable object (a
+    stage's adapters and optimizer state, for the checkpoints).
   * ``launch``: spawns N ranks of a command on this host with a
     ``file://`` rendezvous in a temporary directory (the tests, and
     ``chip_smoke.py``'s two ranks on one card); any rank's failure kills
@@ -279,6 +288,85 @@ def broadcast_(t: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
     else:
         dist.broadcast(t, src, group=group)
     return t
+
+
+def broadcast_from_(t: torch.Tensor, mesh: DataMesh, axis: str,
+                    index: int = -1) -> torch.Tensor:
+    """`t` from the member at `index` along `axis` (-1: the last) to
+    every rank of the axis's group, in place."""
+    if mesh.size(axis) > 1:
+        broadcast_(t, group=mesh.group(axis), src=mesh.peer(axis, index))
+    return t
+
+
+def gather_objects(obj, mesh: DataMesh, axis: str) -> list:
+    """Every member's `obj` along `axis`, in axis order (pickled: CPU
+    tensors, dicts)."""
+    import torch.distributed as dist
+
+    if mesh.size(axis) == 1:
+        return [obj]
+    out = [None] * mesh.size(axis)
+    dist.all_gather_object(out, obj, group=mesh.group(axis))
+    return out
+
+
+def ring_step(mesh: DataMesh, axis: str, send: Optional[torch.Tensor] = None,
+              recv_like=None, *, shift: int = 1,
+              pending: Optional[list] = None) -> Optional[torch.Tensor]:
+    """One step of the ring along `axis`: `send` to the member `shift`
+    places on, and a tensor shaped like `recv_like` (a tensor, or (shape,
+    dtype, device)) from the member `shift` places back, the two posted
+    in one ``batch_isend_irecv``. Each pair of ranks must post its sends
+    and receives in the same order on both (NCCL runs a pair's ops in
+    order), and a send and a receive that cross (a ring of two) go in one
+    step. Under gloo a CUDA tensor is
+    staged through host memory both ways. Waits for the receive; a step
+    that only sends leaves its send in flight in `pending` (the work and
+    its buffer: ``wait_all``) when a list is given. On an axis of one
+    rank the tensor sent is the one received. Returns the received
+    tensor on `recv_like`'s device, or None."""
+    import torch.distributed as dist
+
+    if recv_like is not None and not isinstance(recv_like, torch.Tensor):
+        shape, dtype, device = recv_like
+    elif recv_like is not None:
+        shape, dtype, device = recv_like.shape, recv_like.dtype, \
+            recv_like.device
+    n, i, group = _axis(mesh, axis)
+    if n == 1:
+        return None if recv_like is None else send.detach().clone()
+    host = _via_host(group)
+    ops, keep, buf = [], [], None
+    if send is not None:
+        t = send.detach().contiguous()
+        t = t.cpu() if host and t.is_cuda else t
+        keep.append(t)
+        ops.append(dist.P2POp(dist.isend, t, mesh.peer(axis, i + shift),
+                              group))
+    if recv_like is not None:
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if host else device)
+        ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis, i - shift),
+                              group))
+    if not ops:
+        return None
+    works = dist.batch_isend_irecv(ops)
+    if buf is None and pending is not None:
+        pending.append((works, keep))
+        return None
+    for w in works:
+        w.wait()
+    return None if buf is None else buf.to(device)
+
+
+def wait_all(pending: list) -> None:
+    """Wait for the sends ``ring_step`` left in flight, then forget
+    them."""
+    for works, _ in pending:
+        for w in works:
+            w.wait()
+    pending.clear()
 
 
 def barrier() -> None:

@@ -202,7 +202,8 @@ def save_train_state(*, model: torch.nn.Module,
                      scheduler: Optional[PlateauScheduler],
                      best: PhaseResult, step: int = 0, losses=None,
                      grad_norms=None, param_norm=None,
-                     layers: Optional[int] = None) -> str:
+                     layers: Optional[int] = None, state=None,
+                     opt_state=None, extra_meta=None) -> str:
     """The full training state in ``model_weights/<model>/RESUME``, one
     ``torch.save`` file: the model's state dict (BatchNorm buffers
     included) and the optimizer's, both on the CPU, and meta: the plateau
@@ -214,12 +215,16 @@ def save_train_state(*, model: torch.nn.Module,
     is written to ``RESUME.tmp`` and swapped in; the one it replaces waits
     as ``RESUME.prev`` until then, so a kill at any point leaves one
     whole file. Every rank calls it; rank 0 writes (meta ``world``: the
-    run's world size) and gets the path, the others None."""
+    run's world size) and gets the path, the others None. `state` /
+    `opt_state`: what to save instead of the model's and the optimizer's
+    (a pipeline's stages gathered, ``parallel/pp.gather_pipeline_state``),
+    with `extra_meta` beside the meta."""
     import torch.distributed as dist
 
     primary = is_primary()
-    state = full_state_dict(model, primary)
-    opt_state = full_optimizer_state(optimizer, primary)
+    if state is None:
+        state = full_state_dict(model, primary)
+        opt_state = full_optimizer_state(optimizer, primary)
     if not primary:
         barrier()
         return None
@@ -233,7 +238,8 @@ def save_train_state(*, model: torch.nn.Module,
             "best_epoch": best.best_epoch,
             "best_path": best.best_path or "",
             "layers": model_depth(model) if layers is None else layers,
-            "world": dist.get_world_size() if dist.is_initialized() else 1}
+            "world": dist.get_world_size() if dist.is_initialized() else 1,
+            **(extra_meta or {})}
     if step:
         meta["losses"] = [float(l) for l in losses or ()]
         meta["grad_norms"] = [float(g) for g in grad_norms or ()]

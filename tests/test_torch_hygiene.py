@@ -75,7 +75,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "cli.serve", "checkpoint.hf_dir", "data.chat_template",
                 "data.tokenizer", "models.text.llama", "parallel.mesh",
                 "parallel.multihost", "parallel.fsdp", "parallel.tp",
-                "parallel.sp"):
+                "parallel.sp", "parallel.pp"):
         assert f"'{pkg}{mod}'" in names, mod
 
 
@@ -89,7 +89,7 @@ def test_parallel_package_imports_neither_jax_nor_the_jax_package():
                     "parallel").glob("*.py"))
     assert {f.name for f in files} >= {"__init__.py", "mesh.py",
                                        "multihost.py", "fsdp.py", "tp.py",
-                                       "sp.py"}
+                                       "sp.py", "pp.py"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names]
@@ -105,13 +105,15 @@ def test_parallel_package_imports_neither_jax_nor_the_jax_package():
 def test_mesh_axis_names_are_the_jax_ones():
     """The port's own copies of the JAX package's axis names."""
     from garbage_classification_rca_tpu.parallel import mesh as jmesh
+    from garbage_classification_rca_tpu.parallel import pp as jpp
     from garbage_classification_rca_tpu.parallel import sp as jsp
     from garbage_classification_rca_tpu_torch.parallel import mesh as tmesh
     from garbage_classification_rca_tpu_torch.parallel import sp as tsp
     from garbage_classification_rca_tpu_torch.parallel import tp as ttp
 
-    assert (tmesh.DATA_AXIS, tmesh.MODEL_AXIS, tmesh.SEQ_AXIS) == (
-        jmesh.DATA_AXIS, jmesh.MODEL_AXIS, jsp.SEQ_AXIS)
+    assert (tmesh.DATA_AXIS, tmesh.MODEL_AXIS, tmesh.SEQ_AXIS,
+            tmesh.PIPE_AXIS) == (jmesh.DATA_AXIS, jmesh.MODEL_AXIS,
+                                 jsp.SEQ_AXIS, jpp.PIPE_AXIS)
     assert ttp.MODEL_AXIS == jmesh.MODEL_AXIS
     assert tsp.SEQ_AXIS == jsp.SEQ_AXIS
 

@@ -15,8 +15,9 @@ same flags:
     ``model:2``: the logged loss within 1e-5;
   * ``cli.test_text --text_model=distilbert --mesh_shape=seq:2``: the CSV
     byte-identical;
-  * every rank gets the whole result; the pipe and expert axes still
-    raise, naming ROADMAP item 7, and ``cli.serve`` refuses a data axis.
+  * every rank gets the whole result; the expert axis, and the pipe axis
+    outside ``cli.blip2_train`` / ``cli.blip2_test``, still raise, naming
+    ROADMAP item 7, and ``cli.serve`` refuses a data axis.
 
 One ``multihost.launch`` runs every two-rank CLI.
 """
@@ -333,7 +334,7 @@ def test_serve_refuses_a_data_axis(runs):
 
 
 @pytest.mark.parametrize("cli,mesh", [
-    ("blip2_test", "data:1,pipe:2"), ("qformer_test", "model:1,pipe:2"),
+    ("blip2_test", "data:1,expert:2"), ("qformer_test", "model:1,pipe:2"),
     ("blip2_train", "data:1,expert:2"), ("qformer_train", "pipe:2"),
     ("serve", "expert:2"), ("test_text", "seq:1,pipe:2"),
     ("test_image", "model:2"), ("main_text", "seq:2")])

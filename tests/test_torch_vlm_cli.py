@@ -193,18 +193,18 @@ def _port(cli):
     ("--int8_weights", "item 6"),
     ("--kv_cache_dtype=int8", "item 6"),
     ("--mesh_shape=data:2", "torchrun --nproc_per_node=2"),
-    ("--mesh_shape=data:1,pipe:2", "item 7"),
+    ("--mesh_shape=data:1,expert:2", "item 7"),
 ])
 def test_blip2_test_refuses_unported_flags(flag, match, tiny_dataset):
-    """The pipe and model axes raise (item 7). The serving flags (item 6)
-    run since the generate path was ported
-    (``tests/test_torch_serve_cli.py`` drives them); beside a pipe mesh,
-    the JAX CLI's ``pp_generate``, they raise as item 7. The data axis
-    runs (``tests/test_torch_multihost.py``): data:N outside an N-rank
-    world exits naming the launcher."""
+    """The expert axis raises (item 7). The serving flags (item 6) run
+    since the generate path was ported (``tests/test_torch_serve_cli.py``
+    drives them), and so does the pipe axis
+    (``tests/test_torch_pp_cli.py``); beside an expert mesh they raise as
+    item 7. The data axis runs (``tests/test_torch_multihost.py``): data:N
+    outside an N-rank world exits naming the launcher."""
     argv = [f"--dataset_folder_name={tiny_dataset}", flag]
     if match == "item 6":
-        argv.append("--mesh_shape=data:1,pipe:2")
+        argv.append("--mesh_shape=data:1,expert:2")
         match = "item 7"
     exc = SystemExit if match.startswith("torchrun") else NotImplementedError
     with pytest.raises(exc, match=match):
@@ -219,9 +219,9 @@ def test_vlm_clis_refuse_orbax_dirs_multihost_and_training(
             _port(cli)(base + [f"--model_path={tmp_path}"])
     with pytest.raises(SystemExit, match="orbax"):
         _port("qformer_test")(base + [f"--classifier_weights={tmp_path}"])
-    for cli in ("blip2_train", "qformer_train"):
+    for cli, axis in (("blip2_train", "expert"), ("qformer_train", "pipe")):
         with pytest.raises(NotImplementedError, match="mesh_shape"):
-            _port(cli)(base + ["--mesh_shape=data:1,pipe:2"])
+            _port(cli)(base + [f"--mesh_shape=data:1,{axis}:2"])
     # multi-host runs: the JAX package's variables, all of them
     monkeypatch.setenv("GC_RCA_MULTIHOST", "1")
     for cli in ("qformer_test", "blip2_train", "qformer_train"):
